@@ -1,72 +1,127 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's CTC serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's CTC serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --profile-out DIR   # also write the step's profile table
 
 Phases; any failure exits non-zero and prints no result line:
 
 1. refuse to run without CUDA;
 2. build the CUDA kernels from ``tensorflow_end2end_speech_recognition_tpu_torch/
-   csrc`` with nvcc for sm_90a (timed as set-up);
-3. hold the ``lstm_bidi`` kernel against its plain PyTorch version at the
-   encoder's shape, B=8, T=400, D=360 -> H=512, with ragged lengths that
-   include 1 and T; time both with CUDA events (plain, kernel, kernel, plain);
-4. build the ``configs/ls100_ctc.yml`` model at full width in code (40 mel +
+   csrc`` with nvcc for sm_90a (one nvcc per source, in parallel; set-up);
+3. serving kernel: ``lstm_bidi`` forward against its plain PyTorch version at
+   the encoder's serving shape, B=8, T=400, D=360 -> H=512, ragged lengths
+   that include 1 and T;
+4. training kernels at the ls100_ctc train step's shapes (B=32, T=400,
+   H=512; C=29, U=40), each against its plain version on the same inputs:
+   the forward with its cell-state stream ``cs``, the backward
+   (``lstm_bidi_bwd``), the fused CTC loss + gradient and the loss-only CTC;
+5. build the ``configs/ls100_ctc.yml`` model at full width in code (40 mel +
    deltas = 120 dims, 3/3 stacking -> 360, 5 x BLSTM-512, 28 + 1 character
-   classes) with seeded uniform +-0.1 weights, and check its logits and ids
-   on the card against the same model on the CPU (plain path) on a short input;
-5. time the path's phases on 8 x 12 s waveforms;
-6. serve 8 concurrent ``/recognize`` requests (12 s and shorter, seeded)
-   through ``bin/serve.make_server`` and check every response, with the
-   kernel's launch count reset just before and read just after.
+   classes) with seeded uniform +-0.1 weights; check its logits and ids on
+   the card against the CPU (plain path) on 2 x 1 s;
+6. one full-width train step, dropout off, card against CPU: loss, every
+   gradient, the weights after one SGD step, and the ids decoded after it;
+7. time the serving phases on 8 x 12 s and serve 8 concurrent
+   ``/recognize`` requests through ``bin/serve.make_server`` (the serving
+   path; launch counts reset just before and read just after);
+8. time train steps at B=32 x 12 s (dropout 0.8, Adam): ms per step,
+   utterances/s, peak memory, kernel launches per step (exactly 5 forward,
+   5 backward, 1 CTC), and a profile of one step's device time by kernel;
+9. ``train/loop.fit`` on the ls100_ctc config for one epoch of the toy corpus
+   (the training path; launch counts reset just before and read just
+   after): finite losses, no skipped step, the dev eval on the loss-only
+   kernel, checkpoints and summary written.
 
-Prints a JSON line of the kernels, the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``. Imports no JAX.
+Each kernel is timed with CUDA events in the order plain, kernel, kernel,
+plain, beside one PyTorch call that computes the same function where there
+is one (cuDNN ``nn.LSTM``; ``F.log_softmax`` + ``F.ctc_loss``), which the
+port never calls. Prints a JSON line of the kernels, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import http.client
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
 from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_server
+from tensorflow_end2end_speech_recognition_tpu_torch.data.tokenizers import CHAR_UNITS
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
     ctc_greedy_decode,
 )
-from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn
-from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig
-from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
-from tensorflow_end2end_speech_recognition_tpu_torch.ops import build, lstm
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import build, ctc, lstm
 from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import (
-    CTCTaskConfig,
     device_pipeline,
+    forward_loss,
     init_model,
+    init_params,
+    make_eval_step,
+    make_train_step,
 )
-from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import CHAR_UNITS
+from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import fit
+from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import build_optimizer
+from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import experiment_from_dict
 
 SR = 16000
-B, T_ENC, D_IN, H, LAYERS = 8, 400, 360, 512, 5
-# float32; the kernel and cuBLAS sum each 512-long dot product in different
-# orders, and the difference is carried through 400 recurrent steps
+B, T_ENC, D_IN, H, LAYERS = 8, 400, 360, 512, 5  # serving batch
+B_TRAIN, C, U = 32, len(CHAR_UNITS) + 1, 40  # training batch, classes, labels
+# float32 tolerances. The kernels and cuBLAS sum each 512-long dot product in
+# different orders, and the difference is carried through 400 recurrent steps
 KERNEL_ATOL = 1e-4
-# logits after the frontend, 5 BLSTM-512 layers and the head, card vs CPU
-MODEL_ATOL = 1e-3
+BWD_ATOL = 1e-4  # dxproj: the same, through the reverse walk
+CTC_LOSS_RTOL = 1e-5  # losses of about 1e3, a sum of 400 log terms
+CTC_GRAD_ATOL = 1e-5  # gradients are probabilities in [-1, 1]
+MODEL_ATOL = 1e-3  # logits after the frontend, 5 BLSTM-512 layers and the head
+LOSS_RTOL = 1e-4  # full-width train step, card vs CPU
+GRAD_RTOL = 1e-3  # each gradient within 1e-3 of its largest entry
 REQUEST_SECONDS = (12.0, 12.0, 10.5, 9.0, 7.0, 5.0, 3.0, 1.0)
-KERNEL = {
-    "name": "lstm_bidi_fwd",
-    "route": "cuda",
-    "source": "tensorflow_end2end_speech_recognition_tpu_torch/csrc/lstm_bidi_fwd.cu",
-    "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/lstm_kernel.py:372",
+TIMED_STEPS = 5
+# H100 SXM peak rates: float32 outside the tensor cores, HBM
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+F32 = 4
+PKG = "tensorflow_end2end_speech_recognition_tpu_torch"
+KERNELS = {
+    "lstm_bidi_fwd": {"source": f"{PKG}/csrc/lstm_bidi_fwd.cu",
+                      "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                  "lstm_kernel.py:372"},
+    "lstm_bidi_bwd": {"source": f"{PKG}/csrc/lstm_bidi_bwd.cu",
+                      "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                  "lstm_kernel.py:414"},
+    "ctc_loss": {"source": f"{PKG}/csrc/ctc_loss.cu",
+                 "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                             "ctc_kernel.py:62"},
+    "ctc_loss_fwd_only": {"source": f"{PKG}/csrc/ctc_loss.cu",
+                          "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                      "ctc_kernel.py:281"},
+}
+COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd,
+            "ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only}
+# configs/ls100_ctc.yml as a dict (the card machine may have no yaml)
+LS100_CTC = {
+    "model_type": "ctc", "corpus": "toy", "label_type": "character",
+    "train_data_size": "train100h", "input_size": 40, "use_energy": False,
+    "use_delta": True, "num_stack": 3, "num_skip": 3, "encoder_type": "blstm",
+    "num_units": 512, "num_layers": 5, "dropout": 0.8, "batch_size": 32, "num_epoch": 20,
+    "optimizer": "adam", "learning_rate": 1.0e-3, "decay_start_epoch": 5, "decay_rate": 0.9,
+    "decay_patient_epoch": 1, "clip_grad_norm": 5.0, "weight_decay": 1.0e-8,
+    "sort_utt": True, "sort_stop_epoch": 5, "beam_width": 20, "toy_num_utts": 256,
 }
 
 
@@ -80,6 +135,7 @@ def gpu_name_and_power() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back runs, CUDA events."""
+    fn()  # warm: caches, allocator
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -100,48 +156,219 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def check_kernel(dev) -> dict:
-    """Kernel vs plain version on the same inputs at the encoder's first-layer shape."""
-    g = torch.Generator().manual_seed(0)
-    xs = torch.randn(B, T_ENC, D_IN, generator=g).to(dev)
+def plain_kernel_ms(plain, kernel, reps_plain: int, reps_kernel: int) -> dict:
+    """Times in the order plain, kernel, kernel, plain."""
+    p = [cuda_ms(plain, reps_plain)]
+    k = [cuda_ms(kernel, reps_kernel) for _ in range(2)]
+    p.append(cuda_ms(plain, reps_plain))
+    return {"ms": sum(k) / 2, "plain_ms": sum(p) / 2, "ms_runs": k, "plain_ms_runs": p}
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time for the work: bytes over HBM rate vs float32 ops over peak."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"}
+
+
+def check(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
+    """Max abs error of ``got`` against ``want``; raise beyond atol + rtol * |want|."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{name}: output {tuple(g.shape)} is misshapen or not finite")
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= atol + rtol * w.abs()).all())
+    print(f"{name}: max abs err {err:.3e} (tolerance atol {atol:g} rtol {rtol:g})", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain version: {err}")
+    return err
+
+
+def lstm_inputs(dev, b: int, lengths, seed: int):
+    """The projections ``BiLSTM.forward`` hands the kernel, for a first layer."""
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(b, T_ENC, D_IN, generator=g).to(dev)
     layer = rnn.BiLSTM(D_IN, H, generator=g).to(dev)
-    lengths = torch.tensor([T_ENC, 1, 399, 250, 128, 7, 333, T_ENC], device=dev)
-    with torch.inference_mode():
-        # the projections BiLSTM.forward hands the kernel
+    lengths = torch.tensor(lengths, device=dev)
+    with torch.no_grad():
         xproj_f = torch.matmul(xs, layer.fwd.wx) + layer.fwd.b
         xproj_b = rnn.flip_valid(torch.matmul(xs, layer.bwd.wx) + layer.bwd.b, lengths)
-        mask = (torch.arange(T_ENC, device=dev)[None] < lengths[:, None]).float()
-        args = (xproj_f, xproj_b, layer.fwd.wh, layer.bwd.wh, mask, layer.forget_bias)
+    mask = (torch.arange(T_ENC, device=dev)[None] < lengths[:, None]).float()
+    return (xproj_f, xproj_b, layer.fwd.wh.detach(), layer.bwd.wh.detach(), mask,
+            layer.forget_bias), xs, lengths
+
+
+def cudnn_lstm(dev, xs, lengths, seed: int):
+    """cuDNN bidirectional ``nn.LSTM`` on a packed sequence: forward, backward calls."""
+    torch.manual_seed(seed)
+    net = torch.nn.LSTM(D_IN, H, batch_first=True, bidirectional=True).to(dev)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        xs.requires_grad_(True), lengths.cpu(), batch_first=True, enforce_sorted=False)
+    out = net(packed)[0]
+    grad = torch.randn_like(out.data)
+    leaves = [xs, *net.parameters()]
+
+    def forward():
+        with torch.no_grad():
+            net(packed)
+
+    def backward():
+        torch.autograd.grad(out.data, leaves, grad, retain_graph=True)
+
+    return forward, backward
+
+
+def lstm_work(lengths, h: int, with_cs: bool, backward: bool) -> dict:
+    """Bytes each input read once / output written once, and float32 operations
+    of the valid steps (a masked step needs no work), for one layer's call."""
+    b, valid = len(lengths), float(sum(lengths))
+    stream = b * T_ENC * h * F32  # one [B, T, H] tensor
+    weights = 2 * h * 4 * h * F32
+    if backward:  # xproj x2, wh x2, mask, ys/cs/gys x2 in; dxproj x2 out
+        moved = 2 * 4 * stream + weights + b * T_ENC * F32 + 6 * stream + 2 * 4 * stream
+        ops = 2 * valid * (2 * 2 * h * 4 * h + 60 * h)  # gates and dh products, gate math
+    else:  # xproj x2, wh x2, mask in; ys (and cs) x2 out
+        moved = 2 * 4 * stream + weights + b * T_ENC * F32 + (4 if with_cs else 2) * stream
+        ops = 2 * valid * (2 * h * 4 * h + 30 * h)
+    return bound(moved, ops)
+
+
+def check_serving_kernel(dev, gpu: str) -> None:
+    """Kernel #1 without ``cs`` at the serving shape; its bound and cuDNN's time."""
+    lengths = [T_ENC, 1, 399, 250, 128, 7, 333, T_ENC]
+    args, xs, lens = lstm_inputs(dev, B, lengths, seed=0)
+    with torch.no_grad():
         got = lstm.lstm_bidi(*args)
-        want = lstm.lstm_bidi_plain(*args)
+        want = lstm.lstm_bidi_fwd_plain(*args)[:2]
         torch.cuda.synchronize()
-        for t in got:
-            if t.shape != (B, T_ENC, H) or not bool(torch.isfinite(t).all()):
-                raise RuntimeError(f"kernel output {tuple(t.shape)} is misshapen or not finite")
-        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        print(f"kernel vs plain at B={B} T={T_ENC} D={D_IN} H={H}: max abs err {err:.3e} "
-              f"(f32 tolerance {KERNEL_ATOL:g})", flush=True)
-        if not err <= KERNEL_ATOL:
-            raise RuntimeError(f"lstm_bidi kernel disagrees with the plain version: {err}")
-        plain = [cuda_ms(lambda: lstm.lstm_bidi_plain(*args), 2)]
-        kernel = [cuda_ms(lambda: lstm.lstm_bidi(*args), 20) for _ in range(2)]
-        plain.append(cuda_ms(lambda: lstm.lstm_bidi_plain(*args), 2))
-    return {"max_abs_err": err, "ms": sum(kernel) / 2, "plain_ms": sum(plain) / 2,
-            "ms_runs": kernel, "plain_ms_runs": plain}
+        err = check(f"lstm_bidi_fwd (serving) B={B} T={T_ENC} H={H}", got, want, KERNEL_ATOL)
+        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), lambda: lstm.lstm_bidi(*args),
+                            2, 20)
+    lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=0)
+    lib = cuda_ms(lib_fwd, 10)
+    bd = lstm_work(lengths, H, with_cs=False, backward=False)
+    print(f"phase lstm_bidi_fwd serving B={B} T={T_ENC} H={H}: kernel {t['ms']:.3f} ms (runs "
+          f"{t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain {t['plain_ms']:.3f} ms (runs "
+          f"{t['plain_ms_runs'][0]:.3f}, {t['plain_ms_runs'][1]:.3f}), bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), cuDNN nn.LSTM forward {lib:.3f} ms, "
+          f"max abs err {err:.3e}  [{gpu}]", flush=True)
+
+
+def check_training_lstm(dev, gpu: str) -> dict:
+    """Kernels #1 (with ``cs``) and #2 at the train step's shape."""
+    rng = np.random.RandomState(4)
+    lengths = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
+    args, xs, lens = lstm_inputs(dev, B_TRAIN, lengths, seed=1)
+    gys = [torch.from_numpy(rng.randn(B_TRAIN, T_ENC, H).astype(np.float32)).to(dev)
+           for _ in range(2)]
+    fwd_k = lambda: lstm.lstm_bidi_fwd(*args, with_cs=True)  # noqa: E731
+    with torch.no_grad():
+        got = fwd_k()
+        want = lstm.lstm_bidi_fwd_plain(*args)
+        torch.cuda.synchronize()
+        fwd_err = check(f"lstm_bidi_fwd with cs B={B_TRAIN} T={T_ENC} H={H}", got, want,
+                        KERNEL_ATOL)
+        bwd_args = (*args[:5], *want, *gys, args[5])
+        got = lstm.lstm_bidi_bwd(*bwd_args)
+        want_dx = lstm.lstm_bidi_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        bwd_err = check(f"lstm_bidi_bwd B={B_TRAIN} T={T_ENC} H={H}", got, want_dx, BWD_ATOL)
+        tf = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), fwd_k, 1, 10)
+        tb = plain_kernel_ms(lambda: lstm.lstm_bidi_bwd_plain(*bwd_args),
+                             lambda: lstm.lstm_bidi_bwd(*bwd_args), 1, 10)
+    lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=1)
+    lf, lb = cuda_ms(lib_fwd, 10), cuda_ms(lib_bwd, 10)
+    out = {
+        "lstm_bidi_fwd": dict(tf, max_abs_err=fwd_err, library_ms=lf,
+                              **lstm_work(lengths, H, with_cs=True, backward=False)),
+        "lstm_bidi_bwd": dict(tb, max_abs_err=bwd_err, library_ms=lb,
+                              **lstm_work(lengths, H, with_cs=True, backward=True)),
+    }
+    for name, r in out.items():
+        print(f"phase {name} train B={B_TRAIN} T={T_ENC} H={H}: kernel {r['ms']:.3f} ms (runs "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
+              f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM "
+              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms  [{gpu}]",
+              flush=True)
+    return out
+
+
+def ctc_inputs(dev, seed: int):
+    """B=32, T=400, C=29, U=40, ragged logit and label lengths (all alignable)."""
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(B_TRAIN, T_ENC, C) * 3).astype(np.float32)).to(dev)
+    label_len = rng.randint(1, U + 1, B_TRAIN).astype(np.int32)
+    label_len[0] = U
+    labels = np.full((B_TRAIN, U), -1, np.int32)
+    for i, n in enumerate(label_len):
+        labels[i, :n] = rng.randint(0, C - 1, n)
+    logit_len = rng.randint(2 * U + 1, T_ENC + 1, B_TRAIN).astype(np.int32)
+    logit_len[0] = T_ENC
+    as_t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return logits, as_t(logit_len), as_t(labels), as_t(label_len)
+
+
+def check_ctc(dev, gpu: str) -> dict:
+    """Kernels #5 and #6 against their plain versions; ``F.ctc_loss`` as yardstick."""
+    logits, logit_len, labels, label_len = args = ctc_inputs(dev, seed=5)
+    blank = C - 1
+    got = ctc.ctc_loss_fwd_bwd(*args, blank)
+    want = ctc.ctc_loss_plain(*args, blank)
+    fwd = ctc.ctc_loss_fwd_only(*args, blank)
+    torch.cuda.synchronize()
+    loss_err = check(f"ctc_loss B={B_TRAIN} T={T_ENC} C={C} U={U}: loss", got[:1], want[:1],
+                     0.0, CTC_LOSS_RTOL)
+    grad_err = check("ctc_loss: grad", got[1:], want[1:], CTC_GRAD_ATOL)
+    fwd_err = check("ctc_loss_fwd_only: loss", [fwd], want[:1], 0.0, CTC_LOSS_RTOL)
+    tf = plain_kernel_ms(lambda: ctc.ctc_loss_plain(*args, blank),
+                         lambda: ctc.ctc_loss_fwd_bwd(*args, blank), 2, 20)
+    to = plain_kernel_ms(lambda: ctc.ctc_loss_fwd_only_plain(*args, blank),
+                         lambda: ctc.ctc_loss_fwd_only(*args, blank), 2, 20)
+    x = logits.clone().requires_grad_(True)
+    ones = torch.ones(B_TRAIN, device=dev)
+
+    def library(backward: bool):
+        with torch.set_grad_enabled(backward):
+            lp = F.log_softmax(x, dim=-1).transpose(0, 1)
+            nll = F.ctc_loss(lp, labels.long(), logit_len.long(), label_len.long(), blank=blank,
+                             reduction="none")
+            if backward:
+                torch.autograd.grad(nll, x, ones)
+        return nll
+
+    lib_fb, lib_f = cuda_ms(lambda: library(True), 20), cuda_ms(lambda: library(False), 20)
+    lib_diff = float((library(False) - want[0]).abs().max() / want[0].abs().max())
+    valid = logit_len.double()
+    lanes = 2 * label_len.double() + 1
+    logits_b = B_TRAIN * T_ENC * C * F32
+    small = (B_TRAIN * U + 3 * B_TRAIN) * F32  # labels, two lengths, loss
+    # per valid frame: log-softmax ~4 C ops; per lane ~12 ops for each of alpha,
+    # beta, gamma; gradient: C softmax terms and one posterior per lane
+    ops_fb = float((valid * (6 * C + 40 * lanes)).sum())
+    ops_f = float((valid * (4 * C + 12 * lanes)).sum())
+    out = {
+        "ctc_loss": dict(tf, max_abs_err=max(loss_err, grad_err), library_ms=lib_fb,
+                         **bound(2 * logits_b + small, ops_fb)),
+        "ctc_loss_fwd_only": dict(to, max_abs_err=fwd_err, library_ms=lib_f,
+                                  **bound(logits_b + small, ops_f)),
+    }
+    for name, r in out.items():
+        print(f"phase {name} B={B_TRAIN} T={T_ENC} C={C} U={U}: kernel {r['ms']:.3f} ms (runs "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
+              f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), F.log_softmax+F.ctc_loss "
+              f"{r['library_ms']:.3f} ms  [{gpu}]", flush=True)
+    print(f"F.ctc_loss vs the plain loss: max rel diff {lib_diff:.2e}", flush=True)
+    return out
 
 
 def ls100_ctc_task():
     """configs/ls100_ctc.yml at full width, built in code (no yaml on the card)."""
-    return CTCTaskConfig(
-        model=CTCConfig(
-            encoder=EncoderConfig(encoder_type="blstm", num_units=H, num_layers=LAYERS,
-                                  dropout_keep_prob=0.8),
-            num_classes=len(CHAR_UNITS),
-        ),
-        frontend=FrontendConfig(num_mels=40, use_energy=False, add_deltas=True),
-        num_stack=3,
-        num_skip=3,
-    )
+    exp = experiment_from_dict(LS100_CTC)
+    return exp.ctc_task(len(CHAR_UNITS))
 
 
 def check_model(task, model_cpu, model_dev, dev) -> None:
@@ -171,6 +398,58 @@ def check_model(task, model_cpu, model_dev, dev) -> None:
         raise RuntimeError("decoded ids on the card differ from the CPU")
 
 
+def train_batch(n_rows: int, seconds: float, seed: int, max_labels: int) -> dict:
+    """Seeded waveforms (the last rows shorter) and ragged character labels."""
+    rng = np.random.RandomState(seed)
+    n = int(seconds * SR)
+    wav = (rng.randn(n_rows, n) * 0.1).astype(np.float32)
+    input_len = np.full((n_rows,), n, np.int32)
+    input_len[n_rows // 2:] = rng.randint(n // 2, n + 1, n_rows - n_rows // 2)
+    for i, m in enumerate(input_len):
+        wav[i, m:] = 0.0
+    label_len = rng.randint(1, max_labels + 1, n_rows).astype(np.int32)
+    labels = np.full((n_rows, max_labels), -1, np.int32)
+    for i, m in enumerate(label_len):
+        labels[i, :m] = rng.randint(0, len(CHAR_UNITS), m)
+    return {"inputs": wav, "input_len": input_len, "labels": labels, "label_len": label_len,
+            "weight": np.ones((n_rows,), np.float32)}
+
+
+def check_train_step(task, params_cpu, dev) -> None:
+    """One full-width train step with dropout off, card against CPU."""
+    batch = train_batch(2, 1.0, seed=6, max_labels=12)
+    opt = build_optimizer("sgd", 5.0)
+    step, evaluate = make_train_step(task, opt), make_eval_step(task)
+    res = []
+    for device in (torch.device("cpu"), dev):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        params = {k: v.to(device) for k, v in params_cpu.items()}
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss, _ = forward_loss(leaves, task, tb, True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        new, _, aux = step(params, opt.init(params), tb, 0.1)
+        ids, n, _ = evaluate(new, tb)
+        res.append((float(loss.detach()), [g.cpu() for g in grads],
+                    {k: v.cpu() for k, v in new.items()}, ids.cpu(), n.cpu(),
+                    bool(aux["nonfinite"])))
+    (lc, gc, pc, ic, nc, fc), (lg, gg, pg, ig, ng, fg) = res
+    loss_err = abs(lc - lg) / abs(lc)
+    grad_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
+                   for a, b in zip(gc, gg))
+    param_err = max(float((pc[k] - pg[k]).abs().max()) for k in pc)
+    print(f"train step on the card vs the CPU, 2 x 1 s, SGD lr 0.1: loss {lg:.4f} vs {lc:.4f} "
+          f"(rel err {loss_err:.2e}, tolerance {LOSS_RTOL:g}); grads max err / max |g| "
+          f"{grad_err:.2e} (tolerance {GRAD_RTOL:g}) over {len(gc)} tensors; weights after "
+          f"the step max abs err {param_err:.3e}; ids after the step equal: "
+          f"{torch.equal(ic, ig) and torch.equal(nc, ng)}", flush=True)
+    if fc or fg or not (loss_err <= LOSS_RTOL and grad_err <= GRAD_RTOL):
+        raise RuntimeError("the train step on the card disagrees with the CPU")
+    if not param_err <= 0.1 * GRAD_RTOL * max(float(g.abs().max()) for g in gc):
+        raise RuntimeError(f"weights after the step disagree: {param_err}")
+    if not (torch.equal(ic, ig) and torch.equal(nc, ng)):
+        raise RuntimeError("ids decoded after the step differ between the card and the CPU")
+
+
 def time_phases(task, model, dev, gpu: str) -> None:
     rng = np.random.RandomState(2)
     wav = torch.from_numpy((rng.randn(B, 12 * SR) * 0.1).astype(np.float32)).to(dev)
@@ -195,9 +474,17 @@ def time_phases(task, model, dev, gpu: str) -> None:
         print(f"phase {name}: {ms:.3f} ms per batch of {B} x 12 s  [{gpu}]", flush=True)
 
 
-def serve_requests(task, model, gpu: str) -> int:
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: c.launches for k, c in COUNTERS.items()}
+
+
+def serve_requests(task, model, gpu: str) -> dict:
     """8 concurrent /recognize requests; returns the kernel launches they caused."""
-    lstm_bidi = lstm.lstm_bidi
     server = make_server(task, model, B, 12 * SR, port=0, max_wait_ms=50.0,
                          warmup=True, units=CHAR_UNITS, label_type="character")
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -216,14 +503,14 @@ def serve_requests(task, model, gpu: str) -> int:
         conn.close()
 
     try:
-        lstm_bidi.launches = 0
+        reset_counts()
         server.batcher.batches_run = 0
         threads = [threading.Thread(target=request, args=(i,)) for i in range(len(waves))]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=300)
-        launches, batches = lstm_bidi.launches, server.batcher.batches_run
+        counts, batches = read_counts(), server.batcher.batches_run
     finally:
         server.shutdown()
         server.server_close()
@@ -245,15 +532,117 @@ def serve_requests(task, model, gpu: str) -> int:
     print(f"phase request latency: {len(lat)} concurrent requests in {batches} batch(es), "
           f"p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]", flush=True)
     print(f"responses: {[json.loads(r[1])['num_ids'] for r in results]} ids", flush=True)
-    if batches < 1 or launches != LAYERS * batches:
-        raise RuntimeError(
-            f"lstm_bidi launched {launches} times for {batches} batches of a "
-            f"{LAYERS}-layer encoder; expected {LAYERS * batches}"
-        )
-    return launches
+    want = {"lstm_bidi_fwd": LAYERS * batches, "lstm_bidi_bwd": 0, "ctc_loss": 0,
+            "ctc_loss_fwd_only": 0}
+    print(f"serving path launches: {counts}", flush=True)
+    if batches < 1 or counts != want:
+        raise RuntimeError(f"serving launches {counts} for {batches} batch(es); expected {want}")
+    return counts
+
+
+def time_train_steps(task, params_cpu, dev, gpu: str, profile_out: str | None) -> None:
+    """Adam steps with dropout at B=32 x 12 s: time, rate, memory, launches, profile."""
+    batch = train_batch(B_TRAIN, 12.0, seed=7, max_labels=U)
+    batch["input_len"][:] = 12 * SR  # the 12 s bucket: every row T' = 400
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    opt = build_optimizer("adam", 5.0)
+    state = opt.init(params)
+    step = make_train_step(task, opt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params, state, aux = step(params, state, tb, 1e-3, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    params, state, aux = step(params, state, tb, 1e-3, gen)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"lstm_bidi_fwd": LAYERS, "lstm_bidi_bwd": LAYERS, "ctc_loss": 1,
+            "ctc_loss_fwd_only": 0}
+    if counts != want:
+        raise RuntimeError(f"one train step launched {counts}; expected {want}")
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        params, state, aux = step(params, state, tb, 1e-3, gen)
+        losses.append(aux["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or bool(aux["nonfinite"]):
+        raise RuntimeError(f"timed train steps gave losses {losses}")
+    print(f"phase train step B={B_TRAIN} x 12 s (T'={T_ENC}), Adam, dropout 0.8: {ms:.3f} ms "
+          f"per step, {B_TRAIN / ms * 1e3:.1f} utterances/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, launches per step {counts}, losses "
+          f"{[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, aux = step(params, state, tb, 1e-3, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only; "Command Buffer Full" is CUPTI's record of the
+    # host waiting on a full launch queue, not a kernel
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    print(f"profile of one train step: {wall:.3f} ms wall (profiled), {busy:.3f} ms of device "
+          f"kernel time ({100 * busy / wall:.1f} % busy); top kernels by device time:",
+          flush=True)
+    for key, t, n in kernels[:12]:
+        print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
+    if profile_out is None:
+        return
+    out_dir = Path(profile_out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "train_step_profile.txt").write_text(
+        prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+
+
+def train_one_epoch(gpu: str) -> dict:
+    """``fit`` on ls100_ctc for one toy epoch: the training path's launch counts."""
+    exp = experiment_from_dict(dict(LS100_CTC, num_epoch=1))
+    lines = []
+
+    def log(s):
+        lines.append(s)
+        print(s, flush=True)
+
+    with tempfile.TemporaryDirectory() as model_dir:
+        reset_counts()
+        t0 = time.perf_counter()
+        summary = fit(exp, model_dir, log_every=1, print_fn=log, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        written = {f: (Path(model_dir) / f).exists() for f in
+                   ("summary.json", "metrics.csv", "config.yml", "checkpoints/epoch_0.pt")}
+    losses = [float(s.split(" loss ")[1].split()[0]) for s in lines if " loss " in s]
+    print(f"phase fit ls100_ctc 1 toy epoch: {wall:.1f} s wall (model init and data "
+          f"included), {summary['utts_per_sec']:.1f} training utterances/s, "
+          f"{summary['steps']} steps, dev error {summary['dev_error_rate']:.4f}, launches "
+          f"{counts}  [{gpu}]", flush=True)
+    if (not losses or len(losses) != summary["steps"] or not all(np.isfinite(losses))
+            or summary["nonfinite_steps"] != 0):
+        raise RuntimeError(f"fit logged losses {losses} with summary {summary}")
+    if not all(written.values()):
+        raise RuntimeError(f"fit did not write its files: {written}")
+    if counts["ctc_loss_fwd_only"] < 1 or min(counts.values()) < 1:
+        raise RuntimeError(f"the training path did not launch every kernel: {counts}")
+    return counts
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--profile-out", default=None,
+                    help="directory for train_step_profile.txt, the full profile table")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
         return 2
@@ -269,22 +658,33 @@ def main() -> int:
     print(f"phase build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}", flush=True)
     print(lib_path.with_suffix(".log").read_text().strip(), flush=True)
 
-    kern = check_kernel(dev)
-    print(f"phase lstm_bidi B={B} T={T_ENC} H={H}: kernel {kern['ms']:.3f} ms "
-          f"(runs {kern['ms_runs'][0]:.3f}, {kern['ms_runs'][1]:.3f}), plain "
-          f"{kern['plain_ms']:.3f} ms (runs {kern['plain_ms_runs'][0]:.3f}, "
-          f"{kern['plain_ms_runs'][1]:.3f})  [{gpu}]", flush=True)
+    check_serving_kernel(dev, gpu)
+    results = check_training_lstm(dev, gpu)
+    results.update(check_ctc(dev, gpu))
 
     task = ls100_ctc_task()
-    model_cpu = init_model(task, torch.Generator().manual_seed(0))
+    params_cpu = init_params(task, torch.Generator().manual_seed(0))
+    model_cpu = init_model(task)
+    model_cpu.load_state_dict(params_cpu)
     model = copy.deepcopy(model_cpu).to(dev).eval()
     check_model(task, model_cpu, model, dev)
+    check_train_step(task, params_cpu, dev)
     time_phases(task, model, dev, gpu)
-    launches = serve_requests(task, model, gpu)
+    serve_counts = serve_requests(task, model, gpu)
+    del model
+    time_train_steps(task, params_cpu, dev, gpu, args.profile_out)
+    train_counts = train_one_epoch(gpu)
 
-    entry = dict(KERNEL, launches=launches, max_abs_err=kern["max_abs_err"],
-                 ms=kern["ms"], plain_ms=kern["plain_ms"])
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = []
+    for name, meta in KERNELS.items():
+        r = results[name]
+        entries.append({
+            "name": name, "route": "cuda", **meta, "launches": train_counts[name],
+            "launches_serving": serve_counts[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

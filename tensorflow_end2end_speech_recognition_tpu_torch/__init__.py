@@ -7,23 +7,34 @@ the cell) and its batch-major ``[B, T, C]`` logits with blank =
 ``num_classes``, so weights carry across by a plain dict walk
 (``utils/bridge.py``) and each module is held against its JAX counterpart.
 
-This package imports ``torch`` and numpy, never ``jax``. The slice ported so
-far is CTC serving: waveform -> features -> frame stacking -> BLSTM encoder
-(hand-written Hopper kernel ``csrc/lstm_bidi_fwd.cu``) -> affine head ->
-greedy decode, behind the micro-batching HTTP server of ``bin/serve.py``.
+This package imports ``torch`` and numpy, never ``jax``. Ported so far, for
+the CTC BLSTM configs:
+
+- serving: waveform -> features -> frame stacking -> BLSTM encoder -> affine
+  head -> greedy decode, behind the micro-batching HTTP server of
+  ``bin/serve.py``;
+- training: ``bin/train.py`` -> ``train/loop.fit`` -> the train step (CTC
+  loss, gradient through the BLSTM, clip, optimizer update, non-finite
+  guard) and the dev eval, on the toy corpus.
+
+Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
+(``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
+loss + gradient and the loss-only CTC (``ctc_loss.cu``).
 
 Layout:
 
 - ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel)
-- ``data``      frame stacking and splicing
-- ``ops``       ``lstm_bidi`` kernel wrapper and the nvcc builder
+- ``data``      frame stacking, tokenizers, toy corpus, batching, prefetch
+- ``ops``       kernel wrappers (``lstm``, ``ctc``), losses, the nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
-- ``models``    BLSTM layer, encoder, CTC model
+- ``models``    BLSTM layer, dropout, encoder, CTC model
 - ``decoding``  CTC greedy collapse
-- ``train``     the CTC task's device-side input pipeline
-- ``utils``     JAX-pytree <-> ``state_dict`` bridge, YAML config subset
+- ``train``     CTC task (pipeline, train/eval steps), optimizers, LR
+                controller, checkpoints, the training loop
+- ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
+                edit distance and error rates, TensorBoard event writer
 - ``serving``   inference function and micro-batcher
-- ``bin``       HTTP server
+- ``bin``       HTTP server, training CLI
 """
 
 import torch

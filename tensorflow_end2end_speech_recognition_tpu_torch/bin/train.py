@@ -1,0 +1,63 @@
+"""Training entry point of the port.
+
+    python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.train \\
+        configs/ls100_ctc.yml /tmp/model_dir [--epochs N] [--device cuda]
+
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/train.py``:
+reads a reference-shaped YAML config, trains with ``train/loop.fit`` on the
+card (``--device cpu`` for the CPU), and tees its output to
+``<model_dir>/train.log``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+from pathlib import Path
+
+from .. import set_full_fp32
+from ..train.loop import fit
+from ..utils.config import ExperimentConfig
+
+
+class _Tee:
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for f in self.streams:
+            f.write(s)
+
+    def flush(self):
+        for f in self.streams:
+            f.flush()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("config", help="YAML experiment config (reference key names accepted)")
+    ap.add_argument("model_dir", help="directory for checkpoints, logs and the config copy")
+    ap.add_argument("--epochs", type=int, default=None, help="override num_epoch")
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    set_full_fp32()
+
+    Path(args.model_dir).mkdir(parents=True, exist_ok=True)
+    orig = sys.stdout
+    with open(Path(args.model_dir) / "train.log", "a") as log_f:
+        sys.stdout = _Tee(orig, log_f)  # the run's output also lands in train.log
+        try:
+            exp = ExperimentConfig.from_yaml(args.config)
+            if args.epochs is not None:
+                exp = dataclasses.replace(exp, num_epoch=args.epochs)
+            summary = fit(exp, args.model_dir, device=args.device)
+            print("FINAL", summary)
+        finally:
+            sys.stdout = orig
+    return summary
+
+
+if __name__ == "__main__":
+    main()

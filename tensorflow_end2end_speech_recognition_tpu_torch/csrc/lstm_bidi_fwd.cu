@@ -28,6 +28,12 @@
 // step; c is read and written only by the thread that owns it. There is no
 // cross-block reduction and no grid barrier: the launches on one stream are
 // the step barrier.
+//
+// Training also needs the cell-state stream cs[b, t] = c_t (the carried
+// value on a masked step, as the TPU kernel's cs_ref[k] = c), which the
+// backward kernel (lstm_bidi_bwd.cu) reads. The caller passes cs pointers
+// only when it needs them; serving passes null and the kernel skips the
+// store.
 
 #include <cuda_runtime.h>
 
@@ -50,6 +56,7 @@ lstm_bidi_step(const float* __restrict__ xf, const float* __restrict__ xb,
                const float* __restrict__ whf, const float* __restrict__ whb,
                const float* __restrict__ mask,
                float* __restrict__ ysf, float* __restrict__ ysb,
+               float* __restrict__ csf, float* __restrict__ csb,  // null: skip
                const float* __restrict__ h_in,  // [2, B, H]: h_{t-1}
                float* __restrict__ h_out,       // [2, B, H]: h_t
                float* __restrict__ c,           // [2, B, H]: c_{t-1} -> c_t
@@ -71,6 +78,7 @@ lstm_bidi_step(const float* __restrict__ xf, const float* __restrict__ xb,
   const float* x = dir ? xb : xf;
   const float* wh = dir ? whb : whf;
   float* ys = dir ? ysb : ysf;
+  float* cs = dir ? csb : csf;
   const float* hp = h_in + dir * BH;
   float* hn = h_out + dir * BH;
   float* cc = c + dir * BH;
@@ -152,9 +160,11 @@ lstm_bidi_step(const float* __restrict__ xf, const float* __restrict__ xb,
   const float m = mask[bt];
   const bool on = m > 0.0f;
   const float h = on ? h_new : h_prev;
-  cc[idx] = on ? c_new : c_prev;
+  const float c_out = on ? c_new : c_prev;
+  cc[idx] = c_out;
   hn[idx] = h;
   ys[bt * H + jj] = h * m;
+  if (cs != nullptr) cs[bt * H + jj] = c_out;
 }
 
 }  // namespace
@@ -163,13 +173,16 @@ extern "C" {
 
 // All pointers are device pointers of contiguous float32 tensors:
 // xf, xb [B, T, 4H]; whf, whb [H, 4H]; mask [B, T]; ysf, ysb [B, T, H]
-// (written in full); hbuf [2, 2, B, H] and cbuf [2, B, H], zeroed by the
+// (written in full); csf, csb [B, T, H] written in full, or both null to
+// skip the cell-state stream (serving); hbuf [2, 2, B, H] and cbuf [2, B, H], zeroed by the
 // caller. Launches T kernels on `stream` and returns the first CUDA error
 // (0 when every launch was accepted). Does not synchronise.
 int lstm_bidi_fwd(const float* xf, const float* xb, const float* whf, const float* whb,
-                  const float* mask, float* ysf, float* ysb, float* hbuf, float* cbuf,
+                  const float* mask, float* ysf, float* ysb, float* csf, float* csb,
+                  float* hbuf, float* cbuf,
                   int B, int T, int H, float forget_bias, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if ((csf == nullptr) != (csb == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)kRows * H + kRed) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -183,8 +196,8 @@ int lstm_bidi_fwd(const float* xf, const float* xb, const float* whf, const floa
   for (int t = 0; t < T; ++t) {
     const float* h_in = hbuf + (t & 1) * state;
     float* h_out = hbuf + ((t + 1) & 1) * state;
-    lstm_bidi_step<<<grid, kThreads, smem, s>>>(xf, xb, whf, whb, mask, ysf, ysb, h_in, h_out,
-                                                 cbuf, B, T, H, t, forget_bias);
+    lstm_bidi_step<<<grid, kThreads, smem, s>>>(xf, xb, whf, whb, mask, ysf, ysb, csf, csb,
+                                                 h_in, h_out, cbuf, B, T, H, t, forget_bias);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -1,0 +1,156 @@
+"""Bucketed, length-sorted batching over utterances (host side of the pipeline).
+
+A copy of ``tensorflow_end2end_speech_recognition_tpu/data/dataset.py``:
+length-sorted batches for the first ``sort_stop_epoch`` epochs, block-shuffled
+after; time padded to a quantile ladder of bucket bounds and labels to a
+ladder of their own (``-1`` padded); a short final batch filled with earlier
+utterances whose rows carry ``weight`` 0 and name ``None``. The same seed and
+epoch give the same batches as the JAX ``Dataset``. Batches are padded with
+the numpy assembly of ``data/native.py`` there (no C++ library here).
+Waveform utterances only; multitask sub labels and per-speaker CMVN rows are
+not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .toy_corpus import Utterance
+
+NUM_WAV_BUCKETS, NUM_LABEL_BUCKETS = 4, 3
+
+
+def bucket_ladder(lengths, num_buckets: int = 4, multiple: int = 512):
+    """Quantile-based ladder of padded lengths, rounded up to ``multiple``."""
+    lengths = np.asarray(lengths)
+    qs = np.quantile(lengths, np.linspace(1.0 / num_buckets, 1.0, num_buckets))
+    ladder = sorted({int(-(-q // multiple) * multiple) for q in qs})
+    if ladder[-1] < lengths.max():
+        ladder[-1] = int(-(-int(lengths.max()) // multiple) * multiple)
+    return ladder
+
+
+def pad_to_ladder(n: int, ladder) -> int:
+    for b in ladder:
+        if n <= b:
+            return b
+    return ladder[-1]
+
+
+def batch_assemble(utts: list[np.ndarray], t_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad and stack float32 waveforms -> ([B, t_pad], int32 lengths)."""
+    lens = np.asarray([len(u) for u in utts], np.int32)
+    if int(lens.max()) > t_pad:
+        raise ValueError(f"utterance length {int(lens.max())} exceeds t_pad {t_pad}")
+    out = np.zeros((len(utts), t_pad), np.float32)
+    for i, u in enumerate(utts):
+        out[i, : len(u)] = u
+    return out, lens
+
+
+def to_device(batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device`` (the ``names`` stay on the host)."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "names"}
+
+
+class Dataset:
+    """Iterator factory over utterance batches (see the module docstring)."""
+
+    def __init__(
+        self,
+        utterances: list[Utterance],
+        batch_size: int,
+        sort_utt: bool = True,
+        sort_stop_epoch: int | None = None,
+        seed: int = 0,
+        max_frames_per_batch: int | None = None,  # padded frames x rows budget
+        samples_per_frame: int = 1,  # samples per frame: the budget counts frames
+    ):
+        if not utterances:
+            raise ValueError("empty dataset")
+        self.utterances = list(utterances)
+        self.batch_size = batch_size
+        self.max_frames_per_batch = max_frames_per_batch
+        self.samples_per_frame = max(1, samples_per_frame)
+        self.sort_utt = sort_utt
+        self.sort_stop_epoch = sort_stop_epoch if sort_stop_epoch is not None else (1 << 30)
+        self.seed = seed
+        lens = [len(u.wav) for u in self.utterances]
+        self._input_lens = np.asarray(lens)
+        self.wav_ladder = bucket_ladder(lens, NUM_WAV_BUCKETS, multiple=512)
+        label_lens = [len(u.label_ids) for u in self.utterances]
+        self.label_ladder = bucket_ladder(label_lens, NUM_LABEL_BUCKETS, multiple=8)
+        if max_frames_per_batch is None:
+            self.num_batches = -(-len(self.utterances) // batch_size)
+        else:
+            order = np.argsort(self._input_lens, kind="stable")
+            self.num_batches = len(self._batch_extents(order))
+
+    def __len__(self):
+        return len(self.utterances)
+
+    def batches(self, epoch: int = 0):
+        """Yield batch dicts for one epoch (length-sorted, then block-shuffled)."""
+        order = np.argsort(self._input_lens, kind="stable")
+        rng = np.random.RandomState(self.seed + epoch)
+        if not self.sort_utt or epoch >= self.sort_stop_epoch:
+            # after the curriculum, shuffle inside blocks of a few batches of
+            # the sorted order: batch membership changes, lengths stay close
+            block = max(self.batch_size * 4, 1)
+            for s in range(0, len(order), block):
+                rng.shuffle(order[s : s + block])
+            shuffle_batches = True
+        else:
+            shuffle_batches = False
+        extents = self._batch_extents(order)
+        if shuffle_batches:
+            rng.shuffle(extents)
+        for start, rows in extents:
+            yield self._make_batch(order[start : start + rows], rows)
+
+    def _batch_extents(self, order):
+        """``(start, rows)`` slices of the epoch order; long batches halve their
+        rows (down to one) until ``max_frames_per_batch`` fits."""
+        extents = []
+        i, n = 0, len(order)
+        while i < n:
+            rows = self.batch_size
+            if self.max_frames_per_batch is not None:
+                while True:
+                    idx = order[i : i + rows]
+                    t_pad = pad_to_ladder(int(self._input_lens[idx].max()), self.wav_ladder)
+                    frames = -(-t_pad // self.samples_per_frame)
+                    if frames * rows <= self.max_frames_per_batch or rows <= 1:
+                        break
+                    rows = max(1, rows // 2)
+            extents.append((i, rows))
+            i += rows
+        return extents
+
+    def _make_batch(self, idx, rows: int | None = None):
+        utts = [self.utterances[i] for i in idx]
+        b = rows if rows is not None else self.batch_size
+        t_pad = pad_to_ladder(max(self._input_lens[i] for i in idx), self.wav_ladder)
+        u_pad = pad_to_ladder(max(len(u.label_ids) for u in utts), self.label_ladder)
+        # short final batch: repeat earlier utterances (weight 0, name None)
+        fill = [utts[(j - len(utts)) % len(utts)] for j in range(len(utts), b)]
+        all_utts = utts + fill
+        inputs, input_len = batch_assemble([u.wav for u in all_utts], t_pad)
+        labels = np.full((b, u_pad), -1, dtype=np.int32)
+        label_len = np.zeros((b,), dtype=np.int32)
+        names = []
+        for j, u in enumerate(all_utts):
+            labels[j, : len(u.label_ids)] = u.label_ids
+            label_len[j] = len(u.label_ids)
+            names.append(u.name if j < len(utts) else None)
+        weight = np.zeros((b,), dtype=np.float32)
+        weight[: len(utts)] = 1.0
+        return {
+            "inputs": inputs,
+            "labels": labels,
+            "input_len": input_len,
+            "label_len": label_len,
+            "weight": weight,
+            "names": names,
+        }

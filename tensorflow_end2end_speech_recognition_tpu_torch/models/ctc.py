@@ -74,6 +74,8 @@ class CTCModel(nn.Module):
             enc_out = self.bottleneck(enc_out)
         return self.head(enc_out)
 
-    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor) -> CTCOutput:
-        xs, lengths = self.encoder(feats, feat_len)
+    def forward(self, feats: torch.Tensor, feat_len: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> CTCOutput:
+        """``train`` and ``generator`` pass to the encoder's dropout (``apply_ctc``)."""
+        xs, lengths = self.encoder(feats, feat_len, train, generator)
         return CTCOutput(self.project(xs), lengths)

@@ -2,8 +2,9 @@
 
 Counterpart of the ``blstm`` branch of ``apply_encoder`` in
 ``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack of
-``BiLSTM`` layers over ``[B, T, D]`` with the true lengths carried alongside.
-Inference only, so no dropout. The JAX package routes inputs longer than
+``BiLSTM`` layers over ``[B, T, D]`` with the true lengths carried alongside,
+and, in training, dropout after every layer, the last one included. The JAX
+package routes inputs longer than
 T = 400 to its scan path because of TPU toolchain limits; the kernel here
 runs at every T. Other encoder types and cell options raise
 ``NotImplementedError`` until they are ported.
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from .rnn import BiLSTM
+from .rnn import BiLSTM, dropout
 
 
 class EncoderConfig(NamedTuple):
@@ -29,7 +30,7 @@ class EncoderConfig(NamedTuple):
     use_peephole: bool = False
     clip_activation: float | None = None
     parameter_init: float = 0.1
-    dropout_keep_prob: float = 1.0  # train-time only; inference applies none
+    dropout_keep_prob: float = 1.0  # applied after every layer in training
     compute_dtype: str = "float32"
 
     @property
@@ -61,9 +62,18 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(
             BiLSTM(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
         )
+        self.keep_prob = cfg.dropout_keep_prob
 
-    def forward(self, xs: torch.Tensor, lengths: torch.Tensor):
-        """[B, T, D] -> ([B, T, 2H], lengths)."""
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None):
+        """[B, T, D] -> ([B, T, 2H], lengths).
+
+        With ``train`` and a ``generator`` (on the inputs' device), each
+        layer's output goes through dropout, as ``apply_encoder`` does when
+        it is given an rng; without a generator no dropout is drawn.
+        """
         for layer in self.layers:
             xs = layer(xs, lengths)
+            if train and generator is not None:
+                xs = dropout(xs, self.keep_prob, train, generator)
         return xs, lengths

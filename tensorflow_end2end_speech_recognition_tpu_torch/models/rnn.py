@@ -4,8 +4,10 @@ Counterpart of the Pallas branch of ``bidirectional_scan`` in
 ``tensorflow_end2end_speech_recognition_tpu/models/rnn.py``: the input
 projection ``x @ Wx + b`` for all timesteps is one ``torch.matmul`` per
 direction, the backward direction's projection is reversed over each row's
-valid prefix, and ``ops.lstm.lstm_bidi`` runs both recurrences. Only the
+valid prefix, and ``ops.lstm.lstm_bidi`` runs both recurrences (through
+its ``torch.autograd.Function`` when a gradient may be taken). Only the
 plain LSTM cell is ported; peephole, projection, cell clip and GRU raise.
+``dropout`` is the inverted dropout of ``models/rnn.py`` there.
 """
 
 from __future__ import annotations
@@ -60,3 +62,17 @@ class BiLSTM(nn.Module):
         ys_f, ys_b = lstm_bidi(xproj_f, xproj_b, self.fwd.wh, self.bwd.wh, mask,
                                self.forget_bias)
         return torch.cat([ys_f, flip_valid(ys_b, lengths)], dim=-1)
+
+
+def dropout(x: torch.Tensor, keep_prob: float, train: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout, the reference's ``DropoutWrapper(output_keep_prob)``.
+
+    Keeps each element with probability ``keep_prob`` (a uniform draw from
+    ``generator``, which lives on ``x``'s device, below ``keep_prob``) and
+    scales kept ones by ``1 / keep_prob``. Identity unless training.
+    """
+    if not train or keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0)

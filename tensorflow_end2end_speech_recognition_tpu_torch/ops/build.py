@@ -1,10 +1,12 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface and include no PyTorch header, so one
-nvcc call builds them in seconds. The library goes to ``_build/`` inside the
-package (listed in ``.gitignore``), named by a hash of the sources and the
-flags, and is built at first use: nothing is compiled when a module is
-imported, so the CPU-only test runs never need nvcc.
+The sources have a plain C interface and include no PyTorch header. Each
+source compiles to an object file in its own nvcc process, all started
+together, and one more call links them, so a build takes seconds. The
+library goes to ``_build/`` inside the package (listed in ``.gitignore``),
+named by a hash of the sources and the flags, and is built at first use:
+nothing is compiled when a module is imported, so the CPU-only test runs
+never need nvcc.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -49,9 +51,21 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Start every command at once, wait for all, return their outputs; raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library unless it is built already.
 
+    One nvcc process per source, all running together, then one link.
     Returns the library path. The compiler's report (``-Xptxas -v``: registers
     and shared memory per kernel) is kept beside it as ``<lib>.log``. A failed
     build raises with nvcc's output.
@@ -60,19 +74,17 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(_sources(), objs)])
+        # link under a temporary name, then rename: a concurrent process
+        # never loads a half-written library
+        tmp = Path(work) / lib.name
+        logs += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, lib)
     return lib
 
 
@@ -81,8 +93,16 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's C signature."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lstm_bidi_fwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f, p]
-    lib.lstm_bidi_fwd.restype = ctypes.c_int
+    signatures = {
+        "lstm_bidi_fwd": [p] * 11 + [i, i, i, f, p],
+        "lstm_bidi_bwd": [p] * 15 + [i, i, i, f, p],
+        "ctc_loss_fwd_bwd": [p] * 9 + [i] * 5 + [p],
+        "ctc_loss_fwd_only": [p] * 7 + [i] * 5 + [p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.asr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.asr_cuda_error_string.restype = ctypes.c_char_p
     return lib

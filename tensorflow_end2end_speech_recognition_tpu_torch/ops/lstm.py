@@ -1,7 +1,8 @@
 """Fused bidirectional LSTM layer over hoisted input projections.
 
-Counterpart of ``lstm_bidi_pallas`` (``tensorflow_end2end_speech_recognition_tpu/
-ops/pallas/lstm_kernel.py``), forward only, with the same contract:
+Counterpart of ``lstm_bidi_pallas`` and its VJP (``_bidi_vjp_fwd`` /
+``_bidi_vjp_bwd``) in ``tensorflow_end2end_speech_recognition_tpu/ops/
+pallas/lstm_kernel.py``, with the same contract:
 
     lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias) -> (ys_f, ys_b)
 
@@ -11,95 +12,242 @@ float, monotone per row (a length mask). Gates are i, f, g, o with
 ``forget_bias`` added to f. A masked step carries h and c through and emits
 0. Returns ``ys_f`` and ``ys_b`` [B, T, H], ``ys_b`` still in reversed order.
 
-CPU tensors take ``lstm_bidi_plain``, a time loop in plain PyTorch. CUDA
-tensors launch the hand-written kernel ``csrc/lstm_bidi_fwd.cu`` or raise;
-there is no fallback. ``lstm_bidi.launches`` counts kernel launches.
+When a gradient may be taken, the call goes through ``LSTMBidi``, a
+``torch.autograd.Function``: its forward also keeps the cell-state streams
+``cs_f`` / ``cs_b``, and its backward recomputes the gates step by step
+(``lstm_bidi_bwd``) and forms ``dWh`` per direction as one contraction over
+[T*B] of the shifted ``ys`` against ``dxproj``, as ``_bidi_bwd_call`` does.
+
+CPU tensors take the plain versions (``lstm_bidi_fwd_plain``,
+``lstm_bidi_bwd_plain``), time loops in plain PyTorch. CUDA tensors launch
+the hand-written kernels ``csrc/lstm_bidi_fwd.cu`` and
+``csrc/lstm_bidi_bwd.cu`` or raise; there is no fallback.
+``lstm_bidi.launches`` and ``lstm_bidi_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 
-def lstm_bidi_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
-    """Plain PyTorch version of the kernel: one ``h @ Wh + xproj[t]`` step per t."""
+def _gates(gates, h, forget_bias):
+    i, f, g, o = gates.split(h, dim=-1)
+    return torch.sigmoid(i), torch.sigmoid(f + forget_bias), torch.tanh(g), torch.sigmoid(o)
+
+
+def lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
+    """Plain version of the forward kernel: one ``h @ Wh + xproj[t]`` step per t.
+
+    Returns ``(ys_f, ys_b, cs_f, cs_b)``, each [B, T, H]; ``cs`` holds the
+    carried cell state at every step.
+    """
     b, t, g4 = xproj_f.shape
     h = g4 // 4
     outs = []
     for xproj, wh in ((xproj_f, wh_f), (xproj_b, wh_b)):
         h_prev = xproj.new_zeros((b, h))
         c_prev = xproj.new_zeros((b, h))
-        ys = []
+        ys, cs = [], []
         for s in range(t):
-            gates = xproj[:, s] + h_prev @ wh
-            i, f, g, o = gates.split(h, dim=-1)
-            c = torch.sigmoid(f + forget_bias) * c_prev + torch.sigmoid(i) * torch.tanh(g)
-            h_new = torch.sigmoid(o) * torch.tanh(c)
+            i, f, g, o = _gates(xproj[:, s] + h_prev @ wh, h, forget_bias)
+            c = f * c_prev + i * g
+            h_new = o * torch.tanh(c)
             m = mask[:, s, None]
             on = m > 0
             h_prev = torch.where(on, h_new, h_prev)
             c_prev = torch.where(on, c, c_prev)
             ys.append(h_prev * m)
-        outs.append(torch.stack(ys, dim=1))
+            cs.append(c_prev)
+        outs.append((torch.stack(ys, dim=1), torch.stack(cs, dim=1)))
+    (ys_f, cs_f), (ys_b, cs_b) = outs
+    return ys_f, ys_b, cs_f, cs_b
+
+
+def _shift_one(x):
+    """[B, T, H] -> step t holds x[:, t-1], step 0 zeros (the h_{t-1} stream)."""
+    return F.pad(x[:, :-1], (0, 0, 1, 0))
+
+
+def lstm_bidi_bwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
+                        gys_f, gys_b, forget_bias: float = 1.0):
+    """Plain version of the backward kernel: ``(dxproj_f, dxproj_b)`` [B, T, 4H].
+
+    The reverse walk of ``_bidi_bwd_kernel``: recompute the gates at t from
+    ``xproj[t]`` and ``h_{t-1} = ys[t-1]``, carry ``dh`` and ``dc``, emit
+    ``dgates`` (zero on a masked step, which carries dh and dc through).
+    """
+    b, t, g4 = xproj_f.shape
+    h = g4 // 4
+    outs = []
+    for xproj, wh, ys, cs, gys in ((xproj_f, wh_f, ys_f, cs_f, gys_f),
+                                   (xproj_b, wh_b, ys_b, cs_b, gys_b)):
+        h_prev_all, c_prev_all = _shift_one(ys), _shift_one(cs)
+        dh = xproj.new_zeros((b, h))
+        dc = xproj.new_zeros((b, h))
+        dxs = [None] * t
+        for s in reversed(range(t)):
+            on = mask[:, s, None] > 0
+            i, f, g, o = _gates(xproj[:, s] + h_prev_all[:, s] @ wh, h, forget_bias)
+            dh_total = torch.where(on, gys[:, s], 0.0) + dh
+            tc = torch.tanh(cs[:, s])
+            do = dh_total * tc
+            dc_total = dc + dh_total * o * (1.0 - tc * tc)
+            dgates = torch.cat([
+                dc_total * g * i * (1.0 - i),
+                dc_total * c_prev_all[:, s] * f * (1.0 - f),
+                dc_total * i * (1.0 - g * g),
+                do * o * (1.0 - o),
+            ], dim=-1)
+            dgates = torch.where(on, dgates, 0.0)
+            dxs[s] = dgates
+            dh = torch.where(on, dgates @ wh.t(), dh_total)
+            dc = torch.where(on, dc_total * f, dc)
+        outs.append(torch.stack(dxs, dim=1))
     return outs[0], outs[1]
 
 
-def _check_inputs(xproj_f, xproj_b, wh_f, wh_b, mask) -> None:
-    tensors = {"xproj_f": xproj_f, "xproj_b": xproj_b, "wh_f": wh_f, "wh_b": wh_b, "mask": mask}
-    dev = xproj_f.device
+def _check_inputs(what, **tensors) -> None:
+    first = next(iter(tensors.values()))
+    dev = first.device
     for name, x in tensors.items():
         if x.device != dev:
-            raise ValueError(f"lstm_bidi: {name} is on {x.device}, xproj_f on {dev}")
+            raise ValueError(f"{what}: {name} is on {x.device}, xproj_f on {dev}")
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
-                f"lstm_bidi: {name} is bfloat16; bf16 streams (compute_dtype: bfloat16) "
+                f"{what}: {name} is bfloat16; bf16 streams (compute_dtype: bfloat16) "
                 "are not ported yet"
             )
         if x.dtype != torch.float32:
-            raise ValueError(f"lstm_bidi: {name} must be float32, got {x.dtype}")
+            raise ValueError(f"{what}: {name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"lstm_bidi: {name} must be contiguous")
-    if xproj_f.dim() != 3 or xproj_f.shape[-1] % 4:
-        raise ValueError(f"lstm_bidi: xproj_f must be [B, T, 4H], got {tuple(xproj_f.shape)}")
-    b, t, g4 = xproj_f.shape
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if first.dim() != 3 or first.shape[-1] % 4:
+        raise ValueError(f"{what}: xproj_f must be [B, T, 4H], got {tuple(first.shape)}")
+    b, t, g4 = first.shape
     h = g4 // 4
     want = {"xproj_b": (b, t, g4), "wh_f": (h, g4), "wh_b": (h, g4), "mask": (b, t)}
-    for name, shape in want.items():
-        if tuple(tensors[name].shape) != shape:
-            raise ValueError(
-                f"lstm_bidi: {name} has shape {tuple(tensors[name].shape)}, expected {shape}"
-            )
+    for name in tensors:
+        if name not in want:
+            want[name] = (b, t, h)  # ys, cs, gys streams
+    for name, x in tensors.items():
+        if name != "xproj_f" and tuple(x.shape) != want[name]:
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, expected {want[name]}")
     if b == 0 or t == 0 or h == 0:
-        raise ValueError(f"lstm_bidi: empty input {tuple(xproj_f.shape)}")
+        raise ValueError(f"{what}: empty input {tuple(first.shape)}")
 
 
-def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
-    """Both LSTM directions of one layer; see the module docstring."""
-    _check_inputs(xproj_f, xproj_b, wh_f, wh_b, mask)
-    dev = xproj_f.device
+def _device_of(what, x):
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    return dev
+
+
+def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
+                  with_cs: bool = False):
+    """Kernel #1: ``(ys_f, ys_b)``, and ``(cs_f, cs_b)`` after them when ``with_cs``.
+
+    Launches are counted on ``lstm_bidi.launches``.
+    """
+    _check_inputs("lstm_bidi", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
+                  mask=mask)
+    dev = _device_of("lstm_bidi", xproj_f)
     if dev.type == "cpu":
-        return lstm_bidi_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias)
-    if dev.type != "cuda":
-        raise ValueError(f"lstm_bidi: no kernel for device {dev}")
+        out = lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias)
+        return out if with_cs else out[:2]
     lib = build.load_library()
     b, t, g4 = xproj_f.shape
     h = g4 // 4
     ys_f = torch.empty((b, t, h), dtype=torch.float32, device=dev)
     ys_b = torch.empty_like(ys_f)
+    cs_f = torch.empty_like(ys_f) if with_cs else None
+    cs_b = torch.empty_like(ys_f) if with_cs else None
     hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)  # h ping-pong
     cbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lstm_bidi_fwd(
             xproj_f.data_ptr(), xproj_b.data_ptr(), wh_f.data_ptr(), wh_b.data_ptr(),
-            mask.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(), hbuf.data_ptr(),
-            cbuf.data_ptr(), b, t, h, float(forget_bias), stream,
+            mask.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(),
+            cs_f.data_ptr() if with_cs else None, cs_b.data_ptr() if with_cs else None,
+            hbuf.data_ptr(), cbuf.data_ptr(), b, t, h, float(forget_bias), stream,
         )
     build.check(lib, code, "lstm_bidi_fwd")
     lstm_bidi.launches += 1
-    return ys_f, ys_b
+    return (ys_f, ys_b, cs_f, cs_b) if with_cs else (ys_f, ys_b)
+
+
+def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
+                  gys_f, gys_b, forget_bias: float = 1.0):
+    """Kernel #2: ``(dxproj_f, dxproj_b)``; arguments as ``lstm_bidi_bwd_plain``."""
+    _check_inputs("lstm_bidi_bwd", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
+                  mask=mask, ys_f=ys_f, ys_b=ys_b, cs_f=cs_f, cs_b=cs_b, gys_f=gys_f,
+                  gys_b=gys_b)
+    args = (xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b, gys_f, gys_b)
+    dev = _device_of("lstm_bidi_bwd", xproj_f)
+    if dev.type == "cpu":
+        return lstm_bidi_bwd_plain(*args, forget_bias)
+    lib = build.load_library()
+    b, t, g4 = xproj_f.shape
+    h = g4 // 4
+    dx_f = torch.empty_like(xproj_f)
+    dx_b = torch.empty_like(xproj_b)
+    dhbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    dcbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lstm_bidi_bwd(
+            *(a.data_ptr() for a in args), dx_f.data_ptr(), dx_b.data_ptr(),
+            dhbuf.data_ptr(), dcbuf.data_ptr(), b, t, h, float(forget_bias), stream,
+        )
+    build.check(lib, code, "lstm_bidi_bwd")
+    lstm_bidi_bwd.launches += 1
+    return dx_f, dx_b
+
+
+lstm_bidi_bwd.launches = 0
+
+
+class LSTMBidi(torch.autograd.Function):
+    """``lstm_bidi`` with its gradient: kernel #1 forward, kernel #2 backward."""
+
+    @staticmethod
+    def forward(ctx, xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias):
+        ys_f, ys_b, cs_f, cs_b = lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias,
+                                               with_cs=True)
+        ctx.save_for_backward(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b)
+        ctx.forget_bias = forget_bias
+        return ys_f, ys_b
+
+    @staticmethod
+    def backward(ctx, gys_f, gys_b):
+        xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b = ctx.saved_tensors
+        gys_f = torch.zeros_like(ys_f) if gys_f is None else gys_f.contiguous()
+        gys_b = torch.zeros_like(ys_b) if gys_b is None else gys_b.contiguous()
+        dx_f, dx_b = lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
+                                   gys_f, gys_b, ctx.forget_bias)
+        h = ys_f.shape[-1]
+
+        def dwh(ys, dx):  # one contraction over [T*B] per direction
+            return torch.matmul(_shift_one(ys).reshape(-1, h).t(), dx.reshape(-1, 4 * h))
+
+        return dx_f, dx_b, dwh(ys_f, dx_f), dwh(ys_b, dx_b), None, None
+
+
+def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
+    """Both LSTM directions of one layer; see the module docstring.
+
+    Goes through ``LSTMBidi`` when autograd may need a gradient; otherwise
+    (serving, eval) runs the forward kernel alone, with no ``cs`` stream.
+    """
+    if torch.is_grad_enabled() and any(
+        x.requires_grad for x in (xproj_f, xproj_b, wh_f, wh_b)
+    ):
+        return LSTMBidi.apply(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias)
+    return lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias)
 
 
 lstm_bidi.launches = 0

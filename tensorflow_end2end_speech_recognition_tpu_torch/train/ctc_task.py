@@ -1,27 +1,38 @@
-"""CTC task: the device-side input pipeline.
+"""CTC task: device-side input pipeline, loss, and the train and eval steps.
 
-Counterpart of ``device_pipeline`` and ``CTCTaskConfig`` in
-``tensorflow_end2end_speech_recognition_tpu/train/ctc_task.py``: raw
-waveforms -> frontend -> frame stacking -> splicing, on the device of the
-inputs. Per-speaker CMVN (``cmvn_mean`` / ``cmvn_inv_std`` batch keys) and
-the training steps are not ported yet.
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/train/
+ctc_task.py``: raw waveforms -> frontend -> frame stacking -> splicing ->
+encoder -> CTC loss -> gradient -> clip and update, on the device of the
+inputs, with the host feeding batches and a scalar learning rate.
+Parameters travel as a dict of tensors (``state_dict`` keys) and run
+through one parameter-free copy of the model with
+``torch.func.functional_call``, so a step is a function of
+``(params, opt_state, batch, lr, generator)`` as the jitted JAX step is.
+Per-speaker CMVN, SpecAugment, gradient accumulation and the multitask head
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.func import functional_call
 
 from ..data.frame_ops import splice_frames, stack_frames
+from ..decoding.ctc_greedy import ctc_greedy_decode
 from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
+from ..ops.ctc import ctc_loss
+from ..ops.losses import batch_mean, l2_weight_decay
+from .optimizer import apply_updates, tree_where
 
 
 class CTCTaskConfig(NamedTuple):
-    """Same fields and defaults as the JAX ``CTCTaskConfig``; the training
-    fields (``weight_decay``, ``ctc_impl``, ``spec_augment``,
-    ``main_task_weight``) are carried but not read by the serving path."""
+    """Same fields and defaults as the JAX ``CTCTaskConfig``. Only
+    ``ctc_impl="auto"`` and ``spec_augment=None`` are ported;
+    ``main_task_weight`` is read by the multitask head, which is not."""
 
     model: CTCConfig
     frontend: FrontendConfig | None = FrontendConfig()  # None => precomputed features
@@ -59,3 +70,91 @@ def init_model(task: CTCTaskConfig, generator: torch.Generator | None = None,
                input_dim: int | None = None):
     """A ``CTCModel`` for this task, on the CPU (move it with ``.to(device)``)."""
     return CTCModel(task.model, input_dim or task.input_dim, generator)
+
+
+def init_params(task: CTCTaskConfig, generator: torch.Generator | None = None,
+                input_dim: int | None = None) -> dict:
+    """Seeded weights as a dict of tensors (``state_dict`` keys), on the CPU."""
+    return {k: v.detach() for k, v in init_model(task, generator, input_dim).state_dict().items()}
+
+
+@functools.lru_cache(maxsize=8)
+def _skeleton(model_cfg: CTCConfig, input_dim: int) -> CTCModel:
+    """The model's module tree with meta tensors: ``functional_call`` supplies weights."""
+    with torch.device("meta"):
+        return CTCModel(model_cfg, input_dim)
+
+
+def apply_model(params: dict, task: CTCTaskConfig, feats, feat_len, train: bool = False,
+                generator: torch.Generator | None = None):
+    """``CTCModel.forward`` on the weights in ``params`` (``apply_ctc``)."""
+    dim = feats.shape[-1]
+    return functional_call(_skeleton(task.model, dim), params, (feats, feat_len),
+                           {"train": train, "generator": generator})
+
+
+def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
+                 generator: torch.Generator | None = None):
+    """(loss, aux): the weighted batch mean of the CTC nll plus L2 weight decay."""
+    feats, feat_len = device_pipeline(task, batch)
+    if train and task.spec_augment is not None:
+        raise NotImplementedError("SpecAugment is not ported yet")
+    out = apply_model(params, task, feats, feat_len, train, generator)
+    nll = ctc_loss(out.logits, out.logit_len, batch["labels"], batch["label_len"],
+                   blank_id=task.model.blank_id, impl=task.ctc_impl)
+    loss = batch_mean(nll, batch.get("weight"))
+    aux = {"ctc_nll": loss}
+    if task.weight_decay:
+        loss = loss + l2_weight_decay(params, task.weight_decay)
+    aux["loss"] = loss
+    return loss, aux
+
+
+def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
+    """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``.
+
+    Loss and gradient (autograd through the BLSTM and CTC kernels), the
+    optimizer's clip and update, then the guard of the JAX step: unless the
+    loss is finite and below 1e20 (an impossible alignment gives about 1e30),
+    both the parameters and the optimizer state keep their old values and
+    ``aux["nonfinite"]`` is true. The guard is a ``torch.where`` on the
+    device, so a step never waits for the host.
+    """
+    if grad_accum > 1:
+        raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
+    if task.spec_augment is not None:
+        raise NotImplementedError("SpecAugment is not ported yet")
+
+    def train_step(params, opt_state, batch, lr, generator=None):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            loss, aux = forward_loss(leaves, task, batch, True, generator)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with torch.no_grad():
+            updates, new_state = optimizer.update(grads, opt_state)
+            new_params = apply_updates(params, updates, lr)
+            loss = loss.detach()
+            ok = torch.isfinite(loss) & (loss < 1e20)
+            params = tree_where(ok, new_params, params)
+            opt_state = tree_where(ok, new_state, opt_state)
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["nonfinite"] = ~ok
+        return params, opt_state, aux
+
+    return train_step
+
+
+def make_eval_step(task: CTCTaskConfig):
+    """``(params, batch) -> (decoded [B, T'], lengths [B], nll [B])``: greedy
+    decode and the loss-only CTC kernel, with no gradient kept."""
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            feats, feat_len = device_pipeline(task, batch)
+            out = apply_model(params, task, feats, feat_len)
+            nll = ctc_loss(out.logits, out.logit_len, batch["labels"], batch["label_len"],
+                           blank_id=task.model.blank_id, impl=task.ctc_impl, need_grad=False)
+            decoded, dec_len = ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
+        return decoded, dec_len, nll
+
+    return eval_step

@@ -1,0 +1,175 @@
+"""Training loop: epochs, plateau LR, dev eval, best-on-dev checkpoints.
+
+Counterpart of the single-device CTC branch of ``fit`` in
+``tensorflow_end2end_speech_recognition_tpu/train/loop.py``: the model dir
+gets a config copy, ``metrics.csv``, TensorBoard events, checkpoints kept by
+dev error and ``summary.json``. The steps run on ``device`` (the card unless
+the caller asks for the CPU); the host moves numpy batches in and fetches
+the loss only every ``log_every`` steps, so steps queue on the card without
+waiting. A resumed run restores parameters, optimizer state, the dropout
+generator, the LR controller, the step counter and the best dev error.
+Meshes, gradient accumulation, profiling and the loss-curve plots raise
+``NotImplementedError`` or are left out (plots).
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import time
+import warnings
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import set_full_fp32
+from ..data.dataset import Dataset, to_device
+from ..data.prefetch import prefetch
+from ..data.toy_corpus import ToyCorpus
+from ..utils.config import ExperimentConfig
+from ..utils.metrics import evaluate_ctc
+from ..utils.tb_events import EventWriter
+from .checkpoint import CheckpointManager, tree_to
+from .ctc_task import init_params, make_eval_step, make_train_step
+from .lr_controller import LRController
+from .optimizer import build_optimizer
+
+
+def build_corpus_splits(exp: ExperimentConfig):
+    """(train, dev, test utterances, tokenizer) of the toy corpus, split as the JAX loop."""
+    if exp.max_utt_seconds is not None:
+        warnings.warn("max_utt_seconds only applies to toy_profile hard/harder; the easy "
+                      "corpus (~2 s utterances) is unaffected")
+    corpus = ToyCorpus(label_type=exp.label_type, num_utts=exp.toy_num_utts,
+                       min_units=exp.toy_min_units, max_units=exp.toy_max_units,
+                       vocab_size=exp.toy_vocab_size, seed=exp.toy_seed)
+    utts = corpus.utterances
+    n = len(utts)
+    n_dev = max(n // 10, 1)
+    n_test = max(n // 10, 1)
+    return (utts[: n - n_dev - n_test], utts[n - n_dev - n_test : n - n_test],
+            utts[n - n_test :], corpus.tokenizer)
+
+
+def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
+        profile_steps: tuple | None = None, device="cuda"):
+    """Train per the experiment config on ``device``; returns the summary dict."""
+    set_full_fp32()
+    if profile_steps:
+        raise NotImplementedError("profile_steps is not ported yet")
+    exp.check_trainable()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit(device='cuda') needs a CUDA card; pass device='cpu' for the CPU")
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    exp.to_yaml(model_dir / "config.yml")
+
+    train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
+    task = exp.ctc_task(tokenizer.num_units)
+    train_ds = Dataset(
+        train_utts, exp.batch_size, sort_utt=exp.sort_utt,
+        sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed,
+        max_frames_per_batch=exp.max_frames_per_batch,
+        samples_per_frame=task.frontend.frame_step,
+    )
+    dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True)
+    params = tree_to(init_params(task, torch.Generator().manual_seed(exp.seed)), device)
+    n_params = sum(v.numel() for v in params.values())
+    print_fn(f"model: {exp.model_type}/{exp.encoder_type} params={n_params:,} on {device}")
+
+    opt = build_optimizer(exp.optimizer, exp.clip_grad_norm)
+    opt_state = opt.init(params)
+    train_step = make_train_step(task, opt, grad_accum=exp.grad_accum_steps)
+    eval_step = make_eval_step(task)
+    controller = LRController(exp.learning_rate, exp.decay_start_epoch, exp.decay_rate,
+                              exp.decay_patient_epoch)
+    ckpts = CheckpointManager(model_dir / "checkpoints")
+
+    csv_path = model_dir / "metrics.csv"
+    with open(csv_path, "w", newline="") as f:
+        csv.writer(f).writerow(["epoch", "step", "train_loss", "dev_loss", "dev_error_rate",
+                                "lr", "utts_per_sec"])
+    events = EventWriter(model_dir / "events")
+
+    generator = torch.Generator(device=device).manual_seed(exp.seed + 1)  # dropout draws
+    lr = controller.lr
+    step = 0
+    best_dev = float("inf")
+    summary = {}
+    if (model_dir / "summary.json").exists():
+        summary = json.loads((model_dir / "summary.json").read_text())
+    start_epoch = 0
+    if ckpts.latest_epoch is not None:
+        start_epoch, state = ckpts.restore({"params": None, "extra": None},
+                                           epoch=ckpts.latest_epoch)
+        params = tree_to(state["params"], device)
+        extra = state["extra"]
+        opt_state = tree_to(extra["opt_state"], device)
+        generator.set_state(extra["generator"])
+        controller.load_state_dict(extra["lr_controller"])
+        lr = controller.lr
+        step = int(extra["step"])
+        best_dev = float(extra["best_dev"])
+        start_epoch += 1
+        print_fn(f"resuming from checkpoint epoch {start_epoch - 1}")
+    for epoch in range(start_epoch, exp.num_epoch):
+        t0 = time.perf_counter()
+        losses = []
+        n_utts = 0
+        nonfinite = torch.zeros((), dtype=torch.int64, device=device)
+        for batch in prefetch(train_ds.batches(epoch)):
+            eff_lr = lr * min(1.0, (step + 1) / exp.warmup_steps) if exp.warmup_steps else lr
+            params, opt_state, aux = train_step(params, opt_state, to_device(batch, device),
+                                                eff_lr, generator)
+            nonfinite += aux["nonfinite"]
+            step += 1
+            n_utts += sum(1 for n in batch["names"] if n is not None)
+            if step % log_every == 0:
+                losses.append(float(aux["loss"]))  # the only host sync of a step
+                print_fn(f"epoch {epoch} step {step} loss {losses[-1]:.4f} lr {eff_lr:.2e}")
+                events.write_scalars(step, {"train/loss": losses[-1], "train/lr": eff_lr})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # the epoch's queued steps are done
+        epoch_time = time.perf_counter() - t0
+        dev = evaluate_ctc(eval_step, params, dev_ds, tokenizer, exp.label_type, epoch, device)
+        ups = n_utts / epoch_time
+        train_loss = float(np.mean(losses)) if losses else float(aux["loss"])
+        n_nonfinite = int(nonfinite)
+        print_fn(f"epoch {epoch} done: train_loss {train_loss:.4f} "
+                 f"dev_err {dev['error_rate']:.4f} {ups:.1f} utts/s"
+                 + (f" ({n_nonfinite} steps skipped: non-finite loss)" if n_nonfinite else ""))
+        with open(csv_path, "a", newline="") as f:
+            csv.writer(f).writerow([epoch, step, train_loss, dev["loss"], dev["error_rate"],
+                                    eff_lr, ups])
+        epoch_scalars = {"train/epoch_loss": train_loss, "dev/loss": dev["loss"],
+                         "dev/error_rate": dev["error_rate"], "train/utts_per_sec": ups}
+        if "wer" in dev:
+            epoch_scalars["dev/wer"] = dev["wer"]
+        events.write_scalars(step, epoch_scalars)
+        events.flush()
+        if dev["error_rate"] < best_dev:
+            best_dev = dev["error_rate"]
+        # the controller advances first, so the checkpoint holds this epoch's decision
+        lr = controller.update(epoch, dev["error_rate"])
+        ckpts.save(epoch, {
+            "params": params,
+            "extra": {
+                "opt_state": opt_state,
+                "generator": generator.get_state(),
+                "lr_controller": controller.state_dict(),
+                "step": step,
+                "best_dev": best_dev,
+            },
+        }, dev["error_rate"])
+        summary = {
+            "epochs": epoch + 1, "steps": step, "train_loss": train_loss,
+            "dev_loss": dev["loss"], "dev_error_rate": dev["error_rate"],
+            "best_dev_error_rate": best_dev, "utts_per_sec": ups,
+            "nonfinite_steps": n_nonfinite,
+        }
+    events.close()
+    with open(model_dir / "summary.json", "w") as f:
+        json.dump(summary, f, indent=2)
+    return summary

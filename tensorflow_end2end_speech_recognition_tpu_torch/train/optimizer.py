@@ -1,0 +1,150 @@
+"""Optimizers with global-norm clipping, as functions over dicts of tensors.
+
+Counterpart of ``build_optimizer`` / ``apply_updates`` in
+``tensorflow_end2end_speech_recognition_tpu/train/optimizer.py``, which
+chains ``optax.clip_by_global_norm`` with one of ``scale_by_adam``,
+``scale_by_adadelta``, ``identity``, ``trace(0.9)``, ``trace(0.9,
+nesterov=True)`` or ``scale_by_rms``. The arithmetic here is optax's, with
+its default constants, so one step matches it on the same gradients:
+
+- the clip keeps ``g`` when ``||g|| < max_norm`` and otherwise scales by
+  ``max_norm / ||g||`` (not ``torch.nn.utils``' ``max / (||g|| + 1e-6)``);
+- Adam bias-corrects both moments by the step count and adds ``eps``
+  outside the square root.
+
+The transforms yield unscaled update directions; ``apply_updates`` applies
+``p - lr * u`` so the learning rate can change every step without touching
+the state. ``torch.optim`` is not used: its Adam and clip differ in these
+details. Everything stays on the parameters' device; nothing syncs.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+OPTIMIZERS = ("adam", "adadelta", "sgd", "momentum", "nesterov", "rmsprop")
+
+# optax's defaults (scale_by_adam, scale_by_adadelta, scale_by_rms) and the
+# 0.9 decay of the reference's momentum / nesterov
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+ADADELTA_RHO, ADADELTA_EPS = 0.9, 1e-6
+RMS_DECAY, RMS_EPS = 0.9, 1e-8
+MOMENTUM = 0.9
+
+
+class Optimizer(NamedTuple):
+    """``init(params) -> state``; ``update(grads, state) -> (updates, state)``."""
+
+    init: Callable
+    update: Callable
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    return torch.sqrt(sum(x.square().sum() for x in tree.values()))
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    """``optax.clip_by_global_norm``: unchanged below ``max_norm``, else rescaled."""
+    g_norm = global_norm(grads)
+    trigger = g_norm < max_norm
+    return {k: torch.where(trigger, g, (g / g_norm) * max_norm) for k, g in grads.items()}
+
+
+def _zeros(params):
+    return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def _moment(g, m, decay, order):
+    return (1 - decay) * (g ** order) + decay * m
+
+
+def _adam():
+    def init(params):
+        count = torch.zeros((), dtype=torch.int32, device=next(iter(params.values())).device)
+        return {"count": count, "mu": _zeros(params), "nu": _zeros(params)}
+
+    def update(grads, state):
+        mu = {k: _moment(g, state["mu"][k], ADAM_B1, 1) for k, g in grads.items()}
+        nu = {k: _moment(g, state["nu"][k], ADAM_B2, 2) for k, g in grads.items()}
+        count = state["count"] + 1
+        c1 = 1 - ADAM_B1 ** count.to(torch.float32)
+        c2 = 1 - ADAM_B2 ** count.to(torch.float32)
+        updates = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + ADAM_EPS) for k in grads}
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+def _adadelta():
+    def init(params):
+        return {"e_g": _zeros(params), "e_x": _zeros(params)}
+
+    def update(grads, state):
+        e_g = {k: _moment(g, state["e_g"][k], ADADELTA_RHO, 2) for k, g in grads.items()}
+        updates = {k: (torch.sqrt(state["e_x"][k] + ADADELTA_EPS)
+                       / torch.sqrt(e_g[k] + ADADELTA_EPS)) * g for k, g in grads.items()}
+        e_x = {k: _moment(u, state["e_x"][k], ADADELTA_RHO, 2) for k, u in updates.items()}
+        return updates, {"e_g": e_g, "e_x": e_x}
+
+    return Optimizer(init, update)
+
+
+def _sgd():
+    return Optimizer(lambda params: {}, lambda grads, state: (dict(grads), {}))
+
+
+def _trace(nesterov: bool):
+    def init(params):
+        return {"trace": _zeros(params)}
+
+    def update(grads, state):
+        trace = {k: g + MOMENTUM * state["trace"][k] for k, g in grads.items()}
+        if nesterov:
+            updates = {k: g + MOMENTUM * trace[k] for k, g in grads.items()}
+        else:
+            updates = dict(trace)
+        return updates, {"trace": trace}
+
+    return Optimizer(init, update)
+
+
+def _rmsprop():
+    def init(params):
+        return {"nu": _zeros(params)}
+
+    def update(grads, state):
+        nu = {k: _moment(g, state["nu"][k], RMS_DECAY, 2) for k, g in grads.items()}
+        return {k: torch.rsqrt(nu[k] + RMS_EPS) * g for k, g in grads.items()}, {"nu": nu}
+
+    return Optimizer(init, update)
+
+
+def build_optimizer(name: str, clip_grad_norm: float | None = 5.0) -> Optimizer:
+    """Clip (when ``clip_grad_norm`` is set) then the named core transform."""
+    name = name.lower()
+    cores = {"adam": _adam, "adadelta": _adadelta, "sgd": _sgd, "rmsprop": _rmsprop,
+             "momentum": lambda: _trace(False), "nesterov": lambda: _trace(True)}
+    if name not in cores:
+        raise ValueError(f"unknown optimizer {name!r}; expected one of {OPTIMIZERS}")
+    core = cores[name]()
+    if not clip_grad_norm:
+        return core
+
+    def update(grads, state):
+        return core.update(clip_by_global_norm(grads, clip_grad_norm), state)
+
+    return Optimizer(core.init, update)
+
+
+def apply_updates(params: dict, updates: dict, lr) -> dict:
+    """``p - lr * u`` for every parameter."""
+    return {k: p - lr * updates[k] for k, p in params.items()}
+
+
+def tree_where(cond: torch.Tensor, new, old):
+    """``torch.where(cond, new, old)`` over matching nested dicts of tensors."""
+    if isinstance(new, dict):
+        return {k: tree_where(cond, new[k], old[k]) for k in new}
+    return torch.where(cond, new, old)

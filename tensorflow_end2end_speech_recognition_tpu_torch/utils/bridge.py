@@ -99,3 +99,19 @@ def load_weights(path, model: nn.Module) -> nn.Module:
     check_state_dict(model, state)
     model.load_state_dict(state)
     return model
+
+
+def adam_state_from_jax(opt_state, model: nn.Module) -> dict:
+    """optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) -> the port's Adam state.
+
+    ``opt_state`` is the state of ``build_optimizer("adam", ...)`` in the JAX
+    package: the Adam state alone, or a tuple (the clip chain) holding it.
+    The moments are parameter pytrees and map as ``params_from_jax`` maps
+    weights; arrays must already be numpy.
+    """
+    states = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    for s in states:
+        if all(hasattr(s, f) for f in ("count", "mu", "nu")):
+            return {"count": torch.tensor(int(np.asarray(s.count)), dtype=torch.int32),
+                    "mu": params_from_jax(s.mu, model), "nu": params_from_jax(s.nu, model)}
+    raise ValueError("no ScaleByAdamState (count, mu, nu) in the optimizer state")

@@ -1,108 +1,216 @@
-"""Reference-shaped YAML -> the port's typed CTC serving configs.
+"""Reference-shaped experiment configs -> the port's typed CTC configs.
 
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
-the keys of the CTC BLSTM configs the port serves (``configs/ls100_ctc.yml``,
-``configs/timit_ctc_blstm.yml``), mapped to the same ``FrontendConfig``,
-``EncoderConfig``, ``CTCConfig`` and ``CTCTaskConfig`` values the JAX
-package builds from them. Keys that only drive training or the data pipeline
-are accepted and not read; any other key raises, as in the JAX loader.
-``yaml`` is imported only when a file is read.
+``ExperimentConfig`` holds the keys of the CTC BLSTM configs the port serves
+and trains (``configs/ls100_ctc.yml``, ``configs/timit_ctc_blstm.yml``),
+with the JAX defaults, and builds the same ``FrontendConfig``,
+``EncoderConfig``, ``CTCConfig`` and ``CTCTaskConfig`` values. A key the JAX
+package knows but the port does not raises ``KeyError`` when it is read;
+a value the port has not ported (another model type, a mesh, gradient
+accumulation, SpecAugment, on-disk corpora, the hard toy corpus,
+per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
+``yaml`` is imported only when a file is read: ``experiment_from_dict``
+builds a config in code where ``yaml`` is missing.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import warnings
+from dataclasses import dataclass
+
+from ..data.tokenizers import UNITS, build_tokenizer
 from ..frontend.features import FrontendConfig
 from ..models.ctc import CTCConfig
 from ..models.encoders import EncoderConfig, check_supported
 from ..train.ctc_task import CTCTaskConfig
 
-# LibriSpeech-style character set: space, apostrophe, a-z (the JAX
-# tokenizers' CHAR_UNITS) and the 61-phone TIMIT inventory, sorted
-CHAR_UNITS = [" ", "'"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
-TIMIT_PHONE61 = [
-    "aa", "ae", "ah", "ao", "aw", "ax", "ax-h", "axr", "ay", "b", "bcl",
-    "ch", "d", "dcl", "dh", "dx", "eh", "el", "em", "en", "eng", "epi",
-    "er", "ey", "f", "g", "gcl", "h#", "hh", "hv", "ih", "ix", "iy", "jh",
-    "k", "kcl", "l", "m", "n", "ng", "nx", "ow", "oy", "p", "pau", "pcl",
-    "q", "r", "s", "sh", "t", "tcl", "th", "uh", "uw", "ux", "v", "w",
-    "y", "z", "zh",
-]
-UNITS = {"character": CHAR_UNITS, "phone61": TIMIT_PHONE61}
+# reference spellings -> the field they set (None: accepted, has no effect)
+ALIASES = {"pretrain_stage": None, "num_classes": None, "dropout_encoder": "dropout",
+           "dropout_input": None}
 
-# keys read for serving, with the JAX ExperimentConfig defaults
-SERVING_DEFAULTS = {
-    "model_type": "ctc",
-    "label_type": "phone61",
-    "feature": "fbank",
-    "input_size": 40,
-    "use_energy": True,
-    "use_delta": True,
-    "cmvn": "utterance",
-    "num_stack": 1,
-    "num_skip": 1,
-    "splice": 0,
-    "encoder_type": "blstm",
-    "num_units": 256,
-    "num_layers": 2,
-    "num_proj": None,
-    "use_peephole": False,
-    "clip_activation": None,
-    "parameter_init": 0.1,
-    "dropout": 1.0,
-    "bottleneck_dim": None,
-    "compute_dtype": "float32",
-}
-# keys that drive training, data or beam decoding only
-NOT_READ = frozenset({
-    "corpus", "train_data_size", "lstm_impl", "batch_size", "num_epoch",
-    "optimizer", "learning_rate", "decay_start_epoch", "decay_rate",
-    "decay_patient_epoch", "clip_grad_norm", "weight_decay", "sort_utt",
-    "sort_stop_epoch", "beam_width", "toy_num_utts", "max_utt_seconds",
-    "seed", "save_interval_epochs",
-})
-FLOAT_KEYS = ("parameter_init", "dropout", "clip_activation")
+
+@dataclass
+class ExperimentConfig:
+    """The CTC fields of the JAX ``ExperimentConfig``, same names and defaults."""
+
+    model_type: str = "ctc"
+    corpus: str = "toy"
+    label_type: str = "phone61"
+    label_type_sub: str | None = None
+    train_data_size: str | None = None
+    data_root: str | None = None
+    # features
+    feature: str = "fbank"
+    input_size: int = 40
+    use_energy: bool = True
+    use_delta: bool = True
+    cmvn: str = "utterance"
+    num_stack: int = 1
+    num_skip: int = 1
+    splice: int = 0
+    # encoder
+    encoder_type: str = "blstm"
+    num_units: int = 256
+    num_layers: int = 2
+    num_proj: int | None = None
+    lstm_impl: str | None = None  # accepted for parity; one implementation
+    compute_dtype: str = "float32"
+    use_peephole: bool = False
+    clip_activation: float | None = None
+    parameter_init: float = 0.1
+    dropout: float = 1.0  # keep probability
+    bottleneck_dim: int | None = None
+    main_task_weight: float = 0.8
+    use_specaugment: bool = False
+    # training
+    batch_size: int = 32
+    num_epoch: int = 20
+    optimizer: str = "adam"
+    learning_rate: float = 1e-3
+    decay_start_epoch: int = 5
+    decay_rate: float = 0.9
+    decay_patient_epoch: int = 1
+    warmup_steps: int = 0
+    grad_accum_steps: int = 1
+    clip_grad_norm: float = 5.0
+    weight_decay: float = 0.0
+    sort_utt: bool = True
+    sort_stop_epoch: int | None = None
+    eval_batch_size: int | None = None
+    max_frames_per_batch: int | None = None
+    num_devices: int | None = None
+    num_model_shards: int | None = None
+    num_pipeline_stages: int | None = None
+    num_sequence_shards: int | None = None
+    num_expert_shards: int | None = None
+    fsdp: bool = False
+    # decode
+    beam_width: int = 1
+    # toy corpus
+    toy_profile: str = "easy"
+    toy_num_utts: int = 128
+    toy_min_units: int = 3
+    toy_max_units: int = 10
+    toy_vocab_size: int | None = None
+    toy_seed: int = 0
+    max_utt_seconds: float | None = None
+    # misc
+    seed: int = 0
+    save_interval_epochs: int = 1
+
+    @classmethod
+    def from_yaml(cls, path) -> "ExperimentConfig":
+        import yaml
+
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f) or {})
+
+    @classmethod
+    def from_dict(cls, raw: dict) -> "ExperimentConfig":
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+        # PyYAML reads "3e-3" (no dot) as a string
+        float_fields = {n for n, f in fields.items() if f.type in ("float", "float | None")}
+        cfg = {}
+        for k, v in raw.items():
+            if k in ALIASES:
+                if ALIASES[k] is None:
+                    warnings.warn(f"config key {k!r}={v!r} is accepted for reference parity "
+                                  "but has no effect", stacklevel=2)
+                    continue
+                k = ALIASES[k]
+            if k not in fields:
+                raise KeyError(f"config key {k!r} is unknown to the port's CTC path")
+            cfg[k] = float(v) if k in float_fields and isinstance(v, str) else v
+        return cls(**cfg)
+
+    def to_yaml(self, path) -> None:
+        """Write every field as ``key: value`` (JSON scalars are YAML scalars)."""
+        with open(path, "w") as f:
+            for k, v in dataclasses.asdict(self).items():
+                f.write(f"{k}: {json.dumps(v)}\n")
+
+    # ---- derived typed configs ------------------------------------------
+
+    def frontend_config(self) -> FrontendConfig:
+        if self.feature != "fbank":
+            raise NotImplementedError(f"feature {self.feature!r} is not ported yet")
+        if self.cmvn == "speaker":
+            raise NotImplementedError("per-speaker CMVN is not ported yet")
+        return FrontendConfig(num_mels=self.input_size, use_energy=self.use_energy,
+                              add_deltas=self.use_delta, cmvn=self.cmvn)
+
+    def encoder_config(self) -> EncoderConfig:
+        cfg = EncoderConfig(
+            encoder_type=self.encoder_type,
+            num_units=self.num_units,
+            num_layers=self.num_layers,
+            num_proj=self.num_proj,
+            use_peephole=self.use_peephole,
+            clip_activation=self.clip_activation,
+            parameter_init=self.parameter_init,
+            dropout_keep_prob=self.dropout,
+            compute_dtype=self.compute_dtype,
+        )
+        check_supported(cfg)
+        return cfg
+
+    def ctc_config(self, num_classes: int) -> CTCConfig:
+        if self.model_type != "ctc":
+            raise NotImplementedError(f"model_type {self.model_type!r} is not ported yet")
+        return CTCConfig(encoder=self.encoder_config(), num_classes=num_classes,
+                         bottleneck_dim=self.bottleneck_dim)
+
+    def ctc_task(self, num_classes: int) -> CTCTaskConfig:
+        """The task ``build_ctc_task`` of the JAX loop builds (waveform mode)."""
+        if self.use_specaugment:
+            raise NotImplementedError("SpecAugment is not ported yet")
+        return CTCTaskConfig(
+            model=self.ctc_config(num_classes),
+            frontend=self.frontend_config(),
+            num_stack=self.num_stack,
+            num_skip=self.num_skip,
+            splice=self.splice,
+            weight_decay=self.weight_decay,
+            main_task_weight=self.main_task_weight,
+        )
+
+    def check_trainable(self) -> None:
+        """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
+        unported = {
+            "data_root (on-disk corpora)": self.data_root is not None,
+            "label_type_sub (multitask CTC)": self.label_type_sub is not None,
+            "grad_accum_steps > 1": self.grad_accum_steps > 1,
+            "num_devices > 1": (self.num_devices or 1) > 1,
+            "num_model_shards > 1": (self.num_model_shards or 1) > 1,
+            "num_pipeline_stages > 1": (self.num_pipeline_stages or 1) > 1,
+            "num_sequence_shards > 1": (self.num_sequence_shards or 1) > 1,
+            "num_expert_shards > 1": (self.num_expert_shards or 1) > 1,
+            "fsdp": self.fsdp,
+            "use_specaugment": self.use_specaugment,
+        }
+        for what, on in unported.items():
+            if on:
+                raise NotImplementedError(f"{what} is not ported yet")
+        if self.toy_profile in ("hard", "harder"):
+            raise NotImplementedError(f"toy_profile {self.toy_profile!r} is not ported yet")
+        if self.toy_profile != "easy":
+            raise ValueError(f"unknown toy_profile {self.toy_profile!r}")
+
+
+def experiment_from_dict(raw: dict) -> ExperimentConfig:
+    """A config dict shaped like the YAML files -> ``ExperimentConfig``."""
+    return ExperimentConfig.from_dict(raw)
 
 
 def task_from_dict(raw: dict):
     """Reference-shaped config dict -> (CTCTaskConfig, units, label_type)."""
-    cfg = dict(SERVING_DEFAULTS)
-    for k, v in raw.items():
-        if k in SERVING_DEFAULTS:
-            # PyYAML reads "3e-3" (no dot) as a string
-            cfg[k] = float(v) if k in FLOAT_KEYS and isinstance(v, str) else v
-        elif k not in NOT_READ:
-            raise KeyError(f"config key {k!r} is unknown to the port's CTC serving path")
-    if cfg["model_type"] != "ctc":
-        raise NotImplementedError(f"model_type {cfg['model_type']!r} is not ported yet")
-    if cfg["label_type"] not in UNITS:
-        raise NotImplementedError(f"label_type {cfg['label_type']!r} is not ported yet")
-    if cfg["feature"] != "fbank":
-        raise NotImplementedError(f"feature {cfg['feature']!r} is not ported yet")
-    if cfg["cmvn"] == "speaker":
-        raise NotImplementedError("per-speaker CMVN is not ported yet")
-    encoder = EncoderConfig(
-        encoder_type=cfg["encoder_type"],
-        num_units=cfg["num_units"],
-        num_layers=cfg["num_layers"],
-        num_proj=cfg["num_proj"],
-        use_peephole=cfg["use_peephole"],
-        clip_activation=cfg["clip_activation"],
-        parameter_init=cfg["parameter_init"],
-        dropout_keep_prob=cfg["dropout"],
-        compute_dtype=cfg["compute_dtype"],
-    )
-    check_supported(encoder)
-    units = UNITS[cfg["label_type"]]
-    task = CTCTaskConfig(
-        model=CTCConfig(encoder=encoder, num_classes=len(units),
-                        bottleneck_dim=cfg["bottleneck_dim"]),
-        frontend=FrontendConfig(num_mels=cfg["input_size"], use_energy=cfg["use_energy"],
-                                add_deltas=cfg["use_delta"], cmvn=cfg["cmvn"]),
-        num_stack=cfg["num_stack"],
-        num_skip=cfg["num_skip"],
-        splice=cfg["splice"],
-    )
-    return task, list(units), cfg["label_type"]
+    exp = ExperimentConfig.from_dict(raw)
+    if exp.label_type not in UNITS:
+        raise NotImplementedError(f"label_type {exp.label_type!r} is not ported yet")
+    units = build_tokenizer(exp.label_type).units
+    return exp.ctc_task(len(units)), list(units), exp.label_type
 
 
 def load_task(path):

@@ -5,27 +5,46 @@ no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q -rs
 
-Tolerance atol/rtol 1e-5 in float32 at these short sequences: the kernel
-and cuBLAS sum each dot product in different orders.
+Tolerances in float32 at these short sequences: atol/rtol 1e-5 for the BLSTM
+kernels (the kernel and cuBLAS sum each dot product in different orders),
+1e-4 absolute on CTC losses (a sum of T log terms) and 1e-5 on CTC gradients.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
+from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig, CTCModel
+from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.rnn import BiLSTM
-from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import lstm_bidi, lstm_bidi_plain
+from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
+    ctc_loss,
+    ctc_loss_fwd_bwd,
+    ctc_loss_fwd_only,
+    ctc_loss_fwd_only_plain,
+    ctc_loss_plain,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
+    lstm_bidi,
+    lstm_bidi_bwd,
+    lstm_bidi_bwd_plain,
+    lstm_bidi_fwd,
+    lstm_bidi_fwd_plain,
+)
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
+
+LSTM_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_full_fp32()
     return torch.device("cuda")
 
 
@@ -40,19 +59,45 @@ def _inputs(dev, b, t, h, lengths, seed):
     return xf, xb, whf, whb, mask
 
 
-@pytest.mark.parametrize("b,t,h,lengths", [
+SHAPES = [
     (5, 37, 70, [37, 1, 20, 36, 2]),  # neither H nor B a multiple of the 8-wide tiles
     (9, 5, 1536, [5, 1, 3, 5, 2, 4, 5, 1, 3]),  # > 48 KB shared memory, two row tiles
-])
+]
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES)
 def test_kernel_matches_plain(dev, b, t, h, lengths):
     args = _inputs(dev, b, t, h, lengths, seed=h)
     before = lstm_bidi.launches
     got = lstm_bidi(*args, 1.0)
     torch.cuda.synchronize()
     assert lstm_bidi.launches == before + 1
-    want = lstm_bidi_plain(*args, 1.0)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    want = lstm_bidi_fwd_plain(*args, 1.0)
+    for g, w in zip(got, want[:2]):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES)
+def test_cell_state_stream_matches_plain(dev, b, t, h, lengths):
+    args = _inputs(dev, b, t, h, lengths, seed=h + 1)
+    got = lstm_bidi_fwd(*args, 0.5, with_cs=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, lstm_bidi_fwd_plain(*args, 0.5)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES)
+def test_backward_kernel_matches_plain(dev, b, t, h, lengths):
+    args = _inputs(dev, b, t, h, lengths, seed=h + 2)
+    fwd = lstm_bidi_fwd_plain(*args, 1.0)
+    rng = np.random.RandomState(h)
+    gys = [torch.from_numpy(rng.randn(b, t, h).astype(np.float32)).to(dev) for _ in range(2)]
+    before = lstm_bidi_bwd.launches
+    got = lstm_bidi_bwd(*args, *fwd, *gys, 1.0)
+    torch.cuda.synchronize()
+    assert lstm_bidi_bwd.launches == before + 1
+    for g, w in zip(got, lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
 
 
 def test_kernel_rejects_mixed_devices(dev):
@@ -69,4 +114,65 @@ def test_bilstm_layer_on_card_matches_cpu(dev):
     with torch.inference_mode():
         want = layer(xs, lengths)
         got = layer.to(dev)(xs.to(dev), lengths.to(dev))
-    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got.cpu(), want, **LSTM_TOL)
+
+
+def _ctc_case(dev, b, t, c, u, seed):
+    """Ragged logit and label lengths, repeats, an empty and an impossible row."""
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(b, t, c) * 2).astype(np.float32)).to(dev)
+    label_len = rng.randint(0, u + 1, b)
+    label_len[0], label_len[1] = u, 0
+    labels = np.full((b, u), -1, np.int32)
+    for i, n in enumerate(label_len):
+        labels[i, :n] = rng.randint(0, c - 1, n)
+    labels[0, 1:3] = labels[0, 0]  # repeated labels
+    logit_len = rng.randint(1, t + 1, b)
+    logit_len[0] = t
+    if b > 2:  # u labels in 2 frames: no alignment, a loss of about 1e30
+        label_len[-1], logit_len[-1] = u, 2
+        labels[-1] = rng.randint(0, c - 1, u)
+    as_t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)  # noqa: E731
+    return logits, as_t(logit_len), as_t(labels), as_t(label_len)
+
+
+@pytest.mark.parametrize("b,t,c,u", [
+    (7, 23, 29, 5),  # B not a multiple of anything, C = 29 (ls100)
+    (3, 30, 11, 600),  # S = 1201 lanes: more than one block of threads
+    (2, 9, 5, 10000),  # S = 20001: the rows do not fit in shared memory
+])
+def test_ctc_kernels_match_plain(dev, b, t, c, u):
+    args = _ctc_case(dev, b, t, c, u, seed=u)
+    before = (ctc_loss_fwd_bwd.launches, ctc_loss_fwd_only.launches)
+    loss, grad = ctc_loss_fwd_bwd(*args, c - 1)
+    fwd = ctc_loss_fwd_only(*args, c - 1)
+    torch.cuda.synchronize()
+    assert (ctc_loss_fwd_bwd.launches, ctc_loss_fwd_only.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    want_loss, want_grad = ctc_loss_plain(*args, c - 1)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(fwd, ctc_loss_fwd_only_plain(*args, c - 1), atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(grad, want_grad, atol=1e-5, rtol=1e-5)
+    assert bool(torch.isfinite(loss).all())
+
+
+def test_ctc_model_on_card_trains_every_parameter(dev):
+    """Autograd reaches every encoder weight through the BLSTM and CTC kernels."""
+    cfg = CTCConfig(encoder=EncoderConfig(num_units=24, num_layers=3), num_classes=7)
+    cpu = CTCModel(cfg, 10, torch.Generator().manual_seed(0))
+    model = CTCModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.RandomState(2)
+    feats = torch.from_numpy(rng.randn(3, 13, 10).astype(np.float32))
+    lens = torch.tensor([13, 6, 1])
+    labels = torch.tensor([[0, 1, 1], [2, 3, -1], [4, -1, -1]], dtype=torch.int32)
+    label_len = torch.tensor([3, 2, 1], dtype=torch.int32)
+    counts = (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches)
+    for m, d in ((cpu, "cpu"), (model, dev)):
+        out = m(feats.to(d), lens.to(d))
+        ctc_loss(out.logits, out.logit_len, labels.to(d), label_len.to(d)).sum().backward()
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches) == (
+        counts[0] + 3, counts[1] + 3, counts[2] + 1)
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=name)
