@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's CTC serving and training paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's CTC serving, CTC training and attention
+serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the step's profile table
@@ -31,13 +32,33 @@ Phases; any failure exits non-zero and prints no result line:
 9. ``train/loop.fit`` on the ls100_ctc config for one epoch of the toy corpus
    (the training path; launch counts reset just before and read just
    after): finite losses, no skipped step, the dev eval on the loss-only
-   kernel, checkpoints and summary written.
+   kernel, checkpoints and summary written;
+10. attention kernel: ``location_attend`` (#7) against its plain version at
+    the ls960_joint decoder's shapes, N=8 (greedy) and N=64 (beam 8 x 8),
+    T=300, A=256, He=1024, C=10, W=101, lengths that include 1, T and 0,
+    plus a small case with an even W and sharpening 1.5;
+11. ``lstm_bidi`` forward at the pyramidal encoder's first layer, B=8,
+    T=1198, D=120 -> H=512, ragged lengths;
+12. build the ``configs/ls960_joint.yml`` model at full width in code (120
+    dims, 5 x pyramidal BLSTM-512 with two 2x reductions, hybrid attention
+    A=256, LSTM decoder 512, 28 characters + sos/eos, joint CTC head) with
+    seeded uniform +-0.1 weights; on 2 x 1 s check the encoder outputs, CTC
+    logits, greedy ids and logits and beam-8 tokens, lengths and scores on
+    the card against the CPU (plain path);
+13. time the attention serving phases on 8 x 12 s (frontend, encoder,
+    greedy decode, beam-8 decode, each with its steps and #7 launches) with
+    a profile of each decode's device time, and serve 8 concurrent
+    ``/recognize`` requests through ``bin/serve.make_server(...,
+    beam_width=8)`` (the attention serving path; launch counts reset just
+    before and read just after).
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
-is one (cuDNN ``nn.LSTM``; ``F.log_softmax`` + ``F.ctc_loss``), which the
-port never calls. Prints a JSON line of the kernels, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+is one (cuDNN ``nn.LSTM``; ``F.log_softmax`` + ``F.ctc_loss``; none for the
+attention read), which the port never calls; #7's calls, shorter than
+their Python wrapper, are timed from CUDA-graph replays. Prints a JSON line
+of the kernels, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
 
@@ -61,11 +82,13 @@ import torch.nn.functional as F
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
 from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_server
 from tensorflow_end2end_speech_recognition_tpu_torch.data.tokenizers import CHAR_UNITS
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding import attention_beam_search
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
     ctc_greedy_decode,
 )
-from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn
-from tensorflow_end2end_speech_recognition_tpu_torch.ops import build, ctc, lstm
+from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn, seq2seq
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
+from tensorflow_end2end_speech_recognition_tpu_torch.train import att_task
 from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import (
     device_pipeline,
     forward_loss,
@@ -88,6 +111,8 @@ BWD_ATOL = 1e-4  # dxproj: the same, through the reverse walk
 CTC_LOSS_RTOL = 1e-5  # losses of about 1e3, a sum of 400 log terms
 CTC_GRAD_ATOL = 1e-5  # gradients are probabilities in [-1, 1]
 MODEL_ATOL = 1e-3  # logits after the frontend, 5 BLSTM-512 layers and the head
+# a beam score sums up to 120 log-probabilities, each within about 1e-5
+BEAM_SCORE_RTOL = 1e-5
 LOSS_RTOL = 1e-4  # full-width train step, card vs CPU
 GRAD_RTOL = 1e-3  # each gradient within 1e-3 of its largest entry
 REQUEST_SECONDS = (12.0, 12.0, 10.5, 9.0, 7.0, 5.0, 3.0, 1.0)
@@ -110,10 +135,41 @@ KERNELS = {
     "ctc_loss_fwd_only": {"source": f"{PKG}/csrc/ctc_loss.cu",
                           "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
                                       "ctc_kernel.py:281"},
+    "location_attend": {"source": f"{PKG}/csrc/location_attend.cu",
+                        "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                    "attention_kernel.py:47"},
 }
 COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd,
-            "ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only}
-# configs/ls100_ctc.yml as a dict (the card machine may have no yaml)
+            "ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only,
+            "location_attend": attention.location_attend}
+NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
+# attention serving: configs/ls960_joint.yml at full width
+B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
+ATT_T, ATT_A, ATT_HE, ATT_C, ATT_W = 300, 256, 1024, 10, 101  # encoder frames after 2 x 2x
+BEAM = 8
+# float32: one read sums 101 taps, 256 scores and 300 context terms in other
+# orders than the plain version's conv / matmul / softmax
+ATT_ALIGN_ATOL = 1e-5
+ATT_CTX_ATOL = 1e-4
+ATT_REQUEST_SECONDS = (12.0, 11.0, 9.5, 8.0, 6.0, 4.0, 2.5, 1.0)
+# configs/ls960_joint.yml and configs/ls100_ctc.yml as dicts (the card machine
+# may have no yaml)
+LS960_JOINT = {
+    "model_type": "joint_ctc_attention", "corpus": "toy", "label_type": "character",
+    "train_data_size": "train960h", "input_size": 40, "use_energy": False, "use_delta": True,
+    "num_stack": 1, "num_skip": 1, "encoder_type": "pyramidal_blstm", "num_units": 512,
+    "num_layers": 5, "num_pyramid_levels": 2, "attention_type": "hybrid", "attention_dim": 256,
+    "decoder_num_units": 512, "embedding_dim": 256, "ctc_loss_weight": 0.3,
+    "guided_attention_weight": 5.0, "guided_attention_sigma": 0.2,
+    "guided_attention_decay_steps": 192, "ctc_loss_weight_init": 0.6,
+    "ctc_loss_weight_anneal_steps": 60, "label_smoothing_prob": 0.05,
+    "scheduled_sampling_prob": 0.2, "scheduled_sampling_ramp_max_step": 20000,
+    "max_decode_length": 120, "dropout": 0.8, "batch_size": 32, "num_epoch": 15,
+    "optimizer": "adam", "learning_rate": 2.0e-3, "warmup_steps": 20, "decay_start_epoch": 5,
+    "decay_rate": 0.9, "decay_patient_epoch": 1, "clip_grad_norm": 5.0, "sort_utt": True,
+    "sort_stop_epoch": 5, "beam_width": 8, "length_penalty": 0.6, "toy_num_utts": 512,
+    "toy_min_units": 8, "toy_max_units": 20,
+}
 LS100_CTC = {
     "model_type": "ctc", "corpus": "toy", "label_type": "character",
     "train_data_size": "train100h", "input_size": 40, "use_energy": False,
@@ -164,6 +220,28 @@ def plain_kernel_ms(plain, kernel, reps_plain: int, reps_kernel: int) -> dict:
     return {"ms": sum(k) / 2, "plain_ms": sum(p) / 2, "ms_runs": k, "plain_ms_runs": p}
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` from CUDA events around one replay of a CUDA
+    graph that holds ``reps`` calls: no host enqueue between the kernels, for
+    calls shorter than their Python wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: library, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(bytes_moved: float, ops: float) -> dict:
     """The least time for the work: bytes over HBM rate vs float32 ops over peak."""
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
@@ -186,16 +264,16 @@ def check(name: str, got, want, atol: float, rtol: float = 0.0) -> float:
     return err
 
 
-def lstm_inputs(dev, b: int, lengths, seed: int):
+def lstm_inputs(dev, b: int, lengths, seed: int, t: int = T_ENC, d: int = D_IN):
     """The projections ``BiLSTM.forward`` hands the kernel, for a first layer."""
     g = torch.Generator().manual_seed(seed)
-    xs = torch.randn(b, T_ENC, D_IN, generator=g).to(dev)
-    layer = rnn.BiLSTM(D_IN, H, generator=g).to(dev)
+    xs = torch.randn(b, t, d, generator=g).to(dev)
+    layer = rnn.BiLSTM(d, H, generator=g).to(dev)
     lengths = torch.tensor(lengths, device=dev)
     with torch.no_grad():
         xproj_f = torch.matmul(xs, layer.fwd.wx) + layer.fwd.b
         xproj_b = rnn.flip_valid(torch.matmul(xs, layer.bwd.wx) + layer.bwd.b, lengths)
-    mask = (torch.arange(T_ENC, device=dev)[None] < lengths[:, None]).float()
+    mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
     return (xproj_f, xproj_b, layer.fwd.wh.detach(), layer.bwd.wh.detach(), mask,
             layer.forget_bias), xs, lengths
 
@@ -203,7 +281,7 @@ def lstm_inputs(dev, b: int, lengths, seed: int):
 def cudnn_lstm(dev, xs, lengths, seed: int):
     """cuDNN bidirectional ``nn.LSTM`` on a packed sequence: forward, backward calls."""
     torch.manual_seed(seed)
-    net = torch.nn.LSTM(D_IN, H, batch_first=True, bidirectional=True).to(dev)
+    net = torch.nn.LSTM(xs.shape[-1], H, batch_first=True, bidirectional=True).to(dev)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         xs.requires_grad_(True), lengths.cpu(), batch_first=True, enforce_sorted=False)
     out = net(packed)[0]
@@ -220,17 +298,17 @@ def cudnn_lstm(dev, xs, lengths, seed: int):
     return forward, backward
 
 
-def lstm_work(lengths, h: int, with_cs: bool, backward: bool) -> dict:
+def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC) -> dict:
     """Bytes each input read once / output written once, and float32 operations
     of the valid steps (a masked step needs no work), for one layer's call."""
     b, valid = len(lengths), float(sum(lengths))
-    stream = b * T_ENC * h * F32  # one [B, T, H] tensor
+    stream = b * t * h * F32  # one [B, T, H] tensor
     weights = 2 * h * 4 * h * F32
     if backward:  # xproj x2, wh x2, mask, ys/cs/gys x2 in; dxproj x2 out
-        moved = 2 * 4 * stream + weights + b * T_ENC * F32 + 6 * stream + 2 * 4 * stream
+        moved = 2 * 4 * stream + weights + b * t * F32 + 6 * stream + 2 * 4 * stream
         ops = 2 * valid * (2 * 2 * h * 4 * h + 60 * h)  # gates and dh products, gate math
     else:  # xproj x2, wh x2, mask in; ys (and cs) x2 out
-        moved = 2 * 4 * stream + weights + b * T_ENC * F32 + (4 if with_cs else 2) * stream
+        moved = 2 * 4 * stream + weights + b * t * F32 + (4 if with_cs else 2) * stream
         ops = 2 * valid * (2 * h * 4 * h + 30 * h)
     return bound(moved, ops)
 
@@ -532,8 +610,7 @@ def serve_requests(task, model, gpu: str) -> dict:
     print(f"phase request latency: {len(lat)} concurrent requests in {batches} batch(es), "
           f"p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]", flush=True)
     print(f"responses: {[json.loads(r[1])['num_ids'] for r in results]} ids", flush=True)
-    want = {"lstm_bidi_fwd": LAYERS * batches, "lstm_bidi_bwd": 0, "ctc_loss": 0,
-            "ctc_loss_fwd_only": 0}
+    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS * batches)
     print(f"serving path launches: {counts}", flush=True)
     if batches < 1 or counts != want:
         raise RuntimeError(f"serving launches {counts} for {batches} batch(es); expected {want}")
@@ -558,8 +635,7 @@ def time_train_steps(task, params_cpu, dev, gpu: str, profile_out: str | None) -
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = {"lstm_bidi_fwd": LAYERS, "lstm_bidi_bwd": LAYERS, "ctc_loss": 1,
-            "ctc_loss_fwd_only": 0}
+    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1)
     if counts != want:
         raise RuntimeError(f"one train step launched {counts}; expected {want}")
     losses = []
@@ -632,8 +708,297 @@ def train_one_epoch(gpu: str) -> dict:
         raise RuntimeError(f"fit logged losses {losses} with summary {summary}")
     if not all(written.values()):
         raise RuntimeError(f"fit did not write its files: {written}")
-    if counts["ctc_loss_fwd_only"] < 1 or min(counts.values()) < 1:
-        raise RuntimeError(f"the training path did not launch every kernel: {counts}")
+    training = ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only")
+    if min(counts[k] for k in training) < 1 or counts["location_attend"]:
+        raise RuntimeError(f"the training path did not launch its kernels: {counts}")
+    return counts
+
+
+def attend_inputs(dev, n: int, lengths, seed: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C,
+                  w=ATT_W):
+    """One decoder step's read at the given shape: alignments from a softmax,
+    weights uniform in +-0.1 as the model draws them."""
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(n, t).astype(np.float32)
+    prev = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    arrays = [
+        rng.randn(n, t, a).astype(np.float32) * 0.5,  # keys_in = enc @ W_enc + b
+        rng.randn(n, t, he).astype(np.float32) * 0.3,  # enc_out
+        rng.randn(n, a).astype(np.float32) * 0.5,  # q = dec_state @ W_dec
+        prev.astype(np.float32),
+        np.arange(t)[None, :] < np.asarray(lengths)[:, None],  # enc_mask
+        ((rng.rand(w, 1, c) - 0.5) * 0.2).astype(np.float32),  # conv
+        ((rng.rand(c, a) - 0.5) * 0.2).astype(np.float32),  # w_loc
+        ((rng.rand(a) - 0.5) * 0.2).astype(np.float32),  # v
+    ]
+    return [torch.from_numpy(x).to(dev) for x in arrays]
+
+
+def attend_work(lengths, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT_W) -> dict:
+    """Bytes and float32 operations one read needs on these inputs: keys and
+    enc rows of the valid frames (every frame of a row with none: its
+    weights are 1/T), prev, mask, q and the shared weights in; align and ctx
+    out. Masked frames need no keys or enc row (their weight is 0)."""
+    moved = ops = 0.0
+    for length in lengths:
+        frames = length if length > 0 else t
+        moved += frames * (a + he) * F32 + t * (F32 + 1) + a * F32 + (t + he) * F32
+        # per valid frame: conv taps, location projection, score (add, add,
+        # tanh, multiply-add), context; per frame: softmax
+        ops += (length * (2 * w * c + 2 * c * a + 6 * a) + frames * 2 * he + 5 * t)
+    moved += (w * c + c * a + a) * F32
+    return bound(moved, ops)
+
+
+def check_attention_kernel(dev, gpu: str) -> dict:
+    """Kernel #7 against its plain version at the ls960_joint decoder's shapes."""
+    small = attend_inputs(dev, 3, [37, 5, 1], seed=9, t=37, a=16, he=12, c=4, w=10)
+    got = attention.location_attend(*small, 1.5)
+    want = attention.location_attend_plain(*small, 1.5)
+    torch.cuda.synchronize()
+    check("location_attend N=3 T=37 A=16 He=12 C=4 W=10 (even), sharpening 1.5: align",
+          got[1:], want[1:], ATT_ALIGN_ATOL)
+    check("location_attend small: ctx", got[:1], want[:1], ATT_CTX_ATOL)
+    out = {}
+    for n, seed in ((B_ATT, 10), (B_ATT * BEAM, 11)):
+        rng = np.random.RandomState(seed)
+        lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, n - 3)]
+        args = attend_inputs(dev, n, lengths, seed)
+        got = attention.location_attend(*args, 1.0)
+        want = attention.location_attend_plain(*args, 1.0)
+        torch.cuda.synchronize()
+        shape = f"N={n} T={ATT_T} A={ATT_A} He={ATT_HE} C={ATT_C} W={ATT_W}"
+        err = max(check(f"location_attend {shape}: align", got[1:], want[1:], ATT_ALIGN_ATOL),
+                  check(f"location_attend {shape}: ctx", got[:1], want[:1], ATT_CTX_ATOL))
+        if not torch.allclose(got[1][2], torch.full((ATT_T,), 1.0 / ATT_T, device=dev)):
+            raise RuntimeError("location_attend: the length-0 row is not 1/T")
+        plain = lambda: attention.location_attend_plain(*args, 1.0)  # noqa: E731
+        kernel = lambda: attention.location_attend(*args, 1.0)  # noqa: E731
+        # device time from graph replays (plain, kernel, kernel, plain); the
+        # eager calls' time also holds the wrapper's host work
+        p = [graph_ms(plain, 50)]
+        k = [graph_ms(kernel, 50) for _ in range(2)]
+        p.append(graph_ms(plain, 50))
+        eager = cuda_ms(kernel, 200)
+        r = out[n] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, ms_runs=k, plain_ms_runs=p,
+                          eager_ms=eager, max_abs_err=err, library_ms=None,
+                          **attend_work(lengths))
+        print(f"phase location_attend {shape}: kernel {r['ms'] * 1e3:.2f} us (runs "
+              f"{k[0] * 1e3:.2f}, {k[1] * 1e3:.2f}; graph replay), eager call {eager * 1e3:.2f} "
+              f"us, plain {r['plain_ms'] * 1e3:.2f} us (runs {p[0] * 1e3:.2f}, "
+              f"{p[1] * 1e3:.2f}), bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), no "
+              f"single library call, max abs err {err:.3e}  [{gpu}]", flush=True)
+    res = out[B_ATT * BEAM]
+    res["n8"] = {k: out[B_ATT][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                           "max_abs_err")}
+    return res
+
+
+def check_pyramidal_lstm(dev, gpu: str) -> dict:
+    """Kernel #1 at the pyramidal encoder's first layer: B=8, T=1198, D=120."""
+    rng = np.random.RandomState(12)
+    lengths = [T_PYR, 1] + [int(x) for x in rng.randint(T_PYR // 2, T_PYR + 1, B_ATT - 2)]
+    args, xs, lens = lstm_inputs(dev, B_ATT, lengths, seed=12, t=T_PYR, d=D_PYR)
+    with torch.no_grad():
+        got = lstm.lstm_bidi(*args)
+        want = lstm.lstm_bidi_fwd_plain(*args)[:2]
+        torch.cuda.synchronize()
+        err = check(f"lstm_bidi_fwd (pyramidal layer 0) B={B_ATT} T={T_PYR} H={H}", got, want,
+                    KERNEL_ATOL)
+        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), lambda: lstm.lstm_bidi(*args),
+                            1, 10)
+    lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=12)
+    r = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10),
+             **lstm_work(lengths, H, with_cs=False, backward=False, t=T_PYR))
+    print(f"phase lstm_bidi_fwd pyramidal B={B_ATT} T={T_PYR} D={D_PYR} H={H}: kernel "
+          f"{r['ms']:.3f} ms (runs {r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN "
+          f"nn.LSTM forward {r['library_ms']:.3f} ms, max abs err {err:.3e}  [{gpu}]",
+          flush=True)
+    return r
+
+
+def ls960_joint_task():
+    """configs/ls960_joint.yml at full width, built in code (no yaml on the card)."""
+    return experiment_from_dict(LS960_JOINT).att_task(len(CHAR_UNITS))
+
+
+def check_att_model(task, model_cpu, model_dev, dev) -> None:
+    """Encoder, CTC head, greedy and beam-8 on the card against the CPU plain path."""
+    rng = np.random.RandomState(13)
+    wav = (rng.randn(2, SR) * 0.1).astype(np.float32)
+    lens = np.asarray([SR, 9600], np.int32)
+    wav[1, 9600:] = 0.0
+    outs = []
+    for model, device in ((model_cpu, torch.device("cpu")), (model_dev, dev)):
+        with torch.inference_mode():
+            feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(device),
+                                               "input_len": torch.from_numpy(lens).to(device)})
+            enc = seq2seq.encode(model, feats, fl)
+            greedy = seq2seq.greedy_decode(model, feats, fl, precomputed=enc)
+            beam = attention_beam_search(model, feats, fl, beam_width=BEAM, precomputed=enc)
+        outs.append([x.cpu() for x in (enc.outputs, enc.ctc_logits, greedy.logits,
+                                       greedy.predicted_ids, beam.tokens, beam.lengths,
+                                       beam.scores, enc.lengths)] + [greedy.steps, beam.steps])
+    (ec, cc, gc, ic, tc, lc, sc, nc, gsc, bsc), (eg, cg, gg, ig, tg, lg, sg, ng, gsg, bsg) = outs
+    half = lambda x: -(-x // 2)  # noqa: E731  one pyramidal 2x reduction
+    t_enc = half(half(1 + (SR - 400) // 160))
+    if eg.shape != (2, t_enc, 2 * H) or cg.shape != (2, t_enc, len(CHAR_UNITS) + 1):
+        raise RuntimeError(f"unexpected encoder shapes {tuple(eg.shape)} {tuple(cg.shape)}")
+    errs = {"encoder outputs": float((ec - eg).abs().max()),
+            "CTC logits": float((cc - cg).abs().max()),
+            "greedy logits": float((gc - gg).abs().max()),
+            "beam-8 scores": float((sc - sg).abs().max())}
+    same = {"encoder lengths": torch.equal(nc, ng), "greedy ids": torch.equal(ic, ig),
+            "beam-8 tokens": torch.equal(tc, tg), "beam-8 lengths": torch.equal(lc, lg),
+            "steps": (gsc, bsc) == (gsg, bsg)}
+    print("ls960_joint on the card vs the CPU plain path, 2 x 1 s: "
+          + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {MODEL_ATOL:g}, beam scores {MODEL_ATOL:g} + {BEAM_SCORE_RTOL:g} x "
+          "|score|); " + ", ".join(f"{k} equal: {v}" for k, v in same.items())
+          + f"; greedy steps {gsg}, beam steps {bsg}, beam lengths {lg[:, 0].tolist()}",
+          flush=True)
+    if not all(bool(torch.isfinite(x).all()) for x in (eg, cg, gg, sg)):
+        raise RuntimeError("ls960_joint outputs on the card are not finite")
+    score_ok = bool(((sc - sg).abs() <= MODEL_ATOL + BEAM_SCORE_RTOL * sc.abs()).all())
+    if not all(v <= MODEL_ATOL for k, v in errs.items() if k != "beam-8 scores") or not (
+            score_ok and all(same.values())):
+        raise RuntimeError(f"ls960_joint on the card disagrees with the CPU: {errs} {same}")
+
+
+def device_busy(fn) -> tuple:
+    """(wall ms, device kernel ms, top kernels) of one profiled call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only; "Command Buffer Full" is CUPTI's record of the
+    # host waiting on a full launch queue, not a kernel
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                      and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+    return wall, sum(r[1] for r in kernels), kernels
+
+
+def time_att_phases(task, model, dev, gpu: str) -> None:
+    """Frontend, encoder, greedy and beam-8 decode on 8 x 12 s; #7 launches per decode."""
+    rng = np.random.RandomState(14)
+    wav = torch.from_numpy((rng.randn(B_ATT, 12 * SR) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.full((B_ATT,), 12 * SR, dtype=torch.int64, device=dev)
+    batch = {"inputs": wav, "input_len": lens}
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, batch)
+        enc = seq2seq.encode(model, feats, fl)
+        if feats.shape != (B_ATT, T_PYR, D_PYR) or enc.outputs.shape != (B_ATT, ATT_T, ATT_HE):
+            raise RuntimeError(f"unexpected shapes {tuple(feats.shape)} "
+                               f"{tuple(enc.outputs.shape)}")
+        decodes = {
+            "greedy decode": lambda: seq2seq.greedy_decode(model, feats, fl, precomputed=enc),
+            f"beam-{BEAM} decode": lambda: attention_beam_search(model, feats, fl,
+                                                                 beam_width=BEAM,
+                                                                 precomputed=enc),
+        }
+        steps = {}
+        for name, fn in decodes.items():
+            torch.cuda.synchronize()
+            before = attention.location_attend.launches
+            steps[name] = fn().steps
+            torch.cuda.synchronize()
+            launches = attention.location_attend.launches - before
+            if launches != steps[name]:
+                raise RuntimeError(f"{name}: {launches} location_attend launches for "
+                                   f"{steps[name]} decoder steps")
+        times = {
+            "frontend": host_ms(lambda: device_pipeline(task, batch), 5),
+            f"encoder (5 x pyramidal BLSTM-512, T={T_PYR}->{ATT_T})":
+                host_ms(lambda: seq2seq.encode(model, feats, fl), 3),
+            **{name: host_ms(fn, 3) for name, fn in decodes.items()},
+        }
+        for name, ms in times.items():
+            extra = ""
+            if name in steps:
+                extra = (f", {steps[name]} steps ({ms / steps[name]:.3f} ms per step), "
+                         f"{steps[name]} location_attend launches")
+            print(f"phase ls960_joint {name}: {ms:.3f} ms per batch of {B_ATT} x 12 s{extra}"
+                  f"  [{gpu}]", flush=True)
+        for name, fn in decodes.items():
+            wall, busy, kernels = device_busy(fn)
+            print(f"profile of one ls960_joint {name}: {wall:.3f} ms wall (profiled), "
+                  f"{busy:.3f} ms of device kernel time ({100 * busy / wall:.1f} % busy); top "
+                  "kernels by device time:", flush=True)
+            for key, t, n in kernels[:6]:
+                print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
+
+
+def serve_att_requests(task, model, gpu: str) -> dict:
+    """8 concurrent /recognize requests at beam 8; returns the launches they caused."""
+    server = make_server(task, model, B_ATT, 12 * SR, port=0, max_wait_ms=50.0, warmup=True,
+                         units=CHAR_UNITS, label_type="character", beam_width=BEAM)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.RandomState(15)
+    waves = [(rng.randn(int(s * SR)) * 0.1).astype(np.float32) for s in ATT_REQUEST_SECONDS]
+    results = [None] * len(waves)
+
+    def request(i):
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
+        t0 = time.perf_counter()
+        conn.request("POST", "/recognize", waves[i].tobytes(),
+                     {"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        results[i] = (resp.status, resp.read(), (time.perf_counter() - t0) * 1e3)
+        conn.close()
+
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        reset_counts()
+        server.batcher.batches_run = 0
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(len(waves))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        counts, batches = read_counts(), server.batcher.batches_run
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        raise RuntimeError("a request did not finish")
+    if health["beam_width"] != BEAM or health["blank_id"] is not None:
+        raise RuntimeError(f"unexpected /healthz {health}")
+    cfg = task.model
+    for seconds, (status, body, _) in zip(ATT_REQUEST_SECONDS, results):
+        if status != 200:
+            raise RuntimeError(f"/recognize returned {status}: {body[:200]!r}")
+        r = json.loads(body)
+        ids = r["ids"]
+        if (r["num_ids"] != len(ids) or len(ids) > cfg.max_decode_length
+                or not all(isinstance(i, int) and 0 <= i < cfg.vocab and i != cfg.eos_id
+                           for i in ids)
+                or r.get("text") is None or "truncated" in r):
+            raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
+    lat = sorted(r[2] for r in results)
+    print(f"phase ls960_joint request latency, beam {BEAM}: {len(lat)} concurrent requests in "
+          f"{batches} batch(es), p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]",
+          flush=True)
+    print(f"responses: {[json.loads(r[1])['num_ids'] for r in results]} ids", flush=True)
+    print(f"attention serving path launches: {counts}", flush=True)
+    k = seq2seq.decode_unroll_factor(cfg.max_decode_length)
+    steps = counts["location_attend"]
+    if (batches < 1 or counts["lstm_bidi_fwd"] != LAYERS * batches or steps % k
+            or not k * batches <= steps <= cfg.max_decode_length * batches
+            or any(counts[n] for n in ("lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"))):
+        raise RuntimeError(f"attention serving launches {counts} for {batches} batch(es)")
     return counts
 
 
@@ -675,15 +1040,33 @@ def main() -> int:
     time_train_steps(task, params_cpu, dev, gpu, args.profile_out)
     train_counts = train_one_epoch(gpu)
 
+    results["location_attend"] = check_attention_kernel(dev, gpu)
+    pyramidal = check_pyramidal_lstm(dev, gpu)
+    att = ls960_joint_task()
+    att_cpu = att_task.init_model(att, torch.Generator().manual_seed(0)).eval()
+    att_model = copy.deepcopy(att_cpu).to(dev).eval()
+    check_att_model(att, att_cpu, att_model, dev)
+    time_att_phases(att, att_model, dev, gpu)
+    att_counts = serve_att_requests(att, att_model, gpu)
+
     entries = []
     for name, meta in KERNELS.items():
         r = results[name]
+        # "launches": the count on the path that ported the kernel (CTC
+        # training for #1, #2, #5, #6; attention serving for #7)
         entries.append({
-            "name": name, "route": "cuda", **meta, "launches": train_counts[name],
-            "launches_serving": serve_counts[name], "max_abs_err": r["max_abs_err"],
+            "name": name, "route": "cuda", **meta,
+            "launches": att_counts[name] if name == "location_attend" else train_counts[name],
+            "launches_serving": serve_counts[name], "launches_training": train_counts[name],
+            "launches_att_serving": att_counts[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+        if name == "location_attend":
+            entries[-1]["n8"] = r["n8"]
+        if name == "lstm_bidi_fwd":
+            entries[-1]["pyramidal"] = {k: pyramidal[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,33 +7,39 @@ the cell) and its batch-major ``[B, T, C]`` logits with blank =
 ``num_classes``, so weights carry across by a plain dict walk
 (``utils/bridge.py``) and each module is held against its JAX counterpart.
 
-This package imports ``torch`` and numpy, never ``jax``. Ported so far, for
-the CTC BLSTM configs:
+This package imports ``torch`` and numpy, never ``jax``. Ported so far:
 
-- serving: waveform -> features -> frame stacking -> BLSTM encoder -> affine
-  head -> greedy decode, behind the micro-batching HTTP server of
+- CTC serving: waveform -> features -> frame stacking -> BLSTM encoder ->
+  affine head -> greedy decode, behind the micro-batching HTTP server of
   ``bin/serve.py``;
-- training: ``bin/train.py`` -> ``train/loop.fit`` -> the train step (CTC
-  loss, gradient through the BLSTM, clip, optimizer update, non-finite
-  guard) and the dev eval, on the toy corpus.
+- CTC training: ``bin/train.py`` -> ``train/loop.fit`` -> the train step
+  (CTC loss, gradient through the BLSTM, clip, optimizer update, non-finite
+  guard) and the dev eval, on the toy corpus;
+- attention / joint CTC-attention serving: pyramidal BLSTM encoder ->
+  LSTM decoder with location-aware attention -> greedy decoding or the
+  attention beam search, behind the same server (``--beam-width``).
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
-loss + gradient and the loss-only CTC (``ctc_loss.cu``).
+loss + gradient and the loss-only CTC (``ctc_loss.cu``), and the
+location-aware attention read (``location_attend.cu``).
 
 Layout:
 
 - ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel)
 - ``data``      frame stacking, tokenizers, toy corpus, batching, prefetch
-- ``ops``       kernel wrappers (``lstm``, ``ctc``), losses, the nvcc builder
+- ``ops``       kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, the
+                nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
-- ``models``    BLSTM layer, dropout, encoder, CTC model
-- ``decoding``  CTC greedy collapse
-- ``train``     CTC task (pipeline, train/eval steps), optimizers, LR
-                controller, checkpoints, the training loop
+- ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal)
+                encoder, CTC model, attention scorers, seq2seq model
+- ``decoding``  CTC greedy collapse, attention beam search
+- ``train``     CTC task (pipeline, train/eval steps), attention task
+                config, optimizers, LR controller, checkpoints, the loop
 - ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
                 edit distance and error rates, TensorBoard event writer
-- ``serving``   inference function and micro-batcher
+- ``serving``   inference function (CTC; attention greedy or beam) and
+                micro-batcher
 - ``bin``       HTTP server, training CLI
 """
 

@@ -1,4 +1,4 @@
-"""Serve a CTC model over HTTP with micro-batching.
+"""Serve a CTC or attention model over HTTP with micro-batching.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/serve.py``
 (batch API). The JAX server loads a frozen StableHLO artifact; this one runs
@@ -10,9 +10,16 @@ Concurrent requests are grouped into fixed ``[batch, samples]`` batches by
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls100_ctc.yml weights.npz [--device cuda] [--batch 8] \
         [--seconds 12] [--host 127.0.0.1] [--port 8000] [--max-wait-ms 10]
+    python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
+        configs/ls960_joint.yml weights.npz --beam-width 8
+
+``model_type`` in the config picks the model: ``ctc`` decodes greedily;
+``attention`` and ``joint_ctc_attention`` decode greedily, or with the
+attention beam search at ``--beam-width`` above 1.
 
 API:
-  GET  /healthz    -> the serving contract (batch size, samples, blank id, device)
+  GET  /healthz    -> the serving contract (batch size, samples, beam width,
+                      blank id (null for attention models), device)
   POST /recognize  -> body is JSON ``{"audio": [floats...]}`` or raw
                       little-endian float32 PCM (Content-Type:
                       application/octet-stream). Response ``{"ids": [...],
@@ -38,6 +45,8 @@ def _decode_text(ids, meta) -> str | None:
     units = meta.get("units")
     if not units:
         return None
+    # ids outside the units are skipped: an attention model's sos and eos
+    # (num_classes, num_classes + 1)
     toks = [units[i] for i in ids if 0 <= i < len(units)]
     sep = "" if str(meta.get("label_type", "")).startswith("character") else " "
     return sep.join(toks)
@@ -115,18 +124,20 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(task, model, batch_size: int, num_samples: int,
                 host: str = "127.0.0.1", port: int = 0, max_wait_ms: float = 10.0,
                 request_timeout_s: float = 60.0, warmup: bool = True,
-                units: list | None = None, label_type: str | None = None
-                ) -> ThreadingHTTPServer:
+                units: list | None = None, label_type: str | None = None,
+                beam_width: int = 1) -> ThreadingHTTPServer:
     """Build (but don't start) the HTTP server over ``model`` on its device.
 
     ``.server_address`` has the bound port. The caller runs
     ``serve_forever()`` and, on shutdown, ``shutdown()``, ``server_close()``
     and ``.batcher.stop()``. ``warmup`` runs one zero batch before the server
     accepts traffic, so no request pays the first call's kernel build.
+    ``beam_width`` above 1 decodes an attention model with the beam search.
     """
     from ..serving import MicroBatcher, build_inference_fn
+    from ..train.ctc_task import CTCTaskConfig
 
-    infer = build_inference_fn(task, model)
+    infer = build_inference_fn(task, model, beam_width)
     if warmup:
         t0 = time.perf_counter()
         _, n = infer(np.zeros((batch_size, num_samples), np.float32),
@@ -138,8 +149,8 @@ def make_server(task, model, batch_size: int, num_samples: int,
         "batch_size": batch_size,
         "num_samples": num_samples,
         "input_rank": 2,
-        "beam_width": 1,
-        "blank_id": task.model.blank_id,
+        "beam_width": beam_width,
+        "blank_id": task.model.blank_id if isinstance(task, CTCTaskConfig) else None,
         "device": str(next(model.parameters()).device),
         "units": list(units) if units else None,
         "label_type": label_type,
@@ -154,13 +165,18 @@ def make_server(task, model, batch_size: int, num_samples: int,
 
 
 def load_model(config_path, weights_path, device):
-    """YAML config + bridged weights -> (task, model on ``device``, units, label_type)."""
-    from ..train.ctc_task import init_model
+    """YAML config + bridged weights -> (task, model on ``device``, units, label_type).
+
+    The config's ``model_type`` picks the model: a CTC model, or an
+    attention / joint CTC-attention seq2seq model.
+    """
+    from ..train import att_task, ctc_task
     from ..utils.bridge import load_weights
     from ..utils.config import load_task
 
     task, units, label_type = load_task(config_path)
-    model = load_weights(weights_path, init_model(task))
+    task_mod = ctc_task if isinstance(task, ctc_task.CTCTaskConfig) else att_task
+    model = load_weights(weights_path, task_mod.init_model(task))
     return task, model.to(device), units, label_type
 
 
@@ -176,6 +192,8 @@ def main(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
+    ap.add_argument("--beam-width", type=int, default=1,
+                    help="attention models: beam search above 1 (greedy at 1)")
     ap.add_argument("--request-timeout-s", type=float, default=60.0)
     ap.add_argument("--no-warmup", action="store_true")
     args = ap.parse_args(argv)
@@ -185,10 +203,11 @@ def main(argv=None):
     num_samples = int(args.seconds * task.frontend.sample_rate)
     server = make_server(task, model, args.batch, num_samples, args.host, args.port,
                          args.max_wait_ms, args.request_timeout_s,
-                         warmup=not args.no_warmup, units=units, label_type=label_type)
+                         warmup=not args.no_warmup, units=units, label_type=label_type,
+                         beam_width=args.beam_width)
     host, port = server.server_address[:2]
-    print(f"serving {args.config} on http://{host}:{port} "
-          f"(batch {args.batch}, {num_samples} samples, {args.device})", flush=True)
+    print(f"serving {args.config} on http://{host}:{port} (batch {args.batch}, "
+          f"{num_samples} samples, beam {args.beam_width}, {args.device})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -1,13 +1,16 @@
-"""BLSTM encoder stack.
+"""BLSTM and pyramidal BLSTM encoder stacks.
 
-Counterpart of the ``blstm`` branch of ``apply_encoder`` in
+Counterpart of the ``blstm`` and ``pyramidal_blstm`` (alias ``pblstm``)
+branches of ``apply_encoder`` in
 ``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack of
 ``BiLSTM`` layers over ``[B, T, D]`` with the true lengths carried alongside,
-and, in training, dropout after every layer, the last one included. The JAX
-package routes inputs longer than
-T = 400 to its scan path because of TPU toolchain limits; the kernel here
-runs at every T. Other encoder types and cell options raise
-``NotImplementedError`` until they are ported.
+and, in training, dropout after every layer, the last one included. The
+pyramidal stack concatenates adjacent frame pairs after each of its first
+``num_pyramid_levels`` layers (by default all but the last), halving T and
+doubling the next layer's input width (``_pyramid_reduce``). The JAX
+package routes inputs longer than T = 400 to its scan path because of TPU
+toolchain limits; the kernel here runs at every T. Other encoder types and
+cell options raise ``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .rnn import BiLSTM, dropout
+
+PYRAMIDAL_TYPES = ("pyramidal_blstm", "pblstm")
 
 
 class EncoderConfig(NamedTuple):
@@ -31,16 +37,27 @@ class EncoderConfig(NamedTuple):
     clip_activation: float | None = None
     parameter_init: float = 0.1
     dropout_keep_prob: float = 1.0  # applied after every layer in training
+    num_pyramid_levels: int | None = None  # None: a reduction after all but the last layer
     compute_dtype: str = "float32"
 
     @property
     def output_dim(self) -> int:
         return 2 * self.num_units
 
+    @property
+    def is_pyramidal(self) -> bool:
+        return self.encoder_type in PYRAMIDAL_TYPES
+
+    def reduces_after(self, layer: int) -> bool:
+        """Whether a pyramidal 2x time reduction follows ``layer`` (0-based)."""
+        levels = (self.num_pyramid_levels if self.num_pyramid_levels is not None
+                  else self.num_layers - 1)
+        return self.is_pyramidal and layer < levels
+
 
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.encoder_type != "blstm":
+    if cfg.encoder_type not in ("blstm",) + PYRAMIDAL_TYPES:
         raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} is not ported yet")
     for name, unset in (("num_proj", cfg.num_proj is None),
                         ("use_peephole", not cfg.use_peephole),
@@ -53,27 +70,50 @@ def check_supported(cfg: EncoderConfig) -> None:
         )
 
 
+def _pyramid_reduce(xs: torch.Tensor, lengths: torch.Tensor):
+    """Concat adjacent frame pairs: [B, T, H] -> [B, ceil(T/2), 2H].
+
+    An odd T gains one zero frame; lengths become ``ceil(len / 2)`` and
+    frames past them are zeroed, as ``_pyramid_reduce`` in the JAX package.
+    """
+    b, t, h = xs.shape
+    if t % 2:
+        xs = F.pad(xs, (0, 0, 0, 1))
+        t += 1
+    out = xs.reshape(b, t // 2, 2 * h)
+    new_len = torch.div(lengths + 1, 2, rounding_mode="floor")
+    mask = (torch.arange(t // 2, device=xs.device)[None, :]
+            < new_len.to(xs.device)[:, None])[..., None]
+    return out * mask, new_len
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig, input_dim: int,
                  generator: torch.Generator | None = None):
         super().__init__()
         check_supported(cfg)
-        dims = [input_dim] + [cfg.output_dim] * (cfg.num_layers - 1)
+        dims, dim = [], input_dim
+        for layer in range(cfg.num_layers):
+            dims.append(dim)
+            dim = cfg.output_dim * (2 if cfg.reduces_after(layer) else 1)
         self.layers = nn.ModuleList(
             BiLSTM(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
         )
+        self.cfg = cfg
         self.keep_prob = cfg.dropout_keep_prob
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None):
-        """[B, T, D] -> ([B, T, 2H], lengths).
+        """[B, T, D] -> ([B, T', 2H], lengths'); T' = T unless pyramidal.
 
         With ``train`` and a ``generator`` (on the inputs' device), each
         layer's output goes through dropout, as ``apply_encoder`` does when
         it is given an rng; without a generator no dropout is drawn.
         """
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             xs = layer(xs, lengths)
             if train and generator is not None:
                 xs = dropout(xs, self.keep_prob, train, generator)
+            if self.cfg.reduces_after(i):
+                xs, lengths = _pyramid_reduce(xs, lengths)
         return xs, lengths

@@ -7,7 +7,10 @@ direction, the backward direction's projection is reversed over each row's
 valid prefix, and ``ops.lstm.lstm_bidi`` runs both recurrences (through
 its ``torch.autograd.Function`` when a gradient may be taken). Only the
 plain LSTM cell is ported; peephole, projection, cell clip and GRU raise.
-``dropout`` is the inverted dropout of ``models/rnn.py`` there.
+``lstm_step`` is one step of that cell in plain PyTorch (``_lstm_step``
+there, which the JAX package runs in XLA, not in a kernel): the attention
+decoder's cell. ``dropout`` is the inverted dropout of ``models/rnn.py``
+there.
 """
 
 from __future__ import annotations
@@ -62,6 +65,18 @@ class BiLSTM(nn.Module):
         ys_f, ys_b = lstm_bidi(xproj_f, xproj_b, self.fwd.wh, self.bwd.wh, mask,
                                self.forget_bias)
         return torch.cat([ys_f, flip_valid(ys_b, lengths)], dim=-1)
+
+
+def lstm_step(wh: torch.Tensor, carry, xproj_t: torch.Tensor):
+    """One plain LSTM step: ``(h, c)`` from ``carry = (h, c)`` and ``xproj_t = x @ Wx + b``.
+
+    Gates i, f, g, o of ``xproj_t + h @ Wh`` with the forget bias 1.0 added
+    to f, as ``_lstm_step`` with every row unmasked (the decoder's case).
+    """
+    h_prev, c_prev = carry
+    i, f, g, o = (xproj_t + torch.matmul(h_prev, wh)).chunk(4, dim=-1)
+    c = torch.sigmoid(f + 1.0) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
 
 
 def dropout(x: torch.Tensor, keep_prob: float, train: bool,

@@ -1,0 +1,188 @@
+"""Attention seq2seq (+ joint CTC-attention) models: encoder, decoder step, greedy decode.
+
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/models/
+seq2seq.py`` for inference: ``Seq2SeqModel``'s module tree mirrors
+``init_seq2seq``'s parameter tree (``encoder``, ``embedding`` [vocab, E],
+``decoder_cell`` {``wx``, ``wh``, ``b``}, ``attention``, ``out_proj``
+{``w``, ``b``} and, for joint models, ``ctc_head``), so weights cross with
+``utils/bridge.py``. ``encode`` runs the encoder (and the joint CTC head),
+``_decoder_step`` one LSTM-decoder step with its attention read after the
+cell, and ``greedy_decode`` the argmax-feedback loop with EOS masking.
+
+The JAX ``while_loop`` becomes a Python loop that runs
+``decode_unroll_factor(max_len)`` steps and then reads "all finished" from
+the device once, so a decode syncs with the host once every k steps; steps
+past the all-finished point are gated by ``live`` exactly as the JAX body
+gates them, so the outputs are those of the JAX loop. Training
+(``forward_train``, scheduled sampling, dropout) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from .attention import Attention, AttentionConfig
+from .ctc import Affine
+from .encoders import Encoder, EncoderConfig
+from .rnn import LSTMParams, lstm_step
+
+
+class Seq2SeqConfig(NamedTuple):
+    encoder: EncoderConfig = EncoderConfig(encoder_type="pyramidal_blstm", num_layers=3)
+    attention: AttentionConfig = AttentionConfig()
+    num_classes: int = 61  # real units; sos = num_classes, eos = num_classes + 1
+    decoder_num_units: int = 256
+    embedding_dim: int = 128
+    logits_temperature: float = 1.0
+    scheduled_sampling_prob: float = 0.0
+    max_decode_length: int = 100
+    dropout_decoder_keep_prob: float = 1.0
+    dropout_embedding_keep_prob: float = 1.0
+    ctc_loss_weight: float = 0.0  # > 0: joint CTC-attention (a CTC head on the encoder)
+
+    @property
+    def sos_id(self) -> int:
+        return self.num_classes
+
+    @property
+    def eos_id(self) -> int:
+        return self.num_classes + 1
+
+    @property
+    def vocab(self) -> int:  # embedding / output vocabulary with sos and eos
+        return self.num_classes + 2
+
+    @property
+    def is_joint(self) -> bool:
+        return self.ctc_loss_weight > 0.0
+
+
+class EncodeOutput(NamedTuple):
+    outputs: torch.Tensor  # [B, T', He]
+    lengths: torch.Tensor  # [B]
+    ctc_logits: torch.Tensor | None = None  # [B, T', num_classes + 1], joint models
+    ctc_logit_len: torch.Tensor | None = None
+
+
+class Seq2SeqOutput(NamedTuple):
+    logits: torch.Tensor  # [B, max_len, vocab]
+    attention_weights: torch.Tensor  # [B, max_len, T']
+    predicted_ids: torch.Tensor | None = None  # [B, max_len] int32, eos after the end
+    ctc_logits: torch.Tensor | None = None
+    ctc_logit_len: torch.Tensor | None = None
+    enc_out: torch.Tensor | None = None
+    enc_len: torch.Tensor | None = None
+    steps: int = 0  # decoder steps run (the port's own count; a multiple of the unroll)
+
+
+class Seq2SeqModel(nn.Module):
+    """Weights uniform in +-parameter_init from ``generator`` (biases zero),
+    as ``init_seq2seq`` draws them; move the model with ``.to(device)``."""
+
+    def __init__(self, cfg: Seq2SeqConfig, input_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        scale = cfg.encoder.parameter_init
+        enc_dim = cfg.encoder.output_dim
+        self.encoder = Encoder(cfg.encoder, input_dim, generator)
+        self.embedding = nn.Parameter(
+            (torch.rand((cfg.vocab, cfg.embedding_dim), generator=generator) * 2.0 - 1.0) * scale)
+        self.decoder_cell = LSTMParams(cfg.embedding_dim + enc_dim, cfg.decoder_num_units, scale,
+                                       generator)
+        self.attention = Attention(cfg.attention, enc_dim, cfg.decoder_num_units, scale,
+                                   generator)
+        self.out_proj = Affine(cfg.decoder_num_units + enc_dim, cfg.vocab, scale, generator)
+        if cfg.is_joint:
+            self.ctc_head = Affine(enc_dim, cfg.num_classes + 1, scale, generator)
+
+
+def encode(model: Seq2SeqModel, feats, feat_len) -> EncodeOutput:
+    """Encoder outputs and lengths, plus the joint CTC head's logits."""
+    enc_out, enc_len = model.encoder(feats, feat_len)
+    if model.cfg.is_joint:
+        return EncodeOutput(enc_out, enc_len, model.ctc_head(enc_out), enc_len)
+    return EncodeOutput(enc_out, enc_len)
+
+
+def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token):
+    """One decoder step: ``((h, c, context, align), logits)``, with the fused
+    attention read (kernel #7 on the card), as both JAX decode loops run it."""
+    cfg = model.cfg
+    h, c, context, align = carry
+    x = torch.cat([model.embedding[token], context], dim=-1)
+    cell = model.decoder_cell
+    h, c = lstm_step(cell.wh, (h, c), torch.matmul(x, cell.wx) + cell.b)
+    context, align = model.attention.attend(enc_out, enc_keys, enc_mask, h, align, fused=True)
+    logits = model.out_proj(torch.cat([h, context], dim=-1))
+    if cfg.logits_temperature != 1.0:
+        logits = logits / cfg.logits_temperature
+    return (h, c, context, align), logits
+
+
+def _init_decoder_carry(cfg: Seq2SeqConfig, enc_out):
+    b, t, he = enc_out.shape
+    zeros = lambda *s: enc_out.new_zeros(s)  # noqa: E731
+    return zeros(b, cfg.decoder_num_units), zeros(b, cfg.decoder_num_units), zeros(b, he), \
+        zeros(b, t)
+
+
+def decode_unroll_factor(max_len: int) -> int:
+    """Steps between two "all finished" checks: the largest k in 8..2 dividing
+    ``max_len`` (else 1), so the loop never runs past ``max_len``."""
+    for k in (8, 7, 6, 5, 4, 3, 2):
+        if max_len % k == 0:
+            return k
+    return 1
+
+
+def enc_mask_of(enc_out, enc_len):
+    """[B, T] bool: frame t of row b is valid."""
+    return torch.arange(enc_out.shape[1], device=enc_out.device)[None, :] < enc_len[:, None]
+
+
+def greedy_decode(model: Seq2SeqModel, feats, feat_len,
+                  precomputed: EncodeOutput | None = None) -> Seq2SeqOutput:
+    """Argmax feedback decoding to ``max_decode_length`` with EOS masking.
+
+    ``precomputed`` is ``encode``'s result, to share one encoder pass. Rows
+    of the output buffers past the exit step keep their fill (ids: eos;
+    logits and alignments: zeros), as in the JAX loop.
+    """
+    cfg = model.cfg
+    enc = precomputed if precomputed is not None else encode(model, feats, feat_len)
+    enc_out = enc.outputs
+    enc_keys = model.attention.precompute_keys(enc_out)
+    enc_mask = enc_mask_of(enc_out, enc.lengths)
+    b, t = enc_out.shape[:2]
+    max_len = cfg.max_decode_length
+    k = decode_unroll_factor(max_len)
+    dev = enc_out.device
+    carry = _init_decoder_carry(cfg, enc_out)
+    token = torch.full((b,), cfg.sos_id, dtype=torch.int32, device=dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    logits_buf = enc_out.new_zeros((max_len, b, cfg.vocab))
+    preds_buf = torch.full((max_len, b), cfg.eos_id, dtype=torch.int32, device=dev)
+    aligns_buf = enc_out.new_zeros((max_len, b, t))
+    si = 0
+    # the JAX loop's condition, read from the device once every k steps; at
+    # si = 0 nothing has finished yet
+    while si < max_len and (si == 0 or not bool(finished.all())):
+        for _ in range(k):
+            live = ~finished.all()  # whether this step would run with k = 1
+            carry, logits = _decoder_step(model, enc_out, enc_keys, enc_mask, carry, token)
+            pred = torch.where(finished, cfg.eos_id, logits.argmax(dim=-1).to(torch.int32))
+            finished = finished | (pred == cfg.eos_id)
+            logits_buf[si] = torch.where(live, logits, 0.0)
+            preds_buf[si] = pred
+            aligns_buf[si] = torch.where(live, carry[3], 0.0)
+            token = pred
+            si += 1
+    return Seq2SeqOutput(
+        logits_buf.transpose(0, 1), aligns_buf.transpose(0, 1), preds_buf.transpose(0, 1),
+        ctc_logits=enc.ctc_logits, ctc_logit_len=enc.ctc_logit_len,
+        enc_out=enc_out, enc_len=enc.lengths, steps=si,
+    )

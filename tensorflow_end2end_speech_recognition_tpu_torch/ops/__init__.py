@@ -1,1 +1,2 @@
-"""Kernel wrappers and the builder of the CUDA sources in ``csrc/``."""
+"""Kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, and the builder of
+the CUDA sources in ``csrc/``."""

@@ -98,6 +98,7 @@ def load_library() -> ctypes.CDLL:
         "lstm_bidi_bwd": [p] * 15 + [i, i, i, f, p],
         "ctc_loss_fwd_bwd": [p] * 9 + [i] * 5 + [p],
         "ctc_loss_fwd_only": [p] * 7 + [i] * 5 + [p],
+        "location_attend": [p] * 11 + [i] * 6 + [f, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,10 +1,11 @@
 """In-process inference function and the micro-batching runtime.
 
-Counterparts of ``build_inference_fn`` (CTC greedy branch) and
-``MicroBatcher`` in ``tensorflow_end2end_speech_recognition_tpu/serving.py``.
-The JAX package freezes the inference graph into a StableHLO artifact; here
-the model runs eagerly in the serving process. Beam search, LM fusion and
-the other model families are not ported yet.
+Counterparts of ``build_inference_fn`` (the CTC greedy branch and the
+attention branch, greedy and beam) and ``MicroBatcher`` in
+``tensorflow_end2end_speech_recognition_tpu/serving.py``. The JAX package
+freezes the inference graph into a StableHLO artifact; here the model runs
+eagerly in the serving process. CTC prefix beam search, LM fusion and the
+transducer family are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,27 +18,45 @@ import numpy as np
 import torch
 
 from . import set_full_fp32
+from .decoding.attention_beam import attention_beam_search
 from .decoding.ctc_greedy import ctc_greedy_decode
+from .models.seq2seq import greedy_decode
 from .train.ctc_task import CTCTaskConfig, device_pipeline
 
 
-def build_inference_fn(task: CTCTaskConfig, model):
-    """(inputs [B, N], input_len [B]) -> (decoded ids [B, T'] int32, lengths [B] int32).
+def build_inference_fn(task, model, beam_width: int = 1):
+    """(inputs [B, N], input_len [B]) -> (decoded ids [B, U] int32, lengths [B] int32).
 
-    Greedy decoding. Runs on the device of ``model``'s weights; inputs may be
-    numpy arrays or tensors. Returns device tensors.
+    ``task`` is a ``CTCTaskConfig`` (greedy CTC decoding) or an
+    ``AttTaskConfig``: greedy decoding, with every id from the first EOS on
+    set to -1, or with ``beam_width > 1`` the best hypothesis of the beam
+    search (length penalty 0, as the JAX export stages it). Runs on the
+    device of ``model``'s weights; inputs may be numpy arrays or tensors.
+    Returns device tensors.
     """
     set_full_fp32()
     device = next(model.parameters()).device
     model.eval()
+    is_ctc = isinstance(task, CTCTaskConfig)
+    if is_ctc and beam_width > 1:
+        raise NotImplementedError("CTC prefix beam search is not ported yet")
+
+    def decode(feats, feat_len):
+        if is_ctc:
+            out = model(feats, feat_len)
+            return ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
+        if beam_width > 1:
+            res = attention_beam_search(model, feats, feat_len, beam_width=beam_width)
+            return res.tokens[:, 0], res.lengths[:, 0]
+        preds = greedy_decode(model, feats, feat_len).predicted_ids
+        seen = torch.cumsum(preds == task.model.eos_id, dim=1) > 0
+        return torch.where(seen, -1, preds), (~seen).sum(dim=1, dtype=torch.int32)
 
     @torch.inference_mode()
     def infer(inputs, input_len):
         inputs = torch.as_tensor(inputs, dtype=torch.float32).to(device)
         input_len = torch.as_tensor(input_len, dtype=torch.int64).to(device)
-        feats, feat_len = device_pipeline(task, {"inputs": inputs, "input_len": input_len})
-        out = model(feats, feat_len)
-        return ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
+        return decode(*device_pipeline(task, {"inputs": inputs, "input_len": input_len}))
 
     return infer
 

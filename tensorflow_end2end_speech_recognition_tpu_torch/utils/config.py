@@ -1,14 +1,17 @@
-"""Reference-shaped experiment configs -> the port's typed CTC configs.
+"""Reference-shaped experiment configs -> the port's typed task configs.
 
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
-``ExperimentConfig`` holds the keys of the CTC BLSTM configs the port serves
-and trains (``configs/ls100_ctc.yml``, ``configs/timit_ctc_blstm.yml``),
-with the JAX defaults, and builds the same ``FrontendConfig``,
-``EncoderConfig``, ``CTCConfig`` and ``CTCTaskConfig`` values. A key the JAX
-package knows but the port does not raises ``KeyError`` when it is read;
-a value the port has not ported (another model type, a mesh, gradient
-accumulation, SpecAugment, on-disk corpora, the hard toy corpus,
-per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
+``ExperimentConfig`` holds the keys of the configs the port serves and
+trains (the CTC BLSTM configs ``configs/ls100_ctc.yml`` and
+``configs/timit_ctc_blstm.yml``; the attention and joint CTC-attention
+configs ``configs/timit_attention.yml`` and ``configs/ls960_joint.yml``,
+served only), with the JAX defaults, and builds the same ``FrontendConfig``,
+``EncoderConfig``, ``CTCConfig`` / ``CTCTaskConfig`` and ``Seq2SeqConfig`` /
+``AttTaskConfig`` values. A key the JAX package knows but the port does not
+raises ``KeyError`` when it is read; a value the port has not ported (another
+model type, training an attention model, a mesh, gradient accumulation,
+SpecAugment, on-disk corpora, the hard toy corpus, per-speaker CMVN) raises
+``NotImplementedError`` where it would be used.
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
 """
@@ -22,18 +25,24 @@ from dataclasses import dataclass
 
 from ..data.tokenizers import UNITS, build_tokenizer
 from ..frontend.features import FrontendConfig
+from ..models.attention import AttentionConfig
 from ..models.ctc import CTCConfig
 from ..models.encoders import EncoderConfig, check_supported
+from ..models.seq2seq import Seq2SeqConfig
+from ..train.att_task import AttTaskConfig
 from ..train.ctc_task import CTCTaskConfig
 
 # reference spellings -> the field they set (None: accepted, has no effect)
 ALIASES = {"pretrain_stage": None, "num_classes": None, "dropout_encoder": "dropout",
-           "dropout_input": None}
+           "dropout_input": None, "attention_weights_tempareture": "sharpening_factor",
+           "logits_tempareture": "logits_temperature"}
+ATTENTION_MODEL_TYPES = ("attention", "joint_ctc_attention")
 
 
 @dataclass
 class ExperimentConfig:
-    """The CTC fields of the JAX ``ExperimentConfig``, same names and defaults."""
+    """The CTC and attention fields of the JAX ``ExperimentConfig``, same
+    names and defaults."""
 
     model_type: str = "ctc"
     corpus: str = "toy"
@@ -55,6 +64,7 @@ class ExperimentConfig:
     num_units: int = 256
     num_layers: int = 2
     num_proj: int | None = None
+    num_pyramid_levels: int | None = None  # pyramidal 2x reductions (None: all but the last)
     lstm_impl: str | None = None  # accepted for parity; one implementation
     compute_dtype: str = "float32"
     use_peephole: bool = False
@@ -64,6 +74,29 @@ class ExperimentConfig:
     bottleneck_dim: int | None = None
     main_task_weight: float = 0.8
     use_specaugment: bool = False
+    # attention decoder (attention / joint models)
+    attention_type: str = "hybrid"
+    attention_dim: int = 128
+    attention_conv_num_channels: int = 10
+    attention_conv_width: int = 101
+    decoder_num_units: int = 256
+    embedding_dim: int = 128
+    scheduled_sampling_prob: float = 0.0
+    scheduled_sampling_ramp_max_step: int = 0
+    label_smoothing_prob: float = 0.0
+    logits_temperature: float = 1.0
+    sharpening_factor: float = 1.0
+    sigmoid_smoothing: bool = False
+    max_decode_length: int = 100
+    dropout_decoder: float = 1.0
+    dropout_embedding: float = 1.0
+    # joint CTC-attention and its training schedules
+    ctc_loss_weight: float = 0.0
+    guided_attention_weight: float = 0.0
+    guided_attention_sigma: float = 0.2
+    guided_attention_decay_steps: int = 0
+    ctc_loss_weight_init: float | None = None
+    ctc_loss_weight_anneal_steps: int = 0
     # training
     batch_size: int = 32
     num_epoch: int = 20
@@ -88,6 +121,7 @@ class ExperimentConfig:
     fsdp: bool = False
     # decode
     beam_width: int = 1
+    length_penalty: float = 0.0
     # toy corpus
     toy_profile: str = "easy"
     toy_num_utts: int = 128
@@ -147,6 +181,7 @@ class ExperimentConfig:
             num_units=self.num_units,
             num_layers=self.num_layers,
             num_proj=self.num_proj,
+            num_pyramid_levels=self.num_pyramid_levels,
             use_peephole=self.use_peephole,
             clip_activation=self.clip_activation,
             parameter_init=self.parameter_init,
@@ -176,8 +211,63 @@ class ExperimentConfig:
             main_task_weight=self.main_task_weight,
         )
 
+    def att_config(self, num_classes: int) -> Seq2SeqConfig:
+        """The ``Seq2SeqConfig`` of ``build_att_task`` in the JAX loop."""
+        if self.model_type not in ATTENTION_MODEL_TYPES:
+            raise ValueError(f"model_type {self.model_type!r} is not an attention model")
+        return Seq2SeqConfig(
+            encoder=self.encoder_config(),
+            attention=AttentionConfig(
+                attention_type=self.attention_type,
+                attention_dim=self.attention_dim,
+                conv_num_channels=self.attention_conv_num_channels,
+                conv_width=self.attention_conv_width,
+                sharpening_factor=self.sharpening_factor,
+                sigmoid_smoothing=self.sigmoid_smoothing,
+            ),
+            num_classes=num_classes,
+            decoder_num_units=self.decoder_num_units,
+            embedding_dim=self.embedding_dim,
+            logits_temperature=self.logits_temperature,
+            scheduled_sampling_prob=self.scheduled_sampling_prob,
+            max_decode_length=self.max_decode_length,
+            dropout_decoder_keep_prob=self.dropout_decoder,
+            dropout_embedding_keep_prob=self.dropout_embedding,
+            ctc_loss_weight=(self.ctc_loss_weight if self.model_type == "joint_ctc_attention"
+                             else 0.0),
+        )
+
+    def att_task(self, num_classes: int) -> AttTaskConfig:
+        """The task ``build_att_task`` of the JAX loop builds (waveform mode)."""
+        if self.use_specaugment:
+            raise NotImplementedError("SpecAugment is not ported yet")
+        return AttTaskConfig(
+            model=self.att_config(num_classes),
+            frontend=self.frontend_config(),
+            num_stack=self.num_stack,
+            num_skip=self.num_skip,
+            splice=self.splice,
+            weight_decay=self.weight_decay,
+            label_smoothing=self.label_smoothing_prob,
+            scheduled_sampling_ramp_max_step=self.scheduled_sampling_ramp_max_step,
+            guided_attention_weight=self.guided_attention_weight,
+            guided_attention_sigma=self.guided_attention_sigma,
+            guided_attention_decay_steps=self.guided_attention_decay_steps,
+            ctc_weight_init=self.ctc_loss_weight_init,
+            ctc_weight_anneal_steps=self.ctc_loss_weight_anneal_steps,
+        )
+
+    def task(self, num_classes: int):
+        """``ctc_task`` or ``att_task`` by ``model_type``."""
+        if self.model_type in ATTENTION_MODEL_TYPES:
+            return self.att_task(num_classes)
+        return self.ctc_task(num_classes)
+
     def check_trainable(self) -> None:
         """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
+        if self.model_type in ATTENTION_MODEL_TYPES:
+            raise NotImplementedError(
+                f"training model_type {self.model_type!r} is not ported yet (serving only)")
         unported = {
             "data_root (on-disk corpora)": self.data_root is not None,
             "label_type_sub (multitask CTC)": self.label_type_sub is not None,
@@ -205,12 +295,16 @@ def experiment_from_dict(raw: dict) -> ExperimentConfig:
 
 
 def task_from_dict(raw: dict):
-    """Reference-shaped config dict -> (CTCTaskConfig, units, label_type)."""
+    """Reference-shaped config dict -> (task config, units, label_type).
+
+    The task is a ``CTCTaskConfig`` or, for ``model_type: attention`` and
+    ``joint_ctc_attention``, an ``AttTaskConfig``.
+    """
     exp = ExperimentConfig.from_dict(raw)
     if exp.label_type not in UNITS:
         raise NotImplementedError(f"label_type {exp.label_type!r} is not ported yet")
     units = build_tokenizer(exp.label_type).units
-    return exp.ctc_task(len(units)), list(units), exp.label_type
+    return exp.task(len(units)), list(units), exp.label_type
 
 
 def load_task(path):

@@ -7,7 +7,9 @@ no jax, so it also runs where only PyTorch is installed:
 
 Tolerances in float32 at these short sequences: atol/rtol 1e-5 for the BLSTM
 kernels (the kernel and cuBLAS sum each dot product in different orders),
-1e-4 absolute on CTC losses (a sum of T log terms) and 1e-5 on CTC gradients.
+1e-4 absolute on CTC losses (a sum of T log terms) and 1e-5 on CTC gradients;
+for the location-attention read 1e-5 on the alignment and 1e-4 on the context
+(a sum over T of weights times encoder values of order 1).
 """
 
 import numpy as np
@@ -15,9 +17,20 @@ import pytest
 import torch
 
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding import attention_beam_search
+from tensorflow_end2end_speech_recognition_tpu_torch.models.attention import AttentionConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig, CTCModel
 from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.rnn import BiLSTM
+from tensorflow_end2end_speech_recognition_tpu_torch.models.seq2seq import (
+    Seq2SeqConfig,
+    Seq2SeqModel,
+    greedy_decode,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.ops.attention import (
+    location_attend,
+    location_attend_plain,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_loss,
     ctc_loss_fwd_bwd,
@@ -176,3 +189,80 @@ def test_ctc_model_on_card_trains_every_parameter(dev):
     for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
         torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def _attend_case(dev, n, t, a, he, c, w, lengths, seed):
+    rng = np.random.RandomState(seed)
+    logits = rng.randn(n, t).astype(np.float32)
+    prev = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    arrays = [
+        rng.randn(n, t, a).astype(np.float32) * 0.5,  # keys_in
+        rng.randn(n, t, he).astype(np.float32),  # enc_out
+        rng.randn(n, a).astype(np.float32) * 0.5,  # q
+        prev.astype(np.float32),
+        np.arange(t)[None, :] < np.asarray(lengths)[:, None],  # enc_mask
+        ((rng.rand(w, 1, c) - 0.5) * 0.2).astype(np.float32),  # conv_w
+        ((rng.rand(c, a) - 0.5) * 0.2).astype(np.float32),  # w_loc
+        ((rng.rand(a) - 0.5) * 0.2).astype(np.float32),  # v
+    ]
+    return [torch.from_numpy(x).to(dev) for x in arrays]
+
+
+@pytest.mark.parametrize("n,t,a,he,c,w,sharpening,lengths", [
+    (3, 37, 16, 12, 4, 10, 1.5, [37, 5, 1]),  # even W: (W-1)//2 taps on the left
+    (4, 50, 40, 33, 20, 11, 1.0, [50, 0, 1, 49]),  # a row of length 0; C > 16 channels
+    (64, 300, 256, 1024, 10, 101, 1.0, [300, 1, 0, 150] * 16),  # beam 8 x 8 at ls960_joint
+    (2, 30000, 8, 8, 2, 5, 1.0, [30000, 7]),  # a long row: no T cap
+])
+def test_location_attend_kernel_matches_plain(dev, n, t, a, he, c, w, sharpening, lengths):
+    args = _attend_case(dev, n, t, a, he, c, w, lengths, seed=t + w)
+    before = location_attend.launches
+    ctx, align = location_attend(*args, sharpening)
+    torch.cuda.synchronize()
+    assert location_attend.launches == before + 1
+    want_ctx, want_align = location_attend_plain(*args, sharpening)
+    torch.testing.assert_close(align, want_align, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ctx, want_ctx, atol=1e-4, rtol=0)
+    for row, length in enumerate(lengths):
+        if length == 0:
+            torch.testing.assert_close(align[row], torch.full((t,), 1.0 / t, device=dev))
+    again = location_attend(*args, sharpening)  # deterministic: no atomics
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], align)
+
+
+def test_location_attend_rejects_mixed_devices(dev):
+    args = _attend_case(dev, 2, 9, 8, 8, 2, 3, [9, 4], seed=0)
+    args[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        location_attend(*args)
+
+
+def test_attention_model_on_card_matches_cpu(dev):
+    """Greedy and beam ids on the card equal the CPU's; one #7 launch per decoder step."""
+    cfg = Seq2SeqConfig(
+        encoder=EncoderConfig(encoder_type="pyramidal_blstm", num_units=16, num_layers=3),
+        attention=AttentionConfig(attention_dim=12, conv_num_channels=4, conv_width=9),
+        num_classes=9, decoder_num_units=16, embedding_dim=8, max_decode_length=24,
+        ctc_loss_weight=0.3)
+    cpu = Seq2SeqModel(cfg, 10, torch.Generator().manual_seed(0)).eval()
+    model = Seq2SeqModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev).eval()
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.randn(3, 41, 10).astype(np.float32))
+    lens = torch.tensor([41, 17, 0])
+    with torch.inference_mode():
+        want = greedy_decode(cpu, feats, lens)
+        before = location_attend.launches
+        got = greedy_decode(model, feats.to(dev), lens.to(dev))
+        torch.cuda.synchronize()
+        assert location_attend.launches - before == got.steps == want.steps
+        assert torch.equal(got.predicted_ids.cpu(), want.predicted_ids)
+        torch.testing.assert_close(got.logits.cpu(), want.logits, atol=1e-4, rtol=0)
+        want_b = attention_beam_search(cpu, feats, lens, beam_width=4, length_penalty=0.6)
+        before = location_attend.launches
+        got_b = attention_beam_search(model, feats.to(dev), lens.to(dev), beam_width=4,
+                                      length_penalty=0.6)
+        torch.cuda.synchronize()
+        assert location_attend.launches - before == got_b.steps == want_b.steps
+    assert torch.equal(got_b.tokens.cpu(), want_b.tokens)
+    assert torch.equal(got_b.lengths.cpu(), want_b.lengths)
+    torch.testing.assert_close(got_b.scores.cpu(), want_b.scores, atol=1e-4, rtol=0)
