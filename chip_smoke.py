@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's CTC serving, CTC training and attention
-serving paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's CTC serving, CTC training, attention
+serving, and transducer serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile-out DIR   # also write the step's profile table
+    python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
 
 Phases; any failure exits non-zero and prints no result line:
 
@@ -50,14 +50,39 @@ Phases; any failure exits non-zero and prints no result line:
     a profile of each decode's device time, and serve 8 concurrent
     ``/recognize`` requests through ``bin/serve.make_server(...,
     beam_width=8)`` (the attention serving path; launch counts reset just
-    before and read just after).
+    before and read just after);
+14. unidirectional layer kernel: ``lstm_layer`` forward (#3) against its plain
+    version at the ls_transducer encoder's serving shape, B=8, T=400, D=120
+    -> H=512, lengths that include 1 and T, and with ``cs`` at B=32;
+15. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512, and
+    ``LSTMLayer``'s gradients (dxproj, dWh) against autograd through the
+    plain forward;
+16. build the ``configs/ls_transducer.yml`` model at full width in code (40
+    mel, no deltas, 3/3 stacking -> 120, 4 x LSTM-512, prediction net
+    embedding 32 + LSTM-128, joint 256, 28 + 1 characters, 4 symbols per
+    frame) with seeded uniform +-0.1 weights; on 2 x 1 s check ``f_proj``,
+    the teacher-forced nll and the greedy ids on the card against the CPU,
+    and one train step (dropout off, SGD): loss, every gradient, weights;
+17. time the transducer serving phases on 8 x 12 s (frontend, encoder,
+    greedy decode with its frames and prediction-net steps) with a profile
+    of the decode's device time, and serve 8 concurrent ``/recognize``
+    requests through ``bin/serve.make_server`` (the transducer serving path;
+    launch counts reset just before and read just after: 4 #3 per batch);
+18. time transducer train steps at B=32 x 12 s (U=40, dropout 0.9, Adam):
+    ms per step, utterances/s, peak memory, launches per step (exactly 4
+    #3 and 4 #4) and a profile of one step's device time by kernel;
+19. ``train/loop.fit`` on the ls_transducer config for one epoch of a
+    256-utterance toy corpus (the transducer training path; launch counts
+    reset just before and read just after): finite losses, no skipped
+    step, a dev eval through the greedy decode, checkpoints written.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
-is one (cuDNN ``nn.LSTM``; ``F.log_softmax`` + ``F.ctc_loss``; none for the
-attention read), which the port never calls; #7's calls, shorter than
-their Python wrapper, are timed from CUDA-graph replays. Prints a JSON line
-of the kernels, the card's name and power limit, and as the last line
+is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
+#3/#4; ``F.log_softmax`` + ``F.ctc_loss``; none for the attention read),
+which the port never calls; #7's calls, shorter than their Python wrapper,
+are timed from CUDA-graph replays. Prints a JSON line of the kernels, the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -86,17 +111,19 @@ from tensorflow_end2end_speech_recognition_tpu_torch.decoding import attention_b
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
     ctc_greedy_decode,
 )
-from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn, seq2seq
-from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
-from tensorflow_end2end_speech_recognition_tpu_torch.train import att_task
-from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import (
-    device_pipeline,
-    forward_loss,
-    init_model,
-    init_params,
-    make_eval_step,
-    make_train_step,
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy import (
+    transducer_greedy_decode,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn, seq2seq
+from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import pred_tokens
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
+from tensorflow_end2end_speech_recognition_tpu_torch.ops.transducer import rnnt_loss
+from tensorflow_end2end_speech_recognition_tpu_torch.train import (
+    att_task,
+    ctc_task,
+    transducer_task,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import device_pipeline
 from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import fit
 from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import build_optimizer
 from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import experiment_from_dict
@@ -138,10 +165,17 @@ KERNELS = {
     "location_attend": {"source": f"{PKG}/csrc/location_attend.cu",
                         "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
                                     "attention_kernel.py:47"},
+    "lstm_layer_fwd": {"source": f"{PKG}/csrc/lstm_layer_fwd.cu",
+                       "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                   "lstm_kernel.py:55"},
+    "lstm_layer_bwd": {"source": f"{PKG}/csrc/lstm_layer_bwd.cu",
+                       "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
+                                   "lstm_kernel.py:85"},
 }
 COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd,
             "ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only,
-            "location_attend": attention.location_attend}
+            "location_attend": attention.location_attend,
+            "lstm_layer_fwd": lstm.lstm_layer, "lstm_layer_bwd": lstm.lstm_layer_bwd}
 NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
 # attention serving: configs/ls960_joint.yml at full width
 B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
@@ -169,6 +203,22 @@ LS960_JOINT = {
     "decay_rate": 0.9, "decay_patient_epoch": 1, "clip_grad_norm": 5.0, "sort_utt": True,
     "sort_stop_epoch": 5, "beam_width": 8, "length_penalty": 0.6, "toy_num_utts": 512,
     "toy_min_units": 8, "toy_max_units": 20,
+}
+# transducer serving and training: configs/ls_transducer.yml at full width
+TR_LAYERS, D_TR = 4, 120  # 40 mel, no deltas, 3/3 stacking
+TR_REQUEST_SECONDS = (12.0, 11.5, 10.0, 8.5, 6.5, 4.5, 2.0, 1.0)
+TR_TIMED_STEPS = 2
+PROFILE_FRAMES = 50
+LS_TRANSDUCER = {
+    "model_type": "transducer", "corpus": "toy", "label_type": "character", "feature": "fbank",
+    "input_size": 40, "use_energy": False, "use_delta": False, "cmvn": "none", "num_stack": 3,
+    "num_skip": 3, "encoder_type": "lstm", "num_units": 512, "num_layers": 4,
+    "pred_num_units": 128, "pred_num_layers": 1, "embedding_dim": 32, "joint_dim": 256,
+    "max_symbols_per_frame": 4, "parameter_init": 0.1, "dropout": 0.9, "dropout_decoder": 1.0,
+    "batch_size": 32, "num_epoch": 40, "optimizer": "adam", "learning_rate": 1.0e-3,
+    "warmup_steps": 0, "decay_start_epoch": 10, "decay_rate": 0.9, "decay_patient_epoch": 1,
+    "clip_grad_norm": 5.0, "weight_decay": 1.0e-8, "sort_utt": True, "sort_stop_epoch": 10,
+    "beam_width": 1, "toy_num_utts": 2048,
 }
 LS100_CTC = {
     "model_type": "ctc", "corpus": "toy", "label_type": "character",
@@ -242,6 +292,11 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def clock(what: str, t0: float) -> None:
+    """Print the command time so far, so a run shows where its time limit goes."""
+    print(f"[{time.perf_counter() - t0:.1f} s] {what}", flush=True)
+
+
 def bound(bytes_moved: float, ops: float) -> dict:
     """The least time for the work: bytes over HBM rate vs float32 ops over peak."""
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
@@ -278,10 +333,21 @@ def lstm_inputs(dev, b: int, lengths, seed: int, t: int = T_ENC, d: int = D_IN):
             layer.forget_bias), xs, lengths
 
 
-def cudnn_lstm(dev, xs, lengths, seed: int):
-    """cuDNN bidirectional ``nn.LSTM`` on a packed sequence: forward, backward calls."""
+def layer_inputs(dev, b: int, lengths, seed: int, t: int = T_ENC, d: int = D_TR):
+    """The projection ``LSTM.forward`` hands kernel #3, for a first layer."""
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.randn(b, t, d, generator=g).to(dev)
+    layer = rnn.LSTM(d, H, generator=g).to(dev)
+    lengths = torch.tensor(lengths, device=dev)
+    with torch.no_grad():
+        xproj = torch.matmul(xs, layer.wx) + layer.b
+    return (xproj, layer.wh.detach(), rnn.length_mask(xs, lengths), layer.forget_bias), xs, lengths
+
+
+def cudnn_lstm(dev, xs, lengths, seed: int, bidirectional: bool = True):
+    """cuDNN ``nn.LSTM`` on a packed sequence: forward, backward calls."""
     torch.manual_seed(seed)
-    net = torch.nn.LSTM(xs.shape[-1], H, batch_first=True, bidirectional=True).to(dev)
+    net = torch.nn.LSTM(xs.shape[-1], H, batch_first=True, bidirectional=bidirectional).to(dev)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         xs.requires_grad_(True), lengths.cpu(), batch_first=True, enforce_sorted=False)
     out = net(packed)[0]
@@ -298,18 +364,21 @@ def cudnn_lstm(dev, xs, lengths, seed: int):
     return forward, backward
 
 
-def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC) -> dict:
+def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
+              dirs: int = 2) -> dict:
     """Bytes each input read once / output written once, and float32 operations
-    of the valid steps (a masked step needs no work), for one layer's call."""
+    of the valid steps (a masked step needs no work), for one layer's call of
+    ``dirs`` directions."""
     b, valid = len(lengths), float(sum(lengths))
     stream = b * t * h * F32  # one [B, T, H] tensor
-    weights = 2 * h * 4 * h * F32
-    if backward:  # xproj x2, wh x2, mask, ys/cs/gys x2 in; dxproj x2 out
-        moved = 2 * 4 * stream + weights + b * t * F32 + 6 * stream + 2 * 4 * stream
-        ops = 2 * valid * (2 * 2 * h * 4 * h + 60 * h)  # gates and dh products, gate math
-    else:  # xproj x2, wh x2, mask in; ys (and cs) x2 out
-        moved = 2 * 4 * stream + weights + b * t * F32 + (4 if with_cs else 2) * stream
-        ops = 2 * valid * (2 * h * 4 * h + 30 * h)
+    weights = h * 4 * h * F32
+    mask = b * t * F32
+    if backward:  # per direction: xproj, wh, ys, cs, gys in; dxproj out
+        moved = dirs * (4 * stream + weights + 3 * stream + 4 * stream) + mask
+        ops = dirs * valid * (2 * 2 * h * 4 * h + 60 * h)  # gates and dh products, gate math
+    else:  # per direction: xproj, wh in; ys (and cs) out
+        moved = dirs * (4 * stream + weights + (2 if with_cs else 1) * stream) + mask
+        ops = dirs * valid * (2 * h * 4 * h + 30 * h)
     return bound(moved, ops)
 
 
@@ -493,17 +562,17 @@ def train_batch(n_rows: int, seconds: float, seed: int, max_labels: int) -> dict
             "weight": np.ones((n_rows,), np.float32)}
 
 
-def check_train_step(task, params_cpu, dev) -> None:
-    """One full-width train step with dropout off, card against CPU."""
-    batch = train_batch(2, 1.0, seed=6, max_labels=12)
+def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6) -> None:
+    """One full-width train step of ``task_mod`` with dropout off, card against CPU."""
+    batch = train_batch(2, 1.0, seed=seed, max_labels=12)
     opt = build_optimizer("sgd", 5.0)
-    step, evaluate = make_train_step(task, opt), make_eval_step(task)
+    step, evaluate = task_mod.make_train_step(task, opt), task_mod.make_eval_step(task)
     res = []
     for device in (torch.device("cpu"), dev):
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         params = {k: v.to(device) for k, v in params_cpu.items()}
         leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-        loss, _ = forward_loss(leaves, task, tb, True)
+        loss, _ = task_mod.forward_loss(leaves, task, tb, True)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         new, _, aux = step(params, opt.init(params), tb, 0.1)
         ids, n, _ = evaluate(new, tb)
@@ -561,18 +630,22 @@ def read_counts() -> dict:
     return {k: c.launches for k, c in COUNTERS.items()}
 
 
-def serve_requests(task, model, gpu: str) -> dict:
-    """8 concurrent /recognize requests; returns the kernel launches they caused."""
-    server = make_server(task, model, B, 12 * SR, port=0, max_wait_ms=50.0,
-                         warmup=True, units=CHAR_UNITS, label_type="character")
+def post_requests(task, model, seconds_list, seed: int, beam_width: int = 1) -> tuple:
+    """Serve ``model`` through ``bin/serve.make_server`` and post one concurrent
+    ``/recognize`` per entry of ``seconds_list``; the launch counts are reset
+    just before the requests and read just after. Returns (responses as
+    dicts, latencies in ms, launch counts, batches run, the /healthz body).
+    """
+    server = make_server(task, model, B, 12 * SR, port=0, max_wait_ms=50.0, warmup=True,
+                         units=CHAR_UNITS, label_type="character", beam_width=beam_width)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    rng = np.random.RandomState(3)
-    waves = [(rng.randn(int(s * SR)) * 0.1).astype(np.float32) for s in REQUEST_SECONDS]
+    rng = np.random.RandomState(seed)
+    waves = [(rng.randn(int(s * SR)) * 0.1).astype(np.float32) for s in seconds_list]
     results = [None] * len(waves)
 
     def request(i):
-        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=120)
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
         t0 = time.perf_counter()
         conn.request("POST", "/recognize", waves[i].tobytes(),
                      {"Content-Type": "application/octet-stream"})
@@ -581,13 +654,17 @@ def serve_requests(task, model, gpu: str) -> dict:
         conn.close()
 
     try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
         reset_counts()
         server.batcher.batches_run = 0
         threads = [threading.Thread(target=request, args=(i,)) for i in range(len(waves))]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=300)
+            t.join(timeout=600)
         counts, batches = read_counts(), server.batcher.batches_run
     finally:
         server.shutdown()
@@ -595,21 +672,31 @@ def serve_requests(task, model, gpu: str) -> dict:
         server.batcher.stop()
     if any(t.is_alive() for t in threads) or any(r is None for r in results):
         raise RuntimeError("a request did not finish")
-    n_classes = task.model.num_classes
-    for seconds, (status, body, _) in zip(REQUEST_SECONDS, results):
+    for seconds, (status, body, _) in zip(seconds_list, results):
         if status != 200:
-            raise RuntimeError(f"/recognize returned {status}: {body[:200]!r}")
-        r = json.loads(body)
+            raise RuntimeError(f"/recognize of {seconds} s returned {status}: {body[:200]!r}")
+    return ([json.loads(r[1]) for r in results], sorted(r[2] for r in results), counts, batches,
+            health)
+
+
+def print_latency(what: str, responses, lat, batches: int, gpu: str) -> None:
+    print(f"phase {what}: {len(lat)} concurrent requests in {batches} batch(es), "
+          f"p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]", flush=True)
+    print(f"responses: {[r['num_ids'] for r in responses]} ids", flush=True)
+
+
+def serve_requests(task, model, gpu: str) -> dict:
+    """8 concurrent /recognize requests; returns the kernel launches they caused."""
+    responses, lat, counts, batches, _ = post_requests(task, model, REQUEST_SECONDS, seed=3)
+    n_classes = task.model.num_classes
+    for seconds, r in zip(REQUEST_SECONDS, responses):
         ids = r["ids"]
         frames = -(-(1 + (int(seconds * SR) - 400) // 160) // 3)
         if (r["num_ids"] != len(ids) or len(ids) > frames
                 or not all(isinstance(i, int) and 0 <= i < n_classes for i in ids)
                 or r.get("text") is None or "truncated" in r):
             raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
-    lat = sorted(r[2] for r in results)
-    print(f"phase request latency: {len(lat)} concurrent requests in {batches} batch(es), "
-          f"p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]", flush=True)
-    print(f"responses: {[json.loads(r[1])['num_ids'] for r in results]} ids", flush=True)
+    print_latency("request latency", responses, lat, batches, gpu)
     want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS * batches)
     print(f"serving path launches: {counts}", flush=True)
     if batches < 1 or counts != want:
@@ -617,15 +704,17 @@ def serve_requests(task, model, gpu: str) -> dict:
     return counts
 
 
-def time_train_steps(task, params_cpu, dev, gpu: str, profile_out: str | None) -> None:
-    """Adam steps with dropout at B=32 x 12 s: time, rate, memory, launches, profile."""
+def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
+                     profile_out: str | None, want: dict, steps: int = TIMED_STEPS) -> None:
+    """Adam steps with the config's dropout at B=32 x 12 s: time, rate, memory,
+    launches (exactly ``want``), and a profile of one step by kernel."""
     batch = train_batch(B_TRAIN, 12.0, seed=7, max_labels=U)
     batch["input_len"][:] = 12 * SR  # the 12 s bucket: every row T' = 400
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     params = {k: v.to(dev) for k, v in params_cpu.items()}
     opt = build_optimizer("adam", 5.0)
     state = opt.init(params)
-    step = make_train_step(task, opt)
+    step = task_mod.make_train_step(task, opt)
     gen = torch.Generator(device=dev).manual_seed(1)
     params, state, aux = step(params, state, tb, 1e-3, gen)  # warm-up
     torch.cuda.synchronize()
@@ -635,54 +724,40 @@ def time_train_steps(task, params_cpu, dev, gpu: str, profile_out: str | None) -
     torch.cuda.synchronize()
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1)
     if counts != want:
-        raise RuntimeError(f"one train step launched {counts}; expected {want}")
+        raise RuntimeError(f"one {name} train step launched {counts}; expected {want}")
     losses = []
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         params, state, aux = step(params, state, tb, 1e-3, gen)
         losses.append(aux["loss"])
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms = (time.perf_counter() - t0) * 1e3 / steps
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)) or bool(aux["nonfinite"]):
-        raise RuntimeError(f"timed train steps gave losses {losses}")
-    print(f"phase train step B={B_TRAIN} x 12 s (T'={T_ENC}), Adam, dropout 0.8: {ms:.3f} ms "
-          f"per step, {B_TRAIN / ms * 1e3:.1f} utterances/s, peak memory "
-          f"{peak / 2**30:.3f} GiB, launches per step {counts}, losses "
-          f"{[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+        raise RuntimeError(f"timed {name} train steps gave losses {losses}")
+    print(f"phase {name} train step B={B_TRAIN} x 12 s (T'={T_ENC}, U={U}), Adam, dropout keep "
+          f"{task.model.encoder.dropout_keep_prob}: {ms:.3f} ms per step ({steps} steps), "
+          f"{B_TRAIN / ms * 1e3:.1f} utterances/s, peak memory {peak / 2**30:.3f} GiB, launches "
+          f"per step {counts}, losses {[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
+    table = None if profile_out is None else Path(profile_out) / f"{name}_train_step_profile.txt"
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, aux = step(params, state, tb, 1e-3, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only; "Command Buffer Full" is CUPTI's record of the
-    # host waiting on a full launch queue, not a kernel
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                      and e.key != "Command Buffer Full"), key=lambda r: -r[1])
-    busy = sum(r[1] for r in kernels)
-    print(f"profile of one train step: {wall:.3f} ms wall (profiled), {busy:.3f} ms of device "
-          f"kernel time ({100 * busy / wall:.1f} % busy); top kernels by device time:",
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, tb, 1e-3, gen)
+
+    wall, busy, kernels = device_busy(one_step, table)
+    print(f"profile of one {name} train step: {wall:.3f} ms wall (profiled), {busy:.3f} ms of "
+          f"device kernel time ({100 * busy / wall:.1f} % busy); top kernels by device time:",
           flush=True)
     for key, t, n in kernels[:12]:
         print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
-    if profile_out is None:
-        return
-    out_dir = Path(profile_out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "train_step_profile.txt").write_text(
-        prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))
 
 
-def train_one_epoch(gpu: str) -> dict:
-    """``fit`` on ls100_ctc for one toy epoch: the training path's launch counts."""
-    exp = experiment_from_dict(dict(LS100_CTC, num_epoch=1))
+def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
+    """``fit`` on the config ``raw`` for one toy epoch: the training path's launch
+    counts. Each kernel in ``launched`` must run, and no other."""
+    exp = experiment_from_dict(dict(raw, num_epoch=1))
     lines = []
 
     def log(s):
@@ -699,18 +774,18 @@ def train_one_epoch(gpu: str) -> dict:
         written = {f: (Path(model_dir) / f).exists() for f in
                    ("summary.json", "metrics.csv", "config.yml", "checkpoints/epoch_0.pt")}
     losses = [float(s.split(" loss ")[1].split()[0]) for s in lines if " loss " in s]
-    print(f"phase fit ls100_ctc 1 toy epoch: {wall:.1f} s wall (model init and data "
-          f"included), {summary['utts_per_sec']:.1f} training utterances/s, "
-          f"{summary['steps']} steps, dev error {summary['dev_error_rate']:.4f}, launches "
-          f"{counts}  [{gpu}]", flush=True)
+    print(f"phase fit {name} 1 toy epoch ({exp.toy_num_utts} utterances): {wall:.1f} s wall "
+          f"(model init and data included), {summary['utts_per_sec']:.1f} training "
+          f"utterances/s, {summary['steps']} steps, dev loss {summary['dev_loss']:.4f}, dev "
+          f"error {summary['dev_error_rate']:.4f}, launches {counts}  [{gpu}]", flush=True)
     if (not losses or len(losses) != summary["steps"] or not all(np.isfinite(losses))
-            or summary["nonfinite_steps"] != 0):
+            or summary["nonfinite_steps"] != 0 or not np.isfinite(summary["dev_loss"])):
         raise RuntimeError(f"fit logged losses {losses} with summary {summary}")
     if not all(written.values()):
         raise RuntimeError(f"fit did not write its files: {written}")
-    training = ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only")
-    if min(counts[k] for k in training) < 1 or counts["location_attend"]:
-        raise RuntimeError(f"the training path did not launch its kernels: {counts}")
+    if min(counts[k] for k in launched) < 1 or any(counts[k] for k in COUNTERS
+                                                   if k not in launched):
+        raise RuntimeError(f"the {name} training path launched {counts}; expected {launched}")
     return counts
 
 
@@ -866,23 +941,34 @@ def check_att_model(task, model_cpu, model_dev, dev) -> None:
         raise RuntimeError(f"ls960_joint on the card disagrees with the CPU: {errs} {same}")
 
 
-def device_busy(fn) -> tuple:
-    """(wall ms, device kernel ms, top kernels) of one profiled call of ``fn``."""
+def device_busy(fn, table: Path | None = None) -> tuple:
+    """(wall ms, device kernel ms, kernels by device time) of one profiled call
+    of ``fn``; every kernel's line goes to ``table`` when given.
+
+    Only the device is traced (no CPU operator events): a transducer train
+    step launches about 170 k kernels, and reading their CPU-side events
+    too took 50 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side events only; "Command Buffer Full" is CUPTI's record of the
     # host waiting on a full launch queue, not a kernel
+    t0 = time.perf_counter()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                       and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+    print(f"(profile read in {time.perf_counter() - t0:.1f} s)", flush=True)
+    if table is not None:
+        table.parent.mkdir(parents=True, exist_ok=True)
+        table.write_text("device ms, launches, kernel\n" + "".join(
+            f"{t:10.3f} {n:7d}  {key}\n" for key, t, n in kernels))
     return wall, sum(r[1] for r in kernels), kernels
 
 
@@ -938,67 +1024,205 @@ def time_att_phases(task, model, dev, gpu: str) -> None:
 
 def serve_att_requests(task, model, gpu: str) -> dict:
     """8 concurrent /recognize requests at beam 8; returns the launches they caused."""
-    server = make_server(task, model, B_ATT, 12 * SR, port=0, max_wait_ms=50.0, warmup=True,
-                         units=CHAR_UNITS, label_type="character", beam_width=BEAM)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    rng = np.random.RandomState(15)
-    waves = [(rng.randn(int(s * SR)) * 0.1).astype(np.float32) for s in ATT_REQUEST_SECONDS]
-    results = [None] * len(waves)
-
-    def request(i):
-        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=300)
-        t0 = time.perf_counter()
-        conn.request("POST", "/recognize", waves[i].tobytes(),
-                     {"Content-Type": "application/octet-stream"})
-        resp = conn.getresponse()
-        results[i] = (resp.status, resp.read(), (time.perf_counter() - t0) * 1e3)
-        conn.close()
-
-    try:
-        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
-        conn.request("GET", "/healthz")
-        health = json.loads(conn.getresponse().read())
-        conn.close()
-        reset_counts()
-        server.batcher.batches_run = 0
-        threads = [threading.Thread(target=request, args=(i,)) for i in range(len(waves))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        counts, batches = read_counts(), server.batcher.batches_run
-    finally:
-        server.shutdown()
-        server.server_close()
-        server.batcher.stop()
-    if any(t.is_alive() for t in threads) or any(r is None for r in results):
-        raise RuntimeError("a request did not finish")
+    responses, lat, counts, batches, health = post_requests(task, model, ATT_REQUEST_SECONDS,
+                                                            seed=15, beam_width=BEAM)
     if health["beam_width"] != BEAM or health["blank_id"] is not None:
         raise RuntimeError(f"unexpected /healthz {health}")
     cfg = task.model
-    for seconds, (status, body, _) in zip(ATT_REQUEST_SECONDS, results):
-        if status != 200:
-            raise RuntimeError(f"/recognize returned {status}: {body[:200]!r}")
-        r = json.loads(body)
+    for seconds, r in zip(ATT_REQUEST_SECONDS, responses):
         ids = r["ids"]
         if (r["num_ids"] != len(ids) or len(ids) > cfg.max_decode_length
                 or not all(isinstance(i, int) and 0 <= i < cfg.vocab and i != cfg.eos_id
                            for i in ids)
                 or r.get("text") is None or "truncated" in r):
             raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
-    lat = sorted(r[2] for r in results)
-    print(f"phase ls960_joint request latency, beam {BEAM}: {len(lat)} concurrent requests in "
-          f"{batches} batch(es), p50 {lat[len(lat) // 2]:.1f} ms, max {lat[-1]:.1f} ms  [{gpu}]",
-          flush=True)
-    print(f"responses: {[json.loads(r[1])['num_ids'] for r in results]} ids", flush=True)
+    print_latency(f"ls960_joint request latency, beam {BEAM}", responses, lat, batches, gpu)
     print(f"attention serving path launches: {counts}", flush=True)
     k = seq2seq.decode_unroll_factor(cfg.max_decode_length)
     steps = counts["location_attend"]
+    others = [n for n in COUNTERS if n not in ("lstm_bidi_fwd", "location_attend")]
     if (batches < 1 or counts["lstm_bidi_fwd"] != LAYERS * batches or steps % k
             or not k * batches <= steps <= cfg.max_decode_length * batches
-            or any(counts[n] for n in ("lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"))):
+            or any(counts[n] for n in others)):
         raise RuntimeError(f"attention serving launches {counts} for {batches} batch(es)")
+    return counts
+
+
+def check_layer_kernels(dev, gpu: str) -> dict:
+    """Kernels #3 (serving B=8; with ``cs`` at B=32) and #4 (B=32) against their
+    plain versions, ``LSTMLayer``'s gradients against autograd through the plain
+    forward; their bounds and the unidirectional cuDNN ``nn.LSTM``'s times."""
+    lengths = [T_ENC, 1, 399, 250, 128, 7, 333, T_ENC]
+    args, xs, lens = layer_inputs(dev, B, lengths, seed=20)
+    with torch.no_grad():
+        got = lstm.lstm_layer(*args)
+        want = lstm.lstm_layer_fwd_plain(*args)[0]
+        torch.cuda.synchronize()
+        err = check(f"lstm_layer_fwd (serving) B={B} T={T_ENC} D={D_TR} H={H}", [got], [want],
+                    KERNEL_ATOL)
+        t = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args),
+                            lambda: lstm.lstm_layer(*args), 2, 20)
+    lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=20, bidirectional=False)
+    serving = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10),
+                   **lstm_work(lengths, H, with_cs=False, backward=False, dirs=1))
+
+    rng = np.random.RandomState(21)
+    lengths = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
+    args, xs, lens = layer_inputs(dev, B_TRAIN, lengths, seed=21)
+    gys = torch.from_numpy(rng.randn(B_TRAIN, T_ENC, H).astype(np.float32)).to(dev)
+    fwd_k = lambda: lstm.lstm_layer_fwd(*args, with_cs=True)  # noqa: E731
+    with torch.no_grad():
+        got = fwd_k()
+        want = lstm.lstm_layer_fwd_plain(*args)
+        torch.cuda.synchronize()
+        fwd_err = check(f"lstm_layer_fwd with cs B={B_TRAIN} T={T_ENC} H={H}", got, want,
+                        KERNEL_ATOL)
+        bwd_args = (*args[:3], *want, gys, args[3])
+        got = lstm.lstm_layer_bwd(*bwd_args)
+        want_dx = lstm.lstm_layer_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        bwd_err = check(f"lstm_layer_bwd B={B_TRAIN} T={T_ENC} H={H}", [got], [want_dx],
+                        BWD_ATOL)
+        tf = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args), fwd_k, 1, 10)
+        tb = plain_kernel_ms(lambda: lstm.lstm_layer_bwd_plain(*bwd_args),
+                             lambda: lstm.lstm_layer_bwd(*bwd_args), 1, 10)
+    # the autograd Function (#3 + #4 + the dWh contraction) against autograd
+    # through the plain forward's time loop
+    xproj, wh, mask, fb = args
+    grads = []
+    for fwd in (lambda x, w: lstm.LSTMLayer.apply(x, w, mask, fb),
+                lambda x, w: lstm.lstm_layer_fwd_plain(x, w, mask, fb)[0]):
+        leaves = [xproj.clone().requires_grad_(True), wh.clone().requires_grad_(True)]
+        grads.append(torch.autograd.grad((fwd(*leaves) * gys).sum(), leaves))
+    torch.cuda.synchronize()
+    check("LSTMLayer dxproj vs autograd through the plain forward", grads[0][:1], grads[1][:1],
+          BWD_ATOL)
+    scale = float(grads[1][1].abs().max())
+    check(f"LSTMLayer dWh vs autograd through the plain forward (max |dWh| {scale:.3e})",
+          grads[0][1:], grads[1][1:], GRAD_RTOL * scale)
+    del grads
+    lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=21, bidirectional=False)
+    out = {
+        "lstm_layer_fwd": dict(tf, max_abs_err=fwd_err, library_ms=cuda_ms(lib_fwd, 10),
+                               serving=serving,
+                               **lstm_work(lengths, H, with_cs=True, backward=False, dirs=1)),
+        "lstm_layer_bwd": dict(tb, max_abs_err=bwd_err, library_ms=cuda_ms(lib_bwd, 10),
+                               **lstm_work(lengths, H, with_cs=True, backward=True, dirs=1)),
+    }
+    for name, r, shape in (("lstm_layer_fwd serving", serving, f"B={B} T={T_ENC}"),
+                           ("lstm_layer_fwd train", out["lstm_layer_fwd"],
+                            f"B={B_TRAIN} T={T_ENC} with cs"),
+                           ("lstm_layer_bwd train", out["lstm_layer_bwd"],
+                            f"B={B_TRAIN} T={T_ENC}")):
+        print(f"phase {name} {shape} H={H}: kernel {r['ms']:.3f} ms (runs "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
+              f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN unidirectional nn.LSTM "
+              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms  [{gpu}]",
+              flush=True)
+    return out
+
+
+def ls_transducer_task():
+    """configs/ls_transducer.yml at full width, built in code (no yaml on the card)."""
+    return experiment_from_dict(LS_TRANSDUCER).transducer_task(len(CHAR_UNITS))
+
+
+def check_transducer_model(task, model_cpu, model_dev, dev) -> None:
+    """f_proj, the teacher-forced nll and greedy ids on the card against the CPU."""
+    batch = train_batch(2, 1.0, seed=22, max_labels=12)
+    blank = task.model.blank_id
+    outs = []
+    for model, device in ((model_cpu, torch.device("cpu")), (model_dev, dev)):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with torch.inference_mode():
+            feats, fl = device_pipeline(task, tb)
+            f_proj, enc_len = model.encode(feats, fl)
+            g_proj, _ = model.predict(pred_tokens(tb["labels"], blank))
+            nll = rnnt_loss(f_proj, g_proj, model.out.w, model.out.b, tb["labels"], enc_len,
+                            tb["label_len"], blank)
+            ids, n = transducer_greedy_decode(model, f_proj, enc_len)
+        outs.append([x.cpu() for x in (f_proj, nll, enc_len, ids, n)])
+    (fc, lc, ec, ic, nc), (fg, lg, eg, ig, ng) = outs
+    t_out = -(-(1 + (SR - 400) // 160) // 3)
+    if fg.shape != (2, t_out, task.model.joint_dim) or not bool(torch.isfinite(fg).all()):
+        raise RuntimeError(f"f_proj {tuple(fg.shape)} is misshapen or not finite")
+    errs = {"f_proj": float((fc - fg).abs().max()), "nll": float((lc - lg).abs().max())}
+    same = {"encoder lengths": torch.equal(ec, eg), "greedy ids": torch.equal(ic, ig),
+            "greedy lengths": torch.equal(nc, ng)}
+    print("ls_transducer on the card vs the CPU plain path, 2 x 1 s: "
+          + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {MODEL_ATOL:g}; nll {lg.tolist()}); "
+          + ", ".join(f"{k} equal: {v}" for k, v in same.items())
+          + f"; greedy lengths {ng.tolist()} of {ig.shape[1]} slots", flush=True)
+    if not all(v <= MODEL_ATOL for v in errs.values()) or not all(same.values()):
+        raise RuntimeError(f"ls_transducer on the card disagrees with the CPU: {errs} {same}")
+
+
+def time_transducer_phases(task, model, dev, gpu: str) -> None:
+    """Frontend, encoder and greedy decode on 8 x 12 s; a profile of the decode."""
+    rng = np.random.RandomState(23)
+    wav = torch.from_numpy((rng.randn(B, 12 * SR) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.full((B,), 12 * SR, dtype=torch.int64, device=dev)
+    batch = {"inputs": wav, "input_len": lens}
+    s = task.model.max_symbols_per_frame
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, batch)
+        f_proj, enc_len = model.encode(feats, fl)
+        if feats.shape != (B, T_ENC, D_TR) or f_proj.shape != (B, T_ENC, task.model.joint_dim):
+            raise RuntimeError(f"unexpected shapes {tuple(feats.shape)} {tuple(f_proj.shape)}")
+        decode = lambda: transducer_greedy_decode(model, f_proj, enc_len)  # noqa: E731
+        ids, n = decode()  # warm-up; the emitted symbols
+        times = {
+            "frontend": host_ms(lambda: device_pipeline(task, batch), 5),
+            f"encoder ({TR_LAYERS} x LSTM-512 + enc_proj)": host_ms(
+                lambda: model.encode(feats, fl), 3),
+        }
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        times["greedy decode"] = (time.perf_counter() - t1) * 1e3
+        steps = 1 + T_ENC * s  # the SOS step, then S prediction-net steps per frame
+        for name, ms in times.items():
+            extra = ""
+            if name == "greedy decode":
+                extra = (f", {T_ENC} frames x {s} symbol steps, {steps} prediction-net steps "
+                         f"({ms / steps:.3f} ms per step), {int(n.sum())} symbols emitted")
+            print(f"phase ls_transducer {name}: {ms:.3f} ms per batch of {B} x 12 s{extra}"
+                  f"  [{gpu}]", flush=True)
+        # the decode's steps are alike: a profile of its first PROFILE_FRAMES
+        # frames gives its busy share with fewer events to read
+        wall, busy, kernels = device_busy(lambda: transducer_greedy_decode(
+            model, f_proj[:, :PROFILE_FRAMES], enc_len.clamp(max=PROFILE_FRAMES)))
+    print(f"profile of the ls_transducer greedy decode's first {PROFILE_FRAMES} frames: "
+          f"{wall:.3f} ms wall (profiled), "
+          f"{busy:.3f} ms of device kernel time ({100 * busy / wall:.1f} % busy); top kernels "
+          "by device time:", flush=True)
+    for key, t, k in kernels[:6]:
+        print(f"  {t:9.3f} ms  {k:6d} launches  {key[:90]}", flush=True)
+
+
+def serve_transducer_requests(task, model, gpu: str) -> dict:
+    """8 concurrent /recognize requests; returns the kernel launches they caused."""
+    responses, lat, counts, batches, health = post_requests(task, model, TR_REQUEST_SECONDS,
+                                                            seed=24)
+    cfg = task.model
+    if health["blank_id"] != cfg.blank_id:
+        raise RuntimeError(f"unexpected /healthz {health}")
+    for seconds, r in zip(TR_REQUEST_SECONDS, responses):
+        ids = r["ids"]
+        frames = -(-(1 + (int(seconds * SR) - 400) // 160) // 3)
+        if (r["num_ids"] != len(ids) or len(ids) > frames * cfg.max_symbols_per_frame
+                or not all(isinstance(i, int) and 0 <= i < cfg.num_classes for i in ids)
+                or r.get("text") is None or "truncated" in r):
+            raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
+    print_latency("ls_transducer request latency", responses, lat, batches, gpu)
+    want = dict(NONE_LAUNCHED, lstm_layer_fwd=TR_LAYERS * batches)
+    print(f"transducer serving path launches: {counts}", flush=True)
+    if batches < 1 or counts != want:
+        raise RuntimeError(f"transducer serving launches {counts} for {batches} batch(es); "
+                           f"expected {want}")
     return counts
 
 
@@ -1006,7 +1230,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile-out", default=None,
-                    help="directory for train_step_profile.txt, the full profile table")
+                    help="directory for the train steps' full profile tables "
+                         "(<config>_train_step_profile.txt)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card", file=sys.stderr)
@@ -1026,47 +1251,87 @@ def main() -> int:
     check_serving_kernel(dev, gpu)
     results = check_training_lstm(dev, gpu)
     results.update(check_ctc(dev, gpu))
+    clock("kernels #1, #2, #5, #6 checked", t0)
 
     task = ls100_ctc_task()
-    params_cpu = init_params(task, torch.Generator().manual_seed(0))
-    model_cpu = init_model(task)
+    params_cpu = ctc_task.init_params(task, torch.Generator().manual_seed(0))
+    model_cpu = ctc_task.init_model(task)
     model_cpu.load_state_dict(params_cpu)
     model = copy.deepcopy(model_cpu).to(dev).eval()
     check_model(task, model_cpu, model, dev)
-    check_train_step(task, params_cpu, dev)
+    check_train_step(task, ctc_task, params_cpu, dev)
+    clock("ls100_ctc card == CPU", t0)
     time_phases(task, model, dev, gpu)
-    serve_counts = serve_requests(task, model, gpu)
+    counts = {"serving": serve_requests(task, model, gpu)}
     del model
-    time_train_steps(task, params_cpu, dev, gpu, args.profile_out)
-    train_counts = train_one_epoch(gpu)
+    clock("ls100_ctc served", t0)
+    time_train_steps("ls100_ctc", task, ctc_task, params_cpu, dev, gpu, args.profile_out,
+                     dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1))
+    counts["training"] = train_one_epoch(
+        "ls100_ctc", LS100_CTC, gpu,
+        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"))
+    clock("ls100_ctc trained", t0)
 
     results["location_attend"] = check_attention_kernel(dev, gpu)
     pyramidal = check_pyramidal_lstm(dev, gpu)
+    clock("kernel #7 and #1 at T=1198 checked", t0)
     att = ls960_joint_task()
     att_cpu = att_task.init_model(att, torch.Generator().manual_seed(0)).eval()
     att_model = copy.deepcopy(att_cpu).to(dev).eval()
     check_att_model(att, att_cpu, att_model, dev)
+    clock("ls960_joint card == CPU", t0)
     time_att_phases(att, att_model, dev, gpu)
-    att_counts = serve_att_requests(att, att_model, gpu)
+    counts["att_serving"] = serve_att_requests(att, att_model, gpu)
+    del att_model
+    clock("ls960_joint served", t0)
 
+    results.update(check_layer_kernels(dev, gpu))
+    clock("kernels #3, #4 checked", t0)
+    tr = ls_transducer_task()
+    tr_params = transducer_task.init_params(tr, torch.Generator().manual_seed(0))
+    tr_cpu = transducer_task.init_model(tr)
+    tr_cpu.load_state_dict(tr_params)
+    tr_model = copy.deepcopy(tr_cpu).to(dev).eval()
+    check_transducer_model(tr, tr_cpu.eval(), tr_model, dev)
+    check_train_step(tr, transducer_task, tr_params, dev, seed=25)
+    clock("ls_transducer card == CPU", t0)
+    time_transducer_phases(tr, tr_model, dev, gpu)
+    counts["transducer_serving"] = serve_transducer_requests(tr, tr_model, gpu)
+    del tr_model
+    clock("ls_transducer served", t0)
+    time_train_steps("ls_transducer", tr, transducer_task, tr_params, dev, gpu,
+                     args.profile_out, dict(NONE_LAUNCHED, lstm_layer_fwd=TR_LAYERS,
+                                            lstm_layer_bwd=TR_LAYERS), steps=TR_TIMED_STEPS)
+    clock("ls_transducer train steps timed", t0)
+    # 256 utterances instead of the config's 2048: one epoch within the time limit
+    counts["transducer_training"] = train_one_epoch(
+        "ls_transducer", dict(LS_TRANSDUCER, toy_num_utts=256), gpu,
+        ("lstm_layer_fwd", "lstm_layer_bwd"))
+    clock("ls_transducer trained", t0)
+
+    # "launches": the count on the path that ported the kernel (CTC training
+    # for #1, #2, #5, #6; attention serving for #7; transducer training for
+    # #3, #4); every path's count beside it
+    main_path = {"location_attend": "att_serving", "lstm_layer_fwd": "transducer_training",
+                 "lstm_layer_bwd": "transducer_training"}
     entries = []
     for name, meta in KERNELS.items():
         r = results[name]
-        # "launches": the count on the path that ported the kernel (CTC
-        # training for #1, #2, #5, #6; attention serving for #7)
         entries.append({
             "name": name, "route": "cuda", **meta,
-            "launches": att_counts[name] if name == "location_attend" else train_counts[name],
-            "launches_serving": serve_counts[name], "launches_training": train_counts[name],
-            "launches_att_serving": att_counts[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "launches": counts[main_path.get(name, "training")][name],
+            **{f"launches_{path}": c[name] for path, c in counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
         if name == "location_attend":
             entries[-1]["n8"] = r["n8"]
         if name == "lstm_bidi_fwd":
             entries[-1]["pyramidal"] = {k: pyramidal[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        if name == "lstm_layer_fwd":
+            entries[-1]["serving"] = {k: r["serving"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""Serve a CTC or attention model over HTTP with micro-batching.
+"""Serve a CTC, transducer or attention model over HTTP with micro-batching.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/serve.py``
 (batch API). The JAX server loads a frozen StableHLO artifact; this one runs
@@ -13,13 +13,15 @@ Concurrent requests are grouped into fixed ``[batch, samples]`` batches by
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls960_joint.yml weights.npz --beam-width 8
 
-``model_type`` in the config picks the model: ``ctc`` decodes greedily;
-``attention`` and ``joint_ctc_attention`` decode greedily, or with the
-attention beam search at ``--beam-width`` above 1.
+``model_type`` in the config picks the model: ``ctc`` and ``transducer``
+(``configs/ls_transducer.yml``) decode greedily; ``attention`` and
+``joint_ctc_attention`` decode greedily, or with the attention beam search
+at ``--beam-width`` above 1.
 
 API:
   GET  /healthz    -> the serving contract (batch size, samples, beam width,
-                      blank id (null for attention models), device)
+                      blank id (CTC and transducer; null for attention
+                      models), device)
   POST /recognize  -> body is JSON ``{"audio": [floats...]}`` or raw
                       little-endian float32 PCM (Content-Type:
                       application/octet-stream). Response ``{"ids": [...],
@@ -135,7 +137,7 @@ def make_server(task, model, batch_size: int, num_samples: int,
     ``beam_width`` above 1 decodes an attention model with the beam search.
     """
     from ..serving import MicroBatcher, build_inference_fn
-    from ..train.ctc_task import CTCTaskConfig
+    from ..train.att_task import AttTaskConfig
 
     infer = build_inference_fn(task, model, beam_width)
     if warmup:
@@ -150,7 +152,7 @@ def make_server(task, model, batch_size: int, num_samples: int,
         "num_samples": num_samples,
         "input_rank": 2,
         "beam_width": beam_width,
-        "blank_id": task.model.blank_id if isinstance(task, CTCTaskConfig) else None,
+        "blank_id": None if isinstance(task, AttTaskConfig) else task.model.blank_id,
         "device": str(next(model.parameters()).device),
         "units": list(units) if units else None,
         "label_type": label_type,
@@ -167,15 +169,16 @@ def make_server(task, model, batch_size: int, num_samples: int,
 def load_model(config_path, weights_path, device):
     """YAML config + bridged weights -> (task, model on ``device``, units, label_type).
 
-    The config's ``model_type`` picks the model: a CTC model, or an
-    attention / joint CTC-attention seq2seq model.
+    The config's ``model_type`` picks the model: a CTC model, a transducer,
+    or an attention / joint CTC-attention seq2seq model.
     """
-    from ..train import att_task, ctc_task
+    from ..train import att_task, ctc_task, transducer_task
     from ..utils.bridge import load_weights
     from ..utils.config import load_task
 
     task, units, label_type = load_task(config_path)
-    task_mod = ctc_task if isinstance(task, ctc_task.CTCTaskConfig) else att_task
+    task_mod = {ctc_task.CTCTaskConfig: ctc_task, att_task.AttTaskConfig: att_task,
+                transducer_task.TransducerTaskConfig: transducer_task}[type(task)]
     model = load_weights(weights_path, task_mod.init_model(task))
     return task, model.to(device), units, label_type
 

@@ -1,16 +1,17 @@
-"""BLSTM and pyramidal BLSTM encoder stacks.
+"""LSTM, BLSTM and pyramidal BLSTM encoder stacks.
 
-Counterpart of the ``blstm`` and ``pyramidal_blstm`` (alias ``pblstm``)
-branches of ``apply_encoder`` in
+Counterpart of the ``lstm``, ``blstm`` and ``pyramidal_blstm`` (alias
+``pblstm``) branches of ``apply_encoder`` in
 ``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack of
-``BiLSTM`` layers over ``[B, T, D]`` with the true lengths carried alongside,
-and, in training, dropout after every layer, the last one included. The
-pyramidal stack concatenates adjacent frame pairs after each of its first
-``num_pyramid_levels`` layers (by default all but the last), halving T and
-doubling the next layer's input width (``_pyramid_reduce``). The JAX
-package routes inputs longer than T = 400 to its scan path because of TPU
-toolchain limits; the kernel here runs at every T. Other encoder types and
-cell options raise ``NotImplementedError`` until they are ported.
+``LSTM`` (one direction, causal) or ``BiLSTM`` layers over ``[B, T, D]``
+with the true lengths carried alongside, and, in training, dropout after
+every layer, the last one included. The pyramidal stack concatenates
+adjacent frame pairs after each of its first ``num_pyramid_levels`` layers
+(by default all but the last), halving T and doubling the next layer's
+input width (``_pyramid_reduce``). The JAX package routes inputs longer than
+T = 400 to its scan path because of TPU toolchain limits; the kernels here
+run at every T. Other encoder types (``vgg_lstm``, ``multitask_lstm``, ...)
+and cell options raise ``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
@@ -21,13 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .rnn import BiLSTM, dropout
+from .rnn import LSTM, BiLSTM, dropout
 
 PYRAMIDAL_TYPES = ("pyramidal_blstm", "pblstm")
+PORTED_TYPES = ("lstm", "blstm") + PYRAMIDAL_TYPES
 
 
 class EncoderConfig(NamedTuple):
-    """The BLSTM-path fields of the JAX ``EncoderConfig``, same names and defaults."""
+    """The (B)LSTM-path fields of the JAX ``EncoderConfig``, same names and defaults."""
 
     encoder_type: str = "blstm"
     num_units: int = 256
@@ -41,8 +43,12 @@ class EncoderConfig(NamedTuple):
     compute_dtype: str = "float32"
 
     @property
+    def bidirectional(self) -> bool:
+        return self.encoder_type != "lstm"
+
+    @property
     def output_dim(self) -> int:
-        return 2 * self.num_units
+        return self.num_units * (2 if self.bidirectional else 1)
 
     @property
     def is_pyramidal(self) -> bool:
@@ -57,7 +63,7 @@ class EncoderConfig(NamedTuple):
 
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.encoder_type not in ("blstm",) + PYRAMIDAL_TYPES:
+    if cfg.encoder_type not in PORTED_TYPES:
         raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} is not ported yet")
     for name, unset in (("num_proj", cfg.num_proj is None),
                         ("use_peephole", not cfg.use_peephole),
@@ -96,15 +102,16 @@ class Encoder(nn.Module):
         for layer in range(cfg.num_layers):
             dims.append(dim)
             dim = cfg.output_dim * (2 if cfg.reduces_after(layer) else 1)
+        layer = BiLSTM if cfg.bidirectional else LSTM
         self.layers = nn.ModuleList(
-            BiLSTM(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
+            layer(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
         )
         self.cfg = cfg
         self.keep_prob = cfg.dropout_keep_prob
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None):
-        """[B, T, D] -> ([B, T', 2H], lengths'); T' = T unless pyramidal.
+        """[B, T, D] -> ([B, T', output_dim], lengths'); T' = T unless pyramidal.
 
         With ``train`` and a ``generator`` (on the inputs' device), each
         layer's output goes through dropout, as ``apply_encoder`` does when

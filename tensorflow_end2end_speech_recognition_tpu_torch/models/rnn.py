@@ -1,16 +1,18 @@
-"""Bidirectional LSTM layer: hoisted input projection + fused recurrence.
+"""LSTM layers: hoisted input projection + fused recurrence, and the plain step.
 
-Counterpart of the Pallas branch of ``bidirectional_scan`` in
-``tensorflow_end2end_speech_recognition_tpu/models/rnn.py``: the input
-projection ``x @ Wx + b`` for all timesteps is one ``torch.matmul`` per
-direction, the backward direction's projection is reversed over each row's
-valid prefix, and ``ops.lstm.lstm_bidi`` runs both recurrences (through
-its ``torch.autograd.Function`` when a gradient may be taken). Only the
-plain LSTM cell is ported; peephole, projection, cell clip and GRU raise.
-``lstm_step`` is one step of that cell in plain PyTorch (``_lstm_step``
-there, which the JAX package runs in XLA, not in a kernel): the attention
-decoder's cell. ``dropout`` is the inverted dropout of ``models/rnn.py``
-there.
+Counterpart of the Pallas branches of ``bidirectional_scan`` and
+``rnn_scan`` in ``tensorflow_end2end_speech_recognition_tpu/models/rnn.py``:
+the input projection ``x @ Wx + b`` for all timesteps is one
+``torch.matmul`` per direction, the backward direction's projection is
+reversed over each row's valid prefix, and ``ops.lstm.lstm_bidi`` (``BiLSTM``)
+or ``ops.lstm.lstm_layer`` (``LSTM``, one direction) runs the recurrence
+(through its ``torch.autograd.Function`` when a gradient may be taken).
+Only the plain LSTM cell is ported; peephole, projection, cell clip and GRU
+raise. ``lstm_step`` is one step of that cell in plain PyTorch
+(``_lstm_step`` there, which the JAX package runs in XLA, not in a kernel):
+the attention decoder's cell, and through ``lstm_scan`` (the scan branch of
+``rnn_scan``, with a carried ``(h, c)``) the transducer's prediction net.
+``dropout`` is the inverted dropout of ``models/rnn.py`` there.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.lstm import lstm_bidi
+from ..ops.lstm import lstm_bidi, lstm_layer
 
 
 def flip_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -29,6 +31,12 @@ def flip_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     src = torch.where(idx < lengths, lengths - 1 - idx, idx)
     src = src.reshape(src.shape + (1,) * (x.dim() - 2)).expand_as(x)
     return torch.gather(x, 1, src)
+
+
+def length_mask(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """[B, T] float32 on ``xs``'s device: 1 on each row's first ``lengths`` steps."""
+    return (torch.arange(xs.shape[1], device=xs.device)[None, :]
+            < lengths.to(xs.device)[:, None]).to(torch.float32)
 
 
 class LSTMParams(nn.Module):
@@ -57,14 +65,30 @@ class BiLSTM(nn.Module):
         self.bwd = LSTMParams(input_dim, num_units, param_init, generator)
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        t = xs.shape[1]
         xproj_f = torch.matmul(xs, self.fwd.wx) + self.fwd.b
         xproj_b = flip_valid(torch.matmul(xs, self.bwd.wx) + self.bwd.b, lengths)
-        mask = (torch.arange(t, device=xs.device)[None, :]
-                < lengths.to(xs.device)[:, None]).to(torch.float32)
-        ys_f, ys_b = lstm_bidi(xproj_f, xproj_b, self.fwd.wh, self.bwd.wh, mask,
-                               self.forget_bias)
+        ys_f, ys_b = lstm_bidi(xproj_f, xproj_b, self.fwd.wh, self.bwd.wh,
+                               length_mask(xs, lengths), self.forget_bias)
         return torch.cat([ys_f, flip_valid(ys_b, lengths)], dim=-1)
+
+
+class LSTM(LSTMParams):
+    """One unidirectional LSTM layer: [B, T, D] -> [B, T, H].
+
+    Its weights sit on the layer itself (``wx``, ``wh``, ``b``), as the JAX
+    pytree of a unidirectional layer is ``{wx, wh, b}``. Steps past a row's
+    length carry the state and emit 0; the final state is not returned (the
+    encoder drops it, as ``apply_encoder`` does).
+    """
+
+    def __init__(self, input_dim: int, num_units: int, param_init: float = 0.1,
+                 forget_bias: float = 1.0, generator: torch.Generator | None = None):
+        super().__init__(input_dim, num_units, param_init, generator)
+        self.forget_bias = forget_bias
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        xproj = torch.matmul(xs, self.wx) + self.b
+        return lstm_layer(xproj, self.wh, length_mask(xs, lengths), self.forget_bias)
 
 
 def lstm_step(wh: torch.Tensor, carry, xproj_t: torch.Tensor):
@@ -77,6 +101,25 @@ def lstm_step(wh: torch.Tensor, carry, xproj_t: torch.Tensor):
     i, f, g, o = (xproj_t + torch.matmul(h_prev, wh)).chunk(4, dim=-1)
     c = torch.sigmoid(f + 1.0) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def lstm_scan(params: LSTMParams, xs: torch.Tensor, initial_state=None):
+    """The scan branch of ``rnn_scan`` with every step valid: ``(ys [B, U, H], (h, c))``.
+
+    ``xs`` [B, U, D]; the projection ``xs @ wx + b`` is hoisted, then
+    ``lstm_step`` runs U times from ``initial_state`` ``(h, c)`` (zeros when
+    None). The prediction net's recurrence, plain because the JAX package
+    runs it in XLA.
+    """
+    xproj = torch.matmul(xs, params.wx) + params.b
+    if initial_state is None:
+        zeros = xs.new_zeros((xs.shape[0], params.wh.shape[0]))
+        initial_state = (zeros, zeros)
+    carry, ys = initial_state, []
+    for s in range(xs.shape[1]):
+        carry = lstm_step(params.wh, carry, xproj[:, s])
+        ys.append(carry[0])
+    return torch.stack(ys, dim=1), carry
 
 
 def dropout(x: torch.Tensor, keep_prob: float, train: bool,

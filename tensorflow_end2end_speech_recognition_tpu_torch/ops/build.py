@@ -4,7 +4,7 @@ The sources have a plain C interface and include no PyTorch header. Each
 source compiles to an object file in its own nvcc process, all started
 together, and one more call links them, so a build takes seconds. The
 library goes to ``_build/`` inside the package (listed in ``.gitignore``),
-named by a hash of the sources and the flags, and is built at first use:
+named by a hash of the sources, their headers and the flags, and is built at first use:
 nothing is compiled when a module is imported, so the CPU-only test runs
 never need nvcc.
 """
@@ -33,9 +33,12 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
+    """``_build/libasr_kernels_<hash>.so``, the hash over the flags and every
+    source and header (``*.cu``, ``*.cuh``, ``*.h``) in ``csrc``: editing a
+    header that the sources include names a new library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh", ".h")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libasr_kernels_{h.hexdigest()[:16]}.so"
@@ -63,7 +66,8 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library unless it is built already.
+    """Compile ``csrc/*.cu`` (with the headers they include) into one shared
+    library unless it is built already.
 
     One nvcc process per source, all running together, then one link.
     Returns the library path. The compiler's report (``-Xptxas -v``: registers
@@ -96,6 +100,8 @@ def load_library() -> ctypes.CDLL:
     signatures = {
         "lstm_bidi_fwd": [p] * 11 + [i, i, i, f, p],
         "lstm_bidi_bwd": [p] * 15 + [i, i, i, f, p],
+        "lstm_layer_fwd": [p] * 7 + [i, i, i, f, p],
+        "lstm_layer_bwd": [p] * 9 + [i, i, i, f, p],
         "ctc_loss_fwd_bwd": [p] * 9 + [i] * 5 + [p],
         "ctc_loss_fwd_only": [p] * 7 + [i] * 5 + [p],
         "location_attend": [p] * 11 + [i] * 6 + [f, p],

@@ -1,28 +1,32 @@
-"""Fused bidirectional LSTM layer over hoisted input projections.
+"""Fused LSTM layers over hoisted input projections: bidirectional and one direction.
 
-Counterpart of ``lstm_bidi_pallas`` and its VJP (``_bidi_vjp_fwd`` /
-``_bidi_vjp_bwd``) in ``tensorflow_end2end_speech_recognition_tpu/ops/
-pallas/lstm_kernel.py``, with the same contract:
+Counterparts of ``lstm_bidi_pallas`` and ``lstm_layer_pallas`` with their
+VJPs in ``tensorflow_end2end_speech_recognition_tpu/ops/pallas/
+lstm_kernel.py``, with the same contracts:
 
     lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias) -> (ys_f, ys_b)
+    lstm_layer(xproj, wh, mask, forget_bias) -> ys
 
-``xproj_*`` [B, T, 4H] = x @ Wx + b per direction, ``xproj_b`` already
-reversed over each row's valid prefix; ``wh_*`` [H, 4H]; ``mask`` [B, T]
+``xproj*`` [B, T, 4H] = x @ Wx + b per direction, ``xproj_b`` already
+reversed over each row's valid prefix; ``wh*`` [H, 4H]; ``mask`` [B, T]
 float, monotone per row (a length mask). Gates are i, f, g, o with
 ``forget_bias`` added to f. A masked step carries h and c through and emits
-0. Returns ``ys_f`` and ``ys_b`` [B, T, H], ``ys_b`` still in reversed order.
+0. Returns ``ys*`` [B, T, H], ``ys_b`` still in reversed order.
 
-When a gradient may be taken, the call goes through ``LSTMBidi``, a
-``torch.autograd.Function``: its forward also keeps the cell-state streams
-``cs_f`` / ``cs_b``, and its backward recomputes the gates step by step
-(``lstm_bidi_bwd``) and forms ``dWh`` per direction as one contraction over
-[T*B] of the shifted ``ys`` against ``dxproj``, as ``_bidi_bwd_call`` does.
+When a gradient may be taken, the call goes through ``LSTMBidi`` or
+``LSTMLayer``, a ``torch.autograd.Function``: its forward also keeps the
+cell-state streams ``cs``, and its backward recomputes the gates step by
+step (``lstm_bidi_bwd``, ``lstm_layer_bwd``) and forms ``dWh`` per
+direction as one contraction over [T*B] of the shifted ``ys`` against
+``dxproj``, as ``_bidi_bwd_call`` and ``_bwd_call`` do.
 
-CPU tensors take the plain versions (``lstm_bidi_fwd_plain``,
-``lstm_bidi_bwd_plain``), time loops in plain PyTorch. CUDA tensors launch
-the hand-written kernels ``csrc/lstm_bidi_fwd.cu`` and
-``csrc/lstm_bidi_bwd.cu`` or raise; there is no fallback.
-``lstm_bidi.launches`` and ``lstm_bidi_bwd.launches`` count kernel launches.
+CPU tensors take the plain versions (``lstm_layer_fwd_plain``,
+``lstm_layer_bwd_plain`` and their two-direction forms), time loops in plain
+PyTorch. CUDA tensors launch the hand-written kernels (``csrc/lstm_bidi_fwd.cu``
+#1, ``lstm_bidi_bwd.cu`` #2, ``lstm_layer_fwd.cu`` #3, ``lstm_layer_bwd.cu`` #4,
+all on the step kernels of ``csrc/lstm_step.cuh``) or raise; there is no
+fallback. ``lstm_bidi.launches``, ``lstm_bidi_bwd.launches``,
+``lstm_layer.launches`` and ``lstm_layer_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -38,31 +42,34 @@ def _gates(gates, h, forget_bias):
     return torch.sigmoid(i), torch.sigmoid(f + forget_bias), torch.tanh(g), torch.sigmoid(o)
 
 
-def lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
-    """Plain version of the forward kernel: one ``h @ Wh + xproj[t]`` step per t.
+def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0):
+    """Plain version of the forward kernels: one ``h @ Wh + xproj[t]`` step per t.
 
-    Returns ``(ys_f, ys_b, cs_f, cs_b)``, each [B, T, H]; ``cs`` holds the
-    carried cell state at every step.
+    Returns ``(ys, cs)``, each [B, T, H]; ``cs`` holds the carried cell
+    state at every step.
     """
-    b, t, g4 = xproj_f.shape
+    b, t, g4 = xproj.shape
     h = g4 // 4
-    outs = []
-    for xproj, wh in ((xproj_f, wh_f), (xproj_b, wh_b)):
-        h_prev = xproj.new_zeros((b, h))
-        c_prev = xproj.new_zeros((b, h))
-        ys, cs = [], []
-        for s in range(t):
-            i, f, g, o = _gates(xproj[:, s] + h_prev @ wh, h, forget_bias)
-            c = f * c_prev + i * g
-            h_new = o * torch.tanh(c)
-            m = mask[:, s, None]
-            on = m > 0
-            h_prev = torch.where(on, h_new, h_prev)
-            c_prev = torch.where(on, c, c_prev)
-            ys.append(h_prev * m)
-            cs.append(c_prev)
-        outs.append((torch.stack(ys, dim=1), torch.stack(cs, dim=1)))
-    (ys_f, cs_f), (ys_b, cs_b) = outs
+    h_prev = xproj.new_zeros((b, h))
+    c_prev = xproj.new_zeros((b, h))
+    ys, cs = [], []
+    for s in range(t):
+        i, f, g, o = _gates(xproj[:, s] + h_prev @ wh, h, forget_bias)
+        c = f * c_prev + i * g
+        h_new = o * torch.tanh(c)
+        m = mask[:, s, None]
+        on = m > 0
+        h_prev = torch.where(on, h_new, h_prev)
+        c_prev = torch.where(on, c, c_prev)
+        ys.append(h_prev * m)
+        cs.append(c_prev)
+    return torch.stack(ys, dim=1), torch.stack(cs, dim=1)
+
+
+def lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
+    """Both directions of ``lstm_layer_fwd_plain``: ``(ys_f, ys_b, cs_f, cs_b)``."""
+    ys_f, cs_f = lstm_layer_fwd_plain(xproj_f, wh_f, mask, forget_bias)
+    ys_b, cs_b = lstm_layer_fwd_plain(xproj_b, wh_b, mask, forget_bias)
     return ys_f, ys_b, cs_f, cs_b
 
 
@@ -71,50 +78,55 @@ def _shift_one(x):
     return F.pad(x[:, :-1], (0, 0, 1, 0))
 
 
-def lstm_bidi_bwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
-                        gys_f, gys_b, forget_bias: float = 1.0):
-    """Plain version of the backward kernel: ``(dxproj_f, dxproj_b)`` [B, T, 4H].
+def lstm_layer_bwd_plain(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
+    """Plain version of the backward kernels: ``dxproj`` [B, T, 4H].
 
-    The reverse walk of ``_bidi_bwd_kernel``: recompute the gates at t from
+    The reverse walk of ``_bwd_kernel``: recompute the gates at t from
     ``xproj[t]`` and ``h_{t-1} = ys[t-1]``, carry ``dh`` and ``dc``, emit
     ``dgates`` (zero on a masked step, which carries dh and dc through).
     """
-    b, t, g4 = xproj_f.shape
+    b, t, g4 = xproj.shape
     h = g4 // 4
-    outs = []
-    for xproj, wh, ys, cs, gys in ((xproj_f, wh_f, ys_f, cs_f, gys_f),
-                                   (xproj_b, wh_b, ys_b, cs_b, gys_b)):
-        h_prev_all, c_prev_all = _shift_one(ys), _shift_one(cs)
-        dh = xproj.new_zeros((b, h))
-        dc = xproj.new_zeros((b, h))
-        dxs = [None] * t
-        for s in reversed(range(t)):
-            on = mask[:, s, None] > 0
-            i, f, g, o = _gates(xproj[:, s] + h_prev_all[:, s] @ wh, h, forget_bias)
-            dh_total = torch.where(on, gys[:, s], 0.0) + dh
-            tc = torch.tanh(cs[:, s])
-            do = dh_total * tc
-            dc_total = dc + dh_total * o * (1.0 - tc * tc)
-            dgates = torch.cat([
-                dc_total * g * i * (1.0 - i),
-                dc_total * c_prev_all[:, s] * f * (1.0 - f),
-                dc_total * i * (1.0 - g * g),
-                do * o * (1.0 - o),
-            ], dim=-1)
-            dgates = torch.where(on, dgates, 0.0)
-            dxs[s] = dgates
-            dh = torch.where(on, dgates @ wh.t(), dh_total)
-            dc = torch.where(on, dc_total * f, dc)
-        outs.append(torch.stack(dxs, dim=1))
-    return outs[0], outs[1]
+    h_prev_all, c_prev_all = _shift_one(ys), _shift_one(cs)
+    dh = xproj.new_zeros((b, h))
+    dc = xproj.new_zeros((b, h))
+    dxs = [None] * t
+    for s in reversed(range(t)):
+        on = mask[:, s, None] > 0
+        i, f, g, o = _gates(xproj[:, s] + h_prev_all[:, s] @ wh, h, forget_bias)
+        dh_total = torch.where(on, gys[:, s], 0.0) + dh
+        tc = torch.tanh(cs[:, s])
+        do = dh_total * tc
+        dc_total = dc + dh_total * o * (1.0 - tc * tc)
+        dgates = torch.cat([
+            dc_total * g * i * (1.0 - i),
+            dc_total * c_prev_all[:, s] * f * (1.0 - f),
+            dc_total * i * (1.0 - g * g),
+            do * o * (1.0 - o),
+        ], dim=-1)
+        dgates = torch.where(on, dgates, 0.0)
+        dxs[s] = dgates
+        dh = torch.where(on, dgates @ wh.t(), dh_total)
+        dc = torch.where(on, dc_total * f, dc)
+    return torch.stack(dxs, dim=1)
+
+
+def lstm_bidi_bwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
+                        gys_f, gys_b, forget_bias: float = 1.0):
+    """Both directions of ``lstm_layer_bwd_plain``: ``(dxproj_f, dxproj_b)``."""
+    return (lstm_layer_bwd_plain(xproj_f, wh_f, mask, ys_f, cs_f, gys_f, forget_bias),
+            lstm_layer_bwd_plain(xproj_b, wh_b, mask, ys_b, cs_b, gys_b, forget_bias))
 
 
 def _check_inputs(what, **tensors) -> None:
-    first = next(iter(tensors.values()))
+    """Same device, float32, contiguous, and the shapes of the first tensor's
+    [B, T, 4H]: ``wh*`` [H, 4H], ``mask`` [B, T], ``xproj*`` [B, T, 4H], and
+    every other stream (``ys``, ``cs``, ``gys``) [B, T, H]."""
+    first_name, first = next(iter(tensors.items()))
     dev = first.device
     for name, x in tensors.items():
         if x.device != dev:
-            raise ValueError(f"{what}: {name} is on {x.device}, xproj_f on {dev}")
+            raise ValueError(f"{what}: {name} is on {x.device}, {first_name} on {dev}")
         if x.dtype == torch.bfloat16:
             raise NotImplementedError(
                 f"{what}: {name} is bfloat16; bf16 streams (compute_dtype: bfloat16) "
@@ -125,16 +137,18 @@ def _check_inputs(what, **tensors) -> None:
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if first.dim() != 3 or first.shape[-1] % 4:
-        raise ValueError(f"{what}: xproj_f must be [B, T, 4H], got {tuple(first.shape)}")
+        raise ValueError(f"{what}: {first_name} must be [B, T, 4H], got {tuple(first.shape)}")
     b, t, g4 = first.shape
     h = g4 // 4
-    want = {"xproj_b": (b, t, g4), "wh_f": (h, g4), "wh_b": (h, g4), "mask": (b, t)}
-    for name in tensors:
-        if name not in want:
-            want[name] = (b, t, h)  # ys, cs, gys streams
     for name, x in tensors.items():
-        if name != "xproj_f" and tuple(x.shape) != want[name]:
-            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, expected {want[name]}")
+        if name.startswith("wh"):
+            want = (h, g4)
+        elif name == "mask":
+            want = (b, t)
+        else:
+            want = (b, t, g4 if name.startswith("xproj") else h)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, expected {want}")
     if b == 0 or t == 0 or h == 0:
         raise ValueError(f"{what}: empty input {tuple(first.shape)}")
 
@@ -211,6 +225,13 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
 lstm_bidi_bwd.launches = 0
 
 
+def _dwh(ys, dx):
+    """dWh = sum_t h_{t-1}^T dgates_t: one contraction over [T*B] of the
+    shifted ``ys`` against ``dxproj``, as ``_bwd_call`` forms it."""
+    h = ys.shape[-1]
+    return torch.matmul(_shift_one(ys).reshape(-1, h).t(), dx.reshape(-1, 4 * h))
+
+
 class LSTMBidi(torch.autograd.Function):
     """``lstm_bidi`` with its gradient: kernel #1 forward, kernel #2 backward."""
 
@@ -229,12 +250,7 @@ class LSTMBidi(torch.autograd.Function):
         gys_b = torch.zeros_like(ys_b) if gys_b is None else gys_b.contiguous()
         dx_f, dx_b = lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
                                    gys_f, gys_b, ctx.forget_bias)
-        h = ys_f.shape[-1]
-
-        def dwh(ys, dx):  # one contraction over [T*B] per direction
-            return torch.matmul(_shift_one(ys).reshape(-1, h).t(), dx.reshape(-1, 4 * h))
-
-        return dx_f, dx_b, dwh(ys_f, dx_f), dwh(ys_b, dx_b), None, None
+        return dx_f, dx_b, _dwh(ys_f, dx_f), _dwh(ys_b, dx_b), None, None
 
 
 def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
@@ -251,3 +267,92 @@ def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
 
 
 lstm_bidi.launches = 0
+
+
+def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = False):
+    """Kernel #3: ``ys``, or ``(ys, cs)`` when ``with_cs``.
+
+    Launches are counted on ``lstm_layer.launches``.
+    """
+    _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
+    dev = _device_of("lstm_layer", xproj)
+    if dev.type == "cpu":
+        ys, cs = lstm_layer_fwd_plain(xproj, wh, mask, forget_bias)
+        return (ys, cs) if with_cs else ys
+    lib = build.load_library()
+    b, t, g4 = xproj.shape
+    h = g4 // 4
+    ys = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(ys) if with_cs else None
+    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)  # h ping-pong
+    cbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lstm_layer_fwd(
+            xproj.data_ptr(), wh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
+            cs.data_ptr() if with_cs else None, hbuf.data_ptr(), cbuf.data_ptr(),
+            b, t, h, float(forget_bias), stream,
+        )
+    build.check(lib, code, "lstm_layer_fwd")
+    lstm_layer.launches += 1
+    return (ys, cs) if with_cs else ys
+
+
+def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
+    """Kernel #4: ``dxproj`` [B, T, 4H]; arguments as ``lstm_layer_bwd_plain``.
+
+    Launches are counted on ``lstm_layer_bwd.launches``.
+    """
+    _check_inputs("lstm_layer_bwd", xproj=xproj, wh=wh, mask=mask, ys=ys, cs=cs, gys=gys)
+    dev = _device_of("lstm_layer_bwd", xproj)
+    if dev.type == "cpu":
+        return lstm_layer_bwd_plain(xproj, wh, mask, ys, cs, gys, forget_bias)
+    lib = build.load_library()
+    b, t, g4 = xproj.shape
+    h = g4 // 4
+    dx = torch.empty_like(xproj)
+    dhbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    dcbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.lstm_layer_bwd(
+            *(a.data_ptr() for a in (xproj, wh, mask, ys, cs, gys)), dx.data_ptr(),
+            dhbuf.data_ptr(), dcbuf.data_ptr(), b, t, h, float(forget_bias), stream,
+        )
+    build.check(lib, code, "lstm_layer_bwd")
+    lstm_layer_bwd.launches += 1
+    return dx
+
+
+lstm_layer_bwd.launches = 0
+
+
+class LSTMLayer(torch.autograd.Function):
+    """``lstm_layer`` with its gradient: kernel #3 forward, kernel #4 backward."""
+
+    @staticmethod
+    def forward(ctx, xproj, wh, mask, forget_bias):
+        ys, cs = lstm_layer_fwd(xproj, wh, mask, forget_bias, with_cs=True)
+        ctx.save_for_backward(xproj, wh, mask, ys, cs)
+        ctx.forget_bias = forget_bias
+        return ys
+
+    @staticmethod
+    def backward(ctx, gys):
+        xproj, wh, mask, ys, cs = ctx.saved_tensors
+        dx = lstm_layer_bwd(xproj, wh, mask, ys, cs, gys.contiguous(), ctx.forget_bias)
+        return dx, _dwh(ys, dx), None, None
+
+
+def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0):
+    """One LSTM direction over hoisted projections; see the module docstring.
+
+    Goes through ``LSTMLayer`` when autograd may need a gradient; otherwise
+    (serving, eval) runs the forward kernel alone, with no ``cs`` stream.
+    """
+    if torch.is_grad_enabled() and (xproj.requires_grad or wh.requires_grad):
+        return LSTMLayer.apply(xproj, wh, mask, forget_bias)
+    return lstm_layer_fwd(xproj, wh, mask, forget_bias)
+
+
+lstm_layer.launches = 0

@@ -79,17 +79,18 @@ def init_params(task: CTCTaskConfig, generator: torch.Generator | None = None,
 
 
 @functools.lru_cache(maxsize=8)
-def _skeleton(model_cfg: CTCConfig, input_dim: int) -> CTCModel:
-    """The model's module tree with meta tensors: ``functional_call`` supplies weights."""
+def skeleton(model_cls, model_cfg, input_dim: int):
+    """``model_cls(model_cfg, input_dim)``'s module tree with meta tensors:
+    ``functional_call`` supplies the weights."""
     with torch.device("meta"):
-        return CTCModel(model_cfg, input_dim)
+        return model_cls(model_cfg, input_dim)
 
 
 def apply_model(params: dict, task: CTCTaskConfig, feats, feat_len, train: bool = False,
                 generator: torch.Generator | None = None):
     """``CTCModel.forward`` on the weights in ``params`` (``apply_ctc``)."""
     dim = feats.shape[-1]
-    return functional_call(_skeleton(task.model, dim), params, (feats, feat_len),
+    return functional_call(skeleton(CTCModel, task.model, dim), params, (feats, feat_len),
                            {"train": train, "generator": generator})
 
 
@@ -110,13 +111,14 @@ def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
     return loss, aux
 
 
-def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
-    """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``.
+def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
+    """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``
+    around ``forward_loss_fn(params, task, batch, train, generator)``.
 
-    Loss and gradient (autograd through the BLSTM and CTC kernels), the
-    optimizer's clip and update, then the guard of the JAX step: unless the
-    loss is finite and below 1e20 (an impossible alignment gives about 1e30),
-    both the parameters and the optimizer state keep their old values and
+    Loss and gradient (autograd through the kernels), the optimizer's clip
+    and update, then the guard of the JAX step: unless the loss is finite
+    and below 1e20 (an impossible alignment gives about 1e30), both the
+    parameters and the optimizer state keep their old values and
     ``aux["nonfinite"]`` is true. The guard is a ``torch.where`` on the
     device, so a step never waits for the host.
     """
@@ -128,7 +130,7 @@ def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
     def train_step(params, opt_state, batch, lr, generator=None):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
-            loss, aux = forward_loss(leaves, task, batch, True, generator)
+            loss, aux = forward_loss_fn(leaves, task, batch, True, generator)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         with torch.no_grad():
             updates, new_state = optimizer.update(grads, opt_state)
@@ -142,6 +144,11 @@ def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
         return params, opt_state, aux
 
     return train_step
+
+
+def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
+    """The CTC train step: ``guarded_train_step`` around ``forward_loss``."""
+    return guarded_train_step(forward_loss, task, optimizer, grad_accum)
 
 
 def make_eval_step(task: CTCTaskConfig):

@@ -1,7 +1,10 @@
 """Training loop: epochs, plateau LR, dev eval, best-on-dev checkpoints.
 
-Counterpart of the single-device CTC branch of ``fit`` in
-``tensorflow_end2end_speech_recognition_tpu/train/loop.py``: the model dir
+Counterpart of the single-device CTC and transducer branches of ``fit`` in
+``tensorflow_end2end_speech_recognition_tpu/train/loop.py``; the task module
+(``ctc_task`` or ``transducer_task``) is picked by ``model_type`` as
+``build_task`` picks it, and the dev eval runs the task's eval step through
+``evaluate_ctc`` as the JAX ``fit`` does. The model dir
 gets a config copy, ``metrics.csv``, TensorBoard events, checkpoints kept by
 dev error and ``summary.json``. The steps run on ``device`` (the card unless
 the caller asks for the CPU); the host moves numpy batches in and fetches
@@ -31,7 +34,7 @@ from ..utils.config import ExperimentConfig
 from ..utils.metrics import evaluate_ctc
 from ..utils.tb_events import EventWriter
 from .checkpoint import CheckpointManager, tree_to
-from .ctc_task import init_params, make_eval_step, make_train_step
+from . import ctc_task, transducer_task
 from .lr_controller import LRController
 from .optimizer import build_optimizer
 
@@ -67,7 +70,8 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     exp.to_yaml(model_dir / "config.yml")
 
     train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
-    task = exp.ctc_task(tokenizer.num_units)
+    task = exp.task(tokenizer.num_units)
+    task_mod = transducer_task if exp.model_type == "transducer" else ctc_task
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed,
@@ -75,14 +79,14 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         samples_per_frame=task.frontend.frame_step,
     )
     dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True)
-    params = tree_to(init_params(task, torch.Generator().manual_seed(exp.seed)), device)
+    params = tree_to(task_mod.init_params(task, torch.Generator().manual_seed(exp.seed)), device)
     n_params = sum(v.numel() for v in params.values())
     print_fn(f"model: {exp.model_type}/{exp.encoder_type} params={n_params:,} on {device}")
 
     opt = build_optimizer(exp.optimizer, exp.clip_grad_norm)
     opt_state = opt.init(params)
-    train_step = make_train_step(task, opt, grad_accum=exp.grad_accum_steps)
-    eval_step = make_eval_step(task)
+    train_step = task_mod.make_train_step(task, opt, grad_accum=exp.grad_accum_steps)
+    eval_step = task_mod.make_eval_step(task)
     controller = LRController(exp.learning_rate, exp.decay_start_epoch, exp.decay_rate,
                               exp.decay_patient_epoch)
     ckpts = CheckpointManager(model_dir / "checkpoints")

@@ -1,0 +1,109 @@
+"""Transducer task: the RNN-T loss and the train and eval steps.
+
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/train/
+transducer_task.py``: raw waveforms -> ``ctc_task.device_pipeline`` (the
+same frontend and stacking, as the JAX task imports it) -> encoder ->
+prediction net over ``[SOS, labels]`` -> RNN-T lattice loss -> gradient ->
+clip and update, with the same guard as the CTC step. Parameters travel as
+a dict of tensors (``state_dict`` keys) through one parameter-free copy of
+the model (``torch.func.functional_call``). SpecAugment, gradient
+accumulation and the transducer beam search raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import functional_call
+
+from ..frontend.features import FrontendConfig
+from ..models.transducer import TransducerConfig, TransducerModel, pred_tokens
+from ..ops.losses import batch_mean, l2_weight_decay
+from ..ops.transducer import rnnt_loss
+from .ctc_task import device_pipeline, guarded_train_step, skeleton
+
+
+class TransducerTaskConfig(NamedTuple):
+    """Same fields and defaults as the JAX ``TransducerTaskConfig``; only
+    ``spec_augment=None`` is ported."""
+
+    model: TransducerConfig
+    frontend: FrontendConfig | None = FrontendConfig()  # None => precomputed features
+    num_stack: int = 1
+    num_skip: int = 1
+    splice: int = 0
+    weight_decay: float = 0.0
+    spec_augment: object | None = None
+    feature_dim: int | None = None
+
+    @property
+    def input_dim(self) -> int:
+        base = self.frontend.feature_dim if self.frontend else self.feature_dim
+        if base is None:
+            raise ValueError("precomputed-feature mode needs feature_dim set on the task config")
+        return base * self.num_stack * (2 * self.splice + 1)
+
+
+def init_model(task: TransducerTaskConfig, generator: torch.Generator | None = None,
+               input_dim: int | None = None) -> TransducerModel:
+    """A ``TransducerModel`` for this task, on the CPU (move it with ``.to(device)``)."""
+    return TransducerModel(task.model, input_dim or task.input_dim, generator)
+
+
+def init_params(task: TransducerTaskConfig, generator: torch.Generator | None = None,
+                input_dim: int | None = None) -> dict:
+    """Seeded weights as a dict of tensors (``state_dict`` keys), on the CPU."""
+    return {k: v.detach() for k, v in init_model(task, generator, input_dim).state_dict().items()}
+
+
+def _apply(params: dict, task: TransducerTaskConfig, batch: dict, train: bool = False,
+           generator: torch.Generator | None = None, decode: bool = False):
+    """Pipeline, then ``TransducerModel.forward`` on the weights in ``params``
+    with the teacher-forced tokens of ``batch``; returns (output, its nll [B])."""
+    feats, feat_len = device_pipeline(task, batch)
+    cfg = task.model
+    labels = batch["labels"]
+    out = functional_call(skeleton(TransducerModel, cfg, feats.shape[-1]), params,
+                          (feats, feat_len, pred_tokens(labels, cfg.blank_id)),
+                          {"train": train, "generator": generator, "decode": decode})
+    nll = rnnt_loss(out.f_proj, out.g_proj, params["out.w"], params["out.b"], labels,
+                    out.enc_len, batch["label_len"], cfg.blank_id)
+    return out, nll
+
+
+def forward_loss(params: dict, task: TransducerTaskConfig, batch: dict, train: bool,
+                 generator: torch.Generator | None = None):
+    """(loss, aux): the weighted batch mean of the RNN-T nll plus L2 weight decay."""
+    if train and task.spec_augment is not None:
+        raise NotImplementedError("SpecAugment is not ported yet")
+    _, nll = _apply(params, task, batch, train, generator)
+    loss = batch_mean(nll, batch.get("weight"))
+    aux = {"rnnt_nll": loss}
+    if task.weight_decay:
+        loss = loss + l2_weight_decay(params, task.weight_decay)
+    aux["loss"] = loss
+    return loss, aux
+
+
+def make_train_step(task: TransducerTaskConfig, optimizer, grad_accum: int = 1):
+    """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``
+    with the CTC step's clip, update and non-finite / >= 1e20 guard."""
+    return guarded_train_step(forward_loss, task, optimizer, grad_accum)
+
+
+def make_eval_step(task: TransducerTaskConfig):
+    """``(params, batch) -> (decoded [B, T' * S], lengths [B], nll [B])``:
+    the greedy decode and the teacher-forced nll, with no gradient kept."""
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            out, nll = _apply(params, task, batch, decode=True)
+        return out.decoded, out.dec_len, nll
+
+    return eval_step
+
+
+def make_beam_eval_step(task: TransducerTaskConfig, beam_width: int, lm=None,
+                        lm_weight: float = 0.0):
+    raise NotImplementedError("the transducer beam search is not ported yet")

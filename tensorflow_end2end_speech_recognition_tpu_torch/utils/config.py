@@ -2,16 +2,18 @@
 
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
 ``ExperimentConfig`` holds the keys of the configs the port serves and
-trains (the CTC BLSTM configs ``configs/ls100_ctc.yml`` and
-``configs/timit_ctc_blstm.yml``; the attention and joint CTC-attention
-configs ``configs/timit_attention.yml`` and ``configs/ls960_joint.yml``,
-served only), with the JAX defaults, and builds the same ``FrontendConfig``,
-``EncoderConfig``, ``CTCConfig`` / ``CTCTaskConfig`` and ``Seq2SeqConfig`` /
-``AttTaskConfig`` values. A key the JAX package knows but the port does not
-raises ``KeyError`` when it is read; a value the port has not ported (another
-model type, training an attention model, a mesh, gradient accumulation,
-SpecAugment, on-disk corpora, the hard toy corpus, per-speaker CMVN) raises
-``NotImplementedError`` where it would be used.
+trains (the CTC configs ``configs/ls100_ctc.yml``,
+``configs/timit_ctc_blstm.yml`` and ``configs/ls_streaming_ctc.yml``; the
+transducer config ``configs/ls_transducer.yml``; the attention and joint
+CTC-attention configs ``configs/timit_attention.yml`` and
+``configs/ls960_joint.yml``, served only), with the JAX defaults, and builds
+the same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
+``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
+``Seq2SeqConfig`` / ``AttTaskConfig`` values. A key the JAX package knows but
+the port does not raises ``KeyError`` when it is read; a value the port has
+not ported (another model type, training an attention model, a mesh,
+gradient accumulation, SpecAugment, on-disk corpora, the hard toy corpus,
+per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
 """
@@ -29,8 +31,10 @@ from ..models.attention import AttentionConfig
 from ..models.ctc import CTCConfig
 from ..models.encoders import EncoderConfig, check_supported
 from ..models.seq2seq import Seq2SeqConfig
+from ..models.transducer import TransducerConfig
 from ..train.att_task import AttTaskConfig
 from ..train.ctc_task import CTCTaskConfig
+from ..train.transducer_task import TransducerTaskConfig
 
 # reference spellings -> the field they set (None: accepted, has no effect)
 ALIASES = {"pretrain_stage": None, "num_classes": None, "dropout_encoder": "dropout",
@@ -41,8 +45,8 @@ ATTENTION_MODEL_TYPES = ("attention", "joint_ctc_attention")
 
 @dataclass
 class ExperimentConfig:
-    """The CTC and attention fields of the JAX ``ExperimentConfig``, same
-    names and defaults."""
+    """The CTC, attention and transducer fields of the JAX
+    ``ExperimentConfig``, same names and defaults."""
 
     model_type: str = "ctc"
     corpus: str = "toy"
@@ -97,6 +101,11 @@ class ExperimentConfig:
     guided_attention_decay_steps: int = 0
     ctc_loss_weight_init: float | None = None
     ctc_loss_weight_anneal_steps: int = 0
+    # transducer (model_type: transducer)
+    pred_num_units: int = 256
+    pred_num_layers: int = 1
+    joint_dim: int = 256
+    max_symbols_per_frame: int = 4
     # training
     batch_size: int = 32
     num_epoch: int = 20
@@ -155,7 +164,7 @@ class ExperimentConfig:
                     continue
                 k = ALIASES[k]
             if k not in fields:
-                raise KeyError(f"config key {k!r} is unknown to the port's CTC path")
+                raise KeyError(f"config key {k!r} is unknown to the port")
             cfg[k] = float(v) if k in float_fields and isinstance(v, str) else v
         return cls(**cfg)
 
@@ -257,10 +266,41 @@ class ExperimentConfig:
             ctc_weight_anneal_steps=self.ctc_loss_weight_anneal_steps,
         )
 
+    def transducer_config(self, num_classes: int) -> TransducerConfig:
+        """The ``TransducerConfig`` of ``build_transducer_task`` in the JAX loop."""
+        if self.model_type != "transducer":
+            raise ValueError(f"model_type {self.model_type!r} is not a transducer")
+        return TransducerConfig(
+            encoder=self.encoder_config(),
+            num_classes=num_classes,
+            pred_num_units=self.pred_num_units,
+            pred_num_layers=self.pred_num_layers,
+            embedding_dim=self.embedding_dim,
+            joint_dim=self.joint_dim,
+            parameter_init=self.parameter_init,
+            pred_dropout_keep_prob=self.dropout_decoder,
+            max_symbols_per_frame=self.max_symbols_per_frame,
+        )
+
+    def transducer_task(self, num_classes: int) -> TransducerTaskConfig:
+        """The task ``build_transducer_task`` of the JAX loop builds (waveform mode)."""
+        if self.use_specaugment:
+            raise NotImplementedError("SpecAugment is not ported yet")
+        return TransducerTaskConfig(
+            model=self.transducer_config(num_classes),
+            frontend=self.frontend_config(),
+            num_stack=self.num_stack,
+            num_skip=self.num_skip,
+            splice=self.splice,
+            weight_decay=self.weight_decay,
+        )
+
     def task(self, num_classes: int):
-        """``ctc_task`` or ``att_task`` by ``model_type``."""
+        """``ctc_task``, ``transducer_task`` or ``att_task`` by ``model_type``."""
         if self.model_type in ATTENTION_MODEL_TYPES:
             return self.att_task(num_classes)
+        if self.model_type == "transducer":
+            return self.transducer_task(num_classes)
         return self.ctc_task(num_classes)
 
     def check_trainable(self) -> None:
@@ -297,8 +337,9 @@ def experiment_from_dict(raw: dict) -> ExperimentConfig:
 def task_from_dict(raw: dict):
     """Reference-shaped config dict -> (task config, units, label_type).
 
-    The task is a ``CTCTaskConfig`` or, for ``model_type: attention`` and
-    ``joint_ctc_attention``, an ``AttTaskConfig``.
+    The task is a ``CTCTaskConfig``, for ``model_type: transducer`` a
+    ``TransducerTaskConfig``, and for ``attention`` and
+    ``joint_ctc_attention`` an ``AttTaskConfig``.
     """
     exp = ExperimentConfig.from_dict(raw)
     if exp.label_type not in UNITS:

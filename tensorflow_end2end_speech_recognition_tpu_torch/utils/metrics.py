@@ -1,4 +1,4 @@
-"""Corpus-level error rates of a CTC model on a dataset.
+"""Corpus-level error rates of a model's eval step on a dataset.
 
 Counterpart of ``eval_counts`` / ``rates_from_counts`` / ``evaluate_ctc`` in
 ``tensorflow_end2end_speech_recognition_tpu/utils/metrics.py``, single
@@ -46,7 +46,7 @@ def _integerize(ref, hyp):
 
 
 def eval_counts(eval_step, params, dataset, tokenizer: Tokenizer, label_type: str,
-                epoch: int = 0, device="cpu") -> np.ndarray:
+                epoch: int = 0, device="cuda") -> np.ndarray:
     """Corpus count vector ``[edit, sub, ins, del, ref_len, num_utts, loss_sum,
     w_edit, w_sub, w_ins, w_del, w_ref_len]`` (float64), as the JAX one."""
     total = np.zeros(12, np.float64)
@@ -98,7 +98,7 @@ def rates_from_counts(counts: np.ndarray) -> dict:
 
 
 def evaluate_ctc(eval_step, params, dataset, tokenizer: Tokenizer, label_type: str,
-                 epoch: int = 0, device="cpu") -> dict:
+                 epoch: int = 0, device="cuda") -> dict:
     """Decode a dataset with ``eval_step`` on ``device``; error rate, loss, S/I/D rates."""
     return rates_from_counts(
         eval_counts(eval_step, params, dataset, tokenizer, label_type, epoch, device)

@@ -5,8 +5,8 @@ no jax, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q -rs
 
-Tolerances in float32 at these short sequences: atol/rtol 1e-5 for the BLSTM
-kernels (the kernel and cuBLAS sum each dot product in different orders),
+Tolerances in float32 at these short sequences: atol/rtol 1e-5 for the LSTM
+kernels #1-#4 (the kernel and cuBLAS sum each dot product in different orders),
 1e-4 absolute on CTC losses (a sum of T log terms) and 1e-5 on CTC gradients;
 for the location-attention read 1e-5 on the alignment and 1e-4 on the context
 (a sum over T of weights times encoder values of order 1).
@@ -18,6 +18,9 @@ import torch
 
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding import attention_beam_search
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy import (
+    transducer_greedy_decode,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.models.attention import AttentionConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig, CTCModel
 from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
@@ -26,6 +29,10 @@ from tensorflow_end2end_speech_recognition_tpu_torch.models.seq2seq import (
     Seq2SeqConfig,
     Seq2SeqModel,
     greedy_decode,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import (
+    TransducerConfig,
+    TransducerModel,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.attention import (
     location_attend,
@@ -39,11 +46,17 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_loss_plain,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
+    LSTMLayer,
     lstm_bidi,
     lstm_bidi_bwd,
     lstm_bidi_bwd_plain,
     lstm_bidi_fwd,
     lstm_bidi_fwd_plain,
+    lstm_layer,
+    lstm_layer_bwd,
+    lstm_layer_bwd_plain,
+    lstm_layer_fwd,
+    lstm_layer_fwd_plain,
 )
 
 torch.set_num_threads(1)
@@ -111,6 +124,60 @@ def test_backward_kernel_matches_plain(dev, b, t, h, lengths):
     assert lstm_bidi_bwd.launches == before + 1
     for g, w in zip(got, lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0)):
         torch.testing.assert_close(g, w, **LSTM_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES)
+def test_layer_kernels_match_plain(dev, b, t, h, lengths):
+    """#3 with and without ``cs``, and #4, against their plain versions."""
+    x, _, wh, _, mask = _inputs(dev, b, t, h, lengths, seed=h + 3)
+    before = (lstm_layer.launches, lstm_layer_bwd.launches)
+    ys = lstm_layer(x, wh, mask, 1.0)
+    ys_cs = lstm_layer_fwd(x, wh, mask, 0.5, with_cs=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ys, lstm_layer_fwd_plain(x, wh, mask, 1.0)[0], **LSTM_TOL)
+    want = lstm_layer_fwd_plain(x, wh, mask, 0.5)
+    for g, w in zip(ys_cs, want):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    gys = torch.from_numpy(np.random.RandomState(h).randn(b, t, h).astype(np.float32)).to(dev)
+    dx = lstm_layer_bwd(x, wh, mask, *want, gys, 0.5)
+    torch.cuda.synchronize()
+    assert (lstm_layer.launches, lstm_layer_bwd.launches) == (before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(dx, lstm_layer_bwd_plain(x, wh, mask, *want, gys, 0.5),
+                               **LSTM_TOL)
+
+
+def test_layer_function_on_card_matches_cpu(dev):
+    """``LSTMLayer``'s gradients (#4 and the dWh contraction) against the CPU."""
+    x, _, wh, _, mask = _inputs(dev, 3, 17, 40, [17, 1, 9], seed=4)
+    gys = torch.from_numpy(np.random.RandomState(5).randn(3, 17, 40).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev):
+        leaves = [a.detach().to(d).requires_grad_(True) for a in (x, wh)]
+        (LSTMLayer.apply(*leaves, mask.to(d), 1.0) * gys.to(d)).sum().backward()
+        grads.append([leaf.grad.cpu() for leaf in leaves])
+    for g, w in zip(grads[1], grads[0]):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_transducer_on_card_matches_cpu(dev):
+    """A tiny ls_transducer-shaped model: encoder, nll gradients and greedy ids."""
+    cfg = TransducerConfig(encoder=EncoderConfig(encoder_type="lstm", num_units=24,
+                                                 num_layers=2),
+                           num_classes=6, pred_num_units=8, embedding_dim=4, joint_dim=12)
+    cpu = TransducerModel(cfg, 10, torch.Generator().manual_seed(0))
+    model = TransducerModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.RandomState(6)
+    feats = torch.from_numpy(rng.randn(3, 13, 10).astype(np.float32))
+    lens = torch.tensor([13, 6, 1])
+    with torch.inference_mode():
+        want = transducer_greedy_decode(cpu, *cpu.encode(feats, lens))
+        before = lstm_layer.launches
+        f_proj, enc_len = model.encode(feats.to(dev), lens.to(dev))
+        got = transducer_greedy_decode(model, f_proj, enc_len)
+        torch.cuda.synchronize()
+        assert lstm_layer.launches == before + 2
+    torch.testing.assert_close(f_proj.cpu(), cpu.encode(feats, lens)[0], atol=1e-4, rtol=0)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def test_kernel_rejects_mixed_devices(dev):

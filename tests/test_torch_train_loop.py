@@ -105,7 +105,7 @@ def test_evaluate_ctc_matches_jax_rates(label_type):
         return tuple(jnp.asarray(x) for x in _fake_eval_step(batch["labels"], blank))
 
     got = metrics.evaluate_ctc(step, None, Dataset(corpus.utterances, 4), corpus.tokenizer,
-                               label_type)
+                               label_type, device="cpu")
     want = jmetrics.evaluate_ctc(jstep, None, JDataset(jcorpus.utterances, 4),
                                  jcorpus.tokenizer, label_type, multihost=False)
     assert set(got) == set(want)
