@@ -16,7 +16,10 @@ Phases; any failure exits non-zero and prints no result line:
 4. training kernels at the ls100_ctc train step's shapes (B=32, T=400,
    H=512; C=29, U=40), each against its plain version on the same inputs:
    the forward with its cell-state stream ``cs``, the backward
-   (``lstm_bidi_bwd``), the fused CTC loss + gradient and the loss-only CTC;
+   (``lstm_bidi_bwd``: one cooperative launch; its launch plan, us per step,
+   two calls bitwise equal, and ``LSTMBidi.backward`` whole, kernel + dWh,
+   timed beside cuDNN's backward), the fused CTC loss + gradient and the
+   loss-only CTC;
 5. build the ``configs/ls100_ctc.yml`` model at full width in code (40 mel +
    deltas = 120 dims, 3/3 stacking -> 360, 5 x BLSTM-512, 28 + 1 character
    classes) with seeded uniform +-0.1 weights; check its logits and ids on
@@ -54,9 +57,10 @@ Phases; any failure exits non-zero and prints no result line:
 14. unidirectional layer kernel: ``lstm_layer`` forward (#3) against its plain
     version at the ls_transducer encoder's serving shape, B=8, T=400, D=120
     -> H=512, lengths that include 1 and T, and with ``cs`` at B=32;
-15. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512, and
-    ``LSTMLayer``'s gradients (dxproj, dWh) against autograd through the
-    plain forward;
+15. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512 (launch
+    plan, us per step, two calls bitwise equal, ``LSTMLayer.backward``
+    whole timed), and ``LSTMLayer``'s gradients (dxproj, dWh) against
+    autograd through the plain forward;
 16. build the ``configs/ls_transducer.yml`` model at full width in code (40
     mel, no deltas, 3/3 stacking -> 120, 4 x LSTM-512, prediction net
     embedding 32 + LSTM-128, joint 256, 28 + 1 characters, 4 symbols per
@@ -98,6 +102,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -382,6 +387,26 @@ def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
     return bound(moved, ops)
 
 
+def backward_extras(name: str, kernel, function_backward, dirs: int, dev) -> dict:
+    """Kernel #2 or #4 beside its timing: two calls equal bit for bit, the
+    launch plan its wrapper takes at the train step's shape, and the autograd
+    Function's whole backward (the kernel and the dWh contractions), the unit
+    that cuDNN's backward compares with."""
+    plan = lstm.bwd_plan_for(dev, H, dirs, B_TRAIN)
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise RuntimeError(f"{name}: two calls on the same inputs differ")
+    sm_count = lstm._sm_count(dev.index or 0)
+    print(f"{name}: two calls bitwise equal; launch plan {plan.units} units per block, "
+          f"{plan.blocks} blocks on {sm_count} SMs, {plan.smem_bytes} B shared memory per block, "
+          f"Wh slice {'resident' if plan.resident else 'streamed from L2'} "
+          f"({plan.resident_bytes} B)", flush=True)
+    return {"deterministic": True, "plan": plan._asdict(),
+            "function_backward_ms": cuda_ms(function_backward, 10)}
+
+
 def check_serving_kernel(dev, gpu: str) -> None:
     """Kernel #1 without ``cs`` at the serving shape; its bound and cuDNN's time."""
     lengths = [T_ENC, 1, 399, 250, 128, 7, 333, T_ENC]
@@ -425,21 +450,27 @@ def check_training_lstm(dev, gpu: str) -> dict:
         tf = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), fwd_k, 1, 10)
         tb = plain_kernel_ms(lambda: lstm.lstm_bidi_bwd_plain(*bwd_args),
                              lambda: lstm.lstm_bidi_bwd(*bwd_args), 1, 10)
+        ctx = types.SimpleNamespace(saved_tensors=(*args[:5], *want), forget_bias=args[5])
+        extras = backward_extras(
+            "lstm_bidi_bwd", lambda: lstm.lstm_bidi_bwd(*bwd_args),
+            lambda: lstm.LSTMBidi.backward(ctx, *gys), 2, dev)
     lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=1)
     lf, lb = cuda_ms(lib_fwd, 10), cuda_ms(lib_bwd, 10)
     out = {
         "lstm_bidi_fwd": dict(tf, max_abs_err=fwd_err, library_ms=lf,
                               **lstm_work(lengths, H, with_cs=True, backward=False)),
-        "lstm_bidi_bwd": dict(tb, max_abs_err=bwd_err, library_ms=lb,
+        "lstm_bidi_bwd": dict(tb, max_abs_err=bwd_err, library_ms=lb, **extras,
                               **lstm_work(lengths, H, with_cs=True, backward=True)),
     }
     for name, r in out.items():
         print(f"phase {name} train B={B_TRAIN} T={T_ENC} H={H}: kernel {r['ms']:.3f} ms (runs "
-              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}; {r['ms'] * 1e3 / T_ENC:.2f} us per "
+              f"step), plain {r['plain_ms']:.3f} ms "
               f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM "
-              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms  [{gpu}]",
-              flush=True)
+              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms"
+              + (f", LSTMBidi.backward (kernel + dWh) {r['function_backward_ms']:.3f} ms"
+                 if 'bwd' in name else "") + f"  [{gpu}]", flush=True)
     return out
 
 
@@ -1086,6 +1117,10 @@ def check_layer_kernels(dev, gpu: str) -> dict:
         tf = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args), fwd_k, 1, 10)
         tb = plain_kernel_ms(lambda: lstm.lstm_layer_bwd_plain(*bwd_args),
                              lambda: lstm.lstm_layer_bwd(*bwd_args), 1, 10)
+        ctx = types.SimpleNamespace(saved_tensors=(*args[:3], *want), forget_bias=args[3])
+        extras = backward_extras(
+            "lstm_layer_bwd", lambda: lstm.lstm_layer_bwd(*bwd_args),
+            lambda: lstm.LSTMLayer.backward(ctx, gys), 1, dev)
     # the autograd Function (#3 + #4 + the dWh contraction) against autograd
     # through the plain forward's time loop
     xproj, wh, mask, fb = args
@@ -1107,6 +1142,7 @@ def check_layer_kernels(dev, gpu: str) -> dict:
                                serving=serving,
                                **lstm_work(lengths, H, with_cs=True, backward=False, dirs=1)),
         "lstm_layer_bwd": dict(tb, max_abs_err=bwd_err, library_ms=cuda_ms(lib_bwd, 10),
+                               **extras,
                                **lstm_work(lengths, H, with_cs=True, backward=True, dirs=1)),
     }
     for name, r, shape in (("lstm_layer_fwd serving", serving, f"B={B} T={T_ENC}"),
@@ -1115,11 +1151,13 @@ def check_layer_kernels(dev, gpu: str) -> dict:
                            ("lstm_layer_bwd train", out["lstm_layer_bwd"],
                             f"B={B_TRAIN} T={T_ENC}")):
         print(f"phase {name} {shape} H={H}: kernel {r['ms']:.3f} ms (runs "
-              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}; {r['ms'] * 1e3 / T_ENC:.2f} us per "
+              f"step), plain {r['plain_ms']:.3f} ms "
               f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN unidirectional nn.LSTM "
-              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms  [{gpu}]",
-              flush=True)
+              f"{'backward' if 'bwd' in name else 'forward'} {r['library_ms']:.3f} ms"
+              + (f", LSTMLayer.backward (kernel + dWh) {r['function_backward_ms']:.3f} ms"
+                 if 'bwd' in name else "") + f"  [{gpu}]", flush=True)
     return out
 
 
@@ -1329,6 +1367,10 @@ def main() -> int:
         if name == "lstm_bidi_fwd":
             entries[-1]["pyramidal"] = {k: pyramidal[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        if name in ("lstm_bidi_bwd", "lstm_layer_bwd"):
+            entries[-1].update(us_per_step=r["ms"] * 1e3 / T_ENC, plan=r["plan"],
+                               deterministic=r["deterministic"],
+                               function_backward_ms=r["function_backward_ms"])
         if name == "lstm_layer_fwd":
             entries[-1]["serving"] = {k: r["serving"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}

@@ -10,11 +10,20 @@
 // zero and carries dh and dc through. dWh, dWx and db are single large
 // contractions over [T*B] done outside (ops/lstm.py), as on the TPU.
 //
-// The step kernel, what bounds it and its design are in lstm_step.cuh: one
-// launch per reverse step, grid (H / 8, 2, ceil(B / 8)), each step needing
-// Wh twice per direction (its columns for the gates, its rows for
-// dh_{t-1} = dgates_t @ Wh^T) through L2. Shared memory is
-// (8 * H + kRed + 64) floats: about 25 KB at H = 512.
+// The kernel, what bounds it and its design are in lstm_step.cuh (bwd_walk):
+// one persistent cooperative launch per call, grid (H / u, 2), each block
+// holding its units' Wh columns in shared memory for all T steps, exchanging
+// dh partials with the other blocks of its direction through L2, and meeting
+// them at a grid barrier once per step. The two directions never read each
+// other's partials, so each has its own barrier counter.
+//
+// Why one block per SM. A block owns u units of one direction for every
+// batch row, so the grid has 2 x H / u blocks and each must be resident for
+// the barrier to make progress. On 132 SMs at H = 512 the plan (ops/lstm.py
+// bwd_plan) takes u = 8: 128 blocks, each with 512 x (32 + 4) floats = 72 KB
+// of Wh resident and 158 KB (161792 B) of dynamic shared memory in all, at
+// 207 registers a thread (ptxas -v, sm_90a, CUDA 12.8; 255 and 16 bytes of
+// spill in the kResident = false variant), 256 threads: one block per SM.
 
 #include "lstm_step.cuh"
 
@@ -24,16 +33,19 @@ extern "C" {
 // xf, xb [B, T, 4H] (the forward's inputs); whf, whb [H, 4H]; mask [B, T]
 // (monotone per row); ysf, ysb, csf, csb [B, T, H] (the forward's outputs);
 // gysf, gysb [B, T, H] (cotangents of ys); dxf, dxb [B, T, 4H] (written in
-// full); dhbuf, dcbuf [2, B, H], zeroed by the caller. Launches T kernels on
-// `stream`, t = T-1 down to 0, and returns the first CUDA error (0 when
-// every launch was accepted). Does not synchronise.
+// full); sync [2] unsigned counters, zeroed by the caller; part, scratch of
+// part_floats floats for the dh partials. part_floats, units, resident and
+// smem_bytes are the launch plan of ops/lstm.py bwd_plan. Launches one
+// cooperative kernel on `stream` and returns its CUDA error (0 when it was
+// accepted). Does not synchronise.
 int lstm_bidi_bwd(const float* xf, const float* xb, const float* whf, const float* whb,
                   const float* mask, const float* ysf, const float* ysb, const float* csf,
                   const float* csb, const float* gysf, const float* gysb, float* dxf, float* dxb,
-                  float* dhbuf, float* dcbuf, int B, int T, int H, float forget_bias,
-                  void* stream) {
-  return run_bwd<8>(xf, xb, whf, whb, mask, ysf, ysb, csf, csb, gysf, gysb, dxf, dxb, dhbuf,
-                    dcbuf, 2, B, T, H, forget_bias, stream);
+                  unsigned int* sync, float* part, int part_floats, int B, int T, int H,
+                  int units, int resident, int smem_bytes, float forget_bias, void* stream) {
+  const BwdArgs a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb}, {dxf, dxb},
+                  mask, sync, part, B, T, H, units, forget_bias};
+  return run_bwd_walk<2>(a, part_floats, resident, smem_bytes, stream);
 }
 
 }  // extern "C"

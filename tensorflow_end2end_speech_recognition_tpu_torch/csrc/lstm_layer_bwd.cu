@@ -7,20 +7,20 @@
 // reverse walk t = T-1 .. 0 that recomputes the gates at t from xproj[t]
 // and h_{t-1} = ys[t-1], carries dh and dc, and emits dgates_t as
 // dxproj[t] (zero on a masked step, where dh and dc pass straight through).
-// dh_{t-1} = dgates_t @ Wh^T is inside the step; dWh is one contraction
+// dh_{t-1} = dgates_t @ Wh^T is inside the walk; dWh is one contraction
 // over [T*B] outside (ops/lstm.py), as _bwd_call forms it.
 //
-// The step kernel, what bounds it and its design are in lstm_step.cuh; this
-// is its one-direction launch. Bound at B = 32, T = 400, H = 512:
-// 4 B H 4H T float32 operations, 0.80 ms at 67 TFLOP/s.
+// The kernel, what bounds it and its design are in lstm_step.cuh (bwd_walk);
+// this is its one-direction launch: one persistent cooperative kernel per
+// call, grid (H / u, 1), each block's Wh columns resident in shared memory
+// for all T steps, one grid barrier per step. Bound at B = 32, T = 400,
+// H = 512: 4 B H 4H T float32 operations, 0.80 ms at 67 TFLOP/s.
 //
-// Tile choice. The backward runs at the train step's batch (B = 32), where
-// the 8-unit tile gives (512 / 8) x 4 = 256 blocks. ptxas (-Xptxas -v,
-// sm_90a, CUDA 12.8) for bwd_step<8>: 113 registers, no spills, no static
-// shared memory; dynamic shared memory (8 H + 2048 + 64) floats, 24.3 KB at
-// H = 512. At 113 registers x 256 threads two blocks fit an SM (264 slots
-// on 132 SMs), so the 256 blocks run in one wave. A 4-unit tile would give
-// 512 blocks, two waves of half the work.
+// Why one block per SM. One direction has half the blocks of the
+// bidirectional call at the same tile, so the plan (ops/lstm.py bwd_plan)
+// halves the tile: u = 4 at H = 512 gives 128 blocks on 132 SMs, each with
+// 512 x (16 + 4) floats = 40 KB of Wh resident and 124 KB (126464 B) of
+// dynamic shared memory in all, at the same 207 registers a thread.
 
 #include "lstm_step.cuh"
 
@@ -29,15 +29,18 @@ extern "C" {
 // All pointers are device pointers of contiguous float32 tensors:
 // x [B, T, 4H] (the forward's input); wh [H, 4H]; mask [B, T] (monotone per
 // row); ys, cs [B, T, H] (the forward's outputs); gys [B, T, H] (cotangent
-// of ys); dx [B, T, 4H] (written in full); dhbuf, dcbuf [B, H], zeroed by
-// the caller. Launches T kernels on `stream`, t = T-1 down to 0, and
-// returns the first CUDA error (0 when every launch was accepted). Does not
-// synchronise.
+// of ys); dx [B, T, 4H] (written in full); sync [1] unsigned counter, zeroed
+// by the caller; part, scratch of part_floats floats for the dh partials.
+// part_floats, units, resident and smem_bytes are the launch plan of
+// ops/lstm.py bwd_plan. Launches one cooperative kernel on `stream` and
+// returns its CUDA error (0 when it was accepted). Does not synchronise.
 int lstm_layer_bwd(const float* x, const float* wh, const float* mask, const float* ys,
-                   const float* cs, const float* gys, float* dx, float* dhbuf, float* dcbuf,
-                   int B, int T, int H, float forget_bias, void* stream) {
-  return run_bwd<8>(x, nullptr, wh, nullptr, mask, ys, nullptr, cs, nullptr, gys, nullptr, dx,
-                    nullptr, dhbuf, dcbuf, 1, B, T, H, forget_bias, stream);
+                   const float* cs, const float* gys, float* dx, unsigned int* sync,
+                   float* part, int part_floats, int B, int T, int H, int units, int resident,
+                   int smem_bytes, float forget_bias, void* stream) {
+  const BwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, {gys, nullptr},
+                  {dx, nullptr}, mask, sync, part, B, T, H, units, forget_bias};
+  return run_bwd_walk<1>(a, part_floats, resident, smem_bytes, stream);
 }
 
 }  // extern "C"

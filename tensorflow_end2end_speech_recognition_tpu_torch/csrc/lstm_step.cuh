@@ -1,51 +1,72 @@
-// One LSTM time step forward and one reverse step of its gradient, for
-// Hopper (sm_90a), float32, over hoisted input projections. Shared by the
-// bidirectional layer (lstm_bidi_fwd.cu, lstm_bidi_bwd.cu: two directions,
-// blockIdx.y picks one) and the unidirectional layer (lstm_layer_fwd.cu,
-// lstm_layer_bwd.cu: one direction, a grid of depth 1 and null second
-// pointers). ops/build.py hashes this header with the sources that include it.
+// The LSTM kernels shared by the bidirectional layer (lstm_bidi_fwd.cu,
+// lstm_bidi_bwd.cu: two directions, blockIdx.y picks one) and the
+// unidirectional layer (lstm_layer_fwd.cu, lstm_layer_bwd.cu: one direction,
+// a grid of depth 1 and null second pointers), for Hopper (sm_90a), float32,
+// over hoisted input projections: the forward as one launch per time step,
+// the backward as one persistent cooperative launch per call.
+// ops/build.py hashes this header with the sources that include it.
 //
 // Gates i, f, g, o of xproj[t] + h_{t-1} @ Wh, with forget_bias added to f.
 // A masked (pad) step carries h and c through and emits 0; the mask is a
 // monotone length mask, which the backward's h_{t-1} = ys[t-1] read relies on.
 //
-// What bounds it. The recurrence is a serial chain of T steps, and each step
-// needs all of Wh [H, 4H] of a direction: 4 MB at H = 512. The TPU kernels
-// keep Wh resident in VMEM; an SM has 227 KB of shared memory, so here Wh
-// stays in device memory and is re-read through the 50 MB L2 at every step.
-// One launch advances one step, so the step time is launch latency plus one
-// L2 pass over Wh (two in the backward).
+// Forward design (fwd_step, run_fwd). Grid (ceil(H / kUnits), directions,
+// ceil(B / kRows)). A block owns kUnits hidden units of one direction for
+// kRows batch rows: it stages h_{t-1} for its rows in shared memory,
+// computes the four dot products against Wh columns j, H+j, 2H+j, 3H+j for
+// each owned unit itself (32 / kUnits lanes split the H-long reduction
+// inside a warp and kWarps ways across warps), sums the partials, adds
+// xproj[t] and runs the gate math, the mask carry and the writes of h, c and
+// ys[t] = h * m. h ping-pongs between two global buffers so no block reads a
+// row another block writes in the same step; c is read and written only by
+// the thread that owns it. The launches on one stream are the step barrier,
+// and every step re-reads Wh [H, 4H] (4 MB at H = 512) through the 50 MB L2.
+// Training also writes the cell-state stream cs[b, t] = c_t (the carried
+// value on a masked step), which the backward reads; serving passes null.
 //
-// Forward design. Grid (ceil(H / kUnits), directions, ceil(B / kRows)). A
-// block owns kUnits hidden units of one direction for kRows batch rows: it
-// stages h_{t-1} for its rows in shared memory, computes the four dot
-// products against Wh columns j, H+j, 2H+j, 3H+j for each owned unit itself
-// (32 / kUnits lanes split the H-long reduction inside a warp and kWarps
-// ways across warps), sums the partials, adds xproj[t] and runs the gate
-// math, the mask carry and the writes of h, c and ys[t] = h * m. h
-// ping-pongs between two global buffers so no block reads a row another
-// block writes in the same step; c is read and written only by the thread
-// that owns it. There is no cross-block reduction and no grid barrier: the
-// launches on one stream are the step barrier. Training also writes the
-// cell-state stream cs[b, t] = c_t (the carried value on a masked step),
-// which the backward reads; serving passes null and the store is skipped.
+// Backward design (bwd_walk, run_bwd_walk). It replaces the TPU kernels'
+// reverse walk (ops/pallas/lstm_kernel.py _bwd_kernel and _bidi_bwd_kernel),
+// which keep Wh resident in VMEM for all T steps. One direction's Wh does
+// not fit one SM (227 KB), but a slice of it fits each SM: a block owns u
+// hidden units of one direction for every batch row, and at its start copies
+// into shared memory the Wh columns of its units' four gates, Wc [H, 4u]
+// (rows padded to 4u + 4 floats). At H = 512 that is 72 KB for u = 8 (the
+// bidirectional call: 64 x 2 = 128 blocks) and 40 KB for u = 4 (one
+// direction: 128 blocks). The launch is cooperative, so all blocks are
+// resident at once (one per SM) or the launch is refused; the blocks of a
+// direction meet at a split arrive / wait barrier (a global counter per
+// direction: atomic add after a fence on arrival, an acquire-load spin on
+// wait) once per step. Per step t = T-1 .. 0 and per chunk of 32 batch rows:
+//  (b) gates at t: ys[t-1] rows, staged through shared memory, times Wc.
+//      This reads only the forward's outputs, so it runs before the wait.
+//  (a) dh_t of the block's units: the sum, in block order, of the partials
+//      P_{t+1} that every block of the direction wrote in step t+1.
+//  (c) gate derivatives, one thread per (row, unit): write the four
+//      dxproj[t] entries of the unit (zero on a masked step, which carries
+//      dh and dc through); the dh and dc carries stay in registers.
+//  (p) this block's share of dh_{t-1} = dgates_t @ Wh^T for all H units:
+//      P_t = dgates_t[:, own 4u columns] @ Wc^T, [32, H], which the block
+//      has in shared memory; each reader block's u columns go to a scratch
+//      buffer (two steps deep, by parity), then the block arrives.
+// dh is thus formed where the dgates are, from the columns already resident:
+// per block and step 64 KB of partials written and 64 KB read through L2,
+// where reading every block's dgates_{t+1} (the TPU kernel's dgates @ Wh^T
+// with the rows of Wh resident) moves 256 KB per block and step at B = 32
+// through the load/store unit that the products also need. Partials are
+// written and read inside the launch, so they are read with ld.global.cg
+// (L2), never __ldg.
+// Every product is float32 FFMA, each sum in a fixed order (k slices, then
+// blocks): two calls give equal bits. Where Wc does not fit shared memory
+// (H = 1536) the same kernel reads it through L2 (kResident false).
+// dWh is one [T*B] contraction outside (ops/lstm.py), as on the TPU.
 //
-// Backward design. One launch per step t = T-1 .. 0, the same grid. A block
-// owns kUnits hidden units j of one direction for kRows batch rows:
-//  (a) dh from the step above: it stages the dgates_{t+1} rows of its batch
-//      rows (dxproj[t+1], written by the previous launch) one gate quarter
-//      [kRows, H] at a time in shared memory, and reduces them against the
-//      contiguous rows Wh[j, :] of its own units (lanes walk consecutive k,
-//      so every Wh read is coalesced). That gives dh_t for exactly its
-//      units: no cross-block reduction is needed.
-//  (b) the gates at t: it stages h_{t-1} = ys[t-1] rows and reduces them
-//      against the columns j, H+j, 2H+j, 3H+j of Wh, as the forward does.
-//  (c) one thread per (row, unit) runs the gate derivatives, writes the four
-//      dxproj[t] entries of its unit (zero on a masked step, which carries
-//      dh and dc through), and keeps its own dh and dc carries in global
-//      buffers that no other thread touches.
-// Recomputing the gates costs one more h @ Wh per step instead of storing
-// 4H gate values per (b, t): 105 MB per direction at B = 32, T = 400.
+// What bounds the backward on this card. Each step needs 2 x 2 B H 4H float
+// operations per direction (gates recomputed, dh product): 1.05 MFLOP per
+// block at B = 32, H = 512, about 4 us at 67 TFLOP/s over 132 SMs. The
+// products run from shared memory at about 8 (gate product) and 4 (dh
+// partials) 16-byte loads per 64 FFMA, so the load/store unit, not the
+// FFMA pipe, sets their pace; with the barrier and the L2 round trips of
+// the staged rows and partials a step takes 15-20 us (PERF.md).
 
 #pragma once
 
@@ -197,159 +218,6 @@ fwd_step(const float* __restrict__ xf, const float* __restrict__ xb,
   if (cs != nullptr) cs[bt * H + jj] = c_out;
 }
 
-template <int kUnits>
-__global__ void __launch_bounds__(kThreads)
-bwd_step(const float* __restrict__ xf, const float* __restrict__ xb,
-         const float* __restrict__ whf, const float* __restrict__ whb,
-         const float* __restrict__ mask,
-         const float* __restrict__ ysf, const float* __restrict__ ysb,
-         const float* __restrict__ csf, const float* __restrict__ csb,
-         const float* __restrict__ gysf, const float* __restrict__ gysb,
-         float* __restrict__ dxf, float* __restrict__ dxb,
-         float* __restrict__ dh,  // [dirs, B, H] carried dh (owned per thread)
-         float* __restrict__ dc,  // [dirs, B, H] carried dc (owned per thread)
-         int B, int T, int H, int t, float forget_bias) {
-  using Tl = Tile<kUnits>;
-  static_assert(kWarps * kUnits * kRows <= Tl::kRed, "phase (a) partials fit in red");
-  extern __shared__ float smem[];
-  float* buf = smem;                 // [kRows, H] staged rows
-  float* red = smem + kRows * H;     // partial sums
-  float* dhn = red + Tl::kRed;       // [kRows, kUnits] dh from dgates_{t+1}
-
-  const int dir = blockIdx.y;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.z * kRows;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int G = 4 * H;
-  const size_t BH = (size_t)B * H;
-
-  const float* x = dir ? xb : xf;
-  const float* wh = dir ? whb : whf;
-  const float* ys = dir ? ysb : ysf;
-  const float* cs = dir ? csb : csf;
-  const float* gys = dir ? gysb : gysf;
-  float* dx = dir ? dxb : dxf;
-
-  // (a) dhn[r][u] = sum_k dgates_{t+1}[b0 + r, k] * Wh[j0 + u, k]
-  if (t + 1 < T) {
-    float da[kUnits][kRows];
-#pragma unroll
-    for (int u = 0; u < kUnits; ++u)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) da[u][r] = 0.0f;
-    for (int g = 0; g < 4; ++g) {
-      __syncthreads();  // the previous quarter is consumed
-      for (int i = tid; i < kRows * H; i += kThreads) {
-        const int r = i / H;
-        const int b = b0 + r;
-        buf[i] = b < B ? dx[((size_t)b * T + t + 1) * G + g * H + (i - r * H)] : 0.0f;
-      }
-      __syncthreads();
-      for (int k = tid; k < H; k += kThreads) {
-        float w[kUnits];
-#pragma unroll
-        for (int u = 0; u < kUnits; ++u) {
-          const int j = j0 + u;
-          w[u] = j < H ? __ldg(wh + (size_t)j * G + g * H + k) : 0.0f;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float v = buf[r * H + k];
-#pragma unroll
-          for (int u = 0; u < kUnits; ++u) da[u][r] = fmaf(v, w[u], da[u][r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnits; ++u)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float v = da[u][r];
-#pragma unroll
-        for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-        da[u][r] = v;
-      }
-    if (lane == 0) {
-#pragma unroll
-      for (int u = 0; u < kUnits; ++u)
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) red[(warp * kUnits + u) * kRows + r] = da[u][r];
-    }
-    __syncthreads();
-    if (tid < kRows * kUnits) {
-      const int r = tid / kUnits;
-      const int u = tid % kUnits;
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[(w * kUnits + u) * kRows + r];
-      dhn[r * kUnits + u] = s;
-    }
-  }
-  __syncthreads();  // buf and red are free again
-
-  // (b) gate pre-activations at t: h_{t-1} @ Wh for columns j, H+j, 2H+j, 3H+j
-  for (int i = tid; i < kRows * H; i += kThreads) {
-    const int r = i / H;
-    const int b = b0 + r;
-    buf[i] = (t > 0 && b < B) ? ys[((size_t)b * T + t - 1) * H + (i - r * H)] : 0.0f;
-  }
-  __syncthreads();
-  gate_products<kUnits>(wh, buf, red, j0, H, t == 0);
-  __syncthreads();
-
-  // (c) gate derivatives, one thread per (row, unit)
-  if (tid >= kRows * kUnits) return;
-  const int r = tid / kUnits;
-  const int uu = tid % kUnits;
-  const int jj = j0 + uu;
-  const int b = b0 + r;
-  if (jj >= H || b >= B) return;
-
-  float gs[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[((w * 4 + g) * kRows + r) * kUnits + uu];
-    gs[g] = s;
-  }
-  const size_t bt = (size_t)b * T + t;
-  const float* xt = x + bt * G;
-  const float ig = sigmoid(xt[jj] + gs[0]);
-  const float fg = sigmoid(xt[H + jj] + gs[1] + forget_bias);
-  const float gg = tanhf(xt[2 * H + jj] + gs[2]);
-  const float og = sigmoid(xt[3 * H + jj] + gs[3]);
-
-  const bool on = mask[bt] > 0.0f;
-  const bool next_on = t + 1 < T && mask[bt + 1] > 0.0f;
-  const size_t idx = dir * BH + (size_t)b * H + jj;
-  // dh carried from t+1: dgates_{t+1} @ Wh^T after a real step, else the
-  // passed-through total (zero before the first real step of the walk)
-  const float dh_carry = next_on ? dhn[r * kUnits + uu] : dh[idx];
-  const float dh_tot = (on ? gys[bt * H + jj] : 0.0f) + dh_carry;
-  const float tc = tanhf(cs[bt * H + jj]);
-  const float c_prev = t > 0 ? cs[(bt - 1) * H + jj] : 0.0f;
-  const float dc_old = dc[idx];
-  const float dc_tot = dc_old + dh_tot * og * (1.0f - tc * tc);
-  const float d_o = dh_tot * tc;
-  float* dxt = dx + bt * G;
-  if (on) {
-    dxt[jj] = dc_tot * gg * ig * (1.0f - ig);
-    dxt[H + jj] = dc_tot * c_prev * fg * (1.0f - fg);
-    dxt[2 * H + jj] = dc_tot * ig * (1.0f - gg * gg);
-    dxt[3 * H + jj] = d_o * og * (1.0f - og);
-    dc[idx] = dc_tot * fg;
-  } else {
-    dxt[jj] = 0.0f;
-    dxt[H + jj] = 0.0f;
-    dxt[2 * H + jj] = 0.0f;
-    dxt[3 * H + jj] = 0.0f;
-  }
-  dh[idx] = dh_tot;
-}
-
 // Launch the T forward steps of `dirs` directions (1 or 2) on `stream`.
 // hbuf [2, dirs, B, H] and cbuf [dirs, B, H] are zeroed by the caller; the
 // second direction's pointers are ignored when dirs == 1. Returns the first
@@ -380,32 +248,512 @@ int run_fwd(const float* xf, const float* xb, const float* whf, const float* whb
   return (int)cudaGetLastError();
 }
 
-// Launch the T reverse steps, t = T-1 down to 0, of `dirs` directions on
-// `stream`. dhbuf and dcbuf [dirs, B, H] are zeroed by the caller. Returns
-// the first CUDA error. Does not synchronise.
-template <int kUnits>
-int run_bwd(const float* xf, const float* xb, const float* whf, const float* whb,
-            const float* mask, const float* ysf, const float* ysb, const float* csf,
-            const float* csb, const float* gysf, const float* gysb, float* dxf, float* dxb,
-            float* dhbuf, float* dcbuf, int dirs, int B, int T, int H, float forget_bias,
-            void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || dirs < 1 || dirs > 2) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      ((size_t)kRows * H + Tile<kUnits>::kRed + kRows * kUnits) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_step<kUnits>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------------------
+// Backward: one persistent cooperative launch per call (design at the top).
+
+constexpr int kBwdRows = 32;            // batch rows per chunk
+constexpr int kRowTiles = kBwdRows / 4;  // 4-row tiles and float4 row groups of a chunk
+constexpr int kBwdKC = 256;             // k per staged chunk of the gate product
+constexpr int kBwdStride = kBwdKC + 4;  // floats per staged row: rows 4 banks apart
+constexpr int kBwdMaxCols = 128;        // columns of one gate-product pass: 8 x 32 tiles
+constexpr int kBwdMaxPairs = 8;         // (row, unit) carries a thread keeps in registers
+constexpr int kBwdRed = kThreads * 16;  // partial sums: one 4 x 4 tile per thread
+
+struct BwdArgs {
+  const float* x[2];    // [B, T, 4H] per direction
+  const float* wh[2];   // [H, 4H]
+  const float* ys[2];   // [B, T, H]
+  const float* cs[2];   // [B, T, H]
+  const float* gys[2];  // [B, T, H]
+  float* dx[2];         // [B, T, 4H]
+  const float* mask;    // [B, T]
+  unsigned int* sync;   // [dirs] arrival counters, zeroed by the caller
+  float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks (writer),
+                        //   u, B rounded up to kBwdRows]: written and read inside the launch
+  int B, T, H, units;
+  float forget_bias;
+};
+
+// Dynamic shared memory of one block, offsets and size in floats. hp is H
+// rounded up to 4 (float4 reads; the padding is zero), nb = 4u the columns
+// of the block's units' gates, ldw = nb + 4 the row stride of the resident
+// Wh columns (rows 4 banks apart for the dh partials' reads).
+struct BwdLayout {
+  int hp, nb, ldw;
+  int wc, stage, red, gpre, dhn, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int H, int u, bool resident) {
+  BwdLayout l;
+  l.hp = (H + 3) / 4 * 4;
+  l.nb = 4 * u;
+  l.ldw = l.nb + 4;
+  l.wc = 0;                                          // [hp, ldw]: Wh columns of the units
+  l.stage = l.wc + (resident ? l.hp * l.ldw : 0);    // 2 x [kBwdRows, kBwdStride]
+  l.red = l.stage + 2 * kBwdRows * kBwdStride;       // [kBwdRed]
+  l.gpre = l.red + kBwdRed;                          // [kBwdRows, nb]: gates, then dgates
+  l.dhn = l.gpre + kBwdRows * l.nb;                  // [kBwdRows, u]: dh from step t+1
+  l.total = l.dhn + kBwdRows * u;
+  return l;
+}
+
+// The block has written its step's dxproj entries and dh partials
+// (bar.sync); one thread makes them visible device-wide and counts the
+// block in.
+__device__ __forceinline__ void step_arrive(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+  }
+}
+
+// Wait until `target` blocks have arrived: one thread spins on acquire loads.
+__device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// (b) The gate product for the chunk's rows:
+// out[r][c0 + c] = sum_k h[b0 + r][k] Wc[k][c0 + c], r < kBwdRows, c < n <=
+// kBwdMaxCols, with h row b at src + b * src_row (ys[t-1]) and Wc[k][g u + uu]
+// = Wh[k, g H + j0 + uu], resident at wsm [hp, ldw]. The h rows are staged
+// through shared memory in chunks of kBwdKC. A thread owns one 4 x 4 tile of
+// out, rows rt, rt + 8, rt + 16, rt + 24 (the 8 lanes of a quarter warp read
+// 8 rows on distinct banks) and 4 adjacent columns, in one of kThreads /
+// tiles slices of every chunk; the slices' sums are added in slice order.
+template <bool kResident>
+__device__ void gate_product(const float* src, size_t src_row, const float* wsm,
+                             const float* __restrict__ wh, int c0, int n, int ldw, int j0, int u,
+                             int b0, int rows, int H, int hp, float* stage, float* red,
+                             float* out, int ldo) {
+  const int tid = threadIdx.x;
+  const int nct = n / 4;
+  const int tiles = kRowTiles * nct;
+  const int ksplit = kThreads / tiles;
+  const int s = tid / tiles;
+  const int tile = tid - s * tiles;
+  const int rt = tile / nct;
+  const int ct = tile - rt * nct;
+  const bool live = rt < rows;
+  const int nq = (hp + kBwdKC - 1) / kBwdKC;
+  const int G = 4 * H;
+  const bool vec = (H & 3) == 0;
+
+  // kResident false: Wc[k][c] of this thread's columns read from Wh itself
+  size_t off[4];
+  bool ok[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = c0 + ct * 4 + e;
+    const int g = c / u;
+    const int j = j0 + c - g * u;
+    ok[e] = j < H;
+    off[e] = (size_t)g * H + j;
+  }
+
+  // Chunk q is staged in two halves: load() issues its global loads into
+  // registers (kLoads float4 per thread, all in flight at once), store()
+  // writes them to shared memory. Chunk q+1 is loaded while q is computed.
+  constexpr int kLoads = kBwdRows * kBwdKC / 4 / kThreads;
+  float4 v[kLoads];
+  auto load = [&](int q) {
+    const int k0 = q * kBwdKC;
+    const int len4 = min(kBwdKC, hp - k0) / 4;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / len4;
+      v[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (vec && r < rows)
+        v[l] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(b0 + r) * src_row + k0 +
+                                                     4 * (i - r * len4)));
+    }
+  };
+  auto store = [&](int q) {
+    float* buf = stage + (q & 1) * (kBwdRows * kBwdStride);
+    const int k0 = q * kBwdKC;
+    const int len4 = min(kBwdKC, hp - k0) / 4;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / len4;
+      if (r >= kBwdRows) continue;
+      const int k = k0 + 4 * (i - r * len4);
+      float* dst = buf + r * kBwdStride + (k - k0);
+      if (vec || r >= rows) {
+        *reinterpret_cast<float4*>(dst) = v[l];
+      } else {  // H % 4 != 0: rows are not 16-byte aligned
+        const float* p = src + (size_t)(b0 + r) * src_row + k;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? __ldg(p + e) : 0.0f;
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  load(0);
+  store(0);
+  for (int q = 0; q < nq; ++q) {
+    if (q + 1 < nq) load(q + 1);
+    __syncthreads();  // chunk q is staged; chunk q-1's buffer is free
+    if (live) {
+      const float* a0 = stage + (q & 1) * (kBwdRows * kBwdStride) + rt * kBwdStride;
+      const int k0 = q * kBwdKC;
+      const int ng = min(kBwdKC, hp - k0) / 4;
+      const int per = (ng + ksplit - 1) / ksplit;
+      const int hi = min(ng, (s + 1) * per);
+      for (int gi = s * per; gi < hi; ++gi) {
+        const int kk = 4 * gi;
+        float a[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 av = *reinterpret_cast<const float4*>(a0 + i * kRowTiles * kBwdStride + kk);
+          a[i][0] = av.x, a[i][1] = av.y, a[i][2] = av.z, a[i][3] = av.w;
+        }
+        float w[4][4];
+        if (kResident) {
+          const float* wp = wsm + (size_t)(k0 + kk) * ldw + c0 + ct * 4;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 wv = *reinterpret_cast<const float4*>(wp + e * ldw);
+            w[e][0] = wv.x, w[e][1] = wv.y, w[e][2] = wv.z, w[e][3] = wv.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = k0 + kk + e;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              w[e][c] = ok[c] && k < H ? __ldg(wh + off[c] + (size_t)k * G) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i][e], w[e][c], acc[i][c]);
+      }
+    }
+    if (q + 1 < nq) store(q + 1);
+  }
+
+  float* mine = red + tid * 16;  // tid == s * tiles + tile
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(mine + 4 * i) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                           acc[i][3]);
+  __syncthreads();
+  for (int o = tid; o < kBwdRows * n; o += kThreads) {
+    const int r = o / n;
+    const int c = o - r * n;
+    const float* part = red + ((r % kRowTiles) * nct + c / 4) * 16 + (r / kRowTiles) * 4 + (c & 3);
+    float sum = 0.0f;
+    for (int k = 0; k < ksplit; ++k) sum += part[k * tiles * 16];
+    out[r * ldo + c0 + c] = sum;
+  }
+  __syncthreads();
+}
+
+// (p) This block's share of dh_{t-1} = dgates_t @ Wh^T for every unit i of the
+// direction: P[r][i] = sum_c dg[r][c] Wc[i][c] over the block's nb gate
+// columns c, with dg [kBwdRows, nb] in shared memory. P[r][i] goes to the
+// reader block dst = i / u at part + ((dst * blocks + src) * u + i % u) * bc
+// + b0 + r. A thread owns 8 rows (two float4 groups of 4, 16 apart) x 8
+// units i = 256 cg + ib + 32 m (the lanes of a warp read 32 consecutive Wc
+// rows, 4 banks apart): K = nb is short, so there is no k split. The tiles
+// of two column groups (512 units) are transposed through pbuf [512,
+// kPartStride] so that each unit's 32 rows go out as one 128-byte run.
+constexpr int kPartStride = kBwdRows + 4;  // rows 4 banks apart
+static_assert(2 * kBwdRows * kBwdStride + kBwdRed >= 512 * kPartStride,
+              "pbuf (the staging buffer and red) holds two column groups");
+
+template <bool kResident>
+__device__ void dh_partials(const float* dg, const float* wsm, const float* __restrict__ wh,
+                            float* part, float* pbuf, int blocks, int src, int j0, int u, int H,
+                            int nb, int ldw, int bc, int b0) {
+  const int tid = threadIdx.x;
+  const int G = 4 * H;
+  const int groups = (H + 255) / 256;
+  for (int cg0 = 0; cg0 < groups; cg0 += 2) {
+    if (tid < min(2, groups - cg0) * 128) {
+      const int ib = tid % 32;
+      const int rb = (tid / 32) % 4;
+      const int il0 = (tid / 128) * 256 + ib;  // unit of m = 0 within the pair of groups
+      float acc[8][8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) acc[r][m] = 0.0f;
+      for (int k = 0; k < nb; k += 4) {
+        float w[8][4];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int i = cg0 * 256 + il0 + 32 * m;
+          if (kResident) {
+            const float4 wv = i < H ? *reinterpret_cast<const float4*>(wsm + (size_t)i * ldw + k)
+                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            w[m][0] = wv.x, w[m][1] = wv.y, w[m][2] = wv.z, w[m][3] = wv.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int g = (k + e) / u;
+              const int j = j0 + k + e - g * u;
+              w[m][e] = i < H && j < H ? __ldg(wh + (size_t)i * G + g * H + j) : 0.0f;
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 av = *reinterpret_cast<const float4*>(
+              dg + (rb * 4 + (r & 3) + (r >> 2) * 16) * nb + k);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            acc[r][m] = fmaf(av.x, w[m][0], acc[r][m]);
+            acc[r][m] = fmaf(av.y, w[m][1], acc[r][m]);
+            acc[r][m] = fmaf(av.z, w[m][2], acc[r][m]);
+            acc[r][m] = fmaf(av.w, w[m][3], acc[r][m]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        float* q = pbuf + (il0 + 32 * m) * kPartStride + rb * 4;
+        *reinterpret_cast<float4*>(q) = make_float4(acc[0][m], acc[1][m], acc[2][m], acc[3][m]);
+        *reinterpret_cast<float4*>(q + 16) =
+            make_float4(acc[4][m], acc[5][m], acc[6][m], acc[7][m]);
+      }
+    }
+    __syncthreads();
+    const int units = min(512, H - cg0 * 256);
+    for (int w = tid; w < units * kRowTiles; w += kThreads) {
+      const int il = w / kRowTiles;
+      const int r4 = w - il * kRowTiles;
+      const int i = cg0 * 256 + il;
+      const int dst = i / u;
+      *reinterpret_cast<float4*>(part + ((size_t)(dst * blocks + src) * u + i - dst * u) * bc +
+                                 b0 + r4 * 4) =
+          *reinterpret_cast<const float4*>(pbuf + il * kPartStride + r4 * 4);
+    }
+    __syncthreads();
+  }
+}
+
+// (a) dh_t of the block's units for the chunk's rows: the sum, in block
+// order, of every block's partial, part [blocks, u, bc] (this block's reader
+// slot; written by other blocks in this launch, so read with ld.global.cg,
+// never __ldg). Outputs go by float4 groups (unit, 4 rows); the blocks are
+// split into slices across threads, and the slices' sums are added in order.
+__device__ void dh_sum(const float* part, int blocks, int u, int bc, int b0, float* red,
+                       float* dhn) {
+  const int tid = threadIdx.x;
+  const int groups = u * kRowTiles;
+  const int slices = max(1, kThreads / groups);
+  const int per = (blocks + slices - 1) / slices;
+  for (int w = tid; w < groups * slices; w += kThreads) {
+    const int sl = w / groups;
+    const int og = w - sl * groups;
+    const int uu = og / kRowTiles;
+    const float* p = part + (size_t)uu * bc + b0 + (og - uu * kRowTiles) * 4;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int hi = min(blocks, (sl + 1) * per);
+    for (int s = sl * per; s < hi; ++s) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(p + (size_t)s * u * bc));
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    reinterpret_cast<float4*>(red)[w] = acc;
+  }
+  __syncthreads();
+  for (int o = tid; o < groups * 4; o += kThreads) {
+    const int og = o / 4;
+    const int uu = og / kRowTiles;
+    const int r = (og - uu * kRowTiles) * 4 + o % 4;
+    float sum = 0.0f;
+    for (int sl = 0; sl < slices; ++sl) sum += red[(sl * groups + og) * 4 + o % 4];
+    dhn[r * u + uu] = sum;
+  }
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
+  extern __shared__ float4 bwd_smem4[];
+  float* smem = reinterpret_cast<float*>(bwd_smem4);
+  const int dir = blockIdx.y;
+  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H;
+  const int j0 = blockIdx.x * u;
+  const int tid = threadIdx.x;
+  const BwdLayout L = bwd_layout(H, u, kResident);
+  const float* wsm = smem + L.wc;
+  float* stage = smem + L.stage;
+  float* red = smem + L.red;
+  float* gpre = smem + L.gpre;
+  float* dhn = smem + L.dhn;
+
+  const float* __restrict__ x = dir ? a.x[1] : a.x[0];
+  const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
+  const float* __restrict__ ys = dir ? a.ys[1] : a.ys[0];
+  const float* __restrict__ cs = dir ? a.cs[1] : a.cs[0];
+  const float* __restrict__ gys = dir ? a.gys[1] : a.gys[0];
+  const float* __restrict__ mask = a.mask;
+  float* dx = dir ? a.dx[1] : a.dx[0];
+  unsigned int* counter = a.sync + dir;
+  const int blocks = gridDim.x;
+  const int bc = (B + kBwdRows - 1) / kBwdRows * kBwdRows;
+  const size_t slot = (size_t)blocks * u * bc;  // one reader block's partials of one step
+  // this direction's partials of step t: [blocks (reader), blocks (writer), u, bc]
+  auto partials = [&](int t) {
+    return a.part + ((size_t)(t & 1) * gridDim.y + dir) * blocks * slot;
+  };
+
+  if (kResident) {  // the block's Wh columns, for all T steps
+    for (int i = tid; i < L.hp * L.nb; i += kThreads) {
+      const int k = i / L.nb;
+      const int c = i - k * L.nb;
+      const int g = c / u;
+      const int j = j0 + c - g * u;
+      smem[L.wc + k * L.ldw + c] = k < H && j < H ? __ldg(wh + (size_t)k * G + g * H + j) : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  float dh[kBwdMaxPairs], dc[kBwdMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kBwdMaxPairs; ++i) dh[i] = dc[i] = 0.0f;
+
+  for (int t = T - 1; t >= 0; --t) {
+    for (int b0 = 0; b0 < B; b0 += kBwdRows) {
+      const int rows = min(kBwdRows, B - b0);
+      // (b) gate pre-activations at t; h_{-1} = 0
+      if (t > 0) {
+        for (int c0 = 0; c0 < L.nb; c0 += kBwdMaxCols)
+          gate_product<kResident>(ys + (size_t)(t - 1) * H, (size_t)T * H, wsm, wh, c0,
+                                  min(kBwdMaxCols, L.nb - c0), L.ldw, j0, u, b0, rows, H, L.hp,
+                                  stage, red, gpre, L.nb);
+      } else {
+        for (int i = tid; i < kBwdRows * L.nb; i += kThreads) gpre[i] = 0.0f;
+      }
+      // (a) dh_t = dgates_{t+1} @ Wh^T for the block's units: every block's
+      // partial, written in step t+1
+      if (t + 1 < T) {
+        if (b0 == 0) step_wait(counter, blocks * (unsigned int)(T - 1 - t));
+        dh_sum(partials(t + 1) + blockIdx.x * slot, blocks, u, bc, b0, red, dhn);
+      }
+      __syncthreads();
+      // (c) gate derivatives, one thread per (row, unit) of the chunk; each
+      // unit's four dgates replace its gate pre-activations in gpre
+#pragma unroll
+      for (int i = 0; i < kBwdMaxPairs; ++i) {
+        const int p = tid + i * kThreads;
+        const int b = p / u;
+        const int uu = p - b * u;
+        const int j = j0 + uu;
+        if (b < b0 || b >= b0 + rows || j >= H) continue;
+        const int r = b - b0;
+        const size_t bt = (size_t)b * T + t;
+        const float* xt = x + bt * G;
+        // every load first, none depending on another: one round trip
+        const float xi = __ldg(xt + j), xf = __ldg(xt + H + j);
+        const float xg = __ldg(xt + 2 * H + j), xo = __ldg(xt + 3 * H + j);
+        const float m = __ldg(mask + bt);
+        const float m_next = t + 1 < T ? __ldg(mask + bt + 1) : 0.0f;
+        const float gy = __ldg(gys + bt * H + j);
+        const float c_t = __ldg(cs + bt * H + j);
+        const float c_prev = t > 0 ? __ldg(cs + (bt - 1) * H + j) : 0.0f;
+        float* gp = gpre + r * L.nb + uu;
+        const float ig = sigmoid(xi + gp[0]);
+        const float fg = sigmoid(xf + gp[u] + a.forget_bias);
+        const float gg = tanhf(xg + gp[2 * u]);
+        const float og = sigmoid(xo + gp[3 * u]);
+        const bool on = m > 0.0f;
+        // dh carried from t+1: dgates_{t+1} @ Wh^T after a real step, else
+        // the passed-through total (zero before the first real step)
+        const float dh_carry = m_next > 0.0f ? dhn[r * u + uu] : dh[i];
+        const float dh_tot = (on ? gy : 0.0f) + dh_carry;
+        const float tc = tanhf(c_t);
+        const float dc_tot = dc[i] + dh_tot * og * (1.0f - tc * tc);
+        const float d_o = dh_tot * tc;
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (on) {
+          d[0] = dc_tot * gg * ig * (1.0f - ig);
+          d[1] = dc_tot * c_prev * fg * (1.0f - fg);
+          d[2] = dc_tot * ig * (1.0f - gg * gg);
+          d[3] = d_o * og * (1.0f - og);
+          dc[i] = dc_tot * fg;
+        }
+        float* dxt = dx + bt * G;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          dxt[g * H + j] = d[g];
+          gp[g * u] = d[g];
+        }
+        dh[i] = dh_tot;
+      }
+      __syncthreads();
+      // (p) this block's share of dh_{t-1}, read by every block in step t-1
+      if (t > 0)
+        dh_partials<kResident>(gpre, wsm, wh, partials(t), stage, blocks, blockIdx.x, j0, u, H,
+                               L.nb, L.ldw, bc, b0);
+      __syncthreads();  // gpre and dhn are consumed
+    }
+    step_arrive(counter);
+  }
+}
+
+// Launch the reverse walk of kDirs directions (1 or 2) as one cooperative
+// kernel on `stream`: grid (ceil(H / a.units), kDirs), kThreads threads and
+// smem_bytes of dynamic shared memory per block, the Wh slice resident in
+// shared memory when `resident` is set. a.sync holds kDirs zeroed counters,
+// a.part part_floats floats. ops/lstm.py bwd_plan picks units, resident and
+// smem_bytes and sizes a.part. Returns the CUDA error:
+// cudaErrorCooperativeLaunchTooLarge when the blocks cannot all be resident
+// at once (the kernel then never runs), cudaErrorInvalidValue for a plan
+// this kernel does not take, and for a.part of another size than the
+// kernel indexes. Does not synchronise. A template, so that only the
+// sources that launch the backward compile its kernels.
+template <int kDirs>
+int run_bwd_walk(const BwdArgs& a, int part_floats, int resident, int smem_bytes,
+                 void* stream) {
+  static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
+  const int u = a.units;
+  if (a.B <= 0 || a.T <= 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
+  // u a power of two up to kBwdMaxCols: every product's tiles divide kThreads
+  if (u < 1 || u > kBwdMaxCols || (u & (u - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if ((long long)a.B * u > (long long)kThreads * kBwdMaxPairs) return (int)cudaErrorInvalidValue;
+  const BwdLayout l = bwd_layout(a.H, u, resident != 0);
+  if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  // the partials bwd_walk indexes: [2, kDirs, blocks, blocks, u, rows to kBwdRows]
+  const size_t blocks = (a.H + u - 1) / u;
+  const size_t bc = (size_t)(a.B + kBwdRows - 1) / kBwdRows * kBwdRows;
+  if (part_floats < 0 || (size_t)part_floats != 2 * kDirs * blocks * blocks * u * bc)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = resident ? reinterpret_cast<const void*>(bwd_walk<true>)
+                                : reinterpret_cast<const void*>(bwd_walk<false>);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((H + kUnits - 1) / kUnits, dirs, (B + kRows - 1) / kRows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = T - 1; t >= 0; --t) {
-    bwd_step<kUnits><<<grid, kThreads, smem, s>>>(xf, xb, whf, whb, mask, ysf, ysb, csf, csb,
-                                                   gysf, gysb, dxf, dxb, dhbuf, dcbuf, B, T, H,
-                                                   t, forget_bias);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned int)blocks, kDirs);
+  void* params[] = {const_cast<BwdArgs*>(&a)};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
+                                                    (size_t)smem_bytes,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused launch leaves no error for the next one
+    return (int)e;
   }
   return (int)cudaGetLastError();
 }

@@ -92,21 +92,26 @@ def build() -> Path:
     return lib
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each C entry point's argument types, in order: ctypes passes a wrong count
+# without complaint, so tests/test_torch_lstm_bwd_plan.py holds this table
+# against the sources' extern "C" definitions.
+SIGNATURES = {
+    "lstm_bidi_fwd": [_P] * 11 + [_I, _I, _I, _F, _P],
+    "lstm_bidi_bwd": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "lstm_layer_fwd": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "ctc_loss_fwd_bwd": [_P] * 9 + [_I] * 5 + [_P],
+    "ctc_loss_fwd_only": [_P] * 7 + [_I] * 5 + [_P],
+    "location_attend": [_P] * 11 + [_I] * 6 + [_F, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's C signature."""
     lib = ctypes.CDLL(str(build()))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    signatures = {
-        "lstm_bidi_fwd": [p] * 11 + [i, i, i, f, p],
-        "lstm_bidi_bwd": [p] * 15 + [i, i, i, f, p],
-        "lstm_layer_fwd": [p] * 7 + [i, i, i, f, p],
-        "lstm_layer_bwd": [p] * 9 + [i, i, i, f, p],
-        "ctc_loss_fwd_bwd": [p] * 9 + [i] * 5 + [p],
-        "ctc_loss_fwd_only": [p] * 7 + [i] * 5 + [p],
-        "location_attend": [p] * 11 + [i] * 6 + [f, p],
-    }
-    for name, argtypes in signatures.items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

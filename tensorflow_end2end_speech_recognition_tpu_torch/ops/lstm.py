@@ -24,12 +24,17 @@ CPU tensors take the plain versions (``lstm_layer_fwd_plain``,
 ``lstm_layer_bwd_plain`` and their two-direction forms), time loops in plain
 PyTorch. CUDA tensors launch the hand-written kernels (``csrc/lstm_bidi_fwd.cu``
 #1, ``lstm_bidi_bwd.cu`` #2, ``lstm_layer_fwd.cu`` #3, ``lstm_layer_bwd.cu`` #4,
-all on the step kernels of ``csrc/lstm_step.cuh``) or raise; there is no
-fallback. ``lstm_bidi.launches``, ``lstm_bidi_bwd.launches``,
-``lstm_layer.launches`` and ``lstm_layer_bwd.launches`` count kernel launches.
+all in ``csrc/lstm_step.cuh``: the forwards one launch per step, the
+backwards one persistent cooperative launch per call, laid out by
+``bwd_plan``) or raise; there is no fallback. ``lstm_bidi.launches``,
+``lstm_bidi_bwd.launches``, ``lstm_layer.launches`` and
+``lstm_layer_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -160,6 +165,76 @@ def _device_of(what, x):
     return dev
 
 
+# The backward kernels' launch geometry; csrc/lstm_step.cuh (bwd_layout,
+# run_bwd_walk) holds the same numbers and refuses a plan that disagrees.
+BWD_THREADS = 256  # threads per block
+BWD_ROWS = 32  # batch rows per staged chunk
+BWD_STAGE_ROW = 256 + 4  # floats per staged row (256 k and 4 of padding)
+BWD_UNITS = (1, 2, 4, 8, 16, 32, 64, 128)  # unit tiles the kernel takes
+BWD_MAX_PAIRS = 8  # (row, unit) carries a thread keeps in registers
+MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan of the backward kernels #2 and #4 (``bwd_plan``)."""
+
+    units: int  # hidden units per block, of one direction, for every batch row
+    blocks: int  # blocks of the launch, all directions
+    resident: bool  # the block's slice of Wh held in shared memory
+    smem_bytes: int  # dynamic shared memory per block
+    resident_bytes: int  # of which the Wh slice (0 when streamed)
+    part_floats: int  # scratch for the dh partials the blocks exchange
+
+
+def _bwd_smem_floats(h: int, units: int, resident: bool) -> tuple[int, int]:
+    """(all, Wh slice) floats of one block's shared memory: ``bwd_layout``."""
+    hp, nb = -(-h // 4) * 4, 4 * units
+    wh = hp * (nb + 4) if resident else 0
+    return wh + 2 * BWD_ROWS * BWD_STAGE_ROW + BWD_THREADS * 16 + BWD_ROWS * (nb + units), wh
+
+
+def bwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> BwdPlan:
+    """Unit tile, grid and shared memory of one backward call.
+
+    The kernel is one cooperative launch of ``dirs * ceil(h / units)``
+    blocks that meet at a grid barrier every step, so all of them must be
+    resident: the tile is the smallest in ``BWD_UNITS`` that gives at most
+    one block per SM. The block keeps its slice of ``Wh`` (the columns of
+    its units' four gates) in shared memory when it fits ``MAX_SMEM``, and
+    otherwise reads it through L2. The blocks exchange their shares of dh
+    through ``part_floats`` of scratch.
+    """
+    if h <= 0 or batch <= 0 or dirs not in (1, 2) or sm_count <= 0:
+        raise ValueError(f"bwd_plan: bad arguments h={h} dirs={dirs} batch={batch} "
+                         f"sm_count={sm_count}")
+    units = next((u for u in BWD_UNITS if dirs * -(-h // u) <= sm_count), None)
+    if units is None:
+        raise ValueError(f"bwd_plan: H={h} needs more than {BWD_UNITS[-1]} units per block "
+                         f"for {dirs} direction(s) on {sm_count} SMs")
+    if batch * units > BWD_THREADS * BWD_MAX_PAIRS:
+        raise ValueError(f"bwd_plan: B={batch} x {units} units per block exceeds the "
+                         f"{BWD_THREADS * BWD_MAX_PAIRS} register carries of a block")
+    floats, wh = _bwd_smem_floats(h, units, True)
+    resident = floats * 4 <= MAX_SMEM
+    if not resident:
+        floats, wh = _bwd_smem_floats(h, units, False)
+    per_dir = -(-h // units)
+    # two steps x dirs x reader blocks x writer blocks x units x rows (to 32)
+    part = 2 * dirs * per_dir * per_dir * units * -(-batch // BWD_ROWS) * BWD_ROWS
+    return BwdPlan(units, dirs * per_dir, resident, floats * 4, wh * 4, part)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> BwdPlan:
+    """``bwd_plan`` for the SMs of CUDA device ``dev``: the plan both backward
+    wrappers launch with."""
+    return bwd_plan(h, dirs, batch, _sm_count(dev.index or 0))
+
+
 def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
                   with_cs: bool = False):
     """Kernel #1: ``(ys_f, ys_b)``, and ``(cs_f, cs_b)`` after them when ``with_cs``.
@@ -196,7 +271,11 @@ def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
 
 def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
                   gys_f, gys_b, forget_bias: float = 1.0):
-    """Kernel #2: ``(dxproj_f, dxproj_b)``; arguments as ``lstm_bidi_bwd_plain``."""
+    """Kernel #2: ``(dxproj_f, dxproj_b)``; arguments as ``lstm_bidi_bwd_plain``.
+
+    Launched with the plan ``bwd_plan_for`` gives this card; a launch whose
+    blocks cannot all be resident raises.
+    """
     _check_inputs("lstm_bidi_bwd", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
                   mask=mask, ys_f=ys_f, ys_b=ys_b, cs_f=cs_f, cs_b=cs_b, gys_f=gys_f,
                   gys_b=gys_b)
@@ -207,15 +286,17 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
     lib = build.load_library()
     b, t, g4 = xproj_f.shape
     h = g4 // 4
+    plan = bwd_plan_for(dev, h, 2, b)
     dx_f = torch.empty_like(xproj_f)
     dx_b = torch.empty_like(xproj_b)
-    dhbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
-    dcbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    sync = torch.zeros(2, dtype=torch.int32, device=dev)  # per-direction step barriers
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lstm_bidi_bwd(
-            *(a.data_ptr() for a in args), dx_f.data_ptr(), dx_b.data_ptr(),
-            dhbuf.data_ptr(), dcbuf.data_ptr(), b, t, h, float(forget_bias), stream,
+            *(a.data_ptr() for a in args), dx_f.data_ptr(), dx_b.data_ptr(), sync.data_ptr(),
+            part.data_ptr(), plan.part_floats, b, t, h, plan.units, int(plan.resident),
+            plan.smem_bytes, float(forget_bias), stream,
         )
     build.check(lib, code, "lstm_bidi_bwd")
     lstm_bidi_bwd.launches += 1
@@ -301,7 +382,8 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
 def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     """Kernel #4: ``dxproj`` [B, T, 4H]; arguments as ``lstm_layer_bwd_plain``.
 
-    Launches are counted on ``lstm_layer_bwd.launches``.
+    Launched as ``lstm_bidi_bwd``. Launches are counted on
+    ``lstm_layer_bwd.launches``.
     """
     _check_inputs("lstm_layer_bwd", xproj=xproj, wh=wh, mask=mask, ys=ys, cs=cs, gys=gys)
     dev = _device_of("lstm_layer_bwd", xproj)
@@ -310,14 +392,16 @@ def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     lib = build.load_library()
     b, t, g4 = xproj.shape
     h = g4 // 4
+    plan = bwd_plan_for(dev, h, 1, b)
     dx = torch.empty_like(xproj)
-    dhbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
-    dcbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
+    sync = torch.zeros(1, dtype=torch.int32, device=dev)  # the step barrier
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.lstm_layer_bwd(
             *(a.data_ptr() for a in (xproj, wh, mask, ys, cs, gys)), dx.data_ptr(),
-            dhbuf.data_ptr(), dcbuf.data_ptr(), b, t, h, float(forget_bias), stream,
+            sync.data_ptr(), part.data_ptr(), plan.part_floats, b, t, h, plan.units,
+            int(plan.resident), plan.smem_bytes, float(forget_bias), stream,
         )
     build.check(lib, code, "lstm_layer_bwd")
     lstm_layer_bwd.launches += 1

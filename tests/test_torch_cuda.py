@@ -45,8 +45,11 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_loss_fwd_only_plain,
     ctc_loss_plain,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import build
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import lstm as lstm_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
     LSTMLayer,
+    bwd_plan_for,
     lstm_bidi,
     lstm_bidi_bwd,
     lstm_bidi_bwd_plain,
@@ -87,7 +90,8 @@ def _inputs(dev, b, t, h, lengths, seed):
 
 SHAPES = [
     (5, 37, 70, [37, 1, 20, 36, 2]),  # neither H nor B a multiple of the 8-wide tiles
-    (9, 5, 1536, [5, 1, 3, 5, 2, 4, 5, 1, 3]),  # > 48 KB shared memory, two row tiles
+    # > 48 KB shared memory, two row tiles; the backward reads its Wh slice from L2
+    (9, 5, 1536, [5, 1, 3, 5, 2, 4, 5, 1, 3]),
 ]
 
 
@@ -124,6 +128,106 @@ def test_backward_kernel_matches_plain(dev, b, t, h, lengths):
     assert lstm_bidi_bwd.launches == before + 1
     for g, w in zip(got, lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0)):
         torch.testing.assert_close(g, w, **LSTM_TOL)
+
+
+def _bwd_case(dev, b, t, h, seed):
+    """Inputs of #2 and #4 at [B, T, H], lengths that include T and 1, and
+    the plain forwards' streams: (args, fwd_bidi, gys_bidi, fwd_layer)."""
+    rng = np.random.RandomState(seed)
+    lengths = ([t, 1] + [int(x) for x in rng.randint(1, t + 1, max(b - 2, 0))])[:b]
+    args = _inputs(dev, b, t, h, lengths, seed)
+    gys = [torch.from_numpy(rng.randn(b, t, h).astype(np.float32)).to(dev) for _ in range(2)]
+    return args, lstm_bidi_fwd_plain(*args, 1.0), gys, lstm_layer_fwd_plain(*args[::2], 0.5)
+
+
+def _check_backward_kernels(dev, b, t, h):
+    """#2 and #4 against their plain versions, each called twice: equal bits."""
+    args, fwd, gys, fwd1 = _bwd_case(dev, b, t, h, seed=b + h)
+    x, _, wh, _, mask = args
+    before = (lstm_bidi_bwd.launches, lstm_layer_bwd.launches)
+    got = lstm_bidi_bwd(*args, *fwd, *gys, 1.0)
+    again = lstm_bidi_bwd(*args, *fwd, *gys, 1.0)
+    dx = lstm_layer_bwd(x, wh, mask, *fwd1, gys[0], 0.5)
+    dx_again = lstm_layer_bwd(x, wh, mask, *fwd1, gys[0], 0.5)
+    torch.cuda.synchronize()
+    assert (lstm_bidi_bwd.launches, lstm_layer_bwd.launches) == (before[0] + 2, before[1] + 2)
+    for g, w in zip(got, lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    torch.testing.assert_close(dx, lstm_layer_bwd_plain(x, wh, mask, *fwd1, gys[0], 0.5),
+                               **LSTM_TOL)
+    assert all(torch.equal(g, a) for g, a in zip(got, again)) and torch.equal(dx, dx_again)
+
+
+@pytest.mark.parametrize("b", [1, 33, 64])
+@pytest.mark.parametrize("h", [256, 320, 512])
+def test_backward_kernels_at_model_widths(dev, b, h):
+    """#2 and #4 at the configs' widths (timit, csj, ls) against their plain
+    versions: B = 33 and 64 take two row chunks; two calls give equal bits."""
+    _check_backward_kernels(dev, b, 24, h)
+
+
+@pytest.mark.parametrize("b,h", [(5, 270), (33, 270), (9, 1540), (40, 1540)])
+def test_backward_kernels_with_unit_tiles_that_leave_a_remainder(dev, b, h):
+    """Widths whose unit tile does not divide H for either kernel, so the last
+    block of each direction has units past H: resident Wh at H = 270, read
+    from L2 at H = 1540, one and two row chunks."""
+    for dirs in (1, 2):
+        plan = bwd_plan_for(dev, h, dirs, b)
+        assert h % plan.units and plan.resident == (h == 270), (dirs, plan)
+    _check_backward_kernels(dev, b, 12, h)
+
+
+def test_backward_launch_that_cannot_be_resident_raises(dev, monkeypatch):
+    """Plans made as if the card had eight times its SMs: the cooperative
+    launch is refused, the wrapper raises and counts nothing, and the next
+    call runs."""
+    sms = lstm_ops._sm_count(dev.index or 0)
+    args, fwd, gys, fwd1 = _bwd_case(dev, 4, 5, 512, seed=7)
+    x, _, wh, _, mask = args
+    before = (lstm_bidi_bwd.launches, lstm_layer_bwd.launches)
+    with monkeypatch.context() as m:
+        m.setattr(lstm_ops, "_sm_count", lambda index: 8 * sms)
+        assert bwd_plan_for(dev, 512, 2, 4).blocks > sms
+        with pytest.raises(RuntimeError, match="lstm_bidi_bwd: CUDA error"):
+            lstm_bidi_bwd(*args, *fwd, *gys, 1.0)
+        with pytest.raises(RuntimeError, match="lstm_layer_bwd: CUDA error"):
+            lstm_layer_bwd(x, wh, mask, *fwd1, gys[0], 0.5)
+    assert (lstm_bidi_bwd.launches, lstm_layer_bwd.launches) == before
+    got = lstm_bidi_bwd(*args, *fwd, *gys, 1.0)
+    torch.cuda.synchronize()
+    for g, w in zip(got, lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+
+
+def test_backward_entry_points_refuse_partials_of_another_size(dev):
+    """The C entry points hold the dh partials' scratch against what the
+    kernel indexes at the call's B and H: a plan made for another batch or
+    width is refused (cudaErrorInvalidValue) before anything runs."""
+    b, t, h = 40, 5, 512
+    args, fwd, gys, fwd1 = _bwd_case(dev, b, t, h, seed=9)
+    x, xb, wh, whb, mask = args
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dx = torch.zeros_like(x)
+    sync = torch.zeros(2, dtype=torch.int32, device=dev)
+    invalid_value = 1
+    for plan in (bwd_plan_for(dev, h, 1, 8), bwd_plan_for(dev, 256, 1, b)):
+        part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+        code = lib.lstm_layer_bwd(
+            *(a.data_ptr() for a in (x, wh, mask, *fwd1, gys[0])), dx.data_ptr(),
+            sync.data_ptr(), part.data_ptr(), plan.part_floats, b, t, h, plan.units,
+            int(plan.resident), plan.smem_bytes, 0.5, stream)
+        assert code == invalid_value, plan
+    plan = bwd_plan_for(dev, h, 2, b)
+    part = torch.empty(plan.part_floats - 1, dtype=torch.float32, device=dev)
+    dx_b = torch.zeros_like(xb)
+    code = lib.lstm_bidi_bwd(
+        *(a.data_ptr() for a in (*args, *fwd, *gys)), dx.data_ptr(), dx_b.data_ptr(),
+        sync.data_ptr(), part.data_ptr(), plan.part_floats - 1, b, t, h, plan.units,
+        int(plan.resident), plan.smem_bytes, 1.0, stream)
+    assert code == invalid_value
+    torch.cuda.synchronize()
+    assert not dx.any() and not dx_b.any()  # nothing ran
 
 
 @pytest.mark.parametrize("b,t,h,lengths", SHAPES)
