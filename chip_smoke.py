@@ -10,16 +10,17 @@ Phases; any failure exits non-zero and prints no result line:
 1. refuse to run without CUDA;
 2. build the CUDA kernels from ``tensorflow_end2end_speech_recognition_tpu_torch/
    csrc`` with nvcc for sm_90a (one nvcc per source, in parallel; set-up);
-3. serving kernel: ``lstm_bidi`` forward against its plain PyTorch version at
-   the encoder's serving shape, B=8, T=400, D=360 -> H=512, ragged lengths
-   that include 1 and T;
+3. serving kernel: ``lstm_bidi`` forward (#1: one cooperative launch; its
+   launch plan, us per step, two calls bitwise equal) against its plain
+   PyTorch version at the encoder's serving shape, B=8, T=400, D=360 ->
+   H=512, ragged lengths that include 1 and T;
 4. training kernels at the ls100_ctc train step's shapes (B=32, T=400,
    H=512; C=29, U=40), each against its plain version on the same inputs:
-   the forward with its cell-state stream ``cs``, the backward
-   (``lstm_bidi_bwd``: one cooperative launch; its launch plan, us per step,
-   two calls bitwise equal, and ``LSTMBidi.backward`` whole, kernel + dWh,
-   timed beside cuDNN's backward), the fused CTC loss + gradient and the
-   loss-only CTC;
+   the forward with its cell-state stream ``cs`` (plan, us per step,
+   bitwise repeat), the backward (``lstm_bidi_bwd``: one cooperative
+   launch; its launch plan, us per step, two calls bitwise equal, and
+   ``LSTMBidi.backward`` whole, kernel + dWh, timed beside cuDNN's
+   backward), the fused CTC loss + gradient and the loss-only CTC;
 5. build the ``configs/ls100_ctc.yml`` model at full width in code (40 mel +
    deltas = 120 dims, 3/3 stacking -> 360, 5 x BLSTM-512, 28 + 1 character
    classes) with seeded uniform +-0.1 weights; check its logits and ids on
@@ -31,7 +32,9 @@ Phases; any failure exits non-zero and prints no result line:
    path; launch counts reset just before and read just after);
 8. time train steps at B=32 x 12 s (dropout 0.8, Adam): ms per step,
    utterances/s, peak memory, kernel launches per step (exactly 5 forward,
-   5 backward, 1 CTC), and a profile of one step's device time by kernel;
+   5 backward, 1 CTC), and a profile of one step's device time by kernel,
+   which must show exactly 5 device launches of the forward walk and 5 of
+   the backward walk, and no per-step forward kernel;
 9. ``train/loop.fit`` on the ls100_ctc config for one epoch of the toy corpus
    (the training path; launch counts reset just before and read just
    after): finite losses, no skipped step, the dev eval on the loss-only
@@ -41,7 +44,8 @@ Phases; any failure exits non-zero and prints no result line:
     T=300, A=256, He=1024, C=10, W=101, lengths that include 1, T and 0,
     plus a small case with an even W and sharpening 1.5;
 11. ``lstm_bidi`` forward at the pyramidal encoder's first layer, B=8,
-    T=1198, D=120 -> H=512, ragged lengths;
+    T=1198, D=120 -> H=512, ragged lengths (plan, us per step, bitwise
+    repeat);
 12. build the ``configs/ls960_joint.yml`` model at full width in code (120
     dims, 5 x pyramidal BLSTM-512 with two 2x reductions, hybrid attention
     A=256, LSTM decoder 512, 28 characters + sos/eos, joint CTC head) with
@@ -54,9 +58,10 @@ Phases; any failure exits non-zero and prints no result line:
     ``/recognize`` requests through ``bin/serve.make_server(...,
     beam_width=8)`` (the attention serving path; launch counts reset just
     before and read just after);
-14. unidirectional layer kernel: ``lstm_layer`` forward (#3) against its plain
-    version at the ls_transducer encoder's serving shape, B=8, T=400, D=120
-    -> H=512, lengths that include 1 and T, and with ``cs`` at B=32;
+14. unidirectional layer kernel: ``lstm_layer`` forward (#3, one cooperative
+    launch) against its plain version at the ls_transducer encoder's serving
+    shape, B=8, T=400, D=120 -> H=512, lengths that include 1 and T, and
+    with ``cs`` at B=32 (each with its plan, us per step, bitwise repeat);
 15. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512 (launch
     plan, us per step, two calls bitwise equal, ``LSTMLayer.backward``
     whole timed), and ``LSTMLayer``'s gradients (dxproj, dWh) against
@@ -74,7 +79,8 @@ Phases; any failure exits non-zero and prints no result line:
     launch counts reset just before and read just after: 4 #3 per batch);
 18. time transducer train steps at B=32 x 12 s (U=40, dropout 0.9, Adam):
     ms per step, utterances/s, peak memory, launches per step (exactly 4
-    #3 and 4 #4) and a profile of one step's device time by kernel;
+    #3 and 4 #4) and a profile of one step's device time by kernel (exactly
+    4 device launches of each walk, no per-step forward kernel);
 19. ``train/loop.fit`` on the ls_transducer config for one epoch of a
     256-utterance toy corpus (the transducer training path; launch counts
     reset just before and read just after): finite losses, no skipped
@@ -387,45 +393,59 @@ def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
     return bound(moved, ops)
 
 
-def backward_extras(name: str, kernel, function_backward, dirs: int, dev) -> dict:
-    """Kernel #2 or #4 beside its timing: two calls equal bit for bit, the
-    launch plan its wrapper takes at the train step's shape, and the autograd
-    Function's whole backward (the kernel and the dWh contractions), the unit
-    that cuDNN's backward compares with."""
-    plan = lstm.bwd_plan_for(dev, H, dirs, B_TRAIN)
+def walk_extras(name: str, kernel, plan, dev) -> dict:
+    """Kernels #1-#4 beside their timing: two calls equal bit for bit, and the
+    launch plan the wrapper takes at this shape."""
     first, second = kernel(), kernel()
     torch.cuda.synchronize()
     first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise RuntimeError(f"{name}: two calls on the same inputs differ")
     sm_count = lstm._sm_count(dev.index or 0)
+    rows = f", {plan.rows} rows per staged chunk" if hasattr(plan, "rows") else ""
     print(f"{name}: two calls bitwise equal; launch plan {plan.units} units per block, "
-          f"{plan.blocks} blocks on {sm_count} SMs, {plan.smem_bytes} B shared memory per block, "
-          f"Wh slice {'resident' if plan.resident else 'streamed from L2'} "
-          f"({plan.resident_bytes} B)", flush=True)
-    return {"deterministic": True, "plan": plan._asdict(),
-            "function_backward_ms": cuda_ms(function_backward, 10)}
+          f"{plan.blocks} blocks on {sm_count} SMs{rows}, {plan.smem_bytes} B shared memory per "
+          f"block, Wh slice {'resident' if plan.resident else 'streamed from L2'} "
+          f"({plan.resident_bytes} B), {plan.chunks} launch(es) per call", flush=True)
+    return {"deterministic": True, "plan": plan._asdict()}
 
 
-def check_serving_kernel(dev, gpu: str) -> None:
+def forward_extras(name: str, kernel, dirs: int, b: int, dev, t_ms: dict, steps: int) -> dict:
+    """Kernel #1 or #3: ``walk_extras`` and the time per step of ``t_ms``."""
+    return dict(walk_extras(name, kernel, lstm.fwd_plan_for(dev, H, dirs, b), dev),
+                us_per_step=t_ms["ms"] * 1e3 / steps)
+
+
+def backward_extras(name: str, kernel, function_backward, dirs: int, dev) -> dict:
+    """Kernel #2 or #4: ``walk_extras`` at the train step's shape, and the
+    autograd Function's whole backward (the kernel and the dWh
+    contractions), the unit that cuDNN's backward compares with."""
+    return dict(walk_extras(name, kernel, lstm.bwd_plan_for(dev, H, dirs, B_TRAIN), dev),
+                function_backward_ms=cuda_ms(function_backward, 10))
+
+
+def check_serving_kernel(dev, gpu: str) -> dict:
     """Kernel #1 without ``cs`` at the serving shape; its bound and cuDNN's time."""
     lengths = [T_ENC, 1, 399, 250, 128, 7, 333, T_ENC]
     args, xs, lens = lstm_inputs(dev, B, lengths, seed=0)
+    kernel = lambda: lstm.lstm_bidi(*args)  # noqa: E731
     with torch.no_grad():
-        got = lstm.lstm_bidi(*args)
+        got = kernel()
         want = lstm.lstm_bidi_fwd_plain(*args)[:2]
         torch.cuda.synchronize()
         err = check(f"lstm_bidi_fwd (serving) B={B} T={T_ENC} H={H}", got, want, KERNEL_ATOL)
-        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), lambda: lstm.lstm_bidi(*args),
-                            2, 20)
+        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), kernel, 2, 20)
+        extras = forward_extras("lstm_bidi_fwd (serving)", kernel, 2, B, dev, t, T_ENC)
     lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=0)
-    lib = cuda_ms(lib_fwd, 10)
-    bd = lstm_work(lengths, H, with_cs=False, backward=False)
-    print(f"phase lstm_bidi_fwd serving B={B} T={T_ENC} H={H}: kernel {t['ms']:.3f} ms (runs "
-          f"{t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}), plain {t['plain_ms']:.3f} ms (runs "
+    r = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10), **extras,
+             **lstm_work(lengths, H, with_cs=False, backward=False))
+    print(f"phase lstm_bidi_fwd serving B={B} T={T_ENC} H={H}: kernel {r['ms']:.3f} ms (runs "
+          f"{t['ms_runs'][0]:.3f}, {t['ms_runs'][1]:.3f}; {r['us_per_step']:.2f} us per step), "
+          f"plain {t['plain_ms']:.3f} ms (runs "
           f"{t['plain_ms_runs'][0]:.3f}, {t['plain_ms_runs'][1]:.3f}), bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), cuDNN nn.LSTM forward {lib:.3f} ms, "
-          f"max abs err {err:.3e}  [{gpu}]", flush=True)
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM forward "
+          f"{r['library_ms']:.3f} ms, max abs err {err:.3e}  [{gpu}]", flush=True)
+    return r
 
 
 def check_training_lstm(dev, gpu: str) -> dict:
@@ -448,6 +468,7 @@ def check_training_lstm(dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         bwd_err = check(f"lstm_bidi_bwd B={B_TRAIN} T={T_ENC} H={H}", got, want_dx, BWD_ATOL)
         tf = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), fwd_k, 1, 10)
+        fwd_extras = forward_extras("lstm_bidi_fwd with cs", fwd_k, 2, B_TRAIN, dev, tf, T_ENC)
         tb = plain_kernel_ms(lambda: lstm.lstm_bidi_bwd_plain(*bwd_args),
                              lambda: lstm.lstm_bidi_bwd(*bwd_args), 1, 10)
         ctx = types.SimpleNamespace(saved_tensors=(*args[:5], *want), forget_bias=args[5])
@@ -457,7 +478,7 @@ def check_training_lstm(dev, gpu: str) -> dict:
     lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=1)
     lf, lb = cuda_ms(lib_fwd, 10), cuda_ms(lib_bwd, 10)
     out = {
-        "lstm_bidi_fwd": dict(tf, max_abs_err=fwd_err, library_ms=lf,
+        "lstm_bidi_fwd": dict(tf, max_abs_err=fwd_err, library_ms=lf, **fwd_extras,
                               **lstm_work(lengths, H, with_cs=True, backward=False)),
         "lstm_bidi_bwd": dict(tb, max_abs_err=bwd_err, library_ms=lb, **extras,
                               **lstm_work(lengths, H, with_cs=True, backward=True)),
@@ -736,9 +757,12 @@ def serve_requests(task, model, gpu: str) -> dict:
 
 
 def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
-                     profile_out: str | None, want: dict, steps: int = TIMED_STEPS) -> None:
+                     profile_out: str | None, want: dict, walks: int,
+                     steps: int = TIMED_STEPS) -> None:
     """Adam steps with the config's dropout at B=32 x 12 s: time, rate, memory,
-    launches (exactly ``want``), and a profile of one step by kernel."""
+    launches (exactly ``want``), and a profile of one step by kernel, in which
+    each LSTM walk (forward and backward) ran exactly ``walks`` device
+    launches and no per-step forward kernel ran."""
     batch = train_batch(B_TRAIN, 12.0, seed=7, max_labels=U)
     batch["input_len"][:] = 12 * SR  # the 12 s bucket: every row T' = 400
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
@@ -783,6 +807,13 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
           flush=True)
     for key, t, n in kernels[:12]:
         print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
+    device = {w: sum(n for key, _, n in kernels if w in key) for w in ("fwd_walk", "bwd_walk")}
+    per_step = sum(n for key, _, n in kernels if "fwd_step" in key)
+    print(f"{name} train step device launches: {device}, per-step forward kernel {per_step}",
+          flush=True)
+    if device != {"fwd_walk": walks, "bwd_walk": walks} or per_step:
+        raise RuntimeError(f"one {name} train step ran {device} and {per_step} per-step forward "
+                           f"launches; expected {walks} of each walk and none")
 
 
 def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
@@ -911,13 +942,16 @@ def check_pyramidal_lstm(dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         err = check(f"lstm_bidi_fwd (pyramidal layer 0) B={B_ATT} T={T_PYR} H={H}", got, want,
                     KERNEL_ATOL)
-        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), lambda: lstm.lstm_bidi(*args),
-                            1, 10)
+        kernel = lambda: lstm.lstm_bidi(*args)  # noqa: E731
+        t = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), kernel, 1, 10)
+        extras = forward_extras("lstm_bidi_fwd (pyramidal layer 0)", kernel, 2, B_ATT, dev, t,
+                                T_PYR)
     lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=12)
-    r = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10),
+    r = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10), **extras,
              **lstm_work(lengths, H, with_cs=False, backward=False, t=T_PYR))
     print(f"phase lstm_bidi_fwd pyramidal B={B_ATT} T={T_PYR} D={D_PYR} H={H}: kernel "
-          f"{r['ms']:.3f} ms (runs {r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain "
+          f"{r['ms']:.3f} ms (runs {r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}; "
+          f"{r['us_per_step']:.2f} us per step), plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN "
           f"nn.LSTM forward {r['library_ms']:.3f} ms, max abs err {err:.3e}  [{gpu}]",
           flush=True)
@@ -1091,10 +1125,11 @@ def check_layer_kernels(dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         err = check(f"lstm_layer_fwd (serving) B={B} T={T_ENC} D={D_TR} H={H}", [got], [want],
                     KERNEL_ATOL)
-        t = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args),
-                            lambda: lstm.lstm_layer(*args), 2, 20)
+        kernel = lambda: lstm.lstm_layer(*args)  # noqa: E731
+        t = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args), kernel, 2, 20)
+        extras = forward_extras("lstm_layer_fwd (serving)", kernel, 1, B, dev, t, T_ENC)
     lib_fwd, _ = cudnn_lstm(dev, xs, lens, seed=20, bidirectional=False)
-    serving = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10),
+    serving = dict(t, max_abs_err=err, library_ms=cuda_ms(lib_fwd, 10), **extras,
                    **lstm_work(lengths, H, with_cs=False, backward=False, dirs=1))
 
     rng = np.random.RandomState(21)
@@ -1115,6 +1150,7 @@ def check_layer_kernels(dev, gpu: str) -> dict:
         bwd_err = check(f"lstm_layer_bwd B={B_TRAIN} T={T_ENC} H={H}", [got], [want_dx],
                         BWD_ATOL)
         tf = plain_kernel_ms(lambda: lstm.lstm_layer_fwd_plain(*args), fwd_k, 1, 10)
+        fwd_extras = forward_extras("lstm_layer_fwd with cs", fwd_k, 1, B_TRAIN, dev, tf, T_ENC)
         tb = plain_kernel_ms(lambda: lstm.lstm_layer_bwd_plain(*bwd_args),
                              lambda: lstm.lstm_layer_bwd(*bwd_args), 1, 10)
         ctx = types.SimpleNamespace(saved_tensors=(*args[:3], *want), forget_bias=args[3])
@@ -1139,7 +1175,7 @@ def check_layer_kernels(dev, gpu: str) -> dict:
     lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=21, bidirectional=False)
     out = {
         "lstm_layer_fwd": dict(tf, max_abs_err=fwd_err, library_ms=cuda_ms(lib_fwd, 10),
-                               serving=serving,
+                               serving=serving, **fwd_extras,
                                **lstm_work(lengths, H, with_cs=True, backward=False, dirs=1)),
         "lstm_layer_bwd": dict(tb, max_abs_err=bwd_err, library_ms=cuda_ms(lib_bwd, 10),
                                **extras,
@@ -1286,7 +1322,7 @@ def main() -> int:
     print(f"phase build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}", flush=True)
     print(lib_path.with_suffix(".log").read_text().strip(), flush=True)
 
-    check_serving_kernel(dev, gpu)
+    serving_fwd = check_serving_kernel(dev, gpu)
     results = check_training_lstm(dev, gpu)
     results.update(check_ctc(dev, gpu))
     clock("kernels #1, #2, #5, #6 checked", t0)
@@ -1304,7 +1340,8 @@ def main() -> int:
     del model
     clock("ls100_ctc served", t0)
     time_train_steps("ls100_ctc", task, ctc_task, params_cpu, dev, gpu, args.profile_out,
-                     dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1))
+                     dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1),
+                     LAYERS)
     counts["training"] = train_one_epoch(
         "ls100_ctc", LS100_CTC, gpu,
         ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"))
@@ -1339,7 +1376,8 @@ def main() -> int:
     clock("ls_transducer served", t0)
     time_train_steps("ls_transducer", tr, transducer_task, tr_params, dev, gpu,
                      args.profile_out, dict(NONE_LAUNCHED, lstm_layer_fwd=TR_LAYERS,
-                                            lstm_layer_bwd=TR_LAYERS), steps=TR_TIMED_STEPS)
+                                            lstm_layer_bwd=TR_LAYERS), TR_LAYERS,
+                     steps=TR_TIMED_STEPS)
     clock("ls_transducer train steps timed", t0)
     # 256 utterances instead of the config's 2048: one epoch within the time limit
     counts["transducer_training"] = train_one_epoch(
@@ -1364,16 +1402,20 @@ def main() -> int:
         })
         if name == "location_attend":
             entries[-1]["n8"] = r["n8"]
-        if name == "lstm_bidi_fwd":
-            entries[-1]["pyramidal"] = {k: pyramidal[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        if name in ("lstm_bidi_fwd", "lstm_layer_fwd"):
+            shapes = {"serving": serving_fwd if name == "lstm_bidi_fwd" else r["serving"]}
+            if name == "lstm_bidi_fwd":
+                shapes["pyramidal"] = pyramidal
+            entries[-1].update(us_per_step=r["us_per_step"], plan=r["plan"],
+                               deterministic=r["deterministic"])
+            for shape, x in shapes.items():
+                entries[-1][shape] = {k: x[k] for k in (
+                    "ms", "us_per_step", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err", "plan", "deterministic")}
         if name in ("lstm_bidi_bwd", "lstm_layer_bwd"):
             entries[-1].update(us_per_step=r["ms"] * 1e3 / T_ENC, plan=r["plan"],
                                deterministic=r["deterministic"],
                                function_backward_ms=r["function_backward_ms"])
-        if name == "lstm_layer_fwd":
-            entries[-1]["serving"] = {k: r["serving"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,10 +9,14 @@
 // The backward direction's xproj arrives already reversed over each row's
 // valid prefix, so both directions walk t = 0..T-1 under one mask.
 //
-// The step kernel, what bounds it and its design are in lstm_step.cuh. Here
-// a block owns kUnits = 8 hidden units of one direction for 8 batch rows:
-// grid (H / 8, 2, ceil(B / 8)), 128 blocks at H = 512, B = 8. A layer is T
-// launches (about 5 x T per utterance batch for a 5-layer encoder).
+// The kernel, what bounds it and its design are in lstm_step.cuh (fwd_walk):
+// one persistent cooperative launch per call, grid (H / u, 2), each block
+// holding its units' Wh columns in shared memory for all T steps, taking
+// h_{t-1} of every batch row from the exchange buffer its direction's blocks
+// write, and meeting them at a grid barrier once per step. The two
+// directions never read each other's h, so each has its own barrier counter.
+// At H = 512 the plan (ops/lstm.py fwd_plan) takes u = 8: 128 blocks on 132
+// SMs, each with 72 KB of Wh resident, one block per SM.
 
 #include "lstm_step.cuh"
 
@@ -21,16 +25,21 @@ extern "C" {
 // All pointers are device pointers of contiguous float32 tensors:
 // xf, xb [B, T, 4H]; whf, whb [H, 4H]; mask [B, T]; ysf, ysb [B, T, H]
 // (written in full); csf, csb [B, T, H] written in full, or both null to
-// skip the cell-state stream (serving); hbuf [2, 2, B, H] and cbuf [2, B, H], zeroed by the
-// caller. Launches T kernels on `stream` and returns the first CUDA error
-// (0 when every launch was accepted). Does not synchronise.
+// skip the cell-state stream (serving); sync [2] unsigned counters, zeroed
+// by the caller; hbuf, the h exchange of hbuf_floats floats ([2, 2, B, H],
+// no need to zero it). hbuf_floats, units, resident, rows and smem_bytes are
+// the launch plan of ops/lstm.py fwd_plan. Launches one cooperative kernel
+// on `stream` and returns its CUDA error (0 when it was accepted). Does not
+// synchronise.
 int lstm_bidi_fwd(const float* xf, const float* xb, const float* whf, const float* whb,
                   const float* mask, float* ysf, float* ysb, float* csf, float* csb,
-                  float* hbuf, float* cbuf,
-                  int B, int T, int H, float forget_bias, void* stream) {
+                  unsigned int* sync, float* hbuf, int hbuf_floats, int B, int T, int H,
+                  int units, int resident, int rows, int smem_bytes, float forget_bias,
+                  void* stream) {
   if ((csf == nullptr) != (csb == nullptr)) return (int)cudaErrorInvalidValue;
-  return run_fwd<8>(xf, xb, whf, whb, mask, ysf, ysb, csf, csb, hbuf, cbuf, 2, B, T, H,
-                    forget_bias, stream);
+  const FwdArgs a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, mask, sync, hbuf,
+                  B, T, H, units, forget_bias};
+  return run_fwd_walk<2>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
 
 const char* asr_cuda_error_string(int code) {

@@ -2,41 +2,59 @@
 // lstm_bidi_bwd.cu: two directions, blockIdx.y picks one) and the
 // unidirectional layer (lstm_layer_fwd.cu, lstm_layer_bwd.cu: one direction,
 // a grid of depth 1 and null second pointers), for Hopper (sm_90a), float32,
-// over hoisted input projections: the forward as one launch per time step,
-// the backward as one persistent cooperative launch per call.
+// over hoisted input projections: the forward and the backward each one
+// persistent cooperative launch per call.
 // ops/build.py hashes this header with the sources that include it.
 //
 // Gates i, f, g, o of xproj[t] + h_{t-1} @ Wh, with forget_bias added to f.
-// A masked (pad) step carries h and c through and emits 0; the mask is a
-// monotone length mask, which the backward's h_{t-1} = ys[t-1] read relies on.
+// A masked (pad) step carries h and c through and emits 0. The forward is
+// exact for any mask; the backward's h_{t-1} = ys[t-1] read relies on a
+// monotone length mask.
 //
-// Forward design (fwd_step, run_fwd). Grid (ceil(H / kUnits), directions,
-// ceil(B / kRows)). A block owns kUnits hidden units of one direction for
-// kRows batch rows: it stages h_{t-1} for its rows in shared memory,
-// computes the four dot products against Wh columns j, H+j, 2H+j, 3H+j for
-// each owned unit itself (32 / kUnits lanes split the H-long reduction
-// inside a warp and kWarps ways across warps), sums the partials, adds
-// xproj[t] and runs the gate math, the mask carry and the writes of h, c and
-// ys[t] = h * m. h ping-pongs between two global buffers so no block reads a
-// row another block writes in the same step; c is read and written only by
-// the thread that owns it. The launches on one stream are the step barrier,
-// and every step re-reads Wh [H, 4H] (4 MB at H = 512) through the 50 MB L2.
-// Training also writes the cell-state stream cs[b, t] = c_t (the carried
-// value on a masked step), which the backward reads; serving passes null.
-//
-// Backward design (bwd_walk, run_bwd_walk). It replaces the TPU kernels'
-// reverse walk (ops/pallas/lstm_kernel.py _bwd_kernel and _bidi_bwd_kernel),
-// which keep Wh resident in VMEM for all T steps. One direction's Wh does
-// not fit one SM (227 KB), but a slice of it fits each SM: a block owns u
-// hidden units of one direction for every batch row, and at its start copies
-// into shared memory the Wh columns of its units' four gates, Wc [H, 4u]
-// (rows padded to 4u + 4 floats). At H = 512 that is 72 KB for u = 8 (the
-// bidirectional call: 64 x 2 = 128 blocks) and 40 KB for u = 4 (one
-// direction: 128 blocks). The launch is cooperative, so all blocks are
-// resident at once (one per SM) or the launch is refused; the blocks of a
-// direction meet at a split arrive / wait barrier (a global counter per
+// Both walks replace TPU kernels (ops/pallas/lstm_kernel.py _fwd_kernel,
+// _bidi_fwd_kernel, _bwd_kernel, _bidi_bwd_kernel) that keep Wh resident in
+// VMEM for all T steps. One direction's Wh does not fit one SM (227 KB),
+// but a slice of it fits each SM: a block owns u hidden units of one
+// direction for every batch row, and at its start copies into shared memory
+// the Wh columns of its units' four gates, Wc [H, 4u] (rows padded to 4u + 4
+// floats). At H = 512 that is 72 KB for u = 8 (the bidirectional calls:
+// 64 x 2 = 128 blocks) and 40 KB for u = 4 (one direction: 128 blocks).
+// Where Wc does not fit shared memory (H = 1536) the same kernels read it
+// through L2 (kResident false). The launch is cooperative, so all blocks
+// are resident at once (one per SM) or the launch is refused; the blocks of
+// a direction meet at a split arrive / wait barrier (a global counter per
 // direction: atomic add after a fence on arrival, an acquire-load spin on
-// wait) once per step. Per step t = T-1 .. 0 and per chunk of 32 batch rows:
+// wait) once per step. A thread keeps the carries of at most kBwdMaxPairs
+// (row, unit) pairs in registers, so one launch takes B x u <= 2048;
+// ops/lstm.py (fwd_plan, bwd_plan) lays out the launches and splits a larger
+// batch into launches over contiguous rows, which are independent.
+//
+// Forward design (fwd_walk, run_fwd_walk). Per step t = 0 .. T-1:
+//  - each thread loads xproj[t] and mask[t] of its pairs, which depend on
+//    no other block, and only then waits at its direction's barrier for
+//    step t-1: the h exchange alone is on the step's critical path;
+//  - per chunk of kRows batch rows (8 for a batch of up to 8, the serving
+//    batch, so that no row tile idles: the threads it frees split k
+//    further; else 32), h_{t-1} of the chunk, staged through shared memory
+//    from the exchange buffer, times Wc (gate_product below);
+//  - epilogue, one thread per (row, unit): gate math and the mask carry,
+//    h and c kept in registers; ys[t] = h * m, cs[t] = c when asked, and
+//    the carried h_t into the exchange buffer hbuf [2 (step parity), dirs,
+//    B, H] (the carried h, not ys: exact for any mask);
+//  - arrive.
+// hbuf is written and read inside the launch, so h_{t-1} is read with
+// ld.global.cg (L2), never __ldg. Training also writes the cell-state stream
+// cs[b, t] = c_t (the carried value on a masked step), which the backward
+// reads; serving passes null.
+//
+// What bounds the forward on this card. Each step needs 2 B H 4H float
+// operations per direction: 1.05 MFLOP per block at B = 32, H = 512, u = 8,
+// about 2 us at 67 TFLOP/s over 132 SMs, and 64 KB of h_{t-1} read through
+// L2 per block. The step is a chain (barrier, L2 read, product, epilogue,
+// fence), so its latency, not either rate, sets the pace (PERF.md).
+//
+// Backward design (bwd_walk, run_bwd_walk). Per step t = T-1 .. 0 and per
+// chunk of 32 batch rows:
 //  (b) gates at t: ys[t-1] rows, staged through shared memory, times Wc.
 //      This reads only the forward's outputs, so it runs before the wait.
 //  (a) dh_t of the block's units: the sum, in block order, of the partials
@@ -56,9 +74,8 @@
 // written and read inside the launch, so they are read with ld.global.cg
 // (L2), never __ldg.
 // Every product is float32 FFMA, each sum in a fixed order (k slices, then
-// blocks): two calls give equal bits. Where Wc does not fit shared memory
-// (H = 1536) the same kernel reads it through L2 (kResident false).
-// dWh is one [T*B] contraction outside (ops/lstm.py), as on the TPU.
+// blocks): two calls give equal bits. dWh is one [T*B] contraction outside
+// (ops/lstm.py), as on the TPU.
 //
 // What bounds the backward on this card. Each step needs 2 x 2 B H 4H float
 // operations per direction (gates recomputed, dh product): 1.05 MFLOP per
@@ -76,188 +93,407 @@
 // of the kernels it instantiates, registered with its own module.
 namespace {
 
-constexpr int kWarps = 8;              // warps that split k within a block
-constexpr int kRows = 8;               // batch rows per block
-constexpr int kThreads = 32 * kWarps;  // 256
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;  // 256 threads a block
 constexpr int kMaxSmem = 232448;       // bytes of shared memory a block may use
-
-template <int kUnits>
-struct Tile {
-  static constexpr int kKSub = 32 / kUnits;             // lanes that split k in a warp
-  static constexpr int kKStride = kKSub * kWarps;
-  static constexpr int kRed = kWarps * 4 * kRows * kUnits;  // partial sums, floats
-  static_assert(32 % kUnits == 0, "kUnits divides a warp");
-  static_assert(kRows * kUnits <= kThreads, "one epilogue thread per (row, unit)");
-};
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// h_{t-1} rows staged in hs [kRows, H] times the columns j, H+j, 2H+j, 3H+j
-// of Wh for the unit this lane owns; partial sums reduced over the lanes of
-// a unit and left in red [kWarps, 4, kRows, kUnits] for the epilogue.
-template <int kUnits>
-__device__ __forceinline__ void gate_products(const float* __restrict__ wh,
-                                              const float* __restrict__ hs,
-                                              float* __restrict__ red, int j0, int H,
-                                              bool skip) {
-  using Tl = Tile<kUnits>;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int u = lane % kUnits;
-  const int ks = lane / kUnits;
-  const int j = j0 + u;
-  const int G = 4 * H;
-  float acc[4][kRows];
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[g][r] = 0.0f;
-  if (j < H && !skip) {
-#pragma unroll 4
-    for (int k = warp * Tl::kKSub + ks; k < H; k += Tl::kKStride) {
-      const float* w = wh + (size_t)k * G + j;
-      const float w0 = __ldg(w), w1 = __ldg(w + H), w2 = __ldg(w + 2 * H), w3 = __ldg(w + 3 * H);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float hv = hs[r * H + k];
-        acc[0][r] = fmaf(hv, w0, acc[0][r]);
-        acc[1][r] = fmaf(hv, w1, acc[1][r]);
-        acc[2][r] = fmaf(hv, w2, acc[2][r]);
-        acc[3][r] = fmaf(hv, w3, acc[3][r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float v = acc[g][r];
-#pragma unroll
-      for (int off = kUnits; off < 32; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-      acc[g][r] = v;
-    }
-  if (ks == 0) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) red[((warp * 4 + g) * kRows + r) * kUnits + u] = acc[g][r];
-  }
-}
-
-template <int kUnits>
-__global__ void __launch_bounds__(kThreads)
-fwd_step(const float* __restrict__ xf, const float* __restrict__ xb,
-         const float* __restrict__ whf, const float* __restrict__ whb,
-         const float* __restrict__ mask,
-         float* __restrict__ ysf, float* __restrict__ ysb,
-         float* __restrict__ csf, float* __restrict__ csb,  // null: skip
-         const float* __restrict__ h_in,  // [dirs, B, H]: h_{t-1}
-         float* __restrict__ h_out,       // [dirs, B, H]: h_t
-         float* __restrict__ c,           // [dirs, B, H]: c_{t-1} -> c_t
-         int B, int T, int H, int t, float forget_bias) {
-  extern __shared__ float smem[];
-  float* hs = smem;                // [kRows, H]
-  float* red = smem + kRows * H;   // [kWarps, 4, kRows, kUnits]
-
-  const int dir = blockIdx.y;
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.z * kRows;
-  const int G = 4 * H;
-  const size_t BH = (size_t)B * H;
-
-  const float* x = dir ? xb : xf;
-  const float* wh = dir ? whb : whf;
-  float* ys = dir ? ysb : ysf;
-  float* cs = dir ? csb : csf;
-  const float* hp = h_in + dir * BH;
-  float* hn = h_out + dir * BH;
-  float* cc = c + dir * BH;
-
-  for (int i = threadIdx.x; i < kRows * H; i += kThreads) {
-    const int r = i / H;
-    const int b = b0 + r;
-    hs[i] = b < B ? hp[(size_t)b * H + (i - r * H)] : 0.0f;
-  }
-  __syncthreads();
-  gate_products<kUnits>(wh, hs, red, j0, H, false);
-  __syncthreads();
-
-  if (threadIdx.x >= kRows * kUnits) return;
-  const int r = threadIdx.x / kUnits;
-  const int jj = j0 + threadIdx.x % kUnits;
-  const int b = b0 + r;
-  if (jj >= H || b >= B) return;
-
-  float gs[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[((w * 4 + g) * kRows + r) * kUnits + (jj - j0)];
-    gs[g] = s;
-  }
-  const size_t bt = (size_t)b * T + t;
-  const float* xt = x + bt * G;
-  const float ig = sigmoid(xt[jj] + gs[0]);
-  const float fg = sigmoid(xt[H + jj] + gs[1] + forget_bias);
-  const float gg = tanhf(xt[2 * H + jj] + gs[2]);
-  const float og = sigmoid(xt[3 * H + jj] + gs[3]);
-
-  const size_t idx = (size_t)b * H + jj;
-  const float c_prev = cc[idx];
-  const float h_prev = hp[idx];
-  const float c_new = fg * c_prev + ig * gg;
-  const float h_new = og * tanhf(c_new);
-  const float m = mask[bt];
-  const bool on = m > 0.0f;
-  const float h = on ? h_new : h_prev;
-  const float c_out = on ? c_new : c_prev;
-  cc[idx] = c_out;
-  hn[idx] = h;
-  ys[bt * H + jj] = h * m;
-  if (cs != nullptr) cs[bt * H + jj] = c_out;
-}
-
-// Launch the T forward steps of `dirs` directions (1 or 2) on `stream`.
-// hbuf [2, dirs, B, H] and cbuf [dirs, B, H] are zeroed by the caller; the
-// second direction's pointers are ignored when dirs == 1. Returns the first
-// CUDA error (0 when every launch was accepted). Does not synchronise.
-template <int kUnits>
-int run_fwd(const float* xf, const float* xb, const float* whf, const float* whb,
-            const float* mask, float* ysf, float* ysb, float* csf, float* csb, float* hbuf,
-            float* cbuf, int dirs, int B, int T, int H, float forget_bias, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || dirs < 1 || dirs > 2) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)kRows * H + Tile<kUnits>::kRed) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd_step<kUnits>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((H + kUnits - 1) / kUnits, dirs, (B + kRows - 1) / kRows);
-  const size_t state = (size_t)dirs * B * H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int t = 0; t < T; ++t) {
-    const float* h_in = hbuf + (t & 1) * state;
-    float* h_out = hbuf + ((t + 1) & 1) * state;
-    fwd_step<kUnits><<<grid, kThreads, smem, s>>>(xf, xb, whf, whb, mask, ysf, ysb, csf, csb,
-                                                   h_in, h_out, cbuf, B, T, H, t, forget_bias);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Backward: one persistent cooperative launch per call (design at the top).
-
-constexpr int kBwdRows = 32;            // batch rows per chunk
+constexpr int kBwdRows = 32;            // batch rows per chunk of the backward
 constexpr int kRowTiles = kBwdRows / 4;  // 4-row tiles and float4 row groups of a chunk
 constexpr int kBwdKC = 256;             // k per staged chunk of the gate product
 constexpr int kBwdStride = kBwdKC + 4;  // floats per staged row: rows 4 banks apart
 constexpr int kBwdMaxCols = 128;        // columns of one gate-product pass: 8 x 32 tiles
 constexpr int kBwdMaxPairs = 8;         // (row, unit) carries a thread keeps in registers
 constexpr int kBwdRed = kThreads * 16;  // partial sums: one 4 x 4 tile per thread
+
+// The checks both launchers make: u a power of two up to kBwdMaxCols (every
+// product's tiles divide kThreads), and B x u within the register carries.
+inline bool walk_takes(int B, int T, int H, int u) {
+  if (B <= 0 || T <= 0 || H <= 0) return false;
+  if (u < 1 || u > kBwdMaxCols || (u & (u - 1)) != 0) return false;
+  return (long long)B * u <= (long long)kThreads * kBwdMaxPairs;
+}
+
+// Copy the block's Wc [hp, ldw] (column c = g u + uu is Wh[:, g H + j0 + uu];
+// zero past H) into shared memory at wsm.
+__device__ __forceinline__ void load_wc(float* wsm, const float* __restrict__ wh, int H, int u,
+                                        int j0, int hp, int nb, int ldw) {
+  const int G = 4 * H;
+  for (int i = threadIdx.x; i < hp * nb; i += kThreads) {
+    const int k = i / nb;
+    const int c = i - k * nb;
+    const int g = c / u;
+    const int j = j0 + c - g * u;
+    wsm[k * ldw + c] = k < H && j < H ? __ldg(wh + (size_t)k * G + g * H + j) : 0.0f;
+  }
+  __syncthreads();
+}
+
+// The block has written its step's outputs and exchange entries (bar.sync);
+// one thread makes them visible device-wide and counts the block in.
+__device__ __forceinline__ void step_arrive(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+  }
+}
+
+// Wait until `target` blocks have arrived: one thread spins on acquire loads.
+__device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
+    } while (v < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Loads of the gate product's source rows. kCoherent: rows written by other
+// blocks inside this launch (the forward's h exchange), read through L2
+// (ld.global.cg); otherwise rows written by an earlier launch (the
+// backward's ys), read through the non-coherent path.
+template <bool kCoherent>
+__device__ __forceinline__ float4 src_load4(const float* p) {
+  return kCoherent ? __ldcg(reinterpret_cast<const float4*>(p))
+                   : __ldg(reinterpret_cast<const float4*>(p));
+}
+
+template <bool kCoherent>
+__device__ __forceinline__ float src_load(const float* p) {
+  return kCoherent ? __ldcg(p) : __ldg(p);
+}
+
+// The gate product for a chunk's rows:
+// out[r][c0 + c] = sum_k h[b0 + r][k] Wc[k][c0 + c], r < kRows, c < n <=
+// kBwdMaxCols, with h row b at src + b * src_row and Wc[k][g u + uu] =
+// Wh[k, g H + j0 + uu], resident at wsm [hp, ldw]. The h rows are staged
+// through shared memory in chunks of kBwdKC. A thread owns one 4 x 4 tile of
+// out, rows rt + i kRows / 4 for i < 4 (at kRows = 32 the 8 lanes of a
+// quarter warp read 8 rows on distinct banks) and 4 adjacent columns, in
+// one of kThreads / tiles slices of every chunk: fewer rows, more slices.
+// The slices' sums are added in slice order.
+template <bool kResident, int kRows = kBwdRows, bool kCoherent = false>
+__device__ void gate_product(const float* src, size_t src_row, const float* wsm,
+                             const float* __restrict__ wh, int c0, int n, int ldw, int j0, int u,
+                             int b0, int rows, int H, int hp, float* stage, float* red,
+                             float* out, int ldo) {
+  constexpr int kTiles = kRows / 4;  // 4-row tiles of a chunk
+  static_assert(kRows % 4 == 0 && kRows <= kBwdRows, "rows a chunk takes");
+  const int tid = threadIdx.x;
+  const int nct = n / 4;
+  const int tiles = kTiles * nct;
+  const int ksplit = kThreads / tiles;
+  const int s = tid / tiles;
+  const int tile = tid - s * tiles;
+  const int rt = tile / nct;
+  const int ct = tile - rt * nct;
+  const bool live = rt < rows;
+  const int nq = (hp + kBwdKC - 1) / kBwdKC;
+  const int G = 4 * H;
+  const bool vec = (H & 3) == 0;
+
+  // kResident false: Wc[k][c] of this thread's columns read from Wh itself
+  size_t off[4];
+  bool ok[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = c0 + ct * 4 + e;
+    const int g = c / u;
+    const int j = j0 + c - g * u;
+    ok[e] = j < H;
+    off[e] = (size_t)g * H + j;
+  }
+
+  // Chunk q is staged in two halves: load() issues its global loads into
+  // registers (kLoads float4 per thread, all in flight at once), store()
+  // writes them to shared memory. Chunk q+1 is loaded while q is computed.
+  constexpr int kLoads = kRows * kBwdKC / 4 / kThreads;
+  float4 v[kLoads];
+  auto load = [&](int q) {
+    const int k0 = q * kBwdKC;
+    const int len4 = min(kBwdKC, hp - k0) / 4;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / len4;
+      v[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (vec && r < rows)
+        v[l] = src_load4<kCoherent>(src + (size_t)(b0 + r) * src_row + k0 + 4 * (i - r * len4));
+    }
+  };
+  auto store = [&](int q) {
+    float* buf = stage + (q & 1) * (kRows * kBwdStride);
+    const int k0 = q * kBwdKC;
+    const int len4 = min(kBwdKC, hp - k0) / 4;
+#pragma unroll
+    for (int l = 0; l < kLoads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / len4;
+      if (r >= kRows) continue;
+      const int k = k0 + 4 * (i - r * len4);
+      float* dst = buf + r * kBwdStride + (k - k0);
+      if (vec || r >= rows) {
+        *reinterpret_cast<float4*>(dst) = v[l];
+      } else {  // H % 4 != 0: rows are not 16-byte aligned
+        const float* p = src + (size_t)(b0 + r) * src_row + k;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? src_load<kCoherent>(p + e) : 0.0f;
+      }
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+
+  load(0);
+  store(0);
+  for (int q = 0; q < nq; ++q) {
+    if (q + 1 < nq) load(q + 1);
+    __syncthreads();  // chunk q is staged; chunk q-1's buffer is free
+    if (live) {
+      const float* a0 = stage + (q & 1) * (kRows * kBwdStride) + rt * kBwdStride;
+      const int k0 = q * kBwdKC;
+      const int ng = min(kBwdKC, hp - k0) / 4;
+      const int per = (ng + ksplit - 1) / ksplit;
+      const int hi = min(ng, (s + 1) * per);
+      for (int gi = s * per; gi < hi; ++gi) {
+        const int kk = 4 * gi;
+        float a[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 av = *reinterpret_cast<const float4*>(a0 + i * kTiles * kBwdStride + kk);
+          a[i][0] = av.x, a[i][1] = av.y, a[i][2] = av.z, a[i][3] = av.w;
+        }
+        float w[4][4];
+        if (kResident) {
+          const float* wp = wsm + (size_t)(k0 + kk) * ldw + c0 + ct * 4;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 wv = *reinterpret_cast<const float4*>(wp + e * ldw);
+            w[e][0] = wv.x, w[e][1] = wv.y, w[e][2] = wv.z, w[e][3] = wv.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = k0 + kk + e;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              w[e][c] = ok[c] && k < H ? __ldg(wh + off[c] + (size_t)k * G) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i][e], w[e][c], acc[i][c]);
+      }
+    }
+    if (q + 1 < nq) store(q + 1);
+  }
+
+  float* mine = red + tid * 16;  // tid == s * tiles + tile
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(mine + 4 * i) = make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                                           acc[i][3]);
+  __syncthreads();
+  for (int o = tid; o < kRows * n; o += kThreads) {
+    const int r = o / n;
+    const int c = o - r * n;
+    const float* part = red + ((r % kTiles) * nct + c / 4) * 16 + (r / kTiles) * 4 + (c & 3);
+    float sum = 0.0f;
+    for (int k = 0; k < ksplit; ++k) sum += part[k * tiles * 16];
+    out[r * ldo + c0 + c] = sum;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one persistent cooperative launch per call (design at the top).
+
+struct FwdArgs {
+  const float* x[2];   // [B, T, 4H] per direction
+  const float* wh[2];  // [H, 4H]
+  float* ys[2];        // [B, T, H]
+  float* cs[2];        // [B, T, H], or null: no cell-state stream
+  const float* mask;   // [B, T]
+  unsigned int* sync;  // [dirs] arrival counters, zeroed by the caller
+  float* hbuf;         // h exchange [2 (step parity), dirs, B, H]: written and read inside
+                       //   the launch
+  int B, T, H, units;
+  float forget_bias;
+};
+
+// Dynamic shared memory of one forward block, offsets and size in floats,
+// for kRows = rows; hp, nb and ldw as in bwd_layout.
+struct FwdLayout {
+  int hp, nb, ldw;
+  int wc, stage, red, gpre, total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, bool resident) {
+  FwdLayout l;
+  l.hp = (H + 3) / 4 * 4;
+  l.nb = 4 * u;
+  l.ldw = l.nb + 4;
+  l.wc = 0;                                        // [hp, ldw]: Wh columns of the units
+  l.stage = l.wc + (resident ? l.hp * l.ldw : 0);  // 2 x [rows, kBwdStride]
+  l.red = l.stage + 2 * rows * kBwdStride;         // [kBwdRed]
+  l.gpre = l.red + kBwdRed;                        // [rows, nb]: h_{t-1} @ Wc
+  l.total = l.gpre + rows * l.nb;
+  return l;
+}
+
+template <bool kResident, int kRows>
+__global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
+  extern __shared__ float4 fwd_smem4[];
+  float* smem = reinterpret_cast<float*>(fwd_smem4);
+  const int dir = blockIdx.y;
+  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H;
+  const int j0 = blockIdx.x * u;
+  const int tid = threadIdx.x;
+  const FwdLayout L = fwd_layout(H, u, kRows, kResident);
+  const float* wsm = smem + L.wc;
+  float* stage = smem + L.stage;
+  float* red = smem + L.red;
+  float* gpre = smem + L.gpre;
+
+  const float* __restrict__ x = dir ? a.x[1] : a.x[0];
+  const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
+  const float* __restrict__ mask = a.mask;
+  float* ys = dir ? a.ys[1] : a.ys[0];
+  float* cs = dir ? a.cs[1] : a.cs[0];
+  unsigned int* counter = a.sync + dir;
+  const int blocks = gridDim.x;
+  const size_t state = (size_t)gridDim.y * B * H;  // one step parity of hbuf
+  float* hdir = a.hbuf + (size_t)dir * B * H;
+
+  if (kResident) load_wc(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
+
+  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u
+  float h[kBwdMaxPairs], c[kBwdMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kBwdMaxPairs; ++i) h[i] = c[i] = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+    // xproj[t] and mask[t] of the thread's pairs: no other block writes them
+    float xv[kBwdMaxPairs][4], mv[kBwdMaxPairs];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p / u;
+      const int j = j0 + p - b * u;
+      xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = mv[i] = 0.0f;
+      if (b < B && j < H) {
+        const size_t bt = (size_t)b * T + t;
+        const float* xt = x + bt * G + j;
+        xv[i][0] = __ldg(xt), xv[i][1] = __ldg(xt + H);
+        xv[i][2] = __ldg(xt + 2 * H), xv[i][3] = __ldg(xt + 3 * H);
+        mv[i] = __ldg(mask + bt);
+      }
+    }
+    const float* hprev = hdir + (size_t)(t & 1) * state;  // h_{t-1}, written in step t-1
+    float* hnext = hdir + (size_t)((t + 1) & 1) * state;
+    // every block of the direction has written h_{t-1}; h_{-1} = 0
+    if (t > 0) step_wait(counter, blocks * (unsigned int)t);
+    for (int b0 = 0; b0 < B; b0 += kRows) {
+      const int rows = min(kRows, B - b0);
+      if (t > 0) {
+        for (int c0 = 0; c0 < L.nb; c0 += kBwdMaxCols)
+          gate_product<kResident, kRows, true>(hprev, (size_t)H, wsm, wh, c0,
+                                               min(kBwdMaxCols, L.nb - c0), L.ldw, j0, u, b0,
+                                               rows, H, L.hp, stage, red, gpre, L.nb);
+      } else {
+        for (int i = tid; i < kRows * L.nb; i += kThreads) gpre[i] = 0.0f;
+        __syncthreads();
+      }
+      // epilogue, one thread per (row, unit) of the chunk
+#pragma unroll
+      for (int i = 0; i < kBwdMaxPairs; ++i) {
+        const int p = tid + i * kThreads;
+        const int b = p / u;
+        const int uu = p - b * u;
+        const int j = j0 + uu;
+        if (b < b0 || b >= b0 + rows || j >= H) continue;
+        const float* gp = gpre + (b - b0) * L.nb + uu;
+        const float ig = sigmoid(xv[i][0] + gp[0]);
+        const float fg = sigmoid(xv[i][1] + gp[u] + a.forget_bias);
+        const float gg = tanhf(xv[i][2] + gp[2 * u]);
+        const float og = sigmoid(xv[i][3] + gp[3 * u]);
+        const float c_new = fg * c[i] + ig * gg;
+        const float h_new = og * tanhf(c_new);
+        const float m = mv[i];
+        if (m > 0.0f) {
+          h[i] = h_new;
+          c[i] = c_new;
+        }
+        const size_t bt = (size_t)b * T + t;
+        ys[bt * H + j] = h[i] * m;
+        if (cs != nullptr) cs[bt * H + j] = c[i];
+        hnext[(size_t)b * H + j] = h[i];
+      }
+      __syncthreads();  // gpre is consumed
+    }
+    step_arrive(counter);
+  }
+}
+
+// Launch the forward walk of kDirs directions (1 or 2) as one cooperative
+// kernel on `stream`: grid (ceil(H / a.units), kDirs), kThreads threads,
+// `rows` batch rows per chunk (8 or 32) and smem_bytes of dynamic shared
+// memory per block, the Wh slice resident in shared memory when `resident`
+// is set. a.sync holds kDirs zeroed counters, a.hbuf hbuf_floats floats.
+// ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
+// the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
+// all be resident at once (the kernel then never runs), cudaErrorInvalidValue
+// for a plan this kernel does not take, and for an exchange buffer of
+// another size than the kernel indexes. Does not synchronise.
+template <int kDirs>
+int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int smem_bytes,
+                 void* stream) {
+  static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
+  if (!walk_takes(a.B, a.T, a.H, a.units)) return (int)cudaErrorInvalidValue;
+  if (rows != 8 && rows != 32) return (int)cudaErrorInvalidValue;
+  const FwdLayout l = fwd_layout(a.H, a.units, rows, resident != 0);
+  if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  // the exchange fwd_walk indexes: [2, kDirs, B, H]
+  if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel;
+  if (rows == 8)
+    kernel = resident ? reinterpret_cast<const void*>(fwd_walk<true, 8>)
+                      : reinterpret_cast<const void*>(fwd_walk<false, 8>);
+  else
+    kernel = resident ? reinterpret_cast<const void*>(fwd_walk<true, 32>)
+                      : reinterpret_cast<const void*>(fwd_walk<false, 32>);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned int)((a.H + a.units - 1) / a.units), kDirs);
+  void* params[] = {const_cast<FwdArgs*>(&a)};
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
+                                                    (size_t)smem_bytes,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused launch leaves no error for the next one
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward: one persistent cooperative launch per call (design at the top).
 
 struct BwdArgs {
   const float* x[2];    // [B, T, 4H] per direction
@@ -295,176 +531,6 @@ __host__ __device__ inline BwdLayout bwd_layout(int H, int u, bool resident) {
   l.dhn = l.gpre + kBwdRows * l.nb;                  // [kBwdRows, u]: dh from step t+1
   l.total = l.dhn + kBwdRows * u;
   return l;
-}
-
-// The block has written its step's dxproj entries and dh partials
-// (bar.sync); one thread makes them visible device-wide and counts the
-// block in.
-__device__ __forceinline__ void step_arrive(unsigned int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-  }
-}
-
-// Wait until `target` blocks have arrived: one thread spins on acquire loads.
-__device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned int target) {
-  if (threadIdx.x == 0) {
-    unsigned int v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(counter) : "memory");
-    } while (v < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// (b) The gate product for the chunk's rows:
-// out[r][c0 + c] = sum_k h[b0 + r][k] Wc[k][c0 + c], r < kBwdRows, c < n <=
-// kBwdMaxCols, with h row b at src + b * src_row (ys[t-1]) and Wc[k][g u + uu]
-// = Wh[k, g H + j0 + uu], resident at wsm [hp, ldw]. The h rows are staged
-// through shared memory in chunks of kBwdKC. A thread owns one 4 x 4 tile of
-// out, rows rt, rt + 8, rt + 16, rt + 24 (the 8 lanes of a quarter warp read
-// 8 rows on distinct banks) and 4 adjacent columns, in one of kThreads /
-// tiles slices of every chunk; the slices' sums are added in slice order.
-template <bool kResident>
-__device__ void gate_product(const float* src, size_t src_row, const float* wsm,
-                             const float* __restrict__ wh, int c0, int n, int ldw, int j0, int u,
-                             int b0, int rows, int H, int hp, float* stage, float* red,
-                             float* out, int ldo) {
-  const int tid = threadIdx.x;
-  const int nct = n / 4;
-  const int tiles = kRowTiles * nct;
-  const int ksplit = kThreads / tiles;
-  const int s = tid / tiles;
-  const int tile = tid - s * tiles;
-  const int rt = tile / nct;
-  const int ct = tile - rt * nct;
-  const bool live = rt < rows;
-  const int nq = (hp + kBwdKC - 1) / kBwdKC;
-  const int G = 4 * H;
-  const bool vec = (H & 3) == 0;
-
-  // kResident false: Wc[k][c] of this thread's columns read from Wh itself
-  size_t off[4];
-  bool ok[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = c0 + ct * 4 + e;
-    const int g = c / u;
-    const int j = j0 + c - g * u;
-    ok[e] = j < H;
-    off[e] = (size_t)g * H + j;
-  }
-
-  // Chunk q is staged in two halves: load() issues its global loads into
-  // registers (kLoads float4 per thread, all in flight at once), store()
-  // writes them to shared memory. Chunk q+1 is loaded while q is computed.
-  constexpr int kLoads = kBwdRows * kBwdKC / 4 / kThreads;
-  float4 v[kLoads];
-  auto load = [&](int q) {
-    const int k0 = q * kBwdKC;
-    const int len4 = min(kBwdKC, hp - k0) / 4;
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      const int r = i / len4;
-      v[l] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (vec && r < rows)
-        v[l] = __ldg(reinterpret_cast<const float4*>(src + (size_t)(b0 + r) * src_row + k0 +
-                                                     4 * (i - r * len4)));
-    }
-  };
-  auto store = [&](int q) {
-    float* buf = stage + (q & 1) * (kBwdRows * kBwdStride);
-    const int k0 = q * kBwdKC;
-    const int len4 = min(kBwdKC, hp - k0) / 4;
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int i = tid + l * kThreads;
-      const int r = i / len4;
-      if (r >= kBwdRows) continue;
-      const int k = k0 + 4 * (i - r * len4);
-      float* dst = buf + r * kBwdStride + (k - k0);
-      if (vec || r >= rows) {
-        *reinterpret_cast<float4*>(dst) = v[l];
-      } else {  // H % 4 != 0: rows are not 16-byte aligned
-        const float* p = src + (size_t)(b0 + r) * src_row + k;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? __ldg(p + e) : 0.0f;
-      }
-    }
-  };
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
-
-  load(0);
-  store(0);
-  for (int q = 0; q < nq; ++q) {
-    if (q + 1 < nq) load(q + 1);
-    __syncthreads();  // chunk q is staged; chunk q-1's buffer is free
-    if (live) {
-      const float* a0 = stage + (q & 1) * (kBwdRows * kBwdStride) + rt * kBwdStride;
-      const int k0 = q * kBwdKC;
-      const int ng = min(kBwdKC, hp - k0) / 4;
-      const int per = (ng + ksplit - 1) / ksplit;
-      const int hi = min(ng, (s + 1) * per);
-      for (int gi = s * per; gi < hi; ++gi) {
-        const int kk = 4 * gi;
-        float a[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 av = *reinterpret_cast<const float4*>(a0 + i * kRowTiles * kBwdStride + kk);
-          a[i][0] = av.x, a[i][1] = av.y, a[i][2] = av.z, a[i][3] = av.w;
-        }
-        float w[4][4];
-        if (kResident) {
-          const float* wp = wsm + (size_t)(k0 + kk) * ldw + c0 + ct * 4;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float4 wv = *reinterpret_cast<const float4*>(wp + e * ldw);
-            w[e][0] = wv.x, w[e][1] = wv.y, w[e][2] = wv.z, w[e][3] = wv.w;
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int k = k0 + kk + e;
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              w[e][c] = ok[c] && k < H ? __ldg(wh + off[c] + (size_t)k * G) : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i][e], w[e][c], acc[i][c]);
-      }
-    }
-    if (q + 1 < nq) store(q + 1);
-  }
-
-  float* mine = red + tid * 16;  // tid == s * tiles + tile
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(mine + 4 * i) = make_float4(acc[i][0], acc[i][1], acc[i][2],
-                                                           acc[i][3]);
-  __syncthreads();
-  for (int o = tid; o < kBwdRows * n; o += kThreads) {
-    const int r = o / n;
-    const int c = o - r * n;
-    const float* part = red + ((r % kRowTiles) * nct + c / 4) * 16 + (r / kRowTiles) * 4 + (c & 3);
-    float sum = 0.0f;
-    for (int k = 0; k < ksplit; ++k) sum += part[k * tiles * 16];
-    out[r * ldo + c0 + c] = sum;
-  }
-  __syncthreads();
 }
 
 // (p) This block's share of dh_{t-1} = dgates_t @ Wh^T for every unit i of the
@@ -617,16 +683,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
     return a.part + ((size_t)(t & 1) * gridDim.y + dir) * blocks * slot;
   };
 
-  if (kResident) {  // the block's Wh columns, for all T steps
-    for (int i = tid; i < L.hp * L.nb; i += kThreads) {
-      const int k = i / L.nb;
-      const int c = i - k * L.nb;
-      const int g = c / u;
-      const int j = j0 + c - g * u;
-      smem[L.wc + k * L.ldw + c] = k < H && j < H ? __ldg(wh + (size_t)k * G + g * H + j) : 0.0f;
-    }
-    __syncthreads();
-  }
+  if (kResident) load_wc(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);  // for all T steps
 
   float dh[kBwdMaxPairs], dc[kBwdMaxPairs];
 #pragma unroll
@@ -727,10 +784,7 @@ int run_bwd_walk(const BwdArgs& a, int part_floats, int resident, int smem_bytes
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
   const int u = a.units;
-  if (a.B <= 0 || a.T <= 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
-  // u a power of two up to kBwdMaxCols: every product's tiles divide kThreads
-  if (u < 1 || u > kBwdMaxCols || (u & (u - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if ((long long)a.B * u > (long long)kThreads * kBwdMaxPairs) return (int)cudaErrorInvalidValue;
+  if (!walk_takes(a.B, a.T, a.H, u)) return (int)cudaErrorInvalidValue;
   const BwdLayout l = bwd_layout(a.H, u, resident != 0);
   if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;

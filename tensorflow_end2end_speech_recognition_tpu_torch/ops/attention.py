@@ -20,9 +20,12 @@ frame (a micro-batcher's filler row) gets ``align = 1/T`` everywhere, as
 CPU tensors take ``location_attend_plain``. CUDA tensors launch the
 hand-written kernel ``csrc/location_attend.cu`` (its energies and its
 softmax-and-context passes, two launches on the stream) or raise; there is
-no fallback. ``location_attend.launches`` counts calls that launched it. The read
-has no gradient here: the JAX package differentiates it only through
-``_reference_math`` (training, not ported yet).
+no fallback. ``location_attend.launches`` counts calls that launched it. The
+kernel has no backward yet (the reference's ``_fused_bwd``, ``jax.vjp`` of
+``_reference_math``; attention training is not ported), so a CUDA call
+raises when grad is enabled and an input requires grad, instead of
+returning outputs with no ``grad_fn``; the plain version on the CPU is
+differentiable.
 """
 
 from __future__ import annotations
@@ -100,6 +103,11 @@ def location_attend(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
     if keys_in.device.type == "cpu":
         return location_attend_plain(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc,
                                      v, sharpening)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (keys_in, enc_out, q, prev_align, conv_w, w_loc, v)):
+        raise NotImplementedError(
+            "location_attend: the CUDA kernel has no backward (the reference's _fused_bwd is "
+            "not ported); call it under torch.no_grad() or on inputs that require no grad")
     lib = build.load_library()
     dev = keys_in.device
     n, t, a = keys_in.shape

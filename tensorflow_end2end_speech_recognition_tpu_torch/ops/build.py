@@ -97,9 +97,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # without complaint, so tests/test_torch_lstm_bwd_plan.py holds this table
 # against the sources' extern "C" definitions.
 SIGNATURES = {
-    "lstm_bidi_fwd": [_P] * 11 + [_I, _I, _I, _F, _P],
+    "lstm_bidi_fwd": [_P] * 11 + [_I] * 8 + [_F, _P],
     "lstm_bidi_bwd": [_P] * 15 + [_I] * 7 + [_F, _P],
-    "lstm_layer_fwd": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "lstm_layer_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
     "ctc_loss_fwd_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "ctc_loss_fwd_only": [_P] * 7 + [_I] * 5 + [_P],

@@ -24,11 +24,12 @@ CPU tensors take the plain versions (``lstm_layer_fwd_plain``,
 ``lstm_layer_bwd_plain`` and their two-direction forms), time loops in plain
 PyTorch. CUDA tensors launch the hand-written kernels (``csrc/lstm_bidi_fwd.cu``
 #1, ``lstm_bidi_bwd.cu`` #2, ``lstm_layer_fwd.cu`` #3, ``lstm_layer_bwd.cu`` #4,
-all in ``csrc/lstm_step.cuh``: the forwards one launch per step, the
-backwards one persistent cooperative launch per call, laid out by
-``bwd_plan``) or raise; there is no fallback. ``lstm_bidi.launches``,
-``lstm_bidi_bwd.launches``, ``lstm_layer.launches`` and
-``lstm_layer_bwd.launches`` count kernel launches.
+all in ``csrc/lstm_step.cuh``: each one persistent cooperative launch per
+call, laid out by ``fwd_plan`` and ``bwd_plan``; a batch past a block's
+register carries is split into launches over contiguous rows) or raise;
+there is no fallback. ``lstm_bidi.launches``, ``lstm_bidi_bwd.launches``,
+``lstm_layer.launches`` and ``lstm_layer_bwd.launches`` count the calls
+that launched each kernel.
 """
 
 from __future__ import annotations
@@ -165,25 +166,101 @@ def _device_of(what, x):
     return dev
 
 
-# The backward kernels' launch geometry; csrc/lstm_step.cuh (bwd_layout,
-# run_bwd_walk) holds the same numbers and refuses a plan that disagrees.
+# The walks' launch geometry; csrc/lstm_step.cuh (fwd_layout, bwd_layout,
+# run_fwd_walk, run_bwd_walk) holds the same numbers and refuses a plan that
+# disagrees.
 BWD_THREADS = 256  # threads per block
-BWD_ROWS = 32  # batch rows per staged chunk
+BWD_ROWS = 32  # batch rows per staged chunk of the backward
+FWD_ROWS = (8, 32)  # batch rows per staged chunk the forward takes
 BWD_STAGE_ROW = 256 + 4  # floats per staged row (256 k and 4 of padding)
-BWD_UNITS = (1, 2, 4, 8, 16, 32, 64, 128)  # unit tiles the kernel takes
+BWD_UNITS = (1, 2, 4, 8, 16, 32, 64, 128)  # unit tiles the kernels take
 BWD_MAX_PAIRS = 8  # (row, unit) carries a thread keeps in registers
+MAX_CARRIES = BWD_THREADS * BWD_MAX_PAIRS  # B x units of one launch
 MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
+
+
+class FwdPlan(NamedTuple):
+    """Launch plan of the forward kernels #1 and #3 (``fwd_plan``)."""
+
+    units: int  # hidden units per block, of one direction, for every batch row
+    blocks: int  # blocks of a launch, all directions
+    resident: bool  # the block's slice of Wh held in shared memory
+    rows: int  # batch rows per staged chunk of the gate product
+    smem_bytes: int  # dynamic shared memory per block
+    resident_bytes: int  # of which the Wh slice (0 when streamed)
+    hbuf_floats: int  # the h exchange of a launch: [2, dirs, chunk_rows, H]
+    chunks: int  # launches per call: the batch split to fit the register carries
+    chunk_rows: int  # batch rows of every launch but the last
 
 
 class BwdPlan(NamedTuple):
     """Launch plan of the backward kernels #2 and #4 (``bwd_plan``)."""
 
     units: int  # hidden units per block, of one direction, for every batch row
-    blocks: int  # blocks of the launch, all directions
+    blocks: int  # blocks of a launch, all directions
     resident: bool  # the block's slice of Wh held in shared memory
     smem_bytes: int  # dynamic shared memory per block
     resident_bytes: int  # of which the Wh slice (0 when streamed)
-    part_floats: int  # scratch for the dh partials the blocks exchange
+    part_floats: int  # scratch for the dh partials of a launch of chunk_rows rows
+    chunks: int  # launches per call: the batch split to fit the register carries
+    chunk_rows: int  # batch rows of every launch but the last
+
+
+def _unit_tile(what: str, h: int, dirs: int, batch: int, sm_count: int) -> int:
+    """The smallest tile in ``BWD_UNITS`` that gives at most one block per SM.
+
+    Both walks are one cooperative launch of ``dirs * ceil(h / units)``
+    blocks that meet at a grid barrier every step, so all of them must be
+    resident.
+    """
+    if h <= 0 or batch <= 0 or dirs not in (1, 2) or sm_count <= 0:
+        raise ValueError(f"{what}: bad arguments h={h} dirs={dirs} batch={batch} "
+                         f"sm_count={sm_count}")
+    units = next((u for u in BWD_UNITS if dirs * -(-h // u) <= sm_count), None)
+    if units is None:
+        raise ValueError(f"{what}: H={h} needs more than {BWD_UNITS[-1]} units per block "
+                         f"for {dirs} direction(s) on {sm_count} SMs")
+    return units
+
+
+def _batch_chunks(batch: int, units: int) -> tuple[int, int]:
+    """(launches, rows of every launch but the last): as few launches as keep
+    each one's B x units within ``MAX_CARRIES``, their rows as even as can be.
+    The rows of a batch are independent, so each launch walks its own."""
+    rows = -(-batch // -(-batch * units // MAX_CARRIES))
+    return -(-batch // rows), rows
+
+
+def _resident_or_streamed(smem_floats) -> tuple[bool, int, int]:
+    """(resident, all, Wh slice) floats: the slice resident when it fits."""
+    floats, wh = smem_floats(True)
+    if floats * 4 <= MAX_SMEM:
+        return True, floats, wh
+    return (False, *smem_floats(False))
+
+
+def _fwd_smem_floats(h: int, units: int, rows: int, resident: bool) -> tuple[int, int]:
+    """(all, Wh slice) floats of one forward block's shared memory: ``fwd_layout``."""
+    hp, nb = -(-h // 4) * 4, 4 * units
+    wh = hp * (nb + 4) if resident else 0
+    return wh + 2 * rows * BWD_STAGE_ROW + BWD_THREADS * 16 + rows * nb, wh
+
+
+def fwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> FwdPlan:
+    """Unit tile, grid, row chunk and shared memory of one forward call.
+
+    The tile is ``bwd_plan``'s. The gate product stages the fewest rows in
+    ``FWD_ROWS`` that hold a launch's batch (32 past it), so that a serving
+    batch of 8 leaves no row tile idle. Past ``MAX_CARRIES`` the call is
+    split into ``chunks`` launches over contiguous rows.
+    """
+    units = _unit_tile("fwd_plan", h, dirs, batch, sm_count)
+    chunks, chunk_rows = _batch_chunks(batch, units)
+    rows = next((r for r in FWD_ROWS if r >= chunk_rows), FWD_ROWS[-1])
+    resident, floats, wh = _resident_or_streamed(
+        lambda res: _fwd_smem_floats(h, units, rows, res))
+    return FwdPlan(units, dirs * -(-h // units), resident, rows, floats * 4, wh * 4,
+                   2 * dirs * chunk_rows * h, chunks, chunk_rows)
 
 
 def _bwd_smem_floats(h: int, units: int, resident: bool) -> tuple[int, int]:
@@ -202,31 +279,28 @@ def bwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> BwdPlan:
     one block per SM. The block keeps its slice of ``Wh`` (the columns of
     its units' four gates) in shared memory when it fits ``MAX_SMEM``, and
     otherwise reads it through L2. The blocks exchange their shares of dh
-    through ``part_floats`` of scratch.
+    through ``part_floats`` of scratch. Past ``MAX_CARRIES`` the call is
+    split into ``chunks`` launches over contiguous rows.
     """
-    if h <= 0 or batch <= 0 or dirs not in (1, 2) or sm_count <= 0:
-        raise ValueError(f"bwd_plan: bad arguments h={h} dirs={dirs} batch={batch} "
-                         f"sm_count={sm_count}")
-    units = next((u for u in BWD_UNITS if dirs * -(-h // u) <= sm_count), None)
-    if units is None:
-        raise ValueError(f"bwd_plan: H={h} needs more than {BWD_UNITS[-1]} units per block "
-                         f"for {dirs} direction(s) on {sm_count} SMs")
-    if batch * units > BWD_THREADS * BWD_MAX_PAIRS:
-        raise ValueError(f"bwd_plan: B={batch} x {units} units per block exceeds the "
-                         f"{BWD_THREADS * BWD_MAX_PAIRS} register carries of a block")
-    floats, wh = _bwd_smem_floats(h, units, True)
-    resident = floats * 4 <= MAX_SMEM
-    if not resident:
-        floats, wh = _bwd_smem_floats(h, units, False)
+    units = _unit_tile("bwd_plan", h, dirs, batch, sm_count)
+    chunks, chunk_rows = _batch_chunks(batch, units)
+    resident, floats, wh = _resident_or_streamed(lambda res: _bwd_smem_floats(h, units, res))
     per_dir = -(-h // units)
     # two steps x dirs x reader blocks x writer blocks x units x rows (to 32)
-    part = 2 * dirs * per_dir * per_dir * units * -(-batch // BWD_ROWS) * BWD_ROWS
-    return BwdPlan(units, dirs * per_dir, resident, floats * 4, wh * 4, part)
+    part = 2 * dirs * per_dir * per_dir * units * -(-chunk_rows // BWD_ROWS) * BWD_ROWS
+    return BwdPlan(units, dirs * per_dir, resident, floats * 4, wh * 4, part, chunks,
+                   chunk_rows)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> FwdPlan:
+    """``fwd_plan`` for the SMs of CUDA device ``dev``: the plan both forward
+    wrappers launch with."""
+    return fwd_plan(h, dirs, batch, _sm_count(dev.index or 0))
 
 
 def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> BwdPlan:
@@ -235,11 +309,48 @@ def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> BwdPlan:
     return bwd_plan(h, dirs, batch, _sm_count(dev.index or 0))
 
 
+def _rows(b0: int, b1: int, *tensors) -> tuple:
+    """Device pointers of rows [b0, b1) of batch-major tensors (None stays None)."""
+    return tuple(None if x is None else x[b0:b1].data_ptr() for x in tensors)
+
+
+def _walk(lib, what: str, plan_for, dev, dirs: int, batch: int, t: int, h: int,
+          forget_bias: float, pointers) -> None:
+    """One call of a walk kernel: the C entry ``what`` once per launch of
+    ``plan_for``'s plan, on the current stream.
+
+    A launch takes the rows [b0, b1) of the batch (all of them up to
+    ``MAX_CARRIES``) with the plan for its own rows, ``dirs`` zeroed barrier
+    counters of its own, and the exchange scratch (``hbuf`` or the dh
+    partials) that the launches share in stream order. ``pointers(b0, b1)``
+    gives the entry's tensor arguments before the counters. A refused
+    launch raises.
+    """
+    plan = plan_for(dev, h, dirs, batch)
+    fwd = isinstance(plan, FwdPlan)
+    sync = torch.zeros(plan.chunks * dirs, dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan.hbuf_floats if fwd else plan.part_floats, dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i, b0 in enumerate(range(0, batch, plan.chunk_rows)):
+            b1 = min(batch, b0 + plan.chunk_rows)
+            p = plan if plan.chunks == 1 else plan_for(dev, h, dirs, b1 - b0)
+            layout = ((p.hbuf_floats, b1 - b0, t, h, p.units, int(p.resident), p.rows)
+                      if fwd else (p.part_floats, b1 - b0, t, h, p.units, int(p.resident)))
+            code = getattr(lib, what)(*pointers(b0, b1), sync[i * dirs:].data_ptr(),
+                                      scratch.data_ptr(), *layout, p.smem_bytes,
+                                      float(forget_bias), stream)
+            build.check(lib, code, what)
+
+
 def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
                   with_cs: bool = False):
     """Kernel #1: ``(ys_f, ys_b)``, and ``(cs_f, cs_b)`` after them when ``with_cs``.
 
-    Launches are counted on ``lstm_bidi.launches``.
+    Launched with the plan ``fwd_plan_for`` gives this card; a launch whose
+    blocks cannot all be resident raises. Calls are counted on
+    ``lstm_bidi.launches``.
     """
     _check_inputs("lstm_bidi", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
                   mask=mask)
@@ -254,17 +365,9 @@ def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
     ys_b = torch.empty_like(ys_f)
     cs_f = torch.empty_like(ys_f) if with_cs else None
     cs_b = torch.empty_like(ys_f) if with_cs else None
-    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)  # h ping-pong
-    cbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_bidi_fwd(
-            xproj_f.data_ptr(), xproj_b.data_ptr(), wh_f.data_ptr(), wh_b.data_ptr(),
-            mask.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(),
-            cs_f.data_ptr() if with_cs else None, cs_b.data_ptr() if with_cs else None,
-            hbuf.data_ptr(), cbuf.data_ptr(), b, t, h, float(forget_bias), stream,
-        )
-    build.check(lib, code, "lstm_bidi_fwd")
+    _walk(lib, "lstm_bidi_fwd", fwd_plan_for, dev, 2, b, t, h, forget_bias,
+          lambda b0, b1: (*_rows(b0, b1, xproj_f, xproj_b), wh_f.data_ptr(), wh_b.data_ptr(),
+                          *_rows(b0, b1, mask, ys_f, ys_b, cs_f, cs_b)))
     lstm_bidi.launches += 1
     return (ys_f, ys_b, cs_f, cs_b) if with_cs else (ys_f, ys_b)
 
@@ -286,19 +389,11 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
     lib = build.load_library()
     b, t, g4 = xproj_f.shape
     h = g4 // 4
-    plan = bwd_plan_for(dev, h, 2, b)
     dx_f = torch.empty_like(xproj_f)
     dx_b = torch.empty_like(xproj_b)
-    sync = torch.zeros(2, dtype=torch.int32, device=dev)  # per-direction step barriers
-    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_bidi_bwd(
-            *(a.data_ptr() for a in args), dx_f.data_ptr(), dx_b.data_ptr(), sync.data_ptr(),
-            part.data_ptr(), plan.part_floats, b, t, h, plan.units, int(plan.resident),
-            plan.smem_bytes, float(forget_bias), stream,
-        )
-    build.check(lib, code, "lstm_bidi_bwd")
+    _walk(lib, "lstm_bidi_bwd", bwd_plan_for, dev, 2, b, t, h, forget_bias,
+          lambda b0, b1: (*_rows(b0, b1, xproj_f, xproj_b), wh_f.data_ptr(), wh_b.data_ptr(),
+                          *_rows(b0, b1, *args[4:], dx_f, dx_b)))
     lstm_bidi_bwd.launches += 1
     return dx_f, dx_b
 
@@ -353,7 +448,7 @@ lstm_bidi.launches = 0
 def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = False):
     """Kernel #3: ``ys``, or ``(ys, cs)`` when ``with_cs``.
 
-    Launches are counted on ``lstm_layer.launches``.
+    Launched as ``lstm_bidi_fwd``. Calls are counted on ``lstm_layer.launches``.
     """
     _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
     dev = _device_of("lstm_layer", xproj)
@@ -365,16 +460,8 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
     h = g4 // 4
     ys = torch.empty((b, t, h), dtype=torch.float32, device=dev)
     cs = torch.empty_like(ys) if with_cs else None
-    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)  # h ping-pong
-    cbuf = torch.zeros((b, h), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_layer_fwd(
-            xproj.data_ptr(), wh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
-            cs.data_ptr() if with_cs else None, hbuf.data_ptr(), cbuf.data_ptr(),
-            b, t, h, float(forget_bias), stream,
-        )
-    build.check(lib, code, "lstm_layer_fwd")
+    _walk(lib, "lstm_layer_fwd", fwd_plan_for, dev, 1, b, t, h, forget_bias,
+          lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(), *_rows(b0, b1, mask, ys, cs)))
     lstm_layer.launches += 1
     return (ys, cs) if with_cs else ys
 
@@ -392,18 +479,10 @@ def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     lib = build.load_library()
     b, t, g4 = xproj.shape
     h = g4 // 4
-    plan = bwd_plan_for(dev, h, 1, b)
     dx = torch.empty_like(xproj)
-    sync = torch.zeros(1, dtype=torch.int32, device=dev)  # the step barrier
-    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.lstm_layer_bwd(
-            *(a.data_ptr() for a in (xproj, wh, mask, ys, cs, gys)), dx.data_ptr(),
-            sync.data_ptr(), part.data_ptr(), plan.part_floats, b, t, h, plan.units,
-            int(plan.resident), plan.smem_bytes, float(forget_bias), stream,
-        )
-    build.check(lib, code, "lstm_layer_bwd")
+    _walk(lib, "lstm_layer_bwd", bwd_plan_for, dev, 1, b, t, h, forget_bias,
+          lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
+                          *_rows(b0, b1, mask, ys, cs, gys, dx)))
     lstm_layer_bwd.launches += 1
     return dx
 

@@ -50,6 +50,7 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops import lstm as lstm_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
     LSTMLayer,
     bwd_plan_for,
+    fwd_plan_for,
     lstm_bidi,
     lstm_bidi_bwd,
     lstm_bidi_bwd_plain,
@@ -230,6 +231,126 @@ def test_backward_entry_points_refuse_partials_of_another_size(dev):
     assert not dx.any() and not dx_b.any()  # nothing ran
 
 
+def _check_forward_kernels(dev, b, t, h, mask=None):
+    """#1 and #3, with and without ``cs``, against their plain versions (the
+    oracle also for a ``mask`` that is not a length mask); each kernel called
+    twice with ``cs``: equal bits, and the same ``ys`` bits without it."""
+    rng = np.random.RandomState(b + h)
+    lengths = ([t, 1] + [int(x) for x in rng.randint(1, t + 1, max(b - 2, 0))])[:b]
+    args = _inputs(dev, b, t, h, lengths, seed=b + h + 1)
+    if mask is not None:
+        args = (*args[:4], mask)
+    x, _, wh, _, m = args
+    before = (lstm_bidi.launches, lstm_layer.launches)
+    got, again, ys = (lstm_bidi_fwd(*args, 0.7, with_cs=cs) for cs in (True, True, False))
+    got1, again1 = (lstm_layer_fwd(x, wh, m, 0.5, with_cs=True) for _ in range(2))
+    ys1 = lstm_layer_fwd(x, wh, m, 0.5)
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_layer.launches) == (before[0] + 3, before[1] + 3)
+    want, want1 = lstm_bidi_fwd_plain(*args, 0.7), lstm_layer_fwd_plain(x, wh, m, 0.5)
+    for g, w in zip((*got, *got1), (*want, *want1)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert all(torch.equal(g, a) for g, a in zip((*got, *got1), (*again, *again1)))
+    assert all(torch.equal(y, g) for y, g in zip((*ys, ys1), (*got[:2], got1[0])))
+
+
+@pytest.mark.parametrize("b", [1, 8, 33, 64])
+@pytest.mark.parametrize("h", [256, 270, 320, 512])
+def test_forward_kernels_at_model_widths(dev, b, h):
+    """#1 and #3 at the configs' widths and H = 270 (a unit tile that leaves a
+    remainder): B = 1 and 8 stage 8 rows, B = 33 and 64 two chunks of 32;
+    lengths include 1 and T."""
+    for dirs in (1, 2):
+        assert fwd_plan_for(dev, h, dirs, b).resident
+    _check_forward_kernels(dev, b, 24, h)
+
+
+@pytest.mark.parametrize("b", [9, 40])
+def test_forward_kernels_with_wh_streamed(dev, b):
+    """At H = 1540 the Wh slice does not fit shared memory: read from L2."""
+    for dirs in (1, 2):
+        plan = fwd_plan_for(dev, 1540, dirs, b)
+        assert not plan.resident and 1540 % plan.units, plan
+    _check_forward_kernels(dev, b, 12, 1540)
+
+
+@pytest.mark.parametrize("h", [70, 512])
+def test_forward_kernels_under_a_mask_with_holes(dev, h):
+    """A mask that switches off and on again within a row: a masked step
+    carries h and c, the next real step starts from them."""
+    b, t = 6, 20
+    rng = np.random.RandomState(h)
+    mask = (rng.rand(b, t) < 0.6).astype(np.float32)
+    mask[0], mask[1, ::2], mask[1, 1::2] = 1.0, 1.0, 0.0
+    _check_forward_kernels(dev, b, t, h, torch.from_numpy(mask).to(dev))
+
+
+def test_forward_launch_that_cannot_be_resident_raises(dev, monkeypatch):
+    """Plans made as if the card had eight times its SMs (one unit a block,
+    1024 blocks a direction): the cooperative launch is refused, the wrapper
+    raises and counts nothing, and the next call runs."""
+    sms = lstm_ops._sm_count(dev.index or 0)
+    b, t, h = 4, 5, 1024
+    args = _inputs(dev, b, t, h, [5, 1, 3, 4], seed=8)
+    x, _, wh, _, mask = args
+    before = (lstm_bidi.launches, lstm_layer.launches)
+    with monkeypatch.context() as m:
+        m.setattr(lstm_ops, "_sm_count", lambda index: 8 * sms)
+        assert fwd_plan_for(dev, h, 1, b).blocks > 4 * sms
+        with pytest.raises(RuntimeError, match="lstm_bidi_fwd: CUDA error"):
+            lstm_bidi_fwd(*args, 1.0)
+        with pytest.raises(RuntimeError, match="lstm_layer_fwd: CUDA error"):
+            lstm_layer_fwd(x, wh, mask, 1.0)
+    assert (lstm_bidi.launches, lstm_layer.launches) == before
+    got = lstm_layer_fwd(x, wh, mask, 1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, lstm_layer_fwd_plain(x, wh, mask, 1.0)[0], **LSTM_TOL)
+
+
+def test_forward_entry_points_refuse_an_exchange_buffer_of_another_size(dev):
+    """The C entry points hold the h exchange against what the kernel indexes
+    at the call's B and H, and take 8 or 32 rows a chunk: a plan made for
+    another batch or width, or an odd row chunk, is refused
+    (cudaErrorInvalidValue) before anything runs."""
+    b, t, h = 40, 5, 512
+    xf, xb, whf, whb, mask = _inputs(dev, b, t, h, [t] * b, seed=9)
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ys, ys_b = torch.zeros((b, t, h), device=dev), torch.zeros((b, t, h), device=dev)
+    sync = torch.zeros(2, dtype=torch.int32, device=dev)
+    invalid_value = 1
+    good = fwd_plan_for(dev, h, 1, b)
+    for plan in (fwd_plan_for(dev, h, 1, 8), fwd_plan_for(dev, 256, 1, b), good._replace(rows=12)):
+        hbuf = torch.empty(plan.hbuf_floats, dtype=torch.float32, device=dev)
+        code = lib.lstm_layer_fwd(
+            xf.data_ptr(), whf.data_ptr(), mask.data_ptr(), ys.data_ptr(), None,
+            sync.data_ptr(), hbuf.data_ptr(), plan.hbuf_floats, b, t, h, plan.units,
+            int(plan.resident), plan.rows, plan.smem_bytes, 0.5, stream)
+        assert code == invalid_value, plan
+    plan = fwd_plan_for(dev, h, 2, b)
+    hbuf = torch.empty(plan.hbuf_floats - 1, dtype=torch.float32, device=dev)
+    code = lib.lstm_bidi_fwd(
+        *(a.data_ptr() for a in (xf, xb, whf, whb, mask, ys, ys_b)), None, None,
+        sync.data_ptr(), hbuf.data_ptr(), plan.hbuf_floats - 1, b, t, h, plan.units,
+        int(plan.resident), plan.rows, plan.smem_bytes, 1.0, stream)
+    assert code == invalid_value
+    torch.cuda.synchronize()
+    assert not ys.any() and not ys_b.any()  # nothing ran
+
+
+@pytest.mark.parametrize("b,t,h", [(300, 8, 512), (600, 4, 512), (80, 4, 1536)])
+def test_kernels_past_the_register_carries(dev, b, t, h):
+    """A batch past B x units = 2048 for #1/#2 (B = 300 and 600 at H = 512,
+    80 at H = 1536) and #3/#4 (B = 600 at H = 512) is split into launches
+    over contiguous rows; each wrapper call still counts once and gives the
+    plain versions' results."""
+    assert fwd_plan_for(dev, h, 2, b).chunks > 1 and bwd_plan_for(dev, h, 2, b).chunks > 1
+    assert fwd_plan_for(dev, h, 1, b).chunks == bwd_plan_for(dev, h, 1, b).chunks == (
+        2 if b == 600 else 1)
+    _check_forward_kernels(dev, b, t, h)
+    _check_backward_kernels(dev, b, t, h)
+
+
 @pytest.mark.parametrize("b,t,h,lengths", SHAPES)
 def test_layer_kernels_match_plain(dev, b, t, h, lengths):
     """#3 with and without ``cs``, and #4, against their plain versions."""
@@ -406,6 +527,32 @@ def test_location_attend_rejects_mixed_devices(dev):
     args[6] = args[6].cpu()
     with pytest.raises(ValueError, match="cpu"):
         location_attend(*args)
+
+
+def test_location_attend_raises_when_a_gradient_is_wanted(dev):
+    """The kernel has no backward: with grad enabled and an input that
+    requires grad the CUDA call raises instead of returning outputs with no
+    ``grad_fn``; under ``torch.no_grad()`` it runs; the plain version on the
+    CPU keeps its gradient."""
+    args = _attend_case(dev, 2, 9, 8, 8, 2, 3, [9, 4], seed=1)
+    args[2] = args[2].clone().requires_grad_(True)  # q = dec_state @ W_dec
+    before = location_attend.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        location_attend(*args)
+    assert location_attend.launches == before
+    with torch.no_grad():
+        ctx, align = location_attend(*args)
+        want = location_attend_plain(*args)
+    torch.cuda.synchronize()
+    assert location_attend.launches == before + 1 and ctx.grad_fn is None
+    torch.testing.assert_close(align, want[1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(ctx, want[0], atol=1e-4, rtol=0)
+    cpu = [a.detach().cpu() for a in args]
+    cpu[2].requires_grad_(True)
+    ctx_cpu, _ = location_attend(*cpu)
+    assert ctx_cpu.grad_fn is not None
+    ctx_cpu.sum().backward()
+    assert cpu[2].grad is not None and bool(torch.isfinite(cpu[2].grad).all())
 
 
 def test_attention_model_on_card_matches_cpu(dev):

@@ -2,7 +2,8 @@
 
 ``ops/lstm.bwd_plan`` lays out kernels #2 and #4 (one cooperative launch
 per call, at most one block per SM, each block's slice of ``Wh`` resident
-in shared memory where it fits); ``ops/build.SIGNATURES`` declares every C
+in shared memory where it fits, a batch past the register carries split
+into launches); ``ops/build.SIGNATURES`` declares every C
 entry point's arguments to ctypes, which passes a wrong count without
 complaint. Nothing is compiled and no card is needed.
 """
@@ -17,9 +18,11 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops import lstm
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
     BWD_MAX_PAIRS,
     BWD_THREADS,
+    MAX_CARRIES,
     MAX_SMEM,
     bwd_plan,
     bwd_plan_for,
+    fwd_plan,
 )
 
 H100_SMS = 132
@@ -94,12 +97,43 @@ def test_plan_for_a_larger_card_exceeds_this_one():
     assert plan.units == 1 and plan.blocks == 1024 > H100_SMS
 
 
-@pytest.mark.parametrize("kwargs", [dict(h=512, dirs=2, batch=BWD_THREADS * BWD_MAX_PAIRS),
+@pytest.mark.parametrize("kwargs", [dict(h=512, dirs=2, batch=0),
                                     dict(h=20000, dirs=2, batch=8),
                                     dict(h=512, dirs=3, batch=8)])
 def test_plan_refuses_what_the_kernel_does_not_take(kwargs):
     with pytest.raises(ValueError, match="bwd_plan"):
         bwd_plan(sm_count=H100_SMS, **kwargs)
+
+
+@pytest.mark.parametrize("plan_fn", [bwd_plan, fwd_plan])
+@pytest.mark.parametrize("h,dirs,batch,chunks", [
+    (512, 2, 300, 2),  # BLSTM-512: 8 units a block, 256 rows a launch
+    (512, 2, BWD_THREADS * BWD_MAX_PAIRS, 8),  # the batch the plan once refused
+    (512, 1, 600, 2),  # LSTM-512: 4 units, 512 rows
+    (1536, 2, 80, 2),  # BLSTM-1536: 32 units, 64 rows, Wh streamed
+    (1536, 1, 80, 1),  # LSTM-1536: 16 units, 128 rows
+    (512, 2, 256, 1),  # at the cap: one launch
+])
+def test_plan_splits_a_batch_past_the_register_carries(plan_fn, h, dirs, batch, chunks):
+    """Past B x units = 2048 the call becomes launches over contiguous rows:
+    every row in exactly one launch, each launch within the cap and planned
+    as one launch of its own rows."""
+    plan = plan_fn(h, dirs, batch, H100_SMS)
+    assert plan.chunks == chunks
+    starts = range(0, batch, plan.chunk_rows)
+    assert len(starts) == chunks
+    rows = [r for b0 in starts for r in range(b0, min(batch, b0 + plan.chunk_rows))]
+    assert rows == list(range(batch))
+    for b0 in starts:
+        n = min(batch, b0 + plan.chunk_rows) - b0
+        assert n * plan.units <= MAX_CARRIES == BWD_THREADS * BWD_MAX_PAIRS
+        one = plan_fn(h, dirs, n, H100_SMS)
+        assert (one.chunks, one.chunk_rows, one.units, one.blocks) == (1, n, plan.units,
+                                                                        plan.blocks)
+    # the launches take turns with one scratch buffer, sized for the largest
+    scratch = "part_floats" if plan_fn is bwd_plan else "hbuf_floats"
+    assert getattr(plan, scratch) == getattr(plan_fn(h, dirs, plan.chunk_rows, H100_SMS),
+                                             scratch)
 
 
 def _extern_c_functions() -> dict:
@@ -126,7 +160,11 @@ def test_signatures_match_the_c_entry_points():
     for name, argtypes in build.SIGNATURES.items():
         assert name in defined, name
         assert [kind[a] for a in argtypes] == defined[name], name
-    # the plan reaches both backward entry points: part, part_floats, B, T, H,
-    # units, resident, smem_bytes, forget_bias, stream
+    # the plan reaches both backward entry points: sync, part, part_floats, B,
+    # T, H, units, resident, smem_bytes, forget_bias, stream
     for name in ("lstm_bidi_bwd", "lstm_layer_bwd"):
-        assert defined[name][-10:] == ["p"] + ["i"] * 7 + ["f", "p"], name
+        assert defined[name][-11:] == ["p", "p"] + ["i"] * 7 + ["f", "p"], name
+    # and both forward entry points: sync, hbuf, hbuf_floats, B, T, H, units,
+    # resident, rows, smem_bytes, forget_bias, stream
+    for name, streams in (("lstm_bidi_fwd", 9), ("lstm_layer_fwd", 5)):
+        assert defined[name] == ["p"] * streams + ["p", "p"] + ["i"] * 8 + ["f", "p"], name
