@@ -40,9 +40,14 @@ Phases; any failure exits non-zero and prints no result line:
    after): finite losses, no skipped step, the dev eval on the loss-only
    kernel, checkpoints and summary written;
 10. attention kernel: ``location_attend`` (#7) against its plain version at
-    the ls960_joint decoder's shapes, N=8 (greedy) and N=64 (beam 8 x 8),
-    T=300, A=256, He=1024, C=10, W=101, lengths that include 1, T and 0,
-    plus a small case with an even W and sharpening 1.5;
+    the ls960_joint decoder's shapes (T=300, A=256, He=1024, C=10, W=101,
+    utterance lengths that include 1, T and 0, the bias b added in the
+    kernel): the beam's grouped call (N=64 rows reading 8 utterances,
+    G=8), the same data in the tiled layout (keys + b formed outside, each
+    utterance repeated 8 times, G=1; equal bits), and the greedy call
+    (N=8, G=1), each timed from graph replays beside its bound with the
+    profiler's split between the two kernels, plus a small case with an
+    even W and sharpening 1.5;
 11. ``lstm_bidi`` forward at the pyramidal encoder's first layer, B=8,
     T=1198, D=120 -> H=512, ragged lengths (plan, us per step, bitwise
     repeat);
@@ -54,7 +59,9 @@ Phases; any failure exits non-zero and prints no result line:
     the card against the CPU (plain path);
 13. time the attention serving phases on 8 x 12 s (frontend, encoder,
     greedy decode, beam-8 decode, each with its steps and #7 launches) with
-    a profile of each decode's device time, and serve 8 concurrent
+    a profile of each decode's device time and its device memory, check
+    that no operator of the beam decode takes a tensor repeated per beam
+    ([64, 300, 256] keys or [64, 300, 1024] encoder outputs), and serve 8 concurrent
     ``/recognize`` requests through ``bin/serve.make_server(...,
     beam_width=8)`` (the attention serving path; launch counts reset just
     before and read just after);
@@ -101,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import http.client
 import json
 import subprocess
@@ -281,11 +289,19 @@ def plain_kernel_ms(plain, kernel, reps_plain: int, reps_kernel: int) -> dict:
     return {"ms": sum(k) / 2, "plain_ms": sum(p) / 2, "ms_runs": k, "plain_ms_runs": p}
 
 
+@functools.lru_cache(maxsize=None)
+def side_stream() -> torch.cuda.Stream:
+    """The one stream that warms up every captured call: each new stream that
+    runs a cuBLAS call gets a workspace that stays allocated for the process
+    (and so in the peak memory of every later phase)."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` from CUDA events around one replay of a CUDA
     graph that holds ``reps`` calls: no host enqueue between the kernels, for
     calls shorter than their Python wrapper."""
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm: library, allocator
@@ -851,16 +867,19 @@ def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
     return counts
 
 
-def attend_inputs(dev, n: int, lengths, seed: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C,
-                  w=ATT_W):
-    """One decoder step's read at the given shape: alignments from a softmax,
-    weights uniform in +-0.1 as the model draws them."""
+def attend_inputs(dev, n_utt: int, lengths, seed: int, group: int = 1, t=ATT_T, a=ATT_A,
+                  he=ATT_HE, c=ATT_C, w=ATT_W):
+    """One decoder step's read at the given shape for ``n_utt`` utterances of
+    ``group`` rows each: keys, enc_out and mask per utterance, q and prev per
+    row, alignments from a softmax, weights uniform in +-0.1 as the model
+    draws them. Returns (the positional arguments, b)."""
     rng = np.random.RandomState(seed)
+    n = n_utt * group
     logits = rng.randn(n, t).astype(np.float32)
     prev = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
     arrays = [
-        rng.randn(n, t, a).astype(np.float32) * 0.5,  # keys_in = enc @ W_enc + b
-        rng.randn(n, t, he).astype(np.float32) * 0.3,  # enc_out
+        rng.randn(n_utt, t, a).astype(np.float32) * 0.5,  # keys = enc @ W_enc
+        rng.randn(n_utt, t, he).astype(np.float32) * 0.3,  # enc_out
         rng.randn(n, a).astype(np.float32) * 0.5,  # q = dec_state @ W_dec
         prev.astype(np.float32),
         np.arange(t)[None, :] < np.asarray(lengths)[:, None],  # enc_mask
@@ -868,66 +887,124 @@ def attend_inputs(dev, n: int, lengths, seed: int, t=ATT_T, a=ATT_A, he=ATT_HE, 
         ((rng.rand(c, a) - 0.5) * 0.2).astype(np.float32),  # w_loc
         ((rng.rand(a) - 0.5) * 0.2).astype(np.float32),  # v
     ]
-    return [torch.from_numpy(x).to(dev) for x in arrays]
+    b = torch.from_numpy(((rng.rand(a) - 0.5) * 0.2).astype(np.float32)).to(dev)
+    return [torch.from_numpy(x).to(dev) for x in arrays], b
 
 
-def attend_work(lengths, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT_W) -> dict:
-    """Bytes and float32 operations one read needs on these inputs: keys and
-    enc rows of the valid frames (every frame of a row with none: its
-    weights are 1/T), prev, mask, q and the shared weights in; align and ctx
-    out. Masked frames need no keys or enc row (their weight is 0)."""
+def tiled_attend_inputs(args, b, group: int) -> list:
+    """The layout before grouped reads: keys + b formed outside the kernel
+    and each utterance's keys, enc_out and mask repeated ``group`` times."""
+    keys, enc, q, prev, mask = args[:5]
+    return [(keys + b).repeat_interleave(group, dim=0), enc.repeat_interleave(group, dim=0), q,
+            prev, mask.repeat_interleave(group, dim=0), *args[5:]]
+
+
+def attend_work(lengths, group: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT_W,
+                with_b: bool = True) -> dict:
+    """Bytes and float32 operations one read needs on these inputs, for
+    ``group`` rows per utterance of ``lengths``: per utterance the keys of its
+    valid frames, the enc rows of its valid frames (every frame when it has
+    none: its weights are 1/T) and its mask, once; per row prev and q in,
+    align and ctx out; the shared weights (and b) once. Masked frames need no
+    keys or enc row (their weight is 0)."""
     moved = ops = 0.0
     for length in lengths:
         frames = length if length > 0 else t
-        moved += frames * (a + he) * F32 + t * (F32 + 1) + a * F32 + (t + he) * F32
-        # per valid frame: conv taps, location projection, score (add, add,
-        # tanh, multiply-add), context; per frame: softmax
-        ops += (length * (2 * w * c + 2 * c * a + 6 * a) + frames * 2 * he + 5 * t)
-    moved += (w * c + c * a + a) * F32
+        moved += length * a * F32 + frames * he * F32 + t
+        moved += group * ((t + a) * F32 + (t + he) * F32)
+        # per row and valid frame: conv taps, location projection, score (add,
+        # add, add, tanh, multiply-add), context; per row and frame: softmax
+        ops += group * (length * (2 * w * c + 2 * c * a + 6 * a) + frames * 2 * he + 5 * t)
+    moved += (w * c + c * a + a + (a if with_b else 0)) * F32
     return bound(moved, ops)
 
 
+def kernel_split(fn, reps: int = 20) -> dict:
+    """Device µs per call of each kernel ``fn`` launches, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[1].split("::")[-1]: e.self_device_time_total / e.count
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def check_attention_kernel(dev, gpu: str) -> dict:
-    """Kernel #7 against its plain version at the ls960_joint decoder's shapes."""
-    small = attend_inputs(dev, 3, [37, 5, 1], seed=9, t=37, a=16, he=12, c=4, w=10)
-    got = attention.location_attend(*small, 1.5)
-    want = attention.location_attend_plain(*small, 1.5)
+    """Kernel #7 against its plain version at the ls960_joint decoder's shapes:
+    the beam's grouped call, the same data in the tiled layout, and the greedy call."""
+    small, small_b = attend_inputs(dev, 3, [37, 5, 1], seed=9, t=37, a=16, he=12, c=4, w=10)
+    got = attention.location_attend(*small, 1.5, b=small_b)
+    want = attention.location_attend_plain(*small, 1.5, b=small_b)
     torch.cuda.synchronize()
     check("location_attend N=3 T=37 A=16 He=12 C=4 W=10 (even), sharpening 1.5: align",
           got[1:], want[1:], ATT_ALIGN_ATOL)
     check("location_attend small: ctx", got[:1], want[:1], ATT_CTX_ATOL)
+    rng = np.random.RandomState(11)
+    lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, B_ATT - 3)]
+    beam_args, beam_b = attend_inputs(dev, B_ATT, lengths, seed=11, group=BEAM)
+    rng = np.random.RandomState(10)
+    greedy_lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, B_ATT - 3)]
+    greedy_args, greedy_b = attend_inputs(dev, B_ATT, greedy_lengths, seed=10)
+    # the beam's call now (8 utterances x 8 rows, each utterance read once),
+    # the same data tiled as before this layout, and the greedy call
+    calls = {
+        "grouped": (beam_args, dict(b=beam_b, group=BEAM), lengths, BEAM, True),
+        "tiled": (tiled_attend_inputs(beam_args, beam_b, BEAM), {},
+                  [x for x in lengths for _ in range(BEAM)], 1, False),
+        "n8": (greedy_args, dict(b=greedy_b), greedy_lengths, 1, True),
+    }
     out = {}
-    for n, seed in ((B_ATT, 10), (B_ATT * BEAM, 11)):
-        rng = np.random.RandomState(seed)
-        lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, n - 3)]
-        args = attend_inputs(dev, n, lengths, seed)
-        got = attention.location_attend(*args, 1.0)
-        want = attention.location_attend_plain(*args, 1.0)
+    for name, (args, kw, lens, group, with_b) in calls.items():
+        n = args[2].shape[0]
+        got = attention.location_attend(*args, 1.0, **kw)
+        want = attention.location_attend_plain(*args, 1.0, **kw)
         torch.cuda.synchronize()
-        shape = f"N={n} T={ATT_T} A={ATT_A} He={ATT_HE} C={ATT_C} W={ATT_W}"
-        err = max(check(f"location_attend {shape}: align", got[1:], want[1:], ATT_ALIGN_ATOL),
-                  check(f"location_attend {shape}: ctx", got[:1], want[:1], ATT_CTX_ATOL))
-        if not torch.allclose(got[1][2], torch.full((ATT_T,), 1.0 / ATT_T, device=dev)):
-            raise RuntimeError("location_attend: the length-0 row is not 1/T")
-        plain = lambda: attention.location_attend_plain(*args, 1.0)  # noqa: E731
-        kernel = lambda: attention.location_attend(*args, 1.0)  # noqa: E731
+        shape = (f"N={n} (G={group}, {len(lens)} encoder rows) T={ATT_T} A={ATT_A} He={ATT_HE} "
+                 f"C={ATT_C} W={ATT_W}")
+        err = max(check(f"location_attend {name} {shape}: align", got[1:], want[1:],
+                        ATT_ALIGN_ATOL),
+                  check(f"location_attend {name} {shape}: ctx", got[:1], want[:1], ATT_CTX_ATOL))
+        for row, length in enumerate(x for x in lens for _ in range(group)):
+            if length == 0 and not torch.allclose(got[1][row], torch.full((ATT_T,), 1.0 / ATT_T,
+                                                                           device=dev)):
+                raise RuntimeError(f"location_attend {name}: the length-0 row {row} is not 1/T")
+        again = attention.location_attend(*args, 1.0, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            raise RuntimeError(f"location_attend {name}: two calls differ")
+        if name == "tiled" and not (torch.equal(got[0], out["grouped"]["ctx"])
+                                    and torch.equal(got[1], out["grouped"]["align"])):
+            raise RuntimeError("location_attend: the tiled call's bits differ from the grouped")
+        plain = lambda: attention.location_attend_plain(*args, 1.0, **kw)  # noqa: E731
+        kernel = lambda: attention.location_attend(*args, 1.0, **kw)  # noqa: E731
         # device time from graph replays (plain, kernel, kernel, plain); the
         # eager calls' time also holds the wrapper's host work
         p = [graph_ms(plain, 50)]
         k = [graph_ms(kernel, 50) for _ in range(2)]
         p.append(graph_ms(plain, 50))
         eager = cuda_ms(kernel, 200)
-        r = out[n] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, ms_runs=k, plain_ms_runs=p,
-                          eager_ms=eager, max_abs_err=err, library_ms=None,
-                          **attend_work(lengths))
-        print(f"phase location_attend {shape}: kernel {r['ms'] * 1e3:.2f} us (runs "
-              f"{k[0] * 1e3:.2f}, {k[1] * 1e3:.2f}; graph replay), eager call {eager * 1e3:.2f} "
-              f"us, plain {r['plain_ms'] * 1e3:.2f} us (runs {p[0] * 1e3:.2f}, "
-              f"{p[1] * 1e3:.2f}), bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), no "
-              f"single library call, max abs err {err:.3e}  [{gpu}]", flush=True)
-    res = out[B_ATT * BEAM]
-    res["n8"] = {k: out[B_ATT][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
-                                           "max_abs_err")}
+        split = kernel_split(kernel)
+        r = out[name] = dict(ms=sum(k) / 2, plain_ms=sum(p) / 2, ms_runs=k, plain_ms_runs=p,
+                             eager_ms=eager, max_abs_err=err, library_ms=None,
+                             deterministic=True, split_us=split, ctx=got[0], align=got[1],
+                             **attend_work(lens, group, with_b=with_b))
+        print(f"phase location_attend {name} {shape}: kernel {r['ms'] * 1e3:.2f} us (runs "
+              f"{k[0] * 1e3:.2f}, {k[1] * 1e3:.2f}; graph replay; "
+              + ", ".join(f"{key} {us:.2f} us" for key, us in split.items())
+              + f"), eager call {eager * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us (runs "
+              f"{p[0] * 1e3:.2f}, {p[1] * 1e3:.2f}), bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}), no single library call, max abs err {err:.3e}, two calls "
+              f"bitwise equal  [{gpu}]", flush=True)
+    print(f"location_attend: the grouped beam call takes {out['grouped']['ms'] * 1e3:.2f} us, "
+          f"the tiled one {out['tiled']['ms'] * 1e3:.2f} us "
+          f"({out['tiled']['ms'] / out['grouped']['ms']:.2f}x; equal bits)  [{gpu}]", flush=True)
+    res = out["grouped"]
+    for name in ("n8", "tiled"):
+        res[name] = {k: out[name][k] for k in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "max_abs_err", "split_us")}
     return res
 
 
@@ -1080,11 +1157,37 @@ def time_att_phases(task, model, dev, gpu: str) -> None:
                   f"  [{gpu}]", flush=True)
         for name, fn in decodes.items():
             wall, busy, kernels = device_busy(fn)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
             print(f"profile of one ls960_joint {name}: {wall:.3f} ms wall (profiled), "
-                  f"{busy:.3f} ms of device kernel time ({100 * busy / wall:.1f} % busy); top "
-                  "kernels by device time:", flush=True)
+                  f"{busy:.3f} ms of device kernel time ({100 * busy / wall:.1f} % busy), "
+                  f"{peak:.1f} MiB of device memory above the encoder outputs; top kernels by "
+                  "device time:", flush=True)
             for key, t, n in kernels[:6]:
                 print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
+        # the beam reads each utterance once: no operator of its decode takes
+        # a tensor of the encoder output or keys repeated per beam
+        tiled = [[B_ATT * BEAM, ATT_T, ATT_A], [B_ATT * BEAM, ATT_T, ATT_HE]]
+        found = ops_on_shapes(decodes[f"beam-{BEAM} decode"], tiled)
+        print(f"beam-{BEAM} decode: operators on a {tiled[0]} or {tiled[1]} tensor: {found}",
+              flush=True)
+        if found:
+            raise RuntimeError(f"the beam decode still works on per-beam copies: {found}")
+
+
+def ops_on_shapes(fn, shapes) -> list:
+    """The operators of one call of ``fn`` that take a tensor of one of
+    ``shapes`` (the profiler's record of CPU-side operator inputs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages(group_by_input_shape=True)
+                   if any(list(x) in shapes for x in e.input_shapes)})
 
 
 def serve_att_requests(task, model, gpu: str) -> dict:
@@ -1401,7 +1504,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
         if name == "location_attend":
-            entries[-1]["n8"] = r["n8"]
+            entries[-1].update(group=BEAM, split_us=r["split_us"], n8=r["n8"], tiled=r["tiled"])
         if name in ("lstm_bidi_fwd", "lstm_layer_fwd"):
             shapes = {"serving": serving_fwd if name == "lstm_bidi_fwd" else r["serving"]}
             if name == "lstm_bidi_fwd":

@@ -1,174 +1,354 @@
-// One location-aware (hybrid) attention read, for Hopper (sm_90a), float32.
+// One location-aware (hybrid) attention read, for Hopper (sm_90a), float32,
+// for N rows that come in groups of G rows per utterance (the beam's W
+// rows of one utterance share its encoder output; greedy decoding has G = 1).
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/attention_kernel.py
 // _attention_kernel (called by location_attend_pallas / location_attend_fused)
-// and computes what _reference_math there computes, per row n:
+// and computes what _reference_math there computes on inputs tiled G times
+// (keys_in = keys + b), per row n of utterance u = n / G:
 //
-//   f[t, c]   = sum_k prev[t + k - (W-1)/2] * conv[k, c]  (SAME, zero outside [0, T))
-//   pre[t, a] = (keys[t, a] + sum_c f[t, c] * w_loc[c, a]) + q[a]
-//   e[t]      = (sum_a tanh(pre[t, a]) * v[a]) * sharpening + (mask[t] ? 0 : -1e30)
+//   f[t, c]   = sum_k prev[n, t + k - (W-1)/2] * conv[k, c]  (SAME, zero outside [0, T))
+//   pre[t, a] = ((keys[u, t, a] + b[a]) + sum_c f[t, c] * w_loc[c, a]) + q[n, a]
+//   e[t]      = (sum_a tanh(pre[t, a]) * v[a]) * sharpening + (mask[u, t] ? 0 : -1e30)
 //   align     = softmax_t(e)
-//   ctx[h]    = sum_t align[t] * enc[t, h]
+//   ctx[h]    = sum_t align[t] * enc[u, t, h]
 //
-// The left offset is (W-1)/2 for an even W too, as XLA pads a SAME conv.
-// A row with no valid frame gets align = 1/T (every e is -1e30).
+// keys may be null (a pure location scorer, whose keys_in is b broadcast)
+// and b may be null (keys already hold it). The left offset is (W-1)/2 for
+// an even W too, as XLA pads a SAME conv. A row with no valid frame gets
+// align = 1/T (every e is -1e30).
 //
-// What bounds it. Per row it must read keys [T, A] and enc [T, He] once:
-// at T = 300, A = 256, He = 1024 that is 1.5 MB a row against about 3 MFLOP,
-// so bytes bound it (N = 64 rows: 99 MB, 29.5 us at 3.35 TB/s). The conv
-// taps, w_loc, v and q are a few KB shared by every frame and stay in L1/L2.
-// To come near that rate the card needs many loads in flight: one block per
-// row (the first design of this file) kept 8 SMs busy at N = 8 and ran at
-// 1 % of the bound, latency-bound on its serial loads.
+// What bounds it. The beam's call at ls960_joint widths (N = 64 rows, G = 8,
+// so U = 8 utterances; T = 300, A = 256, He = 1024, C = 10, W = 101) needs
+// each utterance's keys [T, A] and enc [T, He] once: 12.3 MB at full
+// length, 3.7 us at 3.35 TB/s, and small enough to stay in the 50 MB L2
+// over a decode's 120 calls; its arithmetic is about 200 MFLOP (3 us at
+// 67 TFLOP/s). Neither sets the pace. An accurate tanhf and the C-term
+// location product take some 32 instructions per (row, frame, unit), so the
+// energies are bound by instruction issue, and each block's staging and
+// location features are latency it must hide. Inputs tiled W times would
+// move 98 MB per call, more than L2 holds.
 //
 // Design: two launches on the stream, no T cap, no padding, no atomics.
-// 1. location_energies, grid (N, ceil(T / 16)): a block of 256 threads
-//    takes 16 frames. It stages the prev window they need (16 + W - 1
-//    values) and, when they fit in shared memory, the conv taps, w_loc, v
-//    and q. A thread per (frame, channel) sums the W taps in order into the
-//    location features. Then a thread per attention unit a loads keys[t, a]
-//    of the 16 frames at once (16 coalesced row reads in flight), adds the
-//    location term and q, and keeps tanh(pre) * v per frame; warp shuffles
-//    and then the 8 warps in order sum each frame's partials into e[t],
-//    written to a [N, T] scratch. A masked frame's e is -1e30 whatever its
-//    score (-1e30 + |e| rounds to -1e30 in float32 for |e| < 3.8e22), so its
-//    keys are not read. (Earlier designs of this pass, a block per row and
-//    then a warp per frame with the lanes splitting taps and units, ran at
-//    286 and 25 us at N = 8: latency-bound on serial loads and shuffles.)
-// 2. location_context, grid (N, ceil(He / (32 * kVec))): every block of a
-//    row takes the row's max and sum of exp over T (block reductions in a
-//    fixed order), then walks T in chunks of 1024 frames: align for the
-//    chunk goes to shared memory (and, from the row's first block, to the
-//    output), and warp w accumulates frames t = w (mod 8) of the chunk over
-//    its lanes' kVec columns of enc (16-byte loads when He % 4 == 0 and enc
-//    and ctx are 16-byte aligned). It reads masked frames too (their weight
-//    is 0, as in the plain version's product), so that no branch stands
-//    between the loads. The 8 warps' partial sums are added in order.
-// Every sum has a fixed order: the result is deterministic.
+// 1. location_energies<kC4>, grid (U, ceil(T / kFrames), ceil(G / rows)):
+//    a block of 256 threads takes kFrames frames of one utterance for up to
+//    kMaxRows of its rows (fewer only when shared memory caps them; small
+//    blocks, several per SM, balance the SMs and overlap one block's
+//    staging with another's scores). It issues asynchronous copies
+//    (cp.async) of each row's prev window and q and of the conv taps, reads
+//    which frames are valid meanwhile, then copies each thread's column of
+//    keys for the valid frames. A group of kTapLanes lanes per (row, frame)
+//    sums the W taps into the location features (a fixed split, whatever
+//    G). Then a thread per attention unit a keeps its w_loc column (C <= 16:
+//    kC4 float4s) and v[a] in registers and walks kChunk frames at a time:
+//    keys + b in registers once for all the rows, and for each row
+//    tanh(pre) * v per frame, added over the warp by a reduce-scatter
+//    (kChunk - 1 + log2(32 / kChunk) shuffles for kChunk sums; lane l ends
+//    with frame l / (32 / kChunk)); the 8 warps' sums are added in order
+//    into e[n, t], a [N, T] scratch. Every frame of a block is scored, with
+//    no branch between frames; a masked frame's e is then set to -1e30
+//    whatever its score (-1e30 + |e| rounds to -1e30 in float32 for
+//    |e| < 3.8e22), its keys are not read, and a block with no valid frame
+//    only writes -1e30.
+// 2. location_context<kVec>, grid (U, ceil(He / 32), ceil(G / 8)), launched
+//    as a programmatic dependent of the energies: its blocks may start
+//    while the energies run, find the utterance's last valid frame (past it
+//    every weight is exactly 0) and copy their 32 columns of enc for the
+//    frames before it into shared memory (T <= 512), and only then wait for
+//    the energies (griddepcontrol.wait). A warp per row stages the row's e,
+//    takes its max and sum of exp (lanes strided, then a butterfly) and
+//    turns it into weights in place; the first column block writes align.
+//    Each enc[t, cols] then feeds the contexts of all the block's rows: G
+//    FMAs per 16-byte read (4 bytes when He % 4 != 0 or enc or ctx is not
+//    16-byte aligned). The frames are split over the block's 32 (8) frame
+//    slices, whose sums are added by shuffles and then over the 8 warps, in
+//    order. Longer T reads enc from global memory in chunks of 512 frames.
+// Every sum has a fixed order, the same for any G: the result is
+// deterministic, and a row's bits do not depend on its group.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
 constexpr float kNeg = -1e30f;
+constexpr float kMinF = -3.402823466e38f;  // the lowest float
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kFrames = 16;   // frames per energies block
-constexpr int kTChunk = 1024; // frames of align staged at once by the context blocks
+constexpr int kFrames = 8;    // frames per energies block
+constexpr int kMaxC = 16;     // channels a thread holds in registers
+constexpr int kMaxRows = 4;   // rows per energies block
+constexpr int kMinBlocks = 3;  // energies blocks an SM must hold at once
+constexpr int kChunk = 8;     // frames a thread scores at once (registers)
+static_assert(kFrames % kChunk == 0 && kFrames <= 32);
+constexpr int kTapLanes = kThreads / (kFrames * kMaxRows);  // lanes per location feature
+static_assert(kTapLanes >= 1 && kTapLanes <= 32 && (kTapLanes & (kTapLanes - 1)) == 0);
+constexpr int kRows = 8;      // rows per context block (its accumulators)
+constexpr int kCols = 32;     // columns of enc per context block
+constexpr int kTChunk = 512;  // frames of align staged at once by a context block
 constexpr int kMaxSmem = 232448 - 1024;  // bytes of shared memory a block may take
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  for (int off = 16; off > 0; off /= 2) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
 }
 
-// Block-wide max or sum; every thread gets the result. `red` holds kWarps floats.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  __syncthreads();  // red is reused by the next reduction
-  return r;
+// The warp's sums of v[0..kF): lane l returns the sum of v[l / (32 / kF)]
+// over the 32 lanes. Each round halves the values a lane holds: it keeps
+// one half, sends the other to the lane `off` away and adds what comes back,
+// so kF sums take kF - 1 + log2(32 / kF) shuffles instead of 5 kF.
+template <int kF, int kN = kF>
+__device__ __forceinline__ void scatter_rounds(float (&v)[kF], int lane) {
+  if constexpr (kN > 1) {
+    constexpr int off = 16 * kN / kF;
+    const bool upper = lane & off;
+#pragma unroll
+    for (int k = 0; k < kN / 2; ++k) {
+      const float send = upper ? v[k] : v[k + kN / 2];
+      const float keep = upper ? v[k + kN / 2] : v[k];
+      v[k] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+    scatter_rounds<kF, kN / 2>(v, lane);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-location_energies(const float* __restrict__ keys,          // [N, T, A]
+template <int kF>
+__device__ __forceinline__ float warp_sum_scatter(float (&v)[kF], int lane) {
+  static_assert(kF >= 1 && kF <= 32 && (kF & (kF - 1)) == 0, "kF: a power of 2 up to 32");
+  scatter_rounds<kF>(v, lane);
+#pragma unroll
+  for (int off = 16 / kF; off > 0; off /= 2) v[0] += __shfl_xor_sync(kFull, v[0], off);
+  return v[0];
+}
+
+// An asynchronous 4-byte copy from global to shared memory; `copy` false
+// writes 0 and reads nothing (src must still be a global address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool copy) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(copy ? 4 : 0)
+               : "memory");
+}
+
+// The same for 16 bytes (both addresses 16-byte aligned), through L2 only.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool copy) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(copy ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fma4(float x, const float4& w, float4& acc) {
+  acc.x = fmaf(x, w.x, acc.x);
+  acc.y = fmaf(x, w.y, acc.y);
+  acc.z = fmaf(x, w.z, acc.z);
+  acc.w = fmaf(x, w.w, acc.w);
+}
+
+__device__ __forceinline__ void add_lane(float& acc, int off) {
+  acc += __shfl_xor_sync(kFull, acc, off);
+}
+__device__ __forceinline__ void add_lane(float4& acc, int off) {
+  add_lane(acc.x, off);
+  add_lane(acc.y, off);
+  add_lane(acc.z, off);
+  add_lane(acc.w, off);
+}
+
+// kC4 > 0: C <= 4 kC4 channels, held as kC4 float4s in registers, with the
+// conv taps staged in shared memory; kC4 = 0: any C, taps and w_loc read
+// from global memory (L1) as needed.
+template <int kC4>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+location_energies(const float* __restrict__ keys,          // [U, T, A] or null
+                  const float* __restrict__ b,             // [A] or null
                   const float* __restrict__ q,             // [N, A]
                   const float* __restrict__ prev,          // [N, T]
-                  const unsigned char* __restrict__ mask,  // [N, T] bool
+                  const unsigned char* __restrict__ mask,  // [U, T] bool
                   const float* __restrict__ conv,          // [W, C]
                   const float* __restrict__ w_loc,         // [C, A]
                   const float* __restrict__ v,             // [A]
                   float* __restrict__ e,                   // [N, T]
-                  int T, int A, int C, int W, float sharpening, int staged) {
-  extern __shared__ float smem[];
-  float* win = smem;                     // [kFrames + W - 1]: prev[t0 - left ..]
-  float* f_s = win + kFrames + W - 1;    // [kFrames, C] location features
-  float* red = f_s + kFrames * C;        // [kFrames, kWarps] partial scores
-  int* on_s = reinterpret_cast<int*>(red + kFrames * kWarps);  // [kFrames] valid frame
-  // when staged, the weights every frame reads:
-  float* conv_s = reinterpret_cast<float*>(on_s + kFrames);  // [W * C]
-  float* wloc_s = conv_s + W * C;        // [C * A]
-  float* v_s = wloc_s + C * A;           // [A]
-  float* q_s = v_s + A;                  // [A]
-  const int n = blockIdx.x;
-  const int t0 = blockIdx.y * kFrames;
+                  int G, int chunk, int T, int A, int C, int W, float sharpening) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kRegs = kC4 > 0;
+  const int cp = kRegs ? 4 * kC4 : C;  // features per frame (zero-padded to 16 bytes)
+  const int span = kFrames + W - 1;    // prev window of the block's frames
+  float* f_s = smem;                            // [chunk, kFrames, cp] location features
+  float* keys_s = f_s + chunk * kFrames * cp;   // [kFrames, kThreads]: column tid is thread tid's
+  float* conv_s = keys_s + kFrames * kThreads;  // kRegs: [W, cp], zero-padded
+  float* q_s = conv_s + (kRegs ? W * cp : 0);   // [chunk, A]
+  float* red = q_s + chunk * A;                 // [chunk, kFrames, kWarps] partial scores
+  float* win = red + chunk * kFrames * kWarps;  // [chunk, span]: prev[n, t0 - left ..]
+  const int u = blockIdx.x, t0 = blockIdx.y * kFrames;
+  const int rows = min(chunk, G - (int)blockIdx.z * chunk);
+  const int n0 = u * G + blockIdx.z * chunk;  // the block's first row
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int items = rows * kFrames;  // (row, frame) pairs
+  // the context pass may start its own loads while this grid finishes
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // the valid frames (the same for every row of the utterance), loaded
+  // first so that their latency overlaps the copies below
+  bool valid[kFrames];
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) valid[i] = t0 + i < T && mask[(size_t)u * T + t0 + i];
+  // staging, as asynchronous copies: the prev windows, q and the taps now,
+  // the keys once the valid frames are known
   const int left = (W - 1) / 2;
-  const float* pn = prev + (size_t)n * T;
-  for (int i = tid; i < kFrames + W - 1; i += kThreads) {
-    const int s = t0 - left + i;
-    win[i] = (s >= 0 && s < T) ? pn[s] : 0.0f;
+  for (int i = tid; i < rows * span; i += kThreads) {
+    const int g = i / span, s = t0 - left + (i - g * span);
+    const bool in = s >= 0 && s < T;
+    cp_async4(win + i, prev + (size_t)(n0 + g) * T + (in ? s : 0), in);
   }
-  if (tid < kFrames) on_s[tid] = t0 + tid < T && mask[(size_t)n * T + t0 + tid];
-  const float* qg = q + (size_t)n * A;
-  if (staged) {
-    for (int i = tid; i < W * C; i += kThreads) conv_s[i] = __ldg(conv + i);
-    for (int i = tid; i < C * A; i += kThreads) wloc_s[i] = __ldg(w_loc + i);
-    for (int i = tid; i < A; i += kThreads) {
-      v_s[i] = __ldg(v + i);
-      q_s[i] = __ldg(qg + i);
+  for (int i = tid; i < rows * A; i += kThreads) cp_async4(q_s + i, q + (size_t)n0 * A + i, true);
+  if constexpr (kRegs) {
+    for (int i = tid; i < W * cp; i += kThreads) {
+      const int c = i % cp;
+      cp_async4(conv_s + i, conv + (i / cp) * C + (c < C ? c : 0), c < C);
     }
-    conv = conv_s;
-    w_loc = wloc_s;
-    v = v_s;
-    qg = q_s;
   }
-  __syncthreads();
-
-  // location features: a thread per (frame, channel), the W taps in order
-  for (int p = tid; p < kFrames * C; p += kThreads) {
-    const int i = p / C, c = p - i * C;
-    float f = 0.0f;
-    if (on_s[i])
-      for (int k = 0; k < W; ++k) f = fmaf(win[i + k], conv[k * C + c], f);
-    f_s[p] = f;
+  unsigned on = 0;  // bit i: frame t0 + i is valid
+#pragma unroll
+  for (int i = 0; i < kFrames; ++i) on |= (unsigned)valid[i] << i;
+  if (on == 0) {  // a masked frame's e is -1e30 whatever its score
+    cp_async_wait_all();
+    for (int p = tid; p < items; p += kThreads)
+      if (t0 + p % kFrames < T) e[(size_t)(n0 + p / kFrames) * T + t0 + p % kFrames] = kNeg;
+    return;
   }
-  __syncthreads();
-
-  // scores: a thread per attention unit a, over the block's frames
-  float part[kFrames];
-#pragma unroll
-  for (int i = 0; i < kFrames; ++i) part[i] = 0.0f;
-  const float* kb = keys + ((size_t)n * T + t0) * A;
-  for (int a = tid; a < A; a += kThreads) {
-    float kv[kFrames];
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) kv[i] = on_s[i] ? __ldg(kb + (size_t)i * A + a) : 0.0f;
-    const float qa = qg[a], va = v[a];
-#pragma unroll
+  // this thread's column of keys for the units a0 + tid: the valid frames'
+  // (0 for the others, and for every frame without keys)
+  auto stage_keys = [&](int a0) {
+    const int a = a0 + tid;
     for (int i = 0; i < kFrames; ++i) {
-      if (!on_s[i]) continue;
-      float loc = 0.0f;
-      for (int c = 0; c < C; ++c) loc = fmaf(f_s[i * C + c], w_loc[c * A + a], loc);
-      part[i] = fmaf(tanhf((kv[i] + loc) + qa), va, part[i]);
+      const bool copy = keys && a < A && (on >> i & 1);
+      cp_async4(keys_s + i * kThreads + tid,
+                copy ? keys + ((size_t)u * T + t0 + i) * A + a : q, copy);
+    }
+  };
+  stage_keys(0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // location features of each (row, frame): its W taps split over kTapLanes
+  // lanes, each lane's taps in order, then their sums by a butterfly (the
+  // same split whatever G, so a row's result does not depend on its group)
+  if constexpr (kRegs) {
+    constexpr int S = kTapLanes;
+    for (int base = 0; base < items; base += kThreads / S) {
+      const int p = base + tid / S, slice = tid % S, i = p % kFrames;
+      float4 f[kC4];
+#pragma unroll
+      for (int c4 = 0; c4 < kC4; ++c4) f[c4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < items && (on >> i & 1)) {
+        const float* wg = win + (p / kFrames) * span + i;
+#pragma unroll 4
+        for (int k = slice; k < W; k += S) {
+          const float x = wg[k];
+          const float4* ck = reinterpret_cast<const float4*>(conv_s + k * cp);
+#pragma unroll
+          for (int c4 = 0; c4 < kC4; ++c4) fma4(x, ck[c4], f[c4]);
+        }
+      }
+#pragma unroll
+      for (int off = S / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int c4 = 0; c4 < kC4; ++c4) add_lane(f[c4], off);
+      if (p < items && slice == 0)
+#pragma unroll
+        for (int c4 = 0; c4 < kC4; ++c4) reinterpret_cast<float4*>(f_s + p * cp)[c4] = f[c4];
+    }
+  } else {
+    for (int pc = tid; pc < items * C; pc += kThreads) {
+      const int p = pc / C, c = pc - p * C, i = p % kFrames;
+      float f = 0.0f;
+      if (on >> i & 1) {
+        const float* wg = win + (p / kFrames) * span + i;
+        for (int k = 0; k < W; ++k) f = fmaf(wg[k], __ldg(conv + k * C + c), f);
+      }
+      f_s[pc] = f;
     }
   }
+  __syncthreads();
+
+  // scores: a thread per attention unit a (one pass when A <= 256) with its
+  // w_loc column in registers; kChunk frames at a time, their keys + b in
+  // registers for all the rows. Every frame is scored (no branch between
+  // them); a masked one has keys and features 0 and its e is overwritten below
+  for (int a0 = 0; a0 < A; a0 += kThreads) {
+    if (a0 > 0) {
+      stage_keys(a0);  // only this thread reads its column
+      cp_async_wait_all();
+    }
+    const int a = a0 + tid;
+    const bool has_a = a < A;
+    const float ba = has_a && b ? __ldg(b + a) : 0.0f;
+    float4 wl[kRegs ? kC4 : 1];
+    if constexpr (kRegs) {
+      auto w = [&](int c) { return has_a && c < C ? __ldg(w_loc + c * A + a) : 0.0f; };
 #pragma unroll
-  for (int i = 0; i < kFrames; ++i) {
-    const float sum = warp_sum(part[i]);
-    if (lane == 0) red[i * kWarps + warp] = sum;
+      for (int c4 = 0; c4 < kC4; ++c4)
+        wl[c4] = make_float4(w(4 * c4), w(4 * c4 + 1), w(4 * c4 + 2), w(4 * c4 + 3));
+    }
+    const float va = has_a ? __ldg(v + a) : 0.0f;
+    for (int c0 = 0; c0 < kFrames; c0 += kChunk) {
+      float kv[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) kv[i] = keys_s[(c0 + i) * kThreads + tid] + ba;
+      for (int g = 0; g < rows; ++g) {
+        const float qa = has_a ? q_s[g * A + a] : 0.0f;
+        float part[kChunk];
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          const float* fr = f_s + (g * kFrames + c0 + i) * cp;
+          float loc = 0.0f;  // the padding's features and weights are 0
+          if constexpr (kRegs) {
+#pragma unroll
+            for (int c4 = 0; c4 < kC4; ++c4) {
+              const float4 x = reinterpret_cast<const float4*>(fr)[c4];
+              loc = fmaf(x.x, wl[c4].x, loc);
+              loc = fmaf(x.y, wl[c4].y, loc);
+              loc = fmaf(x.z, wl[c4].z, loc);
+              loc = fmaf(x.w, wl[c4].w, loc);
+            }
+          } else {
+            for (int c = 0; c < C; ++c)
+              loc = fmaf(fr[c], has_a ? __ldg(w_loc + c * A + a) : 0.0f, loc);
+          }
+          part[i] = tanhf((kv[i] + loc) + qa) * va;
+        }
+        const float s = warp_sum_scatter<kChunk>(part, lane);
+        if (lane % (32 / kChunk) == 0) {
+          float* r = red + (g * kFrames + c0 + lane / (32 / kChunk)) * kWarps + warp;
+          *r = a0 == 0 ? s : *r + s;
+        }
+      }
+    }
   }
   __syncthreads();
-  if (tid < kFrames && t0 + tid < T) {
-    float sum = red[tid * kWarps];
-    for (int w = 1; w < kWarps; ++w) sum += red[tid * kWarps + w];
+  for (int p = tid; p < items; p += kThreads) {
+    const int i = p % kFrames;
+    if (t0 + i >= T) continue;
+    float sum = red[p * kWarps];
+    for (int w = 1; w < kWarps; ++w) sum += red[p * kWarps + w];
     // a masked frame's e is -1e30 whatever its score
-    e[(size_t)n * T + t0 + tid] = on_s[tid] ? sum * sharpening : kNeg;
+    e[(size_t)(n0 + p / kFrames) * T + t0 + i] = (on >> i & 1) ? sum * sharpening : kNeg;
   }
 }
 
@@ -192,95 +372,227 @@ __device__ __forceinline__ void fma_vec(float a, const float4& x, float4& acc) {
 }
 
 template <int kVec>
-__global__ void __launch_bounds__(kThreads)
-location_context(const float* __restrict__ enc,  // [N, T, He]
-                 const float* __restrict__ e,    // [N, T]
-                 float* __restrict__ ctx,        // [N, He]
-                 float* __restrict__ align,      // [N, T]
-                 int T, int He) {
+__global__ void __launch_bounds__(kThreads, 2)
+location_context(const float* __restrict__ enc,           // [U, T, He]
+                 const unsigned char* __restrict__ mask,  // [U, T] bool
+                 const float* __restrict__ e,             // [N, T]
+                 float* __restrict__ ctx,                 // [N, He]
+                 float* __restrict__ align,               // [N, T]
+                 int G, int T, int He) {
   using Vec = typename VecOf<kVec>::type;
-  __shared__ float w_s[kTChunk];
-  __shared__ float red[kWarps];
-  __shared__ Vec part_s[kWarps][32];
-  const int n = blockIdx.x;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* en = e + (size_t)n * T;
-
-  float m = -3.402823466e38f;
-  for (int t = threadIdx.x; t < T; t += kThreads) m = fmaxf(m, en[t]);
-  m = block_reduce<true>(m, red);
-  float sum = 0.0f;
-  for (int t = threadIdx.x; t < T; t += kThreads) sum += expf(en[t] - m);
-  sum = block_reduce<false>(sum, red);
-
-  const int col = (blockIdx.y * 32 + lane) * kVec;  // this lane's first column
+  constexpr int kTpf = kCols / kVec;        // threads per frame
+  constexpr int kSlices = kThreads / kTpf;  // frames a block reads at once
+  // T <= kTChunk: the block's kCols columns of enc for the frames it needs
+  extern __shared__ __align__(16) float tile_s[];  // [T, kCols]
+  __shared__ float w_s[kRows][kTChunk];
+  __shared__ float m_s[kRows], s_s[kRows];  // each row's max and 1 / sum of exp
+  __shared__ unsigned end_s[kWarps];
+  __shared__ Vec part_s[kWarps][kRows][kTpf];
+  const int u = blockIdx.x;
+  const int rows = min(kRows, G - (int)blockIdx.z * kRows);
+  const size_t n0 = (size_t)u * G + blockIdx.z * kRows;  // the block's first row
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float* eb = e + n0 * T;
+  const int j = tid % kTpf, slice = tid / kTpf;
+  const int col = blockIdx.y * kCols + j * kVec;  // this thread's first column
   const bool has_col = col < He;
-  const Vec* encv = reinterpret_cast<const Vec*>(enc + (size_t)n * T * He + col);
-  const size_t row = He / kVec;  // Vec elements per frame
-  Vec acc = Vec{};
-  for (int c0 = 0; c0 < T; c0 += kTChunk) {
-    const int len = min(kTChunk, T - c0);
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      const float a = expf(en[c0 + i] - m) / sum;
-      w_s[i] = a;
-      if (blockIdx.y == 0) align[(size_t)n * T + c0 + i] = a;
-    }
-    __syncthreads();
-    if (has_col) {
-#pragma unroll 4
-      for (int i = warp; i < len; i += kWarps) fma_vec(w_s[i], encv[(size_t)(c0 + i) * row], acc);
-    }
-    __syncthreads();  // w_s is rewritten for the next chunk
-  }
-  part_s[warp][lane] = acc;
+  const float* encc = enc + (size_t)u * T * He + col;
+  const bool one_chunk = T <= kTChunk;
+
+  // one past the utterance's last valid frame: past it every weight is
+  // exp(-1e30 - m) = 0, and its enc rows are not read; with no valid frame, 1/T
+  unsigned last = 0;
+  for (int t = tid; t < T; t += kThreads)
+    if (mask[(size_t)u * T + t]) last = t + 1;
+  last = __reduce_max_sync(kFull, last);
+  if (lane == 0) end_s[warp] = last;
   __syncthreads();
-  if (warp != 0 || !has_col) return;
-  Vec out = part_s[0][lane];
-  for (int w = 1; w < kWarps; ++w) fma_vec(1.0f, part_s[w][lane], out);
-  *reinterpret_cast<Vec*>(ctx + (size_t)n * He + col) = out;
+  for (int w = 0; w < kWarps; ++w) last = max(last, end_s[w]);
+  const int t_end = last > 0 ? (int)last : T;
+  if (one_chunk)  // enc does not depend on the energies: copy it now
+    for (int i = slice; i < t_end; i += kSlices) {
+      float* dst = tile_s + i * kCols + j * kVec;
+      const float* src = has_col ? encc + (size_t)i * He : enc;
+      if constexpr (kVec == 4)
+        cp_async16(dst, src, has_col);
+      else
+        cp_async4(dst, src, has_col);
+    }
+
+  // the energies are the previous launch's: wait for it (it lets this grid
+  // start early, so the copies above overlap its last blocks)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // a warp per row: its max and sum of exp over T (lanes strided, then a
+  // butterfly); when the row fits in w_s it is staged there and turned into
+  // its weights in place, and the first column block writes its align
+  if (one_chunk)
+    for (int p = tid; p < rows * T; p += kThreads) cp_async4(&w_s[p / T][p % T], eb + p, true);
+  cp_async_wait_all();
+  __syncthreads();
+  if (warp < rows) {
+    const float* er = one_chunk ? w_s[warp] : eb + (size_t)warp * T;
+    float m = kMinF, sum = 0.0f;
+    for (int t = lane; t < T; t += 32) m = fmaxf(m, er[t]);
+    m = warp_max(m);
+    if (one_chunk) {
+      float* wr = w_s[warp];
+      for (int t = lane; t < T; t += 32) {
+        const float x = expf(wr[t] - m);
+        wr[t] = x;
+        sum += x;
+      }
+      const float inv = 1.0f / warp_sum(sum);
+      float* al = align + (n0 + warp) * T;
+      for (int t = lane; t < T; t += 32) {
+        const float x = wr[t] * inv;
+        wr[t] = x;
+        if (blockIdx.y == 0) al[t] = x;
+      }
+    } else {
+      for (int t = lane; t < T; t += 32) sum += expf(er[t] - m);
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        m_s[warp] = m;
+        s_s[warp] = 1.0f / sum;
+      }
+    }
+  }
+  __syncthreads();
+  if (!one_chunk && blockIdx.y == 0)
+    for (int p = tid; p < rows * T; p += kThreads)
+      align[n0 * T + p] = expf(eb[p] - m_s[p / T]) * s_s[p / T];
+
+  // each enc[t, cols] feeds all the block's rows
+  Vec acc[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = Vec{};
+  if (one_chunk) {
+    if (has_col) {
+      const Vec* tv = reinterpret_cast<const Vec*>(tile_s) + j;
+#pragma unroll 4
+      for (int i = slice; i < t_end; i += kSlices) {
+        const Vec x = tv[i * kTpf];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (r < rows) fma_vec(w_s[r][i], x, acc[r]);
+      }
+    }
+  } else {
+    const Vec* encv = reinterpret_cast<const Vec*>(encc);
+    const size_t row = He / kVec;  // Vec elements per frame
+    for (int c0 = 0; c0 < t_end; c0 += kTChunk) {
+      const int len = min(kTChunk, t_end - c0);
+#pragma unroll 4
+      for (int p = tid; p < rows * len; p += kThreads) {
+        const int r = p / len, i = p - r * len;
+        w_s[r][i] = expf(eb[(size_t)r * T + c0 + i] - m_s[r]) * s_s[r];
+      }
+      __syncthreads();
+      if (has_col) {
+#pragma unroll 4
+        for (int i = slice; i < len; i += kSlices) {
+          const Vec x = encv[(size_t)(c0 + i) * row];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r)
+            if (r < rows) fma_vec(w_s[r][i], x, acc[r]);
+        }
+      }
+      __syncthreads();  // w_s is rewritten for the next chunk
+    }
+  }
+  // the slices of a warp (lanes j, j + kTpf, ...), then the warps, in order
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int off = kTpf; off < 32; off *= 2) add_lane(acc[r], off);
+    if (lane < kTpf) part_s[warp][r][lane] = acc[r];
+  }
+  __syncthreads();
+  for (int p = tid; p < rows * kTpf; p += kThreads) {
+    const int r = p / kTpf, jj = p % kTpf;
+    const int cc = blockIdx.y * kCols + jj * kVec;
+    if (cc >= He) continue;
+    Vec out = part_s[0][r][jj];
+    for (int w = 1; w < kWarps; ++w) fma_vec(1.0f, part_s[w][r][jj], out);
+    *reinterpret_cast<Vec*>(ctx + (n0 + r) * He + cc) = out;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Device pointers of contiguous tensors: keys [N, T, A], enc [N, T, He],
-// q [N, A], prev [N, T], w_loc [C, A], v [A] float32; mask [N, T] bool (one
-// byte each); conv [W, 1, C] float32; outputs ctx [N, He] and align [N, T]
-// float32, written in full; e [N, T] float32 scratch. Two launches on
-// `stream` (energies, then softmax and context); returns the first CUDA
-// error (0 when both were accepted). Does not synchronise.
-int location_attend(const float* keys, const float* enc, const float* q, const float* prev,
-                    const unsigned char* mask, const float* conv, const float* w_loc,
-                    const float* v, float* ctx, float* align, float* e, int N, int T, int A,
-                    int He, int C, int W, float sharpening, void* stream) {
-  if (N <= 0 || T <= 0 || A <= 0 || He <= 0 || C <= 0 || W <= 0 || T > kFrames * 65535)
+// Device pointers of contiguous tensors: keys [N/G, T, A] (or null: a pure
+// location scorer) and b [A] (or null: none), enc [N/G, T, He], q [N, A],
+// prev [N, T], w_loc [C, A], v [A] float32; mask [N/G, T] bool (one byte
+// each); conv [W, 1, C] float32; outputs ctx [N, He] and align [N, T]
+// float32, written in full; e [N, T] float32 scratch. Row n reads utterance
+// n / G. Two launches on `stream`: the energies, then softmax and context as
+// its programmatic dependent (it reads e only after the energies end);
+// returns the first CUDA error (0 when both were accepted). Does not
+// synchronise.
+int location_attend(const float* keys, const float* b, const float* enc, const float* q,
+                    const float* prev, const unsigned char* mask, const float* conv,
+                    const float* w_loc, const float* v, float* ctx, float* align, float* e,
+                    int N, int G, int T, int A, int He, int C, int W, float sharpening,
+                    void* stream) {
+  if (N <= 0 || G <= 0 || N % G != 0 || T <= 0 || A <= 0 || He <= 0 || C <= 0 || W <= 0 ||
+      (keys == nullptr && b == nullptr) || T > kFrames * 65535 ||
+      (He + kCols - 1) / kCols > 65535 || (G + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  size_t smem = (size_t)(kFrames + W - 1 + kFrames * C + kFrames * kWarps + kFrames) * 4;
-  const size_t weights = ((size_t)W * C + (size_t)C * A + 2 * (size_t)A) * sizeof(float);
-  const int staged = smem + weights <= (size_t)kMaxSmem;
-  if (staged) smem += weights;
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;  // W above ~56 000 taps
+  const int U = N / G;
+  // an energies block's shared memory: per row its features, q, partial
+  // scores and prev window; the keys tile, and the conv taps, zero-padded,
+  // when C <= kMaxC
+  const int c4 = C <= kMaxC ? (C + 3) / 4 : 0;
+  const size_t cp = c4 > 0 ? 4 * c4 : C;
+  const size_t per_row =
+      (kFrames * cp + (size_t)A + kFrames * kWarps + kFrames + (size_t)W - 1) * sizeof(float);
+  const size_t taps = ((c4 > 0 ? (size_t)W * cp : 0) + kFrames * kThreads) * sizeof(float);
+  if (taps + per_row > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;  // W or A ~ 50 000
+  const int chunk =
+      (int)std::min<size_t>({(kMaxSmem - taps) / per_row, (size_t)G, (size_t)kMaxRows});
+  const int z = (G + chunk - 1) / chunk;
+  if (z > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = taps + chunk * per_row;
+  const decltype(&location_energies<0>) energies = c4 == 1   ? location_energies<1>
+                                                  : c4 == 2 ? location_energies<2>
+                                                  : c4 == 3 ? location_energies<3>
+                                                  : c4 == 4 ? location_energies<4>
+                                                            : location_energies<0>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        location_energies, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(energies, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid_e(N, (T + kFrames - 1) / kFrames);
-  location_energies<<<grid_e, kThreads, smem, s>>>(keys, q, prev, mask, conv, w_loc, v, e, T,
-                                                    A, C, W, sharpening, staged);
+  const dim3 grid_e(U, (T + kFrames - 1) / kFrames, z);
+  energies<<<grid_e, kThreads, smem, s>>>(keys, b, q, prev, mask, conv, w_loc, v, e, G, chunk, T,
+                                          A, C, W, sharpening);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (He % 4 == 0 && reinterpret_cast<uintptr_t>(enc) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(ctx) % 16 == 0) {
-    const dim3 grid_c(N, (He / 4 + 31) / 32);
-    location_context<4><<<grid_c, kThreads, 0, s>>>(enc, e, ctx, align, T, He);
-  } else {
-    const dim3 grid_c(N, (He + 31) / 32);
-    location_context<1><<<grid_c, kThreads, 0, s>>>(enc, e, ctx, align, T, He);
+  // the context pass, launched so that its blocks may start before the
+  // energies end (it waits for them before it reads e)
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(U, (He + kCols - 1) / kCols, (G + kRows - 1) / kRows);
+  config.blockDim = dim3(kThreads);
+  config.stream = s;
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = &early;
+  config.numAttrs = 1;
+  const bool vec4 = He % 4 == 0 && reinterpret_cast<uintptr_t>(enc) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(ctx) % 16 == 0;
+  const decltype(&location_context<1>) context = vec4 ? location_context<4> : location_context<1>;
+  config.dynamicSmemBytes = T <= kTChunk ? (size_t)T * kCols * sizeof(float) : 0;  // enc tile
+  if (config.dynamicSmemBytes > 16 * 1024) {
+    err = cudaFuncSetAttribute(context, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)config.dynamicSmemBytes);
+    if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&config, context, enc, mask, e, ctx, align, G, T, He);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -2,13 +2,18 @@
 
 Counterpart of ``attention_beam_search`` in
 ``tensorflow_end2end_speech_recognition_tpu/decoding/attention_beam.py``:
-beams are folded into the batch (``B*W`` rows, each utterance's encoder
-output repeated W times), every step is one batched decoder step, a top-k
-over ``W*V`` candidates per utterance picks the survivors, and the parent
-rows of ``(h, c, context, align)``, the scores, lengths and token history
-are gathered after it. Finished beams extend only by EOS at zero cost; EOS
+beams are folded into the batch (``B*W`` rows), every step is one batched
+decoder step, a top-k over ``W*V`` candidates per utterance picks the
+survivors, and the parent rows of ``(h, c, context, align)``, the scores,
+lengths and token history are gathered after it. Finished beams extend only by EOS at zero cost; EOS
 is stripped from the final lengths and history, and the ranking uses the
 GNMT length normalisation ``score / ((5 + len) / 6) ** length_penalty``.
+
+The JAX search repeats each utterance's encoder output, keys and mask W
+times. A scorer with the fused read (``Attention.fused_read``: location or
+hybrid) keeps them at B rows and reads them in groups of W decoder rows
+(kernel #7's ``group``), so its keys are projected and read once per
+utterance; every other scorer takes the repeated copies, as in JAX.
 
 Ties are broken as ``jax.lax.top_k`` and ``jnp.argsort`` break them: the
 lower index first (stable sorts). The loop checks "all finished" on the
@@ -63,12 +68,19 @@ def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int 
     k = decode_unroll_factor(max_len)
 
     enc = precomputed if precomputed is not None else encode(model, feats, feat_len)
-    enc_out = enc.outputs.repeat_interleave(w, dim=0)  # [B*W, T, He]
+    # decoder row n reads encoder row n // group. Valid at every step because
+    # a survivor's parent is a beam of its own utterance (flat_parent below
+    # stays in [row_base, row_base + w)), so row n always belongs to
+    # utterance n // w
+    group = w if model.attention.fused_read else 1
+    enc_out, enc_len = enc.outputs, enc.lengths
+    if group == 1:  # [B*W, T, He]
+        enc_out, enc_len = (x.repeat_interleave(w, dim=0) for x in (enc_out, enc_len))
     enc_keys = model.attention.precompute_keys(enc_out)
-    enc_mask = enc_mask_of(enc_out, enc.lengths.repeat_interleave(w, dim=0))
+    enc_mask = enc_mask_of(enc_out, enc_len)
     dev = enc_out.device
 
-    carry = _init_decoder_carry(cfg, enc_out)  # flat [B*W, ...]
+    carry = _init_decoder_carry(cfg, b * w, enc_out)  # flat [B*W, ...]
     scores = torch.full((b, w), _NEG, device=dev)
     scores[:, 0] = 0.0
     att_scores = torch.zeros((b, w), device=dev)
@@ -83,7 +95,8 @@ def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int 
     si = 0
     while si < max_len and (si == 0 or not bool(finished.all())):
         for _ in range(k):
-            carry, logits = _decoder_step(model, enc_out, enc_keys, enc_mask, carry, tokens)
+            carry, logits = _decoder_step(model, enc_out, enc_keys, enc_mask, carry, tokens,
+                                          group=group)
             logp = torch.log_softmax(logits, dim=-1).reshape(b, w, v)
             # finished beams: only the EOS continuation, at zero cost
             step_scores = torch.where(finished[..., None], eos_only, logp)

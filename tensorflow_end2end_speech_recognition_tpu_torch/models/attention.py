@@ -6,10 +6,13 @@ for each ``attention_type`` under the same names (``w_dec``, ``v``, ``b``,
 ``w_enc``, ``conv`` [W, 1, C], ``w_loc``, ``w_gen``), ``precompute_keys``
 hoists the encoder projection out of the decoder loop, and ``attend`` is one
 read. With ``fused=True`` a location or hybrid scorer without sigmoid
-smoothing goes through ``ops.attention.location_attend`` (kernel #7 on the
-card, its plain version on the CPU), with ``keys_in`` and ``q`` built as the
-JAX package builds them for its Pallas kernel; every other read is the
-unfused arithmetic, in the JAX order of additions.
+smoothing (``Attention.fused_read``) goes through
+``ops.attention.location_attend`` (kernel #7 on the card, its plain version
+on the CPU), which adds the bias ``b`` to the keys itself, in the JAX
+package's order ``((keys + b) + loc) + q``, and can serve ``group`` rows per
+utterance from one copy of the encoder output (the beam's rows); every
+other read is the unfused arithmetic, in the JAX order of additions, on one
+encoder row per decoder row.
 """
 
 from __future__ import annotations
@@ -84,21 +87,31 @@ class Attention(nn.Module):
             return torch.matmul(enc_out, self.w_enc)
         return enc_out
 
-    def attend(self, enc_out, enc_keys, enc_mask, dec_state, prev_align, fused: bool = False):
-        """One read: ``(context [B, He], align [B, T])``.
+    @property
+    def fused_read(self) -> bool:
+        """Whether ``attend(fused=True)`` takes kernel #7 (which also serves
+        grouped rows), rather than the unfused arithmetic."""
+        return self.cfg.uses_location and not self.cfg.sigmoid_smoothing
 
-        ``enc_out`` [B, T, He], ``enc_keys`` from ``precompute_keys``,
-        ``enc_mask`` [B, T] bool, ``dec_state`` [B, Hd], ``prev_align`` [B, T].
+    def attend(self, enc_out, enc_keys, enc_mask, dec_state, prev_align, fused: bool = False,
+               group: int = 1):
+        """One read: ``(context [N, He], align [N, T])``.
+
+        ``enc_out`` [U, T, He], ``enc_keys`` from ``precompute_keys``,
+        ``enc_mask`` [U, T] bool, ``dec_state`` [N, Hd], ``prev_align``
+        [N, T], with N = U * ``group``: row n reads utterance n // group.
+        ``group > 1`` needs the fused read.
         """
         cfg = self.cfg
-        if fused and cfg.uses_location and not cfg.sigmoid_smoothing:
-            if cfg.uses_content:
-                keys_in = enc_keys + self.b
-            else:
-                keys_in = self.b.expand(enc_keys.shape[:2] + (cfg.attention_dim,)).contiguous()
+        if fused and self.fused_read:
             q = torch.matmul(dec_state, self.w_dec)
-            return location_attend(keys_in, enc_out, q, prev_align.contiguous(), enc_mask,
-                                   self.conv, self.w_loc, self.v, cfg.sharpening_factor)
+            return location_attend(enc_keys if cfg.uses_content else None, enc_out, q,
+                                   prev_align.contiguous(), enc_mask, self.conv, self.w_loc,
+                                   self.v, cfg.sharpening_factor, b=self.b, group=group)
+        if group != 1:
+            raise ValueError(f"attend: group={group} needs the fused read; the "
+                             f"{cfg.attention_type!r} scorer here takes one encoder row per "
+                             "decoder row")
         if cfg.additive:
             pre = self.b
             if hasattr(self, "w_enc"):

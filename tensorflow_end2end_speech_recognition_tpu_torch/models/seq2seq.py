@@ -108,26 +108,30 @@ def encode(model: Seq2SeqModel, feats, feat_len) -> EncodeOutput:
     return EncodeOutput(enc_out, enc_len)
 
 
-def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token):
+def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token,
+                  group: int = 1):
     """One decoder step: ``((h, c, context, align), logits)``, with the fused
-    attention read (kernel #7 on the card), as both JAX decode loops run it."""
+    attention read (kernel #7 on the card), as both JAX decode loops run it;
+    ``group`` decoder rows per row of ``enc_out`` (``Attention.attend``)."""
     cfg = model.cfg
     h, c, context, align = carry
     x = torch.cat([model.embedding[token], context], dim=-1)
     cell = model.decoder_cell
     h, c = lstm_step(cell.wh, (h, c), torch.matmul(x, cell.wx) + cell.b)
-    context, align = model.attention.attend(enc_out, enc_keys, enc_mask, h, align, fused=True)
+    context, align = model.attention.attend(enc_out, enc_keys, enc_mask, h, align, fused=True,
+                                            group=group)
     logits = model.out_proj(torch.cat([h, context], dim=-1))
     if cfg.logits_temperature != 1.0:
         logits = logits / cfg.logits_temperature
     return (h, c, context, align), logits
 
 
-def _init_decoder_carry(cfg: Seq2SeqConfig, enc_out):
-    b, t, he = enc_out.shape
+def _init_decoder_carry(cfg: Seq2SeqConfig, rows: int, enc_out):
+    """Zero ``(h, c, context, align)`` for ``rows`` decoder rows over ``enc_out``'s frames."""
+    t, he = enc_out.shape[1:]
     zeros = lambda *s: enc_out.new_zeros(s)  # noqa: E731
-    return zeros(b, cfg.decoder_num_units), zeros(b, cfg.decoder_num_units), zeros(b, he), \
-        zeros(b, t)
+    return zeros(rows, cfg.decoder_num_units), zeros(rows, cfg.decoder_num_units), \
+        zeros(rows, he), zeros(rows, t)
 
 
 def decode_unroll_factor(max_len: int) -> int:
@@ -161,7 +165,7 @@ def greedy_decode(model: Seq2SeqModel, feats, feat_len,
     max_len = cfg.max_decode_length
     k = decode_unroll_factor(max_len)
     dev = enc_out.device
-    carry = _init_decoder_carry(cfg, enc_out)
+    carry = _init_decoder_carry(cfg, b, enc_out)
     token = torch.full((b,), cfg.sos_id, dtype=torch.int32, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     logits_buf = enc_out.new_zeros((max_len, b, cfg.vocab))

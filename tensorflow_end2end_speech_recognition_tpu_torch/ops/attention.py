@@ -4,14 +4,18 @@ Counterpart of ``location_attend_pallas`` in
 ``tensorflow_end2end_speech_recognition_tpu/ops/pallas/attention_kernel.py``
 (and of ``_reference_math`` there, which restates it in plain XLA):
 
-    location_attend(keys_in [N, T, A], enc_out [N, T, He], q [N, A],
-                    prev_align [N, T], enc_mask [N, T] bool, conv_w [W, 1, C],
-                    w_loc [C, A], v [A], sharpening) -> (ctx [N, He], align [N, T])
+    location_attend(keys [U, T, A] or None, enc_out [U, T, He], q [N, A],
+                    prev_align [N, T], enc_mask [U, T] bool, conv_w [W, 1, C],
+                    w_loc [C, A], v [A], sharpening, *, b [A] or None, group=G)
+        -> (ctx [N, He], align [N, T])
 
-``keys_in`` is ``enc_out @ W_enc + b`` (or ``b`` broadcast for a pure
-location scorer) and ``q = dec_state @ W_dec``. The location features are a
-SAME convolution of ``prev_align`` with the W taps, ``(W-1)//2`` of them on
-the left even for an even W; then ``pre = keys_in + f @ w_loc + q``,
+with N = U * G: row n reads utterance n // G, so the beam's G rows of one
+utterance share its encoder output and keys instead of G copies of them.
+The reference's ``keys_in`` is ``keys + b`` (``keys = enc_out @ W_enc``),
+or ``b`` broadcast for a pure location scorer (``keys=None``), tiled G
+times; ``q = dec_state @ W_dec``. The location features are a SAME
+convolution of ``prev_align`` with the W taps, ``(W-1)//2`` of them on the
+left even for an even W; then ``pre = ((keys + b) + f @ w_loc) + q``,
 ``e = tanh(pre) @ v * sharpening``, an additive -1e30 on masked frames,
 ``align = softmax_T(e)`` and ``ctx = align @ enc_out``. A row with no valid
 frame (a micro-batcher's filler row) gets ``align = 1/T`` everywhere, as
@@ -50,9 +54,17 @@ def conv_same(prev_align: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     return F.conv1d(x, conv_w.permute(2, 1, 0)).transpose(1, 2)
 
 
-def location_attend_plain(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
-                          sharpening: float = 1.0):
-    """Plain version of kernel #7: ``_reference_math`` in PyTorch."""
+def location_attend_plain(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                          sharpening: float = 1.0, *, b=None, group: int = 1):
+    """Plain version of kernel #7: ``keys + b``, tiled ``group`` times, then
+    ``_reference_math`` in PyTorch."""
+    if keys is None:
+        keys_in = b.expand(enc_out.shape[:2] + b.shape)
+    else:
+        keys_in = keys if b is None else keys + b
+    if group > 1:
+        keys_in, enc_out, enc_mask = (x.repeat_interleave(group, dim=0)
+                                      for x in (keys_in, enc_out, enc_mask))
     f = conv_same(prev_align, conv_w)
     pre = keys_in + torch.matmul(f, w_loc)
     pre = pre + q[:, None, :]
@@ -63,16 +75,21 @@ def location_attend_plain(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_l
     return ctx, align
 
 
-def _check_inputs(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v) -> None:
+def _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, group) -> None:
     what = "location_attend"
-    floats = {"keys_in": keys_in, "enc_out": enc_out, "q": q, "prev_align": prev_align,
-              "conv_w": conv_w, "w_loc": w_loc, "v": v}
-    dev = keys_in.device
+    floats = {"keys": keys, "enc_out": enc_out, "q": q, "prev_align": prev_align,
+              "conv_w": conv_w, "w_loc": w_loc, "v": v, "b": b}
+    floats = {name: x for name, x in floats.items() if x is not None}
+    dev = enc_out.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
+    if keys is None and b is None:
+        raise ValueError(f"{what}: keys and b are both None")
+    if not isinstance(group, int) or group < 1:
+        raise ValueError(f"{what}: group must be a positive int, got {group!r}")
     for name, x in {**floats, "enc_mask": enc_mask}.items():
         if x.device != dev:
-            raise ValueError(f"{what}: {name} is on {x.device}, keys_in on {dev}")
+            raise ValueError(f"{what}: {name} is on {x.device}, enc_out on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     for name, x in floats.items():
@@ -80,49 +97,56 @@ def _check_inputs(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v) -
             raise ValueError(f"{what}: {name} must be float32, got {x.dtype}")
     if enc_mask.dtype != torch.bool:
         raise ValueError(f"{what}: enc_mask must be bool, got {enc_mask.dtype}")
-    if keys_in.dim() != 3 or conv_w.dim() != 3 or conv_w.shape[1] != 1:
-        raise ValueError(f"{what}: keys_in must be [N, T, A] and conv_w [W, 1, C], got "
-                         f"{tuple(keys_in.shape)} and {tuple(conv_w.shape)}")
-    n, t, a = keys_in.shape
+    if enc_out.dim() != 3 or q.dim() != 2 or conv_w.dim() != 3 or conv_w.shape[1] != 1:
+        raise ValueError(f"{what}: enc_out must be [U, T, He], q [N, A] and conv_w [W, 1, C], "
+                         f"got {tuple(enc_out.shape)}, {tuple(q.shape)} and "
+                         f"{tuple(conv_w.shape)}")
+    u, t, he = enc_out.shape
+    n, a = q.shape
     w, _, c = conv_w.shape
-    want = {"enc_out": (n, t, enc_out.shape[-1]), "q": (n, a), "prev_align": (n, t),
-            "enc_mask": (n, t), "w_loc": (c, a), "v": (a,)}
+    if n % group != 0 or n // group != u:
+        raise ValueError(f"{what}: {n} rows of q in groups of {group} do not match the {u} "
+                         "utterances of enc_out")
+    want = {"keys": (u, t, a), "prev_align": (n, t), "enc_mask": (u, t), "w_loc": (c, a),
+            "v": (a,), "b": (a,)}
     for name, shape in want.items():
-        x = enc_mask if name == "enc_mask" else floats[name]
-        if tuple(x.shape) != shape:
+        x = enc_mask if name == "enc_mask" else floats.get(name)
+        if x is not None and tuple(x.shape) != shape:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, expected {shape}")
-    if enc_out.dim() != 3 or 0 in (n, t, a, w, c, enc_out.shape[-1]):
-        raise ValueError(f"{what}: empty or misshapen input: keys_in {tuple(keys_in.shape)}, "
-                         f"enc_out {tuple(enc_out.shape)}, conv_w {tuple(conv_w.shape)}")
+    if 0 in (n, t, a, he, w, c):
+        raise ValueError(f"{what}: empty input: enc_out {tuple(enc_out.shape)}, q "
+                         f"{tuple(q.shape)}, conv_w {tuple(conv_w.shape)}")
 
 
-def location_attend(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
-                    sharpening: float = 1.0):
+def location_attend(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                    sharpening: float = 1.0, *, b=None, group: int = 1):
     """Kernel #7: ``(ctx [N, He], align [N, T])``; see the module docstring."""
-    _check_inputs(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v)
-    if keys_in.device.type == "cpu":
-        return location_attend_plain(keys_in, enc_out, q, prev_align, enc_mask, conv_w, w_loc,
-                                     v, sharpening)
+    _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, group)
+    if enc_out.device.type == "cpu":
+        return location_attend_plain(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                                     sharpening, b=b, group=group)
     if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (keys_in, enc_out, q, prev_align, conv_w, w_loc, v)):
+            x is not None and x.requires_grad
+            for x in (keys, enc_out, q, prev_align, conv_w, w_loc, v, b)):
         raise NotImplementedError(
             "location_attend: the CUDA kernel has no backward (the reference's _fused_bwd is "
             "not ported); call it under torch.no_grad() or on inputs that require no grad")
     lib = build.load_library()
-    dev = keys_in.device
-    n, t, a = keys_in.shape
+    dev = enc_out.device
+    t, he = enc_out.shape[1:]
+    n, a = q.shape
     w, _, c = conv_w.shape
-    he = enc_out.shape[-1]
     ctx = torch.empty((n, he), dtype=torch.float32, device=dev)
     align = torch.empty((n, t), dtype=torch.float32, device=dev)
     energies = torch.empty((n, t), dtype=torch.float32, device=dev)  # scratch
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.location_attend(
-            keys_in.data_ptr(), enc_out.data_ptr(), q.data_ptr(), prev_align.data_ptr(),
+            ptr(keys), ptr(b), enc_out.data_ptr(), q.data_ptr(), prev_align.data_ptr(),
             enc_mask.data_ptr(), conv_w.data_ptr(), w_loc.data_ptr(), v.data_ptr(),
             ctx.data_ptr(), align.data_ptr(), energies.data_ptr(),
-            n, t, a, he, c, w, float(sharpening), stream,
+            n, group, t, a, he, c, w, float(sharpening), stream,
         )
     build.check(lib, code, "location_attend")
     location_attend.launches += 1

@@ -103,7 +103,7 @@ SIGNATURES = {
     "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
     "ctc_loss_fwd_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "ctc_loss_fwd_only": [_P] * 7 + [_I] * 5 + [_P],
-    "location_attend": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "location_attend": [_P] * 12 + [_I] * 7 + [_F, _P],
 }
 
 

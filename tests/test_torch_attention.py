@@ -164,3 +164,87 @@ def test_location_attend_rejects_bad_inputs():
     for i, x in bad.items():
         with pytest.raises(ValueError):
             location_attend(*(x if j == i else a for j, a in enumerate(args)))
+
+
+def _grouped_inputs(lengths, group, with_keys, conv_width=9, a=16, he=12, c=4, seed=11):
+    """Per-utterance keys, b, enc_out and mask, per-row q and prev: U =
+    len(lengths) utterances of ``group`` rows each."""
+    rng = np.random.RandomState(seed)
+    u, n = len(lengths), len(lengths) * group
+    logits = rng.randn(n, T).astype(np.float32)
+    prev = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    keys = rng.randn(u, T, a).astype(np.float32) * 0.5
+    return dict(
+        keys=keys if with_keys else None,
+        enc_out=rng.randn(u, T, he).astype(np.float32),
+        q=rng.randn(n, a).astype(np.float32) * 0.5,
+        prev_align=prev.astype(np.float32),
+        enc_mask=np.arange(T)[None, :] < np.asarray(lengths)[:, None],
+        conv_w=((rng.rand(conv_width, 1, c) - 0.5) * 0.2).astype(np.float32),
+        w_loc=((rng.rand(c, a) - 0.5) * 0.2).astype(np.float32),
+        v=((rng.rand(a) - 0.5) * 0.2).astype(np.float32),
+        b=(rng.randn(a) * 0.3).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("with_keys", [True, False], ids=["hybrid", "location"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_grouped_read_matches_pallas_interpret_on_tiled_inputs(group, with_keys):
+    """Row n of the grouped call reads utterance n // group, with b added in
+    the call: the same as the Pallas kernel and _reference_math on inputs
+    repeated ``group`` times with keys_in = keys + b (b broadcast without keys)."""
+    lengths = [T, 0, 9]  # an utterance of length 0: its rows get 1/T
+    x = _grouped_inputs(lengths, group, with_keys, seed=group)
+    names = ("keys", "enc_out", "q", "prev_align", "enc_mask", "conv_w", "w_loc", "v")
+    before = location_attend.launches
+    got = location_attend(*(None if x[k] is None else torch.from_numpy(x[k]) for k in names),
+                          1.5, b=torch.from_numpy(x["b"]), group=group)
+    assert location_attend.launches == before  # CPU tensors: the plain version
+    keys_in = x["keys"] + x["b"] if with_keys else np.broadcast_to(
+        x["b"], x["enc_out"].shape[:2] + x["b"].shape)
+    tile = lambda y: jnp.repeat(jnp.asarray(y), group, axis=0)  # noqa: E731
+    tiled = (tile(keys_in), tile(x["enc_out"]), jnp.asarray(x["q"]),
+             jnp.asarray(x["prev_align"]), tile(x["enc_mask"]), jnp.asarray(x["conv_w"]),
+             jnp.asarray(x["w_loc"]), jnp.asarray(x["v"]))
+    n = len(lengths) * group
+    assert got[0].shape == (n, 12) and got[1].shape == (n, T)
+    for g, w in zip(got, _reference_math(*tiled, 1.5)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+    # the Pallas kernel gives an empty row 1/t_pad, not 1/T: hold the others
+    rows = np.repeat(np.asarray(lengths) > 0, group)
+    for g, w in zip(got, location_attend_pallas(*tiled, sharpening=1.5, interpret=True)):
+        np.testing.assert_allclose(g.numpy()[rows], np.asarray(w)[rows], atol=ATOL, rtol=0)
+    for row in range(group, 2 * group):  # the length-0 utterance's rows
+        np.testing.assert_allclose(got[1][row].numpy(), np.full(T, 1.0 / T), atol=1e-7)
+
+
+def test_grouped_read_rejects_rows_that_do_not_match_the_groups():
+    x = {k: None if v is None else torch.from_numpy(v)
+         for k, v in _grouped_inputs([T, 4], 2, True).items()}
+    names = ("keys", "enc_out", "q", "prev_align", "enc_mask", "conv_w", "w_loc", "v")
+    call = lambda **kw: location_attend(  # noqa: E731
+        *(kw.get(k, x[k]) for k in names), b=kw.get("b", x["b"]), group=kw.get("group", 2))
+    call()  # well-formed: 4 rows in 2 groups of 2
+    bad = [
+        dict(group=3),  # 4 rows do not split into groups of 3
+        dict(group=4),  # 1 group of 4 rows for 2 utterances
+        dict(keys=x["keys"].repeat_interleave(2, dim=0)),  # keys with a row per decoder row
+        dict(enc_mask=x["enc_mask"].repeat_interleave(2, dim=0)),  # a mask row per decoder row
+        dict(prev_align=x["prev_align"][:3].contiguous()),  # 3 alignment rows for 4
+        dict(keys=None, b=None),  # no keys at all
+        dict(b=x["b"][:-1].contiguous()),  # b of the wrong width
+        dict(group=0),
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            call(**kw)
+
+
+def test_unfused_read_refuses_a_group():
+    """Only the fused read serves grouped rows; the others need one encoder row per row."""
+    _, _, att = _bridged(dict(attention_type="content", attention_dim=8))
+    assert not att.fused_read
+    enc_out, dec_state, prev, mask = (torch.from_numpy(x) for x in _inputs([T, 5]))
+    with pytest.raises(ValueError, match="group"):
+        att.attend(enc_out[:1], att.precompute_keys(enc_out[:1]), mask[:1], dec_state, prev,
+                   fused=True, group=2)

@@ -522,6 +522,69 @@ def test_location_attend_kernel_matches_plain(dev, n, t, a, he, c, w, sharpening
     assert torch.equal(again[0], ctx) and torch.equal(again[1], align)
 
 
+def _grouped_attend_case(dev, g, t, a, he, c, w, lengths, seed, with_keys=True):
+    """Kernel #7's grouped inputs: keys, enc_out and mask per utterance, q and
+    prev per row (``g`` rows per utterance), and the scorer's bias b."""
+    rng = np.random.RandomState(seed)
+    u = len(lengths)
+    n = u * g
+    logits = rng.randn(n, t).astype(np.float32)
+    prev = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    keys = rng.randn(u, t, a).astype(np.float32) * 0.5
+    arrays = [
+        keys if with_keys else None,
+        rng.randn(u, t, he).astype(np.float32),  # enc_out
+        rng.randn(n, a).astype(np.float32) * 0.5,  # q
+        prev.astype(np.float32),
+        np.arange(t)[None, :] < np.asarray(lengths)[:, None],  # enc_mask
+        ((rng.rand(w, 1, c) - 0.5) * 0.2).astype(np.float32),  # conv_w
+        ((rng.rand(c, a) - 0.5) * 0.2).astype(np.float32),  # w_loc
+        ((rng.rand(a) - 0.5) * 0.2).astype(np.float32),  # v
+    ]
+    b = torch.from_numpy((rng.randn(a) * 0.3).astype(np.float32)).to(dev)
+    return [None if x is None else torch.from_numpy(x).to(dev) for x in arrays], b
+
+
+@pytest.mark.parametrize("g,t,a,he,c,w,sharpening,lengths,with_keys", [
+    # the beam's call at ls960_joint: 8 utterances x 8 beams
+    (8, 300, 256, 1024, 10, 101, 1.0, [300, 1, 0, 150, 299, 64, 7, 233], True),
+    (2, 30000, 8, 8, 2, 5, 1.0, [30000, 7], True),  # N = 4: a long utterance, no T cap
+    (4, 37, 16, 12, 16, 10, 1.5, [37, 0, 5], False),  # a pure location scorer: keys None
+    (3, 50, 300, 33, 20, 11, 1.0, [50, 1], True),  # A > 256 units, C > 16, He % 4 != 0
+    (16, 40, 16, 40, 6, 7, 1.0, [40, 3], True),  # G = 16: two row chunks of the context
+    (4, 20, 16384, 8, 2, 3, 1.0, [20, 11], True),  # A = 16384: energies in row chunks
+])
+def test_grouped_location_attend_kernel_matches_plain(dev, g, t, a, he, c, w, sharpening,
+                                                      lengths, with_keys):
+    """C = 10, 2, 16, 20, 6: every channel layout of the energies kernel (C in
+    registers as 3, 1, 4 or 2 float4s; C > 16 read as needed)."""
+    args, b = _grouped_attend_case(dev, g, t, a, he, c, w, lengths, seed=t + g,
+                                   with_keys=with_keys)
+    before = location_attend.launches
+    ctx, align = location_attend(*args, sharpening, b=b, group=g)
+    torch.cuda.synchronize()
+    assert location_attend.launches == before + 1
+    assert ctx.shape == (len(lengths) * g, he) and align.shape == (len(lengths) * g, t)
+    want_ctx, want_align = location_attend_plain(*args, sharpening, b=b, group=g)
+    torch.testing.assert_close(align, want_align, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ctx, want_ctx, atol=1e-4, rtol=0)
+    for utt, length in enumerate(lengths):
+        if length == 0:
+            torch.testing.assert_close(align[utt * g:(utt + 1) * g],
+                                       torch.full((g, t), 1.0 / t, device=dev))
+    again = location_attend(*args, sharpening, b=b, group=g)  # deterministic: no atomics
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], align)
+    assert location_attend.launches == before + 2
+    # the tiled layout (keys + b formed outside, each utterance repeated g
+    # times, group 1) runs the same sums in the same order: equal bits
+    keys, enc, q, prev, mask = args[:5]
+    keys_in = b.expand(t, a)[None].expand(len(lengths), t, a) if keys is None else keys + b
+    tiled = [x.repeat_interleave(g, dim=0).contiguous() for x in (keys_in, enc)]
+    got = location_attend(tiled[0], tiled[1], q, prev, mask.repeat_interleave(g, dim=0),
+                          *args[5:], sharpening)
+    assert torch.equal(got[0], ctx) and torch.equal(got[1], align)
+
+
 def test_location_attend_rejects_mixed_devices(dev):
     args = _attend_case(dev, 2, 9, 8, 8, 2, 3, [9, 4], seed=0)
     args[6] = args[6].cpu()

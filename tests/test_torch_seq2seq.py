@@ -155,6 +155,51 @@ def test_beam_search_matches_jax(length_penalty, beam_width, eos_bias):
         assert got.steps < 12
 
 
+@pytest.mark.parametrize("att_type", ["content", "luong_general"])
+def test_beam_search_with_an_unfused_scorer_matches_jax(att_type):
+    """Scorers without the fused read take the encoder output repeated W
+    times, as the JAX search does."""
+    jcfg, cfg = _cfgs(att_type=att_type, joint=True, max_len=12)
+    params, model = _models(jcfg, cfg, seed=8, eos_bias=0.5)
+    assert not model.attention.fused_read
+    feats, lens = _feats(3, 16, [16, 9, 0], seed=9)
+    want = j_beam(params, jcfg, jnp.asarray(feats), jnp.asarray(lens), beam_width=4,
+                  length_penalty=0.6)
+    with torch.no_grad():
+        got = attention_beam_search(model, torch.from_numpy(feats), torch.from_numpy(lens),
+                                    beam_width=4, length_penalty=0.6)
+    for f in ("tokens", "lengths"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    for f in ("scores", "raw_scores", "att_scores"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   atol=1e-4, rtol=0, err_msg=f)
+
+
+@pytest.mark.parametrize("att_type", ["hybrid", "location"])
+def test_beam_fused_read_reads_one_encoder_row_per_utterance(att_type, monkeypatch):
+    """The beam's fused read calls kernel #7 once per step with group = W on
+    the B-row encoder output and mask (keys of B rows, or none for location)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.models import attention as port_att
+
+    _, cfg = _cfgs(att_type=att_type, max_len=6)
+    model = Seq2SeqModel(cfg, D, torch.Generator().manual_seed(1)).eval()
+    feats, lens = _feats(3, 16, [16, 7, 0], seed=2)
+    calls = []
+
+    def spy(keys, enc_out, q, prev_align, enc_mask, *args, **kw):
+        calls.append((None if keys is None else keys.shape[0], enc_out.shape[0],
+                      enc_mask.shape[0], q.shape[0], kw["group"]))
+        return location_attend(keys, enc_out, q, prev_align, enc_mask, *args, **kw)
+
+    monkeypatch.setattr(port_att, "location_attend", spy)
+    with torch.no_grad():
+        got = attention_beam_search(model, torch.from_numpy(feats), torch.from_numpy(lens),
+                                    beam_width=4)
+    keys_rows = 3 if att_type == "hybrid" else None
+    assert calls == [(keys_rows, 3, 3, 12, 4)] * got.steps and got.steps > 0
+
+
 def test_beam_search_refuses_an_lm():
     _, cfg = _cfgs()
     model = Seq2SeqModel(cfg, D)
