@@ -20,7 +20,10 @@ Phases; any failure exits non-zero and prints no result line:
    bitwise repeat), the backward (``lstm_bidi_bwd``: one cooperative
    launch; its launch plan, us per step, two calls bitwise equal, and
    ``LSTMBidi.backward`` whole, kernel + dWh, timed beside cuDNN's
-   backward), the fused CTC loss + gradient and the loss-only CTC;
+   backward), the fused CTC loss + gradient (#5) and the loss-only CTC
+   (#6), at U=40 and at U=180 (a 12 s transcript), each with two calls
+   bitwise equal, its device launches per call from the profiler and its
+   time per lattice step;
 5. build the ``configs/ls100_ctc.yml`` model at full width in code (40 mel +
    deltas = 120 dims, 3/3 stacking -> 360, 5 x BLSTM-512, 28 + 1 character
    classes) with seeded uniform +-0.1 weights; check its logits and ids on
@@ -97,8 +100,8 @@ Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
 is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 #3/#4; ``F.log_softmax`` + ``F.ctc_loss``; none for the attention read),
-which the port never calls; #7's calls, shorter than their Python wrapper,
-are timed from CUDA-graph replays. Prints a JSON line of the kernels, the
+which the port never calls; the calls of #5-#7, short beside their Python
+wrapper, are timed from CUDA-graph replays. Prints a JSON line of the kernels, the
 card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
@@ -150,6 +153,8 @@ from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import experim
 SR = 16000
 B, T_ENC, D_IN, H, LAYERS = 8, 400, 360, 512, 5  # serving batch
 B_TRAIN, C, U = 32, len(CHAR_UNITS) + 1, 40  # training batch, classes, labels
+U_LONG = 180  # a 12 s transcript of read English, at about 15 characters a second
+CTC_REPS = 50  # kernel #5 / #6 calls per timed graph replay
 # float32 tolerances. The kernels and cuBLAS sum each 512-long dot product in
 # different orders, and the difference is carried through 400 recurrent steps
 KERNEL_ATOL = 1e-4
@@ -511,73 +516,136 @@ def check_training_lstm(dev, gpu: str) -> dict:
     return out
 
 
-def ctc_inputs(dev, seed: int):
-    """B=32, T=400, C=29, U=40, ragged logit and label lengths (all alignable)."""
+def ctc_inputs(dev, seed: int, u: int = U):
+    """B=32, T=400, C=29, at most ``u`` labels, ragged logit and label lengths
+    (all alignable: at least 2u+1 frames)."""
     rng = np.random.RandomState(seed)
     logits = torch.from_numpy((rng.randn(B_TRAIN, T_ENC, C) * 3).astype(np.float32)).to(dev)
-    label_len = rng.randint(1, U + 1, B_TRAIN).astype(np.int32)
-    label_len[0] = U
-    labels = np.full((B_TRAIN, U), -1, np.int32)
+    label_len = rng.randint(1, u + 1, B_TRAIN).astype(np.int32)
+    label_len[0] = u
+    labels = np.full((B_TRAIN, u), -1, np.int32)
     for i, n in enumerate(label_len):
         labels[i, :n] = rng.randint(0, C - 1, n)
-    logit_len = rng.randint(2 * U + 1, T_ENC + 1, B_TRAIN).astype(np.int32)
+    logit_len = rng.randint(2 * u + 1, T_ENC + 1, B_TRAIN).astype(np.int32)
     logit_len[0] = T_ENC
     as_t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     return logits, as_t(logit_len), as_t(labels), as_t(label_len)
 
 
-def check_ctc(dev, gpu: str) -> dict:
-    """Kernels #5 and #6 against their plain versions; ``F.ctc_loss`` as yardstick."""
-    logits, logit_len, labels, label_len = args = ctc_inputs(dev, seed=5)
-    blank = C - 1
-    got = ctc.ctc_loss_fwd_bwd(*args, blank)
-    want = ctc.ctc_loss_plain(*args, blank)
-    fwd = ctc.ctc_loss_fwd_only(*args, blank)
+def device_launches(fn, reps: int = 5) -> dict:
+    """Per kernel that ``fn`` launches: device launches per call and µs per
+    launch, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    loss_err = check(f"ctc_loss B={B_TRAIN} T={T_ENC} C={C} U={U}: loss", got[:1], want[:1],
-                     0.0, CTC_LOSS_RTOL)
-    grad_err = check("ctc_loss: grad", got[1:], want[1:], CTC_GRAD_ATOL)
-    fwd_err = check("ctc_loss_fwd_only: loss", [fwd], want[:1], 0.0, CTC_LOSS_RTOL)
-    tf = plain_kernel_ms(lambda: ctc.ctc_loss_plain(*args, blank),
-                         lambda: ctc.ctc_loss_fwd_bwd(*args, blank), 2, 20)
-    to = plain_kernel_ms(lambda: ctc.ctc_loss_fwd_only_plain(*args, blank),
-                         lambda: ctc.ctc_loss_fwd_only(*args, blank), 2, 20)
-    x = logits.clone().requires_grad_(True)
-    ones = torch.ones(B_TRAIN, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[1].split("::")[-1]: {"per_call": e.count / reps,
+                                                   "us": e.self_device_time_total / e.count}
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
-    def library(backward: bool):
-        with torch.set_grad_enabled(backward):
-            lp = F.log_softmax(x, dim=-1).transpose(0, 1)
-            nll = F.ctc_loss(lp, labels.long(), logit_len.long(), label_len.long(), blank=blank,
-                             reduction="none")
-            if backward:
-                torch.autograd.grad(nll, x, ones)
-        return nll
 
-    lib_fb, lib_f = cuda_ms(lambda: library(True), 20), cuda_ms(lambda: library(False), 20)
-    lib_diff = float((library(False) - want[0]).abs().max() / want[0].abs().max())
+def ctc_work(logit_len, label_len, u: int, grad: bool) -> dict:
+    """Bytes (logits read, gradient written, labels, lengths, loss) and float32
+    operations of the valid frames: per frame about 4 C ops of log-softmax
+    and 12 per lane for alpha; for training also beta, gamma (12 each per
+    lane) and the gradient (C softmax terms, one posterior per lane)."""
     valid = logit_len.double()
     lanes = 2 * label_len.double() + 1
     logits_b = B_TRAIN * T_ENC * C * F32
-    small = (B_TRAIN * U + 3 * B_TRAIN) * F32  # labels, two lengths, loss
-    # per valid frame: log-softmax ~4 C ops; per lane ~12 ops for each of alpha,
-    # beta, gamma; gradient: C softmax terms and one posterior per lane
-    ops_fb = float((valid * (6 * C + 40 * lanes)).sum())
-    ops_f = float((valid * (4 * C + 12 * lanes)).sum())
-    out = {
-        "ctc_loss": dict(tf, max_abs_err=max(loss_err, grad_err), library_ms=lib_fb,
-                         **bound(2 * logits_b + small, ops_fb)),
-        "ctc_loss_fwd_only": dict(to, max_abs_err=fwd_err, library_ms=lib_f,
-                                  **bound(logits_b + small, ops_f)),
-    }
-    for name, r in out.items():
-        print(f"phase {name} B={B_TRAIN} T={T_ENC} C={C} U={U}: kernel {r['ms']:.3f} ms (runs "
-              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}), plain {r['plain_ms']:.3f} ms "
-              f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), F.log_softmax+F.ctc_loss "
-              f"{r['library_ms']:.3f} ms  [{gpu}]", flush=True)
-    print(f"F.ctc_loss vs the plain loss: max rel diff {lib_diff:.2e}", flush=True)
-    return out
+    small = (B_TRAIN * u + 3 * B_TRAIN) * F32
+    if grad:
+        return bound(2 * logits_b + small, float((valid * (6 * C + 40 * lanes)).sum()))
+    return bound(logits_b + small, float((valid * (4 * C + 12 * lanes)).sum()))
+
+
+def check_ctc(dev, gpu: str) -> dict:
+    """Kernels #5 and #6 against their plain versions at U = 40 (the train
+    step's) and U = 180: two calls equal bit for bit, device launches per
+    call, times from graph replays beside the plain versions and
+    ``F.log_softmax`` + ``F.ctc_loss``."""
+    blank = C - 1
+    cases = {u: ctc_inputs(dev, seed=5, u=u) for u in (U, U_LONG)}
+    out = {}
+    for u, args in cases.items():
+        logits, logit_len, labels, label_len = args
+        shape = f"B={B_TRAIN} T={T_ENC} C={C} U={u}"
+        got = ctc.ctc_loss_fwd_bwd(*args, blank)
+        again = ctc.ctc_loss_fwd_bwd(*args, blank)
+        want = ctc.ctc_loss_plain(*args, blank)
+        fwd, fwd_again = (ctc.ctc_loss_fwd_only(*args, blank) for _ in range(2))
+        torch.cuda.synchronize()
+        loss_err = check(f"ctc_loss {shape}: loss", got[:1], want[:1], 0.0, CTC_LOSS_RTOL)
+        grad_err = check(f"ctc_loss {shape}: grad", got[1:], want[1:], CTC_GRAD_ATOL)
+        fwd_err = check(f"ctc_loss_fwd_only {shape}: loss", [fwd], want[:1], 0.0, CTC_LOSS_RTOL)
+        if not (all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(fwd, fwd_again)):
+            raise RuntimeError(f"ctc_loss {shape}: two calls on the same inputs differ")
+        print(f"ctc_loss {shape}: two calls bitwise equal (loss, grad; loss-only)", flush=True)
+        x = logits.clone().requires_grad_(True)
+        ones = torch.ones(B_TRAIN, device=dev)
+
+        def library(backward: bool):
+            with torch.set_grad_enabled(backward):
+                lp = F.log_softmax(x, dim=-1).transpose(0, 1)
+                nll = F.ctc_loss(lp, labels.long(), logit_len.long(), label_len.long(),
+                                 blank=blank, reduction="none")
+                if backward:
+                    torch.autograd.grad(nll, x, ones)
+            return nll
+
+        lib_diff = float((library(False) - want[0]).abs().max() / want[0].abs().max())
+        print(f"F.ctc_loss vs the plain loss at U={u}: max rel diff {lib_diff:.2e}", flush=True)
+        out[u] = {
+            "ctc_loss": dict(max_abs_err=max(loss_err, grad_err), deterministic=True,
+                             library_ms=cuda_ms(lambda: library(True), 20),
+                             device_launches=device_launches(
+                                 lambda: ctc.ctc_loss_fwd_bwd(*args, blank)),
+                             **ctc_work(logit_len, label_len, u, grad=True)),
+            "ctc_loss_fwd_only": dict(max_abs_err=fwd_err, deterministic=True,
+                                      library_ms=cuda_ms(lambda: library(False), 20),
+                                      device_launches=device_launches(
+                                          lambda: ctc.ctc_loss_fwd_only(*args, blank)),
+                                      **ctc_work(logit_len, label_len, u, grad=False)),
+        }
+        for name, r in out[u].items():
+            r["plan"] = ctc.ctc_plan(B_TRAIN, T_ENC, 2 * u + 1, name == "ctc_loss")._asdict()
+            r["ms_runs"], r["plain_ms_runs"] = [], []
+        for name, plain in (("ctc_loss", ctc.ctc_loss_plain),
+                            ("ctc_loss_fwd_only", ctc.ctc_loss_fwd_only_plain)):
+            out[u][name]["plain_ms_runs"].append(cuda_ms(lambda: plain(*args, blank), 2))
+
+    # plain, kernel, kernel, plain
+    kernels = {"ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only}
+    for _ in range(2):
+        for u, args in cases.items():
+            for name, fn in kernels.items():
+                out[u][name]["ms_runs"].append(graph_ms(lambda: fn(*args, blank), CTC_REPS))
+    for u, args in cases.items():
+        for name, plain in (("ctc_loss", ctc.ctc_loss_plain),
+                            ("ctc_loss_fwd_only", ctc.ctc_loss_fwd_only_plain)):
+            out[u][name]["plain_ms_runs"].append(cuda_ms(lambda: plain(*args, blank), 2))
+        for name, r in out[u].items():
+            r["ms"] = sum(r["ms_runs"]) / 2
+            r["plain_ms"] = sum(r["plain_ms_runs"]) / 2
+            r["us_per_step"] = r["ms"] * 1e3 / T_ENC
+            split = ", ".join(f"{k} {v['per_call']:g} x {v['us']:.2f} us"
+                              for k, v in r["device_launches"].items())
+            print(f"phase {name} B={B_TRAIN} T={T_ENC} C={C} U={u}: kernel {r['ms']:.4f} ms "
+                  f"(runs {r['ms_runs'][0]:.4f}, {r['ms_runs'][1]:.4f}; graph replays; "
+                  f"{r['us_per_step']:.3f} us per lattice step), plain "
+                  f"{r['plain_ms']:.3f} ms (runs {r['plain_ms_runs'][0]:.3f}, "
+                  f"{r['plain_ms_runs'][1]:.3f}), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), F.log_softmax+F.ctc_loss {r['library_ms']:.3f} ms; "
+                  f"device launches per call: {split}; plan {r['plan']['route']} "
+                  f"K={r['plan']['lanes_per_thread']} warps={r['plan']['chain_warps']}  [{gpu}]",
+                  flush=True)
+    result = out[U]
+    for name in kernels:
+        result[name]["long"] = out[U_LONG][name]
+    return result
 
 
 def ls100_ctc_task():
@@ -1515,6 +1583,8 @@ def main() -> int:
                 entries[-1][shape] = {k: x[k] for k in (
                     "ms", "us_per_step", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err", "plan", "deterministic")}
+        if name in ("ctc_loss", "ctc_loss_fwd_only"):
+            entries[-1].update({k: v for k, v in r.items() if k not in entries[-1]})
         if name in ("lstm_bidi_bwd", "lstm_layer_bwd"):
             entries[-1].update(us_per_step=r["ms"] * 1e3 / T_ENC, plan=r["plan"],
                                deterministic=r["deterministic"],

@@ -101,8 +101,8 @@ SIGNATURES = {
     "lstm_bidi_bwd": [_P] * 15 + [_I] * 7 + [_F, _P],
     "lstm_layer_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "ctc_loss_fwd_bwd": [_P] * 9 + [_I] * 5 + [_P],
-    "ctc_loss_fwd_only": [_P] * 7 + [_I] * 5 + [_P],
+    "ctc_loss_fwd_bwd": [_P] * 12 + [_I] * 15 + [_P],
+    "ctc_loss_fwd_only": [_P] * 8 + [_I] * 12 + [_P],
     "location_attend": [_P] * 12 + [_I] * 7 + [_F, _P],
 }
 

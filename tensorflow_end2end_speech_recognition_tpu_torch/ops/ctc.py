@@ -21,11 +21,16 @@ be differentiated, and trying raises.
 CPU tensors take the plain versions (``ctc_loss_plain``,
 ``ctc_loss_fwd_only_plain``), time loops in plain PyTorch. CUDA tensors
 launch the hand-written kernels of ``csrc/ctc_loss.cu`` or raise; there is
-no fallback. ``ctc_loss_fwd_bwd.launches`` and ``ctc_loss_fwd_only.launches``
-count kernel launches. Only ``impl="auto"`` exists in the port.
+no fallback. ``ctc_plan`` lays them out (lanes per thread, chain warps, the
+gradient pass's frames per block, scratch). ``ctc_loss_fwd_bwd.launches``
+and ``ctc_loss_fwd_only.launches`` count calls that launched the kernels
+(three device launches for #5, two for #6). Only ``impl="auto"`` exists in
+the port.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +38,83 @@ import torch.nn.functional as F
 from . import build
 
 _NEG = -1e30
+
+MAX_SMEM = 232448  # bytes of shared memory a Hopper block may use
+STATIC_SMEM = 1024  # of which a chain block keeps for its barriers and edge lanes
+CHAIN_K = (1, 2, 3, 4, 6, 8)  # lattice lanes per thread the chain kernels take
+WARPS_K = 2  # lanes per thread a chain aims at: a step's lse3 chains per thread
+MAX_CHAIN_WARPS = 16  # widest chain block; the global route's block
+FRAME_WARPS = 8  # frames per block of the frame pass
+CHUNK = 32  # chain steps per bulk copy of lpz rows (and per bulk store of new rows)
+RING_CHUNKS = 3  # chunks of lpz rows in a chain's ring: two copies ahead of the chain
+STAGE_CHUNKS = 2  # chunks of new rows on their way out (training)
+GRAD_FRAMES = 32  # frames per block of the gradient pass, where they fit (a lane each)
+
+
+class CtcPlan(NamedTuple):
+    """Layout of kernels #5 and #6 (``ctc_plan``)."""
+
+    route: str  # "one_warp", "warps" (named barrier) or "global" (rows in ws)
+    lanes_per_thread: int  # K, consecutive lattice lanes in a thread's registers (0: global)
+    chain_warps: int  # warps of a chain block
+    chain_blocks: int  # alpha blocks (eval); alpha and beta blocks (training)
+    chunk: int  # D, chain steps per bulk copy of lpz rows (and per bulk store of rows)
+    chain_smem_bytes: int  # a chain block's rings: lpz rows in, (training) new rows out
+    lane_stride: int  # Sp, S rounded up to 4 floats: the row stride of lpz and rows
+    frame_blocks: int  # the frame pass: a warp per frame, and a list block per utterance
+    grad_frames: int  # frames per block of the gradient pass (tiles of one utterance)
+    grad_blocks: int
+    grad_smem_bytes: int  # exp(min(gamma, 40)) of each (frame, lane), and the lane list
+    lpz_floats: int  # lpz rows [B, T, Sp]
+    row_floats: int  # alpha and beta rows [2, B, T, Sp] (training)
+    ws_floats: int  # running rows of the global route [B, 2, 2, S]
+
+
+def ctc_plan(b: int, t: int, s: int, grad: bool = True, lanes: int = WARPS_K) -> CtcPlan:
+    """Lanes per thread, chain warps, grids and scratch of one call at S = 2U+1 lanes.
+
+    A chain aims at ``lanes`` lattice lanes per thread. A row of up to
+    ``32 lanes`` lanes is one warp's, K the smallest in ``CHAIN_K`` that
+    covers it, and steps with shuffles alone. A wider row is split over
+    ``ceil(S / (32 lanes))`` warps, at most ``MAX_CHAIN_WARPS``, that meet
+    at a named barrier each step, K the smallest that covers it (``lanes``
+    while 16 warps do, then more); past ``32 MAX_CHAIN_WARPS CHAIN_K[-1]``
+    lanes the running rows live in global memory (``ws``). A step's time is
+    about that of K interleaved lse3 chains, so few lanes per thread and more
+    warps walk faster (``probes/ctc_chain_step.py`` times the layouts of
+    ``lanes`` = 2, 3, 4). ``grad=False`` (kernel #6) has no beta blocks, rows
+    or gradient pass. ``csrc/ctc_loss.cu`` refuses a plan that differs from
+    its own reckoning of the sizes and grids.
+    """
+    if b <= 0 or t <= 0 or s <= 0 or s % 2 == 0:
+        raise ValueError(f"ctc_plan: bad shape B={b} T={t} S={s} (S = 2U+1 lanes)")
+    if lanes not in CHAIN_K or lanes < 2:
+        raise ValueError(f"ctc_plan: lanes={lanes} is not one of {CHAIN_K[1:]}")
+    if s <= 32 * lanes:
+        route, warps = "one_warp", 1
+    elif s <= 32 * MAX_CHAIN_WARPS * CHAIN_K[-1]:
+        route, warps = "warps", min(MAX_CHAIN_WARPS, -(-s // (32 * lanes)))
+    else:
+        route, warps = "global", MAX_CHAIN_WARPS
+    k = 0 if route == "global" else next(k for k in CHAIN_K if 32 * warps * k >= s)
+    grad_frames = min(GRAD_FRAMES, (MAX_SMEM // 4 - s) // s) if grad else 0
+    if grad and grad_frames < 1:
+        raise ValueError(f"ctc_plan: S={s} lanes of one frame do not fit shared memory")
+    frames, sp = b * t, -(-s // 4) * 4
+    # the rings: chunks of D rows of Sp floats, and the slack of one row of
+    # every thread's lanes after each
+    width, n = 32 * warps * k, RING_CHUNKS + (STAGE_CHUNKS if grad else 0)
+    d = 0 if route == "global" else min(CHUNK, ((MAX_SMEM - STATIC_SMEM) // 4 - 2 * width) //
+                                        (n * sp))
+    if route != "global" and d < 1:
+        raise ValueError(f"ctc_plan: S={s} lanes do not fit a chain's rings")
+    ring = 4 * (n * d * sp + 2 * width) if d else 0
+    return CtcPlan(
+        route, k, warps, b * (2 if grad else 1), d, ring, sp,
+        -(-frames // FRAME_WARPS) + (b if grad else 0),
+        grad_frames, b * -(-t // grad_frames) if grad else 0,
+        4 * (grad_frames + 1) * s if grad else 0, frames * sp, 2 * frames * sp if grad else 0,
+        4 * b * s if route == "global" else 0)
 
 
 def _expand_labels(labels, label_len, blank_id: int):
@@ -171,20 +253,31 @@ def _prepare(what, logits, logit_len, labels, label_len, blank_id):
             label_len.to(torch.int32).contiguous())
 
 
-def _launch(what, fn_name, logits, logit_len, labels, label_len, blank_id, outs):
+def _launch(what, fn_name, plan, logits, logit_len, labels, label_len, blank_id, grad=None):
+    """Kernel #5 (``grad`` given, written in place) or #6 laid out by ``plan``; the loss."""
     lib = build.load_library()
     b, t, c = logits.shape
     u = labels.shape[1]
-    s = 2 * u + 1
-    loss = torch.empty((b,), dtype=torch.float32, device=logits.device)
-    stats = torch.empty((b, t, 2), dtype=torch.float32, device=logits.device)
-    ws = torch.empty((b, 3 * s), dtype=torch.float32, device=logits.device)
+    f32 = dict(dtype=torch.float32, device=logits.device)
+    loss = torch.empty((b,), **f32)
+    stats = torch.empty((b, t, 2), **f32)
+    lpz = torch.empty((plan.lpz_floats,), **f32)
+    ws = torch.empty((plan.ws_floats,), **f32)
+    tail = (plan.lanes_per_thread, plan.chain_warps, plan.chunk, plan.lane_stride,
+            plan.chain_smem_bytes, plan.frame_blocks, plan.chain_blocks)
+    if grad is None:
+        outs = (loss, stats, lpz, ws)
+    else:
+        rows = torch.empty((plan.row_floats,), **f32)
+        lanes = torch.empty((b, 2 * u + 1), dtype=torch.int32, device=logits.device)
+        offs = torch.empty((b, c + 1), dtype=torch.int32, device=logits.device)
+        outs = (loss, grad, rows, stats, lpz, lanes, offs, ws)
+        tail += (plan.grad_frames, plan.grad_smem_bytes, plan.grad_blocks)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         code = getattr(lib, fn_name)(
             logits.data_ptr(), labels.data_ptr(), logit_len.data_ptr(), label_len.data_ptr(),
-            loss.data_ptr(), *(o.data_ptr() for o in outs), stats.data_ptr(), ws.data_ptr(),
-            b, t, c, u, int(blank_id), stream,
+            *(o.data_ptr() for o in outs), b, t, c, u, int(blank_id), *tail, stream,
         )
     build.check(lib, code, what)
     return loss
@@ -196,12 +289,10 @@ def ctc_loss_fwd_bwd(logits, logit_len, labels, label_len, blank_id: int):
                                             blank_id)
     if logits.device.type == "cpu":
         return ctc_loss_plain(logits, logit_len, labels, label_len, blank_id)
-    b, t, c = logits.shape
     grad = torch.empty_like(logits)
-    gamma = torch.empty((b, t, 2 * labels.shape[1] + 1), dtype=torch.float32,
-                        device=logits.device)
-    loss = _launch("ctc_loss", "ctc_loss_fwd_bwd", logits, logit_len, labels, label_len,
-                   blank_id, (grad, gamma))
+    plan = ctc_plan(*logits.shape[:2], 2 * labels.shape[1] + 1)
+    loss = _launch("ctc_loss", "ctc_loss_fwd_bwd", plan, logits, logit_len, labels, label_len,
+                   blank_id, grad)
     ctc_loss_fwd_bwd.launches += 1
     return loss, grad
 
@@ -215,8 +306,9 @@ def ctc_loss_fwd_only(logits, logit_len, labels, label_len, blank_id: int):
                                             label_len, blank_id)
     if logits.device.type == "cpu":
         return ctc_loss_fwd_only_plain(logits, logit_len, labels, label_len, blank_id)
-    loss = _launch("ctc_loss_fwd_only", "ctc_loss_fwd_only", logits, logit_len, labels,
-                   label_len, blank_id, ())
+    plan = ctc_plan(*logits.shape[:2], 2 * labels.shape[1] + 1, grad=False)
+    loss = _launch("ctc_loss_fwd_only", "ctc_loss_fwd_only", plan, logits, logit_len, labels,
+                   label_len, blank_id)
     ctc_loss_fwd_only.launches += 1
     return loss
 

@@ -44,8 +44,10 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_loss_fwd_only,
     ctc_loss_fwd_only_plain,
     ctc_loss_plain,
+    ctc_plan,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import build
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import ctc as ctc_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import lstm as lstm_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
     LSTMLayer,
@@ -443,8 +445,16 @@ def _ctc_case(dev, b, t, c, u, seed):
 
 @pytest.mark.parametrize("b,t,c,u", [
     (7, 23, 29, 5),  # B not a multiple of anything, C = 29 (ls100)
-    (3, 30, 11, 600),  # S = 1201 lanes: more than one block of threads
-    (2, 9, 5, 10000),  # S = 20001: the rows do not fit in shared memory
+    (3, 30, 11, 600),  # S = 1201 lanes: 16 warps of 3 lanes per thread
+    (2, 9, 5, 10000),  # S = 20001: the running rows in global memory
+    # each branch of ops/ctc.ctc_plan
+    (5, 40, 29, 10),  # S = 21: one lane per thread of one warp
+    (6, 60, 29, 16),  # S = 33: two lanes per thread of one warp
+    (6, 120, 29, 40),  # S = 81: two warps and a named barrier (the train step's U)
+    (8, 400, 29, 180),  # S = 361 at T = 400: six warps
+    (3, 80, 29, 300),  # S = 601: ten warps
+    (4, 1, 7, 3),  # T = 1: the seeds alone
+    (3, 40, 600, 12),  # C = 600: classes past one warp's lanes
 ])
 def test_ctc_kernels_match_plain(dev, b, t, c, u):
     args = _ctc_case(dev, b, t, c, u, seed=u)
@@ -459,6 +469,92 @@ def test_ctc_kernels_match_plain(dev, b, t, c, u):
     torch.testing.assert_close(fwd, ctc_loss_fwd_only_plain(*args, c - 1), atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(grad, want_grad, atol=1e-5, rtol=1e-5)
     assert bool(torch.isfinite(loss).all())
+
+
+def _ctc_edge_rows(dev, t, c, u, seed):
+    """No frames, no labels, one label repeated, no alignment, and a full row."""
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(5, t, c) * 2).astype(np.float32)).to(dev)
+    labels = rng.randint(0, c - 1, (5, u)).astype(np.int32)
+    labels[2] = labels[2, 0]  # repeats need a blank between them: 2u - 1 frames
+    logit_len = np.array([0, t, t, 2, t], np.int32)
+    label_len = np.array([u, 0, u, u, u], np.int32)
+    labels[1] = -1
+    as_t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return logits, as_t(logit_len), as_t(labels), as_t(label_len)
+
+
+@pytest.mark.parametrize("t,c,u,route", [
+    (12, 29, 3, "one_warp"),
+    (120, 29, 40, "warps"),
+    (400, 29, 180, "warps"),
+    (1300, 11, 600, "warps"),
+    (9, 5, 10000, "global"),
+])
+def test_ctc_kernels_on_edge_rows(dev, t, c, u, route):
+    assert ctc_plan(5, t, 2 * u + 1).route == route
+    args = _ctc_edge_rows(dev, t, c, u, seed=t)
+    loss, grad = ctc_loss_fwd_bwd(*args, c - 1)
+    fwd = ctc_loss_fwd_only(*args, c - 1)
+    want_loss, want_grad = ctc_loss_plain(*args, c - 1)
+    torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(fwd, ctc_loss_fwd_only_plain(*args, c - 1), atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(grad, want_grad, atol=1e-5, rtol=1e-5)
+    assert float(loss[3]) > 1e29  # no alignment: a finite loss of about 1e30
+    assert not bool(grad[0].any())  # no frames: no gradient
+
+
+@pytest.mark.parametrize("u", [40, 180])
+def test_ctc_fwd_bwd_is_bitwise_repeatable(dev, u):
+    args = _ctc_case(dev, 32, 400, 29, u, seed=7)
+    first, second = ctc_loss_fwd_bwd(*args, 28), ctc_loss_fwd_bwd(*args, 28)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(ctc_loss_fwd_only(*args, 28), ctc_loss_fwd_only(*args, 28))
+
+
+def test_ctc_fwd_bwd_is_bitwise_repeatable_at_a_wide_row(dev):
+    """S = 4095: 16 warps of 8 lanes and chunks of 2 steps, so a chain's two
+    stage slots of new rows turn over every 2 steps while their bulk stores
+    read them. Five calls give equal bits, and agree with the plain version."""
+    b, t, c, u = 4, 4200, 11, 2047
+    assert ctc_plan(b, t, 2 * u + 1).chunk == 2
+    args = _ctc_case(dev, b, t, c, u, seed=3)
+    calls = [ctc_loss_fwd_bwd(*args, c - 1) for _ in range(5)]
+    for loss, grad in calls[1:]:
+        assert torch.equal(loss, calls[0][0]) and torch.equal(grad, calls[0][1])
+    want_loss, want_grad = ctc_loss_plain(*args, c - 1)
+    torch.testing.assert_close(calls[0][0], want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(calls[0][1], want_grad, atol=1e-5, rtol=1e-5)
+    assert float(calls[0][0][0]) < 1e29  # row 0 has an alignment
+
+
+@pytest.mark.parametrize("u,lanes", [(40, 3), (60, 4), (180, 3), (180, 4), (600, 6)])
+def test_ctc_kernels_at_other_chain_layouts(dev, u, lanes):
+    """The layouts that probes/ctc_chain_step.py times beside the plan's: 3,
+    4 and 6 lanes per thread on fewer warps, launched with their plan."""
+    b, t, c = 5, 2 * u + 41, 29
+    logits, logit_len, labels, label_len = _ctc_case(dev, b, t, c, u, seed=lanes)
+    want_loss, want_grad = ctc_loss_plain(logits, logit_len, labels, label_len, c - 1)
+    grad = torch.empty_like(logits)
+    for fn, g in (("ctc_loss_fwd_bwd", grad), ("ctc_loss_fwd_only", None)):
+        plan = ctc_plan(b, t, 2 * u + 1, g is not None, lanes=lanes)
+        assert plan.lanes_per_thread == lanes
+        loss = ctc_ops._launch(fn, fn, plan, logits, logit_len, labels, label_len, c - 1, g)
+        torch.testing.assert_close(loss, want_loss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(grad, want_grad, atol=1e-5, rtol=1e-5)
+
+
+def test_ctc_kernels_refuse_a_plan_of_another_shape(dev):
+    """The C side reckons the shared memory and grids itself and refuses a
+    plan that differs, rather than launch with it."""
+    logits, logit_len, labels, label_len = _ctc_case(dev, 3, 50, 29, 12, seed=1)
+    plan = ctc_plan(3, 50, 25)
+    for bad in (plan._replace(chain_smem_bytes=plan.chain_smem_bytes + 16),
+                plan._replace(grad_blocks=plan.grad_blocks - 1),
+                plan._replace(lane_stride=25), ctc_plan(3, 50, 27)):
+        with pytest.raises(RuntimeError):
+            ctc_ops._launch("ctc_loss", "ctc_loss_fwd_bwd", bad, logits, logit_len, labels,
+                            label_len, 28, torch.empty_like(logits))
 
 
 def test_ctc_model_on_card_trains_every_parameter(dev):
