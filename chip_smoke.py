@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's CTC serving, CTC training, attention
-serving, and transducer serving and training paths on one NVIDIA GPU.
+serving, attention training, and transducer serving and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -68,30 +69,52 @@ Phases; any failure exits non-zero and prints no result line:
     ``/recognize`` requests through ``bin/serve.make_server(...,
     beam_width=8)`` (the attention serving path; launch counts reset just
     before and read just after);
-14. unidirectional layer kernel: ``lstm_layer`` forward (#3, one cooperative
+14. ``lstm_bidi`` forward with ``cs`` (#1) and its backward (#2) at the
+    ls960_joint train step's first layer, B=32, T=1198, D=120 -> H=512,
+    ragged lengths that include 1 and T, each against its plain version
+    (plan, us per step, bitwise repeat, beside cuDNN's forward / backward);
+15. kernel #7's gradient (``LocationAttend``: the kernel forward, the plain
+    backward) against autograd through ``location_attend_plain`` at the
+    ls960_joint decoder's shapes, N=8 (G=1) and N=64 (G=8): the gradients
+    of keys, enc_out, q, prev_align, conv_w, w_loc, v and b; the plain
+    backward's time per call;
+16. one full-width ls960_joint train step on 2 x 1 s (dropout off, scheduled
+    sampling 0, SGD), card against CPU: the loss, att_nll, ctc_nll and the
+    guided term, every gradient, the weights after the step, and the greedy
+    ids decoded after it;
+17. time ls960_joint train steps at B=32 x 12 s (T=1198 -> T'=300, U=40,
+    Adam, encoder dropout 0.8) at a global step inside the guided-attention
+    and λ schedules with scheduled sampling on: ms per step, utterances/s,
+    peak memory, launches per step (exactly 5 #1, 5 #2, 1 #5, no #6 or #7)
+    and a profile of one step (exactly 5 device launches of each walk);
+18. ``train/loop.fit`` on the ls960_joint config for one epoch of the toy
+    corpus (the attention training path; launch counts reset just before
+    and read just after): finite losses, no skipped step, the dev eval
+    through the greedy decode on #7, checkpoints and summary written;
+19. unidirectional layer kernel: ``lstm_layer`` forward (#3, one cooperative
     launch) against its plain version at the ls_transducer encoder's serving
     shape, B=8, T=400, D=120 -> H=512, lengths that include 1 and T, and
     with ``cs`` at B=32 (each with its plan, us per step, bitwise repeat);
-15. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512 (launch
+20. its backward (#4, ``lstm_layer_bwd``) at B=32, T=400, H=512 (launch
     plan, us per step, two calls bitwise equal, ``LSTMLayer.backward``
     whole timed), and ``LSTMLayer``'s gradients (dxproj, dWh) against
     autograd through the plain forward;
-16. build the ``configs/ls_transducer.yml`` model at full width in code (40
+21. build the ``configs/ls_transducer.yml`` model at full width in code (40
     mel, no deltas, 3/3 stacking -> 120, 4 x LSTM-512, prediction net
     embedding 32 + LSTM-128, joint 256, 28 + 1 characters, 4 symbols per
     frame) with seeded uniform +-0.1 weights; on 2 x 1 s check ``f_proj``,
     the teacher-forced nll and the greedy ids on the card against the CPU,
     and one train step (dropout off, SGD): loss, every gradient, weights;
-17. time the transducer serving phases on 8 x 12 s (frontend, encoder,
+22. time the transducer serving phases on 8 x 12 s (frontend, encoder,
     greedy decode with its frames and prediction-net steps) with a profile
     of the decode's device time, and serve 8 concurrent ``/recognize``
     requests through ``bin/serve.make_server`` (the transducer serving path;
     launch counts reset just before and read just after: 4 #3 per batch);
-18. time transducer train steps at B=32 x 12 s (U=40, dropout 0.9, Adam):
+23. time transducer train steps at B=32 x 12 s (U=40, dropout 0.9, Adam):
     ms per step, utterances/s, peak memory, launches per step (exactly 4
     #3 and 4 #4) and a profile of one step's device time by kernel (exactly
     4 device launches of each walk, no per-step forward kernel);
-19. ``train/loop.fit`` on the ls_transducer config for one epoch of a
+24. ``train/loop.fit`` on the ls_transducer config for one epoch of a
     256-utterance toy corpus (the transducer training path; launch counts
     reset just before and read just after): finite losses, no skipped
     step, a dev eval through the greedy decode, checkpoints written.
@@ -210,6 +233,10 @@ BEAM = 8
 ATT_ALIGN_ATOL = 1e-5
 ATT_CTX_ATOL = 1e-4
 ATT_REQUEST_SECONDS = (12.0, 11.0, 9.5, 8.0, 6.0, 4.0, 2.5, 1.0)
+ATT_GRAD_ATOL = 1e-5  # #7's gradient: the same plain arithmetic on the same inputs
+# the timed attention train step's global step: inside the λ anneal (60 steps)
+# and the guided-attention decay (192), on the scheduled-sampling ramp
+ATT_TRAIN_STEP = 30
 # configs/ls960_joint.yml and configs/ls100_ctc.yml as dicts (the card machine
 # may have no yaml)
 LS960_JOINT = {
@@ -469,44 +496,47 @@ def check_serving_kernel(dev, gpu: str) -> dict:
     return r
 
 
-def check_training_lstm(dev, gpu: str) -> dict:
-    """Kernels #1 (with ``cs``) and #2 at the train step's shape."""
-    rng = np.random.RandomState(4)
-    lengths = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
-    args, xs, lens = lstm_inputs(dev, B_TRAIN, lengths, seed=1)
-    gys = [torch.from_numpy(rng.randn(B_TRAIN, T_ENC, H).astype(np.float32)).to(dev)
+def check_training_lstm(dev, gpu: str, t: int = T_ENC, d: int = D_IN, seed: int = 1,
+                        what: str = "train") -> dict:
+    """Kernels #1 (with ``cs``) and #2 at a train step's first layer: B=32,
+    ``t`` frames of ``d`` features (ls100_ctc's by default)."""
+    rng = np.random.RandomState(seed + 3)
+    lengths = [t, 1] + [int(x) for x in rng.randint(t // 2, t + 1, B_TRAIN - 2)]
+    args, xs, lens = lstm_inputs(dev, B_TRAIN, lengths, seed=seed, t=t, d=d)
+    gys = [torch.from_numpy(rng.randn(B_TRAIN, t, H).astype(np.float32)).to(dev)
            for _ in range(2)]
     fwd_k = lambda: lstm.lstm_bidi_fwd(*args, with_cs=True)  # noqa: E731
     with torch.no_grad():
         got = fwd_k()
         want = lstm.lstm_bidi_fwd_plain(*args)
         torch.cuda.synchronize()
-        fwd_err = check(f"lstm_bidi_fwd with cs B={B_TRAIN} T={T_ENC} H={H}", got, want,
+        fwd_err = check(f"lstm_bidi_fwd with cs B={B_TRAIN} T={t} H={H}", got, want,
                         KERNEL_ATOL)
         bwd_args = (*args[:5], *want, *gys, args[5])
         got = lstm.lstm_bidi_bwd(*bwd_args)
         want_dx = lstm.lstm_bidi_bwd_plain(*bwd_args)
         torch.cuda.synchronize()
-        bwd_err = check(f"lstm_bidi_bwd B={B_TRAIN} T={T_ENC} H={H}", got, want_dx, BWD_ATOL)
+        bwd_err = check(f"lstm_bidi_bwd B={B_TRAIN} T={t} H={H}", got, want_dx, BWD_ATOL)
         tf = plain_kernel_ms(lambda: lstm.lstm_bidi_fwd_plain(*args), fwd_k, 1, 10)
-        fwd_extras = forward_extras("lstm_bidi_fwd with cs", fwd_k, 2, B_TRAIN, dev, tf, T_ENC)
+        fwd_extras = forward_extras("lstm_bidi_fwd with cs", fwd_k, 2, B_TRAIN, dev, tf, t)
         tb = plain_kernel_ms(lambda: lstm.lstm_bidi_bwd_plain(*bwd_args),
                              lambda: lstm.lstm_bidi_bwd(*bwd_args), 1, 10)
         ctx = types.SimpleNamespace(saved_tensors=(*args[:5], *want), forget_bias=args[5])
         extras = backward_extras(
             "lstm_bidi_bwd", lambda: lstm.lstm_bidi_bwd(*bwd_args),
             lambda: lstm.LSTMBidi.backward(ctx, *gys), 2, dev)
-    lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=1)
+    lib_fwd, lib_bwd = cudnn_lstm(dev, xs, lens, seed=seed)
     lf, lb = cuda_ms(lib_fwd, 10), cuda_ms(lib_bwd, 10)
     out = {
         "lstm_bidi_fwd": dict(tf, max_abs_err=fwd_err, library_ms=lf, **fwd_extras,
-                              **lstm_work(lengths, H, with_cs=True, backward=False)),
+                              **lstm_work(lengths, H, with_cs=True, backward=False, t=t)),
         "lstm_bidi_bwd": dict(tb, max_abs_err=bwd_err, library_ms=lb, **extras,
-                              **lstm_work(lengths, H, with_cs=True, backward=True)),
+                              us_per_step=tb["ms"] * 1e3 / t,
+                              **lstm_work(lengths, H, with_cs=True, backward=True, t=t)),
     }
     for name, r in out.items():
-        print(f"phase {name} train B={B_TRAIN} T={T_ENC} H={H}: kernel {r['ms']:.3f} ms (runs "
-              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}; {r['ms'] * 1e3 / T_ENC:.2f} us per "
+        print(f"phase {name} {what} B={B_TRAIN} T={t} D={d} H={H}: kernel {r['ms']:.3f} ms (runs "
+              f"{r['ms_runs'][0]:.3f}, {r['ms_runs'][1]:.3f}; {r['ms'] * 1e3 / t:.2f} us per "
               f"step), plain {r['plain_ms']:.3f} ms "
               f"(runs {r['plain_ms_runs'][0]:.3f}, {r['plain_ms_runs'][1]:.3f}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM "
@@ -698,9 +728,12 @@ def train_batch(n_rows: int, seconds: float, seed: int, max_labels: int) -> dict
             "weight": np.ones((n_rows,), np.float32)}
 
 
-def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6) -> None:
-    """One full-width train step of ``task_mod`` with dropout off, card against CPU."""
-    batch = train_batch(2, 1.0, seed=seed, max_labels=12)
+def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6,
+                     max_labels: int = 12) -> None:
+    """One full-width train step of ``task_mod`` with dropout off, card against
+    CPU: the loss and each term of it, every gradient, the weights after one
+    SGD step, and the ids the eval step decodes after it."""
+    batch = train_batch(2, 1.0, seed=seed, max_labels=max_labels)
     opt = build_optimizer("sgd", 5.0)
     step, evaluate = task_mod.make_train_step(task, opt), task_mod.make_eval_step(task)
     res = []
@@ -708,20 +741,22 @@ def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6) -> None:
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         params = {k: v.to(device) for k, v in params_cpu.items()}
         leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-        loss, _ = task_mod.forward_loss(leaves, task, tb, True)
+        loss, terms = task_mod.forward_loss(leaves, task, tb, True)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         new, _, aux = step(params, opt.init(params), tb, 0.1)
         ids, n, _ = evaluate(new, tb)
-        res.append((float(loss.detach()), [g.cpu() for g in grads],
+        res.append(({k: float(v.detach()) for k, v in terms.items()}, [g.cpu() for g in grads],
                     {k: v.cpu() for k, v in new.items()}, ids.cpu(), n.cpu(),
                     bool(aux["nonfinite"])))
-    (lc, gc, pc, ic, nc, fc), (lg, gg, pg, ig, ng, fg) = res
-    loss_err = abs(lc - lg) / abs(lc)
+    (tc, gc, pc, ic, nc, fc), (tg, gg, pg, ig, ng, fg) = res
+    lc, lg = tc["loss"], tg["loss"]
+    loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
     grad_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
                    for a, b in zip(gc, gg))
     param_err = max(float((pc[k] - pg[k]).abs().max()) for k in pc)
-    print(f"train step on the card vs the CPU, 2 x 1 s, SGD lr 0.1: loss {lg:.4f} vs {lc:.4f} "
-          f"(rel err {loss_err:.2e}, tolerance {LOSS_RTOL:g}); grads max err / max |g| "
+    print(f"train step on the card vs the CPU, 2 x 1 s, SGD lr 0.1: loss {lg:.4f} vs {lc:.4f}, "
+          + ", ".join(f"{k} {tg[k]:.4f} vs {tc[k]:.4f}" for k in tc if k != "loss")
+          + f" (max rel err {loss_err:.2e}, tolerance {LOSS_RTOL:g}); grads max err / max |g| "
           f"{grad_err:.2e} (tolerance {GRAD_RTOL:g}) over {len(gc)} tensors; weights after "
           f"the step max abs err {param_err:.3e}; ids after the step equal: "
           f"{torch.equal(ic, ig) and torch.equal(nc, ng)}", flush=True)
@@ -842,18 +877,22 @@ def serve_requests(task, model, gpu: str) -> dict:
 
 def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
                      profile_out: str | None, want: dict, walks: int,
-                     steps: int = TIMED_STEPS) -> None:
+                     steps: int = TIMED_STEPS, shape: str = f"T'={T_ENC}",
+                     global_step: int | None = None) -> dict:
     """Adam steps with the config's dropout at B=32 x 12 s: time, rate, memory,
     launches (exactly ``want``), and a profile of one step by kernel, in which
     each LSTM walk (forward and backward) ran exactly ``walks`` device
-    launches and no per-step forward kernel ran."""
+    launches and no per-step forward kernel ran. An attention step takes
+    ``global_step`` for its schedules. Returns the numbers."""
     batch = train_batch(B_TRAIN, 12.0, seed=7, max_labels=U)
-    batch["input_len"][:] = 12 * SR  # the 12 s bucket: every row T' = 400
+    batch["input_len"][:] = 12 * SR  # the 12 s bucket: every row the same T
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     params = {k: v.to(dev) for k, v in params_cpu.items()}
     opt = build_optimizer("adam", 5.0)
     state = opt.init(params)
     step = task_mod.make_train_step(task, opt)
+    if global_step is not None:
+        step = functools.partial(step, step=global_step)
     gen = torch.Generator(device=dev).manual_seed(1)
     params, state, aux = step(params, state, tb, 1e-3, gen)  # warm-up
     torch.cuda.synchronize()
@@ -875,7 +914,7 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)) or bool(aux["nonfinite"]):
         raise RuntimeError(f"timed {name} train steps gave losses {losses}")
-    print(f"phase {name} train step B={B_TRAIN} x 12 s (T'={T_ENC}, U={U}), Adam, dropout keep "
+    print(f"phase {name} train step B={B_TRAIN} x 12 s ({shape}, U={U}), Adam, dropout keep "
           f"{task.model.encoder.dropout_keep_prob}: {ms:.3f} ms per step ({steps} steps), "
           f"{B_TRAIN / ms * 1e3:.1f} utterances/s, peak memory {peak / 2**30:.3f} GiB, launches "
           f"per step {counts}, losses {[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
@@ -898,6 +937,8 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     if device != {"fwd_walk": walks, "bwd_walk": walks} or per_step:
         raise RuntimeError(f"one {name} train step ran {device} and {per_step} per-step forward "
                            f"launches; expected {walks} of each walk and none")
+    return {"ms": ms, "utts_per_sec": B_TRAIN / ms * 1e3, "peak_gib": peak / 2**30,
+            "launches": counts, "busy_share": busy / wall, "device_launches": device}
 
 
 def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
@@ -968,7 +1009,7 @@ def tiled_attend_inputs(args, b, group: int) -> list:
 
 
 def attend_work(lengths, group: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT_W,
-                with_b: bool = True) -> dict:
+                with_b: bool = True, counts: bool = False):
     """Bytes and float32 operations one read needs on these inputs, for
     ``group`` rows per utterance of ``lengths``: per utterance the keys of its
     valid frames, the enc rows of its valid frames (every frame when it has
@@ -984,7 +1025,7 @@ def attend_work(lengths, group: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT
         # add, add, tanh, multiply-add), context; per row and frame: softmax
         ops += group * (length * (2 * w * c + 2 * c * a + 6 * a) + frames * 2 * he + 5 * t)
     moved += (w * c + c * a + a + (a if with_b else 0)) * F32
-    return bound(moved, ops)
+    return (moved, ops) if counts else bound(moved, ops)
 
 
 def kernel_split(fn, reps: int = 20) -> dict:
@@ -1103,9 +1144,55 @@ def check_pyramidal_lstm(dev, gpu: str) -> dict:
     return r
 
 
-def ls960_joint_task():
+def ls960_joint_task(**overrides):
     """configs/ls960_joint.yml at full width, built in code (no yaml on the card)."""
-    return experiment_from_dict(LS960_JOINT).att_task(len(CHAR_UNITS))
+    return experiment_from_dict(dict(LS960_JOINT, **overrides)).att_task(len(CHAR_UNITS))
+
+
+def check_attention_grad(dev, gpu: str) -> dict:
+    """Kernel #7's gradient (``LocationAttend``) against autograd through the
+    plain read on the card, at the greedy (N=8) and the beam's (N=64, G=8)
+    shapes; the plain backward's time per call (eager, and its device time
+    from the profiler) beside its bound."""
+    out = {}
+    names = ("keys", "enc_out", "q", "prev_align", "conv_w", "w_loc", "v", "b")
+    for label, group, seed in (("n8", 1, 30), ("grouped", BEAM, 31)):
+        rng = np.random.RandomState(seed)
+        lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, B_ATT - 3)]
+        args, b = attend_inputs(dev, B_ATT, lengths, seed=seed, group=group)
+        n = B_ATT * group
+        cts = [torch.from_numpy(rng.randn(n, x).astype(np.float32)).to(dev)
+               for x in (args[1].shape[2], args[1].shape[1])]  # d ctx [N, He], d align [N, T]
+        floats = (*args[:4], *args[5:], b)
+        grads = []
+        for fn in (attention.location_attend, attention.location_attend_plain):
+            leaves = [x.clone().requires_grad_(True) for x in floats]
+            before = attention.location_attend.launches
+            outs = fn(*leaves[:4], args[4], *leaves[4:7], 1.0, b=leaves[7], group=group)
+            grads.append(torch.autograd.grad(outs, leaves, cts))
+            torch.cuda.synchronize()
+            if attention.location_attend.launches - before != (fn is attention.location_attend):
+                raise RuntimeError("LocationAttend did not launch #7 once for its forward")
+        shape = (f"N={n} (G={group}) T={ATT_T} A={ATT_A} He={ATT_HE} C={ATT_C} W={ATT_W}")
+        err = max(check(f"location_attend gradient {shape}: d{name}", [g], [w], ATT_GRAD_ATOL,
+                        ATT_GRAD_ATOL) for name, g, w in zip(names, *grads))
+        needs = (True,) * 8
+        saved = (*args, b)
+        bwd = lambda: attention.location_attend_bwd(saved, needs, 1.0, group, *cts)  # noqa: E731
+        eager = cuda_ms(bwd, 20)
+        _, device_ms, kernels = device_busy(bwd)
+        # the VJP reads what the forward reads plus the two cotangents and
+        # writes one gradient per input: about twice the forward's bytes and,
+        # for its products, twice its operations
+        moved, ops = attend_work(lengths, group, counts=True)
+        launches = sum(n for _, _, n in kernels)
+        r = out[label] = dict(max_abs_err=err, eager_ms=eager, device_ms=device_ms,
+                              device_launches=launches, **bound(2 * moved, 2 * ops))
+        print(f"phase location_attend backward {shape}: plain backward {eager:.3f} ms per call "
+              f"eager, {device_ms:.3f} ms of device time in {launches} launches, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), gradients within "
+              f"{err:.3e} of autograd through the plain read  [{gpu}]", flush=True)
+    return out
 
 
 def check_att_model(task, model_cpu, model_dev, dev) -> None:
@@ -1531,6 +1618,25 @@ def main() -> int:
     del att_model
     clock("ls960_joint served", t0)
 
+    att_lstm = check_training_lstm(dev, gpu, t=T_PYR, d=D_PYR, seed=26, what="pyramidal train")
+    att_grad = check_attention_grad(dev, gpu)
+    clock("kernels #1, #2 at T=1198 and #7's gradient checked", t0)
+    att_params = att_task.init_params(att, torch.Generator().manual_seed(0))
+    check_train_step(ls960_joint_task(dropout=1.0), att_task, att_params, dev, seed=27,
+                     max_labels=6)
+    clock("ls960_joint train step card == CPU", t0)
+    print(f"ls960_joint timed steps at global step {ATT_TRAIN_STEP}: scheduled sampling "
+          f"{att_task.scheduled_sampling_prob(att, ATT_TRAIN_STEP):g}, CTC lambda "
+          f"{att_task.ctc_lambda(att, ATT_TRAIN_STEP):g}, guided-attention weight "
+          f"{att_task.ga_weight_schedule(att, ATT_TRAIN_STEP):g}", flush=True)
+    time_train_steps("ls960_joint", att, att_task, att_params, dev, gpu, args.profile_out,
+                     dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1),
+                     LAYERS, shape=f"T={T_PYR} -> T'={ATT_T}", global_step=ATT_TRAIN_STEP)
+    counts["att_training"] = train_one_epoch(
+        "ls960_joint", LS960_JOINT, gpu,
+        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "location_attend"))
+    clock("ls960_joint trained", t0)
+
     results.update(check_layer_kernels(dev, gpu))
     clock("kernels #3, #4 checked", t0)
     tr = ls_transducer_task()
@@ -1558,7 +1664,8 @@ def main() -> int:
 
     # "launches": the count on the path that ported the kernel (CTC training
     # for #1, #2, #5, #6; attention serving for #7; transducer training for
-    # #3, #4); every path's count beside it
+    # #3, #4); every path's count beside it (attention training:
+    # "launches_att_training")
     main_path = {"location_attend": "att_serving", "lstm_layer_fwd": "transducer_training",
                  "lstm_layer_bwd": "transducer_training"}
     entries = []
@@ -1572,11 +1679,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
         if name == "location_attend":
-            entries[-1].update(group=BEAM, split_us=r["split_us"], n8=r["n8"], tiled=r["tiled"])
+            entries[-1].update(group=BEAM, split_us=r["split_us"], n8=r["n8"], tiled=r["tiled"],
+                               backward=att_grad)
         if name in ("lstm_bidi_fwd", "lstm_layer_fwd"):
             shapes = {"serving": serving_fwd if name == "lstm_bidi_fwd" else r["serving"]}
             if name == "lstm_bidi_fwd":
                 shapes["pyramidal"] = pyramidal
+                shapes["att_training"] = att_lstm[name]
             entries[-1].update(us_per_step=r["us_per_step"], plan=r["plan"],
                                deterministic=r["deterministic"])
             for shape, x in shapes.items():
@@ -1589,6 +1698,10 @@ def main() -> int:
             entries[-1].update(us_per_step=r["ms"] * 1e3 / T_ENC, plan=r["plan"],
                                deterministic=r["deterministic"],
                                function_backward_ms=r["function_backward_ms"])
+        if name == "lstm_bidi_bwd":
+            entries[-1]["att_training"] = {k: att_lstm[name][k] for k in (
+                "ms", "us_per_step", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "plan", "deterministic", "function_backward_ms")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

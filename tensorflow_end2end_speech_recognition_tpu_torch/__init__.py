@@ -17,7 +17,10 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
   guard) and the dev eval, on the toy corpus;
 - attention / joint CTC-attention serving: pyramidal BLSTM encoder ->
   LSTM decoder with location-aware attention -> greedy decoding or the
-  attention beam search, behind the same server (``--beam-width``).
+  attention beam search, behind the same server (``--beam-width``);
+- attention / joint CTC-attention training: the teacher-forced decoder
+  unroll with scheduled sampling and dropout, label smoothing, the joint
+  CTC term with its λ anneal, guided attention, and the dev eval.
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
@@ -34,8 +37,9 @@ Layout:
 - ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal)
                 encoder, CTC model, attention scorers, seq2seq model
 - ``decoding``  CTC greedy collapse, attention beam search
-- ``train``     CTC task (pipeline, train/eval steps), attention task
-                config, optimizers, LR controller, checkpoints, the loop
+- ``train``     CTC, attention and transducer tasks (pipeline, loss,
+                train/eval steps), optimizers, LR controller, checkpoints,
+                the loop
 - ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
                 edit distance and error rates, TensorBoard event writer
 - ``serving``   inference function (CTC; attention greedy or beam) and

@@ -3,6 +3,10 @@
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.train \\
         configs/ls100_ctc.yml /tmp/model_dir [--epochs N] [--device cuda]
 
+The CTC (``ls100_ctc``, ``timit_ctc_blstm``), attention and joint
+CTC-attention (``timit_attention``, ``ls960_joint``) and transducer
+(``ls_transducer``) configs train.
+
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/train.py``:
 reads a reference-shaped YAML config, trains with ``train/loop.fit`` on the
 card (``--device cpu`` for the CPU), and tees its output to

@@ -13,8 +13,17 @@ The JAX ``while_loop`` becomes a Python loop that runs
 ``decode_unroll_factor(max_len)`` steps and then reads "all finished" from
 the device once, so a decode syncs with the host once every k steps; steps
 past the all-finished point are gated by ``live`` exactly as the JAX body
-gates them, so the outputs are those of the JAX loop. Training
-(``forward_train``, scheduled sampling, dropout) is not ported yet.
+gates them, so the outputs are those of the JAX loop. ``forward_train`` is
+the teacher-forced unroll of training and of the dev NLL: a Python loop over
+the label axis with scheduled sampling (a per-row Bernoulli(``ss_prob``)
+draw at each step picks the model's previous argmax over the gold token)
+and dropout on the embedding and on ``[h; context]``, all drawn from one
+``torch.Generator``. Its attention read is the unfused arithmetic
+(``fused=False``), as the JAX scan's is. Autograd keeps each step's
+activations; the JAX scan recomputes them in its backward
+(``jax.checkpoint``). ``Seq2SeqModel.forward`` runs the encoder, the
+teacher-forced unroll and, optionally, the greedy decode in one call, so a
+step can run them on a dict of weights (``functional_call``).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from torch import nn
 from .attention import Attention, AttentionConfig
 from .ctc import Affine
 from .encoders import Encoder, EncoderConfig
-from .rnn import LSTMParams, lstm_step
+from .rnn import LSTMParams, dropout, lstm_step
 
 
 class Seq2SeqConfig(NamedTuple):
@@ -68,8 +77,8 @@ class EncodeOutput(NamedTuple):
 
 
 class Seq2SeqOutput(NamedTuple):
-    logits: torch.Tensor  # [B, max_len, vocab]
-    attention_weights: torch.Tensor  # [B, max_len, T']
+    logits: torch.Tensor  # [B, U, vocab] teacher-forced; [B, max_len, vocab] decoded
+    attention_weights: torch.Tensor  # [B, U or max_len, T']
     predicted_ids: torch.Tensor | None = None  # [B, max_len] int32, eos after the end
     ctc_logits: torch.Tensor | None = None
     ctc_logit_len: torch.Tensor | None = None
@@ -99,28 +108,52 @@ class Seq2SeqModel(nn.Module):
         if cfg.is_joint:
             self.ctc_head = Affine(enc_dim, cfg.num_classes + 1, scale, generator)
 
+    def forward(self, feats, feat_len, labels_in, train: bool = False,
+                generator: torch.Generator | None = None, ss_prob: float = 0.0,
+                decode: bool = False):
+        """``(forward_train's output, greedy_decode's output or None)`` from one
+        encoder pass: the teacher-forced unroll over ``labels_in`` and, with
+        ``decode``, the greedy decode (the eval step's pair)."""
+        enc = encode(self, feats, feat_len, train, generator)
+        out = forward_train(self, feats, feat_len, labels_in, generator, ss_prob, train,
+                            precomputed=enc)
+        return out, (greedy_decode(self, feats, feat_len, precomputed=enc) if decode else None)
 
-def encode(model: Seq2SeqModel, feats, feat_len) -> EncodeOutput:
-    """Encoder outputs and lengths, plus the joint CTC head's logits."""
-    enc_out, enc_len = model.encoder(feats, feat_len)
+
+def encode(model: Seq2SeqModel, feats, feat_len, train: bool = False,
+           generator: torch.Generator | None = None) -> EncodeOutput:
+    """Encoder outputs and lengths, plus the joint CTC head's logits;
+    ``train`` and ``generator`` pass to the encoder's dropout."""
+    enc_out, enc_len = model.encoder(feats, feat_len, train, generator)
     if model.cfg.is_joint:
         return EncodeOutput(enc_out, enc_len, model.ctc_head(enc_out), enc_len)
     return EncodeOutput(enc_out, enc_len)
 
 
 def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token,
-                  group: int = 1):
-    """One decoder step: ``((h, c, context, align), logits)``, with the fused
-    attention read (kernel #7 on the card), as both JAX decode loops run it;
-    ``group`` decoder rows per row of ``enc_out`` (``Attention.attend``)."""
+                  group: int = 1, train: bool = False,
+                  generator: torch.Generator | None = None, fused: bool = True):
+    """One decoder step: ``((h, c, context, align), logits)``. The decode
+    loops take the fused attention read (kernel #7 on the card), as both JAX
+    decode loops run it; ``forward_train`` passes ``fused=False``. ``group``
+    decoder rows per row of ``enc_out`` (``Attention.attend``). With
+    ``train`` and a ``generator``, dropout on the embedding, then, with a
+    draw of its own, on ``[h; context]``."""
     cfg = model.cfg
     h, c, context, align = carry
-    x = torch.cat([model.embedding[token], context], dim=-1)
+    drop = train and generator is not None
+    emb = model.embedding[token]
+    if drop:
+        emb = dropout(emb, cfg.dropout_embedding_keep_prob, train, generator)
+    x = torch.cat([emb, context], dim=-1)
     cell = model.decoder_cell
     h, c = lstm_step(cell.wh, (h, c), torch.matmul(x, cell.wx) + cell.b)
-    context, align = model.attention.attend(enc_out, enc_keys, enc_mask, h, align, fused=True,
+    context, align = model.attention.attend(enc_out, enc_keys, enc_mask, h, align, fused=fused,
                                             group=group)
-    logits = model.out_proj(torch.cat([h, context], dim=-1))
+    hc = torch.cat([h, context], dim=-1)
+    if drop:
+        hc = dropout(hc, cfg.dropout_decoder_keep_prob, train, generator)
+    logits = model.out_proj(hc)
     if cfg.logits_temperature != 1.0:
         logits = logits / cfg.logits_temperature
     return (h, c, context, align), logits
@@ -132,6 +165,49 @@ def _init_decoder_carry(cfg: Seq2SeqConfig, rows: int, enc_out):
     zeros = lambda *s: enc_out.new_zeros(s)  # noqa: E731
     return zeros(rows, cfg.decoder_num_units), zeros(rows, cfg.decoder_num_units), \
         zeros(rows, he), zeros(rows, t)
+
+
+def forward_train(model: Seq2SeqModel, feats, feat_len, labels_in,
+                  generator: torch.Generator | None = None, ss_prob: float | None = None,
+                  train: bool = True, precomputed: EncodeOutput | None = None
+                  ) -> Seq2SeqOutput:
+    """Teacher-forced unroll over ``labels_in`` [B, U] ([sos, l1, ...]) with
+    scheduled sampling: ``Seq2SeqOutput`` with logits [B, U, vocab] and
+    alignments [B, U, T'].
+
+    At each step every row takes the model's token (the argmax of the last
+    step's logits; sos at step 0) with probability ``ss_prob`` (default: the
+    config's), drawn from ``generator`` on the inputs' device, else its gold
+    token; ``ss_prob`` 0 draws nothing. ``train=False`` turns dropout off
+    (the dev NLL); without a ``generator`` no dropout is drawn either.
+    ``precomputed`` is ``encode``'s result, to share one encoder pass.
+    """
+    cfg = model.cfg
+    enc = (precomputed if precomputed is not None
+           else encode(model, feats, feat_len, train, generator))
+    enc_out = enc.outputs
+    enc_keys = model.attention.precompute_keys(enc_out)
+    enc_mask = enc_mask_of(enc_out, enc.lengths)
+    b = enc_out.shape[0]
+    ss = cfg.scheduled_sampling_prob if ss_prob is None else ss_prob
+    carry = _init_decoder_carry(cfg, b, enc_out)
+    pred = torch.full((b,), cfg.sos_id, dtype=labels_in.dtype, device=enc_out.device)
+    logits_steps, align_steps = [], []
+    for step in range(labels_in.shape[1]):
+        token = labels_in[:, step]
+        if ss > 0.0:
+            use_model = torch.rand((b,), generator=generator, device=enc_out.device) < ss
+            token = torch.where(use_model, pred, token)
+        carry, logits = _decoder_step(model, enc_out, enc_keys, enc_mask, carry, token,
+                                      train=train, generator=generator, fused=False)
+        pred = logits.argmax(dim=-1).to(labels_in.dtype)
+        logits_steps.append(logits)
+        align_steps.append(carry[3])
+    return Seq2SeqOutput(
+        torch.stack(logits_steps, dim=1), torch.stack(align_steps, dim=1),
+        ctc_logits=enc.ctc_logits, ctc_logit_len=enc.ctc_logit_len,
+        enc_out=enc_out, enc_len=enc.lengths,
+    )
 
 
 def decode_unroll_factor(max_len: int) -> int:

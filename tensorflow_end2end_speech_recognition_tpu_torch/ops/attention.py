@@ -24,12 +24,13 @@ frame (a micro-batcher's filler row) gets ``align = 1/T`` everywhere, as
 CPU tensors take ``location_attend_plain``. CUDA tensors launch the
 hand-written kernel ``csrc/location_attend.cu`` (its energies and its
 softmax-and-context passes, two launches on the stream) or raise; there is
-no fallback. ``location_attend.launches`` counts calls that launched it. The
-kernel has no backward yet (the reference's ``_fused_bwd``, ``jax.vjp`` of
-``_reference_math``; attention training is not ported), so a CUDA call
-raises when grad is enabled and an input requires grad, instead of
-returning outputs with no ``grad_fn``; the plain version on the CPU is
-differentiable.
+no fallback. ``location_attend.launches`` counts calls that launched it.
+When a gradient may be taken the read goes through ``LocationAttend``:
+the forward is the kernel, and the backward recomputes
+``location_attend_plain`` under autograd and takes its vector-Jacobian
+product, as the reference's ``_fused_bwd`` takes ``jax.vjp`` of
+``_reference_math``. So the backward is plain arithmetic on either device,
+as the reference's is plain XLA.
 """
 
 from __future__ import annotations
@@ -118,19 +119,13 @@ def _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, g
                          f"{tuple(q.shape)}, conv_w {tuple(conv_w.shape)}")
 
 
-def location_attend(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
-                    sharpening: float = 1.0, *, b=None, group: int = 1):
-    """Kernel #7: ``(ctx [N, He], align [N, T])``; see the module docstring."""
-    _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, group)
+def location_attend_fwd(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                        sharpening: float = 1.0, b=None, group: int = 1):
+    """Kernel #7's forward on inputs ``_check_inputs`` accepted: the plain
+    version for CPU tensors, else one call of the kernel, counted."""
     if enc_out.device.type == "cpu":
         return location_attend_plain(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
                                      sharpening, b=b, group=group)
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad
-            for x in (keys, enc_out, q, prev_align, conv_w, w_loc, v, b)):
-        raise NotImplementedError(
-            "location_attend: the CUDA kernel has no backward (the reference's _fused_bwd is "
-            "not ported); call it under torch.no_grad() or on inputs that require no grad")
     lib = build.load_library()
     dev = enc_out.device
     t, he = enc_out.shape[1:]
@@ -151,6 +146,61 @@ def location_attend(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
     build.check(lib, code, "location_attend")
     location_attend.launches += 1
     return ctx, align
+
+
+def location_attend_bwd(saved, needs, sharpening: float, group: int, g_ctx, g_align):
+    """The gradients of ``LocationAttend``: autograd through
+    ``location_attend_plain`` recomputed on the ``saved`` inputs (keys,
+    enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b), for the floats
+    whose entry of ``needs`` is true; None for the others."""
+    keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b = saved
+    floats = [keys, enc_out, q, prev_align, conv_w, w_loc, v, b]
+    leaves = [None if x is None else x.detach().requires_grad_(need)
+              for x, need in zip(floats, needs)]
+    with torch.enable_grad():
+        k, e, qq, p, cw, wl, vv, bb = leaves
+        outs = location_attend_plain(k, e, qq, p, enc_mask, cw, wl, vv, sharpening, b=bb,
+                                     group=group)
+        grads = iter(torch.autograd.grad(outs, [x for x, need in zip(leaves, needs) if need],
+                                         (g_ctx, g_align)))
+    return [next(grads) if need else None for need in needs]
+
+
+class LocationAttend(torch.autograd.Function):
+    """Kernel #7 with its gradient: the kernel forward, the plain backward."""
+
+    @staticmethod
+    def forward(ctx, keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, sharpening,
+                b, group):
+        ctx.save_for_backward(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b)
+        ctx.sharpening, ctx.group = sharpening, group
+        return location_attend_fwd(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                                   sharpening, b, group)
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_align):
+        n = ctx.needs_input_grad
+        needs = (*n[:4], *n[5:8], n[9])  # every float input; not enc_mask
+        dk, de, dq, dp, dcw, dwl, dv, db = location_attend_bwd(
+            ctx.saved_tensors, needs, ctx.sharpening, ctx.group, g_ctx, g_align)
+        return dk, de, dq, dp, None, dcw, dwl, dv, None, db, None
+
+
+def location_attend(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                    sharpening: float = 1.0, *, b=None, group: int = 1):
+    """Kernel #7: ``(ctx [N, He], align [N, T])``; see the module docstring.
+
+    Goes through ``LocationAttend`` when autograd may need a gradient;
+    otherwise (serving, decoding) runs the forward alone.
+    """
+    _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, group)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (keys, enc_out, q, prev_align, conv_w, w_loc, v, b)):
+        return LocationAttend.apply(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                                    sharpening, b, group)
+    return location_attend_fwd(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
+                               sharpening, b, group)
 
 
 location_attend.launches = 0

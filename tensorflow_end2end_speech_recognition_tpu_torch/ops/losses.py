@@ -1,8 +1,7 @@
-"""Batch mean of per-utterance losses and L2 weight decay.
+"""Batch mean, smoothed cross entropy, the joint λ mix and L2 weight decay.
 
-Counterpart of ``batch_mean`` and ``l2_weight_decay`` in
-``tensorflow_end2end_speech_recognition_tpu/ops/losses.py``. Parameters are
-a dict of tensors (``state_dict`` keys).
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/ops/losses.py``.
+Parameters are a dict of tensors (``state_dict`` keys).
 """
 
 from __future__ import annotations
@@ -16,6 +15,25 @@ def batch_mean(per_utt: torch.Tensor, weight: torch.Tensor | None = None) -> tor
         return per_utt.mean()
     w = weight.to(torch.float32)
     return (per_utt * w).sum() / w.sum().clamp_min(1.0)
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                           label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-utterance [B] mean over valid positions of the cross entropy of
+    ``logits`` [B, U, V] against ``targets`` [B, U] (-1 on padding), with
+    uniform label smoothing over the whole vocabulary (``-mean(logp)``)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    tgt = torch.where(targets >= 0, targets, 0).long()
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(dim=-1)
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum(dim=-1) / mask.sum(dim=-1).clamp_min(1.0)
+
+
+def joint_loss(ctc_nll, att_nll, ctc_loss_weight: float):
+    """λ·L_ctc + (1−λ)·L_att."""
+    return ctc_loss_weight * ctc_nll + (1.0 - ctc_loss_weight) * att_nll
 
 
 def l2_weight_decay(params: dict, coeff: float) -> torch.Tensor:

@@ -112,8 +112,9 @@ def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
 
 
 def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
-    """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``
-    around ``forward_loss_fn(params, task, batch, train, generator)``.
+    """``(params, opt_state, batch, lr, generator, **kw) -> (params, opt_state,
+    aux)`` around ``forward_loss_fn(params, task, batch, train, generator,
+    **kw)`` (the attention step passes the global ``step``).
 
     Loss and gradient (autograd through the kernels), the optimizer's clip
     and update, then the guard of the JAX step: unless the loss is finite
@@ -127,10 +128,10 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
     if task.spec_augment is not None:
         raise NotImplementedError("SpecAugment is not ported yet")
 
-    def train_step(params, opt_state, batch, lr, generator=None):
+    def train_step(params, opt_state, batch, lr, generator=None, **kw):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
-            loss, aux = forward_loss_fn(leaves, task, batch, True, generator)
+            loss, aux = forward_loss_fn(leaves, task, batch, True, generator, **kw)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         with torch.no_grad():
             updates, new_state = optimizer.update(grads, opt_state)

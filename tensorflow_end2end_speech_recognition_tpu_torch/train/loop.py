@@ -1,10 +1,12 @@
 """Training loop: epochs, plateau LR, dev eval, best-on-dev checkpoints.
 
-Counterpart of the single-device CTC and transducer branches of ``fit`` in
+Counterpart of the single-device branches of ``fit`` in
 ``tensorflow_end2end_speech_recognition_tpu/train/loop.py``; the task module
-(``ctc_task`` or ``transducer_task``) is picked by ``model_type`` as
-``build_task`` picks it, and the dev eval runs the task's eval step through
-``evaluate_ctc`` as the JAX ``fit`` does. The model dir
+(``ctc_task``, ``transducer_task`` or, for the attention and joint
+CTC-attention models, ``att_task``, whose train step also takes the global
+step) is picked by ``model_type`` as ``build_task`` picks it, and the dev
+eval runs the task's eval step through ``evaluate_ctc`` as the JAX ``fit``
+does. The model dir
 gets a config copy, ``metrics.csv``, TensorBoard events, checkpoints kept by
 dev error and ``summary.json``. The steps run on ``device`` (the card unless
 the caller asks for the CPU); the host moves numpy batches in and fetches
@@ -30,11 +32,11 @@ from .. import set_full_fp32
 from ..data.dataset import Dataset, to_device
 from ..data.prefetch import prefetch
 from ..data.toy_corpus import ToyCorpus
-from ..utils.config import ExperimentConfig
+from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
 from ..utils.tb_events import EventWriter
 from .checkpoint import CheckpointManager, tree_to
-from . import ctc_task, transducer_task
+from . import att_task, ctc_task, transducer_task
 from .lr_controller import LRController
 from .optimizer import build_optimizer
 
@@ -71,7 +73,9 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
 
     train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
     task = exp.task(tokenizer.num_units)
-    task_mod = transducer_task if exp.model_type == "transducer" else ctc_task
+    is_att = exp.model_type in ATTENTION_MODEL_TYPES
+    task_mod = (att_task if is_att else
+                transducer_task if exp.model_type == "transducer" else ctc_task)
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed,
@@ -126,7 +130,8 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         for batch in prefetch(train_ds.batches(epoch)):
             eff_lr = lr * min(1.0, (step + 1) / exp.warmup_steps) if exp.warmup_steps else lr
             params, opt_state, aux = train_step(params, opt_state, to_device(batch, device),
-                                                eff_lr, generator)
+                                                eff_lr, generator,
+                                                **({"step": step} if is_att else {}))
             nonfinite += aux["nonfinite"]
             step += 1
             n_utts += sum(1 for n in batch["names"] if n is not None)

@@ -6,12 +6,12 @@ trains (the CTC configs ``configs/ls100_ctc.yml``,
 ``configs/timit_ctc_blstm.yml`` and ``configs/ls_streaming_ctc.yml``; the
 transducer config ``configs/ls_transducer.yml``; the attention and joint
 CTC-attention configs ``configs/timit_attention.yml`` and
-``configs/ls960_joint.yml``, served only), with the JAX defaults, and builds
+``configs/ls960_joint.yml``), with the JAX defaults, and builds
 the same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values. A key the JAX package knows but
 the port does not raises ``KeyError`` when it is read; a value the port has
-not ported (another model type, training an attention model, a mesh,
+not ported (another model type or encoder type, a mesh,
 gradient accumulation, SpecAugment, on-disk corpora, the hard toy corpus,
 per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
@@ -305,9 +305,6 @@ class ExperimentConfig:
 
     def check_trainable(self) -> None:
         """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
-        if self.model_type in ATTENTION_MODEL_TYPES:
-            raise NotImplementedError(
-                f"training model_type {self.model_type!r} is not ported yet (serving only)")
         unported = {
             "data_root (on-disk corpora)": self.data_root is not None,
             "label_type_sub (multitask CTC)": self.label_type_sub is not None,

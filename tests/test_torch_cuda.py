@@ -9,7 +9,9 @@ Tolerances in float32 at these short sequences: atol/rtol 1e-5 for the LSTM
 kernels #1-#4 (the kernel and cuBLAS sum each dot product in different orders),
 1e-4 absolute on CTC losses (a sum of T log terms) and 1e-5 on CTC gradients;
 for the location-attention read 1e-5 on the alignment and 1e-4 on the context
-(a sum over T of weights times encoder values of order 1).
+(a sum over T of weights times encoder values of order 1), and 1e-5 on its
+gradients (the same plain arithmetic recomputed on the same inputs); 1e-4
+where a recurrence runs 1198 steps or a whole model is held against the CPU.
 """
 
 import numpy as np
@@ -47,6 +49,7 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_plan,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import build
+from tensorflow_end2end_speech_recognition_tpu_torch.train import att_task
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import ctc as ctc_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import lstm as lstm_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import (
@@ -340,6 +343,20 @@ def test_forward_entry_points_refuse_an_exchange_buffer_of_another_size(dev):
     assert not ys.any() and not ys_b.any()  # nothing ran
 
 
+def test_bidi_kernels_at_the_pyramidal_training_shape(dev):
+    """#1 with ``cs`` and #2 at the ls960_joint train step's first layer, B = 32,
+    T = 1198, H = 512, lengths that include 1 and T: the plain versions within
+    1e-4 (differences carried through 1198 steps), two calls equal bit for bit."""
+    b, t, h = 32, 1198, 512
+    args, fwd, gys, _ = _bwd_case(dev, b, t, h, seed=11)
+    got = [lstm_bidi_fwd(*args, 1.0, with_cs=True) for _ in range(2)]
+    dx = [lstm_bidi_bwd(*args, *fwd, *gys, 1.0) for _ in range(2)]
+    torch.cuda.synchronize()
+    for g, w in zip((*got[0], *dx[0]), (*fwd, *lstm_bidi_bwd_plain(*args, *fwd, *gys, 1.0))):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    assert all(torch.equal(x, y) for x, y in zip((*got[0], *dx[0]), (*got[1], *dx[1])))
+
+
 @pytest.mark.parametrize("b,t,h", [(300, 8, 512), (600, 4, 512), (80, 4, 1536)])
 def test_kernels_past_the_register_carries(dev, b, t, h):
     """A batch past B x units = 2048 for #1/#2 (B = 300 and 600 at H = 512,
@@ -579,6 +596,48 @@ def test_ctc_model_on_card_trains_every_parameter(dev):
         torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=name)
 
 
+def test_joint_train_step_on_card_matches_cpu(dev):
+    """The joint CTC-attention loss with every term on (smoothing, λ anneal,
+    guided attention, weight decay) and its gradient, card against CPU, on an
+    odd T (the pyramid's zero frame) and ragged lengths: 3 #1 and 3 #2
+    launches, 1 #5, and no #7 (training reads attention unfused)."""
+    cfg = Seq2SeqConfig(
+        encoder=EncoderConfig(encoder_type="pyramidal_blstm", num_units=16, num_layers=3),
+        attention=AttentionConfig(attention_dim=12, conv_num_channels=4, conv_width=9),
+        num_classes=7, decoder_num_units=16, embedding_dim=8, ctc_loss_weight=0.3)
+    task = att_task.AttTaskConfig(model=cfg, frontend=None, feature_dim=10, weight_decay=1e-3,
+                                  label_smoothing=0.05, guided_attention_weight=5.0,
+                                  guided_attention_decay_steps=20, ctc_weight_init=0.6,
+                                  ctc_weight_anneal_steps=60)
+    params = att_task.init_params(task, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(4)
+    batch = {"inputs": torch.from_numpy(rng.randn(3, 41, 10).astype(np.float32)),
+             "input_len": torch.tensor([41, 26, 15]),
+             "labels": torch.tensor([[0, 1, 1, 6], [2, 3, -1, -1], [4, -1, -1, -1]],
+                                    dtype=torch.int32),
+             "label_len": torch.tensor([4, 2, 1], dtype=torch.int32),
+             "weight": torch.tensor([1.0, 1.0, 0.0])}
+    counts = (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches,
+              location_attend.launches)
+    res = []
+    for d in ("cpu", dev):
+        leaves = {k: v.to(d).requires_grad_(True) for k, v in params.items()}
+        loss, aux = att_task.forward_loss(leaves, task, {k: v.to(d) for k, v in batch.items()},
+                                          True, step=10)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        res.append(({k: float(v.detach()) for k, v in aux.items()}, [g.cpu() for g in grads]))
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches,
+            location_attend.launches) == (counts[0] + 3, counts[1] + 3, counts[2] + 1, counts[3])
+    (aux_cpu, g_cpu), (aux_dev, g_dev) = res
+    assert set(aux_cpu) == {"att_nll", "ctc_nll", "guided_att", "loss"}
+    for k, v in aux_cpu.items():
+        assert aux_dev[k] == pytest.approx(v, rel=1e-5, abs=1e-5), k
+    for name, a, b in zip(params, g_cpu, g_dev):
+        assert bool(a.abs().sum() > 0), name
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4, msg=name)
+
+
 def _attend_case(dev, n, t, a, he, c, w, lengths, seed):
     rng = np.random.RandomState(seed)
     logits = rng.randn(n, t).astype(np.float32)
@@ -688,30 +747,41 @@ def test_location_attend_rejects_mixed_devices(dev):
         location_attend(*args)
 
 
-def test_location_attend_raises_when_a_gradient_is_wanted(dev):
-    """The kernel has no backward: with grad enabled and an input that
-    requires grad the CUDA call raises instead of returning outputs with no
-    ``grad_fn``; under ``torch.no_grad()`` it runs; the plain version on the
-    CPU keeps its gradient."""
-    args = _attend_case(dev, 2, 9, 8, 8, 2, 3, [9, 4], seed=1)
-    args[2] = args[2].clone().requires_grad_(True)  # q = dec_state @ W_dec
-    before = location_attend.launches
-    with pytest.raises(NotImplementedError, match="no backward"):
-        location_attend(*args)
-    assert location_attend.launches == before
-    with torch.no_grad():
-        ctx, align = location_attend(*args)
-        want = location_attend_plain(*args)
-    torch.cuda.synchronize()
-    assert location_attend.launches == before + 1 and ctx.grad_fn is None
-    torch.testing.assert_close(align, want[1], atol=1e-5, rtol=0)
-    torch.testing.assert_close(ctx, want[0], atol=1e-4, rtol=0)
-    cpu = [a.detach().cpu() for a in args]
-    cpu[2].requires_grad_(True)
-    ctx_cpu, _ = location_attend(*cpu)
-    assert ctx_cpu.grad_fn is not None
-    ctx_cpu.sum().backward()
-    assert cpu[2].grad is not None and bool(torch.isfinite(cpu[2].grad).all())
+@pytest.mark.parametrize("g,t,a,he,c,w,lengths,with_keys", [
+    (1, 300, 256, 1024, 10, 101, [300, 1, 0, 150, 299, 64, 7, 233], True),  # greedy, ls960
+    (8, 300, 256, 1024, 10, 101, [300, 1, 0, 150, 299, 64, 7, 233], True),  # beam-8, ls960
+    (3, 37, 16, 12, 4, 10, [37, 5], False),  # a pure location scorer, even W
+])
+def test_location_attend_gradient_matches_plain_autograd(dev, g, t, a, he, c, w, lengths,
+                                                         with_keys):
+    """``LocationAttend`` (the kernel forward, then autograd through the
+    recomputed plain read) against autograd through ``location_attend_plain``
+    on the card: every float input's gradient; one kernel launch per call,
+    none in the backward."""
+    args, b = _grouped_attend_case(dev, g, t, a, he, c, w, lengths, seed=t + g + 5,
+                                   with_keys=with_keys)
+    rng = np.random.RandomState(g)
+    n = len(lengths) * g
+    cts = [torch.from_numpy(rng.randn(n, x).astype(np.float32)).to(dev) for x in (he, t)]
+    names = ["keys", "enc_out", "q", "prev_align", "conv_w", "w_loc", "v", "b"]
+    grads = []
+    for fn in (location_attend, location_attend_plain):
+        leaves = [None if x is None else x.clone().requires_grad_(True)
+                  for x in (*args[:4], *args[5:], b)]
+        before = location_attend.launches
+        outs = fn(*leaves[:4], args[4], *leaves[4:7], 1.5, b=leaves[7], group=g)
+        used = [x for x in leaves if x is not None]
+        grads.append(torch.autograd.grad(outs, used, cts))
+        torch.cuda.synchronize()
+        assert location_attend.launches == before + (fn is location_attend)
+    assert len(grads[0]) == (8 if with_keys else 7)
+    for name, got, want in zip([k for k, x in zip(names, (*args[:4], *args[5:], b))
+                                if x is not None], *grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=name)
+        assert bool(got.abs().sum() > 0), name
+    with torch.no_grad():  # no gradient wanted: the kernel alone, no grad_fn
+        ctx, _ = location_attend(*args, 1.5, b=b, group=g)
+    assert ctx.grad_fn is None
 
 
 def test_attention_model_on_card_matches_cpu(dev):
