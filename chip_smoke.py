@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's CTC serving, CTC training, attention
-serving, attention training, and transducer serving and training paths on
-one NVIDIA GPU.
+serving, attention training, transducer serving and training, beam
+decoding, eval / decode and RNN-LM paths on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -34,6 +34,17 @@ Phases; any failure exits non-zero and prints no result line:
 7. time the serving phases on 8 x 12 s and serve 8 concurrent
    ``/recognize`` requests through ``bin/serve.make_server`` (the serving
    path; launch counts reset just before and read just after);
+7a. the CTC prefix beam (W=20, K=16, as ``bin/eval`` runs ls100_ctc) on
+    the card against the CPU beam on the same (card) logits, 2 x 1 s
+    (prefixes and lengths of live slots equal, scores within 1e-3 + 1e-5 x
+    |score|), its frame loop under CUDA's sync debug mode set to raise (no
+    host sync);
+7b. time the prefix beam on the logits of 8 x 12 s: wall, device time,
+    busy share, device launches per frame, device memory above the logits;
+7c. serve 8 concurrent ``/recognize`` requests through
+    ``bin/serve.make_server(..., beam_width=20)`` (the CTC beam serving
+    path; launch counts reset just before and read just after: 5 #1 per
+    batch and nothing else);
 8. time train steps at B=32 x 12 s (dropout 0.8, Adam): ms per step,
    utterances/s, peak memory, kernel launches per step (exactly 5 forward,
    5 backward, 1 CTC), and a profile of one step's device time by kernel,
@@ -61,6 +72,10 @@ Phases; any failure exits non-zero and prints no result line:
     seeded uniform +-0.1 weights; on 2 x 1 s check the encoder outputs, CTC
     logits, greedy ids and logits and beam-8 tokens, lengths and scores on
     the card against the CPU (plain path);
+12a. the beam eval step of ``bin/eval`` on ls960_joint (beam 8, joint
+     rescoring at the config's λ 0.3, length penalty 0.6) on 2 x 1 s, card
+     against CPU: ids and lengths equal, the teacher-forced NLL within 1e-4
+     relative;
 13. time the attention serving phases on 8 x 12 s (frontend, encoder,
     greedy decode, beam-8 decode, each with its steps and #7 launches) with
     a profile of each decode's device time and its device memory, check
@@ -69,6 +84,14 @@ Phases; any failure exits non-zero and prints no result line:
     ``/recognize`` requests through ``bin/serve.make_server(...,
     beam_width=8)`` (the attention serving path; launch counts reset just
     before and read just after);
+13a. kernel #6 at the joint-rescoring shape (N=64: 8 utterances x 8
+     hypotheses, T=300, C=29, U up to 120, lengths 0..120, labels that
+     include the blank id, rows without an alignment) against its plain
+     version: two calls equal bit for bit, device launches per call, time
+     from graph replays beside ``F.log_softmax`` + ``F.ctc_loss`` and the
+     bound; a kernels entry of its own (``ctc_loss_fwd_only_rescoring``);
+13b. time the beam eval step on one 8 x 12 s batch: wall, busy share and
+     its launches (exactly 5 #1, one #7 per decoder step, one #6);
 14. ``lstm_bidi`` forward with ``cs`` (#1) and its backward (#2) at the
     ls960_joint train step's first layer, B=32, T=1198, D=120 -> H=512,
     ragged lengths that include 1 and T, each against its plain version
@@ -91,6 +114,18 @@ Phases; any failure exits non-zero and prints no result line:
     corpus (the attention training path; launch counts reset just before
     and read just after): finite losses, no skipped step, the dev eval
     through the greedy decode on #7, checkpoints and summary written;
+18a. the CLIs on the model dirs that phases 9 and 18 wrote, each with the
+     launch counts reset just before and read just after: ``bin/eval`` on
+     ls100_ctc (its beam 20: #1 and #6) and on ls960_joint (beam 8 with
+     joint rescoring: #1, #7, #6), ``bin/decode --nbest 2`` on each (beam
+     20; beam 8 with ``--joint-rescore``), ``bin/train_lm`` for one epoch
+     on the ls960_joint toy corpus at the CLI's default width (256 units,
+     embedding 128, one layer; no kernel), and ``bin/eval --lm-dir`` at
+     beam 8 on both model dirs;
+18b. shallow fusion with that LM, card against CPU on 2 x 1 s: the CTC
+     prefix beam (W=20, carried LM state) on the same (card) logits, and
+     the attention beam (beam 8, length penalty 0.6, then joint rescoring)
+     on the same (card) encoder outputs;
 19. unidirectional layer kernel: ``lstm_layer`` forward (#3, one cooperative
     launch) against its plain version at the ls_transducer encoder's serving
     shape, B=8, T=400, D=120 -> H=512, lengths that include 1 and T, and
@@ -124,8 +159,8 @@ plain, beside one PyTorch call that computes the same function where there
 is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 #3/#4; ``F.log_softmax`` + ``F.ctc_loss``; none for the attention read),
 which the port never calls; the calls of #5-#7, short beside their Python
-wrapper, are timed from CUDA-graph replays. Prints a JSON line of the kernels, the
-card's name and power limit, and as the last line
+wrapper, are timed from CUDA-graph replays. Prints a JSON line of the kernels
+(and the prefix beam's numbers), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -150,9 +185,17 @@ import torch
 import torch.nn.functional as F
 
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
+from tensorflow_end2end_speech_recognition_tpu_torch.bin import decode as decode_cli
+from tensorflow_end2end_speech_recognition_tpu_torch.bin import eval as eval_cli
+from tensorflow_end2end_speech_recognition_tpu_torch.bin import train_lm as train_lm_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_server
 from tensorflow_end2end_speech_recognition_tpu_torch.data.tokenizers import CHAR_UNITS
-from tensorflow_end2end_speech_recognition_tpu_torch.decoding import attention_beam_search
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding import (
+    attention_beam_search,
+    ctc_prefix_beam,
+    ctc_prefix_beam_search,
+    joint_rescore,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
     ctc_greedy_decode,
 )
@@ -160,6 +203,7 @@ from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy 
     transducer_greedy_decode,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn, seq2seq
+from tensorflow_end2end_speech_recognition_tpu_torch.models.lm import make_fusion_lm
 from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import pred_tokens
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.transducer import rnnt_loss
@@ -228,6 +272,10 @@ NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
 B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
 ATT_T, ATT_A, ATT_HE, ATT_C, ATT_W = 300, 256, 1024, 10, 101  # encoder frames after 2 x 2x
 BEAM = 8
+# the CTC prefix beam of configs/ls100_ctc.yml (beam_width 20) and the JAX
+# eval step's top-K classes; the longest hypothesis joint rescoring scores
+CTC_BEAM, CTC_TOPK = 20, 16
+RESCORE_U = 120
 # float32: one read sums 101 taps, 256 scores and 300 context terms in other
 # orders than the plain version's conv / matmul / softmax
 ATT_ALIGN_ATOL = 1e-5
@@ -564,29 +612,38 @@ def ctc_inputs(dev, seed: int, u: int = U):
 
 def device_launches(fn, reps: int = 5) -> dict:
     """Per kernel that ``fn`` launches: device launches per call and µs per
-    launch, from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    launch, from the profiler. One warm-up step of the profiler's schedule
+    runs ``fn`` once with the tracer already on, and only the active step's
+    ``reps`` calls are read: a window that opens on the first call can miss
+    its launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    events = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     return {e.key.split("(")[1].split("::")[-1]: {"per_call": e.count / reps,
                                                    "us": e.self_device_time_total / e.count}
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+            for e in events if e.self_device_time_total > 0}
 
 
-def ctc_work(logit_len, label_len, u: int, grad: bool) -> dict:
+def ctc_work(logit_len, label_len, u: int, grad: bool, b: int = B_TRAIN,
+             t: int = T_ENC) -> dict:
     """Bytes (logits read, gradient written, labels, lengths, loss) and float32
     operations of the valid frames: per frame about 4 C ops of log-softmax
     and 12 per lane for alpha; for training also beta, gamma (12 each per
     lane) and the gradient (C softmax terms, one posterior per lane)."""
     valid = logit_len.double()
     lanes = 2 * label_len.double() + 1
-    logits_b = B_TRAIN * T_ENC * C * F32
-    small = (B_TRAIN * u + 3 * B_TRAIN) * F32
+    logits_b = b * t * C * F32
+    small = (b * u + 3 * b) * F32
     if grad:
         return bound(2 * logits_b + small, float((valid * (6 * C + 40 * lanes)).sum()))
     return bound(logits_b + small, float((valid * (4 * C + 12 * lanes)).sum()))
@@ -941,9 +998,10 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
             "launches": counts, "busy_share": busy / wall, "device_launches": device}
 
 
-def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
-    """``fit`` on the config ``raw`` for one toy epoch: the training path's launch
-    counts. Each kernel in ``launched`` must run, and no other."""
+def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple, model_dir: Path) -> dict:
+    """``fit`` on the config ``raw`` for one toy epoch into ``model_dir`` (the
+    CLI phases read it later): the training path's launch counts. Each kernel
+    in ``launched`` must run, and no other."""
     exp = experiment_from_dict(dict(raw, num_epoch=1))
     lines = []
 
@@ -951,15 +1009,14 @@ def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple) -> dict:
         lines.append(s)
         print(s, flush=True)
 
-    with tempfile.TemporaryDirectory() as model_dir:
-        reset_counts()
-        t0 = time.perf_counter()
-        summary = fit(exp, model_dir, log_every=1, print_fn=log, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        written = {f: (Path(model_dir) / f).exists() for f in
-                   ("summary.json", "metrics.csv", "config.yml", "checkpoints/epoch_0.pt")}
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = fit(exp, model_dir, log_every=1, print_fn=log, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    written = {f: (Path(model_dir) / f).exists() for f in
+               ("summary.json", "metrics.csv", "config.yml", "checkpoints/epoch_0.pt")}
     losses = [float(s.split(" loss ")[1].split()[0]) for s in lines if " loss " in s]
     print(f"phase fit {name} 1 toy epoch ({exp.toy_num_utts} utterances): {wall:.1f} s wall "
           f"(model init and data included), {summary['utts_per_sec']:.1f} training "
@@ -1558,6 +1615,351 @@ def serve_transducer_requests(task, model, gpu: str) -> dict:
     return counts
 
 
+# ---- beam decoding, joint rescoring, eval / decode CLIs and the RNN-LM ------------
+
+
+def short_batch(n_rows: int, seed: int, max_labels: int) -> dict:
+    """2 x 1 s (the second row 0.6 s) with labels: the card-vs-CPU inputs."""
+    batch = train_batch(n_rows, 1.0, seed=seed, max_labels=max_labels)
+    batch["input_len"][1:] = int(0.6 * SR)
+    batch["inputs"][1:, int(0.6 * SR):] = 0.0
+    return batch
+
+
+def beams_agree(what: str, got, want) -> None:
+    """Prefix-beam outputs (prefixes, lengths, scores) of the card against the
+    CPU's: live slots (score above -1e29) hold equal prefixes and lengths and
+    scores within MODEL_ATOL + BEAM_SCORE_RTOL x |score|."""
+    got = [x.cpu() for x in got]
+    live = want[2] > -1e29
+    same = (torch.equal(got[2] > -1e29, live) and torch.equal(got[0][live], want[0][live])
+            and torch.equal(got[1][live], want[1][live]))
+    err = float((got[2][live] - want[2][live]).abs().max())
+    ok = bool(((got[2][live] - want[2][live]).abs()
+               <= MODEL_ATOL + BEAM_SCORE_RTOL * want[2][live].abs()).all())
+    print(f"{what}, card vs CPU: live slots {int(live.sum())}, prefixes and lengths equal: "
+          f"{same}, scores max abs err {err:.3e} (tolerance {MODEL_ATOL:g} + "
+          f"{BEAM_SCORE_RTOL:g} x |score|), best lengths {got[1][:, 0].tolist()}", flush=True)
+    if not (same and ok):
+        raise RuntimeError(f"{what} on the card disagrees with the CPU")
+
+
+def ctc_logits(task, model, batch: dict, dev):
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, {k: torch.from_numpy(batch[k]).to(dev)
+                                           for k in ("inputs", "input_len")})
+        out = model(feats, fl)
+    return out.logits, out.logit_len
+
+
+def check_ctc_beam(task, model, dev) -> None:
+    """The prefix beam (W = 20, K = 16) on the card against the CPU beam on the
+    same (card) logits, 2 x 1 s; the card's frame loop runs with CUDA's sync
+    debug mode set to raise, so it reads nothing back to the host."""
+    logits, lens = ctc_logits(task, model, short_batch(2, 40, 6), dev)
+    blank = task.model.blank_id
+    want = ctc_prefix_beam_search(logits.cpu(), lens.cpu(), blank, beam_width=CTC_BEAM,
+                                  top_k_classes=CTC_TOPK)
+    state = ctc_prefix_beam.beam_init(2, CTC_BEAM, logits.shape[1], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = ctc_prefix_beam.beam_advance(state, logits, lens, blank, CTC_TOPK)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    beams_agree(f"ls100_ctc prefix beam W={CTC_BEAM} K={CTC_TOPK} on 2 x 1 s (no host sync "
+                "in the frame loop)", ctc_prefix_beam.beam_finalize(state), want)
+
+
+def time_ctc_beam(task, model, dev, gpu: str) -> dict:
+    """The prefix beam on the logits of 8 x 12 s: wall, device time, busy
+    share, device launches per frame and the device memory above the logits."""
+    rng = np.random.RandomState(41)
+    batch = {"inputs": (rng.randn(B, 12 * SR) * 0.1).astype(np.float32),
+             "input_len": np.full((B,), 12 * SR, np.int32)}
+    logits, lens = ctc_logits(task, model, batch, dev)
+    t_out = logits.shape[1]
+
+    def decode():
+        return ctc_prefix_beam_search(logits, lens, task.model.blank_id, beam_width=CTC_BEAM,
+                                      top_k_classes=CTC_TOPK)
+
+    wall = host_ms(decode, 3)
+    wall_prof, busy, kernels = device_busy(decode)
+    launches = sum(n for _, _, n in kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    prefixes, lengths, scores = decode()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    if not bool(torch.isfinite(scores[:, 0]).all()) or int(lengths[:, 0].min()) < 1:
+        raise RuntimeError(f"beam decode gave scores {scores[:, 0]} lengths {lengths[:, 0]}")
+    r = {"ms": wall, "device_ms": busy, "busy_share": busy / wall_prof,
+         "launches_per_frame": launches / t_out, "peak_mib": peak}
+    print(f"phase ls100_ctc prefix beam decode W={CTC_BEAM} K={CTC_TOPK}, {B} x 12 s "
+          f"(T'={t_out}): {wall:.3f} ms per batch ({wall / t_out:.3f} ms per frame), "
+          f"{busy:.3f} ms of device time in {launches} launches "
+          f"({r['launches_per_frame']:.1f} per frame), {100 * r['busy_share']:.1f} % busy "
+          f"(profiled wall {wall_prof:.3f} ms), {peak:.1f} MiB of device memory above the "
+          f"logits; top kernels by device time:  [{gpu}]", flush=True)
+    for key, t, n in kernels[:6]:
+        print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
+    return r
+
+
+def serve_ctc_beam_requests(task, model, gpu: str) -> dict:
+    """8 concurrent /recognize requests at beam 20; returns the launches they caused."""
+    responses, lat, counts, batches, health = post_requests(
+        task, model, REQUEST_SECONDS, seed=42, beam_width=CTC_BEAM)
+    if health["beam_width"] != CTC_BEAM or health["decode"] != "ctc_prefix_beam":
+        raise RuntimeError(f"unexpected /healthz {health}")
+    for seconds, r in zip(REQUEST_SECONDS, responses):
+        ids = r["ids"]
+        if (r["num_ids"] != len(ids) or not all(0 <= i < task.model.num_classes for i in ids)
+                or r.get("text") is None or "truncated" in r):
+            raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
+    print_latency(f"ls100_ctc request latency, prefix beam {CTC_BEAM}", responses, lat,
+                  batches, gpu)
+    print(f"CTC beam serving path launches: {counts}", flush=True)
+    if batches < 1 or counts != dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS * batches):
+        raise RuntimeError(f"CTC beam serving launches {counts} for {batches} batch(es)")
+    return counts
+
+
+def rescoring_inputs(dev, seed: int = 43):
+    """#6 as joint rescoring calls it at beam 8: N = 64 rows (8 utterances x 8
+    hypotheses, each utterance's CTC frames repeated), T = 300, C = 29, up to
+    U = 120 labels, lengths 0..120, labels that include the blank id (the
+    decoder's sos), -1 past each length."""
+    rng = np.random.RandomState(seed)
+    n = B_ATT * BEAM
+    utt = rng.randn(B_ATT, ATT_T, C).astype(np.float32) * 3
+    logits = np.repeat(utt, BEAM, axis=0)
+    frames = np.asarray([ATT_T, 1] + list(rng.randint(100, ATT_T + 1, B_ATT - 2)), np.int32)
+    logit_len = np.repeat(frames, BEAM)
+    label_len = rng.randint(0, RESCORE_U + 1, n).astype(np.int32)
+    label_len[:2] = (0, RESCORE_U)
+    labels = rng.randint(0, C, (n, RESCORE_U)).astype(np.int32)  # C - 1 is the blank
+    labels[np.arange(RESCORE_U)[None] >= label_len[:, None]] = -1
+    as_t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return as_t(logits), as_t(logit_len), as_t(labels), as_t(label_len)
+
+
+def check_rescoring_ctc(dev, gpu: str) -> dict:
+    """#6 at the rescoring shape against its plain version: two calls equal bit
+    for bit, device launches per call, time from graph replays (plain, kernel,
+    kernel, plain) beside ``F.log_softmax`` + ``F.ctc_loss`` and the bound."""
+    blank = C - 1
+    args = rescoring_inputs(dev)
+    logits, logit_len, labels, label_len = args
+    shape = f"N={B_ATT * BEAM} T={ATT_T} C={C} U={RESCORE_U}"
+    got, again = (ctc.ctc_loss_fwd_only(*args, blank) for _ in range(2))
+    want = ctc.ctc_loss_fwd_only_plain(*args, blank)
+    torch.cuda.synchronize()
+    err = check(f"ctc_loss_fwd_only {shape} (rescoring)", [got], [want], 0.0, CTC_LOSS_RTOL)
+    if not torch.equal(got, again):
+        raise RuntimeError(f"ctc_loss_fwd_only {shape}: two calls on the same inputs differ")
+    impossible = int((want > 1e20).sum())
+    kernel = lambda: ctc.ctc_loss_fwd_only(*args, blank)  # noqa: E731
+    launched = device_launches(kernel)  # before any graph capture, as check_ctc
+    if sorted(v["per_call"] for v in launched.values()) != [1.0, 1.0]:
+        raise RuntimeError(f"ctc_loss_fwd_only {shape}: expected 2 device launches per call "
+                           f"(frames, chains), the profiler saw {launched}")
+
+    def library():
+        lp = F.log_softmax(logits, dim=-1).transpose(0, 1)
+        return F.ctc_loss(lp, labels.clamp_min(0).long(), logit_len.long(), label_len.long(),
+                          blank=blank, reduction="none")
+
+    plain = lambda: ctc.ctc_loss_fwd_only_plain(*args, blank)  # noqa: E731
+    plain_runs = [cuda_ms(plain, 2)]
+    runs = [graph_ms(kernel, CTC_REPS) for _ in range(2)]
+    plain_runs.append(cuda_ms(plain, 2))
+    r = dict(max_abs_err=err, deterministic=True, ms=sum(runs) / 2, ms_runs=runs,
+             plain_ms=sum(plain_runs) / 2, plain_ms_runs=plain_runs,
+             library_ms=cuda_ms(library, 20), device_launches=launched,
+             plan=ctc.ctc_plan(B_ATT * BEAM, ATT_T, 2 * RESCORE_U + 1, grad=False)._asdict(),
+             impossible_rows=impossible,
+             **ctc_work(logit_len, label_len, RESCORE_U, grad=False, b=B_ATT * BEAM, t=ATT_T))
+    split = ", ".join(f"{k} {v['per_call']:g} x {v['us']:.2f} us"
+                      for k, v in r["device_launches"].items())
+    print(f"phase ctc_loss_fwd_only {shape} (joint rescoring at beam {BEAM}; {impossible} rows "
+          f"without an alignment): kernel {r['ms']:.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}; "
+          f"graph replays), plain {r['plain_ms']:.3f} ms (runs {plain_runs[0]:.3f}, "
+          f"{plain_runs[1]:.3f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"F.log_softmax+F.ctc_loss {r['library_ms']:.3f} ms; device launches per call: "
+          f"{split}; plan {r['plan']['route']} K={r['plan']['lanes_per_thread']} "
+          f"warps={r['plan']['chain_warps']}  [{gpu}]", flush=True)
+    return r
+
+
+def check_att_beam_eval(task, att_cpu, att_model, dev) -> None:
+    """The beam eval step of ``bin/eval`` (beam 8, joint rescoring at the
+    config's λ, length penalty 0.6) on 2 x 1 s, card against CPU: ids and
+    lengths equal, the NLL within LOSS_RTOL."""
+    cfg = task.model
+    step = att_task.make_beam_eval_step(task, BEAM, LS960_JOINT["length_penalty"],
+                                        joint_rescore_weight=cfg.ctc_loss_weight)
+    batch = short_batch(2, 44, 6)
+    outs = []
+    for model, device in ((att_cpu, torch.device("cpu")), (att_model, dev)):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        outs.append([x.cpu() for x in step(dict(model.state_dict()), tb)])
+    (ic, lc, nc), (ig, lg, ng) = outs
+    err = float(((nc - ng).abs() / nc.abs()).max())
+    same = torch.equal(ic, ig) and torch.equal(lc, lg)
+    print(f"ls960_joint beam eval step (beam {BEAM}, joint rescoring, length penalty "
+          f"{LS960_JOINT['length_penalty']}) on 2 x 1 s, card vs CPU: ids and lengths equal: "
+          f"{same}, lengths {lg.tolist()}, NLL {ng.tolist()} vs {nc.tolist()} (max rel err "
+          f"{err:.2e}, tolerance {LOSS_RTOL:g})", flush=True)
+    if not (same and err <= LOSS_RTOL):
+        raise RuntimeError("the ls960_joint beam eval step on the card disagrees with the CPU")
+
+
+def time_att_beam_eval(task, att_model, dev, gpu: str) -> dict:
+    """One 8 x 12 s batch through the beam eval step (beam 8, rescoring):
+    wall, busy share, and its launches (5 #1, one #7 per decoder step, one #6)."""
+    cfg = task.model
+    step = att_task.make_beam_eval_step(task, BEAM, LS960_JOINT["length_penalty"],
+                                        joint_rescore_weight=cfg.ctc_loss_weight)
+    batch = train_batch(B_ATT, 12.0, seed=45, max_labels=U)
+    batch["input_len"][:] = 12 * SR
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = dict(att_model.state_dict())
+    step(params, tb)
+    torch.cuda.synchronize()
+    reset_counts()
+    ids, lengths, nll = step(params, tb)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = host_ms(lambda: step(params, tb), 2)
+    wall_prof, busy, kernels = device_busy(lambda: step(params, tb))
+    steps = counts["location_attend"]
+    print(f"phase ls960_joint beam eval step (beam {BEAM}, joint rescoring) {B_ATT} x 12 s: "
+          f"{wall:.3f} ms per batch, {busy:.3f} ms of device time ({100 * busy / wall_prof:.1f}"
+          f" % busy), {steps} decoder steps, launches {counts}, NLL mean "
+          f"{float(nll.mean()):.3f}  [{gpu}]", flush=True)
+    k = seq2seq.decode_unroll_factor(cfg.max_decode_length)
+    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, location_attend=steps, ctc_loss_fwd_only=1)
+    if counts != want or steps % k or not k <= steps <= cfg.max_decode_length:
+        raise RuntimeError(f"beam eval step launches {counts}; expected {want}")
+    if not bool(torch.isfinite(nll).all()):
+        raise RuntimeError(f"beam eval step NLL {nll}")
+    return {"ms": wall, "device_ms": busy, "busy_share": busy / wall_prof, "launches": counts}
+
+
+def run_cli(what: str, fn, argv: list, launched: tuple, gpu: str):
+    """``fn(argv)`` (a CLI's ``main``) with the launch counts reset just before
+    and read just after: each kernel in ``launched`` must run, and no other."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"phase {what}: {wall:.1f} s wall, launches {counts}  [{gpu}]", flush=True)
+    if min(counts[k] for k in launched) < 1 or any(counts[k] for k in COUNTERS
+                                                   if k not in launched):
+        raise RuntimeError(f"{what} launched {counts}; expected {launched}")
+    return out, counts
+
+
+def run_clis(ctc_dir: Path, joint_dir: Path, lm_dir: Path, gpu: str) -> dict:
+    """``bin/eval`` (ls100_ctc at its beam 20; ls960_joint at beam 8 with joint
+    rescoring), ``bin/decode --nbest 2`` on each, ``bin/train_lm`` for one epoch
+    on the ls960_joint toy corpus at the CLI's default width, and ``bin/eval
+    --lm-dir`` at beam 8 on both model dirs. Returns the launch counts."""
+    ctc_kernels = ("lstm_bidi_fwd", "ctc_loss_fwd_only")
+    att_kernels = ("lstm_bidi_fwd", "location_attend", "ctc_loss_fwd_only")
+    counts = {}
+
+    def evaluate(name, model_dir, extra, kernels):
+        res, c = run_cli(f"bin/eval {name} {' '.join(extra)}".strip(), eval_cli.main,
+                         [str(model_dir), "--device", "cuda", *extra], kernels, gpu)
+        if not all(np.isfinite(res[s]["error_rate"]) and np.isfinite(res[s]["loss"])
+                   and res[s]["num_utts"] > 0 for s in ("dev", "test")):
+            raise RuntimeError(f"bin/eval {name} gave {res}")
+        return c
+
+    def decode(name, model_dir, extra, kernels):
+        lines, c = run_cli(f"bin/decode {name} {' '.join(extra)}", decode_cli.main,
+                           [str(model_dir), "--device", "cuda", "--nbest", "2", *extra],
+                           kernels, gpu)
+        hyps = [s for s in lines if s.startswith("  HYP")]
+        if len(hyps) != 2 * sum(s.startswith("[") for s in lines) or not hyps:
+            raise RuntimeError(f"bin/decode {name} printed {lines[:6]}")
+        return c
+
+    counts["eval_ctc"] = evaluate("ls100_ctc", ctc_dir, [], ctc_kernels)
+    counts["decode_ctc"] = decode("ls100_ctc", ctc_dir, ["--beam-width", str(CTC_BEAM)],
+                                  ("lstm_bidi_fwd",))
+    counts["eval_joint"] = evaluate("ls960_joint", joint_dir, [], att_kernels)
+    counts["decode_joint"] = decode(
+        "ls960_joint", joint_dir, ["--beam-width", str(BEAM), "--joint-rescore",
+                                   "--length-penalty", str(LS960_JOINT["length_penalty"])],
+        att_kernels)
+    cfg_path = lm_dir.parent / "ls960_joint.yml"
+    experiment_from_dict(LS960_JOINT).to_yaml(cfg_path)
+    reset_counts()
+    t0 = time.perf_counter()
+    ppl = train_lm_cli.main([str(cfg_path), str(lm_dir), "--epochs", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
+    print(f"phase bin/train_lm ls960_joint toy corpus, 1 epoch, 256 units / embedding 128 / "
+          f"1 layer: {time.perf_counter() - t0:.1f} s wall, dev perplexity {ppl:.3f}, "
+          f"launches {read_counts()}  [{gpu}]", flush=True)
+    if not np.isfinite(ppl) or any(read_counts().values()):
+        raise RuntimeError(f"bin/train_lm gave perplexity {ppl} and launches {read_counts()}")
+    lm_args = ["--beam-width", str(BEAM), "--lm-dir", str(lm_dir)]
+    counts["eval_ctc_lm"] = evaluate("ls100_ctc", ctc_dir, lm_args, ctc_kernels)
+    counts["eval_joint_lm"] = evaluate("ls960_joint", joint_dir, lm_args, att_kernels)
+    return counts
+
+
+def check_fusion(ctc_task_cfg, ctc_cpu, ctc_dev, att, att_cpu, att_dev, lm_dir: Path,
+                 dev) -> None:
+    """Shallow fusion with the LM ``bin/train_lm`` wrote, card against CPU on
+    2 x 1 s: the CTC prefix beam (W = 20, carried LM state) on the same (card)
+    logits, and the attention beam (beam 8, length penalty 0.6, then joint
+    rescoring) on the same (card) encoder outputs."""
+    lm_cpu, lm_dev = train_lm_cli.load_lm(lm_dir, "cpu"), train_lm_cli.load_lm(lm_dir, dev)
+    lm_weight = 0.3
+    logits, lens = ctc_logits(ctc_task_cfg, ctc_dev, short_batch(2, 46, 6), dev)
+    outs = []
+    for lm, device in ((lm_cpu, "cpu"), (lm_dev, dev)):
+        fusion = make_fusion_lm(lm, ctc_task_cfg.model.vocab_with_blank)
+        with torch.inference_mode():
+            outs.append(ctc_prefix_beam_search(
+                logits.to(device), lens.to(device), ctc_task_cfg.model.blank_id,
+                beam_width=CTC_BEAM, top_k_classes=CTC_TOPK, fusion_lm=fusion,
+                lm_weight=lm_weight))
+    beams_agree(f"ls100_ctc prefix beam W={CTC_BEAM} with the RNN-LM fused at {lm_weight}",
+                outs[1], [x.cpu() for x in outs[0]])
+    batch = short_batch(2, 47, 6)
+    cfg = att.model
+    with torch.inference_mode():
+        feats, fl = device_pipeline(att, {k: torch.from_numpy(batch[k]).to(dev)
+                                          for k in ("inputs", "input_len")})
+        enc = seq2seq.encode(att_dev, feats, fl)
+        res = []
+        for model, lm, device in ((att_cpu, lm_cpu, torch.device("cpu")),
+                                  (att_dev, lm_dev, dev)):
+            pre = seq2seq.EncodeOutput(*(x.to(device) for x in enc))
+            out = attention_beam_search(model, feats.to(device), fl.to(device), beam_width=BEAM,
+                                        length_penalty=LS960_JOINT["length_penalty"], lm=lm,
+                                        lm_weight=lm_weight, precomputed=pre)
+            out = joint_rescore(out, cfg.ctc_loss_weight, cfg.num_classes,
+                                LS960_JOINT["length_penalty"])
+            res.append([x.cpu() for x in (out.tokens, out.lengths, out.scores)])
+    (tc, lc, sc), (tg, lg, sg) = res
+    err = float((sc - sg).abs().max())
+    same = torch.equal(tc, tg) and torch.equal(lc, lg)
+    print(f"ls960_joint beam {BEAM} with the RNN-LM fused at {lm_weight}, then joint "
+          f"rescoring, on 2 x 1 s, card vs CPU: tokens and lengths equal: {same}, scores max "
+          f"abs err {err:.3e}, best lengths {lg[:, 0].tolist()}", flush=True)
+    if not (same and bool(((sc - sg).abs() <= MODEL_ATOL + BEAM_SCORE_RTOL * sc.abs()).all())):
+        raise RuntimeError("the fused attention beam on the card disagrees with the CPU")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1573,7 +1975,11 @@ def main() -> int:
     gpu = gpu_name_and_power()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}  [{gpu}]", flush=True)
+    with tempfile.TemporaryDirectory() as work:  # the fit phases' model dirs, the LM dir
+        return run(args, dev, gpu, Path(work))
 
+
+def run(args, dev, gpu: str, work: Path) -> int:
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load_library()
@@ -1595,14 +2001,17 @@ def main() -> int:
     clock("ls100_ctc card == CPU", t0)
     time_phases(task, model, dev, gpu)
     counts = {"serving": serve_requests(task, model, gpu)}
+    check_ctc_beam(task, model, dev)
+    ctc_beam = time_ctc_beam(task, model, dev, gpu)
+    counts["ctc_beam_serving"] = serve_ctc_beam_requests(task, model, gpu)
     del model
-    clock("ls100_ctc served", t0)
+    clock("ls100_ctc served, greedy and prefix beam", t0)
     time_train_steps("ls100_ctc", task, ctc_task, params_cpu, dev, gpu, args.profile_out,
                      dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1),
                      LAYERS)
     counts["training"] = train_one_epoch(
         "ls100_ctc", LS100_CTC, gpu,
-        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"))
+        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only"), work / "ls100_ctc")
     clock("ls100_ctc trained", t0)
 
     results["location_attend"] = check_attention_kernel(dev, gpu)
@@ -1612,11 +2021,14 @@ def main() -> int:
     att_cpu = att_task.init_model(att, torch.Generator().manual_seed(0)).eval()
     att_model = copy.deepcopy(att_cpu).to(dev).eval()
     check_att_model(att, att_cpu, att_model, dev)
+    check_att_beam_eval(att, att_cpu, att_model, dev)
     clock("ls960_joint card == CPU", t0)
     time_att_phases(att, att_model, dev, gpu)
+    rescoring = check_rescoring_ctc(dev, gpu)
+    att_beam_eval = time_att_beam_eval(att, att_model, dev, gpu)
     counts["att_serving"] = serve_att_requests(att, att_model, gpu)
     del att_model
-    clock("ls960_joint served", t0)
+    clock("ls960_joint served; #6 at the rescoring shape and the beam eval step timed", t0)
 
     att_lstm = check_training_lstm(dev, gpu, t=T_PYR, d=D_PYR, seed=26, what="pyramidal train")
     att_grad = check_attention_grad(dev, gpu)
@@ -1634,8 +2046,12 @@ def main() -> int:
                      LAYERS, shape=f"T={T_PYR} -> T'={ATT_T}", global_step=ATT_TRAIN_STEP)
     counts["att_training"] = train_one_epoch(
         "ls960_joint", LS960_JOINT, gpu,
-        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "location_attend"))
+        ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "location_attend"), work / "ls960_joint")
     clock("ls960_joint trained", t0)
+    counts.update(run_clis(work / "ls100_ctc", work / "ls960_joint", work / "lm", gpu))
+    check_fusion(task, model_cpu, copy.deepcopy(model_cpu).to(dev).eval(), att, att_cpu,
+                 copy.deepcopy(att_cpu).to(dev).eval(), work / "lm", dev)
+    clock("bin/eval, bin/decode, bin/train_lm and fusion run", t0)
 
     results.update(check_layer_kernels(dev, gpu))
     clock("kernels #3, #4 checked", t0)
@@ -1659,7 +2075,7 @@ def main() -> int:
     # 256 utterances instead of the config's 2048: one epoch within the time limit
     counts["transducer_training"] = train_one_epoch(
         "ls_transducer", dict(LS_TRANSDUCER, toy_num_utts=256), gpu,
-        ("lstm_layer_fwd", "lstm_layer_bwd"))
+        ("lstm_layer_fwd", "lstm_layer_bwd"), work / "ls_transducer")
     clock("ls_transducer trained", t0)
 
     # "launches": the count on the path that ported the kernel (CTC training
@@ -1702,7 +2118,20 @@ def main() -> int:
             entries[-1]["att_training"] = {k: att_lstm[name][k] for k in (
                 "ms", "us_per_step", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "plan", "deterministic", "function_backward_ms")}
-    print(json.dumps({"kernels": entries}), flush=True)
+    # #6 at the rescoring shape: launches on the ls960_joint bin/eval path (beam 8
+    # with joint rescoring; one call per eval batch)
+    entries.append({
+        "name": "ctc_loss_fwd_only_rescoring", "route": "cuda", **KERNELS["ctc_loss_fwd_only"],
+        "launches": counts["eval_joint"]["ctc_loss_fwd_only"],
+        **{k: rescoring[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        "shape": f"N={B_ATT * BEAM} T={ATT_T} C={C} U<={RESCORE_U}",
+        **{k: v for k, v in rescoring.items() if k not in ("max_abs_err", "ms", "plain_ms",
+                                                           "bound_ms", "bound_by",
+                                                           "library_ms")},
+        "att_beam_eval": att_beam_eval,
+    })
+    print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

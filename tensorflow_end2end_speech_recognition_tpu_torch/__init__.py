@@ -20,7 +20,10 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
   attention beam search, behind the same server (``--beam-width``);
 - attention / joint CTC-attention training: the teacher-forced decoder
   unroll with scheduled sampling and dropout, label smoothing, the joint
-  CTC term with its λ anneal, guided attention, and the dev eval.
+  CTC term with its λ anneal, guided attention, and the dev eval;
+- beam decoding and evaluation: the CTC prefix beam, the attention beam
+  eval with joint CTC rescoring, RNN-LM shallow fusion in both beams, and
+  ``bin/eval``, ``bin/decode`` and ``bin/train_lm``.
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
@@ -35,16 +38,17 @@ Layout:
                 nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
 - ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal)
-                encoder, CTC model, attention scorers, seq2seq model
-- ``decoding``  CTC greedy collapse, attention beam search
-- ``train``     CTC, attention and transducer tasks (pipeline, loss,
+                encoder, CTC model, attention scorers, seq2seq model, RNN-LM
+- ``decoding``  CTC greedy collapse, CTC prefix beam, attention beam search,
+                joint CTC rescoring
+- ``train``     CTC, attention, transducer and LM tasks (pipeline, loss,
                 train/eval steps), optimizers, LR controller, checkpoints,
                 the loop
 - ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
                 edit distance and error rates, TensorBoard event writer
-- ``serving``   inference function (CTC; attention greedy or beam) and
-                micro-batcher
-- ``bin``       HTTP server, training CLI
+- ``serving``   inference function (CTC greedy or prefix beam; attention
+                greedy or beam; transducer greedy) and micro-batcher
+- ``bin``       HTTP server, training, eval, decode and LM-training CLIs
 """
 
 import torch

@@ -12,16 +12,20 @@ Concurrent requests are grouped into fixed ``[batch, samples]`` batches by
         [--seconds 12] [--host 127.0.0.1] [--port 8000] [--max-wait-ms 10]
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls960_joint.yml weights.npz --beam-width 8
+    python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
+        configs/ls100_ctc.yml weights.npz --beam-width 20
 
-``model_type`` in the config picks the model: ``ctc`` and ``transducer``
-(``configs/ls_transducer.yml``) decode greedily; ``attention`` and
-``joint_ctc_attention`` decode greedily, or with the attention beam search
-at ``--beam-width`` above 1.
+``model_type`` in the config picks the model: ``ctc`` decodes greedily, or
+with the CTC prefix beam search at ``--beam-width`` above 1; ``attention``
+and ``joint_ctc_attention`` decode greedily, or with the attention beam
+search at ``--beam-width`` above 1; ``transducer``
+(``configs/ls_transducer.yml``) decodes greedily and takes no beam.
 
 API:
   GET  /healthz    -> the serving contract (batch size, samples, beam width,
-                      blank id (CTC and transducer; null for attention
-                      models), device)
+                      the decode ("greedy", "ctc_prefix_beam" or
+                      "attention_beam"), blank id (CTC and transducer; null
+                      for attention models), device)
   POST /recognize  -> body is JSON ``{"audio": [floats...]}`` or raw
                       little-endian float32 PCM (Content-Type:
                       application/octet-stream). Response ``{"ids": [...],
@@ -134,7 +138,8 @@ def make_server(task, model, batch_size: int, num_samples: int,
     ``serve_forever()`` and, on shutdown, ``shutdown()``, ``server_close()``
     and ``.batcher.stop()``. ``warmup`` runs one zero batch before the server
     accepts traffic, so no request pays the first call's kernel build.
-    ``beam_width`` above 1 decodes an attention model with the beam search.
+    ``beam_width`` above 1 decodes a CTC model with the prefix beam and an
+    attention model with the attention beam search.
     """
     from ..serving import MicroBatcher, build_inference_fn
     from ..train.att_task import AttTaskConfig
@@ -152,6 +157,8 @@ def make_server(task, model, batch_size: int, num_samples: int,
         "num_samples": num_samples,
         "input_rank": 2,
         "beam_width": beam_width,
+        "decode": ("greedy" if beam_width <= 1 else "attention_beam"
+                   if isinstance(task, AttTaskConfig) else "ctc_prefix_beam"),
         "blank_id": None if isinstance(task, AttTaskConfig) else task.model.blank_id,
         "device": str(next(model.parameters()).device),
         "units": list(units) if units else None,
@@ -196,7 +203,9 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
     ap.add_argument("--beam-width", type=int, default=1,
-                    help="attention models: beam search above 1 (greedy at 1)")
+                    help="CTC models: prefix beam search above 1; attention models: "
+                         "attention beam search above 1 (greedy at 1); transducer "
+                         "models take no beam")
     ap.add_argument("--request-timeout-s", type=float, default=60.0)
     ap.add_argument("--no-warmup", action="store_true")
     args = ap.parse_args(argv)

@@ -1,4 +1,4 @@
-"""Batched attention beam search (no LM fusion).
+"""Batched attention beam search, with optional RNN-LM shallow fusion.
 
 Counterpart of ``attention_beam_search`` in
 ``tensorflow_end2end_speech_recognition_tpu/decoding/attention_beam.py``:
@@ -19,8 +19,10 @@ Ties are broken as ``jax.lax.top_k`` and ``jnp.argsort`` break them: the
 lower index first (stable sorts). The loop checks "all finished" on the
 host once every ``decode_unroll_factor(max_len)`` steps, as the JAX
 ``while_loop`` runs that many steps per iteration; steps past the
-all-finished point change nothing. Shallow fusion with an RNN-LM is not
-ported (``models/lm.py`` is not), so an LM raises ``NotImplementedError``.
+all-finished point change nothing. Shallow fusion adds ``lm_weight`` times
+an RNN-LM's log-probs (``models/lm.lm_step`` on the B·W tokens of each
+step, its state gathered by the parent rows like the decoder's) to the
+beam score; ``att_scores`` keep the attention log-probs alone.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.lm import RNNLM, lm_init_state, lm_step
 from ..models.seq2seq import (
     EncodeOutput,
     Seq2SeqModel,
@@ -54,16 +57,17 @@ class BeamSearchResult(NamedTuple):
 
 
 def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int = 4,
-                          length_penalty: float = 0.0, lm_params=None, lm_cfg=None,
+                          length_penalty: float = 0.0, lm: RNNLM | None = None,
                           lm_weight: float = 0.0,
                           precomputed: EncodeOutput | None = None) -> BeamSearchResult:
     """Beam search to ``max_decode_length``; ``precomputed`` is ``encode``'s
-    result, to share one encoder pass. An LM (``lm_params`` with a non-zero
-    ``lm_weight``) raises."""
-    if lm_params is not None and lm_weight != 0.0:
-        raise NotImplementedError("LM shallow fusion is not ported yet (models/lm.py)")
+    result, to share one encoder pass. ``lm`` with a non-zero ``lm_weight``
+    fuses the RNN-LM (its vocabulary is the decoder's) into the scores."""
     cfg = model.cfg
     b, w, v = feats.shape[0], beam_width, cfg.vocab
+    if lm is not None and lm.cfg.vocab != v:
+        raise ValueError(f"the LM's vocabulary ({lm.cfg.vocab}) is not the decoder's ({v}): "
+                         "it was trained for another label set")
     max_len = cfg.max_decode_length
     k = decode_unroll_factor(max_len)
 
@@ -91,6 +95,8 @@ def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int 
     eos_only = torch.full((v,), _NEG, device=dev)
     eos_only[cfg.eos_id] = 0.0
     row_base = (torch.arange(b, device=dev) * w)[:, None]
+    use_lm = lm is not None and lm_weight != 0.0
+    lm_state = lm_init_state(lm.cfg, b * w, dev) if use_lm else ()
 
     si = 0
     while si < max_len and (si == 0 or not bool(finished.all())):
@@ -99,7 +105,12 @@ def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int 
                                           group=group)
             logp = torch.log_softmax(logits, dim=-1).reshape(b, w, v)
             # finished beams: only the EOS continuation, at zero cost
-            step_scores = torch.where(finished[..., None], eos_only, logp)
+            att_step = torch.where(finished[..., None], eos_only, logp)
+            step_scores = att_step
+            if use_lm:
+                lm_state, lm_lp = lm_step(lm, lm_state, tokens)
+                step_scores = torch.where(finished[..., None], eos_only,
+                                          logp + lm_weight * lm_lp.reshape(b, w, v))
             flat = (scores[..., None] + step_scores).reshape(b, w * v)
             # top-k with the lower index first on ties, as lax.top_k
             new_scores, sel = torch.sort(flat, dim=1, descending=True, stable=True)
@@ -108,7 +119,8 @@ def attention_beam_search(model: Seq2SeqModel, feats, feat_len, beam_width: int 
             tok = (sel % v).to(torch.int32)
             flat_parent = (parent + row_base).reshape(-1)
             carry = tuple(x[flat_parent] for x in carry)
-            att_tok = step_scores.reshape(b, w * v).gather(1, sel)  # (parent, token) pairs
+            lm_state = tuple((h[flat_parent], c[flat_parent]) for h, c in lm_state)
+            att_tok = att_step.reshape(b, w * v).gather(1, sel)  # (parent, token) pairs
             att_scores = att_scores.gather(1, parent) + att_tok
             was_finished = finished.gather(1, parent)
             finished = was_finished | (tok == cfg.eos_id)

@@ -110,13 +110,17 @@ class Seq2SeqModel(nn.Module):
 
     def forward(self, feats, feat_len, labels_in, train: bool = False,
                 generator: torch.Generator | None = None, ss_prob: float = 0.0,
-                decode: bool = False):
-        """``(forward_train's output, greedy_decode's output or None)`` from one
+                decode=False):
+        """``(forward_train's output, the decode's output or None)`` from one
         encoder pass: the teacher-forced unroll over ``labels_in`` and, with
-        ``decode``, the greedy decode (the eval step's pair)."""
+        ``decode``, the greedy decode (the eval step's pair), or, when
+        ``decode`` is a callable, ``decode(self, feats, feat_len, enc)`` (the
+        beam eval step's)."""
         enc = encode(self, feats, feat_len, train, generator)
         out = forward_train(self, feats, feat_len, labels_in, generator, ss_prob, train,
                             precomputed=enc)
+        if callable(decode):
+            return out, decode(self, feats, feat_len, enc)
         return out, (greedy_decode(self, feats, feat_len, precomputed=enc) if decode else None)
 
 

@@ -1,11 +1,12 @@
 """In-process inference function and the micro-batching runtime.
 
-Counterparts of ``build_inference_fn`` (the CTC greedy branch, the
-transducer greedy branch and the attention branch, greedy and beam) and
-``MicroBatcher`` in ``tensorflow_end2end_speech_recognition_tpu/serving.py``.
-The JAX package freezes the inference graph into a StableHLO artifact; here
-the model runs eagerly in the serving process. CTC prefix beam search, the
-transducer beam search and LM fusion are not ported yet.
+Counterparts of ``build_inference_fn`` (the CTC branch, greedy or prefix
+beam; the transducer greedy branch; the attention branch, greedy and beam;
+RNN-LM shallow fusion in both beams) and ``MicroBatcher`` in
+``tensorflow_end2end_speech_recognition_tpu/serving.py``. The JAX package
+freezes the inference graph into a StableHLO artifact; here the model runs
+eagerly in the serving process. The transducer beam search is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -20,41 +21,55 @@ import torch
 from . import set_full_fp32
 from .decoding.attention_beam import attention_beam_search
 from .decoding.ctc_greedy import ctc_greedy_decode
+from .decoding.ctc_prefix_beam import ctc_prefix_beam_search
 from .decoding.transducer_greedy import transducer_greedy_decode
 from .models.seq2seq import greedy_decode
 from .train.ctc_task import CTCTaskConfig, device_pipeline
 from .train.transducer_task import TransducerTaskConfig
 
 
-def build_inference_fn(task, model, beam_width: int = 1):
+def build_inference_fn(task, model, beam_width: int = 1, lm=None, lm_weight: float = 0.0):
     """(inputs [B, N], input_len [B]) -> (decoded ids [B, U] int32, lengths [B] int32).
 
-    ``task`` is a ``CTCTaskConfig`` (greedy CTC decoding), a
-    ``TransducerTaskConfig`` (greedy transducer decoding, ids [B, T' * S]) or
-    an ``AttTaskConfig``: greedy decoding, with every id from the first EOS
-    on set to -1, or with ``beam_width > 1`` the best hypothesis of the beam
-    search (length penalty 0, as the JAX export stages it). Runs on the
-    device of ``model``'s weights; inputs may be numpy arrays or tensors.
-    Returns device tensors.
+    ``task`` is a ``CTCTaskConfig`` (greedy CTC decoding, or with
+    ``beam_width > 1`` the best prefix of the CTC prefix beam, ids [B, T']),
+    a ``TransducerTaskConfig`` (greedy transducer decoding, ids [B, T' * S])
+    or an ``AttTaskConfig``: greedy decoding, with every id from the first
+    EOS on set to -1, or with ``beam_width > 1`` the best hypothesis of the
+    beam search (length penalty 0, as the JAX export stages it). ``lm`` (an
+    ``RNNLM`` on the model's device) with a non-zero ``lm_weight`` is fused
+    into either beam. Runs on the device of ``model``'s weights; inputs may
+    be numpy arrays or tensors. Returns device tensors.
     """
     set_full_fp32()
     device = next(model.parameters()).device
     model.eval()
     is_ctc = isinstance(task, CTCTaskConfig)
     is_transducer = isinstance(task, TransducerTaskConfig)
-    if is_ctc and beam_width > 1:
-        raise NotImplementedError("CTC prefix beam search is not ported yet")
     if is_transducer and beam_width > 1:
         raise NotImplementedError("the transducer beam search is not ported yet")
+    use_lm = lm is not None and lm_weight and beam_width > 1
+    fusion_lm = None
+    if use_lm and is_ctc:
+        from .models.lm import make_fusion_lm
+
+        fusion_lm = make_fusion_lm(lm, task.model.vocab_with_blank)
 
     def decode(feats, feat_len):
         if is_ctc:
             out = model(feats, feat_len)
+            if beam_width > 1:
+                prefixes, lengths, _ = ctc_prefix_beam_search(
+                    out.logits, out.logit_len, task.model.blank_id, beam_width=beam_width,
+                    fusion_lm=fusion_lm, lm_weight=lm_weight)
+                return prefixes[:, 0], lengths[:, 0]
             return ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
         if is_transducer:
             return transducer_greedy_decode(model, *model.encode(feats, feat_len))
         if beam_width > 1:
-            res = attention_beam_search(model, feats, feat_len, beam_width=beam_width)
+            res = attention_beam_search(model, feats, feat_len, beam_width=beam_width,
+                                        lm=lm if use_lm else None,
+                                        lm_weight=lm_weight if use_lm else 0.0)
             return res.tokens[:, 0], res.lengths[:, 0]
         preds = greedy_decode(model, feats, feat_len).predicted_ids
         seen = torch.cumsum(preds == task.model.eos_id, dim=1) > 0

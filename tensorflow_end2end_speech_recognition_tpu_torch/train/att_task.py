@@ -10,8 +10,11 @@ and update, with the CTC step's guard (``ctc_task.guarded_train_step``).
 The schedules read the global ``step`` as a Python int, so they cost the
 device nothing. Parameters travel as a dict of tensors (``state_dict``
 keys) through one parameter-free copy of the model
-(``torch.func.functional_call``). SpecAugment, gradient accumulation and
-the beam eval step raise ``NotImplementedError``.
+(``torch.func.functional_call``). The beam eval step shares one encoder
+pass between the attention beam (with joint CTC rescoring for joint models
+and, given an RNN-LM, shallow fusion) and the teacher-forced NLL it
+reports. SpecAugment and gradient accumulation raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import NamedTuple
 import torch
 from torch.func import functional_call
 
+from ..decoding.attention_beam import attention_beam_search
+from ..decoding.joint_rescoring import joint_rescore
 from ..frontend.features import FrontendConfig
 from ..models.seq2seq import Seq2SeqConfig, Seq2SeqModel
 from ..ops.ctc import ctc_loss
@@ -131,9 +136,9 @@ def guided_attention_penalty(att_w, label_mask, enc_len, sigma: float) -> torch.
 
 def _apply(params: dict, task: AttTaskConfig, batch: dict, train: bool = False,
            generator: torch.Generator | None = None, ss_prob: float = 0.0,
-           decode: bool = False):
+           decode=False):
     """Pipeline and ``Seq2SeqModel.forward`` on the weights in ``params``:
-    (teacher-forced output, greedy output or None, targets, mask)."""
+    (teacher-forced output, the decode's output or None, targets, mask)."""
     cfg = task.model
     feats, feat_len = device_pipeline(task, batch)
     labels_in, targets, mask = make_decoder_io(cfg, batch["labels"], batch["label_len"])
@@ -206,4 +211,26 @@ def make_eval_step(task: AttTaskConfig):
 def make_beam_eval_step(task: AttTaskConfig, beam_width: int, length_penalty: float = 0.0,
                         joint_rescore_weight: float | None = None, lm=None,
                         lm_weight: float = 0.0):
-    raise NotImplementedError("the attention beam eval step (bin/eval) is not ported yet")
+    """``(params, batch) -> (ids [B, max_decode_length], lengths [B], nll [B])``:
+    the best hypothesis of the attention beam (kernel #7 on the card), re-ranked
+    by ``joint_rescore`` (kernel #6 on B·W rows) for a joint model when
+    ``joint_rescore_weight`` is given, with ``lm`` (an ``RNNLM``) fused at
+    ``lm_weight``. The NLL is the teacher-forced one of the greedy eval step,
+    not the beam score, so the reported loss means the same for both."""
+    cfg = task.model
+
+    def beam(model, feats, feat_len, enc):
+        result = attention_beam_search(model, feats, feat_len, beam_width, length_penalty,
+                                       lm=lm, lm_weight=lm_weight if lm is not None else 0.0,
+                                       precomputed=enc)
+        if joint_rescore_weight is not None and cfg.is_joint:
+            result = joint_rescore(result, joint_rescore_weight, cfg.num_classes, length_penalty)
+        return result
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            out, result, targets, mask = _apply(params, task, batch, decode=beam)
+            nll = smoothed_cross_entropy(out.logits, targets, mask, 0.0)
+        return result.tokens[:, 0], result.lengths[:, 0], nll
+
+    return eval_step

@@ -8,8 +8,9 @@ Parameters travel as a dict of tensors (``state_dict`` keys) and run
 through one parameter-free copy of the model with
 ``torch.func.functional_call``, so a step is a function of
 ``(params, opt_state, batch, lr, generator)`` as the jitted JAX step is.
-Per-speaker CMVN, SpecAugment, gradient accumulation and the multitask head
-raise ``NotImplementedError``.
+The beam eval step decodes with the CTC prefix beam, with an RNN-LM fused
+when one is given. Per-speaker CMVN, SpecAugment, gradient accumulation and
+the multitask head raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from torch.func import functional_call
 
 from ..data.frame_ops import splice_frames, stack_frames
 from ..decoding.ctc_greedy import ctc_greedy_decode
+from ..decoding.ctc_prefix_beam import ctc_prefix_beam_search
 from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
 from ..ops.ctc import ctc_loss
@@ -125,7 +127,7 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
     """
     if grad_accum > 1:
         raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
-    if task.spec_augment is not None:
+    if getattr(task, "spec_augment", None) is not None:
         raise NotImplementedError("SpecAugment is not ported yet")
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
@@ -164,5 +166,32 @@ def make_eval_step(task: CTCTaskConfig):
                            blank_id=task.model.blank_id, impl=task.ctc_impl, need_grad=False)
             decoded, dec_len = ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
         return decoded, dec_len, nll
+
+    return eval_step
+
+
+def make_beam_eval_step(task: CTCTaskConfig, beam_width: int, top_k_classes: int = 16,
+                        lm=None, lm_weight: float = 0.0):
+    """``(params, batch) -> (prefixes [B, T'], lengths [B], nll [B])``: the
+    best prefix of the CTC prefix beam at ``beam_width`` and the loss-only
+    CTC kernel's NLL, from one encoder pass. ``lm`` (an ``RNNLM``) with a
+    non-zero ``lm_weight`` rides the beam as carried-state shallow fusion."""
+    fusion_lm = None
+    if lm is not None and lm_weight:
+        from ..models.lm import make_fusion_lm
+
+        fusion_lm = make_fusion_lm(lm, task.model.vocab_with_blank)
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            feats, feat_len = device_pipeline(task, batch)
+            out = apply_model(params, task, feats, feat_len)
+            nll = ctc_loss(out.logits, out.logit_len, batch["labels"], batch["label_len"],
+                           blank_id=task.model.blank_id, impl=task.ctc_impl, need_grad=False)
+            prefixes, lengths, _ = ctc_prefix_beam_search(
+                out.logits, out.logit_len, task.model.blank_id, beam_width=beam_width,
+                top_k_classes=top_k_classes, fusion_lm=fusion_lm,
+                lm_weight=lm_weight if fusion_lm is not None else 0.0)
+        return prefixes[:, 0], lengths[:, 0], nll
 
     return eval_step

@@ -4,7 +4,7 @@ Counterpart of the single-device branches of ``fit`` in
 ``tensorflow_end2end_speech_recognition_tpu/train/loop.py``; the task module
 (``ctc_task``, ``transducer_task`` or, for the attention and joint
 CTC-attention models, ``att_task``, whose train step also takes the global
-step) is picked by ``model_type`` as ``build_task`` picks it, and the dev
+step) is picked by ``model_type`` in ``build_task``, and the dev
 eval runs the task's eval step through ``evaluate_ctc`` as the JAX ``fit``
 does. The model dir
 gets a config copy, ``metrics.csv``, TensorBoard events, checkpoints kept by
@@ -43,6 +43,8 @@ from .optimizer import build_optimizer
 
 def build_corpus_splits(exp: ExperimentConfig):
     """(train, dev, test utterances, tokenizer) of the toy corpus, split as the JAX loop."""
+    if exp.data_root is not None:
+        raise NotImplementedError("data_root (on-disk corpora) is not ported yet")
     if exp.max_utt_seconds is not None:
         warnings.warn("max_utt_seconds only applies to toy_profile hard/harder; the easy "
                       "corpus (~2 s utterances) is unaffected")
@@ -55,6 +57,21 @@ def build_corpus_splits(exp: ExperimentConfig):
     n_test = max(n // 10, 1)
     return (utts[: n - n_dev - n_test], utts[n - n_dev - n_test : n - n_test],
             utts[n - n_test :], corpus.tokenizer)
+
+
+def build_task(exp: ExperimentConfig, tokenizer):
+    """(task config, task module) for the configured ``model_type``: ``att_task``
+    for attention and joint CTC-attention, ``transducer_task``, else ``ctc_task``.
+
+    The JAX ``build_task`` also takes the frame width of a precomputed-feature
+    corpus (``feature_dim_of``) and its consumers the speaker-CMVN stats
+    (``cmvn_stats_for``); both come only from what raises here first
+    (``data_root`` in ``build_corpus_splits``, ``cmvn: speaker`` in
+    ``ExperimentConfig.frontend_config``), so neither is ported."""
+    task = exp.task(tokenizer.num_units)
+    if exp.model_type in ATTENTION_MODEL_TYPES:
+        return task, att_task
+    return task, transducer_task if exp.model_type == "transducer" else ctc_task
 
 
 def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
@@ -72,10 +89,8 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     exp.to_yaml(model_dir / "config.yml")
 
     train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
-    task = exp.task(tokenizer.num_units)
-    is_att = exp.model_type in ATTENTION_MODEL_TYPES
-    task_mod = (att_task if is_att else
-                transducer_task if exp.model_type == "transducer" else ctc_task)
+    task, task_mod = build_task(exp, tokenizer)
+    is_att = task_mod is att_task
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed,

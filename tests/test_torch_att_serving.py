@@ -3,7 +3,8 @@
 Waveform -> ids through both ``build_inference_fn``s (attention branch,
 greedy and beam) on bridged weights must give identical ids and lengths,
 with a zero-length filler row in the batch as the micro-batcher makes
-them; the HTTP server must answer as the direct inference does; and
+them; the HTTP server must answer as the direct inference does, and with a
+CTC model at a beam width above 1 as JAX's prefix beam does; and
 ``bin/serve.load_model`` must build an attention model from a YAML config.
 """
 
@@ -104,14 +105,47 @@ def test_inference_ids_match_jax_serving(beam_width):
         assert (ids[:n] < task.model.vocab).all() and (ids[:n] != task.model.eos_id).all()
 
 
-def test_ctc_beam_is_refused(tmp_path):
+def test_ctc_beam_serves_as_jax(tmp_path):
+    """A CTC model from a YAML config at ``--beam-width 4``: the server's ids are
+    those of JAX's ``build_inference_fn`` prefix beam on bridged weights."""
+    from tensorflow_end2end_speech_recognition_tpu.models.ctc import CTCConfig as JCTCConfig
+    from tensorflow_end2end_speech_recognition_tpu.train import ctc_task as jctc_task
     from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
 
     cfg = tmp_path / "ctc.yml"
-    cfg.write_text("model_type: ctc\nlabel_type: character\nnum_units: 4\nnum_layers: 1\n")
-    task, _, _ = load_task(cfg)
-    with pytest.raises(NotImplementedError, match="prefix beam"):
-        build_inference_fn(task, ctc_task.init_model(task), beam_width=4)
+    cfg.write_text("model_type: ctc\nlabel_type: character\nnum_units: 8\nnum_layers: 1\n"
+                   "num_stack: 3\nnum_skip: 3\nuse_energy: false\nbeam_width: 4\n")
+    task, units, label_type = load_task(cfg)
+    jtask = jctc_task.CTCTaskConfig(
+        model=JCTCConfig(encoder=JEncoderConfig(encoder_type="blstm", num_units=8,
+                                                num_layers=1), num_classes=len(units)),
+        frontend=JFrontendConfig(use_energy=False), num_stack=3, num_skip=3)
+    params = jctc_task.init_params(jax.random.PRNGKey(4), jtask)
+    model = ctc_task.init_model(task)
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model))
+    server = make_server(task, model, 2, NUM, port=0, max_wait_ms=5.0, units=units,
+                         label_type=label_type, beam_width=4)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        assert health["beam_width"] == 4 and health["decode"] == "ctc_prefix_beam"
+        assert health["blank_id"] == len(units)
+        wav = (np.random.RandomState(6).randn(NUM) * 0.3).astype(np.float32)
+        conn.request("POST", "/recognize", wav.tobytes(),
+                     {"Content-Type": "application/octet-stream"})
+        r = json.loads(conn.getresponse().read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    want_ids, want_len = (np.asarray(x) for x in jserving.build_inference_fn(
+        jtask, jctc_task, params, beam_width=4)(
+        jnp.asarray(np.stack([wav, np.zeros(NUM, np.float32)])), jnp.asarray([NUM, 0])))
+    assert r["num_ids"] == int(want_len[0]) > 0
+    assert r["ids"] == want_ids[0, : int(want_len[0])].tolist()
+    assert r["text"] == "".join(units[i] for i in r["ids"])
 
 
 def test_http_server_beam_end_to_end():

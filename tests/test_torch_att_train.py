@@ -415,8 +415,6 @@ def test_unported_step_options_raise(setup):
         att_task.make_train_step(setup["task"], opt, grad_accum=2)
     with pytest.raises(NotImplementedError, match="SpecAugment"):
         att_task.make_train_step(setup["task"]._replace(spec_augment=object()), opt)
-    with pytest.raises(NotImplementedError, match="beam"):
-        att_task.make_beam_eval_step(setup["task"], 4)
 
 
 # ---- kernel #7's gradient -------------------------------------------------------

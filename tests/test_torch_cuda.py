@@ -813,3 +813,155 @@ def test_attention_model_on_card_matches_cpu(dev):
     assert torch.equal(got_b.tokens.cpu(), want_b.tokens)
     assert torch.equal(got_b.lengths.cpu(), want_b.lengths)
     torch.testing.assert_close(got_b.scores.cpu(), want_b.scores, atol=1e-4, rtol=0)
+
+
+# ---- beams, joint rescoring and fusion (card against CPU) ---------------------------
+
+
+def _beam_logits(b, t, c, seed):
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy((rng.randn(b, t, c) * 2).astype(np.float32))
+    lens = torch.tensor(([t, 1, 0] + [int(x) for x in rng.randint(1, t + 1, b)])[:b])
+    return logits, lens
+
+
+def _assert_beams_equal(got, want, score_atol=1e-4):
+    live = want[2] > -1e29
+    assert torch.equal(got[2].cpu() > -1e29, live)
+    assert torch.equal(got[0].cpu()[live], want[0][live])
+    assert torch.equal(got[1].cpu()[live], want[1][live])
+    torch.testing.assert_close(got[2].cpu()[live], want[2][live], atol=score_atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,t,c,w,k", [(3, 40, 29, 20, 16), (4, 64, 6, 4, 3)])
+def test_ctc_prefix_beam_on_card_matches_cpu_without_host_sync(dev, b, t, c, w, k):
+    """The frame loop reads nothing back to the host (sync debug mode raises on
+    any synchronising call), and its results equal the CPU's."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.decoding import ctc_prefix_beam as beam
+
+    logits, lens = _beam_logits(b, t, c, seed=w + k)
+    want = beam.ctc_prefix_beam_search(logits, lens, c - 1, beam_width=w, top_k_classes=k)
+    logits_d, lens_d = logits.to(dev), lens.to(dev)
+    state = beam.beam_init(b, w, t, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = beam.beam_advance(state, logits_d, lens_d, c - 1, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_beams_equal(beam.beam_finalize(state), want)
+
+
+def test_ctc_loss_fwd_only_on_rescoring_labels_matches_plain(dev):
+    """#6 on the labels joint rescoring gives it: the blank id (the attention
+    decoder's sos) inside a hypothesis, length 0, more labels than frames,
+    -1 past each length, a row of no frames, at N = B·W = 12 rows."""
+    rng = np.random.RandomState(9)
+    n, t, c, u = 12, 20, 29, 15
+    logits = torch.from_numpy((rng.randn(n, t, c) * 2).astype(np.float32))
+    label_len = torch.tensor([3, 0, 15, 7, 1, 12, 15, 5, 0, 9, 2, 11], dtype=torch.int32)
+    labels = torch.from_numpy(rng.randint(0, c, (n, u)).astype(np.int32))  # c - 1 = blank
+    labels[0, 1] = c - 1
+    labels = torch.where(torch.arange(u)[None] < label_len[:, None], labels, -1)
+    logit_len = torch.tensor([20, 20, 6, 20, 20, 20, 20, 0, 3, 20, 20, 20], dtype=torch.int32)
+    args = (logits, logit_len, labels, label_len)
+    want = ctc_loss_fwd_only_plain(*args, c - 1)
+    before = ctc_loss_fwd_only.launches
+    got = ctc_loss(*(x.to(dev) for x in args), blank_id=c - 1, need_grad=False)
+    torch.cuda.synchronize()
+    assert ctc_loss_fwd_only.launches == before + 1
+    assert float(want[2]) > 1e29 and bool((labels == c - 1).any())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+def _joint_model(seed=0, max_len=16):
+    cfg = Seq2SeqConfig(
+        encoder=EncoderConfig(encoder_type="pyramidal_blstm", num_units=16, num_layers=3),
+        attention=AttentionConfig(attention_dim=12, conv_num_channels=4, conv_width=9),
+        num_classes=9, decoder_num_units=16, embedding_dim=8, max_decode_length=max_len,
+        ctc_loss_weight=0.3)
+    return cfg, Seq2SeqModel(cfg, 10, torch.Generator().manual_seed(seed)).eval()
+
+
+def test_joint_rescoring_and_fused_beams_on_card_match_cpu(dev):
+    """The attention beam with an RNN-LM fused and joint rescoring (#7 and #6),
+    and the CTC prefix beam with carried-state fusion, card against CPU."""
+    import copy
+
+    from tensorflow_end2end_speech_recognition_tpu_torch.decoding import (
+        ctc_prefix_beam_search,
+        joint_rescore,
+    )
+    from tensorflow_end2end_speech_recognition_tpu_torch.models.lm import (
+        LMConfig,
+        RNNLM,
+        make_fusion_lm,
+    )
+
+    cfg, cpu = _joint_model()
+    model = copy.deepcopy(cpu).to(dev)
+    lm_cpu = RNNLM(LMConfig(vocab=cfg.vocab, num_units=16, embedding_dim=8),
+                   torch.Generator().manual_seed(1)).eval()
+    lm_dev = copy.deepcopy(lm_cpu).to(dev)
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(3, 41, 10).astype(np.float32))
+    lens = torch.tensor([41, 17, 0])
+    res = []
+    for m, lm, device in ((cpu, lm_cpu, "cpu"), (model, lm_dev, dev)):
+        with torch.inference_mode():
+            before = (location_attend.launches, ctc_loss_fwd_only.launches)
+            out = attention_beam_search(m, feats.to(device), lens.to(device), beam_width=4,
+                                        length_penalty=0.6, lm=lm, lm_weight=0.5)
+            out = joint_rescore(out, 0.3, cfg.num_classes, 0.6)
+            ctc = ctc_prefix_beam_search(
+                out.ctc_logits, out.ctc_logit_len, cfg.num_classes, beam_width=4,
+                top_k_classes=4, lm_weight=0.5,
+                fusion_lm=make_fusion_lm(lm, cfg.num_classes + 1))
+            torch.cuda.synchronize()
+            launched = (location_attend.launches - before[0],
+                        ctc_loss_fwd_only.launches - before[1])
+        res.append((out, [x.cpu() for x in ctc], launched))
+    (want, want_ctc, cpu_launched), (got, got_ctc, launched) = res
+    assert cpu_launched == (0, 0) and launched == (got.steps, 1)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+    assert torch.equal(got.lengths.cpu(), want.lengths)
+    torch.testing.assert_close(got.scores.cpu(), want.scores, atol=1e-4, rtol=1e-5)
+    _assert_beams_equal(got_ctc, want_ctc)
+
+
+def test_beam_eval_steps_on_card_match_cpu(dev):
+    """Both beam eval steps of ``bin/eval``: ids, lengths and NLL, card against CPU."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import (
+        FrontendConfig,
+    )
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
+
+    rng = np.random.RandomState(6)
+    wav = (rng.randn(3, 8000) * 0.1).astype(np.float32)
+    input_len = np.asarray([8000, 5000, 0], np.int32)
+    for i, n in enumerate(input_len):
+        wav[i, n:] = 0.0
+    labels = rng.randint(0, 9, (3, 6)).astype(np.int32)
+    label_len = np.asarray([6, 2, 0], np.int32)
+    labels[np.arange(6)[None] >= label_len[:, None]] = -1
+    batch = dict(inputs=wav, input_len=input_len, labels=labels, label_len=label_len)
+    enc = EncoderConfig(encoder_type="blstm", num_units=16, num_layers=2)
+    ctc = ctc_task.CTCTaskConfig(model=CTCConfig(encoder=enc, num_classes=9),
+                                 frontend=FrontendConfig(use_energy=False), num_stack=3,
+                                 num_skip=3)
+    cfg, _ = _joint_model(max_len=12)
+    att = att_task.AttTaskConfig(model=cfg._replace(encoder=enc._replace(
+        encoder_type="pyramidal_blstm")), frontend=FrontendConfig(use_energy=False))
+    for mod, task, step in (
+            (ctc_task, ctc, ctc_task.make_beam_eval_step(ctc, 5)),
+            (att_task, att, att_task.make_beam_eval_step(att, 4, 0.6, joint_rescore_weight=0.3))):
+        params = mod.init_params(task, torch.Generator().manual_seed(2),
+                                 input_dim=task.input_dim)
+        outs = []
+        for device in ("cpu", dev):
+            tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+            outs.append([x.cpu() for x in step({k: v.to(device) for k, v in params.items()},
+                                               tb)])
+        (ic, lc, nc), (ig, lg, ng) = outs
+        assert torch.equal(ic, ig) and torch.equal(lc, lg)
+        torch.testing.assert_close(ng, nc, atol=1e-4, rtol=1e-5)

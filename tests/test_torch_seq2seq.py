@@ -200,13 +200,34 @@ def test_beam_fused_read_reads_one_encoder_row_per_utterance(att_type, monkeypat
     assert calls == [(keys_rows, 3, 3, 12, 4)] * got.steps and got.steps > 0
 
 
-def test_beam_search_refuses_an_lm():
-    _, cfg = _cfgs()
-    model = Seq2SeqModel(cfg, D)
-    feats, lens = _feats(1, 5, [5], seed=0)
-    with pytest.raises(NotImplementedError, match="LM"):
-        attention_beam_search(model, torch.from_numpy(feats), torch.from_numpy(lens),
-                              lm_params={"w": 0}, lm_weight=0.5)
+@pytest.mark.parametrize("length_penalty", [0.0, 0.6])
+def test_beam_search_with_lm_fusion_matches_jax(length_penalty):
+    """Shallow fusion: the RNN-LM steps on the B·W tokens and its state follows
+    the parent rows; scores carry the weighted LM term, att_scores do not."""
+    from tensorflow_end2end_speech_recognition_tpu.models import lm as jlm
+    from tensorflow_end2end_speech_recognition_tpu_torch.models import lm
+
+    jcfg, cfg = _cfgs(joint=True, max_len=12)
+    params, model = _models(jcfg, cfg, seed=10, eos_bias=0.5)
+    lm_cfg = dict(vocab=cfg.vocab, num_units=10, embedding_dim=6, num_layers=2)
+    lm_params = jlm.init_lm(jax.random.PRNGKey(11), jlm.LMConfig(**lm_cfg))
+    rnnlm = lm.RNNLM(lm.LMConfig(**lm_cfg))
+    rnnlm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, lm_params), rnnlm))
+    feats, lens = _feats(3, 16, [16, 9, 0], seed=12)
+    want = j_beam(params, jcfg, jnp.asarray(feats), jnp.asarray(lens), beam_width=3,
+                  length_penalty=length_penalty, lm_params=lm_params,
+                  lm_cfg=jlm.LMConfig(**lm_cfg), lm_weight=0.7)
+    with torch.no_grad():
+        got = attention_beam_search(model, torch.from_numpy(feats), torch.from_numpy(lens),
+                                    beam_width=3, length_penalty=length_penalty, lm=rnnlm,
+                                    lm_weight=0.7)
+    for f in ("tokens", "lengths"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    for f in ("scores", "raw_scores", "att_scores"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   atol=1e-4, rtol=0, err_msg=f)
+    assert not np.allclose(got.raw_scores.numpy(), got.att_scores.numpy())
 
 
 @pytest.mark.parametrize("joint,att_type", [(True, "hybrid"), (False, "luong_general")])
