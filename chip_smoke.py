@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's CTC serving, CTC training, attention
 serving, attention training, transducer serving and training, beam
-decoding, eval / decode and RNN-LM paths on one NVIDIA GPU.
+decoding, eval / decode and RNN-LM paths, and of the conformer /
+transformer configs, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -152,7 +153,31 @@ Phases; any failure exits non-zero and prints no result line:
 24. ``train/loop.fit`` on the ls_transducer config for one epoch of a
     256-utterance toy corpus (the transducer training path; launch counts
     reset just before and read just after): finite losses, no skipped
-    step, a dev eval through the greedy decode, checkpoints written.
+    step, a dev eval through the greedy decode, checkpoints written;
+25. build ``configs/ls960_conformer_ctc.yml`` at full width in code (120
+    dims, 3/3 stacking -> 360, 4 x conformer-144, 4 heads, kernel 15, FF
+    576, 28 + 1 characters) with seeded weights; logits and ids on 2 x 1 s
+    and one SGD train step card against CPU (the key bias's gradient, zero
+    in exact arithmetic, held near zero on both sides);
+26. its serving phases on 8 x 12 s (frontend, encoder, head + greedy, the
+    prefix beam at W=20) and 8 concurrent ``/recognize`` requests (no
+    kernel launched); Adam train steps at B=32 x 12 s, dropout 0.9
+    (exactly one #5 and no LSTM walk; the profile's device time by kind of
+    kernel); ``fit`` for one toy epoch (#5, #6) and ``bin/eval`` on the
+    model dir it wrote (#6);
+27. ``configs/ls960_transformer_ctc.yml`` and ``configs/ls960_moe_conformer.yml``
+    card against CPU (logits, ids, the MoE term, one train step) and timed
+    train steps;
+28. ``configs/ls_conformer_transducer.yml`` (rotary, left context 32,
+    prediction net 128, joint 256): ``f_proj``, nll and greedy ids card
+    against CPU, one train step, the serving phases and 8 requests, timed
+    train steps and ``fit`` on a 256-utterance toy corpus;
+29. ``configs/ls_streaming_conformer.yml`` (offline) card against CPU;
+30. ``fit`` on ``configs/ls960_conformer_ctc_sa.yml`` for one toy epoch,
+    every train step's SpecAugment drawn on the card;
+31. timed train steps of the conformer CTC model at d=512, 8 layers, 8
+    heads (the scale ls960_conformer_ctc.yml names for LibriSpeech-960;
+    not a config of the repo).
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -233,6 +258,7 @@ MODEL_ATOL = 1e-3  # logits after the frontend, 5 BLSTM-512 layers and the head
 BEAM_SCORE_RTOL = 1e-5
 LOSS_RTOL = 1e-4  # full-width train step, card vs CPU
 GRAD_RTOL = 1e-3  # each gradient within 1e-3 of its largest entry
+CANCELLED_RTOL = 1e-6  # a gradient zero in exact arithmetic, of the largest gradient entry
 REQUEST_SECONDS = (12.0, 12.0, 10.5, 9.0, 7.0, 5.0, 3.0, 1.0)
 TIMED_STEPS = 5
 # H100 SXM peak rates: float32 outside the tensor cores, HBM
@@ -328,6 +354,32 @@ LS100_CTC = {
     "decay_patient_epoch": 1, "clip_grad_norm": 5.0, "weight_decay": 1.0e-8,
     "sort_utt": True, "sort_stop_epoch": 5, "beam_width": 20, "toy_num_utts": 256,
 }
+# the conformer / transformer configs at full width (tests/test_torch_conformer_train.py
+# holds each dict against its YAML file)
+LS960_CONFORMER_CTC = {
+    "model_type": "ctc", "corpus": "librispeech", "label_type": "character", "feature": "fbank",
+    "input_size": 40, "use_energy": False, "num_stack": 3, "num_skip": 3,
+    "encoder_type": "conformer", "num_units": 144, "num_layers": 4, "num_heads": 4,
+    "conv_kernel_size": 15, "ff_expansion": 4, "dropout": 0.9, "batch_size": 32, "num_epoch": 25,
+    "optimizer": "adam", "learning_rate": 1.0e-3, "warmup_steps": 50, "decay_start_epoch": 8,
+    "decay_rate": 0.85, "decay_patient_epoch": 1, "clip_grad_norm": 5.0, "beam_width": 20,
+    "toy_num_utts": 512, "toy_vocab_size": None,
+}
+LS960_TRANSFORMER_CTC = {k: v for k, v in LS960_CONFORMER_CTC.items()
+                         if k != "conv_kernel_size"} | {"encoder_type": "transformer"}
+LS960_MOE_CONFORMER = LS960_CONFORMER_CTC | {"moe_num_experts": 4, "moe_top_k": 2,
+                                             "moe_aux_weight": 1.0e-2}
+LS_STREAMING_CONFORMER = LS960_CONFORMER_CTC | {
+    "use_delta": False, "cmvn": "none", "pos_encoding": "rotary", "left_context": 32,
+    "beam_width": 1}
+LS960_CONFORMER_CTC_SA = LS960_CONFORMER_CTC | {"use_specaugment": True}
+LS_CONFORMER_TRANSDUCER = {k: v for k, v in LS_STREAMING_CONFORMER.items()
+                           if k not in ("model_type",)} | {
+    "model_type": "transducer", "pred_num_units": 128, "embedding_dim": 32, "joint_dim": 256,
+    "num_epoch": 30, "decay_start_epoch": 10}
+# the scale configs/ls960_conformer_ctc.yml names for real LibriSpeech-960: not a config
+CONFORMER_WIDE = LS960_CONFORMER_CTC | {"num_units": 512, "num_layers": 8, "num_heads": 8}
+CONFORMER_LAYERS, D_CONF = LS960_CONFORMER_CTC["num_layers"], LS960_CONFORMER_CTC["num_units"]
 
 
 def gpu_name_and_power() -> str:
@@ -615,7 +667,10 @@ def device_launches(fn, reps: int = 5) -> dict:
     launch, from the profiler. One warm-up step of the profiler's schedule
     runs ``fn`` once with the tracer already on, and only the active step's
     ``reps`` calls are read: a window that opens on the first call can miss
-    its launches."""
+    its launches. The active step starts with about 1 ms of a spin kernel
+    of its own, left out of the counts: a kernel that starts at once after
+    the window opens can fall before its edge, which is read on the host's
+    clock (seen twice: one ``ctc_frames`` launch of 5 calls missing)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     events = []
@@ -625,13 +680,14 @@ def device_launches(fn, reps: int = 5) -> dict:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        torch.cuda._sleep(2_000_000)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         prof.step()
     return {e.key.split("(")[1].split("::")[-1]: {"per_call": e.count / reps,
                                                    "us": e.self_device_time_total / e.count}
-            for e in events if e.self_device_time_total > 0}
+            for e in events if e.self_device_time_total > 0 and "spin_kernel" not in e.key}
 
 
 def ctc_work(logit_len, label_len, u: int, grad: bool, b: int = B_TRAIN,
@@ -741,8 +797,9 @@ def ls100_ctc_task():
     return exp.ctc_task(len(CHAR_UNITS))
 
 
-def check_model(task, model_cpu, model_dev, dev) -> None:
-    """Logits and ids on the card against the plain path on the CPU, short input."""
+def check_model(task, model_cpu, model_dev, dev, name: str = "ls100_ctc") -> None:
+    """Logits and ids on the card against the plain path on the CPU, short
+    input; a MoE encoder's load-balance term too."""
     rng = np.random.RandomState(1)
     wav = (rng.randn(2, SR) * 0.1).astype(np.float32)
     lens = np.asarray([SR, 9600], np.int32)
@@ -754,16 +811,22 @@ def check_model(task, model_cpu, model_dev, dev) -> None:
                                         "input_len": torch.from_numpy(lens).to(device)})
             out = model(feats, fl)
             ids, n = ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
-        outs.append((out.logits.cpu(), out.logit_len.cpu(), ids.cpu(), n.cpu()))
-    (lc, lenc, idc, nc), (lg, leng, idg, ng) = outs
+        outs.append((out.logits.cpu(), out.logit_len.cpu(), ids.cpu(), n.cpu(),
+                     None if out.aux_loss is None else float(out.aux_loss)))
+    (lc, lenc, idc, nc, ac), (lg, leng, idg, ng, ag) = outs
     t_out = -(-(1 + (SR - 400) // 160) // 3)
     if lg.shape != (2, t_out, task.model.vocab_with_blank) or not bool(torch.isfinite(lg).all()):
         raise RuntimeError(f"logits {tuple(lg.shape)} are misshapen or not finite")
     err = float((lc - lg).abs().max())
-    print(f"model on the card vs the CPU plain path, 2 x 1 s: logits max abs err {err:.3e} "
-          f"(tolerance {MODEL_ATOL:g}), ids equal: {torch.equal(idc, idg)}", flush=True)
+    aux_err = None if ac is None else abs(ac - ag) / abs(ac)
+    print(f"{name} on the card vs the CPU plain path, 2 x 1 s: logits max abs err {err:.3e} "
+          f"(tolerance {MODEL_ATOL:g}), ids equal: {torch.equal(idc, idg)}"
+          + ("" if ac is None else f", moe_aux {ag:.6f} vs {ac:.6f} (rel err {aux_err:.2e}, "
+             f"tolerance {LOSS_RTOL:g})"), flush=True)
     if not err <= MODEL_ATOL or not torch.equal(lenc, leng):
-        raise RuntimeError(f"model on the card disagrees with the CPU: {err}")
+        raise RuntimeError(f"{name} on the card disagrees with the CPU: {err}")
+    if (ac is None) != (ag is None) or (aux_err is not None and not aux_err <= LOSS_RTOL):
+        raise RuntimeError(f"{name}'s moe_aux on the card disagrees with the CPU: {ag} vs {ac}")
     if not (torch.equal(idc, idg) and torch.equal(nc, ng)):
         raise RuntimeError("decoded ids on the card differ from the CPU")
 
@@ -783,6 +846,15 @@ def train_batch(n_rows: int, seconds: float, seed: int, max_labels: int) -> dict
         labels[i, :m] = rng.randint(0, len(CHAR_UNITS), m)
     return {"inputs": wav, "input_len": input_len, "labels": labels, "label_len": label_len,
             "weight": np.ones((n_rows,), np.float32)}
+
+
+def zero_gradient(task, name: str) -> bool:
+    """Whether the weight ``name`` has a zero gradient in exact arithmetic: a
+    conformer's key bias unless keys are rotated (it shifts each row of
+    scores by one constant, which the softmax ignores)."""
+    enc = task.model.encoder
+    return (enc.encoder_type in ("conformer", "transformer") and enc.pos_encoding != "rotary"
+            and name.endswith("mhsa.k.b"))
 
 
 def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6,
@@ -808,32 +880,47 @@ def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6,
     (tc, gc, pc, ic, nc, fc), (tg, gg, pg, ig, ng, fg) = res
     lc, lg = tc["loss"], tg["loss"]
     loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
-    grad_err = max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
-                   for a, b in zip(gc, gg))
+    g_max = max(float(g.abs().max()) for g in gc)
+    errs, cancelled = {}, {}
+    for name, a, b in zip(params_cpu, gc, gg):
+        if zero_gradient(task, name):  # both sides' rounding noise, held near 0
+            cancelled[name] = max(float(a.abs().max()), float(b.abs().max())) / g_max
+        else:
+            errs[name] = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
     param_err = max(float((pc[k] - pg[k]).abs().max()) for k in pc)
     print(f"train step on the card vs the CPU, 2 x 1 s, SGD lr 0.1: loss {lg:.4f} vs {lc:.4f}, "
           + ", ".join(f"{k} {tg[k]:.4f} vs {tc[k]:.4f}" for k in tc if k != "loss")
           + f" (max rel err {loss_err:.2e}, tolerance {LOSS_RTOL:g}); grads max err / max |g| "
-          f"{grad_err:.2e} (tolerance {GRAD_RTOL:g}) over {len(gc)} tensors; weights after "
-          f"the step max abs err {param_err:.3e}; ids after the step equal: "
+          f"{grad_err:.2e} ({worst}; tolerance {GRAD_RTOL:g}) over {len(errs)} tensors"
+          + (f", {len(cancelled)} gradients zero in exact arithmetic at most "
+             f"{max(cancelled.values()):.2e} of the largest entry (tolerance "
+             f"{CANCELLED_RTOL:g})" if cancelled else "")
+          + f"; weights after the step max abs err {param_err:.3e}; ids after the step equal: "
           f"{torch.equal(ic, ig) and torch.equal(nc, ng)}", flush=True)
     if fc or fg or not (loss_err <= LOSS_RTOL and grad_err <= GRAD_RTOL):
         raise RuntimeError("the train step on the card disagrees with the CPU")
+    if cancelled and not max(cancelled.values()) <= CANCELLED_RTOL:
+        raise RuntimeError(f"gradients that are zero in exact arithmetic are not: {cancelled}")
     if not param_err <= 0.1 * GRAD_RTOL * max(float(g.abs().max()) for g in gc):
         raise RuntimeError(f"weights after the step disagree: {param_err}")
     if not (torch.equal(ic, ig) and torch.equal(nc, ng)):
         raise RuntimeError("ids decoded after the step differ between the card and the CPU")
 
 
-def time_phases(task, model, dev, gpu: str) -> None:
+def time_phases(task, model, dev, gpu: str, name: str = "ls100_ctc",
+                encoder: str = f"{LAYERS} x BLSTM-{H}") -> None:
+    """Frontend, encoder and head + greedy decode on 8 x 12 s."""
     rng = np.random.RandomState(2)
     wav = torch.from_numpy((rng.randn(B, 12 * SR) * 0.1).astype(np.float32)).to(dev)
     lens = torch.full((B,), 12 * SR, dtype=torch.int64, device=dev)
     with torch.inference_mode():
         batch = {"inputs": wav, "input_len": lens}
         feats, fl = device_pipeline(task, batch)
-        enc, el = model.encoder(feats, fl)
-        if feats.shape != (B, T_ENC, D_IN) or enc.shape != (B, T_ENC, 2 * H):
+        enc, el, _ = model.encoder(feats, fl)
+        if feats.shape != (B, T_ENC, D_IN) or enc.shape != (B, T_ENC,
+                                                             task.model.encoder.output_dim):
             raise RuntimeError(f"unexpected shapes {tuple(feats.shape)} {tuple(enc.shape)}")
 
         def head_decode():
@@ -842,11 +929,11 @@ def time_phases(task, model, dev, gpu: str) -> None:
 
         times = {
             "frontend+stacking": host_ms(lambda: device_pipeline(task, batch), 5),
-            "encoder (5 x BLSTM-512)": host_ms(lambda: model.encoder(feats, fl), 3),
+            f"encoder ({encoder})": host_ms(lambda: model.encoder(feats, fl), 3),
             "head+greedy decode": host_ms(head_decode, 5),
         }
-    for name, ms in times.items():
-        print(f"phase {name}: {ms:.3f} ms per batch of {B} x 12 s  [{gpu}]", flush=True)
+    for phase, ms in times.items():
+        print(f"phase {name} {phase}: {ms:.3f} ms per batch of {B} x 12 s  [{gpu}]", flush=True)
 
 
 def reset_counts() -> None:
@@ -913,8 +1000,10 @@ def print_latency(what: str, responses, lat, batches: int, gpu: str) -> None:
     print(f"responses: {[r['num_ids'] for r in responses]} ids", flush=True)
 
 
-def serve_requests(task, model, gpu: str) -> dict:
-    """8 concurrent /recognize requests; returns the kernel launches they caused."""
+def serve_requests(task, model, gpu: str, name: str = "ls100_ctc",
+                   per_batch: dict | None = None) -> dict:
+    """8 concurrent /recognize requests; returns the kernel launches they caused:
+    ``per_batch`` for each batch (default: LAYERS of #1) and nothing else."""
     responses, lat, counts, batches, _ = post_requests(task, model, REQUEST_SECONDS, seed=3)
     n_classes = task.model.num_classes
     for seconds, r in zip(REQUEST_SECONDS, responses):
@@ -924,9 +1013,10 @@ def serve_requests(task, model, gpu: str) -> dict:
                 or not all(isinstance(i, int) and 0 <= i < n_classes for i in ids)
                 or r.get("text") is None or "truncated" in r):
             raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
-    print_latency("request latency", responses, lat, batches, gpu)
-    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS * batches)
-    print(f"serving path launches: {counts}", flush=True)
+    print_latency(f"{name} request latency", responses, lat, batches, gpu)
+    per_batch = {"lstm_bidi_fwd": LAYERS} if per_batch is None else per_batch
+    want = dict(NONE_LAUNCHED, **{k: v * batches for k, v in per_batch.items()})
+    print(f"{name} serving path launches: {counts}", flush=True)
     if batches < 1 or counts != want:
         raise RuntimeError(f"serving launches {counts} for {batches} batch(es); expected {want}")
     return counts
@@ -995,7 +1085,28 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
         raise RuntimeError(f"one {name} train step ran {device} and {per_step} per-step forward "
                            f"launches; expected {walks} of each walk and none")
     return {"ms": ms, "utts_per_sec": B_TRAIN / ms * 1e3, "peak_gib": peak / 2**30,
-            "launches": counts, "busy_share": busy / wall, "device_launches": device}
+            "launches": counts, "busy_share": busy / wall, "device_launches": device,
+            "profile_wall_ms": wall, "device_ms": busy, "by_kind": kernel_kinds(kernels)}
+
+
+KINDS = (("matmul (cuBLAS)", ("gemm", "cublas", "cutlass", "sm90_xmma", "splitk")),
+         ("softmax", ("softmax",)), ("depthwise conv", ("conv", "depthwise", "implicit")),
+         ("CTC (#5/#6)", ("ctc_",)), ("LSTM walks", ("_walk",)),
+         ("reductions", ("reduce",)), ("copies and layout", ("copy", "cat", "transpose")))
+
+
+def kernel_kinds(kernels) -> dict:
+    """A profile's device ms and launches by kind of kernel (name keywords,
+    first match; the rest are elementwise: masks, LayerNorm, activations,
+    the optimizer)."""
+    out = {}
+    for key, t, n in kernels:
+        low = key.lower()
+        kind = next((k for k, words in KINDS if any(w in low for w in words)), "elementwise")
+        ms, launches = out.get(kind, (0.0, 0))
+        out[kind] = (ms + t, launches + n)
+    return {k: {"ms": round(v[0], 3), "launches": v[1]}
+            for k, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple, model_dir: Path) -> dict:
@@ -1027,7 +1138,7 @@ def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple, model_dir: 
         raise RuntimeError(f"fit logged losses {losses} with summary {summary}")
     if not all(written.values()):
         raise RuntimeError(f"fit did not write its files: {written}")
-    if min(counts[k] for k in launched) < 1 or any(counts[k] for k in COUNTERS
+    if any(counts[k] < 1 for k in launched) or any(counts[k] for k in COUNTERS
                                                    if k not in launched):
         raise RuntimeError(f"the {name} training path launched {counts}; expected {launched}")
     return counts
@@ -1517,7 +1628,7 @@ def ls_transducer_task():
     return experiment_from_dict(LS_TRANSDUCER).transducer_task(len(CHAR_UNITS))
 
 
-def check_transducer_model(task, model_cpu, model_dev, dev) -> None:
+def check_transducer_model(task, model_cpu, model_dev, dev, name: str = "ls_transducer") -> None:
     """f_proj, the teacher-forced nll and greedy ids on the card against the CPU."""
     batch = train_batch(2, 1.0, seed=22, max_labels=12)
     blank = task.model.blank_id
@@ -1539,16 +1650,17 @@ def check_transducer_model(task, model_cpu, model_dev, dev) -> None:
     errs = {"f_proj": float((fc - fg).abs().max()), "nll": float((lc - lg).abs().max())}
     same = {"encoder lengths": torch.equal(ec, eg), "greedy ids": torch.equal(ic, ig),
             "greedy lengths": torch.equal(nc, ng)}
-    print("ls_transducer on the card vs the CPU plain path, 2 x 1 s: "
+    print(f"{name} on the card vs the CPU plain path, 2 x 1 s: "
           + ", ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items())
           + f" (tolerance {MODEL_ATOL:g}; nll {lg.tolist()}); "
           + ", ".join(f"{k} equal: {v}" for k, v in same.items())
           + f"; greedy lengths {ng.tolist()} of {ig.shape[1]} slots", flush=True)
     if not all(v <= MODEL_ATOL for v in errs.values()) or not all(same.values()):
-        raise RuntimeError(f"ls_transducer on the card disagrees with the CPU: {errs} {same}")
+        raise RuntimeError(f"{name} on the card disagrees with the CPU: {errs} {same}")
 
 
-def time_transducer_phases(task, model, dev, gpu: str) -> None:
+def time_transducer_phases(task, model, dev, gpu: str, name: str = "ls_transducer",
+                           encoder: str = f"{TR_LAYERS} x LSTM-{H}") -> None:
     """Frontend, encoder and greedy decode on 8 x 12 s; a profile of the decode."""
     rng = np.random.RandomState(23)
     wav = torch.from_numpy((rng.randn(B, 12 * SR) * 0.1).astype(np.float32)).to(dev)
@@ -1564,7 +1676,7 @@ def time_transducer_phases(task, model, dev, gpu: str) -> None:
         ids, n = decode()  # warm-up; the emitted symbols
         times = {
             "frontend": host_ms(lambda: device_pipeline(task, batch), 5),
-            f"encoder ({TR_LAYERS} x LSTM-512 + enc_proj)": host_ms(
+            f"encoder ({encoder} + enc_proj)": host_ms(
                 lambda: model.encode(feats, fl), 3),
         }
         torch.cuda.synchronize()
@@ -1573,18 +1685,18 @@ def time_transducer_phases(task, model, dev, gpu: str) -> None:
         torch.cuda.synchronize()
         times["greedy decode"] = (time.perf_counter() - t1) * 1e3
         steps = 1 + T_ENC * s  # the SOS step, then S prediction-net steps per frame
-        for name, ms in times.items():
+        for phase, ms in times.items():
             extra = ""
-            if name == "greedy decode":
+            if phase == "greedy decode":
                 extra = (f", {T_ENC} frames x {s} symbol steps, {steps} prediction-net steps "
                          f"({ms / steps:.3f} ms per step), {int(n.sum())} symbols emitted")
-            print(f"phase ls_transducer {name}: {ms:.3f} ms per batch of {B} x 12 s{extra}"
+            print(f"phase {name} {phase}: {ms:.3f} ms per batch of {B} x 12 s{extra}"
                   f"  [{gpu}]", flush=True)
         # the decode's steps are alike: a profile of its first PROFILE_FRAMES
         # frames gives its busy share with fewer events to read
         wall, busy, kernels = device_busy(lambda: transducer_greedy_decode(
             model, f_proj[:, :PROFILE_FRAMES], enc_len.clamp(max=PROFILE_FRAMES)))
-    print(f"profile of the ls_transducer greedy decode's first {PROFILE_FRAMES} frames: "
+    print(f"profile of the {name} greedy decode's first {PROFILE_FRAMES} frames: "
           f"{wall:.3f} ms wall (profiled), "
           f"{busy:.3f} ms of device kernel time ({100 * busy / wall:.1f} % busy); top kernels "
           "by device time:", flush=True)
@@ -1592,8 +1704,10 @@ def time_transducer_phases(task, model, dev, gpu: str) -> None:
         print(f"  {t:9.3f} ms  {k:6d} launches  {key[:90]}", flush=True)
 
 
-def serve_transducer_requests(task, model, gpu: str) -> dict:
-    """8 concurrent /recognize requests; returns the kernel launches they caused."""
+def serve_transducer_requests(task, model, gpu: str, name: str = "ls_transducer",
+                              per_batch: dict | None = None) -> dict:
+    """8 concurrent /recognize requests; returns the kernel launches they caused:
+    ``per_batch`` for each batch (default: TR_LAYERS of #3) and nothing else."""
     responses, lat, counts, batches, health = post_requests(task, model, TR_REQUEST_SECONDS,
                                                             seed=24)
     cfg = task.model
@@ -1606,9 +1720,10 @@ def serve_transducer_requests(task, model, gpu: str) -> dict:
                 or not all(isinstance(i, int) and 0 <= i < cfg.num_classes for i in ids)
                 or r.get("text") is None or "truncated" in r):
             raise RuntimeError(f"malformed response for a {seconds} s request: {r}")
-    print_latency("ls_transducer request latency", responses, lat, batches, gpu)
-    want = dict(NONE_LAUNCHED, lstm_layer_fwd=TR_LAYERS * batches)
-    print(f"transducer serving path launches: {counts}", flush=True)
+    print_latency(f"{name} request latency", responses, lat, batches, gpu)
+    per_batch = {"lstm_layer_fwd": TR_LAYERS} if per_batch is None else per_batch
+    want = dict(NONE_LAUNCHED, **{k: v * batches for k, v in per_batch.items()})
+    print(f"{name} serving path launches: {counts}", flush=True)
     if batches < 1 or counts != want:
         raise RuntimeError(f"transducer serving launches {counts} for {batches} batch(es); "
                            f"expected {want}")
@@ -1671,7 +1786,7 @@ def check_ctc_beam(task, model, dev) -> None:
                 "in the frame loop)", ctc_prefix_beam.beam_finalize(state), want)
 
 
-def time_ctc_beam(task, model, dev, gpu: str) -> dict:
+def time_ctc_beam(task, model, dev, gpu: str, name: str = "ls100_ctc") -> dict:
     """The prefix beam on the logits of 8 x 12 s: wall, device time, busy
     share, device launches per frame and the device memory above the logits."""
     rng = np.random.RandomState(41)
@@ -1696,7 +1811,7 @@ def time_ctc_beam(task, model, dev, gpu: str) -> dict:
         raise RuntimeError(f"beam decode gave scores {scores[:, 0]} lengths {lengths[:, 0]}")
     r = {"ms": wall, "device_ms": busy, "busy_share": busy / wall_prof,
          "launches_per_frame": launches / t_out, "peak_mib": peak}
-    print(f"phase ls100_ctc prefix beam decode W={CTC_BEAM} K={CTC_TOPK}, {B} x 12 s "
+    print(f"phase {name} prefix beam decode W={CTC_BEAM} K={CTC_TOPK}, {B} x 12 s "
           f"(T'={t_out}): {wall:.3f} ms per batch ({wall / t_out:.3f} ms per frame), "
           f"{busy:.3f} ms of device time in {launches} launches "
           f"({r['launches_per_frame']:.1f} per frame), {100 * r['busy_share']:.1f} % busy "
@@ -1943,7 +2058,7 @@ def check_fusion(ctc_task_cfg, ctc_cpu, ctc_dev, att, att_cpu, att_dev, lm_dir: 
         res = []
         for model, lm, device in ((att_cpu, lm_cpu, torch.device("cpu")),
                                   (att_dev, lm_dev, dev)):
-            pre = seq2seq.EncodeOutput(*(x.to(device) for x in enc))
+            pre = seq2seq.EncodeOutput(*(None if x is None else x.to(device) for x in enc))
             out = attention_beam_search(model, feats.to(device), fl.to(device), beam_width=BEAM,
                                         length_penalty=LS960_JOINT["length_penalty"], lm=lm,
                                         lm_weight=lm_weight, precomputed=pre)
@@ -1958,6 +2073,133 @@ def check_fusion(ctc_task_cfg, ctc_cpu, ctc_dev, att, att_cpu, att_dev, lm_dir: 
           f"abs err {err:.3e}, best lengths {lg[:, 0].tolist()}", flush=True)
     if not (same and bool(((sc - sg).abs() <= MODEL_ATOL + BEAM_SCORE_RTOL * sc.abs()).all())):
         raise RuntimeError("the fused attention beam on the card disagrees with the CPU")
+
+
+# ---- conformer / transformer encoders, their MoE feed-forward and SpecAugment ------
+
+
+def conformer_models(raw: dict, task_mod, dev):
+    """(task, seeded weights on the CPU, CPU model, card model) of ``raw`` at full width."""
+    task = experiment_from_dict(raw).task(len(CHAR_UNITS))
+    params = task_mod.init_params(task, torch.Generator().manual_seed(0))
+    cpu = task_mod.init_model(task)
+    cpu.load_state_dict(params)
+    cpu.eval()
+    return task, params, cpu, copy.deepcopy(cpu).to(dev).eval()
+
+
+def encoder_label(raw: dict) -> str:
+    pos = raw.get("pos_encoding", "absolute")
+    causal = f", left context {raw['left_context']}" if raw.get("left_context", -1) >= 0 else ""
+    moe = f", MoE {raw['moe_num_experts']} experts top-{raw['moe_top_k']}" \
+        if raw.get("moe_num_experts") else ""
+    return (f"{raw['num_layers']} x {raw['encoder_type']}-{raw['num_units']}, "
+            f"{raw['num_heads']} heads, {pos}{causal}{moe}")
+
+
+def print_kinds(name: str, r: dict, gpu: str) -> None:
+    print(f"{name} train step device time by kind ({r['device_ms']:.3f} ms of "
+          f"{r['profile_wall_ms']:.3f} ms profiled): " + ", ".join(
+              f"{k} {v['ms']:.3f} ms / {v['launches']} launches"
+              for k, v in r["by_kind"].items()) + f"  [{gpu}]", flush=True)
+
+
+def fit_with_spec_augment(dev, gpu: str, model_dir: Path) -> dict:
+    """``fit`` on ls960_conformer_ctc_sa for one toy epoch; every train step's
+    features go through SpecAugment with draws on the card (``dev``)."""
+    calls = []
+    plain = ctc_task.spec_augment
+
+    def counted(feats, feat_len, generator, cfg):
+        calls.append((feats.device.type, generator.device.type))
+        return plain(feats, feat_len, generator, cfg)
+
+    ctc_task.spec_augment = counted
+    try:
+        counts = train_one_epoch("ls960_conformer_ctc_sa", LS960_CONFORMER_CTC_SA, gpu,
+                                 ("ctc_loss", "ctc_loss_fwd_only"), model_dir)
+    finally:
+        ctc_task.spec_augment = plain
+    steps = json.loads((model_dir / "summary.json").read_text())["steps"]
+    print(f"SpecAugment calls in the ls960_conformer_ctc_sa epoch: {len(calls)} for {steps} "
+          f"train steps, features and draws on {sorted(set(calls))}", flush=True)
+    if len(calls) != steps or set(calls) != {(dev.type, dev.type)}:
+        raise RuntimeError(f"SpecAugment ran {len(calls)} times ({set(calls)}) in {steps} steps")
+    return counts
+
+
+def run_conformer(args, dev, gpu: str, work: Path, t0: float) -> tuple:
+    """Phases 25-31: the six conformer / transformer configs. Returns (launch
+    counts by path, the timed numbers)."""
+    counts, numbers = {}, {}
+    want_ctc_step = dict(NONE_LAUNCHED, ctc_loss=1)
+    name = "ls960_conformer_ctc"
+    task, params, cpu, model = conformer_models(LS960_CONFORMER_CTC, ctc_task, dev)
+    check_model(task, cpu, model, dev, name)
+    check_train_step(task, ctc_task, params, dev, seed=51)
+    clock(f"{name} card == CPU", t0)
+    time_phases(task, model, dev, gpu, name, encoder_label(LS960_CONFORMER_CTC))
+    counts["conformer_serving"] = serve_requests(task, model, gpu, name, per_batch={})
+    numbers[f"{name}_prefix_beam"] = time_ctc_beam(task, model, dev, gpu, name)
+    del model
+    r = time_train_steps(name, task, ctc_task, params, dev, gpu, args.profile_out,
+                         want_ctc_step, 0)
+    print_kinds(name, r, gpu)
+    numbers[f"{name}_train_step"] = r
+    counts["conformer_training"] = train_one_epoch(
+        name, LS960_CONFORMER_CTC, gpu, ("ctc_loss", "ctc_loss_fwd_only"), work / name)
+    res, counts["eval_conformer"] = run_cli(
+        f"bin/eval {name}", eval_cli.main, [str(work / name), "--device", "cuda"],
+        ("ctc_loss_fwd_only",), gpu)
+    if not all(np.isfinite(res[s]["error_rate"]) and np.isfinite(res[s]["loss"])
+               for s in ("dev", "test")):
+        raise RuntimeError(f"bin/eval {name} gave {res}")
+    clock(f"{name} served, trained and evaluated", t0)
+
+    for name, raw in (("ls960_transformer_ctc", LS960_TRANSFORMER_CTC),
+                      ("ls960_moe_conformer", LS960_MOE_CONFORMER)):
+        task, params, cpu, model = conformer_models(raw, ctc_task, dev)
+        check_model(task, cpu, model, dev, name)
+        check_train_step(task, ctc_task, params, dev, seed=52)
+        del model
+        r = time_train_steps(name, task, ctc_task, params, dev, gpu, args.profile_out,
+                             want_ctc_step, 0, steps=3)
+        print_kinds(name, r, gpu)
+        numbers[f"{name}_train_step"] = r
+    clock("ls960_transformer_ctc and ls960_moe_conformer card == CPU and timed", t0)
+
+    name = "ls_conformer_transducer"
+    task, params, cpu, model = conformer_models(LS_CONFORMER_TRANSDUCER, transducer_task, dev)
+    check_transducer_model(task, cpu, model, dev, name)
+    check_train_step(task, transducer_task, params, dev, seed=53)
+    time_transducer_phases(task, model, dev, gpu, name, encoder_label(LS_CONFORMER_TRANSDUCER))
+    counts["conformer_transducer_serving"] = serve_transducer_requests(task, model, gpu, name,
+                                                                       per_batch={})
+    del model
+    r = time_train_steps(name, task, transducer_task, params, dev, gpu, args.profile_out,
+                         NONE_LAUNCHED, 0, steps=TR_TIMED_STEPS)
+    print_kinds(name, r, gpu)
+    numbers[f"{name}_train_step"] = r
+    # 256 utterances instead of the config's 512, as for ls_transducer
+    counts["conformer_transducer_training"] = train_one_epoch(
+        name, LS_CONFORMER_TRANSDUCER | {"toy_num_utts": 256}, gpu, (), work / name)
+    clock(f"{name} card == CPU, served and trained", t0)
+
+    task, _, cpu, model = conformer_models(LS_STREAMING_CONFORMER, ctc_task, dev)
+    check_model(task, cpu, model, dev, "ls_streaming_conformer (offline)")
+    del model
+    counts["conformer_sa_training"] = fit_with_spec_augment(dev, gpu,
+                                                            work / "ls960_conformer_ctc_sa")
+    name = "conformer_ctc_512x8"
+    task = experiment_from_dict(CONFORMER_WIDE).task(len(CHAR_UNITS))
+    r = time_train_steps(name, task, ctc_task,
+                         ctc_task.init_params(task, torch.Generator().manual_seed(0)), dev, gpu,
+                         args.profile_out, want_ctc_step, 0, steps=3)
+    print_kinds(f"{name} ({encoder_label(CONFORMER_WIDE)}; not a config of the repo)", r, gpu)
+    numbers[f"{name}_train_step"] = r
+    clock("ls_streaming_conformer card == CPU; ls960_conformer_ctc_sa trained; 512 x 8 timed",
+          t0)
+    return counts, numbers
 
 
 def main() -> int:
@@ -2077,6 +2319,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
         "ls_transducer", dict(LS_TRANSDUCER, toy_num_utts=256), gpu,
         ("lstm_layer_fwd", "lstm_layer_bwd"), work / "ls_transducer")
     clock("ls_transducer trained", t0)
+    conformer_counts, conformer = run_conformer(args, dev, gpu, work, t0)
+    counts.update(conformer_counts)
 
     # "launches": the count on the path that ported the kernel (CTC training
     # for #1, #2, #5, #6; attention serving for #7; transducer training for
@@ -2131,7 +2375,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
                                                            "library_ms")},
         "att_beam_eval": att_beam_eval,
     })
-    print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam}), flush=True)
+    print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer}),
+          flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

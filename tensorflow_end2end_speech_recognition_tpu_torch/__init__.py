@@ -23,7 +23,11 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
   CTC term with its λ anneal, guided attention, and the dev eval;
 - beam decoding and evaluation: the CTC prefix beam, the attention beam
   eval with joint CTC rescoring, RNN-LM shallow fusion in both beams, and
-  ``bin/eval``, ``bin/decode`` and ``bin/train_lm``.
+  ``bin/eval``, ``bin/decode`` and ``bin/train_lm``;
+- the conformer and transformer encoders (absolute, relative or rotary
+  positions, the chunk-causal window, the MoE feed-forward and its
+  load-balance loss) for the CTC, transducer and attention models, and
+  SpecAugment in training.
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
@@ -32,13 +36,15 @@ location-aware attention read (``location_attend.cu``).
 
 Layout:
 
-- ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel)
+- ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel),
+                SpecAugment
 - ``data``      frame stacking, tokenizers, toy corpus, batching, prefetch
 - ``ops``       kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, the
                 nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
 - ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal)
-                encoder, CTC model, attention scorers, seq2seq model, RNN-LM
+                BLSTM, conformer and transformer encoders, CTC model,
+                attention scorers, seq2seq model, transducer, RNN-LM
 - ``decoding``  CTC greedy collapse, CTC prefix beam, attention beam search,
                 joint CTC rescoring
 - ``train``     CTC, attention, transducer and LM tasks (pipeline, loss,

@@ -1,4 +1,4 @@
-"""BLSTM and pyramidal BLSTM encoders, the CTC model, attention scorers and
+"""BLSTM, pyramidal BLSTM, conformer and transformer encoders, the CTC model,
 the attention seq2seq (+ joint CTC-attention) model."""
 
 from .attention import Attention, AttentionConfig

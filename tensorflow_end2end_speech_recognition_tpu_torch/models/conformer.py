@@ -1,0 +1,404 @@
+"""Conformer (Gulati et al. 2020) and Transformer (Vaswani et al. 2017) encoder stacks.
+
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/models/
+conformer.py`` (``ConformerSpec``, ``init_conformer``, ``apply_conformer``).
+``block="conformer"`` layers are macaron: ½FF -> MHSA -> conv -> ½FF -> LN;
+``block="transformer"`` layers are pre-LN, x += MHSA(LN x); x += FF(LN x),
+with one final ``ln_out``. Positions are ``absolute`` sinusoids added after
+``proj``, ``relative`` Transformer-XL scores (q+u)·k + rel_shift((q+v)·r),
+or ``rotary`` (RoPE on interleaved channel pairs); ``left_context >= 0``
+makes the stack chunk-causal (windowed attention, left-padded conv). With
+``moe_experts > 1`` each block's final FF is a top-k-gated expert bank,
+evaluated densely (every expert on every frame), whose Switch load-balance
+loss comes back beside the outputs.
+
+The module tree reproduces the JAX parameter tree key for key
+(``proj.w``, ``layers.0.ff1.in.w``, ``layers.0.mhsa.pos_u``,
+``layers.0.conv.dw [k, 1, d]``, ``layers.0.moe.router.w``, ``ln_out.g``),
+so weights cross with ``utils/bridge.py``. The arithmetic is the
+reference's: LayerNorm with eps 1e-6 inside the rsqrt, masked scores filled
+with -1e30 (a row with no valid key gets a uniform softmax), pad outputs
+zeroed. The products run as ``torch.matmul`` and one grouped ``F.conv1d``;
+there is no TPU kernel on this path. ``depthwise_impl`` is accepted and
+computes the same function either way (``"shifts"`` exists in the JAX
+package for its SPMD partitioner). ``compute_dtype: bfloat16`` raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .rnn import dropout
+
+MASK_FILL = -1e30
+
+
+class ConformerSpec(NamedTuple):
+    """Same fields and defaults as the JAX ``ConformerSpec``."""
+
+    dim: int = 256
+    num_layers: int = 8
+    num_heads: int = 4
+    conv_kernel_size: int = 15
+    ff_expansion: int = 4
+    compute_dtype: str = "float32"
+    block: str = "conformer"  # "conformer" (macaron + conv) | "transformer" (pre-LN)
+    depthwise_impl: str = "conv"  # "conv" | "shifts": the same function here
+    moe_experts: int = 0  # > 1: each block's final FF is a top-k expert bank
+    moe_top_k: int = 2
+    moe_aux_weight: float = 1e-2
+    pos_encoding: str = "absolute"  # "absolute" | "relative" | "rotary"
+    left_context: int = -1  # >= 0: chunk-causal attention window and causal conv
+
+    @property
+    def is_moe(self) -> bool:
+        return bool(self.moe_experts and self.moe_experts > 1)
+
+    def validate(self):
+        """Raise a clear config error, as the JAX ``validate``."""
+        if self.dim % self.num_heads:
+            raise ValueError(f"conformer dim {self.dim} must be divisible by num_heads "
+                             f"{self.num_heads}")
+        if self.dim % 2:
+            raise ValueError(f"conformer dim {self.dim} must be even (sinusoidal posenc "
+                             f"pairs sin/cos channels)")
+        if self.pos_encoding not in ("absolute", "relative", "rotary"):
+            raise ValueError(f"pos_encoding must be 'absolute', 'relative' or 'rotary', "
+                             f"got {self.pos_encoding!r}")
+        if self.pos_encoding == "rotary" and (self.dim // self.num_heads) % 2:
+            raise ValueError(f"rotary needs an even head dim, got {self.dim}/{self.num_heads} "
+                             f"= {self.dim // self.num_heads}")
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r} is not ported yet (the conformer's "
+                "bf16 matmul inputs)")
+
+
+def _uniform(shape, s: float, generator) -> torch.Tensor:
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * s
+
+
+def _xavier(fin: int, fout: int, generator) -> torch.Tensor:
+    return _uniform((fin, fout), math.sqrt(6.0 / (fin + fout)), generator)
+
+
+class Dense(nn.Module):
+    """x @ w + b, w [fin, fout] Xavier-uniform and b zero (``_dense_init``)."""
+
+    def __init__(self, fin: int, fout: int, generator=None):
+        super().__init__()
+        self.w = nn.Parameter(_xavier(fin, fout, generator))
+        self.b = nn.Parameter(torch.zeros(fout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.w) + self.b
+
+
+class LayerNorm(nn.Module):
+    """``_ln``: biased variance, eps inside the rsqrt, g = 1 and b = 0 at init."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(d))
+        self.b = nn.Parameter(torch.zeros(d))
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).square().mean(dim=-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + eps) * self.g + self.b
+
+
+class FeedForward(nn.Module):
+    """``_ff``: LN -> dense -> swish -> dense (children ``ln``, ``in``, ``out``)."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        e = spec.dim * spec.ff_expansion
+        self.ln = LayerNorm(spec.dim)
+        self.add_module("in", Dense(spec.dim, e, generator))
+        self.out = Dense(e, spec.dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(F.silu(self._modules["in"](self.ln(x))))
+
+
+class _Weights(nn.Module):
+    """A named group of raw parameters (``router``, the stacked expert ``in`` / ``out``,
+    the relative-position projection ``pos``, which has no bias)."""
+
+    def __init__(self, **params: torch.Tensor):
+        super().__init__()
+        for name, value in params.items():
+            self.register_parameter(name, nn.Parameter(value))
+
+
+class MoEFeedForward(nn.Module):
+    """``_moe_ff``: the top-k-gated expert bank with stacked weights
+    (``in.w [E, d, ff]``, ``in.b [E, ff]``, ``out.w [E, ff, d]``, ``out.b
+    [E, d]``) and the router ``router.w [d, E]`` (0.01 · normal, no bias)."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        d, e, n = spec.dim, spec.dim * spec.ff_expansion, spec.moe_experts
+        s = math.sqrt(6.0 / (d + e))
+        self.spec = spec
+        self.ln = LayerNorm(d)
+        self.router = _Weights(w=0.01 * torch.randn((d, n), generator=generator))
+        self.add_module("in", _Weights(w=_uniform((n, d, e), s, generator), b=torch.zeros(n, e)))
+        self.out = _Weights(w=_uniform((n, e, d), s, generator), b=torch.zeros(n, d))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        """(out [B, T, d], aux loss scalar). Gates keep every expert whose
+        probability is at least the k-th largest (ties keep more than k),
+        renormalised; the aux loss is E · Σ_e fraction_e · mean_prob_e over
+        the valid frames (1.0 = balanced), with fractions from the argmax."""
+        n = self.spec.moe_experts
+        k = min(self.spec.moe_top_k, n)
+        y = self.ln(x)
+        probs = torch.softmax(torch.matmul(y, self.router.w), dim=-1)  # [B, T, E]
+        if k < n:
+            kth = probs.topk(k, dim=-1).values[..., -1:]
+            gates = torch.where(probs >= kth, probs, 0.0)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        else:
+            gates = probs
+        w_in, w_out = self._modules["in"], self.out
+        h = F.silu(torch.einsum("btd,edf->ebtf", y, w_in.w) + w_in.b[:, None, None, :])
+        o = torch.einsum("ebtf,efd->ebtd", h, w_out.w) + w_out.b[:, None, None, :]
+        out = torch.einsum("ebtd,bte->btd", o, gates)
+        m = mask.to(probs.dtype)
+        denom = m.sum().clamp_min(1.0)
+        one_hot = F.one_hot(probs.argmax(dim=-1), n).to(probs.dtype)
+        frac = (one_hot * m[..., None]).sum((0, 1)) / denom
+        mean_p = (probs * m[..., None]).sum((0, 1)) / denom
+        return out, n * (frac * mean_p).sum()
+
+
+def sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """``[sin | cos]`` halves of pos / 10000^(2i/d) for positions ``pos`` [...]:
+    [..., d] (``_posenc``, ``_posenc_at`` and ``_rel_posemb``'s formula)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.to(torch.float32)[..., None] / torch.pow(10000.0, 2.0 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def posenc(t: int, d: int, device=None) -> torch.Tensor:
+    """Absolute sinusoids [T, d] (``_posenc``)."""
+    return sinusoids(torch.arange(t, dtype=torch.float32, device=device), d)
+
+
+def rel_posemb(t: int, d: int, device=None) -> torch.Tensor:
+    """Sinusoids of the relative offsets t-1 .. -(t-1): [2t-1, d], row k at
+    offset t-1-k (``_rel_posemb``)."""
+    return sinusoids(torch.arange(t - 1, -t, -1, dtype=torch.float32, device=device), d)
+
+
+def rope_at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding of x [B, h, T, dh] at positions ``pos`` [B, T]
+    (``_rope_at``): channel pair (2i, 2i+1) rotates by pos / 10000^(2i/dh),
+    and the pairs are written back interleaved."""
+    b, h, t, dh = x.shape
+    inv = torch.pow(10000.0, -2.0 * torch.arange(dh // 2, dtype=torch.float32,
+                                                  device=x.device) / dh)
+    theta = pos.to(torch.float32)[:, None, :, None] * inv  # [B, 1, T, dh/2]
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).reshape(b, h, t, dh)
+
+
+def rope(x: torch.Tensor) -> torch.Tensor:
+    """``_rope``: ``rope_at`` at positions 0 .. T-1."""
+    b, _, t, _ = x.shape
+    pos = torch.arange(t, dtype=torch.float32, device=x.device)[None].expand(b, t)
+    return rope_at(x, pos)
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """[B, h, T, 2T-1] -> [B, h, T, T], out[..., i, j] = x[..., i, T-1-i+j]:
+    the Transformer-XL pad-reshape of ``_rel_shift``."""
+    b, h, t, _ = x.shape
+    x = F.pad(x, (1, 0)).reshape(b, h, 2 * t, t)
+    return x[:, :, 1:].reshape(b, h, t, 2 * t - 1)[..., :t]
+
+
+def window_mask(t: int, left_context: int, device=None) -> torch.Tensor:
+    """[T, T] bool: query i sees key j iff j <= i and i - j <= left_context."""
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    return (j <= i) & (i - j <= left_context)
+
+
+class MHSA(nn.Module):
+    """``_mhsa``: LN, q/k/v/o projections, positions by the spec's scheme
+    (``pos`` [d, d] with no bias and ``pos_u`` / ``pos_v`` [h, dh] zeros for
+    ``relative``), scores / sqrt(dh) masked with -1e30 (keys, then the
+    window), softmax, and the output projection."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        d = spec.dim
+        self.spec = spec
+        self.ln = LayerNorm(d)
+        self.q, self.k = Dense(d, d, generator), Dense(d, d, generator)
+        self.v, self.o = Dense(d, d, generator), Dense(d, d, generator)
+        if spec.pos_encoding == "relative":
+            h = spec.num_heads
+            self.pos = _Weights(w=_xavier(d, d, generator))
+            self.pos_u = nn.Parameter(torch.zeros(h, d // h))
+            self.pos_v = nn.Parameter(torch.zeros(h, d // h))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        b, t, d = x.shape
+        h = self.spec.num_heads
+        dh = d // h
+        y = self.ln(x)
+        split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)  # noqa: E731  [B, h, T, dh]
+        q, k, v = split(self.q(y)), split(self.k(y)), split(self.v(y))
+        if self.spec.pos_encoding == "relative":
+            r = torch.matmul(rel_posemb(t, d, x.device), self.pos.w)  # [2T-1, d]
+            r = r.reshape(2 * t - 1, h, dh).transpose(0, 1)  # [h, 2T-1, dh]
+            ac = torch.matmul(q + self.pos_u[None, :, None, :], k.transpose(-1, -2))
+            bd = torch.matmul(q + self.pos_v[None, :, None, :], r.transpose(-1, -2))
+            scores = ac + rel_shift(bd)
+        else:
+            if self.spec.pos_encoding == "rotary":
+                q, k = rope(q), rope(k)
+            scores = torch.matmul(q, k.transpose(-1, -2))
+        scores = scores / math.sqrt(dh)
+        scores = torch.where(mask[:, None, None, :], scores, MASK_FILL)
+        if self.spec.left_context >= 0:
+            win = window_mask(t, self.spec.left_context, x.device)
+            scores = torch.where(win[None, None], scores, MASK_FILL)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        return self.o(out.transpose(1, 2).reshape(b, t, d))
+
+
+class ConvModule(nn.Module):
+    """``_conv_module``: LN -> pw1 (2d) -> GLU -> mask -> depthwise conv
+    (``dw`` [k, 1, d]; SAME padding, or k-1 frames on the left when
+    ``left_context >= 0``) -> LN (``norm``) -> swish -> pw2."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        d, k = spec.dim, spec.conv_kernel_size
+        self.spec = spec
+        self.ln = LayerNorm(d)
+        self.pw1 = Dense(d, 2 * d, generator)
+        self.dw = nn.Parameter(_uniform((k, 1, d), math.sqrt(6.0 / (k + d)), generator))
+        self.norm = LayerNorm(d)
+        self.pw2 = Dense(d, d, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        a, g = self.pw1(self.ln(x)).chunk(2, dim=-1)
+        y = a * torch.sigmoid(g) * mask[..., None]  # pad frames must not leak through the conv
+        y = depthwise_conv(y, self.dw, causal=self.spec.left_context >= 0)
+        return self.pw2(F.silu(self.norm(y)))
+
+
+def depthwise_conv(y: torch.Tensor, dw: torch.Tensor, causal: bool) -> torch.Tensor:
+    """y [B, T, d] * dw [k, 1, d] as one grouped cross-correlation (as
+    ``conv_general_dilated``): w[c, 0, i] = dw[i, 0, c], no flip; padded
+    ((k-1)//2, k-1-(k-1)//2) (SAME), or (k-1, 0) when ``causal``."""
+    k, d = dw.shape[0], dw.shape[2]
+    lo = k - 1 if causal else (k - 1) // 2
+    yp = F.pad(y.transpose(1, 2), (lo, k - 1 - lo))
+    return F.conv1d(yp, dw.permute(2, 1, 0), groups=d).transpose(1, 2)
+
+
+class ConformerLayer(nn.Module):
+    """One macaron block: ``ff1``, ``mhsa``, ``conv``, ``ff2`` or ``moe``, ``ln``."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        self.ff1 = FeedForward(spec, generator)
+        self.mhsa = MHSA(spec, generator)
+        self.conv = ConvModule(spec, generator)
+        if spec.is_moe:
+            self.moe = MoEFeedForward(spec, generator)
+        else:
+            self.ff2 = FeedForward(spec, generator)
+        self.ln = LayerNorm(spec.dim)
+
+
+class TransformerLayer(nn.Module):
+    """One pre-LN block: ``mhsa``, ``ff`` or ``moe``."""
+
+    def __init__(self, spec: ConformerSpec, generator=None):
+        super().__init__()
+        self.mhsa = MHSA(spec, generator)
+        if spec.is_moe:
+            self.moe = MoEFeedForward(spec, generator)
+        else:
+            self.ff = FeedForward(spec, generator)
+
+
+class Conformer(nn.Module):
+    """The stack: ``proj`` [input_dim, dim], ``layers``, and ``ln_out`` for
+    the transformer block. Weights drawn from ``generator`` as
+    ``init_conformer`` draws them (Xavier-uniform dense weights, zero biases,
+    LayerNorm 1 / 0, the router 0.01 · normal, ``dw`` uniform in
+    ±sqrt(6 / (k + d)))."""
+
+    def __init__(self, spec: ConformerSpec, input_dim: int, generator=None):
+        super().__init__()
+        spec.validate()
+        self.spec = spec
+        layer = TransformerLayer if spec.block == "transformer" else ConformerLayer
+        self.layers = nn.ModuleList(layer(spec, generator) for _ in range(spec.num_layers))
+        self.proj = Dense(input_dim, spec.dim, generator)
+        if spec.block == "transformer":
+            self.ln_out = LayerNorm(spec.dim)
+
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None, keep_prob: float = 1.0):
+        """[B, T, D] -> ([B, T, dim] with pad frames zeroed, aux): ``apply_conformer``.
+
+        ``aux`` is the MoE load-balance loss, ``moe_aux_weight · Σ aux /
+        num_layers``, when ``moe_experts > 1``, else None. With ``train`` and a
+        ``generator`` (on the inputs' device), dropout at the four sites of
+        each layer, drawn in the reference's site order; the macaron ½
+        applies after the dropout.
+        """
+        spec = self.spec
+        t = xs.shape[1]
+        mask = torch.arange(t, device=xs.device)[None, :] < lengths.to(xs.device)[:, None]
+        x = self.proj(xs)
+        if spec.pos_encoding == "absolute":
+            x = x + posenc(t, spec.dim, xs.device)[None]
+
+        def drop(z):
+            if train and generator is not None:
+                return dropout(z, keep_prob, train, generator)
+            return z
+
+        aux_total = []
+
+        def final_ff(p, x):
+            if spec.is_moe:
+                y, aux = p.moe(x, mask)
+                aux_total.append(aux)
+                return y
+            return (p.ff if spec.block == "transformer" else p.ff2)(x)
+
+        if spec.block == "transformer":
+            for p in self.layers:
+                x = x + drop(p.mhsa(x, mask))
+                x = x + drop(final_ff(p, x))
+            x = self.ln_out(x)
+        else:
+            for p in self.layers:
+                x = x + 0.5 * drop(p.ff1(x))
+                x = x + drop(p.mhsa(x, mask))
+                x = x + drop(p.conv(x, mask))
+                x = x + 0.5 * drop(final_ff(p, x))
+                x = p.ln(x)
+        out = x * mask[..., None]
+        if not spec.is_moe:
+            return out, None
+        return out, spec.moe_aux_weight * torch.stack(aux_total).sum() / len(self.layers)

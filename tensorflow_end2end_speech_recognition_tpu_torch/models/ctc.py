@@ -1,4 +1,4 @@
-"""CTC acoustic model: BLSTM encoder -> optional bottleneck -> affine head.
+"""CTC acoustic model: encoder -> optional bottleneck -> affine head.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/models/ctc.py``
 (``init_ctc`` / ``apply_ctc``). Logits are batch-major ``[B, T, C]`` and the
@@ -35,6 +35,7 @@ class CTCConfig(NamedTuple):
 class CTCOutput(NamedTuple):
     logits: torch.Tensor  # [B, T', num_classes+1]
     logit_len: torch.Tensor  # [B]
+    aux_loss: torch.Tensor | None = None  # MoE load-balance loss (weighted)
 
 
 class Affine(nn.Module):
@@ -77,5 +78,5 @@ class CTCModel(nn.Module):
     def forward(self, feats: torch.Tensor, feat_len: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> CTCOutput:
         """``train`` and ``generator`` pass to the encoder's dropout (``apply_ctc``)."""
-        xs, lengths = self.encoder(feats, feat_len, train, generator)
-        return CTCOutput(self.project(xs), lengths)
+        enc = self.encoder(feats, feat_len, train, generator)
+        return CTCOutput(self.project(enc.outputs), enc.lengths, enc.aux_loss)

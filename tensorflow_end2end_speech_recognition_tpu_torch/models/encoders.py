@@ -1,17 +1,20 @@
-"""LSTM, BLSTM and pyramidal BLSTM encoder stacks.
+"""LSTM, BLSTM, pyramidal BLSTM, conformer and transformer encoder stacks.
 
-Counterpart of the ``lstm``, ``blstm`` and ``pyramidal_blstm`` (alias
-``pblstm``) branches of ``apply_encoder`` in
-``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack of
-``LSTM`` (one direction, causal) or ``BiLSTM`` layers over ``[B, T, D]``
+Counterpart of the ``lstm``, ``blstm``, ``pyramidal_blstm`` (alias
+``pblstm``), ``conformer`` and ``transformer`` branches of ``apply_encoder``
+in ``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack
+of ``LSTM`` (one direction, causal) or ``BiLSTM`` layers over ``[B, T, D]``
 with the true lengths carried alongside, and, in training, dropout after
 every layer, the last one included. The pyramidal stack concatenates
 adjacent frame pairs after each of its first ``num_pyramid_levels`` layers
 (by default all but the last), halving T and doubling the next layer's
 input width (``_pyramid_reduce``). The JAX package routes inputs longer than
 T = 400 to its scan path because of TPU toolchain limits; the kernels here
-run at every T. Other encoder types (``vgg_lstm``, ``multitask_lstm``, ...)
-and cell options raise ``NotImplementedError`` until they are ported.
+run at every T. The conformer and transformer types run ``conformer.
+Conformer`` (parameters under ``conformer``), whose MoE load-balance loss
+comes back as ``EncoderOutput.aux_loss`` when ``moe_experts > 1``. Other
+encoder types (``vgg_lstm``, ``multitask_lstm``, ...) and cell options raise
+``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
@@ -22,14 +25,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .conformer import Conformer, ConformerSpec
 from .rnn import LSTM, BiLSTM, dropout
 
 PYRAMIDAL_TYPES = ("pyramidal_blstm", "pblstm")
-PORTED_TYPES = ("lstm", "blstm") + PYRAMIDAL_TYPES
+CONFORMER_TYPES = ("conformer", "transformer")
+PORTED_TYPES = ("lstm", "blstm") + PYRAMIDAL_TYPES + CONFORMER_TYPES
 
 
 class EncoderConfig(NamedTuple):
-    """The (B)LSTM-path fields of the JAX ``EncoderConfig``, same names and defaults."""
+    """The (B)LSTM, conformer and transformer fields of the JAX
+    ``EncoderConfig``, same names and defaults."""
 
     encoder_type: str = "blstm"
     num_units: int = 256
@@ -41,14 +47,40 @@ class EncoderConfig(NamedTuple):
     dropout_keep_prob: float = 1.0  # applied after every layer in training
     num_pyramid_levels: int | None = None  # None: a reduction after all but the last layer
     compute_dtype: str = "float32"
+    # conformer / transformer (models/conformer.py)
+    num_heads: int = 4
+    conv_kernel_size: int = 15
+    ff_expansion: int = 4
+    depthwise_impl: str = "conv"  # "conv" | "shifts": the same function in the port
+    moe_experts: int = 0  # > 1: each block's final FF is a top-k expert bank
+    moe_top_k: int = 2
+    moe_aux_weight: float = 1e-2
+    pos_encoding: str = "absolute"  # "absolute" | "relative" | "rotary"
+    left_context: int = -1  # >= 0: chunk-causal attention window and causal conv
 
     @property
     def bidirectional(self) -> bool:
         return self.encoder_type != "lstm"
 
     @property
+    def is_conformer(self) -> bool:
+        return self.encoder_type in CONFORMER_TYPES
+
+    @property
     def output_dim(self) -> int:
+        if self.is_conformer:
+            return self.num_units
         return self.num_units * (2 if self.bidirectional else 1)
+
+    def conformer_spec(self) -> ConformerSpec:
+        return ConformerSpec(
+            dim=self.num_units, num_layers=self.num_layers, num_heads=self.num_heads,
+            conv_kernel_size=self.conv_kernel_size, ff_expansion=self.ff_expansion,
+            compute_dtype=self.compute_dtype, block=self.encoder_type,
+            depthwise_impl=self.depthwise_impl, moe_experts=self.moe_experts,
+            moe_top_k=self.moe_top_k, moe_aux_weight=self.moe_aux_weight,
+            pos_encoding=self.pos_encoding, left_context=self.left_context,
+        )
 
     @property
     def is_pyramidal(self) -> bool:
@@ -61,10 +93,19 @@ class EncoderConfig(NamedTuple):
         return self.is_pyramidal and layer < levels
 
 
+class EncoderOutput(NamedTuple):
+    outputs: torch.Tensor  # [B, T', H]
+    lengths: torch.Tensor  # [B]
+    aux_loss: torch.Tensor | None = None  # weighted MoE load-balance loss (moe_experts > 1)
+
+
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
     if cfg.encoder_type not in PORTED_TYPES:
         raise NotImplementedError(f"encoder_type {cfg.encoder_type!r} is not ported yet")
+    if cfg.is_conformer:
+        cfg.conformer_spec().validate()
+        return
     for name, unset in (("num_proj", cfg.num_proj is None),
                         ("use_peephole", not cfg.use_peephole),
                         ("clip_activation", not cfg.clip_activation)):
@@ -98,6 +139,11 @@ class Encoder(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         check_supported(cfg)
+        self.cfg = cfg
+        self.keep_prob = cfg.dropout_keep_prob
+        if cfg.is_conformer:
+            self.conformer = Conformer(cfg.conformer_spec(), input_dim, generator)
+            return
         dims, dim = [], input_dim
         for layer in range(cfg.num_layers):
             dims.append(dim)
@@ -106,21 +152,24 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(
             layer(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
         )
-        self.cfg = cfg
-        self.keep_prob = cfg.dropout_keep_prob
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
-        """[B, T, D] -> ([B, T', output_dim], lengths'); T' = T unless pyramidal.
+                generator: torch.Generator | None = None) -> EncoderOutput:
+        """[B, T, D] -> ``EncoderOutput`` ([B, T', output_dim], lengths', aux);
+        T' = T unless pyramidal.
 
-        With ``train`` and a ``generator`` (on the inputs' device), each
-        layer's output goes through dropout, as ``apply_encoder`` does when
-        it is given an rng; without a generator no dropout is drawn.
+        With ``train`` and a ``generator`` (on the inputs' device), dropout
+        is drawn as ``apply_encoder`` draws it when it is given an rng (after
+        each recurrent layer; at the conformer's four sites per layer);
+        without a generator no dropout is drawn.
         """
+        if self.cfg.is_conformer:
+            out, aux = self.conformer(xs, lengths, train, generator, self.keep_prob)
+            return EncoderOutput(out, lengths, aux)
         for i, layer in enumerate(self.layers):
             xs = layer(xs, lengths)
             if train and generator is not None:
                 xs = dropout(xs, self.keep_prob, train, generator)
             if self.cfg.reduces_after(i):
                 xs, lengths = _pyramid_reduce(xs, lengths)
-        return xs, lengths
+        return EncoderOutput(xs, lengths)

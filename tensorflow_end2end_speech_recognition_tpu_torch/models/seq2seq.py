@@ -74,6 +74,7 @@ class EncodeOutput(NamedTuple):
     lengths: torch.Tensor  # [B]
     ctc_logits: torch.Tensor | None = None  # [B, T', num_classes + 1], joint models
     ctc_logit_len: torch.Tensor | None = None
+    aux_loss: torch.Tensor | None = None  # MoE load-balance loss (weighted)
 
 
 class Seq2SeqOutput(NamedTuple):
@@ -85,6 +86,7 @@ class Seq2SeqOutput(NamedTuple):
     enc_out: torch.Tensor | None = None
     enc_len: torch.Tensor | None = None
     steps: int = 0  # decoder steps run (the port's own count; a multiple of the unroll)
+    aux_loss: torch.Tensor | None = None  # MoE load-balance loss (weighted)
 
 
 class Seq2SeqModel(nn.Module):
@@ -128,10 +130,10 @@ def encode(model: Seq2SeqModel, feats, feat_len, train: bool = False,
            generator: torch.Generator | None = None) -> EncodeOutput:
     """Encoder outputs and lengths, plus the joint CTC head's logits;
     ``train`` and ``generator`` pass to the encoder's dropout."""
-    enc_out, enc_len = model.encoder(feats, feat_len, train, generator)
+    enc_out, enc_len, aux = model.encoder(feats, feat_len, train, generator)
     if model.cfg.is_joint:
-        return EncodeOutput(enc_out, enc_len, model.ctc_head(enc_out), enc_len)
-    return EncodeOutput(enc_out, enc_len)
+        return EncodeOutput(enc_out, enc_len, model.ctc_head(enc_out), enc_len, aux)
+    return EncodeOutput(enc_out, enc_len, aux_loss=aux)
 
 
 def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token,
@@ -210,7 +212,7 @@ def forward_train(model: Seq2SeqModel, feats, feat_len, labels_in,
     return Seq2SeqOutput(
         torch.stack(logits_steps, dim=1), torch.stack(align_steps, dim=1),
         ctc_logits=enc.ctc_logits, ctc_logit_len=enc.ctc_logit_len,
-        enc_out=enc_out, enc_len=enc.lengths,
+        enc_out=enc_out, enc_len=enc.lengths, aux_loss=enc.aux_loss,
     )
 
 

@@ -52,6 +52,7 @@ class TransducerOutput(NamedTuple):
     g_proj: torch.Tensor | None = None  # [B, U', J] prediction-net contribution
     decoded: torch.Tensor | None = None  # [B, T' * S] greedy ids, -1-padded
     dec_len: torch.Tensor | None = None  # [B]
+    aux_loss: torch.Tensor | None = None  # MoE load-balance loss (weighted)
 
 
 def pred_tokens(labels: torch.Tensor, blank_id: int) -> torch.Tensor:
@@ -88,8 +89,13 @@ class TransducerModel(nn.Module):
     def encode(self, feats, feat_len, train: bool = False,
                generator: torch.Generator | None = None):
         """Features -> (joint-space encoder activations [B, T', J], lengths [B])."""
-        enc, enc_len = self.encoder(feats, feat_len, train, generator)
-        return self.enc_proj(enc), enc_len
+        return self._encode(feats, feat_len, train, generator)[:2]
+
+    def _encode(self, feats, feat_len, train: bool = False,
+                generator: torch.Generator | None = None):
+        """``encode`` with the encoder's MoE load-balance loss (or None) third."""
+        enc = self.encoder(feats, feat_len, train, generator)
+        return self.enc_proj(enc.outputs), enc.lengths, enc.aux_loss
 
     def predict(self, tokens, initial_states=None, train: bool = False,
                 generator: torch.Generator | None = None):
@@ -117,12 +123,12 @@ class TransducerModel(nn.Module):
         """Encoder, the prediction net over ``tokens`` (if given) and, with
         ``decode``, the greedy decode of the encoder output: one call, so a
         step can run them all on a dict of weights (``functional_call``)."""
-        f_proj, enc_len = self.encode(feats, feat_len, train, generator)
+        f_proj, enc_len, aux = self._encode(feats, feat_len, train, generator)
         g_proj = None if tokens is None else self.predict(tokens, train=train,
                                                           generator=generator)[0]
         if not decode:
-            return TransducerOutput(f_proj, enc_len, g_proj)
+            return TransducerOutput(f_proj, enc_len, g_proj, aux_loss=aux)
         from ..decoding.transducer_greedy import transducer_greedy_decode
 
         return TransducerOutput(f_proj, enc_len, g_proj,
-                                *transducer_greedy_decode(self, f_proj, enc_len))
+                                *transducer_greedy_decode(self, f_proj, enc_len), aux_loss=aux)

@@ -7,14 +7,15 @@ scheduled sampling -> label-smoothed cross entropy, mixed with the joint
 CTC term by λ (annealed from ``ctc_weight_init`` in training), plus the
 guided-attention penalty (annealed) and L2 weight decay -> gradient -> clip
 and update, with the CTC step's guard (``ctc_task.guarded_train_step``).
+In training, SpecAugment (when set) masks the stacked features and a MoE
+encoder's load-balance loss joins the objective after the guided term.
 The schedules read the global ``step`` as a Python int, so they cost the
 device nothing. Parameters travel as a dict of tensors (``state_dict``
 keys) through one parameter-free copy of the model
 (``torch.func.functional_call``). The beam eval step shares one encoder
 pass between the attention beam (with joint CTC rescoring for joint models
 and, given an RNN-LM, shallow fusion) and the teacher-forced NLL it
-reports. SpecAugment and gradient accumulation raise
-``NotImplementedError``.
+reports. Gradient accumulation raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ from torch.func import functional_call
 
 from ..decoding.attention_beam import attention_beam_search
 from ..decoding.joint_rescoring import joint_rescore
+from ..frontend.augment import SpecAugmentConfig
 from ..frontend.features import FrontendConfig
 from ..models.seq2seq import Seq2SeqConfig, Seq2SeqModel
 from ..ops.ctc import ctc_loss
 from ..ops.losses import batch_mean, joint_loss, l2_weight_decay, smoothed_cross_entropy
-from .ctc_task import device_pipeline, guarded_train_step, skeleton
+from .ctc_task import add_moe_aux, augment, device_pipeline, guarded_train_step, skeleton
 
 
 class AttTaskConfig(NamedTuple):
@@ -43,7 +45,7 @@ class AttTaskConfig(NamedTuple):
     label_smoothing: float = 0.0
     ctc_impl: str = "auto"
     scheduled_sampling_ramp_max_step: int = 0
-    spec_augment: object | None = None
+    spec_augment: SpecAugmentConfig | None = None
     guided_attention_weight: float = 0.0
     guided_attention_sigma: float = 0.2
     guided_attention_decay_steps: int = 0
@@ -137,10 +139,12 @@ def guided_attention_penalty(att_w, label_mask, enc_len, sigma: float) -> torch.
 def _apply(params: dict, task: AttTaskConfig, batch: dict, train: bool = False,
            generator: torch.Generator | None = None, ss_prob: float = 0.0,
            decode=False):
-    """Pipeline and ``Seq2SeqModel.forward`` on the weights in ``params``:
-    (teacher-forced output, the decode's output or None, targets, mask)."""
+    """Pipeline (with SpecAugment when training) and ``Seq2SeqModel.forward``
+    on the weights in ``params``: (teacher-forced output, the decode's output
+    or None, targets, mask)."""
     cfg = task.model
     feats, feat_len = device_pipeline(task, batch)
+    feats = augment(task, feats, feat_len, train, generator)
     labels_in, targets, mask = make_decoder_io(cfg, batch["labels"], batch["label_len"])
     out, greedy = functional_call(
         skeleton(Seq2SeqModel, cfg, feats.shape[-1]), params, (feats, feat_len, labels_in),
@@ -151,11 +155,10 @@ def _apply(params: dict, task: AttTaskConfig, batch: dict, train: bool = False,
 def forward_loss(params: dict, task: AttTaskConfig, batch: dict, train: bool,
                  generator: torch.Generator | None = None, step: int = 0):
     """(loss, aux): the smoothed attention NLL, mixed with the CTC NLL by λ for
-    joint models, plus the guided-attention term (train only) and L2 weight
-    decay; every mean weighted by the batch's row weights."""
+    joint models, plus the guided-attention term and the MoE load-balance
+    loss (train only) and L2 weight decay; every mean weighted by the
+    batch's row weights."""
     cfg = task.model
-    if train and task.spec_augment is not None:
-        raise NotImplementedError("SpecAugment is not ported yet")
     out, _, targets, mask = _apply(params, task, batch, train, generator,
                                    scheduled_sampling_prob(task, step) if train else 0.0)
     row_w = batch.get("weight")  # 0 on the filler rows of a short batch
@@ -177,6 +180,7 @@ def forward_loss(params: dict, task: AttTaskConfig, batch: dict, train: bool,
                                                  task.guided_attention_sigma), row_w)
         aux["guided_att"] = ga
         loss = loss + ga_weight_schedule(task, step) * ga
+    loss = add_moe_aux(loss, aux, out.aux_loss, train)
     if task.weight_decay:
         loss = loss + l2_weight_decay(params, task.weight_decay)
     aux["loss"] = loss

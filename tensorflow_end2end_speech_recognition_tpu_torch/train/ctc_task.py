@@ -8,9 +8,11 @@ Parameters travel as a dict of tensors (``state_dict`` keys) and run
 through one parameter-free copy of the model with
 ``torch.func.functional_call``, so a step is a function of
 ``(params, opt_state, batch, lr, generator)`` as the jitted JAX step is.
-The beam eval step decodes with the CTC prefix beam, with an RNN-LM fused
-when one is given. Per-speaker CMVN, SpecAugment, gradient accumulation and
-the multitask head raise ``NotImplementedError``.
+In training, SpecAugment (when the task sets it) masks the stacked
+features with draws from the step's generator, and a MoE encoder's
+load-balance loss joins the objective. The beam eval step decodes with the
+CTC prefix beam, with an RNN-LM fused when one is given. Per-speaker CMVN,
+gradient accumulation and the multitask head raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch.func import functional_call
 from ..data.frame_ops import splice_frames, stack_frames
 from ..decoding.ctc_greedy import ctc_greedy_decode
 from ..decoding.ctc_prefix_beam import ctc_prefix_beam_search
+from ..frontend.augment import SpecAugmentConfig, spec_augment
 from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
 from ..ops.ctc import ctc_loss
@@ -33,8 +36,8 @@ from .optimizer import apply_updates, tree_where
 
 class CTCTaskConfig(NamedTuple):
     """Same fields and defaults as the JAX ``CTCTaskConfig``. Only
-    ``ctc_impl="auto"`` and ``spec_augment=None`` are ported;
-    ``main_task_weight`` is read by the multitask head, which is not."""
+    ``ctc_impl="auto"`` is ported; ``main_task_weight`` is read by the
+    multitask head, which is not."""
 
     model: CTCConfig
     frontend: FrontendConfig | None = FrontendConfig()  # None => precomputed features
@@ -43,7 +46,7 @@ class CTCTaskConfig(NamedTuple):
     splice: int = 0
     weight_decay: float = 0.0
     ctc_impl: str = "auto"
-    spec_augment: object | None = None
+    spec_augment: SpecAugmentConfig | None = None
     main_task_weight: float = 1.0
     feature_dim: int | None = None
 
@@ -66,6 +69,23 @@ def device_pipeline(task: CTCTaskConfig, batch: dict):
         feats, feat_len = inputs, input_len
     feats, feat_len = stack_frames(feats, feat_len, task.num_stack, task.num_skip)
     return splice_frames(feats, task.splice), feat_len
+
+
+def augment(task, feats, feat_len, train: bool, generator: torch.Generator | None):
+    """SpecAugment on the model-ready features when training with a generator
+    and the task sets it (``spec_augment`` of the JAX tasks' ``forward_loss``)."""
+    if train and task.spec_augment is not None and generator is not None:
+        return spec_augment(feats, feat_len, generator, task.spec_augment)
+    return feats
+
+
+def add_moe_aux(loss, aux: dict, aux_loss, train: bool):
+    """Add the encoder's (already weighted) MoE load-balance loss in training,
+    reported as ``aux["moe_aux"]``; the eval loss stays a data likelihood."""
+    if aux_loss is None or not train:
+        return loss
+    aux["moe_aux"] = aux_loss
+    return loss + aux_loss
 
 
 def init_model(task: CTCTaskConfig, generator: torch.Generator | None = None,
@@ -98,15 +118,16 @@ def apply_model(params: dict, task: CTCTaskConfig, feats, feat_len, train: bool 
 
 def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
                  generator: torch.Generator | None = None):
-    """(loss, aux): the weighted batch mean of the CTC nll plus L2 weight decay."""
+    """(loss, aux): the weighted batch mean of the CTC nll, plus the MoE
+    load-balance loss in training, plus L2 weight decay."""
     feats, feat_len = device_pipeline(task, batch)
-    if train and task.spec_augment is not None:
-        raise NotImplementedError("SpecAugment is not ported yet")
+    feats = augment(task, feats, feat_len, train, generator)
     out = apply_model(params, task, feats, feat_len, train, generator)
     nll = ctc_loss(out.logits, out.logit_len, batch["labels"], batch["label_len"],
                    blank_id=task.model.blank_id, impl=task.ctc_impl)
     loss = batch_mean(nll, batch.get("weight"))
     aux = {"ctc_nll": loss}
+    loss = add_moe_aux(loss, aux, out.aux_loss, train)
     if task.weight_decay:
         loss = loss + l2_weight_decay(params, task.weight_decay)
     aux["loss"] = loss
@@ -127,8 +148,6 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
     """
     if grad_accum > 1:
         raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
-    if getattr(task, "spec_augment", None) is not None:
-        raise NotImplementedError("SpecAugment is not ported yet")
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}

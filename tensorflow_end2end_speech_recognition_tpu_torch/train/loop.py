@@ -13,8 +13,11 @@ the caller asks for the CPU); the host moves numpy batches in and fetches
 the loss only every ``log_every`` steps, so steps queue on the card without
 waiting. A resumed run restores parameters, optimizer state, the dropout
 generator, the LR controller, the step counter and the best dev error.
-Meshes, gradient accumulation, profiling and the loss-curve plots raise
-``NotImplementedError`` or are left out (plots).
+The tasks' SpecAugment comes from the config (``ExperimentConfig.
+spec_augment``, the JAX loop's ``_specaug``) and draws from the dropout
+generator; a MoE encoder's load-balance term is logged beside the loss
+(``train/moe_aux``). Meshes, gradient accumulation, profiling and the
+loss-curve plots raise ``NotImplementedError`` or are left out (plots).
 """
 
 from __future__ import annotations
@@ -152,8 +155,13 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
             n_utts += sum(1 for n in batch["names"] if n is not None)
             if step % log_every == 0:
                 losses.append(float(aux["loss"]))  # the only host sync of a step
-                print_fn(f"epoch {epoch} step {step} loss {losses[-1]:.4f} lr {eff_lr:.2e}")
-                events.write_scalars(step, {"train/loss": losses[-1], "train/lr": eff_lr})
+                scalars = {"train/loss": losses[-1], "train/lr": eff_lr}
+                line = f"epoch {epoch} step {step} loss {losses[-1]:.4f} lr {eff_lr:.2e}"
+                if "moe_aux" in aux:  # a MoE encoder's load-balance term, inside the loss
+                    scalars["train/moe_aux"] = float(aux["moe_aux"])
+                    line += f" moe_aux {scalars['train/moe_aux']:.4f}"
+                print_fn(line)
+                events.write_scalars(step, scalars)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the epoch's queued steps are done
         epoch_time = time.perf_counter() - t0

@@ -4,10 +4,12 @@ Counterpart of ``tensorflow_end2end_speech_recognition_tpu/train/
 transducer_task.py``: raw waveforms -> ``ctc_task.device_pipeline`` (the
 same frontend and stacking, as the JAX task imports it) -> encoder ->
 prediction net over ``[SOS, labels]`` -> RNN-T lattice loss -> gradient ->
-clip and update, with the same guard as the CTC step. Parameters travel as
-a dict of tensors (``state_dict`` keys) through one parameter-free copy of
-the model (``torch.func.functional_call``). SpecAugment, gradient
-accumulation and the transducer beam search raise ``NotImplementedError``.
+clip and update, with the same guard as the CTC step. In training,
+SpecAugment (when set) masks the stacked features and a MoE encoder's
+load-balance loss joins the objective. Parameters travel as a dict of
+tensors (``state_dict`` keys) through one parameter-free copy of the model
+(``torch.func.functional_call``). Gradient accumulation and the transducer
+beam search raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,16 +19,16 @@ from typing import NamedTuple
 import torch
 from torch.func import functional_call
 
+from ..frontend.augment import SpecAugmentConfig
 from ..frontend.features import FrontendConfig
 from ..models.transducer import TransducerConfig, TransducerModel, pred_tokens
 from ..ops.losses import batch_mean, l2_weight_decay
 from ..ops.transducer import rnnt_loss
-from .ctc_task import device_pipeline, guarded_train_step, skeleton
+from .ctc_task import add_moe_aux, augment, device_pipeline, guarded_train_step, skeleton
 
 
 class TransducerTaskConfig(NamedTuple):
-    """Same fields and defaults as the JAX ``TransducerTaskConfig``; only
-    ``spec_augment=None`` is ported."""
+    """Same fields and defaults as the JAX ``TransducerTaskConfig``."""
 
     model: TransducerConfig
     frontend: FrontendConfig | None = FrontendConfig()  # None => precomputed features
@@ -34,7 +36,7 @@ class TransducerTaskConfig(NamedTuple):
     num_skip: int = 1
     splice: int = 0
     weight_decay: float = 0.0
-    spec_augment: object | None = None
+    spec_augment: SpecAugmentConfig | None = None
     feature_dim: int | None = None
 
     @property
@@ -59,9 +61,11 @@ def init_params(task: TransducerTaskConfig, generator: torch.Generator | None = 
 
 def _apply(params: dict, task: TransducerTaskConfig, batch: dict, train: bool = False,
            generator: torch.Generator | None = None, decode: bool = False):
-    """Pipeline, then ``TransducerModel.forward`` on the weights in ``params``
-    with the teacher-forced tokens of ``batch``; returns (output, its nll [B])."""
+    """Pipeline (with SpecAugment when training), then ``TransducerModel.forward``
+    on the weights in ``params`` with the teacher-forced tokens of ``batch``;
+    returns (output, its nll [B])."""
     feats, feat_len = device_pipeline(task, batch)
+    feats = augment(task, feats, feat_len, train, generator)
     cfg = task.model
     labels = batch["labels"]
     out = functional_call(skeleton(TransducerModel, cfg, feats.shape[-1]), params,
@@ -74,12 +78,12 @@ def _apply(params: dict, task: TransducerTaskConfig, batch: dict, train: bool = 
 
 def forward_loss(params: dict, task: TransducerTaskConfig, batch: dict, train: bool,
                  generator: torch.Generator | None = None):
-    """(loss, aux): the weighted batch mean of the RNN-T nll plus L2 weight decay."""
-    if train and task.spec_augment is not None:
-        raise NotImplementedError("SpecAugment is not ported yet")
-    _, nll = _apply(params, task, batch, train, generator)
+    """(loss, aux): the weighted batch mean of the RNN-T nll, plus the MoE
+    load-balance loss in training, plus L2 weight decay."""
+    out, nll = _apply(params, task, batch, train, generator)
     loss = batch_mean(nll, batch.get("weight"))
     aux = {"rnnt_nll": loss}
+    loss = add_moe_aux(loss, aux, out.aux_loss, train)
     if task.weight_decay:
         loss = loss + l2_weight_decay(params, task.weight_decay)
     aux["loss"] = loss

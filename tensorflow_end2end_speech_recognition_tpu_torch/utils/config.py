@@ -3,16 +3,20 @@
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
 ``ExperimentConfig`` holds the keys of the configs the port serves and
 trains (the CTC configs ``configs/ls100_ctc.yml``,
-``configs/timit_ctc_blstm.yml`` and ``configs/ls_streaming_ctc.yml``; the
-transducer config ``configs/ls_transducer.yml``; the attention and joint
+``configs/timit_ctc_blstm.yml``, ``configs/ls_streaming_ctc.yml``,
+``configs/ls960_conformer_ctc{,_sa}.yml``, ``configs/ls960_transformer_ctc.yml``,
+``configs/ls960_moe_conformer.yml`` and ``configs/ls_streaming_conformer.yml``;
+the transducer configs ``configs/ls_transducer.yml`` and
+``configs/ls_conformer_transducer.yml``; the attention and joint
 CTC-attention configs ``configs/timit_attention.yml`` and
 ``configs/ls960_joint.yml``), with the JAX defaults, and builds
 the same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
-``Seq2SeqConfig`` / ``AttTaskConfig`` values. A key the JAX package knows but
+``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
+when ``use_specaugment`` is set. A key the JAX package knows but
 the port does not raises ``KeyError`` when it is read; a value the port has
 not ported (another model type or encoder type, a mesh,
-gradient accumulation, SpecAugment, on-disk corpora, the hard toy corpus,
+gradient accumulation, on-disk corpora, the hard toy corpus,
 per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
@@ -26,10 +30,11 @@ import warnings
 from dataclasses import dataclass
 
 from ..data.tokenizers import UNITS, build_tokenizer
+from ..frontend.augment import SpecAugmentConfig
 from ..frontend.features import FrontendConfig
 from ..models.attention import AttentionConfig
 from ..models.ctc import CTCConfig
-from ..models.encoders import EncoderConfig, check_supported
+from ..models.encoders import CONFORMER_TYPES, EncoderConfig, check_supported
 from ..models.seq2seq import Seq2SeqConfig
 from ..models.transducer import TransducerConfig
 from ..train.att_task import AttTaskConfig
@@ -70,6 +75,10 @@ class ExperimentConfig:
     num_proj: int | None = None
     num_pyramid_levels: int | None = None  # pyramidal 2x reductions (None: all but the last)
     lstm_impl: str | None = None  # accepted for parity; one implementation
+    # conformer / transformer encoder
+    num_heads: int = 4
+    conv_kernel_size: int = 15
+    ff_expansion: int = 4
     compute_dtype: str = "float32"
     use_peephole: bool = False
     clip_activation: float | None = None
@@ -77,7 +86,6 @@ class ExperimentConfig:
     dropout: float = 1.0  # keep probability
     bottleneck_dim: int | None = None
     main_task_weight: float = 0.8
-    use_specaugment: bool = False
     # attention decoder (attention / joint models)
     attention_type: str = "hybrid"
     attention_dim: int = 128
@@ -106,6 +114,12 @@ class ExperimentConfig:
     pred_num_layers: int = 1
     joint_dim: int = 256
     max_symbols_per_frame: int = 4
+    # SpecAugment (frontend/augment.py)
+    use_specaugment: bool = False
+    freq_mask_width: int = 8
+    num_freq_masks: int = 2
+    time_mask_frac: float = 0.05
+    num_time_masks: int = 2
     # training
     batch_size: int = 32
     num_epoch: int = 20
@@ -126,8 +140,15 @@ class ExperimentConfig:
     num_model_shards: int | None = None
     num_pipeline_stages: int | None = None
     num_sequence_shards: int | None = None
+    # Mixture-of-Experts FF (conformer / transformer): > 1 experts per block
+    moe_num_experts: int | None = None
+    moe_top_k: int = 2
+    moe_aux_weight: float = 1e-2
     num_expert_shards: int | None = None
     fsdp: bool = False
+    # conformer / transformer positions and chunk-causal window
+    pos_encoding: str = "absolute"
+    left_context: int = -1
     # decode
     beam_width: int = 1
     length_penalty: float = 0.0
@@ -185,6 +206,13 @@ class ExperimentConfig:
                               add_deltas=self.use_delta, cmvn=self.cmvn)
 
     def encoder_config(self) -> EncoderConfig:
+        """The JAX ``encoder_config`` on one card: ``depthwise_impl`` stays
+        ``"conv"`` (the JAX package picks ``"shifts"`` only for model or
+        sequence shards, which raise in ``check_trainable``)."""
+        moe = self.moe_num_experts or 0
+        if moe > 1 and self.encoder_type not in CONFORMER_TYPES:
+            raise ValueError("moe_num_experts requires encoder_type conformer/transformer "
+                             f"(MoE feed-forwards), got {self.encoder_type!r}")
         cfg = EncoderConfig(
             encoder_type=self.encoder_type,
             num_units=self.num_units,
@@ -196,9 +224,26 @@ class ExperimentConfig:
             parameter_init=self.parameter_init,
             dropout_keep_prob=self.dropout,
             compute_dtype=self.compute_dtype,
+            num_heads=self.num_heads,
+            conv_kernel_size=self.conv_kernel_size,
+            ff_expansion=self.ff_expansion,
+            moe_experts=moe,
+            moe_top_k=self.moe_top_k,
+            moe_aux_weight=self.moe_aux_weight,
+            pos_encoding=self.pos_encoding,
+            left_context=self.left_context,
         )
         check_supported(cfg)
         return cfg
+
+    def spec_augment(self) -> SpecAugmentConfig | None:
+        """The tasks' SpecAugment, as ``_specaug`` of the JAX loop builds it."""
+        if not self.use_specaugment:
+            return None
+        return SpecAugmentConfig(freq_mask_width=self.freq_mask_width,
+                                 num_freq_masks=self.num_freq_masks,
+                                 time_mask_frac=self.time_mask_frac,
+                                 num_time_masks=self.num_time_masks)
 
     def ctc_config(self, num_classes: int) -> CTCConfig:
         if self.model_type != "ctc":
@@ -208,8 +253,6 @@ class ExperimentConfig:
 
     def ctc_task(self, num_classes: int) -> CTCTaskConfig:
         """The task ``build_ctc_task`` of the JAX loop builds (waveform mode)."""
-        if self.use_specaugment:
-            raise NotImplementedError("SpecAugment is not ported yet")
         return CTCTaskConfig(
             model=self.ctc_config(num_classes),
             frontend=self.frontend_config(),
@@ -217,6 +260,7 @@ class ExperimentConfig:
             num_skip=self.num_skip,
             splice=self.splice,
             weight_decay=self.weight_decay,
+            spec_augment=self.spec_augment(),
             main_task_weight=self.main_task_weight,
         )
 
@@ -248,8 +292,6 @@ class ExperimentConfig:
 
     def att_task(self, num_classes: int) -> AttTaskConfig:
         """The task ``build_att_task`` of the JAX loop builds (waveform mode)."""
-        if self.use_specaugment:
-            raise NotImplementedError("SpecAugment is not ported yet")
         return AttTaskConfig(
             model=self.att_config(num_classes),
             frontend=self.frontend_config(),
@@ -259,6 +301,7 @@ class ExperimentConfig:
             weight_decay=self.weight_decay,
             label_smoothing=self.label_smoothing_prob,
             scheduled_sampling_ramp_max_step=self.scheduled_sampling_ramp_max_step,
+            spec_augment=self.spec_augment(),
             guided_attention_weight=self.guided_attention_weight,
             guided_attention_sigma=self.guided_attention_sigma,
             guided_attention_decay_steps=self.guided_attention_decay_steps,
@@ -284,8 +327,6 @@ class ExperimentConfig:
 
     def transducer_task(self, num_classes: int) -> TransducerTaskConfig:
         """The task ``build_transducer_task`` of the JAX loop builds (waveform mode)."""
-        if self.use_specaugment:
-            raise NotImplementedError("SpecAugment is not ported yet")
         return TransducerTaskConfig(
             model=self.transducer_config(num_classes),
             frontend=self.frontend_config(),
@@ -293,6 +334,7 @@ class ExperimentConfig:
             num_skip=self.num_skip,
             splice=self.splice,
             weight_decay=self.weight_decay,
+            spec_augment=self.spec_augment(),
         )
 
     def task(self, num_classes: int):
@@ -315,7 +357,6 @@ class ExperimentConfig:
             "num_sequence_shards > 1": (self.num_sequence_shards or 1) > 1,
             "num_expert_shards > 1": (self.num_expert_shards or 1) > 1,
             "fsdp": self.fsdp,
-            "use_specaugment": self.use_specaugment,
         }
         for what, on in unported.items():
             if on:

@@ -965,3 +965,65 @@ def test_beam_eval_steps_on_card_match_cpu(dev):
         (ic, lc, nc), (ig, lg, ng) = outs
         assert torch.equal(ic, ig) and torch.equal(lc, lg)
         torch.testing.assert_close(ng, nc, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("enc", [
+    dict(encoder_type="conformer", pos_encoding="relative", conv_kernel_size=4),
+    dict(encoder_type="transformer", pos_encoding="rotary", left_context=3),
+], ids=["conformer-relative", "transformer-rotary-causal"])
+def test_conformer_ctc_model_on_card_matches_cpu(dev, enc):
+    """A conformer / transformer CTC model at toy width, card against CPU: the
+    logits, then the loss on #5 and every gradient; one #5 launch and no
+    LSTM walk. Lengths include 1 and 0 (a row with no valid frame)."""
+    cfg = CTCConfig(encoder=EncoderConfig(num_units=24, num_layers=2, num_heads=4,
+                                          ff_expansion=2, **enc), num_classes=7)
+    cpu = CTCModel(cfg, 10, torch.Generator().manual_seed(0))
+    model = CTCModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.RandomState(5)
+    feats = torch.from_numpy(rng.randn(4, 13, 10).astype(np.float32))
+    lens = torch.tensor([13, 6, 1, 0])
+    labels = torch.tensor([[0, 1, 1], [2, 3, -1], [4, -1, -1], [-1, -1, -1]], dtype=torch.int32)
+    label_len = torch.tensor([3, 2, 1, 0], dtype=torch.int32)
+    counts = (lstm_bidi.launches, lstm_layer.launches, ctc_loss_fwd_bwd.launches)
+    outs = []
+    for m, d in ((cpu, "cpu"), (model, dev)):
+        out = m(feats.to(d), lens.to(d))
+        ctc_loss(out.logits[:3], out.logit_len[:3], labels[:3].to(d),
+                 label_len[:3].to(d)).sum().backward()
+        outs.append(out.logits.detach().cpu())
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_layer.launches, ctc_loss_fwd_bwd.launches) == (
+        counts[0], counts[1], counts[2] + 1)
+    torch.testing.assert_close(outs[1], outs[0], atol=1e-4, rtol=1e-4)
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        assert p.grad is not None, name
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_moe_aux_loss_on_card_matches_cpu(dev):
+    """The MoE encoder's weighted load-balance loss and its gradient, card
+    against CPU, with SpecAugment drawn from a generator on the card."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.frontend.augment import (
+        SpecAugmentConfig,
+        spec_augment,
+    )
+
+    cfg = CTCConfig(encoder=EncoderConfig(encoder_type="conformer", num_units=16, num_layers=2,
+                                          num_heads=2, conv_kernel_size=3, moe_experts=4,
+                                          moe_top_k=2, moe_aux_weight=0.5), num_classes=5)
+    cpu = CTCModel(cfg, 12, torch.Generator().manual_seed(1))
+    model = CTCModel(cfg, 12, torch.Generator().manual_seed(1)).to(dev)
+    feats = torch.from_numpy(np.random.RandomState(6).randn(3, 17, 12).astype(np.float32))
+    lens = torch.tensor([17, 9, 1])
+    aux = []
+    for m, d in ((cpu, "cpu"), (model, dev)):
+        out = m(feats.to(d), lens.to(d))
+        out.aux_loss.backward()
+        aux.append(float(out.aux_loss))
+    assert aux[1] == pytest.approx(aux[0], rel=1e-5)
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        if q.grad is not None:
+            torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-5, rtol=1e-4, msg=name)
+    masked = spec_augment(feats.to(dev), lens.to(dev), torch.Generator(device=dev).manual_seed(0),
+                          SpecAugmentConfig(freq_mask_width=4, time_mask_frac=0.3))
+    assert masked.device.type == "cuda" and bool((masked == 0).any())

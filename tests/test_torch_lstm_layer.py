@@ -202,8 +202,9 @@ def test_lstm_encoder_matches_apply_encoder(train):
     enc.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), enc))
     assert isinstance(enc.layers[0], LSTM)
     with torch.no_grad():
-        out, out_len = enc(torch.from_numpy(feats), torch.from_numpy(lens), train,
-                           torch.Generator().manual_seed(0))
+        out, out_len, aux = enc(torch.from_numpy(feats), torch.from_numpy(lens), train,
+                                torch.Generator().manual_seed(0))
+    assert aux is None and want.aux_loss is None
     np.testing.assert_array_equal(out_len.numpy(), np.asarray(want.lengths))
     np.testing.assert_allclose(out.numpy(), np.asarray(want.outputs), atol=1e-4, rtol=0)
 

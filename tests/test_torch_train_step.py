@@ -30,6 +30,7 @@ from tensorflow_end2end_speech_recognition_tpu.train import ctc_task as jctc_tas
 from tensorflow_end2end_speech_recognition_tpu.train.optimizer import (
     build_optimizer as jbuild_optimizer,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.frontend.augment import SpecAugmentConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig, CTCModel
 from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
@@ -257,5 +258,5 @@ def test_unported_step_options_raise():
     opt = build_optimizer("sgd", 5.0)
     with pytest.raises(NotImplementedError, match="grad_accum"):
         make_train_step(task, opt, grad_accum=2)
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
-        make_train_step(task._replace(spec_augment=object()), opt)
+    # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
+    make_train_step(task._replace(spec_augment=SpecAugmentConfig()), opt)

@@ -37,6 +37,7 @@ from tensorflow_end2end_speech_recognition_tpu.train.optimizer import (
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy import (
     transducer_greedy_decode,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.frontend.augment import SpecAugmentConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import (
@@ -264,5 +265,5 @@ def test_unported_transducer_options_raise():
     _, task, _, _, _ = _setup()
     with pytest.raises(NotImplementedError, match="beam"):
         tt.make_beam_eval_step(task, 4)
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
-        tt.make_train_step(task._replace(spec_augment=object()), build_optimizer("sgd"))
+    # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
+    tt.make_train_step(task._replace(spec_augment=SpecAugmentConfig()), build_optimizer("sgd"))
