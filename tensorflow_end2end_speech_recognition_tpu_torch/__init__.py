@@ -27,7 +27,11 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
 - the conformer and transformer encoders (absolute, relative or rotary
   positions, the chunk-causal window, the MoE feed-forward and its
   load-balance loss) for the CTC, transducer and attention models, and
-  SpecAugment in training.
+  SpecAugment in training;
+- the VGG-BLSTM and multitask (B)LSTM encoders, the multitask CTC model's
+  sub head and mixed loss, and the phone (61/48/39), capital-divided
+  character, word, BPE and kana units with the hard toy corpus: every
+  config in ``configs/`` runs.
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
@@ -38,12 +42,13 @@ Layout:
 
 - ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel),
                 SpecAugment
-- ``data``      frame stacking, tokenizers, toy corpus, batching, prefetch
+- ``data``      frame stacking, tokenizers, toy and hard corpora, batching,
+                prefetch
 - ``ops``       kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, the
                 nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
-- ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal)
-                BLSTM, conformer and transformer encoders, CTC model,
+- ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal, VGG,
+                multitask) BLSTM, conformer and transformer encoders, CTC model,
                 attention scorers, seq2seq model, transducer, RNN-LM
 - ``decoding``  CTC greedy collapse, CTC prefix beam, attention beam search,
                 joint CTC rescoring

@@ -4,11 +4,12 @@ A copy of ``tensorflow_end2end_speech_recognition_tpu/data/dataset.py``:
 length-sorted batches for the first ``sort_stop_epoch`` epochs, block-shuffled
 after; time padded to a quantile ladder of bucket bounds and labels to a
 ladder of their own (``-1`` padded); a short final batch filled with earlier
-utterances whose rows carry ``weight`` 0 and name ``None``. The same seed and
-epoch give the same batches as the JAX ``Dataset``. Batches are padded with
-the numpy assembly of ``data/native.py`` there (no C++ library here).
-Waveform utterances only; multitask sub labels and per-speaker CMVN rows are
-not ported.
+utterances whose rows carry ``weight`` 0 and name ``None``. Utterances with
+multitask sub labels give ``labels_sub`` / ``label_len_sub`` too, ``-1``
+padded to a ladder of their own (at least 8 wide). The same seed and epoch
+give the same batches as the JAX ``Dataset``. Batches are padded with the
+numpy assembly of ``data/native.py`` there (no C++ library here). Waveform
+utterances only; per-speaker CMVN rows are not ported.
 """
 
 from __future__ import annotations
@@ -81,6 +82,9 @@ class Dataset:
         self.wav_ladder = bucket_ladder(lens, NUM_WAV_BUCKETS, multiple=512)
         label_lens = [len(u.label_ids) for u in self.utterances]
         self.label_ladder = bucket_ladder(label_lens, NUM_LABEL_BUCKETS, multiple=8)
+        sub_lens = [len(u.sub_ids) for u in self.utterances if u.sub_ids is not None]
+        self.sub_label_ladder = (bucket_ladder(sub_lens, NUM_LABEL_BUCKETS, multiple=8)
+                                 if sub_lens else None)
         if max_frames_per_batch is None:
             self.num_batches = -(-len(self.utterances) // batch_size)
         else:
@@ -139,14 +143,23 @@ class Dataset:
         inputs, input_len = batch_assemble([u.wav for u in all_utts], t_pad)
         labels = np.full((b, u_pad), -1, dtype=np.int32)
         label_len = np.zeros((b,), dtype=np.int32)
+        has_sub = all_utts[0].sub_ids is not None
+        if has_sub:
+            su_pad = max(8, pad_to_ladder(max(len(u.sub_ids) for u in all_utts),
+                                          self.sub_label_ladder))
+            labels_sub = np.full((b, su_pad), -1, dtype=np.int32)
+            label_len_sub = np.zeros((b,), dtype=np.int32)
         names = []
         for j, u in enumerate(all_utts):
             labels[j, : len(u.label_ids)] = u.label_ids
             label_len[j] = len(u.label_ids)
+            if has_sub:
+                labels_sub[j, : len(u.sub_ids)] = u.sub_ids
+                label_len_sub[j] = len(u.sub_ids)
             names.append(u.name if j < len(utts) else None)
         weight = np.zeros((b,), dtype=np.float32)
         weight[: len(utts)] = 1.0
-        return {
+        batch = {
             "inputs": inputs,
             "labels": labels,
             "input_len": input_len,
@@ -154,3 +167,7 @@ class Dataset:
             "weight": weight,
             "names": names,
         }
+        if has_sub:
+            batch["labels_sub"] = labels_sub
+            batch["label_len_sub"] = label_len_sub
+        return batch

@@ -1,9 +1,11 @@
 """Deterministic synthetic speech corpus (the toy corpus of the configs).
 
-A copy of ``tensorflow_end2end_speech_recognition_tpu/data/toy_corpus.py``
-for the character and ``phone61`` label types: every unit is rendered as a
-unit-specific chord of two sines of unit-specific duration, an utterance is
-a run of such segments plus noise, and speakers differ by gain. The same
+A copy of ``tensorflow_end2end_speech_recognition_tpu/data/toy_corpus.py``:
+every unit is rendered as a unit-specific chord of two sines of
+unit-specific duration, an utterance is a run of such segments plus noise,
+and speakers differ by gain. Word and BPE units learn their vocabulary from
+a fixed list of 40 words (``toy_tokenizer``); a word or subword unit lasts
+as long as its characters, and BPE labels encode word sequences. The same
 seed gives the same utterances, bit for bit, as the JAX package's corpus.
 """
 
@@ -18,6 +20,9 @@ from .tokenizers import Tokenizer, build_tokenizer
 SAMPLE_RATE = 16000
 NOISE = 0.02  # std of the added white noise
 NUM_SPEAKERS = 4  # speakers differ by gain
+# the word list of the word and BPE label types, repeated 3 times in the
+# learning text so BPE pair counts pass the >= 2 merge threshold
+TOY_WORDS = [f"w{i:02d}" for i in range(40)]
 
 
 @dataclass
@@ -26,7 +31,20 @@ class Utterance:
     wav: np.ndarray  # float32 [num_samples]
     label_ids: list
     text: str
+    sub_ids: list | None = None  # multitask sub-task labels (characters under phones)
     speaker: str | None = None
+
+
+def learns_units(label_type: str) -> bool:
+    """Whether the label type's units are learned from corpus text (words, BPE)."""
+    return label_type.startswith(("word", "bpe"))
+
+
+def toy_tokenizer(label_type: str) -> Tokenizer:
+    """The tokenizer ``ToyCorpus(label_type)`` labels with."""
+    if learns_units(label_type):
+        return build_tokenizer(label_type, corpus_texts=[" ".join(TOY_WORDS * 3)])
+    return build_tokenizer(label_type)
 
 
 class ToyCorpus:
@@ -40,7 +58,7 @@ class ToyCorpus:
         vocab_size: int | None = None,  # restrict labels to the first N units
     ):
         self.label_type = label_type
-        self.tokenizer: Tokenizer = build_tokenizer(label_type)
+        self.tokenizer: Tokenizer = toy_tokenizer(label_type)
         rng = np.random.RandomState(seed)
         v = self.tokenizer.num_units
         draw_v = min(vocab_size, v) if vocab_size else v
@@ -48,13 +66,21 @@ class ToyCorpus:
         f1 = 200.0 + 3000.0 * rng.permutation(v) / max(v - 1, 1)
         f2 = 500.0 + 3300.0 * rng.permutation(v) / max(v - 1, 1)
         dur = rng.randint(int(0.06 * SAMPLE_RATE), int(0.12 * SAMPLE_RATE), size=v)
+        if learns_units(label_type):
+            # a word or subword unit is spoken over its characters (▁ excluded)
+            dur = dur * np.array([max(1, len(u.lstrip("▁"))) for u in self.tokenizer.units])
         self._unit_params = (f1, f2, dur)
         gains = 0.5 + rng.rand(NUM_SPEAKERS) * 1.5
         self.utterances: list[Utterance] = []
         for i in range(num_utts):
             n_units = rng.randint(min_units, max_units + 1)
-            ids = rng.randint(0, draw_v, size=n_units).tolist()
-            text = " ".join(self.tokenizer.units[j] for j in ids)
+            if label_type.startswith("bpe"):  # BPE labels encode word sequences
+                text = " ".join(TOY_WORDS[j] for j in rng.randint(0, len(TOY_WORDS),
+                                                                   size=n_units))
+                ids = self.tokenizer.encode_text(text)
+            else:
+                ids = rng.randint(0, draw_v, size=n_units).tolist()
+                text = " ".join(self.tokenizer.units[j] for j in ids)
             wav = self._render(ids, rng)
             spk = i % NUM_SPEAKERS
             self.utterances.append(

@@ -1,24 +1,33 @@
-"""LSTM, BLSTM, pyramidal BLSTM, conformer and transformer encoder stacks.
+"""LSTM, BLSTM, pyramidal, VGG and multitask BLSTM, conformer and transformer encoders.
 
 Counterpart of the ``lstm``, ``blstm``, ``pyramidal_blstm`` (alias
-``pblstm``), ``conformer`` and ``transformer`` branches of ``apply_encoder``
-in ``tensorflow_end2end_speech_recognition_tpu/models/encoders.py``: a stack
-of ``LSTM`` (one direction, causal) or ``BiLSTM`` layers over ``[B, T, D]``
-with the true lengths carried alongside, and, in training, dropout after
-every layer, the last one included. The pyramidal stack concatenates
-adjacent frame pairs after each of its first ``num_pyramid_levels`` layers
-(by default all but the last), halving T and doubling the next layer's
-input width (``_pyramid_reduce``). The JAX package routes inputs longer than
-T = 400 to its scan path because of TPU toolchain limits; the kernels here
-run at every T. The conformer and transformer types run ``conformer.
-Conformer`` (parameters under ``conformer``), whose MoE load-balance loss
-comes back as ``EncoderOutput.aux_loss`` when ``moe_experts > 1``. Other
-encoder types (``vgg_lstm``, ``multitask_lstm``, ...) and cell options raise
+``pblstm``), ``vgg_blstm``, ``vgg_lstm``, ``multitask_blstm``,
+``multitask_lstm``, ``conformer`` and ``transformer`` branches of
+``apply_encoder`` in ``tensorflow_end2end_speech_recognition_tpu/models/
+encoders.py``: a stack of ``LSTM`` (one direction, causal) or ``BiLSTM``
+layers over ``[B, T, D]`` with the true lengths carried alongside, and, in
+training, dropout after every layer, the last one included. The pyramidal
+stack concatenates adjacent frame pairs after each of its first
+``num_pyramid_levels`` layers (by default all but the last), halving T and
+doubling the next layer's input width (``_pyramid_reduce``). The VGG types
+put two blocks of two 3x3 SAME convolutions (64, 64 then 128, 128
+channels, ReLU) and a 2x2 SAME max-pool before the stack, over the features
+split into ``input_channels`` planes ``[static | delta | delta-delta]``:
+time and frequency shrink 4x, and the stack reads ``ceil(F / 4) * 128``
+features per frame. The multitask types also return the output of layer
+``num_layers_sub`` (after its dropout) for the sub head. The JAX package
+routes inputs longer than T = 400 to its scan path because of TPU
+toolchain limits; the kernels here run at every T. The conformer and
+transformer types run ``conformer.Conformer`` (parameters under
+``conformer``), whose MoE load-balance loss comes back as
+``EncoderOutput.aux_loss`` when ``moe_experts > 1``. Other encoder types
+(``gru``, ``bgru``, ``cnn_zhang``) and cell options raise
 ``NotImplementedError`` until they are ported.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,12 +39,17 @@ from .rnn import LSTM, BiLSTM, dropout
 
 PYRAMIDAL_TYPES = ("pyramidal_blstm", "pblstm")
 CONFORMER_TYPES = ("conformer", "transformer")
-PORTED_TYPES = ("lstm", "blstm") + PYRAMIDAL_TYPES + CONFORMER_TYPES
+VGG_TYPES = ("vgg_blstm", "vgg_lstm")
+MULTITASK_TYPES = ("multitask_blstm", "multitask_lstm")
+UNIDIRECTIONAL_TYPES = ("lstm", "vgg_lstm", "multitask_lstm")
+PORTED_TYPES = (("lstm", "blstm") + PYRAMIDAL_TYPES + CONFORMER_TYPES + VGG_TYPES
+                + MULTITASK_TYPES)
+VGG_CHANNELS = ((64, 64), (128, 128))  # two conv-conv-pool blocks
 
 
 class EncoderConfig(NamedTuple):
-    """The (B)LSTM, conformer and transformer fields of the JAX
-    ``EncoderConfig``, same names and defaults."""
+    """The (B)LSTM, VGG, multitask, conformer and transformer fields of the
+    JAX ``EncoderConfig``, same names and defaults."""
 
     encoder_type: str = "blstm"
     num_units: int = 256
@@ -45,7 +59,9 @@ class EncoderConfig(NamedTuple):
     clip_activation: float | None = None
     parameter_init: float = 0.1
     dropout_keep_prob: float = 1.0  # applied after every layer in training
+    num_layers_sub: int = 1  # multitask: the layer (1-based) whose output feeds the sub head
     num_pyramid_levels: int | None = None  # None: a reduction after all but the last layer
+    input_channels: int = 3  # VGG: feature planes (static, delta, delta-delta)
     compute_dtype: str = "float32"
     # conformer / transformer (models/conformer.py)
     num_heads: int = 4
@@ -60,7 +76,15 @@ class EncoderConfig(NamedTuple):
 
     @property
     def bidirectional(self) -> bool:
-        return self.encoder_type != "lstm"
+        return self.encoder_type not in UNIDIRECTIONAL_TYPES
+
+    @property
+    def has_vgg(self) -> bool:
+        return self.encoder_type in VGG_TYPES
+
+    @property
+    def is_multitask(self) -> bool:
+        return self.encoder_type in MULTITASK_TYPES
 
     @property
     def is_conformer(self) -> bool:
@@ -97,6 +121,8 @@ class EncoderOutput(NamedTuple):
     outputs: torch.Tensor  # [B, T', H]
     lengths: torch.Tensor  # [B]
     aux_loss: torch.Tensor | None = None  # weighted MoE load-balance loss (moe_experts > 1)
+    sub_outputs: torch.Tensor | None = None  # multitask: layer num_layers_sub's output
+    sub_lengths: torch.Tensor | None = None
 
 
 def check_supported(cfg: EncoderConfig) -> None:
@@ -115,6 +141,69 @@ def check_supported(cfg: EncoderConfig) -> None:
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r} is not ported yet (bf16 streams)"
         )
+
+
+class Conv2d(nn.Module):
+    """A 3x3 SAME convolution with the JAX layout: w [3, 3, cin, cout] (HWIO),
+    b [cout]; He-normal weights and zero biases, as ``_conv_init`` draws them."""
+
+    def __init__(self, cin: int, cout: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.w = nn.Parameter(torch.randn((3, 3, cin, cout), generator=generator)
+                              * math.sqrt(2.0 / (9 * cin)))
+        self.b = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C, T, F] -> [B, cout, T, F]."""
+        return F.conv2d(x, self.w.permute(3, 2, 0, 1), self.b, padding=1)
+
+
+def split_freq_channels(xs: torch.Tensor, channels: int) -> torch.Tensor:
+    """[B, T, C*F] laid out ``[static | delta | delta-delta]`` -> [B, C, T, F]
+    (``_split_freq_channels`` there gives the same planes as [B, T, F, C])."""
+    b, t, d = xs.shape
+    if d % channels:
+        raise ValueError(f"feature dim {d} not divisible by {channels} channels")
+    return xs.reshape(b, t, channels, d // channels).transpose(1, 2)
+
+
+def vgg_output_dim(input_dim: int, channels: int) -> int:
+    """Features per frame after the VGG blocks: ceil(F / 4) * 128."""
+    return -(-(input_dim // channels) // 4) * VGG_CHANNELS[-1][-1]
+
+
+class VGG(nn.ModuleList):
+    """``_apply_vgg``: two blocks of conv-ReLU, conv-ReLU, 2x2 max-pool."""
+
+    def __init__(self, cin: int, generator: torch.Generator | None = None):
+        blocks = []
+        for block in VGG_CHANNELS:
+            convs = []
+            for cout in block:
+                convs.append(Conv2d(cin, cout, generator))
+                cin = cout
+            blocks.append(nn.ModuleList(convs))
+        super().__init__(blocks)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        """[B, C, T, F] -> ([B, ceil(T/4), ceil(F/4) * 128], ceil(lengths / 4)).
+
+        The SAME pool pads -inf on the high side of an odd size, as
+        ``ceil_mode`` does; the flatten runs over (frequency, channel) with
+        the channel fastest, and only the frames past the new lengths are
+        zeroed, after the last pool (pad frames reach valid ones through the
+        convolutions, as in the JAX encoder).
+        """
+        for block in self:
+            for conv in block:
+                x = torch.relu(conv(x))
+            x = F.max_pool2d(x, 2, 2, ceil_mode=True)
+        b, c, t, f = x.shape
+        out = x.permute(0, 2, 3, 1).reshape(b, t, f * c)
+        out_len = torch.div(lengths + 3, 4, rounding_mode="floor")
+        mask = (torch.arange(t, device=x.device)[None, :]
+                < out_len.to(x.device)[:, None])[..., None]
+        return out * mask, out_len
 
 
 def _pyramid_reduce(xs: torch.Tensor, lengths: torch.Tensor):
@@ -144,7 +233,11 @@ class Encoder(nn.Module):
         if cfg.is_conformer:
             self.conformer = Conformer(cfg.conformer_spec(), input_dim, generator)
             return
-        dims, dim = [], input_dim
+        dim = input_dim
+        if cfg.has_vgg:
+            self.vgg = VGG(cfg.input_channels, generator)
+            dim = vgg_output_dim(input_dim, cfg.input_channels)
+        dims = []
         for layer in range(cfg.num_layers):
             dims.append(dim)
             dim = cfg.output_dim * (2 if cfg.reduces_after(layer) else 1)
@@ -155,8 +248,9 @@ class Encoder(nn.Module):
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> EncoderOutput:
-        """[B, T, D] -> ``EncoderOutput`` ([B, T', output_dim], lengths', aux);
-        T' = T unless pyramidal.
+        """[B, T, D] -> ``EncoderOutput`` ([B, T', output_dim], lengths', aux,
+        and for the multitask types the tap and its lengths); T' = T unless
+        pyramidal or VGG.
 
         With ``train`` and a ``generator`` (on the inputs' device), dropout
         is drawn as ``apply_encoder`` draws it when it is given an rng (after
@@ -166,10 +260,15 @@ class Encoder(nn.Module):
         if self.cfg.is_conformer:
             out, aux = self.conformer(xs, lengths, train, generator, self.keep_prob)
             return EncoderOutput(out, lengths, aux)
+        if self.cfg.has_vgg:
+            xs, lengths = self.vgg(split_freq_channels(xs, self.cfg.input_channels), lengths)
+        sub_outputs = sub_lengths = None
         for i, layer in enumerate(self.layers):
             xs = layer(xs, lengths)
             if train and generator is not None:
                 xs = dropout(xs, self.keep_prob, train, generator)
+            if self.cfg.is_multitask and i + 1 == self.cfg.num_layers_sub:
+                sub_outputs, sub_lengths = xs, lengths
             if self.cfg.reduces_after(i):
                 xs, lengths = _pyramid_reduce(xs, lengths)
-        return EncoderOutput(xs, lengths)
+        return EncoderOutput(xs, lengths, None, sub_outputs, sub_lengths)

@@ -130,7 +130,8 @@ def encode(model: Seq2SeqModel, feats, feat_len, train: bool = False,
            generator: torch.Generator | None = None) -> EncodeOutput:
     """Encoder outputs and lengths, plus the joint CTC head's logits;
     ``train`` and ``generator`` pass to the encoder's dropout."""
-    enc_out, enc_len, aux = model.encoder(feats, feat_len, train, generator)
+    enc = model.encoder(feats, feat_len, train, generator)
+    enc_out, enc_len, aux = enc.outputs, enc.lengths, enc.aux_loss
     if model.cfg.is_joint:
         return EncodeOutput(enc_out, enc_len, model.ctc_head(enc_out), enc_len, aux)
     return EncodeOutput(enc_out, enc_len, aux_loss=aux)

@@ -10,9 +10,12 @@ through one parameter-free copy of the model with
 ``(params, opt_state, batch, lr, generator)`` as the jitted JAX step is.
 In training, SpecAugment (when the task sets it) masks the stacked
 features with draws from the step's generator, and a MoE encoder's
-load-balance loss joins the objective. The beam eval step decodes with the
-CTC prefix beam, with an RNN-LM fused when one is given. Per-speaker CMVN,
-gradient accumulation and the multitask head raise ``NotImplementedError``.
+load-balance loss joins the objective. A multitask model's loss mixes the
+main and sub heads' batch means, ``w * main + (1 - w) * sub`` at
+``main_task_weight`` w; its eval steps read the main head. The beam eval
+step decodes with the CTC prefix beam, with an RNN-LM fused when one is
+given. Per-speaker CMVN and gradient accumulation raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,7 @@ from .optimizer import apply_updates, tree_where
 
 class CTCTaskConfig(NamedTuple):
     """Same fields and defaults as the JAX ``CTCTaskConfig``. Only
-    ``ctc_impl="auto"`` is ported; ``main_task_weight`` is read by the
-    multitask head, which is not."""
+    ``ctc_impl="auto"`` is ported."""
 
     model: CTCConfig
     frontend: FrontendConfig | None = FrontendConfig()  # None => precomputed features
@@ -118,15 +120,28 @@ def apply_model(params: dict, task: CTCTaskConfig, feats, feat_len, train: bool 
 
 def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
                  generator: torch.Generator | None = None):
-    """(loss, aux): the weighted batch mean of the CTC nll, plus the MoE
-    load-balance loss in training, plus L2 weight decay."""
+    """(loss, aux): the weighted batch mean of the CTC nll (mixed with the
+    sub head's at ``main_task_weight`` for a multitask model, whose sub
+    labels default to the main ones when the batch has none, as the JAX
+    loop's ``_to_device_batch`` fills them), plus the MoE load-balance loss
+    in training, plus L2 weight decay."""
     feats, feat_len = device_pipeline(task, batch)
     feats = augment(task, feats, feat_len, train, generator)
     out = apply_model(params, task, feats, feat_len, train, generator)
     nll = ctc_loss(out.logits, out.logit_len, batch["labels"], batch["label_len"],
                    blank_id=task.model.blank_id, impl=task.ctc_impl)
-    loss = batch_mean(nll, batch.get("weight"))
+    row_w = batch.get("weight")
+    loss = batch_mean(nll, row_w)
     aux = {"ctc_nll": loss}
+    if out.sub_logits is not None:
+        sub_nll = ctc_loss(out.sub_logits, out.sub_logit_len,
+                           batch.get("labels_sub", batch["labels"]),
+                           batch.get("label_len_sub", batch["label_len"]),
+                           blank_id=task.model.num_classes_sub, impl=task.ctc_impl)
+        w = task.main_task_weight
+        sub_mean = batch_mean(sub_nll, row_w)
+        loss = w * loss + (1.0 - w) * sub_mean
+        aux["ctc_nll_sub"] = sub_mean
     loss = add_moe_aux(loss, aux, out.aux_loss, train)
     if task.weight_decay:
         loss = loss + l2_weight_decay(params, task.weight_decay)

@@ -33,7 +33,9 @@ import torch
 
 from .. import set_full_fp32
 from ..data.dataset import Dataset, to_device
+from ..data.hard_corpus import HardCorpus
 from ..data.prefetch import prefetch
+from ..data.tokenizers import CharTokenizer
 from ..data.toy_corpus import ToyCorpus
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
@@ -44,27 +46,58 @@ from .lr_controller import LRController
 from .optimizer import build_optimizer
 
 
+def attach_sub_labels(utts, sub_tok) -> None:
+    """Multitask: each utterance's sub-task labels from its transcript
+    (``_attach_sub_labels`` of the JAX loop)."""
+    for u in utts:
+        if isinstance(sub_tok, CharTokenizer):
+            u.sub_ids = sub_tok.encode_text(u.text)
+        else:
+            u.sub_ids = sub_tok.encode([t for t in u.text.split() if t in sub_tok.unit_to_idx])
+
+
 def build_corpus_splits(exp: ExperimentConfig):
-    """(train, dev, test utterances, tokenizer) of the toy corpus, split as the JAX loop."""
+    """(train, dev, test utterances, tokenizer) of the toy corpus (``toy_profile``
+    easy) or the hard one (hard, harder), split as the JAX loop; a multitask
+    model's utterances carry their sub labels."""
     if exp.data_root is not None:
         raise NotImplementedError("data_root (on-disk corpora) is not ported yet")
-    if exp.max_utt_seconds is not None:
-        warnings.warn("max_utt_seconds only applies to toy_profile hard/harder; the easy "
-                      "corpus (~2 s utterances) is unaffected")
-    corpus = ToyCorpus(label_type=exp.label_type, num_utts=exp.toy_num_utts,
-                       min_units=exp.toy_min_units, max_units=exp.toy_max_units,
-                       vocab_size=exp.toy_vocab_size, seed=exp.toy_seed)
+    if exp.toy_profile in ("hard", "harder"):
+        # "harder": a smaller within-pair F2 gap, twice the speakers, a lower SNR floor
+        harder = exp.toy_profile == "harder"
+        corpus = HardCorpus(
+            label_type=exp.label_type, num_utts=exp.toy_num_utts,
+            min_units=exp.toy_min_units, max_units=exp.toy_max_units,
+            vocab_size=exp.toy_vocab_size, seed=exp.toy_seed,
+            confusability=0.05 if harder else 0.10, num_speakers=32 if harder else 16,
+            snr_db=(3.0, 18.0) if harder else (8.0, 25.0),
+            max_utt_seconds=exp.max_utt_seconds,
+            **({"num_words": exp.toy_lexicon_words} if exp.toy_lexicon_words else {}))
+    elif exp.toy_profile != "easy":
+        raise ValueError(f"unknown toy_profile {exp.toy_profile!r}")
+    else:
+        if exp.max_utt_seconds is not None:
+            warnings.warn("max_utt_seconds only applies to toy_profile hard/harder; the easy "
+                          "corpus (~2 s utterances) is unaffected")
+        corpus = ToyCorpus(label_type=exp.label_type, num_utts=exp.toy_num_utts,
+                           min_units=exp.toy_min_units, max_units=exp.toy_max_units,
+                           vocab_size=exp.toy_vocab_size, seed=exp.toy_seed)
     utts = corpus.utterances
     n = len(utts)
     n_dev = max(n // 10, 1)
     n_test = max(n // 10, 1)
+    sub_tok = exp.sub_tokenizer()
+    if sub_tok is not None:
+        attach_sub_labels(utts, sub_tok)
     return (utts[: n - n_dev - n_test], utts[n - n_dev - n_test : n - n_test],
             utts[n - n_test :], corpus.tokenizer)
 
 
 def build_task(exp: ExperimentConfig, tokenizer):
     """(task config, task module) for the configured ``model_type``: ``att_task``
-    for attention and joint CTC-attention, ``transducer_task``, else ``ctc_task``.
+    for attention and joint CTC-attention, ``transducer_task``, else
+    ``ctc_task`` (``ctc`` and ``multitask_ctc``, whose sub head counts the
+    units of ``label_type_sub``, or the main task's without one).
 
     The JAX ``build_task`` also takes the frame width of a precomputed-feature
     corpus (``feature_dim_of``) and its consumers the speaker-CMVN stats

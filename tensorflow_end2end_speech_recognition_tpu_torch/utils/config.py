@@ -1,23 +1,18 @@
 """Reference-shaped experiment configs -> the port's typed task configs.
 
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
-``ExperimentConfig`` holds the keys of the configs the port serves and
-trains (the CTC configs ``configs/ls100_ctc.yml``,
-``configs/timit_ctc_blstm.yml``, ``configs/ls_streaming_ctc.yml``,
-``configs/ls960_conformer_ctc{,_sa}.yml``, ``configs/ls960_transformer_ctc.yml``,
-``configs/ls960_moe_conformer.yml`` and ``configs/ls_streaming_conformer.yml``;
-the transducer configs ``configs/ls_transducer.yml`` and
-``configs/ls_conformer_transducer.yml``; the attention and joint
-CTC-attention configs ``configs/timit_attention.yml`` and
-``configs/ls960_joint.yml``), with the JAX defaults, and builds
-the same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
+``ExperimentConfig`` holds the keys of every config in ``configs/`` (the
+CTC, multitask CTC, transducer, attention and joint CTC-attention models,
+on the toy corpus or the hard one), with the JAX defaults, and builds the
+same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
-when ``use_specaugment`` is set. A key the JAX package knows but
-the port does not raises ``KeyError`` when it is read; a value the port has
-not ported (another model type or encoder type, a mesh,
-gradient accumulation, on-disk corpora, the hard toy corpus,
-per-speaker CMVN) raises ``NotImplementedError`` where it would be used.
+when ``use_specaugment`` is set. A key the JAX package knows but the port
+does not raises ``KeyError`` when it is read; a value the port has not
+ported (a mesh, gradient accumulation, on-disk corpora, MFCC, per-speaker
+CMVN, an encoder type or cell option) raises ``NotImplementedError`` where
+it would be used. ``corpus_tokenizer`` gives the units of a config's
+corpus: the word and BPE label types learn theirs from its text.
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
 """
@@ -29,7 +24,9 @@ import json
 import warnings
 from dataclasses import dataclass
 
-from ..data.tokenizers import UNITS, build_tokenizer
+from ..data.hard_corpus import hard_tokenizer
+from ..data.tokenizers import Tokenizer, build_tokenizer
+from ..data.toy_corpus import learns_units, toy_tokenizer
 from ..frontend.augment import SpecAugmentConfig
 from ..frontend.features import FrontendConfig
 from ..models.attention import AttentionConfig
@@ -46,11 +43,13 @@ ALIASES = {"pretrain_stage": None, "num_classes": None, "dropout_encoder": "drop
            "dropout_input": None, "attention_weights_tempareture": "sharpening_factor",
            "logits_tempareture": "logits_temperature"}
 ATTENTION_MODEL_TYPES = ("attention", "joint_ctc_attention")
+CTC_MODEL_TYPES = ("ctc", "multitask_ctc")
+TOY_PROFILES = ("easy", "hard", "harder")
 
 
 @dataclass
 class ExperimentConfig:
-    """The CTC, attention and transducer fields of the JAX
+    """The CTC, multitask CTC, attention and transducer fields of the JAX
     ``ExperimentConfig``, same names and defaults."""
 
     model_type: str = "ctc"
@@ -73,6 +72,7 @@ class ExperimentConfig:
     num_units: int = 256
     num_layers: int = 2
     num_proj: int | None = None
+    num_layers_sub: int = 1  # multitask: the encoder layer (1-based) the sub head reads
     num_pyramid_levels: int | None = None  # pyramidal 2x reductions (None: all but the last)
     lstm_impl: str | None = None  # accepted for parity; one implementation
     # conformer / transformer encoder
@@ -85,7 +85,7 @@ class ExperimentConfig:
     parameter_init: float = 0.1
     dropout: float = 1.0  # keep probability
     bottleneck_dim: int | None = None
-    main_task_weight: float = 0.8
+    main_task_weight: float = 0.8  # multitask: w * main + (1 - w) * sub
     # attention decoder (attention / joint models)
     attention_type: str = "hybrid"
     attention_dim: int = 128
@@ -153,12 +153,13 @@ class ExperimentConfig:
     beam_width: int = 1
     length_penalty: float = 0.0
     # toy corpus
-    toy_profile: str = "easy"
+    toy_profile: str = "easy"  # "hard" / "harder": data/hard_corpus.py; units count words
     toy_num_utts: int = 128
     toy_min_units: int = 3
     toy_max_units: int = 10
     toy_vocab_size: int | None = None
     toy_seed: int = 0
+    toy_lexicon_words: int | None = None  # hard corpus lexicon size (None: 50 words)
     max_utt_seconds: float | None = None
     # misc
     seed: int = 0
@@ -218,7 +219,9 @@ class ExperimentConfig:
             num_units=self.num_units,
             num_layers=self.num_layers,
             num_proj=self.num_proj,
+            num_layers_sub=self.num_layers_sub,
             num_pyramid_levels=self.num_pyramid_levels,
+            input_channels=3 if self.use_delta else 1,
             use_peephole=self.use_peephole,
             clip_activation=self.clip_activation,
             parameter_init=self.parameter_init,
@@ -245,16 +248,30 @@ class ExperimentConfig:
                                  time_mask_frac=self.time_mask_frac,
                                  num_time_masks=self.num_time_masks)
 
-    def ctc_config(self, num_classes: int) -> CTCConfig:
-        if self.model_type != "ctc":
-            raise NotImplementedError(f"model_type {self.model_type!r} is not ported yet")
+    def ctc_config(self, num_classes: int, num_classes_sub: int | None = None) -> CTCConfig:
+        if self.model_type not in CTC_MODEL_TYPES:
+            raise NotImplementedError(f"model_type {self.model_type!r} is not a CTC model")
         return CTCConfig(encoder=self.encoder_config(), num_classes=num_classes,
-                         bottleneck_dim=self.bottleneck_dim)
+                         bottleneck_dim=self.bottleneck_dim, num_classes_sub=num_classes_sub)
+
+    def sub_tokenizer(self) -> Tokenizer | None:
+        """The multitask sub task's tokenizer (``label_type_sub``), else None."""
+        if self.model_type != "multitask_ctc" or not self.label_type_sub:
+            return None
+        return build_tokenizer(self.label_type_sub)
+
+    def num_classes_sub(self, num_classes: int) -> int | None:
+        """The sub head's real units, as ``build_ctc_task`` of the JAX loop
+        counts them: ``label_type_sub``'s, or without one the main task's."""
+        if self.model_type != "multitask_ctc":
+            return None
+        sub = self.sub_tokenizer()
+        return sub.num_units if sub is not None else num_classes
 
     def ctc_task(self, num_classes: int) -> CTCTaskConfig:
         """The task ``build_ctc_task`` of the JAX loop builds (waveform mode)."""
         return CTCTaskConfig(
-            model=self.ctc_config(num_classes),
+            model=self.ctc_config(num_classes, self.num_classes_sub(num_classes)),
             frontend=self.frontend_config(),
             num_stack=self.num_stack,
             num_skip=self.num_skip,
@@ -349,7 +366,6 @@ class ExperimentConfig:
         """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
         unported = {
             "data_root (on-disk corpora)": self.data_root is not None,
-            "label_type_sub (multitask CTC)": self.label_type_sub is not None,
             "grad_accum_steps > 1": self.grad_accum_steps > 1,
             "num_devices > 1": (self.num_devices or 1) > 1,
             "num_model_shards > 1": (self.num_model_shards or 1) > 1,
@@ -361,9 +377,7 @@ class ExperimentConfig:
         for what, on in unported.items():
             if on:
                 raise NotImplementedError(f"{what} is not ported yet")
-        if self.toy_profile in ("hard", "harder"):
-            raise NotImplementedError(f"toy_profile {self.toy_profile!r} is not ported yet")
-        if self.toy_profile != "easy":
+        if self.toy_profile not in TOY_PROFILES:
             raise ValueError(f"unknown toy_profile {self.toy_profile!r}")
 
 
@@ -372,17 +386,30 @@ def experiment_from_dict(raw: dict) -> ExperimentConfig:
     return ExperimentConfig.from_dict(raw)
 
 
+def corpus_tokenizer(exp: ExperimentConfig) -> Tokenizer:
+    """The tokenizer of the config's toy corpus, without rendering it: the
+    word and BPE label types learn their units from the corpus's text (the
+    toy corpus's word list or the hard corpus's lexicon), as
+    ``build_corpus_splits(exp, need=())`` of the JAX loop learns them."""
+    if exp.data_root is not None:
+        raise NotImplementedError("data_root (on-disk corpora) is not ported yet")
+    if not learns_units(exp.label_type):
+        return build_tokenizer(exp.label_type)
+    if exp.toy_profile in ("hard", "harder"):
+        return hard_tokenizer(exp.label_type, exp.toy_seed, exp.toy_lexicon_words or 50)
+    return toy_tokenizer(exp.label_type)
+
+
 def task_from_dict(raw: dict):
     """Reference-shaped config dict -> (task config, units, label_type).
 
-    The task is a ``CTCTaskConfig``, for ``model_type: transducer`` a
-    ``TransducerTaskConfig``, and for ``attention`` and
-    ``joint_ctc_attention`` an ``AttTaskConfig``.
+    The task is a ``CTCTaskConfig`` (``ctc``, ``multitask_ctc``), for
+    ``model_type: transducer`` a ``TransducerTaskConfig``, and for
+    ``attention`` and ``joint_ctc_attention`` an ``AttTaskConfig``; the units
+    are those of ``corpus_tokenizer``.
     """
     exp = ExperimentConfig.from_dict(raw)
-    if exp.label_type not in UNITS:
-        raise NotImplementedError(f"label_type {exp.label_type!r} is not ported yet")
-    units = build_tokenizer(exp.label_type).units
+    units = corpus_tokenizer(exp).units
     return exp.task(len(units)), list(units), exp.label_type
 
 

@@ -2,10 +2,12 @@
 
 Counterpart of ``eval_counts`` / ``rates_from_counts`` / ``evaluate_ctc`` in
 ``tensorflow_end2end_speech_recognition_tpu/utils/metrics.py``, single
-process: run the eval step batch by batch, map ids to the scoring units (61
-TIMIT phones folded to 39, or the characters of the joined string), and
-accumulate edit counts; character models also count words. Only the decoded
-ids, their lengths and the per-row loss leave the device, once per batch.
+process: run the eval step batch by batch, map ids to the scoring units
+(TIMIT phones folded to 39; BPE units detokenized to words; word units as
+they are; otherwise the characters of the joined string, kana included),
+and accumulate edit counts; character models also count words. Only the
+decoded ids, their lengths and the per-row loss leave the device, once per
+batch.
 """
 
 from __future__ import annotations
@@ -24,19 +26,24 @@ def scoring_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):
     if label_type.startswith("phone") and isinstance(tokenizer, PhoneTokenizer):
         ref = tokenizer.fold_for_scoring(ref)
         hyp = tokenizer.fold_for_scoring(hyp)
-    elif label_type == "character":
+    elif label_type.startswith("bpe"):  # WER over the detokenized words
+        detok = lambda seq: "".join(seq).replace("▁", " ").split()  # noqa: E731
+        ref, hyp = detok(ref), detok(hyp)
+    elif not label_type.startswith("word"):
         ref = list("".join(ref))
         hyp = list("".join(hyp))
-    else:
-        raise NotImplementedError(f"scoring for label_type {label_type!r} is not ported yet")
     return ref, hyp, max(len(ref), 1)
 
 
 def word_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):
-    """Word sequences of a character model (its WER readout), else None."""
-    if label_type != "character":
+    """Word sequences of a character model (its WER readout), else None: phone
+    models have no words, BPE and word models score words already."""
+    if label_type not in ("character", "character_capital_divide"):
         return None
-    return tokenizer.decode_text(ref_ids).split(), tokenizer.decode_text(hyp_ids).split()
+    join = getattr(tokenizer, "decode_text", None)
+    if join is None:
+        return None
+    return join(ref_ids).split(), join(hyp_ids).split()
 
 
 def _integerize(ref, hyp):

@@ -1027,3 +1027,74 @@ def test_moe_aux_loss_on_card_matches_cpu(dev):
     masked = spec_augment(feats.to(dev), lens.to(dev), torch.Generator(device=dev).manual_seed(0),
                           SpecAugmentConfig(freq_mask_width=4, time_mask_frac=0.3))
     assert masked.device.type == "cuda" and bool((masked == 0).any())
+
+
+@pytest.mark.parametrize("encoder_type", ["vgg_blstm", "vgg_lstm"])
+def test_vgg_encoder_on_card_matches_cpu(dev, encoder_type):
+    """The VGG encoder at toy size (3 planes of F = 13, odd T, lengths that
+    include 1), card against CPU: outputs, lengths and every gradient through
+    the cuDNN convolutions and the LSTM kernels (2 walks each way)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import Encoder
+
+    cfg = EncoderConfig(encoder_type=encoder_type, num_units=16, num_layers=2)
+    cpu = Encoder(cfg, 39, torch.Generator().manual_seed(0))
+    enc = Encoder(cfg, 39, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.RandomState(7)
+    feats = torch.from_numpy(rng.randn(3, 37, 39).astype(np.float32))
+    lens = torch.tensor([37, 1, 22])
+    fwd, bwd = ((lstm_bidi, lstm_bidi_bwd) if encoder_type == "vgg_blstm"
+                else (lstm_layer, lstm_layer_bwd))
+    counts = (fwd.launches, bwd.launches)
+    outs = []
+    for m, d in ((cpu, "cpu"), (enc, dev)):
+        out = m(feats.to(d), lens.to(d))
+        out.outputs.square().sum().backward()
+        outs.append((out.outputs.detach().cpu(), out.lengths.cpu()))
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 2, counts[1] + 2)
+    assert outs[1][0].shape == (3, 10, cfg.output_dim)
+    assert torch.equal(outs[1][1], outs[0][1])
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
+    for (name, p), q in zip(enc.named_parameters(), cpu.parameters()):
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4, rtol=1e-4, msg=name)
+
+
+def test_multitask_ctc_model_on_card_matches_cpu(dev):
+    """A multitask CTC model at toy size (3 BLSTM layers, the sub head after
+    layer 2), card against CPU: both heads' logits, the mixed loss on two #5
+    calls and every gradient."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
+
+    cfg = CTCConfig(encoder=EncoderConfig(encoder_type="multitask_blstm", num_units=16,
+                                          num_layers=3, num_layers_sub=2),
+                    num_classes=7, num_classes_sub=5)
+    task = ctc_task.CTCTaskConfig(model=cfg, frontend=None, feature_dim=10,
+                                  main_task_weight=0.8, weight_decay=1e-3)
+    params = ctc_task.init_params(task, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(8)
+    batch = {"inputs": torch.from_numpy(rng.randn(3, 15, 10).astype(np.float32)),
+             "input_len": torch.tensor([15, 9, 1]),
+             "labels": torch.tensor([[0, 1, 6], [2, 3, -1], [4, -1, -1]], dtype=torch.int32),
+             "label_len": torch.tensor([3, 2, 1], dtype=torch.int32),
+             "labels_sub": torch.tensor([[0, 1], [2, -1], [4, -1]], dtype=torch.int32),
+             "label_len_sub": torch.tensor([2, 1, 1], dtype=torch.int32),
+             "weight": torch.tensor([1.0, 1.0, 0.0])}
+    counts = (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches)
+    res = []
+    for d in ("cpu", dev):
+        leaves = {k: v.to(d).requires_grad_(True) for k, v in params.items()}
+        loss, aux = ctc_task.forward_loss(leaves, task, {k: v.to(d) for k, v in batch.items()},
+                                          True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        res.append(({k: float(v.detach()) for k, v in aux.items()}, [g.cpu() for g in grads]))
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_bidi_bwd.launches, ctc_loss_fwd_bwd.launches) == (
+        counts[0] + 3, counts[1] + 3, counts[2] + 2)
+    (aux_cpu, g_cpu), (aux_dev, g_dev) = res
+    assert set(aux_cpu) == {"ctc_nll", "ctc_nll_sub", "loss"}
+    for k, v in aux_cpu.items():
+        assert aux_dev[k] == pytest.approx(v, rel=1e-5, abs=1e-5), k
+    for name, a, b in zip(params, g_cpu, g_dev):
+        assert bool(a.abs().sum() > 0), name
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4, msg=name)

@@ -64,7 +64,7 @@ def test_pyramidal_encoder_matches_jax(levels, encoder_type):
     feats, lens = _feats(3, 13, [13, 6, 1], seed=1)  # odd T and odd lengths
     want = jencoders.apply_encoder(params, jcfg, jnp.asarray(feats), jnp.asarray(lens))
     with torch.no_grad():
-        got, got_len, _ = enc(torch.from_numpy(feats), torch.from_numpy(lens))
+        got, got_len, *_ = enc(torch.from_numpy(feats), torch.from_numpy(lens))
     t_out = 4 if levels is None else 7  # 13 -> 7 -> 4, or 13 -> 7
     assert got.shape == (3, t_out, 16) and want.outputs.shape == got.shape
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(want.lengths))

@@ -133,12 +133,12 @@ def test_experiment_config_matches_jax(name):
 
 
 def test_experiment_config_rejects_unknown_and_unported():
-    with pytest.raises(KeyError, match="num_layers_sub"):
-        experiment_from_dict({"num_layers_sub": 2})
+    with pytest.raises(KeyError, match="num_pipeline_microbatches"):
+        experiment_from_dict({"num_pipeline_microbatches": 2})
     assert experiment_from_dict({"dropout_encoder": 0.5}).dropout == 0.5
     assert experiment_from_dict({"learning_rate": "3e-3"}).learning_rate == 3e-3
     for raw in ({"grad_accum_steps": 2}, {"num_devices": 4}, {"num_expert_shards": 2},
-                {"toy_profile": "hard"}, {"data_root": "/data"}, {"fsdp": True}):
+                {"num_model_shards": 2}, {"data_root": "/data"}, {"fsdp": True}):
         with pytest.raises(NotImplementedError):
             experiment_from_dict(raw).check_trainable()
     with pytest.raises(NotImplementedError, match="model_type"):
