@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's CTC serving, CTC training, attention
 serving, attention training, transducer serving and training, beam
 decoding, eval / decode and RNN-LM paths, of the conformer / transformer
-configs, and of the VGG, multitask, BPE and word configs, on one NVIDIA GPU.
+configs, of the VGG, multitask, BPE and word configs, and of streaming
+recognition and the transducer beam, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -208,15 +209,46 @@ Phases; any failure exits non-zero and prints no result line:
 36. ``configs/ls_word_ctc.yml`` (360 dims, 5 x BLSTM-512, 51 words of the
     hard corpus): card against CPU, one train step, the prefix beam at W=8
     card against CPU and timed, 8 requests at beam 8, Adam steps, ``fit``
-    on the hard corpus, ``bin/eval`` at beam 8 and ``bin/decode``.
+    on the hard corpus, ``bin/eval`` at beam 8 and ``bin/decode``;
+37-40. ``configs/ls_streaming_ctc.yml``, ``ls_transducer.yml``,
+    ``ls_streaming_conformer.yml`` and ``ls_conformer_transducer.yml``
+    (read from the files) at full width, streamed on 8 x 12 s and shorter
+    (four rows end on a chunk boundary) in 100 ms chunks: the greedy tokens
+    equal the port's offline decode on the card; the prefix beam at W=8
+    (ls_streaming_ctc) and the transducer beam at W=4 (ls_transducer)
+    finalize to the offline beam, and again with an RNN-LM over the
+    characters fused (8 x 4 s); card against CPU on 2 x 1 s; a paused and
+    resumed session equal to the straight one, every paused row's state
+    kept bit for bit; ms per chunk step at B=8 (host clock), one step's
+    device time, busy share and device launches (exactly 4 ``fwd_walk``
+    launches and 4 on ``lstm_layer.launches`` per step for the LSTM
+    configs, 0 for the conformers; the plain LSTM step refused);
+41. ``bin/serve --stream`` (``make_stream_server``) on ls_streaming_ctc, 8
+    slots: 8 concurrent sessions posting 12 s in 100 ms posts at real time
+    (tokens equal the offline decode), a ninth session refused with 503;
+    /stream/audio and /stream/end latencies; launch counts reset just
+    before and read just after (4 #3 per step);
+42. the offline transducer beam at W=4 on 8 x 12 s (ls_transducer): wall,
+    and the device time and busy share of its first 50 frames; ``bin/eval``
+    and ``bin/decode`` at ``--beam-width 4`` on the model dir phase 24's
+    ``fit`` wrote;
+43. kernel #3 resuming from a carried state (``lstm_layer_fwd_carry``) at
+    the two streaming chunk shapes, B=8, H=512: T=10, D=40
+    (ls_streaming_ctc's 100 ms) and T=5, D=120 (ls_transducer's five
+    stacked windows), random (h0, c0), lengths 0..T, against its plain
+    version (rows at 0 give back h0 and c0 bit for bit); its device
+    launches per call, timed with CUDA events and from graph replays,
+    beside cuDNN's unidirectional ``nn.LSTM`` with (h0, c0) and the bound.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
 is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 #3/#4; ``F.log_softmax`` + ``F.ctc_loss``; none for the attention read),
 which the port never calls; the calls of #5-#7, short beside their Python
-wrapper, are timed from CUDA-graph replays. Prints a JSON line of the kernels
-(and the prefix beam's numbers), the card's name and power limit, and as the last line
+wrapper, are timed from CUDA-graph replays (#3 with a carried state too).
+Prints a JSON line of the kernels (and the prefix beam's, the conformers',
+the families' and the streams' numbers), the card's name and power limit,
+and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -255,6 +287,10 @@ from tensorflow_end2end_speech_recognition_tpu_torch.decoding import (
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
     ctc_greedy_decode,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch import streaming
+from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_beam import (
+    transducer_beam_search,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy import (
     transducer_greedy_decode,
@@ -708,11 +744,13 @@ def device_launches(fn, reps: int = 5) -> dict:
     the window opens can fall before its edge, which is read on the host's
     clock (seen twice: one ``ctc_frames`` launch of 5 calls missing). The
     tracer can still lose launches (seen once: 1 of 5 calls' kernels
-    recorded), never add them: a window whose count of some kernel is not
-    a whole number per call is read again, up to three windows."""
+    recorded; in PR 14, three windows in three runs that recorded no
+    kernel at all), never add them: a window that recorded nothing, or
+    whose count of some kernel is not a whole number per call, is read
+    again, up to five windows."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for attempt in range(3):
+    for attempt in range(5):
         events = []
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -728,7 +766,7 @@ def device_launches(fn, reps: int = 5) -> dict:
         out = {e.key.split("(")[1].split("::")[-1]: {"per_call": e.count / reps,
                                                       "us": e.self_device_time_total / e.count}
                for e in events if e.self_device_time_total > 0 and "spin_kernel" not in e.key}
-        if all(v["per_call"] == int(v["per_call"]) for v in out.values()):
+        if out and all(v["per_call"] == int(v["per_call"]) for v in out.values()):
             break
         print(f"device_launches: the profiler's window {attempt + 1} recorded {out}; reading "
               "another", flush=True)
@@ -1171,14 +1209,22 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
         nonlocal params, state
         params, state, _ = step(params, state, tb, 1e-3, gen)
 
-    wall, busy, kernels = device_busy(one_step, table)
+    # the tracer loses launches, never adds them (device_launches): a profile
+    # with fewer walks than the step launched is read again, up to three steps
+    for attempt in range(3):
+        wall, busy, kernels = device_busy(one_step, table)
+        device = {w: sum(n for key, _, n in kernels if w in key)
+                  for w in ("fwd_walk", "bwd_walk")}
+        per_step = sum(n for key, _, n in kernels if "fwd_step" in key)
+        if min(device.values()) >= walks:
+            break
+        print(f"{name} train step profile {attempt + 1} recorded {device} walk launches; "
+              "reading another step", flush=True)
     print(f"profile of one {name} train step: {wall:.3f} ms wall (profiled), {busy:.3f} ms of "
           f"device kernel time ({100 * busy / wall:.1f} % busy); top kernels by device time:",
           flush=True)
     for key, t, n in kernels[:12]:
         print(f"  {t:9.3f} ms  {n:6d} launches  {key[:90]}", flush=True)
-    device = {w: sum(n for key, _, n in kernels if w in key) for w in ("fwd_walk", "bwd_walk")}
-    per_step = sum(n for key, _, n in kernels if "fwd_step" in key)
     print(f"{name} train step device launches: {device}, per-step forward kernel {per_step}",
           flush=True)
     if device != {"fwd_walk": walks, "bwd_walk": walks} or per_step:
@@ -1521,24 +1567,29 @@ def device_busy(fn, table: Path | None = None) -> tuple:
 
     Only the device is traced (no CPU operator events): a transducer train
     step launches about 170 k kernels, and reading their CPU-side events
-    too took 50 s."""
+    too took 50 s. A profile that recorded no kernel at all lost them (the
+    tracer, as in ``device_launches``): ``fn`` runs again under a new one,
+    up to five times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(5):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only; "Command Buffer Full" is CUPTI's record of the
-    # host waiting on a full launch queue, not a kernel
-    t0 = time.perf_counter()
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                      and e.key != "Command Buffer Full"), key=lambda r: -r[1])
-    print(f"(profile read in {time.perf_counter() - t0:.1f} s)", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # device-side events only; "Command Buffer Full" is CUPTI's record of
+        # the host waiting on a full launch queue, not a kernel
+        t0 = time.perf_counter()
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                          and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+        print(f"(profile read in {time.perf_counter() - t0:.1f} s)", flush=True)
+        if kernels:
+            break
     if table is not None:
         table.parent.mkdir(parents=True, exist_ok=True)
         table.write_text("device ms, launches, kernel\n" + "".join(
@@ -1853,18 +1904,19 @@ def short_batch(n_rows: int, seed: int, max_labels: int) -> dict:
     return batch
 
 
-def beams_agree(what: str, got, want) -> None:
+def beams_agree(what: str, got, want, versus: str = "card vs CPU") -> None:
     """Prefix-beam outputs (prefixes, lengths, scores) of the card against the
-    CPU's: live slots (score above -1e29) hold equal prefixes and lengths and
-    scores within MODEL_ATOL + BEAM_SCORE_RTOL x |score|."""
-    got = [x.cpu() for x in got]
+    CPU's (or ``versus`` another reference): live slots (score above -1e29)
+    hold equal prefixes and lengths and scores within MODEL_ATOL +
+    BEAM_SCORE_RTOL x |score|."""
+    got, want = [x.cpu() for x in got], [x.cpu() for x in want]
     live = want[2] > -1e29
     same = (torch.equal(got[2] > -1e29, live) and torch.equal(got[0][live], want[0][live])
             and torch.equal(got[1][live], want[1][live]))
     err = float((got[2][live] - want[2][live]).abs().max())
     ok = bool(((got[2][live] - want[2][live]).abs()
                <= MODEL_ATOL + BEAM_SCORE_RTOL * want[2][live].abs()).all())
-    print(f"{what}, card vs CPU: live slots {int(live.sum())}, prefixes and lengths equal: "
+    print(f"{what}, {versus}: live slots {int(live.sum())}, prefixes and lengths equal: "
           f"{same}, scores max abs err {err:.3e} (tolerance {MODEL_ATOL:g} + "
           f"{BEAM_SCORE_RTOL:g} x |score|), best lengths {got[1][:, 0].tolist()}", flush=True)
     if not (same and ok):
@@ -2649,6 +2701,491 @@ def run_families(args, dev, gpu: str, work: Path, t0: float) -> tuple:
     return counts, kernels, numbers
 
 
+# ---- streaming recognition and the transducer beam (phases 37-43) ----------------
+
+STREAM_CHUNK = SR // 10  # 100 ms
+# ragged streams: four end on a chunk boundary (the -1 flush of the stacked
+# configs), four mid-chunk (a partial final chunk)
+STREAM_SECONDS = (12.0, 11.55, 10.0, 8.53, 6.5, 4.47, 2.0, 1.02)
+# config -> (beam width of its beam stream, 1 for none; LM fusion in that beam)
+STREAM_CONFIGS = {"ls_streaming_ctc": (8, True), "ls_transducer": (4, True),
+                  "ls_streaming_conformer": (1, False), "ls_conformer_transducer": (1, False)}
+STREAM_TIMED_STEPS = 20
+STREAM_LM_SECONDS = 4.0  # the fused beam streams: the first 4 s of each row
+LM_WEIGHT = 0.3
+# kernel #3 with a carried state at the chunk step's shapes: 100 ms is 10
+# frames of 40 mel (ls_streaming_ctc) or at most 5 windows of 3 x 40
+# (ls_transducer, 3/3 stacking: (3 - 1 + 10) // 3 + 1)
+CARRY_SHAPES = {"ls_streaming_ctc": (10, 40), "ls_transducer": (5, 120)}
+
+
+def carry_work(lengths, t: int, d: int) -> dict:
+    """#3 with a carried state: xproj, wh, mask, h0, c0 read; ys, hT, cT
+    written; float32 operations of the valid steps."""
+    b = len(lengths)
+    moved = (b * t * 4 * H + H * 4 * H + b * t + b * t * H + 4 * b * H) * F32
+    return bound(moved, float(sum(lengths)) * (2 * H * 4 * H + 30 * H))
+
+
+def check_carry_kernel(dev, gpu: str) -> dict:
+    """Phase 43: kernel #3 resuming from a random carried (h0, c0) at both
+    streaming chunk shapes, against its plain version, with lengths 0..T:
+    rows at 0 (paused streams) must give back h0 and c0 bit for bit."""
+    out = {}
+    for name, (t, d) in CARRY_SHAPES.items():
+        lengths = [t, 0, t, t - 1, 3, t, 1, 0]
+        args, xs, _ = layer_inputs(dev, B, lengths, seed=60 + t, t=t, d=d)
+        g = torch.Generator().manual_seed(61 + t)
+        state = tuple((torch.randn(B, H, generator=g) * 0.5).to(dev) for _ in range(2))
+
+        def kernel():
+            ys, (h_t, c_t) = lstm.lstm_layer(*args, initial_state=state)
+            return ys, h_t, c_t
+
+        plain = lambda: lstm.lstm_layer_fwd_plain(*args, initial_state=state)  # noqa: E731
+        torch.manual_seed(62)
+        net = torch.nn.LSTM(d, H, batch_first=True).to(dev)
+        cudnn = lambda: net(xs, (state[0][None], state[1][None]))  # noqa: E731
+        with torch.no_grad():
+            ys, h_t, c_t = kernel()
+            want_ys, _, (want_h, want_c) = plain()
+            torch.cuda.synchronize()
+            shape = f"B={B} T={t} D={d} H={H}"
+            err = check(f"lstm_layer_fwd_carry ({name} chunk) {shape}", [ys, h_t, c_t],
+                        [want_ys, want_h, want_c], KERNEL_ATOL)
+            paused = torch.tensor(lengths, device=dev) == 0
+            if not (torch.equal(h_t[paused], state[0][paused])
+                    and torch.equal(c_t[paused], state[1][paused]) and not ys[paused].any()):
+                raise RuntimeError("lstm_layer_fwd_carry: a row with no valid step did not "
+                                   "give back its (h0, c0) bit for bit")
+            launches = device_launches(kernel)
+            r = plain_kernel_ms(plain, kernel, 5, 50)
+            library = cuda_ms(cudnn, 50)
+            graph = graph_ms(kernel, 50)
+            library_graph = graph_ms(cudnn, 50)
+            extras = forward_extras(f"lstm_layer_fwd_carry ({name} chunk)", kernel, 1, B, dev,
+                                    {"ms": graph}, t)
+        out[name] = dict(r, ms=graph, eager_ms=r["ms"], max_abs_err=err, library_ms=library,
+                         library_graph_ms=library_graph, device_launches=launches, shape=shape,
+                         **extras, **carry_work(lengths, t, d))
+        print(f"phase lstm_layer_fwd_carry ({name} chunk) {shape}, lengths {lengths}: kernel "
+              f"{graph * 1e3:.2f} us from graph replays ({graph * 1e3 / t:.2f} us per step; "
+              f"eager CUDA events {r['ms'] * 1e3:.2f} us, runs "
+              f"{r['ms_runs'][0] * 1e3:.2f}, {r['ms_runs'][1] * 1e3:.2f}), plain "
+              f"{r['plain_ms']:.3f} ms, bound {out[name]['bound_ms'] * 1e3:.3f} us "
+              f"({out[name]['bound_by']}), cuDNN unidirectional nn.LSTM with (h0, c0), all "
+              f"T steps (packing refuses length-0 rows): {library * 1e3:.2f} us eager, "
+              f"{library_graph * 1e3:.2f} us from graph replays; device launches per call "
+              f"{ {k: (v['per_call'], round(v['us'], 2)) for k, v in launches.items()} }"
+              f"  [{gpu}]", flush=True)
+        walks = [v["per_call"] for k, v in launches.items() if "fwd_walk" in k]
+        if walks != [1.0]:
+            raise RuntimeError(f"lstm_layer_fwd_carry: device launches {launches}; expected "
+                               "one fwd_walk per call")
+    return out
+
+
+def stream_rows(fns, wav: np.ndarray, lens, order=None, check_paused: bool = False):
+    """Drive ``fns`` (``build_streaming_fn``'s) over ``wav`` [B, N] in 100 ms
+    chunks: each row's chunks in turn, then the -1 flush of a row that ends
+    on a chunk boundary. ``order`` lists the rows fed at each step (the
+    others paused; default all rows, chunk count + 1 steps). With
+    ``check_paused`` a paused row's whole state must come back bit for bit.
+    Returns (final state, each row's tokens, steps run)."""
+    init_fn, step_fn = fns[:2]
+    b, c = wav.shape[0], STREAM_CHUNK
+    n_chunks = -(-int(max(lens)) // c)
+    state, rows, nxt = init_fn(b), [[] for _ in range(b)], [0] * b
+    steps = order or [list(range(b))] * (n_chunks + 1)
+    for fed in steps:
+        piece, cl = np.zeros((b, c), np.float32), np.zeros((b,), np.int32)
+        for r in fed:
+            k = nxt[r]
+            if k < n_chunks:
+                piece[r] = wav[r, k * c: (k + 1) * c]
+                cl[r] = min(max(lens[r] - k * c, 0), c)
+            elif k == n_chunks and lens[r] % c == 0:
+                cl[r] = -1
+            nxt[r] += 1
+        before = state
+        state, tok, n = step_fn(state, piece, cl)
+        if check_paused:
+            paused = torch.tensor([r not in fed for r in range(b)])
+            same = []
+            streaming.tree_map(lambda x, y: same.append(torch.equal(
+                x[paused.to(x.device)], y[paused.to(x.device)])), state, before)
+            if not all(same):
+                raise RuntimeError("a paused stream's state changed")
+        tok, n = tok.cpu().numpy(), n.cpu().numpy()
+        for r in range(b):
+            rows[r].extend(tok[r, : n[r]].tolist())
+    return state, rows, len(steps)
+
+
+def stream_audio(seconds, seed: int) -> tuple:
+    rng = np.random.RandomState(seed)
+    lens = [int(round(s * SR)) for s in seconds]
+    wav = (rng.randn(len(lens), max(lens)) * 0.1).astype(np.float32)
+    for r, n in enumerate(lens):
+        wav[r, n:] = 0.0
+    return wav, lens
+
+
+def offline_decode(task, model, wav, lens, dev, beam: int = 0, max_len: int | None = None,
+                   lm=None):
+    """The port's offline decode of the same audio on ``dev``: greedy ids per
+    row, or with ``beam`` the beam's (tokens, lengths, scores)."""
+    is_ctc = isinstance(task, ctc_task.CTCTaskConfig)
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(dev),
+                                           "input_len": torch.tensor(lens, device=dev)})
+        fusion = None if lm is None else make_fusion_lm(lm, task.model.vocab_with_blank)
+        lm_weight = LM_WEIGHT if lm is not None else 0.0
+        if is_ctc:
+            out = model(feats, fl)
+            if beam:
+                return ctc_prefix_beam_search(out.logits, out.logit_len, task.model.blank_id,
+                                              beam_width=beam, max_prefix_len=max_len,
+                                              fusion_lm=fusion, lm_weight=lm_weight)
+            ids, n = ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
+        else:
+            f_proj, enc_len = model.encode(feats, fl)
+            if beam:
+                return tuple(transducer_beam_search(model, f_proj, enc_len, beam_width=beam,
+                                                    max_len=max_len, fusion_lm=fusion,
+                                                    lm_weight=lm_weight))
+            ids, n = transducer_greedy_decode(model, f_proj, enc_len)
+    return [ids[i, : n[i]].tolist() for i in range(len(lens))]
+
+
+def stream_models(name: str, dev):
+    """(raw config, task, units, CPU model, card model) of ``configs/<name>.yml``."""
+    raw = raw_config(name)
+    task, units = family_task(raw)
+    mod = transducer_task if raw["model_type"] == "transducer" else ctc_task
+    cpu = mod.init_model(task, torch.Generator().manual_seed(0)).eval()
+    return raw, task, units, cpu, copy.deepcopy(cpu).to(dev).eval()
+
+
+def time_stream_step(fns, wav, lens, dev, gpu: str, what: str, want_walks: int) -> dict:
+    """ms per chunk step at B = 8 with every row live (host clock, ending in a
+    synchronize), one step's profile (device time, busy share, device
+    launches, ``fwd_walk`` launches) and its ``lstm_layer.launches``; the
+    plain LSTM step must not run."""
+    init_fn, step_fn = fns[:2]
+    state, c = init_fn(B), STREAM_CHUNK
+    full = np.full((B,), c, np.int32)
+    chunks = [wav[:, k * c: (k + 1) * c] for k in range(STREAM_TIMED_STEPS + 5)]
+    for k in range(5):  # past the start-up frames
+        state, _, _ = step_fn(state, chunks[k], full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(5, 5 + STREAM_TIMED_STEPS):
+        state, _, n = step_fn(state, chunks[k], full)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / STREAM_TIMED_STEPS
+
+    def refuse(*args, **kw):
+        raise RuntimeError("the plain LSTM step ran on the streaming path")
+
+    plain, lstm.lstm_layer_fwd_plain = lstm.lstm_layer_fwd_plain, refuse
+    try:
+        reset_counts()
+        step_fn(state, chunks[0], full)
+        counts = read_counts()
+        for _ in range(3):  # a profile that lost walk launches is read again
+            wall, busy, kernels = device_busy(lambda: step_fn(state, chunks[0], full))
+            walks = sum(k[2] for k in kernels if "fwd_walk" in k[0])
+            if walks >= want_walks:
+                break
+    finally:
+        lstm.lstm_layer_fwd_plain = plain
+    launches = sum(k[2] for k in kernels)
+    print(f"phase {what} chunk step, B={B} x 100 ms: {ms:.3f} ms per step (host clock, "
+          f"{STREAM_TIMED_STEPS} steps); one step profiled: {wall:.3f} ms wall, {busy:.3f} ms "
+          f"of device time ({100 * busy / wall:.1f} % busy), {launches} device launches, "
+          f"{walks} fwd_walk (#3) launches, lstm_layer.launches {counts['lstm_layer_fwd']}; "
+          f"top kernels:  [{gpu}]", flush=True)
+    for key, t, k in kernels[:5]:
+        print(f"  {t:9.3f} ms  {k:6d} launches  {key[:90]}", flush=True)
+    if walks != want_walks or counts != dict(NONE_LAUNCHED, lstm_layer_fwd=want_walks):
+        raise RuntimeError(f"{what}: {walks} fwd_walk device launches and counts {counts} per "
+                           f"step; expected {want_walks}")
+    return {"step_ms": ms, "profile_wall_ms": wall, "device_ms": busy,
+            "busy": busy / wall, "device_launches": launches, "fwd_walk_launches": walks}
+
+
+def transducer_beams_agree(what: str, got, want, versus: str = "card vs CPU") -> None:
+    """Transducer beams (tokens, lengths, scores): tokens and lengths equal,
+    scores within MODEL_ATOL + BEAM_SCORE_RTOL x |score|."""
+    got, want = [x.cpu() for x in got], [x.cpu() for x in want]
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = float((got[2] - want[2]).abs().max())
+    print(f"{what}, {versus}: tokens and lengths equal: {same}, scores max abs err {err:.3e}, best "
+          f"lengths {got[1][:, 0].tolist()}", flush=True)
+    if not (same and bool(((got[2] - want[2]).abs()
+                           <= MODEL_ATOL + BEAM_SCORE_RTOL * want[2].abs()).all())):
+        raise RuntimeError(f"{what} disagree")
+
+
+def run_stream_config(name: str, dev, gpu: str, lm_cpu, lm_dev) -> dict:
+    """Phases 37-40, one per streaming config, at full width (8 x 12 s, 100 ms
+    chunks): greedy and its beam stream against the port's offline decode on
+    the card, the fused beam, card against CPU on 2 x 1 s, a paused and
+    resumed session, and the chunk step timed and profiled."""
+    raw, task, units, cpu, model = stream_models(name, dev)
+    beam, fused = STREAM_CONFIGS[name]
+    is_ctc = isinstance(task, ctc_task.CTCTaskConfig)
+    is_lstm = raw["encoder_type"] == "lstm"
+    walks = raw["num_layers"] if is_lstm else 0
+    wav, lens = stream_audio(STREAM_SECONDS, seed=63)
+    t0 = time.perf_counter()
+    greedy = streaming.build_streaming_fn(task, model, STREAM_CHUNK)
+    reset_counts()
+    _, rows, steps = stream_rows(greedy, wav, lens)
+    counts = read_counts()
+    if counts != dict(NONE_LAUNCHED, lstm_layer_fwd=walks * steps):
+        raise RuntimeError(f"{name} stream launches {counts} over {steps} steps")
+    want = offline_decode(task, model, wav, lens, dev)
+    print(f"phase {name} greedy stream, {B} x {max(STREAM_SECONDS):g} s in 100 ms chunks "
+          f"({steps} steps, {time.perf_counter() - t0:.1f} s): tokens equal the offline "
+          f"decode: {rows == want}; tokens per row {[len(r) for r in rows]}; launches "
+          f"{counts}  [{gpu}]", flush=True)
+    if rows != want or not any(rows):
+        raise RuntimeError(f"{name}: the chunked greedy tokens differ from the offline decode")
+    numbers = {"greedy": time_stream_step(greedy, wav, lens, dev, gpu, f"{name} greedy", walks)}
+
+    # card against CPU on 2 x 1 s, greedy (and the beam below)
+    short, short_lens = stream_audio((1.0, 0.63), seed=64)
+    got = stream_rows(greedy, short, short_lens)[1]
+    cpu_rows = stream_rows(streaming.build_streaming_fn(task, cpu, STREAM_CHUNK), short,
+                           short_lens)[1]
+    print(f"{name} greedy stream on 2 x 1 s, card vs CPU: tokens equal {got == cpu_rows}",
+          flush=True)
+    if got != cpu_rows:
+        raise RuntimeError(f"{name}: the card's stream disagrees with the CPU's")
+    numbers["tokens_per_row"] = [len(r) for r in rows]
+
+    if beam > 1:
+        t_out = frames_out(task, max(lens)) * (1 if is_ctc else task.model.max_symbols_per_frame)
+        kw = dict(beam_width=beam, max_prefix_len=t_out)
+        fns = streaming.build_streaming_fn(task, model, STREAM_CHUNK, **kw)
+        t0 = time.perf_counter()
+        state, beam_rows, _ = stream_rows(fns, wav, lens)
+        final = fns[2](state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = offline_decode(task, model, wav, lens, dev, beam, t_out)
+        agree = beams_agree if is_ctc else transducer_beams_agree
+        agree(f"{name} beam W={beam} stream finalized, {B} x 12 s ({wall:.1f} s)", final,
+              want, "vs the offline beam on the card")
+        if beam_rows != rows:
+            raise RuntimeError(f"{name}: the beam stream's live greedy partials differ")
+        numbers["beam"] = time_stream_step(fns, wav, lens, dev, gpu, f"{name} beam W={beam}",
+                                           walks)
+        # card vs CPU on 2 x 1 s, and a paused and resumed session on the card
+        fns_s = streaming.build_streaming_fn(task, model, STREAM_CHUNK, beam_width=beam,
+                                             max_prefix_len=200)
+        cpu_fns = streaming.build_streaming_fn(task, cpu, STREAM_CHUNK, beam_width=beam,
+                                               max_prefix_len=200)
+        st_card, rows_card, n_steps = stream_rows(fns_s, short, short_lens)
+        st_cpu, rows_cpu, _ = stream_rows(cpu_fns, short, short_lens)
+        agree(f"{name} beam W={beam} stream on 2 x 1 s", fns_s[2](st_card),
+              cpu_fns[2](st_cpu))
+        if rows_card != rows_cpu:
+            raise RuntimeError(f"{name}: the card's beam stream partials disagree with the CPU")
+        order = [[0, 1], [0], [1], [], [0, 1], [1], [0]] + [[0, 1]] * n_steps
+        st_paused, rows_paused, _ = stream_rows(fns_s, short, short_lens, order,
+                                                check_paused=True)
+        same = rows_paused == rows_card and all(
+            torch.equal(x, y) for x, y in zip(fns_s[2](st_paused), fns_s[2](st_card)))
+        print(f"{name} paused and resumed session (row 1 paused 3 steps, row 0 2, one step "
+              f"with every row paused) vs straight: tokens and the finalized beam equal bit for "
+              f"bit: {same}; every paused row's state kept bit for bit", flush=True)
+        if not same:
+            raise RuntimeError(f"{name}: a paused and resumed session differs")
+        if fused:
+            lm_seconds = [min(s, STREAM_LM_SECONDS) for s in STREAM_SECONDS]
+            lm_wav, lm_lens = stream_audio(lm_seconds, seed=65)
+            t_lm = frames_out(task, max(lm_lens)) * (1 if is_ctc else
+                                                     task.model.max_symbols_per_frame)
+            fns_lm = streaming.build_streaming_fn(task, model, STREAM_CHUNK, beam_width=beam,
+                                                  max_prefix_len=t_lm, lm=lm_dev,
+                                                  lm_weight=LM_WEIGHT)
+            st_lm = stream_rows(fns_lm, lm_wav, lm_lens)[0]
+            agree(f"{name} beam W={beam} with the RNN-LM fused at {LM_WEIGHT}, "
+                  f"{B} x {STREAM_LM_SECONDS:g} s", fns_lm[2](st_lm),
+                  offline_decode(task, model, lm_wav, lm_lens, dev, beam, t_lm, lm_dev),
+                  "stream vs the offline fused beam on the card")
+            cpu_lm = streaming.build_streaming_fn(task, cpu, STREAM_CHUNK, beam_width=beam,
+                                                  max_prefix_len=200, lm=lm_cpu,
+                                                  lm_weight=LM_WEIGHT)
+            fns_lm_s = streaming.build_streaming_fn(task, model, STREAM_CHUNK, beam_width=beam,
+                                                    max_prefix_len=200, lm=lm_dev,
+                                                    lm_weight=LM_WEIGHT)
+            agree(f"{name} fused beam stream on 2 x 1 s",
+                  fns_lm_s[2](stream_rows(fns_lm_s, short, short_lens)[0]),
+                  cpu_lm[2](stream_rows(cpu_lm, short, short_lens)[0]))
+    else:
+        order = [[0, 1], [0], [1], [], [0, 1], [1], [0]] + [[0, 1]] * 12
+        rows_paused = stream_rows(greedy, short, short_lens, order, check_paused=True)[1]
+        print(f"{name} paused and resumed session vs straight: tokens equal "
+              f"{rows_paused == got}; every paused row's state kept bit for bit", flush=True)
+        if rows_paused != got:
+            raise RuntimeError(f"{name}: a paused and resumed session differs")
+    return numbers
+
+
+def serve_streams(dev, gpu: str) -> tuple:
+    """Phase 41: ``bin/serve --stream`` (``make_stream_server``) on
+    ls_streaming_ctc, greedy, 8 slots: 8 concurrent sessions, each posting 12
+    s of audio in 100 ms posts at real time, then ending; a ninth session
+    while all 8 are open gets 503. The launch counts are reset just before
+    the sessions and read just after."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_stream_server
+
+    _, task, units, _, model = stream_models("ls_streaming_ctc", dev)
+    server = make_stream_server(task, model, B, chunk_ms=100.0, max_wait_ms=2.0, units=units,
+                                label_type="character")
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    wav, lens = stream_audio([12.0] * B, seed=66)
+    audio_lat, end_lat, ids, errors = [], [], [None] * B, []
+
+    def post(path, body=b""):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", path, body, {"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        return (*out, (time.perf_counter() - t0) * 1e3)
+
+    def session(i, sid):
+        try:
+            got, start = [], time.perf_counter()
+            for k in range(lens[i] // STREAM_CHUNK):
+                # live audio: post k leaves at k x 100 ms
+                time.sleep(max(0.0, start + 0.1 * k - time.perf_counter()))
+                status, body, ms = post(f"/stream/audio?session={sid}",
+                                        wav[i, k * STREAM_CHUNK: (k + 1) * STREAM_CHUNK]
+                                        .tobytes())
+                if status != 200:
+                    raise RuntimeError(f"/stream/audio returned {status}: {body}")
+                got += body["ids"]
+                audio_lat.append(ms)
+            status, body, ms = post(f"/stream/end?session={sid}")
+            if status != 200:
+                raise RuntimeError(f"/stream/end returned {status}: {body}")
+            end_lat.append(ms)
+            ids[i] = got + body["ids"]
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread below
+            errors.append(e)
+
+    try:
+        reset_counts()
+        server.batcher.steps_run = 0
+        sids = [post("/stream/start")[1]["session"] for _ in range(B)]
+        ninth = post("/stream/start")
+        threads = [threading.Thread(target=session, args=(i, sid)) for i, sid in enumerate(sids)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts, steps = read_counts(), server.batcher.steps_run
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"a streaming session failed: {errors}")
+    audio_lat.sort()
+    end_lat.sort()
+    want = offline_decode(task, model, wav, lens, dev)
+    print(f"phase bin/serve --stream ls_streaming_ctc: {B} concurrent sessions of 12 s in "
+          f"100 ms posts at real time ({wall:.1f} s wall, {steps} steps): /stream/audio p50 "
+          f"{audio_lat[len(audio_lat) // 2]:.1f} ms, max {audio_lat[-1]:.1f} ms "
+          f"({len(audio_lat)} posts); /stream/end p50 {end_lat[len(end_lat) // 2]:.1f} ms, max "
+          f"{end_lat[-1]:.1f} ms; a ninth session: {ninth[0]} {ninth[1]}; tokens equal the "
+          f"offline decode: {ids == want}; launches {counts}  [{gpu}]", flush=True)
+    if ninth[0] != 503 or ids != want or counts != dict(NONE_LAUNCHED,
+                                                       lstm_layer_fwd=4 * steps):
+        raise RuntimeError(f"bin/serve --stream: ninth session {ninth}, tokens equal "
+                           f"{ids == want}, launches {counts} over {steps} steps")
+    return counts, {"audio_p50_ms": audio_lat[len(audio_lat) // 2],
+                    "audio_max_ms": audio_lat[-1], "end_p50_ms": end_lat[len(end_lat) // 2],
+                    "end_max_ms": end_lat[-1], "steps": steps, "ninth_status": ninth[0]}
+
+
+def time_transducer_beam(dev, gpu: str, model_dir: Path) -> tuple:
+    """Phase 42: the offline transducer beam at W = 4 on 8 x 12 s (ls_transducer):
+    wall, and a profile of its first PROFILE_FRAMES frames; ``bin/eval`` and
+    ``bin/decode`` at ``--beam-width 4`` on the model dir ``fit`` wrote."""
+    _, task, _, _, model = stream_models("ls_transducer", dev)
+    wav, lens = stream_audio([12.0] * B, seed=67)
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(dev),
+                                           "input_len": torch.tensor(lens, device=dev)})
+        f_proj, enc_len = model.encode(feats, fl)
+        search = lambda f, n: transducer_beam_search(model, f, n, beam_width=4)  # noqa: E731
+        search(f_proj[:, :5], enc_len.clamp(max=5))  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = search(f_proj, enc_len)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        p_wall, busy, kernels = device_busy(lambda: search(f_proj[:, :PROFILE_FRAMES],
+                                                           enc_len.clamp(max=PROFILE_FRAMES)))
+    launches = sum(k[2] for k in kernels)
+    print(f"phase ls_transducer offline beam W=4, {B} x 12 s (T'={f_proj.shape[1]}): "
+          f"{wall:.1f} ms wall ({wall / f_proj.shape[1]:.3f} ms per frame), best lengths "
+          f"{res.lengths[:, 0].tolist()}; its first {PROFILE_FRAMES} frames profiled: "
+          f"{p_wall:.3f} ms wall, {busy:.3f} ms of device time ({100 * busy / p_wall:.1f} % "
+          f"busy), {launches} device launches ({launches / PROFILE_FRAMES:.0f} per frame)  "
+          f"[{gpu}]", flush=True)
+    counts = {}
+    for what, fn, argv in (
+            ("bin/eval ls_transducer --beam-width 4", eval_cli.main,
+             [str(model_dir), "--device", "cuda", "--beam-width", "4"]),
+            ("bin/decode ls_transducer --beam-width 4 --nbest 2", decode_cli.main,
+             [str(model_dir), "--device", "cuda", "--beam-width", "4", "--nbest", "2"])):
+        out, counts[what.split()[0]] = run_cli(what, fn, argv, ("lstm_layer_fwd",), gpu)
+        if what.startswith("bin/eval") and not all(
+                np.isfinite(out[s]["error_rate"]) for s in ("dev", "test")):
+            raise RuntimeError(f"{what} gave {out}")
+        if what.startswith("bin/decode") and not any(s.startswith("  HYP2") for s in out):
+            raise RuntimeError(f"{what} printed {out[:6]}")
+    return {"wall_ms": wall, "frames": int(f_proj.shape[1]), "profile_frames": PROFILE_FRAMES,
+            "profile_wall_ms": p_wall, "device_ms": busy, "busy": busy / p_wall,
+            "device_launches": launches}, counts
+
+
+def run_streaming(dev, gpu: str, work: Path, t0: float) -> tuple:
+    """Phases 37-43. Returns (launch counts by path, kernel #3 with a carried
+    state at both chunk shapes, the streaming numbers)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.models.lm import LMConfig, RNNLM
+
+    # an RNN-LM over the 28 characters + sos / eos, the bin/train_lm default width
+    lm_cpu = RNNLM(LMConfig(vocab=len(CHAR_UNITS) + 2),
+                   torch.Generator().manual_seed(68)).eval()
+    lm_dev = copy.deepcopy(lm_cpu).to(dev).eval()
+    numbers = {}
+    for name in STREAM_CONFIGS:
+        numbers[name] = run_stream_config(name, dev, gpu, lm_cpu, lm_dev)
+        clock(f"{name} streamed", t0)
+    counts = {}
+    counts["stream_serving"], numbers["serve_stream"] = serve_streams(dev, gpu)
+    clock("bin/serve --stream", t0)
+    numbers["transducer_beam"], cli = time_transducer_beam(dev, gpu, work / "ls_transducer")
+    counts.update({f"transducer_beam_{k}": v for k, v in cli.items()})
+    clock("the offline transducer beam, bin/eval and bin/decode at beam 4", t0)
+    carry = check_carry_kernel(dev, gpu)
+    clock("kernel #3 with a carried state checked", t0)
+    return counts, carry, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2770,6 +3307,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
     counts.update(conformer_counts)
     family_counts, family_kernels, families = run_families(args, dev, gpu, work, t0)
     counts.update(family_counts)
+    stream_counts, carry, stream_numbers = run_streaming(dev, gpu, work, t0)
+    counts.update(stream_counts)
 
     # "launches": the count on the path that ported the kernel (CTC training
     # for #1, #2, #5, #6; attention serving for #7; transducer training for
@@ -2834,8 +3373,24 @@ def run(args, dev, gpu: str, work: Path) -> int:
                                                            "library_ms")},
         "att_beam_eval": att_beam_eval,
     })
+    # #3 resuming from a carried state: launches on the streaming serving path
+    # (bin/serve --stream ls_streaming_ctc), at its chunk shape, and at
+    # ls_transducer's beside it
+    c = carry["ls_streaming_ctc"]
+    entries.append({
+        "name": "lstm_layer_fwd_carry", "route": "cuda", **KERNELS["lstm_layer_fwd"],
+        "launches": counts["stream_serving"]["lstm_layer_fwd"],
+        **{f"launches_{path}": x["lstm_layer_fwd"] for path, x in stream_counts.items()},
+        **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        **{k: c[k] for k in ("shape", "eager_ms", "library_graph_ms", "us_per_step", "plan",
+                             "deterministic")},
+        "device_launches": {k: v["per_call"] for k, v in c["device_launches"].items()},
+        "ls_transducer": {k: v for k, v in carry["ls_transducer"].items()
+                          if k not in ("ms_runs", "plain_ms_runs", "device_launches")},
+    })
     print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer,
-                      "families": families}), flush=True)
+                      "families": families, "streaming": stream_numbers}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

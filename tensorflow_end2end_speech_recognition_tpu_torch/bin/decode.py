@@ -6,12 +6,12 @@
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/decode.py``,
 same options and output (``[name] score``, ``REF:``, ``HYP:``, ``HYPn
-(score)``): greedy decoding for the CTC and transducer models, the CTC
-prefix beam at ``--beam-width`` above 1, and for attention models the
-attention beam at ``max(--beam-width, 1)`` with ``--length-penalty``,
-``--joint-rescore`` (joint models) and RNN-LM fusion (``--lm-dir``). The
-transducer beam search is not ported and raises. Runs on the card
-(``--device cpu`` for the CPU).
+(score)``): greedy decoding for the CTC and transducer models, at
+``--beam-width`` above 1 the CTC prefix beam or the transducer beam, and
+for attention models the attention beam at ``max(--beam-width, 1)`` with
+``--length-penalty`` and ``--joint-rescore`` (joint models); RNN-LM fusion
+(``--lm-dir``) in every beam. Runs on the card (``--device cpu`` for the
+CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from .. import set_full_fp32
 from ..data.dataset import Dataset, to_device
 from ..decoding import attention_beam_search, ctc_greedy_decode, ctc_prefix_beam_search
 from ..decoding.joint_rescoring import joint_rescore
+from ..decoding.transducer_beam import transducer_beam_search
 from ..decoding.transducer_greedy import transducer_greedy_decode
 from ..train.ctc_task import device_pipeline
 from ..train.loop import build_corpus_splits, build_task
@@ -69,10 +70,19 @@ def main(argv=None) -> list[str]:
     with torch.inference_mode():
         feats, fl = device_pipeline(task, to_device(batch, device))
         if exp.model_type == "transducer":
+            f_proj, enc_len = model.encode(feats, fl)
             if args.beam_width > 1:
-                raise NotImplementedError("the transducer beam search is not ported yet")
-            d, dl = transducer_greedy_decode(model, *model.encode(feats, fl))
-            hyps, hyp_len, scores = d[:, None], dl[:, None], torch.zeros((d.shape[0], 1))
+                fusion_lm = None
+                if lm is not None:
+                    from ..models.lm import make_fusion_lm
+
+                    fusion_lm = make_fusion_lm(lm, task.model.vocab_with_blank)
+                hyps, hyp_len, scores = transducer_beam_search(
+                    model, f_proj, enc_len, beam_width=args.beam_width, fusion_lm=fusion_lm,
+                    lm_weight=args.lm_weight if fusion_lm is not None else 0.0)
+            else:
+                d, dl = transducer_greedy_decode(model, f_proj, enc_len)
+                hyps, hyp_len, scores = d[:, None], dl[:, None], torch.zeros((d.shape[0], 1))
         elif exp.model_type in ATTENTION_MODEL_TYPES:
             result = attention_beam_search(
                 model, feats, fl, beam_width=max(args.beam_width, 1),

@@ -1,11 +1,14 @@
-"""Serve a CTC, transducer or attention model over HTTP with micro-batching.
+"""Serve a CTC, transducer or attention model over HTTP: batches or live streams.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/serve.py``
-(batch API). The JAX server loads a frozen StableHLO artifact; this one runs
-the port's model in-process, built from a reference-shaped YAML config plus a
-weights file written by ``utils/bridge.py`` (``.npz`` or ``torch.save``).
-Concurrent requests are grouped into fixed ``[batch, samples]`` batches by
-``serving.MicroBatcher``.
+(the batch API and, with ``--stream``, the streaming session API). The JAX
+server loads a frozen StableHLO artifact; this one runs the port's model
+in-process, built from a reference-shaped YAML config plus a weights file
+written by ``utils/bridge.py`` (``.npz`` or ``torch.save``). Concurrent
+requests are grouped into fixed ``[batch, samples]`` batches by
+``serving.MicroBatcher``; ``--stream`` multiplexes live sessions over the
+``--batch`` rows of one streaming step (``serving.StreamingEngine`` over
+``streaming.build_streaming_fn``, chunks of ``--chunk-ms``).
 
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls100_ctc.yml weights.npz [--device cuda] [--batch 8] \
@@ -14,12 +17,17 @@ Concurrent requests are grouped into fixed ``[batch, samples]`` batches by
         configs/ls960_joint.yml weights.npz --beam-width 8
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls100_ctc.yml weights.npz --beam-width 20
+    python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
+        configs/ls_streaming_ctc.yml weights.npz --stream --chunk-ms 100 \
+        [--beam-width 8] [--lm-dir DIR] [--session-timeout-s 300]
 
 ``model_type`` in the config picks the model: ``ctc`` decodes greedily, or
 with the CTC prefix beam search at ``--beam-width`` above 1; ``attention``
 and ``joint_ctc_attention`` decode greedily, or with the attention beam
 search at ``--beam-width`` above 1; ``transducer``
-(``configs/ls_transducer.yml``) decodes greedily and takes no beam.
+(``configs/ls_transducer.yml``) decodes greedily, or with the transducer
+beam at ``--beam-width`` above 1. ``--lm-dir`` (``bin/train_lm``) fuses an
+RNN-LM into any beam.
 
 API:
   GET  /healthz    -> the serving contract (batch size, samples, beam width,
@@ -32,8 +40,20 @@ API:
                       "num_ids": n, "text": "..."}``; ``"truncated": true``
                       flags audio longer than the padded capacity.
 
-Error statuses: 400 malformed request, 503 inference timeout, 500 device
-failure.
+API with ``--stream`` (CTC and transducer models with a causal encoder:
+``lstm``, or a conformer / transformer with ``left_context >= 0``):
+  POST /stream/start          -> ``{"session": id, "chunk_samples": C}``, or
+                                 503 when every slot is busy
+  POST /stream/audio?session= -> append audio (JSON ``{"audio": [...]}`` or
+                                 raw float32 PCM); ``{"ids", "text"}``: the
+                                 tokens decoded since the last post (greedy)
+  POST /stream/end?session=   -> flush the rest; ``{"ids", "text"}``, with
+                                 ``"final": true`` at ``--beam-width`` above
+                                 1: then the ids are the whole final beam
+                                 transcript, superseding the live partials
+
+Error statuses: 400 malformed request or unknown session, 503 overload
+(slots busy, inference timeout), 500 device failure.
 """
 
 from __future__ import annotations
@@ -131,20 +151,23 @@ def make_server(task, model, batch_size: int, num_samples: int,
                 host: str = "127.0.0.1", port: int = 0, max_wait_ms: float = 10.0,
                 request_timeout_s: float = 60.0, warmup: bool = True,
                 units: list | None = None, label_type: str | None = None,
-                beam_width: int = 1) -> ThreadingHTTPServer:
+                beam_width: int = 1, lm=None, lm_weight: float = 0.3) -> ThreadingHTTPServer:
     """Build (but don't start) the HTTP server over ``model`` on its device.
 
     ``.server_address`` has the bound port. The caller runs
     ``serve_forever()`` and, on shutdown, ``shutdown()``, ``server_close()``
     and ``.batcher.stop()``. ``warmup`` runs one zero batch before the server
     accepts traffic, so no request pays the first call's kernel build.
-    ``beam_width`` above 1 decodes a CTC model with the prefix beam and an
-    attention model with the attention beam search.
+    ``beam_width`` above 1 decodes a CTC model with the prefix beam, a
+    transducer with the transducer beam and an attention model with the
+    attention beam search; ``lm`` (an ``RNNLM``) is fused into the beam at
+    ``lm_weight``.
     """
     from ..serving import MicroBatcher, build_inference_fn
     from ..train.att_task import AttTaskConfig
+    from ..train.transducer_task import TransducerTaskConfig
 
-    infer = build_inference_fn(task, model, beam_width)
+    infer = build_inference_fn(task, model, beam_width, lm=lm, lm_weight=lm_weight)
     if warmup:
         t0 = time.perf_counter()
         _, n = infer(np.zeros((batch_size, num_samples), np.float32),
@@ -158,7 +181,8 @@ def make_server(task, model, batch_size: int, num_samples: int,
         "input_rank": 2,
         "beam_width": beam_width,
         "decode": ("greedy" if beam_width <= 1 else "attention_beam"
-                   if isinstance(task, AttTaskConfig) else "ctc_prefix_beam"),
+                   if isinstance(task, AttTaskConfig) else "transducer_beam"
+                   if isinstance(task, TransducerTaskConfig) else "ctc_prefix_beam"),
         "blank_id": None if isinstance(task, AttTaskConfig) else task.model.blank_id,
         "device": str(next(model.parameters()).device),
         "units": list(units) if units else None,
@@ -169,6 +193,105 @@ def make_server(task, model, batch_size: int, num_samples: int,
     })
     server = ThreadingHTTPServer((host, port), handler)
     server.batcher = batcher
+    server.meta = meta
+    return server
+
+
+def make_stream_server(task, model, batch_size: int, chunk_ms: float = 100.0,
+                       beam_width: int = 1, lm=None, lm_weight: float = 0.3,
+                       host: str = "127.0.0.1", port: int = 0, max_wait_ms: float = 10.0,
+                       request_timeout_s: float = 60.0, session_timeout_s: float = 300.0,
+                       warmup: bool = True, units: list | None = None,
+                       label_type: str | None = None) -> ThreadingHTTPServer:
+    """Build (but don't start) the streaming session server over ``model`` on its device.
+
+    The counterpart of ``_make_stream_server`` of the JAX server, with the
+    step built from the model (``streaming.build_streaming_fn``: ``batch_size``
+    slots, chunks of ``chunk_ms``, the CTC prefix beam or the transducer beam
+    at ``beam_width`` above 1, ``lm`` (an ``RNNLM``) fused into it). The
+    worker steps at most every ``max_wait_ms`` when idle. ``warmup`` runs one
+    step and, for a beam stream, one finalize before the server accepts
+    traffic. Shut down as ``make_server``'s server (``.batcher.stop()``).
+    """
+    from ..serving import StreamingEngine
+    from ..streaming import build_streaming_fn
+    from ..train.transducer_task import TransducerTaskConfig
+
+    chunk = int(round(chunk_ms * task.frontend.sample_rate / 1000.0))
+    fns = build_streaming_fn(task, model, chunk, beam_width=beam_width, lm=lm,
+                             lm_weight=lm_weight)
+    init_fn, step_fn = fns[:2]
+    finalize = fns[2] if beam_width > 1 else None
+    state0 = init_fn(batch_size)
+    if warmup:
+        t0 = time.perf_counter()
+        state, _, n = step_fn(state0, np.zeros((batch_size, chunk), np.float32),
+                              np.zeros((batch_size,), np.int32))
+        n.cpu()  # waits for the device
+        if finalize is not None:
+            finalize(state)[1].cpu()
+        print(f"warmup: ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    final_flush = task.num_stack > 1 or task.num_skip > 1
+    engine = StreamingEngine(state0, step_fn, batch_size, chunk, tick_ms=max_wait_ms,
+                             session_timeout_s=session_timeout_s, finalize=finalize,
+                             final_flush=final_flush)
+    is_transducer = isinstance(task, TransducerTaskConfig)
+    meta = {
+        "streaming": True,
+        "batch_size": batch_size,
+        "chunk_samples": chunk,
+        "beam_width": beam_width,
+        "decode": ("greedy" if beam_width <= 1 else "transducer_beam" if is_transducer
+                   else "ctc_prefix_beam"),
+        "final_flush": final_flush,
+        "blank_id": task.model.blank_id,
+        "device": str(next(model.parameters()).device),
+        "units": list(units) if units else None,
+        "label_type": label_type,
+    }
+
+    class Handler(_Handler):
+        def _tokens(self, toks, final: bool = False):
+            resp = {"ids": [int(t) for t in toks]}
+            text = _decode_text(resp["ids"], self.meta)
+            if text is not None:
+                resp["text"] = text
+            if final:
+                resp["final"] = True
+            return resp
+
+        def do_POST(self):
+            from urllib.parse import parse_qs, urlparse
+
+            try:
+                url = urlparse(self.path)
+                raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if url.path == "/stream/start":
+                    sid = engine.start()
+                    if sid is None:
+                        self._json(503, {"error": "all slots busy"})
+                    else:
+                        self._json(200, {"session": sid, "chunk_samples": chunk})
+                    return
+                sid = parse_qs(url.query).get("session", [None])[0]
+                if url.path not in ("/stream/audio", "/stream/end"):
+                    self._json(404, {"error": "unknown path"})
+                elif sid is None:
+                    raise ValueError("missing ?session= parameter")
+                elif url.path == "/stream/audio":
+                    audio = self._read_audio(raw)
+                    if audio.ndim != 1:
+                        raise ValueError(f"audio must be one channel, got rank {audio.ndim}")
+                    self._json(200, self._tokens(engine.feed(sid, audio)))
+                else:
+                    self._json(200, self._tokens(engine.end(sid, request_timeout_s),
+                                                 final=finalize is not None))
+            except Exception as e:  # noqa: BLE001 — mapped to 400/503/500
+                self._error(e)
+
+    handler = type("StreamHandler", (Handler,), {"meta": meta})
+    server = ThreadingHTTPServer((host, port), handler)
+    server.batcher = engine  # the shutdown handle, as make_server's
     server.meta = meta
     return server
 
@@ -204,22 +327,46 @@ def main(argv=None):
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
     ap.add_argument("--beam-width", type=int, default=1,
                     help="CTC models: prefix beam search above 1; attention models: "
-                         "attention beam search above 1 (greedy at 1); transducer "
-                         "models take no beam")
+                         "attention beam search above 1; transducer models: the "
+                         "transducer beam above 1 (greedy at 1)")
+    ap.add_argument("--lm-dir", default=None,
+                    help="RNN-LM dir from bin.train_lm: shallow fusion in the beam")
+    ap.add_argument("--lm-weight", type=float, default=0.3)
+    ap.add_argument("--stream", action="store_true",
+                    help="serve live sessions (/stream/start, /stream/audio, /stream/end) "
+                         "over --batch slots")
+    ap.add_argument("--chunk-ms", type=float, default=100.0,
+                    help="--stream: audio per streaming step (a multiple of the 10 ms hop)")
+    ap.add_argument("--session-timeout-s", type=float, default=300.0,
+                    help="--stream: reclaim slots abandoned without /stream/end")
     ap.add_argument("--request-timeout-s", type=float, default=60.0)
     ap.add_argument("--no-warmup", action="store_true")
     args = ap.parse_args(argv)
 
-    task, model, units, label_type = load_model(args.config, args.weights,
-                                                torch.device(args.device))
-    num_samples = int(args.seconds * task.frontend.sample_rate)
-    server = make_server(task, model, args.batch, num_samples, args.host, args.port,
-                         args.max_wait_ms, args.request_timeout_s,
-                         warmup=not args.no_warmup, units=units, label_type=label_type,
-                         beam_width=args.beam_width)
+    device = torch.device(args.device)
+    task, model, units, label_type = load_model(args.config, args.weights, device)
+    lm = None
+    if args.lm_dir:
+        from .train_lm import load_lm
+
+        lm = load_lm(args.lm_dir, device)
+    if args.stream:
+        server = make_stream_server(task, model, args.batch, args.chunk_ms, args.beam_width,
+                                    lm, args.lm_weight, args.host, args.port, args.max_wait_ms,
+                                    args.request_timeout_s, args.session_timeout_s,
+                                    warmup=not args.no_warmup, units=units,
+                                    label_type=label_type)
+        what = f"{args.batch} stream slots, chunk {server.meta['chunk_samples']} samples"
+    else:
+        num_samples = int(args.seconds * task.frontend.sample_rate)
+        server = make_server(task, model, args.batch, num_samples, args.host, args.port,
+                             args.max_wait_ms, args.request_timeout_s,
+                             warmup=not args.no_warmup, units=units, label_type=label_type,
+                             beam_width=args.beam_width, lm=lm, lm_weight=args.lm_weight)
+        what = f"batch {args.batch}, {num_samples} samples"
     host, port = server.server_address[:2]
-    print(f"serving {args.config} on http://{host}:{port} (batch {args.batch}, "
-          f"{num_samples} samples, beam {args.beam_width}, {args.device})", flush=True)
+    print(f"serving {args.config} on http://{host}:{port} ({what}, beam {args.beam_width}, "
+          f"{args.device})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -103,8 +103,9 @@ def main(argv=None) -> float:
     return ppl
 
 
-def load_lm(lm_dir, device="cpu") -> RNNLM:
-    """The best-perplexity ``RNNLM`` of a ``train_lm`` dir, on ``device``."""
+def load_lm(lm_dir, device) -> RNNLM:
+    """The best-perplexity ``RNNLM`` of a ``train_lm`` dir, on ``device`` (the
+    callers' ``--device``: the card unless they ask for the CPU)."""
     lm_dir = Path(lm_dir)
     cfg = LMConfig(**json.loads((lm_dir / "lm_config.json").read_text()))
     _, state = CheckpointManager(lm_dir / "checkpoints").restore({"params": None})

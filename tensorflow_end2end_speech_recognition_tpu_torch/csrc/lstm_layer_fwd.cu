@@ -7,7 +7,9 @@
 // direction over xproj [B, T, 4H] = x @ Wx + b; gates i,f,g,o with
 // forget_bias added to f; a masked (pad) step carries h and c through and
 // writes ys[t] = h * m = 0; cs[t] holds the carried c when the caller asks
-// for it (training).
+// for it (training). lstm_layer_fwd_carry resumes from a carried (h, c) and
+// returns the final one: a streaming chunk, where the reference's rnn_scan
+// leaves the Pallas kernel for its scan branch (models/rnn.py:188).
 //
 // The kernel, what bounds it and its design are in lstm_step.cuh
 // (fwd_walk); this is its one-direction launch: one persistent cooperative
@@ -17,7 +19,9 @@
 // plan (ops/lstm.py fwd_plan) halves the tile: u = 4 at H = 512 gives 128
 // blocks on 132 SMs, each with 512 x (16 + 4) floats = 40 KB of Wh
 // resident. Bound at B = 32, T = 400, H = 512: 2 B H 4H T float32
-// operations, 0.40 ms at 67 TFLOP/s.
+// operations, 0.40 ms at 67 TFLOP/s. At a streaming chunk (B = 8, T = 5-10)
+// the work is 1-2 us at either rate; the launch and the T step barriers set
+// the time (PERF.md).
 
 #include "lstm_step.cuh"
 
@@ -38,6 +42,26 @@ int lstm_layer_fwd(const float* x, const float* wh, const float* mask, float* ys
   const FwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
                   B, T, H, units, forget_bias};
   return run_fwd_walk<1>(a, hbuf_floats, resident, rows, smem_bytes, stream);
+}
+
+// lstm_layer_fwd resuming from a carried state, for a streaming chunk
+// (streaming.py runs every causal LSTM layer through it once per chunk):
+// h0, c0 [B, H] the state before step 0; hT, cT [B, H] the carried state
+// after step T-1, which must not alias h0 or c0; any of the four may be
+// null (zeros in, nothing written out). A row whose mask is 0 at every step
+// gets back h0 and c0 bit for bit. The other arguments as lstm_layer_fwd.
+int lstm_layer_fwd_carry(const float* x, const float* wh, const float* mask, const float* h0,
+                         const float* c0, float* ys, float* cs, float* hT, float* cT,
+                         unsigned int* sync, float* hbuf, int hbuf_floats, int B, int T, int H,
+                         int units, int resident, int rows, int smem_bytes, float forget_bias,
+                         void* stream) {
+  FwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
+            B, T, H, units, forget_bias};
+  a.h0[0] = h0;
+  a.c0[0] = c0;
+  a.hT[0] = hT;
+  a.cT[0] = cT;
+  return run_fwd_walk<1, true>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -45,7 +45,12 @@
 // hbuf is written and read inside the launch, so h_{t-1} is read with
 // ld.global.cg (L2), never __ldg. Training also writes the cell-state stream
 // cs[b, t] = c_t (the carried value on a masked step), which the backward
-// reads; serving passes null.
+// reads; serving passes null. A streaming chunk (lstm_layer_fwd_carry)
+// resumes from a carried (h0, c0): c0 goes into the register carries and
+// step 0's gate product reads h0 in place, where it would read h_{-1} = 0;
+// after the last step each thread writes its pairs' carried (h, c) to
+// (hT, cT). Both are loaded and written for every row, so a row that no step
+// unmasks (a paused stream) gets back h0 and c0 bit for bit.
 //
 // What bounds the forward on this card. Each step needs 2 B H 4H float
 // operations per direction: 1.05 MFLOP per block at B = 32, H = 512, u = 8,
@@ -330,6 +335,13 @@ struct FwdArgs {
                        //   the launch
   int B, T, H, units;
   float forget_bias;
+  // the carried state of a streaming chunk (lstm_layer_fwd_carry); the other
+  // entry points leave them null: h and c start at 0 and the final state is
+  // not written
+  const float* h0[2];  // [B, H] h before step 0, or null: zeros
+  const float* c0[2];  // [B, H] c before step 0, or null: zeros
+  float* hT[2];        // [B, H] the carried h after step T-1, or null: not written
+  float* cT[2];        // [B, H] the carried c after step T-1, or null: not written
 };
 
 // Dynamic shared memory of one forward block, offsets and size in floats,
@@ -352,7 +364,9 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, bool res
   return l;
 }
 
-template <bool kResident, int kRows>
+// kCarry: the walk resumes from a.h0 / a.c0 and writes a.hT / a.cT (any of
+// them may be null); the walks that start from zeros are compiled without it.
+template <bool kResident, int kRows, bool kCarry>
 __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
   extern __shared__ float4 fwd_smem4[];
   float* smem = reinterpret_cast<float*>(fwd_smem4);
@@ -378,10 +392,26 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
 
   if (kResident) load_wc(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
 
-  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u
+  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u; their carries
+  // start from h0 / c0 (zeros when null), loaded for every row: a row that no
+  // step unmasks hands them back unchanged, bit for bit
+  const float* __restrict__ h0 = kCarry ? (dir ? a.h0[1] : a.h0[0]) : nullptr;
   float h[kBwdMaxPairs], c[kBwdMaxPairs];
 #pragma unroll
   for (int i = 0; i < kBwdMaxPairs; ++i) h[i] = c[i] = 0.0f;
+  if constexpr (kCarry) {
+    const float* __restrict__ c0 = dir ? a.c0[1] : a.c0[0];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p / u;
+      const int j = j0 + p - b * u;
+      if (b < B && j < H) {
+        if (h0 != nullptr) h[i] = __ldg(h0 + (size_t)b * H + j);
+        if (c0 != nullptr) c[i] = __ldg(c0 + (size_t)b * H + j);
+      }
+    }
+  }
 
   for (int t = 0; t < T; ++t) {
     // xproj[t] and mask[t] of the thread's pairs: no other block writes them
@@ -402,14 +432,17 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
     }
     const float* hprev = hdir + (size_t)(t & 1) * state;  // h_{t-1}, written in step t-1
     float* hnext = hdir + (size_t)((t + 1) & 1) * state;
-    // every block of the direction has written h_{t-1}; h_{-1} = 0
+    // every block of the direction has written h_{t-1}; h_{-1} is h0, an
+    // input that every block reads in place (no exchange, no barrier), or 0
     if (t > 0) step_wait(counter, blocks * (unsigned int)t);
+    const float* hsrc = t > 0 ? hprev : h0;
+    const bool product = kCarry ? hsrc != nullptr : t > 0;
     for (int b0 = 0; b0 < B; b0 += kRows) {
       const int rows = min(kRows, B - b0);
-      if (t > 0) {
-        for (int c0 = 0; c0 < L.nb; c0 += kBwdMaxCols)
-          gate_product<kResident, kRows, true>(hprev, (size_t)H, wsm, wh, c0,
-                                               min(kBwdMaxCols, L.nb - c0), L.ldw, j0, u, b0,
+      if (product) {
+        for (int k0 = 0; k0 < L.nb; k0 += kBwdMaxCols)
+          gate_product<kResident, kRows, true>(hsrc, (size_t)H, wsm, wh, k0,
+                                               min(kBwdMaxCols, L.nb - k0), L.ldw, j0, u, b0,
                                                rows, H, L.hp, stage, red, gpre, L.nb);
       } else {
         for (int i = tid; i < kRows * L.nb; i += kThreads) gpre[i] = 0.0f;
@@ -444,6 +477,21 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
     }
     step_arrive(counter);
   }
+
+  if constexpr (kCarry) {
+    // the carried state after the last step (a masked step carried it through)
+    float* hT = dir ? a.hT[1] : a.hT[0];
+    float* cT = dir ? a.cT[1] : a.cT[0];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p / u;
+      const int j = j0 + p - b * u;
+      if (b >= B || j >= H) continue;
+      if (hT != nullptr) hT[(size_t)b * H + j] = h[i];
+      if (cT != nullptr) cT[(size_t)b * H + j] = c[i];
+    }
+  }
 }
 
 // Launch the forward walk of kDirs directions (1 or 2) as one cooperative
@@ -451,12 +499,14 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
 // `rows` batch rows per chunk (8 or 32) and smem_bytes of dynamic shared
 // memory per block, the Wh slice resident in shared memory when `resident`
 // is set. a.sync holds kDirs zeroed counters, a.hbuf hbuf_floats floats.
+// kCarry: the walk that resumes from a.h0 / a.c0 and writes a.hT / a.cT
+// (lstm_layer_fwd_carry); the others read none of them.
 // ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
 // the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
 // all be resident at once (the kernel then never runs), cudaErrorInvalidValue
 // for a plan this kernel does not take, and for an exchange buffer of
 // another size than the kernel indexes. Does not synchronise.
-template <int kDirs>
+template <int kDirs, bool kCarry = false>
 int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int smem_bytes,
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
@@ -468,13 +518,11 @@ int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int 
   // the exchange fwd_walk indexes: [2, kDirs, B, H]
   if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
     return (int)cudaErrorInvalidValue;
-  const void* kernel;
-  if (rows == 8)
-    kernel = resident ? reinterpret_cast<const void*>(fwd_walk<true, 8>)
-                      : reinterpret_cast<const void*>(fwd_walk<false, 8>);
-  else
-    kernel = resident ? reinterpret_cast<const void*>(fwd_walk<true, 32>)
-                      : reinterpret_cast<const void*>(fwd_walk<false, 32>);
+  const void* kernel =
+      rows == 8 ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry>)
+                            : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry>))
+                : (resident ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry>)
+                            : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry>));
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -67,10 +67,15 @@ class BeamState(NamedTuple):
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the tensors of nested tuples / lists (``None`` stays ``None``)."""
+    """``fn`` over the tensors of nested NamedTuples, tuples, lists and dicts
+    (``None`` stays ``None``): the beams' and the streams' state trees."""
     first = trees[0]
     if first is None:
         return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(tree_map(fn, *xs) for xs in zip(*trees)))
     if isinstance(first, (tuple, list)):
         return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
     return fn(*trees)

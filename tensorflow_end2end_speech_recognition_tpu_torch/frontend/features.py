@@ -136,20 +136,24 @@ def frame_signal(wav: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     return wav.unfold(-1, cfg.frame_length, cfg.frame_step)
 
 
-def preemphasize(wav: torch.Tensor, coeff: float) -> torch.Tensor:
-    """x[t] - coeff*x[t-1]; x[0] uses itself (= (1-c)*x[0])."""
+def preemphasize(wav: torch.Tensor, coeff: float, context=None) -> torch.Tensor:
+    """x[t] - coeff*x[t-1]; x[0] uses itself (= (1-c)*x[0]), or ``context``
+    [..., 1], the sample just before this buffer, when given (a streaming
+    chunk: its first sample then preemphasizes as in the whole signal)."""
     if coeff == 0.0:
         return wav
-    first = wav[..., :1] - coeff * wav[..., :1]
+    prev = wav[..., :1] if context is None else context
+    first = wav[..., :1] - coeff * prev
     rest = wav[..., 1:] - coeff * wav[..., :-1]
     return torch.cat([first, rest], dim=-1)
 
 
-def log_mel_spectrogram(wav: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+def log_mel_spectrogram(wav: torch.Tensor, cfg: FrontendConfig,
+                        preemph_context=None) -> torch.Tensor:
     """[..., N] float32 waveform -> [..., T, base_dim] log-mel (+ log-energy)."""
     if cfg.feature_type != "fbank":
         raise NotImplementedError(f"feature_type {cfg.feature_type!r} is not ported yet")
-    wav = preemphasize(wav.to(torch.float32), cfg.preemphasis)
+    wav = preemphasize(wav.to(torch.float32), cfg.preemphasis, preemph_context)
     frames = frame_signal(wav, cfg)
     cos_m, sin_m, mel_m = _device_mats(cfg, wav.device)
     re = torch.matmul(frames, cos_m)
@@ -203,9 +207,13 @@ def cmvn_utterance(feats: torch.Tensor, feat_len: torch.Tensor,
 
 
 def extract_features(wav: torch.Tensor, wav_len: torch.Tensor,
-                     cfg: FrontendConfig = FrontendConfig()):
-    """[..., N] waveform + valid-sample counts -> (feats [..., T, feature_dim], feat_len [...])."""
-    feats = log_mel_spectrogram(wav, cfg)
+                     cfg: FrontendConfig = FrontendConfig(), preemph_context=None):
+    """[..., N] waveform + valid-sample counts -> (feats [..., T, feature_dim], feat_len [...]).
+
+    ``preemph_context`` [..., 1]: the sample before this buffer (a streaming
+    chunk; see ``preemphasize``).
+    """
+    feats = log_mel_spectrogram(wav, cfg, preemph_context)
     feat_len = num_frames(wav_len, cfg)
     if cfg.add_deltas:
         feats = add_deltas(feats, cfg.delta_window)

@@ -77,8 +77,10 @@ class LSTM(LSTMParams):
 
     Its weights sit on the layer itself (``wx``, ``wh``, ``b``), as the JAX
     pytree of a unidirectional layer is ``{wx, wh, b}``. Steps past a row's
-    length carry the state and emit 0; the final state is not returned (the
-    encoder drops it, as ``apply_encoder`` does).
+    length carry the state and emit 0. Without ``initial_state`` the final
+    state is not returned (the encoder drops it, as ``apply_encoder`` does);
+    with one (a streaming chunk's carried ``(h, c)``) the layer resumes from
+    it and returns ``(ys, (hT, cT))``, as ``rnn_scan(..., initial_state=...)``.
     """
 
     def __init__(self, input_dim: int, num_units: int, param_init: float = 0.1,
@@ -86,9 +88,10 @@ class LSTM(LSTMParams):
         super().__init__(input_dim, num_units, param_init, generator)
         self.forget_bias = forget_bias
 
-    def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor, initial_state=None):
         xproj = torch.matmul(xs, self.wx) + self.b
-        return lstm_layer(xproj, self.wh, length_mask(xs, lengths), self.forget_bias)
+        return lstm_layer(xproj, self.wh, length_mask(xs, lengths), self.forget_bias,
+                          initial_state)
 
 
 def lstm_step(wh: torch.Tensor, carry, xproj_t: torch.Tensor):

@@ -100,6 +100,7 @@ SIGNATURES = {
     "lstm_bidi_fwd": [_P] * 11 + [_I] * 8 + [_F, _P],
     "lstm_bidi_bwd": [_P] * 15 + [_I] * 7 + [_F, _P],
     "lstm_layer_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "lstm_layer_fwd_carry": [_P] * 11 + [_I] * 8 + [_F, _P],
     "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
     "ctc_loss_fwd_bwd": [_P] * 12 + [_I] * 15 + [_P],
     "ctc_loss_fwd_only": [_P] * 8 + [_I] * 12 + [_P],

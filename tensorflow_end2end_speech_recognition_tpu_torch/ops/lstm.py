@@ -6,12 +6,16 @@ lstm_kernel.py``, with the same contracts:
 
     lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias) -> (ys_f, ys_b)
     lstm_layer(xproj, wh, mask, forget_bias) -> ys
+    lstm_layer(xproj, wh, mask, forget_bias, initial_state=(h0, c0)) -> (ys, (hT, cT))
 
 ``xproj*`` [B, T, 4H] = x @ Wx + b per direction, ``xproj_b`` already
 reversed over each row's valid prefix; ``wh*`` [H, 4H]; ``mask`` [B, T]
 float, monotone per row (a length mask). Gates are i, f, g, o with
 ``forget_bias`` added to f. A masked step carries h and c through and emits
-0. Returns ``ys*`` [B, T, H], ``ys_b`` still in reversed order.
+0. Returns ``ys*`` [B, T, H], ``ys_b`` still in reversed order. A
+streaming chunk resumes one direction from a carried ``(h0, c0)`` and gets
+the carried state back, as the scan branch of ``rnn_scan`` with an
+``initial_state`` does (kernel #3's ``lstm_layer_fwd_carry`` entry).
 
 When a gradient may be taken, the call goes through ``LSTMBidi`` or
 ``LSTMLayer``, a ``torch.autograd.Function``: its forward also keeps the
@@ -48,16 +52,21 @@ def _gates(gates, h, forget_bias):
     return torch.sigmoid(i), torch.sigmoid(f + forget_bias), torch.tanh(g), torch.sigmoid(o)
 
 
-def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0):
+def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
     """Plain version of the forward kernels: one ``h @ Wh + xproj[t]`` step per t.
 
     Returns ``(ys, cs)``, each [B, T, H]; ``cs`` holds the carried cell
-    state at every step.
+    state at every step. With ``initial_state`` ``(h0, c0)`` ([B, H] each)
+    the walk starts from it, and the carried ``(hT, cT)`` after the last
+    step comes third: ``(ys, cs, (hT, cT))``, the scan branch of
+    ``rnn_scan(..., initial_state=...)``.
     """
     b, t, g4 = xproj.shape
     h = g4 // 4
-    h_prev = xproj.new_zeros((b, h))
-    c_prev = xproj.new_zeros((b, h))
+    if initial_state is None:
+        h_prev, c_prev = xproj.new_zeros((b, h)), xproj.new_zeros((b, h))
+    else:
+        h_prev, c_prev = initial_state
     ys, cs = [], []
     for s in range(t):
         i, f, g, o = _gates(xproj[:, s] + h_prev @ wh, h, forget_bias)
@@ -69,7 +78,8 @@ def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0):
         c_prev = torch.where(on, c, c_prev)
         ys.append(h_prev * m)
         cs.append(c_prev)
-    return torch.stack(ys, dim=1), torch.stack(cs, dim=1)
+    out = torch.stack(ys, dim=1), torch.stack(cs, dim=1)
+    return out if initial_state is None else (*out, (h_prev, c_prev))
 
 
 def lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
@@ -445,25 +455,58 @@ def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
 lstm_bidi.launches = 0
 
 
-def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = False):
+def _check_state(what, xproj, initial_state) -> None:
+    """``initial_state`` is ``(h0, c0)``, each [B, H] float32, contiguous, on
+    ``xproj``'s device."""
+    b, _, g4 = xproj.shape
+    if not isinstance(initial_state, (tuple, list)) or len(initial_state) != 2:
+        raise ValueError(f"{what}: initial_state must be (h0, c0)")
+    for name, x in zip(("h0", "c0"), initial_state):
+        if x.device != xproj.device:
+            raise ValueError(f"{what}: {name} is on {x.device}, xproj on {xproj.device}")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32")
+        if tuple(x.shape) != (b, g4 // 4):
+            raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, "
+                             f"expected {(b, g4 // 4)}")
+
+
+def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = False,
+                   initial_state=None):
     """Kernel #3: ``ys``, or ``(ys, cs)`` when ``with_cs``.
 
-    Launched as ``lstm_bidi_fwd``. Calls are counted on ``lstm_layer.launches``.
+    With ``initial_state`` ``(h0, c0)`` ([B, H] each; a streaming chunk's
+    carried state) the walk starts from it (the ``lstm_layer_fwd_carry``
+    entry) and the carried ``(hT, cT)`` after the last step comes last:
+    ``(ys, (hT, cT))`` or ``(ys, cs, (hT, cT))``. A row masked at every step
+    gets back ``h0`` and ``c0`` bit for bit. Launched as ``lstm_bidi_fwd``.
+    Calls are counted on ``lstm_layer.launches``.
     """
     _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
+    if initial_state is not None:
+        _check_state("lstm_layer", xproj, initial_state)
     dev = _device_of("lstm_layer", xproj)
     if dev.type == "cpu":
-        ys, cs = lstm_layer_fwd_plain(xproj, wh, mask, forget_bias)
-        return (ys, cs) if with_cs else ys
-    lib = build.load_library()
-    b, t, g4 = xproj.shape
-    h = g4 // 4
-    ys = torch.empty((b, t, h), dtype=torch.float32, device=dev)
-    cs = torch.empty_like(ys) if with_cs else None
-    _walk(lib, "lstm_layer_fwd", fwd_plan_for, dev, 1, b, t, h, forget_bias,
-          lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(), *_rows(b0, b1, mask, ys, cs)))
-    lstm_layer.launches += 1
-    return (ys, cs) if with_cs else ys
+        ys, cs, *final = lstm_layer_fwd_plain(xproj, wh, mask, forget_bias, initial_state)
+    else:
+        lib = build.load_library()
+        b, t, g4 = xproj.shape
+        h = g4 // 4
+        ys = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+        cs = torch.empty_like(ys) if with_cs else None
+        if initial_state is None:
+            final = []
+            _walk(lib, "lstm_layer_fwd", fwd_plan_for, dev, 1, b, t, h, forget_bias,
+                  lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
+                                  *_rows(b0, b1, mask, ys, cs)))
+        else:
+            final = [tuple(torch.empty_like(x) for x in initial_state)]
+            _walk(lib, "lstm_layer_fwd_carry", fwd_plan_for, dev, 1, b, t, h, forget_bias,
+                  lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
+                                  *_rows(b0, b1, mask, *initial_state, ys, cs, *final[0])))
+        lstm_layer.launches += 1
+    out = ((ys, cs) if with_cs else (ys,)) + tuple(final)
+    return out if len(out) > 1 else ys
 
 
 def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
@@ -507,13 +550,22 @@ class LSTMLayer(torch.autograd.Function):
         return dx, _dwh(ys, dx), None, None
 
 
-def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0):
+def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
     """One LSTM direction over hoisted projections; see the module docstring.
 
     Goes through ``LSTMLayer`` when autograd may need a gradient; otherwise
     (serving, eval) runs the forward kernel alone, with no ``cs`` stream.
+    ``initial_state`` ``(h0, c0)`` (streaming) returns ``(ys, (hT, cT))`` and
+    takes no gradient: it raises where one may be taken.
     """
-    if torch.is_grad_enabled() and (xproj.requires_grad or wh.requires_grad):
+    grad = torch.is_grad_enabled() and (xproj.requires_grad or wh.requires_grad)
+    if initial_state is not None:
+        if grad:
+            raise NotImplementedError(
+                "lstm_layer: a carried initial_state takes no gradient (streaming is "
+                "inference only); run it under torch.no_grad()")
+        return lstm_layer_fwd(xproj, wh, mask, forget_bias, initial_state=initial_state)
+    if grad:
         return LSTMLayer.apply(xproj, wh, mask, forget_bias)
     return lstm_layer_fwd(xproj, wh, mask, forget_bias)
 

@@ -8,8 +8,9 @@ clip and update, with the same guard as the CTC step. In training,
 SpecAugment (when set) masks the stacked features and a MoE encoder's
 load-balance loss joins the objective. Parameters travel as a dict of
 tensors (``state_dict`` keys) through one parameter-free copy of the model
-(``torch.func.functional_call``). Gradient accumulation and the transducer
-beam search raise ``NotImplementedError``.
+(``torch.func.functional_call``). The beam eval step decodes with the
+transducer beam search, with an RNN-LM fused when one is given. Gradient
+accumulation raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import torch
 from torch.func import functional_call
 
+from ..decoding.transducer_beam import transducer_beam_search
 from ..frontend.augment import SpecAugmentConfig
 from ..frontend.features import FrontendConfig
 from ..models.transducer import TransducerConfig, TransducerModel, pred_tokens
@@ -108,6 +110,34 @@ def make_eval_step(task: TransducerTaskConfig):
     return eval_step
 
 
+def _bound_model(params: dict, task: TransducerTaskConfig) -> TransducerModel:
+    """A ``TransducerModel`` whose weights are the tensors of ``params`` (no
+    copy), for the decoders that call its methods (the beam search)."""
+    with torch.device("meta"):
+        model = TransducerModel(task.model, task.input_dim)
+    model.load_state_dict(params, assign=True)
+    return model.eval()
+
+
 def make_beam_eval_step(task: TransducerTaskConfig, beam_width: int, lm=None,
                         lm_weight: float = 0.0):
-    raise NotImplementedError("the transducer beam search is not ported yet")
+    """``(params, batch) -> (tokens [B, T' * S], lengths [B], nll [B])``: the
+    best hypothesis of the transducer beam at ``beam_width``, and the
+    teacher-forced nll (not the beam score, so ``bin/eval``'s loss means the
+    same at any beam), from one encoder pass. ``lm`` (an ``RNNLM``) with a
+    non-zero ``lm_weight`` is fused into label emissions."""
+    fusion_lm = None
+    if lm is not None and lm_weight:
+        from ..models.lm import make_fusion_lm
+
+        fusion_lm = make_fusion_lm(lm, task.model.vocab_with_blank)
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            out, nll = _apply(params, task, batch)
+            res = transducer_beam_search(_bound_model(params, task), out.f_proj, out.enc_len,
+                                         beam_width=beam_width, fusion_lm=fusion_lm,
+                                         lm_weight=lm_weight if fusion_lm is not None else 0.0)
+        return res.tokens[:, 0], res.lengths[:, 0], nll
+
+    return eval_step

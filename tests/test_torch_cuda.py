@@ -1098,3 +1098,124 @@ def test_multitask_ctc_model_on_card_matches_cpu(dev):
     for name, a, b in zip(params, g_cpu, g_dev):
         assert bool(a.abs().sum() > 0), name
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4, msg=name)
+
+
+CARRY_SHAPES = [
+    (5, 7, 70, [7, 0, 3, 1, 0]),  # ragged, two rows with no valid step (paused streams)
+    (8, 10, 512, [10, 0, 10, 9, 5, 10, 1, 10]),  # ls_streaming_ctc's chunk at B = 8
+    (600, 3, 512, [3, 0, 2] * 200),  # B x units past 2048: the batch split over launches
+]
+
+
+@pytest.mark.parametrize("b,t,h,lengths", CARRY_SHAPES)
+def test_layer_kernel_with_carried_state_matches_plain(dev, b, t, h, lengths):
+    x, _, wh, _, mask = _inputs(dev, b, t, h, lengths, seed=h + 7)
+    rng = np.random.RandomState(h)
+    h0, c0 = (torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev) for _ in range(2))
+    before = lstm_layer.launches
+    with torch.no_grad():
+        ys, (h_t, c_t) = lstm_layer(x, wh, mask, 0.5, initial_state=(h0, c0))
+        ys_cs = lstm_layer_fwd(x, wh, mask, 0.5, with_cs=True, initial_state=(h0, c0))
+    torch.cuda.synchronize()
+    assert lstm_layer.launches == before + 2
+    want_ys, want_cs, (want_h, want_c) = lstm_layer_fwd_plain(x, wh, mask, 0.5, (h0, c0))
+    for g, w in ((ys, want_ys), (h_t, want_h), (c_t, want_c), (ys_cs[1], want_cs)):
+        torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert torch.equal(ys_cs[0], ys) and torch.equal(ys_cs[2][0], h_t)
+    paused = torch.tensor(lengths, device=dev) == 0
+    assert torch.equal(h_t[paused], h0[paused]) and torch.equal(c_t[paused], c0[paused])
+    assert not ys[paused].any()
+    # zeros in equal the zero-state forward of before
+    zeros = torch.zeros_like(h0)
+    with torch.no_grad():
+        z_ys, _ = lstm_layer(x, wh, mask, 0.5, initial_state=(zeros, zeros))
+    torch.testing.assert_close(z_ys, lstm_layer_fwd(x, wh, mask, 0.5), **LSTM_TOL)
+
+
+def _stream_model(dev, encoder_type):
+    enc = (EncoderConfig(encoder_type="lstm", num_units=64, num_layers=2)
+           if encoder_type == "lstm" else
+           EncoderConfig(encoder_type="conformer", num_units=32, num_layers=2, num_heads=2,
+                         conv_kernel_size=5, pos_encoding="rotary", left_context=8))
+    from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import transducer_task as tt
+
+    task = tt.TransducerTaskConfig(
+        model=TransducerConfig(encoder=enc, num_classes=6, pred_num_units=16, embedding_dim=8,
+                               joint_dim=16, max_symbols_per_frame=3),
+        frontend=FrontendConfig(use_energy=False, add_deltas=False, cmvn="none"),
+        num_stack=3, num_skip=3)
+    cpu = tt.init_model(task, torch.Generator().manual_seed(0)).eval()
+    import copy
+
+    return task, cpu, copy.deepcopy(cpu).to(dev).eval()
+
+
+def _stream_rows(fns, wav, lens, chunk, order=None):
+    """Drive a stream chunk by chunk (``order``: the rows fed at each step,
+    the others paused); returns (state, per-row tokens)."""
+    init_fn, step_fn = fns[:2]
+    b = wav.shape[0]
+    state, rows = init_fn(b), [[] for _ in range(b)]
+    n_chunks = -(-int(max(lens)) // chunk)
+    nxt = [0] * b
+    steps = order or [list(range(b))] * (n_chunks + 1)
+    for fed in steps:
+        piece, cl = np.zeros((b, chunk), np.float32), np.zeros((b,), np.int32)
+        for r in fed:
+            k = nxt[r]
+            if k < n_chunks:
+                piece[r] = wav[r, k * chunk: (k + 1) * chunk]
+                cl[r] = np.clip(lens[r] - k * chunk, 0, chunk)
+            elif k == n_chunks and lens[r] % chunk == 0:
+                cl[r] = -1  # a stacked stream ending on a chunk boundary flushes
+            nxt[r] += 1
+        state, tok, n = step_fn(state, piece, cl)
+        tok, n = tok.cpu().numpy(), n.cpu().numpy()
+        for r in range(b):
+            rows[r].extend(tok[r, : n[r]].tolist())
+    return state, rows
+
+
+@pytest.mark.parametrize("encoder_type", ["lstm", "conformer"])
+def test_streamed_session_on_card_matches_offline_and_cpu(dev, encoder_type):
+    from tensorflow_end2end_speech_recognition_tpu_torch import streaming
+    from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_beam import (
+        transducer_beam_search,
+    )
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import (
+        device_pipeline,
+    )
+
+    task, cpu, model = _stream_model(dev, encoder_type)
+    chunk = 1600
+    rng = np.random.RandomState(3)
+    wav = (rng.randn(3, 4 * chunk) * 0.3).astype(np.float32)
+    lens = [4 * chunk, 3 * chunk, 2 * chunk - 700]
+    fns = streaming.build_streaming_fn(task, model, chunk, beam_width=3, max_prefix_len=60)
+    before = lstm_layer.launches
+    state, rows = _stream_rows(fns, wav, lens, chunk)
+    torch.cuda.synchronize()
+    steps = -(-max(lens) // chunk) + 1
+    assert lstm_layer.launches - before == (2 * steps if encoder_type == "lstm" else 0)
+    final = fns[2](state)
+    with torch.no_grad():
+        feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(dev),
+                                           "input_len": torch.tensor(lens, device=dev)})
+        f_proj, enc_len = model.encode(feats, fl)
+        ids, n = transducer_greedy_decode(model, f_proj, enc_len)
+        want = transducer_beam_search(model, f_proj, enc_len, beam_width=3, max_len=60)
+    assert rows == [ids[i, : n[i]].tolist() for i in range(3)]
+    torch.testing.assert_close(final[1], want.lengths, rtol=0, atol=0)
+    torch.testing.assert_close(final[0], want.tokens, rtol=0, atol=0)
+    torch.testing.assert_close(final[2], want.scores, rtol=1e-5, atol=1e-3)
+    # the same stream on the CPU gives the same tokens
+    cpu_fns = streaming.build_streaming_fn(task, cpu, chunk, beam_width=3, max_prefix_len=60)
+    assert _stream_rows(cpu_fns, wav, lens, chunk)[1] == rows
+    # a row paused mid-stream keeps its state bit for bit and then resumes to
+    # the same tokens
+    order = [[0, 1, 2], [0, 2], [1], [0, 1, 2], [1, 2], [0], [0, 1, 2], [0, 1, 2]]
+    paused_state, paused_rows = _stream_rows(fns, wav, lens, chunk, order)
+    assert paused_rows == rows
+    for x, y in zip(final, fns[2](paused_state)):
+        assert torch.equal(x, y)

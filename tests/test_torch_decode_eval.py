@@ -344,7 +344,8 @@ def test_clis_default_to_the_card(tmp_path):
 
 
 def test_transducer_eval_decode_cli(tmp_path, capsys):
-    """The transducer decodes greedily in both CLIs; its beam is not ported."""
+    """The transducer decodes greedily in both CLIs, and with its beam at a
+    beam width above 1."""
     model_dir = _trained(tmp_path, "rnnt", "model_type: transducer\nlabel_type: character\n"
                          "input_size: 40\nuse_energy: false\nuse_delta: false\ncmvn: none\n"
                          "num_stack: 3\nnum_skip: 3\nencoder_type: lstm\nnum_units: 8\n"
@@ -363,6 +364,11 @@ def test_transducer_eval_decode_cli(tmp_path, capsys):
     assert got["dev"]["error_rate"] == want["error_rate"]
     _check_decode_lines(decode_cli.main([str(model_dir), "--device", "cpu", "--num-utts", "2"]),
                         1, 1, "", 2)
-    for cli in (eval_cli, decode_cli):
-        with pytest.raises(NotImplementedError, match="transducer beam"):
-            cli.main([str(model_dir), "--device", "cpu", "--beam-width", "2"])
+    capsys.readouterr()
+    got = eval_cli.main([str(model_dir), "--device", "cpu", "--beam-width", "2"])
+    assert capsys.readouterr().out.splitlines()[0] == "decoding with beam width 2"
+    want = evaluate_ctc(mod.make_beam_eval_step(task, 2), dict(model.state_dict()),
+                        Dataset(dev, exp.batch_size), tok, exp.label_type, device="cpu")
+    assert got["dev"]["error_rate"] == want["error_rate"]
+    _check_decode_lines(decode_cli.main([str(model_dir), "--device", "cpu", "--num-utts", "2",
+                                         "--beam-width", "2", "--nbest", "2"]), 2, 2, "", 2)

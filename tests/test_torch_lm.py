@@ -342,7 +342,7 @@ def test_train_lm_then_eval_with_lm_dir(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert [s.split(":")[0] for s in out[-3:-1]] == ["epoch 0", "epoch 1"]
     assert out[-1].startswith("FINAL dev_ppl") and np.isfinite(ppl)
-    loaded = train_lm.load_lm(tmp_path / "lm")
+    loaded = train_lm.load_lm(tmp_path / "lm", "cpu")
     assert loaded.cfg == lm.LMConfig(vocab=30, num_units=8, embedding_dim=4, num_layers=1)
     res = eval_cli.main([str(tmp_path / "m"), "--device", "cpu", "--lm-dir",
                          str(tmp_path / "lm"), "--lm-weight", "0.5"])

@@ -263,7 +263,9 @@ def test_eval_step_matches_jax():
 
 def test_unported_transducer_options_raise():
     _, task, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="beam"):
-        tt.make_beam_eval_step(task, 4)
+    with pytest.raises(NotImplementedError, match="grad_accum"):
+        tt.make_train_step(task, build_optimizer("sgd"), grad_accum=2)
+    # the beam eval step is ported (tests/test_torch_transducer_beam.py)
+    assert callable(tt.make_beam_eval_step(task, 4))
     # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
     tt.make_train_step(task._replace(spec_augment=SpecAugmentConfig()), build_optimizer("sgd"))

@@ -88,8 +88,12 @@ def test_inference_ids_match_jax_serving():
     np.testing.assert_array_equal(got_len.numpy(), want_len)
     np.testing.assert_array_equal(got_ids.numpy(), want_ids)
     assert int(got_len.sum()) > 0 and int(got_len[3]) == 0
-    with pytest.raises(NotImplementedError, match="beam"):
-        build_inference_fn(task, model, beam_width=4)
+    # the beam branch: the JAX inference function's transducer beam
+    want_ids, want_len = (np.asarray(x) for x in jserving.build_inference_fn(
+        jtask, jtt, params, beam_width=4)(jnp.asarray(waves), jnp.asarray(lens)))
+    got_ids, got_len = build_inference_fn(task, model, beam_width=4)(waves, lens)
+    np.testing.assert_array_equal(got_len.numpy(), want_len)
+    np.testing.assert_array_equal(got_ids.numpy(), want_ids)
 
 
 def test_http_server_transducer_end_to_end():
