@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's CTC serving, CTC training, attention
 serving, attention training, transducer serving and training, beam
 decoding, eval / decode and RNN-LM paths, of the conformer / transformer
-configs, of the VGG, multitask, BPE and word configs, and of streaming
-recognition and the transducer beam, on one NVIDIA GPU.
+configs, of the VGG, multitask, BPE and word configs, of streaming
+recognition and the transducer beam, and of the bf16 mode (``compute_dtype:
+bfloat16``) with ``bench.py``'s headline step, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -238,7 +239,34 @@ Phases; any failure exits non-zero and prints no result line:
     stacked windows), random (h0, c0), lengths 0..T, against its plain
     version (rows at 0 give back h0 and c0 bit for bit); its device
     launches per call, timed with CUDA events and from graph replays,
-    beside cuDNN's unidirectional ``nn.LSTM`` with (h0, c0) and the bound.
+    beside cuDNN's unidirectional ``nn.LSTM`` with (h0, c0) and the bound;
+44. ``compute_dtype: bfloat16``: kernels #1-#4 with bf16 streams (their
+    ``*_bf16`` entries) against their plain versions at B=128, T=400,
+    H=512, every row full (the headline's shape; with ``cs``) and at B=32
+    with ragged lengths, within two bf16 ulps (rtol 8e-3, atol 1e-5) on
+    ys, cs and dxproj and 1e-3 of the largest entry on the autograd
+    Function's dWh; CUDA-event times beside the float32 kernels at the
+    same shape and cuDNN ``nn.LSTM`` in bf16 (where torch takes it),
+    device launches per call, the bound of the bf16 streams' bytes;
+45. the headline step: ``bench.py``'s task (5 x BLSTM-512, 120 dims, 3/3
+    stacking, 28 classes, U=40, Adam with clip 5.0) at B=128 x 12 s in
+    float32 and in bf16, 10 timed steps each after warm-up: ms per step,
+    utterances/s, peak memory, busy share from a profiled step, and
+    exactly 5 #1, 5 #2 and 1 #5 per step (the bf16 entries in the bf16
+    run); the bf16 step card against CPU on 2 x 1 s (the loss within 1e-3
+    relative, each gradient within 2e-2 of its largest entry);
+46. ``configs/ls100_ctc.yml`` at bf16: ``build_inference_fn`` on the card
+    against the CPU on the 8 request lengths (logits within 5e-2, frame
+    argmax equal except where the CPU's top two logits lie within 5e-2),
+    and 8 requests through ``bin/serve.make_server`` (5 bf16 #1 per batch);
+47. ``configs/ls_transducer.yml`` at bf16: ``f_proj`` and one train step
+    card against CPU, timed train steps at B=32 x 12 s (4 bf16 #3 and 4
+    bf16 #4 per step), the encoder and greedy decode of 8 x 12 s (4 bf16
+    #3);
+48. the conformer CTC model at d=512 x 8 in bf16 (the scale and dtype
+    ``configs/ls960_conformer_ctc.yml`` recommends for LibriSpeech-960):
+    logits and one train step card against CPU, timed train steps beside
+    phase 31's float32 ones.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -295,11 +323,15 @@ from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_beam im
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy import (
     transducer_greedy_decode,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models import rnn, seq2seq
+from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig
+from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.lm import make_fusion_lm
 from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import pred_tokens
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.transducer import rnnt_loss
+from tensorflow_end2end_speech_recognition_tpu_torch.serving import build_inference_fn
 from tensorflow_end2end_speech_recognition_tpu_torch.train import (
     att_task,
     ctc_task,
@@ -360,10 +392,36 @@ KERNELS = {
                        "replaces": "tensorflow_end2end_speech_recognition_tpu/ops/pallas/"
                                    "lstm_kernel.py:85"},
 }
+# the bf16-stream instantiations of #1-#4 (compute_dtype: bfloat16): their own C
+# entries in the same sources, each counted apart from its float32 one
+KERNELS.update({f"{name}_bf16": KERNELS[name] for name in (
+    "lstm_bidi_fwd", "lstm_bidi_bwd", "lstm_layer_fwd", "lstm_layer_bwd")})
+
+
+class Bf16Count:
+    """A wrapper's bf16 launch count (``launches_bf16``) under the ``launches``
+    name that ``reset_counts`` and ``read_counts`` use."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches_bf16 = value
+
+
 COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd,
             "ctc_loss": ctc.ctc_loss_fwd_bwd, "ctc_loss_fwd_only": ctc.ctc_loss_fwd_only,
             "location_attend": attention.location_attend,
-            "lstm_layer_fwd": lstm.lstm_layer, "lstm_layer_bwd": lstm.lstm_layer_bwd}
+            "lstm_layer_fwd": lstm.lstm_layer, "lstm_layer_bwd": lstm.lstm_layer_bwd,
+            "lstm_bidi_fwd_bf16": Bf16Count(lstm.lstm_bidi),
+            "lstm_bidi_bwd_bf16": Bf16Count(lstm.lstm_bidi_bwd),
+            "lstm_layer_fwd_bf16": Bf16Count(lstm.lstm_layer),
+            "lstm_layer_bwd_bf16": Bf16Count(lstm.lstm_layer_bwd)}
 NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
 # attention serving: configs/ls960_joint.yml at full width
 B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
@@ -574,10 +632,12 @@ def layer_inputs(dev, b: int, lengths, seed: int, t: int = T_ENC, d: int = D_TR)
     return (xproj, layer.wh.detach(), rnn.length_mask(xs, lengths), layer.forget_bias), xs, lengths
 
 
-def cudnn_lstm(dev, xs, lengths, seed: int, bidirectional: bool = True, h: int = H):
+def cudnn_lstm(dev, xs, lengths, seed: int, bidirectional: bool = True, h: int = H,
+               dtype: torch.dtype = torch.float32):
     """cuDNN ``nn.LSTM`` on a packed sequence: forward, backward calls."""
     torch.manual_seed(seed)
-    net = torch.nn.LSTM(xs.shape[-1], h, batch_first=True, bidirectional=bidirectional).to(dev)
+    net = torch.nn.LSTM(xs.shape[-1], h, batch_first=True,
+                        bidirectional=bidirectional).to(dev, dtype)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         xs.requires_grad_(True), lengths.cpu(), batch_first=True, enforce_sorted=False)
     out = net(packed)[0]
@@ -595,12 +655,13 @@ def cudnn_lstm(dev, xs, lengths, seed: int, bidirectional: bool = True, h: int =
 
 
 def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
-              dirs: int = 2) -> dict:
+              dirs: int = 2, elem: int = F32) -> dict:
     """Bytes each input read once / output written once, and float32 operations
     of the valid steps (a masked step needs no work), for one layer's call of
-    ``dirs`` directions."""
+    ``dirs`` directions; ``elem`` bytes per element of xproj, ys, cs, gys and
+    dxproj (2 under bf16 streams)."""
     b, valid = len(lengths), float(sum(lengths))
-    stream = b * t * h * F32  # one [B, T, H] tensor
+    stream = b * t * h * elem  # one [B, T, H] tensor
     weights = h * 4 * h * F32
     mask = b * t * F32
     if backward:  # per direction: xproj, wh, ys, cs, gys in; dxproj out
@@ -1162,14 +1223,18 @@ def serve_requests(task, model, gpu: str, name: str = "ls100_ctc",
 def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
                      profile_out: str | None, want: dict, walks: int,
                      steps: int = TIMED_STEPS, shape: str = f"T'={T_ENC}",
-                     global_step: int | None = None, seconds: float = 12.0) -> dict:
-    """Adam steps with the config's dropout at B=32 x 12 s: time, rate, memory,
-    launches (exactly ``want``), and a profile of one step by kernel, in which
-    each LSTM walk (forward and backward) ran exactly ``walks`` device
-    launches and no per-step forward kernel ran. An attention step takes
-    ``global_step`` for its schedules. Returns the numbers."""
-    batch = train_batch(B_TRAIN, seconds, seed=7, max_labels=U)
-    batch["input_len"][:] = int(seconds * SR)  # one bucket: every row the same T
+                     global_step: int | None = None, seconds: float = 12.0,
+                     batch: dict | None = None) -> dict:
+    """Adam steps with the config's dropout at B=32 x 12 s (or on ``batch``):
+    time, rate, memory, launches (exactly ``want``), and a profile of one
+    step by kernel, in which each LSTM walk (forward and backward) ran
+    exactly ``walks`` device launches and no per-step forward kernel ran. An
+    attention step takes ``global_step`` for its schedules. Returns the
+    numbers."""
+    if batch is None:
+        batch = train_batch(B_TRAIN, seconds, seed=7, max_labels=U)
+        batch["input_len"][:] = int(seconds * SR)  # one bucket: every row the same T
+    rows = len(batch["input_len"])
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     params = {k: v.to(dev) for k, v in params_cpu.items()}
     opt = build_optimizer("adam", 5.0)
@@ -1198,10 +1263,10 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)) or bool(aux["nonfinite"]):
         raise RuntimeError(f"timed {name} train steps gave losses {losses}")
-    print(f"phase {name} train step B={B_TRAIN} x {seconds:g} s ({shape}, U={U}), Adam, "
+    print(f"phase {name} train step B={rows} x {seconds:g} s ({shape}, U={U}), Adam, "
           f"dropout keep "
           f"{task.model.encoder.dropout_keep_prob}: {ms:.3f} ms per step ({steps} steps), "
-          f"{B_TRAIN / ms * 1e3:.1f} utterances/s, peak memory {peak / 2**30:.3f} GiB, launches "
+          f"{rows / ms * 1e3:.1f} utterances/s, peak memory {peak / 2**30:.3f} GiB, launches "
           f"per step {counts}, losses {[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
     table = None if profile_out is None else Path(profile_out) / f"{name}_train_step_profile.txt"
 
@@ -1230,7 +1295,7 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     if device != {"fwd_walk": walks, "bwd_walk": walks} or per_step:
         raise RuntimeError(f"one {name} train step ran {device} and {per_step} per-step forward "
                            f"launches; expected {walks} of each walk and none")
-    return {"ms": ms, "utts_per_sec": B_TRAIN / ms * 1e3, "peak_gib": peak / 2**30,
+    return {"ms": ms, "utts_per_sec": rows / ms * 1e3, "peak_gib": peak / 2**30,
             "launches": counts, "busy_share": busy / wall, "device_launches": device,
             "profile_wall_ms": wall, "device_ms": busy, "by_kind": kernel_kinds(kernels)}
 
@@ -3186,6 +3251,387 @@ def run_streaming(dev, gpu: str, work: Path, t0: float) -> tuple:
     return counts, carry, numbers
 
 
+# ---- phases 44-48: compute_dtype bfloat16 ------------------------------------------
+
+# bench.py's headline task (the JAX package's LS-960-shape BLSTM-CTC step): 5 x
+# BLSTM-512, 40 mel + deltas without energy, 3/3 stacking, 28 classes, U = 40, Adam
+# with clip 5.0, B = 128 x 12 s
+B_HEAD, HEAD_SECONDS, HEAD_STEPS, HEAD_CLASSES = 128, 12.0, 10, 28
+BF16 = "bfloat16"
+BF16_STREAM = 2  # bytes of a bf16 stream element
+# the bf16 kernels against their plain versions: both round the same float32
+# walk's values, summed in other orders, so a value near a rounding boundary may
+# land one way on each: two bf16 ulps; dWh sums T * B bf16 products in float32
+BF16_ULPS = dict(atol=1e-5, rtol=8e-3)
+BF16_DWH_RTOL = 1e-3  # of the largest entry
+# card vs CPU at bf16 on 2 x 1 s: every layer's outputs are rounded to bf16, and
+# a value whose float32 sum lands near a rounding boundary rounds one way on
+# each device (a changed summation order on the CPU alone moves ls100_ctc's
+# logits of about 1.6 by 7.7e-3, its loss by 2.2e-5 relative and its gradients
+# by 1.1 % of their largest entry)
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_RTOL = 2e-2  # of each gradient tensor's largest entry
+BF16_LOGIT_ATOL = 5e-2  # logits, transducer f_proj; and the top-2 gap of a tie
+
+
+def check_bf16(name: str, got, want) -> float:
+    """``check`` of bf16 outputs against bf16 plain outputs, in float32, within
+    two bf16 ulps; every output must be bf16."""
+    if not all(g.dtype == torch.bfloat16 for g in got):
+        raise RuntimeError(f"{name}: outputs {[g.dtype for g in got]} are not bf16")
+    return check(name, [g.float() for g in got], [w.float() for w in want],
+                 BF16_ULPS["atol"], BF16_ULPS["rtol"])
+
+
+def events_once(fn) -> tuple:
+    """(``fn()``, its device ms from CUDA events): one run, for a plain version
+    too slow to repeat at the headline's batch."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def cudnn_bf16_ms(dev, xs, lengths, seed: int, bidirectional: bool) -> tuple:
+    """cuDNN ``nn.LSTM`` forward and backward ms with bf16 weights and inputs,
+    or (None, None) and the reason where torch does not take it."""
+    try:
+        fwd, bwd = cudnn_lstm(dev, xs.detach().bfloat16(), lengths, seed, bidirectional, H,
+                              dtype=torch.bfloat16)
+        return cuda_ms(fwd, 5), cuda_ms(bwd, 5), None
+    except RuntimeError as e:
+        return None, None, str(e).splitlines()[0][:200]
+
+
+def check_bf16_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> dict:
+    """Phase 44 at one shape: the bf16 forward (with ``cs``) and backward walks
+    of ``dirs`` directions against their plain versions, ``dWh`` of the
+    autograd Function against the plain chain, times beside the float32
+    kernels at the same shape and cuDNN in bf16, device launches per call."""
+    if dirs == 2:
+        args32, xs, lens = lstm_inputs(dev, b, lengths, seed=seed, t=T_ENC, h=H)
+        streams = 2
+    else:
+        args32, xs, lens = layer_inputs(dev, b, lengths, seed=seed, t=T_ENC)
+        streams = 1
+    xp32, whs, mask, fb = args32[:streams], args32[streams:2 * streams], args32[-2], args32[-1]
+    xp = [x.bfloat16() for x in xp32]
+    rng = np.random.RandomState(seed)
+    gys = [torch.from_numpy(rng.randn(b, T_ENC, H).astype(np.float32)).to(dev).bfloat16()
+           for _ in range(streams)]
+    fname, bname = ("lstm_bidi_fwd", "lstm_bidi_bwd") if dirs == 2 else ("lstm_layer_fwd",
+                                                                           "lstm_layer_bwd")
+    fwd_k = getattr(lstm, fname)
+    bwd_k = getattr(lstm, bname)
+    fwd_p = getattr(lstm, f"{fname}_plain")
+    bwd_p = getattr(lstm, f"{bname}_plain")
+    shape = f"B={b} T={T_ENC} H={H}"
+    out = {}
+    with torch.no_grad():
+        got = fwd_k(*xp, *whs, mask, fb, with_cs=True)
+        want, plain_f = events_once(lambda: fwd_p(*xp, *whs, mask, fb))
+        want = want[:2 * streams]
+        fwd_err = check_bf16(f"{fname}_bf16 with cs {shape}", got, want)
+        bwd_args = (*xp, *whs, mask, *want, *gys, fb)
+        got_dx = bwd_k(*bwd_args)
+        got_dx = got_dx if isinstance(got_dx, tuple) else (got_dx,)
+        want_dx, plain_b = events_once(lambda: bwd_p(*bwd_args))
+        want_dx = want_dx if isinstance(want_dx, tuple) else (want_dx,)
+        bwd_err = check_bf16(f"{bname}_bf16 {shape}", got_dx, want_dx)
+        # dWh: the Function's backward (kernel + the bf16 contraction) against the
+        # plain reverse walk's dxproj through the same contraction
+        fn = lstm.LSTMBidi if dirs == 2 else lstm.LSTMLayer
+        ctx = types.SimpleNamespace(saved_tensors=(*xp, *whs, mask, *want), forget_bias=fb)
+        grads = fn.backward(ctx, *gys)
+        ys = want[:streams]
+        for i in range(streams):
+            w = lstm._dwh(ys[i], want_dx[i])
+            scale = float(w.abs().max())
+            check(f"{fn.__name__}.backward dWh[{i}] {shape} (max |dWh| {scale:.3e})",
+                  [grads[streams + i] if dirs == 2 else grads[1]], [w], BF16_DWH_RTOL * scale)
+        fwd_call = lambda: fwd_k(*xp, *whs, mask, fb, with_cs=True)  # noqa: E731
+        bwd_call = lambda: bwd_k(*bwd_args)  # noqa: E731
+        tf = [cuda_ms(fwd_call, 10) for _ in range(2)]
+        tb = [cuda_ms(bwd_call, 10) for _ in range(2)]
+        # the float32 kernels at the same shape, in turns with the bf16 ones
+        want32 = fwd_k(*xp32, *whs, mask, fb, with_cs=True)
+        bwd32 = (*xp32, *whs, mask, *want32, *(g.float() for g in gys), fb)
+        f32 = cuda_ms(lambda: fwd_k(*xp32, *whs, mask, fb, with_cs=True), 10)
+        b32 = cuda_ms(lambda: bwd_k(*bwd32), 10)
+        launches_f = device_launches(fwd_call, reps=3)
+        launches_b = device_launches(bwd_call, reps=3)
+    lib_f, lib_b, lib_err = cudnn_bf16_ms(dev, xs, lens, seed, dirs == 2)
+    if lib_err:
+        print(f"cuDNN nn.LSTM does not take bf16 here: {lib_err}", flush=True)
+    for name, err, runs, plain, f32_ms, lib, launches, bwd in (
+            (f"{fname}_bf16", fwd_err, tf, plain_f, f32, lib_f, launches_f, False),
+            (f"{bname}_bf16", bwd_err, tb, plain_b, b32, lib_b, launches_b, True)):
+        r = dict(ms=sum(runs) / 2, ms_runs=runs, plain_ms=plain, max_abs_err=err,
+                 float32_ms=f32_ms, library_ms=lib, library_note=lib_err,
+                 us_per_step=sum(runs) / 2 * 1e3 / T_ENC,
+                 device_launches={k: v["per_call"] for k, v in launches.items()},
+                 **lstm_work(lengths, H, with_cs=True, backward=bwd, t=T_ENC, dirs=dirs,
+                             elem=BF16_STREAM))
+        out[name] = r
+        print(f"phase {name} {shape}{' with cs' if not bwd else ''}: kernel {r['ms']:.3f} ms "
+              f"(runs {runs[0]:.3f}, {runs[1]:.3f}; {r['us_per_step']:.2f} us per step), "
+              f"float32 kernel {f32_ms:.3f} ms, plain {plain:.3f} ms (one run), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM bf16 "
+              f"{'backward' if bwd else 'forward'} "
+              + (f"{lib:.3f} ms" if lib is not None else "not taken")
+              + f", device launches per call {r['device_launches']}  [{gpu}]", flush=True)
+    return out
+
+
+def check_bf16_kernels(dev, gpu: str) -> dict:
+    """Phase 44: #1-#4 in bf16 at the headline's shape (B=128, every row 12 s)
+    and at B=32 with ragged lengths (1 and T among them)."""
+    rng = np.random.RandomState(44)
+    ragged = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
+    out = {}
+    for dirs, seed in ((2, 44), (1, 45)):
+        for b, lengths in ((B_HEAD, [T_ENC] * B_HEAD), (B_TRAIN, ragged)):
+            for name, r in check_bf16_walks(dev, gpu, b, lengths, dirs, seed).items():
+                out.setdefault(name, {})[f"b{b}"] = r
+    return out
+
+
+def headline_task(compute_dtype: str):
+    """bench.py's task in the port: 5 x BLSTM-512, 120 dims, 3/3 stacking, 28
+    classes, ``compute_dtype`` float32 or bfloat16."""
+    return ctc_task.CTCTaskConfig(
+        model=CTCConfig(encoder=EncoderConfig(encoder_type="blstm", num_units=H,
+                                              num_layers=LAYERS,
+                                              compute_dtype=compute_dtype),
+                        num_classes=HEAD_CLASSES),
+        frontend=FrontendConfig(use_energy=False), num_stack=3, num_skip=3)
+
+
+def headline_batch(seed: int = 0) -> dict:
+    """bench.py's batch: B=128 x 12 s of 0.1 x normal noise, 40 labels each."""
+    rng = np.random.RandomState(seed)
+    n = int(HEAD_SECONDS * SR)
+    return {"inputs": (rng.randn(B_HEAD, n) * 0.1).astype(np.float32),
+            "input_len": np.full((B_HEAD,), n, np.int32),
+            "labels": rng.randint(0, HEAD_CLASSES, (B_HEAD, U)).astype(np.int32),
+            "label_len": np.full((B_HEAD,), U, np.int32),
+            "weight": np.ones((B_HEAD,), np.float32)}
+
+
+def check_bf16_step(task, task_mod, params_cpu, dev, name: str, seed: int = 46) -> dict:
+    """One bf16 train step's loss terms and gradients, card against CPU on 2 x 1
+    s (dropout off): each term within BF16_LOSS_RTOL, each gradient within
+    BF16_GRAD_RTOL of its largest entry."""
+    batch = train_batch(2, 1.0, seed=seed, max_labels=12)
+    res = []
+    for device in (dev, torch.device("cpu")):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        leaves = {k: v.to(device).clone().requires_grad_(True) for k, v in params_cpu.items()}
+        loss, terms = task_mod.forward_loss(leaves, task, tb, True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        res.append(({k: float(v.detach()) for k, v in terms.items()}, [g.cpu() for g in grads]))
+    (tg, gg), (tc, gc) = res
+    loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
+    errs = {n: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
+            for n, a, b in zip(params_cpu, gc, gg) if not zero_gradient(task, n)}
+    worst = max(errs, key=errs.get)
+    print(f"{name} bf16 train step on the card vs the CPU, 2 x 1 s: "
+          + ", ".join(f"{k} {tg[k]:.4f} vs {tc[k]:.4f}" for k in tc)
+          + f" (max rel err {loss_err:.2e}, tolerance {BF16_LOSS_RTOL:g}); grads max err / "
+          f"max |g| {errs[worst]:.2e} ({worst}; tolerance {BF16_GRAD_RTOL:g}) over "
+          f"{len(errs)} tensors", flush=True)
+    if not (loss_err <= BF16_LOSS_RTOL and errs[worst] <= BF16_GRAD_RTOL):
+        raise RuntimeError(f"the {name} bf16 train step on the card disagrees with the CPU")
+    if not all(g.dtype == torch.float32 for g in gg):
+        raise RuntimeError(f"{name}: bf16 gradients of the float32 master weights")
+    return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst]}
+
+
+def ids_with_ties(what: str, logits_card, logits_cpu, lengths) -> dict:
+    """Card logits within BF16_LOGIT_ATOL of the CPU's on the valid frames, and
+    the frames' argmax equal except where the CPU's top two logits lie within
+    that tolerance (a near-tie that bf16 rounding may flip)."""
+    valid = (torch.arange(logits_cpu.shape[1])[None] < lengths.cpu()[:, None])
+    a, b = logits_card.float().cpu()[valid], logits_cpu.float()[valid]
+    err = float((a - b).abs().max())
+    top2 = b.topk(2, dim=-1).values
+    flipped = a.argmax(-1) != b.argmax(-1)
+    ties = (top2[:, 0] - top2[:, 1]) <= BF16_LOGIT_ATOL
+    print(f"{what} card vs CPU at bf16: max abs err {err:.3e} (tolerance "
+          f"{BF16_LOGIT_ATOL:g}) over {int(valid.sum())} frames; argmax differs on "
+          f"{int(flipped.sum())} frames, {int((flipped & ~ties).sum())} of them not near-ties",
+          flush=True)
+    if not err <= BF16_LOGIT_ATOL or bool((flipped & ~ties).any()):
+        raise RuntimeError(f"{what} at bf16 on the card disagrees with the CPU")
+    return {"max_abs_err": err, "flipped_frames": int(flipped.sum())}
+
+
+def run_headline(args, dev, gpu: str, t0: float) -> dict:
+    """Phase 45: bench.py's step in the port, float32 and bf16, on one card."""
+    out = {}
+    batch = headline_batch()
+    want = {"float32": dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS,
+                            ctc_loss=1),
+            BF16: dict(NONE_LAUNCHED, lstm_bidi_fwd_bf16=LAYERS, lstm_bidi_bwd_bf16=LAYERS,
+                       ctc_loss=1)}
+    for dtype in ("float32", BF16):
+        task = headline_task(dtype)
+        params = ctc_task.init_params(task, torch.Generator().manual_seed(0))
+        if dtype == BF16:
+            out["card_vs_cpu"] = check_bf16_step(task, ctc_task, params, dev, "headline")
+        r = time_train_steps(f"headline {dtype}", task, ctc_task, params, dev, gpu,
+                             args.profile_out, want[dtype], LAYERS, steps=HEAD_STEPS,
+                             batch={k: v.copy() for k, v in batch.items()})
+        print_kinds(f"headline {dtype}", r, gpu)
+        out[dtype] = r
+        clock(f"headline step ({dtype}) timed", t0)
+    print(f"phase headline (bench.py's task, B={B_HEAD} x 12 s, U={U}, Adam, clip 5.0): "
+          f"float32 {out['float32']['ms']:.3f} ms per step "
+          f"({out['float32']['utts_per_sec']:.1f} utt/s, {out['float32']['peak_gib']:.3f} GiB, "
+          f"{100 * out['float32']['busy_share']:.1f} % busy); bf16 {out[BF16]['ms']:.3f} ms "
+          f"({out[BF16]['utts_per_sec']:.1f} utt/s, {out[BF16]['peak_gib']:.3f} GiB, "
+          f"{100 * out[BF16]['busy_share']:.1f} % busy)  [{gpu}]", flush=True)
+    return out
+
+
+def serve_bf16(dev, gpu: str, params_cpu: dict) -> tuple:
+    """Phase 46: ls100_ctc at bf16, ``build_inference_fn`` on the card against
+    the CPU on the 8 request lengths (one batch padded to 12 s), then 8
+    requests through ``bin/serve.make_server``."""
+    task = experiment_from_dict(LS100_CTC | {"compute_dtype": BF16}).ctc_task(len(CHAR_UNITS))
+    cpu = ctc_task.init_model(task)
+    cpu.load_state_dict(params_cpu)
+    model = copy.deepcopy(cpu).to(dev).eval()
+    cpu.eval()
+    rng = np.random.RandomState(3)
+    n = int(max(REQUEST_SECONDS) * SR)
+    wav = np.zeros((len(REQUEST_SECONDS), n), np.float32)
+    lens = np.asarray([int(s * SR) for s in REQUEST_SECONDS], np.int32)
+    for i, m in enumerate(lens):
+        wav[i, :m] = rng.randn(m) * 0.1
+    outs = []
+    for m, device in ((model, dev), (cpu, torch.device("cpu"))):
+        with torch.inference_mode():
+            feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(device),
+                                               "input_len": torch.from_numpy(lens).to(device)})
+            logits = m(feats, fl)
+            ids, n_ids = build_inference_fn(task, m)(wav, lens)
+        outs.append((logits.logits.cpu(), logits.logit_len.cpu(), ids.cpu(), n_ids.cpu()))
+    (lg, ng, ig, cg), (lc, nc, ic, cc) = outs
+    if not torch.equal(ng, nc):
+        raise RuntimeError("ls100_ctc bf16: logit lengths differ between the card and the CPU")
+    r = ids_with_ties("ls100_ctc logits (8 requests' lengths)", lg, lc, nc)
+    same = torch.equal(ig, ic) and torch.equal(cg, cc)
+    print(f"ls100_ctc bf16 greedy ids card == CPU: {same}", flush=True)
+    if not same and r["flipped_frames"] == 0:
+        raise RuntimeError("ls100_ctc bf16: ids differ with no flipped frame")
+    counts = serve_requests(task, model, gpu, "ls100_ctc bf16",
+                            per_batch={"lstm_bidi_fwd_bf16": LAYERS})
+    return counts, dict(r, ids_equal=same)
+
+
+def run_transducer_bf16(args, dev, gpu: str, t0: float) -> tuple:
+    """Phase 47: ls_transducer at bf16: f_proj card vs CPU, one train step card
+    vs CPU, timed train steps at B=32 x 12 s (4 #3 and 4 #4, bf16), and the
+    greedy decode of 8 x 12 s (4 #3 bf16)."""
+    raw = LS_TRANSDUCER | {"compute_dtype": BF16}
+    task, params, cpu, model = conformer_models(raw, transducer_task, dev)
+    batch = train_batch(2, 1.0, seed=47, max_labels=12)
+    fps = []
+    for m, device in ((model, dev), (cpu, torch.device("cpu"))):
+        tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with torch.inference_mode():
+            fps.append(m.encode(*device_pipeline(task, tb)))
+    (fg, eg), (fc, ec) = fps
+    err = float((fg.cpu() - fc).abs().max())
+    print(f"ls_transducer bf16 f_proj card vs CPU, 2 x 1 s: max abs err {err:.3e} (tolerance "
+          f"{BF16_LOGIT_ATOL:g}), dtype {fg.dtype}", flush=True)
+    if not err <= BF16_LOGIT_ATOL or fg.dtype != torch.float32 or not torch.equal(eg.cpu(), ec):
+        raise RuntimeError("ls_transducer bf16 f_proj on the card disagrees with the CPU")
+    step_check = check_bf16_step(task, transducer_task, params, dev, "ls_transducer", seed=48)
+    r = time_train_steps("ls_transducer bf16", task, transducer_task, params, dev, gpu,
+                         args.profile_out, dict(NONE_LAUNCHED, lstm_layer_fwd_bf16=TR_LAYERS,
+                                                lstm_layer_bwd_bf16=TR_LAYERS), TR_LAYERS,
+                         steps=TR_TIMED_STEPS)
+    clock("ls_transducer bf16 train steps timed", t0)
+    rng = np.random.RandomState(23)
+    wav = torch.from_numpy((rng.randn(B, 12 * SR) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.full((B,), 12 * SR, dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, {"inputs": wav, "input_len": lens})
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f_proj, enc_len = model.encode(feats, fl)
+        ids, n = transducer_greedy_decode(model, f_proj, enc_len)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        counts = read_counts()
+    print(f"phase ls_transducer bf16 encoder + greedy decode, 8 x 12 s: {ms:.3f} ms, "
+          f"{int(n.sum())} symbols, launches {counts}  [{gpu}]", flush=True)
+    if counts != dict(NONE_LAUNCHED, lstm_layer_fwd_bf16=TR_LAYERS):
+        raise RuntimeError(f"the ls_transducer bf16 decode launched {counts}")
+    return r, {"card_vs_cpu": dict(step_check, f_proj_max_abs_err=err), "decode_ms": ms,
+               "train_step": {k: r[k] for k in ("ms", "utts_per_sec", "peak_gib",
+                                                 "busy_share", "launches")}}
+
+
+def run_conformer_bf16(args, dev, gpu: str, float32: dict) -> dict:
+    """Phase 48: the conformer CTC model at d=512 x 8 (``ls960_conformer_ctc.yml``'s
+    scale for LibriSpeech-960, with its recommended ``compute_dtype: bfloat16``)
+    card vs CPU in bf16, and its step timed in bf16 beside phase 31's float32
+    step (``float32``)."""
+    task, params, cpu, model = conformer_models(CONFORMER_WIDE | {"compute_dtype": BF16},
+                                                ctc_task, dev)
+    rng = np.random.RandomState(1)
+    wav = (rng.randn(2, SR) * 0.1).astype(np.float32)
+    lens = np.asarray([SR, 9600], np.int32)
+    logits = []
+    for m, device in ((model, dev), (cpu, torch.device("cpu"))):
+        with torch.inference_mode():
+            o = m(*device_pipeline(task, {"inputs": torch.from_numpy(wav).to(device),
+                                          "input_len": torch.from_numpy(lens).to(device)}))
+        logits.append((o.logits.cpu(), o.logit_len.cpu()))
+    out = {"logits": ids_with_ties("conformer 512 x 8 logits, 2 x 1 s", logits[0][0],
+                                   logits[1][0], logits[1][1]),
+           "card_vs_cpu": check_bf16_step(task, ctc_task, params, dev, "conformer 512 x 8",
+                                          seed=49)}
+    del model
+    r = time_train_steps("conformer_ctc_512x8 bf16", task, ctc_task, params, dev, gpu,
+                         args.profile_out, dict(NONE_LAUNCHED, ctc_loss=1), 0, steps=3)
+    print_kinds("conformer_ctc_512x8 bf16", r, gpu)
+    keys = ("ms", "utts_per_sec", "peak_gib", "busy_share", "device_ms", "by_kind")
+    out[BF16] = {k: r[k] for k in keys}
+    out["float32"] = {k: float32[k] for k in keys}
+    print(f"phase conformer_ctc_512x8 train step B={B_TRAIN} x 12 s: float32 (phase 31) "
+          f"{float32['ms']:.3f} ms, bf16 {r['ms']:.3f} ms  [{gpu}]", flush=True)
+    return out
+
+
+def run_bf16(args, dev, gpu: str, t0: float, params_ls100: dict, conformer32: dict) -> tuple:
+    """Phases 44-48. Returns (launch counts by path, the bf16 kernels' numbers,
+    the other numbers)."""
+    kernels = check_bf16_kernels(dev, gpu)
+    clock("kernels #1-#4 in bf16 checked", t0)
+    headline = run_headline(args, dev, gpu, t0)
+    counts = {"bf16_headline": headline[BF16]["launches"],
+              "float32_headline": headline["float32"]["launches"]}
+    counts["bf16_serving"], serving = serve_bf16(dev, gpu, params_ls100)
+    clock("ls100_ctc served at bf16", t0)
+    tr_step, transducer = run_transducer_bf16(args, dev, gpu, t0)
+    counts["bf16_transducer_training"] = tr_step["launches"]
+    conformer = run_conformer_bf16(args, dev, gpu, conformer32)
+    clock("the conformer at 512 x 8 in bf16 checked and timed", t0)
+    numbers = {"headline": {k: {x: v[x] for x in ("ms", "utts_per_sec", "peak_gib",
+                                                   "busy_share", "device_ms", "launches")}
+                            if k in ("float32", BF16) else v for k, v in headline.items()},
+               "ls100_ctc_serving": serving, "ls_transducer": transducer,
+               "conformer_512x8": conformer}
+    return counts, kernels, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3309,6 +3755,9 @@ def run(args, dev, gpu: str, work: Path) -> int:
     counts.update(family_counts)
     stream_counts, carry, stream_numbers = run_streaming(dev, gpu, work, t0)
     counts.update(stream_counts)
+    bf16_counts, bf16_kernels, bf16_numbers = run_bf16(
+        args, dev, gpu, t0, params_cpu, conformer["conformer_ctc_512x8_train_step"])
+    counts.update(bf16_counts)
 
     # "launches": the count on the path that ported the kernel (CTC training
     # for #1, #2, #5, #6; attention serving for #7; transducer training for
@@ -3318,6 +3767,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
                  "lstm_layer_bwd": "transducer_training"}
     entries = []
     for name, meta in KERNELS.items():
+        if name.endswith("_bf16"):
+            continue  # below
         r = results[name]
         entries.append({
             "name": name, "route": "cuda", **meta,
@@ -3389,8 +3840,28 @@ def run(args, dev, gpu: str, work: Path) -> int:
         "ls_transducer": {k: v for k, v in carry["ls_transducer"].items()
                           if k not in ("ms_runs", "plain_ms_runs", "device_launches")},
     })
+    # the bf16-stream instantiations (phases 44-47): launches on the bf16 headline
+    # step (#1, #2) and the ls_transducer bf16 train step (#3, #4); numbers at the
+    # headline's B=128 (#1, #2) or the transducer step's B=32 (#3, #4), the other
+    # shape beside them
+    for name, shapes in bf16_kernels.items():
+        bidi = name.startswith("lstm_bidi")
+        main, path = ("b128", "bf16_headline") if bidi else ("b32", "bf16_transducer_training")
+        r = shapes[main]
+        entries.append({
+            "name": name, "route": "cuda", **KERNELS[name], "launches": counts[path][name],
+            **{f"launches_{p}": c[name] for p, c in counts.items()},
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            "shape": f"B={B_HEAD if bidi else B_TRAIN} T={T_ENC} H={H}",
+            **{k: r[k] for k in ("float32_ms", "us_per_step", "device_launches",
+                                 "library_note")},
+            **{shape: {k: v for k, v in x.items() if k != "ms_runs"}
+               for shape, x in shapes.items() if shape != main},
+        })
     print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer,
-                      "families": families, "streaming": stream_numbers}), flush=True)
+                      "families": families, "streaming": stream_numbers,
+                      "bf16": bf16_numbers}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Bidirectional LSTM layer backward over hoisted input projections, for
-// Hopper (sm_90a), float32.
+// Hopper (sm_90a), with float32 or bf16 streams (lstm_bidi_bwd_bf16).
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/lstm_kernel.py
@@ -43,8 +43,27 @@ int lstm_bidi_bwd(const float* xf, const float* xb, const float* whf, const floa
                   const float* csb, const float* gysf, const float* gysb, float* dxf, float* dxb,
                   unsigned int* sync, float* part, int part_floats, int B, int T, int H,
                   int units, int resident, int smem_bytes, float forget_bias, void* stream) {
-  const BwdArgs a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb}, {dxf, dxb},
-                  mask, sync, part, B, T, H, units, forget_bias};
+  const BwdArgs<float> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb},
+                         {dxf, dxb}, mask, sync, part, B, T, H, units, forget_bias};
+  return run_bwd_walk<2>(a, part_floats, resident, smem_bytes, stream);
+}
+
+// lstm_bidi_bwd with bf16 streams (compute_dtype: bfloat16): xf, xb, ysf,
+// ysb, csf, csb, gysf, gysb and dxf, dxb are contiguous bf16; whf, whb,
+// mask and part float32. The gates are recomputed from the bf16 ys[t-1]
+// and cs upcast, dh and dc carried and dh = dgates @ Wh^T formed in
+// float32, and dxproj rounded as it is written. The other arguments as
+// lstm_bidi_bwd.
+int lstm_bidi_bwd_bf16(const __nv_bfloat16* xf, const __nv_bfloat16* xb, const float* whf,
+                       const float* whb, const float* mask, const __nv_bfloat16* ysf,
+                       const __nv_bfloat16* ysb, const __nv_bfloat16* csf,
+                       const __nv_bfloat16* csb, const __nv_bfloat16* gysf,
+                       const __nv_bfloat16* gysb, __nv_bfloat16* dxf, __nv_bfloat16* dxb,
+                       unsigned int* sync, float* part, int part_floats, int B, int T, int H,
+                       int units, int resident, int smem_bytes, float forget_bias,
+                       void* stream) {
+  const BwdArgs<__nv_bfloat16> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb},
+                                 {dxf, dxb}, mask, sync, part, B, T, H, units, forget_bias};
   return run_bwd_walk<2>(a, part_floats, resident, smem_bytes, stream);
 }
 

@@ -1,5 +1,5 @@
 // Bidirectional LSTM layer forward over hoisted input projections, for
-// Hopper (sm_90a), float32.
+// Hopper (sm_90a), with float32 or bf16 streams (lstm_bidi_fwd_bf16).
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/lstm_kernel.py
@@ -37,8 +37,25 @@ int lstm_bidi_fwd(const float* xf, const float* xb, const float* whf, const floa
                   int units, int resident, int rows, int smem_bytes, float forget_bias,
                   void* stream) {
   if ((csf == nullptr) != (csb == nullptr)) return (int)cudaErrorInvalidValue;
-  const FwdArgs a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, mask, sync, hbuf,
-                  B, T, H, units, forget_bias};
+  const FwdArgs<float> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, mask, sync, hbuf,
+                         B, T, H, units, forget_bias};
+  return run_fwd_walk<2>(a, hbuf_floats, resident, rows, smem_bytes, stream);
+}
+
+// lstm_bidi_fwd with bf16 streams (compute_dtype: bfloat16; the Pallas
+// kernel's stream dtype): xf, xb, ysf, ysb, csf, csb are contiguous bf16;
+// whf, whb, mask and hbuf float32, and the walk itself float32 (the bf16
+// xproj upcast as it is read, ys = h * m and cs rounded as they are
+// written). The other arguments as lstm_bidi_fwd.
+int lstm_bidi_fwd_bf16(const __nv_bfloat16* xf, const __nv_bfloat16* xb, const float* whf,
+                       const float* whb, const float* mask, __nv_bfloat16* ysf,
+                       __nv_bfloat16* ysb, __nv_bfloat16* csf, __nv_bfloat16* csb,
+                       unsigned int* sync, float* hbuf, int hbuf_floats, int B, int T, int H,
+                       int units, int resident, int rows, int smem_bytes, float forget_bias,
+                       void* stream) {
+  if ((csf == nullptr) != (csb == nullptr)) return (int)cudaErrorInvalidValue;
+  const FwdArgs<__nv_bfloat16> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, mask, sync,
+                                 hbuf, B, T, H, units, forget_bias};
   return run_fwd_walk<2>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
 

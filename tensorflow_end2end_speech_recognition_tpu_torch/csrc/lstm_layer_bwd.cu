@@ -1,5 +1,5 @@
 // Unidirectional LSTM layer backward over hoisted input projections, for
-// Hopper (sm_90a), float32.
+// Hopper (sm_90a), with float32 or bf16 streams (lstm_layer_bwd_bf16).
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/lstm_kernel.py
@@ -38,8 +38,24 @@ int lstm_layer_bwd(const float* x, const float* wh, const float* mask, const flo
                    const float* cs, const float* gys, float* dx, unsigned int* sync,
                    float* part, int part_floats, int B, int T, int H, int units, int resident,
                    int smem_bytes, float forget_bias, void* stream) {
-  const BwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, {gys, nullptr},
-                  {dx, nullptr}, mask, sync, part, B, T, H, units, forget_bias};
+  const BwdArgs<float> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr},
+                         {gys, nullptr}, {dx, nullptr}, mask, sync, part, B, T, H, units,
+                         forget_bias};
+  return run_bwd_walk<1>(a, part_floats, resident, smem_bytes, stream);
+}
+
+// lstm_layer_bwd with bf16 streams (compute_dtype: bfloat16): x, ys, cs,
+// gys and dx are contiguous bf16; wh, mask and part float32, the walk
+// float32 (dxproj rounded as it is written). The other arguments as
+// lstm_layer_bwd.
+int lstm_layer_bwd_bf16(const __nv_bfloat16* x, const float* wh, const float* mask,
+                        const __nv_bfloat16* ys, const __nv_bfloat16* cs,
+                        const __nv_bfloat16* gys, __nv_bfloat16* dx, unsigned int* sync,
+                        float* part, int part_floats, int B, int T, int H, int units,
+                        int resident, int smem_bytes, float forget_bias, void* stream) {
+  const BwdArgs<__nv_bfloat16> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr},
+                                 {gys, nullptr}, {dx, nullptr}, mask, sync, part, B, T, H,
+                                 units, forget_bias};
   return run_bwd_walk<1>(a, part_floats, resident, smem_bytes, stream);
 }
 

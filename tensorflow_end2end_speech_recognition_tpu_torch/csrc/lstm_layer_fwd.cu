@@ -1,5 +1,5 @@
 // Unidirectional LSTM layer forward over hoisted input projections, for
-// Hopper (sm_90a), float32.
+// Hopper (sm_90a), with float32 or bf16 streams (lstm_layer_fwd_bf16).
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/lstm_kernel.py
@@ -39,8 +39,20 @@ int lstm_layer_fwd(const float* x, const float* wh, const float* mask, float* ys
                    unsigned int* sync, float* hbuf, int hbuf_floats, int B, int T, int H,
                    int units, int resident, int rows, int smem_bytes, float forget_bias,
                    void* stream) {
-  const FwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
-                  B, T, H, units, forget_bias};
+  const FwdArgs<float> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync,
+                         hbuf, B, T, H, units, forget_bias};
+  return run_fwd_walk<1>(a, hbuf_floats, resident, rows, smem_bytes, stream);
+}
+
+// lstm_layer_fwd with bf16 streams (compute_dtype: bfloat16): x, ys and cs
+// are contiguous bf16; wh, mask and hbuf float32, the walk float32. The
+// other arguments as lstm_layer_fwd.
+int lstm_layer_fwd_bf16(const __nv_bfloat16* x, const float* wh, const float* mask,
+                        __nv_bfloat16* ys, __nv_bfloat16* cs, unsigned int* sync, float* hbuf,
+                        int hbuf_floats, int B, int T, int H, int units, int resident, int rows,
+                        int smem_bytes, float forget_bias, void* stream) {
+  const FwdArgs<__nv_bfloat16> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr},
+                                 mask, sync, hbuf, B, T, H, units, forget_bias};
   return run_fwd_walk<1>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
 
@@ -55,8 +67,8 @@ int lstm_layer_fwd_carry(const float* x, const float* wh, const float* mask, con
                          unsigned int* sync, float* hbuf, int hbuf_floats, int B, int T, int H,
                          int units, int resident, int rows, int smem_bytes, float forget_bias,
                          void* stream) {
-  FwdArgs a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
-            B, T, H, units, forget_bias};
+  FwdArgs<float> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
+                   B, T, H, units, forget_bias};
   a.h0[0] = h0;
   a.c0[0] = c0;
   a.hT[0] = hT;

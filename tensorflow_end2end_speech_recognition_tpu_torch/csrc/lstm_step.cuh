@@ -1,10 +1,25 @@
 // The LSTM kernels shared by the bidirectional layer (lstm_bidi_fwd.cu,
 // lstm_bidi_bwd.cu: two directions, blockIdx.y picks one) and the
 // unidirectional layer (lstm_layer_fwd.cu, lstm_layer_bwd.cu: one direction,
-// a grid of depth 1 and null second pointers), for Hopper (sm_90a), float32,
-// over hoisted input projections: the forward and the backward each one
+// a grid of depth 1 and null second pointers), for Hopper (sm_90a), over
+// hoisted input projections: the forward and the backward each one
 // persistent cooperative launch per call.
 // ops/build.py hashes this header with the sources that include it.
+//
+// Stream types. Every walk is a template on S, the type of its streams:
+// float, or __nv_bfloat16 under compute_dtype: bfloat16 (the Pallas
+// kernels' bf16 streams, ops/pallas/lstm_kernel.py _fwd_call / _bwd_call,
+// where the stream dtype is xproj's). S types xproj, ys, cs, the cotangent
+// gys and dxproj; Wh, the mask, the carried h and c, the h exchange, the dh
+// partials and all gate math stay float32. A bf16 value is upcast exactly
+// where it is loaded (the staged ys[t-1] rows of the backward's gate
+// product too, so the shared-memory layout and the plans are those of the
+// float walks), and a result is rounded to nearest even only where it is
+// stored: ys = h * m and cs in the forward, dxproj in the backward. The
+// forward's h_{t-1} comes from the float32 exchange, never from the bf16
+// ys, and the backward's dh = dgates @ Wh^T from the float32 dgates, as
+// the reference carries both in float32. The recurrent products stay
+// float32 FFMA: Wh and h are float32 in the reference.
 //
 // Gates i, f, g, o of xproj[t] + h_{t-1} @ Wh, with forget_bias added to f.
 // A masked (pad) step carries h and c through and emits 0. The forward is
@@ -92,6 +107,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // Internal linkage: each source that includes this header gets its own copy
@@ -103,6 +119,18 @@ constexpr int kThreads = 32 * kWarps;  // 256 threads a block
 constexpr int kMaxSmem = 232448;       // bytes of shared memory a block may use
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Stream loads (read-only within the launch: the non-coherent path) and
+// stores, float or bf16; a bf16 value widens exactly (its bits are the top
+// half of the float's) and a store rounds to nearest even.
+__device__ __forceinline__ float ld_stream(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned int)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 constexpr int kBwdRows = 32;            // batch rows per chunk of the backward
 constexpr int kRowTiles = kBwdRows / 4;  // 4-row tiles and float4 row groups of a chunk
@@ -161,6 +189,8 @@ __device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned 
 // blocks inside this launch (the forward's h exchange), read through L2
 // (ld.global.cg); otherwise rows written by an earlier launch (the
 // backward's ys), read through the non-coherent path.
+// bf16 source rows (the backward's ys under bf16 streams) are never written
+// in the launch: 4 values as one 8-byte load, widened to float4.
 template <bool kCoherent>
 __device__ __forceinline__ float4 src_load4(const float* p) {
   return kCoherent ? __ldcg(reinterpret_cast<const float4*>(p))
@@ -168,8 +198,22 @@ __device__ __forceinline__ float4 src_load4(const float* p) {
 }
 
 template <bool kCoherent>
+__device__ __forceinline__ float4 src_load4(const __nv_bfloat16* p) {
+  static_assert(!kCoherent, "bf16 rows come from an earlier launch");
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+template <bool kCoherent>
 __device__ __forceinline__ float src_load(const float* p) {
   return kCoherent ? __ldcg(p) : __ldg(p);
+}
+
+template <bool kCoherent>
+__device__ __forceinline__ float src_load(const __nv_bfloat16* p) {
+  static_assert(!kCoherent, "bf16 rows come from an earlier launch");
+  return ld_stream(p);
 }
 
 // The gate product for a chunk's rows:
@@ -180,9 +224,11 @@ __device__ __forceinline__ float src_load(const float* p) {
 // out, rows rt + i kRows / 4 for i < 4 (at kRows = 32 the 8 lanes of a
 // quarter warp read 8 rows on distinct banks) and 4 adjacent columns, in
 // one of kThreads / tiles slices of every chunk: fewer rows, more slices.
-// The slices' sums are added in slice order.
-template <bool kResident, int kRows = kBwdRows, bool kCoherent = false>
-__device__ void gate_product(const float* src, size_t src_row, const float* wsm,
+// The slices' sums are added in slice order. Src is float (the h exchange,
+// the float backward's ys) or __nv_bfloat16 (the bf16 backward's ys, upcast
+// as it is staged).
+template <bool kResident, int kRows = kBwdRows, bool kCoherent = false, typename Src = float>
+__device__ void gate_product(const Src* src, size_t src_row, const float* wsm,
                              const float* __restrict__ wh, int c0, int n, int ldw, int j0, int u,
                              int b0, int rows, int H, int hp, float* stage, float* red,
                              float* out, int ldo) {
@@ -243,8 +289,8 @@ __device__ void gate_product(const float* src, size_t src_row, const float* wsm,
       float* dst = buf + r * kBwdStride + (k - k0);
       if (vec || r >= rows) {
         *reinterpret_cast<float4*>(dst) = v[l];
-      } else {  // H % 4 != 0: rows are not 16-byte aligned
-        const float* p = src + (size_t)(b0 + r) * src_row + k;
+      } else {  // H % 4 != 0: rows are not 16-byte (bf16: 8-byte) aligned
+        const Src* p = src + (size_t)(b0 + r) * src_row + k;
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? src_load<kCoherent>(p + e) : 0.0f;
       }
@@ -324,11 +370,12 @@ __device__ void gate_product(const float* src, size_t src_row, const float* wsm,
 // ---------------------------------------------------------------------------
 // Forward: one persistent cooperative launch per call (design at the top).
 
+template <typename S>
 struct FwdArgs {
-  const float* x[2];   // [B, T, 4H] per direction
+  const S* x[2];       // [B, T, 4H] per direction
   const float* wh[2];  // [H, 4H]
-  float* ys[2];        // [B, T, H]
-  float* cs[2];        // [B, T, H], or null: no cell-state stream
+  S* ys[2];            // [B, T, H]
+  S* cs[2];            // [B, T, H], or null: no cell-state stream
   const float* mask;   // [B, T]
   unsigned int* sync;  // [dirs] arrival counters, zeroed by the caller
   float* hbuf;         // h exchange [2 (step parity), dirs, B, H]: written and read inside
@@ -366,8 +413,8 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, bool res
 
 // kCarry: the walk resumes from a.h0 / a.c0 and writes a.hT / a.cT (any of
 // them may be null); the walks that start from zeros are compiled without it.
-template <bool kResident, int kRows, bool kCarry>
-__global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
+template <bool kResident, int kRows, bool kCarry, typename S>
+__global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
   extern __shared__ float4 fwd_smem4[];
   float* smem = reinterpret_cast<float*>(fwd_smem4);
   const int dir = blockIdx.y;
@@ -380,11 +427,11 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
   float* red = smem + L.red;
   float* gpre = smem + L.gpre;
 
-  const float* __restrict__ x = dir ? a.x[1] : a.x[0];
+  const S* __restrict__ x = dir ? a.x[1] : a.x[0];
   const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
   const float* __restrict__ mask = a.mask;
-  float* ys = dir ? a.ys[1] : a.ys[0];
-  float* cs = dir ? a.cs[1] : a.cs[0];
+  S* ys = dir ? a.ys[1] : a.ys[0];
+  S* cs = dir ? a.cs[1] : a.cs[0];
   unsigned int* counter = a.sync + dir;
   const int blocks = gridDim.x;
   const size_t state = (size_t)gridDim.y * B * H;  // one step parity of hbuf
@@ -424,9 +471,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
       xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = mv[i] = 0.0f;
       if (b < B && j < H) {
         const size_t bt = (size_t)b * T + t;
-        const float* xt = x + bt * G + j;
-        xv[i][0] = __ldg(xt), xv[i][1] = __ldg(xt + H);
-        xv[i][2] = __ldg(xt + 2 * H), xv[i][3] = __ldg(xt + 3 * H);
+        const S* xt = x + bt * G + j;
+        xv[i][0] = ld_stream(xt), xv[i][1] = ld_stream(xt + H);
+        xv[i][2] = ld_stream(xt + 2 * H), xv[i][3] = ld_stream(xt + 3 * H);
         mv[i] = __ldg(mask + bt);
       }
     }
@@ -469,8 +516,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
           c[i] = c_new;
         }
         const size_t bt = (size_t)b * T + t;
-        ys[bt * H + j] = h[i] * m;
-        if (cs != nullptr) cs[bt * H + j] = c[i];
+        st_stream(ys + bt * H + j, h[i] * m);
+        if (cs != nullptr) st_stream(cs + bt * H + j, c[i]);
         hnext[(size_t)b * H + j] = h[i];
       }
       __syncthreads();  // gpre is consumed
@@ -500,14 +547,14 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs a) {
 // memory per block, the Wh slice resident in shared memory when `resident`
 // is set. a.sync holds kDirs zeroed counters, a.hbuf hbuf_floats floats.
 // kCarry: the walk that resumes from a.h0 / a.c0 and writes a.hT / a.cT
-// (lstm_layer_fwd_carry); the others read none of them.
+// (lstm_layer_fwd_carry); the others read none of them. S: the stream type.
 // ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
 // the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
 // all be resident at once (the kernel then never runs), cudaErrorInvalidValue
 // for a plan this kernel does not take, and for an exchange buffer of
 // another size than the kernel indexes. Does not synchronise.
-template <int kDirs, bool kCarry = false>
-int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int smem_bytes,
+template <int kDirs, bool kCarry = false, typename S = float>
+int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, int smem_bytes,
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
   if (!walk_takes(a.B, a.T, a.H, a.units)) return (int)cudaErrorInvalidValue;
@@ -519,17 +566,17 @@ int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int 
   if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
     return (int)cudaErrorInvalidValue;
   const void* kernel =
-      rows == 8 ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry>)
-                            : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry>))
-                : (resident ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry>)
-                            : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry>));
+      rows == 8 ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry, S>)
+                            : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry, S>))
+                : (resident ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry, S>)
+                            : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry, S>));
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned int)((a.H + a.units - 1) / a.units), kDirs);
-  void* params[] = {const_cast<FwdArgs*>(&a)};
+  void* params[] = {const_cast<FwdArgs<S>*>(&a)};
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
                                                     (size_t)smem_bytes,
                                                     static_cast<cudaStream_t>(stream));
@@ -543,13 +590,14 @@ int run_fwd_walk(const FwdArgs& a, int hbuf_floats, int resident, int rows, int 
 // ---------------------------------------------------------------------------
 // Backward: one persistent cooperative launch per call (design at the top).
 
+template <typename S>
 struct BwdArgs {
-  const float* x[2];    // [B, T, 4H] per direction
+  const S* x[2];        // [B, T, 4H] per direction
   const float* wh[2];   // [H, 4H]
-  const float* ys[2];   // [B, T, H]
-  const float* cs[2];   // [B, T, H]
-  const float* gys[2];  // [B, T, H]
-  float* dx[2];         // [B, T, 4H]
+  const S* ys[2];       // [B, T, H]
+  const S* cs[2];       // [B, T, H]
+  const S* gys[2];      // [B, T, H]
+  S* dx[2];             // [B, T, 4H]
   const float* mask;    // [B, T]
   unsigned int* sync;   // [dirs] arrival counters, zeroed by the caller
   float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks (writer),
@@ -700,8 +748,8 @@ __device__ void dh_sum(const float* part, int blocks, int u, int bc, int b0, flo
   }
 }
 
-template <bool kResident>
-__global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
+template <bool kResident, typename S>
+__global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
   extern __shared__ float4 bwd_smem4[];
   float* smem = reinterpret_cast<float*>(bwd_smem4);
   const int dir = blockIdx.y;
@@ -715,13 +763,13 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
   float* gpre = smem + L.gpre;
   float* dhn = smem + L.dhn;
 
-  const float* __restrict__ x = dir ? a.x[1] : a.x[0];
+  const S* __restrict__ x = dir ? a.x[1] : a.x[0];
   const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
-  const float* __restrict__ ys = dir ? a.ys[1] : a.ys[0];
-  const float* __restrict__ cs = dir ? a.cs[1] : a.cs[0];
-  const float* __restrict__ gys = dir ? a.gys[1] : a.gys[0];
+  const S* __restrict__ ys = dir ? a.ys[1] : a.ys[0];
+  const S* __restrict__ cs = dir ? a.cs[1] : a.cs[0];
+  const S* __restrict__ gys = dir ? a.gys[1] : a.gys[0];
   const float* __restrict__ mask = a.mask;
-  float* dx = dir ? a.dx[1] : a.dx[0];
+  S* dx = dir ? a.dx[1] : a.dx[0];
   unsigned int* counter = a.sync + dir;
   const int blocks = gridDim.x;
   const int bc = (B + kBwdRows - 1) / kBwdRows * kBwdRows;
@@ -743,7 +791,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
       // (b) gate pre-activations at t; h_{-1} = 0
       if (t > 0) {
         for (int c0 = 0; c0 < L.nb; c0 += kBwdMaxCols)
-          gate_product<kResident>(ys + (size_t)(t - 1) * H, (size_t)T * H, wsm, wh, c0,
+          gate_product<kResident, kBwdRows, false, S>(ys + (size_t)(t - 1) * H, (size_t)T * H,
+                                                      wsm, wh, c0,
                                   min(kBwdMaxCols, L.nb - c0), L.ldw, j0, u, b0, rows, H, L.hp,
                                   stage, red, gpre, L.nb);
       } else {
@@ -767,15 +816,15 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
         if (b < b0 || b >= b0 + rows || j >= H) continue;
         const int r = b - b0;
         const size_t bt = (size_t)b * T + t;
-        const float* xt = x + bt * G;
+        const S* xt = x + bt * G;
         // every load first, none depending on another: one round trip
-        const float xi = __ldg(xt + j), xf = __ldg(xt + H + j);
-        const float xg = __ldg(xt + 2 * H + j), xo = __ldg(xt + 3 * H + j);
+        const float xi = ld_stream(xt + j), xf = ld_stream(xt + H + j);
+        const float xg = ld_stream(xt + 2 * H + j), xo = ld_stream(xt + 3 * H + j);
         const float m = __ldg(mask + bt);
         const float m_next = t + 1 < T ? __ldg(mask + bt + 1) : 0.0f;
-        const float gy = __ldg(gys + bt * H + j);
-        const float c_t = __ldg(cs + bt * H + j);
-        const float c_prev = t > 0 ? __ldg(cs + (bt - 1) * H + j) : 0.0f;
+        const float gy = ld_stream(gys + bt * H + j);
+        const float c_t = ld_stream(cs + bt * H + j);
+        const float c_prev = t > 0 ? ld_stream(cs + (bt - 1) * H + j) : 0.0f;
         float* gp = gpre + r * L.nb + uu;
         const float ig = sigmoid(xi + gp[0]);
         const float fg = sigmoid(xf + gp[u] + a.forget_bias);
@@ -797,11 +846,11 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
           d[3] = d_o * og * (1.0f - og);
           dc[i] = dc_tot * fg;
         }
-        float* dxt = dx + bt * G;
+        S* dxt = dx + bt * G;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          dxt[g * H + j] = d[g];
-          gp[g * u] = d[g];
+          st_stream(dxt + g * H + j, d[g]);  // rounded (bf16) only as it is emitted
+          gp[g * u] = d[g];                  // the float32 dgates for the dh partials
         }
         dh[i] = dh_tot;
       }
@@ -826,9 +875,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs a) {
 // at once (the kernel then never runs), cudaErrorInvalidValue for a plan
 // this kernel does not take, and for a.part of another size than the
 // kernel indexes. Does not synchronise. A template, so that only the
-// sources that launch the backward compile its kernels.
-template <int kDirs>
-int run_bwd_walk(const BwdArgs& a, int part_floats, int resident, int smem_bytes,
+// sources that launch the backward compile its kernels. S: the stream type.
+template <int kDirs, typename S = float>
+int run_bwd_walk(const BwdArgs<S>& a, int part_floats, int resident, int smem_bytes,
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
   const int u = a.units;
@@ -841,15 +890,15 @@ int run_bwd_walk(const BwdArgs& a, int part_floats, int resident, int smem_bytes
   const size_t bc = (size_t)(a.B + kBwdRows - 1) / kBwdRows * kBwdRows;
   if (part_floats < 0 || (size_t)part_floats != 2 * kDirs * blocks * blocks * u * bc)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = resident ? reinterpret_cast<const void*>(bwd_walk<true>)
-                                : reinterpret_cast<const void*>(bwd_walk<false>);
+  const void* kernel = resident ? reinterpret_cast<const void*>(bwd_walk<true, S>)
+                                : reinterpret_cast<const void*>(bwd_walk<false, S>);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned int)blocks, kDirs);
-  void* params[] = {const_cast<BwdArgs*>(&a)};
+  void* params[] = {const_cast<BwdArgs<S>*>(&a)};
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
                                                     (size_t)smem_bytes,
                                                     static_cast<cudaStream_t>(stream));

@@ -21,8 +21,12 @@ with -1e30 (a row with no valid key gets a uniform softmax), pad outputs
 zeroed. The products run as ``torch.matmul`` and one grouped ``F.conv1d``;
 there is no TPU kernel on this path. ``depthwise_impl`` is accepted and
 computes the same function either way (``"shifts"`` exists in the JAX
-package for its SPMD partitioner). ``compute_dtype: bfloat16`` raises
-``NotImplementedError``.
+package for its SPMD partitioner). ``compute_dtype: bfloat16`` rounds the
+inputs of every product that the reference runs with
+``preferred_element_type`` (the dense layers, the attention scores with
+their ``rel_shift`` / RoPE terms, the context, the MoE bank) to bf16 and
+sums them in float32 (``ops/bf16.matmul``); LayerNorm, the router, the
+softmax, the depthwise conv and the residuals stay float32.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import bf16 as bf16_ops
 from .rnn import dropout
 
 MASK_FILL = -1e30
@@ -74,10 +79,13 @@ class ConformerSpec(NamedTuple):
         if self.pos_encoding == "rotary" and (self.dim // self.num_heads) % 2:
             raise ValueError(f"rotary needs an even head dim, got {self.dim}/{self.num_heads} "
                              f"= {self.dim // self.num_heads}")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r} is not ported yet (the conformer's "
-                "bf16 matmul inputs)")
+                f"compute_dtype {self.compute_dtype!r} is not ported (float32 or bfloat16)")
+
+    @property
+    def bf16(self) -> bool:
+        return self.compute_dtype == "bfloat16"
 
 
 def _uniform(shape, s: float, generator) -> torch.Tensor:
@@ -89,15 +97,17 @@ def _xavier(fin: int, fout: int, generator) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """x @ w + b, w [fin, fout] Xavier-uniform and b zero (``_dense_init``)."""
+    """x @ w + b, w [fin, fout] Xavier-uniform and b zero (``_dense_init``);
+    with ``bf16`` the product of ``_dense(p, x, bf16)``."""
 
-    def __init__(self, fin: int, fout: int, generator=None):
+    def __init__(self, fin: int, fout: int, generator=None, bf16: bool = False):
         super().__init__()
+        self.bf16 = bf16
         self.w = nn.Parameter(_xavier(fin, fout, generator))
         self.b = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        return bf16_ops.linear(x, self.w, self.bf16) + self.b
 
 
 class LayerNorm(nn.Module):
@@ -121,8 +131,8 @@ class FeedForward(nn.Module):
         super().__init__()
         e = spec.dim * spec.ff_expansion
         self.ln = LayerNorm(spec.dim)
-        self.add_module("in", Dense(spec.dim, e, generator))
-        self.out = Dense(e, spec.dim, generator)
+        self.add_module("in", Dense(spec.dim, e, generator, spec.bf16))
+        self.out = Dense(e, spec.dim, generator, spec.bf16)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(F.silu(self._modules["in"](self.ln(x))))
@@ -169,8 +179,16 @@ class MoEFeedForward(nn.Module):
         else:
             gates = probs
         w_in, w_out = self._modules["in"], self.out
-        h = F.silu(torch.einsum("btd,edf->ebtf", y, w_in.w) + w_in.b[:, None, None, :])
-        o = torch.einsum("ebtf,efd->ebtd", h, w_out.w) + w_out.b[:, None, None, :]
+        if self.spec.bf16:  # y [1, B, T, d] @ w [E, 1, d, f]: every expert on every frame
+            h = bf16_ops.matmul(y[None], w_in.w[:, None])
+        else:
+            h = torch.einsum("btd,edf->ebtf", y, w_in.w)
+        h = F.silu(h + w_in.b[:, None, None, :])
+        if self.spec.bf16:
+            o = bf16_ops.matmul(h, w_out.w[:, None])
+        else:
+            o = torch.einsum("ebtf,efd->ebtd", h, w_out.w)
+        o = o + w_out.b[:, None, None, :]
         out = torch.einsum("ebtd,bte->btd", o, gates)
         m = mask.to(probs.dtype)
         denom = m.sum().clamp_min(1.0)
@@ -245,8 +263,8 @@ class MHSA(nn.Module):
         d = spec.dim
         self.spec = spec
         self.ln = LayerNorm(d)
-        self.q, self.k = Dense(d, d, generator), Dense(d, d, generator)
-        self.v, self.o = Dense(d, d, generator), Dense(d, d, generator)
+        self.q, self.k = Dense(d, d, generator, spec.bf16), Dense(d, d, generator, spec.bf16)
+        self.v, self.o = Dense(d, d, generator, spec.bf16), Dense(d, d, generator, spec.bf16)
         if spec.pos_encoding == "relative":
             h = spec.num_heads
             self.pos = _Weights(w=_xavier(d, d, generator))
@@ -260,22 +278,23 @@ class MHSA(nn.Module):
         y = self.ln(x)
         split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)  # noqa: E731  [B, h, T, dh]
         q, k, v = split(self.q(y)), split(self.k(y)), split(self.v(y))
+        mm = lambda a, b: bf16_ops.linear(a, b, self.spec.bf16)  # noqa: E731
         if self.spec.pos_encoding == "relative":
-            r = torch.matmul(rel_posemb(t, d, x.device), self.pos.w)  # [2T-1, d]
+            r = mm(rel_posemb(t, d, x.device), self.pos.w)  # [2T-1, d]
             r = r.reshape(2 * t - 1, h, dh).transpose(0, 1)  # [h, 2T-1, dh]
-            ac = torch.matmul(q + self.pos_u[None, :, None, :], k.transpose(-1, -2))
-            bd = torch.matmul(q + self.pos_v[None, :, None, :], r.transpose(-1, -2))
+            ac = mm(q + self.pos_u[None, :, None, :], k.transpose(-1, -2))
+            bd = mm(q + self.pos_v[None, :, None, :], r.transpose(-1, -2))
             scores = ac + rel_shift(bd)
         else:
             if self.spec.pos_encoding == "rotary":
                 q, k = rope(q), rope(k)
-            scores = torch.matmul(q, k.transpose(-1, -2))
+            scores = mm(q, k.transpose(-1, -2))
         scores = scores / math.sqrt(dh)
         scores = torch.where(mask[:, None, None, :], scores, MASK_FILL)
         if self.spec.left_context >= 0:
             win = window_mask(t, self.spec.left_context, x.device)
             scores = torch.where(win[None, None], scores, MASK_FILL)
-        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        out = mm(torch.softmax(scores, dim=-1), v)
         return self.o(out.transpose(1, 2).reshape(b, t, d))
 
 
@@ -289,10 +308,10 @@ class ConvModule(nn.Module):
         d, k = spec.dim, spec.conv_kernel_size
         self.spec = spec
         self.ln = LayerNorm(d)
-        self.pw1 = Dense(d, 2 * d, generator)
+        self.pw1 = Dense(d, 2 * d, generator, spec.bf16)
         self.dw = nn.Parameter(_uniform((k, 1, d), math.sqrt(6.0 / (k + d)), generator))
         self.norm = LayerNorm(d)
-        self.pw2 = Dense(d, d, generator)
+        self.pw2 = Dense(d, d, generator, spec.bf16)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         a, g = self.pw1(self.ln(x)).chunk(2, dim=-1)
@@ -351,7 +370,7 @@ class Conformer(nn.Module):
         self.spec = spec
         layer = TransformerLayer if spec.block == "transformer" else ConformerLayer
         self.layers = nn.ModuleList(layer(spec, generator) for _ in range(spec.num_layers))
-        self.proj = Dense(input_dim, spec.dim, generator)
+        self.proj = Dense(input_dim, spec.dim, generator, spec.bf16)
         if spec.block == "transformer":
             self.ln_out = LayerNorm(spec.dim)
 

@@ -43,7 +43,9 @@ class CTCOutput(NamedTuple):
 
 
 class Affine(nn.Module):
-    """x @ w + b with the JAX layout w [D, O], b [O]."""
+    """x @ w + b with the JAX layout w [D, O], b [O]; a bf16 ``x`` (a bf16
+    encoder's output) is upcast first, as JAX promotes it in ``_affine``:
+    the output is float32."""
 
     def __init__(self, din: int, dout: int, scale: float,
                  generator: torch.Generator | None = None):
@@ -52,7 +54,7 @@ class Affine(nn.Module):
         self.b = nn.Parameter(torch.zeros(dout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w) + self.b
+        return torch.matmul(x.to(self.w.dtype), self.w) + self.b
 
 
 class CTCModel(nn.Module):

@@ -20,7 +20,11 @@ routes inputs longer than T = 400 to its scan path because of TPU
 toolchain limits; the kernels here run at every T. The conformer and
 transformer types run ``conformer.Conformer`` (parameters under
 ``conformer``), whose MoE load-balance loss comes back as
-``EncoderOutput.aux_loss`` when ``moe_experts > 1``. Other encoder types
+``EncoderOutput.aux_loss`` when ``moe_experts > 1``. ``compute_dtype:
+bfloat16`` runs every type in the reference's bf16 mode: the LSTM layers
+with bf16 streams (bf16 outputs, which the pyramid's reduction, the
+dropout and the multitask tap keep; the VGG stack stays float32 and the
+first BLSTM rounds its output), the conformer's products with bf16 inputs. Other encoder types
 (``gru``, ``bgru``, ``cnn_zhang``) and cell options raise
 ``NotImplementedError`` until they are ported.
 """
@@ -137,10 +141,9 @@ def check_supported(cfg: EncoderConfig) -> None:
                         ("clip_activation", not cfg.clip_activation)):
         if not unset:
             raise NotImplementedError(f"LSTM option {name} is not ported yet")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r} is not ported yet (bf16 streams)"
-        )
+            f"compute_dtype {cfg.compute_dtype!r} is not ported (float32 or bfloat16)")
 
 
 class Conv2d(nn.Module):
@@ -243,7 +246,8 @@ class Encoder(nn.Module):
             dim = cfg.output_dim * (2 if cfg.reduces_after(layer) else 1)
         layer = BiLSTM if cfg.bidirectional else LSTM
         self.layers = nn.ModuleList(
-            layer(d, cfg.num_units, cfg.parameter_init, generator=generator) for d in dims
+            layer(d, cfg.num_units, cfg.parameter_init, generator=generator,
+                  compute_dtype=cfg.compute_dtype) for d in dims
         )
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,

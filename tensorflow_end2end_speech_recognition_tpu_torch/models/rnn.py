@@ -8,7 +8,12 @@ reversed over each row's valid prefix, and ``ops.lstm.lstm_bidi`` (``BiLSTM``)
 or ``ops.lstm.lstm_layer`` (``LSTM``, one direction) runs the recurrence
 (through its ``torch.autograd.Function`` when a gradient may be taken).
 Only the plain LSTM cell is ported; peephole, projection, cell clip and GRU
-raise. ``lstm_step`` is one step of that cell in plain PyTorch
+raise. With ``compute_dtype="bfloat16"`` the layers take the reference's
+bf16 recipes: ``BiLSTM`` rounds ``xs`` and ``wx`` to bf16, sums the product
+in float32, adds ``b`` and rounds ``xproj`` to bf16 once
+(``bidirectional_scan``); ``LSTM`` forms the product in float32 (a bf16
+``xs`` is promoted) and rounds ``xproj`` (``rnn_scan``). The kernels then
+run with bf16 streams and return bf16 ``ys``. ``lstm_step`` is one step of that cell in plain PyTorch
 (``_lstm_step`` there, which the JAX package runs in XLA, not in a kernel):
 the attention decoder's cell, and through ``lstm_scan`` (the scan branch of
 ``rnn_scan``, with a carried ``(h, c)``) the transducer's prediction net.
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import bf16 as bf16_ops
 from ..ops.lstm import lstm_bidi, lstm_layer
 
 
@@ -55,18 +61,26 @@ class LSTMParams(nn.Module):
 
 
 class BiLSTM(nn.Module):
-    """One BLSTM layer: [B, T, D] -> [B, T, 2H] (forward ++ backward outputs)."""
+    """One BLSTM layer: [B, T, D] -> [B, T, 2H] (forward ++ backward outputs),
+    bf16 outputs under ``compute_dtype="bfloat16"``."""
 
     def __init__(self, input_dim: int, num_units: int, param_init: float = 0.1,
-                 forget_bias: float = 1.0, generator: torch.Generator | None = None):
+                 forget_bias: float = 1.0, generator: torch.Generator | None = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.forget_bias = forget_bias
+        self.bf16 = compute_dtype == "bfloat16"
         self.fwd = LSTMParams(input_dim, num_units, param_init, generator)
         self.bwd = LSTMParams(input_dim, num_units, param_init, generator)
 
+    def _project(self, xs: torch.Tensor, p: LSTMParams) -> torch.Tensor:
+        if self.bf16:  # bf16 operands, float32 sums, + b, one rounding to bf16
+            return (bf16_ops.matmul(xs, p.wx) + p.b).to(bf16_ops.BF16)
+        return torch.matmul(xs, p.wx) + p.b
+
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        xproj_f = torch.matmul(xs, self.fwd.wx) + self.fwd.b
-        xproj_b = flip_valid(torch.matmul(xs, self.bwd.wx) + self.bwd.b, lengths)
+        xproj_f = self._project(xs, self.fwd)
+        xproj_b = flip_valid(self._project(xs, self.bwd), lengths)
         ys_f, ys_b = lstm_bidi(xproj_f, xproj_b, self.fwd.wh, self.bwd.wh,
                                length_mask(xs, lengths), self.forget_bias)
         return torch.cat([ys_f, flip_valid(ys_b, lengths)], dim=-1)
@@ -81,15 +95,23 @@ class LSTM(LSTMParams):
     state is not returned (the encoder drops it, as ``apply_encoder`` does);
     with one (a streaming chunk's carried ``(h, c)``) the layer resumes from
     it and returns ``(ys, (hT, cT))``, as ``rnn_scan(..., initial_state=...)``.
+    Under ``compute_dtype="bfloat16"`` ``ys`` is bf16 and a carried state
+    raises in ``lstm_layer`` (bf16 streaming is not ported).
     """
 
     def __init__(self, input_dim: int, num_units: int, param_init: float = 0.1,
-                 forget_bias: float = 1.0, generator: torch.Generator | None = None):
+                 forget_bias: float = 1.0, generator: torch.Generator | None = None,
+                 compute_dtype: str = "float32"):
         super().__init__(input_dim, num_units, param_init, generator)
         self.forget_bias = forget_bias
+        self.bf16 = compute_dtype == "bfloat16"
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, initial_state=None):
-        xproj = torch.matmul(xs, self.wx) + self.b
+        if self.bf16:
+            # rnn_scan's Pallas branch: a float32 product (bf16 xs promoted), one rounding
+            xproj = (torch.matmul(xs.float(), self.wx) + self.b).to(bf16_ops.BF16)
+        else:
+            xproj = torch.matmul(xs, self.wx) + self.b
         return lstm_layer(xproj, self.wh, length_mask(xs, lengths), self.forget_bias,
                           initial_state)
 

@@ -39,6 +39,7 @@ from .encoders import Encoder, EncoderConfig
 from .rnn import LSTMParams, dropout, lstm_step
 
 
+
 class Seq2SeqConfig(NamedTuple):
     encoder: EncoderConfig = EncoderConfig(encoder_type="pyramidal_blstm", num_layers=3)
     attention: AttentionConfig = AttentionConfig()
@@ -96,6 +97,12 @@ class Seq2SeqModel(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig, input_dim: int,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if cfg.encoder.compute_dtype != "float32":
+            raise NotImplementedError(
+                "compute_dtype bfloat16 is not ported for the attention and joint "
+                "CTC-attention models: in the reference the bf16 encoder output flows into "
+                "the location-attention kernel (#7) and the decoder's carry, a further "
+                "kernel variant not ported yet")
         self.cfg = cfg
         scale = cfg.encoder.parameter_init
         enc_dim = cfg.encoder.output_dim

@@ -222,14 +222,16 @@ def ctc_loss_fwd_only_plain(logits, logit_len, labels, label_len, blank_id: int)
 
 
 def _prepare(what, logits, logit_len, labels, label_len, blank_id):
-    """Check the inputs; return int32 labels and lengths on the logits' device."""
+    """Check the inputs; return float32 logits (bf16 ones cast, as
+    ``ctc_loss_pallas`` casts them in its call's arguments) and int32
+    labels and lengths on the logits' device."""
     dev = logits.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
     if logits.dtype == torch.bfloat16:
-        raise NotImplementedError(f"{what}: bfloat16 logits are not ported yet")
+        logits = logits.float()
     if logits.dtype != torch.float32:
-        raise ValueError(f"{what}: logits must be float32, got {logits.dtype}")
+        raise ValueError(f"{what}: logits must be float32 or bfloat16, got {logits.dtype}")
     if logits.dim() != 3 or not logits.is_contiguous():
         raise ValueError(f"{what}: logits must be a contiguous [B, T, C] tensor, "
                          f"got {tuple(logits.shape)}")
@@ -249,7 +251,7 @@ def _prepare(what, logits, logit_len, labels, label_len, blank_id):
     for name in ("logit_len", "label_len"):
         if tuple(ints[name].shape) != (b,):
             raise ValueError(f"{what}: {name} must be [B], got {tuple(ints[name].shape)}")
-    return (logit_len.to(torch.int32).contiguous(), labels.to(torch.int32).contiguous(),
+    return (logits, logit_len.to(torch.int32).contiguous(), labels.to(torch.int32).contiguous(),
             label_len.to(torch.int32).contiguous())
 
 
@@ -285,8 +287,8 @@ def _launch(what, fn_name, plan, logits, logit_len, labels, label_len, blank_id,
 
 def ctc_loss_fwd_bwd(logits, logit_len, labels, label_len, blank_id: int):
     """Kernel #5: ``(loss [B], grad [B, T, C])``, the gradient of ``loss.sum()``."""
-    logit_len, labels, label_len = _prepare("ctc_loss", logits, logit_len, labels, label_len,
-                                            blank_id)
+    logits, logit_len, labels, label_len = _prepare("ctc_loss", logits, logit_len, labels,
+                                                    label_len, blank_id)
     if logits.device.type == "cpu":
         return ctc_loss_plain(logits, logit_len, labels, label_len, blank_id)
     grad = torch.empty_like(logits)
@@ -302,8 +304,8 @@ ctc_loss_fwd_bwd.launches = 0
 
 def ctc_loss_fwd_only(logits, logit_len, labels, label_len, blank_id: int):
     """Kernel #6: the loss [B] alone."""
-    logit_len, labels, label_len = _prepare("ctc_loss_fwd_only", logits, logit_len, labels,
-                                            label_len, blank_id)
+    logits, logit_len, labels, label_len = _prepare("ctc_loss_fwd_only", logits, logit_len,
+                                                    labels, label_len, blank_id)
     if logits.device.type == "cpu":
         return ctc_loss_fwd_only_plain(logits, logit_len, labels, label_len, blank_id)
     plan = ctc_plan(*logits.shape[:2], 2 * labels.shape[1] + 1, grad=False)
@@ -347,7 +349,11 @@ class _NoGrad(torch.autograd.Function):
 
 def ctc_loss(logits, logit_len, labels, label_len, blank_id: int | None = None,
              impl: str = "auto", need_grad: bool = True):
-    """Per-utterance negative log-likelihood [B]; ``blank_id`` defaults to C-1."""
+    """Per-utterance negative log-likelihood [B]; ``blank_id`` defaults to C-1.
+
+    bf16 logits are cast to float32 before the kernels (``_prepare``); their
+    gradient comes back bf16.
+    """
     if impl != "auto":
         raise NotImplementedError(
             f"ctc impl {impl!r} is not ported; the port has the fused kernels only ('auto')"

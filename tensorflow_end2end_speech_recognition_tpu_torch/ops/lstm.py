@@ -17,6 +17,17 @@ streaming chunk resumes one direction from a carried ``(h0, c0)`` and gets
 the carried state back, as the scan branch of ``rnn_scan`` with an
 ``initial_state`` does (kernel #3's ``lstm_layer_fwd_carry`` entry).
 
+Streams come in float32 or bf16 (``compute_dtype: bfloat16``): the stream
+dtype is ``xproj``'s, and ``ys``, ``cs``, the cotangents and ``dxproj``
+share it, while ``wh``, ``mask``, the carried ``h`` and ``c`` and all gate
+math stay float32, as in the Pallas kernels (only their HBM streams
+round). The forward rounds only the emitted ``ys = h * m`` and ``cs``; the
+backward recomputes the gates from the bf16 ``ys[t-1]`` and ``cs``,
+carries ``dh = dgates @ Wh^T`` from the float32 ``dgates`` and rounds only
+the emitted ``dxproj``. A carried ``initial_state`` takes float32 streams
+only (bf16 streaming is not ported: the reference's scan that a chunk
+takes rounds elsewhere).
+
 When a gradient may be taken, the call goes through ``LSTMBidi`` or
 ``LSTMLayer``, a ``torch.autograd.Function``: its forward also keeps the
 cell-state streams ``cs``, and its backward recomputes the gates step by
@@ -31,9 +42,12 @@ PyTorch. CUDA tensors launch the hand-written kernels (``csrc/lstm_bidi_fwd.cu``
 all in ``csrc/lstm_step.cuh``: each one persistent cooperative launch per
 call, laid out by ``fwd_plan`` and ``bwd_plan``; a batch past a block's
 register carries is split into launches over contiguous rows) or raise;
-there is no fallback. ``lstm_bidi.launches``, ``lstm_bidi_bwd.launches``,
-``lstm_layer.launches`` and ``lstm_layer_bwd.launches`` count the calls
-that launched each kernel.
+there is no fallback. Each kernel has a float32 and a bf16 instantiation,
+separate C entries (``lstm_bidi_fwd`` and ``lstm_bidi_fwd_bf16``, ...); a
+bf16 CUDA tensor launches the bf16 one or raises. ``lstm_bidi.launches``,
+``lstm_bidi_bwd.launches``, ``lstm_layer.launches`` and
+``lstm_layer_bwd.launches`` count the calls that launched each float32
+kernel, and ``.launches_bf16`` on the same functions the bf16 ones.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import bf16 as bf16_ops
 from . import build
 
 
@@ -55,14 +70,17 @@ def _gates(gates, h, forget_bias):
 def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
     """Plain version of the forward kernels: one ``h @ Wh + xproj[t]`` step per t.
 
-    Returns ``(ys, cs)``, each [B, T, H]; ``cs`` holds the carried cell
-    state at every step. With ``initial_state`` ``(h0, c0)`` ([B, H] each)
-    the walk starts from it, and the carried ``(hT, cT)`` after the last
-    step comes third: ``(ys, cs, (hT, cT))``, the scan branch of
-    ``rnn_scan(..., initial_state=...)``.
+    Returns ``(ys, cs)``, each [B, T, H] in ``xproj``'s dtype; ``cs`` holds
+    the carried cell state at every step. The walk runs in float32 from
+    ``xproj.float()``; a bf16 ``xproj`` gets bf16 ``ys`` and ``cs``, rounded
+    from the float32 carries as they are emitted (``_fwd_kernel``). With
+    ``initial_state`` ``(h0, c0)`` ([B, H] each) the walk starts from it,
+    and the carried ``(hT, cT)`` after the last step comes third: ``(ys,
+    cs, (hT, cT))``, the scan branch of ``rnn_scan(..., initial_state=...)``.
     """
     b, t, g4 = xproj.shape
     h = g4 // 4
+    sdt, xproj = xproj.dtype, xproj.float()
     if initial_state is None:
         h_prev, c_prev = xproj.new_zeros((b, h)), xproj.new_zeros((b, h))
     else:
@@ -76,8 +94,8 @@ def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_stat
         on = m > 0
         h_prev = torch.where(on, h_new, h_prev)
         c_prev = torch.where(on, c, c_prev)
-        ys.append(h_prev * m)
-        cs.append(c_prev)
+        ys.append((h_prev * m).to(sdt))
+        cs.append(c_prev.to(sdt))
     out = torch.stack(ys, dim=1), torch.stack(cs, dim=1)
     return out if initial_state is None else (*out, (h_prev, c_prev))
 
@@ -100,9 +118,14 @@ def lstm_layer_bwd_plain(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0)
     The reverse walk of ``_bwd_kernel``: recompute the gates at t from
     ``xproj[t]`` and ``h_{t-1} = ys[t-1]``, carry ``dh`` and ``dc``, emit
     ``dgates`` (zero on a masked step, which carries dh and dc through).
+    bf16 streams are upcast as they are read; the carries and ``dh =
+    dgates @ Wh^T`` stay float32, and only the emitted ``dxproj`` rounds to
+    the stream dtype.
     """
     b, t, g4 = xproj.shape
     h = g4 // 4
+    sdt = xproj.dtype
+    xproj, ys, cs, gys = (x.float() for x in (xproj, ys, cs, gys))
     h_prev_all, c_prev_all = _shift_one(ys), _shift_one(cs)
     dh = xproj.new_zeros((b, h))
     dc = xproj.new_zeros((b, h))
@@ -121,7 +144,7 @@ def lstm_layer_bwd_plain(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0)
             do * o * (1.0 - o),
         ], dim=-1)
         dgates = torch.where(on, dgates, 0.0)
-        dxs[s] = dgates
+        dxs[s] = dgates.to(sdt)
         dh = torch.where(on, dgates @ wh.t(), dh_total)
         dc = torch.where(on, dc_total * f, dc)
     return torch.stack(dxs, dim=1)
@@ -134,22 +157,26 @@ def lstm_bidi_bwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs
             lstm_layer_bwd_plain(xproj_b, wh_b, mask, ys_b, cs_b, gys_b, forget_bias))
 
 
-def _check_inputs(what, **tensors) -> None:
-    """Same device, float32, contiguous, and the shapes of the first tensor's
-    [B, T, 4H]: ``wh*`` [H, 4H], ``mask`` [B, T], ``xproj*`` [B, T, 4H], and
-    every other stream (``ys``, ``cs``, ``gys``) [B, T, H]."""
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_inputs(what, **tensors) -> torch.dtype:
+    """Same device, contiguous, and the shapes of the first tensor's [B, T,
+    4H]: ``wh*`` [H, 4H], ``mask`` [B, T], ``xproj*`` [B, T, 4H], and every
+    other stream (``ys``, ``cs``, ``gys``) [B, T, H]. ``wh*`` and ``mask``
+    are float32; the streams are all float32 or all bf16 (the first
+    tensor's dtype, which is returned: the stream dtype)."""
     first_name, first = next(iter(tensors.items()))
-    dev = first.device
+    dev, sdt = first.device, first.dtype
+    if sdt not in STREAM_DTYPES:
+        raise ValueError(f"{what}: {first_name} must be float32 or bfloat16, got {sdt}")
     for name, x in tensors.items():
         if x.device != dev:
             raise ValueError(f"{what}: {name} is on {x.device}, {first_name} on {dev}")
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{what}: {name} is bfloat16; bf16 streams (compute_dtype: bfloat16) "
-                "are not ported yet"
-            )
-        if x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {x.dtype}")
+        want = torch.float32 if name.startswith("wh") or name == "mask" else sdt
+        if x.dtype != want:
+            raise ValueError(f"{what}: {name} must be {want} (streams in {first_name}'s "
+                             f"dtype; wh and mask float32), got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     if first.dim() != 3 or first.shape[-1] % 4:
@@ -167,6 +194,7 @@ def _check_inputs(what, **tensors) -> None:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, expected {want}")
     if b == 0 or t == 0 or h == 0:
         raise ValueError(f"{what}: empty input {tuple(first.shape)}")
+    return sdt
 
 
 def _device_of(what, x):
@@ -354,16 +382,29 @@ def _walk(lib, what: str, plan_for, dev, dirs: int, batch: int, t: int, h: int,
             build.check(lib, code, what)
 
 
+def _entry(name: str, sdt: torch.dtype) -> str:
+    """The C entry of a kernel for the stream dtype: ``name`` or ``name_bf16``."""
+    return name + ("_bf16" if sdt == torch.bfloat16 else "")
+
+
+def _count(fn, sdt: torch.dtype) -> None:
+    """One launch on ``fn.launches`` (float32) or ``fn.launches_bf16``."""
+    if sdt == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
                   with_cs: bool = False):
     """Kernel #1: ``(ys_f, ys_b)``, and ``(cs_f, cs_b)`` after them when ``with_cs``.
 
     Launched with the plan ``fwd_plan_for`` gives this card; a launch whose
     blocks cannot all be resident raises. Calls are counted on
-    ``lstm_bidi.launches``.
+    ``lstm_bidi.launches`` (``launches_bf16`` for bf16 streams).
     """
-    _check_inputs("lstm_bidi", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
-                  mask=mask)
+    sdt = _check_inputs("lstm_bidi", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
+                        mask=mask)
     dev = _device_of("lstm_bidi", xproj_f)
     if dev.type == "cpu":
         out = lstm_bidi_fwd_plain(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias)
@@ -371,14 +412,14 @@ def lstm_bidi_fwd(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0,
     lib = build.load_library()
     b, t, g4 = xproj_f.shape
     h = g4 // 4
-    ys_f = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+    ys_f = torch.empty((b, t, h), dtype=sdt, device=dev)
     ys_b = torch.empty_like(ys_f)
     cs_f = torch.empty_like(ys_f) if with_cs else None
     cs_b = torch.empty_like(ys_f) if with_cs else None
-    _walk(lib, "lstm_bidi_fwd", fwd_plan_for, dev, 2, b, t, h, forget_bias,
+    _walk(lib, _entry("lstm_bidi_fwd", sdt), fwd_plan_for, dev, 2, b, t, h, forget_bias,
           lambda b0, b1: (*_rows(b0, b1, xproj_f, xproj_b), wh_f.data_ptr(), wh_b.data_ptr(),
                           *_rows(b0, b1, mask, ys_f, ys_b, cs_f, cs_b)))
-    lstm_bidi.launches += 1
+    _count(lstm_bidi, sdt)
     return (ys_f, ys_b, cs_f, cs_b) if with_cs else (ys_f, ys_b)
 
 
@@ -387,9 +428,10 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
     """Kernel #2: ``(dxproj_f, dxproj_b)``; arguments as ``lstm_bidi_bwd_plain``.
 
     Launched with the plan ``bwd_plan_for`` gives this card; a launch whose
-    blocks cannot all be resident raises.
+    blocks cannot all be resident raises. Calls are counted on
+    ``lstm_bidi_bwd.launches`` (``launches_bf16`` for bf16 streams).
     """
-    _check_inputs("lstm_bidi_bwd", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
+    sdt = _check_inputs("lstm_bidi_bwd", xproj_f=xproj_f, xproj_b=xproj_b, wh_f=wh_f, wh_b=wh_b,
                   mask=mask, ys_f=ys_f, ys_b=ys_b, cs_f=cs_f, cs_b=cs_b, gys_f=gys_f,
                   gys_b=gys_b)
     args = (xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b, gys_f, gys_b)
@@ -401,21 +443,30 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
     h = g4 // 4
     dx_f = torch.empty_like(xproj_f)
     dx_b = torch.empty_like(xproj_b)
-    _walk(lib, "lstm_bidi_bwd", bwd_plan_for, dev, 2, b, t, h, forget_bias,
+    _walk(lib, _entry("lstm_bidi_bwd", sdt), bwd_plan_for, dev, 2, b, t, h, forget_bias,
           lambda b0, b1: (*_rows(b0, b1, xproj_f, xproj_b), wh_f.data_ptr(), wh_b.data_ptr(),
                           *_rows(b0, b1, *args[4:], dx_f, dx_b)))
-    lstm_bidi_bwd.launches += 1
+    _count(lstm_bidi_bwd, sdt)
     return dx_f, dx_b
 
 
 lstm_bidi_bwd.launches = 0
+lstm_bidi_bwd.launches_bf16 = 0
 
 
 def _dwh(ys, dx):
-    """dWh = sum_t h_{t-1}^T dgates_t: one contraction over [T*B] of the
-    shifted ``ys`` against ``dxproj``, as ``_bwd_call`` forms it."""
+    """dWh = sum_t h_{t-1}^T dgates_t: one float32 contraction over [T*B] of
+    the shifted ``ys`` against ``dxproj``, as ``_bwd_call`` forms it (bf16
+    streams: bf16 operands, float32 sums)."""
     h = ys.shape[-1]
-    return torch.matmul(_shift_one(ys).reshape(-1, h).t(), dx.reshape(-1, 4 * h))
+    a, b = _shift_one(ys).reshape(-1, h).t(), dx.reshape(-1, 4 * h)
+    return bf16_ops.mm_f32(a, b) if ys.dtype == torch.bfloat16 else torch.matmul(a, b)
+
+
+def _cotangent(g, ys):
+    """The cotangent of ``ys`` at the stream dtype (``gys_tm.astype(sdt)``),
+    zeros when autograd passes none."""
+    return torch.zeros_like(ys) if g is None else g.to(ys.dtype).contiguous()
 
 
 class LSTMBidi(torch.autograd.Function):
@@ -432,8 +483,7 @@ class LSTMBidi(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gys_f, gys_b):
         xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b = ctx.saved_tensors
-        gys_f = torch.zeros_like(ys_f) if gys_f is None else gys_f.contiguous()
-        gys_b = torch.zeros_like(ys_b) if gys_b is None else gys_b.contiguous()
+        gys_f, gys_b = _cotangent(gys_f, ys_f), _cotangent(gys_b, ys_b)
         dx_f, dx_b = lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
                                    gys_f, gys_b, ctx.forget_bias)
         return dx_f, dx_b, _dwh(ys_f, dx_f), _dwh(ys_b, dx_b), None, None
@@ -453,6 +503,7 @@ def lstm_bidi(xproj_f, xproj_b, wh_f, wh_b, mask, forget_bias: float = 1.0):
 
 
 lstm_bidi.launches = 0
+lstm_bidi.launches_bf16 = 0
 
 
 def _check_state(what, xproj, initial_state) -> None:
@@ -480,10 +531,16 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
     entry) and the carried ``(hT, cT)`` after the last step comes last:
     ``(ys, (hT, cT))`` or ``(ys, cs, (hT, cT))``. A row masked at every step
     gets back ``h0`` and ``c0`` bit for bit. Launched as ``lstm_bidi_fwd``.
-    Calls are counted on ``lstm_layer.launches``.
+    Calls are counted on ``lstm_layer.launches`` (``launches_bf16`` for bf16
+    streams, which take no ``initial_state``).
     """
-    _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
+    sdt = _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
     if initial_state is not None:
+        if sdt != torch.float32:
+            raise NotImplementedError(
+                "lstm_layer: a carried initial_state takes float32 streams; bf16 streaming is "
+                "not ported (the reference's chunk takes rnn_scan's scan, whose bf16 rounds "
+                "h @ Wh and not the streams)")
         _check_state("lstm_layer", xproj, initial_state)
     dev = _device_of("lstm_layer", xproj)
     if dev.type == "cpu":
@@ -492,11 +549,11 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
         lib = build.load_library()
         b, t, g4 = xproj.shape
         h = g4 // 4
-        ys = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+        ys = torch.empty((b, t, h), dtype=sdt, device=dev)
         cs = torch.empty_like(ys) if with_cs else None
         if initial_state is None:
             final = []
-            _walk(lib, "lstm_layer_fwd", fwd_plan_for, dev, 1, b, t, h, forget_bias,
+            _walk(lib, _entry("lstm_layer_fwd", sdt), fwd_plan_for, dev, 1, b, t, h, forget_bias,
                   lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
                                   *_rows(b0, b1, mask, ys, cs)))
         else:
@@ -504,7 +561,7 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
             _walk(lib, "lstm_layer_fwd_carry", fwd_plan_for, dev, 1, b, t, h, forget_bias,
                   lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
                                   *_rows(b0, b1, mask, *initial_state, ys, cs, *final[0])))
-        lstm_layer.launches += 1
+        _count(lstm_layer, sdt)
     out = ((ys, cs) if with_cs else (ys,)) + tuple(final)
     return out if len(out) > 1 else ys
 
@@ -513,9 +570,9 @@ def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     """Kernel #4: ``dxproj`` [B, T, 4H]; arguments as ``lstm_layer_bwd_plain``.
 
     Launched as ``lstm_bidi_bwd``. Launches are counted on
-    ``lstm_layer_bwd.launches``.
+    ``lstm_layer_bwd.launches`` (``launches_bf16`` for bf16 streams).
     """
-    _check_inputs("lstm_layer_bwd", xproj=xproj, wh=wh, mask=mask, ys=ys, cs=cs, gys=gys)
+    sdt = _check_inputs("lstm_layer_bwd", xproj=xproj, wh=wh, mask=mask, ys=ys, cs=cs, gys=gys)
     dev = _device_of("lstm_layer_bwd", xproj)
     if dev.type == "cpu":
         return lstm_layer_bwd_plain(xproj, wh, mask, ys, cs, gys, forget_bias)
@@ -523,14 +580,15 @@ def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     b, t, g4 = xproj.shape
     h = g4 // 4
     dx = torch.empty_like(xproj)
-    _walk(lib, "lstm_layer_bwd", bwd_plan_for, dev, 1, b, t, h, forget_bias,
+    _walk(lib, _entry("lstm_layer_bwd", sdt), bwd_plan_for, dev, 1, b, t, h, forget_bias,
           lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
                           *_rows(b0, b1, mask, ys, cs, gys, dx)))
-    lstm_layer_bwd.launches += 1
+    _count(lstm_layer_bwd, sdt)
     return dx
 
 
 lstm_layer_bwd.launches = 0
+lstm_layer_bwd.launches_bf16 = 0
 
 
 class LSTMLayer(torch.autograd.Function):
@@ -546,7 +604,7 @@ class LSTMLayer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gys):
         xproj, wh, mask, ys, cs = ctx.saved_tensors
-        dx = lstm_layer_bwd(xproj, wh, mask, ys, cs, gys.contiguous(), ctx.forget_bias)
+        dx = lstm_layer_bwd(xproj, wh, mask, ys, cs, _cotangent(gys, ys), ctx.forget_bias)
         return dx, _dwh(ys, dx), None, None
 
 
@@ -571,3 +629,4 @@ def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
 
 
 lstm_layer.launches = 0
+lstm_layer.launches_bf16 = 0

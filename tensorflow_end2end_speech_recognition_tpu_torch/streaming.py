@@ -106,6 +106,12 @@ def _validate(task) -> None:
                          f"transformer with left_context >= 0), got {enc.encoder_type!r}")
     if isinstance(task, CTCTaskConfig) and task.model.num_classes_sub is not None:
         raise ValueError("streaming decodes the main task only")
+    if enc.compute_dtype != "float32":
+        raise NotImplementedError(
+            "streaming at compute_dtype bfloat16 is not ported: for a carried state the "
+            "reference takes rnn_scan's scan, not the LSTM kernel (models/rnn.py:188-190), and "
+            "that scan rounds h @ Wh to bf16 and keeps xproj float32, other numerics than the "
+            "kernels' bf16 streams")
 
 
 def reset_rows(state: StreamState, fresh: StreamState, rows_mask) -> StreamState:

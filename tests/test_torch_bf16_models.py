@@ -1,0 +1,322 @@
+"""The port's layers, transducer and conformer at ``compute_dtype: bfloat16`` against JAX.
+
+(The CTC models and their train steps: ``tests/test_torch_bf16_ctc.py``.)
+The config field's path to the tasks and serving, and what still raises at
+bf16 (the attention families, streaming), are held here too.
+
+On the CPU the JAX encoder takes its scan (``impl="auto"``), whose bf16 rounds
+``h @ Wh`` and not the streams; the TPU takes the Pallas kernels. The module
+fixture ``pallas`` patches ``EncoderConfig.spec`` to ``impl="pallas"`` so
+that the JAX side runs the TPU path, its kernels in interpret mode (no JAX
+file changes). Both sides start from the same JAX-initialised weights
+(bridged) and take the same seeded numpy inputs, at B <= 4, T' <= 16, H = 8
+and two layers. Tolerances are those of the JAX package's own bf16 tests
+(``tests/test_lstm_pallas.py``: values rtol = atol = 2e-2; gradients rtol
+5e-2, atol 3e-2), the gradients' atol taken of each tensor's largest entry:
+the two sides run the same rounding recipes and differ in float32
+summation order and, in the backward of a bf16 product, in the port's
+rounding of the cotangent to bf16 (``ops/bf16.py``), which alone moves a
+conformer's gradients by up to 0.9 % of their largest entry (without it
+they agree within 4e-7). Losses are held within 2e-3 relative.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tensorflow_end2end_speech_recognition_tpu.frontend import FrontendConfig as JFrontendConfig
+from tensorflow_end2end_speech_recognition_tpu.models import conformer as jc
+from tensorflow_end2end_speech_recognition_tpu.models import encoders as jencoders
+from tensorflow_end2end_speech_recognition_tpu.models import transducer as jtransducer
+from tensorflow_end2end_speech_recognition_tpu.models.rnn import (
+    RNNSpec,
+    bidirectional_scan,
+    init_bidirectional,
+    init_rnn_params,
+    rnn_scan,
+)
+from tensorflow_end2end_speech_recognition_tpu.train import transducer_task as jtt
+from tensorflow_end2end_speech_recognition_tpu_torch import streaming
+from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
+from tensorflow_end2end_speech_recognition_tpu_torch.models import conformer as tc
+from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
+from tensorflow_end2end_speech_recognition_tpu_torch.models.rnn import LSTM, BiLSTM, dropout
+from tensorflow_end2end_speech_recognition_tpu_torch.models.seq2seq import (
+    Seq2SeqConfig,
+    Seq2SeqModel,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import TransducerConfig
+from tensorflow_end2end_speech_recognition_tpu_torch.ops.lstm import lstm_bidi, lstm_layer
+from tensorflow_end2end_speech_recognition_tpu_torch.serving import build_inference_fn
+from tensorflow_end2end_speech_recognition_tpu_torch.train import att_task, ctc_task
+from tensorflow_end2end_speech_recognition_tpu_torch.train import transducer_task as tt
+from tensorflow_end2end_speech_recognition_tpu_torch.utils.bridge import params_from_jax
+from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import experiment_from_dict
+
+torch.set_num_threads(1)
+
+VALUE_TOL = dict(rtol=2e-2, atol=2e-2)
+GRAD_RTOL, GRAD_ATOL = 5e-2, 3e-2  # atol of each gradient tensor's largest entry
+LOSS_RTOL = 2e-3  # a CTC / RNN-T loss of about 10: float32 sums of bf16-rounded logits
+H, NUM, C = 8, 4000, 6  # 4000 samples: 24 frames -> T' = 8 after 3/3 stacking
+BF16 = "bfloat16"
+
+
+@pytest.fixture(scope="module")
+def pallas():
+    """The JAX encoders on the TPU path: ``RNNSpec(impl="pallas")``."""
+    with pytest.MonkeyPatch.context() as mp:
+        spec = jencoders.EncoderConfig.spec
+        mp.setattr(jencoders.EncoderConfig, "spec",
+                   lambda self: spec(self)._replace(impl="pallas"))
+        yield
+
+
+def _bridge(tree, model):
+    return params_from_jax(jax.tree.map(np.asarray, tree), model)
+
+
+def _grad_close(got: torch.Tensor, want, what: str):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL * float(np.abs(want).max()), err_msg=what)
+
+
+def _grads_close(got: dict, want: dict):
+    for k, g in got.items():
+        assert g.dtype == torch.float32, k  # the master weights' gradients
+        _grad_close(g, want[k].numpy(), k)
+        assert float(g.abs().sum()) > 0, k
+
+
+def _batch(seed, rows=4):
+    """Waveforms of 4000 samples and shorter, labels, and the same labels for a
+    multitask sub head."""
+    rng = np.random.RandomState(seed)
+    wav = (rng.randn(rows, NUM) * 0.1).astype(np.float32)
+    input_len = np.asarray([NUM, 3000, 1700, NUM][:rows], np.int32)
+    for i, n in enumerate(input_len):
+        wav[i, n:] = 0.0
+    labels = np.asarray([[0, 1, 1], [2, -1, -1], [3, 4, -1], [5, 0, 2]][:rows], np.int32) % C
+    label_len = np.asarray([3, 1, 2, 3][:rows], np.int32)
+    return {"inputs": wav, "input_len": input_len, "labels": labels, "label_len": label_len,
+            "labels_sub": labels % 4, "label_len_sub": label_len,
+            "weight": np.ones((rows,), np.float32)}
+
+
+# ---- one layer ---------------------------------------------------------------------
+
+
+def _layer_case(seed, t=12, d=5):
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(3, t, d).astype(np.float32)
+    lengths = np.asarray([t, 7, 1])
+    w = rng.randn(3, t, 2 * H).astype(np.float32)
+    return xs, lengths, w
+
+
+def test_bilstm_matches_bidirectional_scan_bf16():
+    xs, lengths, w = _layer_case(0)
+    spec = RNNSpec(cell="lstm", num_units=H, impl="pallas", compute_dtype=BF16)
+    params = init_bidirectional(jax.random.PRNGKey(1), spec, xs.shape[-1])
+
+    def loss(p, x):
+        ys = bidirectional_scan(p, spec, x, jnp.asarray(lengths))
+        return jnp.sum(ys.astype(jnp.float32) * w), ys
+
+    (_, want), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        params, jnp.asarray(xs))
+    layer = BiLSTM(xs.shape[-1], H, compute_dtype=BF16)
+    layer.load_state_dict(_bridge(params, layer))
+    x_t = torch.from_numpy(xs).requires_grad_(True)
+    before = lstm_bidi.launches, lstm_bidi.launches_bf16
+    ys = layer(x_t, torch.from_numpy(lengths))
+    assert (lstm_bidi.launches, lstm_bidi.launches_bf16) == before  # the CPU's plain path
+    assert ys.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    # the same bf16 values up to a few roundings: two bf16 ulps
+    np.testing.assert_allclose(ys.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=8e-3, atol=1e-5)
+    grads = torch.autograd.grad((ys.float() * torch.from_numpy(w)).sum(),
+                                [x_t] + list(layer.parameters()))
+    want_p = _bridge(gp, layer)
+    _grad_close(grads[0], gx, "xs")
+    _grads_close(dict(zip(dict(layer.named_parameters()), grads[1:])), want_p)
+
+
+def test_lstm_matches_rnn_scan_bf16():
+    xs, lengths, w = _layer_case(2)
+    w = w[..., :H]
+    spec = RNNSpec(cell="lstm", num_units=H, impl="pallas", compute_dtype=BF16)
+    params = init_rnn_params(jax.random.PRNGKey(3), spec, xs.shape[-1])
+    # a bf16 input, as a layer after the first gets it: promoted to a float32 product
+    xs16 = jnp.asarray(xs).astype(jnp.bfloat16)
+
+    def loss(p, x):
+        ys, (h_fin, _) = rnn_scan(p, spec, x, jnp.asarray(lengths))
+        return jnp.sum(ys.astype(jnp.float32) * w), (ys, h_fin)
+
+    (_, (want, h_fin)), (gp, gx) = jax.jit(
+        jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(params, xs16)
+    assert h_fin.dtype == jnp.float32  # the final h is upcast; the layer does not return it
+    layer = LSTM(xs.shape[-1], H, compute_dtype=BF16)
+    layer.load_state_dict(_bridge(params, layer))
+    x_t = torch.from_numpy(xs).bfloat16().requires_grad_(True)
+    before = lstm_layer.launches, lstm_layer.launches_bf16
+    ys = layer(x_t, torch.from_numpy(lengths))
+    assert (lstm_layer.launches, lstm_layer.launches_bf16) == before
+    assert ys.dtype == torch.bfloat16
+    np.testing.assert_allclose(ys.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=8e-3, atol=1e-5)
+    grads = torch.autograd.grad((ys.float() * torch.from_numpy(w)).sum(),
+                                [x_t] + list(layer.parameters()))
+    assert grads[0].dtype == torch.bfloat16
+    _grad_close(grads[0], gx, "xs")
+    _grads_close(dict(zip(dict(layer.named_parameters()), grads[1:])), _bridge(gp, layer))
+    with pytest.raises(NotImplementedError, match="initial_state"):
+        with torch.no_grad():
+            zeros = torch.zeros(3, H)
+            layer(x_t, torch.from_numpy(lengths), (zeros, zeros))
+
+
+def test_dropout_keeps_bf16():
+    x = torch.ones(4, 6, dtype=torch.bfloat16)
+    out = dropout(x, 0.8, True, torch.Generator().manual_seed(0))
+    assert out.dtype == torch.bfloat16
+    assert set(out.float().unique().tolist()) <= {0.0, float(torch.tensor(1 / 0.8).bfloat16())}
+
+
+# ---- the transducer ----------------------------------------------------------------
+
+
+def test_transducer_forward_loss_and_gradients_match_jax_bf16(pallas):
+    enc = dict(encoder_type="lstm", num_units=H, num_layers=1, compute_dtype=BF16)
+    model_kw = dict(num_classes=4, pred_num_units=8, embedding_dim=4, joint_dim=12)
+    fe = dict(num_mels=40, use_energy=False, add_deltas=False, cmvn="none")
+    jtask = jtt.TransducerTaskConfig(
+        model=jtransducer.TransducerConfig(encoder=jencoders.EncoderConfig(**enc), **model_kw),
+        frontend=JFrontendConfig(**fe), num_stack=3, num_skip=3)
+    task = tt.TransducerTaskConfig(
+        model=TransducerConfig(encoder=EncoderConfig(**enc), **model_kw),
+        frontend=FrontendConfig(**fe), num_stack=3, num_skip=3)
+    jparams = jtt.init_params(jax.random.PRNGKey(5), jtask)
+    model = tt.init_model(task)
+    batch = _batch(seed=2)
+    batch["labels"] = batch["labels"] % 4
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtt.forward_loss(p, jtask, jb, train=True), has_aux=True))(jparams)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in _bridge(jparams, model).items()}
+    loss, _ = tt.forward_loss(leaves, task, {k: torch.from_numpy(v) for k, v in batch.items()},
+                              True)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=LOSS_RTOL)
+    _grads_close(grads, _bridge(jgrads, model))
+    # the eval step's greedy decode runs on the bf16 encoder too
+    ids, n, nll = tt.make_eval_step(task)(leaves, {k: torch.from_numpy(v)
+                                                   for k, v in batch.items()})
+    assert nll.dtype == torch.float32 and bool(torch.isfinite(nll).all())
+
+
+# ---- the conformer -----------------------------------------------------------------
+
+
+CONFORMER_CASES = [  # ls960_conformer_ctc's stack; rope with the window; rel_shift with MoE
+    dict(block="conformer", pos_encoding="absolute"),
+    dict(block="conformer", pos_encoding="rotary", left_context=3),
+    dict(block="transformer", moe_experts=3, moe_top_k=2, pos_encoding="relative"),
+]
+
+
+@pytest.mark.parametrize("kw", CONFORMER_CASES,
+                         ids=lambda kw: "-".join(f"{v}" for v in kw.values()))
+def test_conformer_stack_and_gradients_match_jax_bf16(kw):
+    base = dict(dim=16, num_layers=2, num_heads=2, conv_kernel_size=3, ff_expansion=2,
+                compute_dtype=BF16, **kw)
+    jspec, spec = jc.ConformerSpec(**base), tc.ConformerSpec(**base)
+    d_in, t, lengths = 7, 11, [11, 5, 1, 0]
+    p = jc.init_conformer(jax.random.PRNGKey(6), jspec, d_in)
+    model = tc.Conformer(spec, d_in)
+    model.load_state_dict(_bridge(p, model))
+    rng = np.random.RandomState(7)
+    x = rng.randn(len(lengths), t, d_in).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    cot = rng.randn(len(lengths), t, 16).astype(np.float32)
+
+    def jloss(p, x):
+        out, aux = jc.apply_conformer(p, jspec, x, jnp.asarray(lens), return_aux=True)
+        return jnp.sum(out * cot) + aux, out
+
+    (_, want), (jgp, jgx) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        p, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out, aux = model(xt, torch.from_numpy(lens))
+    assert out.dtype == torch.float32  # LayerNorm and the residuals stay float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **VALUE_TOL)
+    loss = (out * torch.from_numpy(cot)).sum() + (aux if aux is not None else 0.0)
+    names = list(dict(model.named_parameters()))
+    grads = torch.autograd.grad(loss, [xt] + list(model.parameters()))
+    _grad_close(grads[0], jgx, "inputs")
+    want_p = _bridge(jgp, model)
+    for name, g in zip(names, grads[1:]):
+        # the key bias's gradient is zero in exact arithmetic unless keys are
+        # rotated (it shifts a row of scores by one constant): both sides hold
+        # only rounding noise there, within the inputs' gradient atol
+        w = want_p[name].numpy()
+        if name.endswith("mhsa.k.b") and spec.pos_encoding != "rotary":
+            bound = GRAD_ATOL * float(np.abs(np.asarray(jgx)).max())
+            assert max(float(g.abs().max()), float(np.abs(w).max())) < bound, name
+            continue
+        _grad_close(g, w, name)
+
+
+# ---- the config field and what still raises -----------------------------------------
+
+
+def _raw(**kw):
+    base = {"model_type": "ctc", "corpus": "toy", "label_type": "character",
+            "input_size": 40, "use_energy": False, "use_delta": False, "cmvn": "none",
+            "num_stack": 3, "num_skip": 3, "encoder_type": "blstm", "num_units": 8,
+            "num_layers": 2, "compute_dtype": BF16}
+    base.update(kw)
+    return base
+
+
+def test_yaml_compute_dtype_reaches_the_tasks_and_serving():
+    exp = experiment_from_dict(_raw())
+    task = exp.task(28)
+    assert task.model.encoder.compute_dtype == BF16
+    model = ctc_task.init_model(task, torch.Generator().manual_seed(0)).eval()
+    assert model.encoder.layers[0].bf16
+    wav = (np.random.RandomState(3).randn(2, NUM) * 0.1).astype(np.float32)
+    lens = np.asarray([NUM, 2500], np.int32)
+    ids, n = build_inference_fn(task, model)(wav, lens)
+    with torch.no_grad():
+        feats, fl = ctc_task.device_pipeline(task, {"inputs": torch.from_numpy(wav),
+                                                    "input_len": torch.from_numpy(lens)})
+        logits = model(feats, fl).logits
+    assert logits.dtype == torch.float32
+    best = logits.argmax(-1)
+    for row in range(2):  # greedy CTC: collapse repeats, drop blanks
+        want = [int(c) for i, c in enumerate(best[row, :int(model(feats, fl).logit_len[row])])
+                if (i == 0 or c != best[row, i - 1]) and c != task.model.blank_id]
+        assert ids[row, :int(n[row])].tolist() == want
+    tr = experiment_from_dict(_raw(model_type="transducer", encoder_type="lstm",
+                                   pred_num_units=8, embedding_dim=4, joint_dim=8)).task(28)
+    assert tr.model.encoder.compute_dtype == BF16
+
+
+def test_attention_and_streaming_at_bf16_raise():
+    for model_type in ("attention", "joint_ctc_attention"):
+        task = experiment_from_dict(_raw(model_type=model_type,
+                                         encoder_type="pyramidal_blstm")).task(28)
+        with pytest.raises(NotImplementedError, match="location-attention kernel"):
+            att_task.init_model(task)
+    with pytest.raises(NotImplementedError, match="location-attention kernel"):
+        Seq2SeqModel(Seq2SeqConfig(encoder=EncoderConfig(num_units=8, compute_dtype=BF16),
+                                   num_classes=5), input_dim=6)
+    task = experiment_from_dict(_raw(encoder_type="lstm")).task(28)
+    model = ctc_task.init_model(task)
+    with pytest.raises(NotImplementedError, match="streaming at compute_dtype bfloat16"):
+        streaming.build_streaming_fn(task, model, chunk_samples=1600)

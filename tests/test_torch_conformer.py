@@ -303,9 +303,16 @@ def test_invalid_and_unported_specs_raise():
                               pos_encoding="rotary"), D_IN)
     with pytest.raises(ValueError, match="pos_encoding"):
         Encoder(EncoderConfig(encoder_type="transformer", num_units=8, pos_encoding="alibi"), 3)
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         Encoder(EncoderConfig(encoder_type="conformer", num_units=8, num_heads=2,
-                              compute_dtype="bfloat16"), D_IN)
+                              compute_dtype="float16"), D_IN)
+    # bf16 (test_torch_bf16_models.py) builds, and its outputs stay float32
+    bf = Encoder(EncoderConfig(encoder_type="conformer", num_units=8, num_heads=2,
+                               conv_kernel_size=3, compute_dtype="bfloat16"), D_IN)
+    x, lens, _ = _inputs(25, d=D_IN)
+    with torch.no_grad():
+        out = bf(torch.from_numpy(x), torch.from_numpy(lens)).outputs
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     # "shifts" computes the same function as the grouped conv: one implementation
     a = Encoder(EncoderConfig(encoder_type="conformer", num_units=8, num_heads=2,
                               conv_kernel_size=3), D_IN, torch.Generator().manual_seed(0))

@@ -116,8 +116,13 @@ def test_unported_impls_and_bad_inputs_raise():
     for impl in ("scan", "optax", "pallas"):
         with pytest.raises(NotImplementedError):
             ctc_loss(logits, logit_len, labels, label_len, BLANK, impl=impl)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ctc_loss(logits.bfloat16(), logit_len, labels, label_len, BLANK)
+    # bf16 logits are cast to float32 before the kernel, as ctc_loss_pallas casts them
+    low = logits.bfloat16()
+    torch.testing.assert_close(ctc_loss(low, logit_len, labels, label_len, BLANK),
+                               ctc_loss(low.float(), logit_len, labels, label_len, BLANK),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ctc_loss(logits.half(), logit_len, labels, label_len, BLANK)
     with pytest.raises(ValueError, match="blank_id"):
         ctc_loss(logits, logit_len, labels, label_len, C)
     with pytest.raises(ValueError, match="integer"):

@@ -12,6 +12,9 @@ for the location-attention read 1e-5 on the alignment and 1e-4 on the context
 (a sum over T of weights times encoder values of order 1), and 1e-5 on its
 gradients (the same plain arithmetic recomputed on the same inputs); 1e-4
 where a recurrence runs 1198 steps or a whole model is held against the CPU.
+The bf16-stream kernels (``compute_dtype: bfloat16``) are held to their
+plain versions within two bf16 ulps (rtol 8e-3, atol 1e-5): both round the
+same float32 walk, summed in other orders.
 """
 
 import numpy as np
@@ -1219,3 +1222,86 @@ def test_streamed_session_on_card_matches_offline_and_cpu(dev, encoder_type):
     assert paused_rows == rows
     for x, y in zip(final, fns[2](paused_state)):
         assert torch.equal(x, y)
+
+
+# ---- bf16 streams (compute_dtype: bfloat16) -------------------------------------
+
+BF16_TOL = dict(atol=1e-5, rtol=8e-3)  # two bf16 ulps
+
+
+def _close_bf16(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES + [(40, 9, 512, [9] * 39 + [1])])
+def test_bf16_bidi_kernels_match_plain(dev, b, t, h, lengths):
+    """#1 (with ``cs``) and #2 with bf16 streams: the bf16 entries launch, the
+    float32 ones do not."""
+    xf, xb, whf, whb, mask = _inputs(dev, b, t, h, lengths, seed=h + 7)
+    xf, xb = xf.bfloat16(), xb.bfloat16()
+    gys = [torch.from_numpy(np.random.RandomState(h).randn(b, t, h).astype(np.float32))
+           .to(dev).bfloat16() for _ in range(2)]
+    before = (lstm_bidi.launches, lstm_bidi.launches_bf16, lstm_bidi_bwd.launches,
+              lstm_bidi_bwd.launches_bf16)
+    got = lstm_bidi_fwd(xf, xb, whf, whb, mask, 1.0, with_cs=True)
+    want = lstm_bidi_fwd_plain(xf, xb, whf, whb, mask, 1.0)
+    dx = lstm_bidi_bwd(xf, xb, whf, whb, mask, *want, *gys, 1.0)
+    torch.cuda.synchronize()
+    assert (lstm_bidi.launches, lstm_bidi.launches_bf16, lstm_bidi_bwd.launches,
+            lstm_bidi_bwd.launches_bf16) == (before[0], before[1] + 1, before[2], before[3] + 1)
+    for g, w in zip(got, want):
+        _close_bf16(g, w)
+    for g, w in zip(dx, lstm_bidi_bwd_plain(xf, xb, whf, whb, mask, *want, *gys, 1.0)):
+        _close_bf16(g, w)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", SHAPES)
+def test_bf16_layer_kernels_match_plain(dev, b, t, h, lengths):
+    """#3 (with ``cs``) and #4 with bf16 streams."""
+    x, _, wh, _, mask = _inputs(dev, b, t, h, lengths, seed=h + 8)
+    x = x.bfloat16()
+    gys = torch.from_numpy(np.random.RandomState(h + 1).randn(b, t, h).astype(np.float32))
+    gys = gys.to(dev).bfloat16()
+    before = (lstm_layer.launches, lstm_layer.launches_bf16, lstm_layer_bwd.launches_bf16)
+    got = lstm_layer_fwd(x, wh, mask, 0.5, with_cs=True)
+    want = lstm_layer_fwd_plain(x, wh, mask, 0.5)
+    dx = lstm_layer_bwd(x, wh, mask, *want, gys, 0.5)
+    torch.cuda.synchronize()
+    assert (lstm_layer.launches, lstm_layer.launches_bf16, lstm_layer_bwd.launches_bf16) == (
+        before[0], before[1] + 1, before[2] + 1)
+    for g, w in zip(got, want):
+        _close_bf16(g, w)
+    _close_bf16(dx, lstm_layer_bwd_plain(x, wh, mask, *want, gys, 0.5))
+
+
+def test_bf16_never_reaches_the_float32_kernels(dev):
+    """A bf16 BLSTM-CTC train step and a bf16 transducer encoder launch only
+    the bf16 instantiations: the float32 counters do not move."""
+    names = ("launches", "launches_bf16")
+    fns = (lstm_bidi, lstm_bidi_bwd, lstm_layer, lstm_layer_bwd)
+    before = {(f.__name__, n): getattr(f, n) for f in fns for n in names}
+    cfg = CTCConfig(encoder=EncoderConfig(encoder_type="blstm", num_units=24, num_layers=2,
+                                          compute_dtype="bfloat16"), num_classes=5)
+    model = CTCModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev)
+    feats = torch.from_numpy(np.random.RandomState(2).randn(3, 13, 10).astype(np.float32))
+    lens = torch.tensor([13, 6, 1])
+    out = model(feats.to(dev), lens.to(dev))
+    labels = torch.tensor([[1, 2], [3, -1], [-1, -1]], device=dev)
+    ctc_loss(out.logits, out.logit_len, labels, torch.tensor([2, 1, 0], device=dev)).sum() \
+        .backward()
+    tr = TransducerModel(TransducerConfig(
+        encoder=EncoderConfig(encoder_type="lstm", num_units=24, num_layers=2,
+                              compute_dtype="bfloat16"),
+        num_classes=6, pred_num_units=8, embedding_dim=4, joint_dim=12), 10).to(dev)
+    with torch.inference_mode():
+        f_proj, _ = tr.encode(feats.to(dev), lens.to(dev))
+    torch.cuda.synchronize()
+    moved = {k: getattr(f, n) - before[k] for f in fns for n in names
+             for k in [(f.__name__, n)]}
+    assert out.logits.dtype == torch.float32 and f_proj.dtype == torch.float32
+    assert moved == {("lstm_bidi", "launches"): 0, ("lstm_bidi", "launches_bf16"): 2,
+                     ("lstm_bidi_bwd", "launches"): 0, ("lstm_bidi_bwd", "launches_bf16"): 2,
+                     ("lstm_layer", "launches"): 0, ("lstm_layer", "launches_bf16"): 2,
+                     ("lstm_layer_bwd", "launches"): 0, ("lstm_layer_bwd", "launches_bf16"): 0}
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())

@@ -84,8 +84,11 @@ def test_bilstm_layer_matches_bidirectional_scan(impl):
 
 def test_input_checks_raise():
     xf, xb, whf, whb, mask = map(torch.from_numpy, _kernel_inputs())
-    with pytest.raises(NotImplementedError, match="bf16"):
+    # the streams share one dtype (float32 or bf16); wh and mask stay float32
+    with pytest.raises(ValueError, match="xproj_b must be torch.bfloat16"):
         lstm_bidi(xf.bfloat16(), xb, whf, whb, mask)
+    with pytest.raises(ValueError, match="wh_f must be torch.float32"):
+        lstm_bidi(xf.bfloat16(), xb.bfloat16(), whf.bfloat16(), whb, mask)
     with pytest.raises(ValueError, match="contiguous"):
         lstm_bidi(xf.transpose(0, 1).contiguous().transpose(0, 1), xb, whf, whb, mask)
     with pytest.raises(ValueError, match="meta"):
@@ -98,7 +101,7 @@ def test_input_checks_raise():
 
 @pytest.mark.parametrize("field,value", [
     ("use_peephole", True), ("num_proj", 4), ("clip_activation", 5.0),
-    ("encoder_type", "bgru"), ("compute_dtype", "bfloat16"),
+    ("encoder_type", "bgru"), ("compute_dtype", "float16"),
 ])
 def test_unported_encoder_options_raise(field, value):
     with pytest.raises(NotImplementedError):

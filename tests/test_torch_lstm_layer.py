@@ -138,8 +138,10 @@ def test_layer_rejects_bad_inputs():
         lstm_layer(x, wh[:, :8].contiguous(), mask)
     with pytest.raises(ValueError, match="float32"):
         lstm_layer(x, wh.double(), mask)
+    # bf16 streams run (test_torch_lstm_bf16.py), but not from a carried state
+    h0 = torch.zeros(x.shape[0], wh.shape[0])
     with pytest.raises(NotImplementedError, match="bf16"):
-        lstm_layer(x.bfloat16(), wh, mask)
+        lstm_layer(x.bfloat16(), wh, mask, initial_state=(h0, h0))
 
 
 @pytest.mark.parametrize("impl", ["scan", "pallas"])
