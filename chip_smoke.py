@@ -266,7 +266,28 @@ Phases; any failure exits non-zero and prints no result line:
 48. the conformer CTC model at d=512 x 8 in bf16 (the scale and dtype
     ``configs/ls960_conformer_ctc.yml`` recommends for LibriSpeech-960):
     logits and one train step card against CPU, timed train steps beside
-    phase 31's float32 ones.
+    phase 31's float32 ones;
+49. kernel #7 on bf16 encoder rows (``location_attend_bf16``, the attention
+    families at bfloat16) against its plain version at the float32
+    tolerances: ls960_joint's beam call (N=64, G=8) and greedy call (N=8),
+    csj_joint's beam call without keys (N=32, G=4, A=128, He=640); two
+    calls bitwise equal and equal to the float32 kernel on the rows
+    widened, two device launches per call, graph-replay times
+    beside the float32 kernel on the rows widened and the bound;
+50. ``configs/ls960_joint.yml`` at bf16, full width: card against CPU on 2 x
+    1 s (CTC logits within 5e-2 with argmax flips only at near-ties; greedy
+    ids equal, a row decoding apart only after a near-tie; the beam-8 best
+    after joint rescoring equal or a printed near-tie; one train step: terms
+    within 1e-3, gradients within 2e-2 of each maximum); 8 requests at beam
+    8 through ``bin/serve.make_server`` (bf16 #1 and ``location_attend_bf16``
+    alone: no float32 #7 call); Adam steps at B=32 x 12 s in bf16 beside
+    phase 17's float32 ones (exactly 5 bf16 #1, 5 bf16 #2, 1 #5);
+51. ``configs/csj_joint.yml`` at bf16: card against CPU (beam 4, rescored)
+    and one train step (the card's max-pool decisions replayed);
+52. ``configs/timit_attention.yml`` and ``ls960_joint_bpe.yml`` at bf16:
+    greedy card against CPU and one train step each; then the bf16
+    products' gradients, read off phases 45 and 48 (step times, the
+    conformer's cuBLAS time, gradients card against CPU).
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -396,6 +417,8 @@ KERNELS = {
 # entries in the same sources, each counted apart from its float32 one
 KERNELS.update({f"{name}_bf16": KERNELS[name] for name in (
     "lstm_bidi_fwd", "lstm_bidi_bwd", "lstm_layer_fwd", "lstm_layer_bwd")})
+# #7 on bf16 encoder rows (the attention families at bfloat16): its own C entry
+KERNELS["location_attend_bf16"] = KERNELS["location_attend"]
 
 
 class Bf16Count:
@@ -421,7 +444,8 @@ COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd
             "lstm_bidi_fwd_bf16": Bf16Count(lstm.lstm_bidi),
             "lstm_bidi_bwd_bf16": Bf16Count(lstm.lstm_bidi_bwd),
             "lstm_layer_fwd_bf16": Bf16Count(lstm.lstm_layer),
-            "lstm_layer_bwd_bf16": Bf16Count(lstm.lstm_layer_bwd)}
+            "lstm_layer_bwd_bf16": Bf16Count(lstm.lstm_layer_bwd),
+            "location_attend_bf16": Bf16Count(attention.location_attend)}
 NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
 # attention serving: configs/ls960_joint.yml at full width
 B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
@@ -808,22 +832,37 @@ def device_launches(fn, reps: int = 5) -> dict:
     recorded; in PR 14, three windows in three runs that recorded no
     kernel at all), never add them: a window that recorded nothing, or
     whose count of some kernel is not a whole number per call, is read
-    again, up to five windows."""
+    again, up to ten windows. Scheduled windows and plain ones (a profile
+    around the spin kernel and the calls, as ``device_busy`` reads a step)
+    take turns: late in a long run the scheduled windows have come back
+    empty many times in a row (31 in phase 44 of one run, 5 of 5 in phase
+    43 of another), and four windows of either kind have come back empty or
+    short before the fifth read every launch."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    for attempt in range(5):
+    for attempt in range(10):
         events = []
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+        if attempt % 2 == 0:
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+                torch.cuda._sleep(2_000_000)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        else:
             fn()
             torch.cuda.synchronize()
-            prof.step()
-            torch.cuda._sleep(2_000_000)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(2_000_000)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.key_averages()
         out = {e.key.split("(")[1].split("::")[-1]: {"per_call": e.count / reps,
                                                       "us": e.self_device_time_total / e.count}
                for e in events if e.self_device_time_total > 0 and "spin_kernel" not in e.key}
@@ -1388,17 +1427,19 @@ def tiled_attend_inputs(args, b, group: int) -> list:
 
 
 def attend_work(lengths, group: int, t=ATT_T, a=ATT_A, he=ATT_HE, c=ATT_C, w=ATT_W,
-                with_b: bool = True, counts: bool = False, keys: bool = True):
+                with_b: bool = True, counts: bool = False, keys: bool = True,
+                enc_elem: int = F32):
     """Bytes and float32 operations one read needs on these inputs, for
     ``group`` rows per utterance of ``lengths``: per utterance the keys of its
     valid frames, the enc rows of its valid frames (every frame when it has
-    none: its weights are 1/T) and its mask, once; per row prev and q in,
-    align and ctx out; the shared weights (and b) once. Masked frames need no
-    keys or enc row (their weight is 0)."""
+    none: its weights are 1/T; ``enc_elem`` bytes a value, 2 for bf16 rows)
+    and its mask, once; per row prev and q in, align and ctx out; the shared
+    weights (and b) once. Masked frames need no keys or enc row (their
+    weight is 0)."""
     moved = ops = 0.0
     for length in lengths:
         frames = length if length > 0 else t
-        moved += (length * a * F32 if keys else 0) + frames * he * F32 + t
+        moved += (length * a * F32 if keys else 0) + frames * he * enc_elem + t
         moved += group * ((t + a) * F32 + (t + he) * F32)
         # per row and valid frame: conv taps, location projection, score (add,
         # add, add, tanh, multiply-add), context; per row and frame: softmax
@@ -1740,8 +1781,12 @@ def ops_on_shapes(fn, shapes) -> list:
 
 def serve_att_requests(task, model, gpu: str, name: str = "ls960_joint", beam: int = BEAM,
                        layers: int = LAYERS, units=CHAR_UNITS,
-                       label_type: str = "character") -> dict:
-    """8 concurrent /recognize requests at the beam; returns the launches they caused."""
+                       label_type: str = "character", walk: str = "lstm_bidi_fwd",
+                       read: str = "location_attend") -> dict:
+    """8 concurrent /recognize requests at the beam; returns the launches they
+    caused: ``layers`` of the ``walk`` counter per batch, one of the ``read``
+    counter per decoder step (the bf16 entries' counters at bf16), and no
+    other kernel."""
     responses, lat, counts, batches, health = post_requests(
         task, model, ATT_REQUEST_SECONDS, seed=15, beam_width=beam, units=units,
         label_type=label_type)
@@ -1758,9 +1803,9 @@ def serve_att_requests(task, model, gpu: str, name: str = "ls960_joint", beam: i
     print_latency(f"{name} request latency, beam {beam}", responses, lat, batches, gpu)
     print(f"{name} attention serving path launches: {counts}", flush=True)
     k = seq2seq.decode_unroll_factor(cfg.max_decode_length)
-    steps = counts["location_attend"]
-    others = [n for n in COUNTERS if n not in ("lstm_bidi_fwd", "location_attend")]
-    if (batches < 1 or counts["lstm_bidi_fwd"] != layers * batches or steps % k
+    steps = counts[read]
+    others = [n for n in COUNTERS if n not in (walk, read)]
+    if (batches < 1 or counts[walk] != layers * batches or steps % k
             or not k * batches <= steps <= cfg.max_decode_length * batches
             or any(counts[n] for n in others)):
         raise RuntimeError(f"attention serving launches {counts} for {batches} batch(es)")
@@ -3420,18 +3465,26 @@ def headline_batch(seed: int = 0) -> dict:
             "weight": np.ones((B_HEAD,), np.float32)}
 
 
-def check_bf16_step(task, task_mod, params_cpu, dev, name: str, seed: int = 46) -> dict:
+def check_bf16_step(task, task_mod, params_cpu, dev, name: str, seed: int = 46,
+                    max_labels: int = 12) -> dict:
     """One bf16 train step's loss terms and gradients, card against CPU on 2 x 1
     s (dropout off): each term within BF16_LOSS_RTOL, each gradient within
-    BF16_GRAD_RTOL of its largest entry."""
-    batch = train_batch(2, 1.0, seed=seed, max_labels=12)
-    res = []
-    for device in (dev, torch.device("cpu")):
+    BF16_GRAD_RTOL of its largest entry. The CPU takes the card's max-pool
+    decisions (``pool_decisions``: a VGG encoder's)."""
+    batch = train_batch(2, 1.0, seed=seed, max_labels=max_labels)
+    res, decisions, flips = [], [], []
+    for replay, device in ((False, dev), (True, torch.device("cpu"))):
         tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         leaves = {k: v.to(device).clone().requires_grad_(True) for k, v in params_cpu.items()}
-        loss, terms = task_mod.forward_loss(leaves, task, tb, True)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        with pool_decisions(decisions, replay, flips):
+            loss, terms = task_mod.forward_loss(leaves, task, tb, True)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
         res.append(({k: float(v.detach()) for k, v in terms.items()}, [g.cpu() for g in grads]))
+    if decisions or (flips and not task.model.encoder.has_vgg):
+        raise RuntimeError(f"max-pool decisions left over: {len(decisions)}, flips {flips}")
+    if flips:
+        print(f"max-pools replayed on the CPU: {len(flips)} calls, {sum(flips)} windows whose "
+              "CPU argmax differs from the card's", flush=True)
     (tg, gg), (tc, gc) = res
     loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
     errs = {n: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
@@ -3632,6 +3685,249 @@ def run_bf16(args, dev, gpu: str, t0: float, params_ls100: dict, conformer32: di
     return counts, kernels, numbers
 
 
+# ---- phases 49-52: the attention families at compute_dtype bfloat16 ----------------
+
+# phase 49's calls of #7 on bf16 rows: rows per utterance, A, He, keys, seed
+ATT_BF16_CASES = {
+    "grouped": (BEAM, ATT_A, ATT_HE, True, 11),  # ls960_joint's beam-8 read
+    "n8": (1, ATT_A, ATT_HE, True, 10),  # its greedy read
+    "csj_grouped": (4, CSJ_A, CSJ_HE, False, 70),  # csj_joint's beam-4 read, no keys
+}
+BF16_ELEM = 2  # bytes of a bf16 encoder value
+
+
+def check_attention_kernel_bf16(dev, gpu: str) -> dict:
+    """Phase 49: #7 on bf16 encoder rows (``location_attend_bf16``) against
+    its plain version on the same rows, at the float32 tolerances (both widen
+    the rows exactly and sum in float32): ls960_joint's beam call (N=64,
+    G=8) and greedy call (N=8), and csj_joint's beam call without keys
+    (N=32, G=4, A=128, He=640), lengths that include 1, T and 0. Each: the
+    launch counted on ``launches_bf16`` alone, float32 outputs, two calls
+    bitwise equal and equal to the float32 kernel's on the same values
+    widened (the same sums in the same order), two device launches per call
+    (energies, context), the time from graph replays (plain, kernel, kernel,
+    plain) beside that float32 kernel's and the bound."""
+    out = {}
+    for name, (group, a, he, keys, seed) in ATT_BF16_CASES.items():
+        rng = np.random.RandomState(seed)
+        lengths = [ATT_T, 1, 0] + [int(x) for x in rng.randint(1, ATT_T + 1, B_ATT - 3)]
+        args, b = attend_inputs(dev, B_ATT, lengths, seed=seed, group=group, a=a, he=he)
+        if not keys:
+            args[0] = None  # a pure location scorer: b alone stands in the keys' place
+        args[1] = args[1].bfloat16()
+        wide = [*args[:1], args[1].float(), *args[2:]]  # the same values in float32
+        kw = dict(b=b, group=group)
+        shape = (f"N={B_ATT * group} (G={group}) T={ATT_T} A={a} He={he} C={ATT_C} W={ATT_W}"
+                 + ("" if keys else ", no keys") + ", bf16 rows")
+        reset_counts()
+        got = attention.location_attend(*args, 1.0, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != dict(NONE_LAUNCHED, location_attend_bf16=1):
+            raise RuntimeError(f"location_attend on bf16 rows launched {counts}")
+        want = attention.location_attend_plain(*args, 1.0, **kw)
+        if not all(x.dtype == torch.float32 for x in (*got, *want)):
+            raise RuntimeError(f"location_attend on bf16 rows: outputs {[x.dtype for x in got]}")
+        err = max(check(f"location_attend_bf16 {name} {shape}: align", got[1:], want[1:],
+                        ATT_ALIGN_ATOL),
+                  check(f"location_attend_bf16 {name} {shape}: ctx", got[:1], want[:1],
+                        ATT_CTX_ATOL))
+        for row, length in enumerate(x for x in lengths for _ in range(group)):
+            if length == 0 and not torch.allclose(got[1][row], torch.full((ATT_T,), 1.0 / ATT_T,
+                                                                           device=dev)):
+                raise RuntimeError(f"location_attend_bf16 {name}: the length-0 row {row} is "
+                                   "not 1/T")
+        again = attention.location_attend(*args, 1.0, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+            raise RuntimeError(f"location_attend_bf16 {name}: two calls differ")
+        # the float32 kernel on the same values runs the same sums in the same order
+        same = attention.location_attend(*wide, 1.0, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(same[0], got[0]) and torch.equal(same[1], got[1])):
+            raise RuntimeError(f"location_attend_bf16 {name}: the float32 kernel on the rows "
+                               "widened gives other bits")
+        kernel = lambda: attention.location_attend(*args, 1.0, **kw)  # noqa: E731
+        plain = lambda: attention.location_attend_plain(*args, 1.0, **kw)  # noqa: E731
+        float32 = lambda: attention.location_attend(*wide, 1.0, **kw)  # noqa: E731
+        launches = device_launches(kernel)
+        per_call = {k: v["per_call"] for k, v in launches.items()}
+        if sorted(per_call.values()) != [1.0, 1.0]:
+            raise RuntimeError(f"location_attend_bf16 {name}: device launches per call "
+                               f"{per_call}; expected the energies and the context once each")
+        p = [graph_ms(plain, 50)]
+        k = [graph_ms(kernel, 50) for _ in range(2)]
+        f32 = graph_ms(float32, 50)
+        p.append(graph_ms(plain, 50))
+        r = out[name] = dict(ms=sum(k) / 2, ms_runs=k, plain_ms=sum(p) / 2, plain_ms_runs=p,
+                             float32_ms=f32, max_abs_err=err, library_ms=None,
+                             deterministic=True, shape=shape, device_launches=launches,
+                             **attend_work(lengths, group, a=a, he=he, keys=keys,
+                                           enc_elem=BF16_ELEM))
+        print(f"phase location_attend_bf16 {name} {shape}: kernel {r['ms'] * 1e3:.2f} us (runs "
+              f"{k[0] * 1e3:.2f}, {k[1] * 1e3:.2f}; graph replays), float32 kernel on the rows "
+              f"widened {f32 * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us (runs "
+              f"{p[0] * 1e3:.2f}, {p[1] * 1e3:.2f}), bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']}), no single library call, max abs err {err:.3e}, two calls "
+              "bitwise equal and equal to the float32 kernel's, device launches per call "
+              + ", ".join(f"{key} {v['per_call']:g} ({v['us']:.2f} us)"
+                          for key, v in launches.items()) + f"  [{gpu}]", flush=True)
+    return out
+
+
+def greedy_flips(what: str, ids_card, ids_cpu, logits_card, logits_cpu) -> dict:
+    """Greedy ids card against CPU at bf16: equal, except that a row may take
+    another token where the CPU's top two logits lie within BF16_LOGIT_ATOL
+    (a near-tie that a bf16 rounding flips; the row decodes apart after it).
+    The logits of each row's steps up to its first difference within
+    BF16_LOGIT_ATOL."""
+    err, flips = 0.0, []
+    for row in range(ids_cpu.shape[0]):
+        diff = (ids_card[row] != ids_cpu[row]).nonzero()
+        stop = int(diff[0]) if len(diff) else ids_cpu.shape[1] - 1
+        err = max(err, float((logits_card[row, :stop + 1] - logits_cpu[row, :stop + 1])
+                             .abs().max()))
+        if len(diff):
+            top2 = logits_cpu[row, stop].topk(2).values
+            flips.append({"row": row, "step": stop, "top2_gap": float(top2[0] - top2[1])})
+    print(f"{what} greedy card vs CPU at bf16: logits max abs err {err:.3e} up to each row's "
+          f"first differing id (tolerance {BF16_LOGIT_ATOL:g}); ids equal: {not flips}"
+          + (f"; rows that decode apart (the CPU's top-2 gap at the first difference): "
+             f"{flips}" if flips else ""), flush=True)
+    if not err <= BF16_LOGIT_ATOL or any(f["top2_gap"] > BF16_LOGIT_ATOL for f in flips):
+        raise RuntimeError(f"{what} greedy at bf16 on the card disagrees with the CPU")
+    return {"logits_max_abs_err": err, "ids_equal": not flips, "flips": flips}
+
+
+def beam_ties(what: str, card, cpu) -> dict:
+    """The best hypothesis after rescoring, card against CPU at bf16: equal, or
+    a near-tie: the two hypotheses' scores within BF16_LOGIT_ATOL times (1 +
+    the longer one's length) (a score sums that many log-probs, each within
+    the logits' tolerance): the CPU's scores of both where its beam holds
+    the card's best, else each device's own best score. Each difference is
+    printed."""
+    rows = []
+    for row in range(cpu.tokens.shape[0]):
+        if (torch.equal(card.tokens[row, 0], cpu.tokens[row, 0])
+                and int(card.lengths[row, 0]) == int(cpu.lengths[row, 0])):
+            continue
+        held = [j for j in range(cpu.tokens.shape[1])
+                if torch.equal(cpu.tokens[row, j], card.tokens[row, 0])]
+        gap = float(cpu.scores[row, 0] - (cpu.scores[row, held[0]] if held
+                                          else card.scores[row, 0]))
+        longest = max(int(card.lengths[row, 0]), int(cpu.lengths[row, 0]))
+        rows.append({"row": row, "score_gap": gap, "in_cpu_beam": bool(held),
+                     "tolerance": BF16_LOGIT_ATOL * (1 + longest),
+                     "card_len": int(card.lengths[row, 0]), "cpu_len": int(cpu.lengths[row, 0])})
+    err = float((card.scores[:, 0] - cpu.scores[:, 0]).abs().max())
+    print(f"{what} beam card vs CPU at bf16: best tokens equal: {not rows}; best scores max abs "
+          f"err {err:.3e}" + (f"; near-ties: {rows}" if rows else ""), flush=True)
+    if any(abs(r["score_gap"]) > r["tolerance"] for r in rows):
+        raise RuntimeError(f"{what} beam at bf16: the card's best hypothesis is no near-tie of "
+                           f"the CPU's: {rows}")
+    return {"tokens_equal": not rows, "best_score_max_abs_err": err, "ties": rows}
+
+
+def check_att_model_bf16(task, model_cpu, model_dev, dev, name: str, beam: int,
+                         length_penalty: float) -> dict:
+    """An attention config at bf16, card against CPU on 2 x 1 s: bf16 encoder
+    rows on both, the CTC logits (joint models; ``ids_with_ties``), the
+    greedy decode (``greedy_flips``) and, with ``beam``, the beam re-ranked
+    by joint rescoring at the config's CTC weight (``beam_ties``)."""
+    rng = np.random.RandomState(13)
+    wav = (rng.randn(2, SR) * 0.1).astype(np.float32)
+    lens = np.asarray([SR, 9600], np.int32)
+    wav[1, 9600:] = 0.0
+    cfg = task.model
+    outs = []
+    for model, device in ((model_cpu, torch.device("cpu")), (model_dev, dev)):
+        with torch.inference_mode():
+            feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(device),
+                                               "input_len": torch.from_numpy(lens).to(device)})
+            enc = seq2seq.encode(model, feats, fl)
+            greedy = seq2seq.greedy_decode(model, feats, fl, precomputed=enc)
+            res = None
+            if beam:
+                res = attention_beam_search(model, feats, fl, beam_width=beam,
+                                            length_penalty=length_penalty, precomputed=enc)
+                if cfg.is_joint:
+                    res = joint_rescore(res, cfg.ctc_loss_weight, cfg.num_classes,
+                                        length_penalty)
+                res = res._replace(**{f: getattr(res, f).cpu()
+                                      for f in ("tokens", "lengths", "scores")})
+        outs.append((enc.outputs.dtype, enc.lengths.cpu(),
+                     None if enc.ctc_logits is None else enc.ctc_logits.cpu(),
+                     greedy.predicted_ids.cpu(), greedy.logits.cpu(), res))
+    (dc, nc, cc, ic, gc, rc), (dg, ng, cg, ig, gg, rg) = outs
+    if (dc, dg) != (torch.bfloat16, torch.bfloat16) or not torch.equal(nc, ng):
+        raise RuntimeError(f"{name} at bf16: encoder rows {dc} / {dg}, lengths {nc} / {ng}")
+    if not all(bool(torch.isfinite(x).all()) for x in (gg, *([cg] if cg is not None else []))):
+        raise RuntimeError(f"{name} at bf16: outputs on the card are not finite")
+    out = {"greedy": greedy_flips(name, ig, ic, gg, gc)}
+    if cc is not None:
+        out["ctc_logits"] = ids_with_ties(f"{name} CTC logits, 2 x 1 s", cg, cc, nc)
+    if beam:
+        out[f"beam{beam}"] = beam_ties(f"{name} beam-{beam}" + (" rescored" if cfg.is_joint
+                                                               else ""), rg, rc)
+    return out
+
+
+def run_attention_bf16(args, dev, gpu: str, t0: float, joint32: dict) -> tuple:
+    """Phases 49-52; ``joint32``: phase 17's float32 ls960_joint step, from the
+    same run. Returns (launch counts by path, #7's bf16 numbers, the other
+    numbers)."""
+    kernel = check_attention_kernel_bf16(dev, gpu)
+    clock("kernel #7 on bf16 rows checked", t0)
+    counts, numbers = {}, {}
+    # 50. ls960_joint at bf16, full width
+    task = ls960_joint_task(compute_dtype=BF16)
+    params = att_task.init_params(task, torch.Generator().manual_seed(0))
+    cpu = att_task.init_model(task).eval()
+    cpu.load_state_dict(params)
+    model = copy.deepcopy(cpu).to(dev).eval()
+    r = {"card_vs_cpu": check_att_model_bf16(task, cpu, model, dev, "ls960_joint", BEAM,
+                                             LS960_JOINT["length_penalty"])}
+    r["train_step_card_vs_cpu"] = check_bf16_step(
+        ls960_joint_task(compute_dtype=BF16, dropout=1.0, scheduled_sampling_prob=0.0),
+        att_task, params, dev, "ls960_joint", seed=27, max_labels=6)
+    clock("ls960_joint bf16 card == CPU", t0)
+    counts["bf16_att_serving"] = serve_att_requests(
+        task, model, gpu, "ls960_joint bf16", walk="lstm_bidi_fwd_bf16",
+        read="location_attend_bf16")
+    del model
+    step = time_train_steps(
+        "ls960_joint bf16", task, att_task, params, dev, gpu, args.profile_out,
+        dict(NONE_LAUNCHED, lstm_bidi_fwd_bf16=LAYERS, lstm_bidi_bwd_bf16=LAYERS, ctc_loss=1),
+        LAYERS, shape=f"T={T_PYR} -> T'={ATT_T}", global_step=ATT_TRAIN_STEP)
+    print_kinds("ls960_joint bf16", step, gpu)
+    counts["bf16_att_training"] = step["launches"]
+    keys = ("ms", "utts_per_sec", "peak_gib", "busy_share", "device_ms", "by_kind", "launches")
+    r[BF16] = {k: step[k] for k in keys}
+    r["float32"] = {k: joint32[k] for k in keys}
+    print(f"phase ls960_joint train step B={B_TRAIN} x 12 s: float32 (phase 17) "
+          f"{joint32['ms']:.3f} ms ({joint32['device_ms']:.3f} ms of device time, "
+          f"{joint32['peak_gib']:.3f} GiB), bf16 {step['ms']:.3f} ms ({step['device_ms']:.3f} "
+          f"ms of device time, {step['peak_gib']:.3f} GiB)  [{gpu}]", flush=True)
+    numbers["ls960_joint"] = r
+    clock("ls960_joint served and trained at bf16", t0)
+    # 51. csj_joint, 52. timit_attention and ls960_joint_bpe: card == CPU and one step
+    for name, seed, max_labels, beam in (("csj_joint", 63, 6, True),
+                                         ("timit_attention", 64, 6, False),
+                                         ("ls960_joint_bpe", 65, 2, False)):
+        raw = raw_config(name) | {"compute_dtype": BF16}
+        task, _, params, cpu, model = family_models(raw, att_task, dev)
+        numbers[name] = {
+            "card_vs_cpu": check_att_model_bf16(task, cpu, model, dev, name,
+                                                raw["beam_width"] if beam else 0,
+                                                raw.get("length_penalty", 0.0)),
+            "train_step_card_vs_cpu": check_bf16_step(
+                family_task(raw, dropout=1.0, scheduled_sampling_prob=0.0)[0], att_task,
+                params, dev, name, seed=seed, max_labels=max_labels)}
+        del model
+        clock(f"{name} bf16 card == CPU", t0)
+    return counts, kernel, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3713,9 +4009,12 @@ def run(args, dev, gpu: str, work: Path) -> int:
           f"{att_task.scheduled_sampling_prob(att, ATT_TRAIN_STEP):g}, CTC lambda "
           f"{att_task.ctc_lambda(att, ATT_TRAIN_STEP):g}, guided-attention weight "
           f"{att_task.ga_weight_schedule(att, ATT_TRAIN_STEP):g}", flush=True)
-    time_train_steps("ls960_joint", att, att_task, att_params, dev, gpu, args.profile_out,
-                     dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1),
-                     LAYERS, shape=f"T={T_PYR} -> T'={ATT_T}", global_step=ATT_TRAIN_STEP)
+    joint32 = time_train_steps("ls960_joint", att, att_task, att_params, dev, gpu,
+                               args.profile_out,
+                               dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS,
+                                    ctc_loss=1),
+                               LAYERS, shape=f"T={T_PYR} -> T'={ATT_T}",
+                               global_step=ATT_TRAIN_STEP)
     counts["att_training"] = train_one_epoch(
         "ls960_joint", LS960_JOINT, gpu,
         ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "location_attend"), work / "ls960_joint")
@@ -3758,6 +4057,22 @@ def run(args, dev, gpu: str, work: Path) -> int:
     bf16_counts, bf16_kernels, bf16_numbers = run_bf16(
         args, dev, gpu, t0, params_cpu, conformer["conformer_ctc_512x8_train_step"])
     counts.update(bf16_counts)
+    att_bf16_counts, att_bf16_kernel, att_bf16_numbers = run_attention_bf16(
+        args, dev, gpu, t0, joint32)
+    counts.update(att_bf16_counts)
+    # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
+    head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
+    cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
+    f1 = {"headline_grad_rel_err": head["card_vs_cpu"]["grad_rel_err"],
+          "headline_bf16_ms": head[BF16]["ms"],
+          "conformer_512x8_grad_rel_err": conf["card_vs_cpu"]["grad_rel_err"],
+          "conformer_512x8_bf16_ms": conf[BF16]["ms"], "conformer_512x8_cublas": cublas}
+    print(f"bf16 products' gradients from the float32 cotangent: headline bf16 step "
+          f"{f1['headline_bf16_ms']:.3f} ms, gradients card vs CPU "
+          f"{f1['headline_grad_rel_err']:.2e} of their maximum (gate {BF16_GRAD_RTOL:g}); "
+          f"conformer 512 x 8 bf16 step {f1['conformer_512x8_bf16_ms']:.3f} ms, cuBLAS "
+          f"{cublas['ms']:.3f} ms in {cublas['launches']} launches, gradients "
+          f"{f1['conformer_512x8_grad_rel_err']:.2e} of their maximum  [{gpu}]", flush=True)
 
     # "launches": the count on the path that ported the kernel (CTC training
     # for #1, #2, #5, #6; attention serving for #7; transducer training for
@@ -3859,9 +4174,24 @@ def run(args, dev, gpu: str, work: Path) -> int:
             **{shape: {k: v for k, v in x.items() if k != "ms_runs"}
                for shape, x in shapes.items() if shape != main},
         })
+    # #7 on bf16 rows (phase 49): launches on the ls960_joint bf16 serving path,
+    # numbers at its beam call, the greedy and csj_joint calls beside them
+    r = att_bf16_kernel["grouped"]
+    entries.append({
+        "name": "location_attend_bf16", "route": "cuda", **KERNELS["location_attend_bf16"],
+        "launches": counts["bf16_att_serving"]["location_attend_bf16"],
+        **{f"launches_{p}": c["location_attend_bf16"] for p, c in counts.items()},
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        **{k: r[k] for k in ("shape", "float32_ms", "ms_runs", "plain_ms_runs")},
+        "device_launches": {k: v["per_call"] for k, v in r["device_launches"].items()},
+        **{name: {k: v for k, v in x.items() if k != "device_launches"}
+           for name, x in att_bf16_kernel.items() if name != "grouped"},
+    })
     print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer,
                       "families": families, "streaming": stream_numbers,
-                      "bf16": bf16_numbers}), flush=True)
+                      "bf16": dict(bf16_numbers, f1=f1),
+                      "attention_bf16": att_bf16_numbers}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,11 @@
 // One location-aware (hybrid) attention read, for Hopper (sm_90a), float32,
 // for N rows that come in groups of G rows per utterance (the beam's W
 // rows of one utterance share its encoder output; greedy decoding has G = 1).
+// The encoder rows may be bf16 (compute_dtype: bfloat16, whose encoder emits
+// bf16): location_attend_bf16 reads them so, widens each value where it is
+// loaded and keeps every sum, ctx and align in float32, as the Pallas kernel
+// does on bf16 enc_ref rows (its out_shape is float32). Keys, q, prev and the
+// weights stay float32 in both modes.
 //
 // Replaces the TPU kernel
 // tensorflow_end2end_speech_recognition_tpu/ops/pallas/attention_kernel.py
@@ -22,8 +27,8 @@
 // What bounds it. The beam's call at ls960_joint widths (N = 64 rows, G = 8,
 // so U = 8 utterances; T = 300, A = 256, He = 1024, C = 10, W = 101) needs
 // each utterance's keys [T, A] and enc [T, He] once: 12.3 MB at full
-// length, 3.7 us at 3.35 TB/s, and small enough to stay in the 50 MB L2
-// over a decode's 120 calls; its arithmetic is about 200 MFLOP (3 us at
+// length, 3.7 us at 3.35 TB/s (7.4 MB with bf16 rows: enc is 4.9 MB, not
+// 9.8), and small enough to stay in the 50 MB L2 over a decode's 120 calls; its arithmetic is about 200 MFLOP (3 us at
 // 67 TFLOP/s). Neither sets the pace. An accurate tanhf and the C-term
 // location product take some 32 instructions per (row, frame, unit), so the
 // energies are bound by instruction issue, and each block's staging and
@@ -64,9 +69,14 @@
 //    16-byte aligned). The frames are split over the block's 32 (8) frame
 //    slices, whose sums are added by shuffles and then over the 8 warps, in
 //    order. Longer T reads enc from global memory in chunks of 512 frames.
+//    bf16 rows: the tile holds the bf16 values (half the bytes), 4 per
+//    8-byte load (2 bytes when He % 4 != 0, enc is not 8-byte aligned or
+//    ctx not 16-byte aligned), each widened to float32 by a shift or a mask
+//    before its G FMAs; the sums and their order are the float32 pass's.
 // Every sum has a fixed order, the same for any G: the result is
 // deterministic, and a row's bits do not depend on its group.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -134,7 +144,7 @@ __device__ __forceinline__ float warp_sum_scatter(float (&v)[kF], int lane) {
 
 // An asynchronous 4-byte copy from global to shared memory; `copy` false
 // writes 0 and reads nothing (src must still be a global address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool copy) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool copy) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(copy ? 4 : 0)
@@ -142,7 +152,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool cop
 }
 
 // The same for 16 bytes (both addresses 16-byte aligned), through L2 only.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool copy) {
+// The same for 8 bytes (both addresses 8-byte aligned).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool copy) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(copy ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool copy) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(copy ? 16 : 0)
@@ -352,16 +370,53 @@ location_energies(const float* __restrict__ keys,          // [U, T, A] or null
   }
 }
 
-template <int kVec>
-struct VecOf;
+// kVec columns of enc of type In: the raw element a thread loads (`Raw`),
+// its float32 accumulator (`Acc`), and `widen` from one to the other. A
+// bf16 value's bits are the upper half of its float32's.
+template <typename In, int kVec>
+struct EncCols;
 template <>
-struct VecOf<1> {
-  using type = float;
+struct EncCols<float, 1> {
+  using Raw = float;
+  using Acc = float;
+  __device__ static float widen(float x) { return x; }
 };
 template <>
-struct VecOf<4> {
-  using type = float4;
+struct EncCols<float, 4> {
+  using Raw = float4;
+  using Acc = float4;
+  __device__ static float4 widen(const float4& x) { return x; }
 };
+template <>
+struct EncCols<__nv_bfloat16, 1> {
+  using Raw = unsigned short;  // the bf16 bits
+  using Acc = float;
+  __device__ static float widen(unsigned short x) { return __uint_as_float((unsigned)x << 16); }
+};
+template <>
+struct EncCols<__nv_bfloat16, 4> {
+  using Raw = uint2;  // 4 bf16 values, element 2k in the low half of word k
+  using Acc = float4;
+  __device__ static float4 widen(const uint2& x) {
+    return make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                       __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+  }
+};
+
+// A copy of one raw element from global to shared memory (0 when `copy` is
+// false): asynchronous for 4, 8 and 16 bytes; cp.async has no 2-byte form,
+// so a single bf16 is copied by the thread.
+template <typename Raw>
+__device__ __forceinline__ void stage_raw(Raw* dst, const Raw* src, bool copy) {
+  if constexpr (sizeof(Raw) == 16)
+    cp_async16(dst, src, copy);
+  else if constexpr (sizeof(Raw) == 8)
+    cp_async8(dst, src, copy);
+  else if constexpr (sizeof(Raw) == 4)
+    cp_async4(dst, src, copy);
+  else
+    *dst = copy ? *src : Raw(0);
+}
 
 __device__ __forceinline__ void fma_vec(float a, float x, float& acc) { acc = fmaf(a, x, acc); }
 __device__ __forceinline__ void fma_vec(float a, const float4& x, float4& acc) {
@@ -370,20 +425,22 @@ __device__ __forceinline__ void fma_vec(float a, const float4& x, float4& acc) {
   acc.z = fmaf(a, x.z, acc.z);
   acc.w = fmaf(a, x.w, acc.w);
 }
-
-template <int kVec>
+template <typename In, int kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-location_context(const float* __restrict__ enc,           // [U, T, He]
+location_context(const In* __restrict__ enc,              // [U, T, He]
                  const unsigned char* __restrict__ mask,  // [U, T] bool
                  const float* __restrict__ e,             // [N, T]
                  float* __restrict__ ctx,                 // [N, He]
                  float* __restrict__ align,               // [N, T]
                  int G, int T, int He) {
-  using Vec = typename VecOf<kVec>::type;
+  using Cols = EncCols<In, kVec>;
+  using Raw = typename Cols::Raw;
+  using Vec = typename Cols::Acc;
   constexpr int kTpf = kCols / kVec;        // threads per frame
   constexpr int kSlices = kThreads / kTpf;  // frames a block reads at once
-  // T <= kTChunk: the block's kCols columns of enc for the frames it needs
-  extern __shared__ __align__(16) float tile_s[];  // [T, kCols]
+  // T <= kTChunk: the block's kCols columns of enc for the frames it needs, as In
+  extern __shared__ __align__(16) unsigned char tile_bytes[];  // [T, kCols]
+  Raw* tile_s = reinterpret_cast<Raw*>(tile_bytes);             // [T, kTpf]
   __shared__ float w_s[kRows][kTChunk];
   __shared__ float m_s[kRows], s_s[kRows];  // each row's max and 1 / sum of exp
   __shared__ unsigned end_s[kWarps];
@@ -396,7 +453,7 @@ location_context(const float* __restrict__ enc,           // [U, T, He]
   const int j = tid % kTpf, slice = tid / kTpf;
   const int col = blockIdx.y * kCols + j * kVec;  // this thread's first column
   const bool has_col = col < He;
-  const float* encc = enc + (size_t)u * T * He + col;
+  const In* encc = enc + (size_t)u * T * He + col;
   const bool one_chunk = T <= kTChunk;
 
   // one past the utterance's last valid frame: past it every weight is
@@ -410,14 +467,9 @@ location_context(const float* __restrict__ enc,           // [U, T, He]
   for (int w = 0; w < kWarps; ++w) last = max(last, end_s[w]);
   const int t_end = last > 0 ? (int)last : T;
   if (one_chunk)  // enc does not depend on the energies: copy it now
-    for (int i = slice; i < t_end; i += kSlices) {
-      float* dst = tile_s + i * kCols + j * kVec;
-      const float* src = has_col ? encc + (size_t)i * He : enc;
-      if constexpr (kVec == 4)
-        cp_async16(dst, src, has_col);
-      else
-        cp_async4(dst, src, has_col);
-    }
+    for (int i = slice; i < t_end; i += kSlices)
+      stage_raw(tile_s + i * kTpf + j,
+                reinterpret_cast<const Raw*>(has_col ? encc + (size_t)i * He : enc), has_col);
 
   // the energies are the previous launch's: wait for it (it lets this grid
   // start early, so the copies above overlap its last blocks)
@@ -468,18 +520,18 @@ location_context(const float* __restrict__ enc,           // [U, T, He]
   for (int r = 0; r < kRows; ++r) acc[r] = Vec{};
   if (one_chunk) {
     if (has_col) {
-      const Vec* tv = reinterpret_cast<const Vec*>(tile_s) + j;
+      const Raw* tv = tile_s + j;
 #pragma unroll 4
       for (int i = slice; i < t_end; i += kSlices) {
-        const Vec x = tv[i * kTpf];
+        const Vec x = Cols::widen(tv[i * kTpf]);
 #pragma unroll
         for (int r = 0; r < kRows; ++r)
           if (r < rows) fma_vec(w_s[r][i], x, acc[r]);
       }
     }
   } else {
-    const Vec* encv = reinterpret_cast<const Vec*>(encc);
-    const size_t row = He / kVec;  // Vec elements per frame
+    const Raw* encv = reinterpret_cast<const Raw*>(encc);
+    const size_t row = He / kVec;  // Raw elements per frame
     for (int c0 = 0; c0 < t_end; c0 += kTChunk) {
       const int len = min(kTChunk, t_end - c0);
 #pragma unroll 4
@@ -491,7 +543,7 @@ location_context(const float* __restrict__ enc,           // [U, T, He]
       if (has_col) {
 #pragma unroll 4
         for (int i = slice; i < len; i += kSlices) {
-          const Vec x = encv[(size_t)(c0 + i) * row];
+          const Vec x = Cols::widen(encv[(size_t)(c0 + i) * row]);
 #pragma unroll
           for (int r = 0; r < kRows; ++r)
             if (r < rows) fma_vec(w_s[r][i], x, acc[r]);
@@ -518,24 +570,13 @@ location_context(const float* __restrict__ enc,           // [U, T, He]
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Device pointers of contiguous tensors: keys [N/G, T, A] (or null: a pure
-// location scorer) and b [A] (or null: none), enc [N/G, T, He], q [N, A],
-// prev [N, T], w_loc [C, A], v [A] float32; mask [N/G, T] bool (one byte
-// each); conv [W, 1, C] float32; outputs ctx [N, He] and align [N, T]
-// float32, written in full; e [N, T] float32 scratch. Row n reads utterance
-// n / G. Two launches on `stream`: the energies, then softmax and context as
-// its programmatic dependent (it reads e only after the energies end);
-// returns the first CUDA error (0 when both were accepted). Does not
-// synchronise.
-int location_attend(const float* keys, const float* b, const float* enc, const float* q,
-                    const float* prev, const unsigned char* mask, const float* conv,
-                    const float* w_loc, const float* v, float* ctx, float* align, float* e,
-                    int N, int G, int T, int A, int He, int C, int W, float sharpening,
-                    void* stream) {
+// Both passes on `stream` for enc rows of type In (float or bf16); see the
+// C entries below.
+template <typename In>
+int launch(const float* keys, const float* b, const In* enc, const float* q, const float* prev,
+           const unsigned char* mask, const float* conv, const float* w_loc, const float* v,
+           float* ctx, float* align, float* e, int N, int G, int T, int A, int He, int C, int W,
+           float sharpening, void* stream) {
   if (N <= 0 || G <= 0 || N % G != 0 || T <= 0 || A <= 0 || He <= 0 || C <= 0 || W <= 0 ||
       (keys == nullptr && b == nullptr) || T > kFrames * 65535 ||
       (He + kCols - 1) / kCols > 65535 || (G + kRows - 1) / kRows > 65535)
@@ -582,10 +623,13 @@ int location_attend(const float* keys, const float* b, const float* enc, const f
   early.val.programmaticStreamSerializationAllowed = 1;
   config.attrs = &early;
   config.numAttrs = 1;
-  const bool vec4 = He % 4 == 0 && reinterpret_cast<uintptr_t>(enc) % 16 == 0 &&
+  // 4 columns of enc per load (16 bytes of float32, 8 of bf16) and a float4
+  // of ctx per store
+  const bool wide = He % 4 == 0 && reinterpret_cast<uintptr_t>(enc) % (4 * sizeof(In)) == 0 &&
                     reinterpret_cast<uintptr_t>(ctx) % 16 == 0;
-  const decltype(&location_context<1>) context = vec4 ? location_context<4> : location_context<1>;
-  config.dynamicSmemBytes = T <= kTChunk ? (size_t)T * kCols * sizeof(float) : 0;  // enc tile
+  const decltype(&location_context<In, 1>) context =
+      wide ? location_context<In, 4> : location_context<In, 1>;
+  config.dynamicSmemBytes = T <= kTChunk ? (size_t)T * kCols * sizeof(In) : 0;  // enc tile
   if (config.dynamicSmemBytes > 16 * 1024) {
     err = cudaFuncSetAttribute(context, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)config.dynamicSmemBytes);
@@ -593,6 +637,39 @@ int location_attend(const float* keys, const float* b, const float* enc, const f
   }
   err = cudaLaunchKernelEx(&config, context, enc, mask, e, ctx, align, G, T, He);
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Device pointers of contiguous tensors: keys [N/G, T, A] (or null: a pure
+// location scorer) and b [A] (or null: none), enc [N/G, T, He], q [N, A],
+// prev [N, T], w_loc [C, A], v [A] float32; mask [N/G, T] bool (one byte
+// each); conv [W, 1, C] float32; outputs ctx [N, He] and align [N, T]
+// float32, written in full; e [N, T] float32 scratch. Row n reads utterance
+// n / G. Two launches on `stream`: the energies, then softmax and context as
+// its programmatic dependent (it reads e only after the energies end);
+// returns the first CUDA error (0 when both were accepted). Does not
+// synchronise.
+int location_attend(const float* keys, const float* b, const float* enc, const float* q,
+                    const float* prev, const unsigned char* mask, const float* conv,
+                    const float* w_loc, const float* v, float* ctx, float* align, float* e,
+                    int N, int G, int T, int A, int He, int C, int W, float sharpening,
+                    void* stream) {
+  return launch(keys, b, enc, q, prev, mask, conv, w_loc, v, ctx, align, e, N, G, T, A, He, C, W,
+                sharpening, stream);
+}
+
+// The same with enc [N/G, T, He] bf16; every other tensor as above (float32
+// ctx and align).
+int location_attend_bf16(const float* keys, const float* b, const __nv_bfloat16* enc,
+                         const float* q, const float* prev, const unsigned char* mask,
+                         const float* conv, const float* w_loc, const float* v, float* ctx,
+                         float* align, float* e, int N, int G, int T, int A, int He, int C, int W,
+                         float sharpening, void* stream) {
+  return launch(keys, b, enc, q, prev, mask, conv, w_loc, v, ctx, align, e, N, G, T, A, He, C, W,
+                sharpening, stream);
 }
 
 }  // extern "C"

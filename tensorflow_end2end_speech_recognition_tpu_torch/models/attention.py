@@ -13,6 +13,13 @@ package's order ``((keys + b) + loc) + q``, and can serve ``group`` rows per
 utterance from one copy of the encoder output (the beam's rows); every
 other read is the unfused arithmetic, in the JAX order of additions, on one
 encoder row per decoder row.
+
+A bf16 ``enc_out`` (``compute_dtype: bfloat16``) is widened to float32
+where the JAX package's products promote it: the keys' projection, the
+dot-product scores and the unfused context. Each read widens it anew, so
+that autograd sums a decoder unroll's per-step bf16 gradients into the bf16
+``enc_out``, as the transpose of the reference's scan does; the fused read
+hands the bf16 rows to kernel #7.
 """
 
 from __future__ import annotations
@@ -84,7 +91,7 @@ class Attention(nn.Module):
     def precompute_keys(self, enc_out: torch.Tensor) -> torch.Tensor:
         """Per-utterance encoder projection, hoisted out of the decoder loop."""
         if self.cfg.additive and hasattr(self, "w_enc"):
-            return torch.matmul(enc_out, self.w_enc)
+            return torch.matmul(enc_out.float(), self.w_enc)
         return enc_out
 
     @property
@@ -125,7 +132,7 @@ class Attention(nn.Module):
             q = dec_state
             if hasattr(self, "w_gen"):
                 q = torch.matmul(q, self.w_gen)
-            energies = torch.bmm(enc_out, q[:, :, None])[..., 0]
+            energies = torch.bmm(enc_out.float(), q[:, :, None])[..., 0]
             if cfg.attention_type == "scaled_dot":
                 energies = energies / math.sqrt(enc_out.shape[-1])
         energies = torch.where(enc_mask, energies * cfg.sharpening_factor, _NEG)
@@ -134,5 +141,5 @@ class Attention(nn.Module):
             align = sig / sig.sum(dim=-1, keepdim=True).clamp_min(1e-8)
         else:
             align = torch.softmax(energies, dim=-1)
-        context = torch.bmm(align[:, None, :], enc_out)[:, 0]
+        context = torch.bmm(align[:, None, :], enc_out.float())[:, 0]
         return context, align

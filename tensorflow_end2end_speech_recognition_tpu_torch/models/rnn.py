@@ -75,7 +75,7 @@ class BiLSTM(nn.Module):
 
     def _project(self, xs: torch.Tensor, p: LSTMParams) -> torch.Tensor:
         if self.bf16:  # bf16 operands, float32 sums, + b, one rounding to bf16
-            return (bf16_ops.matmul(xs, p.wx) + p.b).to(bf16_ops.BF16)
+            return (bf16_ops.matmul(xs, p.wx, bf16_cotangent=True) + p.b).to(bf16_ops.BF16)
         return torch.matmul(xs, p.wx) + p.b
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

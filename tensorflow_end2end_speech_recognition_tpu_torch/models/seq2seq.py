@@ -24,6 +24,11 @@ activations; the JAX scan recomputes them in its backward
 (``jax.checkpoint``). ``Seq2SeqModel.forward`` runs the encoder, the
 teacher-forced unroll and, optionally, the greedy decode in one call, so a
 step can run them on a dict of weights (``functional_call``).
+
+At ``compute_dtype: bfloat16`` the encoder emits bf16 rows, which the
+attention reads widen (``models/attention.py``) or kernel #7 reads as they
+are; the decoder, its carry, the logits and the alignments stay float32,
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -97,12 +102,6 @@ class Seq2SeqModel(nn.Module):
     def __init__(self, cfg: Seq2SeqConfig, input_dim: int,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.encoder.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype bfloat16 is not ported for the attention and joint "
-                "CTC-attention models: in the reference the bf16 encoder output flows into "
-                "the location-attention kernel (#7) and the decoder's carry, a further "
-                "kernel variant not ported yet")
         self.cfg = cfg
         scale = cfg.encoder.parameter_init
         enc_dim = cfg.encoder.output_dim
@@ -174,9 +173,10 @@ def _decoder_step(model: Seq2SeqModel, enc_out, enc_keys, enc_mask, carry, token
 
 
 def _init_decoder_carry(cfg: Seq2SeqConfig, rows: int, enc_out):
-    """Zero ``(h, c, context, align)`` for ``rows`` decoder rows over ``enc_out``'s frames."""
+    """Zero ``(h, c, context, align)`` for ``rows`` decoder rows over ``enc_out``'s
+    frames: float32 whatever ``enc_out``'s dtype, as the reference's carry is."""
     t, he = enc_out.shape[1:]
-    zeros = lambda *s: enc_out.new_zeros(s)  # noqa: E731
+    zeros = lambda *s: enc_out.new_zeros(s, dtype=torch.float32)  # noqa: E731
     return zeros(rows, cfg.decoder_num_units), zeros(rows, cfg.decoder_num_units), \
         zeros(rows, he), zeros(rows, t)
 
@@ -258,9 +258,10 @@ def greedy_decode(model: Seq2SeqModel, feats, feat_len,
     carry = _init_decoder_carry(cfg, b, enc_out)
     token = torch.full((b,), cfg.sos_id, dtype=torch.int32, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-    logits_buf = enc_out.new_zeros((max_len, b, cfg.vocab))
+    # float32, as the step's logits and alignments are at either compute_dtype
+    logits_buf = torch.zeros((max_len, b, cfg.vocab), device=dev)
     preds_buf = torch.full((max_len, b), cfg.eos_id, dtype=torch.int32, device=dev)
-    aligns_buf = enc_out.new_zeros((max_len, b, t))
+    aligns_buf = torch.zeros((max_len, b, t), device=dev)
     si = 0
     # the JAX loop's condition, read from the device once every k steps; at
     # si = 0 nothing has finished yet

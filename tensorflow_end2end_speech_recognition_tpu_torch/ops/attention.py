@@ -21,16 +21,25 @@ left even for an even W; then ``pre = ((keys + b) + f @ w_loc) + q``,
 frame (a micro-batcher's filler row) gets ``align = 1/T`` everywhere, as
 ``_reference_math`` gives it.
 
+``enc_out`` may be bf16 (``compute_dtype: bfloat16``: the reference's
+encoder emits bf16 and its kernel reads the bf16 rows); every other float
+input is float32, and ``ctx`` and ``align`` are float32 either way, as the
+Pallas kernel's ``out_shape`` is. The plain version widens the rows to
+float32, which is exact, and the kernel widens each value where it loads it.
+
 CPU tensors take ``location_attend_plain``. CUDA tensors launch the
 hand-written kernel ``csrc/location_attend.cu`` (its energies and its
-softmax-and-context passes, two launches on the stream) or raise; there is
-no fallback. ``location_attend.launches`` counts calls that launched it.
+softmax-and-context passes, two launches on the stream; the C entry
+``location_attend_bf16`` for bf16 rows) or raise; there is no fallback.
+``location_attend.launches`` counts calls that launched it on float32 rows,
+``location_attend.launches_bf16`` on bf16 rows.
 When a gradient may be taken the read goes through ``LocationAttend``:
 the forward is the kernel, and the backward recomputes
 ``location_attend_plain`` under autograd and takes its vector-Jacobian
 product, as the reference's ``_fused_bwd`` takes ``jax.vjp`` of
 ``_reference_math``. So the backward is plain arithmetic on either device,
-as the reference's is plain XLA.
+as the reference's is plain XLA; bf16 rows get a bf16 gradient, the float32
+one rounded, as the transpose of their promotion to float32 gives it.
 """
 
 from __future__ import annotations
@@ -58,7 +67,8 @@ def conv_same(prev_align: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
 def location_attend_plain(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
                           sharpening: float = 1.0, *, b=None, group: int = 1):
     """Plain version of kernel #7: ``keys + b``, tiled ``group`` times, then
-    ``_reference_math`` in PyTorch."""
+    ``_reference_math`` in PyTorch on ``enc_out`` widened to float32."""
+    enc_out = enc_out.float()
     if keys is None:
         keys_in = b.expand(enc_out.shape[:2] + b.shape)
     else:
@@ -94,8 +104,9 @@ def _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, g
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     for name, x in floats.items():
-        if x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {x.dtype}")
+        if x.dtype != torch.float32 and not (name == "enc_out" and x.dtype == torch.bfloat16):
+            raise ValueError(f"{what}: {name} must be float32"
+                             + (" or bfloat16" if name == "enc_out" else "") + f", got {x.dtype}")
     if enc_mask.dtype != torch.bool:
         raise ValueError(f"{what}: enc_mask must be bool, got {enc_mask.dtype}")
     if enc_out.dim() != 3 or q.dim() != 2 or conv_w.dim() != 3 or conv_w.shape[1] != 1:
@@ -122,7 +133,8 @@ def _check_inputs(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v, b, g
 def location_attend_fwd(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
                         sharpening: float = 1.0, b=None, group: int = 1):
     """Kernel #7's forward on inputs ``_check_inputs`` accepted: the plain
-    version for CPU tensors, else one call of the kernel, counted."""
+    version for CPU tensors, else one call of the kernel (its bf16 entry for
+    bf16 rows), counted."""
     if enc_out.device.type == "cpu":
         return location_attend_plain(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
                                      sharpening, b=b, group=group)
@@ -135,16 +147,21 @@ def location_attend_fwd(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v
     align = torch.empty((n, t), dtype=torch.float32, device=dev)
     energies = torch.empty((n, t), dtype=torch.float32, device=dev)  # scratch
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    bf16 = enc_out.dtype == torch.bfloat16
+    entry = "location_attend_bf16" if bf16 else "location_attend"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.location_attend(
+        code = getattr(lib, entry)(
             ptr(keys), ptr(b), enc_out.data_ptr(), q.data_ptr(), prev_align.data_ptr(),
             enc_mask.data_ptr(), conv_w.data_ptr(), w_loc.data_ptr(), v.data_ptr(),
             ctx.data_ptr(), align.data_ptr(), energies.data_ptr(),
             n, group, t, a, he, c, w, float(sharpening), stream,
         )
-    build.check(lib, code, "location_attend")
-    location_attend.launches += 1
+    build.check(lib, code, entry)
+    if bf16:
+        location_attend.launches_bf16 += 1
+    else:
+        location_attend.launches += 1
     return ctx, align
 
 
@@ -161,8 +178,11 @@ def location_attend_bwd(saved, needs, sharpening: float, group: int, g_ctx, g_al
         k, e, qq, p, cw, wl, vv, bb = leaves
         outs = location_attend_plain(k, e, qq, p, enc_mask, cw, wl, vv, sharpening, b=bb,
                                      group=group)
+        # align does not depend on enc_out: with only enc_out's gradient
+        # needed, ctx alone carries one
+        outs, cts = zip(*((o, g) for o, g in zip(outs, (g_ctx, g_align)) if o.requires_grad))
         grads = iter(torch.autograd.grad(outs, [x for x, need in zip(leaves, needs) if need],
-                                         (g_ctx, g_align)))
+                                         cts))
     return [next(grads) if need else None for need in needs]
 
 
@@ -204,3 +224,4 @@ def location_attend(keys, enc_out, q, prev_align, enc_mask, conv_w, w_loc, v,
 
 
 location_attend.launches = 0
+location_attend.launches_bf16 = 0

@@ -14,7 +14,8 @@ gradients (the same plain arithmetic recomputed on the same inputs); 1e-4
 where a recurrence runs 1198 steps or a whole model is held against the CPU.
 The bf16-stream kernels (``compute_dtype: bfloat16``) are held to their
 plain versions within two bf16 ulps (rtol 8e-3, atol 1e-5): both round the
-same float32 walk, summed in other orders.
+same float32 walk, summed in other orders. #7 on bf16 encoder rows keeps
+the float32 tolerances: both widen the rows exactly and sum in float32.
 """
 
 import numpy as np
@@ -51,6 +52,7 @@ from tensorflow_end2end_speech_recognition_tpu_torch.ops.ctc import (
     ctc_loss_plain,
     ctc_plan,
 )
+from tensorflow_end2end_speech_recognition_tpu_torch.ops import bf16 as bf16_ops
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import build
 from tensorflow_end2end_speech_recognition_tpu_torch.train import att_task
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import ctc as ctc_ops
@@ -785,6 +787,132 @@ def test_location_attend_gradient_matches_plain_autograd(dev, g, t, a, he, c, w,
     with torch.no_grad():  # no gradient wanted: the kernel alone, no grad_fn
         ctx, _ = location_attend(*args, 1.5, b=b, group=g)
     assert ctx.grad_fn is None
+
+
+@pytest.mark.parametrize("g,t,a,he,c,w,lengths,with_keys", [
+    # the beam's call at ls960_joint: 8 utterances x 8 beams, 8-byte loads of 4 bf16
+    (8, 300, 256, 1024, 10, 101, [300, 1, 0, 150, 299, 64, 7, 233], True),
+    (1, 300, 256, 1024, 10, 101, [300, 1, 0, 150, 299, 64, 7, 233], True),  # greedy
+    (4, 300, 128, 640, 10, 101, [300, 0, 31], False),  # csj_joint: no keys, He = 640
+    (3, 50, 16, 34, 4, 11, [50, 1], True),  # He % 4 != 0: one bf16 per load
+    (2, 1500, 8, 24, 2, 5, [1500, 7], True),  # T > 512: rows read in chunks
+])
+def test_location_attend_bf16_rows_kernel_matches_plain(dev, g, t, a, he, c, w, lengths,
+                                                        with_keys):
+    """#7 on bf16 encoder rows (``compute_dtype: bfloat16``) against its plain
+    version on the same rows, at the float32 tolerances (widening is exact);
+    float32 outputs, counted on ``launches_bf16``; two calls bitwise equal,
+    and equal to the float32 kernel on the rows widened (the same sums in
+    the same order)."""
+    args, b = _grouped_attend_case(dev, g, t, a, he, c, w, lengths, seed=t + g + 9,
+                                   with_keys=with_keys)
+    args[1] = args[1].bfloat16()
+    counts = location_attend.launches, location_attend.launches_bf16
+    ctx, align = location_attend(*args, 1.0, b=b, group=g)
+    torch.cuda.synchronize()
+    assert (location_attend.launches, location_attend.launches_bf16) == (counts[0],
+                                                                         counts[1] + 1)
+    assert ctx.dtype == align.dtype == torch.float32
+    want_ctx, want_align = location_attend_plain(*args, 1.0, b=b, group=g)
+    torch.testing.assert_close(align, want_align, atol=1e-5, rtol=0)
+    torch.testing.assert_close(ctx, want_ctx, atol=1e-4, rtol=0)
+    for utt, length in enumerate(lengths):
+        if length == 0:
+            torch.testing.assert_close(align[utt * g:(utt + 1) * g],
+                                       torch.full((g, t), 1.0 / t, device=dev))
+    again = location_attend(*args, 1.0, b=b, group=g)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], align)
+    wide = location_attend(args[0], args[1].float(), *args[2:], 1.0, b=b, group=g)
+    torch.cuda.synchronize()
+    assert torch.equal(wide[0], ctx) and torch.equal(wide[1], align)
+    assert (location_attend.launches, location_attend.launches_bf16) == (counts[0] + 1,
+                                                                         counts[1] + 2)
+
+
+def test_location_attend_bf16_rows_gradient(dev):
+    """``LocationAttend`` on bf16 rows: the kernel forward (one bf16 launch)
+    and the plain backward; the rows' gradient is bf16, the float32 one of
+    autograd through the plain read rounded."""
+    args, b = _grouped_attend_case(dev, 8, 300, 256, 1024, 10, 101,
+                                   [300, 1, 0, 150, 299, 64, 7, 233], seed=17)
+    enc = args[1].bfloat16()
+    cts = [torch.from_numpy(np.random.RandomState(2).randn(64, x).astype(np.float32)).to(dev)
+           for x in (1024, 300)]
+    leaves = [x.clone().requires_grad_(True) for x in (args[2], enc)]
+    before = location_attend.launches_bf16
+    outs = location_attend(args[0], leaves[1], leaves[0], *args[3:], 1.0, b=b, group=8)
+    dq, denc = torch.autograd.grad(outs, leaves, cts)
+    torch.cuda.synchronize()
+    assert location_attend.launches_bf16 == before + 1 and denc.dtype == torch.bfloat16
+    wide = [x.detach().float().requires_grad_(True) for x in leaves]
+    outs = location_attend_plain(args[0], wide[1], wide[0], *args[3:], 1.0, b=b, group=8)
+    wq, wenc = torch.autograd.grad(outs, wide, cts)
+    torch.testing.assert_close(dq, wq, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(denc.float(), wenc.bfloat16().float(), atol=1e-5, rtol=8e-3)
+
+
+def test_bf16_attention_model_on_card_matches_cpu(dev):
+    """A joint model at ``compute_dtype: bfloat16`` decodes on the card
+    through the bf16 walks and #7's bf16 entry, one launch per decoder step
+    and no float32 #7 call; ids, tokens and logits as on the CPU (the bf16
+    encoder rounds alike on both at this size)."""
+    cfg = Seq2SeqConfig(
+        encoder=EncoderConfig(encoder_type="pyramidal_blstm", num_units=16, num_layers=3,
+                              compute_dtype="bfloat16"),
+        attention=AttentionConfig(attention_dim=12, conv_num_channels=4, conv_width=9),
+        num_classes=9, decoder_num_units=16, embedding_dim=8, max_decode_length=24,
+        ctc_loss_weight=0.3)
+    cpu = Seq2SeqModel(cfg, 10, torch.Generator().manual_seed(0)).eval()
+    model = Seq2SeqModel(cfg, 10, torch.Generator().manual_seed(0)).to(dev).eval()
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.randn(3, 41, 10).astype(np.float32))
+    lens = torch.tensor([41, 17, 0])
+    with torch.inference_mode():
+        want = greedy_decode(cpu, feats, lens)
+        before = location_attend.launches, location_attend.launches_bf16
+        got = greedy_decode(model, feats.to(dev), lens.to(dev))
+        torch.cuda.synchronize()
+        assert got.enc_out.dtype == torch.bfloat16 and got.logits.dtype == torch.float32
+        assert location_attend.launches == before[0]
+        assert location_attend.launches_bf16 - before[1] == got.steps == want.steps
+        torch.testing.assert_close(got.logits.cpu(), want.logits, atol=5e-2, rtol=0)
+        assert torch.equal(got.predicted_ids.cpu(), want.predicted_ids)
+        want_b = attention_beam_search(cpu, feats, lens, beam_width=4, length_penalty=0.6)
+        before = location_attend.launches_bf16
+        got_b = attention_beam_search(model, feats.to(dev), lens.to(dev), beam_width=4,
+                                      length_penalty=0.6)
+        torch.cuda.synchronize()
+        assert location_attend.launches_bf16 - before == got_b.steps == want_b.steps
+    assert torch.equal(got_b.tokens.cpu(), want_b.tokens)
+
+
+@pytest.mark.parametrize("a_shape,b_shape,exact", [((300, 512), (512, 2048), False),
+                                                   ((4, 100, 64), (4, 64, 100), False),
+                                                   ((300, 512), (512, 2048), True)])
+def test_bf16_matmul_gradients_on_card_match_cpu(dev, a_shape, b_shape, exact):
+    """``ops/bf16.matmul``'s operand gradients on the card, the float32
+    cotangent split hi + lo into two bf16 products, against the CPU's exact
+    float32 products of the same cotangent: within one bf16 ulp of the
+    result (2**-7 relative at most), and 1e-4 of the largest entry where
+    the sums cancel (the split drops bits below 2**-17 of each cotangent
+    entry; rounding the cotangent to bf16, 2**-9, would exceed it). With
+    ``exact`` the cotangent is bf16-exact and ``bf16_cotangent`` skips the
+    lo part, as ``BiLSTM`` calls it."""
+    rng = np.random.RandomState(4)
+    a, b = (torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (a_shape, b_shape))
+    cot = torch.from_numpy(rng.randn(*torch.broadcast_shapes(a_shape[:-2], b_shape[:-2]),
+                                     a_shape[-2], b_shape[-1]).astype(np.float32))
+    if exact:
+        cot = cot.bfloat16().float()
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [x.to(device).requires_grad_(True) for x in (a, b)]
+        y = bf16_ops.matmul(*leaves, bf16_cotangent=exact)
+        grads.append([g.cpu() for g in torch.autograd.grad(y, leaves, cot.to(device))])
+    for got, want, what in zip(*grads, ("da", "db")):
+        assert got.dtype == want.dtype == torch.float32, what
+        torch.testing.assert_close(got, want, rtol=2 ** -7,
+                                   atol=1e-4 * float(want.abs().max()))
 
 
 def test_attention_model_on_card_matches_cpu(dev):
