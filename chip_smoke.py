@@ -3,8 +3,9 @@
 serving, attention training, transducer serving and training, beam
 decoding, eval / decode and RNN-LM paths, of the conformer / transformer
 configs, of the VGG, multitask, BPE and word configs, of streaming
-recognition and the transducer beam, and of the bf16 mode (``compute_dtype:
-bfloat16``) with ``bench.py``'s headline step, on one NVIDIA GPU.
+recognition and the transducer beam, of the bf16 mode (``compute_dtype:
+bfloat16``) with ``bench.py``'s headline step, and of training from a
+prepared on-disk corpus with gradient accumulation, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -287,7 +288,29 @@ Phases; any failure exits non-zero and prints no result line:
 52. ``configs/timit_attention.yml`` and ``ls960_joint_bpe.yml`` at bf16:
     greedy card against CPU and one train step each; then the bf16
     products' gradients, read off phases 45 and 48 (step times, the
-    conformer's cuBLAS time, gradients card against CPU).
+    conformer's cuBLAS time, gradients card against CPU);
+53. on-disk corpora: 112 utterances of the hard toy corpus (2-12 s, 16
+    speakers, character labels) written as 16-bit PCM wavs in the splits
+    train (64), dev_clean, dev_other and test_clean (16 each); ``bin/prepare``
+    on the card with ls100_ctc's frontend (40 mel, no energy, deltas) at
+    ``--cmvn utterance`` and ``none`` (every split), ``speaker`` and
+    ``--feature mfcc`` (train), every ``.npy`` held against the same CLI
+    on the CPU (atol 1e-4; raw log-mel also 1e-5 relative) and
+    ``transcripts.tsv`` byte for byte; utterances per second (no kernel
+    launched);
+54. ``train/loop.fit`` on ls100_ctc at full width for one epoch of the
+    prepared corpus (``data_root``, 2 steps of batch 32 in 4 microbatches of
+    8): finite losses, no skipped step, exactly 4 x (5 #1, 5 #2, 1 #5) per
+    step and one #6 (with 5 #1) per dev batch; ``bin/eval`` on the model dir
+    scores dev_clean, dev_other and test_clean by name (the prefix beam at
+    20, #1 and #6); ``fit`` again with ``cmvn: speaker`` on the ``--cmvn
+    none`` corpus, the same launch counts;
+55. gradient accumulation at B=32 x 12 s: one SGD step (dropout off) over
+    4 microbatches against the one-batch step on the card (the loss within
+    1e-5 relative, every weight's update within 1e-3 of the tensor's
+    largest), then Adam steps timed both ways (``time_train_steps``: ms per
+    step, peak memory, exactly 4 x and 1 x (5 #1, 5 #2, 1 #5), walks in
+    the profile); the accumulated step's peak memory must be the lower.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -316,6 +339,7 @@ import tempfile
 import threading
 import time
 import types
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -325,8 +349,10 @@ import torch.nn.functional as F
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import decode as decode_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import eval as eval_cli
+from tensorflow_end2end_speech_recognition_tpu_torch.bin import prepare as prepare_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import train_lm as train_lm_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_server
+from tensorflow_end2end_speech_recognition_tpu_torch.data.hard_corpus import HardCorpus
 from tensorflow_end2end_speech_recognition_tpu_torch.data.tokenizers import CHAR_UNITS
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding import (
     attention_beam_search,
@@ -1263,13 +1289,13 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
                      profile_out: str | None, want: dict, walks: int,
                      steps: int = TIMED_STEPS, shape: str = f"T'={T_ENC}",
                      global_step: int | None = None, seconds: float = 12.0,
-                     batch: dict | None = None) -> dict:
-    """Adam steps with the config's dropout at B=32 x 12 s (or on ``batch``):
-    time, rate, memory, launches (exactly ``want``), and a profile of one
-    step by kernel, in which each LSTM walk (forward and backward) ran
-    exactly ``walks`` device launches and no per-step forward kernel ran. An
-    attention step takes ``global_step`` for its schedules. Returns the
-    numbers."""
+                     batch: dict | None = None, grad_accum: int = 1) -> dict:
+    """Adam steps with the config's dropout at B=32 x 12 s (or on ``batch``),
+    over ``grad_accum`` microbatches: time, rate, memory, launches (exactly
+    ``want``), and a profile of one step by kernel, in which each LSTM walk
+    (forward and backward) ran exactly ``walks`` device launches and no
+    per-step forward kernel ran. An attention step takes ``global_step`` for
+    its schedules. Returns the numbers."""
     if batch is None:
         batch = train_batch(B_TRAIN, seconds, seed=7, max_labels=U)
         batch["input_len"][:] = int(seconds * SR)  # one bucket: every row the same T
@@ -1278,7 +1304,7 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     params = {k: v.to(dev) for k, v in params_cpu.items()}
     opt = build_optimizer("adam", 5.0)
     state = opt.init(params)
-    step = task_mod.make_train_step(task, opt)
+    step = task_mod.make_train_step(task, opt, grad_accum=grad_accum)
     if global_step is not None:
         step = functools.partial(step, step=global_step)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1303,7 +1329,7 @@ def time_train_steps(name: str, task, task_mod, params_cpu, dev, gpu: str,
     if not all(np.isfinite(losses)) or bool(aux["nonfinite"]):
         raise RuntimeError(f"timed {name} train steps gave losses {losses}")
     print(f"phase {name} train step B={rows} x {seconds:g} s ({shape}, U={U}), Adam, "
-          f"dropout keep "
+          + (f"{grad_accum} microbatches, " if grad_accum > 1 else "") + "dropout keep "
           f"{task.model.encoder.dropout_keep_prob}: {ms:.3f} ms per step ({steps} steps), "
           f"{rows / ms * 1e3:.1f} utterances/s, peak memory {peak / 2**30:.3f} GiB, launches "
           f"per step {counts}, losses {[round(x, 3) for x in losses]}  [{gpu}]", flush=True)
@@ -1379,7 +1405,9 @@ def train_one_epoch(name: str, raw: dict, gpu: str, launched: tuple, model_dir: 
     written = {f: (Path(model_dir) / f).exists() for f in
                ("summary.json", "metrics.csv", "config.yml", "checkpoints/epoch_0.pt")}
     losses = [float(s.split(" loss ")[1].split()[0]) for s in lines if " loss " in s]
-    print(f"phase fit {name} 1 toy epoch ({exp.toy_num_utts} utterances): {wall:.1f} s wall "
+    corpus = (f"data_root {Path(exp.data_root).name}" if exp.data_root
+              else f"toy, {exp.toy_num_utts} utterances")
+    print(f"phase fit {name} 1 epoch ({corpus}): {wall:.1f} s wall "
           f"(model init and data included), {summary['utts_per_sec']:.1f} training "
           f"utterances/s, {summary['steps']} steps, dev loss {summary['dev_loss']:.4f}, dev "
           f"error {summary['dev_error_rate']:.4f}, launches {counts}  [{gpu}]", flush=True)
@@ -3928,6 +3956,188 @@ def run_attention_bf16(args, dev, gpu: str, t0: float, joint32: dict) -> tuple:
     return counts, kernel, numbers
 
 
+# on-disk corpora and gradient accumulation (phases 53-55): the hard toy corpus
+# written as wavs, 2 to 12 s, split as LibriSpeech's are named
+DATA_ROOT_SPLITS = {"train": 64, "dev_clean": 16, "dev_other": 16, "test_clean": 16}
+PREPARE_MODES = {  # name -> (bin/prepare options beyond ls100_ctc's frontend, splits)
+    "utterance": ([], tuple(DATA_ROOT_SPLITS)),
+    "none": (["--cmvn", "none"], tuple(DATA_ROOT_SPLITS)),
+    "speaker": (["--cmvn", "speaker"], ("train",)),
+    "mfcc": (["--feature", "mfcc"], ("train",)),
+}
+PREPARE_ATOL = 1e-4  # normalized features, card vs CPU; raw log-mel also rtol 1e-5
+ACCUM = 4
+ACCUM_LOSS_RTOL = 1e-5  # A = 4 against A = 1: the same terms summed in another order
+
+
+def write_wav_corpus(root: Path) -> dict:
+    """The hard toy corpus's utterances of 2 to 12 s (character labels, 16
+    speakers) as 16-bit PCM wavs at 16 kHz; ``{split: 4-column scp}``."""
+    corpus = HardCorpus(label_type="character", num_utts=150, min_units=6, max_units=24,
+                        seed=17, max_utt_seconds=12.0)
+    utts = [u for u in corpus.utterances if 2 * SR <= len(u.wav) <= 12 * SR]
+    (root / "wav").mkdir(parents=True)
+    scps, lo = {}, 0
+    for split, n in DATA_ROOT_SPLITS.items():
+        lines = []
+        for u in utts[lo : lo + n]:
+            path = root / "wav" / f"{u.name}.wav"
+            with wave.open(str(path), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(SR)
+                w.writeframes((np.clip(u.wav * 0.5, -1, 1) * 32767).astype(np.int16).tobytes())
+            lines.append(f"{u.name}\t{path}\t{u.speaker}\t{u.text}")
+        if len(lines) != n:
+            raise RuntimeError(f"the hard corpus gave {len(lines)} {split} utterances of 2-12 s")
+        scps[split] = root / f"{split}.scp"
+        scps[split].write_text("\n".join(lines) + "\n")
+        lo += n
+    speakers = {line.split("\t")[2] for scp in scps.values() for line in
+                scp.read_text().splitlines()}
+    if len(speakers) < 4:
+        raise RuntimeError(f"the wav corpus has {len(speakers)} speakers; want at least 4")
+    return scps
+
+
+def prepare_corpora(work: Path, gpu: str) -> tuple:
+    """``bin/prepare`` on the card in each mode (ls100_ctc's frontend: 40 mel,
+    no energy, deltas), each split against the same CLI on the CPU; returns
+    ({mode: card data root}, numbers)."""
+    scps = write_wav_corpus(work / "wavs")
+    roots, numbers = {}, {}
+    for mode, (extra, splits) in PREPARE_MODES.items():
+        roots[mode] = work / f"data_{mode}"
+        n = wall = cpu_wall = err = 0.0
+        bad = []
+        for split in splits:
+            argv = [split, "--wav-scp", str(scps[split]), "--input-size", "40", "--no-energy",
+                    "--batch", "16", *extra]
+            reset_counts()
+            t0 = time.perf_counter()
+            prepare_cli.main([str(roots[mode]), *argv, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            if any(read_counts().values()):
+                raise RuntimeError(f"bin/prepare launched {read_counts()}")
+            t0 = time.perf_counter()
+            prepare_cli.main([str(work / f"cpu_{mode}"), *argv, "--device", "cpu"])
+            cpu_wall += time.perf_counter() - t0
+            for f in sorted((roots[mode] / split / "feats").glob("*.npy")):
+                got, want = np.load(f), np.load(work / f"cpu_{mode}" / split / "feats" / f.name)
+                if got.shape != want.shape or got.dtype != np.float32:
+                    raise RuntimeError(f"{f.name}: card {got.shape} {got.dtype}, CPU {want.shape}")
+                diff = np.abs(got - want)
+                err = max(err, float(diff.max()))
+                # raw log-mel (--cmvn none) reaches about 25: a relative term too
+                if not np.all(diff <= PREPARE_ATOL + (1e-5 * np.abs(want) if mode == "none"
+                                                      else 0.0)):
+                    bad.append(f"{split}/{f.name}")
+                n += 1
+            if ((roots[mode] / split / "transcripts.tsv").read_bytes()
+                    != (work / f"cpu_{mode}" / split / "transcripts.tsv").read_bytes()):
+                raise RuntimeError(f"{mode} {split}: transcripts differ between card and CPU")
+        dim = np.load(next((roots[mode] / "train" / "feats").glob("*.npy"))).shape[1]
+        numbers[mode] = {"utterances": int(n), "dim": int(dim), "card_s": wall,
+                         "utts_per_sec": n / wall, "cpu_s": cpu_wall, "max_abs_err": err}
+        print(f"phase bin/prepare --cmvn {mode if mode != 'mfcc' else 'utterance --feature mfcc'}"
+              f" ({', '.join(splits)}): {int(n)} utterances of 2-12 s, {dim} dims, {wall:.3f} s "
+              f"on the card ({n / wall:.1f} utterances/s, wav reads and .npy writes included), "
+              f"{cpu_wall:.3f} s on the CPU; card vs CPU .npy max abs err {err:.2e} (tolerance "
+              f"{PREPARE_ATOL:g}{' + 1e-5 x |x|' if mode == 'none' else ''})  [{gpu}]",
+              flush=True)
+        if bad:
+            raise RuntimeError(f"bin/prepare {mode} on the card disagrees with the CPU: {bad}")
+    return roots, numbers
+
+
+def fit_data_root(name: str, raw: dict, gpu: str, model_dir: Path) -> dict:
+    """``fit`` for one epoch of a prepared corpus at ``grad_accum_steps``: each
+    step exactly ACCUM x (5 #1, 5 #2, 1 #5), one #6 (and 5 #1) per dev batch."""
+    counts = train_one_epoch(name, raw, gpu, ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss",
+                                              "ctc_loss_fwd_only"), model_dir)
+    steps = json.loads((model_dir / "summary.json").read_text())["steps"]
+    dev_batches = -(-DATA_ROOT_SPLITS["dev_clean"] // raw["batch_size"])
+    want = dict(NONE_LAUNCHED, lstm_bidi_fwd=(steps * ACCUM + dev_batches) * LAYERS,
+                lstm_bidi_bwd=steps * ACCUM * LAYERS, ctc_loss=steps * ACCUM,
+                ctc_loss_fwd_only=dev_batches)
+    print(f"{name}: {steps} steps of {ACCUM} microbatches, {dev_batches} dev batch: launches "
+          f"{counts}", flush=True)
+    if counts != want:
+        raise RuntimeError(f"{name} launched {counts}; expected {want}")
+    return counts
+
+
+def check_accumulation(task, params_cpu, dev, gpu: str) -> dict:
+    """One SGD step at B=32 x 12 s with dropout off over ACCUM microbatches
+    against the one-batch step, on the card: the loss, and each weight's
+    update within GRAD_RTOL of the tensor's largest update."""
+    batch = train_batch(B_TRAIN, 12.0, seed=8, max_labels=U)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    opt = build_optimizer("sgd", 5.0)
+    out = {}
+    for accum in (1, ACCUM):
+        new, _, aux = ctc_task.make_train_step(task, opt, grad_accum=accum)(
+            params, opt.init(params), tb, 0.1)
+        out[accum] = ({k: (new[k] - params[k]).cpu() for k in params}, float(aux["loss"]),
+                      bool(aux["nonfinite"]))
+    (d1, l1, f1), (d4, l4, f4) = out[1], out[ACCUM]
+    loss_err = abs(l4 - l1) / abs(l1)
+    errs = {k: float((d4[k] - d1[k]).abs().max()) / max(float(d1[k].abs().max()), 1e-12)
+            for k in d1}
+    worst = max(errs, key=errs.get)
+    print(f"accumulation on the card, B={B_TRAIN} x 12 s, SGD lr 0.1, dropout off: loss "
+          f"{l4:.6f} over {ACCUM} microbatches vs {l1:.6f} in one (rel err {loss_err:.2e}, "
+          f"tolerance {ACCUM_LOSS_RTOL:g}); updates max err / max |update| {errs[worst]:.2e} "
+          f"({worst}; tolerance {GRAD_RTOL:g}) over {len(errs)} tensors  [{gpu}]", flush=True)
+    if f1 or f4 or not loss_err <= ACCUM_LOSS_RTOL or not errs[worst] <= GRAD_RTOL:
+        raise RuntimeError("the accumulated step disagrees with the one-batch step")
+    return {"loss_rel_err": loss_err, "update_rel_err": errs[worst]}
+
+
+def run_data_root(args, dev, gpu: str, work: Path, t0: float, params_cpu: dict) -> tuple:
+    """Phases 53-55; returns (launch counts by path, numbers)."""
+    roots, prepared = prepare_corpora(work, gpu)
+    clock("corpora prepared on the card and held against the CPU", t0)
+    counts = {}
+    raw = dict(LS100_CTC, data_root=str(roots["utterance"]), grad_accum_steps=ACCUM)
+    model_dir = work / "ls100_ctc_data_root"
+    counts["data_root_training"] = fit_data_root("ls100_ctc data_root", raw, gpu, model_dir)
+    res, counts["data_root_eval"] = run_cli(
+        "bin/eval ls100_ctc data_root", eval_cli.main, [str(model_dir), "--device", "cuda"],
+        ("lstm_bidi_fwd", "ctc_loss_fwd_only"), gpu)
+    want_sets = [s for s in DATA_ROOT_SPLITS if s != "train"]
+    if list(res) != want_sets or not all(
+            res[s]["num_utts"] == DATA_ROOT_SPLITS[s] and np.isfinite(res[s]["loss"])
+            and np.isfinite(res[s]["error_rate"]) for s in want_sets):
+        raise RuntimeError(f"bin/eval on the data_root model scored {res}")
+    counts["speaker_cmvn_training"] = fit_data_root(
+        "ls100_ctc data_root cmvn speaker",
+        dict(raw, data_root=str(roots["none"]), cmvn="speaker"), gpu,
+        work / "ls100_ctc_speaker_cmvn")
+    clock("ls100_ctc trained from data_root with accumulation and scored", t0)
+    task = experiment_from_dict(dict(LS100_CTC, dropout=1.0)).ctc_task(len(CHAR_UNITS))
+    accum = check_accumulation(task, params_cpu, dev, gpu)
+    timed = {}
+    task = ls100_ctc_task()
+    for a in (1, ACCUM):
+        timed[a] = time_train_steps(
+            f"ls100_ctc_accum{a}", task, ctc_task, params_cpu, dev, gpu, args.profile_out,
+            dict(NONE_LAUNCHED, lstm_bidi_fwd=a * LAYERS, lstm_bidi_bwd=a * LAYERS, ctc_loss=a),
+            a * LAYERS, grad_accum=a)
+    print(f"phase accumulation at B={B_TRAIN} x 12 s: {ACCUM} microbatches "
+          f"{timed[ACCUM]['ms']:.3f} ms per step, peak {timed[ACCUM]['peak_gib']:.3f} GiB; one "
+          f"batch {timed[1]['ms']:.3f} ms, peak {timed[1]['peak_gib']:.3f} GiB  [{gpu}]",
+          flush=True)
+    if not timed[ACCUM]["peak_gib"] < timed[1]["peak_gib"]:
+        raise RuntimeError("the accumulated step's peak memory is not below the one-batch step's")
+    clock("accumulation checked and timed", t0)
+    keep = ("ms", "utts_per_sec", "peak_gib", "launches", "busy_share", "device_ms")
+    return counts, {"prepare": prepared, "eval": res, "accumulation": dict(
+        accum, **{f"a{a}": {k: r[k] for k in keep} for a, r in timed.items()})}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4060,6 +4270,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
     att_bf16_counts, att_bf16_kernel, att_bf16_numbers = run_attention_bf16(
         args, dev, gpu, t0, joint32)
     counts.update(att_bf16_counts)
+    data_root_counts, data_root = run_data_root(args, dev, gpu, work, t0, params_cpu)
+    counts.update(data_root_counts)
     # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
     head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
     cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
@@ -4191,7 +4403,7 @@ def run(args, dev, gpu: str, work: Path) -> int:
     print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer,
                       "families": families, "streaming": stream_numbers,
                       "bf16": dict(bf16_numbers, f1=f1),
-                      "attention_bf16": att_bf16_numbers}), flush=True)
+                      "attention_bf16": att_bf16_numbers, "data_root": data_root}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,10 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
 - the VGG-BLSTM and multitask (B)LSTM encoders, the multitask CTC model's
   sub head and mixed loss, and the phone (61/48/39), capital-divided
   character, word, BPE and kana units with the hard toy corpus: every
-  config in ``configs/`` runs.
+  config in ``configs/`` runs;
+- on-disk corpora: ``bin/prepare`` (wavs to per-utterance ``.npy``
+  features), ``data_root`` configs trained and scored from them, MFCC,
+  per-speaker CMVN, and gradient accumulation (``grad_accum_steps``).
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
 (``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
@@ -40,10 +43,10 @@ location-aware attention read (``location_attend.cu``).
 
 Layout:
 
-- ``frontend``  log-mel features, deltas, CMVN (``torch.matmul`` DFT/mel),
-                SpecAugment
-- ``data``      frame stacking, tokenizers, toy and hard corpora, batching,
-                prefetch
+- ``frontend``  log-mel and MFCC features, deltas, CMVN (``torch.matmul``
+                DFT/mel/DCT), per-speaker CMVN statistics, SpecAugment
+- ``data``      frame stacking, tokenizers, toy and hard corpora, ``.npy``
+                corpora, batching, prefetch
 - ``ops``       kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, the
                 nvcc builder
 - ``csrc``      CUDA C++ sources of the kernels (built at first use)
@@ -53,13 +56,14 @@ Layout:
 - ``decoding``  CTC greedy collapse, CTC prefix beam, attention beam search,
                 joint CTC rescoring
 - ``train``     CTC, attention, transducer and LM tasks (pipeline, loss,
-                train/eval steps), optimizers, LR controller, checkpoints,
-                the loop
+                train/eval steps), gradient accumulation, optimizers, LR
+                controller, checkpoints, the loop
 - ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
                 edit distance and error rates, TensorBoard event writer
 - ``serving``   inference function (CTC greedy or prefix beam; attention
                 greedy or beam; transducer greedy) and micro-batcher
-- ``bin``       HTTP server, training, eval, decode and LM-training CLIs
+- ``bin``       HTTP server, corpus preparation, training, eval, decode and
+                LM-training CLIs
 """
 
 import torch

@@ -10,8 +10,8 @@ same options and output (``[name] score``, ``REF:``, ``HYP:``, ``HYPn
 ``--beam-width`` above 1 the CTC prefix beam or the transducer beam, and
 for attention models the attention beam at ``max(--beam-width, 1)`` with
 ``--length-penalty`` and ``--joint-rescore`` (joint models); RNN-LM fusion
-(``--lm-dir``) in every beam. Runs on the card (``--device cpu`` for the
-CPU).
+(``--lm-dir``) in every beam. A ``data_root`` model reads the dev or test
+split's ``.npy`` features. Runs on the card (``--device cpu`` for the CPU).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..decoding.joint_rescoring import joint_rescore
 from ..decoding.transducer_beam import transducer_beam_search
 from ..decoding.transducer_greedy import transducer_greedy_decode
 from ..train.ctc_task import device_pipeline
-from ..train.loop import build_corpus_splits, build_task
+from ..train.loop import build_corpus_splits, build_task, cmvn_stats_for, feature_dim_of
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from .eval import open_device, restore_model
 
@@ -61,11 +61,12 @@ def main(argv=None) -> list[str]:
         lm = load_lm(args.lm_dir, device)
     model_dir = Path(args.model_dir)
     exp = ExperimentConfig.from_yaml(model_dir / "config.yml")
-    _, dev_utts, test_utts, tokenizer = build_corpus_splits(exp)
+    _, dev_utts, test_utts, tokenizer = build_corpus_splits(exp, need=("dev", "test"))
     utts = (dev_utts if args.data == "dev" else test_utts)[: args.num_utts]
-    task, task_mod = build_task(exp, tokenizer)
+    task, task_mod = build_task(exp, tokenizer, feature_dim_of(utts))
     epoch, model = restore_model(model_dir, task, task_mod, args.epoch, device)
-    batch = next(Dataset(utts, len(utts)).batches(0))
+    batch = next(Dataset(utts, len(utts),
+                         cmvn_stats=cmvn_stats_for(exp, task, utts, device)).batches(0))
 
     with torch.inference_mode():
         feats, fl = device_pipeline(task, to_device(batch, device))

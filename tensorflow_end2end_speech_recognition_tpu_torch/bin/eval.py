@@ -11,7 +11,9 @@ models and the loss for each set. A beam width above 1 (the config's
 ``beam_width``, or ``--beam-width``) decodes CTC models with the prefix
 beam and attention models with the attention beam, joint models re-ranked
 by joint CTC rescoring at their ``ctc_loss_weight``; ``--lm-dir`` (from
-``bin/train_lm``) fuses an RNN-LM into either beam. Runs on the card
+``bin/train_lm``) fuses an RNN-LM into either beam. A ``data_root`` model
+is scored on every split on disk whose name does not start with "train",
+each loaded when its turn comes and freed after it. Runs on the card
 (``--device cpu`` for the CPU).
 """
 
@@ -25,7 +27,8 @@ import torch
 from .. import set_full_fp32
 from ..data.dataset import Dataset
 from ..train.checkpoint import CheckpointManager
-from ..train.loop import build_corpus_splits, build_task
+from ..data.npy_corpus import available_splits, load_npy_split
+from ..train.loop import build_corpus_splits, build_task, cmvn_stats_for, feature_dim_of
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
 
@@ -69,8 +72,21 @@ def main(argv=None) -> dict:
         lm = load_lm(args.lm_dir, device)
     model_dir = Path(args.model_dir)
     exp = ExperimentConfig.from_yaml(model_dir / "config.yml")
-    _, dev_utts, test_utts, tokenizer = build_corpus_splits(exp)
-    task, task_mod = build_task(exp, tokenizer)
+    if exp.data_root is not None:
+        # every non-train split, each split's features in memory only while it is scored
+        _, _, _, tokenizer = build_corpus_splits(exp, need=())
+        names = [s for s in available_splits(exp.data_root) if not s.startswith("train")]
+        if not names:
+            raise SystemExit(f"no non-train splits found under {exp.data_root}")
+        loaded = {names[0]: load_npy_split(exp.data_root, names[0], tokenizer)}
+        feature_dim = feature_dim_of(loaded[names[0]])
+        sets = [(name, lambda name=name: loaded.pop(name, None)
+                 or load_npy_split(exp.data_root, name, tokenizer)) for name in names]
+    else:
+        _, dev_utts, test_utts, tokenizer = build_corpus_splits(exp, need=("dev", "test"))
+        sets = [("dev", lambda: dev_utts), ("test", lambda: test_utts)]
+        feature_dim = None
+    task, task_mod = build_task(exp, tokenizer, feature_dim)
     epoch, model = restore_model(model_dir, task, task_mod, args.epoch, device)
     params = dict(model.state_dict())
     beam_width = args.beam_width if args.beam_width is not None else exp.beam_width
@@ -91,10 +107,13 @@ def main(argv=None) -> dict:
             print("warning: --lm-dir requires beam decoding; ignored for greedy")
         eval_step = task_mod.make_eval_step(task)
     results = {}
-    for name, utts in (("dev", dev_utts), ("test", test_utts)):
-        ds = Dataset(utts, exp.eval_batch_size or exp.batch_size)
+    for name, load_set in sets:
+        utts = load_set()
+        ds = Dataset(utts, exp.eval_batch_size or exp.batch_size,
+                     cmvn_stats=cmvn_stats_for(exp, task, utts, device))
         m = results[name] = evaluate_ctc(eval_step, params, ds, tokenizer, exp.label_type,
                                          device=device)
+        del utts, ds  # free this split before the next loads
         wer = f" wer {m['wer']:.4f}" if "wer" in m else ""
         print(f"{name} (epoch {epoch}): error_rate {m['error_rate']:.4f} "
               f"(S {m['sub_rate']:.4f} / I {m['ins_rate']:.4f} / D {m['del_rate']:.4f})"

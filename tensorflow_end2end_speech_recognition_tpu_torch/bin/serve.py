@@ -27,7 +27,9 @@ and ``joint_ctc_attention`` decode greedily, or with the attention beam
 search at ``--beam-width`` above 1; ``transducer``
 (``configs/ls_transducer.yml``) decodes greedily, or with the transducer
 beam at ``--beam-width`` above 1. ``--lm-dir`` (``bin/train_lm``) fuses an
-RNN-LM into any beam.
+RNN-LM into any beam. A model trained from a ``data_root`` corpus took
+precomputed features, not audio: serving it needs its exported artifact,
+and export is not ported yet, so such a config raises.
 
 API:
   GET  /healthz    -> the serving contract (batch size, samples, beam width,
@@ -300,12 +302,19 @@ def load_model(config_path, weights_path, device):
     """YAML config + bridged weights -> (task, model on ``device``, units, label_type).
 
     The config's ``model_type`` picks the model: a CTC model, a transducer,
-    or an attention / joint CTC-attention seq2seq model.
+    or an attention / joint CTC-attention seq2seq model. A ``data_root``
+    config raises ``NotImplementedError``: no waveform frontend is built for
+    a model trained on precomputed features.
     """
     from ..train import att_task, ctc_task, transducer_task
     from ..utils.bridge import load_weights
-    from ..utils.config import load_task
+    from ..utils.config import ExperimentConfig, load_task
 
+    if ExperimentConfig.from_yaml(config_path).data_root is not None:
+        raise NotImplementedError(
+            f"{config_path} trains on a data_root corpus of precomputed features; serving "
+            "such a model needs its exported artifact, and export (bin/export) is not "
+            "ported yet")
     task, units, label_type = load_task(config_path)
     task_mod = {ctc_task.CTCTaskConfig: ctc_task, att_task.AttTaskConfig: att_task,
                 transducer_task.TransducerTaskConfig: transducer_task}[type(task)]

@@ -73,7 +73,9 @@ def main(argv=None) -> float:
     device = open_device(args.device)
 
     exp = ExperimentConfig.from_yaml(args.config)
-    train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
+    # token ids only: a data_root corpus's acoustic features are not read
+    train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp, need=("train", "dev"),
+                                                             load_features=False)
     cfg = LMConfig(vocab=tokenizer.num_units + 2, num_units=args.num_units,
                    embedding_dim=args.embedding_dim, num_layers=args.num_layers)
     task = LMTaskConfig(model=cfg)

@@ -8,8 +8,17 @@ utterances whose rows carry ``weight`` 0 and name ``None``. Utterances with
 multitask sub labels give ``labels_sub`` / ``label_len_sub`` too, ``-1``
 padded to a ladder of their own (at least 8 wide). The same seed and epoch
 give the same batches as the JAX ``Dataset``. Batches are padded with the
-numpy assembly of ``data/native.py`` there (no C++ library here). Waveform
-utterances only; per-speaker CMVN rows are not ported.
+numpy assembly of ``data/native.py`` there (no C++ library here).
+
+Utterances carry waveforms (``[N]`` samples) or precomputed feature
+matrices (``[T, D]``, the ``.npy`` corpora of ``data/npy_corpus.py``);
+``input_kind="auto"`` tells them apart by rank. In features mode lengths
+count frames and the time ladder rounds to 16 frames, not 512 samples.
+With ``cmvn_stats`` (``frontend/speaker_cmvn.compute_speaker_stats``) each
+batch also carries every row's speaker ``cmvn_mean`` / ``cmvn_inv_std``,
+fill rows included. ``max_frames_per_batch`` halves a long batch's rows,
+rounded down to a multiple of ``min_batch_rows`` (the gradient
+accumulation's microbatch count), until its padded frames fit.
 """
 
 from __future__ import annotations
@@ -40,13 +49,14 @@ def pad_to_ladder(n: int, ladder) -> int:
 
 
 def batch_assemble(utts: list[np.ndarray], t_pad: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pad and stack float32 waveforms -> ([B, t_pad], int32 lengths)."""
-    lens = np.asarray([len(u) for u in utts], np.int32)
+    """Pad and stack float32 waveforms or [T, D] feature matrices ->
+    ([B, t_pad(, D)], int32 lengths)."""
+    lens = np.asarray([u.shape[0] for u in utts], np.int32)
     if int(lens.max()) > t_pad:
         raise ValueError(f"utterance length {int(lens.max())} exceeds t_pad {t_pad}")
-    out = np.zeros((len(utts), t_pad), np.float32)
+    out = np.zeros((len(utts), t_pad) + utts[0].shape[1:], np.float32)
     for i, u in enumerate(utts):
-        out[i, : len(u)] = u
+        out[i, : u.shape[0]] = u
     return out, lens
 
 
@@ -65,21 +75,30 @@ class Dataset:
         sort_utt: bool = True,
         sort_stop_epoch: int | None = None,
         seed: int = 0,
+        input_kind: str = "auto",  # "wav" | "features" | "auto" (by rank)
+        cmvn_stats: dict | None = None,  # speaker -> (mean, inv_std): batches carry rows
         max_frames_per_batch: int | None = None,  # padded frames x rows budget
-        samples_per_frame: int = 1,  # samples per frame: the budget counts frames
+        min_batch_rows: int = 1,  # the halving's floor and multiple
+        samples_per_frame: int = 1,  # wav mode: samples per frame (the budget counts frames)
     ):
         if not utterances:
             raise ValueError("empty dataset")
         self.utterances = list(utterances)
+        self.cmvn_stats = cmvn_stats
         self.batch_size = batch_size
         self.max_frames_per_batch = max_frames_per_batch
+        self.min_batch_rows = max(1, min_batch_rows)
         self.samples_per_frame = max(1, samples_per_frame)
         self.sort_utt = sort_utt
         self.sort_stop_epoch = sort_stop_epoch if sort_stop_epoch is not None else (1 << 30)
         self.seed = seed
-        lens = [len(u.wav) for u in self.utterances]
+        if input_kind == "auto":
+            input_kind = "wav" if utterances[0].wav.ndim == 1 else "features"
+        self.input_kind = input_kind
+        lens = [u.wav.shape[0] for u in self.utterances]  # samples, or frames
         self._input_lens = np.asarray(lens)
-        self.wav_ladder = bucket_ladder(lens, NUM_WAV_BUCKETS, multiple=512)
+        self.wav_ladder = bucket_ladder(lens, NUM_WAV_BUCKETS,
+                                        multiple=512 if input_kind == "wav" else 16)
         label_lens = [len(u.label_ids) for u in self.utterances]
         self.label_ladder = bucket_ladder(label_lens, NUM_LABEL_BUCKETS, multiple=8)
         sub_lens = [len(u.sub_ids) for u in self.utterances if u.sub_ids is not None]
@@ -115,7 +134,8 @@ class Dataset:
 
     def _batch_extents(self, order):
         """``(start, rows)`` slices of the epoch order; long batches halve their
-        rows (down to one) until ``max_frames_per_batch`` fits."""
+        rows, rounded down to a multiple of ``min_batch_rows`` (and not below
+        it), until ``max_frames_per_batch`` fits."""
         extents = []
         i, n = 0, len(order)
         while i < n:
@@ -125,9 +145,13 @@ class Dataset:
                     idx = order[i : i + rows]
                     t_pad = pad_to_ladder(int(self._input_lens[idx].max()), self.wav_ladder)
                     frames = -(-t_pad // self.samples_per_frame)
-                    if frames * rows <= self.max_frames_per_batch or rows <= 1:
+                    if frames * rows <= self.max_frames_per_batch or rows <= self.min_batch_rows:
                         break
-                    rows = max(1, rows // 2)
+                    # every row count stays a multiple of min_batch_rows: batch_size
+                    # // min_batch_rows need not be a power of two (24 rows at 8: 12
+                    # would not divide into 8 microbatches)
+                    m = self.min_batch_rows
+                    rows = max(m, (rows // 2) // m * m)
             extents.append((i, rows))
             i += rows
         return extents
@@ -170,4 +194,9 @@ class Dataset:
         if has_sub:
             batch["labels_sub"] = labels_sub
             batch["label_len_sub"] = label_len_sub
+        if self.cmvn_stats is not None:
+            from ..frontend.speaker_cmvn import batch_cmvn_rows
+
+            batch["cmvn_mean"], batch["cmvn_inv_std"] = batch_cmvn_rows(self.cmvn_stats,
+                                                                        all_utts)
         return batch

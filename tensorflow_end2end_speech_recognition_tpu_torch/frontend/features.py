@@ -6,7 +6,8 @@ once in numpy (the same ``_dft_mats`` / ``_mel_matrix`` construction), and
 the pipeline is
 
     unfold (framing) -> matmul (cos DFT) / matmul (sin DFT) -> square-add
-    -> matmul (mel) -> log -> deltas -> masked mean/var (CMVN)
+    -> matmul (mel) -> log [-> matmul (DCT): MFCC] -> deltas
+    -> masked mean/var (CMVN)
 
 The JAX package frames with ``_frame_blocks``, a reshape-and-slice that
 avoids a slow TPU gather; here framing is ``Tensor.unfold``, a strided view.
@@ -30,7 +31,7 @@ class FrontendConfig(NamedTuple):
     frame_length_ms: float = 25.0
     frame_step_ms: float = 10.0
     num_mels: int = 40
-    feature_type: str = "fbank"  # "fbank"; "mfcc" is not ported yet
+    feature_type: str = "fbank"  # "fbank" | "mfcc" (reference `feature` key)
     num_ceps: int = 13  # MFCC coefficients kept after the DCT
     fft_length: int = 512
     preemphasis: float = 0.97
@@ -116,9 +117,21 @@ def _mel_matrix(cfg: FrontendConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _dct_matrix(cfg: FrontendConfig) -> np.ndarray:
+    """Orthonormal DCT-II matrix [num_mels, num_ceps] for MFCC."""
+    n, k = cfg.num_mels, cfg.num_ceps
+    mat = np.cos(np.pi / n * (np.arange(n)[:, None] + 0.5) * np.arange(k)[None, :])
+    mat *= np.sqrt(2.0 / n)
+    mat[:, 0] *= 1.0 / np.sqrt(2.0)
+    return mat.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
 def _device_mats(cfg: FrontendConfig, device: torch.device):
-    """(cos, sin, mel) matrices on ``device``, copied there once."""
-    return tuple(torch.from_numpy(m).to(device) for m in (*_dft_mats(cfg), _mel_matrix(cfg)))
+    """(cos, sin, mel, DCT or None) matrices on ``device``, copied there once."""
+    dct = _dct_matrix(cfg) if cfg.feature_type == "mfcc" else None
+    return (*(torch.from_numpy(m).to(device) for m in (*_dft_mats(cfg), _mel_matrix(cfg))),
+            None if dct is None else torch.from_numpy(dct).to(device))
 
 
 def num_frames(num_samples: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -150,16 +163,19 @@ def preemphasize(wav: torch.Tensor, coeff: float, context=None) -> torch.Tensor:
 
 def log_mel_spectrogram(wav: torch.Tensor, cfg: FrontendConfig,
                         preemph_context=None) -> torch.Tensor:
-    """[..., N] float32 waveform -> [..., T, base_dim] log-mel (+ log-energy)."""
-    if cfg.feature_type != "fbank":
-        raise NotImplementedError(f"feature_type {cfg.feature_type!r} is not ported yet")
+    """[..., N] float32 waveform -> [..., T, base_dim] log-mel or MFCC
+    (+ log-energy)."""
+    if cfg.feature_type not in ("fbank", "mfcc"):
+        raise ValueError(f"unknown feature_type {cfg.feature_type!r}")
     wav = preemphasize(wav.to(torch.float32), cfg.preemphasis, preemph_context)
     frames = frame_signal(wav, cfg)
-    cos_m, sin_m, mel_m = _device_mats(cfg, wav.device)
+    cos_m, sin_m, mel_m, dct_m = _device_mats(cfg, wav.device)
     re = torch.matmul(frames, cos_m)
     im = torch.matmul(frames, sin_m)
     mel = torch.matmul(re * re + im * im, mel_m)
     logmel = torch.log(torch.clamp(mel, min=cfg.log_floor))
+    if dct_m is not None:
+        logmel = torch.matmul(logmel, dct_m)
     if cfg.use_energy:
         energy = torch.sum(frames * frames, dim=-1, keepdim=True)
         logmel = torch.cat([torch.log(torch.clamp(energy, min=cfg.log_floor)), logmel], dim=-1)

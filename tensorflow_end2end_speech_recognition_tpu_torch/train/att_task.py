@@ -15,7 +15,8 @@ keys) through one parameter-free copy of the model
 (``torch.func.functional_call``). The beam eval step shares one encoder
 pass between the attention beam (with joint CTC rescoring for joint models
 and, given an RNN-LM, shallow fusion) and the teacher-forced NLL it
-reports. Gradient accumulation raises ``NotImplementedError``.
+reports. With ``grad_accum`` above 1 the train step accumulates over
+strided microbatches (``train/accum.py``), the global step the same for each.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ load-balance loss joins the objective. A multitask model's loss mixes the
 main and sub heads' batch means, ``w * main + (1 - w) * sub`` at
 ``main_task_weight`` w; its eval steps read the main head. The beam eval
 step decodes with the CTC prefix beam, with an RNN-LM fused when one is
-given. Per-speaker CMVN and gradient accumulation raise
-``NotImplementedError``.
+given. A batch with per-speaker CMVN rows (``cmvn_mean`` /
+``cmvn_inv_std``) is normalized with them before stacking; a train step
+with ``grad_accum`` above 1 takes its loss and gradients over that many
+strided microbatches (``train/accum.py``) before its one update.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
 from ..ops.ctc import ctc_loss
 from ..ops.losses import batch_mean, l2_weight_decay
+from .accum import accum_value_and_grad
 from .optimizer import apply_updates, tree_where
 
 
@@ -61,14 +64,23 @@ class CTCTaskConfig(NamedTuple):
 
 
 def device_pipeline(task: CTCTaskConfig, batch: dict):
-    """{"inputs", "input_len"} -> (model-ready features [B, T', D], lengths [B])."""
-    if "cmvn_mean" in batch:
-        raise NotImplementedError("per-speaker CMVN is not ported yet")
+    """{"inputs", "input_len"} -> (model-ready features [B, T', D], lengths [B]).
+
+    With ``batch["cmvn_mean"]`` / ``batch["cmvn_inv_std"]`` (per-speaker CMVN)
+    the base frames are normalized with the rows' speaker statistics and
+    frames at or past ``feat_len`` zeroed, before stacking and splicing (the
+    frontend's ``cmvn: speaker`` is mask-only)."""
     inputs, input_len = batch["inputs"], batch["input_len"]
     if task.frontend is not None:
         feats, feat_len = extract_features(inputs, input_len, task.frontend)
     else:
         feats, feat_len = inputs, input_len
+    if "cmvn_mean" in batch:
+        t = feats.shape[1]
+        mask = (torch.arange(t, device=feats.device)[None, :, None]
+                < feat_len[:, None, None]).to(feats.dtype)
+        feats = (feats - batch["cmvn_mean"][:, None, :]) * batch["cmvn_inv_std"][:, None, :]
+        feats = feats * mask
     feats, feat_len = stack_frames(feats, feat_len, task.num_stack, task.num_skip)
     return splice_frames(feats, task.splice), feat_len
 
@@ -154,21 +166,27 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
     aux)`` around ``forward_loss_fn(params, task, batch, train, generator,
     **kw)`` (the attention step passes the global ``step``).
 
-    Loss and gradient (autograd through the kernels), the optimizer's clip
-    and update, then the guard of the JAX step: unless the loss is finite
-    and below 1e20 (an impossible alignment gives about 1e30), both the
-    parameters and the optimizer state keep their old values and
-    ``aux["nonfinite"]`` is true. The guard is a ``torch.where`` on the
-    device, so a step never waits for the host.
+    Loss and gradient (autograd through the kernels; with ``grad_accum``
+    above 1 the weighted mean over that many strided microbatches,
+    ``accum_value_and_grad``), the optimizer's clip and update, then the
+    guard of the JAX step: unless the loss is finite and below 1e20 (an
+    impossible alignment gives about 1e30), both the parameters and the
+    optimizer state keep their old values and ``aux["nonfinite"]`` is true.
+    Under accumulation one non-finite microbatch makes the combined loss
+    non-finite and so rejects the whole update. The guard is a
+    ``torch.where`` on the device, so a step never waits for the host.
     """
-    if grad_accum > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        with torch.enable_grad():
-            loss, aux = forward_loss_fn(leaves, task, batch, True, generator, **kw)
-            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        if grad_accum > 1:
+            (loss, aux), grads = accum_value_and_grad(
+                lambda p, mb, g: forward_loss_fn(p, task, mb, True, g, **kw),
+                leaves, batch, generator, grad_accum)
+        else:
+            with torch.enable_grad():
+                loss, aux = forward_loss_fn(leaves, task, batch, True, generator, **kw)
+                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
         with torch.no_grad():
             updates, new_state = optimizer.update(grads, opt_state)
             new_params = apply_updates(params, updates, lr)

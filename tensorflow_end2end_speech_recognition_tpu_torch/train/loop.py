@@ -6,7 +6,12 @@ Counterpart of the single-device branches of ``fit`` in
 CTC-attention models, ``att_task``, whose train step also takes the global
 step) is picked by ``model_type`` in ``build_task``, and the dev
 eval runs the task's eval step through ``evaluate_ctc`` as the JAX ``fit``
-does. The model dir
+does. The corpus is the toy or hard one, or with ``data_root`` an on-disk
+corpus of per-utterance ``.npy`` features (``bin/prepare``), whose task then
+takes ``[B, T, D]`` frames without a frontend (``feature_dim_of``). With
+``cmvn: speaker`` the speaker statistics of train + dev (``cmvn_stats_for``)
+ride every batch; ``grad_accum_steps`` splits each batch into that many
+microbatches before the one update. The model dir
 gets a config copy, ``metrics.csv``, TensorBoard events, checkpoints kept by
 dev error and ``summary.json``. The steps run on ``device`` (the card unless
 the caller asks for the CPU); the host moves numpy batches in and fetches
@@ -16,8 +21,8 @@ generator, the LR controller, the step counter and the best dev error.
 The tasks' SpecAugment comes from the config (``ExperimentConfig.
 spec_augment``, the JAX loop's ``_specaug``) and draws from the dropout
 generator; a MoE encoder's load-balance term is logged beside the loss
-(``train/moe_aux``). Meshes, gradient accumulation, profiling and the
-loss-curve plots raise ``NotImplementedError`` or are left out (plots).
+(``train/moe_aux``). Meshes and profiling raise ``NotImplementedError``;
+the loss-curve plots are left out.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from .. import set_full_fp32
 from ..data.dataset import Dataset, to_device
 from ..data.hard_corpus import HardCorpus
+from ..data.npy_corpus import corpus_split_names, corpus_tokenizer, load_npy_split
 from ..data.prefetch import prefetch
 from ..data.tokenizers import CharTokenizer
 from ..data.toy_corpus import ToyCorpus
@@ -56,12 +62,26 @@ def attach_sub_labels(utts, sub_tok) -> None:
             u.sub_ids = sub_tok.encode([t for t in u.text.split() if t in sub_tok.unit_to_idx])
 
 
-def build_corpus_splits(exp: ExperimentConfig):
-    """(train, dev, test utterances, tokenizer) of the toy corpus (``toy_profile``
-    easy) or the hard one (hard, harder), split as the JAX loop; a multitask
-    model's utterances carry their sub labels."""
+def build_corpus_splits(exp: ExperimentConfig, need=("train", "dev", "test"),
+                        load_features: bool = True):
+    """(train, dev, test utterances, tokenizer) as the JAX loop splits them; a
+    multitask model's utterances carry their sub labels.
+
+    ``data_root`` set: the on-disk corpus's splits (``corpus_split_names``),
+    each a list of [T, D] feature utterances; a split not in ``need`` comes
+    back as ``[]``, ``load_features=False`` reads the transcripts only, and
+    word and BPE units learn from the train transcripts. Otherwise the toy
+    corpus (``toy_profile`` easy) or the hard one (hard, harder), whole."""
+    sub_tok = exp.sub_tokenizer()
     if exp.data_root is not None:
-        raise NotImplementedError("data_root (on-disk corpora) is not ported yet")
+        names = dict(zip(("train", "dev", "test"),
+                         corpus_split_names(exp.data_root, exp.train_data_size)))
+        tokenizer = corpus_tokenizer(exp.data_root, exp.label_type, names["train"])
+        splits = [load_npy_split(exp.data_root, names[want], tokenizer, load_features)
+                  if want in need else [] for want in ("train", "dev", "test")]
+        if sub_tok is not None:
+            attach_sub_labels([u for split in splits for u in split], sub_tok)
+        return (*splits, tokenizer)
     if exp.toy_profile in ("hard", "harder"):
         # "harder": a smaller within-pair F2 gap, twice the speakers, a lower SNR floor
         harder = exp.toy_profile == "harder"
@@ -86,25 +106,41 @@ def build_corpus_splits(exp: ExperimentConfig):
     n = len(utts)
     n_dev = max(n // 10, 1)
     n_test = max(n // 10, 1)
-    sub_tok = exp.sub_tokenizer()
     if sub_tok is not None:
         attach_sub_labels(utts, sub_tok)
     return (utts[: n - n_dev - n_test], utts[n - n_dev - n_test : n - n_test],
             utts[n - n_test :], corpus.tokenizer)
 
 
-def build_task(exp: ExperimentConfig, tokenizer):
+def feature_dim_of(utts) -> int | None:
+    """Per-frame dim for precomputed [T, D] feature corpora, None for waveforms."""
+    arr = utts[0].wav
+    return int(arr.shape[1]) if arr.ndim == 2 else None
+
+
+def cmvn_stats_for(exp: ExperimentConfig, task, utts, device="cuda"):
+    """Speaker-CMVN stats of these utterances (None unless ``cmvn: speaker``),
+    a waveform corpus's features extracted on ``device``. Every ``Dataset`` of
+    a speaker-CMVN model must carry them: its frontend normalizes nothing."""
+    if exp.cmvn != "speaker":
+        return None
+    from ..frontend.speaker_cmvn import compute_speaker_stats
+
+    return compute_speaker_stats(utts, task.frontend, exp.eval_batch_size or exp.batch_size,
+                                 device)
+
+
+def build_task(exp: ExperimentConfig, tokenizer, feature_dim: int | None = None):
     """(task config, task module) for the configured ``model_type``: ``att_task``
     for attention and joint CTC-attention, ``transducer_task``, else
     ``ctc_task`` (``ctc`` and ``multitask_ctc``, whose sub head counts the
     units of ``label_type_sub``, or the main task's without one).
 
-    The JAX ``build_task`` also takes the frame width of a precomputed-feature
-    corpus (``feature_dim_of``) and its consumers the speaker-CMVN stats
-    (``cmvn_stats_for``); both come only from what raises here first
-    (``data_root`` in ``build_corpus_splits``, ``cmvn: speaker`` in
-    ``ExperimentConfig.frontend_config``), so neither is ported."""
+    ``feature_dim`` set (``feature_dim_of`` on a precomputed-feature corpus)
+    drops the frontend: the task takes [B, T, feature_dim] frames."""
     task = exp.task(tokenizer.num_units)
+    if feature_dim is not None:
+        task = task._replace(frontend=None, feature_dim=feature_dim)
     if exp.model_type in ATTENTION_MODEL_TYPES:
         return task, att_task
     return task, transducer_task if exp.model_type == "transducer" else ctc_task
@@ -120,20 +156,28 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA card; pass device='cpu' for the CPU")
+    if exp.batch_size % exp.grad_accum_steps:
+        raise ValueError(f"batch_size {exp.batch_size} not divisible by "
+                         f"grad_accum_steps {exp.grad_accum_steps}")
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     exp.to_yaml(model_dir / "config.yml")
 
-    train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp)
-    task, task_mod = build_task(exp, tokenizer)
+    train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp, need=("train", "dev"))
+    task, task_mod = build_task(exp, tokenizer, feature_dim_of(train_utts))
     is_att = task_mod is att_task
+    # one sweep for the per-speaker mean and variance; batches carry each row's
+    cmvn_stats = cmvn_stats_for(exp, task, train_utts + dev_utts, device)
+    # the budget counts frames: a waveform corpus's lengths count samples. The
+    # row floor keeps every batch divisible into grad_accum_steps microbatches
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
-        sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed,
-        max_frames_per_batch=exp.max_frames_per_batch,
-        samples_per_frame=task.frontend.frame_step,
+        sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed, cmvn_stats=cmvn_stats,
+        max_frames_per_batch=exp.max_frames_per_batch, min_batch_rows=exp.grad_accum_steps,
+        samples_per_frame=task.frontend.frame_step if task.frontend is not None else 1,
     )
-    dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True)
+    dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True,
+                     cmvn_stats=cmvn_stats)
     params = tree_to(task_mod.init_params(task, torch.Generator().manual_seed(exp.seed)), device)
     n_params = sum(v.numel() for v in params.values())
     print_fn(f"model: {exp.model_type}/{exp.encoder_type} params={n_params:,} on {device}")

@@ -9,8 +9,9 @@ SpecAugment (when set) masks the stacked features and a MoE encoder's
 load-balance loss joins the objective. Parameters travel as a dict of
 tensors (``state_dict`` keys) through one parameter-free copy of the model
 (``torch.func.functional_call``). The beam eval step decodes with the
-transducer beam search, with an RNN-LM fused when one is given. Gradient
-accumulation raises ``NotImplementedError``.
+transducer beam search, with an RNN-LM fused when one is given. With
+``grad_accum`` above 1 the train step accumulates over strided microbatches
+(``train/accum.py``).
 """
 
 from __future__ import annotations

@@ -3,16 +3,17 @@
 A subset of ``tensorflow_end2end_speech_recognition_tpu/utils/config.py``:
 ``ExperimentConfig`` holds the keys of every config in ``configs/`` (the
 CTC, multitask CTC, transducer, attention and joint CTC-attention models,
-on the toy corpus or the hard one), with the JAX defaults, and builds the
+on the toy corpus, the hard one or an on-disk ``data_root`` corpus), with
+the JAX defaults, and builds the
 same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
 when ``use_specaugment`` is set. A key the JAX package knows but the port
 does not raises ``KeyError`` when it is read; a value the port has not
-ported (a mesh, gradient accumulation, on-disk corpora, MFCC, per-speaker
-CMVN, an encoder type or cell option) raises ``NotImplementedError`` where
-it would be used. ``corpus_tokenizer`` gives the units of a config's
-corpus: the word and BPE label types learn theirs from its text.
+ported (a mesh, an encoder type or cell option) raises
+``NotImplementedError`` where it would be used. ``corpus_tokenizer`` gives
+the units of a config's corpus: the word and BPE label types learn theirs
+from its text (a ``data_root`` corpus's train transcripts).
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
 """
@@ -25,6 +26,8 @@ import warnings
 from dataclasses import dataclass
 
 from ..data.hard_corpus import hard_tokenizer
+from ..data.npy_corpus import corpus_split_names
+from ..data.npy_corpus import corpus_tokenizer as npy_corpus_tokenizer
 from ..data.tokenizers import Tokenizer, build_tokenizer
 from ..data.toy_corpus import learns_units, toy_tokenizer
 from ..frontend.augment import SpecAugmentConfig
@@ -199,10 +202,11 @@ class ExperimentConfig:
     # ---- derived typed configs ------------------------------------------
 
     def frontend_config(self) -> FrontendConfig:
-        if self.feature != "fbank":
-            raise NotImplementedError(f"feature {self.feature!r} is not ported yet")
-        if self.cmvn == "speaker":
-            raise NotImplementedError("per-speaker CMVN is not ported yet")
+        if self.feature == "mfcc":
+            # reference MFCC configs: input_size counts cepstra (e.g. 13)
+            return FrontendConfig(feature_type="mfcc", num_ceps=self.input_size,
+                                  use_energy=self.use_energy, add_deltas=self.use_delta,
+                                  cmvn=self.cmvn)
         return FrontendConfig(num_mels=self.input_size, use_energy=self.use_energy,
                               add_deltas=self.use_delta, cmvn=self.cmvn)
 
@@ -365,8 +369,6 @@ class ExperimentConfig:
     def check_trainable(self) -> None:
         """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
         unported = {
-            "data_root (on-disk corpora)": self.data_root is not None,
-            "grad_accum_steps > 1": self.grad_accum_steps > 1,
             "num_devices > 1": (self.num_devices or 1) > 1,
             "num_model_shards > 1": (self.num_model_shards or 1) > 1,
             "num_pipeline_stages > 1": (self.num_pipeline_stages or 1) > 1,
@@ -387,12 +389,14 @@ def experiment_from_dict(raw: dict) -> ExperimentConfig:
 
 
 def corpus_tokenizer(exp: ExperimentConfig) -> Tokenizer:
-    """The tokenizer of the config's toy corpus, without rendering it: the
-    word and BPE label types learn their units from the corpus's text (the
-    toy corpus's word list or the hard corpus's lexicon), as
-    ``build_corpus_splits(exp, need=())`` of the JAX loop learns them."""
+    """The tokenizer of the config's corpus, without rendering or loading it:
+    the word and BPE label types learn their units from the corpus's text
+    (the toy corpus's word list, the hard corpus's lexicon or a ``data_root``
+    corpus's train transcripts), as ``build_corpus_splits(exp, need=())`` of
+    the JAX loop learns them."""
     if exp.data_root is not None:
-        raise NotImplementedError("data_root (on-disk corpora) is not ported yet")
+        train_name = corpus_split_names(exp.data_root, exp.train_data_size)[0]
+        return npy_corpus_tokenizer(exp.data_root, exp.label_type, train_name)
     if not learns_units(exp.label_type):
         return build_tokenizer(exp.label_type)
     if exp.toy_profile in ("hard", "harder"):

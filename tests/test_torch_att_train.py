@@ -412,8 +412,11 @@ def test_eval_step_matches_jax(setup):
 
 def test_unported_step_options_raise(setup):
     opt = build_optimizer("sgd", 5.0)
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        att_task.make_train_step(setup["task"], opt, grad_accum=2)
+    # gradient accumulation is ported (tests/test_torch_grad_accum.py): rows must divide by A
+    step = att_task.make_train_step(setup["task"], opt, grad_accum=2)
+    three_rows = {k: v[:3] for k, v in _tb(_batch(14)).items()}
+    with pytest.raises(ValueError, match="not divisible by grad_accum 2"):
+        step(setup["params"], opt.init(setup["params"]), three_rows, 0.1, step=0)
     # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
     att_task.make_train_step(setup["task"]._replace(spec_augment=SpecAugmentConfig()), opt)
 

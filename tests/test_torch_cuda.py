@@ -1433,3 +1433,46 @@ def test_bf16_never_reaches_the_float32_kernels(dev):
                      ("lstm_layer", "launches"): 0, ("lstm_layer", "launches_bf16"): 2,
                      ("lstm_layer_bwd", "launches"): 0, ("lstm_layer_bwd", "launches_bf16"): 0}
     assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
+
+
+def test_accumulated_step_on_card_equals_one_batch(dev):
+    """Four strided microbatches (one all fill, with per-speaker CMVN rows) against
+    the one-batch step on the card: the kernels run once per microbatch; the
+    loss within 2e-5 relative and every weight within 2e-5, as the JAX
+    package's accumulation tests hold them."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import build_optimizer
+
+    d, t, b = 12, 60, 8
+    task = ctc_task.CTCTaskConfig(
+        model=CTCConfig(encoder=EncoderConfig(encoder_type="blstm", num_units=32, num_layers=2),
+                        num_classes=6),
+        frontend=None, feature_dim=d, num_stack=3, num_skip=3)
+    params = {k: v.to(dev) for k, v in
+              ctc_task.init_params(task, torch.Generator().manual_seed(0)).items()}
+    rng = np.random.RandomState(9)
+    lens = np.asarray([60, 51, 33, 60, 12, 45, 60, 27], np.int32)
+    label_len = np.asarray([4, 3, 2, 5, 1, 3, 4, 2], np.int32)
+    labels = np.full((b, 5), -1, np.int32)
+    for i, n in enumerate(label_len):
+        labels[i, :n] = rng.randint(0, 6, n)
+    batch = {"inputs": rng.randn(b, t, d).astype(np.float32), "input_len": lens,
+             "labels": labels, "label_len": label_len,
+             "weight": np.asarray([1, 1, 1, 0, 1, 1, 1, 0], np.float32),
+             "cmvn_mean": rng.randn(b, d).astype(np.float32),
+             "cmvn_inv_std": (0.5 + rng.rand(b, d)).astype(np.float32)}
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    opt = build_optimizer("sgd", 5.0)
+    out = {}
+    for accum in (1, 4):
+        before = lstm_bidi.launches
+        out[accum] = ctc_task.make_train_step(task, opt, grad_accum=accum)(
+            params, opt.init(params), tb, 0.1)
+        torch.cuda.synchronize()
+        assert lstm_bidi.launches - before == 2 * accum
+    (p1, _, a1), (p4, _, a4) = out[1], out[4]
+    assert not bool(a1["nonfinite"]) and not bool(a4["nonfinite"])
+    np.testing.assert_allclose(float(a4["loss"]), float(a1["loss"]), rtol=2e-5)
+    for k in p1:
+        np.testing.assert_allclose(p4[k].cpu().numpy(), p1[k].cpu().numpy(), atol=2e-5,
+                                   err_msg=k)

@@ -57,9 +57,13 @@ def test_unnormalized_features_match_jax():
                                   tf_.FrontendConfig(**kw))
     # raw log-mel values down to log(1e-10) = -23: relative tolerance
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mfcc"):
-        tf_.extract_features(torch.from_numpy(wav), torch.from_numpy(lens),
-                             tf_.FrontendConfig(feature_type="mfcc"))
+    # MFCC is ported (tests/test_torch_disk_corpus.py): base_dim counts cepstra
+    for kw in (dict(feature_type="mfcc"), dict(feature_type="mfcc", num_ceps=20,
+                                               use_energy=False)):
+        cfg = tf_.FrontendConfig(**kw)
+        assert cfg.base_dim == jf.FrontendConfig(**kw).base_dim == cfg.num_ceps + cfg.use_energy
+        feats, _ = tf_.extract_features(torch.from_numpy(wav), torch.from_numpy(lens), cfg)
+        assert feats.shape[-1] == cfg.feature_dim
 
 
 def test_frontend_config_fields_match_jax():

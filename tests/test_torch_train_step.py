@@ -254,9 +254,11 @@ def test_train_step_with_dropout_is_reproducible():
 
 
 def test_unported_step_options_raise():
-    _, task, _, _, _ = _setup()
+    _, task, _, params, _ = _setup()
     opt = build_optimizer("sgd", 5.0)
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        make_train_step(task, opt, grad_accum=2)
+    # gradient accumulation is ported (tests/test_torch_grad_accum.py): rows must divide by A
+    three_rows = {k: v[:3] for k, v in _tb(_batch(seed=9)).items()}
+    with pytest.raises(ValueError, match="not divisible by grad_accum 2"):
+        make_train_step(task, opt, grad_accum=2)(params, opt.init(params), three_rows, 0.1)
     # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
     make_train_step(task._replace(spec_augment=SpecAugmentConfig()), opt)

@@ -262,9 +262,12 @@ def test_eval_step_matches_jax():
 
 
 def test_unported_transducer_options_raise():
-    _, task, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="grad_accum"):
-        tt.make_train_step(task, build_optimizer("sgd"), grad_accum=2)
+    _, task, _, params, _ = _setup()
+    # gradient accumulation is ported (tests/test_torch_grad_accum.py): rows must divide by A
+    opt = build_optimizer("sgd")
+    three_rows = {k: v[:3] for k, v in _tb(_batch(seed=9)).items()}
+    with pytest.raises(ValueError, match="not divisible by grad_accum 2"):
+        tt.make_train_step(task, opt, grad_accum=2)(params, opt.init(params), three_rows, 0.1)
     # the beam eval step is ported (tests/test_torch_transducer_beam.py)
     assert callable(tt.make_beam_eval_step(task, 4))
     # SpecAugment is ported: the step builds with it (tests/test_torch_conformer_train.py)
