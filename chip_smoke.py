@@ -4,8 +4,10 @@ serving, attention training, transducer serving and training, beam
 decoding, eval / decode and RNN-LM paths, of the conformer / transformer
 configs, of the VGG, multitask, BPE and word configs, of streaming
 recognition and the transducer beam, of the bf16 mode (``compute_dtype:
-bfloat16``) with ``bench.py``'s headline step, and of training from a
-prepared on-disk corpus with gradient accumulation, on one NVIDIA GPU.
+bfloat16``) with ``bench.py``'s headline step, of training from a
+prepared on-disk corpus with gradient accumulation, and of exported
+artifacts (``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at
+bf16, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -310,7 +312,33 @@ Phases; any failure exits non-zero and prints no result line:
     1e-5 relative, every weight's update within 1e-3 of the tensor's
     largest), then Adam steps timed both ways (``time_train_steps``: ms per
     step, peak memory, exactly 4 x and 1 x (5 #1, 5 #2, 1 #5), walks in
-    the profile); the accumulated step's peak memory must be the lower.
+    the profile); the accumulated step's peak memory must be the lower;
+56. ``bin/export --frames 1200 --selfcheck`` of phase 54's ls100_ctc
+    ``data_root`` model on the card, then ``bin/serve ARTIFACT``
+    (``make_artifact_server``) answering 8 concurrent feature requests of the
+    prepared dev_clean utterances: ids equal the in-process ``infer`` on the
+    card, exactly 5 #1 launches per batch; artifact size, load + warmup,
+    first-request latency;
+57. ls960_joint at beam 8 (#1, #7) and ls_transducer greedy (#3) exported
+    with ``serving.export_model`` and loaded back on the card: ids, lengths
+    and launch counts on 8 x 12 s equal the in-process serving's;
+58. ls_streaming_ctc exported as a streaming artifact at beam 8 and served by
+    ``bin/serve ARTIFACT``'s session API (8 concurrent sessions): each
+    finalized beam equals the in-process stream's, exactly 4
+    ``lstm_layer_fwd_carry`` launches per step;
+59. #3's carried walk with bf16 products (``lstm_layer_fwd_carry_bf16``) at
+    both chunk shapes against its plain version (one step within 1e-4,
+    the chunk within atol 1e-3 + rtol 1e-3: an h may round to the other bf16
+    neighbour on each side), a paused row's state bit for bit, timed from
+    graph replays beside the float32 carried walk and cuDNN bf16
+    ``nn.LSTM`` with (h0, c0);
+60. the four causal configs at compute_dtype bfloat16 and full width,
+    streamed on 8 x up to 4 s: exactly one bf16-product walk per LSTM layer
+    and step; every chunk step run again with the card's plain walk from the
+    same state (a bf16 rounding that lands the other way compounds over a
+    stream, so each step is held alone): encoder outputs within 5e-3 of their
+    largest entry, tokens equal unless the decisions part at a near-tie (top
+    two logits within 5e-2); the chunk step timed beside the float32 one.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -349,9 +377,13 @@ import torch.nn.functional as F
 from tensorflow_end2end_speech_recognition_tpu_torch import set_full_fp32
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import decode as decode_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import eval as eval_cli
+from tensorflow_end2end_speech_recognition_tpu_torch.bin import export as export_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import prepare as prepare_cli
 from tensorflow_end2end_speech_recognition_tpu_torch.bin import train_lm as train_lm_cli
-from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import make_server
+from tensorflow_end2end_speech_recognition_tpu_torch.bin.serve import (
+    make_artifact_server,
+    make_server,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.data.hard_corpus import HardCorpus
 from tensorflow_end2end_speech_recognition_tpu_torch.data.tokenizers import CHAR_UNITS
 from tensorflow_end2end_speech_recognition_tpu_torch.decoding import (
@@ -378,16 +410,22 @@ from tensorflow_end2end_speech_recognition_tpu_torch.models.lm import make_fusio
 from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import pred_tokens
 from tensorflow_end2end_speech_recognition_tpu_torch.ops import attention, build, ctc, lstm
 from tensorflow_end2end_speech_recognition_tpu_torch.ops.transducer import rnnt_loss
-from tensorflow_end2end_speech_recognition_tpu_torch.serving import build_inference_fn
+from tensorflow_end2end_speech_recognition_tpu_torch.serving import (
+    build_inference_fn,
+    export_model,
+    export_streaming_model,
+    load_exported,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.train import (
     att_task,
     ctc_task,
     transducer_task,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import device_pipeline
-from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import fit
+from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import build_task, fit
 from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import build_optimizer
 from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import (
+    ExperimentConfig,
     corpus_tokenizer,
     experiment_from_dict,
 )
@@ -445,22 +483,25 @@ KERNELS.update({f"{name}_bf16": KERNELS[name] for name in (
     "lstm_bidi_fwd", "lstm_bidi_bwd", "lstm_layer_fwd", "lstm_layer_bwd")})
 # #7 on bf16 encoder rows (the attention families at bfloat16): its own C entry
 KERNELS["location_attend_bf16"] = KERNELS["location_attend"]
+# #3's carried walk with bf16 products (streaming at bfloat16): its own C entry
+KERNELS["lstm_layer_fwd_carry_bf16"] = KERNELS["lstm_layer_fwd"]
 
 
 class Bf16Count:
-    """A wrapper's bf16 launch count (``launches_bf16``) under the ``launches``
-    name that ``reset_counts`` and ``read_counts`` use."""
+    """A wrapper's bf16 launch count (``launches_bf16``, or the counter named
+    ``attr``) under the ``launches`` name that ``reset_counts`` and
+    ``read_counts`` use."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, fn, attr: str = "launches_bf16"):
+        self.fn, self.attr = fn, attr
 
     @property
     def launches(self) -> int:
-        return self.fn.launches_bf16
+        return getattr(self.fn, self.attr)
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.fn.launches_bf16 = value
+        setattr(self.fn, self.attr, value)
 
 
 COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd,
@@ -471,7 +512,8 @@ COUNTERS = {"lstm_bidi_fwd": lstm.lstm_bidi, "lstm_bidi_bwd": lstm.lstm_bidi_bwd
             "lstm_bidi_bwd_bf16": Bf16Count(lstm.lstm_bidi_bwd),
             "lstm_layer_fwd_bf16": Bf16Count(lstm.lstm_layer),
             "lstm_layer_bwd_bf16": Bf16Count(lstm.lstm_layer_bwd),
-            "location_attend_bf16": Bf16Count(attention.location_attend)}
+            "location_attend_bf16": Bf16Count(attention.location_attend),
+            "lstm_layer_fwd_carry_bf16": Bf16Count(lstm.lstm_layer, "launches_bf16_product")}
 NONE_LAUNCHED = dict.fromkeys(COUNTERS, 0)
 # attention serving: configs/ls960_joint.yml at full width
 B_ATT, T_PYR, D_PYR = 8, 1198, 120  # 12 s: 1198 frames of 40 mel + deltas, no stacking
@@ -1189,6 +1231,508 @@ def time_phases(task, model, dev, gpu: str, name: str = "ls100_ctc",
         print(f"phase {name} {phase}: {ms:.3f} ms per batch of {B} x {seconds:g} s (T'={t_out})"
               f"  [{gpu}]", flush=True)
 
+
+# ---- phases 56-60: exported artifacts, and streaming at bfloat16 -------------------
+
+EXPORT_FRAMES = 1200  # the data_root artifact's padded input: 12 s of 10 ms frames
+ARTIFACT_SECONDS = (12.0, 11.0, 9.5, 8.0, 6.0, 4.0, 2.5, 1.0)
+SESSION_SECONDS = (4.0, 3.8, 3.2, 2.9, 2.0, 1.6, 1.1, 0.6)  # the streaming artifact's sessions
+BF16_STREAM_SECONDS = (4.0, 3.55, 3.0, 2.53, 2.0, 1.47, 1.0, 0.52)
+# #3 with bf16 products against its plain version over a chunk: an h whose
+# float32 sums ran in another order may round to the other bf16 neighbour (one
+# bf16 ulp, up to 2^-8 |h|) and move the next step's gates by that times |Wh|
+# (seen: 5.6e-4 at ls_streaming_ctc's chunk). One step (operands h0 and Wh,
+# inputs rounded alike on both sides) keeps KERNEL_ATOL.
+CARRY_BF16_TOL = dict(atol=1e-3, rtol=1e-3)
+# one bf16 chunk step's encoder outputs, card kernels against the card's plain
+# walk from the same state, of their largest entry: CARRY_BF16_TOL through 4 layers
+STREAM_BF16_RTOL = 5e-3
+
+
+def export_data_root(dev, gpu: str, work: Path) -> dict:
+    """Phase 56: ``bin/export --frames`` of phase 54's ls100_ctc ``data_root``
+    model on the card, then ``bin/serve ARTIFACT`` (``make_artifact_server``)
+    answering 8 feature requests of the prepared dev_clean utterances: ids
+    equal the in-process ``infer`` on the card, exactly 5 #1 launches per
+    batch and nothing else; artifact size, load, warmup and first-request
+    latency."""
+    model_dir, out = work / "ls100_ctc_data_root", work / "ls100_ctc_data_root.art"
+    _, counts = run_cli(
+        f"bin/export ls100_ctc data_root --frames {EXPORT_FRAMES} --selfcheck", export_cli.main,
+        [str(model_dir), str(out), "--batch", str(B), "--frames", str(EXPORT_FRAMES),
+         "--selfcheck", "--device", "cuda"], ("lstm_bidi_fwd",), gpu)
+    if counts["lstm_bidi_fwd"] != LAYERS:
+        raise RuntimeError(f"bin/export --selfcheck launched {counts}")
+    meta = json.loads(out.with_suffix(".art.json").read_text())
+    feats = [np.load(f) for f in sorted((work / "data_utterance" / "dev_clean" / "feats")
+                                        .glob("*.npy"))[:B]]
+    if meta["input_rank"] != 3 or meta["feature_dim"] != feats[0].shape[1]:
+        raise RuntimeError(f"the data_root artifact's contract {meta}")
+    # the in-process infer on the card, from the model dir
+    exp = ExperimentConfig.from_yaml(model_dir / "config.yml")
+    task, _ = build_task(exp, corpus_tokenizer(exp), feats[0].shape[1])
+    _, model = eval_cli.restore_model(model_dir, task, ctc_task, None, dev)
+    batch = np.zeros((B, EXPORT_FRAMES, feats[0].shape[1]), np.float32)
+    lens = np.asarray([min(len(f), EXPORT_FRAMES) for f in feats], np.int32)
+    for i, f in enumerate(feats):
+        batch[i, : lens[i]] = f[: lens[i]]
+    ids, n = build_inference_fn(task, model)(batch, lens)
+    want = [ids[i, : n[i]].tolist() for i in range(B)]
+    params = sum(v.numel() for v in model.state_dict().values())
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server = make_artifact_server(out, dev, port=0, max_wait_ms=50.0)
+    up_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    results = [None] * B
+
+    def request(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t1 = time.perf_counter()
+        conn.request("POST", "/recognize", json.dumps({"features": feats[i].tolist()}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        results[i] = (resp.status, json.loads(resp.read()), (time.perf_counter() - t1) * 1e3)
+        conn.close()
+
+    try:
+        request(0)  # the first request, alone
+        first = results[0]
+        reset_counts()
+        server.batcher.batches_run = 0
+        threads = [threading.Thread(target=request, args=(i,)) for i in range(B)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        counts, batches = read_counts(), server.batcher.batches_run
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    if any(r is None or r[0] != 200 for r in results) or first[0] != 200:
+        raise RuntimeError(f"a features request failed: {[r and r[:2] for r in results]}")
+    got = [r[1]["ids"] for r in results]
+    lat = sorted(r[2] for r in results)
+    size = out.stat().st_size
+    print(f"phase bin/serve ARTIFACT ls100_ctc data_root ({params} parameters, artifact "
+          f"{size / 1e6:.1f} MB + {out.with_suffix('.art.json').stat().st_size} B contract): "
+          f"load + warmup {up_s:.2f} s, first request {first[2]:.1f} ms; {B} concurrent feature "
+          f"requests in {batches} batch(es), p50 {lat[B // 2]:.1f} ms, max {lat[-1]:.1f} ms; "
+          f"ids equal the in-process infer on the card: {got == want}; launches {counts}  "
+          f"[{gpu}]", flush=True)
+    if got != want or batches < 1 or counts != dict(NONE_LAUNCHED,
+                                                    lstm_bidi_fwd=LAYERS * batches):
+        raise RuntimeError(f"the data_root artifact served {got} vs {want}, launches {counts} "
+                           f"over {batches} batch(es)")
+    return {"counts": counts, "numbers": {
+        "params": params, "artifact_bytes": size, "load_and_warmup_s": up_s,
+        "first_request_ms": first[2], "p50_ms": lat[B // 2], "max_ms": lat[-1],
+        "batches": batches}}
+
+
+def export_and_hold(name: str, raw: dict, task, model, beam: int, dev, gpu: str, work: Path,
+                    launched: tuple) -> dict:
+    """Phase 57, one model: ``export_model`` of the card ``model``, loaded back
+    with ``load_exported`` on the card; 8 x 12 s padded (ragged to 1 s)
+    decoded through the artifact and in process: ids, lengths and launch
+    counts equal, each kernel of ``launched`` launched and no other."""
+    t0 = time.perf_counter()
+    path = export_model(task, model, work / f"{name}.art", B, int(12 * SR), beam_width=beam,
+                        units=CHAR_UNITS, label_type="character",
+                        experiment=experiment_from_dict(raw), platforms=(dev.type,),
+                        extra_meta={"model_type": raw["model_type"], "sample_rate": SR})
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    infer = load_exported(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    wav, lens = stream_audio(ARTIFACT_SECONDS, seed=71)
+    runs = {}
+    for what, fn in (("artifact", infer), ("in-process", build_inference_fn(task, model, beam))):
+        reset_counts()
+        t0 = time.perf_counter()
+        ids, n = fn(wav, lens)
+        torch.cuda.synchronize()
+        runs[what] = (ids.cpu(), n.cpu(), read_counts(), (time.perf_counter() - t0) * 1e3)
+    (ids, n, counts, ms), (w_ids, w_n, w_counts, w_ms) = runs["artifact"], runs["in-process"]
+    same = torch.equal(ids, w_ids) and torch.equal(n, w_n)
+    print(f"phase {name} artifact (beam {beam}, {path.stat().st_size / 1e6:.1f} MB): export "
+          f"{export_s:.2f} s, load {load_s:.2f} s; {B} x 12 s: artifact {ms:.1f} ms, in-process "
+          f"{w_ms:.1f} ms (first calls); ids and lengths equal the in-process serving: {same}; "
+          f"lengths {n.tolist()}; launches {counts}  [{gpu}]", flush=True)
+    if not same or counts != w_counts or min(counts[k] for k in launched) < 1 or any(
+            counts[k] for k in COUNTERS if k not in launched):
+        raise RuntimeError(f"{name}: the artifact disagrees with in-process serving "
+                           f"(ids equal {same}, launches {counts} vs {w_counts})")
+    return {"counts": counts, "numbers": {"artifact_bytes": path.stat().st_size,
+                                          "export_s": export_s, "load_s": load_s,
+                                          "artifact_ms": ms, "in_process_ms": w_ms}}
+
+
+def serve_stream_artifact(dev, gpu: str, work: Path) -> tuple:
+    """Phase 58: ls_streaming_ctc exported as a streaming artifact at beam 8
+    (``export_streaming_model``) and served by ``bin/serve ARTIFACT``'s session
+    API: 8 concurrent sessions posting their audio in 100 ms posts; each
+    ``/stream/end`` gives the finalized beam ("final": true), equal to the
+    in-process stream's ``finalize``; exactly 4 ``lstm_layer_fwd_carry``
+    launches per step and nothing else."""
+    raw, task, units, _, model = stream_models("ls_streaming_ctc", dev)
+    path = export_streaming_model(task, model, work / "ls_streaming_ctc.art", B, STREAM_CHUNK,
+                                  units=units, label_type="character",
+                                  experiment=experiment_from_dict(raw), platforms=(dev.type,),
+                                  beam_width=BEAM)
+    wav, lens = stream_audio(SESSION_SECONDS, seed=72)
+    fns = streaming.build_streaming_fn(task, model, STREAM_CHUNK, beam_width=BEAM)
+    state, live, _ = stream_rows(fns, wav, lens)
+    pref, flen, _ = (x.cpu() for x in fns[2](state))
+    want = [pref[i, 0, : flen[i, 0]].tolist() for i in range(B)]
+    del model
+    t0 = time.perf_counter()
+    server = make_artifact_server(path, dev, port=0, max_wait_ms=2.0)
+    up_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    finals, partials, errors = [None] * B, [None] * B, []
+
+    def post(path_, body=b""):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", path_, body, {"Content-Type": "application/octet-stream"})
+        resp = conn.getresponse()
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        return out
+
+    def session(i, sid):
+        try:
+            got = []
+            for k in range(-(-lens[i] // STREAM_CHUNK)):
+                status, body = post(f"/stream/audio?session={sid}",
+                                    wav[i, k * STREAM_CHUNK: min((k + 1) * STREAM_CHUNK,
+                                                                 lens[i])].tobytes())
+                if status != 200:
+                    raise RuntimeError(f"/stream/audio returned {status}: {body}")
+                got += body["ids"]
+            status, body = post(f"/stream/end?session={sid}")
+            if status != 200 or not body.get("final"):
+                raise RuntimeError(f"/stream/end returned {status}: {body}")
+            partials[i], finals[i] = got, body["ids"]
+        except Exception as e:  # noqa: BLE001 — re-raised on the main thread below
+            errors.append(e)
+
+    try:
+        reset_counts()
+        server.batcher.steps_run = 0
+        sids = [post("/stream/start")[1]["session"] for _ in range(B)]
+        threads = [threading.Thread(target=session, args=(i, sid)) for i, sid in enumerate(sids)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts, steps = read_counts(), server.batcher.steps_run
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"a streaming artifact session failed: {errors}")
+    # the live greedy partials delivered before /stream/end: a prefix of the stream's
+    partials_ok = all(r[: len(p)] == p for r, p in zip(live, partials))
+    print(f"phase bin/serve ARTIFACT ls_streaming_ctc streaming beam {BEAM} "
+          f"({path.stat().st_size / 1e6:.1f} MB): load + warmup {up_s:.2f} s; {B} concurrent "
+          f"sessions of up to {max(SESSION_SECONDS):g} s posted as fast as answered "
+          f"({wall:.2f} s wall, {steps} steps, {wall * 1e3 / max(steps, 1):.2f} ms per step): "
+          f"final beams equal the in-process stream's: {finals == want}; the live greedy "
+          f"partials a prefix of its greedy tokens: {partials_ok}; launches {counts}  [{gpu}]",
+          flush=True)
+    if finals != want or not partials_ok or counts != dict(NONE_LAUNCHED,
+                                                          lstm_layer_fwd=4 * steps):
+        raise RuntimeError(f"the streaming artifact served {finals} vs {want}, launches "
+                           f"{counts} over {steps} steps")
+    return counts, {"artifact_bytes": path.stat().st_size, "load_and_warmup_s": up_s,
+                    "wall_s": wall, "steps": steps}
+
+
+def run_export(args, dev, gpu: str, work: Path, t0: float) -> tuple:
+    """Phases 56-58; returns (launch counts by path, numbers)."""
+    counts, numbers = {}, {}
+    r = export_data_root(dev, gpu, work)
+    counts["artifact_data_root_serving"], numbers["ls100_ctc_data_root"] = (r["counts"],
+                                                                            r["numbers"])
+    clock("the ls100_ctc data_root model exported and served", t0)
+    att = ls960_joint_task()
+    att_model = att_task.init_model(att, torch.Generator().manual_seed(0)).to(dev).eval()
+    r = export_and_hold("ls960_joint", LS960_JOINT, att, att_model, BEAM, dev, gpu, work,
+                        ("lstm_bidi_fwd", "location_attend"))
+    counts["artifact_att_beam"], numbers["ls960_joint_beam8"] = r["counts"], r["numbers"]
+    del att_model
+    tr = ls_transducer_task()
+    tr_model = transducer_task.init_model(tr, torch.Generator().manual_seed(0)).to(dev).eval()
+    r = export_and_hold("ls_transducer", LS_TRANSDUCER, tr, tr_model, 1, dev, gpu, work,
+                        ("lstm_layer_fwd",))
+    counts["artifact_transducer"], numbers["ls_transducer_greedy"] = r["counts"], r["numbers"]
+    del tr_model
+    clock("ls960_joint and ls_transducer artifacts held against in-process serving", t0)
+    counts["artifact_stream_serving"], numbers["ls_streaming_ctc_stream_beam8"] = (
+        serve_stream_artifact(dev, gpu, work))
+    clock("the ls_streaming_ctc streaming artifact served", t0)
+    return counts, numbers
+
+
+def check_carry_bf16_kernel(dev, gpu: str) -> dict:
+    """Phase 59: #3's carried walk with bf16 products (``lstm_layer_fwd_carry_bf16``)
+    at both streaming chunk shapes against its plain version, from a random
+    (h0, c0) with lengths 0..T (a row at 0 gives back h0 and c0 bit for bit),
+    one step held to KERNEL_ATOL; timed from graph replays beside the float32
+    carried walk and cuDNN's bf16 ``nn.LSTM`` with (h0, c0). Its bound is the
+    float32 carried walk's: the same bytes and operations."""
+    out = {}
+    for name, (t, d) in CARRY_SHAPES.items():
+        lengths = [t, 0, t, t - 1, 3, t, 1, 0]
+        args, xs, _ = layer_inputs(dev, B, lengths, seed=80 + t, t=t, d=d)
+        g = torch.Generator().manual_seed(81 + t)
+        state = tuple((torch.randn(B, H, generator=g) * 0.5).to(dev) for _ in range(2))
+
+        def kernel(args=args, state=state):
+            ys, (h_t, c_t) = lstm.lstm_layer(*args, initial_state=state, bf16_product=True)
+            return ys, h_t, c_t
+
+        def float32(args=args, state=state):
+            return lstm.lstm_layer(*args, initial_state=state)
+
+        plain = lambda: lstm.lstm_layer_fwd_plain(  # noqa: E731
+            *args, initial_state=state, bf16_product=True)
+        torch.manual_seed(82)
+        net = torch.nn.LSTM(d, H, batch_first=True).to(dev, torch.bfloat16)
+        xs16 = xs.to(torch.bfloat16)
+        state16 = tuple(x.to(torch.bfloat16)[None] for x in state)
+        cudnn = lambda: net(xs16, state16)  # noqa: E731
+        shape = f"B={B} T={t} D={d} H={H}"
+        with torch.no_grad():
+            lstm.lstm_layer.launches_bf16_product = 0
+            ys, h_t, c_t = kernel()
+            torch.cuda.synchronize()
+            if lstm.lstm_layer.launches_bf16_product != 1:
+                raise RuntimeError("lstm_layer_fwd_carry_bf16 was not launched")
+            want_ys, _, (want_h, want_c) = plain()
+            err = check(f"lstm_layer_fwd_carry_bf16 ({name} chunk) {shape}", [ys, h_t, c_t],
+                        [want_ys, want_h, want_c], **CARRY_BF16_TOL)
+            one_args = (args[0][:, :1].contiguous(), args[1], args[2][:, :1].contiguous(),
+                        args[3])
+            one = lstm.lstm_layer(*one_args, initial_state=state, bf16_product=True)
+            want_one = lstm.lstm_layer_fwd_plain(*one_args, initial_state=state,
+                                                 bf16_product=True)
+            one_err = check(f"lstm_layer_fwd_carry_bf16 ({name} chunk) one step", [one[0]],
+                            [want_one[0]], KERNEL_ATOL)
+            f_ys = float32()[0]
+            versus_f32 = float((ys - f_ys).abs().max())
+            paused = torch.tensor(lengths, device=dev) == 0
+            if not (torch.equal(h_t[paused], state[0][paused])
+                    and torch.equal(c_t[paused], state[1][paused]) and not ys[paused].any()):
+                raise RuntimeError("lstm_layer_fwd_carry_bf16: a row with no valid step did not "
+                                   "give back its (h0, c0) bit for bit")
+            if not versus_f32 > 10 * one_err:
+                raise RuntimeError(f"lstm_layer_fwd_carry_bf16 gives the float32 walk's outputs "
+                                   f"({versus_f32:.2e} apart)")
+            launches = device_launches(kernel)
+            r = plain_kernel_ms(plain, kernel, 5, 50)
+            graph = graph_ms(kernel, 50)
+            float32_graph = graph_ms(float32, 50)
+            library = cuda_ms(cudnn, 50)
+            library_graph = graph_ms(cudnn, 50)
+            extras = forward_extras(f"lstm_layer_fwd_carry_bf16 ({name} chunk)", kernel, 1, B,
+                                    dev, {"ms": graph}, t)
+        out[name] = dict(r, ms=graph, eager_ms=r["ms"], max_abs_err=err, one_step_err=one_err,
+                         versus_float32_walk=versus_f32, float32_ms=float32_graph,
+                         library_ms=library, library_graph_ms=library_graph,
+                         device_launches=launches, shape=shape, **extras,
+                         **carry_work(lengths, t, d))
+        print(f"phase lstm_layer_fwd_carry_bf16 ({name} chunk) {shape}, lengths {lengths}: "
+              f"kernel {graph * 1e3:.2f} us from graph replays ({graph * 1e3 / t:.2f} us per "
+              f"step; eager CUDA events {r['ms'] * 1e3:.2f} us), the float32 carried walk "
+              f"{float32_graph * 1e3:.2f} us, plain {r['plain_ms']:.3f} ms, bound "
+              f"{out[name]['bound_ms'] * 1e3:.3f} us ({out[name]['bound_by']}), cuDNN bf16 "
+              f"nn.LSTM with (h0, c0), all T steps: {library * 1e3:.2f} us eager, "
+              f"{library_graph * 1e3:.2f} us from graph replays; outputs {versus_f32:.2e} from "
+              f"the float32 walk's; device launches per call "
+              f"{ {k: (v['per_call'], round(v['us'], 2)) for k, v in launches.items()} }"
+              f"  [{gpu}]", flush=True)
+        walks = [v["per_call"] for k, v in launches.items() if "fwd_walk" in k]
+        if walks != [1.0]:
+            raise RuntimeError(f"lstm_layer_fwd_carry_bf16: device launches {launches}; "
+                               "expected one fwd_walk per call")
+    return out
+
+
+@contextlib.contextmanager
+def plain_walk():
+    """``models/rnn.LSTM`` takes the plain carried walk on the card (the plain
+    version of whichever walk it asks for)."""
+    kernel_layer = rnn.lstm_layer
+
+    def plain(xproj, wh, mask, forget_bias, initial_state=None, bf16_product=False):
+        ys, _, final = lstm.lstm_layer_fwd_plain(xproj, wh, mask, forget_bias, initial_state,
+                                                 bf16_product)
+        return ys, final
+
+    rnn.lstm_layer = plain
+    try:
+        yield
+    finally:
+        rnn.lstm_layer = kernel_layer
+
+
+@contextlib.contextmanager
+def recorded(model, is_ctc: bool):
+    """Lists that fill as the model runs inside the block: the encoder's chunk
+    outputs (the inputs of the CTC head or of the transducer's ``enc_proj``)
+    and the decisions' logits (the CTC head's outputs, or each
+    ``joint_logits`` of the transducer's greedy decode), in order."""
+    enc, dec = [], []
+    target = model.head if is_ctc else model.enc_proj
+
+    def record(x):
+        out = type(target).forward(target, x)
+        enc.append(x.detach().clone())
+        if is_ctc:
+            dec.append(out.detach().clone())
+        return out
+
+    def record_joint(f_t, g_u):
+        out = type(model).joint_logits(model, f_t, g_u)
+        dec.append(out.detach().clone())
+        return out
+
+    target.forward = record
+    if not is_ctc:
+        model.joint_logits = record_joint
+    try:
+        yield enc, dec
+    finally:
+        del target.forward
+        if not is_ctc:
+            del model.joint_logits
+
+
+def top_gap(logits: torch.Tensor) -> torch.Tensor:
+    """The gap between the largest and the second largest logit, per row or frame."""
+    top = logits.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def parted_at_ties(is_ctc: bool, row: int, got, want) -> bool:
+    """Whether a row's chunk decisions part only at near-ties (``want``'s
+    top-two gap below BF16_LOGIT_ATOL): for CTC every frame whose argmax
+    differs; for the transducer the first joint call whose argmax differs
+    (later calls follow other prediction states)."""
+    if is_ctc:
+        g, w = got[0][row], want[0][row]
+        differ = g.argmax(-1) != w.argmax(-1)
+        return bool(differ.any()) and bool((top_gap(w)[differ] < BF16_LOGIT_ATOL).all())
+    for g, w in zip(got, want):
+        if int(g[row].argmax()) != int(w[row].argmax()):
+            return float(top_gap(w[row])) < BF16_LOGIT_ATOL
+    return False
+
+
+def stream_against_plain(fns, model, is_ctc: bool, wav, lens) -> dict:
+    """Drive a bf16 stream on the kernels, and run every chunk step a second
+    time with the plain walk from the same state (teacher-forced: a bf16
+    rounding that lands the other way compounds over a whole stream, so each
+    step is held alone). Each step: the encoder outputs within
+    STREAM_BF16_RTOL of their largest entry, and the tokens equal unless the
+    decisions part at near-ties. Returns the kernels' rows, steps run, the
+    worst encoder error and the rows that parted at ties."""
+    init_fn, step_fn = fns[:2]
+    b, c = wav.shape[0], STREAM_CHUNK
+    n_chunks = -(-int(max(lens)) // c)
+    with recorded(model, is_ctc) as (enc, dec):
+        return teacher_forced(step_fn, init_fn(b), is_ctc, wav, lens, n_chunks, enc, dec)
+
+
+def teacher_forced(step_fn, state, is_ctc: bool, wav, lens, n_chunks: int, enc: list,
+                   dec: list) -> dict:
+    """``stream_against_plain``'s loop over the chunks, with the recording lists."""
+    b, c = wav.shape[0], STREAM_CHUNK
+    rows, err, ties = [[] for _ in range(b)], 0.0, 0
+    for k in range(n_chunks + 1):
+        piece, cl = np.zeros((b, c), np.float32), np.zeros((b,), np.int32)
+        for r in range(b):
+            if k < n_chunks:
+                piece[r] = wav[r, k * c: (k + 1) * c]
+                cl[r] = min(max(lens[r] - k * c, 0), c)
+            elif lens[r] % c == 0:
+                cl[r] = -1
+        enc.clear(), dec.clear()
+        new_state, tok, n = step_fn(state, piece, cl)
+        got_enc, got_dec = list(enc), list(dec)
+        enc.clear(), dec.clear()
+        with plain_walk():
+            _, p_tok, p_n = step_fn(state, piece, cl)
+        scale = float(enc[0].abs().max())
+        if scale > 0:
+            err = max(err, float((got_enc[0] - enc[0]).abs().max()) / scale)
+        tok, n, p_tok, p_n = (x.cpu() for x in (tok, n, p_tok, p_n))
+        for r in range(b):
+            mine, plain = tok[r, : n[r]].tolist(), p_tok[r, : p_n[r]].tolist()
+            if mine != plain:
+                if not parted_at_ties(is_ctc, r, got_dec, dec):
+                    raise RuntimeError(f"chunk {k} row {r}: the kernels' tokens {mine} differ from "
+                                       f"the plain walk's {plain} away from a near-tie")
+                ties += 1
+            rows[r].extend(mine)
+        state = new_state
+    return {"rows": rows, "steps": n_chunks + 1, "encoder_rel_err": err, "tie_rows": ties}
+
+
+def run_stream_bf16(dev, gpu: str, t0: float, float32: dict) -> tuple:
+    """Phase 60: ls_streaming_ctc, ls_transducer, ls_streaming_conformer and
+    ls_conformer_transducer at compute_dtype bfloat16 and full width, streamed
+    on 8 x up to 4 s in 100 ms chunks: the LSTM configs launch exactly one
+    bf16-product carried walk per layer and step (and nothing else; the
+    conformers nothing); every chunk step held against the card's plain walk
+    from the same state (``stream_against_plain``); the chunk step timed and
+    profiled beside the float32 step of phases 37-40 (``float32``). Returns
+    (launch counts by path, numbers)."""
+    counts, numbers = {}, {}
+    for name in STREAM_CONFIGS:
+        raw, task, _, _, model = stream_models(name, dev, compute_dtype=BF16)
+        is_ctc = isinstance(task, ctc_task.CTCTaskConfig)
+        walks = raw["num_layers"] if raw["encoder_type"] == "lstm" else 0
+        wav, lens = stream_audio(BF16_STREAM_SECONDS, seed=73)
+        fns = streaming.build_streaming_fn(task, model, STREAM_CHUNK)
+        reset_counts()
+        r = stream_against_plain(fns, model, is_ctc, wav, lens)
+        torch.cuda.synchronize()
+        c = read_counts()
+        print(f"phase {name} bf16 stream, {B} x up to {max(BF16_STREAM_SECONDS):g} s in 100 ms "
+              f"chunks ({r['steps']} steps), each step against the card's plain walk from the "
+              f"same state: encoder outputs max err {r['encoder_rel_err']:.2e} of their largest "
+              f"entry (tolerance {STREAM_BF16_RTOL:g}), tokens equal but for "
+              f"{r['tie_rows']} row-chunks that parted at near-ties (top-two gap below "
+              f"{BF16_LOGIT_ATOL:g}); tokens per row {[len(x) for x in r['rows']]}; launches "
+              f"{c}  [{gpu}]", flush=True)
+        if c != dict(NONE_LAUNCHED, lstm_layer_fwd_carry_bf16=walks * r["steps"]):
+            raise RuntimeError(f"{name} bf16 stream launches {c} over {r['steps']} steps")
+        if not r["encoder_rel_err"] <= STREAM_BF16_RTOL or not any(r["rows"]):
+            raise RuntimeError(f"{name}: the bf16 stream's encoder outputs are "
+                               f"{r['encoder_rel_err']:.2e} off the plain walk's, or it "
+                               "emitted nothing")
+        counts[f"bf16_stream_{name}"] = c
+        timed = time_stream_step(fns, wav, lens, dev, gpu, f"{name} bf16", walks,
+                                 "lstm_layer_fwd_carry_bf16")
+        f32 = float32[name]["greedy"]["step_ms"]
+        print(f"{name} chunk step: bf16 {timed['step_ms']:.3f} ms, float32 (phases 37-40) "
+              f"{f32:.3f} ms  [{gpu}]", flush=True)
+        numbers[name] = dict(timed, float32_step_ms=f32, encoder_rel_err=r["encoder_rel_err"],
+                             tie_rows=r["tie_rows"], tokens_per_row=[len(x) for x in r["rows"]])
+        del model
+        clock(f"{name} streamed at bf16", t0)
+    return counts, numbers
 
 def reset_counts() -> None:
     for c in COUNTERS.values():
@@ -2996,20 +3540,23 @@ def offline_decode(task, model, wav, lens, dev, beam: int = 0, max_len: int | No
     return [ids[i, : n[i]].tolist() for i in range(len(lens))]
 
 
-def stream_models(name: str, dev):
-    """(raw config, task, units, CPU model, card model) of ``configs/<name>.yml``."""
-    raw = raw_config(name)
+def stream_models(name: str, dev, **overrides):
+    """(raw config, task, units, CPU model, card model) of ``configs/<name>.yml``
+    with ``overrides``."""
+    raw = dict(raw_config(name), **overrides)
     task, units = family_task(raw)
     mod = transducer_task if raw["model_type"] == "transducer" else ctc_task
     cpu = mod.init_model(task, torch.Generator().manual_seed(0)).eval()
     return raw, task, units, cpu, copy.deepcopy(cpu).to(dev).eval()
 
 
-def time_stream_step(fns, wav, lens, dev, gpu: str, what: str, want_walks: int) -> dict:
+def time_stream_step(fns, wav, lens, dev, gpu: str, what: str, want_walks: int,
+                     counter: str = "lstm_layer_fwd") -> dict:
     """ms per chunk step at B = 8 with every row live (host clock, ending in a
     synchronize), one step's profile (device time, busy share, device
-    launches, ``fwd_walk`` launches) and its ``lstm_layer.launches``; the
-    plain LSTM step must not run."""
+    launches, ``fwd_walk`` launches) and its walk launches on ``counter``
+    (``lstm_layer.launches``, or the bf16-product walk's); the plain LSTM
+    step must not run."""
     init_fn, step_fn = fns[:2]
     state, c = init_fn(B), STREAM_CHUNK
     full = np.full((B,), c, np.int32)
@@ -3042,11 +3589,11 @@ def time_stream_step(fns, wav, lens, dev, gpu: str, what: str, want_walks: int) 
     print(f"phase {what} chunk step, B={B} x 100 ms: {ms:.3f} ms per step (host clock, "
           f"{STREAM_TIMED_STEPS} steps); one step profiled: {wall:.3f} ms wall, {busy:.3f} ms "
           f"of device time ({100 * busy / wall:.1f} % busy), {launches} device launches, "
-          f"{walks} fwd_walk (#3) launches, lstm_layer.launches {counts['lstm_layer_fwd']}; "
+          f"{walks} fwd_walk (#3) launches, {counter} launches {counts[counter]}; "
           f"top kernels:  [{gpu}]", flush=True)
     for key, t, k in kernels[:5]:
         print(f"  {t:9.3f} ms  {k:6d} launches  {key[:90]}", flush=True)
-    if walks != want_walks or counts != dict(NONE_LAUNCHED, lstm_layer_fwd=want_walks):
+    if walks != want_walks or counts != dict(NONE_LAUNCHED, **{counter: want_walks}):
         raise RuntimeError(f"{what}: {walks} fwd_walk device launches and counts {counts} per "
                            f"step; expected {want_walks}")
     return {"step_ms": ms, "profile_wall_ms": wall, "device_ms": busy,
@@ -4272,6 +4819,12 @@ def run(args, dev, gpu: str, work: Path) -> int:
     counts.update(att_bf16_counts)
     data_root_counts, data_root = run_data_root(args, dev, gpu, work, t0, params_cpu)
     counts.update(data_root_counts)
+    export_counts, exported = run_export(args, dev, gpu, work, t0)
+    counts.update(export_counts)
+    carry_bf16 = check_carry_bf16_kernel(dev, gpu)
+    clock("kernel #3's carried walk with bf16 products checked", t0)
+    stream_bf16_counts, stream_bf16 = run_stream_bf16(dev, gpu, t0, stream_numbers)
+    counts.update(stream_bf16_counts)
     # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
     head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
     cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
@@ -4400,10 +4953,28 @@ def run(args, dev, gpu: str, work: Path) -> int:
         **{name: {k: v for k, v in x.items() if k != "device_launches"}
            for name, x in att_bf16_kernel.items() if name != "grouped"},
     })
+    # #3's carried walk with bf16 products (phase 59): launches on the bf16 stream of
+    # ls_streaming_ctc (phase 60), at its chunk shape, and at ls_transducer's beside it
+    c = carry_bf16["ls_streaming_ctc"]
+    entries.append({
+        "name": "lstm_layer_fwd_carry_bf16", "route": "cuda",
+        **KERNELS["lstm_layer_fwd_carry_bf16"],
+        "launches": counts["bf16_stream_ls_streaming_ctc"]["lstm_layer_fwd_carry_bf16"],
+        **{f"launches_{path}": x["lstm_layer_fwd_carry_bf16"] for path, x in counts.items()},
+        **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        **{k: c[k] for k in ("shape", "eager_ms", "float32_ms", "library_graph_ms",
+                             "one_step_err", "versus_float32_walk", "us_per_step", "plan",
+                             "deterministic")},
+        "device_launches": {k: v["per_call"] for k, v in c["device_launches"].items()},
+        "ls_transducer": {k: v for k, v in carry_bf16["ls_transducer"].items()
+                          if k not in ("ms_runs", "plain_ms_runs", "device_launches")},
+    })
     print(json.dumps({"kernels": entries, "ctc_prefix_beam": ctc_beam, "conformer": conformer,
                       "families": families, "streaming": stream_numbers,
                       "bf16": dict(bf16_numbers, f1=f1),
-                      "attention_bf16": att_bf16_numbers, "data_root": data_root}), flush=True)
+                      "attention_bf16": att_bf16_numbers, "data_root": data_root,
+                      "export": exported, "stream_bf16": stream_bf16}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,26 @@
 """Serve a CTC, transducer or attention model over HTTP: batches or live streams.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/serve.py``
-(the batch API and, with ``--stream``, the streaming session API). The JAX
-server loads a frozen StableHLO artifact; this one runs the port's model
-in-process, built from a reference-shaped YAML config plus a weights file
-written by ``utils/bridge.py`` (``.npz`` or ``torch.save``). Concurrent
-requests are grouped into fixed ``[batch, samples]`` batches by
-``serving.MicroBatcher``; ``--stream`` multiplexes live sessions over the
-``--batch`` rows of one streaming step (``serving.StreamingEngine`` over
-``streaming.build_streaming_fn``, chunks of ``--chunk-ms``).
+(the batch API and the streaming session API). Two ways in:
 
+- ``bin/serve ARTIFACT``: an artifact of ``bin/export`` (``ARTIFACT`` and
+  ``ARTIFACT.json`` beside it), as the JAX server serves its StableHLO
+  artifacts: the contract gives the batch, the padded input (samples, or
+  frames of ``feature_dim`` for a model trained on a ``data_root`` corpus),
+  the beam and the units, or for a streaming artifact the slots and the
+  chunk. The model dir and the corpus are not needed.
+- ``bin/serve CONFIG WEIGHTS``: the model built from a reference-shaped YAML
+  config plus a weights file written by ``utils/bridge.py`` (``.npz`` or
+  ``torch.save``), with ``--batch``, ``--seconds``, ``--beam-width`` and,
+  for live sessions, ``--stream``.
+
+Concurrent requests are grouped into fixed batches by
+``serving.MicroBatcher``; live sessions are multiplexed over the rows of one
+streaming step (``serving.StreamingEngine`` over
+``streaming.build_streaming_fn``).
+
+    python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
+        /tmp/model.art [--device cuda] [--host 127.0.0.1] [--port 8000]
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.serve \
         configs/ls100_ctc.yml weights.npz [--device cuda] [--batch 8] \
         [--seconds 12] [--host 127.0.0.1] [--port 8000] [--max-wait-ms 10]
@@ -28,22 +39,27 @@ search at ``--beam-width`` above 1; ``transducer``
 (``configs/ls_transducer.yml``) decodes greedily, or with the transducer
 beam at ``--beam-width`` above 1. ``--lm-dir`` (``bin/train_lm``) fuses an
 RNN-LM into any beam. A model trained from a ``data_root`` corpus took
-precomputed features, not audio: serving it needs its exported artifact,
-and export is not ported yet, so such a config raises.
+precomputed features, not audio: its config raises here; export it
+(``bin/export``) and serve the artifact.
 
 API:
-  GET  /healthz    -> the serving contract (batch size, samples, beam width,
-                      the decode ("greedy", "ctc_prefix_beam" or
-                      "attention_beam"), blank id (CTC and transducer; null
-                      for attention models), device)
-  POST /recognize  -> body is JSON ``{"audio": [floats...]}`` or raw
-                      little-endian float32 PCM (Content-Type:
+  GET  /healthz    -> the serving contract (batch size, samples or frames,
+                      beam width, blank id (CTC and transducer; null for
+                      attention models), units, device; for CONFIG WEIGHTS
+                      also the decode: "greedy", "ctc_prefix_beam",
+                      "transducer_beam" or "attention_beam")
+  POST /recognize  -> body is JSON ``{"audio": [floats...]}`` (or
+                      ``{"features": [[...], ...]}``, frames of
+                      ``feature_dim``, for an artifact of a features model)
+                      or raw little-endian float32 PCM (Content-Type:
                       application/octet-stream). Response ``{"ids": [...],
                       "num_ids": n, "text": "..."}``; ``"truncated": true``
-                      flags audio longer than the padded capacity.
+                      flags input longer than the padded capacity (samples
+                      or frames), ``"consumed"`` what was kept.
 
-API with ``--stream`` (CTC and transducer models with a causal encoder:
-``lstm``, or a conformer / transformer with ``left_context >= 0``):
+API of a streaming artifact or ``--stream`` (CTC and transducer models with
+a causal encoder: ``lstm``, or a conformer / transformer with
+``left_context >= 0``):
   POST /stream/start          -> ``{"session": id, "chunk_samples": C}``, or
                                  503 when every slot is busy
   POST /stream/audio?session= -> append audio (JSON ``{"audio": [...]}`` or
@@ -64,6 +80,7 @@ import argparse
 import json
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,6 +101,7 @@ class _Handler(BaseHTTPRequestHandler):
     meta: dict = {}
     batcher = None
     request_timeout_s: float = 60.0
+    row_shape: tuple = ()  # one request's padded input: (samples,) or (frames, feature_dim)
 
     def log_message(self, *args):  # quiet; stdout is the server log
         pass
@@ -113,14 +131,17 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._json(404, {"error": "unknown path"})
 
-    def _read_audio(self, raw: bytes) -> np.ndarray:
+    def _read_audio(self, raw: bytes, json_keys=("audio",), frame: tuple = ()) -> np.ndarray:
+        """The request's float32 samples, or its frames of shape ``frame``
+        (raw bytes are read as consecutive frames)."""
         ctype = self.headers.get("Content-Type", "application/json")
         if ctype.startswith("application/octet-stream"):
-            return np.frombuffer(raw, np.float32)
+            return np.frombuffer(raw, np.float32).reshape(-1, *frame)
         req = json.loads(raw)
-        if "audio" not in req:
-            raise ValueError("JSON body needs an 'audio' list")
-        return np.asarray(req["audio"], np.float32)
+        for k in json_keys:
+            if k in req:
+                return np.asarray(req[k], np.float32)
+        raise ValueError(f"JSON body needs one of {json_keys}")
 
     def do_POST(self):
         if self.path != "/recognize":
@@ -128,12 +149,15 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
-            audio = self._read_audio(raw)
-            if audio.ndim != 1:
-                raise ValueError(f"audio must be one channel of samples, got rank {audio.ndim}")
-            num = self.meta["num_samples"]
+            rank = len(self.row_shape)
+            audio = self._read_audio(raw, ("audio",) if rank == 1 else ("audio", "features"),
+                                     self.row_shape[1:])
+            if audio.ndim != rank:
+                raise ValueError(f"input rank {audio.ndim} != the server's rank {rank} "
+                                 f"({'samples' if rank == 1 else 'frames x feature_dim'})")
+            num = self.row_shape[0]
             n = min(audio.shape[0], num)
-            row = np.zeros((num,), np.float32)
+            row = np.zeros(self.row_shape, np.float32)
             row[:n] = audio[:n]
             ids, out_len = self.batcher.submit(row, n, timeout=self.request_timeout_s)
             ids = [int(i) for i in ids[:out_len]]
@@ -190,8 +214,15 @@ def make_server(task, model, batch_size: int, num_samples: int,
         "units": list(units) if units else None,
         "label_type": label_type,
     }
+    return _batch_server(batcher, meta, (num_samples,), host, port, request_timeout_s)
+
+
+def _batch_server(batcher, meta: dict, row_shape: tuple, host: str, port: int,
+                  request_timeout_s: float) -> ThreadingHTTPServer:
+    """The ``/recognize`` server over ``batcher``: rows of ``row_shape``."""
     handler = type("Handler", (_Handler,), {
         "meta": meta, "batcher": batcher, "request_timeout_s": request_timeout_s,
+        "row_shape": tuple(row_shape),
     })
     server = ThreadingHTTPServer((host, port), handler)
     server.batcher = batcher
@@ -251,6 +282,15 @@ def make_stream_server(task, model, batch_size: int, chunk_ms: float = 100.0,
         "units": list(units) if units else None,
         "label_type": label_type,
     }
+    return _stream_server(engine, meta, host, port, request_timeout_s, finalize is not None)
+
+
+def _stream_server(engine, meta: dict, host: str, port: int, request_timeout_s: float,
+                   final: bool) -> ThreadingHTTPServer:
+    """The session API over ``engine`` (a ``StreamingEngine``); ``meta`` is
+    ``/healthz``'s body and gives ``chunk_samples``; ``final``: the engine
+    finalizes a beam, and ``/stream/end`` says so."""
+    chunk = meta["chunk_samples"]
 
     class Handler(_Handler):
         def _tokens(self, toks, final: bool = False):
@@ -287,7 +327,7 @@ def make_stream_server(task, model, batch_size: int, chunk_ms: float = 100.0,
                     self._json(200, self._tokens(engine.feed(sid, audio)))
                 else:
                     self._json(200, self._tokens(engine.end(sid, request_timeout_s),
-                                                 final=finalize is not None))
+                                                 final=final))
             except Exception as e:  # noqa: BLE001 — mapped to 400/503/500
                 self._error(e)
 
@@ -298,13 +338,64 @@ def make_stream_server(task, model, batch_size: int, chunk_ms: float = 100.0,
     return server
 
 
+def make_artifact_server(artifact_path, device="cuda", host: str = "127.0.0.1", port: int = 0,
+                         max_wait_ms: float = 10.0, request_timeout_s: float = 60.0,
+                         warmup: bool = True,
+                         session_timeout_s: float = 300.0) -> ThreadingHTTPServer:
+    """Build (but don't start) the server over an artifact of ``bin/export``
+    on ``device``, as the JAX ``make_server`` serves its artifacts.
+
+    ``ARTIFACT.json``, the contract, is ``/healthz``'s body (with the
+    device). A batch artifact (``serving.load_exported``) answers
+    ``/recognize`` with rows of ``num_samples`` samples, or of
+    ``num_samples`` frames x ``feature_dim`` when its ``input_rank`` is 3; a
+    streaming artifact (``serving.load_streaming``) gets the session API,
+    ``batch_size`` slots of ``chunk_samples``. ``warmup`` runs one zero batch
+    (or one step and, for a beam stream, one finalize) before the server
+    accepts traffic. Shut down as ``make_server``'s server.
+    """
+    from ..serving import MicroBatcher, StreamingEngine, load_exported, load_streaming
+
+    artifact_path = Path(artifact_path)
+    meta = json.loads(artifact_path.with_suffix(artifact_path.suffix + ".json").read_text())
+    meta = dict(meta, device=str(torch.device(device)))
+    b = meta["batch_size"]
+    if meta.get("streaming"):
+        state0, step, finalize = load_streaming(artifact_path, device)
+        chunk = meta["chunk_samples"]
+        if warmup:
+            t0 = time.perf_counter()
+            state, _, n = step(state0, np.zeros((b, chunk), np.float32),
+                               np.zeros((b,), np.int32))
+            n.cpu()  # waits for the device
+            if finalize is not None:
+                finalize(state)[1].cpu()
+            print(f"warmup: ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        engine = StreamingEngine(state0, step, b, chunk, tick_ms=max_wait_ms,
+                                 session_timeout_s=session_timeout_s, finalize=finalize,
+                                 final_flush=bool(meta.get("final_flush")))
+        return _stream_server(engine, meta, host, port, request_timeout_s,
+                              finalize is not None)
+    infer = load_exported(artifact_path, device)
+    num = meta["num_samples"]
+    row_shape = (num,) if meta.get("input_rank", 2) == 2 else (num, meta["feature_dim"])
+    if warmup:
+        t0 = time.perf_counter()
+        _, n = infer(np.zeros((b,) + row_shape, np.float32), np.zeros((b,), np.int32))
+        n.cpu()  # waits for the device
+        print(f"warmup: ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    batcher = MicroBatcher(infer, b, row_shape, max_wait_ms)
+    return _batch_server(batcher, meta, row_shape, host, port, request_timeout_s)
+
+
 def load_model(config_path, weights_path, device):
     """YAML config + bridged weights -> (task, model on ``device``, units, label_type).
 
     The config's ``model_type`` picks the model: a CTC model, a transducer,
     or an attention / joint CTC-attention seq2seq model. A ``data_root``
     config raises ``NotImplementedError``: no waveform frontend is built for
-    a model trained on precomputed features.
+    a model trained on precomputed features; its artifact
+    (``bin/export``) is served with ``bin/serve ARTIFACT``.
     """
     from ..train import att_task, ctc_task, transducer_task
     from ..utils.bridge import load_weights
@@ -312,9 +403,9 @@ def load_model(config_path, weights_path, device):
 
     if ExperimentConfig.from_yaml(config_path).data_root is not None:
         raise NotImplementedError(
-            f"{config_path} trains on a data_root corpus of precomputed features; serving "
-            "such a model needs its exported artifact, and export (bin/export) is not "
-            "ported yet")
+            f"{config_path} trains on a data_root corpus of precomputed features: export the "
+            "model dir with bin/export MODEL_DIR OUT, then serve the artifact with "
+            "bin/serve OUT")
     task, units, label_type = load_task(config_path)
     task_mod = {ctc_task.CTCTaskConfig: ctc_task, att_task.AttTaskConfig: att_task,
                 transducer_task.TransducerTaskConfig: transducer_task}[type(task)]
@@ -325,8 +416,10 @@ def load_model(config_path, weights_path, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("config", help="reference-shaped YAML (configs/ls100_ctc.yml)")
-    ap.add_argument("weights", help=".npz or torch.save weights (utils/bridge.py)")
+    ap.add_argument("config", help="an artifact of bin/export (with ARTIFACT.json beside "
+                    "it), or a reference-shaped YAML (configs/ls100_ctc.yml) followed by WEIGHTS")
+    ap.add_argument("weights", nargs="?", default=None,
+                    help=".npz or torch.save weights (utils/bridge.py) for the CONFIG")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=12.0,
@@ -353,6 +446,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
+    if args.weights is None:  # bin/serve ARTIFACT
+        server = make_artifact_server(args.config, device, args.host, args.port,
+                                      args.max_wait_ms, args.request_timeout_s,
+                                      warmup=not args.no_warmup,
+                                      session_timeout_s=args.session_timeout_s)
+        m = server.meta
+        kind = (f"streaming, {m['batch_size']} slots, chunk {m['chunk_samples']} samples"
+                if m.get("streaming") else f"batch {m['batch_size']}, beam {m['beam_width']}")
+        host, port = server.server_address[:2]
+        print(f"serving {args.config} on http://{host}:{port} ({kind}, platforms "
+              f"{m['platforms']}, {args.device})", flush=True)
+        _serve(server)
+        return
     task, model, units, label_type = load_model(args.config, args.weights, device)
     lm = None
     if args.lm_dir:
@@ -376,6 +482,10 @@ def main(argv=None):
     host, port = server.server_address[:2]
     print(f"serving {args.config} on http://{host}:{port} ({what}, beam {args.beam_width}, "
           f"{args.device})", flush=True)
+    _serve(server)
+
+
+def _serve(server) -> None:
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -9,7 +9,9 @@
 // writes ys[t] = h * m = 0; cs[t] holds the carried c when the caller asks
 // for it (training). lstm_layer_fwd_carry resumes from a carried (h, c) and
 // returns the final one: a streaming chunk, where the reference's rnn_scan
-// leaves the Pallas kernel for its scan branch (models/rnn.py:188).
+// leaves the Pallas kernel for its scan branch (models/rnn.py:188);
+// lstm_layer_fwd_carry_bf16 takes that branch's compute_dtype bfloat16 step
+// (bf16 operands of h @ Wh, float32 sums, streams and carries).
 //
 // The kernel, what bounds it and its design are in lstm_step.cuh
 // (fwd_walk); this is its one-direction launch: one persistent cooperative
@@ -74,6 +76,25 @@ int lstm_layer_fwd_carry(const float* x, const float* wh, const float* mask, con
   a.hT[0] = hT;
   a.cT[0] = cT;
   return run_fwd_walk<1, true>(a, hbuf_floats, resident, rows, smem_bytes, stream);
+}
+
+// lstm_layer_fwd_carry with bf16 products (a streaming chunk at compute_dtype
+// bfloat16): each step's gate product rounds h_{t-1} (h0 at step 0) and Wh to
+// bf16 and sums the exact products in float32, as the bf16 branch of the
+// reference's _lstm_step; x, ys, cs, the carries and the gate math stay
+// float32. The arguments as lstm_layer_fwd_carry.
+int lstm_layer_fwd_carry_bf16(const float* x, const float* wh, const float* mask,
+                              const float* h0, const float* c0, float* ys, float* cs, float* hT,
+                              float* cT, unsigned int* sync, float* hbuf, int hbuf_floats, int B,
+                              int T, int H, int units, int resident, int rows, int smem_bytes,
+                              float forget_bias, void* stream) {
+  FwdArgs<float> a{{x, nullptr}, {wh, nullptr}, {ys, nullptr}, {cs, nullptr}, mask, sync, hbuf,
+                   B, T, H, units, forget_bias};
+  a.h0[0] = h0;
+  a.c0[0] = c0;
+  a.hT[0] = hT;
+  a.cT[0] = cT;
+  return run_fwd_walk<1, true, float, true>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
 
 }  // extern "C"

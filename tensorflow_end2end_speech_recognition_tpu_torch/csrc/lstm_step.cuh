@@ -21,6 +21,18 @@
 // the reference carries both in float32. The recurrent products stay
 // float32 FFMA: Wh and h are float32 in the reference.
 //
+// The bf16-product walk (kBf16Product, lstm_layer_fwd_carry_bf16). A
+// streaming chunk at compute_dtype bfloat16 leaves the Pallas kernel for the
+// scan branch of rnn_scan (models/rnn.py _lstm_step), whose step is
+// xproj[t] + bf16(h_{t-1}) @ bf16(Wh) with float32 accumulation, float32
+// streams and float32 carries. The carried walk takes that step with one
+// more template flag: Wh is rounded to bf16 as it is staged (load_wc<true>,
+// or as it is read when not resident) and h_{t-1} (h0 at step 0) as it is
+// staged from the exchange buffer; the products of two bf16 values are exact
+// in float32, and every sum stays float32, so the walk differs from XLA's dot
+// only in the order of its float32 sums. Everything else is the float32
+// carried walk.
+//
 // Gates i, f, g, o of xproj[t] + h_{t-1} @ Wh, with forget_bias added to f.
 // A masked (pad) step carries h and c through and emits 0. The forward is
 // exact for any mask; the backward's h_{t-1} = ys[t-1] read relies on a
@@ -132,6 +144,13 @@ __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// v rounded to bf16 (nearest even) and widened back: an operand of the
+// bf16-product walk (kBf16Product), whose products of two such values are
+// exact in float32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 constexpr int kBwdRows = 32;            // batch rows per chunk of the backward
 constexpr int kRowTiles = kBwdRows / 4;  // 4-row tiles and float4 row groups of a chunk
 constexpr int kBwdKC = 256;             // k per staged chunk of the gate product
@@ -149,7 +168,9 @@ inline bool walk_takes(int B, int T, int H, int u) {
 }
 
 // Copy the block's Wc [hp, ldw] (column c = g u + uu is Wh[:, g H + j0 + uu];
-// zero past H) into shared memory at wsm.
+// zero past H) into shared memory at wsm, each value rounded to bf16 when
+// kRound (the bf16-product walk).
+template <bool kRound = false>
 __device__ __forceinline__ void load_wc(float* wsm, const float* __restrict__ wh, int H, int u,
                                         int j0, int hp, int nb, int ldw) {
   const int G = 4 * H;
@@ -158,7 +179,8 @@ __device__ __forceinline__ void load_wc(float* wsm, const float* __restrict__ wh
     const int c = i - k * nb;
     const int g = c / u;
     const int j = j0 + c - g * u;
-    wsm[k * ldw + c] = k < H && j < H ? __ldg(wh + (size_t)k * G + g * H + j) : 0.0f;
+    const float w = k < H && j < H ? __ldg(wh + (size_t)k * G + g * H + j) : 0.0f;
+    wsm[k * ldw + c] = kRound ? round_bf16(w) : w;
   }
   __syncthreads();
 }
@@ -226,8 +248,12 @@ __device__ __forceinline__ float src_load(const __nv_bfloat16* p) {
 // one of kThreads / tiles slices of every chunk: fewer rows, more slices.
 // The slices' sums are added in slice order. Src is float (the h exchange,
 // the float backward's ys) or __nv_bfloat16 (the bf16 backward's ys, upcast
-// as it is staged).
-template <bool kResident, int kRows = kBwdRows, bool kCoherent = false, typename Src = float>
+// as it is staged). kRound (the bf16-product walk): every staged h value is
+// rounded to bf16 as it is written to shared memory, and a Wc value read
+// from Wh itself (kResident false) as it is read; a resident Wc was rounded
+// when it was loaded (load_wc<true>). Products and sums stay float32.
+template <bool kResident, int kRows = kBwdRows, bool kCoherent = false, typename Src = float,
+          bool kRound = false>
 __device__ void gate_product(const Src* src, size_t src_row, const float* wsm,
                              const float* __restrict__ wh, int c0, int n, int ldw, int j0, int u,
                              int b0, int rows, int H, int hp, float* stage, float* red,
@@ -288,11 +314,17 @@ __device__ void gate_product(const Src* src, size_t src_row, const float* wsm,
       const int k = k0 + 4 * (i - r * len4);
       float* dst = buf + r * kBwdStride + (k - k0);
       if (vec || r >= rows) {
-        *reinterpret_cast<float4*>(dst) = v[l];
+        float4 x = v[l];
+        if (kRound) x = make_float4(round_bf16(x.x), round_bf16(x.y), round_bf16(x.z),
+                                    round_bf16(x.w));
+        *reinterpret_cast<float4*>(dst) = x;
       } else {  // H % 4 != 0: rows are not 16-byte (bf16: 8-byte) aligned
         const Src* p = src + (size_t)(b0 + r) * src_row + k;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = k + e < H ? src_load<kCoherent>(p + e) : 0.0f;
+        for (int e = 0; e < 4; ++e) {
+          const float x = k + e < H ? src_load<kCoherent>(p + e) : 0.0f;
+          dst[e] = kRound ? round_bf16(x) : x;
+        }
       }
     }
   };
@@ -335,8 +367,10 @@ __device__ void gate_product(const Src* src, size_t src_row, const float* wsm,
           for (int e = 0; e < 4; ++e) {
             const int k = k0 + kk + e;
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              w[e][c] = ok[c] && k < H ? __ldg(wh + off[c] + (size_t)k * G) : 0.0f;
+            for (int c = 0; c < 4; ++c) {
+              const float x = ok[c] && k < H ? __ldg(wh + off[c] + (size_t)k * G) : 0.0f;
+              w[e][c] = kRound ? round_bf16(x) : x;
+            }
           }
         }
 #pragma unroll
@@ -413,7 +447,12 @@ __host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, bool res
 
 // kCarry: the walk resumes from a.h0 / a.c0 and writes a.hT / a.cT (any of
 // them may be null); the walks that start from zeros are compiled without it.
-template <bool kResident, int kRows, bool kCarry, typename S>
+// kBf16Product: the gate product takes bf16 operands, h_{t-1} (h0 at step 0)
+// and Wh each rounded to bf16 as they are staged, with float32 products and
+// sums (lstm_layer_fwd_carry_bf16: the bf16 branch of the reference's
+// _lstm_step, which a streaming chunk at compute_dtype bfloat16 runs);
+// streams, carries and gate math stay float32.
+template <bool kResident, int kRows, bool kCarry, typename S, bool kBf16Product = false>
 __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
   extern __shared__ float4 fwd_smem4[];
   float* smem = reinterpret_cast<float*>(fwd_smem4);
@@ -437,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
   const size_t state = (size_t)gridDim.y * B * H;  // one step parity of hbuf
   float* hdir = a.hbuf + (size_t)dir * B * H;
 
-  if (kResident) load_wc(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
+  if (kResident) load_wc<kBf16Product>(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
 
   // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u; their carries
   // start from h0 / c0 (zeros when null), loaded for every row: a row that no
@@ -488,9 +527,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
       const int rows = min(kRows, B - b0);
       if (product) {
         for (int k0 = 0; k0 < L.nb; k0 += kBwdMaxCols)
-          gate_product<kResident, kRows, true>(hsrc, (size_t)H, wsm, wh, k0,
-                                               min(kBwdMaxCols, L.nb - k0), L.ldw, j0, u, b0,
-                                               rows, H, L.hp, stage, red, gpre, L.nb);
+          gate_product<kResident, kRows, true, float, kBf16Product>(
+              hsrc, (size_t)H, wsm, wh, k0, min(kBwdMaxCols, L.nb - k0), L.ldw, j0, u, b0, rows,
+              H, L.hp, stage, red, gpre, L.nb);
       } else {
         for (int i = tid; i < kRows * L.nb; i += kThreads) gpre[i] = 0.0f;
         __syncthreads();
@@ -548,12 +587,13 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
 // is set. a.sync holds kDirs zeroed counters, a.hbuf hbuf_floats floats.
 // kCarry: the walk that resumes from a.h0 / a.c0 and writes a.hT / a.cT
 // (lstm_layer_fwd_carry); the others read none of them. S: the stream type.
+// kBf16Product: bf16 operands of the gate product (lstm_layer_fwd_carry_bf16).
 // ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
 // the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
 // all be resident at once (the kernel then never runs), cudaErrorInvalidValue
 // for a plan this kernel does not take, and for an exchange buffer of
 // another size than the kernel indexes. Does not synchronise.
-template <int kDirs, bool kCarry = false, typename S = float>
+template <int kDirs, bool kCarry = false, typename S = float, bool kBf16Product = false>
 int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, int smem_bytes,
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
@@ -566,10 +606,12 @@ int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, i
   if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
     return (int)cudaErrorInvalidValue;
   const void* kernel =
-      rows == 8 ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry, S>)
-                            : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry, S>))
-                : (resident ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry, S>)
-                            : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry, S>));
+      rows == 8
+          ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry, S, kBf16Product>)
+                      : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry, S, kBf16Product>))
+          : (resident
+                 ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry, S, kBf16Product>)
+                 : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry, S, kBf16Product>));
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

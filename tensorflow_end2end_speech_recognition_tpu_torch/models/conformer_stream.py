@@ -21,7 +21,11 @@ counts ``n_new`` [B]; positions past ``n_new`` never enter a cache or a
 valid query's window, and a row with ``n_new == 0`` keeps its cache bit for
 bit (every update is a per-row shift by ``n_new``). Scores are masked with
 -1e30 twice, keys then the window, as the offline ``MHSA`` masks them; the
-conv is one grouped ``F.conv1d`` over ``[cache, chunk]``.
+conv is one grouped ``F.conv1d`` over ``[cache, chunk]``. At
+``compute_dtype: bfloat16`` the products take the JAX chunk step's ``dt``
+casts: the ``Dense`` layers (Q, K, V, the output, the conv module's
+pointwise layers, the feed-forwards) and the score and context products on
+bf16 operands with float32 sums (``ops/bf16``); everything else float32.
 ``pos_encoding="relative"`` is refused by ``streaming._validate``.
 """
 
@@ -32,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import bf16 as bf16_ops
 from .conformer import MASK_FILL, Conformer, ConformerSpec, rope_at, sinusoids
 
 
@@ -91,7 +96,7 @@ def _stream_attend(mhsa, x, spec: ConformerSpec, kc, vc, enc_seen, n_new):
 
     kh_all = heads(torch.cat([kc, k_flat], dim=1), L + f)
     vh_all = heads(torch.cat([vc, v_flat], dim=1), L + f)
-    scores = torch.matmul(qh, kh_all.transpose(-1, -2)) / math.sqrt(dh)
+    scores = bf16_ops.linear(qh, kh_all.transpose(-1, -2), spec.bf16) / math.sqrt(dh)
     # key position relative to the chunk start: cache keys -L..-1, chunk keys 0..F-1
     rel = torch.arange(L + f, device=dev)[None, :] - L
     cache_len = enc_seen.clamp_max(L)
@@ -100,7 +105,7 @@ def _stream_attend(mhsa, x, spec: ConformerSpec, kc, vc, enc_seen, n_new):
     win = (dist >= 0) & (dist <= L)
     scores = torch.where(key_ok[:, None, None, :], scores, MASK_FILL)
     scores = torch.where(win[None, None], scores, MASK_FILL)
-    out = torch.matmul(torch.softmax(scores, dim=-1), vh_all)
+    out = bf16_ops.linear(torch.softmax(scores, dim=-1), vh_all, spec.bf16)
     return mhsa.o(out.transpose(1, 2).reshape(b, f, d)), new_kc, new_vc
 
 

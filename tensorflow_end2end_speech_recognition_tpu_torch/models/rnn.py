@@ -13,7 +13,11 @@ bf16 recipes: ``BiLSTM`` rounds ``xs`` and ``wx`` to bf16, sums the product
 in float32, adds ``b`` and rounds ``xproj`` to bf16 once
 (``bidirectional_scan``); ``LSTM`` forms the product in float32 (a bf16
 ``xs`` is promoted) and rounds ``xproj`` (``rnn_scan``). The kernels then
-run with bf16 streams and return bf16 ``ys``. ``lstm_step`` is one step of that cell in plain PyTorch
+run with bf16 streams and return bf16 ``ys``. A streaming chunk's ``LSTM``
+(a carried ``initial_state``) takes ``rnn_scan``'s scan branch instead: a
+float32 ``xproj``, not rounded, each step's ``h @ Wh`` on bf16 operands
+with float32 sums (``lstm_layer(..., bf16_product=True)``), float32 ``ys``.
+``lstm_step`` is one step of that cell in plain PyTorch
 (``_lstm_step`` there, which the JAX package runs in XLA, not in a kernel):
 the attention decoder's cell, and through ``lstm_scan`` (the scan branch of
 ``rnn_scan``, with a carried ``(h, c)``) the transducer's prediction net.
@@ -95,8 +99,8 @@ class LSTM(LSTMParams):
     state is not returned (the encoder drops it, as ``apply_encoder`` does);
     with one (a streaming chunk's carried ``(h, c)``) the layer resumes from
     it and returns ``(ys, (hT, cT))``, as ``rnn_scan(..., initial_state=...)``.
-    Under ``compute_dtype="bfloat16"`` ``ys`` is bf16 and a carried state
-    raises in ``lstm_layer`` (bf16 streaming is not ported).
+    Under ``compute_dtype="bfloat16"`` ``ys`` is bf16, and with a carried
+    state float32 from the bf16-product walk (that scan's numerics).
     """
 
     def __init__(self, input_dim: int, num_units: int, param_init: float = 0.1,
@@ -107,13 +111,14 @@ class LSTM(LSTMParams):
         self.bf16 = compute_dtype == "bfloat16"
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, initial_state=None):
-        if self.bf16:
+        carried_bf16 = self.bf16 and initial_state is not None
+        if self.bf16 and not carried_bf16:
             # rnn_scan's Pallas branch: a float32 product (bf16 xs promoted), one rounding
             xproj = (torch.matmul(xs.float(), self.wx) + self.b).to(bf16_ops.BF16)
-        else:
-            xproj = torch.matmul(xs, self.wx) + self.b
+        else:  # float32, or the scan branch a carried state takes at bf16: not rounded
+            xproj = torch.matmul(xs.float(), self.wx) + self.b
         return lstm_layer(xproj, self.wh, length_mask(xs, lengths), self.forget_bias,
-                          initial_state)
+                          initial_state, bf16_product=carried_bf16)
 
 
 def lstm_step(wh: torch.Tensor, carry, xproj_t: torch.Tensor):

@@ -106,10 +106,11 @@ SIGNATURES = {
     "ctc_loss_fwd_only": [_P] * 8 + [_I] * 12 + [_P],
     "location_attend": [_P] * 12 + [_I] * 7 + [_F, _P],
 }
-# the bf16 instantiations (the LSTM kernels' streams, #7's encoder rows) take
-# the float32 entries' arguments
+# the bf16 instantiations (the LSTM kernels' streams, #7's encoder rows, the
+# carried walk's products) take the float32 entries' arguments
 SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
-    "lstm_bidi_fwd", "lstm_bidi_bwd", "lstm_layer_fwd", "lstm_layer_bwd", "location_attend")})
+    "lstm_bidi_fwd", "lstm_bidi_bwd", "lstm_layer_fwd", "lstm_layer_bwd", "location_attend",
+    "lstm_layer_fwd_carry")})
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,10 @@ float, monotone per row (a length mask). Gates are i, f, g, o with
 0. Returns ``ys*`` [B, T, H], ``ys_b`` still in reversed order. A
 streaming chunk resumes one direction from a carried ``(h0, c0)`` and gets
 the carried state back, as the scan branch of ``rnn_scan`` with an
-``initial_state`` does (kernel #3's ``lstm_layer_fwd_carry`` entry).
+``initial_state`` does (kernel #3's ``lstm_layer_fwd_carry`` entry); at
+``compute_dtype: bfloat16`` that scan rounds ``h`` and ``Wh`` to bf16 for
+each step's product and keeps every stream float32, which
+``bf16_product=True`` takes (the ``lstm_layer_fwd_carry_bf16`` entry).
 
 Streams come in float32 or bf16 (``compute_dtype: bfloat16``): the stream
 dtype is ``xproj``'s, and ``ys``, ``cs``, the cotangents and ``dxproj``
@@ -25,8 +28,8 @@ round). The forward rounds only the emitted ``ys = h * m`` and ``cs``; the
 backward recomputes the gates from the bf16 ``ys[t-1]`` and ``cs``,
 carries ``dh = dgates @ Wh^T`` from the float32 ``dgates`` and rounds only
 the emitted ``dxproj``. A carried ``initial_state`` takes float32 streams
-only (bf16 streaming is not ported: the reference's scan that a chunk
-takes rounds elsewhere).
+only: the reference's chunk takes the scan, which has no bf16 streams (its
+bf16 mode rounds the product's operands: ``bf16_product``).
 
 When a gradient may be taken, the call goes through ``LSTMBidi`` or
 ``LSTMLayer``, a ``torch.autograd.Function``: its forward also keeps the
@@ -47,7 +50,9 @@ separate C entries (``lstm_bidi_fwd`` and ``lstm_bidi_fwd_bf16``, ...); a
 bf16 CUDA tensor launches the bf16 one or raises. ``lstm_bidi.launches``,
 ``lstm_bidi_bwd.launches``, ``lstm_layer.launches`` and
 ``lstm_layer_bwd.launches`` count the calls that launched each float32
-kernel, and ``.launches_bf16`` on the same functions the bf16 ones.
+kernel, and ``.launches_bf16`` on the same functions the bf16 ones;
+``lstm_layer.launches_bf16_product`` counts the carried walk with bf16
+products.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ def _gates(gates, h, forget_bias):
     return torch.sigmoid(i), torch.sigmoid(f + forget_bias), torch.tanh(g), torch.sigmoid(o)
 
 
-def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
+def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None,
+                         bf16_product: bool = False):
     """Plain version of the forward kernels: one ``h @ Wh + xproj[t]`` step per t.
 
     Returns ``(ys, cs)``, each [B, T, H] in ``xproj``'s dtype; ``cs`` holds
@@ -77,17 +83,23 @@ def lstm_layer_fwd_plain(xproj, wh, mask, forget_bias: float = 1.0, initial_stat
     ``initial_state`` ``(h0, c0)`` ([B, H] each) the walk starts from it,
     and the carried ``(hT, cT)`` after the last step comes third: ``(ys,
     cs, (hT, cT))``, the scan branch of ``rnn_scan(..., initial_state=...)``.
+    ``bf16_product`` (float32 streams) rounds ``h`` and ``Wh`` to bf16 for
+    each step's product and sums the exact products in float32: that scan at
+    ``compute_dtype: bfloat16`` (``_lstm_step``'s bf16 branch).
     """
     b, t, g4 = xproj.shape
     h = g4 // 4
     sdt, xproj = xproj.dtype, xproj.float()
+    if bf16_product:
+        wh = wh.to(bf16_ops.BF16).float()
     if initial_state is None:
         h_prev, c_prev = xproj.new_zeros((b, h)), xproj.new_zeros((b, h))
     else:
         h_prev, c_prev = initial_state
     ys, cs = [], []
     for s in range(t):
-        i, f, g, o = _gates(xproj[:, s] + h_prev @ wh, h, forget_bias)
+        hw = (h_prev.to(bf16_ops.BF16).float() if bf16_product else h_prev) @ wh
+        i, f, g, o = _gates(xproj[:, s] + hw, h, forget_bias)
         c = f * c_prev + i * g
         h_new = o * torch.tanh(c)
         m = mask[:, s, None]
@@ -523,28 +535,35 @@ def _check_state(what, xproj, initial_state) -> None:
 
 
 def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = False,
-                   initial_state=None):
+                   initial_state=None, bf16_product: bool = False):
     """Kernel #3: ``ys``, or ``(ys, cs)`` when ``with_cs``.
 
     With ``initial_state`` ``(h0, c0)`` ([B, H] each; a streaming chunk's
     carried state) the walk starts from it (the ``lstm_layer_fwd_carry``
     entry) and the carried ``(hT, cT)`` after the last step comes last:
     ``(ys, (hT, cT))`` or ``(ys, cs, (hT, cT))``. A row masked at every step
-    gets back ``h0`` and ``c0`` bit for bit. Launched as ``lstm_bidi_fwd``.
-    Calls are counted on ``lstm_layer.launches`` (``launches_bf16`` for bf16
-    streams, which take no ``initial_state``).
+    gets back ``h0`` and ``c0`` bit for bit. ``bf16_product`` (with
+    ``initial_state`` and float32 streams) rounds each step's product
+    operands to bf16 (``lstm_layer_fwd_carry_bf16``). Launched as
+    ``lstm_bidi_fwd``. Calls are counted on ``lstm_layer.launches``
+    (``launches_bf16`` for bf16 streams, which take no ``initial_state``;
+    ``launches_bf16_product`` for the bf16-product walk).
     """
     sdt = _check_inputs("lstm_layer", xproj=xproj, wh=wh, mask=mask)
     if initial_state is not None:
         if sdt != torch.float32:
             raise NotImplementedError(
-                "lstm_layer: a carried initial_state takes float32 streams; bf16 streaming is "
-                "not ported (the reference's chunk takes rnn_scan's scan, whose bf16 rounds "
-                "h @ Wh and not the streams)")
+                "lstm_layer: a carried initial_state takes float32 streams; the reference's "
+                "chunk takes rnn_scan's scan, which has no bf16 streams (at bf16 it rounds the "
+                "h @ Wh operands: bf16_product=True)")
         _check_state("lstm_layer", xproj, initial_state)
+    elif bf16_product:
+        raise ValueError("lstm_layer: bf16_product is the carried walk's mode; pass "
+                         "initial_state")
     dev = _device_of("lstm_layer", xproj)
     if dev.type == "cpu":
-        ys, cs, *final = lstm_layer_fwd_plain(xproj, wh, mask, forget_bias, initial_state)
+        ys, cs, *final = lstm_layer_fwd_plain(xproj, wh, mask, forget_bias, initial_state,
+                                              bf16_product)
     else:
         lib = build.load_library()
         b, t, g4 = xproj.shape
@@ -558,10 +577,14 @@ def lstm_layer_fwd(xproj, wh, mask, forget_bias: float = 1.0, with_cs: bool = Fa
                                   *_rows(b0, b1, mask, ys, cs)))
         else:
             final = [tuple(torch.empty_like(x) for x in initial_state)]
-            _walk(lib, "lstm_layer_fwd_carry", fwd_plan_for, dev, 1, b, t, h, forget_bias,
+            entry = "lstm_layer_fwd_carry" + ("_bf16" if bf16_product else "")
+            _walk(lib, entry, fwd_plan_for, dev, 1, b, t, h, forget_bias,
                   lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
                                   *_rows(b0, b1, mask, *initial_state, ys, cs, *final[0])))
-        _count(lstm_layer, sdt)
+        if bf16_product:
+            lstm_layer.launches_bf16_product += 1
+        else:
+            _count(lstm_layer, sdt)
     out = ((ys, cs) if with_cs else (ys,)) + tuple(final)
     return out if len(out) > 1 else ys
 
@@ -608,21 +631,24 @@ class LSTMLayer(torch.autograd.Function):
         return dx, _dwh(ys, dx), None, None
 
 
-def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
+def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None,
+               bf16_product: bool = False):
     """One LSTM direction over hoisted projections; see the module docstring.
 
     Goes through ``LSTMLayer`` when autograd may need a gradient; otherwise
     (serving, eval) runs the forward kernel alone, with no ``cs`` stream.
     ``initial_state`` ``(h0, c0)`` (streaming) returns ``(ys, (hT, cT))`` and
-    takes no gradient: it raises where one may be taken.
+    takes no gradient: it raises where one may be taken. ``bf16_product``:
+    its steps' products on bf16 operands (``lstm_layer_fwd``).
     """
     grad = torch.is_grad_enabled() and (xproj.requires_grad or wh.requires_grad)
-    if initial_state is not None:
+    if initial_state is not None or bf16_product:  # the carried walk (lstm_layer_fwd checks)
         if grad:
             raise NotImplementedError(
                 "lstm_layer: a carried initial_state takes no gradient (streaming is "
                 "inference only); run it under torch.no_grad()")
-        return lstm_layer_fwd(xproj, wh, mask, forget_bias, initial_state=initial_state)
+        return lstm_layer_fwd(xproj, wh, mask, forget_bias, initial_state=initial_state,
+                              bf16_product=bf16_product)
     if grad:
         return LSTMLayer.apply(xproj, wh, mask, forget_bias)
     return lstm_layer_fwd(xproj, wh, mask, forget_bias)
@@ -630,3 +656,4 @@ def lstm_layer(xproj, wh, mask, forget_bias: float = 1.0, initial_state=None):
 
 lstm_layer.launches = 0
 lstm_layer.launches_bf16 = 0
+lstm_layer.launches_bf16_product = 0

@@ -1,20 +1,34 @@
-"""In-process inference function and the micro-batching runtime.
+"""Inference functions, the port's exported artifacts, and the serving runtimes.
 
 Counterparts of ``build_inference_fn`` (the CTC branch, greedy or prefix
 beam; the transducer branch, greedy or beam; the attention branch, greedy
-and beam; RNN-LM shallow fusion in every beam), ``StreamingEngine`` and
-``MicroBatcher`` in ``tensorflow_end2end_speech_recognition_tpu/
-serving.py``. The JAX package freezes the inference graph into a StableHLO
-artifact; here the model runs eagerly in the serving process, and the
-streaming engine takes the step functions of ``streaming.
-build_streaming_fn`` directly.
+and beam; RNN-LM shallow fusion in every beam), ``export_model`` /
+``load_exported``, ``export_streaming_model`` / ``load_streaming``,
+``StreamingEngine`` and ``MicroBatcher`` in
+``tensorflow_end2end_speech_recognition_tpu/serving.py``.
+
+The JAX package freezes the inference graph into a StableHLO program with
+the weights baked in. The port's hand-written kernels are ctypes calls that
+no graph export can trace, so its artifact is the model itself: ``<out>``, a
+numpy ``.npz`` (no pickle) of the model's weights under their ``state_dict``
+names with a ``model/`` prefix (and an RNN-LM's under ``lm/``), and
+``<out>.json``, the JAX serving contract (the same keys and meanings) plus
+what the loader needs to rebuild the model without the model dir's YAML or
+its corpus: the ``experiment`` config, ``num_classes`` (the units are stored
+too, so a word or BPE model trained from a ``data_root`` corpus loads with
+the corpus gone), the LM's ``lm_config`` and a ``format`` tag. The loaders
+rebuild the model and return the same inference and streaming functions
+the port serves in process, on the device asked for.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
+from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,6 +57,12 @@ def build_inference_fn(task, model, beam_width: int = 1, lm=None, lm_weight: flo
     ``RNNLM`` on the model's device) with a non-zero ``lm_weight`` is fused
     into any of the three beams. Runs on the device of ``model``'s weights; inputs may
     be numpy arrays or tensors. Returns device tensors.
+
+    A task without a frontend (``frontend=None``, a model trained on a
+    ``data_root`` corpus) takes feature frames ``[B, T, feature_dim]`` and
+    ``input_len`` in frames, and applies no per-speaker statistics, as the
+    JAX ``infer`` passes none: a ``cmvn: speaker`` model expects features
+    that are normalised already.
     """
     set_full_fp32()
     device = next(model.parameters()).device
@@ -88,6 +108,214 @@ def build_inference_fn(task, model, beam_width: int = 1, lm=None, lm_weight: flo
         return decode(*device_pipeline(task, {"inputs": inputs, "input_len": input_len}))
 
     return infer
+
+
+ARTIFACT_FORMAT = "torch_port_artifact/1"
+
+
+class _Units(NamedTuple):
+    """The one tokenizer field ``train/loop.build_task`` reads."""
+
+    num_units: int
+
+
+def _contract_path(path: Path) -> Path:
+    return path.with_suffix(path.suffix + ".json")
+
+
+def _write_artifact(out_path, model, lm, meta: dict) -> Path:
+    """``<out>``: the weights (``model/``, ``lm/``) as one numpy ``.npz`` written
+    through a file handle (numpy would append ``.npz`` to a path); ``<out>.json``:
+    ``meta``."""
+    out_path = Path(out_path)
+    arrays = {f"model/{k}": v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    if lm is not None:
+        arrays.update({f"lm/{k}": v.detach().cpu().numpy() for k, v in lm.state_dict().items()})
+    with open(out_path, "wb") as f:
+        np.savez(f, **arrays)
+    _contract_path(out_path).write_text(json.dumps(meta, indent=2))
+    return out_path
+
+
+def _port_meta(task, experiment, units, lm) -> dict:
+    """The contract keys the port's loader reads beyond the JAX contract's."""
+    import dataclasses
+
+    if experiment is None:
+        raise ValueError("export needs the experiment config the model was built from "
+                         "(``experiment``): the loader rebuilds the model from it")
+    if dataclasses.is_dataclass(experiment):
+        experiment = dataclasses.asdict(experiment)
+    if units is not None and len(units) != task.model.num_classes:
+        raise ValueError(f"{len(units)} units for a model of {task.model.num_classes} classes")
+    return {"format": ARTIFACT_FORMAT, "experiment": dict(experiment),
+            "num_classes": task.model.num_classes,
+            "lm_config": None if lm is None else lm.cfg._asdict()}
+
+
+def export_model(task, model, out_path, batch_size: int, num_samples: int,
+                 beam_width: int = 1, units=None, label_type: str | None = None,
+                 experiment=None, feature_dim: int | None = None, platforms=("cuda",),
+                 extra_meta: dict | None = None, lm=None, lm_weight: float = 0.0) -> Path:
+    """Write the batch artifact of ``model`` (``task``'s); returns ``<out>``.
+
+    ``num_samples``: padded waveform samples, or padded frames when the task
+    has no frontend (inputs ``[B, T, feature_dim]``; ``feature_dim`` is the
+    task's). ``experiment`` (an ``ExperimentConfig`` or its dict) is what the
+    loader rebuilds the task from, with ``num_classes`` and ``feature_dim``;
+    ``units`` and ``label_type`` go to the contract for clients to decode
+    text. ``lm`` (an ``RNNLM``) with ``lm_weight`` is fused into the beam.
+    ``<out>.json`` holds the JAX contract's keys (``batch_size``,
+    ``num_samples``, ``input_rank``, ``feature_dim``, ``beam_width``,
+    ``lm_weight``, ``platforms``, ``blank_id``, ``units``, then
+    ``extra_meta``) and the port's own (``format``, ``experiment``,
+    ``num_classes``, ``lm_config``, ``label_type``). ``platforms`` lists the
+    device types the artifact may load on (``load_exported`` refuses
+    another). The attention beam's length penalty is 0, as the JAX export
+    stages it.
+    """
+    if task.frontend is None:
+        if feature_dim is not None and feature_dim != task.feature_dim:
+            raise ValueError(f"feature_dim {feature_dim} != the task's {task.feature_dim}")
+        feature_dim = task.feature_dim
+    elif feature_dim is not None:
+        raise ValueError("feature_dim is for a task without a frontend (precomputed features)")
+    meta = {
+        "batch_size": batch_size,
+        "num_samples": num_samples,
+        "input_rank": 2 if task.frontend is not None else 3,
+        "feature_dim": feature_dim,
+        "beam_width": beam_width,
+        "lm_weight": lm_weight if lm is not None else 0.0,
+        "platforms": list(platforms),
+        "blank_id": getattr(task.model, "blank_id", None),
+        "units": list(units) if units else None,
+        **_port_meta(task, experiment, units, lm),
+        "label_type": label_type,
+        **(extra_meta or {}),
+    }
+    return _write_artifact(out_path, model, lm, meta)
+
+
+def _load_artifact(path, device, streaming: bool):
+    """(contract, task, model, lm) of an artifact, on ``device``; refuses a device
+    type not in its ``platforms`` and the other kind of artifact."""
+    from .models.lm import RNNLM, LMConfig
+    from .train.loop import build_task
+    from .utils.bridge import check_state_dict
+    from .utils.config import ExperimentConfig
+
+    path = Path(path)
+    meta = json.loads(_contract_path(path).read_text())
+    if meta.get("format") != ARTIFACT_FORMAT:
+        raise ValueError(f"{path} is not an artifact of this port (format "
+                         f"{meta.get('format')!r}, expected {ARTIFACT_FORMAT!r})")
+    if streaming and not meta.get("streaming"):
+        raise ValueError(f"{path} is not a streaming artifact")
+    if not streaming and meta.get("streaming"):
+        raise ValueError(f"{path} is a streaming artifact: load it with load_streaming")
+    device = torch.device(device)
+    if device.type not in meta["platforms"]:
+        raise ValueError(f"{path} was exported for {meta['platforms']}, not {device.type}")
+    exp = ExperimentConfig.from_dict(meta["experiment"])
+    task, task_mod = build_task(exp, _Units(meta["num_classes"]), meta.get("feature_dim"))
+    with np.load(path, allow_pickle=False) as z:
+        weights = {k: torch.from_numpy(z[k]) for k in z.files}
+    model = task_mod.init_model(task)
+    lm = None if meta.get("lm_config") is None else RNNLM(LMConfig(**meta["lm_config"]))
+    for prefix, module in (("model/", model), ("lm/", lm)):
+        if module is not None:
+            state = {k[len(prefix):]: v for k, v in weights.items() if k.startswith(prefix)}
+            check_state_dict(module, state)
+            module.load_state_dict(state)
+    unknown = [k for k in weights if not k.startswith(("model/", "lm/") if lm else "model/")]
+    if unknown:
+        raise KeyError(f"{path}: arrays outside the model and its LM: {unknown[:5]}")
+    return (meta, task, model.to(device).eval(),
+            None if lm is None else lm.to(device).eval())
+
+
+def load_exported(path, device="cuda"):
+    """Load a batch artifact of ``export_model``; returns ``infer(inputs,
+    input_len) -> (ids, lengths)``, the ``build_inference_fn`` of the stored
+    model (its ``beam_width``, LM and ``lm_weight``) on ``device``, which
+    returns device tensors.
+
+    The task is rebuilt from the contract's ``experiment``, ``num_classes``
+    and ``feature_dim``, as ``train/loop.build_task`` builds it; the weights
+    are read with ``allow_pickle=False`` and must match the model's names and
+    shapes. Raises for a device type the artifact was not exported for, and
+    for a streaming artifact (``load_streaming``).
+    """
+    meta, task, model, lm = _load_artifact(path, device, streaming=False)
+    return build_inference_fn(task, model, meta["beam_width"], lm, meta["lm_weight"])
+
+
+def export_streaming_model(task, model, out_path, batch_size: int, chunk_samples: int,
+                           units=None, label_type: str | None = None, experiment=None,
+                           platforms=("cuda",), extra_meta: dict | None = None,
+                           beam_width: int = 1, top_k_classes: int = 16,
+                           max_prefix_len: int = 200, lm=None, lm_weight: float = 0.0) -> Path:
+    """Write the streaming artifact of ``model``: its chunk step
+    (``streaming.build_streaming_fn``) for ``batch_size`` slots and chunks of
+    ``chunk_samples``; returns ``<out>``.
+
+    The weights and the port's own contract keys are as ``export_model``'s.
+    The contract's JAX keys: ``streaming``, ``batch_size``,
+    ``chunk_samples``, ``frames_per_chunk`` (the step's token width),
+    ``beam_width``, ``final_flush`` (a stacked stream ends on a chunk
+    boundary with ``chunk_len = -1``), ``platforms``, ``blank_id``,
+    ``units``, then ``extra_meta``. The JAX export also writes
+    ``state_leaves``, ``state_init``, a ``.state0.npz`` sidecar and a
+    ``.final`` program because its loader has no model code to rebuild the
+    state and the finalize step from; the port's loader rebuilds both, so
+    none of them is written.
+    """
+    from .streaming import build_streaming_fn
+
+    build_streaming_fn(task, model, chunk_samples, beam_width=beam_width,
+                       top_k_classes=top_k_classes, max_prefix_len=max_prefix_len, lm=lm,
+                       lm_weight=lm_weight)  # refuses what cannot stream
+    stacked = task.num_stack > 1 or task.num_skip > 1
+    base_frames = chunk_samples // task.frontend.frame_step
+    enc_frames = ((task.num_stack - 1 + base_frames) // task.num_skip + 1 if stacked
+                  else base_frames)
+    meta = {
+        "streaming": True,
+        "batch_size": batch_size,
+        "chunk_samples": chunk_samples,
+        "frames_per_chunk": enc_frames * getattr(task.model, "max_symbols_per_frame", 1),
+        "beam_width": beam_width,
+        "final_flush": stacked,
+        "platforms": list(platforms),
+        "blank_id": task.model.blank_id,
+        "units": list(units) if units else None,
+        **_port_meta(task, experiment, units, lm),
+        "label_type": label_type,
+        "lm_weight": lm_weight if lm is not None else 0.0,
+        "top_k_classes": top_k_classes,
+        "max_prefix_len": max_prefix_len,
+        **(extra_meta or {}),
+    }
+    return _write_artifact(out_path, model, lm, meta)
+
+
+def load_streaming(path, device="cuda"):
+    """Load a streaming artifact of ``export_streaming_model``; returns
+    ``(state0, step, finalize)`` on ``device``: ``state0 = init_fn(batch_size)``
+    and ``step`` of ``streaming.build_streaming_fn`` over the stored model, and
+    ``finalize`` its ``finalize_fn`` when ``beam_width > 1``, else None. They
+    feed ``StreamingEngine`` as the in-process step does. Raises for a batch
+    artifact (the JAX message) and for a device type the artifact was not
+    exported for."""
+    from .streaming import build_streaming_fn
+
+    meta, task, model, lm = _load_artifact(path, device, streaming=True)
+    fns = build_streaming_fn(task, model, meta["chunk_samples"], beam_width=meta["beam_width"],
+                             top_k_classes=meta["top_k_classes"],
+                             max_prefix_len=meta["max_prefix_len"], lm=lm,
+                             lm_weight=meta["lm_weight"])
+    return fns[0](meta["batch_size"]), fns[1], fns[2] if meta["beam_width"] > 1 else None
 
 
 class StreamingEngine:

@@ -20,7 +20,9 @@ stream's lifetime:
   chunk flushes itself.
 - **Encoder carry.** Each causal LSTM layer resumes from its carried
   ``(h, c)`` through ``models/rnn.LSTM(..., initial_state=)``, which runs
-  kernel #3 on the card (the ``lstm_layer_fwd_carry`` entry) once per
+  kernel #3 on the card (the ``lstm_layer_fwd_carry`` entry, or at
+  ``compute_dtype: bfloat16`` ``lstm_layer_fwd_carry_bf16``: the
+  reference's scan step with bf16 products and float32 streams) once per
   layer and chunk. A chunk-causal conformer / transformer keeps its KV and
   conv caches (``models/conformer_stream.py``).
 - **Decode carry.** Greedy CTC carries the last frame's argmax; the
@@ -106,12 +108,6 @@ def _validate(task) -> None:
                          f"transformer with left_context >= 0), got {enc.encoder_type!r}")
     if isinstance(task, CTCTaskConfig) and task.model.num_classes_sub is not None:
         raise ValueError("streaming decodes the main task only")
-    if enc.compute_dtype != "float32":
-        raise NotImplementedError(
-            "streaming at compute_dtype bfloat16 is not ported: for a carried state the "
-            "reference takes rnn_scan's scan, not the LSTM kernel (models/rnn.py:188-190), and "
-            "that scan rounds h @ Wh to bf16 and keeps xproj float32, other numerics than the "
-            "kernels' bf16 streams")
 
 
 def reset_rows(state: StreamState, fresh: StreamState, rows_mask) -> StreamState:

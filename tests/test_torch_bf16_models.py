@@ -2,8 +2,10 @@
 
 (The CTC models and their train steps: ``tests/test_torch_bf16_ctc.py``.)
 The config field's path to the tasks and serving, what still raises at bf16
-(streaming), and ``ops/bf16.matmul``'s gradient against JAX's transpose are
-held here too. (The attention families: ``tests/test_torch_bf16_attention.py``.)
+(a carried state with bf16 streams), and ``ops/bf16.matmul``'s gradient
+against JAX's transpose are held here too. (The attention families:
+``tests/test_torch_bf16_attention.py``; streaming at bf16:
+``tests/test_torch_stream_bf16.py``.)
 
 On the CPU the JAX encoder takes its scan (``impl="auto"``), whose bf16 rounds
 ``h @ Wh`` and not the streams; the TPU takes the Pallas kernels. The module
@@ -177,10 +179,18 @@ def test_lstm_matches_rnn_scan_bf16():
     assert grads[0].dtype == torch.bfloat16
     _grad_close(grads[0], gx, "xs")
     _grads_close(dict(zip(dict(layer.named_parameters()), grads[1:])), _bridge(gp, layer))
-    with pytest.raises(NotImplementedError, match="initial_state"):
-        with torch.no_grad():
-            zeros = torch.zeros(3, H)
-            layer(x_t, torch.from_numpy(lengths), (zeros, zeros))
+    # with a carried state (a streaming chunk) the layer takes rnn_scan's scan branch:
+    # a float32 xproj, bf16 operands of h @ Wh with float32 sums, float32 ys
+    h0 = np.random.RandomState(4).randn(3, H).astype(np.float32)
+    want_ys, (want_h, want_c) = rnn_scan(params, spec, xs16, jnp.asarray(lengths),
+                                         initial_state=(jnp.asarray(h0), jnp.asarray(h0)))
+    with torch.no_grad():
+        ys, (h_t, c_t) = layer(x_t, torch.from_numpy(lengths),
+                               (torch.from_numpy(h0), torch.from_numpy(h0)))
+    assert ys.dtype == torch.float32 and want_ys.dtype == jnp.float32
+    for got, want in ((ys, want_ys), (h_t, want_h), (c_t, want_c)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_dropout_keeps_bf16():
@@ -361,7 +371,16 @@ def test_yaml_compute_dtype_reaches_the_tasks_and_serving():
 
 
 def test_streaming_at_bf16_raises():
+    """Streaming runs at bf16 (``tests/test_torch_stream_bf16.py`` holds it to
+    JAX's chunk step); a carried state with bf16 streams still raises: the
+    reference's chunk takes the scan, which has no bf16 streams."""
     task = experiment_from_dict(_raw(encoder_type="lstm")).task(28)
     model = ctc_task.init_model(task)
-    with pytest.raises(NotImplementedError, match="streaming at compute_dtype bfloat16"):
-        streaming.build_streaming_fn(task, model, chunk_samples=1600)
+    init_fn, step_fn = streaming.build_streaming_fn(task, model, chunk_samples=1600)
+    state, _, n = step_fn(init_fn(2), np.zeros((2, 1600), np.float32),
+                          np.full((2,), 1600, np.int32))
+    assert state.rnn_states[0][0].dtype == torch.float32 and n.shape == (2,)
+    h0 = torch.zeros(2, H)
+    with pytest.raises(NotImplementedError, match="no bf16 streams"):
+        lstm_layer(torch.zeros(2, 3, 4 * H, dtype=torch.bfloat16), torch.zeros(H, 4 * H),
+                   torch.ones(2, 3), initial_state=(h0, h0))

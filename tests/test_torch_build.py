@@ -37,14 +37,15 @@ def test_signatures_declare_every_c_entry():
     """``build.SIGNATURES``, the ctypes table, declares every kernel entry that
     the sources' ``extern "C"`` blocks define (only the error-string helper is
     declared apart), and each bf16 instantiation takes its float32 entry's
-    arguments: #1-#4's bf16 streams and #7's bf16 encoder rows."""
+    arguments: #1-#4's bf16 streams, #7's bf16 encoder rows and #3's carried
+    walk with bf16 products."""
     from test_torch_lstm_bwd_plan import _extern_c_functions
 
     defined = _extern_c_functions()
     assert set(defined) - set(build.SIGNATURES) == {"asr_cuda_error_string"}
     bf16 = {name for name in defined if name.endswith("_bf16")}
     assert bf16 == {"lstm_bidi_fwd_bf16", "lstm_bidi_bwd_bf16", "lstm_layer_fwd_bf16",
-                    "lstm_layer_bwd_bf16", "location_attend_bf16"}
+                    "lstm_layer_bwd_bf16", "location_attend_bf16", "lstm_layer_fwd_carry_bf16"}
     for name in bf16:
         assert defined[name] == defined[name[:-len("_bf16")]], name
         assert build.SIGNATURES[name] == build.SIGNATURES[name[:-len("_bf16")]], name

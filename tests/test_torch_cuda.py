@@ -16,6 +16,9 @@ The bf16-stream kernels (``compute_dtype: bfloat16``) are held to their
 plain versions within two bf16 ulps (rtol 8e-3, atol 1e-5): both round the
 same float32 walk, summed in other orders. #7 on bf16 encoder rows keeps
 the float32 tolerances: both widen the rows exactly and sum in float32.
+#3's carried walk with bf16 products keeps them for one step and is held
+within ``BF16_PRODUCT_TOL`` over a chunk (an h may round to the other bf16
+neighbour on each side).
 """
 
 import numpy as np
@@ -1263,11 +1266,79 @@ def test_layer_kernel_with_carried_state_matches_plain(dev, b, t, h, lengths):
     torch.testing.assert_close(z_ys, lstm_layer_fwd(x, wh, mask, 0.5), **LSTM_TOL)
 
 
-def _stream_model(dev, encoder_type):
-    enc = (EncoderConfig(encoder_type="lstm", num_units=64, num_layers=2)
+# #3 with bf16 products after its first step: a float32 h whose sums ran in
+# another order than the plain version's may round to the other bf16 neighbour
+# (one bf16 ulp, up to 2^-8 |h|), which moves the next step's gates by that
+# times |Wh| (seen: 5.6e-4 at ls_streaming_ctc's chunk, B = 8, T = 10, H = 512);
+# step 0's operands are the inputs h0 and Wh, rounded alike on both sides, so a
+# one-step walk is held to LSTM_TOL
+BF16_PRODUCT_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("b,t,h,lengths", CARRY_SHAPES)
+def test_layer_kernel_with_bf16_products_matches_plain(dev, b, t, h, lengths):
+    """#3's carried walk with bf16 products (``lstm_layer_fwd_carry_bf16``)
+    against its plain version: float32 streams and carries, counted on
+    ``launches_bf16_product`` alone; a paused row gives back (h0, c0)."""
+    x, _, wh, _, mask = _inputs(dev, b, t, h, lengths, seed=h + 9)
+    rng = np.random.RandomState(h + 1)
+    h0, c0 = (torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev) for _ in range(2))
+    before = lstm_layer.launches, lstm_layer.launches_bf16, lstm_layer.launches_bf16_product
+    with torch.no_grad():
+        ys, (h_t, c_t) = lstm_layer(x, wh, mask, 0.5, initial_state=(h0, c0),
+                                    bf16_product=True)
+        one = lstm_layer(x[:, :1].contiguous(), wh, mask[:, :1].contiguous(), 0.5,
+                         initial_state=(h0, c0), bf16_product=True)
+        f_one = lstm_layer(x[:, :1].contiguous(), wh, mask[:, :1].contiguous(), 0.5,
+                           initial_state=(h0, c0))
+    torch.cuda.synchronize()
+    assert (lstm_layer.launches, lstm_layer.launches_bf16,
+            lstm_layer.launches_bf16_product) == (before[0] + 1, before[1], before[2] + 2)
+    want_ys, _, (want_h, want_c) = lstm_layer_fwd_plain(x, wh, mask, 0.5, (h0, c0),
+                                                        bf16_product=True)
+    for g, w in ((ys, want_ys), (h_t, want_h), (c_t, want_c)):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, **BF16_PRODUCT_TOL)
+    want_one = lstm_layer_fwd_plain(x[:, :1], wh, mask[:, :1], 0.5, (h0, c0),
+                                    bf16_product=True)
+    torch.testing.assert_close(one[0], want_one[0], **LSTM_TOL)
+    torch.testing.assert_close(one[1][1], want_one[2][1], **LSTM_TOL)
+    # not the float32 walk: its first step alone is moved past the tolerance
+    assert float((one[0] - f_one[0]).abs().max()) > 10 * LSTM_TOL["atol"]
+    paused = torch.tensor(lengths, device=dev) == 0
+    assert torch.equal(h_t[paused], h0[paused]) and torch.equal(c_t[paused], c0[paused])
+
+
+def test_bf16_stream_on_card_matches_cpu(dev):
+    """A bf16 LSTM transducer's chunk steps on the card: tokens equal the
+    CPU's, one bf16-product carried walk per layer and step, no plain step."""
+    from tensorflow_end2end_speech_recognition_tpu_torch import streaming
+
+    task, cpu, model = _stream_model(dev, "lstm", "bfloat16")
+    chunk = 1600
+    wav = (np.random.RandomState(4).randn(3, 4 * chunk) * 0.3).astype(np.float32)
+    lens = [4 * chunk, 3 * chunk, 2 * chunk - 700]
+    before = lstm_layer.launches_bf16_product
+    plain = lstm_ops.lstm_layer_fwd_plain
+    lstm_ops.lstm_layer_fwd_plain = None  # the card must not take the plain walk
+    try:
+        _, rows = _stream_rows(streaming.build_streaming_fn(task, model, chunk), wav, lens,
+                               chunk)
+    finally:
+        lstm_ops.lstm_layer_fwd_plain = plain
+    steps = -(-max(lens) // chunk) + 1
+    assert lstm_layer.launches_bf16_product - before == 2 * steps
+    assert _stream_rows(streaming.build_streaming_fn(task, cpu, chunk), wav, lens,
+                        chunk)[1] == rows
+
+
+def _stream_model(dev, encoder_type, compute_dtype="float32"):
+    enc = (EncoderConfig(encoder_type="lstm", num_units=64, num_layers=2,
+                         compute_dtype=compute_dtype)
            if encoder_type == "lstm" else
            EncoderConfig(encoder_type="conformer", num_units=32, num_layers=2, num_heads=2,
-                         conv_kernel_size=5, pos_encoding="rotary", left_context=8))
+                         conv_kernel_size=5, pos_encoding="rotary", left_context=8,
+                         compute_dtype=compute_dtype))
     from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
     from tensorflow_end2end_speech_recognition_tpu_torch.train import transducer_task as tt
 
