@@ -5,9 +5,10 @@ decoding, eval / decode and RNN-LM paths, of the conformer / transformer
 configs, of the VGG, multitask, BPE and word configs, of streaming
 recognition and the transducer beam, of the bf16 mode (``compute_dtype:
 bfloat16``) with ``bench.py``'s headline step, of training from a
-prepared on-disk corpus with gradient accumulation, and of exported
-artifacts (``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at
-bf16, on one NVIDIA GPU.
+prepared on-disk corpus with gradient accumulation, of exported artifacts
+(``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at bf16, and of
+the scan-path encoders (GRU, the LSTM options), ``cnn_zhang``, profiling
+and the C++ host runtime, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -338,7 +339,33 @@ Phases; any failure exits non-zero and prints no result line:
     same state (a bf16 rounding that lands the other way compounds over a
     stream, so each step is held alone): encoder outputs within 5e-3 of their
     largest entry, tokens equal unless the decisions part at a near-tie (top
-    two logits within 5e-2); the chunk step timed beside the float32 one.
+    two logits within 5e-2); the chunk step timed beside the float32 one;
+61. ls100_ctc at full width with three other encoders, built in code: 5 x
+    BGRU-512, 5 x BLSTM-512 with peephole, cell clip 50 and a 256-wide
+    projection (the scan path, no kernel), and ``cnn_zhang`` (5x3
+    convolutions of 128, 128, 256, 256 channels, frequency pools, a 1024
+    dense layer); each card against CPU on 2 x 1 s (logits 1e-3, ids equal)
+    and one SGD train step (loss, every gradient 1e-3 of max, weights, ids;
+    ``cnn_zhang``'s pools replay the card's argmax on the CPU);
+62. each served: encoder ms on 8 x 12 s, one batch profiled (device time,
+    busy share, device launches), 8 concurrent ``/recognize`` requests
+    (none of the counted kernels launched);
+63. each one's Adam steps at B=32 x 12 s: ms per step, peak memory, busy
+    share, device launches, and exactly one #5 and no walk (#1-#4) per step;
+64. configs/ls_streaming_ctc.yml with ``encoder_type: gru``, and with the
+    option cell, streamed on 8 x up to 4 s: no kernel launched (no #3),
+    tokens equal the offline decode and the CPU's stream; the chunk step at
+    B=8 x 100 ms timed and profiled;
+65. ``fit`` on the ``cnn_zhang`` config for one toy epoch with
+    ``profile_steps=(1, 2)``: the Chrome trace holds the card's kernels, one
+    #5 per step and #6 in the dev eval; ``bin/eval`` (beam 20) and
+    ``bin/export --selfcheck`` on its model dir, the artifact's ids equal
+    to in-process serving;
+66. the C++ host runtime (``data/native.py``) built with the host compiler,
+    ``batch_assemble`` and ``levenshtein_batch`` bit-equal to their numpy /
+    Python fallbacks (a failed build fails the phase);
+67. plotting is not run (the card's machine has no matplotlib; the CPU tests
+    draw the PNGs).
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -347,7 +374,7 @@ is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 which the port never calls; the calls of #5-#7, short beside their Python
 wrapper, are timed from CUDA-graph replays (#3 with a carried state too).
 Prints a JSON line of the kernels (and the prefix beam's, the conformers',
-the families' and the streams' numbers), the card's name and power limit,
+the families', the streams' and the encoder zoo's numbers), the card's name and power limit,
 and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
@@ -1119,13 +1146,16 @@ def zero_gradient(task, name: str) -> bool:
 
 @contextlib.contextmanager
 def pool_decisions(decisions: list, replay: bool, flips: list):
-    """Record each ``F.max_pool2d``'s argmax (``replay`` false) or route each
-    pool through the recorded argmax, counting in ``flips`` the windows whose
-    own argmax differs (``replay`` true). A VGG encoder's 2x2 pools then send
-    their gradient to the same elements on both devices: a near-tie (values
-    within the forward's 1e-6) may resolve differently on the card and the
-    CPU, and move a conv weight's gradient by a whole position's term."""
-    plain = F.max_pool2d
+    """Record each ``F.max_pool2d``'s argmax and each ``torch.relu``'s signs
+    (``replay`` false), or route each pool through the recorded argmax and
+    each ReLU through the recorded signs, counting in ``flips`` the windows
+    and units whose own decision differs (``replay`` true). A VGG or
+    ``cnn_zhang`` encoder's pools and ReLUs then send their gradient through
+    the same elements on both devices: a near-tie (values within the
+    forward's 1e-6, or a conv output that near 0) may resolve differently on
+    the card and the CPU, and move a conv weight's gradient by a whole
+    position's term."""
+    plain, plain_relu = F.max_pool2d, torch.relu
 
     def pool(x, *args, **kw):
         out, idx = plain(x, *args, return_indices=True, **kw)
@@ -1136,11 +1166,19 @@ def pool_decisions(decisions: list, replay: bool, flips: list):
         flips.append(int((want != idx).sum()))
         return x.flatten(2).gather(2, want.flatten(2)).view(want.shape)
 
-    F.max_pool2d = pool
+    def relu(x):
+        if not replay:
+            decisions.append((x > 0).cpu())
+            return plain_relu(x)
+        want = decisions.pop(0).to(x.device)
+        flips.append(int((want != (x > 0)).sum()))
+        return torch.where(want, x, 0.0)
+
+    F.max_pool2d, torch.relu = pool, relu
     try:
         yield
     finally:
-        F.max_pool2d = plain
+        F.max_pool2d, torch.relu = plain, plain_relu
 
 
 def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6,
@@ -1166,11 +1204,12 @@ def check_train_step(task, task_mod, params_cpu, dev, seed: int = 6,
                     {k: v.cpu() for k, v in new.items()}, ids.cpu(), n.cpu(),
                     bool(aux["nonfinite"])))
     (tg, gg, pg, ig, ng, fg), (tc, gc, pc, ic, nc, fc) = res
-    if decisions or (flips and not task.model.encoder.has_vgg):
+    pools = task.model.encoder.has_vgg or task.model.encoder.is_cnn
+    if decisions or (flips and not pools):
         raise RuntimeError(f"max-pool decisions left over: {len(decisions)}, flips {flips}")
     if flips:
-        print(f"max-pools replayed on the CPU: {len(flips)} calls, {sum(flips)} windows whose "
-              "CPU argmax differs from the card's", flush=True)
+        print(f"max-pools and ReLUs replayed on the CPU: {len(flips)} calls, {sum(flips)} "
+              "windows or units whose CPU decision differs from the card's", flush=True)
     lc, lg = tc["loss"], tg["loss"]
     loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
     g_max = max(float(g.abs().max()) for g in gc)
@@ -2239,6 +2278,24 @@ def check_att_model(task, model_cpu, model_dev, dev, name: str = "ls960_joint",
         raise RuntimeError(f"{name} on the card disagrees with the CPU: {errs} {same}")
 
 
+def raw_device_kernels(prof) -> list:
+    """(name, device ms, launches) of a finished profile's device events, read
+    from the tracer's raw events without building the operator tree: the
+    sums ``key_averages`` gives (``self_device_time_total`` and ``count`` per
+    kernel name; equal on a 10 869-launch profile), in seconds instead of a
+    minute for a step of 10^5 launches. "Command Buffer Full" is CUPTI's
+    record of the host waiting on a full launch queue, not a kernel."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.name() == "Command Buffer Full":
+            continue
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(k, ms, n) for k, (ms, n) in by_name.items() if ms > 0]
+
+
 def device_busy(fn, table: Path | None = None) -> tuple:
     """(wall ms, device kernel ms, kernels by device time) of one profiled call
     of ``fn``; every kernel's line goes to ``table`` when given.
@@ -2248,7 +2305,6 @@ def device_busy(fn, table: Path | None = None) -> tuple:
     too took 50 s. A profile that recorded no kernel at all lost them (the
     tracer, as in ``device_launches``): ``fn`` runs again under a new one,
     up to five times."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
@@ -2258,13 +2314,8 @@ def device_busy(fn, table: Path | None = None) -> tuple:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only; "Command Buffer Full" is CUPTI's record of
-        # the host waiting on a full launch queue, not a kernel
         t0 = time.perf_counter()
-        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                          for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                          and e.key != "Command Buffer Full"), key=lambda r: -r[1])
+        kernels = sorted(raw_device_kernels(prof), key=lambda r: -r[1])
         print(f"(profile read in {time.perf_counter() - t0:.1f} s)", flush=True)
         if kernels:
             break
@@ -4055,11 +4106,12 @@ def check_bf16_step(task, task_mod, params_cpu, dev, name: str, seed: int = 46,
             loss, terms = task_mod.forward_loss(leaves, task, tb, True)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         res.append(({k: float(v.detach()) for k, v in terms.items()}, [g.cpu() for g in grads]))
-    if decisions or (flips and not task.model.encoder.has_vgg):
+    pools = task.model.encoder.has_vgg or task.model.encoder.is_cnn
+    if decisions or (flips and not pools):
         raise RuntimeError(f"max-pool decisions left over: {len(decisions)}, flips {flips}")
     if flips:
-        print(f"max-pools replayed on the CPU: {len(flips)} calls, {sum(flips)} windows whose "
-              "CPU argmax differs from the card's", flush=True)
+        print(f"max-pools and ReLUs replayed on the CPU: {len(flips)} calls, {sum(flips)} "
+              "windows or units whose CPU decision differs from the card's", flush=True)
     (tg, gg), (tc, gc) = res
     loss_err = max(abs(tc[k] - tg[k]) / abs(tc[k]) for k in tc)
     errs = {n: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-12)
@@ -4685,6 +4737,222 @@ def run_data_root(args, dev, gpu: str, work: Path, t0: float, params_cpu: dict) 
         accum, **{f"a{a}": {k: r[k] for k in keep} for a, r in timed.items()})}
 
 
+# ---- phases 61-67: the scan-path encoders, cnn_zhang, GRU streaming, the tools -------
+
+# ls100_ctc at full width with another encoder: 5 x BGRU-512; 5 x BLSTM-512 with
+# peephole, cell clip 50 and a 256-wide projection; cnn_zhang (fc_units (1024,))
+ZOO = {"ls100_ctc_bgru": (f"{LAYERS} x BGRU-{H}", {"encoder_type": "bgru"}),
+       "ls100_ctc_blstm_options": (f"{LAYERS} x BLSTM-{H} (peephole, clip 50, proj 256)",
+                                   {"use_peephole": True, "clip_activation": 50.0,
+                                    "num_proj": 256}),
+       "ls100_ctc_cnn_zhang": ("cnn_zhang 128-128-256-256, fc 1024",
+                               {"encoder_type": "cnn_zhang"})}
+# configs/ls_streaming_ctc.yml (4 x LSTM-512, causal) with a GRU, and with the options
+ZOO_STREAMS = {"ls_streaming_ctc_gru": {"encoder_type": "gru"},
+               "ls_streaming_ctc_options": {"use_peephole": True, "clip_activation": 50.0,
+                                            "num_proj": 256}}
+ZOO_TIMED_STEPS = 1  # a scan-path step takes seconds: one Python loop over T per layer
+ZOO_STREAM_SECONDS = (4.0, 3.5, 3.0, 2.5, 2.0, 1.5, 1.0, 0.6)
+NATIVE_UTTS, NATIVE_PAIRS = 32, 128
+
+
+def zoo_task(overrides: dict):
+    return experiment_from_dict(dict(LS100_CTC, **overrides)).ctc_task(len(CHAR_UNITS))
+
+
+def serve_zoo(name: str, label: str, task, model, dev, gpu: str) -> tuple:
+    """Phase 62: encoder ms on 8 x 12 s, one batch's device launches and busy
+    share, and 8 concurrent requests (no kernel but none of #1-#4: the serving
+    path launches nothing counted)."""
+    rng = np.random.RandomState(71)
+    n = 12 * SR
+    wav = (rng.randn(B, n) * 0.1).astype(np.float32)
+    lens = np.full((B,), n, np.int32)
+    infer = build_inference_fn(task, model)
+    with torch.inference_mode():
+        feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(dev),
+                                           "input_len": torch.from_numpy(lens).to(dev)})
+        enc_ms = host_ms(lambda: model.encoder(feats, fl), 1)  # a warm call, then one timed
+    wall, busy, kernels = device_busy(lambda: infer(wav, lens))
+    launches = sum(k[2] for k in kernels)
+    print(f"phase {name} serving, {label}: encoder {enc_ms:.3f} ms per batch of "
+          f"{B} x 12 s (T'={frames_out(task, n)}); one batch profiled: {wall:.3f} ms wall, "
+          f"{busy:.3f} ms of device time ({100 * busy / wall:.1f} % busy), {launches} device "
+          f"launches  [{gpu}]", flush=True)
+    counts = serve_requests(task, model, gpu, name, per_batch={})
+    return counts, {"encoder_ms": enc_ms, "batch_wall_ms": wall, "batch_device_ms": busy,
+                    "batch_busy": busy / wall, "batch_device_launches": launches}
+
+
+def stream_zoo(name: str, overrides: dict, dev, gpu: str) -> tuple:
+    """Phase 64: ls_streaming_ctc with ``overrides`` at full width, streamed on
+    8 x up to 4 s in 100 ms chunks: no kernel launched (no #3: these layers
+    take the scan path), greedy tokens equal the offline decode on the card and
+    the CPU's stream on 2 x 1 s, the chunk step timed and profiled."""
+    raw, task, _, cpu, model = stream_models("ls_streaming_ctc", dev, **overrides)
+    wav, lens = stream_audio(ZOO_STREAM_SECONDS, seed=72)
+    fns = streaming.build_streaming_fn(task, model, STREAM_CHUNK)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, rows, steps = stream_rows(fns, wav, lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = offline_decode(task, model, wav, lens, dev)
+    short, short_lens = stream_audio((1.0, 0.63), seed=73)
+    got = stream_rows(fns, short, short_lens)[1]
+    cpu_rows = stream_rows(streaming.build_streaming_fn(task, cpu, STREAM_CHUNK), short,
+                           short_lens)[1]
+    print(f"phase {name} greedy stream ({raw['num_layers']} x {raw['encoder_type']}-"
+          f"{raw['num_units']}{'' if task.model.encoder.spec().on_kernels else ' scan path'}), "
+          f"{B} x {max(ZOO_STREAM_SECONDS):g} s in 100 ms chunks ({steps} steps, {wall:.1f} s): "
+          f"tokens equal the offline decode: {rows == want}; card vs CPU on 2 x 1 s: "
+          f"{got == cpu_rows}; launches {counts}  [{gpu}]", flush=True)
+    if rows != want or not any(rows) or got != cpu_rows:
+        raise RuntimeError(f"{name}: the stream disagrees with the offline decode or the CPU")
+    if counts != NONE_LAUNCHED:
+        raise RuntimeError(f"{name}: the scan-path stream launched {counts}")
+    wav_t, lens_t = stream_audio(STREAM_SECONDS, seed=74)
+    return counts, time_stream_step(fns, wav_t, lens_t, dev, gpu, name, 0)
+
+
+def fit_zoo(name: str, overrides: dict, dev, gpu: str, model_dir: Path) -> tuple:
+    """Phase 65: ``fit`` for one toy epoch with ``profile_steps=(1, 2)``: the
+    trace must hold the card's kernels; then ``bin/eval`` (beam 20) and
+    ``bin/export --selfcheck`` on the model dir, the artifact's ids equal to
+    in-process serving on the card."""
+    raw = dict(LS100_CTC, **overrides, toy_num_utts=96, num_epoch=1)
+    exp = experiment_from_dict(raw)
+    lines = []
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = fit(exp, model_dir, log_every=1, print_fn=lines.append, profile_steps=(1, 2),
+                  device=dev.type)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    trace = model_dir / "trace" / "train_steps_1-2.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    plotted = [s for s in lines if s.startswith("plotting failed")]
+    print(f"phase fit {name} 1 epoch with profile_steps (1, 2): {wall:.1f} s wall, "
+          f"{summary['steps']} steps, dev error {summary['dev_error_rate']:.4f}, launches "
+          f"{counts}; trace {trace.stat().st_size / 2**20:.2f} MiB with {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events ({len({e['name'] for e in kernels})} kernels); "
+          f"{plotted[0] if plotted else 'curves plotted'}  [{gpu}]", flush=True)
+    if f"profiler trace written to {trace}" not in lines or (dev.type == "cuda" and not kernels):
+        raise RuntimeError(f"{name}: fit wrote no trace of the card's kernels")
+    if summary["nonfinite_steps"] or not np.isfinite(summary["dev_loss"]):
+        raise RuntimeError(f"{name}: fit gave {summary}")
+    # one #5 per step, #6 in the dev eval, nothing else
+    want = dict(NONE_LAUNCHED, ctc_loss=summary["steps"],
+                ctc_loss_fwd_only=max(counts["ctc_loss_fwd_only"], 1))
+    if counts != want:
+        raise RuntimeError(f"{name}: the training path launched {counts}; expected {want}")
+    res, eval_counts = run_cli(f"bin/eval {name} (beam 20)", eval_cli.main,
+                               [str(model_dir), "--device", dev.type], ("ctc_loss_fwd_only",),
+                               gpu)
+    if not all(res[s]["num_utts"] > 0 and np.isfinite(res[s]["loss"]) for s in ("dev", "test")):
+        raise RuntimeError(f"bin/eval {name} gave {res}")
+    art = model_dir.parent / f"{name}.art"
+    export_cli.main([str(model_dir), str(art), "--seconds", "12", "--device", dev.type,
+                     "--selfcheck"])
+    exp = ExperimentConfig.from_yaml(model_dir / "config.yml")
+    task, mod = build_task(exp, corpus_tokenizer(exp))
+    model = eval_cli.restore_model(model_dir, task, mod, None, dev)[1]
+    wav, lens = stream_audio(REQUEST_SECONDS, seed=75)
+    want = build_inference_fn(task, model)(wav, np.asarray(lens, np.int32))
+    got = load_exported(art, dev.type)(wav, np.asarray(lens, np.int32))
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"{name} artifact vs in-process serving on 8 requests: ids equal {same}", flush=True)
+    if not same:
+        raise RuntimeError(f"{name}: the artifact's ids differ from in-process serving")
+    return {f"fit_{name}": counts, f"eval_{name}": eval_counts}, {
+        "fit_wall_s": wall, "trace_events": len(events), "trace_kernel_events": len(kernels)}
+
+
+def check_native(gpu: str) -> dict:
+    """Phase 66: the C++ host runtime built with the host compiler (a failed
+    build or ABI check raises here: no quiet fallback), ``batch_assemble`` and
+    ``levenshtein_batch`` bit-equal to their numpy / Python fallbacks and timed
+    beside them."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.data import native
+    from tensorflow_end2end_speech_recognition_tpu_torch.utils.edit_distance import (
+        levenshtein_batch as levenshtein_py,
+    )
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    if not native.have_native():
+        raise RuntimeError("the C++ host runtime built but does not load")
+    rng = np.random.RandomState(76)
+    utts = [rng.randn(int(n), 3 * 40).astype(np.float32)
+            for n in rng.randint(300, 1200, NATIVE_UTTS)]
+    refs = [list(rng.randint(0, 28, rng.randint(0, 120))) for _ in range(NATIVE_PAIRS)]
+    hyps = [list(rng.randint(0, 28, rng.randint(0, 120))) for _ in range(NATIVE_PAIRS)]
+    t0 = time.perf_counter()
+    batch, lens = native.batch_assemble(utts, 1200)
+    edits = native.levenshtein_batch(refs, hyps)
+    t1 = time.perf_counter()
+    plain = np.zeros_like(batch)
+    for i, u in enumerate(utts):
+        plain[i, : len(u)] = u
+    t2 = time.perf_counter()
+    edits_py = levenshtein_py(refs, hyps)
+    t3 = time.perf_counter()
+    same = batch.tobytes() == plain.tobytes() and np.array_equal(edits, edits_py)
+    print(f"phase native host runtime: built in {build_s:.2f} s -> {lib.name}; "
+          f"batch_assemble of {NATIVE_UTTS} x up to 1200 x 120 and levenshtein_batch of "
+          f"{NATIVE_PAIRS} pairs up to 120 tokens: {1e3 * (t1 - t0):.2f} ms (numpy pad "
+          f"{1e3 * (t2 - t1):.2f} ms, Python edit distance {1e3 * (t3 - t2):.1f} ms); bits "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the C++ host runtime disagrees with its numpy / Python paths")
+    return {"build_s": build_s, "native_ms": 1e3 * (t1 - t0), "numpy_pad_ms": 1e3 * (t2 - t1),
+            "python_edit_ms": 1e3 * (t3 - t2)}
+
+
+def run_encoder_zoo(args, dev, gpu: str, work: Path, t0: float) -> tuple:
+    """Phases 61-67; returns (launch counts by path, numbers)."""
+    counts, numbers = {}, {}
+    for name, (label, overrides) in ZOO.items():
+        task = zoo_task(overrides)
+        params_cpu = ctc_task.init_params(task, torch.Generator().manual_seed(0))
+        model_cpu = ctc_task.init_model(task)
+        model_cpu.load_state_dict(params_cpu)
+        model_cpu.eval()
+        model = copy.deepcopy(model_cpu).to(dev).eval()
+        # phase 61: card vs CPU on 2 x 1 s, the model and one train step
+        check_model(task, model_cpu, model, dev, name)
+        check_train_step(task, ctc_task, params_cpu, dev, seed=70)
+        # phase 62: serving
+        counts[f"{name}_serving"], serve = serve_zoo(name, label, task, model, dev, gpu)
+        del model
+        # phase 63: Adam steps at B=32 x 12 s: no walk (#1-#4), one #5 per step
+        r = time_train_steps(name, task, ctc_task, params_cpu, dev, gpu, args.profile_out,
+                             dict(NONE_LAUNCHED, ctc_loss=1), 0, steps=ZOO_TIMED_STEPS)
+        counts[f"{name}_training"] = r["launches"]
+        numbers[name] = {"encoder": label, "serving": serve,
+                         "train_step": {k: v for k, v in r.items() if k != "device_launches"}}
+        numbers[name]["train_step"]["device_launches"] = sum(
+            v["launches"] for v in r["by_kind"].values())
+        clock(f"{name} checked, served and trained", t0)
+    for name, overrides in ZOO_STREAMS.items():
+        counts[name], numbers[name] = stream_zoo(name, overrides, dev, gpu)
+    clock("GRU and option-cell streams run", t0)
+    fit_counts, numbers["fit_cnn_zhang"] = fit_zoo(
+        "ls100_ctc_cnn_zhang", ZOO["ls100_ctc_cnn_zhang"][1], dev, gpu,
+        work / "ls100_ctc_cnn_zhang")
+    counts.update(fit_counts)
+    numbers["native"] = check_native(gpu)
+    print("phase plot: not run on the card (no matplotlib there); tests/test_torch_tools.py "
+          "draws the PNGs on the CPU", flush=True)
+    clock("fit with profile_steps, bin/eval, bin/export and the native runtime run", t0)
+    return counts, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4825,6 +5093,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
     clock("kernel #3's carried walk with bf16 products checked", t0)
     stream_bf16_counts, stream_bf16 = run_stream_bf16(dev, gpu, t0, stream_numbers)
     counts.update(stream_bf16_counts)
+    zoo_counts, zoo = run_encoder_zoo(args, dev, gpu, work, t0)
+    counts.update(zoo_counts)
     # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
     head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
     cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
@@ -4974,7 +5244,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
                       "families": families, "streaming": stream_numbers,
                       "bf16": dict(bf16_numbers, f1=f1),
                       "attention_bf16": att_bf16_numbers, "data_root": data_root,
-                      "export": exported, "stream_bf16": stream_bf16}), flush=True)
+                      "export": exported, "stream_bf16": stream_bf16,
+                      "encoder_zoo": zoo}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -34,36 +34,48 @@ This package imports ``torch`` and numpy, never ``jax``. Ported so far:
   config in ``configs/`` runs;
 - on-disk corpora: ``bin/prepare`` (wavs to per-utterance ``.npy``
   features), ``data_root`` configs trained and scored from them, MFCC,
-  per-speaker CMVN, and gradient accumulation (``grad_accum_steps``).
+  per-speaker CMVN, and gradient accumulation (``grad_accum_steps``);
+- export (``bin/export``, ``bin/serve ARTIFACT``), streaming (``bin/serve
+  --stream``), and the bf16 mode (``compute_dtype: bfloat16``);
+- the rest of the encoder zoo: (B)GRU, the LSTM's peephole, projection and
+  cell clip (the reference's scan path, plain PyTorch), ``cnn_zhang``, and
+  GRU streaming;
+- the tools: ``fit(profile_steps=)`` / ``bin/train --profile``
+  (``torch.profiler``), ``utils/plot.py`` and ``bin/plot``, and the C++
+  host runtime (``data/native.py``: batch assembly, edit distance).
 
 Hand-written Hopper kernels (``csrc/``): the BLSTM layer forward
-(``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the fused CTC
+(``lstm_bidi_fwd.cu``) and backward (``lstm_bidi_bwd.cu``), the one-direction
+LSTM layer forward and backward (``lstm_layer_{fwd,bwd}.cu``), the fused CTC
 loss + gradient and the loss-only CTC (``ctc_loss.cu``), and the
-location-aware attention read (``location_attend.cu``).
+location-aware attention read (``location_attend.cu``); ``csrc/asr_native.cpp``
+is the host runtime, built with the host compiler.
 
 Layout:
 
 - ``frontend``  log-mel and MFCC features, deltas, CMVN (``torch.matmul``
                 DFT/mel/DCT), per-speaker CMVN statistics, SpecAugment
 - ``data``      frame stacking, tokenizers, toy and hard corpora, ``.npy``
-                corpora, batching, prefetch
+                corpora, batching, prefetch, the C++ host runtime
 - ``ops``       kernel wrappers (``lstm``, ``ctc``, ``attention``), losses, the
                 nvcc builder
-- ``csrc``      CUDA C++ sources of the kernels (built at first use)
-- ``models``    BLSTM layer, decoder LSTM step, dropout, (pyramidal, VGG,
-                multitask) BLSTM, conformer and transformer encoders, CTC model,
-                attention scorers, seq2seq model, transducer, RNN-LM
+- ``csrc``      CUDA C++ sources of the kernels and the host runtime's C++
+                (built at first use)
+- ``models``    (B)LSTM layers, the scan-path GRU and option-LSTM layers,
+                decoder LSTM step, dropout, the encoder zoo (pyramidal, VGG,
+                multitask, ``cnn_zhang``, conformer and transformer), CTC
+                model, attention scorers, seq2seq model, transducer, RNN-LM
 - ``decoding``  CTC greedy collapse, CTC prefix beam, attention beam search,
                 joint CTC rescoring
 - ``train``     CTC, attention, transducer and LM tasks (pipeline, loss,
                 train/eval steps), gradient accumulation, optimizers, LR
                 controller, checkpoints, the loop
 - ``utils``     JAX-pytree <-> ``state_dict`` bridge, experiment config,
-                edit distance and error rates, TensorBoard event writer
+                edit distance and error rates, TensorBoard event writer, plots
 - ``serving``   inference function (CTC greedy or prefix beam; attention
                 greedy or beam; transducer greedy) and micro-batcher
-- ``bin``       HTTP server, corpus preparation, training, eval, decode and
-                LM-training CLIs
+- ``bin``       HTTP server, corpus preparation, training, eval, decode,
+                export, plot and LM-training CLIs
 """
 
 import torch

@@ -1,7 +1,7 @@
 """Training entry point of the port.
 
     python -m tensorflow_end2end_speech_recognition_tpu_torch.bin.train \\
-        configs/ls100_ctc.yml /tmp/model_dir [--epochs N] [--device cuda]
+        configs/ls100_ctc.yml /tmp/model_dir [--epochs N] [--device cuda] [--profile]
 
 The CTC (``ls100_ctc``, ``timit_ctc_blstm``), attention and joint
 CTC-attention (``timit_attention``, ``ls960_joint``) and transducer
@@ -10,7 +10,8 @@ CTC-attention (``timit_attention``, ``ls960_joint``) and transducer
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/bin/train.py``:
 reads a reference-shaped YAML config, trains with ``train/loop.fit`` on the
 card (``--device cpu`` for the CPU), and tees its output to
-``<model_dir>/train.log``.
+``<model_dir>/train.log``. ``--profile`` writes a ``torch.profiler`` Chrome
+trace of steps 2-5 under ``<model_dir>/trace``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ def main(argv=None):
     ap.add_argument("model_dir", help="directory for checkpoints, logs and the config copy")
     ap.add_argument("--epochs", type=int, default=None, help="override num_epoch")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of steps 2-5 into the model dir")
     args = ap.parse_args(argv)
     set_full_fp32()
 
@@ -56,7 +59,8 @@ def main(argv=None):
             exp = ExperimentConfig.from_yaml(args.config)
             if args.epochs is not None:
                 exp = dataclasses.replace(exp, num_epoch=args.epochs)
-            summary = fit(exp, args.model_dir, device=args.device)
+            summary = fit(exp, args.model_dir, device=args.device,
+                          profile_steps=(2, 5) if args.profile else None)
             print("FINAL", summary)
         finally:
             sys.stdout = orig

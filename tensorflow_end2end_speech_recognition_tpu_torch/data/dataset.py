@@ -7,8 +7,9 @@ ladder of their own (``-1`` padded); a short final batch filled with earlier
 utterances whose rows carry ``weight`` 0 and name ``None``. Utterances with
 multitask sub labels give ``labels_sub`` / ``label_len_sub`` too, ``-1``
 padded to a ladder of their own (at least 8 wide). The same seed and epoch
-give the same batches as the JAX ``Dataset``. Batches are padded with the
-numpy assembly of ``data/native.py`` there (no C++ library here).
+give the same batches as the JAX ``Dataset``. Batches are padded by the C++
+runtime's ``batch_assemble`` (``data/native.py``; its numpy fallback where
+no compiler is found).
 
 Utterances carry waveforms (``[N]`` samples) or precomputed feature
 matrices (``[T, D]``, the ``.npy`` corpora of ``data/npy_corpus.py``);
@@ -26,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .native import batch_assemble
 from .toy_corpus import Utterance
 
 NUM_WAV_BUCKETS, NUM_LABEL_BUCKETS = 4, 3
@@ -46,18 +48,6 @@ def pad_to_ladder(n: int, ladder) -> int:
         if n <= b:
             return b
     return ladder[-1]
-
-
-def batch_assemble(utts: list[np.ndarray], t_pad: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pad and stack float32 waveforms or [T, D] feature matrices ->
-    ([B, t_pad(, D)], int32 lengths)."""
-    lens = np.asarray([u.shape[0] for u in utts], np.int32)
-    if int(lens.max()) > t_pad:
-        raise ValueError(f"utterance length {int(lens.max())} exceeds t_pad {t_pad}")
-    out = np.zeros((len(utts), t_pad) + utts[0].shape[1:], np.float32)
-    for i, u in enumerate(utts):
-        out[i, : u.shape[0]] = u
-    return out, lens
 
 
 def to_device(batch: dict, device) -> dict:

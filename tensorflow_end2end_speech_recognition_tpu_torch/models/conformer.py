@@ -80,8 +80,7 @@ class ConformerSpec(NamedTuple):
             raise ValueError(f"rotary needs an even head dim, got {self.dim}/{self.num_heads} "
                              f"= {self.dim // self.num_heads}")
         if self.compute_dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r} is not ported (float32 or bfloat16)")
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: float32 or bfloat16")
 
     @property
     def bf16(self) -> bool:

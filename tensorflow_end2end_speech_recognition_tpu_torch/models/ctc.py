@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from .encoders import Encoder, EncoderConfig
+from .encoders import Affine, Encoder, EncoderConfig
 
 
 class CTCConfig(NamedTuple):
@@ -40,21 +40,6 @@ class CTCOutput(NamedTuple):
     aux_loss: torch.Tensor | None = None  # MoE load-balance loss (weighted)
     sub_logits: torch.Tensor | None = None  # [B, T', num_classes_sub+1], multitask
     sub_logit_len: torch.Tensor | None = None
-
-
-class Affine(nn.Module):
-    """x @ w + b with the JAX layout w [D, O], b [O]; a bf16 ``x`` (a bf16
-    encoder's output) is upcast first, as JAX promotes it in ``_affine``:
-    the output is float32."""
-
-    def __init__(self, din: int, dout: int, scale: float,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        self.w = nn.Parameter((torch.rand((din, dout), generator=generator) * 2.0 - 1.0) * scale)
-        self.b = nn.Parameter(torch.zeros(dout))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.w.dtype), self.w) + self.b
 
 
 class CTCModel(nn.Module):

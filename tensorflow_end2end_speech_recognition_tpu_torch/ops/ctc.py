@@ -366,3 +366,8 @@ def ctc_loss(logits, logit_len, labels, label_len, blank_id: int | None = None,
     if torch.is_grad_enabled() and logits.requires_grad:
         return _NoGrad.apply(loss, logits)
     return loss
+
+
+def ctc_posteriors(logits: torch.Tensor) -> torch.Tensor:
+    """Per-frame class posteriors (the reference's ``posteriors()`` op), float32."""
+    return torch.softmax(logits.float(), dim=-1)

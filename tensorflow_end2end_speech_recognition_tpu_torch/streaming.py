@@ -18,13 +18,16 @@ stream's lifetime:
   encoder sees the offline ``stack_frames`` windows. A stacked stream that
   ends on a chunk boundary flushes with ``chunk_len = -1``; a partial final
   chunk flushes itself.
-- **Encoder carry.** Each causal LSTM layer resumes from its carried
+- **Encoder carry.** Each causal plain-LSTM layer resumes from its carried
   ``(h, c)`` through ``models/rnn.LSTM(..., initial_state=)``, which runs
   kernel #3 on the card (the ``lstm_layer_fwd_carry`` entry, or at
   ``compute_dtype: bfloat16`` ``lstm_layer_fwd_carry_bf16``: the
   reference's scan step with bf16 products and float32 streams) once per
-  layer and chunk. A chunk-causal conformer / transformer keeps its KV and
-  conv caches (``models/conformer_stream.py``).
+  layer and chunk. A GRU layer carries ``(h,)`` and an LSTM with a
+  peephole, projection or cell clip ``(h [B, P or H], c [B, H])``; both
+  resume through the scan path (``models/rnn.ScanRNN``). A chunk-causal
+  conformer / transformer keeps its KV and conv caches
+  (``models/conformer_stream.py``).
 - **Decode carry.** Greedy CTC carries the last frame's argmax; the
   transducer carries ``(g, prediction-net state)`` through the greedy
   ``decode_frame``; in beam mode the CTC prefix beam or the transducer beam
@@ -39,8 +42,8 @@ its whole state kept bit for bit (every update is a select, never a
 blend), so a server multiplexes sessions over the batch rows and steps
 whenever any has a chunk. A new stream takes a row with ``reset_rows``.
 The state is a ``StreamState`` of tensors on the model's device, each with
-a leading batch dim. Attention decoders cannot stream (not causal), GRU
-encoders wait for the GRU port, and ``pos_encoding: relative`` is refused.
+a leading batch dim. Attention decoders cannot stream (not causal), and
+``pos_encoding: relative`` is refused.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 from .decoding.ctc_greedy import compact_rows
 from .decoding.ctc_prefix_beam import tree_map
 from .frontend.features import extract_features
+from .models.rnn import zero_state
 from .train.ctc_task import CTCTaskConfig
 from .train.transducer_task import TransducerTaskConfig
 
@@ -60,7 +64,7 @@ class StreamState(NamedTuple):
     sample_carry: torch.Tensor  # [B, K] the last samples (hop-aligned)
     samples_seen: torch.Tensor  # [B] valid samples fed so far
     frame_base: torch.Tensor  # [B] global frame index of buffer frame 0
-    rnn_states: tuple  # per LSTM layer (h, c), each [B, H]
+    rnn_states: tuple  # per recurrent layer: LSTM (h, c), GRU (h,)
     prev_id: torch.Tensor  # [B] the previous frame's argmax (-1 before any frame)
     beam: Any = None  # the carried CTC prefix beam (BeamState) or transducer beam (dict)
     frame_carry: torch.Tensor | None = None  # [B, num_stack-1, D] right-aligned
@@ -101,9 +105,7 @@ def _validate(task) -> None:
         if enc.pos_encoding == "relative":
             raise ValueError("streaming supports pos_encoding absolute/rotary (the "
                              "relative scheme's rel-shift needs square score matrices)")
-    elif enc.encoder_type == "gru":
-        raise NotImplementedError("streaming a gru encoder waits for the gru port")
-    elif enc.encoder_type != "lstm":
+    elif enc.encoder_type not in ("lstm", "gru"):
         raise ValueError(f"streaming needs a causal encoder (lstm/gru, or conformer/"
                          f"transformer with left_context >= 0), got {enc.encoder_type!r}")
     if isinstance(task, CTCTaskConfig) and task.model.num_classes_sub is not None:
@@ -192,8 +194,8 @@ def build_streaming_fn(task, model, chunk_samples: int, beam_width: int = 1,
             conformer = conformer_cache_init(cfg.encoder.conformer_spec(), batch_size, device)
             rnn_states = ()
         else:
-            h = cfg.encoder.num_units
-            rnn_states = tuple((zeros(batch_size, h), zeros(batch_size, h))
+            spec = cfg.encoder.spec()
+            rnn_states = tuple(zero_state(spec, batch_size, device)
                                for _ in range(cfg.encoder.num_layers))
         beam = transducer = None
         if is_transducer:

@@ -21,8 +21,11 @@ generator, the LR controller, the step counter and the best dev error.
 The tasks' SpecAugment comes from the config (``ExperimentConfig.
 spec_augment``, the JAX loop's ``_specaug``) and draws from the dropout
 generator; a MoE encoder's load-balance term is logged beside the loss
-(``train/moe_aux``). Meshes and profiling raise ``NotImplementedError``;
-the loss-curve plots are left out.
+(``train/moe_aux``). ``profile_steps=(a, b)`` traces steps a to b - 1 with
+``torch.profiler`` (CPU, and CUDA on a card) into a Chrome trace under
+``<model_dir>/trace``. At the end ``fit`` writes the loss and error-rate
+curves (``utils/plot.py``; a failure, such as no matplotlib, is printed and
+ignored, as the JAX loop does). Meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -146,12 +149,37 @@ def build_task(exp: ExperimentConfig, tokenizer, feature_dim: int | None = None)
     return task, transducer_task if exp.model_type == "transducer" else ctc_task
 
 
+def start_profile(device: torch.device):
+    """A running ``torch.profiler.profile`` of the host and, on a card, the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, device: torch.device, path: Path) -> Path:
+    """Wait for the traced steps' device work, stop ``prof`` and write its
+    Chrome trace to ``path``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return path
+
+
 def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         profile_steps: tuple | None = None, device="cuda"):
-    """Train per the experiment config on ``device``; returns the summary dict."""
+    """Train per the experiment config on ``device``; returns the summary dict.
+
+    ``profile_steps`` ``(a, b)``: the profiler starts before global step a
+    and stops after step b - 1, as the JAX loop's trace (``bin/train
+    --profile`` traces steps 2-5)."""
     set_full_fp32()
-    if profile_steps:
-        raise NotImplementedError("profile_steps is not ported yet")
     exp.check_trainable()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -217,18 +245,27 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         best_dev = float(extra["best_dev"])
         start_epoch += 1
         print_fn(f"resuming from checkpoint epoch {start_epoch - 1}")
+    prof = None
+    trace = model_dir / "trace" / (f"train_steps_{profile_steps[0]}-{profile_steps[1]}.json"
+                                   if profile_steps else "")
     for epoch in range(start_epoch, exp.num_epoch):
         t0 = time.perf_counter()
         losses = []
         n_utts = 0
         nonfinite = torch.zeros((), dtype=torch.int64, device=device)
         for batch in prefetch(train_ds.batches(epoch)):
+            if profile_steps and step == profile_steps[0]:
+                prof = start_profile(device)
             eff_lr = lr * min(1.0, (step + 1) / exp.warmup_steps) if exp.warmup_steps else lr
             params, opt_state, aux = train_step(params, opt_state, to_device(batch, device),
                                                 eff_lr, generator,
                                                 **({"step": step} if is_att else {}))
             nonfinite += aux["nonfinite"]
             step += 1
+            if prof is not None and step == profile_steps[1]:
+                stop_profile(prof, device, trace)
+                prof = None
+                print_fn(f"profiler trace written to {trace}")
             n_utts += sum(1 for n in batch["names"] if n is not None)
             if step % log_every == 0:
                 losses.append(float(aux["loss"]))  # the only host sync of a step
@@ -278,7 +315,16 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
             "best_dev_error_rate": best_dev, "utts_per_sec": ups,
             "nonfinite_steps": n_nonfinite,
         }
+    if prof is not None:  # the run ended inside the traced steps
+        stop_profile(prof, device, trace)
+        print_fn(f"profiler trace written to {trace}")
     events.close()
     with open(model_dir / "summary.json", "w") as f:
         json.dump(summary, f, indent=2)
+    try:  # loss and error-rate curve PNGs, as the reference wrote into its model dir
+        from ..utils.plot import plot_training_curves
+
+        plot_training_curves(model_dir)
+    except Exception as e:  # plotting must never fail a finished run
+        print_fn(f"plotting failed: {e}")
     return summary

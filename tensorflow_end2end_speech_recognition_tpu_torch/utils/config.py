@@ -9,11 +9,11 @@ same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
 when ``use_specaugment`` is set. A key the JAX package knows but the port
-does not raises ``KeyError`` when it is read; a value the port has not
-ported (a mesh, an encoder type or cell option) raises
-``NotImplementedError`` where it would be used. ``corpus_tokenizer`` gives
-the units of a config's corpus: the word and BPE label types learn theirs
-from its text (a ``data_root`` corpus's train transcripts).
+does not raises ``KeyError`` when it is read; a mesh, which the port has
+not ported, raises ``NotImplementedError`` in ``check_trainable``.
+``corpus_tokenizer`` gives the units of a config's corpus: the word and BPE
+label types learn theirs from its text (a ``data_root`` corpus's train
+transcripts).
 ``yaml`` is imported only when a file is read: ``experiment_from_dict``
 builds a config in code where ``yaml`` is missing.
 """
@@ -254,7 +254,7 @@ class ExperimentConfig:
 
     def ctc_config(self, num_classes: int, num_classes_sub: int | None = None) -> CTCConfig:
         if self.model_type not in CTC_MODEL_TYPES:
-            raise NotImplementedError(f"model_type {self.model_type!r} is not a CTC model")
+            raise ValueError(f"model_type {self.model_type!r} is not a CTC model")
         return CTCConfig(encoder=self.encoder_config(), num_classes=num_classes,
                          bottleneck_dim=self.bottleneck_dim, num_classes_sub=num_classes_sub)
 

@@ -1,10 +1,12 @@
 """Edit distance with substitution / insertion / deletion counts.
 
-Counterpart of ``utils/edit_distance.py`` and of ``levenshtein_batch`` in
-``data/native.py`` of ``tensorflow_end2end_speech_recognition_tpu``, written
-in Python and numpy (the card machine has no ``Levenshtein`` package and the
-port loads no C++ library). The backtrace breaks ties as the reference does
-(diagonal, then deletion, then insertion), so the S/I/D split matches it.
+Counterpart of ``utils/edit_distance.py`` and of the Python fallback of
+``levenshtein_batch`` in ``data/native.py`` of
+``tensorflow_end2end_speech_recognition_tpu``, written in Python and numpy
+(the card machine has no ``Levenshtein`` package): the fallback of the
+port's ``data/native.levenshtein_batch``, which runs the C++ runtime where
+it builds. The backtrace breaks ties as the reference does (diagonal, then
+deletion, then insertion), so the S/I/D split matches it.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ Counterpart of ``eval_counts`` / ``rates_from_counts`` / ``evaluate_ctc`` in
 process: run the eval step batch by batch, map ids to the scoring units
 (TIMIT phones folded to 39; BPE units detokenized to words; word units as
 they are; otherwise the characters of the joined string, kana included),
-and accumulate edit counts; character models also count words. Only the
+and accumulate edit counts (the C++ runtime's ``levenshtein_batch``,
+``data/native.py``); character models also count words. Only the
 decoded ids, their lengths and the per-row loss leave the device, once per
 batch.
 """
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..data.dataset import to_device
 from ..data.tokenizers import PhoneTokenizer, Tokenizer
-from .edit_distance import levenshtein_batch
+from ..data.native import levenshtein_batch
 
 
 def scoring_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):

@@ -491,8 +491,8 @@ def test_attention_configs_match_jax_and_train(name):
     task = exp.att_task(28)
     assert task.model.is_joint == (name == "ls960_joint")
     assert task.label_smoothing == 0.05 and task.scheduled_sampling_ramp_max_step > 0
-    with pytest.raises(NotImplementedError, match="bgru"):
-        experiment_from_dict(dict(raw, encoder_type="bgru")).att_task(28)
+    bgru = experiment_from_dict(dict(raw, encoder_type="bgru")).att_task(28)  # the scan path
+    assert bgru.model.encoder.cell == "gru" and bgru.model.encoder.bidirectional
 
 
 def _tiny_joint(**kw):

@@ -303,7 +303,7 @@ def test_invalid_and_unported_specs_raise():
                               pos_encoding="rotary"), D_IN)
     with pytest.raises(ValueError, match="pos_encoding"):
         Encoder(EncoderConfig(encoder_type="transformer", num_units=8, pos_encoding="alibi"), 3)
-    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):  # no such mode
         Encoder(EncoderConfig(encoder_type="conformer", num_units=8, num_heads=2,
                               compute_dtype="float16"), D_IN)
     # bf16 (test_torch_bf16_models.py) builds, and its outputs stay float32

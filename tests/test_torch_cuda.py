@@ -1547,3 +1547,146 @@ def test_accumulated_step_on_card_equals_one_batch(dev):
     for k in p1:
         np.testing.assert_allclose(p4[k].cpu().numpy(), p1[k].cpu().numpy(), atol=2e-5,
                                    err_msg=k)
+
+
+# ---- the scan-path encoders, cnn_zhang and the tools ------------------------------
+
+ZOO_CASES = {
+    "bgru": dict(encoder_type="bgru"),
+    "gru": dict(encoder_type="gru"),
+    "blstm options": dict(encoder_type="blstm", use_peephole=True, clip_activation=0.5,
+                          num_proj=256),
+    "cnn_zhang": dict(encoder_type="cnn_zhang"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_CASES))
+def test_scan_path_and_cnn_models_on_card_match_cpu(dev, case):
+    """A CTC model at full width (512 units, depth cut to 2; cnn_zhang's
+    full stack) on 2 x 1 s of stacked 120-dim features, card against CPU:
+    logits within 1e-3, greedy ids equal, the CTC loss (one #5 call) within
+    1e-4 relative and every gradient within 1e-3 of its largest entry; no
+    LSTM walk launches."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
+        ctc_greedy_decode,
+    )
+
+    cfg = CTCConfig(encoder=EncoderConfig(num_units=512, num_layers=2, **ZOO_CASES[case]),
+                    num_classes=28)
+    cpu = CTCModel(cfg, 360, torch.Generator().manual_seed(0))
+    model = CTCModel(cfg, 360, torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.RandomState(8)
+    feats = torch.from_numpy(rng.randn(2, 34, 360).astype(np.float32))
+    lens = torch.tensor([34, 20])
+    labels = torch.tensor([[1, 2, 3, 4], [5, 6, -1, -1]])
+    label_len = torch.tensor([4, 2])
+    walks = (lstm_bidi.launches, lstm_bidi_bwd.launches, lstm_layer.launches,
+             lstm_layer_bwd.launches)
+    before = ctc_loss_fwd_bwd.launches
+    outs = []
+    for m, d in ((cpu, "cpu"), (model, dev)):
+        out = m(feats.to(d), lens.to(d))
+        loss = ctc_loss(out.logits, out.logit_len, labels.to(d), label_len.to(d),
+                        cfg.blank_id).sum()
+        loss.backward()
+        ids, n = ctc_greedy_decode(out.logits.detach(), out.logit_len, cfg.blank_id)
+        outs.append((out.logits.detach().cpu(), float(loss), ids.cpu(), n.cpu()))
+    torch.cuda.synchronize()
+    assert ctc_loss_fwd_bwd.launches == before + 1
+    assert (lstm_bidi.launches, lstm_bidi_bwd.launches, lstm_layer.launches,
+            lstm_layer_bwd.launches) == walks
+    (lc, loss_c, ic, nc), (lg, loss_g, ig, ng) = outs
+    torch.testing.assert_close(lg, lc, atol=1e-3, rtol=0)
+    assert torch.equal(ig, ic) and torch.equal(ng, nc)
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+        scale = float(q.grad.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-3 * scale, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("case", ["gru", "lstm options"])
+def test_scan_path_stream_on_card_matches_offline_and_cpu(dev, case):
+    """A causal GRU / option-LSTM CTC stream (2 x 256 units) on the card:
+    tokens equal the card's offline greedy decode and the CPU's stream; no
+    kernel #3 launch (the scan path)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch import streaming
+    from tensorflow_end2end_speech_recognition_tpu_torch.decoding.ctc_greedy import (
+        ctc_greedy_decode,
+    )
+    from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import (
+        device_pipeline,
+    )
+
+    kw = (dict(encoder_type="gru") if case == "gru" else
+          dict(encoder_type="lstm", use_peephole=True, clip_activation=0.5, num_proj=128))
+    task = ctc_task.CTCTaskConfig(
+        model=CTCConfig(encoder=EncoderConfig(num_units=256, num_layers=2, **kw),
+                        num_classes=6),
+        frontend=FrontendConfig(use_energy=False, add_deltas=False, cmvn="none"))
+    cpu = ctc_task.init_model(task, torch.Generator().manual_seed(0)).eval()
+    model = ctc_task.init_model(task, torch.Generator().manual_seed(0)).to(dev).eval()
+    chunk = 1600
+    rng = np.random.RandomState(9)
+    wav = (rng.randn(3, 4 * chunk) * 0.3).astype(np.float32)
+    lens = [4 * chunk, 3 * chunk, 2 * chunk - 700]
+    before = lstm_layer.launches
+    _, rows = _stream_rows(streaming.build_streaming_fn(task, model, chunk), wav, lens, chunk)
+    torch.cuda.synchronize()
+    assert lstm_layer.launches == before
+    with torch.no_grad():
+        feats, fl = device_pipeline(task, {"inputs": torch.from_numpy(wav).to(dev),
+                                           "input_len": torch.tensor(lens, device=dev)})
+        out = model(feats, fl)
+        ids, n = ctc_greedy_decode(out.logits, out.logit_len, task.model.blank_id)
+    assert rows == [ids[i, : n[i]].tolist() for i in range(3)] and any(rows)
+    assert _stream_rows(streaming.build_streaming_fn(task, cpu, chunk), wav, lens,
+                        chunk)[1] == rows
+
+
+def test_native_runtime_builds_with_the_host_compiler(dev):
+    """``data/native.py`` builds and loads on the card's machine (no quiet
+    fallback), and its batches and edit counts equal the numpy paths."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.data import native
+    from tensorflow_end2end_speech_recognition_tpu_torch.utils.edit_distance import (
+        levenshtein_batch,
+    )
+
+    native.build()
+    native.load_library()
+    assert native.have_native()
+    rng = np.random.RandomState(10)
+    utts = [rng.randn(n, 40).astype(np.float32) for n in (50, 1, 31)]
+    got, lens = native.batch_assemble(utts, 64)
+    want = np.zeros((3, 64, 40), np.float32)
+    for i, u in enumerate(utts):
+        want[i, : len(u)] = u
+    assert got.tobytes() == want.tobytes() and lens.tolist() == [50, 1, 31]
+    refs = [list(rng.randint(0, 9, n)) for n in (0, 5, 17)]
+    hyps = [list(rng.randint(0, 9, n)) for n in (3, 0, 12)]
+    np.testing.assert_array_equal(native.levenshtein_batch(refs, hyps),
+                                  levenshtein_batch(refs, hyps))
+
+
+def test_fit_profile_on_card_traces_cuda_kernels(dev, tmp_path):
+    """``fit(profile_steps=(1, 2))`` on the card: the Chrome trace holds the
+    card's kernel events."""
+    import json
+
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import fit
+    from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import (
+        experiment_from_dict,
+    )
+
+    exp = experiment_from_dict(dict(
+        model_type="ctc", label_type="character", input_size=40, use_energy=False,
+        use_delta=True, num_stack=3, num_skip=3, encoder_type="bgru", num_units=32,
+        num_layers=2, batch_size=4, num_epoch=1, toy_num_utts=16, toy_max_units=4))
+    lines = []
+    fit(exp, tmp_path, log_every=1, print_fn=lines.append, profile_steps=(1, 2), device="cuda")
+    trace = tmp_path / "trace" / "train_steps_1-2.json"
+    assert f"profiler trace written to {trace}" in lines
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)

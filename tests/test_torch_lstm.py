@@ -104,5 +104,14 @@ def test_input_checks_raise():
     ("encoder_type", "bgru"), ("compute_dtype", "float16"),
 ])
 def test_unported_encoder_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        Encoder(EncoderConfig(**{field: value}), input_dim=4)
+    """Every cell option and GRU is ported (the scan-path layers); only a
+    compute dtype that does not exist raises."""
+    cfg = EncoderConfig(**{field: value})
+    if field == "compute_dtype":
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            Encoder(cfg, input_dim=4)
+        return
+    enc = Encoder(cfg, input_dim=4)
+    assert not cfg.spec().on_kernels
+    assert type(enc.layers[0]).__name__ == "ScanBiRNN"
+    assert cfg.output_dim == 2 * (value if field == "num_proj" else cfg.num_units)

@@ -212,8 +212,11 @@ def test_lstm_encoder_matches_apply_encoder(train):
 
 
 def test_unported_unidirectional_types_raise():
-    with pytest.raises(NotImplementedError, match="gru"):
-        Encoder(EncoderConfig(encoder_type="gru", num_units=4, num_layers=1), 3)
+    gru = EncoderConfig(encoder_type="gru", num_units=4, num_layers=1)  # ported: the scan path
+    assert not gru.bidirectional and gru.cell == "gru" and gru.output_dim == 4
+    assert type(Encoder(gru, 3).layers[0]).__name__ == "ScanRNN"
+    with pytest.raises(ValueError, match="unknown encoder_type"):
+        Encoder(EncoderConfig(encoder_type="lstmx", num_units=4, num_layers=1), 3)
     for t in ("vgg_lstm", "multitask_lstm"):  # ported: one direction of H units
         cfg = EncoderConfig(encoder_type=t, num_units=4, num_layers=1)
         assert not cfg.bidirectional and cfg.output_dim == 4

@@ -53,7 +53,7 @@ from tensorflow_end2end_speech_recognition_tpu_torch.decoding.transducer_greedy 
 from tensorflow_end2end_speech_recognition_tpu_torch.frontend import features
 from tensorflow_end2end_speech_recognition_tpu_torch.frontend.features import FrontendConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models import lm
-from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig
+from tensorflow_end2end_speech_recognition_tpu_torch.models.ctc import CTCConfig, CTCModel
 from tensorflow_end2end_speech_recognition_tpu_torch.models.encoders import EncoderConfig
 from tensorflow_end2end_speech_recognition_tpu_torch.models.rnn import LSTM
 from tensorflow_end2end_speech_recognition_tpu_torch.models.transducer import TransducerConfig
@@ -510,11 +510,15 @@ def test_validate_errors_match_jax(case, match):
 
 
 def test_gru_streaming_waits_for_the_gru_port():
+    """GRU streams now (tests/test_torch_encoder_zoo.py holds it against JAX):
+    its layers carry (h,)."""
     task = ctc_task.CTCTaskConfig(
         model=CTCConfig(encoder=EncoderConfig(**dict(ENC, encoder_type="gru")), num_classes=C),
         frontend=FrontendConfig(**FRONTEND))
-    with pytest.raises(NotImplementedError, match="gru"):
-        streaming.build_streaming_fn(task, torch.nn.Linear(1, 1), CHUNK)
+    model = CTCModel(task.model, task.input_dim)
+    init_fn, _ = streaming.build_streaming_fn(task, model, CHUNK)
+    assert [tuple(x.shape for x in c) for c in init_fn(2).rnn_states] == [
+        ((2, ENC["num_units"]),)] * ENC["num_layers"]
     assert streaming.carry_samples(FrontendConfig()) == jstreaming.carry_samples(
         JFrontendConfig()) == 320
 

@@ -143,7 +143,7 @@ def test_experiment_config_rejects_unknown_and_unported():
             experiment_from_dict(raw).check_trainable()
     # on-disk corpora and gradient accumulation are ported
     experiment_from_dict({"grad_accum_steps": 2, "data_root": "/data"}).check_trainable()
-    with pytest.raises(NotImplementedError, match="model_type"):
+    with pytest.raises(ValueError, match="model_type"):
         experiment_from_dict({"model_type": "attention"}).ctc_config(28)
 
 
@@ -151,8 +151,8 @@ def test_fit_refuses_cuda_without_a_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         fit(experiment_from_dict(TINY), tmp_path)
-    with pytest.raises(NotImplementedError, match="profile"):
-        fit(experiment_from_dict(TINY), tmp_path, device="cpu", profile_steps=(2, 5))
+    with pytest.raises(RuntimeError, match="CUDA"):  # profiling is ported: the card still refused
+        fit(experiment_from_dict(TINY), tmp_path, profile_steps=(2, 5))
 
 
 def test_bin_train_end_to_end_and_resume(tmp_path):
