@@ -8,7 +8,8 @@ bfloat16``) with ``bench.py``'s headline step, of training from a
 prepared on-disk corpus with gradient accumulation, of exported artifacts
 (``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at bf16, and of
 the scan-path encoders (GRU, the LSTM options), ``cnn_zhang``, profiling
-and the C++ host runtime, on one NVIDIA GPU.
+and the C++ host runtime, and of data parallelism and ZeRO-3 across ranks,
+on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -365,7 +366,32 @@ Phases; any failure exits non-zero and prints no result line:
     ``batch_assemble`` and ``levenshtein_batch`` bit-equal to their numpy /
     Python fallbacks (a failed build fails the phase);
 67. plotting is not run (the card's machine has no matplotlib; the CPU tests
-    draw the PNGs).
+    draw the PNGs);
+68. data parallelism (``parallel/``), two ranks on the one card over gloo
+    (NCCL refuses two ranks on one GPU), spawned with the kernels already
+    built: ls100_ctc at full width, dropout off, one Adam step on B = 32 x
+    12 s, 16 rows per rank, against the one-process step on the same 32
+    rows (rank 0 computes it): loss within 1e-5, each gradient leaf within
+    ``DP_GRAD_RTOL`` (3e-4) of its largest entry, the weights within 1e-5 of the
+    initial ones less Adam's first update from the rank's moments
+    (``adam_first_weights``; Adam's first step amplifies a gradient near 0,
+    so the weights themselves are reported against one process), weights
+    bit-identical across ranks, exactly 5 #1, 5 #2 and 1 #5 per rank per
+    step; ms per step per rank (not a scaling number), the bytes all-reduced
+    per step and the all-reduce's ms; then a world of 1 over nccl in this
+    process, bit-equal to the one-process step; with two or more cards, a
+    world of min(cards, 4) over nccl, one card per rank;
+69. the same at ``fsdp: true`` (ZeRO-3): each rank holds half of every
+    divisible leaf and of its Adam moments (bytes beside DP's); after 2 Adam
+    steps the gathered weights equal phase 68's DP run of the same 2 steps
+    within 1e-6 of each leaf's largest entry; the all-gather's and
+    reduce-scatter's ms; the same launches per rank;
+70. ls960_joint at full width under DP (world 2), one Adam step against one
+    process as phase 68; then ``fit`` for one toy epoch of ls100_ctc with
+    ``num_devices: 2`` (#6 in each rank's dev eval): its dev error equals a
+    one-process ``fit`` of the same data, dropout off, its dev and train
+    losses within 1e-4 of that run's, and rank 0's checkpoint restored in
+    one process scores the same dev error and its dev loss within 1e-4.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -374,8 +400,9 @@ is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 which the port never calls; the calls of #5-#7, short beside their Python
 wrapper, are timed from CUDA-graph replays (#3 with a carried state too).
 Prints a JSON line of the kernels (and the prefix beam's, the conformers',
-the families', the streams' and the encoder zoo's numbers), the card's name and power limit,
-and as the last line
+the families', the streams', the encoder zoo's and phases 68-70's numbers;
+each kernel's ``launches_<path>`` counts include the ranks' paths, per
+rank), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -449,7 +476,11 @@ from tensorflow_end2end_speech_recognition_tpu_torch.train import (
     transducer_task,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.train.ctc_task import device_pipeline
-from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import build_task, fit
+from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import (
+    build_corpus_splits,
+    build_task,
+    fit,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import build_optimizer
 from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import (
     ExperimentConfig,
@@ -4953,6 +4984,470 @@ def run_encoder_zoo(args, dev, gpu: str, work: Path, t0: float) -> tuple:
     return counts, numbers
 
 
+# ---- phases 68-70: data parallelism and ZeRO-3 across ranks ----------------------
+
+DP_WORLD = 2  # two ranks on the one card over gloo: NCCL refuses two ranks on one GPU
+DP_RTOL = 1e-5  # DP vs one process: loss, each gradient and weight leaf, of its largest entry
+FSDP_RTOL = 1e-6  # gathered ZeRO-3 weights vs DP's after 2 steps, of each leaf's largest entry
+DP_SEEDS = (68, 69)  # the two global batches of B = 32 x 12 s
+DP_WANT = dict(NONE_LAUNCHED, lstm_bidi_fwd=LAYERS, lstm_bidi_bwd=LAYERS, ctc_loss=1)
+DP_FIT_LAUNCHED = ("lstm_bidi_fwd", "lstm_bidi_bwd", "ctc_loss", "ctc_loss_fwd_only")
+COLLECTIVE_REPS = 3
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# DP against one process on the same rows: the loss within DP_RTOL; each
+# gradient leaf within DP_GRAD_RTOL of its largest entry. Two ranks' 16-row
+# products (cuBLAS picks its kernels by shape) sum in other orders than one
+# 32-row product, and the difference is carried back through 400 recurrent
+# steps and 5 layers, as between the card and the CPU: up to 1.1e-4 of a
+# leaf's largest entry on an NVIDIA H100 80GB HBM3, 700 W, so the 1e-5 of
+# DP_RTOL cannot hold for gradients; DP_GRAD_RTOL is about 3 x that reading.
+# Adam's first step moves each weight by lr x g / (|g| + eps), which turns a
+# gradient entry near 0 into +-lr whichever way rounding tips it (a
+# zero-initialised bias entry moved by 1.28 of its leaf's largest entry on
+# the same card), and an entry within a few hundred eps of 0 by a share of lr
+# that follows its rounding. So the weights after the step are held to the
+# step's own gradient instead: each rank's weights within DP_RTOL of their
+# leaf's largest entry of the initial weights less Adam's first update from
+# the moments the rank holds (``adam_first_weights``), and the moments'
+# gradient to the one-process one as above. Every leaf is held to its own
+# largest entry, ls960_joint's attention-decoder leaves too, whose gradients
+# are under 1e-3 of the encoder's largest entry at these seeded weights
+DP_GRAD_RTOL = 3e-4
+FIT_RTOL = 1e-4  # phase 70's fit: dev and train losses of world 2 vs world 1
+DP_LR = 1e-3
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """``{name: max |got - want| / the leaf's largest entry}`` over matching
+    dicts of tensors (a leaf that is zero in ``want``: of the largest entry
+    of all)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k].to(w.device) - w).abs().max()) / (float(w.abs().max()) or top)
+            for k, w in want.items()}
+
+
+def adam_first_weights(params: dict, state: dict) -> dict:
+    """The weights after Adam's first step at ``DP_LR`` from ``params`` with
+    the moments in ``state`` (``train/optimizer``'s formula: bias-corrected
+    mu / (sqrt(bias-corrected nu) + eps))."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import optimizer as optim
+
+    count = state["count"].to(torch.float32)
+    c1, c2 = 1 - optim.ADAM_B1 ** count, 1 - optim.ADAM_B2 ** count
+    return {k: p - DP_LR * ((state["mu"][k] / c1) / (torch.sqrt(state["nu"][k] / c2)
+                                                      + optim.ADAM_EPS))
+            for k, p in params.items()}
+
+
+def weights_off(got: dict, want: dict) -> int:
+    """How many weights differ by more than DP_RTOL of their leaf's largest entry."""
+    return sum(int(((got[k] - w).abs() > DP_RTOL * float(w.abs().max())).sum())
+               for k, w in want.items())
+
+
+def worst(errs: dict) -> tuple:
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def dp_task(name: str, task_mod, dev, seed: int = 0):
+    """(task with dropout off, its seeded weights on ``dev``): phase 68's
+    ls100_ctc or phase 70's ls960_joint."""
+    if name == "ls100_ctc":
+        task = experiment_from_dict(dict(LS100_CTC, dropout=1.0)).ctc_task(len(CHAR_UNITS))
+    else:
+        task = ls960_joint_task(dropout=1.0)
+    params = task_mod.init_params(task, torch.Generator().manual_seed(seed))
+    return task, {k: v.to(dev) for k, v in params.items()}
+
+
+def one_process_step(task, task_mod, params: dict, batch: dict, dev) -> dict:
+    """One Adam step of the one-process train step on the whole global batch:
+    its loss, the clipped gradient (Adam's first moment / (1 - b1)) and the
+    weights after it, on the card."""
+    opt = build_optimizer("adam", 5.0)
+    step = task_mod.make_train_step(task, opt)
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    new, state, aux = step(params, opt.init(params), tb, DP_LR)
+    return {"loss": float(aux["loss"]), "grad": {k: v / (1 - 0.9) for k, v in state["mu"].items()},
+            "params": new, "state": state, "nonfinite": bool(aux["nonfinite"])}
+
+
+def timed_step(step, params, state, rows: dict, mesh, want: dict | None) -> tuple:
+    """One train step on this rank's rows between barriers: (params, state,
+    aux, ms, launch counts); raise unless exactly ``want`` launched."""
+    sync(mesh.device)
+    torch.distributed.barrier()
+    reset_counts()
+    t = time.perf_counter()
+    params, state, aux = step(params, state, rows, DP_LR)
+    sync(mesh.device)
+    ms = (time.perf_counter() - t) * 1e3
+    counts = read_counts()
+    if want is not None and counts != want:
+        raise RuntimeError(f"rank {mesh.rank}: one step launched {counts}; expected {want}")
+    if bool(aux["nonfinite"]):
+        raise RuntimeError(f"rank {mesh.rank}: the step's loss is not finite")
+    return params, state, aux, ms, counts
+
+
+def same_on_ranks(mesh, tree: dict) -> bool:
+    """Whether every rank holds rank 0's tensors bit for bit."""
+    flat = torch.cat([v.detach().reshape(-1).to(torch.float32) for v in tree.values()])
+    mine = flat.clone()
+    torch.distributed.broadcast(flat, 0)
+    same = torch.tensor([float(torch.equal(flat, mine))], device=flat.device)
+    torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+    return bool(same.item() == 1.0)
+
+
+def collective_ms(fn, dev) -> float:
+    """Mean wall ms of ``fn`` (a collective) between barriers, synchronized."""
+    fn()
+    times = []
+    for _ in range(COLLECTIVE_REPS):
+        sync(dev)
+        torch.distributed.barrier()
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+    return sum(times) / len(times)
+
+
+def held_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(held_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def dp_against_one_process(name: str, task_mod, mesh, fsdp: bool = False,
+                           steps: int = 1) -> dict:
+    """``steps`` DP (or, ``fsdp``, ZeRO-3) Adam steps of ``name`` at full width
+    on this rank's rows of the global batches ``DP_SEEDS``; rank 0 holds the
+    first against the one-process step on the whole batch (loss, every
+    gradient leaf, every weight leaf within ``DP_RTOL`` of its largest entry).
+    Every step launches exactly ``DP_WANT``. Returns the numbers and, for the
+    caller, the weights held (``"params"``)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
+        fsdp_partition_specs, setup_data_parallel, setup_fsdp, shard_batch)
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
+        gather_params, reduce_scatter_grads)
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.mesh import all_reduce_flat
+
+    dev = mesh.device
+    task, params = dp_task(name, task_mod, dev)
+    batches = [train_batch(B_TRAIN, 12.0, seed=s, max_labels=U) for s in DP_SEEDS[:steps]]
+    ref = None
+    if mesh.rank == 0 and not fsdp:
+        ref = one_process_step(task, task_mod, params, batches[0], dev)
+    opt = build_optimizer("adam", 5.0)
+    specs = fsdp_partition_specs(params, mesh.size) if fsdp else None
+    setup = setup_fsdp if fsdp else setup_data_parallel
+    held, state, _ = setup(mesh, params, opt.init(params))
+    step = task_mod.make_train_step(task, opt, mesh=mesh, specs=specs)
+    out = {"rank": mesh.rank, "rows": B_TRAIN // mesh.size, "ms": [], "launches": [],
+           "resident_bytes": held_bytes(held) + held_bytes(state),
+           "whole_bytes": 3 * held_bytes(params)}
+    for i, batch in enumerate(batches):
+        held, state, aux, ms, counts = timed_step(step, held, state, shard_batch(mesh, batch),
+                                                  mesh, DP_WANT)
+        out["ms"].append(ms)
+        out["launches"].append(counts)
+        if i == 0:
+            out["loss"] = float(aux["loss"])
+            if ref is not None:
+                grad = {k: v / (1 - 0.9) for k, v in state["mu"].items()}
+                g_errs = leaf_errs(grad, ref["grad"])
+                w_errs = leaf_errs(held, ref["params"])
+                own = worst(leaf_errs(held, adam_first_weights(params, state)))
+                off = weights_off(held, ref["params"])
+                loss_err = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+                top = lambda e: dict(sorted(e.items(), key=lambda kv: -kv[1])[:4])  # noqa: E731
+                out.update(one_process_loss=ref["loss"], loss_rel_err=loss_err,
+                           grad_rel_err=top(g_errs), weight_rel_err=top(w_errs),
+                           weights_off=off, weights_vs_own_step=own,
+                           weights_total=sum(v.numel() for v in held.values()))
+                if ref["nonfinite"] or not (loss_err <= DP_RTOL
+                                            and max(g_errs.values()) <= DP_GRAD_RTOL
+                                            and own[1] <= DP_RTOL):
+                    raise RuntimeError(f"{name} DP step disagrees with one process: loss "
+                                       f"{loss_err:.3e} (tolerance {DP_RTOL:g}), gradients "
+                                       f"{top(g_errs)} (tolerance {DP_GRAD_RTOL:g}), "
+                                       f"weights against the "
+                                       f"rank's own Adam step {own} (tolerance {DP_RTOL:g})")
+                ref = None
+    if not fsdp:
+        out["replicas_bit_identical"] = same_on_ranks(mesh, held)
+        if not out["replicas_bit_identical"]:
+            raise RuntimeError(f"{name}: DP weights differ between the ranks")
+    # the step's collectives, timed alone on buffers of their sizes
+    whole = [k for k in held if specs is None or specs[k] is None]
+    flat = [torch.zeros_like(held[k]) for k in whole] + [torch.zeros(1 + len(aux), device=dev)]
+    out["all_reduce_bytes"] = sum(held_bytes(v) for v in flat)
+    out["all_reduce_ms"] = collective_ms(lambda: all_reduce_flat(mesh, flat), dev)
+    if fsdp:
+        grads = {k: torch.zeros(v.shape, device=dev) for k, v in params.items()}
+        out["all_gather_bytes"] = sum(held_bytes(params[k]) for k in held if k not in whole)
+        out["all_gather_ms"] = collective_ms(lambda: gather_params(mesh, held, specs), dev)
+        out["reduce_scatter_ms"] = collective_ms(
+            lambda: reduce_scatter_grads(mesh, grads, specs), dev)
+        out["sharded_leaves"] = len(held) - len(whole)
+        out["leaves"] = len(held)
+        out["params"] = gather_params(mesh, held, specs)
+    else:
+        out["params"] = held
+    return out
+
+
+def dp_fit(mesh, model_dir: Path) -> dict:
+    """Phase 70's ``fit``: one toy epoch of ls100_ctc with ``num_devices``
+    the world's size, dropout off; this rank's launch counts (#6 in its dev
+    eval) and the summary."""
+    exp = experiment_from_dict(dict(LS100_CTC, num_devices=mesh.size, dropout=1.0,
+                                    num_epoch=1))
+    reset_counts()
+    t = time.perf_counter()
+    summary = fit(exp, model_dir, log_every=1, print_fn=lambda *a: None, device=mesh.device)
+    sync(mesh.device)
+    counts = read_counts()
+    launched = DP_FIT_LAUNCHED
+    if any(counts[k] < 1 for k in launched) or any(counts[k] for k in COUNTERS
+                                                   if k not in launched):
+        raise RuntimeError(f"rank {mesh.rank}: fit launched {counts}; expected {launched}")
+    return {"summary": summary, "launches": counts, "wall_s": time.perf_counter() - t}
+
+
+def dp_rank(rank: int, world: int, backend: str, store: str, out: str, jobs: tuple,
+            device: str, overrides: dict) -> None:
+    """One rank of phases 68-70 (a spawned process): the group over
+    ``backend`` from a ``FileStore``, this rank's card (``cuda:0`` for every
+    rank over gloo, ``cuda:rank`` over nccl; ``device`` "cpu" for a
+    rehearsal), then ``jobs``; rank r writes ``<out>/rank<r>.pt``.
+    ``overrides`` replaces module constants in the rank (a rehearsal on the
+    CPU narrows the configs there)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import make_mesh
+
+    globals().update(overrides)
+    set_full_fp32()
+    if device == "cuda":
+        build.load_library()
+        device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.distributed.init_process_group(backend, store=torch.distributed.FileStore(store, world),
+                                         rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(world, device=device)
+        res = {}
+        if "ls100_ctc" in jobs:
+            res["dp"] = dp_against_one_process("ls100_ctc", ctc_task, mesh, steps=2)
+        if "fsdp" in jobs:
+            res["fsdp"] = dp_against_one_process("ls100_ctc", ctc_task, mesh, fsdp=True, steps=2)
+            errs = leaf_errs(res["fsdp"].pop("params"), res["dp"]["params"])
+            res["fsdp"]["vs_dp_leaf"], res["fsdp"]["vs_dp_rel_err"] = worst(errs)
+            if not res["fsdp"]["vs_dp_rel_err"] <= FSDP_RTOL:
+                raise RuntimeError("ZeRO-3 weights after 2 steps differ from DP's: "
+                                   f"{res['fsdp']['vs_dp_leaf']} "
+                                   f"{res['fsdp']['vs_dp_rel_err']:.3e}")
+        res.get("dp", {}).pop("params", None)
+        if "ls960_joint" in jobs:
+            res["joint"] = dp_against_one_process("ls960_joint", att_task, mesh, steps=2)
+            res["joint"].pop("params")
+        if "fit" in jobs:
+            res["fit"] = dp_fit(mesh, Path(out) / "dp_fit")
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, work: Path, jobs: tuple, device: str = "cuda",
+                overrides: dict | None = None) -> list:
+    """Run ``dp_rank`` in ``world`` spawned processes; every rank's results."""
+    import torch.multiprocessing as mp
+
+    out = work / f"dp_{backend}_{world}"
+    out.mkdir(parents=True, exist_ok=True)
+    mp.start_processes(dp_rank, args=(world, backend, str(out / "store"), str(out), jobs,
+                                      device, overrides or {}),
+                       nprocs=world, start_method="spawn")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def world_one_nccl(dev, gpu: str, work: Path) -> dict:
+    """Phase 68's world of 1 over nccl, in this process: the DP step built
+    with the mesh equals the one-process step bit for bit (loss, weights,
+    Adam state) and launches exactly ``DP_WANT``."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import make_mesh
+
+    torch.distributed.init_process_group(
+        "nccl", store=torch.distributed.FileStore(str(work / "nccl_store"), 1), rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh(1, device=dev)
+        task, params = dp_task("ls100_ctc", ctc_task, dev)
+        batch = train_batch(B_TRAIN, 12.0, seed=DP_SEEDS[0], max_labels=U)
+        ref = one_process_step(task, ctc_task, params, batch, dev)
+        opt = build_optimizer("adam", 5.0)
+        step = ctc_task.make_train_step(task, opt, mesh=mesh)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        new, state, aux, ms, counts = timed_step(step, params, opt.init(params), tb, mesh,
+                                                 DP_WANT)
+        equal = (float(aux["loss"]) == ref["loss"]
+                 and all(torch.equal(new[k], ref["params"][k]) for k in new)
+                 and all(torch.equal(state[m][k], ref["state"][m][k])
+                         for m in ("mu", "nu") for k in new))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 68 ls100_ctc DP world 1 over nccl: step {ms:.3f} ms, loss {ref['loss']:.4f}, "
+          f"bit-equal to the one-process step (loss, weights, Adam state): {equal}, launches "
+          f"{launched(counts)}  [{gpu}]", flush=True)
+    if not equal:
+        raise RuntimeError("the world-1 nccl step differs from the one-process step")
+    return {"ms": ms, "bit_equal": equal, "launches": counts}
+
+
+def launched(counts: dict) -> dict:
+    """The kernels that launched, with their counts."""
+    return {k: n for k, n in counts.items() if n}
+
+
+def print_dp(what: str, r: dict, gpu: str, shared: bool = True) -> None:
+    """One rank's phase line; ``shared``: the ranks share one card."""
+    ms = ", ".join(f"{x:.3f}" for x in r["ms"])
+    line = (f"phase {what} rank {r['rank']} ({r['rows']} rows of {B_TRAIN} x 12 s): steps "
+            f"{ms} ms (the first with the rank's start-up; "
+            + ("the ranks share one card: not a scaling number" if shared
+               else "one card per rank") + "), loss "
+            f"{r['loss']:.4f}, resident params + Adam {r['resident_bytes'] / 2**20:.1f} MiB "
+            f"(whole {r['whole_bytes'] / 2**20:.1f} MiB), launches per step "
+            f"{[launched(c) for c in r['launches']]}")
+    if "loss_rel_err" in r:
+        errs = lambda e: ", ".join(f"{k} {x:.2e}" for k, x in e.items())  # noqa: E731
+        line += (f"; vs one process: loss {r['loss_rel_err']:.2e} (tolerance {DP_RTOL:g}); "
+                 f"worst gradient leaves, of their max: {errs(r['grad_rel_err'])} "
+                 f"(tolerance {DP_GRAD_RTOL:g}); worst weight leaves after the Adam step: "
+                 f"{errs(r['weight_rel_err'])}, {r['weights_off']} of {r['weights_total']} "
+                 f"weights off by more than {DP_RTOL:g} of their leaf's max; weights against "
+                 f"the initial ones less Adam's first update from the rank's moments: worst "
+                 f"{r['weights_vs_own_step'][0]} {r['weights_vs_own_step'][1]:.2e} of max "
+                 f"(tolerance {DP_RTOL:g})")
+    line += (f"; all-reduce of {r['all_reduce_bytes']:,} bytes per step in "
+             f"{r['all_reduce_ms']:.3f} ms")
+    if "replicas_bit_identical" in r:
+        line += f"; replicas bit-identical {r['replicas_bit_identical']}"
+    if "all_gather_ms" in r:
+        line += (f"; {r['sharded_leaves']} of {r['leaves']} leaves sharded; all-gather and "
+                 f"reduce-scatter of {r['all_gather_bytes']:,} bytes in "
+                 f"{r['all_gather_ms']:.3f} / {r['reduce_scatter_ms']:.3f} ms"
+                 f"; gathered weights vs DP after 2 steps {r['vs_dp_rel_err']:.2e} of max "
+                 f"({r['vs_dp_leaf']}; tolerance {FSDP_RTOL:g})")
+    print(line + f"  [{gpu}]", flush=True)
+
+
+def across_cards(dev, gpu: str, work: Path) -> list | None:
+    """Phase 68 over nccl with one card per rank, world min(cards, 4), when the
+    machine shows two or more cards: each rank's numbers, rank 0's against
+    the one-process step on card 0."""
+    many = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if many < 2:
+        print(f"phase 68 across cards over nccl: the machine shows {many} card; not run "
+              "(not a pass)", flush=True)
+        return None
+    k = min(many, 4)
+    across = [r["dp"] for r in spawn_ranks(k, "nccl", work, ("ls100_ctc",))]
+    for r in across:
+        print_dp(f"68 ls100_ctc DP world {k} over nccl, one card per rank", r, gpu,
+                 shared=False)
+    return across
+
+
+def run_data_parallel(dev, gpu: str, work: Path, t0: float,
+                      overrides: dict | None = None) -> tuple:
+    """Phases 68-70: ls100_ctc under DP (world 2 on the one card over gloo,
+    then world 1 over nccl), under ZeRO-3, ls960_joint under DP, and ``fit``
+    with ``num_devices: 2`` against one process. ``overrides``: module
+    constants for the ranks (``dp_rank``). Returns (launch counts by path,
+    the numbers)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+    t = time.perf_counter()
+    ranks = spawn_ranks(DP_WORLD, "gloo", work, ("ls100_ctc", "fsdp", "ls960_joint", "fit"),
+                        dev.type, overrides)
+    spawn_s = time.perf_counter() - t
+    for key, what in (("dp", "68 ls100_ctc DP world 2 (gloo)"),
+                      ("fsdp", "69 ls100_ctc ZeRO-3 world 2 (gloo)"),
+                      ("joint", "70 ls960_joint DP world 2 (gloo)")):
+        for r in ranks:
+            print_dp(what, r[key], gpu)
+    clock(f"phases 68-70 ranks done ({spawn_s:.1f} s with the spawn)", t0)
+    nccl1 = world_one_nccl(dev, gpu, work)
+    # fit: world 2 against one process, and the rank-0 checkpoint in one process
+    fit2 = ranks[0]["fit"]
+    one_dir = work / "dp_fit_one"
+    exp1 = experiment_from_dict(dict(LS100_CTC, dropout=1.0, num_epoch=1))
+    one = fit(exp1, one_dir, log_every=1, print_fn=lambda *a: None, device=dev)
+    _, state = CheckpointManager(work / f"dp_gloo_{DP_WORLD}" / "dp_fit" / "checkpoints"
+                                 ).restore({"params": None})
+    task = experiment_from_dict(dict(LS100_CTC, dropout=1.0)).ctc_task(len(CHAR_UNITS))
+    model = ctc_task.init_model(task)
+    model.load_state_dict(state["params"])  # strict: whole tensors under the one-device names
+    train_utts, dev_utts, _, tok = build_corpus_splits(exp1, need=("dev",))
+    from tensorflow_end2end_speech_recognition_tpu_torch.data.dataset import Dataset
+    from tensorflow_end2end_speech_recognition_tpu_torch.utils.metrics import evaluate_ctc
+
+    restored = evaluate_ctc(ctc_task.make_eval_step(task),
+                            {k: v.to(dev) for k, v in state["params"].items()},
+                            Dataset(dev_utts, exp1.eval_batch_size or exp1.batch_size,
+                                    sort_utt=True), tok, exp1.label_type, 0, dev)
+    s2 = fit2["summary"]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    errs = {"dev_loss": rel(s2["dev_loss"], one["dev_loss"]),
+            "train_loss": rel(s2["train_loss"], one["train_loss"]),
+            "restored_dev_loss": rel(restored["loss"], s2["dev_loss"])}
+    print(f"phase 70 fit ls100_ctc 1 toy epoch, num_devices 2 (gloo, one card): "
+          f"{fit2['wall_s']:.1f} s wall, {s2['steps']} steps, dev error "
+          f"{s2['dev_error_rate']:.4f} (world 1: {one['dev_error_rate']:.4f}), dev loss "
+          f"{s2['dev_loss']!r} (world 1: {one['dev_loss']!r}), train loss "
+          f"{s2['train_loss']!r} (world 1: {one['train_loss']!r}); rank launches "
+          f"{[launched(r['fit']['launches']) for r in ranks]}; rank 0's checkpoint restored "
+          f"in one process: dev error {restored['error_rate']:.4f}, dev loss "
+          f"{restored['loss']!r}; relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tolerance {FIT_RTOL:g})  [{gpu}]", flush=True)
+    if not (s2["dev_error_rate"] == one["dev_error_rate"] == restored["error_rate"]
+            and s2["steps"] == one["steps"] and max(errs.values()) <= FIT_RTOL):
+        raise RuntimeError(f"fit with num_devices 2 {s2} differs from one process {one} or "
+                           f"its restored checkpoint {restored}: {errs}")
+    across = across_cards(dev, gpu, work)
+    clock("phases 68-70 (data parallelism, ZeRO-3) done", t0)
+    counts = {}
+    for r in ranks:
+        counts[f"dp_ls100_ctc_rank{r['dp']['rank']}"] = r["dp"]["launches"][0]
+        counts[f"fsdp_ls100_ctc_rank{r['fsdp']['rank']}"] = r["fsdp"]["launches"][0]
+        counts[f"dp_ls960_joint_rank{r['joint']['rank']}"] = r["joint"]["launches"][0]
+        counts[f"dp_fit_rank{r['dp']['rank']}"] = r["fit"]["launches"]
+    strip = lambda r: {k: v for k, v in r.items() if k != "launches"}  # noqa: E731
+    numbers = {"world": DP_WORLD, "backend": "gloo", "spawn_s": spawn_s,
+               "dp": [strip(r["dp"]) for r in ranks], "fsdp": [strip(r["fsdp"]) for r in ranks],
+               "ls960_joint": [strip(r["joint"]) for r in ranks],
+               "fit": {"world2": s2, "world1": one, "restored_dev_error": restored["error_rate"],
+                       "restored_dev_loss": restored["loss"], "rel_errs": errs,
+                       "wall_s": fit2["wall_s"]},
+               "nccl_world1": nccl1,
+               "nccl_across_cards": [strip(r) for r in across] if across else None}
+    return counts, numbers
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5095,6 +5590,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
     counts.update(stream_bf16_counts)
     zoo_counts, zoo = run_encoder_zoo(args, dev, gpu, work, t0)
     counts.update(zoo_counts)
+    dp_counts, data_parallel = run_data_parallel(dev, gpu, work, t0)
+    counts.update(dp_counts)
     # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
     head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
     cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
@@ -5245,7 +5742,7 @@ def run(args, dev, gpu: str, work: Path) -> int:
                       "bf16": dict(bf16_numbers, f1=f1),
                       "attention_bf16": att_bf16_numbers, "data_root": data_root,
                       "export": exported, "stream_bf16": stream_bf16,
-                      "encoder_zoo": zoo}), flush=True)
+                      "encoder_zoo": zoo, "data_parallel": data_parallel}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

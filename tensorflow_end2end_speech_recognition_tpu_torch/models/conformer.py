@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bf16 as bf16_ops
+from ..parallel.mesh import batch_sum
 from .rnn import dropout
 
 MASK_FILL = -1e30
@@ -166,7 +167,11 @@ class MoEFeedForward(nn.Module):
         """(out [B, T, d], aux loss scalar). Gates keep every expert whose
         probability is at least the k-th largest (ties keep more than k),
         renormalised; the aux loss is E · Σ_e fraction_e · mean_prob_e over
-        the valid frames (1.0 = balanced), with fractions from the argmax."""
+        the valid frames (1.0 = balanced), with fractions from the argmax.
+        Inside a data-parallel train step (``parallel.mesh.global_batch``)
+        the frames are the global batch's: the fractions and the frame count
+        are summed over the ranks, and the aux loss is this rank's share of
+        the global term (``train/accum.weighted_value_and_grad``)."""
         n = self.spec.moe_experts
         k = min(self.spec.moe_top_k, n)
         y = self.ln(x)
@@ -190,9 +195,12 @@ class MoEFeedForward(nn.Module):
         o = o + w_out.b[:, None, None, :]
         out = torch.einsum("ebtd,bte->btd", o, gates)
         m = mask.to(probs.dtype)
-        denom = m.sum().clamp_min(1.0)
         one_hot = F.one_hot(probs.argmax(dim=-1), n).to(probs.dtype)
-        frac = (one_hot * m[..., None]).sum((0, 1)) / denom
+        # inside a data-parallel train step the counts are the global batch's,
+        # and this rank's probabilities give its share of the global mean
+        counts, frames = batch_sum((one_hot * m[..., None]).sum((0, 1)), m.sum())
+        denom = frames.clamp_min(1.0)
+        frac = counts / denom
         mean_p = (probs * m[..., None]).sum((0, 1)) / denom
         return out, n * (frac * mean_p).sum()
 

@@ -188,11 +188,13 @@ def forward_loss(params: dict, task: AttTaskConfig, batch: dict, train: bool,
     return loss, aux
 
 
-def make_train_step(task: AttTaskConfig, optimizer, grad_accum: int = 1):
+def make_train_step(task: AttTaskConfig, optimizer, grad_accum: int = 1, mesh=None,
+                    specs: dict | None = None):
     """``(params, opt_state, batch, lr, generator, step=0) -> (params,
     opt_state, aux)``: ``guarded_train_step`` around ``forward_loss``, with
-    the global ``step`` for the schedules."""
-    return guarded_train_step(forward_loss, task, optimizer, grad_accum)
+    the global ``step`` for the schedules (data parallel over ``mesh``,
+    ZeRO-3 with ``specs``)."""
+    return guarded_train_step(forward_loss, task, optimizer, grad_accum, mesh, specs)
 
 
 def make_eval_step(task: AttTaskConfig):

@@ -9,6 +9,13 @@ checkpoint is one file per epoch holding named items (``params`` apart from
 so a consumer reads only what it needs and a resumed run continues exactly.
 The newest checkpoint and the ``max_to_keep`` with the lowest dev error are
 kept; the others are deleted after each save. Tensors are stored on the CPU.
+
+Over data-parallel ranks (``mesh``, ``parallel/mesh.py``) every rank calls
+``save`` with the same whole state (under FSDP, gathered:
+``parallel/fsdp.gather_tree``), rank 0 alone writes it, and a barrier
+holds the ranks until the file is there; every rank restores the whole
+state and re-places it (``setup_data_parallel`` / ``setup_fsdp``), so a
+checkpoint keeps the one-device layout and resumes at any world size.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import os
 from pathlib import Path
 
 import torch
+import torch.distributed
 
 
 def tree_to(tree, device):
@@ -30,10 +38,12 @@ def tree_to(tree, device):
 
 
 class CheckpointManager:
-    def __init__(self, directory, max_to_keep: int = 3):
+    def __init__(self, directory, max_to_keep: int = 3, mesh=None):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_lead
         self._index_path = self.directory / "index.json"
         self._metrics = {}  # epoch -> dev error rate
         if self._index_path.exists():
@@ -45,18 +55,23 @@ class CheckpointManager:
 
     def save(self, epoch: int, state: dict, dev_error_rate: float) -> None:
         """``state`` maps item names (``params``, ``extra``) to nested dicts."""
-        tmp = self._path(epoch).with_suffix(".tmp")
-        torch.save(tree_to(state, "cpu"), tmp)
-        os.replace(tmp, self._path(epoch))
+        if self.writes:
+            tmp = self._path(epoch).with_suffix(".tmp")
+            torch.save(tree_to(state, "cpu"), tmp)
+            os.replace(tmp, self._path(epoch))
         self._metrics[epoch] = float(dev_error_rate)
         best = sorted(self._metrics, key=lambda e: (self._metrics[e], e))[: self.max_to_keep]
         keep = set(best) | {max(self._metrics)}
         for e in sorted(set(self._metrics) - keep):
-            self._path(e).unlink(missing_ok=True)
+            if self.writes:
+                self._path(e).unlink(missing_ok=True)
             del self._metrics[e]
-        tmp = self._index_path.with_suffix(".tmp")
-        tmp.write_text(json.dumps({str(k): v for k, v in sorted(self._metrics.items())}))
-        os.replace(tmp, self._index_path)
+        if self.writes:
+            tmp = self._index_path.with_suffix(".tmp")
+            tmp.write_text(json.dumps({str(k): v for k, v in sorted(self._metrics.items())}))
+            os.replace(tmp, self._index_path)
+        if self.mesh is not None and self.mesh.group is not None:
+            torch.distributed.barrier(group=self.mesh.group)  # the file is there for every rank
 
     def restore(self, state_like: dict, epoch: int | None = None):
         """``(epoch, {item: value})`` of the best (or the given) epoch; only the

@@ -17,7 +17,9 @@ step decodes with the CTC prefix beam, with an RNN-LM fused when one is
 given. A batch with per-speaker CMVN rows (``cmvn_mean`` /
 ``cmvn_inv_std``) is normalized with them before stacking; a train step
 with ``grad_accum`` above 1 takes its loss and gradients over that many
-strided microbatches (``train/accum.py``) before its one update.
+strided microbatches (``train/accum.py``) before its one update. Built
+with a ``mesh`` the train step is one data-parallel step over the ranks
+(with ``specs``, ZeRO-3; ``guarded_train_step``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
 from ..ops.ctc import ctc_loss
 from ..ops.losses import batch_mean, l2_weight_decay
-from .accum import accum_value_and_grad
-from .optimizer import apply_updates, tree_where
+from ..parallel.fsdp import gather_params, reduce_scatter_grads
+from ..parallel.mesh import LOCAL, all_reduce_flat, global_batch
+from .accum import microbatch_weights, weighted_value_and_grad
+from .optimizer import apply_updates, global_norm, tree_where
 
 
 class CTCTaskConfig(NamedTuple):
@@ -161,49 +165,74 @@ def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
     return loss, aux
 
 
-def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1):
+def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, mesh=None,
+                       specs: dict | None = None):
     """``(params, opt_state, batch, lr, generator, **kw) -> (params, opt_state,
     aux)`` around ``forward_loss_fn(params, task, batch, train, generator,
     **kw)`` (the attention step passes the global ``step``).
 
-    Loss and gradient (autograd through the kernels; with ``grad_accum``
-    above 1 the weighted mean over that many strided microbatches,
-    ``accum_value_and_grad``), the optimizer's clip and update, then the
-    guard of the JAX step: unless the loss is finite and below 1e20 (an
-    impossible alignment gives about 1e30), both the parameters and the
-    optimizer state keep their old values and ``aux["nonfinite"]`` is true.
-    Under accumulation one non-finite microbatch makes the combined loss
-    non-finite and so rejects the whole update. The guard is a
-    ``torch.where`` on the device, so a step never waits for the host.
+    One data-parallel step over the global batch, of which ``batch`` holds
+    this rank's rows (``mesh``, ``parallel/mesh.py``; by default ``LOCAL``:
+    one process, every collective a no-op). The ranks' row weight per
+    microbatch is summed first; each rank's loss, aux terms and gradients
+    over ``grad_accum`` strided microbatches, weighted by its share
+    (``accum.weighted_value_and_grad``; with one rank at ``grad_accum`` 1
+    the factor is exactly 1, plain autograd), are summed over the ranks by
+    one all-reduce, so they are the global batch's weighted mean (the
+    weight decay term counted once; a MoE load-balance term over the global
+    batch's frames). Then the optimizer's clip and update, and the guard of
+    the JAX step: unless the loss is finite and below 1e20 (an impossible
+    alignment gives about 1e30), both the parameters and the optimizer
+    state keep their old values and ``aux["nonfinite"]`` is true. One
+    non-finite microbatch makes the combined loss non-finite and so rejects
+    the whole update. The guard is a ``torch.where`` on the device, so a
+    step never waits for the host. The clip, the guard and the update run
+    alike on every rank, and replicated weights stay bit-identical.
+
+    ``specs`` (``parallel/fsdp.fsdp_partition_specs``) makes it ZeRO-3:
+    ``params`` and the optimizer's moments are this rank's blocks, the
+    whole weights are all-gathered before the forward, the sharded
+    gradients reduce-scattered after the backward, and the clip's norm
+    summed over the ranks' blocks.
     """
+    mesh = LOCAL if mesh is None else mesh
+    norm_fn = functools.partial(global_norm, mesh=mesh, specs=specs)
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        if grad_accum > 1:
-            (loss, aux), grads = accum_value_and_grad(
+        w = microbatch_weights(batch, grad_accum)
+        (w_all,) = all_reduce_flat(mesh, [w])  # each microbatch's weight over the ranks
+        total = torch.clamp(w_all.sum(), min=1.0)  # 0 only when no row is real
+        full = gather_params(mesh, params, specs) if specs is not None else params
+        leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
+        with global_batch(mesh):
+            loss, aux, grads = weighted_value_and_grad(
                 lambda p, mb, g: forward_loss_fn(p, task, mb, True, g, **kw),
-                leaves, batch, generator, grad_accum)
-        else:
-            with torch.enable_grad():
-                loss, aux = forward_loss_fn(leaves, task, batch, True, generator, **kw)
-                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+                leaves, batch, generator, grad_accum, w / total, w_all / total)
+        del full, leaves
+        whole = [k for k in grads if specs is None or specs[k] is None]
+        reduced = all_reduce_flat(mesh, [loss, *aux.values()] + [grads[k] for k in whole])
+        loss, aux = reduced[0], dict(zip(aux, reduced[1:1 + len(aux)]))
+        grads.update(zip(whole, reduced[1 + len(aux):]))
+        if specs is not None:
+            grads = reduce_scatter_grads(mesh, grads, specs)
         with torch.no_grad():
-            updates, new_state = optimizer.update(grads, opt_state)
+            grads = {k: g.to(params[k].dtype) for k, g in grads.items()}
+            updates, new_state = optimizer.update(grads, opt_state, norm_fn)
             new_params = apply_updates(params, updates, lr)
-            loss = loss.detach()
             ok = torch.isfinite(loss) & (loss < 1e20)
             params = tree_where(ok, new_params, params)
             opt_state = tree_where(ok, new_state, opt_state)
-        aux = {k: v.detach() for k, v in aux.items()}
         aux["nonfinite"] = ~ok
         return params, opt_state, aux
 
     return train_step
 
 
-def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1):
-    """The CTC train step: ``guarded_train_step`` around ``forward_loss``."""
-    return guarded_train_step(forward_loss, task, optimizer, grad_accum)
+def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1, mesh=None,
+                    specs: dict | None = None):
+    """The CTC train step: ``guarded_train_step`` around ``forward_loss``
+    (data parallel over ``mesh``, ZeRO-3 with ``specs``)."""
+    return guarded_train_step(forward_loss, task, optimizer, grad_accum, mesh, specs)
 
 
 def make_eval_step(task: CTCTaskConfig):

@@ -25,7 +25,9 @@ generator; a MoE encoder's load-balance term is logged beside the loss
 ``torch.profiler`` (CPU, and CUDA on a card) into a Chrome trace under
 ``<model_dir>/trace``. At the end ``fit`` writes the loss and error-rate
 curves (``utils/plot.py``; a failure, such as no matplotlib, is printed and
-ignored, as the JAX loop does). Meshes raise ``NotImplementedError``.
+ignored, as the JAX loop does). ``num_devices`` above 1 trains data
+parallel over ``torchrun``'s ranks, ``fsdp`` with ZeRO-3 (``parallel/``);
+the other mesh axes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,14 +40,18 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import set_full_fp32
-from ..data.dataset import Dataset, to_device
+from ..data.dataset import Dataset
 from ..data.hard_corpus import HardCorpus
 from ..data.npy_corpus import corpus_split_names, corpus_tokenizer, load_npy_split
 from ..data.prefetch import prefetch
 from ..data.tokenizers import CharTokenizer
 from ..data.toy_corpus import ToyCorpus
+from ..parallel.fsdp import fsdp_partition_specs, gather_tree, setup_fsdp
+from ..parallel.mesh import make_mesh, rank_seed, setup_data_parallel
+from ..parallel.multihost import distribute_batch, local_replica
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
 from ..utils.tb_events import EventWriter
@@ -178,18 +184,32 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
 
     ``profile_steps`` ``(a, b)``: the profiler starts before global step a
     and stops after step b - 1, as the JAX loop's trace (``bin/train
-    --profile`` traces steps 2-5)."""
+    --profile`` traces steps 2-5).
+
+    ``num_devices: N`` above 1 (or ``fsdp``) trains data parallel over the
+    N ranks of the initialized process group (``torchrun``; ``bin/train``
+    sets it up), each on its own ``device`` (``cuda:LOCAL_RANK`` for
+    ``"cuda"``): every rank takes its rows of each global batch, the steps
+    reduce over the ranks, ``fsdp`` shards the weights and moments
+    (ZeRO-3), the dev eval sums the ranks' counts, and rank 0 alone prints,
+    writes the model dir's files and checkpoints (whole tensors). Every
+    rank returns the summary."""
     set_full_fp32()
     exp.check_trainable()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("fit(device='cuda') needs a CUDA card; pass device='cpu' for the CPU")
     if exp.batch_size % exp.grad_accum_steps:
         raise ValueError(f"batch_size {exp.batch_size} not divisible by "
                          f"grad_accum_steps {exp.grad_accum_steps}")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit(device='cuda') needs a CUDA card; pass device='cpu' for the CPU")
+    n_dev = exp.num_devices or 1
+    # the process group's ranks (one rank without a group), checked against num_devices
+    mesh = make_mesh(n_dev, device=device)
+    device, lead = mesh.device, mesh.is_lead
+    say = print_fn if lead else (lambda *a, **k: None)
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
-    exp.to_yaml(model_dir / "config.yml")
+    if lead:
+        exp.to_yaml(model_dir / "config.yml")
 
     train_utts, dev_utts, _, tokenizer = build_corpus_splits(exp, need=("train", "dev"))
     task, task_mod = build_task(exp, tokenizer, feature_dim_of(train_utts))
@@ -198,33 +218,39 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     cmvn_stats = cmvn_stats_for(exp, task, train_utts + dev_utts, device)
     # the budget counts frames: a waveform corpus's lengths count samples. The
     # row floor keeps every batch divisible into grad_accum_steps microbatches
+    # on each of the ranks
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed, cmvn_stats=cmvn_stats,
-        max_frames_per_batch=exp.max_frames_per_batch, min_batch_rows=exp.grad_accum_steps,
+        max_frames_per_batch=exp.max_frames_per_batch,
+        min_batch_rows=exp.grad_accum_steps * n_dev,
         samples_per_frame=task.frontend.frame_step if task.frontend is not None else 1,
     )
     dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True,
                      cmvn_stats=cmvn_stats)
     params = tree_to(task_mod.init_params(task, torch.Generator().manual_seed(exp.seed)), device)
     n_params = sum(v.numel() for v in params.values())
-    print_fn(f"model: {exp.model_type}/{exp.encoder_type} params={n_params:,} on {device}")
+    say(f"model: {exp.model_type}/{exp.encoder_type} params={n_params:,} on {device}")
 
     opt = build_optimizer(exp.optimizer, exp.clip_grad_norm)
     opt_state = opt.init(params)
-    train_step = task_mod.make_train_step(task, opt, grad_accum=exp.grad_accum_steps)
+    specs = fsdp_partition_specs(params, n_dev) if exp.fsdp else None
+    train_step = task_mod.make_train_step(task, opt, grad_accum=exp.grad_accum_steps,
+                                          mesh=mesh, specs=specs)
     eval_step = task_mod.make_eval_step(task)
     controller = LRController(exp.learning_rate, exp.decay_start_epoch, exp.decay_rate,
                               exp.decay_patient_epoch)
-    ckpts = CheckpointManager(model_dir / "checkpoints")
+    ckpts = CheckpointManager(model_dir / "checkpoints", mesh=mesh)
 
     csv_path = model_dir / "metrics.csv"
-    with open(csv_path, "w", newline="") as f:
-        csv.writer(f).writerow(["epoch", "step", "train_loss", "dev_loss", "dev_error_rate",
-                                "lr", "utts_per_sec"])
-    events = EventWriter(model_dir / "events")
+    if lead:
+        with open(csv_path, "w", newline="") as f:
+            csv.writer(f).writerow(["epoch", "step", "train_loss", "dev_loss", "dev_error_rate",
+                                    "lr", "utts_per_sec"])
+    events = EventWriter(model_dir / "events") if lead else None
 
-    generator = torch.Generator(device=device).manual_seed(exp.seed + 1)  # dropout draws
+    # dropout and SpecAugment draws: a stream of each rank's own
+    generator = torch.Generator(device=device).manual_seed(rank_seed(exp.seed + 1, mesh.rank))
     lr = controller.lr
     step = 0
     best_dev = float("inf")
@@ -238,13 +264,25 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         params = tree_to(state["params"], device)
         extra = state["extra"]
         opt_state = tree_to(extra["opt_state"], device)
-        generator.set_state(extra["generator"])
+        generators = extra.get("generators", [extra["generator"]])
+        if len(generators) == mesh.size:
+            generator.set_state(generators[mesh.rank])
+        elif mesh.is_lead:  # another world size: rank 0 resumes the saved stream
+            generator.set_state(extra["generator"])
         controller.load_state_dict(extra["lr_controller"])
         lr = controller.lr
         step = int(extra["step"])
         best_dev = float(extra["best_dev"])
         start_epoch += 1
-        print_fn(f"resuming from checkpoint epoch {start_epoch - 1}")
+        say(f"resuming from checkpoint epoch {start_epoch - 1}")
+    # after any resume, so restored state is placed too: replicated under DP,
+    # cut into this rank's blocks under FSDP
+    setup = setup_fsdp if specs is not None else setup_data_parallel
+    params, opt_state, _ = setup(mesh, params, opt_state)
+    if mesh.group is not None:
+        say(f"mesh: {mesh.size}-way data parallel"
+            + (" (fsdp: params+moments sharded)" if specs is not None else "")
+            + f" ({mesh.size} process(es), backend {dist.get_backend(mesh.group)})")
     prof = None
     trace = model_dir / "trace" / (f"train_steps_{profile_steps[0]}-{profile_steps[1]}.json"
                                    if profile_steps else "")
@@ -254,10 +292,10 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         n_utts = 0
         nonfinite = torch.zeros((), dtype=torch.int64, device=device)
         for batch in prefetch(train_ds.batches(epoch)):
-            if profile_steps and step == profile_steps[0]:
+            if profile_steps and step == profile_steps[0] and lead:
                 prof = start_profile(device)
             eff_lr = lr * min(1.0, (step + 1) / exp.warmup_steps) if exp.warmup_steps else lr
-            params, opt_state, aux = train_step(params, opt_state, to_device(batch, device),
+            params, opt_state, aux = train_step(params, opt_state, distribute_batch(mesh, batch),
                                                 eff_lr, generator,
                                                 **({"step": step} if is_att else {}))
             nonfinite += aux["nonfinite"]
@@ -265,7 +303,7 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
             if prof is not None and step == profile_steps[1]:
                 stop_profile(prof, device, trace)
                 prof = None
-                print_fn(f"profiler trace written to {trace}")
+                say(f"profiler trace written to {trace}")
             n_utts += sum(1 for n in batch["names"] if n is not None)
             if step % log_every == 0:
                 losses.append(float(aux["loss"]))  # the only host sync of a step
@@ -274,41 +312,48 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
                 if "moe_aux" in aux:  # a MoE encoder's load-balance term, inside the loss
                     scalars["train/moe_aux"] = float(aux["moe_aux"])
                     line += f" moe_aux {scalars['train/moe_aux']:.4f}"
-                print_fn(line)
-                events.write_scalars(step, scalars)
+                say(line)
+                if events is not None:
+                    events.write_scalars(step, scalars)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the epoch's queued steps are done
         epoch_time = time.perf_counter() - t0
-        dev = evaluate_ctc(eval_step, params, dev_ds, tokenizer, exp.label_type, epoch, device)
+        # whole weights and optimizer state (gathered under FSDP) for eval and the checkpoint
+        whole = local_replica(params, mesh, specs)
+        dev = evaluate_ctc(eval_step, whole, dev_ds, tokenizer, exp.label_type, epoch, device,
+                           mesh)
         ups = n_utts / epoch_time
         train_loss = float(np.mean(losses)) if losses else float(aux["loss"])
         n_nonfinite = int(nonfinite)
-        print_fn(f"epoch {epoch} done: train_loss {train_loss:.4f} "
-                 f"dev_err {dev['error_rate']:.4f} {ups:.1f} utts/s"
-                 + (f" ({n_nonfinite} steps skipped: non-finite loss)" if n_nonfinite else ""))
-        with open(csv_path, "a", newline="") as f:
-            csv.writer(f).writerow([epoch, step, train_loss, dev["loss"], dev["error_rate"],
-                                    eff_lr, ups])
-        epoch_scalars = {"train/epoch_loss": train_loss, "dev/loss": dev["loss"],
-                         "dev/error_rate": dev["error_rate"], "train/utts_per_sec": ups}
-        if "wer" in dev:
-            epoch_scalars["dev/wer"] = dev["wer"]
-        events.write_scalars(step, epoch_scalars)
-        events.flush()
+        say(f"epoch {epoch} done: train_loss {train_loss:.4f} "
+            f"dev_err {dev['error_rate']:.4f} {ups:.1f} utts/s"
+            + (f" ({n_nonfinite} steps skipped: non-finite loss)" if n_nonfinite else ""))
+        if lead:
+            with open(csv_path, "a", newline="") as f:
+                csv.writer(f).writerow([epoch, step, train_loss, dev["loss"], dev["error_rate"],
+                                        eff_lr, ups])
+            epoch_scalars = {"train/epoch_loss": train_loss, "dev/loss": dev["loss"],
+                             "dev/error_rate": dev["error_rate"], "train/utts_per_sec": ups}
+            if "wer" in dev:
+                epoch_scalars["dev/wer"] = dev["wer"]
+            events.write_scalars(step, epoch_scalars)
+            events.flush()
         if dev["error_rate"] < best_dev:
             best_dev = dev["error_rate"]
         # the controller advances first, so the checkpoint holds this epoch's decision
         lr = controller.update(epoch, dev["error_rate"])
         ckpts.save(epoch, {
-            "params": params,
+            "params": whole,
             "extra": {
-                "opt_state": opt_state,
+                "opt_state": gather_tree(mesh, opt_state, specs) if specs else opt_state,
                 "generator": generator.get_state(),
+                "generators": rank_states(mesh, generator),
                 "lr_controller": controller.state_dict(),
                 "step": step,
                 "best_dev": best_dev,
             },
         }, dev["error_rate"])
+        del whole
         summary = {
             "epochs": epoch + 1, "steps": step, "train_loss": train_loss,
             "dev_loss": dev["loss"], "dev_error_rate": dev["error_rate"],
@@ -317,7 +362,9 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         }
     if prof is not None:  # the run ended inside the traced steps
         stop_profile(prof, device, trace)
-        print_fn(f"profiler trace written to {trace}")
+        say(f"profiler trace written to {trace}")
+    if not lead:
+        return summary
     events.close()
     with open(model_dir / "summary.json", "w") as f:
         json.dump(summary, f, indent=2)
@@ -328,3 +375,12 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     except Exception as e:  # plotting must never fail a finished run
         print_fn(f"plotting failed: {e}")
     return summary
+
+
+def rank_states(mesh, generator: torch.Generator) -> list:
+    """Every rank's generator state, in rank order, on every rank."""
+    if mesh.group is None:
+        return [generator.get_state()]
+    states = [None] * mesh.size
+    dist.all_gather_object(states, generator.get_state(), group=mesh.group)
+    return states

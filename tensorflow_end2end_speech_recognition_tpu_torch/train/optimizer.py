@@ -15,7 +15,10 @@ its default constants, so one step matches it on the same gradients:
 The transforms yield unscaled update directions; ``apply_updates`` applies
 ``p - lr * u`` so the learning rate can change every step without touching
 the state. ``torch.optim`` is not used: its Adam and clip differ in these
-details. Everything stays on the parameters' device; nothing syncs.
+details. Everything stays on the parameters' device; nothing syncs. Every
+transform but the clip is elementwise, so under FSDP the update runs on
+each rank's blocks as it is; the clip takes the norm over the ranks
+(``global_norm(..., mesh, specs)``).
 """
 
 from __future__ import annotations
@@ -35,19 +38,34 @@ MOMENTUM = 0.9
 
 
 class Optimizer(NamedTuple):
-    """``init(params) -> state``; ``update(grads, state) -> (updates, state)``."""
+    """``init(params) -> state``; ``update(grads, state, norm_fn=global_norm)
+    -> (updates, state)``, ``norm_fn`` the clip's norm (over shards under
+    FSDP)."""
 
     init: Callable
     update: Callable
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    return torch.sqrt(sum(x.square().sum() for x in tree.values()))
+def global_norm(tree: dict, mesh=None, specs: dict | None = None) -> torch.Tensor:
+    """The L2 norm over every tensor of ``tree``. Under FSDP (``mesh`` and
+    ``specs`` with a sharded leaf; ``parallel/fsdp.py``) ``tree`` holds this
+    rank's blocks: their squares are summed over the ranks, and a whole
+    (replicated) leaf counts once, not once per rank."""
+    if mesh is None or specs is None or all(s is None for s in specs.values()):
+        return torch.sqrt(sum(x.square().sum() for x in tree.values()))
+    from ..parallel.mesh import all_reduce_flat
+
+    zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
+    sharded = sum((x.square().sum() for k, x in tree.items() if specs[k] is not None), zero)
+    whole = sum((x.square().sum() for k, x in tree.items() if specs[k] is None), zero)
+    (sharded,) = all_reduce_flat(mesh, [sharded])
+    return torch.sqrt(sharded + whole)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
-    """``optax.clip_by_global_norm``: unchanged below ``max_norm``, else rescaled."""
-    g_norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float, norm_fn=global_norm) -> dict:
+    """``optax.clip_by_global_norm``: unchanged below ``max_norm``, else
+    rescaled; ``norm_fn(grads)`` is the global norm (``global_norm``)."""
+    g_norm = norm_fn(grads)
     trigger = g_norm < max_norm
     return {k: torch.where(trigger, g, (g / g_norm) * max_norm) for k, g in grads.items()}
 
@@ -129,11 +147,11 @@ def build_optimizer(name: str, clip_grad_norm: float | None = 5.0) -> Optimizer:
     if name not in cores:
         raise ValueError(f"unknown optimizer {name!r}; expected one of {OPTIMIZERS}")
     core = cores[name]()
-    if not clip_grad_norm:
-        return core
 
-    def update(grads, state):
-        return core.update(clip_by_global_norm(grads, clip_grad_norm), state)
+    def update(grads, state, norm_fn=global_norm):
+        if clip_grad_norm:
+            grads = clip_by_global_norm(grads, clip_grad_norm, norm_fn)
+        return core.update(grads, state)
 
     return Optimizer(core.init, update)
 

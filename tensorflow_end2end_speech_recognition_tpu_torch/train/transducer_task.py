@@ -93,10 +93,12 @@ def forward_loss(params: dict, task: TransducerTaskConfig, batch: dict, train: b
     return loss, aux
 
 
-def make_train_step(task: TransducerTaskConfig, optimizer, grad_accum: int = 1):
+def make_train_step(task: TransducerTaskConfig, optimizer, grad_accum: int = 1, mesh=None,
+                    specs: dict | None = None):
     """``(params, opt_state, batch, lr, generator) -> (params, opt_state, aux)``
-    with the CTC step's clip, update and non-finite / >= 1e20 guard."""
-    return guarded_train_step(forward_loss, task, optimizer, grad_accum)
+    with the CTC step's clip, update and non-finite / >= 1e20 guard (data
+    parallel over ``mesh``, ZeRO-3 with ``specs``)."""
+    return guarded_train_step(forward_loss, task, optimizer, grad_accum, mesh, specs)
 
 
 def make_eval_step(task: TransducerTaskConfig):

@@ -9,8 +9,9 @@ same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``CTCTaskConfig``, ``TransducerConfig`` / ``TransducerTaskConfig`` and
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
 when ``use_specaugment`` is set. A key the JAX package knows but the port
-does not raises ``KeyError`` when it is read; a mesh, which the port has
-not ported, raises ``NotImplementedError`` in ``check_trainable``.
+does not raises ``KeyError`` when it is read; ``check_trainable`` raises
+``NotImplementedError`` for a mesh axis the port has not ported (data
+parallelism and ``fsdp`` are ported).
 ``corpus_tokenizer`` gives the units of a config's corpus: the word and BPE
 label types learn theirs from its text (a ``data_root`` corpus's train
 transcripts).
@@ -367,18 +368,41 @@ class ExperimentConfig:
         return self.ctc_task(num_classes)
 
     def check_trainable(self) -> None:
-        """Raise ``NotImplementedError`` for what ``fit`` does not run yet."""
+        """Raise what the JAX ``fit`` raises for the axes the port runs (data
+        parallelism, ``fsdp``) as ``ValueError``, and ``NotImplementedError``
+        for the axes it does not run yet (tensor, pipeline, sequence and
+        expert parallelism, and ``fsdp`` with any of them). That
+        ``num_devices`` equals the ranks' world size ``parallel.make_mesh``
+        checks when ``fit`` builds the mesh."""
+        n = self.num_devices or 1
+        tp, pp = self.num_model_shards or 1, self.num_pipeline_stages or 1
+        sp, ep = self.num_sequence_shards or 1, self.num_expert_shards or 1
+        if self.fsdp and pp > 1:
+            raise ValueError("fsdp cannot combine with pipeline parallelism (stage weights "
+                             "live inside shard_map, outside GSPMD placement); tp/sp/ep "
+                             "compose fine")
+        if self.fsdp and not n > tp * sp * ep:
+            raise ValueError("fsdp needs a data-parallel degree > 1 (num_devices, divided by "
+                             "any tp/sp/ep shards, must leave a data axis to shard over)")
         unported = {
-            "num_devices > 1": (self.num_devices or 1) > 1,
-            "num_model_shards > 1": (self.num_model_shards or 1) > 1,
-            "num_pipeline_stages > 1": (self.num_pipeline_stages or 1) > 1,
-            "num_sequence_shards > 1": (self.num_sequence_shards or 1) > 1,
-            "num_expert_shards > 1": (self.num_expert_shards or 1) > 1,
-            "fsdp": self.fsdp,
+            "num_model_shards > 1": tp > 1,
+            "num_pipeline_stages > 1": pp > 1,
+            "num_sequence_shards > 1": sp > 1,
+            "num_expert_shards > 1": ep > 1,
         }
         for what, on in unported.items():
             if on:
-                raise NotImplementedError(f"{what} is not ported yet")
+                raise NotImplementedError(f"{'fsdp with ' if self.fsdp else ''}{what} is "
+                                          "not ported yet")
+        a = self.grad_accum_steps
+        if self.batch_size % (a * n):
+            raise ValueError(f"batch_size {self.batch_size} not divisible by grad_accum_steps "
+                             f"x data-parallel degree = {a}x{n} (each rank splits its rows "
+                             "into grad_accum_steps microbatches)")
+        eval_rows = self.eval_batch_size or self.batch_size
+        if eval_rows % n:
+            raise ValueError(f"eval batch size {eval_rows} not divisible by data-parallel "
+                             f"degree {n} (each rank decodes its rows of every dev batch)")
         if self.toy_profile not in TOY_PROFILES:
             raise ValueError(f"unknown toy_profile {self.toy_profile!r}")
 

@@ -1,10 +1,11 @@
 """Corpus-level error rates of a model's eval step on a dataset.
 
 Counterpart of ``eval_counts`` / ``rates_from_counts`` / ``evaluate_ctc`` in
-``tensorflow_end2end_speech_recognition_tpu/utils/metrics.py``, single
-process: run the eval step batch by batch, map ids to the scoring units
-(TIMIT phones folded to 39; BPE units detokenized to words; word units as
-they are; otherwise the characters of the joined string, kana included),
+``tensorflow_end2end_speech_recognition_tpu/utils/metrics.py``, in one
+process or over data-parallel ranks: run the eval step batch by batch, map
+ids to the scoring units (TIMIT phones folded to 39; BPE units detokenized
+to words; word units as they are; otherwise the characters of the joined
+string, kana included),
 and accumulate edit counts (the C++ runtime's ``levenshtein_batch``,
 ``data/native.py``); character models also count words. Only the
 decoded ids, their lengths and the per-row loss leave the device, once per
@@ -12,6 +13,8 @@ batch.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -54,11 +57,15 @@ def _integerize(ref, hyp):
 
 
 def eval_counts(eval_step, params, dataset, tokenizer: Tokenizer, label_type: str,
-                epoch: int = 0, device="cuda") -> np.ndarray:
+                epoch: int = 0, device="cuda", row_slice=None) -> np.ndarray:
     """Corpus count vector ``[edit, sub, ins, del, ref_len, num_utts, loss_sum,
-    w_edit, w_sub, w_ins, w_del, w_ref_len]`` (float64), as the JAX one."""
+    w_edit, w_sub, w_ins, w_del, w_ref_len]`` (float64), as the JAX one;
+    ``row_slice`` (a host batch -> its rows to score here) keeps each rank
+    to its own rows."""
     total = np.zeros(12, np.float64)
     for batch in dataset.batches(epoch):
+        if row_slice is not None:
+            batch = row_slice(batch)
         decoded, dec_len, nll = eval_step(params, to_device(batch, device))
         decoded, dec_len, nll = (x.cpu().numpy() for x in (decoded, dec_len, nll))
         refs, hyps, wrefs, whyps = [], [], [], []
@@ -106,8 +113,25 @@ def rates_from_counts(counts: np.ndarray) -> dict:
 
 
 def evaluate_ctc(eval_step, params, dataset, tokenizer: Tokenizer, label_type: str,
-                 epoch: int = 0, device="cuda") -> dict:
-    """Decode a dataset with ``eval_step`` on ``device``; error rate, loss, S/I/D rates."""
-    return rates_from_counts(
-        eval_counts(eval_step, params, dataset, tokenizer, label_type, epoch, device)
-    )
+                 epoch: int = 0, device="cuda", mesh=None) -> dict:
+    """Decode a dataset with ``eval_step`` on ``device``; error rate, loss, S/I/D rates.
+
+    With a ``mesh`` of several ranks (``parallel/mesh.py``; ``params`` whole
+    on every rank, ``multihost.local_replica``) each rank decodes only its
+    own rows of every batch (``multihost.process_slice``; fill rows, whose
+    name is None, count on no rank) and the count vectors are summed over
+    the ranks (``allreduce_counts``): the rates equal one process scoring
+    the whole set."""
+    row_slice = None
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.multihost import process_slice
+
+        row_slice = functools.partial(process_slice, process_index=mesh.rank,
+                                      process_count=mesh.size)
+    counts = eval_counts(eval_step, params, dataset, tokenizer, label_type, epoch, device,
+                         row_slice)
+    if mesh is not None:
+        from ..parallel.multihost import allreduce_counts
+
+        counts = allreduce_counts(counts, mesh)
+    return rates_from_counts(counts)

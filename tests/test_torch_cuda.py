@@ -18,7 +18,8 @@ same float32 walk, summed in other orders. #7 on bf16 encoder rows keeps
 the float32 tolerances: both widen the rows exactly and sum in float32.
 #3's carried walk with bf16 products keeps them for one step and is held
 within ``BF16_PRODUCT_TOL`` over a chunk (an h may round to the other bf16
-neighbour on each side).
+neighbour on each side). The train step built with a world of 1 over nccl
+must equal the one-process step bit for bit.
 """
 
 import numpy as np
@@ -1690,3 +1691,52 @@ def test_fit_profile_on_card_traces_cuda_kernels(dev, tmp_path):
     assert f"profiler trace written to {trace}" in lines
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+def test_world_of_one_over_nccl_equals_the_one_process_step(dev, tmp_path):
+    """``chip_smoke.py`` phase 68's world of 1 over nccl at toy width: the
+    train step built with the mesh gives the one-process Adam step bit for bit
+    (loss, weights, moments) and launches the same kernels."""
+    import torch.distributed as dist
+
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import make_mesh
+    from tensorflow_end2end_speech_recognition_tpu_torch.train import ctc_task
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import (
+        build_optimizer,
+    )
+
+    set_full_fp32()
+    task = ctc_task.CTCTaskConfig(
+        model=CTCConfig(encoder=EncoderConfig(encoder_type="blstm", num_units=32, num_layers=2),
+                        num_classes=6),
+        frontend=None, feature_dim=20, num_stack=3, num_skip=3, weight_decay=1e-2)
+    rng = np.random.RandomState(0)
+    lens = np.asarray([60, 41, 17, 60], np.int32)
+    feats = rng.randn(4, 60, 20).astype(np.float32)
+    for i, n in enumerate(lens):
+        feats[i, n:] = 0.0
+    batch = {"inputs": feats, "input_len": lens, "labels": rng.randint(0, 6, (4, 5)).astype(
+        np.int32), "label_len": np.asarray([5, 3, 1, 4], np.int32),
+        "weight": np.asarray([1, 1, 1, 0], np.float32)}
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    params = {k: v.to(dev) for k, v in ctc_task.init_params(
+        task, torch.Generator().manual_seed(0)).items()}
+    opt = build_optimizer("adam", 5.0)
+    runs = []
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        for mesh in (None, make_mesh(1, device=dev)):
+            step = ctc_task.make_train_step(task, opt, mesh=mesh)
+            before = (lstm_ops.lstm_bidi.launches, ctc_ops.ctc_loss_fwd_bwd.launches)
+            new, state, aux = step(params, opt.init(params), tb, 1e-3)
+            torch.cuda.synchronize()
+            after = (lstm_ops.lstm_bidi.launches, ctc_ops.ctc_loss_fwd_bwd.launches)
+            runs.append((new, state, float(aux["loss"]), [b - a for a, b in zip(before, after)]))
+    finally:
+        dist.destroy_process_group()
+    (p1, s1, l1, n1), (p2, s2, l2, n2) = runs
+    assert l1 == l2 and n1 == n2 == [2, 1]
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["mu"][k], s2["mu"][k]) and torch.equal(s1["nu"][k], s2["nu"][k]), k

@@ -1,0 +1,247 @@
+"""The port's ZeRO-3 (``parallel/fsdp.py``, the train steps built with
+``specs=``, ``fit`` with ``fsdp: true``) against the JAX package's
+``setup_fsdp`` on ``make_mesh(2)``, on the CPU over a world of 2 ``gloo``
+ranks; and the validation of the mesh knobs against the JAX ``fit``.
+
+Pure tests: ``fsdp_spec_for`` on the JAX test's shapes and
+``fsdp_partition_specs`` on every leaf of the toy-width ls100_ctc,
+ls960_joint and ls960_conformer_ctc weights, at 2 and 8 shards, against
+JAX's specs (the port's dim is the axis JAX's ``PartitionSpec`` names
+``data``); the errors of ``tests/test_fsdp.py::
+test_fit_rejects_fsdp_combinations`` raised as JAX raises them, and the
+axes not ported yet raising ``NotImplementedError``.
+
+World 2 (one spawn of ``tests/torch_parallel_workers.py`` from the module
+fixture): two Adam steps (lr 1e-3, clip 5.0) of the CTC, joint and
+transducer toys of ``tests/test_torch_parallel.py`` from the bridged JAX
+weights against JAX's steps on ``setup_fsdp`` placement (the tolerances of
+that file: Adam's weights within 0.1 lr per step, moments 1e-3 of max),
+each rank's blocks against the JAX shard on the same device, every
+divisible leaf and its moments held 1/2 per rank; ``fit`` with ``fsdp:
+true`` for one toy epoch against ``fit`` in one process, and its
+checkpoint (whole tensors) resumed in one process.
+"""
+
+import dataclasses
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import torch_parallel_workers as workers
+from tensorflow_end2end_speech_recognition_tpu.parallel.fsdp import (
+    fsdp_partition_specs as jfsdp_partition_specs,
+)
+from tensorflow_end2end_speech_recognition_tpu.parallel.fsdp import (
+    fsdp_spec_for as jfsdp_spec_for,
+)
+from tensorflow_end2end_speech_recognition_tpu.train import loop as jloop
+from tensorflow_end2end_speech_recognition_tpu.utils.config import (
+    ExperimentConfig as JExperimentConfig,
+)
+from tensorflow_end2end_speech_recognition_tpu_torch.parallel import fsdp_partition_specs
+from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import fsdp_spec_for
+from tensorflow_end2end_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager
+from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import build_task, fit
+from tensorflow_end2end_speech_recognition_tpu_torch.utils.bridge import flatten_tree
+from tensorflow_end2end_speech_recognition_tpu_torch.utils.config import (
+    corpus_tokenizer,
+    experiment_from_dict,
+)
+from test_torch_parallel import (
+    FIT,
+    LR,
+    REPO,
+    WORLD,
+    assert_step_matches,
+    jax_steps,
+    port_job,
+)
+
+torch.set_num_threads(1)
+
+FAMILIES = ("ctc", "joint", "transducer")
+
+
+def jax_dim(spec) -> int | None:
+    """The axis a JAX ``PartitionSpec`` shards over ``data`` (None: replicated)."""
+    return next((i for i, e in enumerate(spec) if e == "data"), None)
+
+
+def jax_leaf(tree, key: str):
+    """The leaf of a JAX pytree at a ``state_dict`` key (``utils/bridge.py``)."""
+    for part in key.split("."):
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) else tree[part]
+    return tree
+
+
+def test_fsdp_spec_for_matches_jax():
+    shapes = [(40, 64), (64, 40), (16, 64), (64,), (7,), (9, 7), (), (8, 8), (3, 16, 16), (1,)]
+    for n in (2, 8):
+        for shape in shapes:
+            assert fsdp_spec_for(np.zeros(shape), n) == jax_dim(jfsdp_spec_for(np.zeros(shape),
+                                                                               n)), (shape, n)
+    assert fsdp_spec_for(np.zeros((40, 64)), 8) == 1 and fsdp_spec_for(np.zeros(7), 8) is None
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fsdp_spec_for(np.zeros((8, 8)), 2, base=P(None, "model"))
+
+
+NARROW = {"ls100_ctc": dict(num_units=16, num_layers=2),
+          "ls960_joint": dict(num_units=16, num_layers=2, attention_dim=8,
+                              decoder_num_units=16, embedding_dim=8),
+          "ls960_conformer_ctc": dict(num_units=16, num_layers=2, num_heads=2,
+                                      conv_kernel_size=3)}
+
+
+@pytest.mark.parametrize("name", sorted(NARROW))
+def test_partition_specs_match_jax_on_every_leaf(name):
+    import yaml
+
+    raw = dict(yaml.safe_load((REPO / "configs" / f"{name}.yml").read_text()), **NARROW[name])
+    exp = experiment_from_dict(raw)
+    tok = corpus_tokenizer(exp)
+    task, mod = build_task(exp, tok)
+    params = mod.init_params(task, torch.Generator().manual_seed(0))
+    jtask, jmod = jloop.build_task(JExperimentConfig.from_dict(raw), tok)
+    jparams = jmod.init_params(jax.random.PRNGKey(0), jtask)
+    assert {k: v.shape for k, v in flatten_tree(jax.tree.map(np.asarray, jparams)).items()} \
+        == {k: tuple(v.shape) for k, v in params.items()}
+    for n in (2, 8):
+        got = fsdp_partition_specs(params, n)
+        specs = jfsdp_partition_specs(jparams, n)
+        want = {k: jax_dim(jax_leaf(specs, k)) for k in params}
+        assert got == want, n
+        assert any(d is not None for d in got.values())
+
+
+REJECT = dict(model_type="ctc", label_type="phone61", encoder_type="conformer", num_units=16,
+              num_layers=1, num_heads=2, batch_size=8, num_epoch=1, toy_num_utts=8,
+              use_delta=False, use_energy=False)
+
+
+@pytest.mark.parametrize("over", [dict(num_devices=8, fsdp=True, num_pipeline_stages=2,
+                                       num_layers=2), dict(fsdp=True)])
+def test_fit_rejects_fsdp_combinations_as_jax(tmp_path, over):
+    raw = dict(REJECT, **over)
+    with pytest.raises(ValueError) as want:
+        jloop.fit(JExperimentConfig.from_dict(raw), str(tmp_path / "jax"),
+                  print_fn=lambda *a: None)
+    with pytest.raises(ValueError) as got:
+        fit(experiment_from_dict(raw), tmp_path / "port", print_fn=lambda *a: None,
+            device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+# fsdp with pipeline stages is refused as JAX refuses it (ValueError, above)
+@pytest.mark.parametrize("axis,fsdp", [(a, f) for a in ("num_model_shards",
+                                                        "num_sequence_shards",
+                                                        "num_expert_shards")
+                                       for f in (False, True)]
+                         + [("num_pipeline_stages", False)])
+def test_unported_axes_raise(tmp_path, axis, fsdp):
+    raw = dict(REJECT, num_devices=8, fsdp=fsdp, **{axis: 2})
+    with pytest.raises(NotImplementedError,
+                       match=f"^{'fsdp with ' if fsdp else ''}{axis} > 1 is not ported yet$"):
+        fit(experiment_from_dict(raw), tmp_path, print_fn=lambda *a: None, device="cpu")
+
+
+def test_data_parallel_validation(tmp_path):
+    base = dict(FIT, num_devices=2)
+    with pytest.raises(ValueError, match="grad_accum_steps x data-parallel degree = 2x2"):
+        experiment_from_dict(dict(base, grad_accum_steps=2, batch_size=6)).check_trainable()
+    with pytest.raises(ValueError, match="eval batch size 3 not divisible"):
+        experiment_from_dict(dict(base, eval_batch_size=3)).check_trainable()
+    experiment_from_dict(dict(base, fsdp=True, grad_accum_steps=2)).check_trainable()
+    # num_devices must equal the ranks' world size; here no group is initialized
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        fit(experiment_from_dict(base), tmp_path, print_fn=lambda *a: None, device="cpu")
+
+
+def _load(out, name):
+    return [torch.load(out / f"{name}_{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The JAX references and the one-process run, then one spawn of 2 ranks
+    for every world-2 case of this module, then the world-2 checkpoint
+    resumed in one process, one after the other."""
+    tmp = tmp_path_factory.mktemp("fsdp")
+    out = tmp / "out"
+    want = {f"fsdp_{f}": jax_steps(f, "adam", fsdp=True, steps=2) for f in FAMILIES}
+    one = fit(experiment_from_dict(FIT), tmp / "one", log_every=1, print_fn=lambda *a: None,
+              device="cpu")
+    jobs = [port_job(f"fsdp_{f}", f, "adam", fsdp=True, steps=2) for f in FAMILIES]
+    exp2 = experiment_from_dict(dict(FIT, num_devices=WORLD, fsdp=True))
+    jobs.append(dict(kind="fit", name="fit_fsdp", exp=exp2, model_dir=str(tmp / "two")))
+    workers.join(workers.spawn(jobs, WORLD, tmp, out))
+    lines = []
+    resumed = fit(dataclasses.replace(exp2, num_devices=None, fsdp=False, num_epoch=2),
+                  tmp / "two", log_every=1, print_fn=lines.append, device="cpu")
+    return dict(tmp=tmp, out=out, want=want, one=one, resumed=(resumed, lines))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fsdp_steps_match_jax_setup_fsdp(world, family):
+    r0, r1 = _load(world["out"], f"fsdp_{family}")
+    want = world["want"][f"fsdp_{family}"]
+    assert_step_matches(family, "adam", r0, want, lr_steps=2)
+    assert r0["specs"] == r1["specs"]
+    jp, js, _ = want
+    devices = jax.devices()[:WORLD]
+    for k, dim in r0["specs"].items():
+        leaf = jax_leaf(jp, k)
+        assert dim == jax_dim(leaf.sharding.spec), k  # the step kept the JAX placement
+        shards = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
+        for r, got in enumerate((r0, r1)):
+            block = got["params"][k].numpy()
+            np.testing.assert_allclose(block, shards[devices[r]], rtol=0,
+                                       atol=0.1 * LR["adam"] * 2, err_msg=f"rank {r} {k}")
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fsdp_ranks_hold_half_of_every_divisible_leaf(world, family):
+    r0, r1 = _load(world["out"], f"fsdp_{family}")
+    sharded = 0
+    for k, dim in r0["specs"].items():
+        whole = r0["whole"][k]
+        for got in (r0, r1):
+            held = [got["params"][k], got["state"]["mu"][k], got["state"]["nu"][k]]
+            want = whole.numel() // WORLD if dim is not None else whole.numel()
+            assert all(t.numel() == want for t in held), k
+        if dim is not None:
+            sharded += whole.numel()
+            joined = torch.cat([r0["params"][k], r1["params"][k]], dim)
+            assert torch.equal(joined, whole), k
+        else:
+            assert torch.equal(r0["params"][k], r1["params"][k]), k
+    total = sum(v.numel() for v in r0["whole"].values())
+    assert sharded / total > 0.9  # as tests/test_fsdp.py: most bytes live 1/N per rank
+    assert r0["state"]["count"].shape == () and int(r0["state"]["count"]) == 2
+
+
+def test_fit_fsdp_matches_one_process_and_resumes_in_one(world):
+    tmp = world["tmp"]
+    r0, r1 = _load(world["out"], "fit_fsdp")
+    got, want = r0["summary"], world["one"]
+    assert got["steps"] == want["steps"] == 6
+    assert got["dev_error_rate"] == want["dev_error_rate"]
+    for k in ("train_loss", "dev_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+    assert any("fsdp: params+moments sharded" in line for line in r0["lines"])
+    resumed, lines = world["resumed"]
+    assert "resuming from checkpoint epoch 0" in lines
+    assert resumed["epochs"] == 2 and resumed["steps"] == 12
+    assert np.isfinite(resumed["train_loss"])
+    _, state = CheckpointManager(tmp / "two" / "checkpoints").restore(
+        {"params": None, "extra": None}, epoch=0)
+    ref = CheckpointManager(tmp / "one" / "checkpoints").restore({"params": None})[1]
+    for k, v in ref["params"].items():  # whole tensors, as one process writes them
+        assert state["params"][k].shape == v.shape
+        np.testing.assert_allclose(state["params"][k].numpy(), v.numpy(), rtol=0,
+                                   atol=0.1 * LR["adam"] * 6, err_msg=k)
+        assert state["extra"]["opt_state"]["mu"][k].shape == v.shape
+    assert json.loads((tmp / "two" / "summary.json").read_text())["epochs"] == 2

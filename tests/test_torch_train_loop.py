@@ -137,10 +137,16 @@ def test_experiment_config_rejects_unknown_and_unported():
         experiment_from_dict({"num_pipeline_microbatches": 2})
     assert experiment_from_dict({"dropout_encoder": 0.5}).dropout == 0.5
     assert experiment_from_dict({"learning_rate": "3e-3"}).learning_rate == 3e-3
-    for raw in ({"num_devices": 4}, {"num_expert_shards": 2}, {"num_model_shards": 2},
-                {"num_pipeline_stages": 2}, {"num_sequence_shards": 2}, {"fsdp": True}):
+    for raw in ({"num_expert_shards": 2}, {"num_model_shards": 2},
+                {"num_pipeline_stages": 2}, {"num_sequence_shards": 2},
+                {"num_devices": 4, "fsdp": True, "num_model_shards": 2}):
         with pytest.raises(NotImplementedError):
             experiment_from_dict(raw).check_trainable()
+    # data parallelism and ZeRO-3 are ported; fsdp needs a data axis to shard over
+    experiment_from_dict({"num_devices": 4}).check_trainable()
+    experiment_from_dict({"num_devices": 4, "fsdp": True}).check_trainable()
+    with pytest.raises(ValueError, match="data-parallel degree"):
+        experiment_from_dict({"fsdp": True}).check_trainable()
     # on-disk corpora and gradient accumulation are ported
     experiment_from_dict({"grad_accum_steps": 2, "data_root": "/data"}).check_trainable()
     with pytest.raises(ValueError, match="model_type"):
