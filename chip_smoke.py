@@ -8,8 +8,8 @@ bfloat16``) with ``bench.py``'s headline step, of training from a
 prepared on-disk corpus with gradient accumulation, of exported artifacts
 (``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at bf16, and of
 the scan-path encoders (GRU, the LSTM options), ``cnn_zhang``, profiling
-and the C++ host runtime, and of data parallelism and ZeRO-3 across ranks,
-on one NVIDIA GPU.
+and the C++ host runtime, of data parallelism and ZeRO-3 across ranks, and
+of tensor, sequence and expert parallelism, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -391,7 +391,25 @@ Phases; any failure exits non-zero and prints no result line:
     ``num_devices: 2`` (#6 in each rank's dev eval): its dev error equals a
     one-process ``fit`` of the same data, dropout off, its dev and train
     losses within 1e-4 of that run's, and rank 0's checkpoint restored in
-    one process scores the same dev error and its dev loss within 1e-4.
+    one process scores the same dev error and its dev loss within 1e-4;
+71. the model axes (``parallel/tp.py``, ``sp.py``, ``ep.py``), ranks on the
+    one card over gloo as phases 68-70, each a full-width config from its
+    dict, dropout off, one Adam step on B = 32 x 12 s against the
+    one-process step on the same rows (rank 0 computes it): the loss within
+    1e-5, each gradient leaf within ``DP_GRAD_RTOL`` of its largest entry (a
+    key bias of exact gradient 0 within ``CANCELLED_RTOL`` of the largest
+    entry of all), the gathered weights within 1e-5 of the initial ones
+    less Adam's first update from the rank's moments, exactly one #5 per
+    rank (none for the transducer); ms per step per rank, bytes by
+    collective and the weights + Adam MiB resident per rank:
+    ls960_conformer_ctc under tp2, sp2 (world 2), tp2 x sp2 and dp2 x tp2 +
+    fsdp (world 4); ls960_moe_conformer under ep2, ep4 and dp2 x ep2 + fsdp;
+    ls_conformer_transducer (rotary, left context 32) under sp2;
+72. ``fit`` for one toy epoch of ls960_conformer_ctc (256 utterances,
+    dropout off) with ``num_model_shards: 2``: its dev error equals a
+    one-process ``fit`` of the same data, its losses within 1e-4, and
+    ``bin/eval`` restores its checkpoint in one process (dev error equal);
+    with four or more cards, dp2 x tp2 over nccl, one card per rank.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -400,7 +418,7 @@ is one (cuDNN ``nn.LSTM``, bidirectional for #1/#2 and unidirectional for
 which the port never calls; the calls of #5-#7, short beside their Python
 wrapper, are timed from CUDA-graph replays (#3 with a carried state too).
 Prints a JSON line of the kernels (and the prefix beam's, the conformers',
-the families', the streams', the encoder zoo's and phases 68-70's numbers;
+the families', the streams', the encoder zoo's and phases 68-72's numbers;
 each kernel's ``launches_<path>`` counts include the ranks' paths, per
 rank), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -415,6 +433,7 @@ import copy
 import functools
 import http.client
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -2902,7 +2921,7 @@ def run_cli(what: str, fn, argv: list, launched: tuple, gpu: str):
     wall = time.perf_counter() - t0
     counts = read_counts()
     print(f"phase {what}: {wall:.1f} s wall, launches {counts}  [{gpu}]", flush=True)
-    if min(counts[k] for k in launched) < 1 or any(counts[k] for k in COUNTERS
+    if any(counts[k] < 1 for k in launched) or any(counts[k] for k in COUNTERS
                                                    if k not in launched):
         raise RuntimeError(f"{what} launched {counts}; expected {launched}")
     return out, counts
@@ -5267,14 +5286,15 @@ def dp_rank(rank: int, world: int, backend: str, store: str, out: str, jobs: tup
 
 
 def spawn_ranks(world: int, backend: str, work: Path, jobs: tuple, device: str = "cuda",
-                overrides: dict | None = None) -> list:
-    """Run ``dp_rank`` in ``world`` spawned processes; every rank's results."""
+                overrides: dict | None = None, entry=None, tag: str = "dp") -> list:
+    """Run ``entry`` (default ``dp_rank``) in ``world`` spawned processes, out
+    of ``<work>/<tag>_<backend>_<world>``; every rank's results."""
     import torch.multiprocessing as mp
 
-    out = work / f"dp_{backend}_{world}"
+    out = work / f"{tag}_{backend}_{world}"
     out.mkdir(parents=True, exist_ok=True)
-    mp.start_processes(dp_rank, args=(world, backend, str(out / "store"), str(out), jobs,
-                                      device, overrides or {}),
+    mp.start_processes(entry or dp_rank, args=(world, backend, str(out / "store"), str(out),
+                                               jobs, device, overrides or {}),
                        nprocs=world, start_method="spawn")
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
@@ -5448,6 +5468,257 @@ def run_data_parallel(dev, gpu: str, work: Path, t0: float,
     return counts, numbers
 
 
+# ---- phases 71-72: tensor, sequence and expert parallelism -------------------------
+
+# (phase, config, task module, mesh axes, placement, fsdp); world = the axes' product
+AXES_CONFIGS = {"ls960_conformer_ctc": (LS960_CONFORMER_CTC, "ctc_task"),
+                "ls960_moe_conformer": (LS960_MOE_CONFORMER, "ctc_task"),
+                "ls_conformer_transducer": (LS_CONFORMER_TRANSDUCER, "transducer_task")}
+AXES_JOBS = (
+    ("71 tp2", "ls960_conformer_ctc", {"data": 1, "model": 2}, "tp", False),
+    ("71 sp2", "ls960_conformer_ctc", {"data": 1, "seq": 2}, None, False),
+    ("71 ep2", "ls960_moe_conformer", {"data": 1, "expert": 2}, "ep", False),
+    ("71 sp2", "ls_conformer_transducer", {"data": 1, "seq": 2}, None, False),
+    ("71 tp2 x sp2", "ls960_conformer_ctc", {"data": 1, "seq": 2, "model": 2}, "tp", False),
+    ("71 dp2 x tp2 + fsdp", "ls960_conformer_ctc", {"data": 2, "model": 2}, "tp", True),
+    ("71 ep4", "ls960_moe_conformer", {"data": 1, "expert": 4}, "ep", False),
+    ("71 dp2 x ep2 + fsdp", "ls960_moe_conformer", {"data": 2, "expert": 2}, "ep", True),
+)
+AXES_SEED = 71
+AXES_FIT = LS960_CONFORMER_CTC | {"dropout": 1.0, "toy_num_utts": 256, "num_epoch": 1}
+CANCELLED_AXES_RTOL = 1e-4  # a gradient zero in exact arithmetic, of the largest entry
+
+
+AXES_STEP_WANT = dict(NONE_LAUNCHED, ctc_loss=1)  # a CTC step's launches per rank
+AXES_FIT_LAUNCHED = ("ctc_loss", "ctc_loss_fwd_only")  # phase 72's fit and bin/eval: #5, #6
+AXES_EVAL_LAUNCHED = ("ctc_loss_fwd_only",)
+
+
+def axes_want(config: str) -> dict | None:
+    """The launches of one train step of ``config``: one #5 for the CTC models,
+    none for the transducer (its loss is plain PyTorch); None checks nothing."""
+    if AXES_STEP_WANT is None:
+        return None
+    return NONE_LAUNCHED if config == "ls_conformer_transducer" else AXES_STEP_WANT
+
+
+def axes_specs(params: dict, axes: dict, place, fsdp: bool):
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
+        expert_partition_specs, fsdp_partition_specs, param_partition_specs)
+
+    specs = {"tp": param_partition_specs, "ep": expert_partition_specs}[place](params) \
+        if place else None
+    return fsdp_partition_specs(params, axes["data"], specs) if fsdp else specs
+
+
+def axes_against_one_process(what: str, config: str, axes: dict, place, fsdp: bool,
+                             mesh) -> dict:
+    """One Adam step of ``config`` at full width, dropout off, on this rank's
+    rows and shards of the global batch; rank 0 holds it against the
+    one-process step on the whole batch (loss, every gradient leaf, the
+    gathered weights against the rank's own Adam step). Returns the numbers."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
+        gather_whole, place as place_state)
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.mesh import (
+        TRAFFIC, reset_traffic, shard_batch)
+
+    raw, mod_name = AXES_CONFIGS[config]
+    task_mod = {"ctc_task": ctc_task, "transducer_task": transducer_task}[mod_name]
+    dev = mesh.device
+    task = experiment_from_dict(dict(raw, dropout=1.0)).task(len(CHAR_UNITS))
+    params = {k: v.to(dev) for k, v in
+              task_mod.init_params(task, torch.Generator().manual_seed(0)).items()}
+    batch = train_batch(B_TRAIN, 12.0, seed=AXES_SEED, max_labels=U)
+    ref = one_process_step(task, task_mod, params, batch, dev) if mesh.rank == 0 else None
+    opt = build_optimizer("adam", 5.0)
+    specs = axes_specs(params, axes, place, fsdp)
+    held, state, _ = place_state(mesh, params, opt.init(params), specs)
+    step = task_mod.make_train_step(task, opt, mesh=mesh, specs=specs)
+    rows = shard_batch(mesh, batch)
+    out = {"what": what, "config": config, "axes": axes, "rank": mesh.rank,
+           "coords": mesh.coords(), "rows": len(rows["input_len"]),
+           "resident_bytes": held_bytes(held) + held_bytes(state),
+           "whole_bytes": 3 * held_bytes(params)}
+    reset_traffic()
+    held, state, aux, ms, counts = timed_step(step, held, state, rows, mesh, axes_want(config))
+    out.update(ms=ms, launches=counts, loss=float(aux["loss"]),
+               traffic={k: {"calls": c, "bytes": b} for k, (c, b) in TRAFFIC.items()})
+    whole = gather_whole(mesh, held, specs)
+    whole_state = gather_whole(mesh, state, specs)
+    own = worst(leaf_errs(whole, adam_first_weights(params, whole_state)))
+    if ref is not None:
+        grad = {k: v / (1 - 0.9) for k, v in whole_state["mu"].items()}
+        top = max(float(g.abs().max()) for g in ref["grad"].values())
+        cancelled = {k: float((grad[k] - g).abs().max()) / top for k, g in ref["grad"].items()
+                     if zero_gradient(task, k)}
+        g_errs = leaf_errs({k: v for k, v in grad.items() if k not in cancelled},
+                           {k: v for k, v in ref["grad"].items() if k not in cancelled})
+        loss_err = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+        out.update(one_process_loss=ref["loss"], loss_rel_err=loss_err,
+                   grad_rel_err=dict(sorted(g_errs.items(), key=lambda kv: -kv[1])[:3]),
+                   cancelled=max(cancelled.values(), default=0.0), weights_vs_own_step=own,
+                   weights_vs_one_process=worst(leaf_errs(whole, ref["params"])))
+        if ref["nonfinite"] or not (loss_err <= DP_RTOL and max(g_errs.values()) <= DP_GRAD_RTOL
+                                    and out["cancelled"] <= CANCELLED_AXES_RTOL
+                                    and own[1] <= DP_RTOL):
+            raise RuntimeError(f"{what} {config} disagrees with one process: loss {loss_err:.3e} "
+                               f"(tolerance {DP_RTOL:g}), gradients {out['grad_rel_err']} "
+                               f"(tolerance {DP_GRAD_RTOL:g}), cancelled {out['cancelled']:.3e}, "
+                               f"weights against the rank's own Adam step {own}")
+    elif own[1] > DP_RTOL:
+        raise RuntimeError(f"{what} {config} rank {mesh.rank}: weights against its own Adam "
+                           f"step {own}")
+    out["replicas_bit_identical"] = same_on_ranks(mesh, whole)
+    if not out["replicas_bit_identical"]:
+        raise RuntimeError(f"{what} {config}: the gathered weights differ between the ranks")
+    # a second step: the first carries the rank's start-up (its first collectives
+    # on each group, the first launches)
+    reset_traffic()
+    held, state, aux, out["warm_ms"], out["warm_launches"] = timed_step(
+        step, held, state, rows, mesh, axes_want(config))
+    out["warm_traffic"] = {k: {"calls": c, "bytes": b} for k, (c, b) in TRAFFIC.items()}
+    return out
+
+
+def axes_fit(mesh, model_dir: Path) -> dict:
+    """Phase 72's ``fit`` with ``num_model_shards`` the world's size (``mesh``:
+    the world's ranks); this rank's launch counts (#5 in training, #6 in its
+    dev eval) and the summary."""
+    exp = experiment_from_dict(dict(AXES_FIT, num_devices=mesh.size, num_model_shards=mesh.size))
+    reset_counts()
+    t = time.perf_counter()
+    summary = fit(exp, model_dir, log_every=1, print_fn=lambda *a: None, device=mesh.device)
+    sync(mesh.device)
+    counts = read_counts()
+    launched = AXES_FIT_LAUNCHED
+    if any(counts[k] < 1 for k in launched) or any(counts[k] for k in COUNTERS
+                                                   if k not in launched):
+        raise RuntimeError(f"rank {mesh.rank}: fit launched {counts}; expected {launched}")
+    return {"summary": summary, "launches": counts, "wall_s": time.perf_counter() - t}
+
+
+def axes_rank(rank: int, world: int, backend: str, store: str, out: str, jobs: tuple,
+              device: str, overrides: dict) -> None:
+    """One rank of phases 71-72 (a spawned process, as ``dp_rank``): the jobs
+    of ``AXES_JOBS`` named in ``jobs``, then ``"fit"``; rank r writes
+    ``<out>/rank<r>.pt``."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import make_grid, make_mesh
+
+    globals().update(overrides)
+    set_full_fp32()
+    if device == "cuda":
+        build.load_library()
+        device = f"cuda:{rank if backend == 'nccl' else 0}"
+    torch.distributed.init_process_group(backend, store=torch.distributed.FileStore(store, world),
+                                         rank=rank, world_size=world)
+    try:
+        res = {"steps": []}
+        for what, config, axes, place, fsdp in AXES_JOBS:
+            if what in jobs:
+                mesh = make_grid(axes, device=device)
+                res["steps"].append(axes_against_one_process(what, config, axes, place, fsdp,
+                                                             mesh))
+        if "fit" in jobs:
+            res["fit"] = axes_fit(make_mesh(world, device=device), Path(out) / "tp_fit")
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def print_axes(r: dict, gpu: str, shared: bool = True) -> None:
+    traffic = ", ".join(f"{k} {v['bytes']:,} B in {v['calls']}" for k, v in r["traffic"].items())
+    line = (f"phase {r['what']} {r['config']} rank {r['rank']} {r['coords']} ({r['rows']} rows "
+            f"of {B_TRAIN} x 12 s): steps {r['ms']:.3f} ms (with the rank's start-up), "
+            f"{r['warm_ms']:.3f} ms ("
+            + ("the ranks share one card over gloo: not a scaling number" if shared
+               else "one card per rank") + f"), loss {r['loss']:.4f}, resident params + Adam "
+            f"{r['resident_bytes'] / 2**20:.2f} MiB (whole {r['whole_bytes'] / 2**20:.2f} MiB), "
+            f"launches {launched(r['launches'])} / {launched(r['warm_launches'])}, collectives "
+            f"per step: {traffic}; gathered "
+            f"weights bit-identical on every rank {r['replicas_bit_identical']}")
+    if "loss_rel_err" in r:
+        line += (f"; vs one process: loss {r['loss_rel_err']:.2e} (tolerance {DP_RTOL:g}), worst "
+                 "gradient leaves of their max " + ", ".join(
+                     f"{k} {x:.2e}" for k, x in r["grad_rel_err"].items())
+                 + f" (tolerance {DP_GRAD_RTOL:g}), key biases of exact gradient 0 at "
+                 f"{r['cancelled']:.2e} of the largest entry (tolerance "
+                 f"{CANCELLED_AXES_RTOL:g}), weights against the rank's own Adam step "
+                 f"{r['weights_vs_own_step'][1]:.2e} of max (tolerance {DP_RTOL:g}), against "
+                 f"one process {r['weights_vs_one_process'][0]} "
+                 f"{r['weights_vs_one_process'][1]:.2e} (reported)")
+    print(line + f"  [{gpu}]", flush=True)
+
+
+def run_model_axes(dev, gpu: str, work: Path, t0: float, overrides: dict | None = None) -> tuple:
+    """Phases 71-72: the model axes' steps against one process on worlds of 2
+    and 4 ranks sharing the card over gloo, ``fit`` with ``num_model_shards:
+    2`` against one process with ``bin/eval`` on its checkpoint, and dp2 x tp2
+    over nccl where the machine shows four cards. Returns (launch counts by
+    path and rank, the numbers)."""
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = {}
+    for world in (2, 4):
+        jobs = tuple(n for n, _, axes, _, _ in AXES_JOBS if math.prod(axes.values()) == world)
+        ranks[world] = spawn_ranks(world, "gloo", work, jobs + (("fit",) if world == 2 else ()),
+                                   dev.type, overrides, entry=axes_rank, tag="axes")
+    spawn_s = time.perf_counter() - t
+    counts, steps = {}, []
+    for world, rs in ranks.items():
+        for i in range(len(rs[0]["steps"])):
+            for r in rs:
+                s = r["steps"][i]
+                print_axes(s, gpu)
+                tag = s["what"].split(" ", 1)[1].replace(" x ", "x").replace(" + ", "_")
+                counts[f"{tag.replace(' ', '_')}_{s['config']}_rank{s['rank']}"] = s["launches"]
+                steps.append({k: v for k, v in s.items() if k not in ("launches", "warm_launches")})
+    clock(f"phase 71 ranks done ({spawn_s:.1f} s with the spawns)", t0)
+    # phase 72: fit under tp2 against one process; bin/eval restores the checkpoint alone
+    fit2 = ranks[2][0]["fit"]
+    one = fit(experiment_from_dict(AXES_FIT), work / "axes_fit_one", log_every=1,
+              print_fn=lambda *a: None, device=dev)
+    tp_dir = work / "axes_gloo_2" / "tp_fit"
+    res, counts["eval_tp_checkpoint"] = run_cli(
+        "72 bin/eval of the tp2 checkpoint, one process", eval_cli.main,
+        [str(tp_dir), "--device", str(dev.type), "--beam-width", "1"], AXES_EVAL_LAUNCHED,
+        gpu)  # greedy, as fit's dev eval decodes
+    s2 = fit2["summary"]
+    errs = {"dev_loss": abs(s2["dev_loss"] - one["dev_loss"]) / abs(one["dev_loss"]),
+            "train_loss": abs(s2["train_loss"] - one["train_loss"]) / abs(one["train_loss"])}
+    print(f"phase 72 fit ls960_conformer_ctc 1 toy epoch, num_model_shards 2 (gloo, one card): "
+          f"{fit2['wall_s']:.1f} s wall, {s2['steps']} steps, dev error "
+          f"{s2['dev_error_rate']:.4f} (one process: {one['dev_error_rate']:.4f}), dev loss "
+          f"{s2['dev_loss']!r} ({one['dev_loss']!r}), train loss {s2['train_loss']!r} "
+          f"({one['train_loss']!r}); rank launches "
+          f"{[launched(r['fit']['launches']) for r in ranks[2]]}; bin/eval in one process: dev "
+          f"error {res['dev']['error_rate']:.4f}; relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tolerance {FIT_RTOL:g})  [{gpu}]", flush=True)
+    if not (s2["dev_error_rate"] == one["dev_error_rate"] == res["dev"]["error_rate"]
+            and s2["steps"] == one["steps"] and max(errs.values()) <= FIT_RTOL):
+        raise RuntimeError(f"fit with num_model_shards 2 {s2} differs from one process {one} "
+                           f"or bin/eval of its checkpoint {res['dev']}: {errs}")
+    for rank, r in enumerate(ranks[2]):
+        counts[f"tp2_fit_rank{rank}"] = r["fit"]["launches"]
+    across = None
+    many = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if many >= 4:
+        across = [r["steps"][0] for r in spawn_ranks(
+            4, "nccl", work, ("71 dp2 x tp2 + fsdp",), entry=axes_rank, tag="axes")]
+        for r in across:
+            print_axes(r, gpu, shared=False)
+    else:
+        print(f"phase 72 dp2 x tp2 over nccl, one card per rank: the machine shows {many} "
+              "card; not run (not a pass)", flush=True)
+    clock("phases 71-72 (tensor, sequence and expert parallelism) done", t0)
+    return counts, {"spawn_s": spawn_s, "steps": steps,
+                    "fit": {"tp2": s2, "one_process": one, "rel_errs": errs,
+                            "bin_eval_dev": res["dev"], "wall_s": fit2["wall_s"]},
+                    "nccl_across_cards": across}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -5592,6 +5863,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
     counts.update(zoo_counts)
     dp_counts, data_parallel = run_data_parallel(dev, gpu, work, t0)
     counts.update(dp_counts)
+    axes_counts, model_axes = run_model_axes(dev, gpu, work, t0)
+    counts.update(axes_counts)
     # the bf16 products' gradient from the float32 cotangent, read off phases 45 and 48
     head, conf = bf16_numbers["headline"], bf16_numbers["conformer_512x8"]
     cublas = conf[BF16]["by_kind"].get("matmul (cuBLAS)", {"ms": 0.0, "launches": 0})
@@ -5742,7 +6015,8 @@ def run(args, dev, gpu: str, work: Path) -> int:
                       "bf16": dict(bf16_numbers, f1=f1),
                       "attention_bf16": att_bf16_numbers, "data_root": data_root,
                       "export": exported, "stream_bf16": stream_bf16,
-                      "encoder_zoo": zoo, "data_parallel": data_parallel}), flush=True)
+                      "encoder_zoo": zoo, "data_parallel": data_parallel,
+                      "model_axes": model_axes}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,17 @@ inputs of every product that the reference runs with
 their ``rel_shift`` / RoPE terms, the context, the MoE bank) to bf16 and
 sums them in float32 (``ops/bf16.matmul``); LayerNorm, the router, the
 softmax, the depthwise conv and the residuals stay float32.
+
+Inside a train step over a mesh with model, sequence or expert shards
+(``parallel.mesh.global_batch``; ``step_shards``) each rank runs its part
+with the collectives of ``parallel/``: MHSA its h/M heads and each FF its
+ff/M columns between Megatron's *f* and *g* (``parallel/tp.py``); the stack
+its frames of T padded to a multiple of S, MHSA with K and V gathered from
+every seq rank at the queries' global frames, the depthwise conv with its
+neighbours' halo, one gather at the exit (``parallel/sp.py``); the MoE bank
+its E/X experts (``parallel/ep.py``). Each module has one body: outside
+a step (eval, serving) or on a mesh without such shards one rank holds every
+head, column, frame and expert, and the collectives are the identity.
 """
 
 from __future__ import annotations
@@ -39,7 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bf16 as bf16_ops
-from ..parallel.mesh import batch_sum
+from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS, Mesh, batch_sum, step_placement
+from ..parallel.sp import SeqShard, gather_seq, halo, seq_shard
+from ..parallel.tp import copy_to, reduce_from
 from .rnn import dropout
 
 MASK_FILL = -1e30
@@ -134,8 +147,11 @@ class FeedForward(nn.Module):
         self.add_module("in", Dense(spec.dim, e, generator, spec.bf16))
         self.out = Dense(e, spec.dim, generator, spec.bf16)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(F.silu(self._modules["in"](self.ln(x))))
+    def forward(self, x: torch.Tensor, shards: "Shards | None" = None) -> torch.Tensor:
+        # column-parallel in (this rank's ff/M columns) -> row-parallel out, then its bias
+        g = shards.model.group if shards is not None else None
+        y = F.silu(self._modules["in"](copy_to(self.ln(x), g)))
+        return reduce_from(bf16_ops.linear(y, self.out.w, self.out.bf16), g) + self.out.b
 
 
 class _Weights(nn.Module):
@@ -163,15 +179,19 @@ class MoEFeedForward(nn.Module):
         self.add_module("in", _Weights(w=_uniform((n, d, e), s, generator), b=torch.zeros(n, e)))
         self.out = _Weights(w=_uniform((n, e, d), s, generator), b=torch.zeros(n, d))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, shards: "Shards | None" = None):
         """(out [B, T, d], aux loss scalar). Gates keep every expert whose
         probability is at least the k-th largest (ties keep more than k),
         renormalised; the aux loss is E · Σ_e fraction_e · mean_prob_e over
         the valid frames (1.0 = balanced), with fractions from the argmax.
-        Inside a data-parallel train step (``parallel.mesh.global_batch``)
-        the frames are the global batch's: the fractions and the frame count
-        are summed over the ranks, and the aux loss is this rank's share of
-        the global term (``train/accum.weighted_value_and_grad``)."""
+        Inside a train step over ranks (``parallel.mesh.global_batch``) the
+        frames are the global batch's: the fractions and the frame count
+        are summed over the ranks that hold other rows or frames, and the
+        aux loss is this rank's share of the global term
+        (``train/accum.weighted_value_and_grad``). With ``expert`` shards
+        (``parallel/ep.py``) the bank holds this rank's E/X experts: they
+        run over every frame, and their gated sum is summed over the
+        expert line."""
         n = self.spec.moe_experts
         k = min(self.spec.moe_top_k, n)
         y = self.ln(x)
@@ -182,21 +202,27 @@ class MoEFeedForward(nn.Module):
             gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
         else:
             gates = probs
+        experts = (shards if shards is not None else Shards.whole(mask)).expert
+        local = n // experts.size  # this rank's experts: f on their inputs
+        y_e = copy_to(y, experts.group)
+        gates_e = copy_to(gates, experts.group)[..., experts.rank * local:
+                                                (experts.rank + 1) * local]
         w_in, w_out = self._modules["in"], self.out
         if self.spec.bf16:  # y [1, B, T, d] @ w [E, 1, d, f]: every expert on every frame
-            h = bf16_ops.matmul(y[None], w_in.w[:, None])
+            h = bf16_ops.matmul(y_e[None], w_in.w[:, None])
         else:
-            h = torch.einsum("btd,edf->ebtf", y, w_in.w)
+            h = torch.einsum("btd,edf->ebtf", y_e, w_in.w)
         h = F.silu(h + w_in.b[:, None, None, :])
         if self.spec.bf16:
             o = bf16_ops.matmul(h, w_out.w[:, None])
         else:
             o = torch.einsum("ebtf,efd->ebtd", h, w_out.w)
         o = o + w_out.b[:, None, None, :]
-        out = torch.einsum("ebtd,bte->btd", o, gates)
+        out = reduce_from(torch.einsum("ebtd,bte->btd", o, gates_e),
+                          experts.group)  # g: the other ranks' experts
         m = mask.to(probs.dtype)
         one_hot = F.one_hot(probs.argmax(dim=-1), n).to(probs.dtype)
-        # inside a data-parallel train step the counts are the global batch's,
+        # inside a train step over ranks the counts are the global batch's,
         # and this rank's probabilities give its share of the global mean
         counts, frames = batch_sum((one_hot * m[..., None]).sum((0, 1)), m.sum())
         denom = frames.clamp_min(1.0)
@@ -259,11 +285,60 @@ def window_mask(t: int, left_context: int, device=None) -> torch.Tensor:
     return (j <= i) & (i - j <= left_context)
 
 
+def rel_shift_at(x: torch.Tensor, qpos: torch.Tensor, t: int) -> torch.Tensor:
+    """``rel_shift`` for queries at global frames ``qpos`` [Tq] of T:
+    [B, h, Tq, 2T-1] -> [B, h, Tq, T], out[..., i, j] = x[..., i, T-1-qpos_i+j]."""
+    idx = (t - 1 - qpos)[:, None] + torch.arange(t, device=x.device)[None, :]
+    return torch.gather(x, -1, idx.expand(x.shape[:-1] + (t,)))
+
+
+def window_at(qpos: torch.Tensor, t: int, left_context: int) -> torch.Tensor:
+    """``window_mask``'s rows of the queries at global frames ``qpos``: [Tq, T]."""
+    i = qpos[:, None]
+    j = torch.arange(t, device=qpos.device)[None, :]
+    return (j <= i) & (i - j <= left_context)
+
+
+class Shards(NamedTuple):
+    """This rank's part of a conformer inside a train step over a mesh
+    (``parallel/``): the 1-D meshes of its ``model`` line (its h/M heads and
+    ff/M FF columns) and its ``expert`` line (its E/X experts), its frames
+    (``seq``, None without sequence shards) and the key mask of every frame
+    [B, T padded]."""
+
+    model: Mesh
+    expert: Mesh
+    seq: SeqShard | None
+    key_mask: torch.Tensor
+
+    @staticmethod
+    def whole(key_mask: torch.Tensor) -> "Shards":
+        """One rank holding every head, column, frame and expert."""
+        one = Mesh(0, 1, key_mask.device)
+        return Shards(one, one, None, key_mask)
+
+
+def step_shards(t: int, lengths: torch.Tensor) -> Shards:
+    """The ``Shards`` of a T-frame batch in the running train step (whole
+    outside a step)."""
+    mesh, _ = step_placement()
+    seq = seq_shard(mesh, t)
+    t_all = seq.padded if seq is not None else t
+    key_mask = torch.arange(t_all, device=lengths.device)[None, :] < lengths[:, None]
+    return Shards(mesh.along(MODEL_AXIS), mesh.along(EXPERT_AXIS), seq, key_mask)
+
+
 class MHSA(nn.Module):
     """``_mhsa``: LN, q/k/v/o projections, positions by the spec's scheme
     (``pos`` [d, d] with no bias and ``pos_u`` / ``pos_v`` [h, dh] zeros for
     ``relative``), scores / sqrt(dh) masked with -1e30 (keys, then the
-    window), softmax, and the output projection."""
+    window), softmax, and the output projection.
+
+    With ``shards`` it runs this rank's heads (``model``: q / k / v
+    column-parallel behind *f*, o row-parallel before *g* and its bias; the
+    relative-position leaves behind *f* too, so each model rank gets their
+    whole gradient) and frames (``seq``: local queries at their global
+    frames, K and V gathered from every seq rank)."""
 
     def __init__(self, spec: ConformerSpec, generator=None):
         super().__init__()
@@ -278,31 +353,47 @@ class MHSA(nn.Module):
             self.pos_u = nn.Parameter(torch.zeros(h, d // h))
             self.pos_v = nn.Parameter(torch.zeros(h, d // h))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                shards: Shards | None = None) -> torch.Tensor:
+        shards = shards if shards is not None else Shards.whole(mask)
         b, t, d = x.shape
-        h = self.spec.num_heads
+        h, m, seq = self.spec.num_heads, shards.model, shards.seq
         dh = d // h
-        y = self.ln(x)
-        split = lambda z: z.reshape(b, t, h, dh).transpose(1, 2)  # noqa: E731  [B, h, T, dh]
+        hl = h // m.size
+        first = m.rank * hl  # this rank's first head
+        heads, cols = slice(first, first + hl), slice(first * dh, (first + hl) * dh)
+        y = copy_to(self.ln(x), m.group)
+        split = lambda z: z.reshape(b, t, hl, dh).transpose(1, 2)  # noqa: E731  [B, h/M, T, dh]
         q, k, v = split(self.q(y)), split(self.k(y)), split(self.v(y))
         mm = lambda a, b: bf16_ops.linear(a, b, self.spec.bf16)  # noqa: E731
-        if self.spec.pos_encoding == "relative":
-            r = mm(rel_posemb(t, d, x.device), self.pos.w)  # [2T-1, d]
-            r = r.reshape(2 * t - 1, h, dh).transpose(0, 1)  # [h, 2T-1, dh]
-            ac = mm(q + self.pos_u[None, :, None, :], k.transpose(-1, -2))
-            bd = mm(q + self.pos_v[None, :, None, :], r.transpose(-1, -2))
-            scores = ac + rel_shift(bd)
-        else:
-            if self.spec.pos_encoding == "rotary":
+        t_all = seq.padded if seq is not None else t
+        qpos = seq.positions(x.device) if seq is not None else None
+        if self.spec.pos_encoding == "rotary":
+            if seq is None:
                 q, k = rope(q), rope(k)
+            else:
+                pos = qpos[None].expand(b, t)
+                q, k = rope_at(q, pos), rope_at(k, pos)
+        if seq is not None:
+            k, v = gather_seq(k, seq, dim=2), gather_seq(v, seq, dim=2)
+        if self.spec.pos_encoding == "relative":
+            pos_w, pos_u, pos_v = (copy_to(p, m.group) for p in (self.pos.w, self.pos_u,
+                                                                  self.pos_v))
+            r = mm(rel_posemb(t_all, d, x.device), pos_w[:, cols])  # [2T-1, d/M]
+            r = r.reshape(2 * t_all - 1, hl, dh).transpose(0, 1)
+            ac = mm(q + pos_u[heads][None, :, None, :], k.transpose(-1, -2))
+            bd = mm(q + pos_v[heads][None, :, None, :], r.transpose(-1, -2))
+            scores = ac + (rel_shift(bd) if seq is None else rel_shift_at(bd, qpos, t_all))
+        else:
             scores = mm(q, k.transpose(-1, -2))
         scores = scores / math.sqrt(dh)
-        scores = torch.where(mask[:, None, None, :], scores, MASK_FILL)
+        scores = torch.where(shards.key_mask[:, None, None, :], scores, MASK_FILL)
         if self.spec.left_context >= 0:
-            win = window_mask(t, self.spec.left_context, x.device)
+            win = (window_mask(t, self.spec.left_context, x.device) if seq is None
+                   else window_at(qpos, t_all, self.spec.left_context))
             scores = torch.where(win[None, None], scores, MASK_FILL)
-        out = mm(torch.softmax(scores, dim=-1), v)
-        return self.o(out.transpose(1, 2).reshape(b, t, d))
+        out = mm(torch.softmax(scores, dim=-1), v).transpose(1, 2).reshape(b, t, hl * dh)
+        return reduce_from(bf16_ops.linear(out, self.o.w, self.o.bf16), m.group) + self.o.b
 
 
 class ConvModule(nn.Module):
@@ -320,20 +411,35 @@ class ConvModule(nn.Module):
         self.norm = LayerNorm(d)
         self.pw2 = Dense(d, d, generator, spec.bf16)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                shards: Shards | None = None) -> torch.Tensor:
         a, g = self.pw1(self.ln(x)).chunk(2, dim=-1)
         y = a * torch.sigmoid(g) * mask[..., None]  # pad frames must not leak through the conv
-        y = depthwise_conv(y, self.dw, causal=self.spec.left_context >= 0)
+        causal = self.spec.left_context >= 0
+        if shards is not None and shards.seq is not None:  # the neighbours' frames as padding
+            lo, hi = conv_padding(self.dw.shape[0], causal)
+            y = depthwise_conv(halo(y, shards.seq, lo, hi), self.dw, causal, pad=False)
+        else:
+            y = depthwise_conv(y, self.dw, causal)
         return self.pw2(F.silu(self.norm(y)))
 
 
-def depthwise_conv(y: torch.Tensor, dw: torch.Tensor, causal: bool) -> torch.Tensor:
+def conv_padding(k: int, causal: bool) -> tuple:
+    """(left, right) frames of a k-tap depthwise conv: SAME, or k - 1 on the left."""
+    lo = k - 1 if causal else (k - 1) // 2
+    return lo, k - 1 - lo
+
+
+def depthwise_conv(y: torch.Tensor, dw: torch.Tensor, causal: bool,
+                   pad: bool = True) -> torch.Tensor:
     """y [B, T, d] * dw [k, 1, d] as one grouped cross-correlation (as
     ``conv_general_dilated``): w[c, 0, i] = dw[i, 0, c], no flip; padded
-    ((k-1)//2, k-1-(k-1)//2) (SAME), or (k-1, 0) when ``causal``."""
-    k, d = dw.shape[0], dw.shape[2]
-    lo = k - 1 if causal else (k - 1) // 2
-    yp = F.pad(y.transpose(1, 2), (lo, k - 1 - lo))
+    ((k-1)//2, k-1-(k-1)//2) (SAME), or (k-1, 0) when ``causal``; with
+    ``pad`` False ``y`` carries its padding frames already."""
+    d = dw.shape[2]
+    yp = y.transpose(1, 2)
+    if pad:
+        yp = F.pad(yp, conv_padding(dw.shape[0], causal))
     return F.conv1d(yp, dw.permute(2, 1, 0), groups=d).transpose(1, 2)
 
 
@@ -394,37 +500,51 @@ class Conformer(nn.Module):
         spec = self.spec
         t = xs.shape[1]
         mask = torch.arange(t, device=xs.device)[None, :] < lengths.to(xs.device)[:, None]
+        shards = step_shards(t, lengths.to(xs.device))
+        seq = shards.seq
+        if seq is not None:  # this rank's frames from here to the exit gather
+            xs, mask = seq.cut(xs), seq.cut(shards.key_mask)
         x = self.proj(xs)
         if spec.pos_encoding == "absolute":
-            x = x + posenc(t, spec.dim, xs.device)[None]
+            if seq is None:
+                x = x + posenc(t, spec.dim, xs.device)[None]
+            else:
+                x = x + sinusoids(seq.positions(xs.device), spec.dim)[None]
 
         def drop(z):
-            if train and generator is not None:
+            if not (train and generator is not None):
+                return z
+            if seq is None or keep_prob >= 1.0:
                 return dropout(z, keep_prob, train, generator)
-            return z
+            # every seq rank draws the mask of all frames and keeps its own
+            shape = (z.shape[0], seq.padded) + tuple(z.shape[2:])
+            keep = seq.cut(torch.rand(shape, generator=generator, device=z.device)) < keep_prob
+            return torch.where(keep, z / keep_prob, 0.0)
 
         aux_total = []
 
         def final_ff(p, x):
             if spec.is_moe:
-                y, aux = p.moe(x, mask)
+                y, aux = p.moe(x, mask, shards)
                 aux_total.append(aux)
                 return y
-            return (p.ff if spec.block == "transformer" else p.ff2)(x)
+            return (p.ff if spec.block == "transformer" else p.ff2)(x, shards)
 
         if spec.block == "transformer":
             for p in self.layers:
-                x = x + drop(p.mhsa(x, mask))
+                x = x + drop(p.mhsa(x, mask, shards))
                 x = x + drop(final_ff(p, x))
             x = self.ln_out(x)
         else:
             for p in self.layers:
-                x = x + 0.5 * drop(p.ff1(x))
-                x = x + drop(p.mhsa(x, mask))
-                x = x + drop(p.conv(x, mask))
+                x = x + 0.5 * drop(p.ff1(x, shards))
+                x = x + drop(p.mhsa(x, mask, shards))
+                x = x + drop(p.conv(x, mask, shards))
                 x = x + 0.5 * drop(final_ff(p, x))
                 x = p.ln(x)
         out = x * mask[..., None]
+        if seq is not None:  # every frame for the head and the loss
+            out = gather_seq(out, seq)[:, :t]
         if not spec.is_moe:
             return out, None
         return out, spec.moe_aux_weight * torch.stack(aux_total).sum() / len(self.layers)

@@ -37,12 +37,33 @@ def joint_loss(ctc_nll, att_nll, ctc_loss_weight: float):
 
 
 def l2_weight_decay(params: dict, coeff: float) -> torch.Tensor:
-    """``coeff`` times the sum of ``0.5 * ||w||^2`` over weight matrices (no biases)."""
+    """``coeff`` times the sum of ``0.5 * ||w||^2`` over weight matrices (no biases).
+
+    Inside a train step whose leaves are split over model or expert ranks
+    (``parallel.mesh.global_batch``) ``params`` holds this rank's blocks:
+    their squares are summed over the axes that split them (*g*:
+    ``parallel.tp.reduce_from``), so the value counts each element once and
+    each block's gradient stays its own. A replicated leaf counts whole on
+    every rank."""
     first = next(iter(params.values()))
     if coeff == 0.0:
         return first.new_zeros(())
+    from ..parallel.mesh import DATA_AXIS, step_placement
+    from ..parallel.tp import reduce_from
+
+    mesh, specs = step_placement()
     total = first.new_zeros(())
-    for leaf in params.values():
-        if leaf.dim() >= 2:
-            total = total + 0.5 * leaf.square().sum()
+    split = {}
+    for k, leaf in params.items():
+        if leaf.dim() < 2:
+            continue
+        axes = () if specs is None else tuple(a for a in specs[k] if a not in (None, DATA_AXIS))
+        term = 0.5 * leaf.square().sum()
+        axes = mesh.split_axes(axes)
+        if axes:
+            split[axes] = split.get(axes, first.new_zeros(())) + term
+        else:
+            total = total + term
+    for axes in sorted(split):
+        total = total + reduce_from(split[axes], mesh.along(*axes).group)
     return coeff * total

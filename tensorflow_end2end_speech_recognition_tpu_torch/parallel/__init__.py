@@ -1,33 +1,65 @@
-"""Data parallelism and ZeRO-3 over ``torch.distributed`` ranks.
+"""Data, tensor, sequence and expert parallelism and ZeRO-3 over
+``torch.distributed`` ranks.
 
-Counterpart of ``tensorflow_end2end_speech_recognition_tpu/parallel``'s
-data axis: ``mesh`` (DP), ``multihost`` (per-rank rows, summed eval
-counts) and ``fsdp``. Tensor, sequence, expert and pipeline parallelism
-(``tp``, ``sp``, ``ep``, ``pp``) are not ported yet.
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/parallel``:
+``mesh`` (named axes, DP), ``multihost`` (per-rank rows, summed eval
+counts), ``fsdp`` (ZeRO-3, composed with tp / ep through ``base_specs``),
+``tp`` (Megatron column -> row pairs over ``model``), ``sp`` (the
+conformer's frames over ``seq``) and ``ep`` (MoE experts over ``expert``).
+Pipeline parallelism (``pp``) is not ported yet.
 """
 
+from .ep import expert_partition_specs, make_mesh_dp_ep, setup_expert_parallel
 from .fsdp import fsdp_partition_specs, setup_fsdp
 from .mesh import (
     batch_sharding,
+    make_grid,
     make_mesh,
     replicate,
     replicated,
     setup_data_parallel,
     shard_batch,
 )
-from .multihost import allreduce_counts, distribute_batch, local_replica, process_slice
+from .multihost import (
+    allreduce_counts,
+    distribute_batch,
+    global_device_batch,
+    local_replica,
+    process_slice,
+)
+from .sp import make_mesh_dp_sp, seq_shard_fn, setup_sequence_parallel
+from .tp import (
+    make_mesh_2d,
+    make_mesh_3d,
+    opt_state_shardings,
+    param_partition_specs,
+    setup_tensor_parallel,
+)
 
 __all__ = [
     "allreduce_counts",
     "batch_sharding",
     "distribute_batch",
+    "expert_partition_specs",
     "fsdp_partition_specs",
+    "global_device_batch",
     "local_replica",
+    "make_grid",
     "make_mesh",
+    "make_mesh_2d",
+    "make_mesh_3d",
+    "make_mesh_dp_ep",
+    "make_mesh_dp_sp",
+    "opt_state_shardings",
+    "param_partition_specs",
     "process_slice",
     "replicate",
     "replicated",
+    "seq_shard_fn",
     "setup_data_parallel",
+    "setup_expert_parallel",
     "setup_fsdp",
+    "setup_sequence_parallel",
+    "setup_tensor_parallel",
     "shard_batch",
 ]

@@ -1,18 +1,31 @@
-"""The data-parallel mesh: one process per rank over ``torch.distributed``.
+"""The mesh: one process per rank over ``torch.distributed``, with named axes.
 
-Counterpart of ``tensorflow_end2end_speech_recognition_tpu/parallel/mesh.py``.
-There a 1-D ``data`` mesh spans the devices of one program, batches are
-sharded on their leading axis and jit inserts the gradient all-reduce.
-Here each rank is a process that owns one device: it takes its rows of
-every global batch (``shard_batch``), holds a replica of the training
-state (``replicate``: a broadcast from rank 0) and the train step
-(``train/ctc_task.guarded_train_step``) reduces loss and gradients with
-explicit collectives, so one step over N ranks is the one-program step
-over the global batch.
+Counterpart of ``tensorflow_end2end_speech_recognition_tpu/parallel/mesh.py``
+and of the mesh builders of its ``tp``, ``sp`` and ``ep`` modules. There a
+mesh spans the devices of one program, weights and batches are placed with
+``NamedSharding`` and jit inserts the collectives. Here each rank is a
+process that owns one device: it takes its rows of every global batch
+(``shard_batch``), holds its blocks of the training state and the train
+step (``train/ctc_task.guarded_train_step``) runs the collectives itself,
+so one step over the ranks is the one-program step over the global batch.
 
-A placement spec is the dim a tensor is split on over the data axis, or
-``None`` for replicated: ``batch_sharding`` gives 0 (the rows) and
-``replicated`` gives None, the port's ``P("data")`` and ``P()``.
+A mesh has named axes, major to minor, whose sizes multiply to the world
+size: ``data`` alone (data parallelism), ``(data, model)``, ``(data, seq,
+model)``, ``(data, seq)`` or ``(data, expert)``. Rank r sits where JAX puts
+device r: the minor axis varies fastest, so rank = ((d·S) + s)·M + m on a
+``(data, seq, model)`` mesh, and block r of a sharded leaf lives on rank r
+as it lives on device r. ``along(axes)`` is the 1-D mesh of this rank's
+line along some axes: its ``group`` is the ``torch.distributed`` subgroup
+of the ranks that differ from this one only there (every rank creates every
+subgroup, in one order, when the mesh is built).
+
+A placement spec is a tuple with one entry per leading dim, the axis that
+splits that dim or None, as ``tuple(PartitionSpec)`` of the JAX spec:
+``()`` is replicated, ``("data",)`` the batch's rows, ``(None, "model")`` a
+column-parallel weight, ``("data", "model")`` one that ZeRO-3 also splits.
+Dim i of a leaf split over an axis of n ranks is cut into n contiguous
+blocks, block k on the ranks whose index on that axis is k
+(``local_block``).
 
 A mesh with no process group (``make_mesh()`` outside ``torchrun``, or
 ``LOCAL``) has one rank and runs no collective: the one-process train step
@@ -22,6 +35,8 @@ is the data-parallel step over ``LOCAL``.
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import os
 from dataclasses import dataclass
 
@@ -30,26 +45,79 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+EXPERT_AXIS = "expert"
+BATCH_AXES = (DATA_AXIS, SEQ_AXIS)  # the axes whose ranks hold different rows or frames
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place on the 1-D data mesh. ``group`` is the process
-    group of the ranks (None: no group, one rank, no collective)."""
+    """This rank's place on the mesh. ``group`` is the process group of all
+    its ranks (None: no group, one rank, no collective); ``axes`` the named
+    axes ``((name, size), ...)`` major to minor (empty: one ``data`` axis of
+    ``size``); ``subgroups`` ``((axis names, group), ...)`` this rank's
+    group along each proper subset of the axes of more than one rank."""
 
     rank: int
     size: int
     device: torch.device | None
     group: object = None
+    axes: tuple = ()
+    subgroups: tuple = ()
+
+    @property
+    def axis_sizes(self) -> tuple:
+        return self.axes or ((DATA_AXIS, self.size),)
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.size}
+        return dict(self.axis_sizes)
 
     @property
     def is_lead(self) -> bool:
         """Rank 0: the rank that writes logs, metrics and checkpoints."""
         return self.rank == 0
+
+    def coords(self) -> dict:
+        """This rank's index on every axis."""
+        out, rest = {}, self.rank
+        for name, n in reversed(self.axis_sizes):
+            out[name] = rest % n
+            rest //= n
+        return out
+
+    def coord(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 on an axis the mesh does not have)."""
+        return self.coords().get(axis, 0)
+
+    def degree(self, *axes: str) -> int:
+        """How many ranks the axes span together (1 for axes the mesh lacks)."""
+        shape = self.shape
+        return math.prod(shape.get(a, 1) for a in axes)
+
+    def split_axes(self, axes) -> tuple:
+        """The axes of ``axes`` with more than one rank, in mesh order."""
+        axes = set(axes)
+        return tuple(a for a, n in self.axis_sizes if a in axes and n > 1)
+
+    def along(self, *axes: str) -> "Mesh":
+        """The 1-D mesh of this rank's line along ``axes``: its rank is this
+        rank's index there (the first axis major), its size the line's
+        length, its group the line's subgroup (None for one rank)."""
+        live = self.split_axes(axes)
+        if not live:
+            return Mesh(0, 1, self.device)
+        coords, shape = self.coords(), self.shape
+        idx = 0
+        for a in live:
+            idx = idx * shape[a] + coords[a]
+        size = math.prod(shape[a] for a in live)
+        if live == self.split_axes(shape):
+            group = self.group
+        else:
+            group = dict(self.subgroups)[live]
+        return Mesh(idx, size, self.device, group)
 
 
 LOCAL = Mesh(0, 1, None)  # one process, no group: the one-process train step's mesh
@@ -75,47 +143,104 @@ def rank_seed(seed: int, rank: int) -> int:
     """The generator seed of rank ``rank`` from ``seed``: rank 0 keeps
     ``seed`` (a one-process run's stream), the others draw streams of their
     own, so no two ranks repeat each other's dropout or SpecAugment masks.
-    The others stay within 32 bits: the CPU generator keeps only those."""
+    The others stay within 32 bits: the CPU generator keeps only those.
+    ``fit`` seeds by the data index: the ranks of one data line (model,
+    sequence or expert shards of the same rows) draw the same masks."""
     return seed if rank == 0 else (seed + rank * 0x9E3779B1) % (1 << 32)
 
 
-def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
-    """The mesh of the initialized default process group on this rank's
-    device (``rank_device``). ``num_devices`` must equal the group's world
-    size; with no group only one device is possible."""
+def _world(total: int) -> tuple:
+    """(rank, size, group) of the initialized default group, which must hold
+    ``total`` ranks; (0, 1, None) for one rank without a group."""
     if dist.is_available() and dist.is_initialized():
-        rank, size, group = dist.get_rank(), dist.get_world_size(), dist.group.WORLD
-        if num_devices is not None and num_devices != size:
-            raise ValueError(f"num_devices {num_devices} does not match the process group's "
+        rank, size = dist.get_rank(), dist.get_world_size()
+        if total != size:
+            raise ValueError(f"num_devices {total} does not match the process group's "
                              f"world size {size}")
-    else:
-        if (num_devices or 1) > 1:
-            raise ValueError(f"num_devices {num_devices} needs {num_devices} ranks in an "
-                             "initialized process group (launch with torchrun "
-                             f"--nproc-per-node {num_devices}); none is initialized")
-        rank, size, group = 0, 1, None
+        return rank, size, dist.group.WORLD
+    if total > 1:
+        raise ValueError(f"num_devices {total} needs {total} ranks in an initialized process "
+                         f"group (launch with torchrun --nproc-per-node {total}); none is "
+                         "initialized")
+    return 0, 1, None
+
+
+def _lines(axes: tuple, sub: tuple) -> list:
+    """The rank lists of every line along the axes ``sub`` of a mesh with
+    ``axes``: the ranks that agree on every other axis."""
+    names = [a for a, _ in axes]
+    grid = np.arange(math.prod(n for _, n in axes)).reshape([n for _, n in axes])
+    keep = [names.index(a) for a in sub]
+    rest = [i for i in range(len(names)) if i not in keep]
+    lines = grid.transpose(rest + keep).reshape(-1, math.prod(grid.shape[i] for i in keep))
+    return [[int(r) for r in line] for line in lines]
+
+
+def make_grid(axes: dict, device=None) -> Mesh:
+    """The mesh with named ``axes`` (``{name: size}``, major to minor) over
+    the initialized default process group, whose world size must be their
+    product, on this rank's device (``rank_device``). Every rank creates
+    the subgroup of every line along every proper subset of the axes of
+    more than one rank, in the same order (``dist.new_group`` is collective)."""
+    axes = tuple((name, int(n)) for name, n in axes.items())
+    total = math.prod(n for _, n in axes)
+    rank, size, group = _world(total)
+    subgroups = []
+    if group is not None:
+        live = [a for a, n in axes if n > 1]
+        for k in range(1, len(live)):
+            for sub in itertools.combinations(live, k):
+                mine = None
+                for ranks in _lines(axes, sub):
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        mine = g
+                subgroups.append((sub, mine))
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(rank, size, dev, group)
+    return Mesh(rank, size, dev, group, axes, tuple(subgroups))
 
 
-def batch_sharding(mesh: Mesh) -> int:
+def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
+    """The 1-D data mesh of the initialized default process group on this
+    rank's device (``rank_device``). ``num_devices`` must equal the group's
+    world size; with no group only one device is possible."""
+    if dist.is_available() and dist.is_initialized() and num_devices is None:
+        num_devices = dist.get_world_size()
+    return make_grid({DATA_AXIS: num_devices or 1}, device)
+
+
+def batch_sharding(mesh: Mesh) -> tuple:
     """The batch's placement: its leading axis split over the data axis."""
-    return 0
+    return (DATA_AXIS,)
 
 
-def replicated(mesh: Mesh) -> None:
+def replicated(mesh: Mesh) -> tuple:
     """A replicated placement: every rank holds the whole tensor."""
-    return None
+    return ()
+
+
+def local_block(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` placed by ``spec``."""
+    coords, shape = mesh.coords(), mesh.shape
+    for dim, axis in enumerate(spec or ()):
+        if axis is not None and shape.get(axis, 1) > 1:
+            x = x.tensor_split(shape[axis], dim)[coords[axis]]
+    return x.contiguous()
 
 
 def shard_batch(mesh: Mesh, batch: dict) -> dict:
-    """This rank's rows (``multihost.process_slice``) of a host batch, as
-    tensors on the rank's device; the host-side ``names`` are dropped."""
+    """This rank's rows (``multihost.process_slice`` at its data index: the
+    ranks of one data line take the same rows) of a host batch, as tensors
+    on the rank's device; the host-side ``names`` are dropped."""
     from .multihost import process_slice
 
-    rows = process_slice(batch, mesh.rank, mesh.size)
+    return to_device(mesh, process_slice(batch, mesh.coord(DATA_AXIS), mesh.degree(DATA_AXIS)))
+
+
+def to_device(mesh: Mesh, rows: dict) -> dict:
+    """Host rows as tensors on the rank's device, the host-side ``names`` dropped."""
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
             .to(mesh.device) for k, v in rows.items() if k != "names"}
 
@@ -134,12 +259,27 @@ def replicate(mesh: Mesh, tree):
     return x
 
 
+TRAFFIC: dict = {}  # collective -> [calls, bytes this rank put in], since reset_traffic()
+
+
+def count_traffic(kind: str, t: torch.Tensor) -> None:
+    """Count one collective of ``kind`` on the buffer ``t`` this rank puts in."""
+    calls = TRAFFIC.setdefault(kind, [0, 0])
+    calls[0] += 1
+    calls[1] += t.numel() * t.element_size()
+
+
+def reset_traffic() -> None:
+    TRAFFIC.clear()
+
+
 def all_reduce_flat(mesh: Mesh, tensors: list) -> list:
-    """Each tensor summed over the ranks, in one collective on a flat
-    float32 buffer (each comes back in its dtype and shape)."""
+    """Each tensor summed over the ranks of ``mesh.group``, in one collective
+    on a flat float32 buffer (each comes back in its dtype and shape)."""
     if mesh.group is None or not tensors:
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+    count_traffic("all_reduce", flat)
     dist.all_reduce(flat, group=mesh.group)
     out, at = [], 0
     for t in tensors:
@@ -148,34 +288,41 @@ def all_reduce_flat(mesh: Mesh, tensors: list) -> list:
     return out
 
 
-_STEP_MESHES: list = []  # the meshes of the train steps running in this process
+_STEPS: list = []  # (mesh, specs) of the train steps running in this process
 
 
 @contextlib.contextmanager
-def global_batch(mesh: Mesh):
-    """Inside, ``batch_sum`` sums over ``mesh``'s ranks: the train step's
-    forward runs in it, so a term that is not linear in the rows (the MoE
-    load-balance loss) is taken over the global batch."""
-    _STEP_MESHES.append(mesh)
+def global_batch(mesh: Mesh, specs: dict | None = None):
+    """Inside, the model sees the train step's mesh and placement
+    (``step_placement``): ``batch_sum`` sums over the ranks that hold other
+    rows or frames, so a term that is not linear in the rows (the MoE
+    load-balance loss) is taken over the global batch, and the conformer
+    runs its model, sequence and expert shards."""
+    _STEPS.append((mesh, specs))
     try:
         yield
     finally:
-        _STEP_MESHES.pop()
+        _STEPS.pop()
+
+
+def step_placement() -> tuple:
+    """(mesh, specs) of the train step running now; (``LOCAL``, None) outside one."""
+    return _STEPS[-1] if _STEPS else (LOCAL, None)
 
 
 def batch_sum(*tensors: torch.Tensor) -> tuple:
     """Per-rank totals that carry no gradient (counts) summed over the ranks
-    of the train step running now (``global_batch``); as they are outside a
-    step or on one rank."""
-    mesh = _STEP_MESHES[-1] if _STEP_MESHES else LOCAL
-    return tuple(all_reduce_flat(mesh, list(tensors)))
+    of the running train step that hold other rows or frames (``data`` x
+    ``seq``; ``global_batch``); as they are outside a step or on one rank."""
+    mesh, _ = step_placement()
+    return tuple(all_reduce_flat(mesh.along(*BATCH_AXES), list(tensors)))
 
 
 def setup_data_parallel(mesh: Mesh, params, opt_state, batch=None):
     """Place training state for DP under ``mesh``: params and optimizer state
-    replicated (broadcast from rank 0), the batch's rows split by rank.
-    The train step built with ``mesh=`` then reduces loss and gradients over
-    the ranks."""
+    replicated (broadcast from rank 0), the batch's rows split by data
+    index. The train step built with ``mesh=`` then reduces loss and
+    gradients over the ranks."""
     params = replicate(mesh, params)
     opt_state = replicate(mesh, opt_state)
     if batch is not None:

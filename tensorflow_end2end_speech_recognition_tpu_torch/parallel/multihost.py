@@ -14,9 +14,9 @@ design holds here with a process per rank instead of one per host:
   vectors (``allreduce_counts``), so the rates equal one process scoring
   the whole set.
 
-``global_device_batch`` has no counterpart: it lifts process-local rows
-into one global ``jax.Array`` for a program that spans processes. Here one
-process owns one device and its rows are already its whole input.
+``global_device_batch`` lifts process-local rows into one global
+``jax.Array`` for a program that spans processes. Here one process owns
+one device and its rows are already its whole input: it only places them.
 """
 
 from __future__ import annotations
@@ -66,20 +66,31 @@ def distribute_batch(mesh, batch: dict) -> dict:
     return shard_batch(mesh, batch)
 
 
+def global_device_batch(mesh, local_batch: dict) -> dict:
+    """This rank's rows (``process_slice``'s) as tensors on its device: the
+    rank's whole input, since each process owns one device (JAX's
+    ``process_count`` has nothing to count here)."""
+    from .mesh import to_device
+
+    return to_device(mesh, local_batch)
+
+
 def local_replica(tree: dict, mesh=None, specs: dict | None = None) -> dict:
     """The whole parameters on this rank: under DP the replica it holds,
-    under FSDP (``specs`` with a sharded leaf) gathered from the ranks'
-    shards (``fsdp.gather_params``). Eval and checkpoints read this."""
-    if mesh is None or specs is None or all(s is None for s in specs.values()):
+    with ``specs`` that split a leaf (ZeRO-3, model or expert shards)
+    gathered from the ranks' blocks (``fsdp.gather_whole``). Eval and
+    checkpoints read this."""
+    if mesh is None or specs is None or not any(specs.values()):
         return tree
-    from .fsdp import gather_params
+    from .fsdp import gather_whole
 
-    return gather_params(mesh, tree, specs)
+    return gather_whole(mesh, tree, specs)
 
 
 def allreduce_counts(counts, mesh=None) -> np.ndarray:
-    """A small numpy count vector summed over the ranks (float64); one rank
-    returns it as it is."""
+    """A small numpy count vector summed over the ranks of ``mesh.group``
+    (float64; ``mesh.along("data")`` for the ranks that hold other rows);
+    one rank returns it as it is."""
     counts = np.asarray(counts)
     if mesh is None or mesh.group is None:
         return counts

@@ -30,13 +30,15 @@ the rule carries over: each rank splits its own B/N rows into A strided
 microbatches and weighs microbatch ``a`` by ``w_a / W``, W the total
 weight of all ranks' microbatches, summed over the ranks before the
 forward; the ranks' sums, added by one all-reduce, are the global
-batch's weighted mean. A MoE load-balance term is taken over microbatch
-``a`` of all ranks together, as JAX takes it over its global microbatch
-(``weighted_value_and_grad``). The microbatches then differ from the JAX step's,
-which takes rows ``a, a+A, ...`` of the global batch, and so do their
-dropout draws; the combined step is the same weighted mean. The
-one-process step is this step over one rank: dividing by W before the sum
-makes its factor exactly 1 at A = 1, so it is plain autograd bit for bit.
+batch's weighted mean. Rank r holds rows r·B/N .. (r+1)·B/N - 1 and
+``check_trainable`` requires B % (A·N) = 0, so r·B/N is a multiple of A
+and the rows of its microbatch ``a`` are the global rows congruent to
+``a`` mod A: microbatch ``a`` of all ranks together is JAX's global
+microbatch ``a``, row for row. A MoE load-balance term is taken over it
+(``weighted_value_and_grad``), as JAX takes it; only the dropout draws
+differ. The one-process step is this step over one rank: dividing by W
+before the sum makes its factor exactly 1 at A = 1, so it is plain
+autograd bit for bit.
 """
 
 from __future__ import annotations

@@ -11,10 +11,10 @@ The newest checkpoint and the ``max_to_keep`` with the lowest dev error are
 kept; the others are deleted after each save. Tensors are stored on the CPU.
 
 Over data-parallel ranks (``mesh``, ``parallel/mesh.py``) every rank calls
-``save`` with the same whole state (under FSDP, gathered:
-``parallel/fsdp.gather_tree``), rank 0 alone writes it, and a barrier
+``save`` with the same whole state (gathered from the ranks' blocks:
+``parallel/fsdp.gather_whole``), rank 0 alone writes it, and a barrier
 holds the ranks until the file is there; every rank restores the whole
-state and re-places it (``setup_data_parallel`` / ``setup_fsdp``), so a
+state and re-places it (``parallel/fsdp.place``), so a
 checkpoint keeps the one-device layout and resumes at any world size.
 """
 

@@ -18,8 +18,9 @@ given. A batch with per-speaker CMVN rows (``cmvn_mean`` /
 ``cmvn_inv_std``) is normalized with them before stacking; a train step
 with ``grad_accum`` above 1 takes its loss and gradients over that many
 strided microbatches (``train/accum.py``) before its one update. Built
-with a ``mesh`` the train step is one data-parallel step over the ranks
-(with ``specs``, ZeRO-3; ``guarded_train_step``).
+with a ``mesh`` the train step is one step over the ranks: data parallel,
+with model, sequence or expert shards, and with ``specs`` that split
+leaves (ZeRO-3, tensor or expert parallelism; ``guarded_train_step``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,15 @@ from ..frontend.features import FrontendConfig, extract_features
 from ..models.ctc import CTCConfig, CTCModel
 from ..ops.ctc import ctc_loss
 from ..ops.losses import batch_mean, l2_weight_decay
-from ..parallel.fsdp import gather_params, reduce_scatter_grads
-from ..parallel.mesh import LOCAL, all_reduce_flat, global_batch
+from ..parallel.fsdp import gather_params, reduce_scatter_grads, spec_dim
+from ..parallel.mesh import (
+    BATCH_AXES,
+    DATA_AXIS,
+    LOCAL,
+    SEQ_AXIS,
+    all_reduce_flat,
+    global_batch,
+)
 from .accum import microbatch_weights, weighted_value_and_grad
 from .optimizer import apply_updates, global_norm, tree_where
 
@@ -165,56 +173,85 @@ def forward_loss(params: dict, task: CTCTaskConfig, batch: dict, train: bool,
     return loss, aux
 
 
+def grad_buckets(mesh, keys, specs: dict | None) -> dict:
+    """``{axes: [leaf names]}``: the axes each leaf's gradient is summed over
+    by all-reduce. Every leaf sums over the ranks that hold other rows or
+    frames (``data`` x ``seq``) but a ``data``-split one, which the
+    reduce-scatter sums over ``data`` first."""
+    out = {}
+    for k in keys:
+        axes = (SEQ_AXIS,) if specs is not None and spec_dim(specs[k], DATA_AXIS) is not None \
+            else BATCH_AXES
+        out.setdefault(mesh.split_axes(axes), []).append(k)
+    return out
+
+
 def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, mesh=None,
                        specs: dict | None = None):
     """``(params, opt_state, batch, lr, generator, **kw) -> (params, opt_state,
     aux)`` around ``forward_loss_fn(params, task, batch, train, generator,
     **kw)`` (the attention step passes the global ``step``).
 
-    One data-parallel step over the global batch, of which ``batch`` holds
-    this rank's rows (``mesh``, ``parallel/mesh.py``; by default ``LOCAL``:
-    one process, every collective a no-op). The ranks' row weight per
-    microbatch is summed first; each rank's loss, aux terms and gradients
-    over ``grad_accum`` strided microbatches, weighted by its share
+    One step over the global batch, of which ``batch`` holds this rank's
+    rows (``mesh``, ``parallel/mesh.py``; by default ``LOCAL``: one process,
+    every collective a no-op). The row weight per microbatch is summed over
+    the ``data`` line first; each rank's loss, aux terms and gradients over
+    ``grad_accum`` strided microbatches, weighted by its share
     (``accum.weighted_value_and_grad``; with one rank at ``grad_accum`` 1
-    the factor is exactly 1, plain autograd), are summed over the ranks by
-    one all-reduce, so they are the global batch's weighted mean (the
-    weight decay term counted once; a MoE load-balance term over the global
-    batch's frames). Then the optimizer's clip and update, and the guard of
-    the JAX step: unless the loss is finite and below 1e20 (an impossible
-    alignment gives about 1e30), both the parameters and the optimizer
-    state keep their old values and ``aux["nonfinite"]`` is true. One
-    non-finite microbatch makes the combined loss non-finite and so rejects
-    the whole update. The guard is a ``torch.where`` on the device, so a
-    step never waits for the host. The clip, the guard and the update run
-    alike on every rank, and replicated weights stay bit-identical.
+    the factor is exactly 1, plain autograd), are then summed over the ranks
+    that hold other rows or frames (``data`` x ``seq``), so they are the
+    global batch's weighted mean (the weight decay term counted once; a
+    MoE load-balance term over the global batch's frames). Under ``seq``
+    shards every seq rank computes the loss of all frames (``parallel/
+    sp.py``) and weighs it by 1/S; a MoE term is a share of the global term
+    already and keeps its weight. Model and expert ranks compute the loss
+    whole and are not summed. Then the optimizer's clip and update, and the
+    guard of the JAX step: unless the loss is finite and below 1e20 (an
+    impossible alignment gives about 1e30), both the parameters and the
+    optimizer state keep their old values and ``aux["nonfinite"]`` is true.
+    One non-finite microbatch makes the combined loss non-finite and so
+    rejects the whole update. The guard is a ``torch.where`` on the device,
+    so a step never waits for the host. The clip, the guard and the update
+    run alike on every rank, and replicated weights stay bit-identical.
 
-    ``specs`` (``parallel/fsdp.fsdp_partition_specs``) makes it ZeRO-3:
-    ``params`` and the optimizer's moments are this rank's blocks, the
-    whole weights are all-gathered before the forward, the sharded
-    gradients reduce-scattered after the backward, and the clip's norm
-    summed over the ranks' blocks.
+    ``specs`` (``parallel/fsdp.fsdp_partition_specs``, ``tp.param_partition_
+    specs``, ``ep.expert_partition_specs``) places the leaves: ``params``
+    and the optimizer's moments are this rank's blocks. ``data``-split
+    leaves (ZeRO-3) are all-gathered before the forward and their gradients
+    reduce-scattered after the backward; model- and expert-split ones stay
+    blocks, which the model runs on (``global_batch``); each gradient is
+    summed over the axes of ``grad_buckets``, and the clip's norm over the
+    axes that split each leaf.
     """
     mesh = LOCAL if mesh is None else mesh
     norm_fn = functools.partial(global_norm, mesh=mesh, specs=specs)
+    rows = mesh.along(DATA_AXIS)
+    seq_share = 1.0 / mesh.degree(SEQ_AXIS)
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
         w = microbatch_weights(batch, grad_accum)
-        (w_all,) = all_reduce_flat(mesh, [w])  # each microbatch's weight over the ranks
+        (w_all,) = all_reduce_flat(rows, [w])  # each microbatch's weight over the data line
         total = torch.clamp(w_all.sum(), min=1.0)  # 0 only when no row is real
         full = gather_params(mesh, params, specs) if specs is not None else params
         leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
-        with global_batch(mesh):
+        with global_batch(mesh, specs):
             loss, aux, grads = weighted_value_and_grad(
                 lambda p, mb, g: forward_loss_fn(p, task, mb, True, g, **kw),
-                leaves, batch, generator, grad_accum, w / total, w_all / total)
+                leaves, batch, generator, grad_accum, w / total * seq_share, w_all / total)
         del full, leaves
-        whole = [k for k in grads if specs is None or specs[k] is None]
-        reduced = all_reduce_flat(mesh, [loss, *aux.values()] + [grads[k] for k in whole])
-        loss, aux = reduced[0], dict(zip(aux, reduced[1:1 + len(aux)]))
-        grads.update(zip(whole, reduced[1 + len(aux):]))
         if specs is not None:
             grads = reduce_scatter_grads(mesh, grads, specs)
+        # the loss and aux terms ride the batch axes' all-reduce, first
+        batch_axes = mesh.split_axes(BATCH_AXES)
+        buckets = {batch_axes: [], **grad_buckets(mesh, grads, specs)}
+        terms = [loss, *aux.values()]
+        for axes, names in buckets.items():
+            ride = terms if axes == batch_axes else []
+            reduced = all_reduce_flat(mesh.along(*axes), ride + [grads[k] for k in names])
+            if ride:
+                terms = reduced[:len(ride)]
+            grads.update(zip(names, reduced[len(ride):]))
+        loss, aux = terms[0], dict(zip(aux, terms[1:]))
         with torch.no_grad():
             grads = {k: g.to(params[k].dtype) for k, g in grads.items()}
             updates, new_state = optimizer.update(grads, opt_state, norm_fn)
@@ -231,7 +268,7 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, me
 def make_train_step(task: CTCTaskConfig, optimizer, grad_accum: int = 1, mesh=None,
                     specs: dict | None = None):
     """The CTC train step: ``guarded_train_step`` around ``forward_loss``
-    (data parallel over ``mesh``, ZeRO-3 with ``specs``)."""
+    (over ``mesh``'s ranks, its leaves placed by ``specs``)."""
     return guarded_train_step(forward_loss, task, optimizer, grad_accum, mesh, specs)
 
 

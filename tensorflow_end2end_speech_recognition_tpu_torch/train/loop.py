@@ -25,9 +25,11 @@ generator; a MoE encoder's load-balance term is logged beside the loss
 ``torch.profiler`` (CPU, and CUDA on a card) into a Chrome trace under
 ``<model_dir>/trace``. At the end ``fit`` writes the loss and error-rate
 curves (``utils/plot.py``; a failure, such as no matplotlib, is printed and
-ignored, as the JAX loop does). ``num_devices`` above 1 trains data
-parallel over ``torchrun``'s ranks, ``fsdp`` with ZeRO-3 (``parallel/``);
-the other mesh axes raise ``NotImplementedError``.
+ignored, as the JAX loop does). ``num_devices`` above 1 trains over
+``torchrun``'s ranks (``parallel/``): data parallel, with tensor,
+sequence or expert shards (``num_model_shards``, ``num_sequence_shards``,
+``num_expert_shards``), and ``fsdp`` with ZeRO-3; pipeline stages raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,9 +51,11 @@ from ..data.npy_corpus import corpus_split_names, corpus_tokenizer, load_npy_spl
 from ..data.prefetch import prefetch
 from ..data.tokenizers import CharTokenizer
 from ..data.toy_corpus import ToyCorpus
-from ..parallel.fsdp import fsdp_partition_specs, gather_tree, setup_fsdp
-from ..parallel.mesh import make_mesh, rank_seed, setup_data_parallel
+from ..parallel.ep import expert_partition_specs
+from ..parallel.fsdp import fsdp_partition_specs, gather_whole, place
+from ..parallel.mesh import DATA_AXIS, make_grid, rank_seed
 from ..parallel.multihost import distribute_batch, local_replica
+from ..parallel.tp import param_partition_specs
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
 from ..utils.tb_events import EventWriter
@@ -186,24 +190,29 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     and stops after step b - 1, as the JAX loop's trace (``bin/train
     --profile`` traces steps 2-5).
 
-    ``num_devices: N`` above 1 (or ``fsdp``) trains data parallel over the
-    N ranks of the initialized process group (``torchrun``; ``bin/train``
-    sets it up), each on its own ``device`` (``cuda:LOCAL_RANK`` for
-    ``"cuda"``): every rank takes its rows of each global batch, the steps
-    reduce over the ranks, ``fsdp`` shards the weights and moments
-    (ZeRO-3), the dev eval sums the ranks' counts, and rank 0 alone prints,
-    writes the model dir's files and checkpoints (whole tensors). Every
-    rank returns the summary."""
+    ``num_devices: N`` above 1 (or model, sequence or expert shards) trains
+    over the N ranks of the initialized process group (``torchrun``;
+    ``bin/train`` sets it up), each on its own ``device`` (``cuda:LOCAL_RANK``
+    for ``"cuda"``), on the mesh of ``ExperimentConfig.mesh_axes`` (the JAX
+    ``fit``'s dispatch): every rank takes the rows of its data index of each
+    global batch; ``num_model_shards`` splits the conformer's heads and FF
+    columns (``parallel/tp.py``), ``num_sequence_shards`` its frames
+    (``sp.py``), ``num_expert_shards`` its experts (``ep.py``), ``fsdp``
+    shards the weights and moments over ``data`` (ZeRO-3, composed with
+    the model and expert splits); the steps reduce over the ranks. The
+    ranks of one data line draw the same dropout and SpecAugment masks.
+    The dev eval runs the whole weights over the data line and sums the
+    counts, and rank 0 alone prints, writes the model dir's files and
+    checkpoints (whole tensors, the one-device layout, which any mesh or
+    one process restores). Every rank returns the summary."""
     set_full_fp32()
     exp.check_trainable()
-    if exp.batch_size % exp.grad_accum_steps:
-        raise ValueError(f"batch_size {exp.batch_size} not divisible by "
-                         f"grad_accum_steps {exp.grad_accum_steps}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA card; pass device='cpu' for the CPU")
-    n_dev = exp.num_devices or 1
-    # the process group's ranks (one rank without a group), checked against num_devices
-    mesh = make_mesh(n_dev, device=device)
+    axes = exp.mesh_axes()
+    n_data = axes[DATA_AXIS]
+    # the process group's ranks (one rank without a group), checked against the mesh
+    mesh = make_grid(axes, device=device)
     device, lead = mesh.device, mesh.is_lead
     say = print_fn if lead else (lambda *a, **k: None)
     model_dir = Path(model_dir)
@@ -223,7 +232,7 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed, cmvn_stats=cmvn_stats,
         max_frames_per_batch=exp.max_frames_per_batch,
-        min_batch_rows=exp.grad_accum_steps * n_dev,
+        min_batch_rows=exp.grad_accum_steps * n_data,
         samples_per_frame=task.frontend.frame_step if task.frontend is not None else 1,
     )
     dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True,
@@ -234,7 +243,11 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
 
     opt = build_optimizer(exp.optimizer, exp.clip_grad_norm)
     opt_state = opt.init(params)
-    specs = fsdp_partition_specs(params, n_dev) if exp.fsdp else None
+    # each leaf's placement: Megatron or expert blocks, and ZeRO-3's data split
+    specs = (param_partition_specs(params) if "model" in axes
+             else expert_partition_specs(params) if "expert" in axes else None)
+    if exp.fsdp:
+        specs = fsdp_partition_specs(params, n_data, specs)
     train_step = task_mod.make_train_step(task, opt, grad_accum=exp.grad_accum_steps,
                                           mesh=mesh, specs=specs)
     eval_step = task_mod.make_eval_step(task)
@@ -249,8 +262,10 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
                                     "lr", "utts_per_sec"])
     events = EventWriter(model_dir / "events") if lead else None
 
-    # dropout and SpecAugment draws: a stream of each rank's own
-    generator = torch.Generator(device=device).manual_seed(rank_seed(exp.seed + 1, mesh.rank))
+    # dropout and SpecAugment draws: a stream of each data index's own, which the
+    # model, sequence and expert ranks of its line share
+    generator = torch.Generator(device=device).manual_seed(
+        rank_seed(exp.seed + 1, mesh.coord(DATA_AXIS)))
     lr = controller.lr
     step = 0
     best_dev = float("inf")
@@ -275,13 +290,11 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         best_dev = float(extra["best_dev"])
         start_epoch += 1
         say(f"resuming from checkpoint epoch {start_epoch - 1}")
-    # after any resume, so restored state is placed too: replicated under DP,
-    # cut into this rank's blocks under FSDP
-    setup = setup_fsdp if specs is not None else setup_data_parallel
-    params, opt_state, _ = setup(mesh, params, opt_state)
+    # after any resume, so restored state is placed too: replicated, or cut
+    # into this rank's blocks
+    params, opt_state, _ = place(mesh, params, opt_state, specs)
     if mesh.group is not None:
-        say(f"mesh: {mesh.size}-way data parallel"
-            + (" (fsdp: params+moments sharded)" if specs is not None else "")
+        say(mesh_line(axes, exp.fsdp)
             + f" ({mesh.size} process(es), backend {dist.get_backend(mesh.group)})")
     prof = None
     trace = model_dir / "trace" / (f"train_steps_{profile_steps[0]}-{profile_steps[1]}.json"
@@ -318,10 +331,11 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the epoch's queued steps are done
         epoch_time = time.perf_counter() - t0
-        # whole weights and optimizer state (gathered under FSDP) for eval and the checkpoint
+        # whole weights and optimizer state (gathered from the blocks) for eval and
+        # the checkpoint; each data line decodes its rows of every dev batch
         whole = local_replica(params, mesh, specs)
         dev = evaluate_ctc(eval_step, whole, dev_ds, tokenizer, exp.label_type, epoch, device,
-                           mesh)
+                           mesh.along(DATA_AXIS))
         ups = n_utts / epoch_time
         train_loss = float(np.mean(losses)) if losses else float(aux["loss"])
         n_nonfinite = int(nonfinite)
@@ -345,7 +359,7 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         ckpts.save(epoch, {
             "params": whole,
             "extra": {
-                "opt_state": gather_tree(mesh, opt_state, specs) if specs else opt_state,
+                "opt_state": gather_whole(mesh, opt_state, specs),
                 "generator": generator.get_state(),
                 "generators": rank_states(mesh, generator),
                 "lr_controller": controller.state_dict(),
@@ -375,6 +389,21 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     except Exception as e:  # plotting must never fail a finished run
         print_fn(f"plotting failed: {e}")
     return summary
+
+
+def mesh_line(axes: dict, fsdp: bool) -> str:
+    """The JAX ``fit``'s line for its mesh (the port's for data alone)."""
+    dp, sp = axes[DATA_AXIS], axes.get("seq")
+    if "model" in axes:
+        line = (f"mesh: {dp}-way data x " + (f"{sp}-shard sequence x " if sp else "")
+                + f"{axes['model']}-way tensor parallel")
+    elif "expert" in axes:
+        line = f"mesh: {dp}-way data x {axes['expert']}-shard expert parallel"
+    elif sp:
+        line = f"mesh: {dp}-way data x {sp}-shard sequence parallel"
+    else:
+        line = f"mesh: {dp}-way data parallel"
+    return line + (" (fsdp: params+moments sharded)" if fsdp else "")
 
 
 def rank_states(mesh, generator: torch.Generator) -> list:

@@ -16,9 +16,10 @@ The transforms yield unscaled update directions; ``apply_updates`` applies
 ``p - lr * u`` so the learning rate can change every step without touching
 the state. ``torch.optim`` is not used: its Adam and clip differ in these
 details. Everything stays on the parameters' device; nothing syncs. Every
-transform but the clip is elementwise, so under FSDP the update runs on
-each rank's blocks as it is; the clip takes the norm over the ranks
-(``global_norm(..., mesh, specs)``).
+transform but the clip is elementwise, so with leaves split over ranks
+(ZeRO-3, model or expert shards) the update runs on each rank's blocks as
+it is; the clip takes the norm over the ranks (``global_norm(..., mesh,
+specs)``).
 """
 
 from __future__ import annotations
@@ -47,19 +48,25 @@ class Optimizer(NamedTuple):
 
 
 def global_norm(tree: dict, mesh=None, specs: dict | None = None) -> torch.Tensor:
-    """The L2 norm over every tensor of ``tree``. Under FSDP (``mesh`` and
-    ``specs`` with a sharded leaf; ``parallel/fsdp.py``) ``tree`` holds this
-    rank's blocks: their squares are summed over the ranks, and a whole
-    (replicated) leaf counts once, not once per rank."""
-    if mesh is None or specs is None or all(s is None for s in specs.values()):
+    """The L2 norm over every tensor of ``tree``. With ``mesh`` and ``specs``
+    that split a leaf (``parallel/``: ZeRO-3, model or expert shards)
+    ``tree`` holds this rank's blocks: each leaf's squares are summed over
+    exactly the axes that split it, so a replicated leaf counts once, not
+    once per rank."""
+    if mesh is None or specs is None or not any(specs.values()):
         return torch.sqrt(sum(x.square().sum() for x in tree.values()))
     from ..parallel.mesh import all_reduce_flat
 
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
-    sharded = sum((x.square().sum() for k, x in tree.items() if specs[k] is not None), zero)
-    whole = sum((x.square().sum() for k, x in tree.items() if specs[k] is None), zero)
-    (sharded,) = all_reduce_flat(mesh, [sharded])
-    return torch.sqrt(sharded + whole)
+    parts = {}
+    for k, x in tree.items():
+        axes = mesh.split_axes(a for a in specs[k] if a is not None)
+        parts[axes] = parts.get(axes, zero) + x.square().sum()
+    total = zero
+    for axes in sorted(parts):
+        (part,) = all_reduce_flat(mesh.along(*axes), [parts[axes]])
+        total = total + part
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float, norm_fn=global_norm) -> dict:

@@ -10,8 +10,9 @@ same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
 when ``use_specaugment`` is set. A key the JAX package knows but the port
 does not raises ``KeyError`` when it is read; ``check_trainable`` raises
-``NotImplementedError`` for a mesh axis the port has not ported (data
-parallelism and ``fsdp`` are ported).
+what the JAX ``fit`` raises for the mesh axes (data, tensor, sequence and
+expert parallelism and ``fsdp`` are ported), and ``NotImplementedError``
+for pipeline stages, which are not.
 ``corpus_tokenizer`` gives the units of a config's corpus: the word and BPE
 label types learn theirs from its text (a ``data_root`` corpus's train
 transcripts).
@@ -143,6 +144,7 @@ class ExperimentConfig:
     num_devices: int | None = None
     num_model_shards: int | None = None
     num_pipeline_stages: int | None = None
+    num_pipeline_microbatches: int | None = None  # default 4 * stages
     num_sequence_shards: int | None = None
     # Mixture-of-Experts FF (conformer / transformer): > 1 experts per block
     moe_num_experts: int | None = None
@@ -212,13 +214,40 @@ class ExperimentConfig:
                               add_deltas=self.use_delta, cmvn=self.cmvn)
 
     def encoder_config(self) -> EncoderConfig:
-        """The JAX ``encoder_config`` on one card: ``depthwise_impl`` stays
-        ``"conv"`` (the JAX package picks ``"shifts"`` only for model or
-        sequence shards, which raise in ``check_trainable``)."""
+        """The JAX ``encoder_config``, its refusals with their texts:
+        ``depthwise_impl`` is ``"shifts"`` under model or sequence shards
+        (the JAX package's partition-safe form; the same function in the
+        port); pipeline stages need a conformer / transformer of divisible
+        depth, sequence shards and MoE a conformer / transformer, expert
+        shards an expert bank they divide."""
+        sp = self.num_sequence_shards or 1
+        depthwise = "shifts" if (self.num_model_shards or 1) > 1 or sp > 1 else "conv"
+        pp = self.num_pipeline_stages or 1
+        if pp > 1:
+            if self.encoder_type not in CONFORMER_TYPES:
+                raise ValueError("num_pipeline_stages requires encoder_type conformer/"
+                                 f"transformer (uniform blocks), got {self.encoder_type!r}")
+            if self.num_layers % pp:
+                raise ValueError(f"num_layers {self.num_layers} not divisible by "
+                                 f"num_pipeline_stages {pp}")
+        if sp > 1 and self.encoder_type not in CONFORMER_TYPES:
+            raise ValueError("num_sequence_shards requires encoder_type conformer/"
+                             f"transformer (parallel over T), got {self.encoder_type!r}")
         moe = self.moe_num_experts or 0
-        if moe > 1 and self.encoder_type not in CONFORMER_TYPES:
-            raise ValueError("moe_num_experts requires encoder_type conformer/transformer "
-                             f"(MoE feed-forwards), got {self.encoder_type!r}")
+        if moe > 1:
+            if self.encoder_type not in CONFORMER_TYPES:
+                raise ValueError("moe_num_experts requires encoder_type conformer/transformer "
+                                 f"(MoE feed-forwards), got {self.encoder_type!r}")
+            if pp > 1:
+                raise ValueError("moe_num_experts with num_pipeline_stages is not supported "
+                                 "(the pipelined apply has no MoE FF)")
+        ep = self.num_expert_shards or 1
+        if ep > 1:
+            if moe <= 1:
+                raise ValueError("num_expert_shards needs moe_num_experts > 1 (there is no "
+                                 "expert bank to shard)")
+            if moe % ep:
+                raise ValueError(f"moe_num_experts {moe} not divisible by num_expert_shards {ep}")
         cfg = EncoderConfig(
             encoder_type=self.encoder_type,
             num_units=self.num_units,
@@ -235,6 +264,7 @@ class ExperimentConfig:
             num_heads=self.num_heads,
             conv_kernel_size=self.conv_kernel_size,
             ff_expansion=self.ff_expansion,
+            depthwise_impl=depthwise,
             moe_experts=moe,
             moe_top_k=self.moe_top_k,
             moe_aux_weight=self.moe_aux_weight,
@@ -367,16 +397,49 @@ class ExperimentConfig:
             return self.transducer_task(num_classes)
         return self.ctc_task(num_classes)
 
+    def mesh_axes(self) -> dict:
+        """``{axis: size}`` of the training mesh, major to minor, as the JAX
+        ``fit`` builds it: ``(data, seq, model)`` for model and sequence
+        shards together, ``(data, expert)``, ``(data, seq)``, ``(data,
+        model)``, or ``data`` alone. ``check_trainable`` validates it."""
+        tp, sp = self.num_model_shards or 1, self.num_sequence_shards or 1
+        ep = self.num_expert_shards or 1
+        total = self.num_devices or (tp * sp * ep)
+        if tp > 1 and sp > 1:
+            return {"data": total // (tp * sp), "seq": sp, "model": tp}
+        if ep > 1:
+            return {"data": total // ep, "expert": ep}
+        if sp > 1:
+            return {"data": total // sp, "seq": sp}
+        if tp > 1:
+            return {"data": total // tp, "model": tp}
+        return {"data": total}
+
     def check_trainable(self) -> None:
-        """Raise what the JAX ``fit`` raises for the axes the port runs (data
-        parallelism, ``fsdp``) as ``ValueError``, and ``NotImplementedError``
-        for the axes it does not run yet (tensor, pipeline, sequence and
-        expert parallelism, and ``fsdp`` with any of them). That
-        ``num_devices`` equals the ranks' world size ``parallel.make_mesh``
-        checks when ``fit`` builds the mesh."""
+        """Raise what the JAX ``fit`` raises, with its texts, as
+        ``ValueError``: the encoder's refusals (``encoder_config``), a batch
+        that ``grad_accum_steps`` does not divide, then the mesh's (expert shards exclude the other model axes, pipeline stages
+        exclude sequence shards and ``fsdp``, ``fsdp`` needs a data axis to
+        remain, the shards must divide ``num_devices`` and the data degree
+        the batch). ``NotImplementedError`` for pipeline stages, which are
+        not ported. Then the port's own: each rank's rows split into
+        ``grad_accum_steps`` microbatches, and the data degree divides the
+        eval batch. That the world size is ``num_devices`` (or the shards'
+        product) ``parallel.make_grid`` checks when ``fit`` builds the mesh."""
         n = self.num_devices or 1
         tp, pp = self.num_model_shards or 1, self.num_pipeline_stages or 1
         sp, ep = self.num_sequence_shards or 1, self.num_expert_shards or 1
+        self.encoder_config()
+        if self.batch_size % self.grad_accum_steps:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by "
+                             f"grad_accum_steps {self.grad_accum_steps}")
+        if ep > 1 and (tp > 1 or pp > 1 or sp > 1):
+            raise ValueError("num_expert_shards is mutually exclusive with the other "
+                             "model-sharding axes")
+        if pp > 1 and sp > 1:
+            raise ValueError("num_pipeline_stages and num_sequence_shards are mutually "
+                             "exclusive (both shard the encoder activations); "
+                             "num_model_shards composes with either")
         if self.fsdp and pp > 1:
             raise ValueError("fsdp cannot combine with pipeline parallelism (stage weights "
                              "live inside shard_map, outside GSPMD placement); tp/sp/ep "
@@ -384,25 +447,35 @@ class ExperimentConfig:
         if self.fsdp and not n > tp * sp * ep:
             raise ValueError("fsdp needs a data-parallel degree > 1 (num_devices, divided by "
                              "any tp/sp/ep shards, must leave a data axis to shard over)")
-        unported = {
-            "num_model_shards > 1": tp > 1,
-            "num_pipeline_stages > 1": pp > 1,
-            "num_sequence_shards > 1": sp > 1,
-            "num_expert_shards > 1": ep > 1,
-        }
-        for what, on in unported.items():
-            if on:
-                raise NotImplementedError(f"{'fsdp with ' if self.fsdp else ''}{what} is "
-                                          "not ported yet")
+        if pp > 1:
+            raise NotImplementedError("num_pipeline_stages > 1 is not ported yet")
+        total = self.num_devices or (tp * sp * ep)
+        if tp > 1 and sp > 1:
+            shards, split = tp * sp, f"num_model_shards x num_sequence_shards = {tp}x{sp}"
+            degree = "num_devices/(tp*sp)"
+        elif ep > 1:
+            shards, split, degree = ep, f"num_expert_shards {ep}", "num_devices/num_expert_shards"
+        elif sp > 1:
+            shards, split = sp, f"num_sequence_shards {sp}"
+            degree = "num_devices/num_sequence_shards"
+        else:
+            shards, split, degree = tp, f"num_model_shards {tp}", "num_devices/num_model_shards"
+        if total > 1 or shards > 1:
+            if total % shards:
+                raise ValueError(f"num_devices {total} not divisible by {split}")
+            if self.batch_size % (total // shards):
+                raise ValueError(f"batch_size {self.batch_size} not divisible by "
+                                 f"data-parallel degree {total // shards} ({degree})")
+        dp = self.mesh_axes()["data"]
         a = self.grad_accum_steps
-        if self.batch_size % (a * n):
+        if self.batch_size % (a * dp):
             raise ValueError(f"batch_size {self.batch_size} not divisible by grad_accum_steps "
-                             f"x data-parallel degree = {a}x{n} (each rank splits its rows "
+                             f"x data-parallel degree = {a}x{dp} (each rank splits its rows "
                              "into grad_accum_steps microbatches)")
         eval_rows = self.eval_batch_size or self.batch_size
-        if eval_rows % n:
+        if eval_rows % dp:
             raise ValueError(f"eval batch size {eval_rows} not divisible by data-parallel "
-                             f"degree {n} (each rank decodes its rows of every dev batch)")
+                             f"degree {dp} (each rank decodes its rows of every dev batch)")
         if self.toy_profile not in TOY_PROFILES:
             raise ValueError(f"unknown toy_profile {self.toy_profile!r}")
 

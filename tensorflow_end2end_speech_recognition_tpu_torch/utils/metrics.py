@@ -21,12 +21,18 @@ import numpy as np
 from ..data.dataset import to_device
 from ..data.tokenizers import PhoneTokenizer, Tokenizer
 from ..data.native import levenshtein_batch
+from .edit_distance import compute_per
+
+
+def ids_to_tokens(ids, tokenizer: Tokenizer) -> list:
+    """Label ids -> the tokenizer's units."""
+    return tokenizer.decode([int(i) for i in ids])
 
 
 def scoring_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):
     """Scoring-unit token sequences and the reference-length denominator."""
-    ref = tokenizer.decode([int(i) for i in ref_ids])
-    hyp = tokenizer.decode([int(i) for i in hyp_ids])
+    ref = ids_to_tokens(ref_ids, tokenizer)
+    hyp = ids_to_tokens(hyp_ids, tokenizer)
     if label_type.startswith("phone") and isinstance(tokenizer, PhoneTokenizer):
         ref = tokenizer.fold_for_scoring(ref)
         hyp = tokenizer.fold_for_scoring(hyp)
@@ -37,6 +43,12 @@ def scoring_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):
         ref = list("".join(ref))
         hyp = list("".join(hyp))
     return ref, hyp, max(len(ref), 1)
+
+
+def score_pair(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):
+    """(edit distance numerator, reference-length denominator) of one pair."""
+    ref, hyp, denom = scoring_tokens(ref_ids, hyp_ids, tokenizer, label_type)
+    return compute_per(ref, hyp, normalize=False), denom
 
 
 def word_tokens(ref_ids, hyp_ids, tokenizer: Tokenizer, label_type: str):

@@ -3,13 +3,14 @@
 ``setup_fsdp`` on ``make_mesh(2)``, on the CPU over a world of 2 ``gloo``
 ranks; and the validation of the mesh knobs against the JAX ``fit``.
 
-Pure tests: ``fsdp_spec_for`` on the JAX test's shapes and
+Pure tests: ``fsdp_spec_for`` on the JAX test's shapes, alone and with
+the ``base`` specs of tensor and expert parallelism, and
 ``fsdp_partition_specs`` on every leaf of the toy-width ls100_ctc,
 ls960_joint and ls960_conformer_ctc weights, at 2 and 8 shards, against
-JAX's specs (the port's dim is the axis JAX's ``PartitionSpec`` names
-``data``); the errors of ``tests/test_fsdp.py::
-test_fit_rejects_fsdp_combinations`` raised as JAX raises them, and the
-axes not ported yet raising ``NotImplementedError``.
+JAX's specs (the port's spec is ``tuple(PartitionSpec)``); the errors of
+``tests/test_fsdp.py::test_fit_rejects_fsdp_combinations`` and every other
+mesh combination the JAX ``fit`` refuses raised as JAX raises them, and
+pipeline stages, not ported yet, raising ``NotImplementedError``.
 
 World 2 (one spawn of ``tests/torch_parallel_workers.py`` from the module
 fixture): two Adam steps (lr 1e-3, clip 5.0) of the CTC, joint and
@@ -43,7 +44,10 @@ from tensorflow_end2end_speech_recognition_tpu.utils.config import (
     ExperimentConfig as JExperimentConfig,
 )
 from tensorflow_end2end_speech_recognition_tpu_torch.parallel import fsdp_partition_specs
-from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import fsdp_spec_for
+from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
+    fsdp_spec_for,
+    spec_dim,
+)
 from tensorflow_end2end_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflow_end2end_speech_recognition_tpu_torch.train.loop import build_task, fit
 from tensorflow_end2end_speech_recognition_tpu_torch.utils.bridge import flatten_tree
@@ -66,11 +70,6 @@ torch.set_num_threads(1)
 FAMILIES = ("ctc", "joint", "transducer")
 
 
-def jax_dim(spec) -> int | None:
-    """The axis a JAX ``PartitionSpec`` shards over ``data`` (None: replicated)."""
-    return next((i for i, e in enumerate(spec) if e == "data"), None)
-
-
 def jax_leaf(tree, key: str):
     """The leaf of a JAX pytree at a ``state_dict`` key (``utils/bridge.py``)."""
     for part in key.split("."):
@@ -78,15 +77,29 @@ def jax_leaf(tree, key: str):
     return tree
 
 
+SHAPES = [(40, 64), (64, 40), (16, 64), (64,), (7,), (9, 7), (), (8, 8), (3, 16, 16), (1,)]
+
+
 def test_fsdp_spec_for_matches_jax():
-    shapes = [(40, 64), (64, 40), (16, 64), (64,), (7,), (9, 7), (), (8, 8), (3, 16, 16), (1,)]
     for n in (2, 8):
-        for shape in shapes:
-            assert fsdp_spec_for(np.zeros(shape), n) == jax_dim(jfsdp_spec_for(np.zeros(shape),
-                                                                               n)), (shape, n)
-    assert fsdp_spec_for(np.zeros((40, 64)), 8) == 1 and fsdp_spec_for(np.zeros(7), 8) is None
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fsdp_spec_for(np.zeros((8, 8)), 2, base=P(None, "model"))
+        for shape in SHAPES:
+            assert fsdp_spec_for(np.zeros(shape), n) == tuple(jfsdp_spec_for(np.zeros(shape),
+                                                                             n)), (shape, n)
+    assert fsdp_spec_for(np.zeros((40, 64)), 8) == (None, "data")
+    assert fsdp_spec_for(np.zeros(7), 8) == ()
+
+
+# the bases of tests/test_fsdp_composite.py: column / row parallel, a split
+# bias, stacked experts, and one that leaves no divisible free axis
+@pytest.mark.parametrize("base", [P(None, "model"), P("model", None), P("model"), P("expert"),
+                                  P(), P(None, None, "model")])
+def test_fsdp_spec_for_base_matches_jax(base):
+    for n in (2, 4, 8):
+        for shape in SHAPES + [(16, 64), (64, 16), (7, 16), (4, 16, 64)]:
+            if len(base) > len(shape):
+                continue
+            got = fsdp_spec_for(np.zeros(shape), n, base=tuple(base))
+            assert got == tuple(jfsdp_spec_for(np.zeros(shape), n, base=base)), (shape, n)
 
 
 NARROW = {"ls100_ctc": dict(num_units=16, num_layers=2),
@@ -112,9 +125,9 @@ def test_partition_specs_match_jax_on_every_leaf(name):
     for n in (2, 8):
         got = fsdp_partition_specs(params, n)
         specs = jfsdp_partition_specs(jparams, n)
-        want = {k: jax_dim(jax_leaf(specs, k)) for k in params}
+        want = {k: tuple(jax_leaf(specs, k)) for k in params}
         assert got == want, n
-        assert any(d is not None for d in got.values())
+        assert any(got.values())
 
 
 REJECT = dict(model_type="ctc", label_type="phone61", encoder_type="conformer", num_units=16,
@@ -135,14 +148,49 @@ def test_fit_rejects_fsdp_combinations_as_jax(tmp_path, over):
     assert str(got.value) == str(want.value)
 
 
-# fsdp with pipeline stages is refused as JAX refuses it (ValueError, above)
-@pytest.mark.parametrize("axis,fsdp", [(a, f) for a in ("num_model_shards",
-                                                        "num_sequence_shards",
-                                                        "num_expert_shards")
-                                       for f in (False, True)]
-                         + [("num_pipeline_stages", False)])
+# every mesh combination the JAX fit refuses, with one fault each
+MOE = dict(moe_num_experts=4)
+REFUSED = {
+    "ep_with_tp": dict(MOE, num_devices=4, num_expert_shards=2, num_model_shards=2),
+    "ep_with_sp": dict(MOE, num_devices=4, num_expert_shards=2, num_sequence_shards=2),
+    "ep_with_pp": dict(MOE, num_devices=4, num_expert_shards=2, num_pipeline_stages=2,
+                       num_layers=2),
+    "pp_with_sp": dict(num_devices=4, num_pipeline_stages=2, num_sequence_shards=2,
+                       num_layers=2),
+    "sp_not_conformer": dict(encoder_type="blstm", num_devices=2, num_sequence_shards=2),
+    "moe_not_conformer": dict(MOE, encoder_type="blstm"),
+    "pp_not_conformer": dict(encoder_type="blstm", num_devices=2, num_pipeline_stages=2),
+    "pp_layers": dict(num_devices=2, num_pipeline_stages=2, num_layers=3),
+    "ep_without_moe": dict(num_devices=2, num_expert_shards=2),
+    "ep_not_dividing_experts": dict(moe_num_experts=3, num_devices=2, num_expert_shards=2),
+    "batch_by_data_degree_tp": dict(num_devices=8, num_model_shards=2, batch_size=6),
+    "batch_by_data_degree_sp": dict(num_devices=8, num_sequence_shards=2, batch_size=6),
+    "batch_by_data_degree_ep": dict(MOE, num_devices=8, num_expert_shards=2, batch_size=6),
+    "batch_by_data_degree_tp_sp": dict(num_devices=16, num_model_shards=2,
+                                       num_sequence_shards=2, batch_size=6),
+    "devices_by_tp_sp": dict(num_devices=6, num_model_shards=2, num_sequence_shards=2),
+    "devices_by_tp": dict(num_devices=6, num_model_shards=4),
+    "fsdp_without_data_axis_tp": dict(fsdp=True, num_devices=2, num_model_shards=2),
+    "fsdp_without_data_axis_ep": dict(MOE, fsdp=True, num_devices=4, num_expert_shards=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_fit_refuses_mesh_combinations_as_jax(tmp_path, case):
+    raw = dict(REJECT, **REFUSED[case])
+    with pytest.raises(ValueError) as want:
+        jloop.fit(JExperimentConfig.from_dict(raw), str(tmp_path / "jax"),
+                  print_fn=lambda *a: None)
+    with pytest.raises(ValueError) as got:
+        fit(experiment_from_dict(raw), tmp_path / "port", print_fn=lambda *a: None,
+            device="cpu")
+    assert str(got.value) == str(want.value)
+
+
+# pipeline stages are the one axis not ported: refused before the world is read
+@pytest.mark.parametrize("axis,fsdp", [("num_pipeline_stages", False)])
 def test_unported_axes_raise(tmp_path, axis, fsdp):
-    raw = dict(REJECT, num_devices=8, fsdp=fsdp, **{axis: 2})
+    raw = dict(REJECT, num_devices=8, fsdp=fsdp, num_layers=2, **{axis: 2})
     with pytest.raises(NotImplementedError,
                        match=f"^{'fsdp with ' if fsdp else ''}{axis} > 1 is not ported yet$"):
         fit(experiment_from_dict(raw), tmp_path, print_fn=lambda *a: None, device="cpu")
@@ -192,9 +240,9 @@ def test_fsdp_steps_match_jax_setup_fsdp(world, family):
     assert r0["specs"] == r1["specs"]
     jp, js, _ = want
     devices = jax.devices()[:WORLD]
-    for k, dim in r0["specs"].items():
+    for k, spec in r0["specs"].items():
         leaf = jax_leaf(jp, k)
-        assert dim == jax_dim(leaf.sharding.spec), k  # the step kept the JAX placement
+        assert spec == tuple(leaf.sharding.spec), k  # the step kept the JAX placement
         shards = {s.device: np.asarray(s.data) for s in leaf.addressable_shards}
         for r, got in enumerate((r0, r1)):
             block = got["params"][k].numpy()
@@ -206,7 +254,8 @@ def test_fsdp_steps_match_jax_setup_fsdp(world, family):
 def test_fsdp_ranks_hold_half_of_every_divisible_leaf(world, family):
     r0, r1 = _load(world["out"], f"fsdp_{family}")
     sharded = 0
-    for k, dim in r0["specs"].items():
+    for k, spec in r0["specs"].items():
+        dim = spec_dim(spec, "data")
         whole = r0["whole"][k]
         for got in (r0, r1):
             held = [got["params"][k], got["state"]["mu"][k], got["state"]["nu"][k]]

@@ -333,7 +333,7 @@ def test_process_slice_matches_jax():
 def test_mesh_without_a_process_group():
     mesh = make_mesh(device="cpu")
     assert (mesh.rank, mesh.size, mesh.group, mesh.shape) == (0, 1, None, {"data": 1})
-    assert batch_sharding(mesh) == 0 and replicated(mesh) is None
+    assert batch_sharding(mesh) == ("data",) and replicated(mesh) == ()
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(2, device="cpu")
     # per-rank dropout streams: rank 0 keeps the one-process seed, rank 1 draws others

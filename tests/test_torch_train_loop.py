@@ -133,15 +133,22 @@ def test_experiment_config_matches_jax(name):
 
 
 def test_experiment_config_rejects_unknown_and_unported():
-    with pytest.raises(KeyError, match="num_pipeline_microbatches"):
-        experiment_from_dict({"num_pipeline_microbatches": 2})
+    with pytest.raises(KeyError, match="num_pipeline_stage_count"):
+        experiment_from_dict({"num_pipeline_stage_count": 2})
+    assert experiment_from_dict({"num_pipeline_microbatches": 2}).num_pipeline_microbatches == 2
     assert experiment_from_dict({"dropout_encoder": 0.5}).dropout == 0.5
     assert experiment_from_dict({"learning_rate": "3e-3"}).learning_rate == 3e-3
-    for raw in ({"num_expert_shards": 2}, {"num_model_shards": 2},
-                {"num_pipeline_stages": 2}, {"num_sequence_shards": 2},
-                {"num_devices": 4, "fsdp": True, "num_model_shards": 2}):
-        with pytest.raises(NotImplementedError):
+    conformer = {"encoder_type": "conformer", "num_layers": 2}
+    with pytest.raises(NotImplementedError, match="num_pipeline_stages"):
+        experiment_from_dict(dict(conformer, num_pipeline_stages=2)).check_trainable()
+    # the other mesh axes are ported; what JAX refuses raises its ValueError
+    for raw in ({"num_expert_shards": 2}, {"num_sequence_shards": 2}):
+        with pytest.raises(ValueError):
             experiment_from_dict(raw).check_trainable()
+    for raw in ({"num_model_shards": 2}, dict(conformer, num_sequence_shards=2),
+                dict(conformer, moe_num_experts=4, num_expert_shards=2),
+                {"num_devices": 4, "fsdp": True, "num_model_shards": 2}):
+        experiment_from_dict(raw).check_trainable()
     # data parallelism and ZeRO-3 are ported; fsdp needs a data axis to shard over
     experiment_from_dict({"num_devices": 4}).check_trainable()
     experiment_from_dict({"num_devices": 4, "fsdp": True}).check_trainable()

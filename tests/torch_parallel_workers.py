@@ -1,4 +1,6 @@
-"""Rank workers of ``tests/test_torch_parallel.py`` and ``tests/test_torch_fsdp.py``.
+"""Rank workers of the port's multi-rank tests (``tests/test_torch_parallel.py``,
+``test_torch_fsdp.py``, ``test_torch_tensor_parallel.py``,
+``test_torch_seq_expert_parallel.py``).
 
 The ranks are processes started with the ``spawn`` method, so this module
 imports torch and the port only, never jax (``tests/conftest.py`` imports
@@ -11,10 +13,14 @@ collide); every rank runs the jobs in order, each writing its results to
 A job is a dict with ``kind``:
 
 - ``"steps"``: ``steps`` train steps of ``module``'s task on ``batch``
-  (this rank's rows of it), data parallel or, with ``fsdp``, ZeRO-3, from
-  ``params`` (whole, on the CPU). Results: each step's aux floats, this
-  rank's params and optimizer state as held, and under FSDP the gathered
-  whole ones.
+  (this rank's rows of it) on the mesh of ``axes`` (default: ``data``
+  over the world), the leaves placed by ``place`` (``"tp"``: Megatron
+  blocks, ``"ep"``: expert blocks, else replicated) and, with ``fsdp``,
+  ZeRO-3 on top, from ``params`` (whole, on the CPU); ``seed`` turns on
+  the dropout generator (the data index's stream). Results: each step's
+  aux floats, this rank's params and optimizer state as held, its mesh
+  coordinates, and with split leaves their specs and the gathered whole
+  ones.
 - ``"fit"``: ``train/loop.fit`` of ``exp`` into ``model_dir`` on the CPU;
   ``"refused"``: the same, expected to raise (its type and text).
 - ``"eval"``: ``utils/metrics.evaluate_ctc`` of ``exp``'s model (seeded
@@ -68,39 +74,46 @@ def run_rank(rank: int, world: int, store: str, jobs: list, out: str) -> None:
 
 def run_steps(rank: int, world: int, job: dict) -> dict:
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
+        expert_partition_specs,
         fsdp_partition_specs,
-        make_mesh,
-        setup_data_parallel,
-        setup_fsdp,
+        make_grid,
+        param_partition_specs,
         shard_batch,
     )
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
-        gather_params,
-        gather_tree,
+        gather_whole,
+        place,
     )
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.mesh import rank_seed
     from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import (
         build_optimizer,
     )
 
     mod = importlib.import_module(f"{PKG}.train.{job['module']}")
-    mesh = make_mesh(world, device="cpu")
+    mesh = make_grid(job.get("axes", {"data": world}), device="cpu")
     opt = build_optimizer(job["opt"], job.get("clip", 5.0))
     params = {k: v.clone() for k, v in job["params"].items()}
     state = opt.init(params)
-    specs = fsdp_partition_specs(params, world) if job.get("fsdp") else None
-    setup = setup_fsdp if specs is not None else setup_data_parallel
-    params, state, rows = setup(mesh, params, state, job["batch"])
+    base = {"tp": param_partition_specs, "ep": expert_partition_specs}.get(job.get("place"))
+    specs = base(params) if base is not None else None
+    if job.get("fsdp"):
+        specs = fsdp_partition_specs(params, mesh.shape["data"], specs)
+    params, state, rows = place(mesh, params, state, specs, job["batch"])
     step = mod.make_train_step(job["task"], opt, grad_accum=job.get("accum", 1), mesh=mesh,
                                specs=specs)
+    generator = None
+    if "seed" in job:  # dropout on: the data index's stream, as fit seeds it
+        generator = torch.Generator().manual_seed(rank_seed(job["seed"], mesh.coord("data")))
     auxes = []
     for _ in range(job.get("steps", 1)):
-        params, state, aux = step(params, state, rows, job["lr"], **job.get("extra", {}))
+        params, state, aux = step(params, state, rows, job["lr"], generator,
+                                  **job.get("extra", {}))
         auxes.append({k: float(v) for k, v in aux.items()})
-    res = {"aux": auxes, "params": params, "state": state, "rows": {
+    res = {"aux": auxes, "params": params, "state": state, "coords": mesh.coords(), "rows": {
         k: v for k, v in shard_batch(mesh, job["batch"]).items()}}
     if specs is not None:
-        res.update(specs=specs, whole=gather_params(mesh, params, specs),
-                   whole_state=gather_tree(mesh, state, specs))
+        res.update(specs=specs, whole=gather_whole(mesh, params, specs),
+                   whole_state=gather_whole(mesh, state, specs))
     return res
 
 
