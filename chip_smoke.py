@@ -9,7 +9,7 @@ prepared on-disk corpus with gradient accumulation, of exported artifacts
 (``bin/export`` -> ``bin/serve ARTIFACT``) and streaming at bf16, and of
 the scan-path encoders (GRU, the LSTM options), ``cnn_zhang``, profiling
 and the C++ host runtime, of data parallelism and ZeRO-3 across ranks, and
-of tensor, sequence and expert parallelism, on one NVIDIA GPU.
+of tensor, sequence, expert and pipeline parallelism, on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile-out DIR   # also write the steps' profile tables
@@ -409,7 +409,16 @@ Phases; any failure exits non-zero and prints no result line:
     dropout off) with ``num_model_shards: 2``: its dev error equals a
     one-process ``fit`` of the same data, its losses within 1e-4, and
     ``bin/eval`` restores its checkpoint in one process (dev error equal);
-    with four or more cards, dp2 x tp2 over nccl, one card per rank.
+    with four or more cards, dp2 x tp2 over nccl, one card per rank;
+73. pipeline stages (``parallel/pp.py``) in the same spawns and with the
+    same gates as phase 71, in the default 4 x stages microbatches:
+    ls960_conformer_ctc, ls960_transformer_ctc and ls_conformer_transducer
+    under pp2 (world 2), ls960_conformer_ctc under pp4 (one layer per
+    stage), dp2 x pp2 and pp2 x tp2 (world 4), with the stage hops' bytes
+    among the collectives'; the phase 72 ``fit`` with
+    ``num_pipeline_stages: 2`` beside it, and its checkpoint through
+    ``bin/eval`` in one process; with four or more cards, pp2 x tp2 over
+    nccl too.
 
 Each kernel is timed with CUDA events in the order plain, kernel, kernel,
 plain, beside one PyTorch call that computes the same function where there
@@ -5468,10 +5477,13 @@ def run_data_parallel(dev, gpu: str, work: Path, t0: float,
     return counts, numbers
 
 
-# ---- phases 71-72: tensor, sequence and expert parallelism -------------------------
+# ---- phases 71-73: tensor, sequence, expert and pipeline parallelism ---------------
 
-# (phase, config, task module, mesh axes, placement, fsdp); world = the axes' product
+# (phase, config, task module, mesh axes, placement, fsdp); world = the axes' product.
+# The pipeline jobs (placement "pp") run num_pipeline_stages = the pipe axis, in the
+# default 4 x stages microbatches
 AXES_CONFIGS = {"ls960_conformer_ctc": (LS960_CONFORMER_CTC, "ctc_task"),
+                "ls960_transformer_ctc": (LS960_TRANSFORMER_CTC, "ctc_task"),
                 "ls960_moe_conformer": (LS960_MOE_CONFORMER, "ctc_task"),
                 "ls_conformer_transducer": (LS_CONFORMER_TRANSDUCER, "transducer_task")}
 AXES_JOBS = (
@@ -5483,14 +5495,21 @@ AXES_JOBS = (
     ("71 dp2 x tp2 + fsdp", "ls960_conformer_ctc", {"data": 2, "model": 2}, "tp", True),
     ("71 ep4", "ls960_moe_conformer", {"data": 1, "expert": 4}, "ep", False),
     ("71 dp2 x ep2 + fsdp", "ls960_moe_conformer", {"data": 2, "expert": 2}, "ep", True),
+    ("73 pp2", "ls960_conformer_ctc", {"data": 1, "pipe": 2}, "pp", False),
+    ("73 pp2", "ls960_transformer_ctc", {"data": 1, "pipe": 2}, "pp", False),
+    ("73 pp2", "ls_conformer_transducer", {"data": 1, "pipe": 2}, "pp", False),
+    ("73 pp4", "ls960_conformer_ctc", {"data": 1, "pipe": 4}, "pp", False),
+    ("73 dp2 x pp2", "ls960_conformer_ctc", {"data": 2, "pipe": 2}, "pp", False),
+    ("73 pp2 x tp2", "ls960_conformer_ctc", {"data": 1, "pipe": 2, "model": 2}, "pp", False),
 )
 AXES_SEED = 71
 AXES_FIT = LS960_CONFORMER_CTC | {"dropout": 1.0, "toy_num_utts": 256, "num_epoch": 1}
 CANCELLED_AXES_RTOL = 1e-4  # a gradient zero in exact arithmetic, of the largest entry
 
 
-AXES_STEP_WANT = dict(NONE_LAUNCHED, ctc_loss=1)  # a CTC step's launches per rank
-AXES_FIT_LAUNCHED = ("ctc_loss", "ctc_loss_fwd_only")  # phase 72's fit and bin/eval: #5, #6
+# a CTC step's launches per rank: every rank, each pipeline stage too, computes the loss
+AXES_STEP_WANT = dict(NONE_LAUNCHED, ctc_loss=1)
+AXES_FIT_LAUNCHED = ("ctc_loss", "ctc_loss_fwd_only")  # phases 72-73's fits and bin/eval: #5, #6
 AXES_EVAL_LAUNCHED = ("ctc_loss_fwd_only",)
 
 
@@ -5502,10 +5521,20 @@ def axes_want(config: str) -> dict | None:
     return NONE_LAUNCHED if config == "ls_conformer_transducer" else AXES_STEP_WANT
 
 
-def axes_specs(params: dict, axes: dict, place, fsdp: bool):
-    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
-        expert_partition_specs, fsdp_partition_specs, param_partition_specs)
+def axes_raw(config: str, axes: dict) -> dict:
+    """The config dict of a job: dropout off, the pipe axis's stages."""
+    raw = dict(AXES_CONFIGS[config][0], dropout=1.0)
+    return raw | ({"num_pipeline_stages": axes["pipe"]} if "pipe" in axes else {})
 
+
+def axes_specs(params: dict, axes: dict, place, fsdp: bool):
+    """The leaves' specs of a job (``params`` stacked for the pipeline)."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
+        expert_partition_specs, fsdp_partition_specs, param_partition_specs,
+        pipeline_param_specs)
+
+    if place == "pp":
+        return pipeline_param_specs(params, "model" in axes)
     specs = {"tp": param_partition_specs, "ep": expert_partition_specs}[place](params) \
         if place else None
     return fsdp_partition_specs(params, axes["data"], specs) if fsdp else specs
@@ -5517,22 +5546,25 @@ def axes_against_one_process(what: str, config: str, axes: dict, place, fsdp: bo
     rows and shards of the global batch; rank 0 holds it against the
     one-process step on the whole batch (loss, every gradient leaf, the
     gathered weights against the rank's own Adam step). Returns the numbers."""
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import pp_stack_tree
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
         gather_whole, place as place_state)
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel.mesh import (
         TRAFFIC, reset_traffic, shard_batch)
 
-    raw, mod_name = AXES_CONFIGS[config]
-    task_mod = {"ctc_task": ctc_task, "transducer_task": transducer_task}[mod_name]
+    task_mod = {"ctc_task": ctc_task, "transducer_task": transducer_task}[AXES_CONFIGS[config][1]]
     dev = mesh.device
-    task = experiment_from_dict(dict(raw, dropout=1.0)).task(len(CHAR_UNITS))
+    task = experiment_from_dict(axes_raw(config, axes)).task(len(CHAR_UNITS))
     params = {k: v.to(dev) for k, v in
               task_mod.init_params(task, torch.Generator().manual_seed(0)).items()}
     batch = train_batch(B_TRAIN, 12.0, seed=AXES_SEED, max_labels=U)
     ref = one_process_step(task, task_mod, params, batch, dev) if mesh.rank == 0 else None
     opt = build_optimizer("adam", 5.0)
-    specs = axes_specs(params, axes, place, fsdp)
-    held, state, _ = place_state(mesh, params, opt.init(params), specs)
+    # the pipeline holds the layers stacked [S, L/S, ...], each rank its stage
+    start = pp_stack_tree(params, axes["pipe"]) if place == "pp" else params
+    specs = axes_specs(start, axes, place, fsdp)
+    held, state, _ = place_state(mesh, start, opt.init(start), specs)
+    del start
     step = task_mod.make_train_step(task, opt, mesh=mesh, specs=specs)
     rows = shard_batch(mesh, batch)
     out = {"what": what, "config": config, "axes": axes, "rank": mesh.rank,
@@ -5580,11 +5612,12 @@ def axes_against_one_process(what: str, config: str, axes: dict, place, fsdp: bo
     return out
 
 
-def axes_fit(mesh, model_dir: Path) -> dict:
-    """Phase 72's ``fit`` with ``num_model_shards`` the world's size (``mesh``:
-    the world's ranks); this rank's launch counts (#5 in training, #6 in its
-    dev eval) and the summary."""
-    exp = experiment_from_dict(dict(AXES_FIT, num_devices=mesh.size, num_model_shards=mesh.size))
+def axes_fit(mesh, model_dir: Path, axis: str = "num_model_shards") -> dict:
+    """Phase 72's ``fit`` with ``num_model_shards`` the world's size, or phase
+    73's with ``num_pipeline_stages`` (``axis``; ``mesh``: the world's ranks);
+    this rank's launch counts (#5 in training, #6 in its dev eval) and the
+    summary."""
+    exp = experiment_from_dict(dict(AXES_FIT, num_devices=mesh.size, **{axis: mesh.size}))
     reset_counts()
     t = time.perf_counter()
     summary = fit(exp, model_dir, log_every=1, print_fn=lambda *a: None, device=mesh.device)
@@ -5599,9 +5632,9 @@ def axes_fit(mesh, model_dir: Path) -> dict:
 
 def axes_rank(rank: int, world: int, backend: str, store: str, out: str, jobs: tuple,
               device: str, overrides: dict) -> None:
-    """One rank of phases 71-72 (a spawned process, as ``dp_rank``): the jobs
-    of ``AXES_JOBS`` named in ``jobs``, then ``"fit"``; rank r writes
-    ``<out>/rank<r>.pt``."""
+    """One rank of phases 71-73 (a spawned process, as ``dp_rank``): the jobs
+    of ``AXES_JOBS`` named in ``jobs``, then ``"fit"`` (tp) and ``"fit_pp"``;
+    rank r writes ``<out>/rank<r>.pt``."""
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel import make_grid, make_mesh
 
     globals().update(overrides)
@@ -5620,6 +5653,9 @@ def axes_rank(rank: int, world: int, backend: str, store: str, out: str, jobs: t
                                                              mesh))
         if "fit" in jobs:
             res["fit"] = axes_fit(make_mesh(world, device=device), Path(out) / "tp_fit")
+        if "fit_pp" in jobs:
+            res["fit_pp"] = axes_fit(make_mesh(world, device=device), Path(out) / "pp_fit",
+                                     "num_pipeline_stages")
         torch.save(res, Path(out) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -5650,11 +5686,12 @@ def print_axes(r: dict, gpu: str, shared: bool = True) -> None:
 
 
 def run_model_axes(dev, gpu: str, work: Path, t0: float, overrides: dict | None = None) -> tuple:
-    """Phases 71-72: the model axes' steps against one process on worlds of 2
-    and 4 ranks sharing the card over gloo, ``fit`` with ``num_model_shards:
-    2`` against one process with ``bin/eval`` on its checkpoint, and dp2 x tp2
-    over nccl where the machine shows four cards. Returns (launch counts by
-    path and rank, the numbers)."""
+    """Phases 71-73: the model axes' steps (tensor, sequence, expert shards,
+    pipeline stages) against one process on worlds of 2 and 4 ranks sharing
+    the card over gloo, ``fit`` with ``num_model_shards: 2`` and with
+    ``num_pipeline_stages: 2`` against one process with ``bin/eval`` on each
+    checkpoint, and dp2 x tp2 and pp2 x tp2 over nccl where the machine shows
+    four cards. Returns (launch counts by path and rank, the numbers)."""
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5662,7 +5699,8 @@ def run_model_axes(dev, gpu: str, work: Path, t0: float, overrides: dict | None 
     ranks = {}
     for world in (2, 4):
         jobs = tuple(n for n, _, axes, _, _ in AXES_JOBS if math.prod(axes.values()) == world)
-        ranks[world] = spawn_ranks(world, "gloo", work, jobs + (("fit",) if world == 2 else ()),
+        ranks[world] = spawn_ranks(world, "gloo", work,
+                                   jobs + (("fit", "fit_pp") if world == 2 else ()),
                                    dev.type, overrides, entry=axes_rank, tag="axes")
     spawn_s = time.perf_counter() - t
     counts, steps = {}, []
@@ -5675,48 +5713,51 @@ def run_model_axes(dev, gpu: str, work: Path, t0: float, overrides: dict | None 
                 counts[f"{tag.replace(' ', '_')}_{s['config']}_rank{s['rank']}"] = s["launches"]
                 steps.append({k: v for k, v in s.items() if k not in ("launches", "warm_launches")})
     clock(f"phase 71 ranks done ({spawn_s:.1f} s with the spawns)", t0)
-    # phase 72: fit under tp2 against one process; bin/eval restores the checkpoint alone
-    fit2 = ranks[2][0]["fit"]
+    # phases 72-73: fit under tp2 and under pp2 against one process; bin/eval restores
+    # each checkpoint alone
     one = fit(experiment_from_dict(AXES_FIT), work / "axes_fit_one", log_every=1,
               print_fn=lambda *a: None, device=dev)
-    tp_dir = work / "axes_gloo_2" / "tp_fit"
-    res, counts["eval_tp_checkpoint"] = run_cli(
-        "72 bin/eval of the tp2 checkpoint, one process", eval_cli.main,
-        [str(tp_dir), "--device", str(dev.type), "--beam-width", "1"], AXES_EVAL_LAUNCHED,
-        gpu)  # greedy, as fit's dev eval decodes
-    s2 = fit2["summary"]
-    errs = {"dev_loss": abs(s2["dev_loss"] - one["dev_loss"]) / abs(one["dev_loss"]),
-            "train_loss": abs(s2["train_loss"] - one["train_loss"]) / abs(one["train_loss"])}
-    print(f"phase 72 fit ls960_conformer_ctc 1 toy epoch, num_model_shards 2 (gloo, one card): "
-          f"{fit2['wall_s']:.1f} s wall, {s2['steps']} steps, dev error "
-          f"{s2['dev_error_rate']:.4f} (one process: {one['dev_error_rate']:.4f}), dev loss "
-          f"{s2['dev_loss']!r} ({one['dev_loss']!r}), train loss {s2['train_loss']!r} "
-          f"({one['train_loss']!r}); rank launches "
-          f"{[launched(r['fit']['launches']) for r in ranks[2]]}; bin/eval in one process: dev "
-          f"error {res['dev']['error_rate']:.4f}; relative differences "
-          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f" (tolerance {FIT_RTOL:g})  [{gpu}]", flush=True)
-    if not (s2["dev_error_rate"] == one["dev_error_rate"] == res["dev"]["error_rate"]
-            and s2["steps"] == one["steps"] and max(errs.values()) <= FIT_RTOL):
-        raise RuntimeError(f"fit with num_model_shards 2 {s2} differs from one process {one} "
-                           f"or bin/eval of its checkpoint {res['dev']}: {errs}")
-    for rank, r in enumerate(ranks[2]):
-        counts[f"tp2_fit_rank{rank}"] = r["fit"]["launches"]
+    fits = {}
+    for phase, key, axis, tag in (("72", "fit", "num_model_shards", "tp2"),
+                                  ("73", "fit_pp", "num_pipeline_stages", "pp2")):
+        fit2 = ranks[2][0][key]
+        res, counts[f"eval_{tag}_checkpoint"] = run_cli(
+            f"{phase} bin/eval of the {tag} checkpoint, one process", eval_cli.main,
+            [str(work / "axes_gloo_2" / f"{tag[:2]}_fit"), "--device", str(dev.type),
+             "--beam-width", "1"], AXES_EVAL_LAUNCHED, gpu)  # greedy, as fit's dev eval decodes
+        s2 = fit2["summary"]
+        errs = {"dev_loss": abs(s2["dev_loss"] - one["dev_loss"]) / abs(one["dev_loss"]),
+                "train_loss": abs(s2["train_loss"] - one["train_loss"]) / abs(one["train_loss"])}
+        print(f"phase {phase} fit ls960_conformer_ctc 1 toy epoch, {axis} 2 (gloo, one card): "
+              f"{fit2['wall_s']:.1f} s wall, {s2['steps']} steps, dev error "
+              f"{s2['dev_error_rate']:.4f} (one process: {one['dev_error_rate']:.4f}), dev loss "
+              f"{s2['dev_loss']!r} ({one['dev_loss']!r}), train loss {s2['train_loss']!r} "
+              f"({one['train_loss']!r}); rank launches "
+              f"{[launched(r[key]['launches']) for r in ranks[2]]}; bin/eval in one process: "
+              f"dev error {res['dev']['error_rate']:.4f}; relative differences "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tolerance {FIT_RTOL:g})  [{gpu}]", flush=True)
+        if not (s2["dev_error_rate"] == one["dev_error_rate"] == res["dev"]["error_rate"]
+                and s2["steps"] == one["steps"] and max(errs.values()) <= FIT_RTOL):
+            raise RuntimeError(f"fit with {axis} 2 {s2} differs from one process {one} "
+                               f"or bin/eval of its checkpoint {res['dev']}: {errs}")
+        for rank, r in enumerate(ranks[2]):
+            counts[f"{tag}_fit_rank{rank}"] = r[key]["launches"]
+        fits[tag] = {"summary": s2, "rel_errs": errs, "bin_eval_dev": res["dev"],
+                     "wall_s": fit2["wall_s"]}
     across = None
     many = torch.cuda.device_count() if dev.type == "cuda" else 0
     if many >= 4:
-        across = [r["steps"][0] for r in spawn_ranks(
-            4, "nccl", work, ("71 dp2 x tp2 + fsdp",), entry=axes_rank, tag="axes")]
+        across = [s for r in spawn_ranks(4, "nccl", work, ("71 dp2 x tp2 + fsdp", "73 pp2 x tp2"),
+                                         entry=axes_rank, tag="axes") for s in r["steps"]]
         for r in across:
             print_axes(r, gpu, shared=False)
     else:
-        print(f"phase 72 dp2 x tp2 over nccl, one card per rank: the machine shows {many} "
-              "card; not run (not a pass)", flush=True)
-    clock("phases 71-72 (tensor, sequence and expert parallelism) done", t0)
+        print(f"phases 72-73 dp2 x tp2 and pp2 x tp2 over nccl, one card per rank: the machine "
+              f"shows {many} card; not run (not a pass)", flush=True)
+    clock("phases 71-73 (tensor, sequence, expert and pipeline parallelism) done", t0)
     return counts, {"spawn_s": spawn_s, "steps": steps,
-                    "fit": {"tp2": s2, "one_process": one, "rel_errs": errs,
-                            "bin_eval_dev": res["dev"], "wall_s": fit2["wall_s"]},
-                    "nccl_across_cards": across}
+                    "fit": dict(fits, one_process=one), "nccl_across_cards": across}
 
 
 def main() -> int:

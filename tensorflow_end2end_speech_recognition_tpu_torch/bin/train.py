@@ -15,8 +15,9 @@ trace of steps 2-5 under ``<model_dir>/trace``.
 
 Across ranks (a config with ``num_devices: N``; ``num_model_shards``,
 ``num_sequence_shards`` or ``num_expert_shards`` for a conformer /
-transformer / MoE encoder's tensor, sequence or expert shards, and ``fsdp:
-true`` for ZeRO-3), launch one process per rank with ``torchrun``:
+transformer / MoE encoder's tensor, sequence or expert shards,
+``num_pipeline_stages`` for its GPipe stages, and ``fsdp: true`` for
+ZeRO-3), launch one process per rank with ``torchrun``:
 
     torchrun --nproc-per-node N -m tensorflow_end2end_speech_recognition_tpu_torch.bin.train \
         CONFIG MODEL_DIR            # one card per rank, nccl

@@ -28,20 +28,25 @@ their ``rel_shift`` / RoPE terms, the context, the MoE bank) to bf16 and
 sums them in float32 (``ops/bf16.matmul``); LayerNorm, the router, the
 softmax, the depthwise conv and the residuals stay float32.
 
-Inside a train step over a mesh with model, sequence or expert shards
-(``parallel.mesh.global_batch``; ``step_shards``) each rank runs its part
-with the collectives of ``parallel/``: MHSA its h/M heads and each FF its
-ff/M columns between Megatron's *f* and *g* (``parallel/tp.py``); the stack
-its frames of T padded to a multiple of S, MHSA with K and V gathered from
-every seq rank at the queries' global frames, the depthwise conv with its
-neighbours' halo, one gather at the exit (``parallel/sp.py``); the MoE bank
-its E/X experts (``parallel/ep.py``). Each module has one body: outside
-a step (eval, serving) or on a mesh without such shards one rank holds every
-head, column, frame and expert, and the collectives are the identity.
+Inside a train step over a mesh with model, sequence or expert shards or
+pipeline stages (``parallel.mesh.global_batch``; ``step_shards``) each rank
+runs its part with the collectives of ``parallel/``: MHSA its h/M heads and
+each FF its ff/M columns between Megatron's *f* and *g* (``parallel/tp.py``);
+the stack its frames of T padded to a multiple of S, MHSA with K and V
+gathered from every seq rank at the queries' global frames, the depthwise
+conv with its neighbours' halo, one gather at the exit (``parallel/sp.py``);
+the MoE bank its E/X experts (``parallel/ep.py``); the stack its stage's
+layers over microbatches of its rows, between the hops to the neighbour
+stages (``parallel/pp.py``). Each module has one body, and each block one
+``forward``, which the sequential loop and the pipeline stages both run:
+outside a step (eval, serving) or on a mesh without such shards one rank
+holds every layer, head, column, frame and expert, and the collectives are
+the identity.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -50,7 +55,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bf16 as bf16_ops
-from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS, Mesh, batch_sum, step_placement
+from ..parallel.mesh import (
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    Mesh,
+    batch_sum,
+    step_placement,
+)
+from ..parallel.pp import apply_conformer_pipelined, stage_generator
 from ..parallel.sp import SeqShard, gather_seq, halo, seq_shard
 from ..parallel.tp import copy_to, reduce_from
 from .rnn import dropout
@@ -443,6 +456,13 @@ def depthwise_conv(y: torch.Tensor, dw: torch.Tensor, causal: bool,
     return F.conv1d(yp, dw.permute(2, 1, 0), groups=d).transpose(1, 2)
 
 
+def final_ff(layer, x: torch.Tensor, mask: torch.Tensor, shards: Shards) -> tuple:
+    """(the block's final FF of x, the MoE load-balance loss or None)."""
+    if hasattr(layer, "moe"):
+        return layer.moe(x, mask, shards)
+    return (layer.ff if hasattr(layer, "ff") else layer.ff2)(x, shards), None
+
+
 class ConformerLayer(nn.Module):
     """One macaron block: ``ff1``, ``mhsa``, ``conv``, ``ff2`` or ``moe``, ``ln``."""
 
@@ -457,6 +477,15 @@ class ConformerLayer(nn.Module):
             self.ff2 = FeedForward(spec, generator)
         self.ln = LayerNorm(spec.dim)
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, shards: Shards, drop) -> tuple:
+        """(x after the block, its MoE load-balance loss or None); ``drop``
+        is the dropout of each of the four sites, before the macaron ½."""
+        x = x + 0.5 * drop(self.ff1(x, shards))
+        x = x + drop(self.mhsa(x, mask, shards))
+        x = x + drop(self.conv(x, mask, shards))
+        y, aux = final_ff(self, x, mask, shards)
+        return self.ln(x + 0.5 * drop(y)), aux
+
 
 class TransformerLayer(nn.Module):
     """One pre-LN block: ``mhsa``, ``ff`` or ``moe``."""
@@ -468,6 +497,12 @@ class TransformerLayer(nn.Module):
             self.moe = MoEFeedForward(spec, generator)
         else:
             self.ff = FeedForward(spec, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, shards: Shards, drop) -> tuple:
+        """(x after the block, its MoE load-balance loss or None)."""
+        x = x + drop(self.mhsa(x, mask, shards))
+        y, aux = final_ff(self, x, mask, shards)
+        return x + drop(y), aux
 
 
 class Conformer(nn.Module):
@@ -488,14 +523,20 @@ class Conformer(nn.Module):
             self.ln_out = LayerNorm(spec.dim)
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None, keep_prob: float = 1.0):
+                generator: torch.Generator | None = None, keep_prob: float = 1.0,
+                microbatches: int = 8):
         """[B, T, D] -> ([B, T, dim] with pad frames zeroed, aux): ``apply_conformer``.
 
         ``aux`` is the MoE load-balance loss, ``moe_aux_weight · Σ aux /
         num_layers``, when ``moe_experts > 1``, else None. With ``train`` and a
         ``generator`` (on the inputs' device), dropout at the four sites of
         each layer, drawn in the reference's site order; the macaron ½
-        applies after the dropout.
+        applies after the dropout. Inside a train step over a mesh with
+        pipeline stages the layers run as this rank's stage of a GPipe
+        pipeline over ``microbatches`` microbatches of its rows
+        (``parallel/pp.py``; the weights of the other stages' layers are not
+        given), dropout drawn from the stage's generator
+        (``pp.stage_generator``).
         """
         spec = self.spec
         t = xs.shape[1]
@@ -511,37 +552,30 @@ class Conformer(nn.Module):
             else:
                 x = x + sinusoids(seq.positions(xs.device), spec.dim)[None]
 
-        def drop(z):
-            if not (train and generator is not None):
+        def drop(z, gen=generator):
+            if not (train and gen is not None):
                 return z
             if seq is None or keep_prob >= 1.0:
-                return dropout(z, keep_prob, train, generator)
+                return dropout(z, keep_prob, train, gen)
             # every seq rank draws the mask of all frames and keeps its own
             shape = (z.shape[0], seq.padded) + tuple(z.shape[2:])
-            keep = seq.cut(torch.rand(shape, generator=generator, device=z.device)) < keep_prob
+            keep = seq.cut(torch.rand(shape, generator=gen, device=z.device)) < keep_prob
             return torch.where(keep, z / keep_prob, 0.0)
 
+        mesh, _ = step_placement()
         aux_total = []
-
-        def final_ff(p, x):
-            if spec.is_moe:
-                y, aux = p.moe(x, mask, shards)
-                aux_total.append(aux)
-                return y
-            return (p.ff if spec.block == "transformer" else p.ff2)(x, shards)
-
-        if spec.block == "transformer":
-            for p in self.layers:
-                x = x + drop(p.mhsa(x, mask, shards))
-                x = x + drop(final_ff(p, x))
-            x = self.ln_out(x)
+        if mesh.degree(PIPE_AXIS) > 1:  # this rank's stage of the layers, in microbatches
+            if train and generator is not None and keep_prob < 1.0:
+                drop = functools.partial(drop, gen=stage_generator(generator,
+                                                                   mesh.coord(PIPE_AXIS)))
+            x = apply_conformer_pipelined(self.layers, x, mask, shards, drop, mesh,
+                                          microbatches)
         else:
-            for p in self.layers:
-                x = x + 0.5 * drop(p.ff1(x, shards))
-                x = x + drop(p.mhsa(x, mask, shards))
-                x = x + drop(p.conv(x, mask, shards))
-                x = x + 0.5 * drop(final_ff(p, x))
-                x = p.ln(x)
+            for layer in self.layers:
+                x, aux = layer(x, mask, shards, drop)
+                aux_total.append(aux)
+        if spec.block == "transformer":
+            x = self.ln_out(x)
         out = x * mask[..., None]
         if seq is not None:  # every frame for the head and the loss
             out = gather_seq(out, seq)[:, :t]

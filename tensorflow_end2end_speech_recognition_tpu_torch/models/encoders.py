@@ -61,8 +61,8 @@ ZHANG_CHANNELS = (128, 128, 256, 256)  # cnn_zhang: a frequency pool after every
 
 
 class EncoderConfig(NamedTuple):
-    """The one-device fields of the JAX ``EncoderConfig``, same names and
-    defaults."""
+    """The one-device fields of the JAX ``EncoderConfig`` and its pipeline
+    microbatches, same names and defaults."""
 
     encoder_type: str = "blstm"
     num_units: int = 256
@@ -87,6 +87,9 @@ class EncoderConfig(NamedTuple):
     moe_aux_weight: float = 1e-2
     pos_encoding: str = "absolute"  # "absolute" | "relative" | "rotary"
     left_context: int = -1  # >= 0: chunk-causal attention window and causal conv
+    # pipeline stages (parallel/pp.py; the train step's mesh places them): the
+    # microbatches a stage runs its layers over
+    pipeline_microbatches: int = 8
 
     @property
     def bidirectional(self) -> bool:
@@ -345,7 +348,8 @@ class Encoder(nn.Module):
         layer); without a generator no dropout is drawn.
         """
         if self.cfg.is_conformer:
-            out, aux = self.conformer(xs, lengths, train, generator, self.keep_prob)
+            out, aux = self.conformer(xs, lengths, train, generator, self.keep_prob,
+                                      self.cfg.pipeline_microbatches)
             return EncoderOutput(out, lengths, aux)
         if self.cfg.is_cnn:
             return self._cnn_zhang(xs, lengths, train, generator)

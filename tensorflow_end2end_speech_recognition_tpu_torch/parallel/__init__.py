@@ -1,12 +1,13 @@
-"""Data, tensor, sequence and expert parallelism and ZeRO-3 over
-``torch.distributed`` ranks.
+"""Data, tensor, sequence, expert and pipeline parallelism and ZeRO-3
+over ``torch.distributed`` ranks.
 
 Counterpart of ``tensorflow_end2end_speech_recognition_tpu/parallel``:
-``mesh`` (named axes, DP), ``multihost`` (per-rank rows, summed eval
-counts), ``fsdp`` (ZeRO-3, composed with tp / ep through ``base_specs``),
-``tp`` (Megatron column -> row pairs over ``model``), ``sp`` (the
-conformer's frames over ``seq``) and ``ep`` (MoE experts over ``expert``).
-Pipeline parallelism (``pp``) is not ported yet.
+``mesh`` (named axes, DP, the hops between pipeline stages),
+``multihost`` (per-rank rows, summed eval counts), ``fsdp`` (ZeRO-3,
+composed with tp / ep through ``base_specs``), ``tp`` (Megatron column ->
+row pairs over ``model``), ``sp`` (the conformer's frames over ``seq``),
+``ep`` (MoE experts over ``expert``) and ``pp`` (GPipe stages of the
+conformer's layers over ``pipe``, composed with tp).
 """
 
 from .ep import expert_partition_specs, make_mesh_dp_ep, setup_expert_parallel
@@ -27,6 +28,21 @@ from .multihost import (
     local_replica,
     process_slice,
 )
+from .pp import (
+    apply_conformer_pipelined,
+    make_mesh_dp_pp,
+    make_mesh_dp_pp_tp,
+    make_mesh_pp,
+    microbatch,
+    pipeline_apply,
+    pipeline_param_specs,
+    place_pipeline_params,
+    pp_stack_tree,
+    pp_unstack_tree,
+    setup_pipeline_parallel,
+    stack_layers,
+    unstack_layers,
+)
 from .sp import make_mesh_dp_sp, seq_shard_fn, setup_sequence_parallel
 from .tp import (
     make_mesh_2d,
@@ -38,6 +54,7 @@ from .tp import (
 
 __all__ = [
     "allreduce_counts",
+    "apply_conformer_pipelined",
     "batch_sharding",
     "distribute_batch",
     "expert_partition_specs",
@@ -49,9 +66,18 @@ __all__ = [
     "make_mesh_2d",
     "make_mesh_3d",
     "make_mesh_dp_ep",
+    "make_mesh_dp_pp",
+    "make_mesh_dp_pp_tp",
     "make_mesh_dp_sp",
+    "make_mesh_pp",
+    "microbatch",
     "opt_state_shardings",
     "param_partition_specs",
+    "pipeline_apply",
+    "pipeline_param_specs",
+    "place_pipeline_params",
+    "pp_stack_tree",
+    "pp_unstack_tree",
     "process_slice",
     "replicate",
     "replicated",
@@ -59,7 +85,10 @@ __all__ = [
     "setup_data_parallel",
     "setup_expert_parallel",
     "setup_fsdp",
+    "setup_pipeline_parallel",
     "setup_sequence_parallel",
     "setup_tensor_parallel",
     "shard_batch",
+    "stack_layers",
+    "unstack_layers",
 ]

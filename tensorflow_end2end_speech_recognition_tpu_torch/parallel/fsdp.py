@@ -26,8 +26,9 @@ leaf with no free divisible axis keeps its base spec. Sequence parallelism
 replicates its weights: its base is None.
 
 The state stays sharded between steps. Checkpoints gather it whole
-(``gather_whole``), and a restore re-shards it (``shard_tree``), so a
-checkpoint keeps the one-device layout.
+(``gather_whole``, which also unstacks pipeline stages' layers), and a
+restore re-shards it (``shard_tree``), so a checkpoint keeps the one-device
+layout.
 """
 
 from __future__ import annotations
@@ -36,7 +37,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import DATA_AXIS, Mesh, count_traffic, local_block, replicate, shard_batch
+from .mesh import (
+    DATA_AXIS,
+    PIPE_AXIS,
+    Mesh,
+    count_traffic,
+    local_block,
+    replicate,
+    shard_batch,
+)
 
 
 def fsdp_spec_for(leaf, num_shards: int, axis_name: str = DATA_AXIS, base=None) -> tuple:
@@ -131,12 +140,18 @@ def gather_params(mesh: Mesh, shards: dict, specs: dict) -> dict:
 
 def gather_whole(mesh: Mesh, tree, specs: dict | None):
     """Every parameter-keyed dict of ``tree`` with each leaf whole, gathered
-    over every axis that splits it: what eval and checkpoints read."""
+    over every axis that splits it, and pipeline stages' stacked layer
+    leaves unstacked (``pp.pp_unstack_tree``): the one-device layout that
+    eval and checkpoints read."""
     if specs is None:
         return tree
     if _is_param_dict(tree, specs):
         for axis, _ in mesh.axis_sizes:
             tree = gather_axis(mesh, tree, specs, axis)
+        if any(PIPE_AXIS in spec for spec in specs.values()):
+            from .pp import pp_unstack_tree
+
+            tree = pp_unstack_tree(tree)
         return tree
     if isinstance(tree, dict):
         return {k: gather_whole(mesh, v, specs) for k, v in tree.items()}

@@ -11,7 +11,8 @@ so one step over the ranks is the one-program step over the global batch.
 
 A mesh has named axes, major to minor, whose sizes multiply to the world
 size: ``data`` alone (data parallelism), ``(data, model)``, ``(data, seq,
-model)``, ``(data, seq)`` or ``(data, expert)``. Rank r sits where JAX puts
+model)``, ``(data, seq)``, ``(data, expert)``, ``(data, pipe)`` or ``(data,
+pipe, model)``. Rank r sits where JAX puts
 device r: the minor axis varies fastest, so rank = ((d·S) + s)·M + m on a
 ``(data, seq, model)`` mesh, and block r of a sharded leaf lives on rank r
 as it lives on device r. ``along(axes)`` is the 1-D mesh of this rank's
@@ -26,6 +27,12 @@ column-parallel weight, ``("data", "model")`` one that ZeRO-3 also splits.
 Dim i of a leaf split over an axis of n ranks is cut into n contiguous
 blocks, block k on the ranks whose index on that axis is k
 (``local_block``).
+
+Along ``pipe`` a stage hands its activations to the next one
+(``send_stage`` / ``recv_stage``; the backward's hop is their transpose,
+the same calls toward the previous stage): over ``nccl`` as a point-to-point
+send, over ``gloo``, whose send takes no card tensor, as a broadcast on the
+two-rank group of the pair of stages (``Mesh.pipe_pairs``).
 
 A mesh with no process group (``make_mesh()`` outside ``torchrun``, or
 ``LOCAL``) has one rank and runs no collective: the one-process train step
@@ -48,6 +55,7 @@ DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 BATCH_AXES = (DATA_AXIS, SEQ_AXIS)  # the axes whose ranks hold different rows or frames
 
 
@@ -57,7 +65,9 @@ class Mesh:
     its ranks (None: no group, one rank, no collective); ``axes`` the named
     axes ``((name, size), ...)`` major to minor (empty: one ``data`` axis of
     ``size``); ``subgroups`` ``((axis names, group), ...)`` this rank's
-    group along each proper subset of the axes of more than one rank."""
+    group along each proper subset of the axes of more than one rank;
+    ``pipe_pairs`` ``((lower rank, upper rank, group), ...)`` the two-rank
+    groups of this rank and its neighbour stages along ``pipe``."""
 
     rank: int
     size: int
@@ -65,6 +75,7 @@ class Mesh:
     group: object = None
     axes: tuple = ()
     subgroups: tuple = ()
+    pipe_pairs: tuple = ()
 
     @property
     def axis_sizes(self) -> tuple:
@@ -181,11 +192,12 @@ def make_grid(axes: dict, device=None) -> Mesh:
     the initialized default process group, whose world size must be their
     product, on this rank's device (``rank_device``). Every rank creates
     the subgroup of every line along every proper subset of the axes of
-    more than one rank, in the same order (``dist.new_group`` is collective)."""
+    more than one rank, then the group of every pair of neighbour stages
+    along ``pipe``, in the same order (``dist.new_group`` is collective)."""
     axes = tuple((name, int(n)) for name, n in axes.items())
     total = math.prod(n for _, n in axes)
     rank, size, group = _world(total)
-    subgroups = []
+    subgroups, pairs = [], []
     if group is not None:
         live = [a for a, n in axes if n > 1]
         for k in range(1, len(live)):
@@ -196,10 +208,16 @@ def make_grid(axes: dict, device=None) -> Mesh:
                     if rank in ranks:
                         mine = g
                 subgroups.append((sub, mine))
+        if PIPE_AXIS in live:
+            for line in _lines(axes, (PIPE_AXIS,)):
+                for lo, hi in zip(line, line[1:]):
+                    g = dist.new_group([lo, hi])
+                    if rank in (lo, hi):
+                        pairs.append((lo, hi, g))
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(rank, size, dev, group, axes, tuple(subgroups))
+    return Mesh(rank, size, dev, group, axes, tuple(subgroups), tuple(pairs))
 
 
 def make_mesh(num_devices: int | None = None, device=None) -> Mesh:
@@ -286,6 +304,44 @@ def all_reduce_flat(mesh: Mesh, tensors: list) -> list:
         out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
         at += t.numel()
     return out
+
+
+def _stage_peer(mesh: Mesh, step: int) -> tuple:
+    """(global rank, pair group) of the stage ``step`` (+1 or -1) away along
+    ``pipe`` (the rank with this rank's other coordinates)."""
+    stride = 1
+    for name, n in reversed(mesh.axis_sizes):
+        if name == PIPE_AXIS:
+            break
+        stride *= n
+    peer = mesh.rank + step * stride
+    lo, hi = sorted((mesh.rank, peer))
+    group = next(g for a, b, g in mesh.pipe_pairs if (a, b) == (lo, hi))
+    return peer, group
+
+
+def send_stage(mesh: Mesh, x: torch.Tensor, step: int) -> None:
+    """Hand ``x`` to the stage ``step`` (+1: the next, -1: the previous) away
+    along ``pipe``; it takes it with ``recv_stage(mesh, ..., -step)``."""
+    peer, group = _stage_peer(mesh, step)
+    x = x.detach().contiguous()
+    count_traffic("pipe_hop", x)
+    if dist.get_backend(mesh.group) == "nccl":
+        dist.send(x, peer)
+    else:
+        dist.broadcast(x, mesh.rank, group=group)
+
+
+def recv_stage(mesh: Mesh, shape, dtype, step: int) -> torch.Tensor:
+    """The tensor that the stage ``step`` away along ``pipe`` hands to this
+    one (``send_stage(mesh, x, -step)`` there)."""
+    peer, group = _stage_peer(mesh, step)
+    x = torch.empty(shape, dtype=dtype, device=mesh.device)
+    if dist.get_backend(mesh.group) == "nccl":
+        dist.recv(x, peer)
+    else:
+        dist.broadcast(x, peer, group=group)
+    return x
 
 
 _STEPS: list = []  # (mesh, specs) of the train steps running in this process

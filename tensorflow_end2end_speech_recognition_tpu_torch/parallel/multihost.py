@@ -77,8 +77,9 @@ def global_device_batch(mesh, local_batch: dict) -> dict:
 
 def local_replica(tree: dict, mesh=None, specs: dict | None = None) -> dict:
     """The whole parameters on this rank: under DP the replica it holds,
-    with ``specs`` that split a leaf (ZeRO-3, model or expert shards)
-    gathered from the ranks' blocks (``fsdp.gather_whole``). Eval and
+    with ``specs`` that split a leaf (ZeRO-3, model or expert shards,
+    pipeline stages) gathered from the ranks' blocks, stacked layers
+    unstacked (``fsdp.gather_whole``): the one-device layout. Eval and
     checkpoints read this."""
     if mesh is None or specs is None or not any(specs.values()):
         return tree

@@ -20,7 +20,8 @@ with ``grad_accum`` above 1 takes its loss and gradients over that many
 strided microbatches (``train/accum.py``) before its one update. Built
 with a ``mesh`` the train step is one step over the ranks: data parallel,
 with model, sequence or expert shards, and with ``specs`` that split
-leaves (ZeRO-3, tensor or expert parallelism; ``guarded_train_step``).
+leaves (ZeRO-3, tensor, expert or pipeline parallelism;
+``guarded_train_step``).
 """
 
 from __future__ import annotations
@@ -44,10 +45,12 @@ from ..parallel.mesh import (
     BATCH_AXES,
     DATA_AXIS,
     LOCAL,
+    PIPE_AXIS,
     SEQ_AXIS,
     all_reduce_flat,
     global_batch,
 )
+from ..parallel.pp import stage_views
 from .accum import microbatch_weights, weighted_value_and_grad
 from .optimizer import apply_updates, global_norm, tree_where
 
@@ -204,8 +207,8 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, me
     MoE load-balance term over the global batch's frames). Under ``seq``
     shards every seq rank computes the loss of all frames (``parallel/
     sp.py``) and weighs it by 1/S; a MoE term is a share of the global term
-    already and keeps its weight. Model and expert ranks compute the loss
-    whole and are not summed. Then the optimizer's clip and update, and the
+    already and keeps its weight. Model, expert and pipe ranks compute the
+    loss whole and are not summed. Then the optimizer's clip and update, and the
     guard of the JAX step: unless the loss is finite and below 1e20 (an
     impossible alignment gives about 1e30), both the parameters and the
     optimizer state keep their old values and ``aux["nonfinite"]`` is true.
@@ -221,12 +224,18 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, me
     reduce-scattered after the backward; model- and expert-split ones stay
     blocks, which the model runs on (``global_batch``); each gradient is
     summed over the axes of ``grad_buckets``, and the clip's norm over the
-    axes that split each leaf.
+    axes that split each leaf. Under pipeline stages
+    (``parallel/pp.pipeline_param_specs``) ``params`` holds this rank's stage
+    of the stacked layer leaves; the model runs them as per-layer views
+    (``pp.stage_views``, whose weight decay counts each stage once over the
+    pipe line), every pipe rank gets the whole gradient of the replicated
+    leaves, and its stage leaves' gradients are summed over ``data`` alone.
     """
     mesh = LOCAL if mesh is None else mesh
     norm_fn = functools.partial(global_norm, mesh=mesh, specs=specs)
     rows = mesh.along(DATA_AXIS)
     seq_share = 1.0 / mesh.degree(SEQ_AXIS)
+    piped = mesh.degree(PIPE_AXIS) > 1
 
     def train_step(params, opt_state, batch, lr, generator=None, **kw):
         w = microbatch_weights(batch, grad_accum)
@@ -234,9 +243,11 @@ def guarded_train_step(forward_loss_fn, task, optimizer, grad_accum: int = 1, me
         total = torch.clamp(w_all.sum(), min=1.0)  # 0 only when no row is real
         full = gather_params(mesh, params, specs) if specs is not None else params
         leaves = {k: v.detach().requires_grad_(True) for k, v in full.items()}
-        with global_batch(mesh, specs):
+        # under pipeline stages the model sees this stage's layers as per-layer views
+        views = (lambda p: stage_views(p, specs, mesh)) if piped else (lambda p: (p, specs))
+        with global_batch(mesh, views(leaves)[1]):
             loss, aux, grads = weighted_value_and_grad(
-                lambda p, mb, g: forward_loss_fn(p, task, mb, True, g, **kw),
+                lambda p, mb, g: forward_loss_fn(views(p)[0], task, mb, True, g, **kw),
                 leaves, batch, generator, grad_accum, w / total * seq_share, w_all / total)
         del full, leaves
         if specs is not None:

@@ -28,8 +28,8 @@ curves (``utils/plot.py``; a failure, such as no matplotlib, is printed and
 ignored, as the JAX loop does). ``num_devices`` above 1 trains over
 ``torchrun``'s ranks (``parallel/``): data parallel, with tensor,
 sequence or expert shards (``num_model_shards``, ``num_sequence_shards``,
-``num_expert_shards``), and ``fsdp`` with ZeRO-3; pipeline stages raise
-``NotImplementedError``.
+``num_expert_shards``), pipeline stages (``num_pipeline_stages``, alone or
+with tensor shards), and ``fsdp`` with ZeRO-3.
 """
 
 from __future__ import annotations
@@ -53,8 +53,9 @@ from ..data.tokenizers import CharTokenizer
 from ..data.toy_corpus import ToyCorpus
 from ..parallel.ep import expert_partition_specs
 from ..parallel.fsdp import fsdp_partition_specs, gather_whole, place
-from ..parallel.mesh import DATA_AXIS, make_grid, rank_seed
+from ..parallel.mesh import DATA_AXIS, PIPE_AXIS, make_grid, rank_seed
 from ..parallel.multihost import distribute_batch, local_replica
+from ..parallel.pp import pipeline_param_specs, pp_stack_tree
 from ..parallel.tp import param_partition_specs
 from ..utils.config import ATTENTION_MODEL_TYPES, ExperimentConfig
 from ..utils.metrics import evaluate_ctc
@@ -197,10 +198,14 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     ``fit``'s dispatch): every rank takes the rows of its data index of each
     global batch; ``num_model_shards`` splits the conformer's heads and FF
     columns (``parallel/tp.py``), ``num_sequence_shards`` its frames
-    (``sp.py``), ``num_expert_shards`` its experts (``ep.py``), ``fsdp``
-    shards the weights and moments over ``data`` (ZeRO-3, composed with
-    the model and expert splits); the steps reduce over the ranks. The
-    ranks of one data line draw the same dropout and SpecAugment masks.
+    (``sp.py``), ``num_expert_shards`` its experts (``ep.py``),
+    ``num_pipeline_stages`` its layers into GPipe stages over
+    ``num_pipeline_microbatches`` microbatches (``pp.py``; the weights and
+    moments held stacked, each rank its stage's), ``fsdp`` shards the
+    weights and moments over ``data`` (ZeRO-3, composed with the model and
+    expert splits); the steps reduce over the ranks. The ranks of one data
+    line draw the same dropout and SpecAugment masks (the pipeline's
+    stages each a stream of its own from it).
     The dev eval runs the whole weights over the data line and sums the
     counts, and rank 0 alone prints, writes the model dir's files and
     checkpoints (whole tensors, the one-device layout, which any mesh or
@@ -227,12 +232,14 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
     cmvn_stats = cmvn_stats_for(exp, task, train_utts + dev_utts, device)
     # the budget counts frames: a waveform corpus's lengths count samples. The
     # row floor keeps every batch divisible into grad_accum_steps microbatches
-    # on each of the ranks
+    # (each into the pipeline's) on each of the ranks
+    piped = PIPE_AXIS in axes
     train_ds = Dataset(
         train_utts, exp.batch_size, sort_utt=exp.sort_utt,
         sort_stop_epoch=exp.sort_stop_epoch, seed=exp.seed, cmvn_stats=cmvn_stats,
         max_frames_per_batch=exp.max_frames_per_batch,
-        min_batch_rows=exp.grad_accum_steps * n_data,
+        min_batch_rows=exp.grad_accum_steps * n_data
+        * (exp.pipeline_microbatches() if piped else 1),
         samples_per_frame=task.frontend.frame_step if task.frontend is not None else 1,
     )
     dev_ds = Dataset(dev_utts, exp.eval_batch_size or exp.batch_size, sort_utt=True,
@@ -243,11 +250,15 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
 
     opt = build_optimizer(exp.optimizer, exp.clip_grad_norm)
     opt_state = opt.init(params)
-    # each leaf's placement: Megatron or expert blocks, and ZeRO-3's data split
-    specs = (param_partition_specs(params) if "model" in axes
-             else expert_partition_specs(params) if "expert" in axes else None)
-    if exp.fsdp:
-        specs = fsdp_partition_specs(params, n_data, specs)
+    # each leaf's placement: the stacked layers' stage (and Megatron) blocks under
+    # pipeline stages, else Megatron or expert blocks, and ZeRO-3's data split
+    if piped:
+        specs = pipeline_param_specs(pp_stack_tree(params, axes[PIPE_AXIS]), "model" in axes)
+    else:
+        specs = (param_partition_specs(params) if "model" in axes
+                 else expert_partition_specs(params) if "expert" in axes else None)
+        if exp.fsdp:
+            specs = fsdp_partition_specs(params, n_data, specs)
     train_step = task_mod.make_train_step(task, opt, grad_accum=exp.grad_accum_steps,
                                           mesh=mesh, specs=specs)
     eval_step = task_mod.make_eval_step(task)
@@ -291,11 +302,15 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         start_epoch += 1
         say(f"resuming from checkpoint epoch {start_epoch - 1}")
     # after any resume, so restored state is placed too: replicated, or cut
-    # into this rank's blocks
+    # into this rank's blocks (pipeline stages: of the stacked layout)
+    if piped:
+        params, opt_state = pp_stack_tree(params, axes[PIPE_AXIS]), \
+            pp_stack_tree(opt_state, axes[PIPE_AXIS])
     params, opt_state, _ = place(mesh, params, opt_state, specs)
     if mesh.group is not None:
-        say(mesh_line(axes, exp.fsdp)
-            + f" ({mesh.size} process(es), backend {dist.get_backend(mesh.group)})")
+        say(mesh_line(axes, exp.fsdp) + " ("
+            + (f"{exp.pipeline_microbatches()} microbatches, " if piped else "")
+            + f"{mesh.size} process(es), backend {dist.get_backend(mesh.group)})")
     prof = None
     trace = model_dir / "trace" / (f"train_steps_{profile_steps[0]}-{profile_steps[1]}.json"
                                    if profile_steps else "")
@@ -331,8 +346,9 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # the epoch's queued steps are done
         epoch_time = time.perf_counter() - t0
-        # whole weights and optimizer state (gathered from the blocks) for eval and
-        # the checkpoint; each data line decodes its rows of every dev batch
+        # whole weights and optimizer state (gathered from the blocks, in the
+        # one-device layout) for eval and the checkpoint; each data line decodes
+        # its rows of every dev batch
         whole = local_replica(params, mesh, specs)
         dev = evaluate_ctc(eval_step, whole, dev_ds, tokenizer, exp.label_type, epoch, device,
                            mesh.along(DATA_AXIS))
@@ -394,7 +410,10 @@ def fit(exp: ExperimentConfig, model_dir, log_every: int = 10, print_fn=print,
 def mesh_line(axes: dict, fsdp: bool) -> str:
     """The JAX ``fit``'s line for its mesh (the port's for data alone)."""
     dp, sp = axes[DATA_AXIS], axes.get("seq")
-    if "model" in axes:
+    if PIPE_AXIS in axes:
+        line = f"mesh: {dp}-way data x {axes[PIPE_AXIS]}-stage pipeline" + (
+            f" x {axes['model']}-way tensor parallel" if "model" in axes else "")
+    elif "model" in axes:
         line = (f"mesh: {dp}-way data x " + (f"{sp}-shard sequence x " if sp else "")
                 + f"{axes['model']}-way tensor parallel")
     elif "expert" in axes:

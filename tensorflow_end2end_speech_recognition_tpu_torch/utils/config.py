@@ -10,9 +10,8 @@ same ``FrontendConfig``, ``EncoderConfig``, ``CTCConfig`` /
 ``Seq2SeqConfig`` / ``AttTaskConfig`` values, with ``SpecAugmentConfig``
 when ``use_specaugment`` is set. A key the JAX package knows but the port
 does not raises ``KeyError`` when it is read; ``check_trainable`` raises
-what the JAX ``fit`` raises for the mesh axes (data, tensor, sequence and
-expert parallelism and ``fsdp`` are ported), and ``NotImplementedError``
-for pipeline stages, which are not.
+what the JAX ``fit`` raises for the mesh axes (data, tensor, sequence,
+expert and pipeline parallelism and ``fsdp``).
 ``corpus_tokenizer`` gives the units of a config's corpus: the word and BPE
 label types learn theirs from its text (a ``data_root`` corpus's train
 transcripts).
@@ -219,7 +218,9 @@ class ExperimentConfig:
         (the JAX package's partition-safe form; the same function in the
         port); pipeline stages need a conformer / transformer of divisible
         depth, sequence shards and MoE a conformer / transformer, expert
-        shards an expert bank they divide."""
+        shards an expert bank they divide. The encoder carries the pipeline's
+        microbatches (``pipeline_microbatches``; the stages are the train
+        step's mesh)."""
         sp = self.num_sequence_shards or 1
         depthwise = "shifts" if (self.num_model_shards or 1) > 1 or sp > 1 else "conv"
         pp = self.num_pipeline_stages or 1
@@ -270,6 +271,7 @@ class ExperimentConfig:
             moe_aux_weight=self.moe_aux_weight,
             pos_encoding=self.pos_encoding,
             left_context=self.left_context,
+            pipeline_microbatches=self.pipeline_microbatches(),
         )
         check_supported(cfg)
         return cfg
@@ -397,13 +399,22 @@ class ExperimentConfig:
             return self.transducer_task(num_classes)
         return self.ctc_task(num_classes)
 
+    def pipeline_microbatches(self) -> int:
+        """``num_pipeline_microbatches``, by default 4 x the pipeline stages."""
+        return self.num_pipeline_microbatches or 4 * (self.num_pipeline_stages or 1)
+
     def mesh_axes(self) -> dict:
         """``{axis: size}`` of the training mesh, major to minor, as the JAX
         ``fit`` builds it: ``(data, seq, model)`` for model and sequence
         shards together, ``(data, expert)``, ``(data, seq)``, ``(data,
-        model)``, or ``data`` alone. ``check_trainable`` validates it."""
+        pipe, model)`` for pipeline stages with model shards, ``(data,
+        pipe)``, ``(data, model)``, or ``data`` alone (a rank's index on
+        each axis is the JAX device's). ``check_trainable`` validates it."""
         tp, sp = self.num_model_shards or 1, self.num_sequence_shards or 1
-        ep = self.num_expert_shards or 1
+        ep, pp = self.num_expert_shards or 1, self.num_pipeline_stages or 1
+        if pp > 1:
+            total = self.num_devices or (pp * tp)
+            return {"data": total // (pp * tp), "pipe": pp} | ({"model": tp} if tp > 1 else {})
         total = self.num_devices or (tp * sp * ep)
         if tp > 1 and sp > 1:
             return {"data": total // (tp * sp), "seq": sp, "model": tp}
@@ -418,14 +429,17 @@ class ExperimentConfig:
     def check_trainable(self) -> None:
         """Raise what the JAX ``fit`` raises, with its texts, as
         ``ValueError``: the encoder's refusals (``encoder_config``), a batch
-        that ``grad_accum_steps`` does not divide, then the mesh's (expert shards exclude the other model axes, pipeline stages
-        exclude sequence shards and ``fsdp``, ``fsdp`` needs a data axis to
-        remain, the shards must divide ``num_devices`` and the data degree
-        the batch). ``NotImplementedError`` for pipeline stages, which are
-        not ported. Then the port's own: each rank's rows split into
-        ``grad_accum_steps`` microbatches, and the data degree divides the
-        eval batch. That the world size is ``num_devices`` (or the shards'
-        product) ``parallel.make_grid`` checks when ``fit`` builds the mesh."""
+        that ``grad_accum_steps`` does not divide, then the mesh's (expert
+        shards exclude the other model axes, pipeline stages exclude
+        sequence shards and ``fsdp``, ``fsdp`` needs a data axis to remain,
+        the shards must divide ``num_devices`` and the data degree the
+        batch; under pipeline stages the microbatches divide the train and
+        eval batches, and the data degree their rows). Then the port's own:
+        each rank's rows split into ``grad_accum_steps`` microbatches (under
+        pipeline stages each of those into the pipeline's microbatches), and
+        the data degree divides the eval batch. That the world size is
+        ``num_devices`` (or the shards' product) ``parallel.make_grid``
+        checks when ``fit`` builds the mesh."""
         n = self.num_devices or 1
         tp, pp = self.num_model_shards or 1, self.num_pipeline_stages or 1
         sp, ep = self.num_sequence_shards or 1, self.num_expert_shards or 1
@@ -447,25 +461,28 @@ class ExperimentConfig:
         if self.fsdp and not n > tp * sp * ep:
             raise ValueError("fsdp needs a data-parallel degree > 1 (num_devices, divided by "
                              "any tp/sp/ep shards, must leave a data axis to shard over)")
-        if pp > 1:
-            raise NotImplementedError("num_pipeline_stages > 1 is not ported yet")
         total = self.num_devices or (tp * sp * ep)
-        if tp > 1 and sp > 1:
-            shards, split = tp * sp, f"num_model_shards x num_sequence_shards = {tp}x{sp}"
-            degree = "num_devices/(tp*sp)"
-        elif ep > 1:
-            shards, split, degree = ep, f"num_expert_shards {ep}", "num_devices/num_expert_shards"
-        elif sp > 1:
-            shards, split = sp, f"num_sequence_shards {sp}"
-            degree = "num_devices/num_sequence_shards"
+        if pp > 1:
+            self._check_pipeline(pp, tp)
         else:
-            shards, split, degree = tp, f"num_model_shards {tp}", "num_devices/num_model_shards"
-        if total > 1 or shards > 1:
-            if total % shards:
-                raise ValueError(f"num_devices {total} not divisible by {split}")
-            if self.batch_size % (total // shards):
-                raise ValueError(f"batch_size {self.batch_size} not divisible by "
-                                 f"data-parallel degree {total // shards} ({degree})")
+            if tp > 1 and sp > 1:
+                shards, split = tp * sp, f"num_model_shards x num_sequence_shards = {tp}x{sp}"
+                degree = "num_devices/(tp*sp)"
+            elif ep > 1:
+                shards, split = ep, f"num_expert_shards {ep}"
+                degree = "num_devices/num_expert_shards"
+            elif sp > 1:
+                shards, split = sp, f"num_sequence_shards {sp}"
+                degree = "num_devices/num_sequence_shards"
+            else:
+                shards, split = tp, f"num_model_shards {tp}"
+                degree = "num_devices/num_model_shards"
+            if total > 1 or shards > 1:
+                if total % shards:
+                    raise ValueError(f"num_devices {total} not divisible by {split}")
+                if self.batch_size % (total // shards):
+                    raise ValueError(f"batch_size {self.batch_size} not divisible by "
+                                     f"data-parallel degree {total // shards} ({degree})")
         dp = self.mesh_axes()["data"]
         a = self.grad_accum_steps
         if self.batch_size % (a * dp):
@@ -478,6 +495,31 @@ class ExperimentConfig:
                              f"degree {dp} (each rank decodes its rows of every dev batch)")
         if self.toy_profile not in TOY_PROFILES:
             raise ValueError(f"unknown toy_profile {self.toy_profile!r}")
+
+    def _check_pipeline(self, pp: int, tp: int) -> None:
+        """The JAX ``fit``'s checks of pipeline stages, with their texts
+        (the stages x model shards divide ``num_devices``, the microbatches
+        the train and eval batches, the data degree a microbatch's rows),
+        then the port's: each rank's grad_accum_steps microbatches split
+        into the pipeline's."""
+        total, mb = self.num_devices or (pp * tp), self.pipeline_microbatches()
+        if total % (pp * tp):
+            raise ValueError(f"num_devices {total} not divisible by num_pipeline_stages x "
+                             f"num_model_shards = {pp}x{tp}")
+        dp = total // (pp * tp)
+        for name, b in (("batch_size", self.batch_size),
+                        ("eval_batch_size", self.eval_batch_size or self.batch_size)):
+            if b % mb:
+                raise ValueError(f"{name} {b} not divisible by num_pipeline_microbatches {mb}")
+            if (b // mb) % dp:
+                raise ValueError(f"{name} {b} / {mb} microbatches leaves {b // mb} rows, "
+                                 f"not divisible by data-parallel degree {dp}")
+        a = self.grad_accum_steps
+        if self.batch_size % (a * mb * dp):
+            raise ValueError(f"batch_size {self.batch_size} not divisible by grad_accum_steps x "
+                             f"num_pipeline_microbatches x data-parallel degree = {a}x{mb}x{dp} "
+                             "(each rank splits each of its grad_accum_steps microbatches into "
+                             "the pipeline's)")
 
 
 def experiment_from_dict(raw: dict) -> ExperimentConfig:

@@ -9,8 +9,8 @@ the ``base`` specs of tensor and expert parallelism, and
 ls960_joint and ls960_conformer_ctc weights, at 2 and 8 shards, against
 JAX's specs (the port's spec is ``tuple(PartitionSpec)``); the errors of
 ``tests/test_fsdp.py::test_fit_rejects_fsdp_combinations`` and every other
-mesh combination the JAX ``fit`` refuses raised as JAX raises them, and
-pipeline stages, not ported yet, raising ``NotImplementedError``.
+mesh combination the JAX ``fit`` refuses (pipeline stages' microbatches and
+data degree included) raised as JAX raises them.
 
 World 2 (one spawn of ``tests/torch_parallel_workers.py`` from the module
 fixture): two Adam steps (lr 1e-3, clip 5.0) of the CTC, joint and
@@ -172,6 +172,12 @@ REFUSED = {
     "devices_by_tp": dict(num_devices=6, num_model_shards=4),
     "fsdp_without_data_axis_tp": dict(fsdp=True, num_devices=2, num_model_shards=2),
     "fsdp_without_data_axis_ep": dict(MOE, fsdp=True, num_devices=4, num_expert_shards=4),
+    "devices_by_pp_tp": dict(num_devices=6, num_pipeline_stages=2, num_model_shards=2,
+                             num_layers=2),
+    "batch_by_pp_microbatches": dict(num_devices=2, num_pipeline_stages=2, num_layers=2,
+                                     num_pipeline_microbatches=3),
+    "eval_rows_by_pp_data_degree": dict(num_devices=4, num_pipeline_stages=2, num_layers=2,
+                                        num_pipeline_microbatches=4, eval_batch_size=4),
 }
 
 
@@ -185,15 +191,6 @@ def test_fit_refuses_mesh_combinations_as_jax(tmp_path, case):
         fit(experiment_from_dict(raw), tmp_path / "port", print_fn=lambda *a: None,
             device="cpu")
     assert str(got.value) == str(want.value)
-
-
-# pipeline stages are the one axis not ported: refused before the world is read
-@pytest.mark.parametrize("axis,fsdp", [("num_pipeline_stages", False)])
-def test_unported_axes_raise(tmp_path, axis, fsdp):
-    raw = dict(REJECT, num_devices=8, fsdp=fsdp, num_layers=2, **{axis: 2})
-    with pytest.raises(NotImplementedError,
-                       match=f"^{'fsdp with ' if fsdp else ''}{axis} > 1 is not ported yet$"):
-        fit(experiment_from_dict(raw), tmp_path, print_fn=lambda *a: None, device="cpu")
 
 
 def test_data_parallel_validation(tmp_path):

@@ -139,8 +139,12 @@ def test_experiment_config_rejects_unknown_and_unported():
     assert experiment_from_dict({"dropout_encoder": 0.5}).dropout == 0.5
     assert experiment_from_dict({"learning_rate": "3e-3"}).learning_rate == 3e-3
     conformer = {"encoder_type": "conformer", "num_layers": 2}
-    with pytest.raises(NotImplementedError, match="num_pipeline_stages"):
-        experiment_from_dict(dict(conformer, num_pipeline_stages=2)).check_trainable()
+    # pipeline stages are ported: they train, and a batch the microbatches do
+    # not divide raises the JAX fit's ValueError
+    experiment_from_dict(dict(conformer, num_pipeline_stages=2)).check_trainable()
+    with pytest.raises(ValueError, match="not divisible by num_pipeline_microbatches 8"):
+        experiment_from_dict(dict(conformer, num_pipeline_stages=2, batch_size=12)
+                             ).check_trainable()
     # the other mesh axes are ported; what JAX refuses raises its ValueError
     for raw in ({"num_expert_shards": 2}, {"num_sequence_shards": 2}):
         with pytest.raises(ValueError):

@@ -1,5 +1,6 @@
-"""Shared set-up of ``tests/test_torch_tensor_parallel.py`` and
-``tests/test_torch_seq_expert_parallel.py``: the toy conformer CTC tasks on
+"""Shared set-up of ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_seq_expert_parallel.py`` and
+``tests/test_torch_pipeline_parallel.py``: the toy conformer CTC tasks on
 both sides, the seeded batch, the JAX one-device references, the jobs for
 the ranks (``tests/torch_parallel_workers.py``) and the checks.
 
@@ -8,8 +9,10 @@ features of width 10 stacked 3/3 (T = 60 frames -> T' = 20, 10 per seq rank
 of 2 and 5 of 4), C = 6 classes, weight decay 1e-2; families ``absolute``,
 ``relative``, ``rotary`` with ``left_context`` 4 (the window and the causal
 conv's 4-frame halo), and ``moe`` (4 experts, top 2, load-balance weight
-0.5). B = 4 ragged rows, the last a filler of weight 0 and full length (a
-data rank of 2 holds rows 2 and 3).
+0.5); for the pipeline also ``transformer`` (the pre-LN block, absolute
+positions) and ``deep`` (4 conformer layers, rotary + ``left_context``).
+B = 4 ragged rows, the last a filler of weight 0 and full length (a data
+rank of 2 holds rows 2 and 3).
 
 The reference of every step is the JAX package's one-device step on the
 whole batch, compiled once per family: one Adam step (lr 1e-3, clip 5.0)
@@ -60,11 +63,21 @@ FAMILIES = {
     "rotary": dict(pos_encoding="rotary", left_context=4),
     "moe": dict(moe_experts=4, moe_top_k=2, moe_aux_weight=0.5),
 }
+PIPELINE_FAMILIES = {
+    "transformer": dict(encoder_type="transformer"),
+    "deep": dict(num_layers=4, pos_encoding="rotary", left_context=4),
+}
+
+
+def options(family: str) -> dict:
+    """The encoder fields of ``family`` that differ from the toy's."""
+    return {**FAMILIES, **PIPELINE_FAMILIES}[family]
 
 
 def encoder_kw(family: str, keep: float = 1.0) -> dict:
-    return dict(encoder_type="conformer", num_units=16, num_layers=2, num_heads=4,
-                conv_kernel_size=5, ff_expansion=2, dropout_keep_prob=keep, **FAMILIES[family])
+    return {**dict(encoder_type="conformer", num_units=16, num_layers=2, num_heads=4,
+                   conv_kernel_size=5, ff_expansion=2, dropout_keep_prob=keep),
+            **options(family)}
 
 
 def tasks(family: str, keep: float = 1.0) -> tuple:
@@ -150,7 +163,7 @@ def step_job(name: str, family: str, opt: str, axes: dict, place=None, fsdp: boo
 
 def shift_invariant(key: str, family: str) -> bool:
     """Whether the leaf's exact gradient is 0: the key bias without RoPE."""
-    return key.endswith("mhsa.k.b") and FAMILIES[family].get("pos_encoding") != "rotary"
+    return key.endswith("mhsa.k.b") and options(family).get("pos_encoding") != "rotary"
 
 
 def assert_step_matches(got: dict, family: str, opt: str, accum: int = 1) -> None:

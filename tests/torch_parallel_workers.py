@@ -15,12 +15,13 @@ A job is a dict with ``kind``:
 - ``"steps"``: ``steps`` train steps of ``module``'s task on ``batch``
   (this rank's rows of it) on the mesh of ``axes`` (default: ``data``
   over the world), the leaves placed by ``place`` (``"tp"``: Megatron
-  blocks, ``"ep"``: expert blocks, else replicated) and, with ``fsdp``,
-  ZeRO-3 on top, from ``params`` (whole, on the CPU); ``seed`` turns on
-  the dropout generator (the data index's stream). Results: each step's
-  aux floats, this rank's params and optimizer state as held, its mesh
-  coordinates, and with split leaves their specs and the gathered whole
-  ones.
+  blocks, ``"ep"``: expert blocks, ``"pp"``: the stacked layers' stage
+  blocks, with Megatron blocks too on a mesh with ``model``, else
+  replicated) and, with ``fsdp``, ZeRO-3 on top, from ``params`` (whole,
+  on the CPU); ``seed`` turns on the dropout generator (the data index's
+  stream). Results: each step's aux floats, this rank's params and
+  optimizer state as held, its mesh coordinates, and with split leaves
+  their specs and the gathered whole ones.
 - ``"fit"``: ``train/loop.fit`` of ``exp`` into ``model_dir`` on the CPU;
   ``"refused"``: the same, expected to raise (its type and text).
 - ``"eval"``: ``utils/metrics.evaluate_ctc`` of ``exp``'s model (seeded
@@ -78,6 +79,8 @@ def run_steps(rank: int, world: int, job: dict) -> dict:
         fsdp_partition_specs,
         make_grid,
         param_partition_specs,
+        pipeline_param_specs,
+        pp_stack_tree,
         shard_batch,
     )
     from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import (
@@ -93,8 +96,11 @@ def run_steps(rank: int, world: int, job: dict) -> dict:
     mesh = make_grid(job.get("axes", {"data": world}), device="cpu")
     opt = build_optimizer(job["opt"], job.get("clip", 5.0))
     params = {k: v.clone() for k, v in job["params"].items()}
+    if job.get("place") == "pp":
+        params = pp_stack_tree(params, mesh.shape["pipe"])
     state = opt.init(params)
-    base = {"tp": param_partition_specs, "ep": expert_partition_specs}.get(job.get("place"))
+    base = {"tp": param_partition_specs, "ep": expert_partition_specs,
+            "pp": lambda p: pipeline_param_specs(p, "model" in mesh.shape)}.get(job.get("place"))
     specs = base(params) if base is not None else None
     if job.get("fsdp"):
         specs = fsdp_partition_specs(params, mesh.shape["data"], specs)
