@@ -252,7 +252,11 @@ Phases; any failure exits non-zero and prints no result line:
     ys, cs and dxproj and 1e-3 of the largest entry on the autograd
     Function's dWh; CUDA-event times beside the float32 kernels at the
     same shape and cuDNN ``nn.LSTM`` in bf16 (where torch takes it),
-    device launches per call, the bound of the bf16 streams' bytes;
+    device launches per call, the bound of the bf16 streams' bytes; then
+    #2 and #4 in float32 and bf16 streams at B=128 with ragged lengths and
+    at B=100 (not a multiple of the 16-row tiles) against their plain
+    versions (BWD_ATOL; two bf16 ulps), two calls bitwise equal, one
+    launch per call, timed beside their 3xTF32 and FFMA bounds;
 45. the headline step: ``bench.py``'s task (5 x BLSTM-512, 120 dims, 3/3
     stacking, 28 classes, U=40, Adam with clip 5.0) at B=128 x 12 s in
     float32 and in bf16, 10 timed steps each after warm-up: ms per step,
@@ -535,8 +539,9 @@ GRAD_RTOL = 1e-3  # each gradient within 1e-3 of its largest entry
 CANCELLED_RTOL = 1e-6  # a gradient zero in exact arithmetic, of the largest gradient entry
 REQUEST_SECONDS = (12.0, 12.0, 10.5, 9.0, 7.0, 5.0, 3.0, 1.0)
 TIMED_STEPS = 5
-# H100 SXM peak rates: float32 outside the tensor cores, HBM
+# H100 SXM peak rates: float32 outside the tensor cores, TF32 on them, HBM
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 F32 = 4
 PKG = "tensorflow_end2end_speech_recognition_tpu_torch"
@@ -837,18 +842,27 @@ def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
     """Bytes each input read once / output written once, and float32 operations
     of the valid steps (a masked step needs no work), for one layer's call of
     ``dirs`` directions; ``elem`` bytes per element of xproj, ys, cs, gys and
-    dxproj (2 under bf16 streams)."""
+    dxproj (2 under bf16 streams). The forward's products are float32 FFMA.
+    The backward's (#2, #4) are float32-accurate on the tensor cores: three
+    TF32 passes each (two for the gates' product on bf16 ys rows, which are
+    TF32 values), at PEAK_TF32, the gate math at PEAK_F32; its
+    ``bound_ffma_ms`` is the same work as float32 FFMA."""
     b, valid = len(lengths), float(sum(lengths))
     stream = b * t * h * elem  # one [B, T, H] tensor
     weights = h * 4 * h * F32
     mask = b * t * F32
-    if backward:  # per direction: xproj, wh, ys, cs, gys in; dxproj out
-        moved = dirs * (4 * stream + weights + 3 * stream + 4 * stream) + mask
-        ops = dirs * valid * (2 * 2 * h * 4 * h + 60 * h)  # gates and dh products, gate math
-    else:  # per direction: xproj, wh in; ys (and cs) out
+    if not backward:  # per direction: xproj, wh in; ys (and cs) out
         moved = dirs * (4 * stream + weights + (2 if with_cs else 1) * stream) + mask
-        ops = dirs * valid * (2 * h * 4 * h + 30 * h)
-    return bound(moved, ops)
+        return bound(moved, dirs * valid * (2 * h * 4 * h + 30 * h))
+    # per direction: xproj, wh, ys, cs, gys in; dxproj out
+    moved = dirs * (4 * stream + weights + 3 * stream + 4 * stream) + mask
+    product = dirs * valid * 2 * h * 4 * h  # one of the two products
+    math = dirs * valid * 60 * h
+    passes = (2 if elem < F32 else 3) + 3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    t_ops = max(passes * product / PEAK_TF32, math / PEAK_F32) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bound_ffma_ms": bound(moved, 2 * product + math)["bound_ms"]}
 
 
 def walk_extras(name: str, kernel, plan, dev) -> dict:
@@ -861,9 +875,11 @@ def walk_extras(name: str, kernel, plan, dev) -> dict:
         raise RuntimeError(f"{name}: two calls on the same inputs differ")
     sm_count = lstm._sm_count(dev.index or 0)
     rows = f", {plan.rows} rows per staged chunk" if hasattr(plan, "rows") else ""
+    cluster = (f", clusters of {plan.cluster}, Wh {'split' if plan.split else 'whole'}"
+               if hasattr(plan, "cluster") else "")
     print(f"{name}: two calls bitwise equal; launch plan {plan.units} units per block, "
-          f"{plan.blocks} blocks on {sm_count} SMs{rows}, {plan.smem_bytes} B shared memory per "
-          f"block, Wh slice {'resident' if plan.resident else 'streamed from L2'} "
+          f"{plan.blocks} blocks on {sm_count} SMs{rows}{cluster}, {plan.smem_bytes} B shared "
+          f"memory per block, Wh slice {'resident' if plan.resident else 'streamed from L2'} "
           f"({plan.resident_bytes} B), {plan.chunks} launch(es) per call", flush=True)
     return {"deterministic": True, "plan": plan._asdict()}
 
@@ -4115,9 +4131,68 @@ def check_bf16_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> di
     return out
 
 
+def check_backward_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> dict:
+    """Phase 44 at a further shape: #2 or #4 in float32 and bf16 streams
+    against their plain versions (BWD_ATOL; two bf16 ulps) from the plain
+    forward's streams, two calls equal bit for bit, one launch per call,
+    and the kernel's time."""
+    if dirs == 2:
+        args32, _, _ = lstm_inputs(dev, b, lengths, seed=seed, t=T_ENC, h=H)
+        streams, kernel, plain = 2, lstm.lstm_bidi_bwd, lstm.lstm_bidi_bwd_plain
+    else:
+        args32, _, _ = layer_inputs(dev, b, lengths, seed=seed, t=T_ENC)
+        streams, kernel, plain = 1, lstm.lstm_layer_bwd, lstm.lstm_layer_bwd_plain
+    xp32, whs, mask, fb = args32[:streams], args32[streams:2 * streams], args32[-2], args32[-1]
+    rng = np.random.RandomState(seed)
+    gys32 = [torch.from_numpy(rng.randn(b, T_ENC, H).astype(np.float32)).to(dev)
+             for _ in range(streams)]
+    fwd_p = lstm.lstm_bidi_fwd_plain if dirs == 2 else lstm.lstm_layer_fwd_plain
+    shape = f"B={b} T={T_ENC} H={H}, lengths {min(lengths)}..{max(lengths)}"
+    out = {}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            cast = (lambda v: v.bfloat16()) if bf16 else (lambda v: v)  # noqa: E731
+            xp, gys = [cast(x) for x in xp32], [cast(g) for g in gys32]
+            fwd = fwd_p(*xp, *whs, mask, fb)
+            args = (*xp, *whs, mask, *fwd[:2 * streams], *gys, fb)
+            name = kernel.__name__ + ("_bf16" if bf16 else "")
+            count = "launches_bf16" if bf16 else "launches"
+            before = getattr(kernel, count)
+            got, again = kernel(*args), kernel(*args)
+            torch.cuda.synchronize()
+            if getattr(kernel, count) != before + 2:
+                raise RuntimeError(f"{name}: {getattr(kernel, count) - before} launches in 2 calls")
+            got = got if isinstance(got, tuple) else (got,)
+            again = again if isinstance(again, tuple) else (again,)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"{name} {shape}: two calls on the same inputs differ")
+            want = plain(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            err = (check_bf16(f"{name} {shape}", got, want) if bf16
+                   else check(f"{name} {shape}", got, want, BWD_ATOL))
+            runs = [cuda_ms(lambda: kernel(*args), 10) for _ in range(2)]
+            trace = lstm.bwd_step_phases(lstm.bwd_trace(kernel.__name__, lambda: kernel(*args)))
+            r = dict(ms=sum(runs) / 2, ms_runs=runs, max_abs_err=err,
+                     us_per_step=sum(runs) / 2 * 1e3 / T_ENC, deterministic=True,
+                     step_trace_us=trace,
+                     **lstm_work(lengths, H, with_cs=True, backward=True, t=T_ENC, dirs=dirs,
+                                 elem=BF16_STREAM if bf16 else F32))
+            out[name] = r
+            print(f"phase {name} {shape}: kernel {r['ms']:.3f} ms (runs {runs[0]:.3f}, "
+                  f"{runs[1]:.3f}; {r['us_per_step']:.2f} us per step), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}; FFMA {r['bound_ffma_ms']:.4f}), "
+                  f"max abs err {err:.3e}, two calls bitwise equal, one launch per call; a "
+                  "traced call's step phases (us, block 0; block barriers at the marks): "
+                  + ", ".join(f"{k} {x:.2f}" for k, x in trace.items()) + f"  [{gpu}]",
+                  flush=True)
+    return out
+
+
 def check_bf16_kernels(dev, gpu: str) -> dict:
     """Phase 44: #1-#4 in bf16 at the headline's shape (B=128, every row 12 s)
-    and at B=32 with ragged lengths (1 and T among them)."""
+    and at B=32 with ragged lengths (1 and T among them); then #2 and #4 in
+    both stream types at B=128 with ragged lengths and at B=100, not a
+    multiple of the 16-row tiles."""
     rng = np.random.RandomState(44)
     ragged = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
     out = {}
@@ -4125,6 +4200,14 @@ def check_bf16_kernels(dev, gpu: str) -> dict:
         for b, lengths in ((B_HEAD, [T_ENC] * B_HEAD), (B_TRAIN, ragged)):
             for name, r in check_bf16_walks(dev, gpu, b, lengths, dirs, seed).items():
                 out.setdefault(name, {})[f"b{b}"] = r
+    for b in (B_HEAD, 100):
+        lengths = [T_ENC, 1] + [int(x) for x in rng.randint(1, T_ENC + 1, b - 2)]
+        for dirs, seed in ((2, 46), (1, 47)):
+            # under the bf16 entry of the kernel, the float32 walk's beside it
+            for name, r in check_backward_walks(dev, gpu, b, lengths, dirs, seed).items():
+                bf16 = name.endswith("_bf16")
+                out[name if bf16 else f"{name}_bf16"][
+                    f"{'' if bf16 else 'float32_'}b{b}_ragged"] = r
     return out
 
 

@@ -11,19 +11,22 @@
 // contractions over [T*B] done outside (ops/lstm.py), as on the TPU.
 //
 // The kernel, what bounds it and its design are in lstm_step.cuh (bwd_walk):
-// one persistent cooperative launch per call, grid (H / u, 2), each block
-// holding its units' Wh columns in shared memory for all T steps, exchanging
-// dh partials with the other blocks of its direction through L2, and meeting
-// them at a grid barrier once per step. The two directions never read each
-// other's partials, so each has its own barrier counter.
+// one persistent cooperative launch per call, grid (H / u, 2) in clusters of
+// C blocks of one direction, each block holding its slices of Wh in shared
+// memory for all T steps, both per-step products on the tensor cores
+// (3xTF32), the dgates summed into dh partials inside each cluster through
+// distributed shared memory and exchanged between clusters through L2, and a
+// grid barrier once per step. The two directions never read each other's
+// partials, so each has its own barrier counter.
 //
 // Why one block per SM. A block owns u units of one direction for every
 // batch row, so the grid has 2 x H / u blocks and each must be resident for
 // the barrier to make progress. On 132 SMs at H = 512 the plan (ops/lstm.py
-// bwd_plan) takes u = 8: 128 blocks, each with 512 x (32 + 4) floats = 72 KB
-// of Wh resident and 158 KB (161792 B) of dynamic shared memory in all, at
-// 207 registers a thread (ptxas -v, sm_90a, CUDA 12.8; 255 and 16 bytes of
-// spill in the kResident = false variant), 256 threads: one block per SM.
+// bwd_plan) takes u = 8: 128 blocks, in clusters of 2 on an H100 (its
+// cudaOccupancyMaxActiveClusters holds 15 clusters of 8 and 30 of 4, 120
+// SMs, but 66 of 2), each block with 512 x 32 floats of Wc and 256 x 64 of
+// Wr resident (146 KB) and 214 KB of dynamic shared memory in all at
+// B = 128, 256 threads: one block per SM.
 
 #include "lstm_step.cuh"
 
@@ -34,18 +37,19 @@ extern "C" {
 // (monotone per row); ysf, ysb, csf, csb [B, T, H] (the forward's outputs);
 // gysf, gysb [B, T, H] (cotangents of ys); dxf, dxb [B, T, 4H] (written in
 // full); sync [2] unsigned counters, zeroed by the caller; part, scratch of
-// part_floats floats for the dh partials. part_floats, units, resident and
-// smem_bytes are the launch plan of ops/lstm.py bwd_plan. Launches one
+// part_floats floats for the dh partials. part_floats, units, resident,
+// split, cluster and smem_bytes are the launch plan of ops/lstm.py bwd_plan. Launches one
 // cooperative kernel on `stream` and returns its CUDA error (0 when it was
 // accepted). Does not synchronise.
 int lstm_bidi_bwd(const float* xf, const float* xb, const float* whf, const float* whb,
                   const float* mask, const float* ysf, const float* ysb, const float* csf,
                   const float* csb, const float* gysf, const float* gysb, float* dxf, float* dxb,
                   unsigned int* sync, float* part, int part_floats, int B, int T, int H,
-                  int units, int resident, int smem_bytes, float forget_bias, void* stream) {
+                  int units, int resident, int split, int cluster, int smem_bytes,
+                  float forget_bias, void* stream) {
   const BwdArgs<float> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb},
-                         {dxf, dxb}, mask, sync, part, B, T, H, units, forget_bias};
-  return run_bwd_walk<2>(a, part_floats, resident, smem_bytes, stream);
+                         {dxf, dxb}, mask, sync, part, B, T, H, units, cluster, forget_bias};
+  return run_bwd_walk<2>(a, part_floats, resident, split, smem_bytes, stream);
 }
 
 // lstm_bidi_bwd with bf16 streams (compute_dtype: bfloat16): xf, xb, ysf,
@@ -60,11 +64,27 @@ int lstm_bidi_bwd_bf16(const __nv_bfloat16* xf, const __nv_bfloat16* xb, const f
                        const __nv_bfloat16* csb, const __nv_bfloat16* gysf,
                        const __nv_bfloat16* gysb, __nv_bfloat16* dxf, __nv_bfloat16* dxb,
                        unsigned int* sync, float* part, int part_floats, int B, int T, int H,
-                       int units, int resident, int smem_bytes, float forget_bias,
-                       void* stream) {
+                       int units, int resident, int split, int cluster, int smem_bytes,
+                       float forget_bias, void* stream) {
   const BwdArgs<__nv_bfloat16> a{{xf, xb}, {whf, whb}, {ysf, ysb}, {csf, csb}, {gysf, gysb},
-                                 {dxf, dxb}, mask, sync, part, B, T, H, units, forget_bias};
-  return run_bwd_walk<2>(a, part_floats, resident, smem_bytes, stream);
+                                 {dxf, dxb}, mask, sync, part, B, T, H, units, cluster,
+                                 forget_bias};
+  return run_bwd_walk<2>(a, part_floats, resident, split, smem_bytes, stream);
 }
+
+// How many clusters of `cluster` blocks of lstm_bidi_bwd (bf16 != 0:
+// lstm_bidi_bwd_bf16), grid (blocks, 2), can be resident at once with the
+// plan's resident, split and smem_bytes; minus the CUDA error on a failure.
+int lstm_bidi_bwd_max_clusters(int blocks, int cluster, int resident, int split,
+                               int smem_bytes, int bf16) {
+  return bf16 ? bwd_max_clusters<2, __nv_bfloat16>(blocks, cluster, resident, split, smem_bytes)
+              : bwd_max_clusters<2, float>(blocks, cluster, resident, split, smem_bytes);
+}
+
+// The step trace of lstm_bidi_bwd (lstm_step.cuh bwd_walk): on != 0 turns it on
+// for the following launches, 0 off; with out non-null, copies the last
+// traced launch's values (kTraceFloats long longs) to host memory at out.
+// Returns the CUDA error.
+int lstm_bidi_bwd_trace(int on, long long* out) { return bwd_trace_ctl(on, out); }
 
 }  // extern "C"

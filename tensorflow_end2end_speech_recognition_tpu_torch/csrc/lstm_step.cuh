@@ -12,14 +12,14 @@
 // where the stream dtype is xproj's). S types xproj, ys, cs, the cotangent
 // gys and dxproj; Wh, the mask, the carried h and c, the h exchange, the dh
 // partials and all gate math stay float32. A bf16 value is upcast exactly
-// where it is loaded (the staged ys[t-1] rows of the backward's gate
-// product too, so the shared-memory layout and the plans are those of the
-// float walks), and a result is rounded to nearest even only where it is
+// where it is loaded (the backward's ys[t-1] rows as they enter its gate
+// product), and a result is rounded to nearest even only where it is
 // stored: ys = h * m and cs in the forward, dxproj in the backward. The
 // forward's h_{t-1} comes from the float32 exchange, never from the bf16
 // ys, and the backward's dh = dgates @ Wh^T from the float32 dgates, as
-// the reference carries both in float32. The recurrent products stay
-// float32 FFMA: Wh and h are float32 in the reference.
+// the reference carries both in float32. The forward's recurrent products
+// stay float32 FFMA and the backward's are float32-accurate 3xTF32 (below):
+// Wh and h are float32 in the reference.
 //
 // The bf16-product walk (kBf16Product, lstm_layer_fwd_carry_bf16). A
 // streaming chunk at compute_dtype bfloat16 leaves the Pallas kernel for the
@@ -85,42 +85,76 @@
 // L2 per block. The step is a chain (barrier, L2 read, product, epilogue,
 // fence), so its latency, not either rate, sets the pace (PERF.md).
 //
-// Backward design (bwd_walk, run_bwd_walk). Per step t = T-1 .. 0 and per
-// chunk of 32 batch rows:
-//  (b) gates at t: ys[t-1] rows, staged through shared memory, times Wc.
-//      This reads only the forward's outputs, so it runs before the wait.
-//  (a) dh_t of the block's units: the sum, in block order, of the partials
-//      P_{t+1} that every block of the direction wrote in step t+1.
-//  (c) gate derivatives, one thread per (row, unit): write the four
-//      dxproj[t] entries of the unit (zero on a masked step, which carries
-//      dh and dc through); the dh and dc carries stay in registers.
-//  (p) this block's share of dh_{t-1} = dgates_t @ Wh^T for all H units:
-//      P_t = dgates_t[:, own 4u columns] @ Wc^T, [32, H], which the block
-//      has in shared memory; each reader block's u columns go to a scratch
-//      buffer (two steps deep, by parity), then the block arrives.
-// dh is thus formed where the dgates are, from the columns already resident:
-// per block and step 64 KB of partials written and 64 KB read through L2,
-// where reading every block's dgates_{t+1} (the TPU kernel's dgates @ Wh^T
-// with the rows of Wh resident) moves 256 KB per block and step at B = 32
-// through the load/store unit that the products also need. Partials are
-// written and read inside the launch, so they are read with ld.global.cg
-// (L2), never __ldg.
-// Every product is float32 FFMA, each sum in a fixed order (k slices, then
-// blocks): two calls give equal bits. dWh is one [T*B] contraction outside
-// (ops/lstm.py), as on the TPU.
+// Backward design (bwd_walk, run_bwd_walk). A block owns u units of one
+// direction for every batch row, as in the forward; the blocks of a direction
+// form thread-block clusters of C (1, 2, 4 or 8: ops/lstm.py bwd_plan) and
+// meet at the split barrier once per step. Per step t = T-1 .. 0, every row
+// of the launch in one pass:
+//  before the wait, nothing that another block writes:
+//  - each thread loads xproj[t], gys[t], cs[t-1] and mask[t] of its (row,
+//    unit) pairs into registers (cs[t] and mask[t+1] are the last step's);
+//  - (b) the gates at t for every row: ys[t-1] @ Wc, [B, H] x [H, 4u], the
+//    ys rows read straight from global memory into the product's registers;
+//  after the wait, only the chain:
+//  - (a) dh_t of the thread's pairs: the sum, in cluster order, of the
+//    per-cluster partials that step t+1 wrote for this block;
+//  - (c) gate derivatives, one thread per (row, unit): the four dxproj[t]
+//    entries of the unit (zero on a masked step, which carries dh and dc
+//    through), the dh and dc carries in registers, and the float32 dgates
+//    into shared memory;
+//  - each block copies its dgates into every block of its cluster through
+//    distributed shared memory; a cluster barrier; then (p) the cluster's
+//    share of dh_{t-1} = dgates_t @ Wh^T for 1/C of the units: rank m of
+//    cluster k multiplies the cluster's dgates by Wr, the rows of Wh for its
+//    units and the columns of its cluster's 4Cu gates, [B, 4Cu] x [4Cu,
+//    H / C]; each unit's result goes to its reader block's slot for cluster
+//    k, then the block arrives. The slots alternate by the step's parity:
+//    step t's overwrite step t+2's, which every block summed before it
+//    arrived in step t+1, so the wait is the step's only grid-wide one.
+// The partials thus leave the SM once per cluster, not once per block: per
+// block and step B H / C floats written and B u (H / u) / C read through L2,
+// where summing per block moved B H each way (256 KB at B = 128, H = 512).
+// A block holds two slices of Wh for all T steps: Wc [H, 4u] for (b) and Wr
+// [H / C, 4Cu] for (p), each about H 4u floats; where neither fits (H = 1536)
+// both are read through L2 (kResident false).
+//
+// Products. Both run on the tensor cores, mma.sync m16n8k8 in TF32, each
+// warp a 16-row tile of the batch against up to 64 columns over a k range,
+// split 3xTF32 for float32 accuracy: x = hi + lo with hi TF32 (rounded to
+// nearest) and lo the rest, and a b = a_hi b_hi + a_hi b_lo + a_lo b_hi, each
+// 16-wide k step's products summed on the tensor cores and added to the
+// float32 accumulator, the dropped terms within a few 2^-22 of a b. The reference forms
+// both products in float32 (lstm_kernel.py: float32 operands and
+// preferred_element_type), which one TF32 pass would not match. A bf16 ys row
+// is TF32-exact, so (b) takes two passes under bf16 streams. Wh is split into
+// hi and lo as it is staged where both copies fit shared memory (kSplit),
+// else as it is read. Inside each 16-wide k step a lane holds four adjacent
+// k of its two rows (one 16-byte load), and both operands index k the same
+// way, so the sum is the product's. Every sum has a fixed order (k steps,
+// then k slices, then clusters): two calls give equal bits. dWh is one [T*B]
+// contraction outside (ops/lstm.py), as on the TPU.
 //
 // What bounds the backward on this card. Each step needs 2 x 2 B H 4H float
-// operations per direction (gates recomputed, dh product): 1.05 MFLOP per
-// block at B = 32, H = 512, about 4 us at 67 TFLOP/s over 132 SMs. The
-// products run from shared memory at about 8 (gate product) and 4 (dh
-// partials) 16-byte loads per 64 FFMA, so the load/store unit, not the
-// FFMA pipe, sets their pace; with the barrier and the L2 round trips of
-// the staged rows and partials a step takes 15-20 us (PERF.md).
+// operations per direction (gates recomputed, dh product), three TF32
+// passes each: at B = 128, H = 512, 2 x 25 MFLOP per block, about 6.7 us at
+// 495 TFLOP/s over 132 SMs; mma.sync m16n8k8 TF32 issues at about 1.5
+// cycles per SM (24 cycles of latency), cvt.rna.tf32 at about 1.3, so the
+// split is two integer operations (probes/mma_tf32_rate.py). The step is a
+// chain (gates, barrier, dh sum, derivatives, cluster barrier, dh product
+// and the partials' L2 write, arrive), and on an H100 a 128-block launch
+// takes clusters of 2 only: the partials move B H / 2 floats per block and
+// step each way, and L2 traffic, not the tensor rate, sets the pace at
+// B = 128 (PERF.md; probes/lstm_bwd_time.py reads each phase from the
+// kernel's own trace). The code of a step is kept small (the pairs' loop is
+// the only long unrolled body): a larger one lost time to instruction fetch.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 // Internal linkage: each source that includes this header gets its own copy
 // of the kernels it instantiates, registered with its own module.
@@ -140,6 +174,19 @@ __device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
   return __uint_as_float((unsigned int)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 __device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
+
+// A stream value loaded before a barrier and used after it: a volatile load,
+// which the compiler issues where it stands instead of moving it to its use.
+__device__ __forceinline__ float ld_early(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_early(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
+  return __uint_as_float((unsigned int)v << 16);
+}
 __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
@@ -151,8 +198,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-constexpr int kBwdRows = 32;            // batch rows per chunk of the backward
-constexpr int kRowTiles = kBwdRows / 4;  // 4-row tiles and float4 row groups of a chunk
+constexpr int kBwdRows = 32;            // batch rows of the gate product's largest chunk
 constexpr int kBwdKC = 256;             // k per staged chunk of the gate product
 constexpr int kBwdStride = kBwdKC + 4;  // floats per staged row: rows 4 banks apart
 constexpr int kBwdMaxCols = 128;        // columns of one gate-product pass: 8 x 32 tiles
@@ -209,10 +255,8 @@ __device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned 
 
 // Loads of the gate product's source rows. kCoherent: rows written by other
 // blocks inside this launch (the forward's h exchange), read through L2
-// (ld.global.cg); otherwise rows written by an earlier launch (the
-// backward's ys), read through the non-coherent path.
-// bf16 source rows (the backward's ys under bf16 streams) are never written
-// in the launch: 4 values as one 8-byte load, widened to float4.
+// (ld.global.cg); otherwise rows written by an earlier launch, read through
+// the non-coherent path.
 template <bool kCoherent>
 __device__ __forceinline__ float4 src_load4(const float* p) {
   return kCoherent ? __ldcg(reinterpret_cast<const float4*>(p))
@@ -220,22 +264,8 @@ __device__ __forceinline__ float4 src_load4(const float* p) {
 }
 
 template <bool kCoherent>
-__device__ __forceinline__ float4 src_load4(const __nv_bfloat16* p) {
-  static_assert(!kCoherent, "bf16 rows come from an earlier launch");
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-}
-
-template <bool kCoherent>
 __device__ __forceinline__ float src_load(const float* p) {
   return kCoherent ? __ldcg(p) : __ldg(p);
-}
-
-template <bool kCoherent>
-__device__ __forceinline__ float src_load(const __nv_bfloat16* p) {
-  static_assert(!kCoherent, "bf16 rows come from an earlier launch");
-  return ld_stream(p);
 }
 
 // The gate product for a chunk's rows:
@@ -246,9 +276,8 @@ __device__ __forceinline__ float src_load(const __nv_bfloat16* p) {
 // out, rows rt + i kRows / 4 for i < 4 (at kRows = 32 the 8 lanes of a
 // quarter warp read 8 rows on distinct banks) and 4 adjacent columns, in
 // one of kThreads / tiles slices of every chunk: fewer rows, more slices.
-// The slices' sums are added in slice order. Src is float (the h exchange,
-// the float backward's ys) or __nv_bfloat16 (the bf16 backward's ys, upcast
-// as it is staged). kRound (the bf16-product walk): every staged h value is
+// The slices' sums are added in slice order. Src is float (the forward's h
+// exchange). kRound (the bf16-product walk): every staged h value is
 // rounded to bf16 as it is written to shared memory, and a Wc value read
 // from Wh itself (kResident false) as it is read; a resident Wc was rounded
 // when it was loaded (load_wc<true>). Products and sums stay float32.
@@ -632,6 +661,8 @@ int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, i
 // ---------------------------------------------------------------------------
 // Backward: one persistent cooperative launch per call (design at the top).
 
+namespace cg = cooperative_groups;
+
 template <typename S>
 struct BwdArgs {
   const S* x[2];        // [B, T, 4H] per direction
@@ -642,168 +673,482 @@ struct BwdArgs {
   S* dx[2];             // [B, T, 4H]
   const float* mask;    // [B, T]
   unsigned int* sync;   // [dirs] arrival counters, zeroed by the caller
-  float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks (writer),
-                        //   u, B rounded up to kBwdRows]: written and read inside the launch
-  int B, T, H, units;
+  float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks / cluster,
+                        //   B, u]: written and read inside the launch
+  int B, T, H, units, cluster;
   float forget_bias;
 };
 
-// Dynamic shared memory of one block, offsets and size in floats. hp is H
-// rounded up to 4 (float4 reads; the padding is zero), nb = 4u the columns
-// of the block's units' gates, ldw = nb + 4 the row stride of the resident
-// Wh columns (rows 4 banks apart for the dh partials' reads).
+// The step trace of the backward (lstm_*_bwd_trace): when bwd_trace_on is
+// set, thread 0 of block (0, 0) writes clock64() at kTracePoints points of
+// each of the first kTraceSteps steps (top of the step, gates formed, wait
+// passed, dh summed, derivatives done, dgates copied to the cluster, cluster
+// barrier passed, partials written, arrived), and at the launch's start and
+// end clock64() and the
+// global timer (ns), so that cycles convert to time. Off, it costs one load
+// of the flag per launch.
+constexpr int kTraceSteps = 64, kTracePoints = 9;
+constexpr int kTraceFloats = kTraceSteps * kTracePoints + 4;
+__device__ int bwd_trace_on;
+__device__ long long bwd_trace[kTraceFloats];
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// n (a multiple of 16) padded to 16 mod 32 floats: the row stride of an
+// operand that lanes read 16 bytes at a time, two rows a quarter warp, so
+// that the two rows fall on the two halves of the banks.
+__host__ __device__ inline int bwd_ld(int n) { return n % 32 == 0 ? n + 16 : n; }
+
+// Slices of the dh sum: a reader's partials are ncl planes (one per cluster)
+// of P = B u values; items (value, slice of the planes) go round the
+// threads, as many slices (a power of two up to ncl) as keep the items
+// within the threads' kBwdMaxPairs each.
+__host__ __device__ inline int bwd_dh_slices(int P, int ncl) {
+  int s = 1;
+  while (2 * s <= ncl && 2 * s * P <= kThreads * kBwdMaxPairs) s *= 2;
+  return s;
+}
+
+// Slices of a product's k steps: the most (a power of two) that keep every
+// warp of the block on its own (row tile, column chunk, k slice), with at
+// least one k step each.
+__host__ __device__ inline int bwd_ksplit(int items, int ksteps) {
+  int ks = 1;
+  while (2 * ks * items <= kWarps && 2 * ks <= ksteps) ks *= 2;
+  return ks;
+}
+
+// Dynamic shared memory of one backward block, offsets and size in floats.
+// nbp: the block's 4u gate columns padded to 16; kp: H padded to 16 (the gate
+// product's k); rpb readers per cluster rank, whose ni = rpb u units the rank
+// forms the partials of (nip padded to 8); kc = C nbp the partial product's
+// k; mp: B padded to 16 (row tiles). wc: Wc^T [nbp, ldk] (column n of Wc,
+// k contiguous); wr: Wr [nip, ldr] (unit i, the cluster's gate columns
+// contiguous); each twice (hi, then lo) when split, neither when streamed.
+// dg: the cluster's dgates [mp, ldg], block s of the cluster in columns
+// s nbp .. s nbp + 4u (every block writes its own into all of them); scr:
+// the gate product's k slices [ks_g, mp, ldo_g]; red: the dh sum's slices
+// [dhs, B u].
 struct BwdLayout {
-  int hp, nb, ldw;
-  int wc, stage, red, gpre, dhn, total;
+  int nb4, nbp, kp, ldk, rpb, ni, nip, kc, ldr, mp, ldg, ldo_g, ks_g, ncl, dhs;
+  int wc, wr, dg, scr, red, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int H, int u, bool resident) {
+__host__ __device__ inline BwdLayout bwd_layout(int H, int u, int B, int cluster, bool resident,
+                                                bool split) {
   BwdLayout l;
-  l.hp = (H + 3) / 4 * 4;
-  l.nb = 4 * u;
-  l.ldw = l.nb + 4;
-  l.wc = 0;                                          // [hp, ldw]: Wh columns of the units
-  l.stage = l.wc + (resident ? l.hp * l.ldw : 0);    // 2 x [kBwdRows, kBwdStride]
-  l.red = l.stage + 2 * kBwdRows * kBwdStride;       // [kBwdRed]
-  l.gpre = l.red + kBwdRed;                          // [kBwdRows, nb]: gates, then dgates
-  l.dhn = l.gpre + kBwdRows * l.nb;                  // [kBwdRows, u]: dh from step t+1
-  l.total = l.dhn + kBwdRows * u;
+  const int per_dir = (H + u - 1) / u;
+  l.nb4 = 4 * u;
+  l.nbp = (l.nb4 + 15) / 16 * 16;
+  l.kp = (H + 15) / 16 * 16;
+  l.ldk = bwd_ld(l.kp);
+  l.rpb = per_dir / cluster;
+  l.ni = l.rpb * u;
+  l.nip = (l.ni + 7) / 8 * 8;
+  l.kc = cluster * l.nbp;
+  l.ldr = bwd_ld(l.kc);
+  l.mp = (B + 15) / 16 * 16;
+  l.ldg = bwd_ld(l.kc);
+  l.ldo_g = l.nbp + 8;  // 8 mod 32: the 8-byte stores of a half warp on distinct banks
+  l.ks_g = bwd_ksplit(l.mp / 16 * ((l.nbp / 8 + 7) / 8), l.kp / 16);
+  l.ncl = per_dir / cluster;
+  l.dhs = bwd_dh_slices(B * u, l.ncl);
+  const int copies = split ? 2 : 1;
+  l.wc = 0;
+  l.wr = l.wc + (resident ? copies * l.nbp * l.ldk : 0);
+  l.dg = l.wr + (resident ? copies * l.nip * l.ldr : 0);
+  l.scr = l.dg + l.mp * l.ldg;
+  l.red = l.scr + l.ks_g * l.mp * l.ldo_g;
+  l.total = l.red + l.dhs * B * u;
   return l;
 }
 
-// (p) This block's share of dh_{t-1} = dgates_t @ Wh^T for every unit i of the
-// direction: P[r][i] = sum_c dg[r][c] Wc[i][c] over the block's nb gate
-// columns c, with dg [kBwdRows, nb] in shared memory. P[r][i] goes to the
-// reader block dst = i / u at part + ((dst * blocks + src) * u + i % u) * bc
-// + b0 + r. A thread owns 8 rows (two float4 groups of 4, 16 apart) x 8
-// units i = 256 cg + ib + 32 m (the lanes of a warp read 32 consecutive Wc
-// rows, 4 banks apart): K = nb is short, so there is no k split. The tiles
-// of two column groups (512 units) are transposed through pbuf [512,
-// kPartStride] so that each unit's 32 rows go out as one 128-byte run.
-constexpr int kPartStride = kBwdRows + 4;  // rows 4 banks apart
-static_assert(2 * kBwdRows * kBwdStride + kBwdRed >= 512 * kPartStride,
-              "pbuf (the staging buffer and red) holds two column groups");
+// x as a TF32 value, rounded to nearest (ties away from zero), in a float's
+// bits: what cvt.rna.tf32.f32 gives for the finite values here, in two
+// integer operations, where the conversion takes about as long on this card
+// as an mma.sync (probes/mma_tf32_rate.py).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-template <bool kResident>
-__device__ void dh_partials(const float* dg, const float* wsm, const float* __restrict__ wh,
-                            float* part, float* pbuf, int blocks, int src, int j0, int u, int H,
-                            int nb, int ldw, int bc, int b0) {
-  const int tid = threadIdx.x;
+// The 3xTF32 split: x = hi + lo exactly, hi TF32 (rounded to nearest) and
+// |lo| <= 2^-11 |x|; the tensor cores read lo's top 19 bits (its low 13
+// truncated), within 2^-22 |x| of x - hi.
+__device__ __forceinline__ void split1(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(float4 v, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split1(v.x, hi[0], lo[0]), split1(v.y, hi[1], lo[1]);
+  split1(v.z, hi[2], lo[2]), split1(v.w, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void bits4(float4 v, uint32_t (&b)[4]) {
+  b[0] = __float_as_uint(v.x), b[1] = __float_as_uint(v.y);
+  b[2] = __float_as_uint(v.z), b[3] = __float_as_uint(v.w);
+}
+
+// d += a b: one m16n8k8 TF32 product, float32 accumulation.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operand of one 16-row tile over one 16-wide k step: row gid holds
+// k 4 tig .. 4 tig + 3 in p0, row gid + 8 in p1 (lane = 4 gid + tig). The
+// step is two k8 products; product s takes k 4 tig + 2 s for the fragment's
+// column tig and 4 tig + 2 s + 1 for tig + 4, and the B operand (bfrag) the
+// same k, so together they sum all 16. kExact: the values are TF32 already
+// (bf16 rows), lo is zero and not formed.
+struct AFrag {
+  uint32_t hi[2][4], lo[2][4];
+};
+
+template <bool kExact>
+__device__ __forceinline__ void afrag(AFrag& f, float4 p0, float4 p1) {
+  const float v[2][4] = {{p0.x, p1.x, p0.y, p1.y}, {p0.z, p1.z, p0.w, p1.w}};
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kExact) {
+        f.hi[s][e] = __float_as_uint(v[s][e]);
+      } else {
+        split1(v[s][e], f.hi[s][e], f.lo[s][e]);
+      }
+    }
+}
+
+// acc[g + j] += A B_j over one 16-wide k step for the kG n-tiles j of a
+// group starting at tile g, B_j's four k of column gid in bh[j] / bl[j]:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (without the first when kExact), the
+// small terms first. The products are issued round by round across the
+// group's tiles, so that their chains through the accumulators overlap. The
+// step's products meet in accumulators of their own, added to acc in float32
+// (round to nearest): the tensor cores' own accumulation does not round to
+// nearest, and over a long k its error would grow with the number of steps.
+template <bool kExact, int kG, int kN>
+__device__ __forceinline__ void mma3(float (&acc)[kN][4], int g, const AFrag& a,
+                                     const uint32_t (&bh)[kG][4], const uint32_t (&bl)[kG][4]) {
+  float p[kG][4];
+#pragma unroll
+  for (int j = 0; j < kG; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
+  if (!kExact) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.lo[s], bh[j][2 * s], bh[j][2 * s + 1]);
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.hi[s], bl[j][2 * s], bl[j][2 * s + 1]);
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.hi[s], bh[j][2 * s], bh[j][2 * s + 1]);
+#pragma unroll
+  for (int j = 0; j < kG; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g + j][e] += p[j][e];
+}
+
+// B operand of one n-tile from a resident [n, k] array (k contiguous) at
+// float offset o: one 16-byte load, two when split (lo at lo_off).
+template <bool kSplit>
+__device__ __forceinline__ void bfrag_smem(const float* w, int o, int lo_off, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(w + o);
+  if (kSplit) {
+    bits4(v, hi);
+    bits4(*reinterpret_cast<const float4*>(w + lo_off + o), lo);
+  } else {
+    split4(v, hi, lo);
+  }
+}
+
+// Four values of a ys row at k .. k + 3 one at a time (H % 4 != 0: rows not
+// aligned), zero past H.
+template <typename S>
+__device__ __forceinline__ float4 row4(const S* p, int k, int H) {
+  return make_float4(k < H ? ld_stream(p + k) : 0.0f, k + 1 < H ? ld_stream(p + k + 1) : 0.0f,
+                     k + 2 < H ? ld_stream(p + k + 2) : 0.0f,
+                     k + 3 < H ? ld_stream(p + k + 3) : 0.0f);
+}
+
+// The A rows' loads of the gate product: Raw as loaded, four values at k of
+// row p (zero where !ok), widened to float at use. kVec (H % 4 == 0): one
+// 16-byte load, or for bf16 one 8-byte load kept packed; else value by value.
+template <typename S, bool kVec>
+struct RowLoad {
+  using Raw = float4;
+  __device__ __forceinline__ static Raw load(const S* p, int k, int H, bool ok) {
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (kVec) return ok ? __ldg(reinterpret_cast<const float4*>(p + k)) : z;  // S float
+    return ok ? row4(p, k, H) : z;
+  }
+  __device__ __forceinline__ static float4 widen(Raw v) { return v; }
+};
+
+template <>
+struct RowLoad<__nv_bfloat16, true> {
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw load(const __nv_bfloat16* p, int k, int, bool ok) {
+    return ok ? __ldg(reinterpret_cast<const uint2*>(p + k)) : make_uint2(0u, 0u);
+  }
+  __device__ __forceinline__ static float4 widen(Raw v) {
+    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+};
+
+// Wh's column of the block's gate column n < 4u (g u + uu -> g H + j0 + uu),
+// or -1 for a pad column or a unit past H.
+__device__ __forceinline__ int own_col(int n, int u, int j0, int H) {
+  const int g = n >> (31 - __clz(u));  // u is a power of two
+  const int j = j0 + n - g * u;
+  return n < 4 * u && j < H ? g * H + j : -1;
+}
+
+// Stage the block's slices of Wh (kResident): Wc^T[n][k] = Wh[k][own_col(n)]
+// and Wr[i][s nbp + c] = Wh[i0 + i][gate column c of cluster block s], zero
+// past H and in the pads; each value split into TF32 hi and lo when kSplit.
+template <bool kSplit>
+__device__ void stage_bwd_w(float* smem, const BwdLayout& L, const float* __restrict__ wh, int H,
+                            int u, int j0, int i0, int jc) {
   const int G = 4 * H;
-  const int groups = (H + 255) / 256;
-  for (int cg0 = 0; cg0 < groups; cg0 += 2) {
-    if (tid < min(2, groups - cg0) * 128) {
-      const int ib = tid % 32;
-      const int rb = (tid / 32) % 4;
-      const int il0 = (tid / 128) * 256 + ib;  // unit of m = 0 within the pair of groups
-      float acc[8][8];
+  auto put = [&](float* base, int o, int lo_off, float w) {
+    if (kSplit) {
+      uint32_t hi, lo;
+      split1(w, hi, lo);
+      base[o] = __uint_as_float(hi);
+      base[lo_off + o] = __uint_as_float(lo);
+    } else {
+      base[o] = w;
+    }
+  };
+  float* wc = smem + L.wc;
+  for (int e = threadIdx.x; e < L.kp * L.nbp; e += kThreads) {
+    const int k = e / L.nbp;
+    const int n = e - k * L.nbp;
+    const int col = own_col(n, u, j0, H);
+    put(wc, n * L.ldk + k, L.nbp * L.ldk,
+        col >= 0 && k < H ? __ldg(wh + (size_t)k * G + col) : 0.0f);
+  }
+  float* wr = smem + L.wr;
+  for (int e = threadIdx.x; e < L.nip * L.kc; e += kThreads) {
+    const int i = e / L.kc;
+    const int c = e - i * L.kc;
+    const int s = c / L.nbp;
+    const int col = own_col(c - s * L.nbp, u, jc + s * u, H);
+    put(wr, i * L.ldr + c, L.nip * L.ldr,
+        col >= 0 && i < L.ni && i0 + i < H ? __ldg(wh + (size_t)(i0 + i) * G + col) : 0.0f);
+  }
+}
+
+// (b) The gate pre-activations at t of every row, ys[t-1] @ Wc, into the
+// k slices scr[sl][row][n] (row stride ldo_g, slice stride mp ldo_g). Work
+// items (16-row tile, kNT n-tiles: all of them up to 8) times ks_g k slices
+// go round the warps. The A rows come from global memory three k steps ahead
+// of their product (each step's rows were prefetched into L2 a step
+// earlier), 16 (bf16: 8) bytes a row when kVec (H % 4 == 0); B is the
+// resident Wc^T, or Wh itself through L2.
+template <int kNT, bool kVec, bool kResident, bool kSplit, typename S>
+__device__ void bwd_gates(const S* src, size_t src_row, const float* smem, const BwdLayout& L,
+                          const float* __restrict__ wh, int B, int H, int u, int j0, float* scr) {
+  constexpr bool kExact = sizeof(S) == 2;  // bf16 rows: TF32 values
+  constexpr int kG = kNT < 4 ? kNT : 4;    // n-tiles whose B fragments are held at once
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+  const int G = 4 * H;
+  const int ksteps = L.kp / 16, nch = L.nbp / 8 / kNT;
+  const int items = L.mp / 16 * nch, ks = L.ks_g, per = (ksteps + ks - 1) / ks;
+  const float* wc = smem + L.wc;
+  for (int w = threadIdx.x / 32; w < items * ks; w += kWarps) {
+    const int item = w / ks, sl = w - item * ks;
+    const int mt = item / nch, t0 = (item - mt * nch) * kNT;
+    const int kb = sl * per, kn = min(ksteps, kb + per) - kb;
+    // every block of the direction reads the same rows: each starts its k
+    // steps at its own offset (a fixed one, so two calls sum alike), lest
+    // they all ask L2 for the same lines at once
+    const int rot = kn > 0 ? (blockIdx.x * 5) % kn : 0;
+    const int r0 = mt * 16 + gid, r1 = r0 + 8;
+    const S* s0 = src + (size_t)min(r0, B - 1) * src_row;  // the lane's two rows
+    const S* s1 = src + (size_t)min(r1, B - 1) * src_row;
+    const bool ok0 = r0 < B, ok1 = r1 < B;
+    // the k step of the q-th product
+    auto step = [&](int q) { return kb + (q + rot < kn ? q + rot : q + rot - kn); };
+    // the A rows of product q as loaded (bf16 packed, widened at use), kDepth
+    // products ahead: a ring indexed statically, the loop unrolled by it
+    using Raw = typename RowLoad<S, kVec>::Raw;
+    constexpr int kDepth = sizeof(Raw) == 8 ? 6 : 3;
+    auto lda = [&](int q, Raw& q0, Raw& q1) {
+      const int k = step(q) * 16 + 4 * tig;
+      const bool in = q < kn && (!kVec || k < H);
+      q0 = RowLoad<S, kVec>::load(s0, k, H, in && ok0);
+      q1 = RowLoad<S, kVec>::load(s1, k, H, in && ok1);
+    };
+    // this lane's Wc^T row of each tile, at its four k
+    const float* wb = wc + ((size_t)t0 * 8 + gid) * L.ldk + 4 * tig;
+    float acc[kNT][4];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+    for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+    Raw ring[kDepth][2];
 #pragma unroll
-        for (int m = 0; m < 8; ++m) acc[r][m] = 0.0f;
-      for (int k = 0; k < nb; k += 4) {
-        float w[8][4];
+    for (int d = 0; d < kDepth; ++d) lda(d, ring[d][0], ring[d][1]);
+    for (int q0 = 0; q0 < kn; q0 += kDepth) {
 #pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const int i = cg0 * 256 + il0 + 32 * m;
-          if (kResident) {
-            const float4 wv = i < H ? *reinterpret_cast<const float4*>(wsm + (size_t)i * ldw + k)
-                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            w[m][0] = wv.x, w[m][1] = wv.y, w[m][2] = wv.z, w[m][3] = wv.w;
-          } else {
+      for (int d = 0; d < kDepth; ++d) {
+        const int q = q0 + d;
+        if (q >= kn) continue;
+        AFrag a;
+        afrag<kExact>(a, RowLoad<S, kVec>::widen(ring[d][0]), RowLoad<S, kVec>::widen(ring[d][1]));
+        lda(q + kDepth, ring[d][0], ring[d][1]);
+        const int kst = step(q);
+        const int k = kst * 16 + 4 * tig;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int g = (k + e) / u;
-              const int j = j0 + k + e - g * u;
-              w[m][e] = i < H && j < H ? __ldg(wh + (size_t)i * G + g * H + j) : 0.0f;
+        for (int g = 0; g < kNT; g += kG) {
+          uint32_t bh[kG][4], bl[kG][4];
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            if (kResident) {
+              bfrag_smem<kSplit>(wb, (g + j) * 8 * L.ldk + kst * 16, L.nbp * L.ldk, bh[j],
+                                 bl[j]);
+            } else {
+              const int col = own_col((t0 + g + j) * 8 + gid, u, j0, H);
+              float v[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[e] = col >= 0 && k + e < H ? __ldg(wh + (size_t)(k + e) * G + col) : 0.0f;
+              split4(make_float4(v[0], v[1], v[2], v[3]), bh[j], bl[j]);
             }
           }
+          mma3<kExact, kG, kNT>(acc, g, a, bh, bl);
         }
+      }
+    }
+    float* o = scr + (size_t)sl * L.mp * L.ldo_g + (size_t)t0 * 8 + 2 * tig;
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float4 av = *reinterpret_cast<const float4*>(
-              dg + (rb * 4 + (r & 3) + (r >> 2) * 16) * nb + k);
+    for (int nt = 0; nt < kNT; ++nt) {
+      *reinterpret_cast<float2*>(o + r0 * L.ldo_g + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(o + r1 * L.ldo_g + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// (p) Rank `rank` of cluster ck: Q[b][i] = sum over the cluster's blocks s and
+// their gate columns c of dg_s[b][c] Wh[i0 + i][column c of s] for its ni
+// units i, the dgates of every block of the cluster read from this block's
+// copy (each block wrote its own there through distributed shared memory),
+// written to reader r = (i0 + i) / u at part_t + ((r ncl + ck) B + b) u +
+// (i0 + i) % u. Work items (16-row tile, kNT n-tiles: the largest power of
+// two up to 8 that divides nip / 8) go round the warps, each over the whole
+// k, its result stored from the accumulators (splitting k over warps cost
+// a block barrier and a pass through shared memory, more than it saved).
+template <int kNT, bool kResident, bool kSplit>
+__device__ void bwd_partials(const float* dgs, const float* smem, const BwdLayout& L,
+                             const float* __restrict__ wh, int B, int H, int u, int ck, int i0,
+                             int jc, int ncl, float* part_t) {
+  constexpr int kG = kNT < 4 ? kNT : 4;
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+  const int G = 4 * H;
+  const int ksteps = L.kc / 16, nch = L.nip / 8 / kNT;
+  const int items = L.mp / 16 * nch;
+  const float* wr = smem + L.wr;
+  const int ush = 31 - __clz(u);  // u is a power of two
+  // one value of Q, unit n of the rank's, row b
+  auto put = [&](int b, int n, float v) {
+    if (b >= B || n >= L.ni) return;
+    const int i = i0 + n;
+    const int r = i >> ush;
+    part_t[((size_t)(r * ncl + ck) * B + b) * u + (i & (u - 1))] = v;
+  };
+  // units n, n + 1 (n even) of row b: one 8-byte store when u is even (both
+  // in one reader's run, n + 1 < ni as ni = rpb u is even)
+  auto put2 = [&](int b, int n, float v0, float v1) {
+    if (u == 1) {
+      put(b, n, v0), put(b, n + 1, v1);
+      return;
+    }
+    if (b >= B || n >= L.ni) return;
+    const int i = i0 + n;
+    const int r = i >> ush;
+    *reinterpret_cast<float2*>(part_t + ((size_t)(r * ncl + ck) * B + b) * u + (i & (u - 1))) =
+        make_float2(v0, v1);
+  };
+  for (int item = threadIdx.x / 32; item < items; item += kWarps) {
+    const int mt = item / nch, t0 = (item - mt * nch) * kNT;
+    const int r0 = mt * 16 + gid, r1 = r0 + 8;
+    const float* a0 = dgs + r0 * L.ldg + 4 * tig;
+    const float* a1 = dgs + r1 * L.ldg + 4 * tig;
+    const float* wb = wr + ((size_t)t0 * 8 + gid) * L.ldr + 4 * tig;
+    float acc[kNT][4];
 #pragma unroll
-          for (int m = 0; m < 8; ++m) {
-            acc[r][m] = fmaf(av.x, w[m][0], acc[r][m]);
-            acc[r][m] = fmaf(av.y, w[m][1], acc[r][m]);
-            acc[r][m] = fmaf(av.z, w[m][2], acc[r][m]);
-            acc[r][m] = fmaf(av.w, w[m][3], acc[r][m]);
+    for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+    for (int kst = 0; kst < ksteps; ++kst) {
+      AFrag a;
+      afrag<false>(a, *reinterpret_cast<const float4*>(a0 + kst * 16),
+                   *reinterpret_cast<const float4*>(a1 + kst * 16));
+      const int k = kst * 16 + 4 * tig;
+#pragma unroll
+      for (int g = 0; g < kNT; g += kG) {
+        uint32_t bh[kG][4], bl[kG][4];
+#pragma unroll
+        for (int j = 0; j < kG; ++j) {
+          if (kResident) {
+            bfrag_smem<kSplit>(wb, (g + j) * 8 * L.ldr + kst * 16, L.nip * L.ldr, bh[j], bl[j]);
+          } else {
+            const int n = (t0 + g + j) * 8 + gid;
+            const int s = k / L.nbp;
+            const bool row_ok = n < L.ni && i0 + n < H;
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = own_col(k + e - s * L.nbp, u, jc + s * u, H);
+              v[e] = row_ok && col >= 0 ? __ldg(wh + (size_t)(i0 + n) * G + col) : 0.0f;
+            }
+            split4(make_float4(v[0], v[1], v[2], v[3]), bh[j], bl[j]);
           }
         }
+        mma3<false, kG, kNT>(acc, g, a, bh, bl);
       }
+    }
 #pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        float* q = pbuf + (il0 + 32 * m) * kPartStride + rb * 4;
-        *reinterpret_cast<float4*>(q) = make_float4(acc[0][m], acc[1][m], acc[2][m], acc[3][m]);
-        *reinterpret_cast<float4*>(q + 16) =
-            make_float4(acc[4][m], acc[5][m], acc[6][m], acc[7][m]);
-      }
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = (t0 + nt) * 8 + 2 * tig;
+      put2(r0, n, acc[nt][0], acc[nt][1]);
+      put2(r1, n, acc[nt][2], acc[nt][3]);
     }
-    __syncthreads();
-    const int units = min(512, H - cg0 * 256);
-    for (int w = tid; w < units * kRowTiles; w += kThreads) {
-      const int il = w / kRowTiles;
-      const int r4 = w - il * kRowTiles;
-      const int i = cg0 * 256 + il;
-      const int dst = i / u;
-      *reinterpret_cast<float4*>(part + ((size_t)(dst * blocks + src) * u + i - dst * u) * bc +
-                                 b0 + r4 * 4) =
-          *reinterpret_cast<const float4*>(pbuf + il * kPartStride + r4 * 4);
-    }
-    __syncthreads();
   }
 }
 
-// (a) dh_t of the block's units for the chunk's rows: the sum, in block
-// order, of every block's partial, part [blocks, u, bc] (this block's reader
-// slot; written by other blocks in this launch, so read with ld.global.cg,
-// never __ldg). Outputs go by float4 groups (unit, 4 rows); the blocks are
-// split into slices across threads, and the slices' sums are added in order.
-__device__ void dh_sum(const float* part, int blocks, int u, int bc, int b0, float* red,
-                       float* dhn) {
-  const int tid = threadIdx.x;
-  const int groups = u * kRowTiles;
-  const int slices = max(1, kThreads / groups);
-  const int per = (blocks + slices - 1) / slices;
-  for (int w = tid; w < groups * slices; w += kThreads) {
-    const int sl = w / groups;
-    const int og = w - sl * groups;
-    const int uu = og / kRowTiles;
-    const float* p = part + (size_t)uu * bc + b0 + (og - uu * kRowTiles) * 4;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const int hi = min(blocks, (sl + 1) * per);
-    for (int s = sl * per; s < hi; ++s) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(p + (size_t)s * u * bc));
-      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-    }
-    reinterpret_cast<float4*>(red)[w] = acc;
-  }
-  __syncthreads();
-  for (int o = tid; o < groups * 4; o += kThreads) {
-    const int og = o / 4;
-    const int uu = og / kRowTiles;
-    const int r = (og - uu * kRowTiles) * 4 + o % 4;
-    float sum = 0.0f;
-    for (int sl = 0; sl < slices; ++sl) sum += red[(sl * groups + og) * 4 + o % 4];
-    dhn[r * u + uu] = sum;
-  }
-}
-
-template <bool kResident, typename S>
+template <bool kResident, bool kSplit, typename S>
 __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
   extern __shared__ float4 bwd_smem4[];
   float* smem = reinterpret_cast<float*>(bwd_smem4);
+  const cg::cluster_group cl = cg::this_cluster();
   const int dir = blockIdx.y;
-  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H;
-  const int j0 = blockIdx.x * u;
+  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H, C = a.cluster;
   const int tid = threadIdx.x;
-  const BwdLayout L = bwd_layout(H, u, kResident);
-  const float* wsm = smem + L.wc;
-  float* stage = smem + L.stage;
+  const int blocks = gridDim.x;   // of the direction
+  const int ncl = blocks / C;     // clusters of the direction
+  const int ck = blockIdx.x / C;  // this block's cluster and its rank there
+  const int rank = blockIdx.x - ck * C;
+  const int j0 = blockIdx.x * u;  // the block's first unit
+  const int jc = ck * C * u;      // the cluster's first unit
+  const BwdLayout L = bwd_layout(H, u, B, C, kResident, kSplit);
+  const int i0 = rank * L.ni;  // the first unit of the rank's dh partials
+  const int ush = 31 - __clz(u);  // u is a power of two (walk_takes)
+  float* dgs = smem + L.dg;
+  float* scr = smem + L.scr;
   float* red = smem + L.red;
-  float* gpre = smem + L.gpre;
-  float* dhn = smem + L.dhn;
 
   const S* __restrict__ x = dir ? a.x[1] : a.x[0];
   const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
@@ -812,143 +1157,390 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
   const S* __restrict__ gys = dir ? a.gys[1] : a.gys[0];
   const float* __restrict__ mask = a.mask;
   S* dx = dir ? a.dx[1] : a.dx[0];
-  unsigned int* counter = a.sync + dir;
-  const int blocks = gridDim.x;
-  const int bc = (B + kBwdRows - 1) / kBwdRows * kBwdRows;
-  const size_t slot = (size_t)blocks * u * bc;  // one reader block's partials of one step
-  // this direction's partials of step t: [blocks (reader), blocks (writer), u, bc]
-  auto partials = [&](int t) {
+  unsigned int* counter = a.sync + dir;  // blocks that wrote their partials
+  const size_t slot = (size_t)ncl * B * u;  // one reader block's partials of one step
+  // this direction's partials of step t: [blocks (reader), ncl, B, u] at
+  // t's parity. Step t writes them after its wait, by which every block has
+  // arrived in step t+1, so has summed step t+2's, the last ones there.
+  auto part_at = [&](int t) {
     return a.part + ((size_t)(t & 1) * gridDim.y + dir) * blocks * slot;
   };
-
-  if (kResident) load_wc(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);  // for all T steps
-
-  float dh[kBwdMaxPairs], dc[kBwdMaxPairs];
-#pragma unroll
-  for (int i = 0; i < kBwdMaxPairs; ++i) dh[i] = dc[i] = 0.0f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    for (int b0 = 0; b0 < B; b0 += kBwdRows) {
-      const int rows = min(kBwdRows, B - b0);
-      // (b) gate pre-activations at t; h_{-1} = 0
-      if (t > 0) {
-        for (int c0 = 0; c0 < L.nb; c0 += kBwdMaxCols)
-          gate_product<kResident, kBwdRows, false, S>(ys + (size_t)(t - 1) * H, (size_t)T * H,
-                                                      wsm, wh, c0,
-                                  min(kBwdMaxCols, L.nb - c0), L.ldw, j0, u, b0, rows, H, L.hp,
-                                  stage, red, gpre, L.nb);
-      } else {
-        for (int i = tid; i < kBwdRows * L.nb; i += kThreads) gpre[i] = 0.0f;
-      }
-      // (a) dh_t = dgates_{t+1} @ Wh^T for the block's units: every block's
-      // partial, written in step t+1
-      if (t + 1 < T) {
-        if (b0 == 0) step_wait(counter, blocks * (unsigned int)(T - 1 - t));
-        dh_sum(partials(t + 1) + blockIdx.x * slot, blocks, u, bc, b0, red, dhn);
-      }
+  auto cluster_sync = [&]() {
+    if (C > 1) {
+      cl.sync();
+    } else {
       __syncthreads();
-      // (c) gate derivatives, one thread per (row, unit) of the chunk; each
-      // unit's four dgates replace its gate pre-activations in gpre
-#pragma unroll
-      for (int i = 0; i < kBwdMaxPairs; ++i) {
-        const int p = tid + i * kThreads;
-        const int b = p / u;
-        const int uu = p - b * u;
-        const int j = j0 + uu;
-        if (b < b0 || b >= b0 + rows || j >= H) continue;
-        const int r = b - b0;
-        const size_t bt = (size_t)b * T + t;
-        const S* xt = x + bt * G;
-        // every load first, none depending on another: one round trip
-        const float xi = ld_stream(xt + j), xf = ld_stream(xt + H + j);
-        const float xg = ld_stream(xt + 2 * H + j), xo = ld_stream(xt + 3 * H + j);
-        const float m = __ldg(mask + bt);
-        const float m_next = t + 1 < T ? __ldg(mask + bt + 1) : 0.0f;
-        const float gy = ld_stream(gys + bt * H + j);
-        const float c_t = ld_stream(cs + bt * H + j);
-        const float c_prev = t > 0 ? ld_stream(cs + (bt - 1) * H + j) : 0.0f;
-        float* gp = gpre + r * L.nb + uu;
-        const float ig = sigmoid(xi + gp[0]);
-        const float fg = sigmoid(xf + gp[u] + a.forget_bias);
-        const float gg = tanhf(xg + gp[2 * u]);
-        const float og = sigmoid(xo + gp[3 * u]);
-        const bool on = m > 0.0f;
-        // dh carried from t+1: dgates_{t+1} @ Wh^T after a real step, else
-        // the passed-through total (zero before the first real step)
-        const float dh_carry = m_next > 0.0f ? dhn[r * u + uu] : dh[i];
-        const float dh_tot = (on ? gy : 0.0f) + dh_carry;
-        const float tc = tanhf(c_t);
-        const float dc_tot = dc[i] + dh_tot * og * (1.0f - tc * tc);
-        const float d_o = dh_tot * tc;
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (on) {
-          d[0] = dc_tot * gg * ig * (1.0f - ig);
-          d[1] = dc_tot * c_prev * fg * (1.0f - fg);
-          d[2] = dc_tot * ig * (1.0f - gg * gg);
-          d[3] = d_o * og * (1.0f - og);
-          dc[i] = dc_tot * fg;
-        }
-        S* dxt = dx + bt * G;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          st_stream(dxt + g * H + j, d[g]);  // rounded (bf16) only as it is emitted
-          gp[g * u] = d[g];                  // the float32 dgates for the dh partials
-        }
-        dh[i] = dh_tot;
-      }
-      __syncthreads();
-      // (p) this block's share of dh_{t-1}, read by every block in step t-1
-      if (t > 0)
-        dh_partials<kResident>(gpre, wsm, wh, partials(t), stage, blocks, blockIdx.x, j0, u, H,
-                               L.nb, L.ldw, bc, b0);
-      __syncthreads();  // gpre and dhn are consumed
     }
-    step_arrive(counter);
+  };
+  const bool tracing = bwd_trace_on != 0;  // the same for every thread of the launch
+  const bool tracer = tracing && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
+  // a trace point of step t; `sync`: after a barrier of the whole block, so
+  // that it marks the block's work and not thread 0's
+  auto mark = [&](int t, int point, bool sync) {
+    if (!tracing) return;
+    if (sync) __syncthreads();
+    const int step = T - 1 - t;
+    if (tracer && step < kTraceSteps) bwd_trace[step * kTracePoints + point] = clock64();
+  };
+  if (tracer) {
+    bwd_trace[kTraceSteps * kTracePoints] = clock64();
+    bwd_trace[kTraceSteps * kTracePoints + 1] = global_ns();
   }
+
+  if (kResident) stage_bwd_w<kSplit>(smem, L, wh, H, u, j0, i0, jc);  // for all T steps
+  for (int e = tid; e < L.mp * L.ldg; e += kThreads) dgs[e] = 0.0f;    // pads stay zero
+  cluster_sync();  // staged, and every block of the cluster running
+
+  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u; carries dh,
+  // dc, c_t = cs[t] and m_next = mask[t+1] of step t
+  float dh[kBwdMaxPairs], dc[kBwdMaxPairs], ct[kBwdMaxPairs], m_next[kBwdMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kBwdMaxPairs; ++i) {
+    const int p = tid + i * kThreads;
+    const int b = p >> ush;
+    const int j = j0 + (p & (u - 1));
+    dh[i] = dc[i] = m_next[i] = 0.0f;
+    ct[i] = b < B && j < H ? ld_stream(cs + ((size_t)b * T + T - 1) * H + j) : 0.0f;
+  }
+
+  const int P = B * u;  // the values of one plane of a reader's partials
+  for (int t = T - 1; t >= 0; --t) {
+    mark(t, 0, false);
+    // next step's ys rows into L2: each block a share of the lines
+    if (t > 1) {
+      const int es = (int)sizeof(S), lines = (H * es + 127) / 128;
+      for (int e = blockIdx.x * kThreads + tid; e < B * lines; e += blocks * kThreads) {
+        const int b = e / lines;
+        const char* p = reinterpret_cast<const char*>(ys + ((size_t)b * T + t - 2) * H) +
+                        (size_t)(e - b * lines) * 128;
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+      }
+    }
+    // (b) gate pre-activations at t; h_{-1} = 0
+    if (t > 0) {
+      const S* rows = ys + (size_t)(t - 1) * H;
+      const size_t stride = (size_t)T * H;
+      const int nct = L.nbp / 8;  // 2, 4, 8 or more (a multiple of 8)
+      if ((H & 3) != 0) {
+        bwd_gates<2, false, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
+      } else if (nct == 2) {
+        bwd_gates<2, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
+      } else if (nct == 4) {
+        bwd_gates<4, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
+      } else {
+        bwd_gates<8, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
+      }
+    }
+    __syncthreads();
+    mark(t, 1, false);
+    // the step's streams of the thread's pairs: no other block writes them
+    float xv[kBwdMaxPairs][4], gy[kBwdMaxPairs], cp[kBwdMaxPairs], mv[kBwdMaxPairs];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p >> ush;
+      const int j = j0 + (p & (u - 1));
+      xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = gy[i] = cp[i] = mv[i] = 0.0f;
+      if (b < B && j < H) {
+        const size_t bt = (size_t)b * T + t;
+        const S* xt = x + bt * G + j;
+        xv[i][0] = ld_early(xt), xv[i][1] = ld_early(xt + H);
+        xv[i][2] = ld_early(xt + 2 * H), xv[i][3] = ld_early(xt + 3 * H);
+        gy[i] = ld_early(gys + bt * H + j);
+        if (t > 0) cp[i] = ld_early(cs + (bt - 1) * H + j);
+        mv[i] = ld_early(mask + bt);
+      }
+    }
+    // every block of the direction has written its partials of step t+1
+    if (t + 1 < T) step_wait(counter, blocks * (unsigned int)(T - 1 - t));
+    mark(t, 2, false);
+    // (a) dh_t: this block's slot of step t+1's partials, [ncl planes, P];
+    // items (value p, slice s of the planes) go round the threads, each
+    // summing its slice's planes in order into red[s][p], every load of a
+    // round of four planes in flight at once; (c) adds the slices in order
+    if (t + 1 < T) {
+      const float* pr = part_at(t + 1) + (size_t)blockIdx.x * slot;
+      const int per = (ncl + L.dhs - 1) / L.dhs;
+      if ((P & 3) == 0) {  // four values an item, one 16-byte load a plane
+        const int Q = P / 4;
+        float4 acc[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int q0 = 0; q0 < per; q0 += 8) {
+          float4 v[2][8];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int it = tid + j * kThreads;
+            const int s = it / Q;
+            const int q = it - s * Q;
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const int k = s * per + q0 + e;
+              v[j][e] = s < L.dhs && q0 + e < per && k < ncl
+                            ? __ldcg(reinterpret_cast<const float4*>(pr + (size_t)k * P) + q)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              acc[j].x += v[j][e].x, acc[j].y += v[j][e].y;
+              acc[j].z += v[j][e].z, acc[j].w += v[j][e].w;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (tid + j * kThreads < Q * L.dhs)
+            reinterpret_cast<float4*>(red)[tid + j * kThreads] = acc[j];
+      } else {
+        float acc[kBwdMaxPairs];
+#pragma unroll
+        for (int j = 0; j < kBwdMaxPairs; ++j) acc[j] = 0.0f;
+        for (int q0 = 0; q0 < per; q0 += 4) {
+          float v[kBwdMaxPairs][4];
+#pragma unroll
+          for (int j = 0; j < kBwdMaxPairs; ++j) {
+            const int it = tid + j * kThreads;
+            const int s = it / P;
+            const int p = it - s * P;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int k = s * per + q0 + q;
+              v[j][q] = s < L.dhs && q0 + q < per && k < ncl ? __ldcg(pr + (size_t)k * P + p)
+                                                             : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kBwdMaxPairs; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[j] += v[j][q];
+        }
+#pragma unroll
+        for (int j = 0; j < kBwdMaxPairs; ++j)
+          if (tid + j * kThreads < L.dhs * P) red[tid + j * kThreads] = acc[j];
+      }
+    }
+    __syncthreads();
+    mark(t, 3, false);
+    // (c) gate derivatives, one thread per (row, unit)
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p >> ush;
+      const int uu = p & (u - 1);
+      const int j = j0 + uu;
+      if (b >= B || j >= H) continue;
+      // (the slice loops stay rolled: this body is unrolled once per pair, and
+      // its code, not its work, is what grows)
+      float dn = 0.0f;
+      if (t + 1 < T) {
+#pragma unroll 1
+        for (int s = 0; s < L.dhs; ++s) dn += red[s * P + p];
+      }
+      float gp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (t > 0) {
+        const float* gs = scr + (size_t)b * L.ldo_g + uu;
+#pragma unroll 1
+        for (int sl = 0; sl < L.ks_g; ++sl, gs += (size_t)L.mp * L.ldo_g) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) gp[g] += gs[g * u];
+        }
+      }
+      const float ig = sigmoid(xv[i][0] + gp[0]);
+      const float fg = sigmoid(xv[i][1] + gp[1] + a.forget_bias);
+      const float gg = tanhf(xv[i][2] + gp[2]);
+      const float og = sigmoid(xv[i][3] + gp[3]);
+      const float m = mv[i];
+      const bool on = m > 0.0f;
+      // dh carried from t+1: dgates_{t+1} @ Wh^T after a real step, else
+      // the passed-through total (zero before the first real step)
+      const float dh_carry = m_next[i] > 0.0f ? dn : dh[i];
+      const float dh_tot = (on ? gy[i] : 0.0f) + dh_carry;
+      const float tc = tanhf(ct[i]);
+      const float dc_tot = dc[i] + dh_tot * og * (1.0f - tc * tc);
+      const float d_o = dh_tot * tc;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (on) {
+        d[0] = dc_tot * gg * ig * (1.0f - ig);
+        d[1] = dc_tot * cp[i] * fg * (1.0f - fg);
+        d[2] = dc_tot * ig * (1.0f - gg * gg);
+        d[3] = d_o * og * (1.0f - og);
+        dc[i] = dc_tot * fg;
+      }
+      // the float32 dgates, into this block's columns of its copy
+      float* to = dgs + b * L.ldg + rank * L.nbp + uu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) to[g * u] = d[g];
+      dh[i] = dh_tot;
+      ct[i] = cp[i];
+      m_next[i] = m;
+    }
+    mark(t, 4, true);
+    if (t > 0 && C > 1) {
+      // this block's columns into every other block's copy, 16 bytes a store
+      __syncthreads();
+      const int n4 = L.nbp / 4;
+      for (int e = tid; e < B * n4 * (C - 1); e += kThreads) {
+        const int s = e / (B * n4);
+        const int b = (e - s * B * n4) / n4;
+        const int o = b * L.ldg + rank * L.nbp + 4 * (e - s * B * n4 - b * n4);
+        *reinterpret_cast<float4*>(cl.map_shared_rank(dgs, s + (s >= rank)) + o) =
+            *reinterpret_cast<const float4*>(dgs + o);
+      }
+    }
+    mark(t, 5, true);
+    if (t > 0) {
+      // (p) the cluster's share of dh_{t-1}, read by every block in step t-1
+      cluster_sync();  // every block of the cluster has its dgates in every copy
+      mark(t, 6, false);
+      const int nct = L.nip / 8;
+      float* pt = part_at(t);
+      if (nct % 8 == 0) {
+        bwd_partials<8, kResident, kSplit>(dgs, smem, L, wh, B, H, u, ck, i0, jc, ncl, pt);
+      } else if (nct % 4 == 0) {
+        bwd_partials<4, kResident, kSplit>(dgs, smem, L, wh, B, H, u, ck, i0, jc, ncl, pt);
+      } else if (nct % 2 == 0) {
+        bwd_partials<2, kResident, kSplit>(dgs, smem, L, wh, B, H, u, ck, i0, jc, ncl, pt);
+      } else {
+        bwd_partials<1, kResident, kSplit>(dgs, smem, L, wh, B, H, u, ck, i0, jc, ncl, pt);
+      }
+      mark(t, 7, true);
+      step_arrive(counter);
+      mark(t, 8, false);
+    } else {
+      __syncthreads();  // dgs is written
+    }
+    // dxproj[t] off the chain, from this block's columns of dg: each row's u
+    // units of a gate as one run, rounded (bf16) only as it is emitted. The
+    // next step's derivatives overwrite them only after its wait, which every
+    // block of the cluster passes after its partials have read this step's.
+    for (int e = tid; e < B * L.nb4; e += kThreads) {
+      const int b = e >> (ush + 2);  // nb4 = 4u
+      const int c = e & (L.nb4 - 1);
+      const int g = c >> ush;
+      const int j = j0 + (c & (u - 1));
+      if (j < H)
+        st_stream(dx + ((size_t)b * T + t) * G + g * H + j, dgs[b * L.ldg + rank * L.nbp + c]);
+    }
+  }
+  if (tracer) {
+    bwd_trace[kTraceSteps * kTracePoints + 2] = clock64();
+    bwd_trace[kTraceSteps * kTracePoints + 3] = global_ns();
+  }
+  cluster_sync();  // no block leaves while another may read its shared memory
+}
+
+// Set the backward's step trace on (on != 0) or off (out null), or copy the
+// last launch's trace (kTraceFloats values) to host memory at out. Returns
+// the CUDA error.
+inline int bwd_trace_ctl(int on, long long* out) {
+  const cudaError_t e = out == nullptr
+                            ? cudaMemcpyToSymbol(bwd_trace_on, &on, sizeof(int))
+                            : cudaMemcpyFromSymbol(out, bwd_trace, sizeof(bwd_trace));
+  return (int)e;
+}
+
+// The reverse walk's kernel for a plan's resident and split.
+template <typename S>
+const void* bwd_kernel(int resident, int split) {
+  return resident ? (split ? reinterpret_cast<const void*>(bwd_walk<true, true, S>)
+                           : reinterpret_cast<const void*>(bwd_walk<true, false, S>))
+                  : reinterpret_cast<const void*>(bwd_walk<false, false, S>);
+}
+
+// A cooperative launch of kThreads-thread blocks in clusters of `cluster`
+// (no cluster attribute at 1); attrs holds the attributes cfg points at.
+inline cudaLaunchConfig_t bwd_config(dim3 grid, int cluster, int smem_bytes, void* stream,
+                                     cudaLaunchAttribute (&attrs)[2]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = (unsigned int)cluster;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
+  return cfg;
 }
 
 // Launch the reverse walk of kDirs directions (1 or 2) as one cooperative
-// kernel on `stream`: grid (ceil(H / a.units), kDirs), kThreads threads and
-// smem_bytes of dynamic shared memory per block, the Wh slice resident in
-// shared memory when `resident` is set. a.sync holds kDirs zeroed counters,
-// a.part part_floats floats. ops/lstm.py bwd_plan picks units, resident and
-// smem_bytes and sizes a.part. Returns the CUDA error:
-// cudaErrorCooperativeLaunchTooLarge when the blocks cannot all be resident
-// at once (the kernel then never runs), cudaErrorInvalidValue for a plan
-// this kernel does not take, and for a.part of another size than the
-// kernel indexes. Does not synchronise. A template, so that only the
-// sources that launch the backward compile its kernels. S: the stream type.
+// kernel on `stream`: grid (ceil(H / a.units), kDirs) in clusters of
+// a.cluster blocks (1: no cluster), kThreads threads and smem_bytes of
+// dynamic shared memory per block, the Wh slices resident in shared memory
+// when `resident` is set, as TF32 hi and lo parts when `split` is. a.sync
+// holds kDirs zeroed counters, a.part part_floats floats. ops/lstm.py
+// bwd_plan picks units, cluster, resident, split and smem_bytes and sizes
+// a.part. Returns the CUDA error: cudaErrorCooperativeLaunchTooLarge when the
+// blocks cannot all be resident at once (the kernel then never runs),
+// cudaErrorInvalidValue for a plan this kernel does not take, and for a.part
+// of another size than the kernel indexes. Does not synchronise. A template,
+// so that only the sources that launch the backward compile its kernels. S:
+// the stream type.
 template <int kDirs, typename S = float>
-int run_bwd_walk(const BwdArgs<S>& a, int part_floats, int resident, int smem_bytes,
+int run_bwd_walk(const BwdArgs<S>& a, int part_floats, int resident, int split, int smem_bytes,
                  void* stream) {
   static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
-  const int u = a.units;
+  const int u = a.units, C = a.cluster;
   if (!walk_takes(a.B, a.T, a.H, u)) return (int)cudaErrorInvalidValue;
-  const BwdLayout l = bwd_layout(a.H, u, resident != 0);
+  const int blocks = (a.H + u - 1) / u;
+  if ((C != 1 && C != 2 && C != 4 && C != 8) || blocks % C != 0 || (split && !resident))
+    return (int)cudaErrorInvalidValue;
+  const BwdLayout l = bwd_layout(a.H, u, a.B, C, resident != 0, split != 0);
   if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  // the partials bwd_walk indexes: [2, kDirs, blocks, blocks, u, rows to kBwdRows]
-  const size_t blocks = (a.H + u - 1) / u;
-  const size_t bc = (size_t)(a.B + kBwdRows - 1) / kBwdRows * kBwdRows;
-  if (part_floats < 0 || (size_t)part_floats != 2 * kDirs * blocks * blocks * u * bc)
+  // the partials bwd_walk indexes: [2, kDirs, blocks, blocks / C, B, u]
+  if (part_floats < 0 ||
+      (size_t)part_floats != (size_t)2 * kDirs * blocks * (blocks / C) * a.B * u)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = resident ? reinterpret_cast<const void*>(bwd_walk<true, S>)
-                                : reinterpret_cast<const void*>(bwd_walk<false, S>);
+  const void* kernel = bwd_kernel<S>(resident, split);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned int)blocks, kDirs);
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg =
+      bwd_config(dim3((unsigned int)blocks, kDirs), C, smem_bytes, stream, attrs);
   void* params[] = {const_cast<BwdArgs<S>*>(&a)};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
-                                                    (size_t)smem_bytes,
-                                                    static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, params);
   if (e != cudaSuccess) {
     (void)cudaGetLastError();  // a refused launch leaves no error for the next one
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of the reverse walk (grid x `blocks`,
+// kDirs directions) can be resident at once with smem_bytes of dynamic
+// shared memory each (cudaOccupancyMaxActiveClusters), or minus the CUDA
+// error. ops/lstm.py bwd_plan takes the largest cluster at which all of them
+// are.
+template <int kDirs, typename S = float>
+int bwd_max_clusters(int blocks, int cluster, int resident, int split, int smem_bytes) {
+  if (cluster < 1 || blocks <= 0 || blocks % cluster != 0 || smem_bytes > kMaxSmem)
+    return -(int)cudaErrorInvalidValue;
+  const void* kernel = bwd_kernel<S>(resident, split);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg =
+      bwd_config(dim3((unsigned int)blocks, kDirs), cluster, smem_bytes, nullptr, attrs);
+  cfg.attrs = attrs + 1;  // the cluster alone
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return -(int)e;
+  }
+  return n;
 }
 
 }  // namespace

@@ -98,10 +98,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # against the sources' extern "C" definitions.
 SIGNATURES = {
     "lstm_bidi_fwd": [_P] * 11 + [_I] * 8 + [_F, _P],
-    "lstm_bidi_bwd": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "lstm_bidi_bwd": [_P] * 15 + [_I] * 9 + [_F, _P],
     "lstm_layer_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     "lstm_layer_fwd_carry": [_P] * 11 + [_I] * 8 + [_F, _P],
-    "lstm_layer_bwd": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "lstm_layer_bwd": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "lstm_bidi_bwd_max_clusters": [_I] * 6,
+    "lstm_layer_bwd_max_clusters": [_I] * 6,
+    "lstm_bidi_bwd_trace": [_I, _P],
+    "lstm_layer_bwd_trace": [_I, _P],
     "ctc_loss_fwd_bwd": [_P] * 12 + [_I] * 15 + [_P],
     "ctc_loss_fwd_only": [_P] * 8 + [_I] * 12 + [_P],
     "location_attend": [_P] * 12 + [_I] * 7 + [_F, _P],

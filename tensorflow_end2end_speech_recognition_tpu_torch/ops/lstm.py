@@ -57,6 +57,7 @@ products.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -220,7 +221,8 @@ def _device_of(what, x):
 # run_fwd_walk, run_bwd_walk) holds the same numbers and refuses a plan that
 # disagrees.
 BWD_THREADS = 256  # threads per block
-BWD_ROWS = 32  # batch rows per staged chunk of the backward
+BWD_WARPS = BWD_THREADS // 32
+BWD_CLUSTERS = (8, 4, 2, 1)  # thread-block clusters the backward takes, largest first
 FWD_ROWS = (8, 32)  # batch rows per staged chunk the forward takes
 BWD_STAGE_ROW = 256 + 4  # floats per staged row (256 k and 4 of padding)
 BWD_UNITS = (1, 2, 4, 8, 16, 32, 64, 128)  # unit tiles the kernels take
@@ -248,9 +250,11 @@ class BwdPlan(NamedTuple):
 
     units: int  # hidden units per block, of one direction, for every batch row
     blocks: int  # blocks of a launch, all directions
-    resident: bool  # the block's slice of Wh held in shared memory
+    cluster: int  # blocks of a direction per thread-block cluster (1: none)
+    resident: bool  # the block's slices of Wh held in shared memory
+    split: bool  # and held as TF32 hi and lo parts (else split as they are read)
     smem_bytes: int  # dynamic shared memory per block
-    resident_bytes: int  # of which the Wh slice (0 when streamed)
+    resident_bytes: int  # of which the Wh slices (0 when streamed)
     part_floats: int  # scratch for the dh partials of a launch of chunk_rows rows
     chunks: int  # launches per call: the batch split to fit the register carries
     chunk_rows: int  # batch rows of every launch but the last
@@ -273,11 +277,13 @@ def _unit_tile(what: str, h: int, dirs: int, batch: int, sm_count: int) -> int:
     return units
 
 
-def _batch_chunks(batch: int, units: int) -> tuple[int, int]:
+def _batch_chunks(batch: int, units: int, max_rows: int | None = None) -> tuple[int, int]:
     """(launches, rows of every launch but the last): as few launches as keep
-    each one's B x units within ``MAX_CARRIES``, their rows as even as can be.
-    The rows of a batch are independent, so each launch walks its own."""
-    rows = -(-batch // -(-batch * units // MAX_CARRIES))
+    each one's B x units within ``MAX_CARRIES`` (and its rows within
+    ``max_rows``), their rows as even as can be. The rows of a batch are
+    independent, so each launch walks its own."""
+    cap = MAX_CARRIES // units if max_rows is None else min(max_rows, MAX_CARRIES // units)
+    rows = -(-batch // -(-batch // cap))
     return -(-batch // rows), rows
 
 
@@ -313,33 +319,102 @@ def fwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> FwdPlan:
                    2 * dirs * chunk_rows * h, chunks, chunk_rows)
 
 
-def _bwd_smem_floats(h: int, units: int, resident: bool) -> tuple[int, int]:
-    """(all, Wh slice) floats of one block's shared memory: ``bwd_layout``."""
-    hp, nb = -(-h // 4) * 4, 4 * units
-    wh = hp * (nb + 4) if resident else 0
-    return wh + 2 * BWD_ROWS * BWD_STAGE_ROW + BWD_THREADS * 16 + BWD_ROWS * (nb + units), wh
+def _pad16(n: int) -> int:
+    """A multiple of 16 padded to 16 mod 32 floats (``bwd_ld``)."""
+    return n + 16 if n % 32 == 0 else n
 
 
-def bwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> BwdPlan:
-    """Unit tile, grid and shared memory of one backward call.
+def _ksplit(items: int, ksteps: int) -> int:
+    """``bwd_ksplit``: k slices that keep each warp on its own work item."""
+    ks = 1
+    while 2 * ks * items <= BWD_WARPS and 2 * ks <= ksteps:
+        ks *= 2
+    return ks
+
+
+def _dh_slices(values: int, planes: int) -> int:
+    """``bwd_dh_slices``: slices of the dh sum's planes over the threads."""
+    s = 1
+    while 2 * s <= planes and 2 * s * values <= MAX_CARRIES:
+        s *= 2
+    return s
+
+
+def _bwd_smem_floats(h: int, units: int, rows: int, cluster: int, resident: bool,
+                     split: bool) -> tuple[int, int]:
+    """(all, Wh slices) floats of one backward block's shared memory: ``bwd_layout``."""
+    per_dir = -(-h // units)
+    nbp = -(-4 * units // 16) * 16
+    kp = -(-h // 16) * 16
+    ni = per_dir // cluster * units
+    nip = -(-ni // 8) * 8
+    kc = cluster * nbp
+    mp = -(-rows // 16) * 16
+    copies = 2 if split else 1
+    wh = copies * (nbp * _pad16(kp) + nip * _pad16(kc)) if resident else 0
+    gate = _ksplit(mp // 16 * -(-nbp // 64), kp // 16) * mp * (nbp + 8)
+    red = _dh_slices(rows * units, per_dir // cluster) * rows * units
+    return wh + mp * _pad16(kc) + gate + red, wh
+
+
+def _bwd_fit(h: int, units: int, rows: int, cluster: int) -> tuple[bool, bool, int, int]:
+    """(resident, split, all, Wh slices) floats: the slices split into TF32 hi
+    and lo where both copies fit ``MAX_SMEM``, else held whole where they fit,
+    else read through L2."""
+    for resident, split in ((True, True), (True, False), (False, False)):
+        floats, wh = _bwd_smem_floats(h, units, rows, cluster, resident, split)
+        if floats * 4 <= MAX_SMEM:
+            break
+    return resident, split, floats, wh
+
+
+def bwd_plan(h: int, dirs: int, batch: int, sm_count: int, max_clusters=None) -> BwdPlan:
+    """Unit tile, cluster, grid and shared memory of one backward call.
 
     The kernel is one cooperative launch of ``dirs * ceil(h / units)``
     blocks that meet at a grid barrier every step, so all of them must be
     resident: the tile is the smallest in ``BWD_UNITS`` that gives at most
-    one block per SM. The block keeps its slice of ``Wh`` (the columns of
-    its units' four gates) in shared memory when it fits ``MAX_SMEM``, and
-    otherwise reads it through L2. The blocks exchange their shares of dh
-    through ``part_floats`` of scratch. Past ``MAX_CARRIES`` the call is
-    split into ``chunks`` launches over contiguous rows.
+    one block per SM. The blocks of a direction form clusters of a size in
+    ``BWD_CLUSTERS`` that divides their count and at which
+    ``max_clusters(cluster, resident, split, smem_bytes, blocks)`` (the
+    card's ``cudaOccupancyMaxActiveClusters``; None: every size) keeps all
+    of them resident: the largest at which a block keeps its two slices of
+    ``Wh`` in shared memory (as TF32 hi and lo parts when both copies fit),
+    else the largest, reading them through L2. A cluster sums its dh
+    partials in shared memory (each block holds a copy of the cluster's
+    dgates, so a larger cluster takes more of it) and the clusters exchange
+    theirs through ``part_floats`` of scratch, two steps' partials by the
+    step's parity. Past ``MAX_CARRIES``, or past
+    the rows whose shared memory fits, the call is split into ``chunks``
+    launches over contiguous rows.
     """
     units = _unit_tile("bwd_plan", h, dirs, batch, sm_count)
-    chunks, chunk_rows = _batch_chunks(batch, units)
-    resident, floats, wh = _resident_or_streamed(lambda res: _bwd_smem_floats(h, units, res))
     per_dir = -(-h // units)
-    # two steps x dirs x reader blocks x writer blocks x units x rows (to 32)
-    part = 2 * dirs * per_dir * per_dir * units * -(-chunk_rows // BWD_ROWS) * BWD_ROWS
-    return BwdPlan(units, dirs * per_dir, resident, floats * 4, wh * 4, part, chunks,
-                   chunk_rows)
+    max_rows = MAX_CARRIES // units
+    while _bwd_fit(h, units, max_rows, 1)[2] * 4 > MAX_SMEM:
+        max_rows //= 2
+    chunks, chunk_rows = _batch_chunks(batch, units, max_rows)
+    # the largest cluster size whose clusters the card holds at once and whose
+    # layout keeps Wh resident; else the largest that the card holds
+    chosen = None
+    for cluster in BWD_CLUSTERS:
+        if per_dir % cluster:
+            continue
+        fit = (cluster, *_bwd_fit(h, units, chunk_rows, cluster))
+        if fit[3] * 4 > MAX_SMEM or (
+                cluster > 1 and max_clusters is not None
+                and max_clusters(cluster, fit[1], fit[2], fit[3] * 4, per_dir)
+                < dirs * per_dir // cluster):
+            continue
+        if fit[1]:
+            chosen = fit
+            break
+        chosen = chosen or fit
+    cluster, resident, split, floats, wh = chosen
+    # two step parities x dirs x reader blocks x clusters x rows x units
+    part = 2 * dirs * per_dir * (per_dir // cluster) * chunk_rows * units
+    return BwdPlan(units, dirs * per_dir, cluster, resident, split, floats * 4, wh * 4, part,
+                   chunks, chunk_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -353,10 +428,71 @@ def fwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> FwdPlan:
     return fwd_plan(h, dirs, batch, _sm_count(dev.index or 0))
 
 
-def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int) -> BwdPlan:
-    """``bwd_plan`` for the SMs of CUDA device ``dev``: the plan both backward
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, dirs: int, bf16: bool, cluster: int, resident: bool, split: bool,
+                  smem_bytes: int, blocks: int) -> int:
+    """Clusters of the backward kernel that device ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``, through the C entry); raises on a
+    CUDA error."""
+    lib = build.load_library()
+    what = f"lstm_{'bidi' if dirs == 2 else 'layer'}_bwd_max_clusters"
+    with torch.cuda.device(index):
+        n = getattr(lib, what)(blocks, cluster, int(resident), int(split), smem_bytes, int(bf16))
+    build.check(lib, -min(n, 0), what)
+    return n
+
+
+def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int,
+                 bf16: bool = False) -> BwdPlan:
+    """``bwd_plan`` for the SMs and the cluster occupancy of CUDA device
+    ``dev`` (``bf16``: of the bf16-stream kernel): the plan both backward
     wrappers launch with."""
-    return bwd_plan(h, dirs, batch, _sm_count(dev.index or 0))
+    index = dev.index or 0
+    return bwd_plan(h, dirs, batch, _sm_count(index),
+                    functools.partial(_max_clusters, index, dirs, bf16))
+
+
+# The backward's step trace (``csrc/lstm_step.cuh`` kTraceSteps, kTracePoints)
+# and the phases between its marks.
+BWD_TRACE_STEPS, BWD_TRACE_POINTS = 64, 9
+BWD_TRACE_PHASES = ("gates", "wait", "dh_sum", "derivatives", "dg_copy", "cluster_barrier",
+                    "partials", "arrive", "dx_and_loads")
+
+
+def bwd_trace(entry: str, call) -> list:
+    """The step trace of one ``call`` that launches backward kernel ``entry``
+    (``lstm_bidi_bwd`` or ``lstm_layer_bwd``, either stream type): clock64()
+    of thread 0 of block (0, 0) at the ``BWD_TRACE_POINTS`` marks of each of
+    the first ``BWD_TRACE_STEPS`` steps, then clock64() and the global timer
+    (ns) at the launch's start and end. While the trace is on the kernel
+    meets at a block barrier at some marks, so the traced call is timed
+    apart from an untraced one. Raises on a CUDA error."""
+    lib = build.load_library()
+    ctl, what = getattr(lib, f"{entry}_trace"), f"{entry}_trace"
+    buf = (ctypes.c_longlong * (BWD_TRACE_STEPS * BWD_TRACE_POINTS + 4))()
+    build.check(lib, ctl(1, None), what)
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        build.check(lib, ctl(0, None), what)
+    build.check(lib, ctl(0, ctypes.cast(buf, ctypes.c_void_p)), what)
+    return list(buf)
+
+
+def bwd_step_phases(trace: list) -> dict:
+    """µs per phase of a step (``BWD_TRACE_PHASES``): the mean over steps
+    1 .. ``BWD_TRACE_STEPS`` - 2 of a ``bwd_trace``, cycles converted by the
+    launch's clock and timer."""
+    c0, n0, c1, n1 = trace[-4:]
+    us = (n1 - n0) / max(c1 - c0, 1) / 1e3  # µs per cycle
+    steps = range(1, BWD_TRACE_STEPS - 1)
+    sums = [0.0] * len(BWD_TRACE_PHASES)
+    for st in steps:
+        marks = trace[st * BWD_TRACE_POINTS:(st + 1) * BWD_TRACE_POINTS + 1]
+        for k in range(len(BWD_TRACE_PHASES)):
+            sums[k] += (marks[k + 1] - marks[k]) * us
+    return {ph: x / len(steps) for ph, x in zip(BWD_TRACE_PHASES, sums)}
 
 
 def _rows(b0: int, b1: int, *tensors) -> tuple:
@@ -378,16 +514,19 @@ def _walk(lib, what: str, plan_for, dev, dirs: int, batch: int, t: int, h: int,
     """
     plan = plan_for(dev, h, dirs, batch)
     fwd = isinstance(plan, FwdPlan)
+    starts = range(0, batch, plan.chunk_rows)
+    plans = [plan if plan.chunks == 1
+             else plan_for(dev, h, dirs, min(batch, b0 + plan.chunk_rows) - b0) for b0 in starts]
     sync = torch.zeros(plan.chunks * dirs, dtype=torch.int32, device=dev)
-    scratch = torch.empty(plan.hbuf_floats if fwd else plan.part_floats, dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(max(p.hbuf_floats if fwd else p.part_floats for p in plans),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for i, b0 in enumerate(range(0, batch, plan.chunk_rows)):
+        for i, (b0, p) in enumerate(zip(starts, plans)):
             b1 = min(batch, b0 + plan.chunk_rows)
-            p = plan if plan.chunks == 1 else plan_for(dev, h, dirs, b1 - b0)
             layout = ((p.hbuf_floats, b1 - b0, t, h, p.units, int(p.resident), p.rows)
-                      if fwd else (p.part_floats, b1 - b0, t, h, p.units, int(p.resident)))
+                      if fwd else (p.part_floats, b1 - b0, t, h, p.units, int(p.resident),
+                                   int(p.split), p.cluster))
             code = getattr(lib, what)(*pointers(b0, b1), sync[i * dirs:].data_ptr(),
                                       scratch.data_ptr(), *layout, p.smem_bytes,
                                       float(forget_bias), stream)
@@ -397,6 +536,11 @@ def _walk(lib, what: str, plan_for, dev, dirs: int, batch: int, t: int, h: int,
 def _entry(name: str, sdt: torch.dtype) -> str:
     """The C entry of a kernel for the stream dtype: ``name`` or ``name_bf16``."""
     return name + ("_bf16" if sdt == torch.bfloat16 else "")
+
+
+def _bwd_plan_for(sdt: torch.dtype):
+    """``bwd_plan_for`` for the kernel of stream dtype ``sdt``."""
+    return functools.partial(bwd_plan_for, bf16=sdt == torch.bfloat16)
 
 
 def _count(fn, sdt: torch.dtype) -> None:
@@ -455,7 +599,7 @@ def lstm_bidi_bwd(xproj_f, xproj_b, wh_f, wh_b, mask, ys_f, ys_b, cs_f, cs_b,
     h = g4 // 4
     dx_f = torch.empty_like(xproj_f)
     dx_b = torch.empty_like(xproj_b)
-    _walk(lib, _entry("lstm_bidi_bwd", sdt), bwd_plan_for, dev, 2, b, t, h, forget_bias,
+    _walk(lib, _entry("lstm_bidi_bwd", sdt), _bwd_plan_for(sdt), dev, 2, b, t, h, forget_bias,
           lambda b0, b1: (*_rows(b0, b1, xproj_f, xproj_b), wh_f.data_ptr(), wh_b.data_ptr(),
                           *_rows(b0, b1, *args[4:], dx_f, dx_b)))
     _count(lstm_bidi_bwd, sdt)
@@ -603,7 +747,7 @@ def lstm_layer_bwd(xproj, wh, mask, ys, cs, gys, forget_bias: float = 1.0):
     b, t, g4 = xproj.shape
     h = g4 // 4
     dx = torch.empty_like(xproj)
-    _walk(lib, _entry("lstm_layer_bwd", sdt), bwd_plan_for, dev, 1, b, t, h, forget_bias,
+    _walk(lib, _entry("lstm_layer_bwd", sdt), _bwd_plan_for(sdt), dev, 1, b, t, h, forget_bias,
           lambda b0, b1: (*_rows(b0, b1, xproj), wh.data_ptr(),
                           *_rows(b0, b1, mask, ys, cs, gys, dx)))
     _count(lstm_layer_bwd, sdt)

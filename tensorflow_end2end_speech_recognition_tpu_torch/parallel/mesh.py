@@ -291,12 +291,13 @@ def reset_traffic() -> None:
     TRAFFIC.clear()
 
 
-def all_reduce_flat(mesh: Mesh, tensors: list) -> list:
+def all_reduce_flat(mesh: Mesh, tensors: list, dtype: torch.dtype = torch.float32) -> list:
     """Each tensor summed over the ranks of ``mesh.group``, in one collective
-    on a flat float32 buffer (each comes back in its dtype and shape)."""
+    on a flat buffer of ``dtype`` (float32; float64 for the clip's norm;
+    each comes back in its dtype and shape)."""
     if mesh.group is None or not tensors:
         return list(tensors)
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32) for t in tensors])
+    flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
     count_traffic("all_reduce", flat)
     dist.all_reduce(flat, group=mesh.group)
     out, at = [], 0

@@ -48,25 +48,32 @@ class Optimizer(NamedTuple):
 
 
 def global_norm(tree: dict, mesh=None, specs: dict | None = None) -> torch.Tensor:
-    """The L2 norm over every tensor of ``tree``. With ``mesh`` and ``specs``
-    that split a leaf (``parallel/``: ZeRO-3, model or expert shards)
-    ``tree`` holds this rank's blocks: each leaf's squares are summed over
-    exactly the axes that split it, so a replicated leaf counts once, not
-    once per rank."""
+    """The L2 norm over every tensor of ``tree``, float32. With ``mesh`` and
+    ``specs`` that split a leaf (``parallel/``: ZeRO-3, model or expert
+    shards) ``tree`` holds this rank's blocks: each leaf's squares are summed
+    over exactly the axes that split it, so a replicated leaf counts once,
+    not once per rank. The squares are summed in float64, so that a sharded
+    step clips by the same float32 norm as the data-parallel step: float32
+    sums over blocks and over whole leaves differ in their last bits, and
+    Adam's first steps carry that into the weights whose gradients are near
+    its epsilon."""
+    def sq(x):
+        return torch.linalg.vector_norm(x, dtype=torch.float64).square()
+
     if mesh is None or specs is None or not any(specs.values()):
-        return torch.sqrt(sum(x.square().sum() for x in tree.values()))
+        return torch.sqrt(sum(sq(x) for x in tree.values())).float()
     from ..parallel.mesh import all_reduce_flat
 
-    zero = torch.zeros((), dtype=torch.float32, device=next(iter(tree.values())).device)
+    zero = torch.zeros((), dtype=torch.float64, device=next(iter(tree.values())).device)
     parts = {}
     for k, x in tree.items():
         axes = mesh.split_axes(a for a in specs[k] if a is not None)
-        parts[axes] = parts.get(axes, zero) + x.square().sum()
+        parts[axes] = parts.get(axes, zero) + sq(x)
     total = zero
     for axes in sorted(parts):
-        (part,) = all_reduce_flat(mesh.along(*axes), [parts[axes]])
+        (part,) = all_reduce_flat(mesh.along(*axes), [parts[axes]], dtype=torch.float64)
         total = total + part
-    return torch.sqrt(total)
+    return torch.sqrt(total).float()
 
 
 def clip_by_global_norm(grads: dict, max_norm: float, norm_fn=global_norm) -> dict:

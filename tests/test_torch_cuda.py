@@ -192,6 +192,75 @@ def test_backward_kernels_with_unit_tiles_that_leave_a_remainder(dev, b, h):
     _check_backward_kernels(dev, b, 12, h)
 
 
+@pytest.mark.parametrize("b,ragged", [(128, False), (128, True), (37, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_backward_kernels_at_the_headline_batch(dev, b, ragged, bf16):
+    """#2 and #4 at the headline's batch (B = 128, every row full or ragged)
+    and at B = 37 (not a multiple of the 16-row tiles), H = 512, in float32
+    and bf16 streams: within today's tolerances of their plain versions, one
+    launch per call, two calls equal bit for bit; the plan clusters the
+    blocks and holds Wh in shared memory."""
+    t, h = 24, 512
+    rng = np.random.RandomState(b + int(ragged))
+    lengths = [t, 1] + [int(x) for x in rng.randint(1, t + 1, b - 2)] if ragged else [t] * b
+    xf, xb, whf, whb, mask = _inputs(dev, b, t, h, lengths, seed=b + 5)
+    gys = [torch.from_numpy(rng.randn(b, t, h).astype(np.float32)).to(dev) for _ in range(2)]
+    fwd = lstm_bidi_fwd_plain(xf, xb, whf, whb, mask, 1.0)
+    fwd1 = lstm_layer_fwd_plain(xf, whf, mask, 0.5)
+    cast = (lambda v: v.bfloat16()) if bf16 else (lambda v: v)
+    xf, xb, gys = cast(xf), cast(xb), [cast(g) for g in gys]
+    fwd, fwd1 = [cast(v) for v in fwd], [cast(v) for v in fwd1]
+    counter = "launches_bf16" if bf16 else "launches"
+    for dirs in (1, 2):
+        plan = bwd_plan_for(dev, h, dirs, b, bf16=bf16)
+        assert plan.chunks == 1 and plan.resident and plan.cluster > 1, plan
+    before = (getattr(lstm_bidi_bwd, counter), getattr(lstm_layer_bwd, counter))
+    got = lstm_bidi_bwd(xf, xb, whf, whb, mask, *fwd, *gys, 1.0)
+    again = lstm_bidi_bwd(xf, xb, whf, whb, mask, *fwd, *gys, 1.0)
+    dx = lstm_layer_bwd(xf, whf, mask, *fwd1, gys[0], 0.5)
+    dx_again = lstm_layer_bwd(xf, whf, mask, *fwd1, gys[0], 0.5)
+    torch.cuda.synchronize()
+    assert (getattr(lstm_bidi_bwd, counter), getattr(lstm_layer_bwd, counter)) == (
+        before[0] + 2, before[1] + 2)
+    want = (*lstm_bidi_bwd_plain(xf, xb, whf, whb, mask, *fwd, *gys, 1.0),
+            lstm_layer_bwd_plain(xf, whf, mask, *fwd1, gys[0], 0.5))
+    for g, w in zip((*got, dx), want):
+        if bf16:
+            _close_bf16(g, w)
+        else:
+            torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert all(torch.equal(g, a) for g, a in zip((*got, dx), (*again, dx_again)))
+
+
+@pytest.mark.parametrize("entry", ["lstm_bidi_bwd", "lstm_layer_bwd"])
+def test_backward_step_trace(dev, entry):
+    """The backward's own step trace (``lstm.bwd_trace``, which
+    chip_smoke.py and probes/lstm_bwd_time.py read): off by default; on, one
+    launch records its first steps' phase marks in order and its clock and
+    timer at start and end; off again, results are the same bits."""
+    b, t, h = 8, 70, 512
+    args, fwd, gys, fwd1 = _bwd_case(dev, b, t, h, seed=13)
+    x, _, wh, _, mask = args
+    run = ((lambda: lstm_bidi_bwd(*args, *fwd, *gys, 1.0)) if entry == "lstm_bidi_bwd"
+           else (lambda: (lstm_layer_bwd(x, wh, mask, *fwd1, gys[0], 0.5),)))
+    steps, points = lstm_ops.BWD_TRACE_STEPS, lstm_ops.BWD_TRACE_POINTS
+    plain = run()
+    out = []
+    v = lstm_ops.bwd_trace(entry, lambda: out.append(run()))
+    traced = out[0]
+    again = run()
+    torch.cuda.synchronize()
+    assert len(v) == steps * points + 4
+    c0, n0, c1, n1 = v[-4:]
+    assert c1 > c0 > 0 and n1 > n0 > 0
+    marks = [m for s in range(steps) for m in v[s * points:(s + 1) * points]]
+    assert all(c0 <= m <= c1 for m in marks)
+    assert all(a <= z for a, z in zip(marks, marks[1:]))  # steps and their phases in order
+    phases = lstm_ops.bwd_step_phases(v)
+    assert list(phases) == list(lstm_ops.BWD_TRACE_PHASES) and all(x >= 0 for x in phases.values())
+    assert all(torch.equal(p, q) and torch.equal(p, r) for p, q, r in zip(plain, traced, again))
+
+
 def test_backward_launch_that_cannot_be_resident_raises(dev, monkeypatch):
     """Plans made as if the card had eight times its SMs: the cooperative
     launch is refused, the wrapper raises and counts nothing, and the next
@@ -231,7 +300,7 @@ def test_backward_entry_points_refuse_partials_of_another_size(dev):
         code = lib.lstm_layer_bwd(
             *(a.data_ptr() for a in (x, wh, mask, *fwd1, gys[0])), dx.data_ptr(),
             sync.data_ptr(), part.data_ptr(), plan.part_floats, b, t, h, plan.units,
-            int(plan.resident), plan.smem_bytes, 0.5, stream)
+            int(plan.resident), int(plan.split), plan.cluster, plan.smem_bytes, 0.5, stream)
         assert code == invalid_value, plan
     plan = bwd_plan_for(dev, h, 2, b)
     part = torch.empty(plan.part_floats - 1, dtype=torch.float32, device=dev)
@@ -239,7 +308,7 @@ def test_backward_entry_points_refuse_partials_of_another_size(dev):
     code = lib.lstm_bidi_bwd(
         *(a.data_ptr() for a in (*args, *fwd, *gys)), dx.data_ptr(), dx_b.data_ptr(),
         sync.data_ptr(), part.data_ptr(), plan.part_floats - 1, b, t, h, plan.units,
-        int(plan.resident), plan.smem_bytes, 1.0, stream)
+        int(plan.resident), int(plan.split), plan.cluster, plan.smem_bytes, 1.0, stream)
     assert code == invalid_value
     torch.cuda.synchronize()
     assert not dx.any() and not dx_b.any()  # nothing ran

@@ -20,7 +20,8 @@ that file: Adam's weights within 0.1 lr per step, moments 1e-3 of max),
 each rank's blocks against the JAX shard on the same device, every
 divisible leaf and its moments held 1/2 per rank; ``fit`` with ``fsdp:
 true`` for one toy epoch against ``fit`` in one process, and its
-checkpoint (whole tensors) resumed in one process.
+checkpoint (whole tensors) resumed in one process; the clip's norm over
+each rank's blocks against the norm over whole leaves, bit for bit.
 """
 
 import dataclasses
@@ -209,6 +210,21 @@ def _load(out, name):
     return [torch.load(out / f"{name}_{r}.pt", weights_only=False) for r in range(WORLD)]
 
 
+def _gradient_trees(jobs, seeds: int = 4) -> list:
+    """Trees with the leaves of each family's weights (the step jobs'),
+    each leaf seeded normal values at a scale of its own in 1e-6 .. 1e2."""
+    trees = []
+    for job in jobs:
+        if job["kind"] != "steps":
+            continue
+        for seed in range(seeds):
+            g = torch.Generator().manual_seed(seed)
+            trees.append({k: torch.randn(v.shape, generator=g)
+                          * 10.0 ** float(torch.rand((), generator=g) * 8 - 6)
+                          for k, v in job["params"].items()})
+    return trees
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The JAX references and the one-process run, then one spawn of 2 ranks
@@ -222,6 +238,7 @@ def world(tmp_path_factory):
     jobs = [port_job(f"fsdp_{f}", f, "adam", fsdp=True, steps=2) for f in FAMILIES]
     exp2 = experiment_from_dict(dict(FIT, num_devices=WORLD, fsdp=True))
     jobs.append(dict(kind="fit", name="fit_fsdp", exp=exp2, model_dir=str(tmp / "two")))
+    jobs.append(dict(kind="norm", name="norms", trees=_gradient_trees(jobs)))
     workers.join(workers.spawn(jobs, WORLD, tmp, out))
     lines = []
     resumed = fit(dataclasses.replace(exp2, num_devices=None, fsdp=False, num_epoch=2),
@@ -245,6 +262,20 @@ def test_fsdp_steps_match_jax_setup_fsdp(world, family):
             block = got["params"][k].numpy()
             np.testing.assert_allclose(block, shards[devices[r]], rtol=0,
                                        atol=0.1 * LR["adam"] * 2, err_msg=f"rank {r} {k}")
+
+
+def test_clip_norm_over_zero3_blocks_equals_the_data_parallel_norm(world):
+    """The clip's norm over each rank's ZeRO-3 blocks is, bit for bit, the
+    float32 norm over the whole tree that a data-parallel step takes
+    (``global_norm`` sums the squares in float64), on 12 seeded trees with
+    every leaf of the three families' weights; float32 sums in the two
+    orders differ in the last bit on some such trees
+    (probes/clip_norm_bits.py)."""
+    for r in _load(world["out"], "norms"):
+        assert len(r["norms"]) == 4 * len(FAMILIES)
+        for dp, zero3 in r["norms"]:
+            assert dp.dtype == zero3.dtype == torch.float32
+            assert torch.equal(dp, zero3), (float(dp), float(zero3))
 
 
 @pytest.mark.parametrize("family", FAMILIES)

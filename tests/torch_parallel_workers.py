@@ -26,6 +26,10 @@ A job is a dict with ``kind``:
   ``"refused"``: the same, expected to raise (its type and text).
 - ``"eval"``: ``utils/metrics.evaluate_ctc`` of ``exp``'s model (seeded
   weights) on its dev split, with this rank's rows.
+- ``"norm"``: ``train/optimizer.global_norm`` of each of ``trees`` (whole
+  leaves on the CPU), over the whole tree as a data-parallel step takes it
+  and over this rank's ZeRO-3 blocks (``fsdp_partition_specs`` over the
+  world); results: the two norms of each tree.
 """
 
 from __future__ import annotations
@@ -168,4 +172,21 @@ def eval_rates(exp, mesh=None) -> dict:
                         mesh)
 
 
-RUNNERS = {"steps": run_steps, "fit": run_fit, "refused": run_refused, "eval": run_eval}
+def run_norm(rank: int, world: int, job: dict) -> dict:
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel import (
+        fsdp_partition_specs,
+        make_grid,
+    )
+    from tensorflow_end2end_speech_recognition_tpu_torch.parallel.fsdp import shard_tree
+    from tensorflow_end2end_speech_recognition_tpu_torch.train.optimizer import global_norm
+
+    mesh = make_grid({"data": world}, device="cpu")
+    norms = []
+    for tree in job["trees"]:
+        specs = fsdp_partition_specs(tree, world)
+        norms.append((global_norm(tree), global_norm(shard_tree(mesh, tree, specs), mesh, specs)))
+    return {"norms": norms}
+
+
+RUNNERS = {"steps": run_steps, "fit": run_fit, "refused": run_refused, "eval": run_eval,
+           "norm": run_norm}
