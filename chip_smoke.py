@@ -251,12 +251,15 @@ Phases; any failure exits non-zero and prints no result line:
     with ragged lengths, within two bf16 ulps (rtol 8e-3, atol 1e-5) on
     ys, cs and dxproj and 1e-3 of the largest entry on the autograd
     Function's dWh; CUDA-event times beside the float32 kernels at the
-    same shape and cuDNN ``nn.LSTM`` in bf16 (where torch takes it),
-    device launches per call, the bound of the bf16 streams' bytes; then
-    #2 and #4 in float32 and bf16 streams at B=128 with ragged lengths and
-    at B=100 (not a multiple of the 16-row tiles) against their plain
-    versions (BWD_ATOL; two bf16 ulps), two calls bitwise equal, one
-    launch per call, timed beside their 3xTF32 and FFMA bounds;
+    same shape and cuDNN ``nn.LSTM`` in bf16 (where torch takes it; the
+    forward also beside cuDNN's float32 forward, and the forward's step
+    phases from its own trace), device launches per call, the bound of the
+    bf16 streams' bytes; then #1-#4 in float32 and bf16 streams at B=128
+    with ragged lengths and at B=100 (not a multiple of the 16-row tiles),
+    and #1 and #3 at the serving batch B=8 (their FFMA product), against
+    their plain versions (KERNEL_ATOL, BWD_ATOL; two bf16 ulps), two calls
+    bitwise equal, one launch per call, timed beside their 3xTF32 and FFMA
+    bounds, with each forward's step phases;
 45. the headline step: ``bench.py``'s task (5 x BLSTM-512, 120 dims, 3/3
     stacking, 28 classes, U=40, Adam with clip 5.0) at B=128 x 12 s in
     float32 and in bf16, 10 timed steps each after warm-up: ms per step,
@@ -842,27 +845,35 @@ def lstm_work(lengths, h: int, with_cs: bool, backward: bool, t: int = T_ENC,
     """Bytes each input read once / output written once, and float32 operations
     of the valid steps (a masked step needs no work), for one layer's call of
     ``dirs`` directions; ``elem`` bytes per element of xproj, ys, cs, gys and
-    dxproj (2 under bf16 streams). The forward's products are float32 FFMA.
-    The backward's (#2, #4) are float32-accurate on the tensor cores: three
-    TF32 passes each (two for the gates' product on bf16 ys rows, which are
-    TF32 values), at PEAK_TF32, the gate math at PEAK_F32; its
-    ``bound_ffma_ms`` is the same work as float32 FFMA."""
+    dxproj (2 under bf16 streams). The forward's product runs where
+    ``fwd_plan`` puts it: float32 FFMA for a launch of up to FWD_FFMA_ROWS
+    rows, else float32-accurate on the tensor cores in three TF32 passes (h
+    is float32 under either stream type). The backward's (#2, #4) are on the
+    tensor cores, three passes each (two for the gates' product on bf16 ys
+    rows, which are TF32 values). Tensor-core passes count at PEAK_TF32, the
+    gate math at PEAK_F32, and ``bound_ffma_ms`` is the same work as float32
+    FFMA."""
     b, valid = len(lengths), float(sum(lengths))
     stream = b * t * h * elem  # one [B, T, H] tensor
     weights = h * 4 * h * F32
     mask = b * t * F32
+    product = dirs * valid * 2 * h * 4 * h  # one recurrent product
     if not backward:  # per direction: xproj, wh in; ys (and cs) out
         moved = dirs * (4 * stream + weights + (2 if with_cs else 1) * stream) + mask
-        return bound(moved, dirs * valid * (2 * h * 4 * h + 30 * h))
-    # per direction: xproj, wh, ys, cs, gys in; dxproj out
-    moved = dirs * (4 * stream + weights + 3 * stream + 4 * stream) + mask
-    product = dirs * valid * 2 * h * 4 * h  # one of the two products
-    math = dirs * valid * 60 * h
-    passes = (2 if elem < F32 else 3) + 3
+        math = dirs * valid * 30 * h
+        if not lstm.fwd_plan_for(torch.device("cuda", 0), h, dirs, b).cluster:
+            return dict(bound(moved, product + math),
+                        bound_ffma_ms=bound(moved, product + math)["bound_ms"])
+        passes = 3
+    else:  # per direction: xproj, wh, ys, cs, gys in; dxproj out
+        moved = dirs * (4 * stream + weights + 3 * stream + 4 * stream) + mask
+        math = dirs * valid * 60 * h
+        passes = (2 if elem < F32 else 3) + 3
     t_bytes = moved / PEAK_BYTES * 1e3
     t_ops = max(passes * product / PEAK_TF32, math / PEAK_F32) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-            else "operations", "bound_ffma_ms": bound(moved, 2 * product + math)["bound_ms"]}
+            else "operations",
+            "bound_ffma_ms": bound(moved, (2 if backward else 1) * product + math)["bound_ms"]}
 
 
 def walk_extras(name: str, kernel, plan, dev) -> dict:
@@ -874,11 +885,12 @@ def walk_extras(name: str, kernel, plan, dev) -> dict:
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise RuntimeError(f"{name}: two calls on the same inputs differ")
     sm_count = lstm._sm_count(dev.index or 0)
-    rows = f", {plan.rows} rows per staged chunk" if hasattr(plan, "rows") else ""
-    cluster = (f", clusters of {plan.cluster}, Wh {'split' if plan.split else 'whole'}"
-               if hasattr(plan, "cluster") else "")
+    if isinstance(plan, lstm.FwdPlan) and not plan.cluster:
+        path = f", FFMA on {plan.rows} rows a chunk"
+    else:
+        path = f", clusters of {plan.cluster}, Wh {'split' if plan.split else 'whole'}"
     print(f"{name}: two calls bitwise equal; launch plan {plan.units} units per block, "
-          f"{plan.blocks} blocks on {sm_count} SMs{rows}{cluster}, {plan.smem_bytes} B shared "
+          f"{plan.blocks} blocks on {sm_count} SMs{path}, {plan.smem_bytes} B shared "
           f"memory per block, Wh slice {'resident' if plan.resident else 'streamed from L2'} "
           f"({plan.resident_bytes} B), {plan.chunks} launch(es) per call", flush=True)
     return {"deterministic": True, "plan": plan._asdict()}
@@ -4104,13 +4116,18 @@ def check_bf16_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> di
         # the float32 kernels at the same shape, in turns with the bf16 ones
         want32 = fwd_k(*xp32, *whs, mask, fb, with_cs=True)
         bwd32 = (*xp32, *whs, mask, *want32, *(g.float() for g in gys), fb)
-        f32 = cuda_ms(lambda: fwd_k(*xp32, *whs, mask, fb, with_cs=True), 10)
+        fwd32 = lambda: fwd_k(*xp32, *whs, mask, fb, with_cs=True)  # noqa: E731
+        f32 = cuda_ms(fwd32, 10)
         b32 = cuda_ms(lambda: bwd_k(*bwd32), 10)
         launches_f = device_launches(fwd_call, reps=3)
         launches_b = device_launches(bwd_call, reps=3)
+        # the forward's own step trace, both stream types (a traced call, timed apart)
+        traces = {"step_trace_us": lstm.fwd_step_phases(lstm.fwd_trace(fname, fwd_call)),
+                  "float32_step_trace_us": lstm.fwd_step_phases(lstm.fwd_trace(fname, fwd32))}
     lib_f, lib_b, lib_err = cudnn_bf16_ms(dev, xs, lens, seed, dirs == 2)
     if lib_err:
         print(f"cuDNN nn.LSTM does not take bf16 here: {lib_err}", flush=True)
+    lib32_f = cuda_ms(cudnn_lstm(dev, xs, lens, seed, dirs == 2)[0], 5)
     for name, err, runs, plain, f32_ms, lib, launches, bwd in (
             (f"{fname}_bf16", fwd_err, tf, plain_f, f32, lib_f, launches_f, False),
             (f"{bname}_bf16", bwd_err, tb, plain_b, b32, lib_b, launches_b, True)):
@@ -4120,6 +4137,8 @@ def check_bf16_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> di
                  device_launches={k: v["per_call"] for k, v in launches.items()},
                  **lstm_work(lengths, H, with_cs=True, backward=bwd, t=T_ENC, dirs=dirs,
                              elem=BF16_STREAM))
+        if not bwd:
+            r.update(traces, library_float32_ms=lib32_f)
         out[name] = r
         print(f"phase {name} {shape}{' with cs' if not bwd else ''}: kernel {r['ms']:.3f} ms "
               f"(runs {runs[0]:.3f}, {runs[1]:.3f}; {r['us_per_step']:.2f} us per step), "
@@ -4127,7 +4146,66 @@ def check_bf16_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> di
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuDNN nn.LSTM bf16 "
               f"{'backward' if bwd else 'forward'} "
               + (f"{lib:.3f} ms" if lib is not None else "not taken")
+              + ("" if bwd else f", cuDNN nn.LSTM float32 forward {lib32_f:.3f} ms; a traced "
+                 "call's step phases (us, block 0), bf16 "
+                 + ", ".join(f"{k} {x:.2f}" for k, x in traces["step_trace_us"].items())
+                 + ", float32 "
+                 + ", ".join(f"{k} {x:.2f}" for k, x in traces["float32_step_trace_us"].items()))
               + f", device launches per call {r['device_launches']}  [{gpu}]", flush=True)
+    return out
+
+
+def check_forward_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -> dict:
+    """Phase 44 at a further shape: #1 or #3 with ``cs`` in float32 and bf16
+    streams against their plain versions (KERNEL_ATOL; two bf16 ulps), two
+    calls equal bit for bit, one launch per call with the clusters the plan
+    takes at B, the kernel's time and its own step trace."""
+    if dirs == 2:
+        args32, _, _ = lstm_inputs(dev, b, lengths, seed=seed, t=T_ENC, h=H)
+        streams, kernel, plain = 2, lstm.lstm_bidi_fwd, lstm.lstm_bidi_fwd_plain
+        counted = lstm.lstm_bidi
+    else:
+        args32, _, _ = layer_inputs(dev, b, lengths, seed=seed, t=T_ENC)
+        streams, kernel, plain = 1, lstm.lstm_layer_fwd, lstm.lstm_layer_fwd_plain
+        counted = lstm.lstm_layer
+    xp32, whs, mask, fb = args32[:streams], args32[streams:2 * streams], args32[-2], args32[-1]
+    plan = lstm.fwd_plan_for(dev, H, dirs, b)
+    path = (f"tensor cores, clusters of {plan.cluster}, Wh {'split' if plan.split else 'whole'}"
+            if plan.cluster else f"FFMA, {plan.rows} rows a chunk")
+    shape = f"B={b} T={T_ENC} H={H} with cs, lengths {min(lengths)}..{max(lengths)}"
+    out = {}
+    with torch.no_grad():
+        for bf16 in (False, True):
+            xp = [x.bfloat16() for x in xp32] if bf16 else xp32
+            call = lambda: kernel(*xp, *whs, mask, fb, with_cs=True)  # noqa: E731
+            name = kernel.__name__ + ("_bf16" if bf16 else "")
+            count = "launches_bf16" if bf16 else "launches"
+            before = getattr(counted, count)
+            got, again = call(), call()
+            torch.cuda.synchronize()
+            if getattr(counted, count) != before + 2:
+                raise RuntimeError(f"{name}: {getattr(counted, count) - before} launches in 2 "
+                                   "calls")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"{name} {shape}: two calls on the same inputs differ")
+            want = plain(*xp, *whs, mask, fb)
+            err = (check_bf16(f"{name} {shape}", got, want) if bf16
+                   else check(f"{name} {shape}", got, want, KERNEL_ATOL))
+            runs = [cuda_ms(call, 10) for _ in range(2)]
+            trace = lstm.fwd_step_phases(lstm.fwd_trace(kernel.__name__, call))
+            r = dict(ms=sum(runs) / 2, ms_runs=runs, max_abs_err=err,
+                     us_per_step=sum(runs) / 2 * 1e3 / T_ENC, deterministic=True,
+                     path=path, step_trace_us=trace,
+                     **lstm_work(lengths, H, with_cs=True, backward=False, t=T_ENC, dirs=dirs,
+                                 elem=BF16_STREAM if bf16 else F32))
+            out[name] = r
+            print(f"phase {name} {shape} ({path}): kernel {r['ms']:.3f} ms (runs "
+                  f"{runs[0]:.3f}, {runs[1]:.3f}; {r['us_per_step']:.2f} us per step), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}; FFMA "
+                  f"{r['bound_ffma_ms']:.4f}), max abs err {err:.3e}, two "
+                  "calls bitwise equal, one launch per call; a traced call's step phases (us, "
+                  "block 0): " + ", ".join(f"{k} {x:.2f}" for k, x in trace.items())
+                  + f"  [{gpu}]", flush=True)
     return out
 
 
@@ -4189,10 +4267,11 @@ def check_backward_walks(dev, gpu: str, b: int, lengths, dirs: int, seed: int) -
 
 
 def check_bf16_kernels(dev, gpu: str) -> dict:
-    """Phase 44: #1-#4 in bf16 at the headline's shape (B=128, every row 12 s)
-    and at B=32 with ragged lengths (1 and T among them); then #2 and #4 in
-    both stream types at B=128 with ragged lengths and at B=100, not a
-    multiple of the 16-row tiles."""
+    """Phase 44: #1-#4 in bf16 at the headline's shape (B=128, every row 12 s;
+    the forward beside cuDNN's bf16 and float32 forward) and at B=32 with
+    ragged lengths (1 and T among them); then #1-#4 in both stream types at
+    B=128 with ragged lengths and at B=100, not a multiple of the 16-row
+    tiles, and #1 and #3 at the serving batch B=8 (the FFMA product)."""
     rng = np.random.RandomState(44)
     ragged = [T_ENC, 1] + [int(x) for x in rng.randint(T_ENC // 2, T_ENC + 1, B_TRAIN - 2)]
     out = {}
@@ -4200,11 +4279,15 @@ def check_bf16_kernels(dev, gpu: str) -> dict:
         for b, lengths in ((B_HEAD, [T_ENC] * B_HEAD), (B_TRAIN, ragged)):
             for name, r in check_bf16_walks(dev, gpu, b, lengths, dirs, seed).items():
                 out.setdefault(name, {})[f"b{b}"] = r
-    for b in (B_HEAD, 100):
+    for b in (B_HEAD, 100, B):
         lengths = [T_ENC, 1] + [int(x) for x in rng.randint(1, T_ENC + 1, b - 2)]
         for dirs, seed in ((2, 46), (1, 47)):
-            # under the bf16 entry of the kernel, the float32 walk's beside it
-            for name, r in check_backward_walks(dev, gpu, b, lengths, dirs, seed).items():
+            # under the bf16 entry of the kernel, the float32 walk's beside it;
+            # the backward's at B = 128 and 100, the forward's at B = 8 too
+            walks = check_forward_walks(dev, gpu, b, lengths, dirs, seed + 10)
+            if b != B:
+                walks.update(check_backward_walks(dev, gpu, b, lengths, dirs, seed))
+            for name, r in walks.items():
                 bf16 = name.endswith("_bf16")
                 out[name if bf16 else f"{name}_bf16"][
                     f"{'' if bf16 else 'float32_'}b{b}_ragged"] = r

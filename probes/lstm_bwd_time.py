@@ -133,12 +133,12 @@ def forced_plans(lstm, dev, h: int, dirs: int, batch: int, bf16: bool) -> list:
     return out
 
 
-def walk_report(lib_path) -> dict:
-    """Per bwd_walk instantiation: ptxas registers and spill bytes, and its
-    HMMA (tensor-core) instructions in the library's SASS."""
+def walk_report(lib_path, walk: str = "bwd_walk") -> dict:
+    """Per instantiation of the kernel ``walk``: ptxas registers and spill
+    bytes, and its HMMA (tensor-core) instructions in the library's SASS."""
     log = lib_path.with_suffix(".log").read_text()
     out = {}
-    for m in re.finditer(r"Compiling entry function '([^']*bwd_walk[^']*)'", log):
+    for m in re.finditer(rf"Compiling entry function '([^']*{walk}[^']*)'", log):
         tail = log[m.end():m.end() + 600]
         regs = re.search(r"Used (\d+) registers", tail)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", tail)

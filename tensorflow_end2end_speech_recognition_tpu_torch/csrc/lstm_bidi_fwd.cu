@@ -16,7 +16,9 @@
 // write, and meeting them at a grid barrier once per step. The two
 // directions never read each other's h, so each has its own barrier counter.
 // At H = 512 the plan (ops/lstm.py fwd_plan) takes u = 8: 128 blocks on 132
-// SMs, each with 72 KB of Wh resident, one block per SM.
+// SMs, one block per SM, each with its Wh columns resident for the tensor
+// cores' product of every row of a step in one pass (132 KB as TF32 hi and
+// lo parts).
 
 #include "lstm_step.cuh"
 
@@ -58,6 +60,12 @@ int lstm_bidi_fwd_bf16(const __nv_bfloat16* xf, const __nv_bfloat16* xb, const f
                                  hbuf, B, T, H, units, forget_bias};
   return run_fwd_walk<2>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
+
+// The step trace of this source's forward walks (lstm_step.cuh fwd_walk):
+// on != 0 turns it on for the following launches, 0 off; with out non-null,
+// copies the last traced launch's values (kTraceFloats long longs) to host
+// memory at out. Returns the CUDA error.
+int lstm_bidi_fwd_trace(int on, long long* out) { return walk_trace_ctl(on, out); }
 
 const char* asr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -75,6 +75,6 @@ int lstm_layer_bwd_max_clusters(int blocks, int cluster, int resident, int split
 // for the following launches, 0 off; with out non-null, copies the last
 // traced launch's values (kTraceFloats long longs) to host memory at out.
 // Returns the CUDA error.
-int lstm_layer_bwd_trace(int on, long long* out) { return bwd_trace_ctl(on, out); }
+int lstm_layer_bwd_trace(int on, long long* out) { return walk_trace_ctl(on, out); }
 
 }  // extern "C"

@@ -19,11 +19,15 @@
 // shared memory for all T steps, one grid barrier per step. One direction
 // has half the blocks of the bidirectional call at the same tile, so the
 // plan (ops/lstm.py fwd_plan) halves the tile: u = 4 at H = 512 gives 128
-// blocks on 132 SMs, each with 512 x (16 + 4) floats = 40 KB of Wh
-// resident. Bound at B = 32, T = 400, H = 512: 2 B H 4H T float32
-// operations, 0.40 ms at 67 TFLOP/s. At a streaming chunk (B = 8, T = 5-10)
-// the work is 1-2 us at either rate; the launch and the T step barriers set
-// the time (PERF.md).
+// blocks on 132 SMs, each with its Wh columns resident as TF32 hi and lo
+// parts (66 KB); from 64 rows the blocks pair in clusters of 2 that split
+// the product's k (each holds the pair's columns over half of k, 68 KB as hi
+// and lo parts). Bound at B = 128, T = 400, H = 512:
+// 2 B H 4H T float operations, 1.6 ms as float32 FFMA at 67 TFLOP/s, 0.65 ms
+// as three TF32 passes at 495 TFLOP/s; every block reads all of h_{t-1}
+// from L2 each step. At a streaming chunk (B = 8, T = 5-10) the work is 1-2
+// us at either rate; the launch and the T step barriers set the time
+// (PERF.md).
 
 #include "lstm_step.cuh"
 
@@ -96,5 +100,11 @@ int lstm_layer_fwd_carry_bf16(const float* x, const float* wh, const float* mask
   a.cT[0] = cT;
   return run_fwd_walk<1, true, float, true>(a, hbuf_floats, resident, rows, smem_bytes, stream);
 }
+
+// The step trace of this source's forward walks (lstm_step.cuh fwd_walk):
+// on != 0 turns it on for the following launches, 0 off; with out non-null,
+// copies the last traced launch's values (kTraceFloats long longs) to host
+// memory at out. Returns the CUDA error.
+int lstm_layer_fwd_trace(int on, long long* out) { return walk_trace_ctl(on, out); }
 
 }  // extern "C"

@@ -17,9 +17,10 @@
 // stored: ys = h * m and cs in the forward, dxproj in the backward. The
 // forward's h_{t-1} comes from the float32 exchange, never from the bf16
 // ys, and the backward's dh = dgates @ Wh^T from the float32 dgates, as
-// the reference carries both in float32. The forward's recurrent products
-// stay float32 FFMA and the backward's are float32-accurate 3xTF32 (below):
-// Wh and h are float32 in the reference.
+// the reference carries both in float32. The recurrent products are
+// float32-accurate 3xTF32 on the tensor cores (below), or float32 FFMA on
+// the forward's path for a launch of up to 8 rows: Wh and h are float32 in
+// the reference.
 //
 // The bf16-product walk (kBf16Product, lstm_layer_fwd_carry_bf16). A
 // streaming chunk at compute_dtype bfloat16 leaves the Pallas kernel for the
@@ -27,11 +28,12 @@
 // xproj[t] + bf16(h_{t-1}) @ bf16(Wh) with float32 accumulation, float32
 // streams and float32 carries. The carried walk takes that step with one
 // more template flag: Wh is rounded to bf16 as it is staged (load_wc<true>,
-// or as it is read when not resident) and h_{t-1} (h0 at step 0) as it is
-// staged from the exchange buffer; the products of two bf16 values are exact
-// in float32, and every sum stays float32, so the walk differs from XLA's dot
-// only in the order of its float32 sums. Everything else is the float32
-// carried walk.
+// stage_wc<.., true>, or as it is read when not resident) and h_{t-1} (h0 at
+// step 0) as it is read from the exchange buffer; the products of two bf16
+// values are exact in float32 (a bf16 value is a TF32 one: one tensor-core
+// pass), and every sum stays float32, so the walk differs from XLA's dot only
+// in the order of its float32 sums. Everything else is the float32 carried
+// walk.
 //
 // Gates i, f, g, o of xproj[t] + h_{t-1} @ Wh, with forget_bias added to f.
 // A masked (pad) step carries h and c through and emits 0. The forward is
@@ -43,11 +45,11 @@
 // VMEM for all T steps. One direction's Wh does not fit one SM (227 KB),
 // but a slice of it fits each SM: a block owns u hidden units of one
 // direction for every batch row, and at its start copies into shared memory
-// the Wh columns of its units' four gates, Wc [H, 4u] (rows padded to 4u + 4
-// floats). At H = 512 that is 72 KB for u = 8 (the bidirectional calls:
-// 64 x 2 = 128 blocks) and 40 KB for u = 4 (one direction: 128 blocks).
-// Where Wc does not fit shared memory (H = 1536) the same kernels read it
-// through L2 (kResident false). The launch is cooperative, so all blocks
+// the Wh columns of its units' four gates, Wc [H, 4u]: at H = 512, 64 KB for
+// u = 8 (the bidirectional calls: 64 x 2 = 128 blocks) and 32 KB for u = 4
+// (one direction: 128 blocks), twice that as TF32 hi and lo parts. Where Wc
+// does not fit shared memory (H = 1536) the same kernels read it through L2
+// (kResident false). The launch is cooperative, so all blocks
 // are resident at once (one per SM) or the launch is refused; the blocks of
 // a direction meet at a split arrive / wait barrier (a global counter per
 // direction: atomic add after a fence on arrival, an acquire-load spin on
@@ -60,10 +62,22 @@
 //  - each thread loads xproj[t] and mask[t] of its pairs, which depend on
 //    no other block, and only then waits at its direction's barrier for
 //    step t-1: the h exchange alone is on the step's critical path;
-//  - per chunk of kRows batch rows (8 for a batch of up to 8, the serving
-//    batch, so that no row tile idles: the threads it frees split k
-//    further; else 32), h_{t-1} of the chunk, staged through shared memory
-//    from the exchange buffer, times Wc (gate_product below);
+//  - the gate product h_{t-1} @ Wc (ops/lstm.py fwd_plan picks the path by
+//    the launch's rows): past 8 rows, every row in one pass on the tensor
+//    cores, 3xTF32 (one pass for the bf16-product walk; gates_mma, as the
+//    backward's gate product): each warp stages its 16 rows of h_{t-1}
+//    through a ring in shared memory with cp.async (whole 128-byte lines),
+//    its B the resident Wc^T (as TF32 hi and lo where both fit); from the
+//    plan's cluster rows on, blocks pair in clusters of 2 that split the
+//    product's k: each forms both blocks' columns over its half and sends its
+//    partner the partner's sums through distributed shared memory, so that a
+//    block reads half of h_{t-1} and splits each A fragment for twice the
+//    products. Up to 8 rows (the serving batch, the streaming chunks), FFMA
+//    on a chunk of the rows staged through shared memory (gate_product): the
+//    tensor cores are 5-16 % faster there, but a streamed chunk's xproj comes
+//    from cuBLAS a few ulps off the whole utterance's, and with other rounding
+//    in the recurrence the streamed fused beam pruned a hypothesis the offline
+//    beam kept (PERF.md), so these shapes keep the FFMA path's numerics;
 //  - epilogue, one thread per (row, unit): gate math and the mask carry,
 //    h and c kept in registers; ys[t] = h * m, cs[t] = c when asked, and
 //    the carried h_t into the exchange buffer hbuf [2 (step parity), dirs,
@@ -80,10 +94,14 @@
 // unmasks (a paused stream) gets back h0 and c0 bit for bit.
 //
 // What bounds the forward on this card. Each step needs 2 B H 4H float
-// operations per direction: 1.05 MFLOP per block at B = 32, H = 512, u = 8,
-// about 2 us at 67 TFLOP/s over 132 SMs, and 64 KB of h_{t-1} read through
-// L2 per block. The step is a chain (barrier, L2 read, product, epilogue,
-// fence), so its latency, not either rate, sets the pace (PERF.md).
+// operations per direction, three TF32 passes on the tensor cores: at
+// B = 128, H = 512, u = 8 about 6,100 mma.sync per block (about 5 us at 1.5
+// cycles each), and every block reads all of h_{t-1}, 256 KB, from L2 (half
+// of it in a cluster of 2). The step is a chain (barrier, L2 read, product,
+// epilogue, fence): its latency sets the pace at a small batch, the
+// product's k steps (each a few hundred cycles a warp: splits, fragment
+// loads, three dependent passes) at B = 128 (PERF.md; probes/lstm_fwd_time.py
+// reads each phase from the kernel's own trace).
 //
 // Backward design (bwd_walk, run_bwd_walk). A block owns u units of one
 // direction for every batch row, as in the forward; the blocks of a direction
@@ -118,15 +136,17 @@
 // [H / C, 4Cu] for (p), each about H 4u floats; where neither fits (H = 1536)
 // both are read through L2 (kResident false).
 //
-// Products. Both run on the tensor cores, mma.sync m16n8k8 in TF32, each
+// Products. The backward's two and the forward's gate product (its
+// tensor-core path) run on the tensor cores, mma.sync m16n8k8 in TF32, each
 // warp a 16-row tile of the batch against up to 64 columns over a k range,
 // split 3xTF32 for float32 accuracy: x = hi + lo with hi TF32 (rounded to
 // nearest) and lo the rest, and a b = a_hi b_hi + a_hi b_lo + a_lo b_hi, each
 // 16-wide k step's products summed on the tensor cores and added to the
 // float32 accumulator, the dropped terms within a few 2^-22 of a b. The reference forms
-// both products in float32 (lstm_kernel.py: float32 operands and
+// the products in float32 (lstm_kernel.py: float32 operands and
 // preferred_element_type), which one TF32 pass would not match. A bf16 ys row
-// is TF32-exact, so (b) takes two passes under bf16 streams. Wh is split into
+// is TF32-exact, so (b) takes two passes under bf16 streams; the forward's h
+// is float32 under either stream type (three passes). Wh is split into
 // hi and lo as it is staged where both copies fit shared memory (kSplit),
 // else as it is read. Inside each 16-wide k step a lane holds four adjacent
 // k of its two rows (one 16-byte load), and both operands index k the same
@@ -156,6 +176,7 @@
 
 #include <stdint.h>
 
+
 // Internal linkage: each source that includes this header gets its own copy
 // of the kernels it instantiates, registered with its own module.
 namespace {
@@ -177,15 +198,25 @@ __device__ __forceinline__ void st_stream(float* p, float v) { *p = v; }
 
 // A stream value loaded before a barrier and used after it: a volatile load,
 // which the compiler issues where it stands instead of moving it to its use.
-__device__ __forceinline__ float ld_early(const float* p) {
+// ld_early_raw keeps a bf16 value's bits as loaded, so that the load stays in
+// flight until widen() first uses it.
+__device__ __forceinline__ float ld_early_raw(const float* p) {
   float v;
   asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
   return v;
 }
-__device__ __forceinline__ float ld_early(const __nv_bfloat16* p) {
+__device__ __forceinline__ unsigned short ld_early_raw(const __nv_bfloat16* p) {
   unsigned short v;
   asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(unsigned short v) {
   return __uint_as_float((unsigned int)v << 16);
+}
+template <typename S>
+__device__ __forceinline__ float ld_early(const S* p) {
+  return widen(ld_early_raw(p));
 }
 __device__ __forceinline__ void st_stream(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -198,12 +229,12 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-constexpr int kBwdRows = 32;            // batch rows of the gate product's largest chunk
-constexpr int kBwdKC = 256;             // k per staged chunk of the gate product
+constexpr int kBwdRows = 32;            // batch rows of the FFMA gate product's largest chunk
+constexpr int kBwdKC = 256;             // k per staged chunk of the FFMA gate product
 constexpr int kBwdStride = kBwdKC + 4;  // floats per staged row: rows 4 banks apart
-constexpr int kBwdMaxCols = 128;        // columns of one gate-product pass: 8 x 32 tiles
+constexpr int kBwdMaxCols = 128;        // columns of one FFMA gate-product pass: 8 x 32 tiles
 constexpr int kBwdMaxPairs = 8;         // (row, unit) carries a thread keeps in registers
-constexpr int kBwdRed = kThreads * 16;  // partial sums: one 4 x 4 tile per thread
+constexpr int kBwdRed = kThreads * 16;  // FFMA partial sums: one 4 x 4 tile per thread
 
 // The checks both launchers make: u a power of two up to kBwdMaxCols (every
 // product's tiles divide kThreads), and B x u within the register carries.
@@ -256,16 +287,21 @@ __device__ __forceinline__ void step_wait(const unsigned int* counter, unsigned 
 // Loads of the gate product's source rows. kCoherent: rows written by other
 // blocks inside this launch (the forward's h exchange), read through L2
 // (ld.global.cg); otherwise rows written by an earlier launch, read through
-// the non-coherent path.
+// the non-coherent path (ld_stream: a bf16 row value widened). The exchange
+// is float32.
 template <bool kCoherent>
 __device__ __forceinline__ float4 src_load4(const float* p) {
   return kCoherent ? __ldcg(reinterpret_cast<const float4*>(p))
                    : __ldg(reinterpret_cast<const float4*>(p));
 }
 
-template <bool kCoherent>
-__device__ __forceinline__ float src_load(const float* p) {
-  return kCoherent ? __ldcg(p) : __ldg(p);
+template <bool kCoherent, typename S>
+__device__ __forceinline__ float src_load(const S* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);  // S float
+  } else {
+    return ld_stream(p);
+  }
 }
 
 // The gate product for a chunk's rows:
@@ -431,266 +467,21 @@ __device__ void gate_product(const Src* src, size_t src_row, const float* wsm,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one persistent cooperative launch per call (design at the top).
-
-template <typename S>
-struct FwdArgs {
-  const S* x[2];       // [B, T, 4H] per direction
-  const float* wh[2];  // [H, 4H]
-  S* ys[2];            // [B, T, H]
-  S* cs[2];            // [B, T, H], or null: no cell-state stream
-  const float* mask;   // [B, T]
-  unsigned int* sync;  // [dirs] arrival counters, zeroed by the caller
-  float* hbuf;         // h exchange [2 (step parity), dirs, B, H]: written and read inside
-                       //   the launch
-  int B, T, H, units;
-  float forget_bias;
-  // the carried state of a streaming chunk (lstm_layer_fwd_carry); the other
-  // entry points leave them null: h and c start at 0 and the final state is
-  // not written
-  const float* h0[2];  // [B, H] h before step 0, or null: zeros
-  const float* c0[2];  // [B, H] c before step 0, or null: zeros
-  float* hT[2];        // [B, H] the carried h after step T-1, or null: not written
-  float* cT[2];        // [B, H] the carried c after step T-1, or null: not written
-};
-
-// Dynamic shared memory of one forward block, offsets and size in floats,
-// for kRows = rows; hp, nb and ldw as in bwd_layout.
-struct FwdLayout {
-  int hp, nb, ldw;
-  int wc, stage, red, gpre, total;
-};
-
-__host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, bool resident) {
-  FwdLayout l;
-  l.hp = (H + 3) / 4 * 4;
-  l.nb = 4 * u;
-  l.ldw = l.nb + 4;
-  l.wc = 0;                                        // [hp, ldw]: Wh columns of the units
-  l.stage = l.wc + (resident ? l.hp * l.ldw : 0);  // 2 x [rows, kBwdStride]
-  l.red = l.stage + 2 * rows * kBwdStride;         // [kBwdRed]
-  l.gpre = l.red + kBwdRed;                        // [rows, nb]: h_{t-1} @ Wc
-  l.total = l.gpre + rows * l.nb;
-  return l;
-}
-
-// kCarry: the walk resumes from a.h0 / a.c0 and writes a.hT / a.cT (any of
-// them may be null); the walks that start from zeros are compiled without it.
-// kBf16Product: the gate product takes bf16 operands, h_{t-1} (h0 at step 0)
-// and Wh each rounded to bf16 as they are staged, with float32 products and
-// sums (lstm_layer_fwd_carry_bf16: the bf16 branch of the reference's
-// _lstm_step, which a streaming chunk at compute_dtype bfloat16 runs);
-// streams, carries and gate math stay float32.
-template <bool kResident, int kRows, bool kCarry, typename S, bool kBf16Product = false>
-__global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
-  extern __shared__ float4 fwd_smem4[];
-  float* smem = reinterpret_cast<float*>(fwd_smem4);
-  const int dir = blockIdx.y;
-  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H;
-  const int j0 = blockIdx.x * u;
-  const int tid = threadIdx.x;
-  const FwdLayout L = fwd_layout(H, u, kRows, kResident);
-  const float* wsm = smem + L.wc;
-  float* stage = smem + L.stage;
-  float* red = smem + L.red;
-  float* gpre = smem + L.gpre;
-
-  const S* __restrict__ x = dir ? a.x[1] : a.x[0];
-  const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
-  const float* __restrict__ mask = a.mask;
-  S* ys = dir ? a.ys[1] : a.ys[0];
-  S* cs = dir ? a.cs[1] : a.cs[0];
-  unsigned int* counter = a.sync + dir;
-  const int blocks = gridDim.x;
-  const size_t state = (size_t)gridDim.y * B * H;  // one step parity of hbuf
-  float* hdir = a.hbuf + (size_t)dir * B * H;
-
-  if (kResident) load_wc<kBf16Product>(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
-
-  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u; their carries
-  // start from h0 / c0 (zeros when null), loaded for every row: a row that no
-  // step unmasks hands them back unchanged, bit for bit
-  const float* __restrict__ h0 = kCarry ? (dir ? a.h0[1] : a.h0[0]) : nullptr;
-  float h[kBwdMaxPairs], c[kBwdMaxPairs];
-#pragma unroll
-  for (int i = 0; i < kBwdMaxPairs; ++i) h[i] = c[i] = 0.0f;
-  if constexpr (kCarry) {
-    const float* __restrict__ c0 = dir ? a.c0[1] : a.c0[0];
-#pragma unroll
-    for (int i = 0; i < kBwdMaxPairs; ++i) {
-      const int p = tid + i * kThreads;
-      const int b = p / u;
-      const int j = j0 + p - b * u;
-      if (b < B && j < H) {
-        if (h0 != nullptr) h[i] = __ldg(h0 + (size_t)b * H + j);
-        if (c0 != nullptr) c[i] = __ldg(c0 + (size_t)b * H + j);
-      }
-    }
-  }
-
-  for (int t = 0; t < T; ++t) {
-    // xproj[t] and mask[t] of the thread's pairs: no other block writes them
-    float xv[kBwdMaxPairs][4], mv[kBwdMaxPairs];
-#pragma unroll
-    for (int i = 0; i < kBwdMaxPairs; ++i) {
-      const int p = tid + i * kThreads;
-      const int b = p / u;
-      const int j = j0 + p - b * u;
-      xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = mv[i] = 0.0f;
-      if (b < B && j < H) {
-        const size_t bt = (size_t)b * T + t;
-        const S* xt = x + bt * G + j;
-        xv[i][0] = ld_stream(xt), xv[i][1] = ld_stream(xt + H);
-        xv[i][2] = ld_stream(xt + 2 * H), xv[i][3] = ld_stream(xt + 3 * H);
-        mv[i] = __ldg(mask + bt);
-      }
-    }
-    const float* hprev = hdir + (size_t)(t & 1) * state;  // h_{t-1}, written in step t-1
-    float* hnext = hdir + (size_t)((t + 1) & 1) * state;
-    // every block of the direction has written h_{t-1}; h_{-1} is h0, an
-    // input that every block reads in place (no exchange, no barrier), or 0
-    if (t > 0) step_wait(counter, blocks * (unsigned int)t);
-    const float* hsrc = t > 0 ? hprev : h0;
-    const bool product = kCarry ? hsrc != nullptr : t > 0;
-    for (int b0 = 0; b0 < B; b0 += kRows) {
-      const int rows = min(kRows, B - b0);
-      if (product) {
-        for (int k0 = 0; k0 < L.nb; k0 += kBwdMaxCols)
-          gate_product<kResident, kRows, true, float, kBf16Product>(
-              hsrc, (size_t)H, wsm, wh, k0, min(kBwdMaxCols, L.nb - k0), L.ldw, j0, u, b0, rows,
-              H, L.hp, stage, red, gpre, L.nb);
-      } else {
-        for (int i = tid; i < kRows * L.nb; i += kThreads) gpre[i] = 0.0f;
-        __syncthreads();
-      }
-      // epilogue, one thread per (row, unit) of the chunk
-#pragma unroll
-      for (int i = 0; i < kBwdMaxPairs; ++i) {
-        const int p = tid + i * kThreads;
-        const int b = p / u;
-        const int uu = p - b * u;
-        const int j = j0 + uu;
-        if (b < b0 || b >= b0 + rows || j >= H) continue;
-        const float* gp = gpre + (b - b0) * L.nb + uu;
-        const float ig = sigmoid(xv[i][0] + gp[0]);
-        const float fg = sigmoid(xv[i][1] + gp[u] + a.forget_bias);
-        const float gg = tanhf(xv[i][2] + gp[2 * u]);
-        const float og = sigmoid(xv[i][3] + gp[3 * u]);
-        const float c_new = fg * c[i] + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        const float m = mv[i];
-        if (m > 0.0f) {
-          h[i] = h_new;
-          c[i] = c_new;
-        }
-        const size_t bt = (size_t)b * T + t;
-        st_stream(ys + bt * H + j, h[i] * m);
-        if (cs != nullptr) st_stream(cs + bt * H + j, c[i]);
-        hnext[(size_t)b * H + j] = h[i];
-      }
-      __syncthreads();  // gpre is consumed
-    }
-    step_arrive(counter);
-  }
-
-  if constexpr (kCarry) {
-    // the carried state after the last step (a masked step carried it through)
-    float* hT = dir ? a.hT[1] : a.hT[0];
-    float* cT = dir ? a.cT[1] : a.cT[0];
-#pragma unroll
-    for (int i = 0; i < kBwdMaxPairs; ++i) {
-      const int p = tid + i * kThreads;
-      const int b = p / u;
-      const int j = j0 + p - b * u;
-      if (b >= B || j >= H) continue;
-      if (hT != nullptr) hT[(size_t)b * H + j] = h[i];
-      if (cT != nullptr) cT[(size_t)b * H + j] = c[i];
-    }
-  }
-}
-
-// Launch the forward walk of kDirs directions (1 or 2) as one cooperative
-// kernel on `stream`: grid (ceil(H / a.units), kDirs), kThreads threads,
-// `rows` batch rows per chunk (8 or 32) and smem_bytes of dynamic shared
-// memory per block, the Wh slice resident in shared memory when `resident`
-// is set. a.sync holds kDirs zeroed counters, a.hbuf hbuf_floats floats.
-// kCarry: the walk that resumes from a.h0 / a.c0 and writes a.hT / a.cT
-// (lstm_layer_fwd_carry); the others read none of them. S: the stream type.
-// kBf16Product: bf16 operands of the gate product (lstm_layer_fwd_carry_bf16).
-// ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
-// the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
-// all be resident at once (the kernel then never runs), cudaErrorInvalidValue
-// for a plan this kernel does not take, and for an exchange buffer of
-// another size than the kernel indexes. Does not synchronise.
-template <int kDirs, bool kCarry = false, typename S = float, bool kBf16Product = false>
-int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, int smem_bytes,
-                 void* stream) {
-  static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
-  if (!walk_takes(a.B, a.T, a.H, a.units)) return (int)cudaErrorInvalidValue;
-  if (rows != 8 && rows != 32) return (int)cudaErrorInvalidValue;
-  const FwdLayout l = fwd_layout(a.H, a.units, rows, resident != 0);
-  if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  // the exchange fwd_walk indexes: [2, kDirs, B, H]
-  if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
-    return (int)cudaErrorInvalidValue;
-  const void* kernel =
-      rows == 8
-          ? (resident ? reinterpret_cast<const void*>(fwd_walk<true, 8, kCarry, S, kBf16Product>)
-                      : reinterpret_cast<const void*>(fwd_walk<false, 8, kCarry, S, kBf16Product>))
-          : (resident
-                 ? reinterpret_cast<const void*>(fwd_walk<true, 32, kCarry, S, kBf16Product>)
-                 : reinterpret_cast<const void*>(fwd_walk<false, 32, kCarry, S, kBf16Product>));
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned int)((a.H + a.units - 1) / a.units), kDirs);
-  void* params[] = {const_cast<FwdArgs<S>*>(&a)};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, grid, dim3(kThreads), params,
-                                                    (size_t)smem_bytes,
-                                                    static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    (void)cudaGetLastError();  // a refused launch leaves no error for the next one
-    return (int)e;
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// Backward: one persistent cooperative launch per call (design at the top).
-
-namespace cg = cooperative_groups;
-
-template <typename S>
-struct BwdArgs {
-  const S* x[2];        // [B, T, 4H] per direction
-  const float* wh[2];   // [H, 4H]
-  const S* ys[2];       // [B, T, H]
-  const S* cs[2];       // [B, T, H]
-  const S* gys[2];      // [B, T, H]
-  S* dx[2];             // [B, T, 4H]
-  const float* mask;    // [B, T]
-  unsigned int* sync;   // [dirs] arrival counters, zeroed by the caller
-  float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks / cluster,
-                        //   B, u]: written and read inside the launch
-  int B, T, H, units, cluster;
-  float forget_bias;
-};
-
-// The step trace of the backward (lstm_*_bwd_trace): when bwd_trace_on is
-// set, thread 0 of block (0, 0) writes clock64() at kTracePoints points of
-// each of the first kTraceSteps steps (top of the step, gates formed, wait
-// passed, dh summed, derivatives done, dgates copied to the cluster, cluster
-// barrier passed, partials written, arrived), and at the launch's start and
-// end clock64() and the
-// global timer (ns), so that cycles convert to time. Off, it costs one load
-// of the flag per launch.
-constexpr int kTraceSteps = 64, kTracePoints = 9;
+// The step trace of either walk (lstm_*_fwd_trace, lstm_*_bwd_trace): when
+// walk_trace_on is set, thread 0 of block (0, 0) writes clock64() at the
+// walk's points of each of its first kTraceSteps steps (the forward's
+// kFwdTracePoints: top of the step, stream loads issued, wait passed, product
+// done, epilogue done; the backward's kTracePoints: top of the step, gates
+// formed, wait passed, dh summed, derivatives done, dgates copied to the
+// cluster, cluster barrier passed, partials written, arrived), and at the
+// launch's start and end clock64() and the global timer (ns), so that cycles
+// convert to time. Some marks sit behind a block barrier, so that they time
+// the block's work and not thread 0's. Off, it costs one load of the flag per
+// launch. Each source has its own copy (the namespace below is anonymous).
+constexpr int kTraceSteps = 64, kTracePoints = 9, kFwdTracePoints = 5;
 constexpr int kTraceFloats = kTraceSteps * kTracePoints + 4;
-__device__ int bwd_trace_on;
-__device__ long long bwd_trace[kTraceFloats];
+__device__ int walk_trace_on;
+__device__ long long walk_trace[kTraceFloats];
 
 __device__ __forceinline__ long long global_ns() {
   long long t;
@@ -698,73 +489,31 @@ __device__ __forceinline__ long long global_ns() {
   return t;
 }
 
+// Set the trace on (on != 0) or off (out null), or copy the last traced
+// launch's values (kTraceFloats long longs) to host memory at out. Returns
+// the CUDA error.
+inline int walk_trace_ctl(int on, long long* out) {
+  const cudaError_t e = out == nullptr
+                            ? cudaMemcpyToSymbol(walk_trace_on, &on, sizeof(int))
+                            : cudaMemcpyFromSymbol(out, walk_trace, sizeof(walk_trace));
+  return (int)e;
+}
+
+// ---------------------------------------------------------------------------
+// Products on the tensor cores (both walks; the design at the top, "Products").
+
 // n (a multiple of 16) padded to 16 mod 32 floats: the row stride of an
 // operand that lanes read 16 bytes at a time, two rows a quarter warp, so
 // that the two rows fall on the two halves of the banks.
-__host__ __device__ inline int bwd_ld(int n) { return n % 32 == 0 ? n + 16 : n; }
-
-// Slices of the dh sum: a reader's partials are ncl planes (one per cluster)
-// of P = B u values; items (value, slice of the planes) go round the
-// threads, as many slices (a power of two up to ncl) as keep the items
-// within the threads' kBwdMaxPairs each.
-__host__ __device__ inline int bwd_dh_slices(int P, int ncl) {
-  int s = 1;
-  while (2 * s <= ncl && 2 * s * P <= kThreads * kBwdMaxPairs) s *= 2;
-  return s;
-}
+__host__ __device__ inline int mma_ld(int n) { return n % 32 == 0 ? n + 16 : n; }
 
 // Slices of a product's k steps: the most (a power of two) that keep every
 // warp of the block on its own (row tile, column chunk, k slice), with at
 // least one k step each.
-__host__ __device__ inline int bwd_ksplit(int items, int ksteps) {
+__host__ __device__ inline int mma_ksplit(int items, int ksteps) {
   int ks = 1;
   while (2 * ks * items <= kWarps && 2 * ks <= ksteps) ks *= 2;
   return ks;
-}
-
-// Dynamic shared memory of one backward block, offsets and size in floats.
-// nbp: the block's 4u gate columns padded to 16; kp: H padded to 16 (the gate
-// product's k); rpb readers per cluster rank, whose ni = rpb u units the rank
-// forms the partials of (nip padded to 8); kc = C nbp the partial product's
-// k; mp: B padded to 16 (row tiles). wc: Wc^T [nbp, ldk] (column n of Wc,
-// k contiguous); wr: Wr [nip, ldr] (unit i, the cluster's gate columns
-// contiguous); each twice (hi, then lo) when split, neither when streamed.
-// dg: the cluster's dgates [mp, ldg], block s of the cluster in columns
-// s nbp .. s nbp + 4u (every block writes its own into all of them); scr:
-// the gate product's k slices [ks_g, mp, ldo_g]; red: the dh sum's slices
-// [dhs, B u].
-struct BwdLayout {
-  int nb4, nbp, kp, ldk, rpb, ni, nip, kc, ldr, mp, ldg, ldo_g, ks_g, ncl, dhs;
-  int wc, wr, dg, scr, red, total;
-};
-
-__host__ __device__ inline BwdLayout bwd_layout(int H, int u, int B, int cluster, bool resident,
-                                                bool split) {
-  BwdLayout l;
-  const int per_dir = (H + u - 1) / u;
-  l.nb4 = 4 * u;
-  l.nbp = (l.nb4 + 15) / 16 * 16;
-  l.kp = (H + 15) / 16 * 16;
-  l.ldk = bwd_ld(l.kp);
-  l.rpb = per_dir / cluster;
-  l.ni = l.rpb * u;
-  l.nip = (l.ni + 7) / 8 * 8;
-  l.kc = cluster * l.nbp;
-  l.ldr = bwd_ld(l.kc);
-  l.mp = (B + 15) / 16 * 16;
-  l.ldg = bwd_ld(l.kc);
-  l.ldo_g = l.nbp + 8;  // 8 mod 32: the 8-byte stores of a half warp on distinct banks
-  l.ks_g = bwd_ksplit(l.mp / 16 * ((l.nbp / 8 + 7) / 8), l.kp / 16);
-  l.ncl = per_dir / cluster;
-  l.dhs = bwd_dh_slices(B * u, l.ncl);
-  const int copies = split ? 2 : 1;
-  l.wc = 0;
-  l.wr = l.wc + (resident ? copies * l.nbp * l.ldk : 0);
-  l.dg = l.wr + (resident ? copies * l.nip * l.ldr : 0);
-  l.scr = l.dg + l.mp * l.ldg;
-  l.red = l.scr + l.ks_g * l.mp * l.ldo_g;
-  l.total = l.red + l.dhs * B * u;
-  return l;
 }
 
 // x as a TF32 value, rounded to nearest (ties away from zero), in a float's
@@ -829,28 +578,32 @@ __device__ __forceinline__ void afrag(AFrag& f, float4 p0, float4 p1) {
 
 // acc[g + j] += A B_j over one 16-wide k step for the kG n-tiles j of a
 // group starting at tile g, B_j's four k of column gid in bh[j] / bl[j]:
-// a_lo b_hi + a_hi b_lo + a_hi b_hi (without the first when kExact), the
-// small terms first. The products are issued round by round across the
-// group's tiles, so that their chains through the accumulators overlap. The
-// step's products meet in accumulators of their own, added to acc in float32
-// (round to nearest): the tensor cores' own accumulation does not round to
-// nearest, and over a long k its error would grow with the number of steps.
-template <bool kExact, int kG, int kN>
+// kPasses 3 (float32 A and B) a_lo b_hi + a_hi b_lo + a_hi b_hi, the small
+// terms first; 2 (A TF32 already: bf16 rows) without the first; 1 (A and B
+// TF32 already: the bf16-product walk's bf16 values) a_hi b_hi alone. The
+// products are issued round by round across the group's tiles, so that their
+// chains through the accumulators overlap. The step's products meet in
+// accumulators of their own, added to acc in float32 (round to nearest): the
+// tensor cores' own accumulation does not round to nearest, and over a long k
+// its error would grow with the number of steps.
+template <int kPasses, int kG, int kN>
 __device__ __forceinline__ void mma3(float (&acc)[kN][4], int g, const AFrag& a,
                                      const uint32_t (&bh)[kG][4], const uint32_t (&bl)[kG][4]) {
   float p[kG][4];
 #pragma unroll
   for (int j = 0; j < kG; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
-  if (!kExact) {
+  if (kPasses > 2) {
 #pragma unroll
     for (int s = 0; s < 2; ++s)
 #pragma unroll
       for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.lo[s], bh[j][2 * s], bh[j][2 * s + 1]);
   }
+  if (kPasses > 1) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s)
+    for (int s = 0; s < 2; ++s)
 #pragma unroll
-    for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.hi[s], bl[j][2 * s], bl[j][2 * s + 1]);
+      for (int j = 0; j < kG; ++j) mma_tf32(p[j], a.hi[s], bl[j][2 * s], bl[j][2 * s + 1]);
+  }
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
@@ -875,31 +628,36 @@ __device__ __forceinline__ void bfrag_smem(const float* w, int o, int lo_off, ui
   }
 }
 
-// Four values of a ys row at k .. k + 3 one at a time (H % 4 != 0: rows not
-// aligned), zero past H.
-template <typename S>
+// Four values of a source row at k .. k + 3 one at a time (H % 4 != 0: rows
+// not aligned), zero past H.
+template <bool kCoherent, typename S>
 __device__ __forceinline__ float4 row4(const S* p, int k, int H) {
-  return make_float4(k < H ? ld_stream(p + k) : 0.0f, k + 1 < H ? ld_stream(p + k + 1) : 0.0f,
-                     k + 2 < H ? ld_stream(p + k + 2) : 0.0f,
-                     k + 3 < H ? ld_stream(p + k + 3) : 0.0f);
+  return make_float4(k < H ? src_load<kCoherent>(p + k) : 0.0f,
+                     k + 1 < H ? src_load<kCoherent>(p + k + 1) : 0.0f,
+                     k + 2 < H ? src_load<kCoherent>(p + k + 2) : 0.0f,
+                     k + 3 < H ? src_load<kCoherent>(p + k + 3) : 0.0f);
 }
 
 // The A rows' loads of the gate product: Raw as loaded, four values at k of
 // row p (zero where !ok), widened to float at use. kVec (H % 4 == 0): one
 // 16-byte load, or for bf16 one 8-byte load kept packed; else value by value.
-template <typename S, bool kVec>
+// kCoherent: rows written inside the launch (src_load).
+template <typename S, bool kVec, bool kCoherent = false>
 struct RowLoad {
   using Raw = float4;
   __device__ __forceinline__ static Raw load(const S* p, int k, int H, bool ok) {
     const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (kVec) return ok ? __ldg(reinterpret_cast<const float4*>(p + k)) : z;  // S float
-    return ok ? row4(p, k, H) : z;
+    if constexpr (kVec) {
+      return ok ? src_load4<kCoherent>(p + k) : z;  // S float
+    } else {
+      return ok ? row4<kCoherent>(p, k, H) : z;
+    }
   }
   __device__ __forceinline__ static float4 widen(Raw v) { return v; }
 };
 
 template <>
-struct RowLoad<__nv_bfloat16, true> {
+struct RowLoad<__nv_bfloat16, true, false> {
   using Raw = uint2;
   __device__ __forceinline__ static Raw load(const __nv_bfloat16* p, int k, int, bool ok) {
     return ok ? __ldg(reinterpret_cast<const uint2*>(p + k)) : make_uint2(0u, 0u);
@@ -918,57 +676,68 @@ __device__ __forceinline__ int own_col(int n, int u, int j0, int H) {
   return n < 4 * u && j < H ? g * H + j : -1;
 }
 
-// Stage the block's slices of Wh (kResident): Wc^T[n][k] = Wh[k][own_col(n)]
-// and Wr[i][s nbp + c] = Wh[i0 + i][gate column c of cluster block s], zero
-// past H and in the pads; each value split into TF32 hi and lo when kSplit.
+// w at base[o], or split into TF32 hi at base[o] and lo at base[lo_off + o]
+// when kSplit.
 template <bool kSplit>
-__device__ void stage_bwd_w(float* smem, const BwdLayout& L, const float* __restrict__ wh, int H,
-                            int u, int j0, int i0, int jc) {
-  const int G = 4 * H;
-  auto put = [&](float* base, int o, int lo_off, float w) {
-    if (kSplit) {
-      uint32_t hi, lo;
-      split1(w, hi, lo);
-      base[o] = __uint_as_float(hi);
-      base[lo_off + o] = __uint_as_float(lo);
-    } else {
-      base[o] = w;
-    }
-  };
-  float* wc = smem + L.wc;
-  for (int e = threadIdx.x; e < L.kp * L.nbp; e += kThreads) {
-    const int k = e / L.nbp;
-    const int n = e - k * L.nbp;
-    const int col = own_col(n, u, j0, H);
-    put(wc, n * L.ldk + k, L.nbp * L.ldk,
-        col >= 0 && k < H ? __ldg(wh + (size_t)k * G + col) : 0.0f);
-  }
-  float* wr = smem + L.wr;
-  for (int e = threadIdx.x; e < L.nip * L.kc; e += kThreads) {
-    const int i = e / L.kc;
-    const int c = e - i * L.kc;
-    const int s = c / L.nbp;
-    const int col = own_col(c - s * L.nbp, u, jc + s * u, H);
-    put(wr, i * L.ldr + c, L.nip * L.ldr,
-        col >= 0 && i < L.ni && i0 + i < H ? __ldg(wh + (size_t)(i0 + i) * G + col) : 0.0f);
+__device__ __forceinline__ void put_w(float* base, int o, int lo_off, float w) {
+  if (kSplit) {
+    uint32_t hi, lo;
+    split1(w, hi, lo);
+    base[o] = __uint_as_float(hi);
+    base[lo_off + o] = __uint_as_float(lo);
+  } else {
+    base[o] = w;
   }
 }
 
-// (b) The gate pre-activations at t of every row, ys[t-1] @ Wc, into the
-// k slices scr[sl][row][n] (row stride ldo_g, slice stride mp ldo_g). Work
-// items (16-row tile, kNT n-tiles: all of them up to 8) times ks_g k slices
-// go round the warps. The A rows come from global memory three k steps ahead
-// of their product (each step's rows were prefetched into L2 a step
-// earlier), 16 (bf16: 8) bytes a row when kVec (H % 4 == 0); B is the
-// resident Wc^T, or Wh itself through L2.
-template <int kNT, bool kVec, bool kResident, bool kSplit, typename S>
-__device__ void bwd_gates(const S* src, size_t src_row, const float* smem, const BwdLayout& L,
-                          const float* __restrict__ wh, int B, int H, int u, int j0, float* scr) {
-  constexpr bool kExact = sizeof(S) == 2;  // bf16 rows: TF32 values
-  constexpr int kG = kNT < 4 ? kNT : 4;    // n-tiles whose B fragments are held at once
+// Wh's column of the gate product's column n: block s = n / nbp of the
+// blocks whose columns the product forms (one, or a forward cluster's two),
+// its gate column n - s nbp; j0 the first unit of the first of them.
+__device__ __forceinline__ int gate_col(int n, int nbp, int u, int j0, int H) {
+  const int s = n / nbp;
+  return own_col(n - s * nbp, u, j0 + s * u, H);
+}
+
+// Stage the gate product's Wc^T[n][k] = Wh[gk0 + k][gate_col(n)] at wc [gn,
+// ldk] for all T steps, zero past H and in the pads: split into TF32 hi and
+// lo (lo at gn ldk) when kSplit, each value rounded to bf16 when kRound (the
+// bf16-product walk). Lay: the walk's layout (kp, nbp, gn, gk0, ldk).
+template <bool kSplit, bool kRound, typename Lay>
+__device__ void stage_wc(float* wc, const Lay& L, const float* __restrict__ wh, int H, int u,
+                         int j0) {
+  const int G = 4 * H;
+  for (int e = threadIdx.x; e < L.kp * L.gn; e += kThreads) {
+    const int k = e / L.gn;
+    const int n = e - k * L.gn;
+    const int col = gate_col(n, L.nbp, u, j0, H);
+    const int kg = L.gk0 + k;
+    const float w = col >= 0 && kg < H ? __ldg(wh + (size_t)kg * G + col) : 0.0f;
+    put_w<kSplit>(wc, n * L.ldk + k, L.gn * L.ldk, kRound ? round_bf16(w) : w);
+  }
+}
+
+// The gate pre-activations of every row, src @ Wc ([B, H] rows of stride
+// src_row times [H, 4u]), into the k slices scr[sl][row][n] (row stride
+// ldo_g, slice stride mp ldo_g). Work items (16-row tile, kNT n-tiles: all of
+// them up to 8) times ks_g k slices go round the warps. The A rows come from
+// global memory straight into registers, kDepth k steps ahead of their
+// product, 16 (bf16: 8) bytes a row when kVec (H % 4 == 0); kCoherent: rows
+// written inside the launch (the forward's h exchange), read through L2. B is
+// the resident Wc^T (stage_wc), or Wh itself through L2. kPasses: 3 (float32
+// rows and Wh, 3xTF32), 2 (bf16 rows: TF32 values), 1 (the bf16-product walk:
+// each row value rounded to bf16 as it is widened, Wc rounded as it was staged
+// or is read, so that A and B are TF32 values and each product is exact). Lay:
+// the walk's layout (kp, nbp, ldk, mp, ldo_g, ks_g, wc).
+template <int kNT, bool kVec, bool kResident, bool kSplit, int kPasses, bool kCoherent,
+          typename S, typename Lay>
+__device__ void gates_mma_nt(const S* src, size_t src_row, const float* smem, const Lay& L,
+                             const float* __restrict__ wh, int B, int H, int u, int j0,
+                             float* scr) {
+  constexpr int kG = kNT < 4 ? kNT : 4;  // n-tiles whose B fragments are held at once
+  using Load = RowLoad<S, kVec, kCoherent>;
   const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
   const int G = 4 * H;
-  const int ksteps = L.kp / 16, nch = L.nbp / 8 / kNT;
+  const int ksteps = L.kp / 16, nch = L.gn / 8 / kNT;
   const int items = L.mp / 16 * nch, ks = L.ks_g, per = (ksteps + ks - 1) / ks;
   const float* wc = smem + L.wc;
   for (int w = threadIdx.x / 32; w < items * ks; w += kWarps) {
@@ -987,13 +756,18 @@ __device__ void bwd_gates(const S* src, size_t src_row, const float* smem, const
     auto step = [&](int q) { return kb + (q + rot < kn ? q + rot : q + rot - kn); };
     // the A rows of product q as loaded (bf16 packed, widened at use), kDepth
     // products ahead: a ring indexed statically, the loop unrolled by it
-    using Raw = typename RowLoad<S, kVec>::Raw;
+    using Raw = typename Load::Raw;
     constexpr int kDepth = sizeof(Raw) == 8 ? 6 : 3;
     auto lda = [&](int q, Raw& q0, Raw& q1) {
-      const int k = step(q) * 16 + 4 * tig;
+      const int k = L.gk0 + step(q) * 16 + 4 * tig;
       const bool in = q < kn && (!kVec || k < H);
-      q0 = RowLoad<S, kVec>::load(s0, k, H, in && ok0);
-      q1 = RowLoad<S, kVec>::load(s1, k, H, in && ok1);
+      q0 = Load::load(s0, k, H, in && ok0);
+      q1 = Load::load(s1, k, H, in && ok1);
+    };
+    auto operand = [](float4 v) {
+      return kPasses == 1 ? make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                                        round_bf16(v.w))
+                          : v;
     };
     // this lane's Wc^T row of each tile, at its four k
     const float* wb = wc + ((size_t)t0 * 8 + gid) * L.ldk + 4 * tig;
@@ -1009,28 +783,29 @@ __device__ void bwd_gates(const S* src, size_t src_row, const float* smem, const
         const int q = q0 + d;
         if (q >= kn) continue;
         AFrag a;
-        afrag<kExact>(a, RowLoad<S, kVec>::widen(ring[d][0]), RowLoad<S, kVec>::widen(ring[d][1]));
+        afrag<(kPasses < 3)>(a, operand(Load::widen(ring[d][0])),
+                             operand(Load::widen(ring[d][1])));
         lda(q + kDepth, ring[d][0], ring[d][1]);
         const int kst = step(q);
-        const int k = kst * 16 + 4 * tig;
+        const int k = L.gk0 + kst * 16 + 4 * tig;
 #pragma unroll
         for (int g = 0; g < kNT; g += kG) {
           uint32_t bh[kG][4], bl[kG][4];
 #pragma unroll
           for (int j = 0; j < kG; ++j) {
             if (kResident) {
-              bfrag_smem<kSplit>(wb, (g + j) * 8 * L.ldk + kst * 16, L.nbp * L.ldk, bh[j],
+              bfrag_smem<kSplit>(wb, (g + j) * 8 * L.ldk + kst * 16, L.gn * L.ldk, bh[j],
                                  bl[j]);
             } else {
-              const int col = own_col((t0 + g + j) * 8 + gid, u, j0, H);
+              const int col = gate_col((t0 + g + j) * 8 + gid, L.nbp, u, j0, H);
               float v[4];
 #pragma unroll
               for (int e = 0; e < 4; ++e)
                 v[e] = col >= 0 && k + e < H ? __ldg(wh + (size_t)(k + e) * G + col) : 0.0f;
-              split4(make_float4(v[0], v[1], v[2], v[3]), bh[j], bl[j]);
+              split4(operand(make_float4(v[0], v[1], v[2], v[3])), bh[j], bl[j]);
             }
           }
-          mma3<kExact, kG, kNT>(acc, g, a, bh, bl);
+          mma3<kPasses, kG, kNT>(acc, g, a, bh, bl);
         }
       }
     }
@@ -1040,6 +815,684 @@ __device__ void bwd_gates(const S* src, size_t src_row, const float* smem, const
       *reinterpret_cast<float2*>(o + r0 * L.ldo_g + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
       *reinterpret_cast<float2*>(o + r1 * L.ldo_g + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
     }
+  }
+}
+
+// cp.async of 16 bytes from global memory (L2 only: coherent for rows written
+// inside the launch, as ld.global.cg) into shared memory, zeros where !ok.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The per-warp staging of gates_mma_staged: kStages stages in flight, each
+// two k steps of a 16-row tile, rows kStageLd floats apart (32 k padded to 16
+// mod 32: the two rows of a quarter warp's fragment loads on the two halves
+// of the banks).
+constexpr int kStages = 3, kStageLd = 48;
+constexpr int kStageFloats = kWarps * kStages * 16 * kStageLd;  // a block's rings
+
+// gates_mma_nt for float32 rows written inside the launch (the forward's h
+// exchange), 16-byte aligned (H % 4 == 0): each warp stages its A rows
+// through its own ring of kStages stages in shared memory at L.ring with
+// cp.async.cg, a stage two k steps of its 16 rows, 128 bytes a row (whole L2
+// lines). The rows in flight take no registers, which the walk's carries and
+// early stream loads need: with gates_mma_nt's register ring the forward
+// spilled, and its steps took 0.5-0.7 us longer at B = 32 and 128 (PERF.md).
+// The stages go round from a fixed offset per block (two calls sum alike); a
+// k slice's odd last stage has a zero second half.
+template <int kNT, bool kResident, bool kSplit, int kPasses, typename Lay>
+__device__ void gates_mma_staged(const float* src, size_t src_row, float* smem, const Lay& L,
+                                 const float* __restrict__ wh, int B, int H, int u, int j0,
+                                 float* scr) {
+  constexpr int kG = kNT < 4 ? kNT : 4;  // n-tiles whose B fragments are held at once
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+  const int warp = threadIdx.x / 32;
+  const int G = 4 * H;
+  const int ksteps = L.kp / 16, nch = L.gn / 8 / kNT;
+  const int items = L.mp / 16 * nch, ks = L.ks_g, per = (ksteps + ks - 1) / ks;
+  const float* wc = smem + L.wc;
+  float* ring = smem + L.ring + warp * (kStages * 16 * kStageLd);
+  const int lr = lane / 8, lc = lane % 8;  // the lane's copies: rows 4 i + lr, 16 bytes at 4 lc
+  for (int w = warp; w < items * ks; w += kWarps) {
+    const int item = w / ks, sl = w - item * ks;
+    const int mt = item / nch, t0 = (item - mt * nch) * kNT;
+    const int kb = sl * per, kn = min(ksteps, kb + per) - kb;
+    const int ns = (kn + 1) / 2;  // stages of two k steps
+    const int rot = ns > 0 ? (blockIdx.x * 5) % ns : 0;
+    auto stage = [&](int q) { return q + rot < ns ? q + rot : q + rot - ns; };
+    // stage q into slot q % kStages (an empty group past the last stage)
+    auto load = [&](int q) {
+      if (q < ns) {
+        const int k0 = kb + 2 * stage(q);  // the stage's first k step
+        const int k = L.gk0 + k0 * 16 + 4 * lc;
+        const bool kin = k0 + lc / 4 < kb + kn && k < H;
+        float* slot = ring + (q % kStages) * (16 * kStageLd) + 4 * lc;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * i + lr;
+          const bool ok = kin && mt * 16 + r < B;
+          cp_async16(slot + r * kStageLd, ok ? src + (size_t)(mt * 16 + r) * src_row + k : src,
+                     ok);
+        }
+      }
+      cp_async_commit();
+    };
+    // this lane's Wc^T row of each tile, at its four k
+    const float* wb = wc + ((size_t)t0 * 8 + gid) * L.ldk + 4 * tig;
+    float acc[kNT][4];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kStages - 1; ++q) load(q);
+    for (int q = 0; q < ns; ++q) {
+      load(q + kStages - 1);  // into the slot that stage q - 1 freed
+      cp_async_wait<kStages - 1>();  // stage q is in, this lane's copies
+      __syncwarp();                  // and every lane's
+      const float* slot = ring + (q % kStages) * (16 * kStageLd) + 4 * tig;
+      const int k0 = kb + 2 * stage(q);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kst = k0 + j;
+        if (kst >= kb + kn) break;
+        float4 p0 = *reinterpret_cast<const float4*>(slot + gid * kStageLd + 16 * j);
+        float4 p1 = *reinterpret_cast<const float4*>(slot + (gid + 8) * kStageLd + 16 * j);
+        if (kPasses == 1) {
+          p0 = make_float4(round_bf16(p0.x), round_bf16(p0.y), round_bf16(p0.z), round_bf16(p0.w));
+          p1 = make_float4(round_bf16(p1.x), round_bf16(p1.y), round_bf16(p1.z), round_bf16(p1.w));
+        }
+        AFrag a;
+        afrag<(kPasses < 3)>(a, p0, p1);
+        const int k = L.gk0 + kst * 16 + 4 * tig;
+#pragma unroll
+        for (int g = 0; g < kNT; g += kG) {
+          uint32_t bh[kG][4], bl[kG][4];
+#pragma unroll
+          for (int jj = 0; jj < kG; ++jj) {
+            if (kResident) {
+              bfrag_smem<kSplit>(wb, (g + jj) * 8 * L.ldk + kst * 16, L.gn * L.ldk, bh[jj],
+                                 bl[jj]);
+            } else {
+              const int col = gate_col((t0 + g + jj) * 8 + gid, L.nbp, u, j0, H);
+              float v[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                v[e] = col >= 0 && k + e < H ? __ldg(wh + (size_t)(k + e) * G + col) : 0.0f;
+                if (kPasses == 1) v[e] = round_bf16(v[e]);
+              }
+              split4(make_float4(v[0], v[1], v[2], v[3]), bh[jj], bl[jj]);
+            }
+          }
+          mma3<kPasses, kG, kNT>(acc, g, a, bh, bl);
+        }
+      }
+      __syncwarp();  // every lane has read the slot before it is refilled
+    }
+    cp_async_wait<0>();
+    const int r0 = mt * 16 + gid, r1 = r0 + 8;
+    float* o = scr + (size_t)sl * L.mp * L.ldo_g + (size_t)t0 * 8 + 2 * tig;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      *reinterpret_cast<float2*>(o + r0 * L.ldo_g + nt * 8) = make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(o + r1 * L.ldo_g + nt * 8) = make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// The gate product of gates_mma_nt, or for rows written inside the launch and
+// 16-byte aligned gates_mma_staged, with the n-tiles of a work item for the
+// block's 4u columns: 2, 4 or 8 (two when the rows are not aligned).
+template <bool kResident, bool kSplit, int kPasses, bool kCoherent, typename S, typename Lay>
+__device__ __forceinline__ void gates_mma(const S* src, size_t src_row, float* smem,
+                                          const Lay& L, const float* __restrict__ wh, int B,
+                                          int H, int u, int j0, float* scr) {
+  const int nct = L.gn / 8;  // 2, 4, 8 or more (a multiple of 8)
+  if ((H & 3) != 0) {
+    gates_mma_nt<2, false, kResident, kSplit, kPasses, kCoherent>(src, src_row, smem, L, wh, B,
+                                                                   H, u, j0, scr);
+  } else if constexpr (kCoherent) {
+    if (nct == 2) {
+      gates_mma_staged<2, kResident, kSplit, kPasses>(src, src_row, smem, L, wh, B, H, u, j0,
+                                                      scr);
+    } else if (nct == 4) {
+      gates_mma_staged<4, kResident, kSplit, kPasses>(src, src_row, smem, L, wh, B, H, u, j0,
+                                                      scr);
+    } else {
+      gates_mma_staged<8, kResident, kSplit, kPasses>(src, src_row, smem, L, wh, B, H, u, j0,
+                                                      scr);
+    }
+  } else if (nct == 2) {
+    gates_mma_nt<2, true, kResident, kSplit, kPasses, false>(src, src_row, smem, L, wh, B, H, u,
+                                                             j0, scr);
+  } else if (nct == 4) {
+    gates_mma_nt<4, true, kResident, kSplit, kPasses, false>(src, src_row, smem, L, wh, B, H, u,
+                                                             j0, scr);
+  } else {
+    gates_mma_nt<8, true, kResident, kSplit, kPasses, false>(src, src_row, smem, L, wh, B, H, u,
+                                                             j0, scr);
+  }
+}
+
+namespace cg = cooperative_groups;
+
+// A cooperative launch of kThreads-thread blocks in clusters of `cluster`
+// (no cluster attribute at 1); attrs holds the attributes cfg points at.
+inline cudaLaunchConfig_t walk_config(dim3 grid, int cluster, int smem_bytes, void* stream,
+                                     cudaLaunchAttribute (&attrs)[2]) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = (unsigned int)cluster;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
+  return cfg;
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one persistent cooperative launch per call (design at the top).
+
+template <typename S>
+struct FwdArgs {
+  const S* x[2];       // [B, T, 4H] per direction
+  const float* wh[2];  // [H, 4H]
+  S* ys[2];            // [B, T, H]
+  S* cs[2];            // [B, T, H], or null: no cell-state stream
+  const float* mask;   // [B, T]
+  unsigned int* sync;  // [dirs] arrival counters, zeroed by the caller
+  float* hbuf;         // h exchange [2 (step parity), dirs, B, H]: written and read inside
+                       //   the launch
+  int B, T, H, units;
+  float forget_bias;
+  // the carried state of a streaming chunk (lstm_layer_fwd_carry); the other
+  // entry points leave them null: h and c start at 0 and the final state is
+  // not written
+  const float* h0[2];  // [B, H] h before step 0, or null: zeros
+  const float* c0[2];  // [B, H] c before step 0, or null: zeros
+  float* hT[2];        // [B, H] the carried h after step T-1, or null: not written
+  float* cT[2];        // [B, H] the carried c after step T-1, or null: not written
+};
+
+// The plan's rows: kFfmaRows, the FFMA product's chunk (a launch of up to
+// that many rows: the serving batch and the streaming chunks), or the tensor
+// cores' row tile times the blocks of a cluster that split its k (kMmaRows:
+// none; 2 kMmaRows: clusters of 2).
+constexpr int kFfmaRows = 8, kMmaRows = 16;
+
+// Dynamic shared memory of one forward block, offsets and size in floats.
+// FFMA (rows kFfmaRows): Wc [hp, ldw] (hp = H padded to 4, nb = 4u columns,
+// ldw = nb + 4), the staged chunk stage [2, rows, kBwdStride], the k slices'
+// partial sums red [kBwdRed] and the chunk's gates gpre [rows, nb]. Tensor
+// cores (rows kMmaRows C, B the launch's rows, rank the block's in its
+// cluster; the names of bwd_layout's gate product): the product's columns
+// gn = the 4u of each of the C blocks of the cluster (each padded to nbp) and
+// its k the rank's share of H, gk0 .. gk0 + kp; Wc^T [gn, ldk] (twice, hi then
+// lo, when split), the gates' k slices scr [ks_g, mp, ldo_g], with a cluster
+// of 2 the partner's sums for this block's columns xch [mp, nbp], and the
+// warps' staging rings ring [kStageFloats] (gates_mma_staged). The Wh slice
+// only when resident.
+struct FwdLayout {
+  int hp, nb, ldw;                            // FFMA
+  int nbp, gn, kp, gk0, ldk, mp, ldo_g, ks_g;  // tensor cores
+  int wc, stage, red, gpre, scr, xch, ring, total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int H, int u, int rows, int B, bool resident,
+                                                bool split, int rank = 0) {
+  FwdLayout l = {};
+  l.wc = 0;
+  if (rows == kFfmaRows) {
+    l.hp = (H + 3) / 4 * 4;
+    l.nb = 4 * u;
+    l.ldw = l.nb + 4;
+    l.stage = l.wc + (resident ? l.hp * l.ldw : 0);
+    l.red = l.stage + 2 * rows * kBwdStride;
+    l.gpre = l.red + kBwdRed;
+    l.total = l.gpre + rows * l.nb;
+    return l;
+  }
+  const int C = rows / kMmaRows;
+  const int ksteps = ((H + 15) / 16 + C - 1) / C;  // k steps of each rank's share
+  l.nbp = (4 * u + 15) / 16 * 16;
+  l.gn = C * l.nbp;
+  l.kp = 16 * ksteps;
+  l.gk0 = rank * l.kp;
+  l.ldk = mma_ld(l.kp);
+  l.mp = (B + 15) / 16 * 16;
+  l.ldo_g = l.gn + 8;  // 8 mod 32: the 8-byte stores of a half warp on distinct banks
+  l.ks_g = mma_ksplit(l.mp / 16 * ((l.gn / 8 + 7) / 8), ksteps);
+  l.scr = l.wc + (resident ? (split ? 2 : 1) * l.gn * l.ldk : 0);
+  l.xch = l.scr + l.ks_g * l.mp * l.ldo_g;
+  l.ring = l.xch + (C > 1 ? l.mp * l.nbp : 0);
+  l.total = l.ring + kStageFloats;
+  return l;
+}
+
+// One (row, unit) pair's step: gates i, f, g, o from xproj xv and the
+// recurrent pre-activations gp (forget_bias fb on f), the mask carry of h and
+// c, and the stores: ys = h * m, cs = c where cs is not null, and the carried
+// h into the exchange at hx.
+template <typename S>
+__device__ __forceinline__ void fwd_pair(const float (&xv)[4], const float (&gp)[4], float m,
+                                         float fb, float& h, float& c, S* ys, S* cs,
+                                         float* hx) {
+  const float ig = sigmoid(xv[0] + gp[0]);
+  const float fg = sigmoid(xv[1] + gp[1] + fb);
+  const float gg = tanhf(xv[2] + gp[2]);
+  const float og = sigmoid(xv[3] + gp[3]);
+  const float c_new = fg * c + ig * gg;
+  const float h_new = og * tanhf(c_new);
+  if (m > 0.0f) {
+    h = h_new;
+    c = c_new;
+  }
+  st_stream(ys, h * m);
+  if (cs != nullptr) st_stream(cs, c);
+  *hx = h;
+}
+
+// kRows: the product path, kFfmaRows (FFMA: chunks of that many rows, h_{t-1}
+// staged through shared memory, gate_product) or kMmaRows C (the tensor
+// cores: every row in one pass, gates_mma; with C = 2 the blocks pair in
+// clusters along x, each forms the pair's 8u columns over its half of k and
+// sends its partner the sums of the partner's columns through distributed
+// shared memory, so that each block reads half of h_{t-1} from L2 and splits
+// each A fragment for twice the products). kSplit (tensor cores, kResident):
+// Wc held as TF32 hi and lo parts. kCarry: the walk resumes from a.h0 / a.c0
+// and writes a.hT / a.cT (any of them may be null); the walks that start from
+// zeros are compiled without it. kBf16Product: the gate product takes bf16
+// operands, h_{t-1} (h0 at step 0) and Wh each rounded to bf16, with float32
+// sums (lstm_layer_fwd_carry_bf16: the bf16 branch of the reference's
+// _lstm_step, which a streaming chunk at compute_dtype bfloat16 runs);
+// streams, carries and gate math stay float32.
+template <bool kResident, int kRows, bool kCarry, typename S, bool kBf16Product = false,
+          bool kSplit = false>
+__global__ void __launch_bounds__(kThreads, 1) fwd_walk(const FwdArgs<S> a) {
+  constexpr bool kMma = kRows != kFfmaRows;
+  constexpr int kCluster = kMma ? kRows / kMmaRows : 1;
+  extern __shared__ float4 fwd_smem4[];
+  float* smem = reinterpret_cast<float*>(fwd_smem4);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int dir = blockIdx.y;
+  const int B = a.B, T = a.T, H = a.H, u = a.units, G = 4 * H;
+  const int j0 = blockIdx.x * u;
+  const int rank = blockIdx.x % kCluster;  // in the cluster, along x
+  const int jc = j0 - rank * u;            // the cluster's first unit
+  const int tid = threadIdx.x;
+  const int ush = 31 - __clz(u);  // u is a power of two (walk_takes)
+  const FwdLayout L = fwd_layout(H, u, kRows, B, kResident, kSplit, rank);
+
+  const S* __restrict__ x = dir ? a.x[1] : a.x[0];
+  const float* __restrict__ wh = dir ? a.wh[1] : a.wh[0];
+  const float* __restrict__ mask = a.mask;
+  S* ys = dir ? a.ys[1] : a.ys[0];
+  S* cs = dir ? a.cs[1] : a.cs[0];
+  unsigned int* counter = a.sync + dir;
+  const int blocks = gridDim.x;
+  const size_t state = (size_t)gridDim.y * B * H;  // one step parity of hbuf
+  float* hdir = a.hbuf + (size_t)dir * B * H;
+
+  const bool tracing = walk_trace_on != 0;  // the same for every thread of the launch
+  const bool tracer = tracing && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
+  // a trace point of step t; `sync`: after a barrier of the whole block
+  auto mark = [&](int t, int point, bool sync) {
+    if (!tracing) return;
+    if (sync) __syncthreads();
+    if (tracer && t < kTraceSteps) walk_trace[t * kFwdTracePoints + point] = clock64();
+  };
+  if (tracer) {
+    walk_trace[kTraceSteps * kTracePoints] = clock64();
+    walk_trace[kTraceSteps * kTracePoints + 1] = global_ns();
+  }
+
+  if (kResident) {  // for all T steps
+    if constexpr (kMma) {
+      stage_wc<kSplit, kBf16Product>(smem + L.wc, L, wh, H, u, jc);
+      __syncthreads();
+    } else {
+      load_wc<kBf16Product>(smem + L.wc, wh, H, u, j0, L.hp, L.nb, L.ldw);
+    }
+  }
+
+  // the pairs p = tid + i kThreads: row p / u, unit j0 + p % u; their carries
+  // start from h0 / c0 (zeros when null), loaded for every row: a row that no
+  // step unmasks hands them back unchanged, bit for bit
+  const float* __restrict__ h0 = kCarry ? (dir ? a.h0[1] : a.h0[0]) : nullptr;
+  float h[kBwdMaxPairs], c[kBwdMaxPairs];
+#pragma unroll
+  for (int i = 0; i < kBwdMaxPairs; ++i) h[i] = c[i] = 0.0f;
+  if constexpr (kCarry) {
+    const float* __restrict__ c0 = dir ? a.c0[1] : a.c0[0];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p >> ush;
+      const int j = j0 + (p & (u - 1));
+      if (b < B && j < H) {
+        if (h0 != nullptr) h[i] = __ldg(h0 + (size_t)b * H + j);
+        if (c0 != nullptr) c[i] = __ldg(c0 + (size_t)b * H + j);
+      }
+    }
+  }
+
+  for (int t = 0; t < T; ++t) {
+    mark(t, 0, false);
+    // xproj[t] and mask[t] of the thread's pairs: no other block writes them,
+    // so they are issued before the wait, and xproj stays as loaded (a bf16
+    // value's bits) until the epilogue widens it
+    decltype(ld_early_raw(x)) xv[kBwdMaxPairs][4];
+    float mv[kBwdMaxPairs];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p >> ush;
+      const int j = j0 + (p & (u - 1));
+      xv[i][0] = xv[i][1] = xv[i][2] = xv[i][3] = 0;
+      mv[i] = 0.0f;
+      if (b < B && j < H) {
+        const size_t bt = (size_t)b * T + t;
+        const S* xt = x + bt * G + j;
+        xv[i][0] = ld_early_raw(xt), xv[i][1] = ld_early_raw(xt + H);
+        xv[i][2] = ld_early_raw(xt + 2 * H), xv[i][3] = ld_early_raw(xt + 3 * H);
+        mv[i] = ld_early(mask + bt);
+      }
+    }
+    mark(t, 1, true);
+    const float* hprev = hdir + (size_t)(t & 1) * state;  // h_{t-1}, written in step t-1
+    float* hnext = hdir + (size_t)((t + 1) & 1) * state;
+    // every block of the direction has written h_{t-1}; h_{-1} is h0, an
+    // input that every block reads in place (no exchange, no barrier), or 0
+    if (t > 0) step_wait(counter, blocks * (unsigned int)t);
+    mark(t, 2, false);
+    const float* hsrc = t > 0 ? hprev : h0;
+    const bool product = kCarry ? hsrc != nullptr : t > 0;
+    if constexpr (kMma) {
+      // every row's gates in one pass, then the epilogue of every pair
+      float* scr = smem + L.scr;
+      const int own = rank * L.nbp;  // this block's columns in scr
+      if (product)
+        gates_mma<kResident, kSplit, kBf16Product ? 1 : 3, true>(hsrc, (size_t)H, smem, L, wh,
+                                                                 B, H, u, jc, scr);
+      __syncthreads();
+      if (kCluster > 1 && product) {
+        // the partner's columns over this block's k: its k slices summed in
+        // order, into the partner's xch; the cluster barrier makes them seen
+        float* xch = cl.map_shared_rank(smem + L.xch, rank ^ 1);
+        const int other = (rank ^ 1) * L.nbp;
+        for (int e = tid; e < B * 4 * u; e += kThreads) {
+          const int b = e >> (ush + 2);  // 4u columns a row
+          const int c = e & (4 * u - 1);
+          const float* gs = scr + (size_t)b * L.ldo_g + other + c;
+          float v = 0.0f;
+          for (int sl = 0; sl < L.ks_g; ++sl, gs += (size_t)L.mp * L.ldo_g) v += *gs;
+          xch[b * L.nbp + c] = v;
+        }
+        cl.sync();
+      }
+      mark(t, 3, false);
+  #pragma unroll
+      for (int i = 0; i < kBwdMaxPairs; ++i) {
+        const int p = tid + i * kThreads;
+        const int b = p >> ush;
+        const int uu = p & (u - 1);
+        const int j = j0 + uu;
+        if (b >= B || j >= H) continue;
+        float gp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (product) {  // the k slices in order, then the partner's k
+          const float* gs = scr + (size_t)b * L.ldo_g + own + uu;
+  #pragma unroll 1
+          for (int sl = 0; sl < L.ks_g; ++sl, gs += (size_t)L.mp * L.ldo_g) {
+  #pragma unroll
+            for (int g = 0; g < 4; ++g) gp[g] += gs[g * u];
+          }
+          if (kCluster > 1) {
+            const float* xs = smem + L.xch + b * L.nbp + uu;
+  #pragma unroll
+            for (int g = 0; g < 4; ++g) gp[g] += xs[g * u];
+          }
+        }
+        const size_t bt = (size_t)b * T + t;
+        const float x4[4] = {widen(xv[i][0]), widen(xv[i][1]), widen(xv[i][2]), widen(xv[i][3])};
+        fwd_pair(x4, gp, mv[i], a.forget_bias, h[i], c[i], ys + bt * H + j,
+                 cs != nullptr ? cs + bt * H + j : nullptr, hnext + (size_t)b * H + j);
+      }
+    } else {
+      // per chunk of kRows rows: the product staged through shared memory,
+      // then the chunk's epilogue (with several chunks the trace's product
+      // phase holds all but the last chunk's epilogue)
+      float* gpre = smem + L.gpre;
+      for (int b0 = 0; b0 < B; b0 += kRows) {
+        const int rows = min(kRows, B - b0);
+        if (product) {
+          for (int k0 = 0; k0 < L.nb; k0 += kBwdMaxCols)
+            gate_product<kResident, kRows, true, float, kBf16Product>(
+                hsrc, (size_t)H, smem + L.wc, wh, k0, min(kBwdMaxCols, L.nb - k0), L.ldw, j0,
+                u, b0, rows, H, L.hp, smem + L.stage, smem + L.red, gpre, L.nb);
+        } else {
+          for (int i = tid; i < kRows * L.nb; i += kThreads) gpre[i] = 0.0f;
+          __syncthreads();
+        }
+        mark(t, 3, false);
+#pragma unroll
+        for (int i = 0; i < kBwdMaxPairs; ++i) {
+          const int p = tid + i * kThreads;
+          const int b = p >> ush;
+          const int uu = p & (u - 1);
+          const int j = j0 + uu;
+          if (b < b0 || b >= b0 + rows || j >= H) continue;
+          const float* gq = gpre + (b - b0) * L.nb + uu;
+          const float gp[4] = {gq[0], gq[u], gq[2 * u], gq[3 * u]};
+          const size_t bt = (size_t)b * T + t;
+          const float x4[4] = {widen(xv[i][0]), widen(xv[i][1]), widen(xv[i][2]),
+                               widen(xv[i][3])};
+          fwd_pair(x4, gp, mv[i], a.forget_bias, h[i], c[i], ys + bt * H + j,
+                   cs != nullptr ? cs + bt * H + j : nullptr, hnext + (size_t)b * H + j);
+        }
+        __syncthreads();  // gpre is consumed
+      }
+    }
+    mark(t, 4, true);
+    step_arrive(counter);
+  }
+  if (tracer) {
+    walk_trace[kTraceSteps * kTracePoints + 2] = clock64();
+    walk_trace[kTraceSteps * kTracePoints + 3] = global_ns();
+  }
+
+  if constexpr (kCarry) {
+    // the carried state after the last step (a masked step carried it through)
+    float* hT = dir ? a.hT[1] : a.hT[0];
+    float* cT = dir ? a.cT[1] : a.cT[0];
+#pragma unroll
+    for (int i = 0; i < kBwdMaxPairs; ++i) {
+      const int p = tid + i * kThreads;
+      const int b = p >> ush;
+      const int j = j0 + (p & (u - 1));
+      if (b >= B || j >= H) continue;
+      if (hT != nullptr) hT[(size_t)b * H + j] = h[i];
+      if (cT != nullptr) cT[(size_t)b * H + j] = c[i];
+    }
+  }
+}
+
+// The forward walk's kernel for a plan's rows (product path, cluster),
+// resident and split. The bf16-product walk and FFMA have no split
+// instantiation: a Wc rounded to bf16 is TF32 already, and FFMA takes it
+// whole.
+template <bool kCarry, typename S, bool kBf16Product, int kRows>
+const void* fwd_kernel(bool resident, bool split) {
+  if (!resident)
+    return reinterpret_cast<const void*>(fwd_walk<false, kRows, kCarry, S, kBf16Product>);
+  if constexpr (kRows != kFfmaRows && !kBf16Product) {
+    if (split)
+      return reinterpret_cast<const void*>(fwd_walk<true, kRows, kCarry, S, kBf16Product, true>);
+  }
+  return reinterpret_cast<const void*>(fwd_walk<true, kRows, kCarry, S, kBf16Product>);
+}
+
+// Launch the forward walk of kDirs directions (1 or 2) as one cooperative
+// kernel on `stream`: grid (ceil(H / a.units), kDirs), kThreads threads and
+// smem_bytes of dynamic shared memory per block. rows: the product path,
+// kFfmaRows (FFMA, that many batch rows a chunk) or kMmaRows C (the tensor
+// cores, every row in one pass; C = 2: clusters of 2 blocks along x that
+// split its k, which takes an even count of blocks a direction). resident:
+// 0, the Wh slice read through L2; 1, held in shared memory; 2 (tensor
+// cores), held as TF32 hi and lo parts (the bf16-product walk holds it whole:
+// its rounded Wc has no lo part). a.sync
+// holds kDirs zeroed counters, a.hbuf hbuf_floats floats. kCarry: the walk
+// that resumes from a.h0 / a.c0 and writes a.hT / a.cT
+// (lstm_layer_fwd_carry); the others read none of them. S: the stream type.
+// kBf16Product: bf16 operands of the gate product (lstm_layer_fwd_carry_bf16).
+// ops/lstm.py fwd_plan picks units, resident, rows and smem_bytes. Returns
+// the CUDA error: cudaErrorCooperativeLaunchTooLarge when the blocks cannot
+// all be resident at once (the kernel then never runs), cudaErrorInvalidValue
+// for a plan this kernel does not take, and for an exchange buffer of
+// another size than the kernel indexes. Does not synchronise.
+template <int kDirs, bool kCarry = false, typename S = float, bool kBf16Product = false>
+int run_fwd_walk(const FwdArgs<S>& a, int hbuf_floats, int resident, int rows, int smem_bytes,
+                 void* stream) {
+  static_assert(kDirs == 1 || kDirs == 2, "one or two directions");
+  if (!walk_takes(a.B, a.T, a.H, a.units)) return (int)cudaErrorInvalidValue;
+  const int blocks = (a.H + a.units - 1) / a.units;  // of a direction
+  const bool mma = rows == kMmaRows || rows == 2 * kMmaRows;
+  if (!mma && rows != kFfmaRows) return (int)cudaErrorInvalidValue;
+  const int cluster = mma ? rows / kMmaRows : 1;
+  if (blocks % cluster != 0) return (int)cudaErrorInvalidValue;
+  if (resident < 0 || resident > (mma ? 2 : 1)) return (int)cudaErrorInvalidValue;
+  const bool split = resident == 2 && !kBf16Product;
+  const FwdLayout l = fwd_layout(a.H, a.units, rows, a.B, resident != 0, split);
+  if ((size_t)l.total * sizeof(float) > (size_t)smem_bytes || smem_bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  // the exchange fwd_walk indexes: [2, kDirs, B, H]
+  if (hbuf_floats < 0 || (size_t)hbuf_floats != 2 * (size_t)kDirs * a.B * a.H)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      !mma           ? fwd_kernel<kCarry, S, kBf16Product, kFfmaRows>(resident != 0, split)
+      : cluster == 1 ? fwd_kernel<kCarry, S, kBf16Product, kMmaRows>(resident != 0, split)
+                     : fwd_kernel<kCarry, S, kBf16Product, 2 * kMmaRows>(resident != 0, split);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attrs[2];
+  const cudaLaunchConfig_t cfg =
+      walk_config(dim3((unsigned int)blocks, kDirs), cluster, smem_bytes, stream, attrs);
+  void* params[] = {const_cast<FwdArgs<S>*>(&a)};
+  const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, params);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();  // a refused launch leaves no error for the next one
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward: one persistent cooperative launch per call (design at the top).
+
+template <typename S>
+struct BwdArgs {
+  const S* x[2];        // [B, T, 4H] per direction
+  const float* wh[2];   // [H, 4H]
+  const S* ys[2];       // [B, T, H]
+  const S* cs[2];       // [B, T, H]
+  const S* gys[2];      // [B, T, H]
+  S* dx[2];             // [B, T, 4H]
+  const float* mask;    // [B, T]
+  unsigned int* sync;   // [dirs] arrival counters, zeroed by the caller
+  float* part;          // dh partials [2 (step parity), dirs, blocks (reader), blocks / cluster,
+                        //   B, u]: written and read inside the launch
+  int B, T, H, units, cluster;
+  float forget_bias;
+};
+
+// Slices of the dh sum: a reader's partials are ncl planes (one per cluster)
+// of P = B u values; items (value, slice of the planes) go round the
+// threads, as many slices (a power of two up to ncl) as keep the items
+// within the threads' kBwdMaxPairs each.
+__host__ __device__ inline int bwd_dh_slices(int P, int ncl) {
+  int s = 1;
+  while (2 * s <= ncl && 2 * s * P <= kThreads * kBwdMaxPairs) s *= 2;
+  return s;
+}
+
+// Dynamic shared memory of one backward block, offsets and size in floats.
+// nbp: the block's 4u gate columns padded to 16; kp: H padded to 16 (the gate
+// product's k); rpb readers per cluster rank, whose ni = rpb u units the rank
+// forms the partials of (nip padded to 8); kc = C nbp the partial product's
+// k; mp: B padded to 16 (row tiles). wc: Wc^T [nbp, ldk] (column n of Wc,
+// k contiguous); wr: Wr [nip, ldr] (unit i, the cluster's gate columns
+// contiguous); each twice (hi, then lo) when split, neither when streamed.
+// dg: the cluster's dgates [mp, ldg], block s of the cluster in columns
+// s nbp .. s nbp + 4u (every block writes its own into all of them); scr:
+// the gate product's k slices [ks_g, mp, ldo_g]; red: the dh sum's slices
+// [dhs, B u].
+struct BwdLayout {
+  int nb4, nbp, kp, ldk, rpb, ni, nip, kc, ldr, mp, ldg, ldo_g, ks_g, ncl, dhs;
+  int gn, gk0;  // the gate product's columns and first k (gates_mma): nbp, 0
+  int wc, wr, dg, scr, red, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int H, int u, int B, int cluster, bool resident,
+                                                bool split) {
+  BwdLayout l;
+  const int per_dir = (H + u - 1) / u;
+  l.nb4 = 4 * u;
+  l.nbp = (l.nb4 + 15) / 16 * 16;
+  l.kp = (H + 15) / 16 * 16;
+  l.ldk = mma_ld(l.kp);
+  l.rpb = per_dir / cluster;
+  l.ni = l.rpb * u;
+  l.nip = (l.ni + 7) / 8 * 8;
+  l.kc = cluster * l.nbp;
+  l.ldr = mma_ld(l.kc);
+  l.mp = (B + 15) / 16 * 16;
+  l.ldg = mma_ld(l.kc);
+  l.ldo_g = l.nbp + 8;  // 8 mod 32: the 8-byte stores of a half warp on distinct banks
+  l.ks_g = mma_ksplit(l.mp / 16 * ((l.nbp / 8 + 7) / 8), l.kp / 16);
+  l.gn = l.nbp;
+  l.gk0 = 0;
+  l.ncl = per_dir / cluster;
+  l.dhs = bwd_dh_slices(B * u, l.ncl);
+  const int copies = split ? 2 : 1;
+  l.wc = 0;
+  l.wr = l.wc + (resident ? copies * l.nbp * l.ldk : 0);
+  l.dg = l.wr + (resident ? copies * l.nip * l.ldr : 0);
+  l.scr = l.dg + l.mp * l.ldg;
+  l.red = l.scr + l.ks_g * l.mp * l.ldo_g;
+  l.total = l.red + l.dhs * B * u;
+  return l;
+}
+
+// Stage the block's slices of Wh (kResident): Wc^T (stage_wc) and
+// Wr[i][s nbp + c] = Wh[i0 + i][gate column c of cluster block s], zero past
+// H and in the pads; each value split into TF32 hi and lo when kSplit.
+template <bool kSplit>
+__device__ void stage_bwd_w(float* smem, const BwdLayout& L, const float* __restrict__ wh, int H,
+                            int u, int j0, int i0, int jc) {
+  const int G = 4 * H;
+  stage_wc<kSplit, false>(smem + L.wc, L, wh, H, u, j0);
+  float* wr = smem + L.wr;
+  for (int e = threadIdx.x; e < L.nip * L.kc; e += kThreads) {
+    const int i = e / L.kc;
+    const int c = e - i * L.kc;
+    const int s = c / L.nbp;
+    const int col = own_col(c - s * L.nbp, u, jc + s * u, H);
+    put_w<kSplit>(wr, i * L.ldr + c, L.nip * L.ldr,
+                  col >= 0 && i < L.ni && i0 + i < H ? __ldg(wh + (size_t)(i0 + i) * G + col)
+                                                     : 0.0f);
   }
 }
 
@@ -1117,7 +1570,7 @@ __device__ void bwd_partials(const float* dgs, const float* smem, const BwdLayou
             split4(make_float4(v[0], v[1], v[2], v[3]), bh[j], bl[j]);
           }
         }
-        mma3<false, kG, kNT>(acc, g, a, bh, bl);
+        mma3<3, kG, kNT>(acc, g, a, bh, bl);
       }
     }
 #pragma unroll
@@ -1172,7 +1625,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
       __syncthreads();
     }
   };
-  const bool tracing = bwd_trace_on != 0;  // the same for every thread of the launch
+  const bool tracing = walk_trace_on != 0;  // the same for every thread of the launch
   const bool tracer = tracing && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0;
   // a trace point of step t; `sync`: after a barrier of the whole block, so
   // that it marks the block's work and not thread 0's
@@ -1180,11 +1633,11 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
     if (!tracing) return;
     if (sync) __syncthreads();
     const int step = T - 1 - t;
-    if (tracer && step < kTraceSteps) bwd_trace[step * kTracePoints + point] = clock64();
+    if (tracer && step < kTraceSteps) walk_trace[step * kTracePoints + point] = clock64();
   };
   if (tracer) {
-    bwd_trace[kTraceSteps * kTracePoints] = clock64();
-    bwd_trace[kTraceSteps * kTracePoints + 1] = global_ns();
+    walk_trace[kTraceSteps * kTracePoints] = clock64();
+    walk_trace[kTraceSteps * kTracePoints + 1] = global_ns();
   }
 
   if (kResident) stage_bwd_w<kSplit>(smem, L, wh, H, u, j0, i0, jc);  // for all T steps
@@ -1220,16 +1673,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
     if (t > 0) {
       const S* rows = ys + (size_t)(t - 1) * H;
       const size_t stride = (size_t)T * H;
-      const int nct = L.nbp / 8;  // 2, 4, 8 or more (a multiple of 8)
-      if ((H & 3) != 0) {
-        bwd_gates<2, false, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
-      } else if (nct == 2) {
-        bwd_gates<2, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
-      } else if (nct == 4) {
-        bwd_gates<4, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
-      } else {
-        bwd_gates<8, true, kResident, kSplit, S>(rows, stride, smem, L, wh, B, H, u, j0, scr);
-      }
+      // bf16 ys rows are TF32 values: two passes
+      gates_mma<kResident, kSplit, sizeof(S) == 2 ? 2 : 3, false>(rows, stride, smem, L, wh, B,
+                                                                   H, u, j0, scr);
     }
     __syncthreads();
     mark(t, 1, false);
@@ -1425,20 +1871,10 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_walk(const BwdArgs<S> a) {
     }
   }
   if (tracer) {
-    bwd_trace[kTraceSteps * kTracePoints + 2] = clock64();
-    bwd_trace[kTraceSteps * kTracePoints + 3] = global_ns();
+    walk_trace[kTraceSteps * kTracePoints + 2] = clock64();
+    walk_trace[kTraceSteps * kTracePoints + 3] = global_ns();
   }
   cluster_sync();  // no block leaves while another may read its shared memory
-}
-
-// Set the backward's step trace on (on != 0) or off (out null), or copy the
-// last launch's trace (kTraceFloats values) to host memory at out. Returns
-// the CUDA error.
-inline int bwd_trace_ctl(int on, long long* out) {
-  const cudaError_t e = out == nullptr
-                            ? cudaMemcpyToSymbol(bwd_trace_on, &on, sizeof(int))
-                            : cudaMemcpyFromSymbol(out, bwd_trace, sizeof(bwd_trace));
-  return (int)e;
 }
 
 // The reverse walk's kernel for a plan's resident and split.
@@ -1449,25 +1885,6 @@ const void* bwd_kernel(int resident, int split) {
                   : reinterpret_cast<const void*>(bwd_walk<false, false, S>);
 }
 
-// A cooperative launch of kThreads-thread blocks in clusters of `cluster`
-// (no cluster attribute at 1); attrs holds the attributes cfg points at.
-inline cudaLaunchConfig_t bwd_config(dim3 grid, int cluster, int smem_bytes, void* stream,
-                                     cudaLaunchAttribute (&attrs)[2]) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = (size_t)smem_bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attrs[0].id = cudaLaunchAttributeCooperative;
-  attrs[0].val.cooperative = 1;
-  attrs[1].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].val.clusterDim.x = (unsigned int)cluster;
-  attrs[1].val.clusterDim.y = 1;
-  attrs[1].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = cluster > 1 ? 2 : 1;
-  return cfg;
-}
 
 // Launch the reverse walk of kDirs directions (1 or 2) as one cooperative
 // kernel on `stream`: grid (ceil(H / a.units), kDirs) in clusters of
@@ -1506,7 +1923,7 @@ int run_bwd_walk(const BwdArgs<S>& a, int part_floats, int resident, int split, 
   }
   cudaLaunchAttribute attrs[2];
   const cudaLaunchConfig_t cfg =
-      bwd_config(dim3((unsigned int)blocks, kDirs), C, smem_bytes, stream, attrs);
+      walk_config(dim3((unsigned int)blocks, kDirs), C, smem_bytes, stream, attrs);
   void* params[] = {const_cast<BwdArgs<S>*>(&a)};
   const cudaError_t e = cudaLaunchKernelExC(&cfg, kernel, params);
   if (e != cudaSuccess) {
@@ -1531,7 +1948,7 @@ int bwd_max_clusters(int blocks, int cluster, int resident, int split, int smem_
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attrs[2];
   cudaLaunchConfig_t cfg =
-      bwd_config(dim3((unsigned int)blocks, kDirs), cluster, smem_bytes, nullptr, attrs);
+      walk_config(dim3((unsigned int)blocks, kDirs), cluster, smem_bytes, nullptr, attrs);
   cfg.attrs = attrs + 1;  // the cluster alone
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   int n = 0;

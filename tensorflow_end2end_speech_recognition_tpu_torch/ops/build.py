@@ -104,6 +104,8 @@ SIGNATURES = {
     "lstm_layer_bwd": [_P] * 9 + [_I] * 9 + [_F, _P],
     "lstm_bidi_bwd_max_clusters": [_I] * 6,
     "lstm_layer_bwd_max_clusters": [_I] * 6,
+    "lstm_bidi_fwd_trace": [_I, _P],
+    "lstm_layer_fwd_trace": [_I, _P],
     "lstm_bidi_bwd_trace": [_I, _P],
     "lstm_layer_bwd_trace": [_I, _P],
     "ctc_loss_fwd_bwd": [_P] * 12 + [_I] * 15 + [_P],

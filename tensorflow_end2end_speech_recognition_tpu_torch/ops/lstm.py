@@ -223,7 +223,10 @@ def _device_of(what, x):
 BWD_THREADS = 256  # threads per block
 BWD_WARPS = BWD_THREADS // 32
 BWD_CLUSTERS = (8, 4, 2, 1)  # thread-block clusters the backward takes, largest first
-FWD_ROWS = (8, 32)  # batch rows per staged chunk the forward takes
+FWD_FFMA_ROWS = 8  # launches of at most this many rows take the forward's FFMA product
+FWD_MMA_ROWS = 16  # past them, the tensor cores' row tile: the plan's rows / cluster
+FWD_CLUSTER_MIN_ROWS = 64  # launches of at least this many rows split its k over 2 blocks
+FWD_STAGE_FLOATS = BWD_WARPS * 3 * 16 * 48  # kStageFloats: the warps' rings of h_{t-1}
 BWD_STAGE_ROW = 256 + 4  # floats per staged row (256 k and 4 of padding)
 BWD_UNITS = (1, 2, 4, 8, 16, 32, 64, 128)  # unit tiles the kernels take
 BWD_MAX_PAIRS = 8  # (row, unit) carries a thread keeps in registers
@@ -237,12 +240,14 @@ class FwdPlan(NamedTuple):
     units: int  # hidden units per block, of one direction, for every batch row
     blocks: int  # blocks of a launch, all directions
     resident: bool  # the block's slice of Wh held in shared memory
-    rows: int  # batch rows per staged chunk of the gate product
+    rows: int  # the product path: FWD_FFMA_ROWS, or FWD_MMA_ROWS x cluster
     smem_bytes: int  # dynamic shared memory per block
     resident_bytes: int  # of which the Wh slice (0 when streamed)
     hbuf_floats: int  # the h exchange of a launch: [2, dirs, chunk_rows, H]
     chunks: int  # launches per call: the batch split to fit the register carries
     chunk_rows: int  # batch rows of every launch but the last
+    split: bool  # the resident slice held as TF32 hi and lo parts (tensor cores)
+    cluster: int  # blocks (a cluster along x) that split the tensor cores' k; 0: FFMA
 
 
 class BwdPlan(NamedTuple):
@@ -287,45 +292,86 @@ def _batch_chunks(batch: int, units: int, max_rows: int | None = None) -> tuple[
     return -(-batch // rows), rows
 
 
-def _resident_or_streamed(smem_floats) -> tuple[bool, int, int]:
-    """(resident, all, Wh slice) floats: the slice resident when it fits."""
-    floats, wh = smem_floats(True)
-    if floats * 4 <= MAX_SMEM:
-        return True, floats, wh
-    return (False, *smem_floats(False))
+def _fwd_smem_floats(h: int, units: int, rows: int, resident: bool, split: bool = False,
+                     batch: int = 0) -> tuple[int, int]:
+    """(all, Wh slice) floats of one forward block's shared memory: ``fwd_layout``.
+
+    FFMA (``rows`` ``FWD_FFMA_ROWS``): Wc, the staged chunk, the k slices'
+    partial sums, the chunk's gates. Tensor cores (``rows`` ``FWD_MMA_ROWS``
+    x C, ``batch`` the launch's rows): Wc^T of the C blocks' columns over one
+    block's share of k (twice when ``split``), the gates' k slices for every
+    row, the partner's sums of this block's columns when C = 2, and the
+    warps' staging rings of h_{t-1}.
+    """
+    if rows == FWD_FFMA_ROWS:
+        hp, nb = -(-h // 4) * 4, 4 * units
+        wh = hp * (nb + 4) if resident else 0
+        return wh + 2 * rows * BWD_STAGE_ROW + BWD_THREADS * 16 + rows * nb, wh
+    c = rows // FWD_MMA_ROWS
+    nbp, mp = -(-4 * units // 16) * 16, -(-batch // 16) * 16
+    ksteps = -(-(-(-h // 16)) // c)
+    wh = (2 if split else 1) * c * nbp * _pad16(16 * ksteps) if resident else 0
+    gates = _ksplit(mp // 16 * -(-c * nbp // 64), ksteps) * mp * (c * nbp + 8)
+    return wh + gates + (mp * nbp if c > 1 else 0) + FWD_STAGE_FLOATS, wh
 
 
-def _fwd_smem_floats(h: int, units: int, rows: int, resident: bool) -> tuple[int, int]:
-    """(all, Wh slice) floats of one forward block's shared memory: ``fwd_layout``."""
-    hp, nb = -(-h // 4) * 4, 4 * units
-    wh = hp * (nb + 4) if resident else 0
-    return wh + 2 * rows * BWD_STAGE_ROW + BWD_THREADS * 16 + rows * nb, wh
+def _fwd_fit(h: int, units: int, rows: int, batch: int) -> tuple[bool, bool, int, int]:
+    """(resident, split, all, Wh slice) floats of a forward layout: the slice
+    as TF32 hi and lo parts on the tensor cores where both copies fit
+    ``MAX_SMEM``, whole where one does, else read through L2."""
+    layouts = ((True, False),) if rows == FWD_FFMA_ROWS else ((True, True), (True, False))
+    for resident, split in (*layouts, (False, False)):
+        floats, wh = _fwd_smem_floats(h, units, rows, resident, split, batch)
+        if floats * 4 <= MAX_SMEM:
+            break
+    return resident, split, floats, wh
 
 
-def fwd_plan(h: int, dirs: int, batch: int, sm_count: int) -> FwdPlan:
-    """Unit tile, grid, row chunk and shared memory of one forward call.
+def fwd_plan(h: int, dirs: int, batch: int, sm_count: int, cluster: int | None = None) -> FwdPlan:
+    """Unit tile, grid, product path and shared memory of one forward call.
 
-    The tile is ``bwd_plan``'s. The gate product stages the fewest rows in
-    ``FWD_ROWS`` that hold a launch's batch (32 past it), so that a serving
-    batch of 8 leaves no row tile idle. Past ``MAX_CARRIES`` the call is
-    split into ``chunks`` launches over contiguous rows.
+    The tile is ``bwd_plan``'s. A launch of more than ``FWD_FFMA_ROWS`` rows
+    forms every row's gates in one pass on the tensor cores (3xTF32
+    ``mma.sync``), the block's ``Wh`` slice held as TF32 hi and lo parts where
+    both copies fit, whole where one does, else read through L2; from
+    ``FWD_CLUSTER_MIN_ROWS`` rows, where a direction's blocks pair up and the
+    pair's layout still holds ``Wh`` as hi and lo parts, the blocks pair in
+    clusters that split the product's k (``rows`` = ``FWD_MMA_ROWS`` x
+    ``cluster``). A launch of up to ``FWD_FFMA_ROWS`` rows (serving, the
+    streaming chunks) takes FFMA (``rows`` = ``FWD_FFMA_ROWS``, ``cluster``
+    0), whose sums a streamed chunk and its whole utterance share.
+    ``cluster`` forces the path: 0 FFMA, 1 or 2 the tensor cores (the probe's
+    comparison). Past ``MAX_CARRIES``, or past the rows whose shared memory
+    fits, the call is split into ``chunks`` launches over contiguous rows.
     """
     units = _unit_tile("fwd_plan", h, dirs, batch, sm_count)
-    chunks, chunk_rows = _batch_chunks(batch, units)
-    rows = next((r for r in FWD_ROWS if r >= chunk_rows), FWD_ROWS[-1])
-    resident, floats, wh = _resident_or_streamed(
-        lambda res: _fwd_smem_floats(h, units, rows, res))
-    return FwdPlan(units, dirs * -(-h // units), resident, rows, floats * 4, wh * 4,
-                   2 * dirs * chunk_rows * h, chunks, chunk_rows)
+    per_dir = -(-h // units)
+    carried = _batch_chunks(batch, units)[1]  # the rows of a launch as the carries allow
+    if cluster is None:
+        if carried <= FWD_FFMA_ROWS:
+            cluster = 0
+        else:
+            cluster = 2 if (carried >= FWD_CLUSTER_MIN_ROWS and per_dir % 2 == 0
+                            and _fwd_fit(h, units, 2 * FWD_MMA_ROWS, carried)[1]) else 1
+    elif cluster not in (0, 1, 2) or (cluster and per_dir % cluster):
+        raise ValueError(f"fwd_plan: no clusters of {cluster} for {per_dir} blocks a direction")
+    rows = FWD_MMA_ROWS * cluster if cluster else FWD_FFMA_ROWS
+    max_rows = MAX_CARRIES // units
+    while rows != FWD_FFMA_ROWS and _fwd_fit(h, units, rows, max_rows)[2] * 4 > MAX_SMEM:
+        max_rows //= 2
+    chunks, chunk_rows = _batch_chunks(batch, units, max_rows)
+    resident, split, floats, wh = _fwd_fit(h, units, rows, chunk_rows)
+    return FwdPlan(units, dirs * per_dir, resident, rows, floats * 4, wh * 4,
+                   2 * dirs * chunk_rows * h, chunks, chunk_rows, split, cluster)
 
 
 def _pad16(n: int) -> int:
-    """A multiple of 16 padded to 16 mod 32 floats (``bwd_ld``)."""
+    """A multiple of 16 padded to 16 mod 32 floats (``mma_ld``)."""
     return n + 16 if n % 32 == 0 else n
 
 
 def _ksplit(items: int, ksteps: int) -> int:
-    """``bwd_ksplit``: k slices that keep each warp on its own work item."""
+    """``mma_ksplit``: k slices that keep each warp on its own work item."""
     ks = 1
     while 2 * ks * items <= BWD_WARPS and 2 * ks <= ksteps:
         ks *= 2
@@ -452,21 +498,21 @@ def bwd_plan_for(dev: torch.device, h: int, dirs: int, batch: int,
                     functools.partial(_max_clusters, index, dirs, bf16))
 
 
-# The backward's step trace (``csrc/lstm_step.cuh`` kTraceSteps, kTracePoints)
-# and the phases between its marks.
+# The walks' step traces (``csrc/lstm_step.cuh`` kTraceSteps, kTracePoints,
+# kFwdTracePoints) and the phases between their marks; a phase runs from its
+# mark to the next (the last to the next step's first).
 BWD_TRACE_STEPS, BWD_TRACE_POINTS = 64, 9
 BWD_TRACE_PHASES = ("gates", "wait", "dh_sum", "derivatives", "dg_copy", "cluster_barrier",
                     "partials", "arrive", "dx_and_loads")
+FWD_TRACE_POINTS = 5
+FWD_TRACE_PHASES = ("stream_loads", "wait", "product", "epilogue", "arrive")
 
 
-def bwd_trace(entry: str, call) -> list:
-    """The step trace of one ``call`` that launches backward kernel ``entry``
-    (``lstm_bidi_bwd`` or ``lstm_layer_bwd``, either stream type): clock64()
-    of thread 0 of block (0, 0) at the ``BWD_TRACE_POINTS`` marks of each of
-    the first ``BWD_TRACE_STEPS`` steps, then clock64() and the global timer
-    (ns) at the launch's start and end. While the trace is on the kernel
-    meets at a block barrier at some marks, so the traced call is timed
-    apart from an untraced one. Raises on a CUDA error."""
+def _trace(entry: str, call) -> list:
+    """The trace of one ``call`` that launches a walk of the source whose
+    trace entry is ``entry``_trace: the values the kernel wrote, clock64() and
+    the global timer (ns) at the launch's start and end last. Raises on a CUDA
+    error."""
     lib = build.load_library()
     ctl, what = getattr(lib, f"{entry}_trace"), f"{entry}_trace"
     buf = (ctypes.c_longlong * (BWD_TRACE_STEPS * BWD_TRACE_POINTS + 4))()
@@ -480,19 +526,52 @@ def bwd_trace(entry: str, call) -> list:
     return list(buf)
 
 
-def bwd_step_phases(trace: list) -> dict:
-    """µs per phase of a step (``BWD_TRACE_PHASES``): the mean over steps
-    1 .. ``BWD_TRACE_STEPS`` - 2 of a ``bwd_trace``, cycles converted by the
-    launch's clock and timer."""
+def _step_phases(trace: list, points: int, phases: tuple) -> dict:
+    """µs per phase of a step: the mean over steps 1 .. ``BWD_TRACE_STEPS`` -
+    2 of a trace of ``points`` marks a step, cycles converted by the launch's
+    clock and timer."""
     c0, n0, c1, n1 = trace[-4:]
     us = (n1 - n0) / max(c1 - c0, 1) / 1e3  # µs per cycle
     steps = range(1, BWD_TRACE_STEPS - 1)
-    sums = [0.0] * len(BWD_TRACE_PHASES)
+    sums = [0.0] * len(phases)
     for st in steps:
-        marks = trace[st * BWD_TRACE_POINTS:(st + 1) * BWD_TRACE_POINTS + 1]
-        for k in range(len(BWD_TRACE_PHASES)):
+        marks = trace[st * points:(st + 1) * points + 1]
+        for k in range(len(phases)):
             sums[k] += (marks[k + 1] - marks[k]) * us
-    return {ph: x / len(steps) for ph, x in zip(BWD_TRACE_PHASES, sums)}
+    return {ph: x / len(steps) for ph, x in zip(phases, sums)}
+
+
+def bwd_trace(entry: str, call) -> list:
+    """The step trace of one ``call`` that launches backward kernel ``entry``
+    (``lstm_bidi_bwd`` or ``lstm_layer_bwd``, either stream type): clock64()
+    of thread 0 of block (0, 0) at the ``BWD_TRACE_POINTS`` marks of each of
+    the first ``BWD_TRACE_STEPS`` steps, then clock64() and the global timer
+    (ns) at the launch's start and end. While the trace is on the kernel
+    meets at a block barrier at some marks, so the traced call is timed
+    apart from an untraced one. Raises on a CUDA error."""
+    return _trace(entry, call)
+
+
+def bwd_step_phases(trace: list) -> dict:
+    """µs per phase of a backward step (``BWD_TRACE_PHASES``) of a ``bwd_trace``."""
+    return _step_phases(trace, BWD_TRACE_POINTS, BWD_TRACE_PHASES)
+
+
+def fwd_trace(entry: str, call) -> list:
+    """The step trace of one ``call`` that launches forward kernel ``entry``
+    (``lstm_bidi_fwd`` or ``lstm_layer_fwd``: any walk of its source, either
+    stream type, the carried ones too): clock64() of thread 0 of block (0, 0)
+    at the ``FWD_TRACE_POINTS`` marks of each of the first
+    ``BWD_TRACE_STEPS`` steps (from the buffer's start), then, at the
+    buffer's end as in ``bwd_trace``, the launch's clocks and timers. A
+    traced call meets at block barriers at some marks: time it apart. Raises
+    on a CUDA error."""
+    return _trace(entry, call)
+
+
+def fwd_step_phases(trace: list) -> dict:
+    """µs per phase of a forward step (``FWD_TRACE_PHASES``) of a ``fwd_trace``."""
+    return _step_phases(trace, FWD_TRACE_POINTS, FWD_TRACE_PHASES)
 
 
 def _rows(b0: int, b1: int, *tensors) -> tuple:
@@ -524,7 +603,8 @@ def _walk(lib, what: str, plan_for, dev, dirs: int, batch: int, t: int, h: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         for i, (b0, p) in enumerate(zip(starts, plans)):
             b1 = min(batch, b0 + plan.chunk_rows)
-            layout = ((p.hbuf_floats, b1 - b0, t, h, p.units, int(p.resident), p.rows)
+            layout = ((p.hbuf_floats, b1 - b0, t, h, p.units, int(p.resident) + int(p.split),
+                       p.rows)
                       if fwd else (p.part_floats, b1 - b0, t, h, p.units, int(p.resident),
                                    int(p.split), p.cluster))
             code = getattr(lib, what)(*pointers(b0, b1), sync[i * dirs:].data_ptr(),

@@ -341,8 +341,8 @@ def _check_forward_kernels(dev, b, t, h, mask=None):
 @pytest.mark.parametrize("h", [256, 270, 320, 512])
 def test_forward_kernels_at_model_widths(dev, b, h):
     """#1 and #3 at the configs' widths and H = 270 (a unit tile that leaves a
-    remainder): B = 1 and 8 stage 8 rows, B = 33 and 64 two chunks of 32;
-    lengths include 1 and T."""
+    remainder): B = 1 and 8 on FFMA, B = 33 and 64 on the tensor cores (#3 at
+    64 in clusters of 2 that split k); lengths include 1 and T."""
     for dirs in (1, 2):
         assert fwd_plan_for(dev, h, dirs, b).resident
     _check_forward_kernels(dev, b, 24, h)
@@ -392,9 +392,9 @@ def test_forward_launch_that_cannot_be_resident_raises(dev, monkeypatch):
 
 def test_forward_entry_points_refuse_an_exchange_buffer_of_another_size(dev):
     """The C entry points hold the h exchange against what the kernel indexes
-    at the call's B and H, and take 8 or 32 rows a chunk: a plan made for
-    another batch or width, or an odd row chunk, is refused
-    (cudaErrorInvalidValue) before anything runs."""
+    at the call's B and H, and take rows of 8 (FFMA), 16 (the tensor cores'
+    row tile) or 32 (clusters of 2): a plan made for another batch or width,
+    or other rows, is refused (cudaErrorInvalidValue) before anything runs."""
     b, t, h = 40, 5, 512
     xf, xb, whf, whb, mask = _inputs(dev, b, t, h, [t] * b, seed=9)
     lib = build.load_library()
@@ -403,7 +403,8 @@ def test_forward_entry_points_refuse_an_exchange_buffer_of_another_size(dev):
     sync = torch.zeros(2, dtype=torch.int32, device=dev)
     invalid_value = 1
     good = fwd_plan_for(dev, h, 1, b)
-    for plan in (fwd_plan_for(dev, h, 1, 8), fwd_plan_for(dev, 256, 1, b), good._replace(rows=12)):
+    for plan in (fwd_plan_for(dev, h, 1, 8), fwd_plan_for(dev, 256, 1, b), good._replace(rows=12),
+                 good._replace(rows=24)):
         hbuf = torch.empty(plan.hbuf_floats, dtype=torch.float32, device=dev)
         code = lib.lstm_layer_fwd(
             xf.data_ptr(), whf.data_ptr(), mask.data_ptr(), ys.data_ptr(), None,
@@ -446,6 +447,104 @@ def test_kernels_past_the_register_carries(dev, b, t, h):
         2 if b == 600 else 1)
     _check_forward_kernels(dev, b, t, h)
     _check_backward_kernels(dev, b, t, h)
+
+
+@pytest.mark.parametrize("b", [128, 100])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_forward_kernels_at_the_headline_batch(dev, b, bf16):
+    """#1 and #3 with ``cs`` at the headline's batch (B = 128) and at B = 100
+    (not a multiple of the 16-row tiles), H = 512, ragged lengths that include
+    1 and T, in float32 and bf16 streams: the plan forms every row's gates in
+    one pass on the tensor cores with Wh held in shared memory, one launch a
+    call; within today's tolerances of the plain versions, two calls equal bit
+    for bit."""
+    t, h = 24, 512
+    rng = np.random.RandomState(b)
+    lengths = [t, 1] + [int(x) for x in rng.randint(1, t + 1, b - 2)]
+    xf, xb, whf, whb, mask = _inputs(dev, b, t, h, lengths, seed=b + 3)
+    if bf16:
+        xf, xb = xf.bfloat16(), xb.bfloat16()
+    for dirs in (1, 2):
+        plan = fwd_plan_for(dev, h, dirs, b)
+        assert plan.chunks == 1 and plan.resident, plan
+    counter = "launches_bf16" if bf16 else "launches"
+    before = (getattr(lstm_bidi, counter), getattr(lstm_layer, counter))
+    got, again = (lstm_bidi_fwd(xf, xb, whf, whb, mask, 1.0, with_cs=True) for _ in range(2))
+    got1, again1 = (lstm_layer_fwd(xf, whf, mask, 0.5, with_cs=True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (getattr(lstm_bidi, counter), getattr(lstm_layer, counter)) == (
+        before[0] + 2, before[1] + 2)
+    want = (*lstm_bidi_fwd_plain(xf, xb, whf, whb, mask, 1.0),
+            *lstm_layer_fwd_plain(xf, whf, mask, 0.5))
+    for g, w in zip((*got, *got1), want):
+        if bf16:
+            _close_bf16(g, w)
+        else:
+            torch.testing.assert_close(g, w, **LSTM_TOL)
+    assert all(torch.equal(g, a) for g, a in zip((*got, *got1), (*again, *again1)))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2])
+@pytest.mark.parametrize("b,h", [(8, 512), (33, 270), (5, 1536)])
+def test_forward_product_paths_match_plain(dev, monkeypatch, cluster, b, h):
+    """Each gate product ``fwd_plan`` can choose (FFMA, the tensor cores, the
+    tensor cores in clusters of 2 that split k), forced at the serving batch,
+    past it at a width with a remainder tile and rows that are not 16-byte
+    aligned, and with Wh read through L2: #1 and #3
+    (``_check_forward_kernels``) and #3's carried walks, float32 and with
+    bf16 products, against their plain versions; a row that no step unmasks
+    gives back (h0, c0) bit for bit."""
+    sms = lstm_ops._sm_count(dev.index or 0)
+    monkeypatch.setattr(lstm_ops, "fwd_plan_for", lambda d, h_, dirs, batch: lstm_ops.fwd_plan(
+        h_, dirs, batch, sms, cluster))
+    assert lstm_ops.fwd_plan_for(dev, h, 2, b).cluster == cluster
+    _check_forward_kernels(dev, b, 12, h)
+    t = 7
+    lengths = ([t, 0, 3, 1, 0] + [t] * b)[:b]
+    x, _, wh, _, mask = _inputs(dev, b, t, h, lengths, seed=h + b)
+    rng = np.random.RandomState(b)
+    h0, c0 = (torch.from_numpy(rng.randn(b, h).astype(np.float32)).to(dev) for _ in range(2))
+    paused = torch.tensor(lengths, device=dev) == 0
+    with torch.no_grad():
+        for bf16_product in (False, True):
+            ys, (h_t, c_t) = lstm_layer(x, wh, mask, 0.5, initial_state=(h0, c0),
+                                        bf16_product=bf16_product)
+            torch.cuda.synchronize()
+            want_ys, _, (want_h, want_c) = lstm_layer_fwd_plain(x, wh, mask, 0.5, (h0, c0),
+                                                                bf16_product=bf16_product)
+            tol = BF16_PRODUCT_TOL if bf16_product else LSTM_TOL
+            for g, w in ((ys, want_ys), (h_t, want_h), (c_t, want_c)):
+                torch.testing.assert_close(g, w, **tol)
+            assert torch.equal(h_t[paused], h0[paused]) and torch.equal(c_t[paused], c0[paused])
+
+
+@pytest.mark.parametrize("entry,b", [("lstm_bidi_fwd", 8), ("lstm_layer_fwd", 40)])
+def test_forward_step_trace(dev, entry, b):
+    """The forward's own step trace (``lstm.fwd_trace``, which chip_smoke.py
+    and probes/lstm_fwd_time.py read), on FFMA (B = 8) and on the tensor
+    cores (B = 40): off by default; on, one launch records its first steps'
+    phase marks in order and its clock and timer at start and end; off again,
+    results are the same bits."""
+    t, h = 70, 512
+    args = _inputs(dev, b, t, h, [t] * b, seed=14)
+    x, _, wh, _, mask = args
+    run = ((lambda: lstm_bidi_fwd(*args, 1.0, with_cs=True)) if entry == "lstm_bidi_fwd"
+           else (lambda: lstm_layer_fwd(x, wh, mask, 0.5, with_cs=True)))
+    steps, points = lstm_ops.BWD_TRACE_STEPS, lstm_ops.FWD_TRACE_POINTS
+    plain = run()
+    out = []
+    v = lstm_ops.fwd_trace(entry, lambda: out.append(run()))
+    again = run()
+    torch.cuda.synchronize()
+    assert len(v) == steps * lstm_ops.BWD_TRACE_POINTS + 4
+    c0, n0, c1, n1 = v[-4:]
+    assert c1 > c0 > 0 and n1 > n0 > 0
+    marks = [m for s in range(steps) for m in v[s * points:(s + 1) * points]]
+    assert all(c0 <= m <= c1 for m in marks)
+    assert all(a <= z for a, z in zip(marks, marks[1:]))  # steps and their phases in order
+    phases = lstm_ops.fwd_step_phases(v)
+    assert list(phases) == list(lstm_ops.FWD_TRACE_PHASES) and all(x >= 0 for x in phases.values())
+    assert all(torch.equal(p, q) and torch.equal(p, r) for p, q, r in zip(plain, out[0], again))
 
 
 @pytest.mark.parametrize("b,t,h,lengths", SHAPES)

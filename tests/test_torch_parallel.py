@@ -3,10 +3,11 @@ the train steps built with ``mesh=``, ``fit`` and ``bin/train`` with
 ``num_devices: 2``) against the JAX package's DP on ``make_mesh(2)``, on the
 CPU over a world of 2 ``gloo`` ranks.
 
-The module fixture computes the JAX references and the one-process runs
-first, then runs the ranks in one spawn of ``tests/torch_parallel_workers.py``
-(jax-free), then ``bin/train`` under ``torch.distributed.run``: no two of
-these at once. Both sides start from the same JAX-initialised weights
+The module fixture starts ``bin/train`` under ``torch.distributed.run``
+and the ranks of every case but the resume in one spawn of
+``tests/torch_parallel_workers.py`` (jax-free), computes the JAX references
+and the one-process runs while they run, then resumes the one-process
+checkpoint in a second spawn of the world. Both sides start from the same JAX-initialised weights
 (bridged with ``utils/bridge.py``) and take the same seeded numpy batch of
 B = 4 ragged rows of precomputed features, the last a filler of weight 0
 (rank 1 holds rows 2 and 3): the CTC model (BLSTM-8), the joint
@@ -269,46 +270,53 @@ def _epoch_row(model_dir: Path, epoch: int) -> dict:
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """The JAX references and the one-process runs, then one spawn of 2 ranks
-    for every world-2 case of this module, then one ``bin/train`` under
-    ``torch.distributed.run``, one after the other."""
+    """``bin/train`` under ``torch.distributed.run`` and a spawn of 2 ranks
+    for every world-2 case of this module but the resume started first; the
+    JAX references and the one-process runs computed while they run; then
+    the resume of the one-process checkpoint in world 2."""
     tmp = tmp_path_factory.mktemp("world")
     out = tmp / "out"
-    want = {f"dp_{f}_{o}": jax_steps(f, o) for f, o in STEP_CASES}
-    eval1 = {k: workers.eval_rates(experiment_from_dict(raw)) for k, raw in EVAL.items()}
-    # one process for two epochs (log_every 1, as the ranks' fit jobs: train_loss is
-    # the mean of every step's loss); its epoch-0 checkpoint alone resumes in world 2
-    one = tmp / "one"
-    two_epochs = fit(experiment_from_dict(dict(FIT, num_epoch=2)), one, log_every=1,
-                     print_fn=lambda *a: None, device="cpu")
-    (tmp / "back" / "checkpoints").mkdir(parents=True)
-    shutil.copy(one / "checkpoints" / "epoch_0.pt", tmp / "back" / "checkpoints")
-    (tmp / "back" / "checkpoints" / "index.json").write_text(
-        json.dumps({"0": _epoch_row(one, 0)["dev_error_rate"]}))
-    exp2 = experiment_from_dict(dict(FIT, num_devices=WORLD))
-    jobs = [port_job(f"dp_{f}_{o}", f, o) for f, o in STEP_CASES]
-    jobs.append(port_job("dp_ctc_accum2", "ctc", "sgd", accum=2))
-    jobs += [dict(kind="eval", name=f"eval_{k}",
-                  exp=experiment_from_dict(dict(raw, num_devices=WORLD)))
-             for k, raw in EVAL.items()]
-    jobs.append(dict(kind="fit", name="fit_dp", exp=exp2, model_dir=str(tmp / "two")))
-    jobs.append(dict(kind="fit", name="fit_back", model_dir=str(tmp / "back"),
-                     exp=dataclasses.replace(exp2, num_epoch=2)))
-    jobs.append(dict(kind="refused", name="fit_unset", model_dir=str(tmp / "unset"),
-                     exp=experiment_from_dict(FIT)))
-    workers.join(workers.spawn(jobs, WORLD, tmp, out))
     cfg = tmp / "fsdp.yml"
     cfg.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in
                            dict(FIT, num_devices=WORLD, fsdp=True).items()))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    torchrun = subprocess.run(
+    torchrun = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
          str(WORLD), "-m", "tensorflow_end2end_speech_recognition_tpu_torch.bin.train",
          str(cfg), str(tmp / "cli"), "--device", "cpu"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        timeout=300)
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        exp2 = experiment_from_dict(dict(FIT, num_devices=WORLD))
+        jobs = [port_job(f"dp_{f}_{o}", f, o) for f, o in STEP_CASES]
+        jobs.append(port_job("dp_ctc_accum2", "ctc", "sgd", accum=2))
+        jobs += [dict(kind="eval", name=f"eval_{k}",
+                      exp=experiment_from_dict(dict(raw, num_devices=WORLD)))
+                 for k, raw in EVAL.items()]
+        jobs.append(dict(kind="fit", name="fit_dp", exp=exp2, model_dir=str(tmp / "two")))
+        jobs.append(dict(kind="refused", name="fit_unset", model_dir=str(tmp / "unset"),
+                         exp=experiment_from_dict(FIT)))
+        (tmp / "w").mkdir()
+        ranks = workers.spawn(jobs, WORLD, tmp / "w", out)
+        want = {f"dp_{f}_{o}": jax_steps(f, o) for f, o in STEP_CASES}
+        eval1 = {k: workers.eval_rates(experiment_from_dict(raw)) for k, raw in EVAL.items()}
+        # one process for two epochs (log_every 1, as the ranks' fit jobs: train_loss is
+        # the mean of every step's loss); its epoch-0 checkpoint alone resumes in world 2
+        one = tmp / "one"
+        two_epochs = fit(experiment_from_dict(dict(FIT, num_epoch=2)), one, log_every=1,
+                         print_fn=lambda *a: None, device="cpu")
+        (tmp / "back" / "checkpoints").mkdir(parents=True)
+        shutil.copy(one / "checkpoints" / "epoch_0.pt", tmp / "back" / "checkpoints")
+        (tmp / "back" / "checkpoints" / "index.json").write_text(
+            json.dumps({"0": _epoch_row(one, 0)["dev_error_rate"]}))
+        workers.join(ranks)
+        back = dict(kind="fit", name="fit_back", model_dir=str(tmp / "back"),
+                    exp=dataclasses.replace(exp2, num_epoch=2))
+        workers.join(workers.spawn([back], WORLD, tmp, out))
+        log, _ = torchrun.communicate(timeout=300)
+    finally:
+        torchrun.kill()
     return dict(tmp=tmp, out=out, want=want, one=_epoch_row(one, 0), two_epochs=two_epochs,
-                eval1=eval1, cli=(torchrun.returncode, torchrun.stdout))
+                eval1=eval1, cli=(torchrun.returncode, log))
 
 
 def test_process_slice_matches_jax():

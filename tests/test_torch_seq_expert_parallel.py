@@ -9,9 +9,10 @@ conformer and ``fsdp_partition_specs(base_specs=)`` of it against JAX's
 specs; ``seq_shard_fn`` cutting frames as ``P(data, seq, None)`` places
 them on a ``(data, seq)`` mesh.
 
-The module fixture computes the JAX one-device references of each family
-first (``tests/torch_axes_common.py``), then runs the worlds of 2 and 4
-(``tests/torch_parallel_workers.py``, jax-free), one after the other:
+The module fixture runs the worlds of 2 and 4 one after the other
+(``tests/torch_parallel_workers.py``, jax-free) and computes the JAX
+one-device references of each family (``tests/torch_axes_common.py``)
+while they run:
 
 - sp2 (world 2) for the absolute, relative and rotary + ``left_context``
   conformers and dp2 x sp2 + fsdp (world 4) for the relative one, one SGD
@@ -97,8 +98,9 @@ def _load(out: Path, name: str, world: int) -> list:
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """The JAX references first, then the world of 2 and the world of 4,
-    one after the other."""
+    """The world of 2 started first and the JAX references computed while it
+    runs, then the world of 4 beside the MoE accumulation's reference (never
+    two worlds at once)."""
     tmp = tmp_path_factory.mktemp("sp_ep")
     out = tmp / "out"
     jobs = {2: [], 4: []}
@@ -110,11 +112,13 @@ def world(tmp_path_factory):
     jobs[2].append(step_job("ep2_dropout", "moe", "adam", EP2, "ep", keep=0.9))
     (tmp / "w2").mkdir()
     (tmp / "w4").mkdir()
+    ranks = workers.spawn(jobs[2], 2, tmp / "w2", out)
     for f in FAMILIES:
         reference(f)
+    workers.join(ranks)
+    ranks = workers.spawn(jobs[4], 4, tmp / "w4", out)
     reference("moe", accum=2)
-    for n in (2, 4):
-        workers.join(workers.spawn(jobs[n], n, tmp / f"w{n}", out))
+    workers.join(ranks)
     return dict(tmp=tmp, out=out)
 
 

@@ -8,12 +8,12 @@ Pure tests: ``param_partition_specs`` on every leaf of the toy conformers
 and of a BLSTM, and ``fsdp_partition_specs(base_specs=)`` of them, against
 JAX's specs (the port's spec is ``tuple(PartitionSpec)``).
 
-The module fixture computes the JAX references first (the one-device step
-of each family, ``tests/torch_axes_common.py``; the dp2 x tp2 + fsdp step
-on ``make_mesh_2d(2, 2)``; ``fit`` in one process), then runs the world of 2
-(``tests/torch_parallel_workers.py``, jax-free), the world of 4 and
-``bin/train`` under ``torch.distributed.run``, one after the other, never
-two at once:
+The module fixture starts ``bin/train`` under ``torch.distributed.run``
+and the world of 2 (``tests/torch_parallel_workers.py``, jax-free), computes
+the JAX references while they run (the one-device step of each family,
+``tests/torch_axes_common.py``), then runs the world of 4 beside the dp2 x
+tp2 + fsdp step on ``make_mesh_2d(2, 2)`` and ``fit`` in one process, never
+two worlds at once:
 
 - tp2 (world 2) and tp2 x sp2 (world 4) for the absolute, relative and
   rotary + ``left_context`` conformers, one SGD and one Adam step each,
@@ -135,18 +135,14 @@ def jax_mesh_step():
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    """The JAX references and the one-process fit, then the world of 2, the
-    world of 4 and ``bin/train`` under ``torch.distributed.run``, one after
-    the other."""
+    """``bin/train`` under ``torch.distributed.run`` and the world of 2
+    started first, the JAX one-device references computed while they run;
+    then the world of 4 with the JAX mesh step and the one-process fit beside
+    it (each world and JAX on their own processes)."""
     from torch_axes_common import reference
 
     tmp = tmp_path_factory.mktemp("tp")
     out = tmp / "out"
-    for f in DENSE:
-        reference(f)
-    mesh_step = jax_mesh_step()
-    one = fit(experiment_from_dict(FIT_TP), tmp / "one", log_every=1,
-              print_fn=lambda *a: None, device="cpu")
     jobs2 = [step_job(f"tp2_{f}_{o}", f, o, TP2, "tp") for f in DENSE for o in ("sgd", "adam")]
     jobs2.append(step_job("tp2_dropout", "relative", "adam", TP2, "tp", keep=0.9))
     jobs2.append(dict(kind="fit", name="fit_tp", model_dir=str(tmp / "two"),
@@ -157,19 +153,29 @@ def world(tmp_path_factory):
     jobs4.append(step_job("dp2_tp2_dropout", "rotary", "adam", DP2_TP2, "tp", keep=0.9))
     (tmp / "w2").mkdir()
     (tmp / "w4").mkdir()
-    workers.join(workers.spawn(jobs2, 2, tmp / "w2", out))
-    workers.join(workers.spawn(jobs4, 4, tmp / "w4", out))
     cfg = tmp / "tp.yml"
     cfg.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in
                            dict(FIT_TP, num_model_shards=2).items()))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    cli = subprocess.run(
+    cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
          "-m", "tensorflow_end2end_speech_recognition_tpu_torch.bin.train", str(cfg),
          str(tmp / "cli"), "--device", "cpu"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        timeout=300)
-    return dict(tmp=tmp, out=out, mesh_step=mesh_step, one=one, cli=(cli.returncode, cli.stdout))
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        ranks = workers.spawn(jobs2, 2, tmp / "w2", out)
+        for f in DENSE:
+            reference(f)
+        workers.join(ranks)
+        ranks = workers.spawn(jobs4, 4, tmp / "w4", out)
+        mesh_step = jax_mesh_step()
+        one = fit(experiment_from_dict(FIT_TP), tmp / "one", log_every=1,
+                  print_fn=lambda *a: None, device="cpu")
+        workers.join(ranks)
+        log, _ = cli.communicate(timeout=300)
+    finally:
+        cli.kill()
+    return dict(tmp=tmp, out=out, mesh_step=mesh_step, one=one, cli=(cli.returncode, log))
 
 
 @pytest.mark.parametrize("family", ["absolute", "relative", "moe", "blstm"])
