@@ -1,0 +1,4 @@
+"""Per cent of the traced CTC training window with no operation on the
+card."""
+
+from portbench.readers import idle_share as read  # noqa: F401
